@@ -1,0 +1,1 @@
+"""formats modules of rrs_tpu_torch (see rrs_tpu/formats)."""

@@ -1,0 +1,1 @@
+"""gguf modules of rrs_tpu_torch (see rrs_tpu/gguf)."""

@@ -1,0 +1,1 @@
+"""ops modules of rrs_tpu_torch (see rrs_tpu/ops)."""
