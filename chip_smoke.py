@@ -8,26 +8,43 @@ it; exits non-zero without either, and on any failed phase. Phases:
 
 1. build: compile every kernel in rrs_tpu_torch/csrc with nvcc (parallel,
    one process per source) and print the seconds it took;
-2. kernel parity: each kernel of the generate path against its plain PyTorch
-   version at the qwen3-4b shapes of that path, with the stated tolerance,
-   timed with CUDA events beside its bound, its plain version and one PyTorch
-   library call for the same product; then each kernel's other
-   instantiations and options, untimed;
+2. kernel parity: each kernel of the generate and serving paths against its
+   plain PyTorch version at the qwen3-4b shapes of those paths (a served
+   step's M = 4, and attention over 4 lanes of a 4096-slot cache with a dead
+   lane and a padded row, among them), with the stated tolerance, timed
+   with CUDA events beside its bound, its plain version and one PyTorch
+   library call for the same product (the i8p kernel also against the
+   dequant path, within the JAX bound, and beside ``torch._int_mm`` on
+   pre-decoded int8 weights); then each kernel's other instantiations and
+   options, untimed;
 3. main path: a 2-layer model on the card against the same weights on the
    CPU, then ``generate`` at full qwen3-4b width (36 layers, fabricated TCQ4
-   weights, Q8_0 lm_head) for three greedy requests and one sampled one, with
-   every kernel's launch count read after the run, and a torch.profiler
-   breakdown of a few decode steps;
-4. the ``{"kernels": [...]}`` line, the card's name and power limit, and the
+   weights with their i8p packs, Q8_0 lm_head) for three greedy requests and
+   one sampled one, with every kernel's launch count read after the run, and
+   a torch.profiler breakdown of a few decode steps;
+4. serving: the OpenAI-compatible server in-process at qwen3-4b width with
+   4 slots and a 4096 context, answering concurrent completions (prompts of
+   40 to 2000 tokens, greedy and sampled), a streamed chat, a penalized and a
+   logprobs request; every response must finish by length or stop with the
+   right token count, and every kernel, and the device decode runs, must be
+   launched;
+5. served steps: one 4-lane prefill step (T = 1024, a dead lane) and one
+   4-lane decode step at qwen3-4b width with every kernel launch held to its
+   plain version on the inputs it got; then one greedy device decode run on
+   the 4-lane context against the same tokens fed step by step through
+   ``ctx.decode``;
+6. the ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 GB = 1e9
@@ -96,12 +113,16 @@ class Report:
         self.entry["shapes"].append(shape)
         self.entry["max_abs_err"] = max(self.entry["max_abs_err"], shape["max_abs_err"])
         if headline:
-            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-                self.entry[key] += shape[key]
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "library_int_mm_ms"):
+                if key in shape:
+                    self.entry[key] = self.entry.get(key, 0.0) + shape[key]
+        extra = "".join(f" {k} {shape[k]:.4f}" for k in ("library_int_mm_ms", "dequant_dev")
+                        if k in shape)
+        timed = (f" ms {shape['ms']:.4f} bound {shape['bound_ms']:.4f} ({shape['bound_by']}) "
+                 f"plain {shape['plain_ms']:.4f} library {shape['library_ms']:.4f}"
+                 if "ms" in shape else "")
         print(f"  {self.entry['name']} {shape['shape']}: err {shape['max_abs_err']:.3e} "
-              f"(rel {shape['rel_err']:.2e} <= {shape['tol']:.0e}) ms {shape['ms']:.4f} "
-              f"bound {shape['bound_ms']:.4f} ({shape['bound_by']}) plain {shape['plain_ms']:.4f} "
-              f"library {shape['library_ms']:.4f}", flush=True)
+              f"(rel {shape['rel_err']:.2e} <= {shape['tol']:.0e}){timed}{extra}", flush=True)
 
 
 def compare(name, got, ref, tol):
@@ -138,33 +159,40 @@ def phase_parity(peaks):
 
     reports = {}
 
-    # -- gx2: decode M = 1, all four projections --------------------------
+    # -- gx2: decode M = 1 (generate) and M = 4 (a 4-lane served step) ------
+    # for every projection the route sends to it (gx_viable: not down at M = 4)
     rep = reports["gx2"] = Report("tcq4_matmul_gx2", "rrs_tpu_torch/csrc/tcq4_gx2.cu",
                                   "rrs_tpu/ops/tcq4_matmul.py:1262", "bytes")
     for lname, (k, n) in QWEN3_4B_LINEARS.items():
         wbytes = k // 2 * n + k // 32 * n * 2
         ws = tcq4_weights(k, n, n_copies(wbytes))
-        a = torch.randn((1, k), generator=gen, device=dev)
-        got = tm.tcq4_matmul_gx2(a, *ws[0])
-        ref = tm.tcq4_matmul_gx2_plain(a, *ws[0])
-        err, rel = compare(f"gx2 {lname}", got, ref, 1e-5)
-        wl = [(w[0], tm.dequantize_w(*w).to(torch.bfloat16)) for w in ws[:max(2, n_copies(2 * k * n))]]
-        a16 = a.to(torch.bfloat16)
-        nbytes = wbytes + k * 4 + n * 4
-        rep.add({"shape": f"{lname} M=1 K={k} N={n}", "max_abs_err": err, "rel_err": rel,
-                 "tol": 1e-5,
-                 "ms": time_ms(tm.tcq4_matmul_gx2, [(a, q, e) for q, e in ws], 40),
-                 "plain_ms": time_ms(tm.tcq4_matmul_gx2_plain, [(a, q, e) for q, e in ws], 10),
-                 "library_ms": time_ms(torch.matmul, [(a16, w) for _, w in wl], 40),
-                 "bound_ms": max(ms(nbytes), 2 * k * n / int8_peak * 1e3),
-                 "bound_by": "bytes" if ms(nbytes) >= 2 * k * n / int8_peak * 1e3 else "operations"},
-                headline=True)
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:max(2, n_copies(2 * k * n))]]
+        for m in (1, 4):
+            if not tm.gx_viable(m, k, n):
+                continue
+            a = torch.randn((m, k), generator=gen, device=dev)
+            got = tm.tcq4_matmul_gx2(a, *ws[0])
+            ref = tm.tcq4_matmul_gx2_plain(a, *ws[0])
+            err, rel = compare(f"gx2 {lname} M={m}", got, ref, 1e-5)
+            a16 = a.to(torch.bfloat16)
+            t_bytes = ms(wbytes + m * k * 4 + m * n * 4)
+            t_ops = 2 * m * k * n / int8_peak * 1e3
+            rep.add({"shape": f"{lname} M={m} K={k} N={n}", "max_abs_err": err, "rel_err": rel,
+                     "tol": 1e-5,
+                     "ms": time_ms(tm.tcq4_matmul_gx2, [(a, q, e) for q, e in ws], 40),
+                     "plain_ms": time_ms(tm.tcq4_matmul_gx2_plain, [(a, q, e) for q, e in ws],
+                                         10),
+                     "library_ms": time_ms(torch.matmul, [(a16, w) for w in wl], 40),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
+                    headline=(m == 1))
         del ws, wl
 
-    # -- tcq4_matmul: prefill buckets M = 16, 64, 512 ----------------------
+    # -- tcq4_matmul: the served decode step's M = 4 (the down projection's
+    # route; all four held), and the prefill buckets M = 16, 64, 512 --------
     rep = reports["tcq4"] = Report("tcq4_matmul", "rrs_tpu_torch/csrc/tcq4_matmul.cu",
                                    "rrs_tpu/ops/tcq4_matmul.py:895", "operations")
-    for m in (16, 64, 512):
+    for m in (4, 16, 64, 512):
         for lname, (k, n) in QWEN3_4B_LINEARS.items():
             wbytes = k // 2 * n + k // 32 * n * 2
             ws = tcq4_weights(k, n, n_copies(wbytes))
@@ -187,14 +215,14 @@ def phase_parity(peaks):
                     headline=(m == 512))
             del ws, wl
 
-    # -- q8_matmul: the padded lm_head at M = 1 and 64 ----------------------
+    # -- q8_matmul: the padded lm_head at M = 1, 4 (4 lanes) and 64 ----------
     rep = reports["q8"] = Report("q8_matmul", "rrs_tpu_torch/csrc/q8_matmul.cu",
                                  "rrs_tpu/ops/q8_matmul.py:48", "bytes")
     k, n = 2560, 153600
     qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
     qs_ = torch.rand((k // 32, n), generator=gen, device=dev) * 1e-3
     wl = (qw.float().reshape(k // 32, 32, n) * qs_[:, None]).reshape(k, n).to(torch.bfloat16)
-    for m in (1, 64):
+    for m in (1, 4, 64):
         a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         got = q8.q8_matmul(a, qw, qs_)
         ref = q8.q8_matmul_plain(a, qw, qs_)
@@ -211,53 +239,189 @@ def phase_parity(peaks):
                 headline=(m == 1))
     del qw, qs_, wl
 
-    # -- flash_attention: T = 1 and 64 over S = 384, one padded row ---------
+    # -- flash_attention: generate's T = 1 and 64 over S = 384, and a served
+    # step's 4 lanes over the 4096-slot cache at T = 1 (decode) and T = 1024
+    # (a prefill chunk), lane 3 dead; at T > 1 one row is padded ------------
     rep = reports["fa"] = Report("flash_attention", "rrs_tpu_torch/csrc/flash_attention.cu",
                                  "rrs_tpu/ops/flash_attention.py:343", "bytes")
-    h, hkv, d, s = 32, 8, 128, 384
-    for t in (1, 64):
-        kv_bytes = 2 * hkv * s * d * 2
-        caches = [(torch.randn((1, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16),
-                   torch.randn((1, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16))
+    h, hkv, d = 32, 8, 128
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    sdpa = lambda qq, kk, vv, mm: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qq, kk, vv, attn_mask=mm, scale=scale)
+    # (T, S, each lane's first position (-1: a dead lane), headline)
+    for t, s, starts, headline in ((1, 384, (367,), True), (64, 384, (304,), False),
+                                   (1, 4096, (3999, 1500, 299, -1), False),
+                                   (1024, 4096, (0, 2048, 3000, -1), False)):
+        b = len(starts)
+        kv_bytes = 2 * b * hkv * s * d * 2
+        caches = [(torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16),
+                   torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16))
                   for _ in range(n_copies(kv_bytes))]
-        q = torch.randn((1, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        start = s - t - 16                                  # rows attend most of the cache
-        pos = torch.arange(start, start + t, device=dev, dtype=torch.int32)[None]
+        q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        pos = torch.tensor([[st + i if st >= 0 else -1 for i in range(t)] for st in starts],
+                           device=dev, dtype=torch.int32)
         if t > 1:
-            pos[0, -1] = -1                                 # one padded row
-        scale = 1.0 / math.sqrt(d)
+            pos[min(1, b - 1), -1] = -1                     # one padded row
         got = fa.flash_attention(q, *caches[0], pos, scale)
         ref = fa.attention_ref(q, *caches[0], pos, scale)
-        err, rel = compare(f"flash_attention T={t}", got, ref, 8e-3)
-        if t > 1 and got[0, -1].float().abs().max().item() != 0.0:
-            raise AssertionError("flash_attention: a padded row must output 0")
-        valid = pos[0][pos[0] >= 0].to(torch.int64)
+        label = f"T={t} B={b} S={s}"
+        err, rel = compare(f"flash_attention {label}", got, ref, 8e-3)
+        if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
+            raise AssertionError(f"flash_attention {label}: a padded row must output 0")
+        valid = pos[pos >= 0].to(torch.int64)
         pairs = int((valid + 1).sum().item()) * h          # unmasked (row, slot) pairs
-        slots = int(pos.max().item()) + 1
-        t_bytes = ms(2 * hkv * slots * d * 2 + 2 * t * h * d * 2 + t * 4)
+        slots = sum(int(row.max().item()) + 1 for row in pos if row.max().item() >= 0)
+        t_bytes = ms(2 * hkv * slots * d * 2 + 2 * b * t * h * d * 2 + b * t * 4)
         t_ops = 4 * d * pairs / bf16_peak * 1e3
-        g = h // hkv
-        mask = (torch.arange(s, device=dev)[None, :] <= pos[0][:, None]) & (pos[0][:, None] >= 0)
+        mask = (torch.arange(s, device=dev)[None, None, :] <= pos[:, :, None]) \
+            & (pos[:, :, None] >= 0)
         lib_sets = [(q.transpose(1, 2), kc.repeat_interleave(g, 1), vc.repeat_interleave(g, 1),
-                     mask[None, None]) for kc, vc in caches[:4]]
-        sdpa = lambda qq, kk, vv, mm: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            qq, kk, vv, attn_mask=mm, scale=scale)
-        rep.add({"shape": f"T={t} H={h} Hkv={hkv} D={d} S={s}", "max_abs_err": err,
-                 "rel_err": rel, "tol": 8e-3,
-                 "ms": time_ms(lambda kc, vc: fa.flash_attention(q, kc, vc, pos, scale), caches, 40),
+                     mask[:, None]) for kc, vc in caches[:4]]
+        reps = 40 if t == 1 else (10 if t <= 64 else 3)
+        rep.add({"shape": f"{label} H={h} Hkv={hkv} D={d}" + (" lane 3 dead" if b > 1 else ""),
+                 "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
+                 "ms": time_ms(lambda kc, vc: fa.flash_attention(q, kc, vc, pos, scale), caches,
+                               reps),
                  "plain_ms": time_ms(lambda kc, vc: fa.attention_ref(q, kc, vc, pos, scale),
-                                     caches, 10),
-                 "library_ms": time_ms(sdpa, lib_sets, 40),
+                                     caches, max(2, reps // 4)),
+                 "library_ms": time_ms(sdpa, lib_sets, reps),
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
-                headline=(t == 1))
-        del caches, lib_sets
+                headline=headline)
+        del caches, lib_sets, ref
     torch.cuda.empty_cache()
     return reports
 
 
-SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "q8_matmul": 1e-3,
-             "flash_attention": 8e-3}
+def phase_i8p(peaks, reports):
+    """B5 at the prefill M of the serving and generate paths (n_lanes x
+    bucket: 256 to 4096) for the four qwen3-4b projections: the kernel
+    against its plain version (f32 output rel 1e-5; bf16 output, padded M
+    >= 1024, 8e-3: one bf16 ulp where the sums round to either side) and
+    against the dequant path on the same quantized activations within the
+    JAX bound 0.06 * mean|ref| + 0.02 (tests/test_tcq4_matmul.py:278-310),
+    in f32; timed at M = 512 and 1024."""
+    import torch
+
+    from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    bw, bf16_peak, int8_peak = peaks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ms = lambda b: b / bw * 1e3                             # noqa: E731
+    rep = reports["i8p"] = Report("tcq4_matmul_i8p", "rrs_tpu_torch/csrc/tcq4_i8p.cu",
+                                  "rrs_tpu/ops/tcq4_matmul.py:1107", "operations")
+    rep.entry["library_int_mm_ms"] = 0.0
+    for lname, (k, n) in QWEN3_4B_LINEARS.items():
+        pbytes = k // 2 * n + k // 32 * n + k // 256 * n * 4
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(pbytes))]
+        packs = [tm.pack_i8p(q, e) for q, e in ws]
+        for m in (256, 512, 1024, 4096):
+            a_q = torch.randint(-7, 8, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            a_s = torch.rand((m, k // 256), generator=gen, device=dev) + 0.5
+            a_sbi = tm.prep_a_sbi(a_q)
+            got = tm.tcq4_matmul_i8p(a_sbi, a_s, *packs[0])
+            tol = BF16_OUT_TOL if got.dtype == torch.bfloat16 else 1e-5
+            err, rel = compare(f"i8p {lname} M={m}", got,
+                               tm.tcq4_matmul_i8p_plain(a_sbi, a_s, *packs[0]), tol)
+            # the requant error, held in f32: both kernels on 512-row slices
+            # (their f32-output launches) against the JAX bound
+            rows = range(0, m, 512)
+            dq = torch.cat([tm.tcq4_matmul(dequantize_activations_rrs(a_q[r:r + 512],
+                                                                      a_s[r:r + 512]), *ws[0])
+                            for r in rows])
+            i8 = torch.cat([tm.tcq4_matmul_i8p(a_sbi[r:r + 512], a_s[r:r + 512], *packs[0])
+                            for r in rows])
+            dev_dq = (i8 - dq).abs().max().item()
+            limit = 0.06 * dq.abs().mean().item() + 0.02
+            if dev_dq > limit:
+                raise AssertionError(f"i8p {lname} M={m}: {dev_dq:.4f} from the dequant path "
+                                     f"> 0.06 * mean|ref| + 0.02 = {limit:.4f}")
+            shape = {"shape": f"{lname} M={m} K={k} N={n}", "max_abs_err": err, "rel_err": rel,
+                     "tol": tol, "dequant_dev": dev_dq, "dequant_limit": limit}
+            if m in (512, 1024):
+                out_bytes = m * n * (2 if got.dtype == torch.bfloat16 else 4)
+                t_bytes = ms(pbytes + m * k + m * k // 256 * 4 + out_bytes)
+                t_ops = 2 * m * k * n / int8_peak * 1e3
+                w16 = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:2]]
+                w8 = [tm.decode_w8(*pk[:2]).to(torch.int8).t().contiguous().t()
+                      for pk in packs[:2]]
+                a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
+                shape.update(
+                    ms=time_ms(lambda pk: tm.tcq4_matmul_i8p(a_sbi, a_s, *pk),
+                               [(pk,) for pk in packs], 20),
+                    plain_ms=time_ms(lambda pk: tm.tcq4_matmul_i8p_plain(a_sbi, a_s, *pk),
+                                     [(pk,) for pk in packs[:2]], 3),
+                    library_ms=time_ms(torch.matmul, [(a16, w) for w in w16], 20),
+                    library_int_mm_ms=time_ms(torch._int_mm, [(a_sbi, w) for w in w8], 20),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+                del w16, w8
+            rep.add(shape, headline=(m == 512))
+        del ws, packs
+    torch.cuda.empty_cache()
+
+
+SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "tcq4_matmul_i8p": 1e-5,
+             "q8_matmul": 1e-3, "flash_attention": 8e-3}
+# a bf16 output may land one ulp (2^-8 relative) off where the two sums
+# round to either side of a bf16 step
+BF16_OUT_TOL = 8e-3
+
+
+@contextlib.contextmanager
+def held_to_plain(label: str, expect):
+    """While open, every launch of a kernel on the model's path also runs
+    its plain version on the very inputs it got (teacher forcing) and must
+    agree within SMALL_TOL (BF16_OUT_TOL where the kernel stores bf16).
+    Yields {kernel: (max rel err, set of shapes seen)}; on leaving, every
+    kernel in ``expect`` must have been launched."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.ops import flash_attention as fa
+    from rrs_tpu_torch.ops import q8_matmul as q8
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    hooked = [(tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
+              (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
+              (tm, "tcq4_matmul_i8p", tm.tcq4_matmul_i8p_plain),
+              (q8, "q8_matmul", q8.q8_matmul_plain),
+              (llama, "flash_attention", fa.attention_ref)]
+    originals = [getattr(mod, name) for mod, name, _ in hooked]
+    seen: dict = {}
+
+    def checked(name, kernel, plain):
+        def run(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            ref = plain(*args, **kwargs)
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / max(ref.float().abs().max().item(), 1e-30)
+            tol = BF16_OUT_TOL if out.dtype == torch.bfloat16 else SMALL_TOL[name]
+            shape = tuple(args[0].shape) if name != "flash_attention" else \
+                tuple(args[0].shape[:2]) + (args[1].shape[2],)
+            if not torch.isfinite(out.float()).all() or rel > tol:
+                raise AssertionError(f"{label}: {name} {shape} disagrees with its plain "
+                                     f"version (rel {rel:.3e} > {tol:.0e})")
+            worst, shapes = seen.get(name, (0.0, set()))
+            seen[name] = (max(worst, rel), shapes | {shape})
+            return out
+        return run
+
+    try:
+        for (mod, name, plain), orig in zip(hooked, originals):
+            setattr(mod, name, checked(name, orig, plain))
+        yield seen
+    finally:
+        for (mod, name, _), orig in zip(hooked, originals):
+            setattr(mod, name, orig)
+    if set(expect) - set(seen):
+        raise AssertionError(f"{label}: kernels not reached: {set(expect) - set(seen)}")
 
 
 def phase_variants():
@@ -294,10 +458,8 @@ def phase_variants():
         out_bf16 = m >= 1024
         if got.dtype != (torch.bfloat16 if out_bf16 else torch.float32):
             raise AssertionError(f"tcq4_matmul M={m}: output dtype {got.dtype}")
-        # a bf16 output may land one ulp (2^-8 relative) off where the two
-        # sums round to either side of a bf16 step
         compare(f"tcq4_matmul M={m} N={n}", got, tm.tcq4_matmul_plain(a, qs, eff),
-                8e-3 if out_bf16 else SMALL_TOL["tcq4_matmul"])
+                BF16_OUT_TOL if out_bf16 else SMALL_TOL["tcq4_matmul"])
         done.append(f"tcq4_matmul M={m} N={n} {str(got.dtype)[6:]}")
     cases = {"D=64": dict(d=64), "D=256": dict(d=256), "G=1": dict(h=8, hkv=8),
              "B=2 dead lane": dict(b=2), "window ring": dict(s=64, window=24, start=100),
@@ -353,9 +515,6 @@ def phase_small_reference():
     from rrs_tpu_torch.models import llama
     from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.models.linear import rotate_activations
-    from rrs_tpu_torch.ops import flash_attention as fa
-    from rrs_tpu_torch.ops import q8_matmul as q8
-    from rrs_tpu_torch.ops import tcq4_matmul as tm
     from rrs_tpu_torch.runtime.context import InferenceContext
 
     gen = torch.Generator().manual_seed(2)
@@ -378,30 +537,9 @@ def phase_small_reference():
     models = {"W4A4": llama.fabricated_tcq4_weights(cfg, seed=1, device="cpu"),
               "dense": llama.random_weights(cfg, seed=1, device="cpu")}
     prompt = list(range(7, 47))                              # 40 tokens -> bucket 64
-    worst: dict = {}
-    hooked = [(tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
-              (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
-              (q8, "q8_matmul", q8.q8_matmul_plain),
-              (llama, "flash_attention", fa.attention_ref)]
-    originals = [getattr(mod, name) for mod, name, _ in hooked]
-
-    def checked(name, kernel, plain):
-        def run(*args, **kwargs):
-            out = kernel(*args, **kwargs)
-            ref = plain(*args, **kwargs)
-            err = (out.float() - ref.float()).abs().max().item()
-            rel = err / max(ref.float().abs().max().item(), 1e-30)
-            if not torch.isfinite(out.float()).all() or rel > SMALL_TOL[name]:
-                raise AssertionError(f"small model: {name} {tuple(args[0].shape)} disagrees "
-                                     f"with its plain version (rel {rel:.3e})")
-            worst[name] = max(worst.get(name, 0.0), rel)
-            return out
-        return run
-
     logits = {}
-    try:
-        for (mod, name, plain), orig in zip(hooked, originals):
-            setattr(mod, name, checked(name, orig, plain))
+    # M = 64 < 256: the prefill takes tcq4_matmul, not i8p
+    with held_to_plain("small model", set(SMALL_TOL) - {"tcq4_matmul_i8p"}) as seen:
         for kind, w_cpu in models.items():
             for dev, w in (("cuda", llama.to_device(w_cpu, "cuda")), ("cpu", w_cpu)):
                 ctx = InferenceContext(cfg, w, max_seq=256, device=dev)
@@ -409,13 +547,9 @@ def phase_small_reference():
                 pre = ctx.prefill(seq, prompt)[-1]
                 dec = ctx.decode({seq: 11})[seq]
                 logits[kind, dev] = (pre.float().cpu(), dec.float().cpu())
-    finally:
-        for (mod, name, _), orig in zip(hooked, originals):
-            setattr(mod, name, orig)
-    if set(worst) != set(SMALL_TOL):
-        raise AssertionError(f"small model: kernels not reached: {set(SMALL_TOL) - set(worst)}")
     print("  small model, each launch vs its plain version on the same inputs (max rel): "
-          + ", ".join(f"{k} {v:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in worst.items()), flush=True)
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items()),
+          flush=True)
     for kind in models:
         for i, stage in enumerate(("prefill", "decode")):
             got, ref = logits[kind, "cuda"][i], logits[kind, "cpu"][i]
@@ -454,13 +588,11 @@ def phase_main_path(reports):
     ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "q8": "q8_matmul",
-                "fa": "flash_attention"}
     kernels.reset_launches()
     outs = [ctx.generate(p, 32) for p in prompts]
     outs.append(ctx.generate(prompts[1], 32, SamplerParams(temperature=0.8, top_k=40, seed=0)))
     torch.cuda.synchronize()
-    launches = {key: kernels.LAUNCHES[name] for key, name in counters.items()}
+    launches = {key: kernels.LAUNCHES[name] for key, name in COUNTERS.items()}
     for out in outs:
         if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
             raise AssertionError(f"generate returned {len(out)} tokens: {out}")
@@ -478,11 +610,24 @@ def phase_main_path(reports):
             raise AssertionError(f"kernel {key} was never launched on the main path")
         reports[key].entry["launches"] = n
     profile_decode(ctx, prompts[1])
-    return perf
+    del ctx
+    return cfg, weights
 
 
+COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
+            "q8": "q8_matmul", "fa": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmul",
-                "q8_gemm_kernel": "q8_matmul", "flash_kernel": "flash_attention"}
+                "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
+                "flash_kernel": "flash_attention"}
+
+
+def host_top(prof, steps: int, n: int = 8) -> str:
+    """The host ops with the most self CPU time, in ms per step, with their
+    calls per step (CUDA runtime calls included: a synchronizing call shows
+    here as its own row)."""
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:n]
+    return ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / steps:.2f} "
+                     f"(x{e.count / steps:.0f})" for e in rows)
 
 
 def profile_decode(ctx, prompt, steps: int = 8):
@@ -528,6 +673,299 @@ def profile_decode(ctx, prompt, steps: int = 8):
           f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
           f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / steps:.0f} kernels/step; "
           f"device ms/step by kernel: {split}", flush=True)
+    print(f"  decode profile, host ms/step by op: {host_top(prof, steps)}", flush=True)
+
+
+def synthetic_vocab(n: int):
+    """The char-level gpt2 vocabulary of tests/test_server.py at the model's
+    width: token i is a printable char, or <tok{i}> past U+02FF."""
+    from rrs_tpu_torch.models.vocab import Vocab
+
+    toks = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(n)]
+    return Vocab(model="gpt2", tokens=toks, scores=None, token_types=[1] * n, merges=[],
+                 pre="gpt-2", bos_id=0, eos_id=1, add_bos=False)
+
+
+def _http(port, method, path, body=None, timeout=900):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _union_seconds(intervals) -> float:
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+SERVE_LENGTHS = (40, 300, 1000, 2000)       # prompt tokens, two requests each
+SERVE_NEW = 64
+
+
+def phase_serving(cfg, weights, reports):
+    """The server in-process at qwen3-4b width: ``Engine`` over a 4-lane,
+    4096-token context, ``ServerState`` with a synthetic vocabulary, and
+    ``ThreadingHTTPServer`` on a free port, answering eleven concurrent
+    requests and then one short one alone (its 16-token prefill bucket
+    reaches the dequant kernel). Every response must be 200 and finish by
+    length or stop with the right token count; /metrics and /slots must
+    answer; every kernel and the device decode runs must be launched."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.serving.engine import Engine
+    from rrs_tpu_torch.serving.server import ServerState, make_handler
+
+    ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096)
+    engine = Engine(ctx)
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, "qwen3-4b-fabricated")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    rng = torch.Generator().manual_seed(7)
+    ids = lambda n: torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()  # noqa: E731
+    jobs = []
+    for i, n in enumerate(SERVE_LENGTHS * 2):
+        body = {"prompt": ids(n), "max_tokens": SERVE_NEW, "seed": i}
+        if i < len(SERVE_LENGTHS):
+            body["temperature"] = 0.0          # greedy; the rest take the server defaults
+        jobs.append((f"completion {n} {'greedy' if i < 4 else 'sampled'}", "/v1/completions", body))
+    jobs.append(("penalties", "/v1/completions", {"prompt": ids(120), "max_tokens": SERVE_NEW,
+                                                  "repeat_penalty": 1.1,
+                                                  "frequency_penalty": 0.5}))
+    jobs.append(("logprobs 5", "/v1/completions", {"prompt": ids(60), "max_tokens": 32,
+                                                   "temperature": 0.0, "logprobs": 5}))
+    jobs.append(("chat stream", "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "Say something about GPUs."}],
+        "max_tokens": 48, "stream": True}))
+    results: dict = {}
+
+    def run(job):
+        name, path, body = job
+        t0 = time.perf_counter()
+        status, data = _http(port, "POST", path, body)
+        results[name] = (status, data, t0, time.perf_counter(), body)
+
+    runs0 = engine.n_decode_runs
+    engine.start()
+    server_thread.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("serving: a request did not finish within 900 s")
+        run(("short alone", "/v1/completions", {"prompt": ids(10), "max_tokens": 8,
+                                                 "temperature": 0.0}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = {key: kernels.LAUNCHES[name] for key, name in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated() / GB
+        m_status, metrics = _http(port, "GET", "/metrics")
+        s_status, slots = _http(port, "GET", "/slots")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    if engine._thread.is_alive():
+        raise AssertionError("serving: the engine thread did not stop")
+    if m_status != 200 or b"llamacpp:decode_runs_total" not in metrics or s_status != 200 \
+            or len(json.loads(slots)) != 4:
+        raise AssertionError(f"serving: /metrics {m_status}, /slots {s_status}")
+
+    decode_spans, n_decode = [], 0
+    for name, (status, data, t0, t1, body) in results.items():
+        if status != 200:
+            raise AssertionError(f"serving: {name} answered {status}: {data[:300]!r}")
+        max_new = body["max_tokens"]
+        if body.get("stream"):
+            chunks = [json.loads(line[6:]) for line in data.decode().split("\n")
+                      if line.startswith("data: {")]
+            if not data.rstrip().endswith(b"data: [DONE]") or not chunks:
+                raise AssertionError(f"serving: {name} stream did not end with [DONE]")
+            reason = chunks[-1]["choices"][0]["finish_reason"]
+            print(f"  {name}: {len(chunks) - 1} text chunks, finish {reason}, "
+                  f"{(t1 - t0):.2f} s", flush=True)
+        else:
+            out = json.loads(data)
+            reason = out["choices"][0]["finish_reason"]
+            n_out = out["usage"]["completion_tokens"]
+            if (reason == "length") != (n_out == max_new) or n_out > max_new:
+                raise AssertionError(f"serving: {name} finished by {reason} with {n_out} "
+                                     f"of {max_new} tokens")
+            if "logprobs" in body:
+                # top_logprobs maps decoded text to logprob, so two of the 5
+                # alternatives that decode alike share one key
+                lp = out["choices"][0]["logprobs"]
+                if len(lp["token_logprobs"]) != n_out or not all(
+                        t and all(v <= 0 for v in t.values()) for t in lp["top_logprobs"]):
+                    raise AssertionError(f"serving: {name}: logprobs do not match the tokens")
+            tm = out["timings"]
+            start = t0 + tm["prompt_ms"] / 1e3
+            decode_spans.append((start, start + tm["predicted_ms"] / 1e3))
+            n_decode += max(n_out - 1, 0)
+            print(f"  {name}: prompt {len(body['prompt'])} tok, {n_out} tokens ({reason}), "
+                  f"time to first token {tm['prompt_ms']:.1f} ms, decode "
+                  f"{(n_out - 1) / max(tm['predicted_ms'] / 1e3, 1e-9):.2f} tok/s", flush=True)
+        if reason not in ("length", "stop"):
+            raise AssertionError(f"serving: {name} finished with {reason!r}")
+    runs = engine.n_decode_runs - runs0
+    busy = _union_seconds(decode_spans)
+    print(f"  served {len(results)} requests in {wall:.1f} s; decode tok/s summed over the "
+          f"4 slots {n_decode / busy:.2f} ({n_decode} tokens over {busy:.1f} s with a slot "
+          f"decoding); {runs} device decode runs; peak memory {peak:.2f} GB", flush=True)
+    print(f"  launches on the serving path: {launches}", flush=True)
+    if runs == 0:
+        raise AssertionError("serving: no device decode run was launched")
+    for key, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"serving: kernel {key} was never launched")
+        reports[key].entry["launches_serve"] = n
+    return ctx
+
+
+def phase_served_steps_held(ctx):
+    """A served prefill step and a served decode step at qwen3-4b width on
+    the 4-lane, 4096-slot context, every kernel launch held to its plain
+    version on the very inputs it got: three sequences' chunks of 1000, 700
+    and 40 tokens in one ``prefill_multi`` step (T = 1024: i8p at M = 4096,
+    lane 3 dead), then one decode step of those three lanes (M = 4: gx2,
+    and tcq4_matmul for the down projection)."""
+    import torch
+
+    kv = ctx.kv
+    for seq in [s for s in kv.seq_ids if s is not None]:
+        kv.seq_rm(seq)
+    rng = torch.Generator().manual_seed(5)
+    seqs = [ctx.new_sequence() for _ in range(3)]
+    chunks = {seq: torch.randint(2, ctx.cfg.vocab_size, (n,), generator=rng).tolist()
+              for seq, n in zip(seqs, (1000, 700, 40))}
+    t0 = time.perf_counter()
+    with held_to_plain("served steps", SMALL_TOL) as seen:
+        last = ctx.prefill_multi(chunks)
+        out = ctx.decode({seq: int(last[seq].argmax()) for seq in seqs})
+        torch.cuda.synchronize()
+    for seq in seqs:
+        if not torch.isfinite(out[seq]).all():
+            raise AssertionError(f"served steps: non-finite decode logits for seq {seq}")
+        kv.seq_rm(seq)
+    for name, (worst, shapes) in seen.items():
+        tol = SMALL_TOL[name] if name != "tcq4_matmul_i8p" else BF16_OUT_TOL
+        print(f"  served steps, {name}: every launch within {tol:.0e} of its plain version "
+              f"(max rel {worst:.2e}); shapes {sorted(shapes)}", flush=True)
+    print(f"  served prefill + decode step held to the plain versions in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_decode_run_check(ctx):
+    """One greedy device decode run of DECODE_RUN_STEPS steps on the 4-lane
+    context, then the same tokens fed through ctx.decode one step at a
+    time from the same start lengths: both use the same kernels at the same
+    M on the same card, so only a bookkeeping error can make the tokens
+    differ."""
+    import torch
+
+    from rrs_tpu_torch.runtime.sampler import SamplerParams, topk_candidates
+
+    kv = ctx.kv
+    for seq in [s for s in kv.seq_ids if s is not None]:
+        kv.seq_rm(seq)
+    rng = torch.Generator().manual_seed(11)
+    seqs, first, lengths = [], {}, {}
+    for n in (40, 300, 1000, 100):
+        seq = ctx.new_sequence()
+        logits = ctx.prefill(seq, torch.randint(2, ctx.cfg.vocab_size, (n,),
+                                                generator=rng).tolist(), all_logits=False)
+        seqs.append(seq)
+        first[seq] = int(logits[-1].argmax())
+        lengths[seq] = kv.lengths[kv.lane_of(seq)]
+    n = ctx.DECODE_RUN_STEPS
+    greedy = SamplerParams(temperature=0.0)
+    toks, _ = ctx.decode_run(first, {s: torch.Generator(device=ctx.device).manual_seed(s)
+                                     for s in seqs}, {s: greedy for s in seqs}, n)
+    for seq in seqs:
+        kv.seq_rm(seq, p0=lengths[seq])
+    feed = dict(first)
+    t0 = time.perf_counter()
+    for i in range(n):
+        out = ctx.decode(feed)
+        top = topk_candidates(torch.stack([out[s] for s in seqs]))[1][:, 0].tolist()
+        for seq, t in zip(seqs, top):
+            if t != int(toks[seq][i]):
+                raise AssertionError(f"decode run: lane of seq {seq} step {i}: run token "
+                                     f"{int(toks[seq][i])}, step-by-step {t}")
+        feed = {s: int(toks[s][i]) for s in seqs}
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"  decode_run ({n} steps, 4 lanes, prompts 40/300/1000/100) gives exactly the "
+          f"tokens of step-by-step ctx.decode ({step_ms:.1f} ms per eager step with its "
+          f"readback)", flush=True)
+    profile_decode_run(ctx, seqs, first, lengths)
+    for seq in seqs:
+        kv.seq_rm(seq)
+
+
+def profile_decode_run(ctx, seqs, first, lengths):
+    """Where a served decode step's time goes: one sampled 4-lane device run
+    (the server's default chain) timed by the host clock to its readback,
+    then one more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rrs_tpu_torch.runtime.sampler import SamplerParams
+
+    n = ctx.DECODE_RUN_STEPS
+    params = SamplerParams(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05)
+
+    def run():
+        for seq in seqs:
+            ctx.kv.seq_rm(seq, p0=lengths[seq])
+        gens = {s: torch.Generator(device=ctx.device).manual_seed(s) for s in seqs}
+        h = ctx.decode_run_start(first, gens, {s: params for s in seqs}, n)
+        return h["toks"].cpu()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        print("  decode-run profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    by_name: dict = {}
+    for e in events:
+        short = next((v for k, v in KERNEL_NAMES.items() if k in e.name), "other")
+        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values()) / n
+    split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
+                                                           key=lambda kv: -kv[1]))
+    print(f"  decode-run profile ({n} steps, 4 lanes, S={ctx.kv.max_seq}, sampled): wall "
+          f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
+          f"{1 - dev_ms / wall_ms:.3f}, {len(events) / n:.0f} kernels/step; device ms/step "
+          f"by kernel: {split}", flush=True)
+    print(f"  decode-run profile, host ms/step by op: {host_top(prof, n)}", flush=True)
 
 
 def main() -> int:
@@ -546,22 +984,32 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    print("[1/4] build", flush=True)
+    print("[1/6] build", flush=True)
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[2/4] kernel parity at the qwen3-4b main-path shapes", flush=True)
+    print("[2/6] kernel parity at the qwen3-4b main-path shapes", flush=True)
     reports = phase_parity(peaks)
+    phase_i8p(peaks, reports)
     phase_variants()
 
-    print("[3/4] main path: small-model reference, then generate at qwen3-4b width",
+    print("[3/6] main path: small-model reference, then generate at qwen3-4b width",
           flush=True)
     phase_small_reference()
-    phase_main_path(reports)
+    cfg, weights = phase_main_path(reports)
 
-    print("[4/4] summary", flush=True)
+    print("[4/6] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
+    ctx = phase_serving(cfg, weights, reports)
+
+    print("[5/6] served steps held to the plain versions; device decode run against "
+          "step-by-step decode", flush=True)
+    phase_served_steps_held(ctx)
+    phase_decode_run_check(ctx)
+    del ctx, weights
+
+    print("[6/6] summary", flush=True)
     print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

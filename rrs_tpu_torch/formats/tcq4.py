@@ -142,7 +142,10 @@ def quantize_activations_rrs(x_rot: torch.Tensor):
     xb = x_rot.reshape(*lead, k // TILE_K, TILE_K).to(torch.float32)
     amax = xb.abs().amax(dim=-1)
     amax = torch.where(amax < SCALE_EPS, torch.ones_like(amax), amax)
-    q = torch.round(xb * (7.0 / amax)[..., None])
+    # a true division, as jnp and the gx2 kernel compute 7 / amax: torch's
+    # ``7.0 / tensor`` is 7 * (1 / amax), one rounding more, and can move a
+    # code across a half-way point
+    q = torch.round(xb * torch.div(torch.full_like(amax, 7.0), amax)[..., None])
     q = q.clamp(-7, 7).to(torch.int8)
     return q.reshape(*lead, k), amax
 

@@ -34,6 +34,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "rrs_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _I, _P],
@@ -41,8 +42,8 @@ SIGNATURES = {
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its
 # kernel and nowhere else (the plain CPU versions launch nothing).
-LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "q8_matmul": 0,
-                            "flash_attention": 0}
+LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul_i8p": 0,
+                            "q8_matmul": 0, "flash_attention": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

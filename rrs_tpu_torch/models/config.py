@@ -106,4 +106,9 @@ PRESETS: dict[str, ModelConfig] = {
         head_dim=128, n_ff=14336, vocab_size=128256, context_length=8192,
         rope_theta=500000.0, rope_neox=False,
     ),
+    "tiny": ModelConfig(
+        arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, n_ff=512, vocab_size=512, context_length=1024,
+        qk_norm=True, tie_embeddings=True,
+    ),
 }

@@ -2,15 +2,20 @@
 
 Port of ``rrs_tpu/models/linear.py``: the layer dataclasses, the N-pad
 policy, ``fuse_linears``, the activation rotation, the route by M between
-the two TCQ4 kernels, and ``linear_apply``. The straight-through backward
-waits for the training slice; the int8-superblock prefill pack (``i8p``) is
-not carried, so every M that gx2 does not take goes to ``tcq4_matmul``, the
-JAX package's behaviour under ``RRS_PREFILL_I8=0``.
+the TCQ4 kernels, and ``linear_apply``. The straight-through backward
+waits for the training slice.
+
+A TCQ4 linear carries the int8-superblock prefill pack (``i8p``) unless
+``RRS_PREFILL_I8=0``, the JAX package's switch; with it every M >= 256 goes to
+``tcq4_matmul_i8p``. JAX's route skips that kernel in interpret mode, so its
+CPU forward never takes it; the port follows the production rule on every
+device, and its CPU tests hold the i8p route to JAX at the kernel level.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -51,6 +56,9 @@ class TCQ4Linear:
     eff: torch.Tensor                 # bf16 [K//32, N] effective group scales
     gather: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
+    # int8-superblock prefill pack (ops/tcq4_matmul.py pack_i8p): (qs_sbi u8
+    # [K//2, N], f8 i8 [K//32, N], e2 f32 [K//256, N]), about 2x the TCQ4 bytes
+    i8p: Optional[tuple] = None
 
     @property
     def shape(self):
@@ -63,12 +71,21 @@ class TCQ4Linear:
             gather = torch.as_tensor(np.asarray(t.perm, np.int64) % 256, device=device)
         # eff at bf16: its rounding (<= 0.4%) is far below the int4 noise
         eff = torch.from_numpy(effective_scales(t).astype(np.float32)).to(torch.bfloat16)
+        qs = torch.from_numpy(np.ascontiguousarray(t.qs)).to(device)
+        eff = eff.to(device)
         return cls(
-            qs=torch.from_numpy(np.ascontiguousarray(t.qs)).to(device),
-            eff=eff.to(device),
+            qs=qs,
+            eff=eff,
             gather=gather,
             bias=None if bias is None else torch.as_tensor(bias, device=device),
+            i8p=tcq4_mm.pack_i8p(qs, eff) if want_i8p() else None,
         )
+
+
+def want_i8p() -> bool:
+    """Whether TCQ4 linears carry the i8p pack: ``RRS_PREFILL_I8`` as the JAX
+    package reads it (rrs_tpu/models/linear.py:88), on unless set to 0."""
+    return os.environ.get("RRS_PREFILL_I8", "1") != "0"
 
 
 def _pad_n(a: np.ndarray, mult: int = 0) -> np.ndarray:
@@ -157,6 +174,8 @@ def fuse_linears(layers: list):
         )
         if not same:
             return None    # different perms cannot share one rotation
+        # the fused layer drops the i8p pack, as the JAX fuse_linears does
+        # (rrs_tpu/models/linear.py:247-252): its prefill takes tcq4_matmul
         return TCQ4Linear(
             qs=torch.cat([l.qs for l in layers], dim=1),
             eff=torch.cat([l.eff for l in layers], dim=1),
@@ -201,14 +220,17 @@ def rotate_activations(x: torch.Tensor, gather: Optional[torch.Tensor]) -> torch
     return rot.reshape(*lead, k)
 
 
-def _tcq4_matmul_route_rot(rot: torch.Tensor, qs: torch.Tensor,
-                           eff: torch.Tensor) -> torch.Tensor:
+def _tcq4_matmul_route_rot(rot: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
+                           i8p: Optional[tuple] = None) -> torch.Tensor:
     """Decode-sized M takes gx2 (activation quant fused into the kernel);
-    every other M quantizes, dequantizes and runs the dequant kernel."""
+    prefill M >= 256 with a pack takes the int8-superblock kernel; every
+    other M quantizes, dequantizes and runs the dequant kernel."""
     m, k = rot.shape
     if tcq4_mm.gx_viable(m, k, qs.shape[1]):
         return tcq4_mm.tcq4_matmul_gx2(rot, qs, eff)
     a_q, a_s = quantize_activations_rrs(rot)
+    if i8p is not None and m >= 256:
+        return tcq4_mm.tcq4_matmul_i8p(tcq4_mm.prep_a_sbi(a_q), a_s, *i8p)
     a = dequantize_activations_rrs(a_q, a_s)
     return tcq4_mm.tcq4_matmul(a, qs, eff)
 
@@ -237,7 +259,7 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
             y = y[:, : layer.n_logical]
     elif isinstance(layer, TCQ4Linear):
         rot = rotate_activations(x2, layer.gather)
-        y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff)
+        y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff, layer.i8p)
     else:
         raise TypeError(f"unknown linear layer {type(layer)}")
     if layer.bias is not None:

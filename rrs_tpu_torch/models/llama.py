@@ -24,6 +24,7 @@ from rrs_tpu_torch.models.linear import (
     TCQ4Linear,
     linear_apply,
     n_pad_width,
+    want_i8p,
 )
 from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
 from rrs_tpu_torch.ops.flash_attention import flash_attention
@@ -144,17 +145,21 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
-            v_caches: list, mask_positions, cache_slots, last_idx=None) -> torch.Tensor:
+            v_caches: list, mask_positions, cache_slots, last_idx=None,
+            starts: Optional[list] = None) -> torch.Tensor:
     """One decode/prefill step; returns logits [B, T, V] f32 (or [B, 1, V]
     with ``last_idx``). The index inputs ([B, T] int tokens, positions,
     mask positions (-1 = padded row) and cache slots) may live on the host:
     the K/V store reads its start slots there, and the rest is copied to the
-    weights' device. The caches are updated in place."""
+    weights' device. A caller whose indices already live on the device passes
+    the per-lane store ``starts`` (host ints) instead, so that nothing is
+    read back. The caches are updated in place."""
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
     s_l = k_caches[0].shape[2]
-    starts = _store_starts(cache_slots, mask_positions, s_l, tokens.shape[1])
+    if starts is None:
+        starts = _store_starts(cache_slots, mask_positions, s_l, tokens.shape[1])
     mask_dev = torch.as_tensor(mask_positions).to(dev)
     x = embed_rows(w.embed, tokens)
     for li, lw in enumerate(w.layers):
@@ -214,20 +219,24 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
     """Structurally valid random TCQ4 weights drawn directly (no quantizer),
     on the device from a seeded ``torch.Generator``: fused qkv and gate-up
     projections with uniform qs bytes and bf16
-    eff in [0.001, 0.011), a Q8 lm_head padded by ``n_pad_width`` with f32
-    scales in [0, 0.001). For throughput runs, where the compute cost is what
-    matters and the weight values are not."""
+    eff in [0.001, 0.011), each with its i8p pack unless ``RRS_PREFILL_I8=0``
+    (as the JAX package packs them, at their fused widths), a Q8 lm_head padded
+    by ``n_pad_width`` with f32 scales in [0, 0.001). For throughput runs,
+    where the compute cost is what matters and the weight values are not."""
     from rrs_tpu_torch.device import resolve_device
+
+    from rrs_tpu_torch.ops.tcq4_matmul import pack_i8p
 
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    packed = want_i8p()
 
     def qlin(k, n):
         qs = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
         eff = (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
                ).to(torch.bfloat16)
-        return TCQ4Linear(qs=qs, eff=eff)
+        return TCQ4Linear(qs=qs, eff=eff, i8p=pack_i8p(qs, eff) if packed else None)
 
     e, hq, hkv, d, f = cfg.n_embd, cfg.n_q_dim, cfg.n_kv_dim, cfg.head_dim, cfg.n_ff
     ones = lambda n: torch.ones((n,), dtype=dtype, device=dev)   # noqa: E731
@@ -281,13 +290,15 @@ def _linear_from_numpy(d, device):
         return None
     bias = _tensor(d.get("bias"), device)
     if "qs" in d:
-        if d.get("i8p") is not None:
-            raise NotImplementedError("the i8p prefill pack is not ported to rrs_tpu_torch")
         gather = d.get("gather")
+        i8p = d.get("i8p")
+        if i8p is not None:
+            i8p = (_tensor(i8p[0], device), _tensor(i8p[1], device),
+                   _tensor(i8p[2], device, torch.float32))
         return TCQ4Linear(
             qs=_tensor(d["qs"], device), eff=_tensor(d["eff"], device, torch.bfloat16),
             gather=None if gather is None else _tensor(gather, device, torch.int64),
-            bias=bias)
+            bias=bias, i8p=i8p)
     if "q" in d:
         return Q8Linear(q=_tensor(d["q"], device), scale=_tensor(d["scale"], device),
                         bias=bias, n_logical=int(d.get("n_logical", 0) or 0),
@@ -306,7 +317,8 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     plain nested dict of NumPy arrays keyed by the JAX dataclass field names:
     ``embed`` (an array, or a (q, scale) pair), ``final_norm``, ``lm_head``
     and ``layers[i]`` with ``attn_norm``, ``wqkv`` ({qs, eff, gather, bias}),
-    ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), and so on.
+    ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), and so on;
+    a TCQ4 linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None.
     Fields this dense slice does not carry (MoE, MLA, sinks, sandwich norms)
     must be None."""
     from rrs_tpu_torch.device import resolve_device

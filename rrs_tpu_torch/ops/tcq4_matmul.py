@@ -1,14 +1,15 @@
 """TCQ4 W4A4 matmuls: the decode kernel with fused activation quantization
-(gx2) and the prefill dequant kernel, each beside its plain PyTorch version.
+(gx2), the prefill dequant kernel and the int8-superblock prefill kernel
+(i8p), each beside its plain PyTorch version.
 
 Port of ``rrs_tpu/ops/tcq4_matmul.py``. Weights are K-major (see
 ``formats/tcq4.py``): qs uint8 [K//2, N], eff bf16 [K//32, N] (the effective
 group scale fp32(fp16(S)) * sc / 127, rounded to bf16 on the device).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_matmul.cu``)
-or raises; it never falls back. Each launch is counted in
-``kernels.LAUNCHES``.
+tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_matmul.cu``,
+``csrc/tcq4_i8p.cu``) or raises; it never falls back. Each launch is counted
+in ``kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -159,3 +160,109 @@ def tcq4_matmul_ref(a_q, a_scale, qs, eff):
     per_sb = (prod.to(torch.float32) * eff.cpu().to(torch.float32)[None]).reshape(
         m, k // TILE_K, GROUPS, n).sum(2)
     return (per_sb * a_scale.to(torch.float32)[:, :, None]).sum(1) * (1.0 / 7.0)
+
+
+# ---------------------------------------------------------------------------
+# Prefill: int8 superblock requant (rrs_tpu/ops/tcq4_matmul.py:1107)
+#
+# The weights are requantized once at load to one int8 value per element with
+# one f32 scale per 256-superblock and column:
+#     f[g, n] = round(e[g, n] / emax[sb, n] * 127)     (int8, f8)
+#     w8      = (w4 * f + 4) >> 3                      in [-127, 127]
+#     w      ~= w8 * e2[sb, n],  e2 = emax * 8 / 127
+# so each superblock is one exact int8 dot and a rank-1 f32 epilogue. The
+# pack stores each superblock group-interleaved ("sbi": in-block row j*8+g
+# holds logical element g*32+j), and the activations are permuted to match.
+# ---------------------------------------------------------------------------
+
+I8P_BM = 512          # the row tile the JAX route asks for (linear.py:402-403)
+
+
+def pack_i8p(qs: torch.Tensor, eff: torch.Tensor):
+    """One-time load transform of (qs, eff) in the sb layout into (qs_sbi u8
+    [K//2, N], f8 i8 [K//32, N] in sbi group order, e2 f32 [K//256, N]),
+    bit-equal to the JAX ``pack_i8p`` (e2 to f32 rounding)."""
+    k2, n = qs.shape
+    sb = 2 * k2 // TILE_K
+    b = qs.reshape(sb, TILE_K // 2, n)
+    codes = torch.cat([b & 15, b >> 4], dim=1)                       # [sb, 256, n]
+    ci = codes.reshape(sb, GROUPS, GROUP_SIZE, n).transpose(1, 2).reshape(sb, TILE_K, n)
+    qs_sbi = (ci[:, :TILE_K // 2] | (ci[:, TILE_K // 2:] << 4)).reshape(k2, n).contiguous()
+    e3 = eff.reshape(sb, GROUPS, n).to(torch.float32)
+    emax = e3.abs().amax(dim=1)                                      # [sb, n]
+    emax = torch.where(emax > 0, emax, torch.ones_like(emax))
+    f8 = torch.round(e3 / emax[:, None, :] * 127.0).to(torch.int8).reshape(sb * GROUPS, n)
+    return qs_sbi, f8.contiguous(), (emax * (8.0 / 127.0)).contiguous()
+
+
+def prep_a_sbi(a_q: torch.Tensor) -> torch.Tensor:
+    """Permute int8 activation columns into the kernel's sbi order."""
+    m, k = a_q.shape
+    return a_q.reshape(m, k // TILE_K, GROUPS, GROUP_SIZE).transpose(2, 3).reshape(m, k) \
+        .contiguous()
+
+
+def i8p_out_bf16(m: int) -> bool:
+    """The TPU kernel stores bf16 once its padded M reaches 1024, with
+    m_pad = round_up(m, min(512, round_up(m, 8))) at the route's bm=512 (the
+    VMEM loop that may halve bm is a TPU limit and is not carried)."""
+    return _round_up(m, min(I8P_BM, _round_up(m, 8))) >= 1024
+
+
+def _check_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> tuple[int, int, int]:
+    m, k = a_sbi.shape
+    n = qs_sbi.shape[1]
+    if (k % TILE_K or a_scale.shape != (m, k // TILE_K) or qs_sbi.shape != (k // 2, n)
+            or f8.shape != (k // GROUP_SIZE, n) or e2.shape != (k // TILE_K, n)):
+        raise ValueError(f"i8p shapes: a {tuple(a_sbi.shape)}, a_scale {tuple(a_scale.shape)}, "
+                         f"qs_sbi {tuple(qs_sbi.shape)}, f8 {tuple(f8.shape)}, "
+                         f"e2 {tuple(e2.shape)}")
+    return m, k, n
+
+
+def decode_w8(qs_sbi: torch.Tensor, f8: torch.Tensor) -> torch.Tensor:
+    """[K//2, N] sbi pack + [K//32, N] f8 -> int32 w8 [K, N] in sbi row order
+    (row r of a superblock takes f8 row r % 8)."""
+    k2, n = qs_sbi.shape
+    sb = 2 * k2 // TILE_K
+    q = qs_sbi.reshape(sb, TILE_K // 2, n).to(torch.int32)
+    w4 = torch.cat([(q << 28) >> 28, (q << 24) >> 28], dim=1)             # [sb, 256, n]
+    fx = f8.reshape(sb, GROUPS, n).to(torch.int32).repeat(1, TILE_K // GROUPS, 1)
+    return ((w4 * fx + 4) >> 3).reshape(2 * k2, n)
+
+
+def tcq4_matmul_i8p_plain(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
+    """The requantized arithmetic per superblock, in the JAX kernel's order:
+    acc += p * (e2 * (a_scale / 7)). Each superblock's product is at most
+    7 * 127 * 256 < 2^24, so the f32 matmul of the integer operands is exact
+    (as on the card, where integer matmuls do not run)."""
+    m, k, n = _check_i8p(a_sbi, a_scale, qs_sbi, f8, e2)
+    w8 = decode_w8(qs_sbi, f8).to(torch.float32)
+    a = a_sbi.to(torch.float32)
+    ascale7 = a_scale.to(torch.float32) * (1.0 / 7.0)
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a_sbi.device)
+    for sb in range(k // TILE_K):
+        p = a[:, sb * TILE_K:(sb + 1) * TILE_K] @ w8[sb * TILE_K:(sb + 1) * TILE_K]
+        acc += p * (e2[sb:sb + 1, :] * ascale7[:, sb:sb + 1])
+    return acc.to(torch.bfloat16) if i8p_out_bf16(m) else acc
+
+
+def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
+    """Prefill C = (a_sbi / 7 * a_scale) @ dequant(w) on the int8 tensor
+    cores. a_sbi int8 [M, K] in sbi order, a_scale f32 [M, K//256] (the
+    per-block absmax). f32 [M, N], or bf16 when the padded M reaches 1024."""
+    if a_sbi.device.type == "cpu":
+        return tcq4_matmul_i8p_plain(a_sbi, a_scale, qs_sbi, f8, e2)
+    m, k, n = _check_i8p(a_sbi, a_scale, qs_sbi, f8, e2)
+    if (a_sbi.dtype != torch.int8 or a_scale.dtype != torch.float32 or qs_sbi.dtype != torch.uint8
+            or f8.dtype != torch.int8 or e2.dtype != torch.float32):
+        raise TypeError("tcq4_matmul_i8p: needs int8 a_sbi, f32 a_scale, uint8 qs_sbi, "
+                        "int8 f8, f32 e2")
+    dev = kernels.check_tensors("tcq4_matmul_i8p", a_sbi, a_scale, qs_sbi, f8, e2)
+    out_bf16 = i8p_out_bf16(m)
+    out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_i8p(
+        a_sbi.data_ptr(), a_scale.data_ptr(), qs_sbi.data_ptr(), f8.data_ptr(), e2.data_ptr(),
+        out.data_ptr(), m, k, n, int(out_bf16), kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_i8p", code)
+    return out

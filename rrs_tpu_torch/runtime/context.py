@@ -1,16 +1,27 @@
-"""Inference context: the prefill / decode loop.
+"""Inference context: the prefill / decode loop and the serving decode runs.
 
 Port of the single-device part of ``rrs_tpu/runtime/context.py``
 (``PREFILL_BUCKETS``, ``_step``, ``_run``, ``new_sequence``, ``prefill``,
-``decode``, ``generate``, ``perf``). PyTorch runs eagerly, so the bucketed
-chunk lengths no longer pick a compiled program; they are kept so that every
-matmul sees the M the JAX package gives it and routes to the same kernel.
-The mesh, the device-side ``decode_run`` and the serving paths wait for
-their slices.
+``prefill_logprobs``, ``prefill_multi``, ``decode``, the device-side
+``decode_run_start`` / ``decode_run`` with their penalty operands and
+eviction schedule, ``generate``, ``perf``). PyTorch runs eagerly, so the
+bucketed chunk lengths no longer pick a compiled program; they are kept so
+that every matmul sees the M the JAX package gives it and routes to the same
+kernel.
+
+The JAX decode run is one jitted ``lax.scan`` of N forward + sample steps.
+Here it is a Python loop of N steps with the same rules: tokens, counts,
+mirostat mu and the DRY ring stay on the device; positions and cache slots
+come from the known host lengths (start + i), uploaded once per run, so the
+loop reads nothing back; the run is read back once, when the caller reads
+the handle; a chained run starts from the previous handle's device outputs.
+The mesh, embeddings, the grammar token-DFA in the run and the multimodal
+prefill wait for their slices.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -20,6 +31,7 @@ import torch
 from rrs_tpu_torch.device import resolve_device, set_matmul_precision
 from rrs_tpu_torch.models import llama as llama_model
 from rrs_tpu_torch.models.config import ModelConfig
+from rrs_tpu_torch.runtime import sampler as smp
 from rrs_tpu_torch.runtime.kv_cache import KVCache
 from rrs_tpu_torch.runtime.sampler import SamplerParams, sample
 
@@ -75,27 +87,37 @@ class InferenceContext:
 
     @staticmethod
     def _step(cfg, weights, kv: KVCache, tokens: np.ndarray, start_pos: np.ndarray,
-              last_only: bool = False) -> torch.Tensor:
+              last_only: bool = False, last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
         """tokens [B, T] (-1 = padding); start_pos [B] (-1 = lane not in this
         step). Builds the causal positions and cache slots on the host and
         runs the forward; padded lanes attend nothing and park their cache
-        writes at the top of the cache."""
+        writes at the top of the cache. ``last_only`` / ``last_idx`` [B]: only
+        the final / the given position of each lane reaches the lm_head."""
         b, t = tokens.shape
         s = kv.max_seq
         pos = start_pos[:, None].astype(np.int32) + np.arange(t, dtype=np.int32)[None, :]
         mask_pos = np.where(start_pos[:, None] < 0, -1, pos).astype(np.int32)
         safe_tokens = np.maximum(tokens, 0).astype(np.int64)
         safe_slots = np.where(start_pos[:, None] < 0, s - 1, np.clip(pos, 0, s - 1))
-        last_idx = np.full((b,), t - 1, np.int64) if last_only else None
+        if last_only and last_idx is None:
+            last_idx = np.full((b,), t - 1, np.int64)
         return llama_model.forward(
             cfg, weights, torch.from_numpy(safe_tokens), torch.from_numpy(pos),
             kv.k, kv.v, torch.from_numpy(mask_pos), torch.from_numpy(safe_slots),
             last_idx=last_idx)
 
-    def _run(self, tokens_np: np.ndarray, start_pos_np: np.ndarray,
-             last_only: bool = False) -> torch.Tensor:
+    def _run(self, tokens_np: np.ndarray, start_pos_np: np.ndarray, last_only: bool = False,
+             last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
         return self._step(self.cfg, self.weights, self.kv, tokens_np, start_pos_np,
-                          last_only=last_only)
+                          last_only=last_only, last_idx=last_idx)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the context's device without waiting for
+        the device: pinned memory and an asynchronous copy on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def new_sequence(self) -> int:
         seq_id = self._next_seq_id
@@ -136,6 +158,70 @@ class InferenceContext:
         return torch.cat(out, dim=0)
 
     @torch.inference_mode()
+    def prefill_logprobs(self, seq_id: int, tokens: list[int],
+                         targets: list[int]) -> np.ndarray:
+        """Prefill the tokens and return log p(targets[i] | tokens[..i]) as
+        float64 [T], with the log-softmax and the gather on the device (the
+        readback is [T] floats, not [T, V] logits)."""
+        if len(targets) != len(tokens):
+            raise ValueError(f"{len(targets)} targets for {len(tokens)} tokens")
+        lane = self.kv.lane_of(seq_id)
+        b = self.kv.n_lanes
+        out = []
+        i = 0
+        while i < len(tokens):
+            chunk = tokens[i: i + self.max_chunk]
+            t = min(_bucket(len(chunk)), self.max_chunk)
+            tok = np.full((b, t), -1, np.int32)
+            tgt = np.zeros((b, t), np.int64)
+            start = np.full((b,), -1, np.int32)
+            tok[lane, : len(chunk)] = chunk
+            tgt[lane, : len(chunk)] = targets[i: i + len(chunk)]
+            start[lane] = self.kv.lengths[lane]
+            t0 = time.perf_counter()
+            logits = self._run(tok, start)
+            tg = torch.from_numpy(tgt).to(logits.device)
+            lp = torch.gather(logits, -1, tg[:, :, None])[:, :, 0] - torch.logsumexp(logits, -1)
+            out.append(lp[lane, : len(chunk)].to(torch.float64).cpu().numpy())
+            self.t_prefill_s += time.perf_counter() - t0
+            self.kv.lengths[lane] += len(chunk)
+            self.n_prefill_tokens += len(chunk)
+            i += len(chunk)
+        return np.concatenate(out, axis=0)
+
+    @torch.inference_mode()
+    def prefill_multi(self, chunks: dict[int, list[int]]) -> dict[int, torch.Tensor]:
+        """Several sequences' prompt chunks in one bucketed step, each lane's
+        final position gathered before the lm_head. Each chunk must fit
+        max_chunk. Returns the final-position logits [V] per sequence."""
+        if not chunks:
+            raise ValueError("prefill_multi: no chunks")
+        b = self.kv.n_lanes
+        t = min(_bucket(max(len(c) for c in chunks.values())), self.max_chunk)
+        tok = np.full((b, t), -1, np.int32)
+        start = np.full((b,), -1, np.int32)
+        last = np.zeros((b,), np.int64)
+        lanes = {}
+        for seq_id, c in chunks.items():
+            if not 0 < len(c) <= t:
+                raise ValueError(f"prefill_multi: chunk of {len(c)} tokens for a {t} step")
+            lane = self.kv.lane_of(seq_id)
+            lanes[seq_id] = lane
+            tok[lane, : len(c)] = c
+            start[lane] = self.kv.lengths[lane]
+            last[lane] = len(c) - 1
+        t0 = time.perf_counter()
+        logits = self._run(tok, start, last_idx=last)
+        out = {}
+        for seq_id, c in chunks.items():
+            self.kv.lengths[lanes[seq_id]] += len(c)
+            self.n_prefill_tokens += len(c)
+            out[seq_id] = logits[lanes[seq_id], 0]
+        self._sync()
+        self.t_prefill_s += time.perf_counter() - t0
+        return out
+
+    @torch.inference_mode()
     def decode(self, seq_tokens: dict[int, int]) -> dict[int, torch.Tensor]:
         """One batched decode step: {seq_id: token} -> {seq_id: logits [V]}."""
         b = self.kv.n_lanes
@@ -157,6 +243,234 @@ class InferenceContext:
         self._sync()
         self.t_decode_s += time.perf_counter() - t0
         return out
+
+    # -- device-side multi-token decode (the serving fast path) ------------
+
+    # tokens per run; the engine rewinds the overshoot past a stop. 24 keeps
+    # slots with the default penalty_last_n = 64 on the fast path (chained
+    # runs need last_n >= 2n, see the engine's _fast_eligible)
+    DECODE_RUN_STEPS = int(os.environ.get("RRS_DECODE_RUN_STEPS", "24"))
+
+    @torch.inference_mode()
+    def decode_run_start(self, seq_tokens: dict, keys: dict, params: dict, n_steps: int = 0,
+                         chain: Optional[dict] = None, histories: Optional[dict] = None,
+                         mus: Optional[dict] = None, dfa=None) -> dict:
+        """Enqueue (without waiting) an n_steps decode + sample run. Feeds each
+        sequence's pending token and samples n_steps tokens per lane on the
+        device; lane lengths advance by n_steps (the final sampled token is
+        not fed), and callers rewind with seq_rm when they accept fewer.
+
+        ``keys``: one ``torch.Generator`` per sequence, on this context's
+        device; its state advances with the run's draws. ``chain``: a
+        previous run's handle, whose device outputs (last tokens, counts, mu,
+        DRY ring) and operands this run starts from. ``histories``: each
+        sequence's generated tokens, for the penalty counts of a fresh run
+        and the per-step eviction schedule that slides the penalty window
+        (callers keep penalty_last_n >= 2 * n_steps for chained runs).
+        ``mus``: mirostat-v2 mu per sequence. Returns the handle; its tensors
+        stay on the device until the caller reads them."""
+        if dfa is not None:
+            raise NotImplementedError("grammar token-DFA decode runs wait for the grammar "
+                                      "slice (ROADMAP A6)")
+        n = n_steps or self.DECODE_RUN_STEPS
+        b, dev = self.kv.n_lanes, self.device
+        if chain is not None:
+            feats = chain["feats"]
+            lanes = dict(chain["lanes"])
+            start = [st + chain["n"] if st >= 0 else st for st in chain["start"]]
+            tok = chain["toks"][:, -1]
+            gens = chain["gens"]
+            ops = chain["ops"]
+            counts, mu, dwin = chain["counts"], chain["mu"], chain["dwin"]
+            evict = self._evict_schedule(histories, lanes, chain.get("params", {}), n,
+                                         offset=chain["n"])
+        else:
+            feats = (any(p.xtc_probability > 0 for p in params.values()),
+                     any(p.mirostat for p in params.values()),
+                     any(p.typical_p < 1.0 for p in params.values()),
+                     any(p.top_n_sigma > 0 for p in params.values()),
+                     any(p.dry_multiplier > 0 for p in params.values()))
+            lanes, start, tok, gens, ops, mu, dwin = self._run_operands(
+                seq_tokens, keys, params, histories, mus)
+            rep, frq, prs, counts, bias = self._penalty_operands(lanes, params, histories)
+            ops.update(rep=rep, frq=frq, prs=prs, bias=bias)
+            evict = self._evict_schedule(histories, lanes, params, n, offset=0)
+        xtc, mir, typ, sig, dry = feats
+        s = self.kv.max_seq
+        pos = np.array([[st + i if st >= 0 else -1 for st in start] for i in range(n)],
+                       np.int32)                                           # [n, B]
+        pos_dev = self._upload(pos)
+        live = self._upload(np.asarray(start, np.int32) >= 0)
+        ones = torch.ones((b, 1), dtype=torch.float32, device=dev)
+
+        t0 = time.perf_counter()
+        out, cvs, cis = [], [], []
+        for i in range(n):
+            starts = [int(p) if p >= 0 else s - 1 for p in pos[i]]
+            pcol = pos_dev[i][:, None]
+            logits = llama_model.forward(self.cfg, self.weights, tok[:, None], pcol,
+                                         self.kv.k, self.kv.v, pcol, None, starts=starts)
+            lg = smp.device_penalties(logits[:, 0, :].to(torch.float32), counts, ops["rep"],
+                                      ops["frq"], ops["prs"], ops["bias"])
+            if xtc:
+                lg = smp.device_xtc(lg, gens, ops["temp"], ops["xtc_p"], ops["xtc_t"])
+            if sig:
+                lg = smp.device_top_n_sigma(lg, ops["nsig"])
+            cv, ci = smp.topk_candidates(lg)
+            if dry:
+                cv, ci = smp.device_dry(dwin, cv, ci, ops["dry_mult"], ops["dry_base"],
+                                        ops["dry_allowed"], ops["dry_lastn"])
+            nxt = smp.device_sample(lg, gens, ops["temp"], ops["top_k"], ops["top_p"],
+                                    ops["min_p"], cands=(cv, ci),
+                                    typ_p=ops["typ_p"] if typ else None)
+            if mir:
+                mtok, mu2 = smp.device_mirostat(lg, gens, ops["temp"], mu, ops["eta"],
+                                                ops["tau"])
+                mir_on = ops["eta"] > 0
+                nxt = torch.where(mir_on, mtok, nxt)
+                mu = torch.where(mir_on & live, mu2, mu)
+            nxt = torch.where(live, nxt, tok)
+            # slide the penalty window: the sampled token in, the
+            # host-scheduled evictee (-1 = none) out
+            ev = evict[:, i]
+            counts = counts.scatter_add(1, nxt[:, None], ones).scatter_add(
+                1, ev.clamp_min(0)[:, None], -(ev >= 0).to(torch.float32)[:, None])
+            if dry:
+                dwin = torch.cat([dwin[:, 1:], nxt[:, None]], dim=1)
+            out.append(nxt)
+            cvs.append(cv)
+            cis.append(ci)
+            tok = nxt
+        for lane in lanes.values():
+            self.kv.lengths[lane] += n
+            self.n_decode_tokens += n
+        self.t_decode_s += time.perf_counter() - t0
+        return {"toks": torch.stack(out, dim=1), "cand_v": torch.stack(cvs, dim=1),
+                "cand_i": torch.stack(cis, dim=1), "gens": gens, "lanes": lanes, "n": n,
+                "start": start, "ops": ops, "counts": counts, "mu": mu, "dwin": dwin,
+                "feats": feats, "params": dict(params)}
+
+    def _run_operands(self, seq_tokens, keys, params, histories, mus):
+        """Per-lane sampling operands of a fresh run, uploaded once."""
+        b = self.kv.n_lanes
+        f32 = lambda fill: np.full((b,), fill, np.float32)      # noqa: E731
+        ops_np = dict(temp=f32(0.0), top_p=f32(1.0), min_p=f32(0.0), xtc_p=f32(0.0),
+                      xtc_t=f32(1.0), eta=f32(0.0), tau=f32(0.0), typ_p=f32(1.0),
+                      nsig=f32(0.0), dry_mult=f32(0.0), dry_base=f32(1.0),
+                      top_k=np.ones((b,), np.int64), dry_allowed=np.ones((b,), np.int64),
+                      dry_lastn=np.zeros((b,), np.int64))
+        mu = f32(0.0)
+        dwin = np.full((b, smp.DRY_WINDOW), -1, np.int64)
+        tok = np.zeros((b,), np.int64)
+        start = [-1] * b
+        gens: list = [None] * b
+        lanes = {}
+        for seq_id, token in seq_tokens.items():
+            lane = self.kv.lane_of(seq_id)
+            lanes[seq_id] = lane
+            start[lane] = self.kv.lengths[lane]
+            p = params[seq_id]
+            ops_np["temp"][lane] = p.temperature
+            ops_np["top_k"][lane] = min(p.top_k, 128) if p.top_k > 0 else 128
+            ops_np["top_p"][lane] = p.top_p
+            ops_np["min_p"][lane] = p.min_p
+            if p.xtc_probability > 0:
+                ops_np["xtc_p"][lane] = p.xtc_probability
+                ops_np["xtc_t"][lane] = p.xtc_threshold
+            if p.mirostat:
+                ops_np["eta"][lane] = p.mirostat_eta
+                ops_np["tau"][lane] = p.mirostat_tau
+                mu[lane] = (mus or {}).get(seq_id) or 2.0 * p.mirostat_tau
+            ops_np["typ_p"][lane] = p.typical_p
+            ops_np["nsig"][lane] = p.top_n_sigma
+            if p.dry_multiplier > 0:
+                ops_np["dry_mult"][lane] = p.dry_multiplier
+                ops_np["dry_base"][lane] = p.dry_base
+                ops_np["dry_allowed"][lane] = max(1, p.dry_allowed_length)
+                ops_np["dry_lastn"][lane] = smp.DRY_WINDOW if p.penalty_last_n < 0 \
+                    else min(p.penalty_last_n, smp.DRY_WINDOW)
+                recent = ((histories or {}).get(seq_id) or [])[-smp.DRY_WINDOW:]
+                if recent:
+                    dwin[lane, -len(recent):] = recent
+            tok[lane] = token
+            gens[lane] = keys[seq_id]
+        ops = {k: self._upload(v) for k, v in ops_np.items()}
+        return (lanes, start, self._upload(tok), gens, ops, self._upload(mu),
+                self._upload(dwin))
+
+    @staticmethod
+    def _penalties_active(p) -> bool:
+        # penalty_last_n == 0 disables penalties outright
+        return (p.penalty_last_n != 0
+                and (p.penalty_repeat != 1.0 or p.penalty_freq != 0.0
+                     or p.penalty_present != 0.0))
+
+    @staticmethod
+    def _pen_window(hist, last_n: int):
+        """penalty_last_n sentinels: 0 is an empty window, < 0 the whole
+        history."""
+        if last_n == 0:
+            return []
+        if last_n < 0:
+            return hist
+        return hist[-last_n:]
+
+    def _penalty_operands(self, lanes, params, histories):
+        """[B] rep / frq / prs and [B, V] counts / bias of a fresh run. The
+        all-identity case reuses cached device tensors (the run never writes
+        into its operands), so penalty-free serving uploads nothing."""
+        b, v = self.kv.n_lanes, self.cfg.vocab_size
+        if not any(self._penalties_active(p) or p.logit_bias for p in params.values()):
+            if not hasattr(self, "_pen_identity"):
+                dev = self.device
+                self._pen_identity = (
+                    torch.ones((b,), dtype=torch.float32, device=dev),
+                    torch.zeros((b,), dtype=torch.float32, device=dev),
+                    torch.zeros((b,), dtype=torch.float32, device=dev),
+                    torch.zeros((b, v), dtype=torch.float32, device=dev),
+                    torch.zeros((b, v), dtype=torch.float32, device=dev))
+            return self._pen_identity
+        rep = np.ones((b,), np.float32)
+        frq = np.zeros((b,), np.float32)
+        prs = np.zeros((b,), np.float32)
+        counts = np.zeros((b, v), np.float32)
+        bias = np.zeros((b, v), np.float32)
+        for seq_id, p in params.items():
+            lane = lanes[seq_id]
+            if self._penalties_active(p):
+                rep[lane] = p.penalty_repeat
+                frq[lane] = p.penalty_freq
+                prs[lane] = p.penalty_present
+                for t in self._pen_window((histories or {}).get(seq_id, []), p.penalty_last_n):
+                    if 0 <= t < v:
+                        counts[lane, t] += 1
+            for tid, bval in p.logit_bias:
+                if 0 <= int(tid) < v:
+                    bias[lane, int(tid)] += float(bval)
+        return tuple(self._upload(a) for a in (rep, frq, prs, counts, bias))
+
+    def _evict_schedule(self, histories, lanes, params, n_steps, offset) -> torch.Tensor:
+        """[B, n_steps] token ids leaving the penalty window after each
+        sampled step (-1 = none). ``offset``: device-sampled tokens the host
+        history does not hold yet (a chained run: the previous run's n)."""
+        ev = np.full((self.kv.n_lanes, n_steps), -1, np.int64)
+        for seq_id, hist in (histories or {}).items():
+            p = (params or {}).get(seq_id)
+            if p is None or not self._penalties_active(p) or p.penalty_last_n < 0:
+                continue                        # a whole-history window never evicts
+            true_len = len(hist) + offset
+            for i in range(n_steps):
+                e = true_len + i - p.penalty_last_n
+                if 0 <= e < len(hist):
+                    ev[lanes[seq_id], i] = hist[e]
+        return self._upload(ev)
+
+    def decode_run(self, seq_tokens: dict, keys: dict, params: dict, n_steps: int = 0):
+        """Synchronous decode_run_start: ({seq: [n] tokens}, {seq: generator})."""
+        h = self.decode_run_start(seq_tokens, keys, params, n_steps)
+        toks = h["toks"].cpu().numpy()
+        return ({s: toks[lane] for s, lane in h["lanes"].items()},
+                {s: h["gens"][lane] for s, lane in h["lanes"].items()})
 
     def generate(self, prompt: list[int], max_new_tokens: int,
                  params: Optional[SamplerParams] = None,

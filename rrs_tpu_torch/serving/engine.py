@@ -1,0 +1,541 @@
+"""Continuous-batching inference engine (server-context.cpp analog).
+
+Port of ``rrs_tpu/serving/engine.py`` (``Engine``, ``Slot``, ``GenRequest``,
+``SlotState``). Slot lifecycle: IDLE -> PROMPT (chunked prefill, several
+slots' chunks in one step) -> GENERATING (one shared decode for every
+generating slot) -> released on a stop token or string, max_tokens or
+cancellation; a released lane keeps its KV as a prompt cache for the next
+request with a shared prefix. Decoding goes through the context's device-side
+runs of DECODE_RUN_STEPS tokens, chained so that run N+1 is enqueued before
+run N is read; slots the runs cannot serve take the per-token host sampler.
+A lane that reaches max_seq - 1 is context-shifted.
+
+Waiting for their slices, and refused loudly: grammar / JSON-schema requests
+(ROADMAP A6), a draft model (A13), multimodal segments (A11), infill (A13) and
+slot save / restore (A13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import queue
+import threading
+import time
+import traceback
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from rrs_tpu_torch.runtime.context import InferenceContext
+from rrs_tpu_torch.runtime.sampler import (SamplerParams, dry_penalties, mirostat_v2_sample,
+                                           sample)
+
+
+class SlotState(enum.Enum):
+    IDLE = 0
+    PROMPT = 1
+    GENERATING = 2
+
+
+@dataclasses.dataclass
+class GenRequest:
+    prompt_tokens: list[int]
+    max_tokens: int = 128
+    params: SamplerParams = dataclasses.field(default_factory=SamplerParams)
+    stop_tokens: tuple[int, ...] = ()
+    stop_strings: tuple[str, ...] = ()
+    # callback(token_id, text_piece, finished, finish_reason)
+    on_token: Optional[Callable] = None
+    decode_fn: Optional[Callable[[list[int]], str]] = None  # ids -> text
+    grammar: Optional[object] = None          # waits for ROADMAP A6
+    n_probs: int = 0                          # top-k logprobs per token
+    # callback(token_id, logprob, [(tid, logprob) x n_probs])
+    on_probs: Optional[Callable] = None
+    segments: Optional[list] = None           # multimodal: waits for ROADMAP A11
+    infill: bool = False                      # waits for ROADMAP A13
+    # set by the submitter (e.g. on client disconnect) to stop generating
+    abort: bool = False
+    id: int = 0
+
+
+@dataclasses.dataclass
+class Slot:
+    index: int
+    state: SlotState = SlotState.IDLE
+    req: Optional[GenRequest] = None
+    seq_id: int = -1
+    prompt_pos: int = 0
+    generated: list = dataclasses.field(default_factory=list)
+    sent_text_len: int = 0
+    last_logits: Optional[torch.Tensor] = None     # [V] on the context's device
+    key: Optional[torch.Generator] = None          # per request, on the device
+    t_start: float = 0.0
+    n_prompt: int = 0
+    mirostat_mu: float = 10.0
+    # prompt-cache retention: the lane's KV survives release so the next
+    # request with a shared prefix skips re-prefilling it
+    retained_seq: int = -1
+    cache_tokens: list = dataclasses.field(default_factory=list)
+    n_reused: int = 0
+    # set by _emit when it returns True: "stop", "length" or "cancelled"
+    finish_reason: str = "stop"
+
+
+def _unported(req: GenRequest) -> Optional[str]:
+    if req.grammar is not None:
+        return "grammar-constrained decoding waits for ROADMAP A6"
+    if req.segments is not None:
+        return "multimodal prompts wait for ROADMAP A11"
+    if req.infill:
+        return "infill waits for ROADMAP A13"
+    return None
+
+
+class Engine:
+    """Background thread turning queued requests into streamed tokens."""
+
+    # per-iteration prompt budget (n_batch analog); long prompts land in the
+    # 1024 / 2048 prefill buckets
+    PROMPT_CHUNK = 1024
+
+    def __init__(self, ctx: InferenceContext, draft_ctx=None, n_draft=None):
+        """The engine serves on the context's device (``InferenceContext``
+        chooses ``cuda`` unless asked for the CPU, and raises without a GPU).
+        ``draft_ctx`` / ``n_draft`` (speculative decoding) wait for ROADMAP
+        A13."""
+        if draft_ctx is not None or n_draft is not None:
+            raise NotImplementedError("server-side speculative decoding waits for ROADMAP A13")
+        self.ctx = ctx
+        self.slots = [Slot(i) for i in range(ctx.kv.n_lanes)]
+        self.pending: "queue.Queue[GenRequest]" = queue.Queue()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._next_id = 0
+        self._lock = threading.Lock()
+        # the enqueued, not yet read, device decode run
+        self._inflight = None
+        # metrics (/metrics)
+        self.n_prompt_tokens = 0
+        self.n_generated_tokens = 0
+        self.n_requests = 0
+        self.n_decode_runs = 0
+
+    def start(self):
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._wake.set()
+        self._thread.join(timeout=5)
+
+    def submit(self, req: GenRequest) -> int:
+        why = _unported(req)
+        if why:
+            raise NotImplementedError(why)
+        with self._lock:
+            self._next_id += 1
+            req.id = self._next_id
+        self.pending.put(req)
+        self._wake.set()
+        return req.id
+
+    def save_slot(self, index: int, path: str) -> dict:
+        raise NotImplementedError("slot save / restore waits for ROADMAP A13")
+
+    def restore_slot(self, index: int, path: str) -> dict:
+        raise NotImplementedError("slot save / restore waits for ROADMAP A13")
+
+    # -- slots -------------------------------------------------------------
+
+    def _free_slot(self) -> Optional[Slot]:
+        for s in self.slots:
+            if s.state == SlotState.IDLE:
+                return s
+        return None
+
+    def _launch(self, slot: Slot, req: GenRequest):
+        kv = self.ctx.kv
+        n_prompt = len(req.prompt_tokens)
+        if n_prompt >= kv.max_seq:
+            # admitting it would clip every overflow position into the last cell
+            if req.on_token:
+                req.on_token(None, "", True, "error: prompt too long "
+                             f"({n_prompt} tokens, context {kv.max_seq})")
+            return
+        slot.state = SlotState.PROMPT
+        slot.req = req
+        slot.n_reused = 0
+        if slot.retained_seq >= 0 and not kv.has_seq(slot.retained_seq):
+            slot.retained_seq = -1      # the prompt cache was LRU-evicted
+            slot.cache_tokens = []
+        if slot.retained_seq >= 0:
+            # prompt-cache reuse: keep the common prefix of the retained KV;
+            # at least one prompt token is fed again to produce logits, and
+            # the reuse stops at what the lane stores (cache_tokens holds the
+            # final sampled token, which was never fed)
+            stored = kv.lengths[kv.lane_of(slot.retained_seq)]
+            limit = min(len(slot.cache_tokens), stored, len(req.prompt_tokens) - 1)
+            n_common = 0
+            while n_common < limit and slot.cache_tokens[n_common] == req.prompt_tokens[n_common]:
+                n_common += 1
+            slot.seq_id = slot.retained_seq
+            slot.retained_seq = -1
+            kv.unmark_retained(slot.seq_id)
+            if n_common > 0:
+                kv.seq_rm(slot.seq_id, p0=n_common)
+            else:
+                kv.seq_rm(slot.seq_id)
+                slot.seq_id = self.ctx.new_sequence()
+            slot.prompt_pos = n_common
+            slot.n_reused = n_common
+        else:
+            slot.seq_id = self.ctx.new_sequence()
+            slot.prompt_pos = 0
+        slot.cache_tokens = []
+        slot.generated = []
+        slot.sent_text_len = 0
+        slot.key = torch.Generator(device=self.ctx.device).manual_seed(req.params.seed + req.id)
+        slot.t_start = time.time()
+        slot.n_prompt = n_prompt
+        slot.mirostat_mu = 2.0 * req.params.mirostat_tau
+        slot.finish_reason = "stop"
+        self.n_requests += 1
+
+    def _release(self, slot: Slot, reason: str):
+        req = slot.req
+        if req and req.on_token:
+            req.on_token(None, "", True, reason)
+        if slot.seq_id >= 0:
+            # retain the lane's KV as a prompt cache for the next request
+            slot.retained_seq = slot.seq_id
+            slot.cache_tokens = (list(req.prompt_tokens) + list(slot.generated)) if req else []
+            self.ctx.kv.mark_retained(slot.seq_id)
+        slot.state = SlotState.IDLE
+        slot.req = None
+        slot.seq_id = -1
+        slot.last_logits = None
+
+    # -- emitting ------------------------------------------------------------
+
+    @staticmethod
+    def _stop_holdback(full: str, stop_strings) -> int:
+        """Chars at the end of ``full`` that are a prefix of some stop string,
+        withheld from streaming so that a stop string completed by a later
+        token never leaks in part."""
+        hold = 0
+        for ss in stop_strings:
+            top = min(len(ss) - 1, len(full))
+            for j in range(top, hold, -1):
+                if full.endswith(ss[:j]):
+                    hold = j
+                    break
+        return hold
+
+    def _emit(self, slot: Slot, token: int) -> bool:
+        """Append a generated token, stream its text, check the stop
+        conditions. True when the slot should be released; the reason lands
+        in slot.finish_reason ("stop" | "length" | "cancelled")."""
+        req = slot.req
+        slot.generated.append(token)
+        self.n_generated_tokens += 1
+        if req.abort:
+            slot.finish_reason = "cancelled"
+            return True
+        if token in req.stop_tokens:
+            slot.finish_reason = "stop"
+            return True
+        finishing = len(slot.generated) >= req.max_tokens
+        piece = ""
+        if req.decode_fn:
+            full = req.decode_fn(slot.generated)
+            for ss in req.stop_strings:
+                idx = full.find(ss)
+                if idx >= 0:
+                    piece = full[slot.sent_text_len: idx]
+                    if piece and req.on_token:
+                        req.on_token(token, piece, False, None)
+                    slot.finish_reason = "stop"
+                    return True
+            piece = full[slot.sent_text_len:]
+            if not finishing:
+                # hold back text that may become a stop string or a partial
+                # multi-byte character once later tokens arrive
+                hold = self._stop_holdback(full, req.stop_strings)
+                if hold:
+                    piece = piece[: max(0, len(piece) - hold)]
+                if piece.endswith("�"):
+                    piece = piece[:-1]
+            if piece:
+                slot.sent_text_len += len(piece)
+        if req.on_token:
+            req.on_token(token, piece, False, None)
+        if finishing:
+            slot.finish_reason = "length"
+        return finishing
+
+    def _emit_probs(self, slot: Slot, token: int) -> None:
+        """The sampled token's logprob and the top-n alternatives from the
+        full logits (completion n_probs / OAI logprobs)."""
+        req = slot.req
+        if not req or req.n_probs <= 0 or req.on_probs is None or slot.last_logits is None:
+            return
+        raw = slot.last_logits.to(torch.float64).cpu().numpy()
+        m = raw.max()
+        lp = raw - (m + np.log(np.exp(raw - m).sum()))
+        k = min(req.n_probs, lp.shape[-1])
+        top = np.argpartition(-lp, k - 1)[:k]
+        top = top[np.argsort(-lp[top])]
+        req.on_probs(token, float(lp[token]), [(int(t), float(lp[t])) for t in top])
+
+    def _emit_probs_fast(self, slot: Slot, token: int, vals, ids) -> None:
+        """n_probs logprobs from a decode run's captured top-128 candidate
+        row, log-softmax renormalized over the candidates (the tail past rank
+        128 carries negligible mass)."""
+        req = slot.req
+        if not req or req.n_probs <= 0 or req.on_probs is None:
+            return
+        v = np.asarray(vals, np.float64)
+        ids = np.asarray(ids)
+        m = v.max()
+        lp = v - (m + np.log(np.exp(v - m).sum()))
+        k = min(req.n_probs, len(ids))
+        where = np.nonzero(ids == token)[0]
+        # mirostat samples the full vocab; a pick outside the candidates
+        # reports the worst candidate's logprob
+        tok_lp = float(lp[where[0]]) if len(where) else float(lp[-1])
+        req.on_probs(token, tok_lp, [(int(ids[j]), float(lp[j])) for j in range(k)])
+
+    def _sample_token(self, slot: Slot) -> int:
+        """The host chain on the slot's last logits, drawing from its
+        generator."""
+        raw = slot.last_logits
+        p = slot.req.params
+        if p.dry_multiplier > 0.0:
+            pen = dry_penalties(slot.generated, raw.shape[-1], multiplier=p.dry_multiplier,
+                                base=p.dry_base, allowed_length=p.dry_allowed_length,
+                                penalty_last_n=p.penalty_last_n)
+            if pen:
+                raw = raw.clone()
+                for tid, v in pen.items():
+                    if tid < raw.shape[-1]:
+                        raw[tid] -= v
+        if p.mirostat:
+            token, slot.mirostat_mu = mirostat_v2_sample(
+                raw.to(torch.float32).cpu().numpy(), slot.key, slot.mirostat_mu, p)
+            return token
+        counts = None
+        if p.penalty_repeat != 1.0 or p.penalty_freq or p.penalty_present:
+            c = np.zeros((1, raw.shape[-1]), np.float32)
+            for t in self.ctx._pen_window(slot.generated, p.penalty_last_n):
+                c[0, t] += 1
+            counts = torch.from_numpy(c)
+        return int(sample(raw[None, :], slot.key, p, recent_counts=counts)[0])
+
+    # -- the loop --------------------------------------------------------------
+
+    def _fail(self, slots) -> None:
+        """Roll back and release ``slots`` after a failed step (the
+        reference's failed-ubatch rollback)."""
+        for s in slots:
+            if s.seq_id >= 0:
+                try:
+                    self.ctx.kv.seq_rm(s.seq_id)
+                except ValueError:
+                    pass
+                s.seq_id = -1
+            self._release(s, "error")
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                did_work = self._iterate()
+            except Exception:                                 # noqa: BLE001
+                # an escaped error would kill the engine thread and leave
+                # every HTTP request blocked on its queue: fail the in-flight
+                # slots and keep serving
+                traceback.print_exc()
+                self._inflight = None
+                self._fail([s for s in self.slots if s.state != SlotState.IDLE])
+                did_work = True
+            if not did_work:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+
+    @torch.inference_mode()
+    def _iterate(self) -> bool:
+        """One engine iteration; True when it did work."""
+        # admit pending requests into free slots
+        while True:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            try:
+                req = self.pending.get_nowait()
+            except queue.Empty:
+                break
+            self._launch(slot, req)
+
+        # context shift: drop the oldest half (keeping the first cell) when a
+        # lane is about to overflow
+        kv = self.ctx.kv
+        for s in self.slots:
+            if s.state == SlotState.GENERATING and s.seq_id >= 0:
+                n = kv.lengths[kv.lane_of(s.seq_id)]
+                if n >= kv.max_seq - 1:
+                    n_keep = 1
+                    kv.seq_shift(self.ctx.cfg, s.seq_id, n_keep, max((n - n_keep) // 2, 1))
+
+        # 1) prompt chunks: several mid-prompt slots share one step
+        prompt_slots = [s for s in self.slots if s.state == SlotState.PROMPT]
+        if prompt_slots:
+            group = prompt_slots if len(prompt_slots) >= 2 else prompt_slots[:1]
+            try:
+                if len(group) >= 2:
+                    self._prompt_step_multi(group)
+                else:
+                    self._prompt_step(group[0])
+            except Exception:                                 # noqa: BLE001
+                traceback.print_exc()
+                self._fail(group)
+            return True
+
+        # 2) one batched decode for every GENERATING slot
+        gen = [s for s in self.slots if s.state == SlotState.GENERATING]
+        if not gen:
+            return False
+        try:
+            self._decode_step(gen)
+        except Exception:                                     # noqa: BLE001
+            traceback.print_exc()
+            self._inflight = None
+            self._fail(gen)
+        return True
+
+    def _finish_prompt(self, s: Slot, logits: torch.Tensor) -> None:
+        s.last_logits = logits
+        s.state = SlotState.GENERATING
+        tok = self._sample_token(s)
+        self._emit_probs(s, tok)
+        if self._emit(s, tok):
+            self._release(s, s.finish_reason)
+
+    def _prompt_step_multi(self, slots) -> None:
+        """One prompt chunk for several slots in one step (chunks padded to
+        one bucket, each lane's final position gathered)."""
+        max_chunk = min(self.PROMPT_CHUNK, self.ctx.max_chunk)
+        chunks = {s.seq_id: list(s.req.prompt_tokens[s.prompt_pos: s.prompt_pos + max_chunk])
+                  or [0] for s in slots}
+        outs = self.ctx.prefill_multi(chunks)
+        for s in slots:
+            c = chunks[s.seq_id]
+            s.prompt_pos += len(c)
+            self.n_prompt_tokens += len(c)
+            if s.prompt_pos >= len(s.req.prompt_tokens):
+                self._finish_prompt(s, outs[s.seq_id])
+
+    def _prompt_step(self, s: Slot) -> None:
+        chunk = s.req.prompt_tokens[s.prompt_pos: s.prompt_pos + self.PROMPT_CHUNK]
+        if not chunk:
+            chunk = [0]         # empty prompt: one placeholder token
+        logits = self.ctx.prefill(s.seq_id, list(chunk), all_logits=False)
+        s.prompt_pos += len(chunk)
+        self.n_prompt_tokens += len(chunk)
+        if s.prompt_pos >= len(s.req.prompt_tokens):
+            self._finish_prompt(s, logits[-1])
+
+    # -- the fast path: device-side decode runs ------------------------------
+
+    def _fast_eligible(self, s: Slot) -> bool:
+        """The slot can decode through the device run: every sampler of the
+        chain has a device twin; mirostat v1 and n_probs > 128 do not;
+        penalties with a window shorter than 2n cannot slide it for chained
+        runs; the lane needs room for the whole run below the shift
+        trigger."""
+        p = s.req.params
+        n = self.ctx.DECODE_RUN_STEPS
+        kv = self.ctx.kv
+        if self.ctx._penalties_active(p) and 0 <= p.penalty_last_n < 2 * n:
+            return False
+        if p.mirostat and p.mirostat != 2:
+            return False
+        if s.req.n_probs > 128:
+            return False
+        return (p.top_k <= 128
+                and kv.lengths[kv.lane_of(s.seq_id)] + n + 1 < kv.max_seq)
+
+    def _dispatch_fast(self, gen: list, chain=None) -> dict:
+        """Enqueue one device run (DECODE_RUN_STEPS tokens per slot);
+        returns the in-flight record."""
+        handle = self.ctx.decode_run_start(
+            {s.seq_id: (s.generated[-1] if chain is None else None) for s in gen},
+            {s.seq_id: s.key for s in gen},
+            {s.seq_id: s.req.params for s in gen},
+            chain=chain,
+            histories={s.seq_id: s.generated for s in gen},
+            mus={s.seq_id: s.mirostat_mu for s in gen if s.req.params.mirostat})
+        self.n_decode_runs += 1
+        kv = self.ctx.kv
+        # keyed by (seq_id, request id): a released lane keeps its seq_id as
+        # a prompt cache, so a later request on it must not match this run
+        items = {(s.seq_id, s.req.id): kv.lengths[kv.lane_of(s.seq_id)] - handle["n"]
+                 for s in gen}
+        return {"handle": handle, "items": items}
+
+    def _flush_fast(self, inf: dict) -> None:
+        """Read a run's tokens (one readback, the candidate rows with it when
+        a slot reports logprobs) and emit them. Slots released while the run
+        was in flight are skipped; the run's extra cache writes sit past the
+        rewound length and are overwritten on reuse."""
+        h = inf["handle"]
+        toks = h["toks"].cpu().numpy()
+        cands = None
+        if any(s.state == SlotState.GENERATING and s.req is not None
+               and (s.seq_id, s.req.id) in inf["items"]
+               and s.req.n_probs > 0 and s.req.on_probs is not None for s in self.slots):
+            cands = (h["cand_v"].cpu().numpy(), h["cand_i"].cpu().numpy())
+        for (seq_id, req_id), base in inf["items"].items():
+            slot = next((s for s in self.slots
+                         if s.seq_id == seq_id and s.state == SlotState.GENERATING
+                         and s.req is not None and s.req.id == req_id), None)
+            if slot is None:
+                continue
+            lane = h["lanes"][seq_id]
+            slot.key = h["gens"][lane]
+            for i, tok in enumerate(toks[lane].tolist()):
+                if cands is not None:
+                    self._emit_probs_fast(slot, tok, cands[0][lane, i], cands[1][lane, i])
+                if self._emit(slot, tok):
+                    # the cache holds the tokens fed through step i: rewind
+                    # the overshoot past the accepted token
+                    self.ctx.kv.seq_rm(seq_id, p0=base + i + 1)
+                    self._release(slot, slot.finish_reason)
+                    break
+
+    def _decode_step(self, gen: list) -> None:
+        # pipelined runs: enqueue run N+1, chained on run N's device outputs,
+        # before reading run N, so the host's readback and emitting overlap
+        # the device's work
+        if self._inflight is not None:
+            prev, self._inflight = self._inflight, None
+            if (set(prev["items"]) == {(s.seq_id, s.req.id) for s in gen}
+                    and all(self._fast_eligible(s) for s in gen)):
+                self._inflight = self._dispatch_fast(gen, chain=prev["handle"])
+                self._flush_fast(prev)
+                return
+            self._flush_fast(prev)
+            gen = [s for s in self.slots if s.state == SlotState.GENERATING]
+            if not gen:
+                return
+        if all(self._fast_eligible(s) for s in gen):
+            self._inflight = self._dispatch_fast(gen)
+            return
+        out = self.ctx.decode({s.seq_id: s.generated[-1] for s in gen})
+        for s in gen:
+            s.last_logits = out[s.seq_id]
+            tok = self._sample_token(s)
+            self._emit_probs(s, tok)
+            if self._emit(s, tok):
+                self._release(s, s.finish_reason)

@@ -10,6 +10,13 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+# The suite runs in several worker processes on one machine (pytest-xdist).
+# At these sizes torch's intra-op threads, one per core in every worker by
+# default, only contend with each other (the port's tests ran ~100x slower
+# under 6 workers), so each worker keeps one.
+torch.set_num_threads(1)
 
 # The 2-layer model of tests/test_pipeline_e2e.py (every TCQ4 K a multiple of 256).
 SMALL = dict(arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,
@@ -35,13 +42,17 @@ def to_numpy(x):
 
 
 def linear_tree(layer):
-    """A JAX linear dataclass -> dict of NumPy arrays (ints kept as ints)."""
+    """A JAX linear dataclass -> dict of NumPy arrays (ints kept as ints, the
+    i8p pack as a tuple of arrays)."""
     if layer is None:
         return None
     out = {}
     for f in dataclasses.fields(layer):
         v = getattr(layer, f.name)
-        out[f.name] = v if isinstance(v, (int, float)) or v is None else to_numpy(v)
+        if isinstance(v, tuple):
+            out[f.name] = tuple(to_numpy(a) for a in v)
+        else:
+            out[f.name] = v if isinstance(v, (int, float)) or v is None else to_numpy(v)
     return out
 
 
@@ -95,3 +106,22 @@ def rel_err(got, ref) -> float:
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
     return float(np.abs(got - ref).max() / (np.abs(ref).max() + 1e-30))
+
+
+def tiny_vocab_tokens(n: int) -> list[str]:
+    """The char-level vocabulary of tests/test_server.py: token i is a
+    printable char, or <tok{i}> past U+02FF."""
+    return [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(n)]
+
+
+def tcq4_gguf(directory, seed: int = 0):
+    """A 2-layer TCQ4 GGUF with a char vocab, written by the JAX package's
+    exporter and quantizer; returns its path."""
+    from rrs_tpu.models.export import export_random_gguf
+    from rrs_tpu.quantize.quantizer import quantize_model
+
+    src, dst = directory / "f32.gguf", directory / "tcq4.gguf"
+    vocab = [chr(33 + i) if 33 + i < 288 else f"<t{i}>" for i in range(256)]
+    export_random_gguf(jax_cfg(), src, seed=seed, vocab_tokens=vocab)
+    quantize_model(src, dst, verbose=False)
+    return dst

@@ -61,6 +61,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     assert len(ctx.generate([1, 2, 3], 2)) == 2
 
 
+def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    _no_cuda()
+    from test_torch_common import torch_cfg, jax_cfg
+    from rrs_tpu_torch.__main__ import main
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.serving.engine import Engine
+
+    cfg = torch_cfg(jax_cfg())
+    w = llama.random_weights(cfg, device="cpu")
+    # the engine serves on its context's device, and the context a server
+    # builds chooses cuda unless asked for the CPU
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceContext(cfg, w, n_lanes=4, max_seq=32)
+    ctx = InferenceContext(cfg, w, n_lanes=4, max_seq=32, device="cpu")
+    for verb in ("serve", "chat"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([verb, "-m", str(tmp_path / "absent.gguf")])
+    # flags of later slices raise before anything loads
+    for flags in (["--cache-type", "q8"], ["--model-draft", "d.gguf"], ["--mmproj", "m.gguf"],
+                  ["--tp", "2"], ["--slot-save-path", "x"], ["--models", "a=b.gguf"]):
+        with pytest.raises(NotImplementedError):
+            main(["serve", "-m", "absent.gguf", "--device", "cpu", *flags])
+    eng = Engine(ctx)
+    assert eng.ctx is ctx and len(eng.slots) == 4
+
+
 def test_kernel_wrappers_count_only_their_launches():
     from rrs_tpu_torch import kernels
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -68,12 +95,15 @@ def test_kernel_wrappers_count_only_their_launches():
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
     before = dict(kernels.LAUNCHES)
-    assert set(before) == {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul", "flash_attention"}
+    assert set(before) == {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
+                           "flash_attention"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
     tm.tcq4_matmul_gx2(torch.randn(1, 256, generator=g), qs, eff)
     tm.tcq4_matmul(torch.randn(20, 256, generator=g), qs, eff)
+    tm.tcq4_matmul_i8p(torch.randint(-7, 8, (4, 256), generator=g, dtype=torch.int8),
+                       torch.rand(4, 1, generator=g) + 0.5, *tm.pack_i8p(qs, eff))
     q8.q8_matmul(torch.randn(2, 256, generator=g), torch.zeros(256, 64, dtype=torch.int8),
                  torch.ones(8, 64))
     fa.flash_attention(torch.randn(1, 1, 4, 64), torch.randn(1, 2, 16, 64),

@@ -66,3 +66,37 @@ def test_idle_lane_parks_writes_at_top_slot():
     for a, b in zip(outs[0], outs[1]):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-5)
         assert int(torch.argmax(a[-1])) == int(torch.argmax(b[-1]))
+
+
+def _serving_ops(kv):
+    """The lane operations of the serving engine: retention with LRU
+    eviction, has_seq, seq_cp, seq_keep, lengths_array."""
+    states = []
+    for s, n in ((1, 5), (2, 7), (3, 2)):
+        kv.seq_new(s)
+        kv.lengths[kv.lane_of(s)] = n
+    kv.mark_retained(2)
+    kv.mark_retained(1)                 # 2 is the least recently retained
+    kv.seq_new(4)                       # no free lane: evicts 2
+    states.append((list(kv.seq_ids), [kv.has_seq(s) for s in (1, 2, 3, 4)],
+                   sorted(kv.retained)))
+    kv.unmark_retained(1)
+    kv.seq_rm(4)
+    kv.seq_cp(1, 5)                     # into the freed lane
+    states.append((list(kv.seq_ids), list(kv.lengths)))
+    kv.seq_keep(5)
+    states.append((list(kv.seq_ids), list(kv.lengths), sorted(kv.retained),
+                   [int(x) for x in np.asarray(kv.lengths_array())]))
+    return states
+
+
+def test_serving_lane_ops_match_jax():
+    jcfg = jax_cfg(n_layers=1)
+    ref = _serving_ops(JaxKVCache.create(jcfg, n_lanes=3, max_seq=16))
+    kv = KVCache.create(torch_cfg(jcfg), n_lanes=3, max_seq=16)
+    kv.k[0][0] = torch.randn(kv.k[0][0].shape).to(kv.k[0].dtype)   # lane 0 holds seq 1
+    lane0 = kv.k[0][0].clone()
+    got = _serving_ops(kv)
+    assert got == ref
+    # seq_cp copied the whole lane in place
+    assert torch.equal(kv.k[0][kv.lane_of(5)], lane0)

@@ -62,6 +62,24 @@ def test_quantize_activations_bit_exact():
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
 
+def test_quantize_activations_bit_exact_at_half_way_points():
+    """Values within an ulp of a code's half-way point: the scale 7 / amax
+    must round as one true division (torch's ``7.0 / tensor`` is 7 * (1 /
+    amax), which flips about 9% of these codes)."""
+    rng = np.random.default_rng(7)
+    nb = 64
+    amax = (rng.random(nb) * 4 + 0.1).astype(np.float32)
+    k = rng.integers(0, 7, (nb, 255)).astype(np.float32)
+    x = ((k + 0.5) * (amax[:, None] / np.float32(7))).astype(np.float32)
+    step = rng.choice([-1, 0, 1], x.shape).astype(np.float32)
+    x = np.nextafter(x, x + step)                      # one ulp down, none or up
+    x = np.concatenate([amax[:, None], x], 1).reshape(8, nb // 8 * 256)
+    jq, js = jtcq4.quantize_activations_rrs(jnp.asarray(x))
+    tq, ts = ttcq4.quantize_activations_rrs(torch.from_numpy(x))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+
+
 def test_nibble_unpack_matches():
     t, _ = _weights(64, 512, 3)
     ref = jtcq4.unpack_nibbles(t.qs)
