@@ -15,13 +15,17 @@ it; exits non-zero without either, and on any failed phase. Phases:
    with CUDA events beside its bound, its plain version and one PyTorch
    library call for the same product (the i8p kernel also against the
    dequant path, within the JAX bound, and beside ``torch._int_mm`` on
-   pre-decoded int8 weights); then each kernel's other instantiations and
-   options, untimed;
+   pre-decoded int8 weights; attention over quantized caches beside SDPA on
+   caches dequantized beforehand); then each kernel's other instantiations
+   and options, untimed;
 3. main path: a 2-layer model on the card against the same weights on the
-   CPU, then ``generate`` at full qwen3-4b width (36 layers, fabricated TCQ4
-   weights with their i8p packs, Q8_0 lm_head) for three greedy requests and
-   one sampled one, with every kernel's launch count read after the run, and
-   a torch.profiler breakdown of a few decode steps;
+   CPU (bf16, q8 and q4 KV caches), and a 2-layer model with 3 kv heads and
+   q4 KV, whose halves-packed cache takes B8 in the model; then
+   ``generate`` at full qwen3-4b width (36 layers, fabricated TCQ4 weights
+   with their i8p packs, Q8_0 lm_head) for three greedy requests and one
+   sampled one, with every kernel's launch count read after the run, and a
+   torch.profiler breakdown of a few decode steps; then ``generate`` with
+   q8 and with q4 KV caches;
 4. serving: the OpenAI-compatible server in-process at qwen3-4b width with
    4 slots and a 4096 context, answering concurrent completions (prompts of
    40 to 2000 tokens, greedy and sampled), a streamed chat, a penalized and a
@@ -33,7 +37,15 @@ it; exits non-zero without either, and on any failed phase. Phases:
    plain version on the inputs it got; then one greedy device decode run on
    the 4-lane context against the same tokens fed step by step through
    ``ctx.decode``;
-6. the ``{"kernels": [...]}`` line, the card's name and power limit, and the
+6. quantized served steps: the same prefill and decode step over q8 and q4
+   KV caches, every kernel launch held to its plain version and every K/V
+   store on the card held bit for bit to the CPU's store of the same rows;
+7. serving with ``--cache-type q4`` and a slot save path: four concurrent
+   completions (1000 and 2000 tokens, greedy and sampled), then a slot
+   saved, erased and restored over HTTP (codes equal, scales within 1e-6)
+   and a greedy continuation from it; then one context shift of a q4 lane
+   on the card held to the CPU's shift of a copy of it;
+8. the ``{"kernels": [...]}`` line, the card's name and power limit, and the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,6 +56,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -294,6 +307,104 @@ def phase_parity(peaks):
     return reports
 
 
+# Attention over quantized caches: report key -> (kernel, TPU kernel it
+# replaces, codec), B6-B8.
+KVQ = {"fa_q8": ("flash_attention_q8", "rrs_tpu/ops/flash_attention.py:398", "q8"),
+       "fa_q4hp": ("flash_attention_q4hp", "rrs_tpu/ops/flash_attention.py:519", "q4hp"),
+       "fa_q4": ("flash_attention_q4", "rrs_tpu/ops/flash_attention.py:457", "q4")}
+
+
+def kvq_caches(codec, b, hkv, s, d, gen):
+    """Random K and V quantized on the card: (k codes, k scales, v codes, v
+    scales) in the codec's layout (``q4`` is halves-packed at any head
+    count)."""
+    import torch
+
+    from rrs_tpu_torch.runtime import kv_codec
+
+    out = []
+    for _ in range(2):
+        x = torch.randn((b, hkv, s, d), generator=gen, device="cuda")
+        codes, sc = kv_codec.quantize_rows(x, 127.0 if codec == "q8" else 7.0)
+        if codec == "q4hp":
+            codes = kv_codec.pack_hp(codes)
+        elif codec == "q4":
+            codes = kv_codec.pack4(codes)
+        out += [codes.contiguous(), sc[:, :, None, :].contiguous()]
+        del x
+    return tuple(out)
+
+
+def phase_parity_kvq(peaks, reports):
+    """B6-B8 against their plain version (dequantize, then attention_ref) at
+    the bf16 kernel's qwen3-4b shapes: generate's T = 1 and 64 over a
+    1024-slot cache, a served decode step over 4 lanes of 4096 slots at
+    3999 / 1500 / 299 with lane 3 dead, and a served prefill chunk of
+    T = 1024 from 0 / 2048 / 3000 with lane 3 dead and one padded row;
+    timed beside the byte bound of the codes and scales up to each lane's
+    position (FLOPs at prefill), the plain version and SDPA over caches
+    dequantized to bf16 beforehand (a yardstick the port never calls)."""
+    import torch
+
+    from rrs_tpu_torch.ops import flash_attention as fa
+    from rrs_tpu_torch.runtime import kv_codec
+
+    bw, bf16_peak, _ = peaks
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    ms = lambda b: b / bw * 1e3                             # noqa: E731
+    h, hkv, d = 32, 8, 128
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    sdpa = lambda qq, kk, vv, mm: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qq, kk, vv, attn_mask=mm, scale=scale)
+    for key, (name, replaces, codec) in KVQ.items():
+        rep = reports[key] = Report(name, "rrs_tpu_torch/csrc/flash_attention_kvq.cu", replaces,
+                                    "bytes")
+        fn = getattr(fa, name)
+        code_bytes = d if codec == "q8" else d // 2          # per kv head and slot
+        for t, s, starts, headline in ((1, 1024, (1000,), False), (64, 1024, (900,), False),
+                                       (1, 4096, (3999, 1500, 299, -1), True),
+                                       (1024, 4096, (0, 2048, 3000, -1), False)):
+            b = len(starts)
+            kv_bytes = 2 * b * hkv * s * (code_bytes + 4)
+            caches = [kvq_caches(codec, b, hkv, s, d, gen) for _ in range(n_copies(kv_bytes))]
+            q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            pos = torch.tensor([[st + i if st >= 0 else -1 for i in range(t)] for st in starts],
+                               device="cuda", dtype=torch.int32)
+            if t > 1:
+                pos[0, -1] = -1                                 # one padded row
+            got = fn(q, *caches[0], pos, scale)
+            ref = fa.attention_kvq_ref(q, *caches[0], pos, scale)
+            label = f"T={t} B={b} S={s}"
+            err, rel = compare(f"{name} {label}", got, ref, 8e-3)
+            if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
+                raise AssertionError(f"{name} {label}: a padded row must output 0")
+            valid = pos[pos >= 0].to(torch.int64)
+            pairs = int((valid + 1).sum().item()) * h
+            slots = sum(int(row.max().item()) + 1 for row in pos if row.max().item() >= 0)
+            t_bytes = ms(2 * hkv * slots * (code_bytes + 4) + 2 * b * t * h * d * 2 + b * t * 4)
+            t_ops = 4 * d * pairs / bf16_peak * 1e3
+            mask = (torch.arange(s, device="cuda")[None, None, :] <= pos[:, :, None]) \
+                & (pos[:, :, None] >= 0)
+            lib_sets = [(q.transpose(1, 2),
+                         kv_codec.dequantize(kq, ks).to(torch.bfloat16).repeat_interleave(g, 1),
+                         kv_codec.dequantize(vq, vs).to(torch.bfloat16).repeat_interleave(g, 1),
+                         mask[:, None]) for kq, ks, vq, vs in caches[:2]]
+            reps = 40 if t == 1 else (10 if t <= 64 else 3)
+            rep.add({"shape": f"{label} H={h} Hkv={hkv} D={d}" + (" lane 3 dead" if b > 1 else ""),
+                     "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
+                     "ms": time_ms(lambda *c: fn(q, *c, pos, scale), caches, reps),
+                     "plain_ms": time_ms(lambda *c: fa.attention_kvq_ref(q, *c, pos, scale),
+                                         caches, max(2, reps // 4)),
+                     "library_ms": time_ms(sdpa, lib_sets, reps),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
+                    headline=headline)
+            del caches, lib_sets, ref
+    torch.cuda.empty_cache()
+
+
 def phase_i8p(peaks, reports):
     """B5 at the prefill M of the serving and generate paths (n_lanes x
     bucket: 256 to 4096) for the four qwen3-4b projections: the kernel
@@ -368,7 +479,11 @@ def phase_i8p(peaks, reports):
 
 
 SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "tcq4_matmul_i8p": 1e-5,
-             "q8_matmul": 1e-3, "flash_attention": 8e-3}
+             "q8_matmul": 1e-3, "flash_attention": 8e-3, "flash_attention_q8": 8e-3,
+             "flash_attention_q4hp": 8e-3, "flash_attention_q4": 8e-3}
+# the kernels of a step over a bf16 cache
+BF16_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
+             "flash_attention"}
 # a bf16 output may land one ulp (2^-8 relative) off where the two sums
 # round to either side of a bf16 step
 BF16_OUT_TOL = 8e-3
@@ -392,7 +507,10 @@ def held_to_plain(label: str, expect):
               (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
               (tm, "tcq4_matmul_i8p", tm.tcq4_matmul_i8p_plain),
               (q8, "q8_matmul", q8.q8_matmul_plain),
-              (llama, "flash_attention", fa.attention_ref)]
+              (llama, "flash_attention", fa.attention_ref),
+              (llama, "flash_attention_q8", fa.attention_kvq_ref),
+              (llama, "flash_attention_q4hp", fa.attention_kvq_ref),
+              (llama, "flash_attention_q4", fa.attention_kvq_ref)]
     originals = [getattr(mod, name) for mod, name, _ in hooked]
     seen: dict = {}
 
@@ -403,7 +521,7 @@ def held_to_plain(label: str, expect):
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             tol = BF16_OUT_TOL if out.dtype == torch.bfloat16 else SMALL_TOL[name]
-            shape = tuple(args[0].shape) if name != "flash_attention" else \
+            shape = tuple(args[0].shape) if not name.startswith("flash_attention") else \
                 tuple(args[0].shape[:2]) + (args[1].shape[2],)
             if not torch.isfinite(out.float()).all() or rel > tol:
                 raise AssertionError(f"{label}: {name} {shape} disagrees with its plain "
@@ -427,9 +545,10 @@ def held_to_plain(label: str, expect):
 def phase_variants():
     """Each kernel's other instantiations against its plain version: gx2 at
     M = 2 and 8 and a ragged N, the prefill kernel with a bf16 output (padded
-    M >= 1024) and a ragged N, and attention at head dims 64 and 256, without
-    grouping, over two lanes with one padded, and with each option (window
-    over a ring cache, softcap, ALiBi, sinks)."""
+    M >= 1024) and a ragged N, and attention over bf16, q8, q4 head-pair and
+    q4 halves caches at head dims 64 and 256, without grouping, over two
+    lanes with one padded, and with each option (window over a ring cache,
+    softcap, ALiBi, sinks)."""
     import torch
 
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -464,28 +583,33 @@ def phase_variants():
     cases = {"D=64": dict(d=64), "D=256": dict(d=256), "G=1": dict(h=8, hkv=8),
              "B=2 dead lane": dict(b=2), "window ring": dict(s=64, window=24, start=100),
              "softcap": dict(softcap=20.0), "alibi": dict(alibi=8.0), "sinks": dict(sinks=True)}
-    for name, c in cases.items():
-        b, t, h, hkv, d, s = c.get("b", 1), 9, c.get("h", 8), c.get("hkv", 2), c.get("d", 128), \
-            c.get("s", 160)
-        start = c.get("start", 60)
-        q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
-        kc = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
-        vc = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(torch.bfloat16)
-        pos = torch.arange(start, start + t, device=dev, dtype=torch.int32).repeat(b, 1)
-        pos[0, -2:] = -1                                    # two padded rows
-        if b > 1:
-            pos[1] = -1                                     # a lane with no token
-        kw = dict(softcap=c.get("softcap", 0.0), window=c.get("window", 0),
-                  alibi=c.get("alibi", 0.0))
-        if c.get("sinks"):
-            kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
-        scale = 1.0 / math.sqrt(d)
-        got = fa.flash_attention(q, kc, vc, pos, scale, **kw)
-        compare(f"flash_attention {name}", got, fa.attention_ref(q, kc, vc, pos, scale, **kw),
-                SMALL_TOL["flash_attention"])
-        if got[pos < 0].float().abs().max().item() != 0.0:
-            raise AssertionError(f"flash_attention {name}: a padded row must output 0")
-        done.append(f"flash {name}")
+    for codec in ("bf16", "q8", "q4hp", "q4"):
+        for name, c in cases.items():
+            b, t, h, hkv, d, s = c.get("b", 1), 9, c.get("h", 8), c.get("hkv", 2), \
+                c.get("d", 128), c.get("s", 160)
+            start = c.get("start", 60)
+            q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            if codec == "bf16":
+                caches = tuple(torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
+                    torch.bfloat16) for _ in range(2))
+                kernel, plain = fa.flash_attention, fa.attention_ref
+            else:
+                caches = kvq_caches(codec, b, hkv, s, d, gen)
+                kernel, plain = getattr(fa, KVQ["fa_" + codec][0]), fa.attention_kvq_ref
+            pos = torch.arange(start, start + t, device=dev, dtype=torch.int32).repeat(b, 1)
+            pos[0, -2:] = -1                                # two padded rows
+            if b > 1:
+                pos[1] = -1                                 # a lane with no token
+            kw = dict(softcap=c.get("softcap", 0.0), window=c.get("window", 0),
+                      alibi=c.get("alibi", 0.0))
+            if c.get("sinks"):
+                kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
+            scale = 1.0 / math.sqrt(d)
+            got = kernel(q, *caches, pos, scale, **kw)
+            compare(f"{kernel.__name__} {name}", got, plain(q, *caches, pos, scale, **kw), 8e-3)
+            if got[pos < 0].float().abs().max().item() != 0.0:
+                raise AssertionError(f"{kernel.__name__} {name}: a padded row must output 0")
+            done.append(f"{codec} {name}")
     print(f"  variants agree with their plain versions: {', '.join(done)}", flush=True)
 
 
@@ -496,7 +620,7 @@ def phase_variants():
 GLUE_TOL = 0.05
 
 
-def phase_small_reference():
+def phase_small_reference(reports):
     """A 2-layer model (E=1024, 16/8 heads x 128) through prefill and one
     decode step, on the card and on the CPU.
 
@@ -508,7 +632,14 @@ def phase_small_reference():
     change the argmax. The glue is held where no int4 step amplifies
     rounding: the same config with dense bf16 weights must give the CPU's
     logits within GLUE_TOL, and the W4A4 glue (rotation with a gather,
-    activation quant) must give the CPU's values op by op."""
+    activation quant) must give the CPU's values op by op.
+
+    The dense model also runs over q8 and q4 (head-pair) KV caches: q8 is
+    held within GLUE_TOL, q4 only reported (its int4 codes flip on ulp
+    differences of K and V, as W4A4 codes do). Then the B8 path: a 2-layer
+    model with 3 kv heads and a q4 cache, which takes the halves layout, runs
+    ``generate`` on the card with every B8 launch held to its plain
+    version, its launches counted from 0."""
     import torch
 
     from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
@@ -534,15 +665,18 @@ def phase_small_reference():
     cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=8,
                       head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
                       rope_theta=1e6, qk_norm=True)
-    models = {"W4A4": llama.fabricated_tcq4_weights(cfg, seed=1, device="cpu"),
-              "dense": llama.random_weights(cfg, seed=1, device="cpu")}
+    dense = llama.random_weights(cfg, seed=1, device="cpu")
+    models = {"W4A4": (llama.fabricated_tcq4_weights(cfg, seed=1, device="cpu"), "none"),
+              "dense": (dense, "none"), "dense q8 KV": (dense, "q8"),
+              "dense q4 KV": (dense, "q4")}
     prompt = list(range(7, 47))                              # 40 tokens -> bucket 64
     logits = {}
     # M = 64 < 256: the prefill takes tcq4_matmul, not i8p
-    with held_to_plain("small model", set(SMALL_TOL) - {"tcq4_matmul_i8p"}) as seen:
-        for kind, w_cpu in models.items():
+    expect = (BF16_PATH - {"tcq4_matmul_i8p"}) | {"flash_attention_q8", "flash_attention_q4hp"}
+    with held_to_plain("small model", expect) as seen:
+        for kind, (w_cpu, quant) in models.items():
             for dev, w in (("cuda", llama.to_device(w_cpu, "cuda")), ("cpu", w_cpu)):
-                ctx = InferenceContext(cfg, w, max_seq=256, device=dev)
+                ctx = InferenceContext(cfg, w, max_seq=256, kv_quant=quant, device=dev)
                 seq = ctx.new_sequence()
                 pre = ctx.prefill(seq, prompt)[-1]
                 dec = ctx.decode({seq: 11})[seq]
@@ -556,13 +690,54 @@ def phase_small_reference():
             if got.shape != ref.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"small {kind} model {stage}: bad logits {tuple(got.shape)}")
             rel = ((got - ref).norm() / ref.norm()).item()
-            held = kind == "dense"
+            held = kind in ("dense", "dense q8 KV")
             print(f"  small {kind} model {stage} end to end, card vs CPU: rel L2 {rel:.4f}"
                   + (f" <= {GLUE_TOL}" if held else " (reported)")
                   + f", argmax {int(got.argmax())} vs {int(ref.argmax())}", flush=True)
             if held and rel > GLUE_TOL:
-                raise AssertionError(f"small dense model {stage}: the card's logits differ "
+                raise AssertionError(f"small {kind} model {stage}: the card's logits differ "
                                      f"from the CPU's by rel L2 {rel:.4f} > {GLUE_TOL}")
+    phase_halves_path(reports)
+
+
+def phase_halves_path(reports):
+    """The path that runs B8: a 2-layer model (E=1024, 12 heads on 3 kv heads
+    x 128, dense weights) with a q4 cache, whose odd kv-head count takes the
+    halves layout. ``generate`` (a 40-token prompt, 8 greedy tokens) on the
+    card with its launch counts set to 0 before and read after, every B8
+    launch held to its plain version on its inputs; the tokens are reported
+    beside the CPU's."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=12, n_kv_heads=3,
+                      head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
+                      rope_theta=1e6, qk_norm=True)
+    w_cpu = llama.random_weights(cfg, seed=3, device="cpu")
+    prompt = list(range(100, 140))
+    cpu = InferenceContext(cfg, w_cpu, max_seq=256, kv_quant="q4", device="cpu")
+    ref = cpu.generate(prompt, 8)
+    ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=256, kv_quant="q4")
+    if tuple(ctx.kv.k[0][0].shape) != (1, 3, 256, 64):
+        raise AssertionError(f"odd-Hkv q4 cache: {tuple(ctx.kv.k[0][0].shape)}, not halves")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with held_to_plain("halves path", {"flash_attention_q4"}) as seen:
+        out = ctx.generate(prompt, 8)
+        torch.cuda.synchronize()
+    n = kernels.LAUNCHES["flash_attention_q4"]
+    if len(out) != 8 or n == 0:
+        raise AssertionError(f"halves path: {len(out)} tokens, {n} B8 launches")
+    reports["fa_q4"].entry["launches"] = n
+    print(f"  halves path (3 kv heads, q4 KV, generate 40 + 8): {n} flash_attention_q4 "
+          f"launches, each within {SMALL_TOL['flash_attention_q4']:.0e} of its plain version "
+          f"(max rel {seen['flash_attention_q4'][0]:.2e}; shapes "
+          f"{sorted(seen['flash_attention_q4'][1])}); greedy tokens {out} vs the CPU's {ref} "
+          f"(reported)", flush=True)
 
 
 def phase_main_path(reports):
@@ -618,7 +793,52 @@ COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul
             "q8": "q8_matmul", "fa": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmul",
                 "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
-                "flash_kernel": "flash_attention"}
+                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq"}
+
+
+def phase_generate_kvq(cfg, weights, reports):
+    """``generate`` at full qwen3-4b width over q8 and then q4 (head-pair) KV
+    caches: prompts of 40 and 300 tokens, 32 greedy tokens each, the launch
+    counts set to 0 before and read after each run; prefill and decode tok/s,
+    the cache's resident bytes and the peak memory; then a decode profile of
+    the q4 context."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    rng = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 300)]
+    for quant, key in (("q8", "fa_q8"), ("q4", "fa_q4hp")):
+        name = KVQ[key][0]
+        warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant=quant)
+        warm.generate(prompts[0][:5], 2)                      # first-call set-up
+        del warm
+        ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant=quant)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        outs = [ctx.generate(p, 32) for p in prompts]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        for out in outs:
+            if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+                raise AssertionError(f"generate {quant} KV returned {len(out)} tokens: {out}")
+        if launches[name] == 0 or launches["flash_attention"] != 0:
+            raise AssertionError(f"generate {quant} KV: {name} launched {launches[name]} times, "
+                                 f"bf16 attention {launches['flash_attention']}")
+        reports[key].entry["launches"] = launches[name]
+        perf = ctx.perf()
+        print(f"  generate, {quant} KV: prompts 40/300 x 32 new tokens; prefill "
+              f"{perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode "
+              f"{perf['n_eval']} tok @ {perf['tg_tok_per_s']:.2f} tok/s "
+              f"({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} ms/token); KV resident "
+              f"{ctx.kv.nbytes() / GB:.3f} GB (S=1024), peak memory "
+              f"{torch.cuda.max_memory_allocated() / GB:.2f} GB; greedy tokens {outs[0][:8]}...; "
+              f"launches {launches}", flush=True)
+        if quant == "q4":
+            profile_decode(ctx, prompts[0])
+        del ctx
 
 
 def host_top(prof, steps: int, n: int = 8) -> str:
@@ -859,7 +1079,7 @@ def phase_served_steps_held(ctx):
     chunks = {seq: torch.randint(2, ctx.cfg.vocab_size, (n,), generator=rng).tolist()
               for seq, n in zip(seqs, (1000, 700, 40))}
     t0 = time.perf_counter()
-    with held_to_plain("served steps", SMALL_TOL) as seen:
+    with held_to_plain("served steps", BF16_PATH) as seen:
         last = ctx.prefill_multi(chunks)
         out = ctx.decode({seq: int(last[seq].argmax()) for seq in seqs})
         torch.cuda.synchronize()
@@ -968,6 +1188,274 @@ def profile_decode_run(ctx, seqs, first, lengths):
     print(f"  decode-run profile, host ms/step by op: {host_top(prof, n)}", flush=True)
 
 
+@contextlib.contextmanager
+def store_held(label: str):
+    """While open, every K/V store of the model into a quantized cache on the
+    card is checked against the plain store on the CPU of the same new rows:
+    the codes and scales it wrote must be bit-equal (a division by a CPU
+    scalar on the card rounds once more than on the CPU, and flips them).
+    Yields {"stores": n, "rows": rows written}."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.runtime import kv_codec
+
+    orig = llama._store_cache
+    seen = {"stores": 0, "rows": 0}
+
+    def checked(cache, new, starts):
+        orig(cache, new, starts)
+        if not isinstance(cache, tuple):
+            return
+        arr, sc = cache
+        t = new.shape[2]
+        q, s_new = kv_codec.quantize_rows(new.cpu(), kv_codec.kv_qmax(arr))
+        q = kv_codec.pack_like(q, arr, sc)
+        for lane, st in enumerate(starts):
+            if not (torch.equal(arr[lane, :, st:st + t].cpu(), q[lane])
+                    and torch.equal(sc[lane, :, 0, st:st + t].cpu(), s_new[lane])):
+                raise AssertionError(f"{label}: the card's {arr.dtype} store of lane {lane} "
+                                     f"(T={t}) differs from the CPU's")
+        seen["stores"] += 1
+        seen["rows"] += new.shape[0] * new.shape[1] * t
+
+    llama._store_cache = checked
+    try:
+        yield seen
+    finally:
+        llama._store_cache = orig
+
+
+def phase_served_steps_kvq(cfg, weights):
+    """The served prefill step (chunks of 1000 / 700 / 40 tokens in one
+    T = 1024 step, lane 3 dead) and one 4-lane decode step at qwen3-4b width
+    over q8 and q4 (head-pair) caches of 4 x 4096 slots: every kernel launch
+    held to its plain version on its inputs, every K/V store held bit for
+    bit to the CPU's."""
+    import torch
+
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    rng = torch.Generator().manual_seed(5)
+    for quant, name in (("q8", "flash_attention_q8"), ("q4", "flash_attention_q4hp")):
+        ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096, kv_quant=quant)
+        seqs = [ctx.new_sequence() for _ in range(3)]
+        chunks = {seq: torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
+                  for seq, n in zip(seqs, (1000, 700, 40))}
+        t0 = time.perf_counter()
+        with held_to_plain(f"served steps {quant} KV", BF16_PATH - {"flash_attention"} | {name}) \
+                as seen, store_held(f"served steps {quant} KV") as stores:
+            last = ctx.prefill_multi(chunks)
+            out = ctx.decode({seq: int(last[seq].argmax()) for seq in seqs})
+            torch.cuda.synchronize()
+        for seq in seqs:
+            if not torch.isfinite(out[seq]).all():
+                raise AssertionError(f"served steps {quant} KV: non-finite decode logits")
+        worst, shapes = seen[name]
+        print(f"  served steps, {quant} KV: {name} within {SMALL_TOL[name]:.0e} of its plain "
+              f"version (max rel {worst:.2e}, shapes {sorted(shapes)}); "
+              + ", ".join(f"{k} {v[0]:.2e}" for k, v in seen.items() if k != name)
+              + f"; {stores['stores']} K/V stores ({stores['rows']} rows) bit-equal to the "
+              f"CPU's; {time.perf_counter() - t0:.1f} s", flush=True)
+        del ctx
+
+
+SERVE_Q4_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
+
+
+def phase_serving_q4(cfg, weights, reports):
+    """The server in-process at qwen3-4b width with ``--cache-type q4``: 4
+    slots, ctx 4096, a slot save path in a temporary directory. Four
+    concurrent completions (1000 / 2000 tokens, 64 new; two greedy, two
+    sampled), then over HTTP: save slot 0, erase it, restore it (the lane's
+    codes must equal the saved lane's, its scales within 1e-6 relative), and
+    a greedy continuation that reuses the restored prefix. Returns the
+    context for the context-shift check."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.kv_cache import KVCache
+    from rrs_tpu_torch.serving.engine import Engine
+    from rrs_tpu_torch.serving.server import ServerState, make_handler
+
+    resident = {q: KVCache.create(cfg, 4, 4096, device="meta", quant=q).nbytes() / GB
+                for q in ("none", "q8", "q4")}
+    print("  resident KV at 4 slots x 4096, 36 layers: "
+          + ", ".join(f"{'bf16' if q == 'none' else q} {v:.3f} GB" for q, v in resident.items()),
+          flush=True)
+    ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096, kv_quant="q4")
+    engine = Engine(ctx)
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, "qwen3-4b-fabricated")
+    tmp = tempfile.TemporaryDirectory()
+    state.slot_save_path = tmp.name
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    rng = torch.Generator().manual_seed(9)
+    ids = lambda n: torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()  # noqa: E731
+    jobs = []
+    for i, n in enumerate(SERVE_Q4_LENGTHS):
+        body = {"prompt": ids(n), "max_tokens": SERVE_NEW, "seed": i}
+        if i < 2:
+            body["temperature"] = 0.0
+        jobs.append((f"q4 completion {n} {'greedy' if i < 2 else 'sampled'} #{i}", body))
+    results: dict = {}
+
+    def run(job):
+        name, body = job
+        t0 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/completions", body)
+        results[name] = (status, data, t0, time.perf_counter(), body)
+
+    engine.start()
+    server_thread.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("q4 serving: a request did not finish within 900 s")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / GB
+        round_trip = slot_round_trip(port, engine, ids)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        tmp.cleanup()
+    if engine._thread.is_alive():
+        raise AssertionError("q4 serving: the engine thread did not stop")
+    decode_spans, n_decode = [], 0
+    for name, (status, data, t0, t1, body) in results.items():
+        if status != 200:
+            raise AssertionError(f"q4 serving: {name} answered {status}: {data[:300]!r}")
+        out = json.loads(data)
+        reason = out["choices"][0]["finish_reason"]
+        n_out = out["usage"]["completion_tokens"]
+        if reason not in ("length", "stop") or (reason == "length") != (n_out == SERVE_NEW) \
+                or n_out > SERVE_NEW:
+            raise AssertionError(f"q4 serving: {name} finished by {reason} with {n_out} tokens")
+        tm = out["timings"]
+        start = t0 + tm["prompt_ms"] / 1e3
+        decode_spans.append((start, start + tm["predicted_ms"] / 1e3))
+        n_decode += max(n_out - 1, 0)
+        print(f"  {name}: {n_out} tokens ({reason}), time to first token {tm['prompt_ms']:.1f} "
+              f"ms, decode {(n_out - 1) / max(tm['predicted_ms'] / 1e3, 1e-9):.2f} tok/s",
+              flush=True)
+    busy = _union_seconds(decode_spans)
+    print(f"  q4 KV served {len(results)} requests in {wall:.1f} s; decode tok/s summed over the "
+          f"4 slots {n_decode / busy:.2f} ({n_decode} tokens over {busy:.1f} s); KV resident "
+          f"{ctx.kv.nbytes() / GB:.3f} GB; peak memory {peak:.2f} GB; launches {launches}",
+          flush=True)
+    print(f"  {round_trip}", flush=True)
+    n = launches["flash_attention_q4hp"]
+    if n == 0 or launches["flash_attention"] != 0:
+        raise AssertionError(f"q4 serving: flash_attention_q4hp launched {n} times, bf16 "
+                             f"attention {launches['flash_attention']}")
+    reports["fa_q4hp"].entry["launches_serve"] = n
+    return ctx
+
+
+def slot_round_trip(port, engine, ids) -> str:
+    """Save slot 0's retained sequence, erase it and restore it over HTTP;
+    the restored lane must hold the saved codes (scales within 1e-6
+    relative); then a greedy continuation of its tokens must reuse the
+    restored prefix and finish with its token count."""
+    import torch
+
+    kv = engine.ctx.kv
+    slot = engine.slots[0]
+
+    def snapshot():
+        lane = kv.lane_of(slot.retained_seq)
+        n = kv.lengths[lane]
+        return n, [(c[0][lane, :, :n].clone(), c[1][lane, :, 0, :n].clone())
+                   for c in kv.k + kv.v]
+
+    n, before = engine.call(snapshot)
+    status, data = _http(port, "POST", "/slots/0?action=save", {"filename": "slot0.rrsstate"})
+    if status != 200 or json.loads(data)["n_saved"] != n:
+        raise AssertionError(f"slot save: {status} {data[:300]!r}")
+    n_bytes = json.loads(data)["n_written"]
+    status, data = _http(port, "POST", "/slots/0?action=erase", {})
+    if status != 200 or slot.retained_seq >= 0:
+        raise AssertionError(f"slot erase: {status} {data[:300]!r}")
+    status, data = _http(port, "POST", "/slots/0?action=restore", {"filename": "slot0.rrsstate"})
+    if status != 200 or json.loads(data)["n_restored"] != n:
+        raise AssertionError(f"slot restore: {status} {data[:300]!r}")
+    n2, after = engine.call(snapshot)
+    worst = 0.0
+    for (c0, s0), (c1, s1) in zip(before, after):
+        if not torch.equal(c0, c1):
+            raise AssertionError("slot restore: the restored codes differ from the saved lane's")
+        worst = max(worst, ((s1 - s0).abs() / s0).max().item())
+    if n2 != n or worst > 1e-6:
+        raise AssertionError(f"slot restore: {n2} of {n} slots, scales rel {worst:.2e} > 1e-6")
+    prompt = list(slot.cache_tokens) + ids(5)
+    status, data = _http(port, "POST", "/v1/completions",
+                         {"prompt": prompt, "max_tokens": 16, "temperature": 0.0})
+    out = json.loads(data) if status == 200 else {}
+    if status != 200 or out["usage"]["completion_tokens"] != 16 \
+            or out["choices"][0]["finish_reason"] != "length" or slot.n_reused != n:
+        raise AssertionError(f"continuation from the restored slot: {status} {data[:300]!r}, "
+                             f"reused {slot.n_reused} of {n}")
+    return (f"slot 0 round trip: saved {n} slots ({n_bytes / 1e6:.1f} MB file), erased, "
+            f"restored with equal codes and scales within rel {worst:.1e}; a greedy "
+            f"continuation reused {slot.n_reused} cached tokens and gave 16 tokens")
+
+
+def phase_shift_q4(ctx):
+    """One context shift of a q4 head-pair lane on the card (keep 1, drop
+    half), held to the CPU's shift of a copy of that lane: dequantized K
+    within one quantization step per element, V codes and scales equal."""
+    import torch
+
+    from rrs_tpu_torch.runtime import kv_codec
+    from rrs_tpu_torch.runtime.kv_cache import KVCache
+
+    kv, cfg = ctx.kv, ctx.cfg
+    seq = max((s for s in kv.seq_ids if s is not None), key=lambda s: kv.lengths[kv.lane_of(s)])
+    lane = kv.lane_of(seq)
+    n = kv.lengths[lane]
+    cpu = KVCache.create(cfg, 1, kv.max_seq, device="cpu", quant="q4")
+    for dst, src in zip(cpu.k + cpu.v, kv.k + kv.v):
+        for d_t, s_t in zip(dst, src):
+            d_t[0].copy_(s_t[lane].cpu())
+    cpu.seq_new(seq)
+    cpu.lengths[0] = n
+    t0 = time.perf_counter()
+    kv.seq_shift(cfg, seq, 1, n // 2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    cpu.seq_shift(cfg, seq, 1, n // 2)
+    worst = 0.0
+    for (ka, ks), (ca, cs) in zip(kv.k, cpu.k):
+        got = kv_codec.dequantize(ka[lane].cpu(), ks[lane].cpu())
+        ref = kv_codec.dequantize(ca[0], cs[0])
+        step = torch.maximum(ks[lane].cpu(), cs[0]).transpose(-1, -2)
+        worst = max(worst, ((got - ref).abs() / step).max().item())
+    if worst > 1.0001:
+        raise AssertionError(f"context shift: K {worst:.3f} quantization steps from the CPU's")
+    for (va, vs), (ca, cs) in zip(kv.v, cpu.v):
+        if not (torch.equal(va[lane].cpu(), ca[0]) and torch.equal(vs[lane].cpu(), cs[0])):
+            raise AssertionError("context shift: V codes or scales differ from the CPU's")
+    if kv.lengths[lane] != cpu.lengths[0] or kv.lengths[lane] != n - n // 2:
+        raise AssertionError(f"context shift: lengths {kv.lengths[lane]} / {cpu.lengths[0]}")
+    print(f"  context shift of a q4 lane on the card (keep 1, drop {n // 2} of {n}, "
+          f"{dt * 1e3:.0f} ms): K within {worst:.3f} quantization steps of the CPU's, V codes "
+          f"and scales equal", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -984,33 +1472,46 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    print("[1/6] build", flush=True)
+    print("[1/8] build", flush=True)
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[2/6] kernel parity at the qwen3-4b main-path shapes", flush=True)
+    print("[2/8] kernel parity at the qwen3-4b main-path shapes", flush=True)
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
+    phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    print("[3/6] main path: small-model reference, then generate at qwen3-4b width",
-          flush=True)
-    phase_small_reference()
+    print("[3/8] main path: small-model references, the q4 halves path, then generate at "
+          "qwen3-4b width over bf16, q8 and q4 KV", flush=True)
+    phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
+    phase_generate_kvq(cfg, weights, reports)
 
-    print("[4/6] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
+    print("[4/8] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
     ctx = phase_serving(cfg, weights, reports)
 
-    print("[5/6] served steps held to the plain versions; device decode run against "
+    print("[5/8] served steps held to the plain versions; device decode run against "
           "step-by-step decode", flush=True)
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
+    del ctx
+    torch.cuda.empty_cache()
+
+    print("[6/8] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
+    phase_served_steps_kvq(cfg, weights)
+
+    print("[7/8] serving with --cache-type q4: slot save / erase / restore, context shift",
+          flush=True)
+    ctx = phase_serving_q4(cfg, weights, reports)
+    phase_shift_q4(ctx)
     del ctx, weights
 
-    print("[6/6] summary", flush=True)
-    print(json.dumps({"kernels": [r.entry for r in reports.values()]}))
+    print("[8/8] summary", flush=True)
+    order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4")
+    print(json.dumps({"kernels": [reports[k].entry for k in order]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -2,9 +2,9 @@
 
 The ``generate``, ``serve`` and ``chat`` verbs of ``rrs_tpu/__main__.py``
 with the same flags, plus ``--device`` (default ``cuda``; ``cpu`` must be
-asked for). Flags whose feature is not ported yet (quantized KV, speculative
-and lookup decoding, multimodal projectors, the multi-model router, slot
-save paths, tensor / data parallelism) raise NotImplementedError when set.
+asked for). Flags whose feature is not ported yet (speculative and lookup
+decoding, multimodal projectors, the multi-model router, tensor / data
+parallelism) raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def main(argv=None):
     g.add_argument("--ctx", type=int, default=2048)
     g.add_argument("--no-bos", action="store_true")
     g.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"],
-                   help="KV cache quantization (only 'none' is ported)")
+                   help="KV cache quantization")
     g.add_argument("--model-draft", "-md", default=None,
                    help="draft model for speculative decoding (not ported)")
     g.add_argument("--draft", type=int, default=4, help="draft length")
@@ -51,7 +51,7 @@ def main(argv=None):
     s.add_argument("--parallel", type=int, default=4, help="server slots")
     s.add_argument("--ctx", type=int, default=4096)
     s.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"],
-                   help="KV cache quantization (only 'none' is ported)")
+                   help="KV cache quantization")
     s.add_argument("--models", nargs="*", default=None,
                    help="extra routable models name=path.gguf (not ported)")
     s.add_argument("--mmproj", default=None, help="multimodal projector GGUF (not ported)")
@@ -61,7 +61,7 @@ def main(argv=None):
     s.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                    help="override a GGUF metadata KV (repeatable)")
     s.add_argument("--slot-save-path", default=None,
-                   help="base dir for /slots save/restore (not ported)")
+                   help="base dir for /slots save/restore")
     s.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
     s.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
     s.add_argument("--dist-coordinator", default=None, help="(not ported)")
@@ -79,7 +79,7 @@ def main(argv=None):
     ch.add_argument("--ctx", type=int, default=2048)
     ch.add_argument("--n-predict", "-n", type=int, default=512, help="max tokens per reply")
     ch.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"],
-                    help="KV cache quantization (only 'none' is ported)")
+                    help="KV cache quantization")
     _device_arg(ch)
 
     args = p.parse_args(argv)
@@ -104,12 +104,10 @@ def _refuse_unported(args) -> None:
     slice (ROADMAP queue A)."""
     get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
     unported = {
-        "--cache-type (ROADMAP A7)": get("cache_type", "none") != "none",
         "--model-draft (ROADMAP A13)": get("model_draft") is not None,
         "--lookup (ROADMAP A13)": bool(get("lookup")),
         "--mmproj (ROADMAP A11)": get("mmproj") is not None,
         "--models (ROADMAP A13)": bool(get("models")),
-        "--slot-save-path (ROADMAP A13)": get("slot_save_path") is not None,
         "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
         "--dist-* (ROADMAP A12)": any(get(k) is not None
                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
@@ -128,7 +126,8 @@ def cmd_generate(args):
     cfg, weights, md = load_model(args.model, device=args.device,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
-    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx, device=args.device)
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx,
+                           kv_quant=args.cache_type, device=args.device)
     tokens = vocab.encode(args.prompt, add_special=not args.no_bos)
     params = SamplerParams(temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
                            seed=args.seed)
@@ -155,7 +154,8 @@ def cmd_chat(args, read_line=input):
 
     cfg, weights, md = load_model(args.model, device=args.device)
     vocab = Vocab.from_gguf(md)
-    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx, device=args.device)
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx,
+                           kv_quant=args.cache_type, device=args.device)
     template = str(md.get("tokenizer.chat_template", "") or "")
     fallback = detect_template(md)
     eng = Engine(ctx)

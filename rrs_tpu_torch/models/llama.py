@@ -6,7 +6,9 @@ projection -> RMSNorm -> SwiGLU FFN, then the final norm and the lm_head.
 
 Weights are plain dataclasses of tensors. Where the JAX forward returns new
 caches, this one writes the new K/V rows into the preallocated
-[B, Hkv, S, D] caches in place and returns only the logits.
+[B, Hkv, S, D] caches in place and returns only the logits. A quantized
+cache (a ``(codes, scales)`` pair, ``runtime/kv_codec.py``) takes the new
+rows quantized and packed, and is read by its own attention kernel.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from rrs_tpu_torch.models.linear import (
     want_i8p,
 )
 from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
-from rrs_tpu_torch.ops.flash_attention import flash_attention
+from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
+                                               flash_attention_q4hp, flash_attention_q8)
+from rrs_tpu_torch.runtime import kv_codec
 
 
 @dataclasses.dataclass
@@ -94,17 +98,41 @@ def _store_starts(cache_slots, mask_positions, s_l: int, t: int) -> list[int]:
             for sl, mk in zip(slots, masks)]
 
 
-def _store_cache(cache: torch.Tensor, new: torch.Tensor, starts: list[int]) -> None:
-    """Write ``new`` [B, Hkv, T, D] into ``cache`` [B, Hkv, S, D] in place at
-    the per-lane start slots (a contiguous run per lane)."""
+def _store_cache(cache, new: torch.Tensor, starts: list[int]) -> None:
+    """Write ``new`` [B, Hkv, T, D] into ``cache`` in place at the per-lane
+    start slots (a contiguous run per lane). A quantized ``(codes, scales)``
+    cache takes the rows quantized per (head, slot) and packed in its layout,
+    and their scales written as computed: JAX's decode store blends the scale
+    in (``sc + (s_new - sc) * onehot``), which can move it by an ulp."""
     t = new.shape[2]
+    if isinstance(cache, tuple):
+        arr, sc = cache
+        q, s_new = kv_codec.quantize_rows(new, kv_codec.kv_qmax(arr))   # [B, Hkv, T, D], [B, Hkv, T]
+        q = kv_codec.pack_like(q, arr, sc)
+        for lane, st in enumerate(starts):
+            arr[lane, :, st:st + t] = q[lane]
+            sc[lane, :, 0, st:st + t] = s_new[lane]
+        return
     new = new.to(cache.dtype)
     for lane, st in enumerate(starts):
         cache[lane, :, st:st + t] = new[lane]
 
 
+def attend(q, k_cache, v_cache, mask_positions, scale: float) -> torch.Tensor:
+    """Attention over a bf16 cache, or over a quantized one by its layout:
+    int8 codes take the q8 kernel, uint8 head-pair codes the q4hp kernel and
+    halves-packed codes the q4 kernel."""
+    if not isinstance(k_cache, tuple):
+        return flash_attention(q, k_cache, v_cache, mask_positions, scale)
+    if k_cache[0].dtype == torch.uint8:
+        kern = flash_attention_q4hp if kv_codec.is_head_pair(*k_cache) else flash_attention_q4
+    else:
+        kern = flash_attention_q8
+    return kern(q, *k_cache, *v_cache, mask_positions, scale)
+
+
 def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
-              positions: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+              positions: torch.Tensor, k_cache, v_cache,
               mask_positions: torch.Tensor, starts: list[int]) -> torch.Tensor:
     b, t, _ = x.shape
     d = cfg.head_dim
@@ -128,7 +156,7 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     _store_cache(k_cache, k.transpose(1, 2), starts)
     _store_cache(v_cache, v.transpose(1, 2), starts)
     scale = 1.0 / np.sqrt(d)
-    ctx = flash_attention(q.contiguous(), k_cache, v_cache, mask_positions, scale)
+    ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
     return linear_apply(lw.wo, ctx)
 
@@ -157,7 +185,7 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
-    s_l = k_caches[0].shape[2]
+    s_l = (k_caches[0][0] if isinstance(k_caches[0], tuple) else k_caches[0]).shape[2]
     if starts is None:
         starts = _store_starts(cache_slots, mask_positions, s_l, tokens.shape[1])
     mask_dev = torch.as_tensor(mask_positions).to(dev)

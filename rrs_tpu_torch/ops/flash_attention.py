@@ -1,14 +1,19 @@
-"""Attention over the KV cache: the flash kernel and its plain version.
+"""Attention over the KV cache: the flash kernels and their plain versions.
 
-Port of ``rrs_tpu/ops/flash_attention.py`` (``flash_attention`` and its
-oracle ``attention_ref``). Semantics: GQA with q heads grouped onto kv heads;
-the causal mask comes from per-row positions and -1 marks a padded row, which
-outputs 0; ring caches with a sliding window; logit softcap; ALiBi; per-head
-sinks that join only the softmax denominator. Caches are [B, Hkv, S, D].
+Port of ``rrs_tpu/ops/flash_attention.py`` (``flash_attention``,
+``flash_attention_q8``, ``flash_attention_q4``, ``flash_attention_q4hp`` and
+the oracle ``attention_ref``). Semantics: GQA with q heads grouped onto kv
+heads; the causal mask comes from per-row positions and -1 marks a padded
+row, which outputs 0; ring caches with a sliding window; logit softcap;
+ALiBi; per-head sinks that join only the softmax denominator. Caches are
+[B, Hkv, S, D]; the quantized ones are ``runtime/kv_codec.py``'s (codes,
+f32 [B, Hkv, 1, S] scales) layouts, and their function is dequantize, then
+attend.
 
-The wrapper takes ``attention_ref`` only for CPU tensors; for CUDA tensors it
-launches ``csrc/flash_attention.cu`` (bf16 q and caches, D in 64/128/256) or
-raises.
+Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
+it launches its kernel (``csrc/flash_attention.cu`` for bf16 caches,
+``csrc/flash_attention_kvq.cu`` for the quantized ones; bf16 q, D in
+64/128/256) or raises.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import numpy as np
 import torch
 
 from rrs_tpu_torch import kernels
+from rrs_tpu_torch.runtime import kv_codec
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -117,3 +123,85 @@ def flash_attention(q, k_cache, v_cache, positions, scale: float,
     kernels.check("flash_attention", code)
     return out
 
+
+
+# codec ids of rrs_flash_attention_kvq (csrc/flash_attention_kvq.cu)
+_CODECS = {"flash_attention_q8": 0, "flash_attention_q4hp": 1, "flash_attention_q4": 2}
+
+
+def attention_kvq_ref(q, k_q, k_s, v_q, v_s, positions, scale, softcap=0.0, window: int = 0,
+                      sinks=None, alibi: float = 0.0):
+    """Plain version of the three quantized-cache kernels: dequantize both
+    caches, then ``attention_ref`` (what the JAX package runs on the CPU)."""
+    return attention_ref(q, kv_codec.dequantize(k_q, k_s), kv_codec.dequantize(v_q, v_s),
+                         positions, scale, softcap=softcap, window=window, sinks=sinks,
+                         alibi=alibi)
+
+
+def _attention_kvq(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, window, sinks,
+                   alibi):
+    """Shared wrapper of the three quantized-cache kernels: the plain version
+    for CPU tensors, else the launch."""
+    if q.device.type == "cpu":
+        return attention_kvq_ref(q, k_q, k_s, v_q, v_s, positions, scale, softcap=softcap,
+                                 window=window, sinks=sinks, alibi=alibi)
+    b, t, h, d = q.shape
+    hkv, s = k_s.shape[1], k_s.shape[3]
+    planes, row = {"flash_attention_q8": (hkv, d), "flash_attention_q4hp": (hkv // 2, d),
+                   "flash_attention_q4": (hkv, d // 2)}[name]
+    want = torch.int8 if name == "flash_attention_q8" else torch.uint8
+    if h % hkv or (name == "flash_attention_q4hp" and hkv % 2) \
+            or k_q.shape != (b, planes, s, row) or v_q.shape != k_q.shape \
+            or k_s.shape != (b, hkv, 1, s) or v_s.shape != k_s.shape \
+            or positions.shape != (b, t):
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, k {tuple(k_q.shape)} + "
+                         f"{tuple(k_s.shape)}, v {tuple(v_q.shape)} + {tuple(v_s.shape)}, "
+                         f"positions {tuple(positions.shape)}")
+    if d not in (64, 128, 256):
+        raise NotImplementedError(f"{name}: head dim {d} has no CUDA kernel")
+    if q.dtype != torch.bfloat16 or k_q.dtype != want or v_q.dtype != want \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 q, {want} codes and f32 scales")
+    dev = kernels.check_tensors(name, q, k_q, k_s, v_q, v_s)
+    pos = positions.to(device=dev, dtype=torch.int32).contiguous()
+    sk = None
+    if sinks is not None:
+        sk = torch.as_tensor(sinks, dtype=torch.float32, device=dev).reshape(h).contiguous()
+    slopes = None
+    if alibi:
+        slopes = torch.from_numpy(alibi_slopes_np(h, alibi)).to(dev)
+    out = torch.empty_like(q)
+    code = kernels.lib().rrs_flash_attention_kvq(
+        _CODECS[name], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+        v_s.data_ptr(), pos.data_ptr(), None if sk is None else sk.data_ptr(),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(), b, t, h, hkv, s, d,
+        float(scale), float(softcap), int(window), kernels.stream_ptr(dev))
+    kernels.check(name, code)
+    return out
+
+
+def flash_attention_q8(q, k_q, k_s, v_q, v_s, positions, scale: float, softcap: float = 0.0,
+                       window: int = 0, sinks=None, alibi: float = 0.0):
+    """Attention over an int8 KV cache: codes [B, Hkv, S, D], scales
+    [B, Hkv, 1, S]. Returns [B, T, H, D] in q's dtype."""
+    return _attention_kvq("flash_attention_q8", q, k_q, k_s, v_q, v_s, positions, scale,
+                          softcap, window, sinks, alibi)
+
+
+def flash_attention_q4hp(q, k_q, k_s, v_q, v_s, positions, scale: float,
+                         softcap: float = 0.0, window: int = 0, sinks=None,
+                         alibi: float = 0.0):
+    """Attention over a head-pair packed int4 KV cache: codes
+    [B, Hkv/2, S, D] (+8 biased, head h in nibble h & 1), scales
+    [B, Hkv, 1, S]."""
+    return _attention_kvq("flash_attention_q4hp", q, k_q, k_s, v_q, v_s, positions, scale,
+                          softcap, window, sinks, alibi)
+
+
+def flash_attention_q4(q, k_q, k_s, v_q, v_s, positions, scale: float, softcap: float = 0.0,
+                       window: int = 0, sinks=None, alibi: float = 0.0):
+    """Attention over a halves-packed int4 KV cache: codes [B, Hkv, S, D/2]
+    (element d in the low nibble of byte d, d + D/2 in the high one), scales
+    [B, Hkv, 1, S]."""
+    return _attention_kvq("flash_attention_q4", q, k_q, k_s, v_q, v_s, positions, scale,
+                          softcap, window, sinks, alibi)

@@ -50,9 +50,10 @@ class InferenceContext:
 
     def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights,
                  n_lanes: int = 1, max_seq: int = 2048, kv_dtype=torch.bfloat16,
-                 device=None):
+                 kv_quant: str = "none", device=None):
         """``device``: where the step runs; ``None`` means ``cuda``, which
-        raises when there is no GPU. The weights must already live there."""
+        raises when there is no GPU. The weights must already live there.
+        ``kv_quant``: "none" (``kv_dtype`` caches), "q8" or "q4"."""
         self.device = resolve_device(device)
         if weights.device.type != self.device.type:
             raise ValueError(f"weights are on {weights.device}, context on {self.device}")
@@ -60,7 +61,8 @@ class InferenceContext:
         self.cfg = cfg
         self.weights = weights
         self.max_chunk = min(PREFILL_BUCKETS[-1], max_seq)
-        self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device)
+        self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
+                                 quant=kv_quant)
         self._next_seq_id = 0
         # perf counters (llama_perf_context analog)
         self.n_prefill_tokens = 0

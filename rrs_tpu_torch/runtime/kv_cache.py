@@ -1,16 +1,18 @@
 """KV cache: preallocated device tensors plus host-side lane bookkeeping.
 
-Port of the bf16 part of ``rrs_tpu/runtime/kv_cache.py``: per-layer
-[B, Hkv, S, D] caches (kv-head-major), one sequence per batch lane, and the
-lane operations the engine uses: ``seq_new`` with LRU eviction of retained
+Port of ``rrs_tpu/runtime/kv_cache.py`` for dense models: per-layer
+[B, Hkv, S, D] caches (kv-head-major), bf16 or quantized (``quant="q8"`` or
+``"q4"``: a ``(codes, f32 scales)`` tuple per layer in the layouts of
+``runtime/kv_codec.py``; q4 takes the head-pair layout for an even kv-head
+count and the halves layout for an odd one), one sequence per batch lane, and
+the lane operations the engine uses: ``seq_new`` with LRU eviction of retained
 prompt caches, ``mark_retained`` / ``unmark_retained``, ``has_seq``,
 ``seq_rm``, ``seq_cp``, ``seq_keep``, ``lengths_array`` and the context shift
 ``seq_shift``. The forward writes new rows into these tensors in place, and
 ``seq_cp`` / ``seq_shift`` update them in place too.
 
-Quantized KV, ring (sliding-window) caches, MLA rows, ``seq_div`` position
-remaps and M-RoPE deltas wait for their slices: ``seq_shift`` raises for the
-architectures that would need them.
+Ring (sliding-window) caches, MLA rows, tensor-parallel head sharding,
+``seq_div`` position remaps and M-RoPE deltas wait for their slices.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from rrs_tpu_torch.models.config import ModelConfig
 class KVCache:
     """Per-layer K/V device tensors plus host-side lane state."""
 
-    k: list                       # L x [B, Hkv, S, D]
+    k: list                       # L x [B, Hkv, S, D], or L x (codes, scales)
     v: list
     max_seq: int
     lengths: list                 # tokens currently stored per lane
@@ -38,17 +40,50 @@ class KVCache:
     retained: dict = dataclasses.field(default_factory=dict)
 
     @property
+    def quantized(self) -> bool:
+        return isinstance(self.k[0], tuple)
+
+    @property
     def n_lanes(self) -> int:
-        return self.k[0].shape[0]
+        return (self.k[0][0] if self.quantized else self.k[0]).shape[0]
 
     @classmethod
     def create(cls, cfg: ModelConfig, n_lanes: int, max_seq: int,
-               dtype=torch.bfloat16, device="cpu") -> "KVCache":
-        shape = (n_lanes, cfg.n_kv_heads, max_seq, cfg.head_dim)
-        k = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
-        v = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+               dtype=torch.bfloat16, device="cpu", quant: str = "none") -> "KVCache":
+        hkv, d = cfg.n_kv_heads, cfg.head_dim
+        shape = (n_lanes, hkv, max_seq, d)
+
+        def make():
+            if quant == "none":
+                return torch.zeros(shape, dtype=dtype, device=device)
+            scales = torch.ones((n_lanes, hkv, 1, max_seq), dtype=torch.float32, device=device)
+            if quant == "q8":
+                codes = torch.zeros(shape, dtype=torch.int8, device=device)
+            elif quant == "q4" and hkv % 2 == 0:
+                codes = torch.zeros((n_lanes, hkv // 2, max_seq, d), dtype=torch.uint8,
+                                    device=device)
+            elif quant == "q4":
+                codes = torch.zeros((n_lanes, hkv, max_seq, d // 2), dtype=torch.uint8,
+                                    device=device)
+            else:
+                raise ValueError(f"KV cache quantization {quant!r}: not none, q8 or q4")
+            return codes, scales
+
+        k = [make() for _ in range(cfg.n_layers)]
+        v = [make() for _ in range(cfg.n_layers)]
         return cls(k=k, v=v, max_seq=max_seq, lengths=[0] * n_lanes,
                    seq_ids=[None] * n_lanes)
+
+    def tensors(self) -> list:
+        """Every device tensor of the cache (codes and scales alike)."""
+        out = []
+        for c in self.k + self.v:
+            out.extend(c if isinstance(c, tuple) else (c,))
+        return out
+
+    def nbytes(self) -> int:
+        """Resident bytes of the cache on its device."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def find_free_lane(self) -> Optional[int]:
         for i, s in enumerate(self.seq_ids):
@@ -95,7 +130,7 @@ class KVCache:
         """Fork a sequence into a fresh lane (whole-lane copy, in place)."""
         src = self.lane_of(src_seq)
         dst = self.seq_new(dst_seq)
-        for c in self.k + self.v:
+        for c in self.tensors():
             c[dst].copy_(c[src])
         self.lengths[dst] = self.lengths[src]
 
@@ -112,10 +147,12 @@ class KVCache:
         tail down, and re-rotate the moved K by -n_discard positions (RoPE is
         additive in position, so one delta rotation corrects them). As in the
         JAX package, the whole lane is rolled and rotated in f32 and the first
-        n_keep cells are kept as they were; the lane's tensors are updated in
-        place."""
+        n_keep cells are kept as they were; a quantized K lane is dequantized,
+        shifted and requantized whole (the kept cells included), while V codes
+        and scales are only rolled. The lane's tensors are updated in place."""
         from rrs_tpu_torch.models.llama import rope_params
         from rrs_tpu_torch.ops.basic import apply_rope
+        from rrs_tpu_torch.runtime import kv_codec
 
         lane = self.lane_of(seq_id)
         n = self.lengths[lane]
@@ -123,13 +160,29 @@ class KVCache:
         if n_discard <= 0:
             return
         rp = rope_params(cfg)
-        dev = self.k[0].device
+        dev = self.tensors()[0].device
         delta = torch.full((1, 1), -n_discard, dtype=torch.int32, device=dev)
         keep = torch.arange(self.max_seq, device=dev)[None, :, None] < n_keep   # [1, S, 1]
-        for k, v in zip(self.k, self.v):
-            lk, lv = k[lane], v[lane]                                   # [H, S, D]
+
+        def roll(x):                                    # [H, S, ...] lane tensor, slots dim 1
+            return torch.where(keep.reshape((1, -1) + (1,) * (x.dim() - 2)), x,
+                               torch.roll(x, -n_discard, dims=1))
+
+        def shift_k(lk):                                # [H, S, D] -> f32 rolled + rotated
             tail = torch.roll(lk, -n_discard, dims=1)
             rk = apply_rope(tail.transpose(0, 1)[None], delta, rp)[0].transpose(0, 1)
-            k[lane] = torch.where(keep, lk, rk).to(k.dtype)
-            v[lane] = torch.where(keep, lv, torch.roll(lv, -n_discard, dims=1))
+            return torch.where(keep, lk, rk)
+
+        for k, v in zip(self.k, self.v):
+            if isinstance(k, tuple):
+                (arr, sc), (varr, vsc) = k, v
+                lk = kv_codec.dequantize(arr[lane], sc[lane])           # [H, S, D] f32
+                q, s_new = kv_codec.quantize_rows(shift_k(lk), kv_codec.kv_qmax(arr))
+                arr[lane] = kv_codec.pack_like(q, arr[lane], sc[lane])
+                sc[lane, :, 0] = s_new
+                varr[lane] = roll(varr[lane])
+                vsc[lane, :, 0] = roll(vsc[lane, :, 0])
+                continue
+            k[lane] = shift_k(k[lane]).to(k.dtype)
+            v[lane] = roll(v[lane])
         self.lengths[lane] = n - n_discard

@@ -8,11 +8,12 @@ cancellation; a released lane keeps its KV as a prompt cache for the next
 request with a shared prefix. Decoding goes through the context's device-side
 runs of DECODE_RUN_STEPS tokens, chained so that run N+1 is enqueued before
 run N is read; slots the runs cannot serve take the per-token host sampler.
-A lane that reaches max_seq - 1 is context-shifted.
+A lane that reaches max_seq - 1 is context-shifted. Slot state (a slot's
+sequence, saved to or restored from a state file, or erased) is handled on the
+engine thread, between iterations, through ``call``.
 
 Waiting for their slices, and refused loudly: grammar / JSON-schema requests
-(ROADMAP A6), a draft model (A13), multimodal segments (A11), infill (A13) and
-slot save / restore (A13).
+(ROADMAP A6), a draft model (A13), multimodal segments (A11) and infill (A13).
 """
 
 from __future__ import annotations
@@ -115,6 +116,9 @@ class Engine:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._next_id = 0
         self._lock = threading.Lock()
+        # work run on the engine thread between iterations (slot state I/O),
+        # so that it never races a step over the same cache
+        self._side: "queue.Queue" = queue.Queue()
         # the enqueued, not yet read, device decode run
         self._inflight = None
         # metrics (/metrics)
@@ -142,11 +146,77 @@ class Engine:
         self._wake.set()
         return req.id
 
+    def call(self, fn, timeout: float = 300.0):
+        """Run ``fn()`` on the engine thread, between iterations, and return
+        its result (or raise its error); called directly when the engine is
+        not running. Slot state is read and changed only there."""
+        if not self._thread.is_alive():
+            return fn()
+        done = threading.Event()
+        box: dict = {}
+
+        def task():
+            try:
+                box["r"] = fn()
+            except Exception as e:                            # noqa: BLE001
+                box["e"] = e
+            done.set()
+
+        self._side.put(task)
+        self._wake.set()
+        if not done.wait(timeout):
+            raise TimeoutError("engine side task timed out")
+        if "e" in box:
+            raise box["e"]
+        return box.get("r")
+
+    # -- slot state (/slots/{id}?action=save|restore|erase) -----------------
+
+    def erase_slot(self, index: int) -> None:
+        """Drop a slot's retained prompt cache."""
+        s = self.slots[index]
+        if s.retained_seq >= 0:
+            if self.ctx.kv.has_seq(s.retained_seq):
+                self.ctx.kv.seq_rm(s.retained_seq)
+            s.retained_seq = -1
+            s.cache_tokens = []
+
     def save_slot(self, index: int, path: str) -> dict:
-        raise NotImplementedError("slot save / restore waits for ROADMAP A13")
+        """Write the slot's sequence (live or retained) and its tokens to a
+        state file."""
+        from rrs_tpu_torch.runtime import state as state_io
+
+        s = self.slots[index]
+
+        def do():
+            seq = s.seq_id if s.seq_id >= 0 else s.retained_seq
+            if seq < 0:
+                raise ValueError(f"slot {index} has no sequence to save")
+            n_bytes = state_io.save_sequence(self.ctx, seq, path,
+                                             tokens=s.cache_tokens or None)
+            return n_bytes, self.ctx.kv.lengths[self.ctx.kv.lane_of(seq)]
+
+        n_bytes, n_saved = self.call(do)
+        return {"id_slot": index, "filename": str(path), "n_saved": n_saved,
+                "n_written": n_bytes}
 
     def restore_slot(self, index: int, path: str) -> dict:
-        raise NotImplementedError("slot save / restore waits for ROADMAP A13")
+        """Load a state file into an idle slot as its retained prompt cache."""
+        from rrs_tpu_torch.runtime import state as state_io
+
+        s = self.slots[index]
+
+        def do():
+            if s.state != SlotState.IDLE:
+                raise ValueError(f"slot {index} is busy")
+            self.erase_slot(index)
+            seq_id, tokens = state_io.load_sequence(self.ctx, path)
+            s.retained_seq = seq_id
+            s.cache_tokens = list(tokens or [])
+            self.ctx.kv.mark_retained(seq_id)
+            return self.ctx.kv.lengths[self.ctx.kv.lane_of(seq_id)]
+
+        return {"id_slot": index, "filename": str(path), "n_restored": self.call(do)}
 
     # -- slots -------------------------------------------------------------
 
@@ -367,6 +437,15 @@ class Engine:
     @torch.inference_mode()
     def _iterate(self) -> bool:
         """One engine iteration; True when it did work."""
+        ran_side = False
+        while True:
+            try:
+                task = self._side.get_nowait()
+            except queue.Empty:
+                break
+            task()
+            ran_side = True
+
         # admit pending requests into free slots
         while True:
             slot = self._free_slot()
@@ -405,7 +484,7 @@ class Engine:
         # 2) one batched decode for every GENERATING slot
         gen = [s for s in self.slots if s.state == SlotState.GENERATING]
         if not gen:
-            return False
+            return ran_side
         try:
             self._decode_step(gen)
         except Exception:                                     # noqa: BLE001

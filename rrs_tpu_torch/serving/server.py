@@ -6,6 +6,8 @@ Port of ``rrs_tpu/serving/server.py`` (``ServerState``, ``_sampler_params``,
   POST /tokenize, /detokenize, /apply-template
   POST /completion, /v1/completions, /v1/chat/completions (SSE streaming or
        not, with logprobs / n_probs)
+  POST /slots/{id}?action=save|restore|erase (slot state files, confined to
+       ``--slot-save-path``: a plain file name, else 400)
 A non-streamed completion reports ``usage`` with the exact count of
 generated tokens and the reference server's ``timings`` (prompt_ms: submit
 to first token; predicted_ms: first token to finish).
@@ -19,7 +21,9 @@ error, naming the grammar slice.
 from __future__ import annotations
 
 import json
+import os
 import queue
+import re
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -44,7 +48,6 @@ WAITING_ROUTES = {
     "/models/load": "the multi-model router waits for ROADMAP A13",
     "/models/unload": "the multi-model router waits for ROADMAP A13",
 }
-SLOT_ACTIONS = "slot save / restore / erase actions wait for ROADMAP A13"
 GRAMMAR = "grammar, json_schema and response_format wait for ROADMAP A6 (grammar slice)"
 MEDIA = "image and audio content parts wait for ROADMAP A11 (multimodal slice)"
 
@@ -64,6 +67,9 @@ class ServerState:
         eos = vocab.tokens[vocab.eos_id] if 0 <= vocab.eos_id < len(vocab.tokens) else ""
         self.special_tokens = {"bos_token": bos, "eos_token": eos}
         self.t_start = time.time()
+        # base directory of slot state files; the save / restore actions are
+        # refused while it is unset (``--slot-save-path``)
+        self.slot_save_path = None
 
     def render_chat(self, messages, tools=None, add_assistant=True):
         """(prompt text, extra stop strings) via the model's Jinja template,
@@ -258,6 +264,45 @@ def make_handler(state: ServerState):
                                 "prompt_ms": (first - st["t0"]) * 1e3,
                                 "predicted_ms": (st["t_end"] - first) * 1e3}}
 
+        def _slot_action(self, body):
+            from urllib.parse import parse_qs, urlparse
+
+            u = urlparse(self.path)
+            m = re.match(r"^/slots/(\d+)$", u.path)
+            if not m:
+                self._json({"error": "not found"}, 404)
+                return
+            idx = int(m.group(1))
+            if idx >= len(self.st.engine.slots):
+                self._json({"error": "no such slot"}, 400)
+                return
+            action = (parse_qs(u.query).get("action") or [""])[0]
+
+            def confined(fname: str) -> str:
+                # the file is written on behalf of an HTTP client: only a plain
+                # name inside the operator's directory
+                base = self.st.slot_save_path
+                if not base:
+                    raise ValueError("slot save/restore disabled (start the server with "
+                                     "--slot-save-path)")
+                if not fname or os.path.basename(fname) != fname or fname in (".", ".."):
+                    raise ValueError(f"invalid filename {fname!r}")
+                return os.path.join(base, fname)
+
+            eng = self.st.engine
+            try:
+                if action in ("save", "restore"):
+                    path = confined(body.get("filename", f"slot{idx}.rrsstate"))
+                    fn = eng.save_slot if action == "save" else eng.restore_slot
+                    self._json(fn(idx, path))
+                elif action == "erase":
+                    eng.call(lambda: eng.erase_slot(idx))
+                    self._json({"id_slot": idx, "success": True})
+                else:
+                    self._json({"error": f"unknown action '{action}'"}, 400)
+            except Exception as e:                            # noqa: BLE001
+                self._json({"error": str(e)}, 400)
+
         # -- routes --------------------------------------------------------
 
         def do_GET(self):
@@ -304,8 +349,6 @@ def make_handler(state: ServerState):
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
-            elif self.path.startswith("/slots/"):
-                self._not_ported(SLOT_ACTIONS)
             else:
                 self._json({"error": "not found"}, 404)
 
@@ -319,7 +362,7 @@ def make_handler(state: ServerState):
             if path in WAITING_ROUTES:
                 self._not_ported(WAITING_ROUTES[path])
             elif path.startswith("/slots/"):
-                self._not_ported(SLOT_ACTIONS)
+                self._slot_action(body)
             elif path == "/tokenize":
                 self._json({"tokens": self.st.vocab.encode(
                     body.get("content", ""), add_special=bool(body.get("add_special", False)))})
@@ -426,13 +469,17 @@ def serve(args):
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
     ctx = InferenceContext(cfg, weights, n_lanes=args.parallel, max_seq=args.ctx,
-                           device=args.device)
+                           kv_quant=args.cache_type, device=args.device)
     engine = Engine(ctx)
     engine.start()
     state = ServerState(cfg, vocab, engine, md, model_name=str(args.model))
+    if args.slot_save_path:
+        os.makedirs(args.slot_save_path, exist_ok=True)
+        state.slot_save_path = args.slot_save_path
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(state))
     print(f"serving {args.model} on http://{args.host}:{httpd.server_address[1]} "
-          f"({args.parallel} slots, ctx {args.ctx}, {ctx.device})", flush=True)
+          f"({args.parallel} slots, ctx {args.ctx}, KV {args.cache_type}, {ctx.device})",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -22,7 +22,7 @@ from rrs_tpu_torch.models.llama import random_weights, weights_from_numpy
 from rrs_tpu_torch.runtime.context import InferenceContext
 from rrs_tpu_torch.runtime.kv_cache import KVCache
 from rrs_tpu_torch.runtime.sampler import SamplerParams
-from rrs_tpu_torch.serving.engine import Engine, GenRequest
+from rrs_tpu_torch.serving.engine import Engine, GenRequest, SlotState
 
 from test_torch_common import jax_cfg, torch_cfg, weights_tree
 
@@ -200,8 +200,9 @@ def test_prefill_logprobs_matches_jax():
 
 
 def test_later_slices_raise():
-    """Grammar, multimodal segments, infill, a draft model and slot save /
-    restore fail loudly, naming their ROADMAP item."""
+    """Grammar, multimodal segments, infill and a draft model fail loudly,
+    naming their ROADMAP item; slot save and restore are ported and refuse
+    only a slot with nothing to save or a busy slot."""
     ctx = InferenceContext(CFG, random_weights(CFG, seed=0, device="cpu"), max_seq=32,
                            device="cpu")
     eng = Engine(ctx)
@@ -210,8 +211,10 @@ def test_later_slices_raise():
         with pytest.raises(NotImplementedError, match=item):
             eng.submit(GenRequest(prompt_tokens=[1, 2], **kw))
     assert eng.pending.empty()
-    for fn in (eng.save_slot, eng.restore_slot):
-        with pytest.raises(NotImplementedError, match="A13"):
-            fn(0, "slot.bin")
+    with pytest.raises(ValueError, match="no sequence to save"):
+        eng.save_slot(0, "slot.bin")
+    eng.slots[0].state = SlotState.PROMPT
+    with pytest.raises(ValueError, match="busy"):
+        eng.restore_slot(0, "slot.bin")
     with pytest.raises(NotImplementedError, match="A13"):
         Engine(ctx, draft_ctx=ctx)

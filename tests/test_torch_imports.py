@@ -79,11 +79,15 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     for verb in ("serve", "chat"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([verb, "-m", str(tmp_path / "absent.gguf")])
-    # flags of later slices raise before anything loads
-    for flags in (["--cache-type", "q8"], ["--model-draft", "d.gguf"], ["--mmproj", "m.gguf"],
-                  ["--tp", "2"], ["--slot-save-path", "x"], ["--models", "a=b.gguf"]):
+    # flags of later slices raise before anything loads; the quantized cache
+    # and the slot save path are ported, and still default to the card
+    for flags in (["--model-draft", "d.gguf"], ["--mmproj", "m.gguf"],
+                  ["--tp", "2"], ["--models", "a=b.gguf"]):
         with pytest.raises(NotImplementedError):
             main(["serve", "-m", "absent.gguf", "--device", "cpu", *flags])
+    for flags in (["--cache-type", "q8"], ["--slot-save-path", str(tmp_path)]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["serve", "-m", str(tmp_path / "absent.gguf"), *flags])
     eng = Engine(ctx)
     assert eng.ctx is ctx and len(eng.slots) == 4
 
@@ -96,7 +100,8 @@ def test_kernel_wrappers_count_only_their_launches():
 
     before = dict(kernels.LAUNCHES)
     assert set(before) == {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
-                           "flash_attention"}
+                           "flash_attention", "flash_attention_q8", "flash_attention_q4hp",
+                           "flash_attention_q4"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
@@ -108,5 +113,11 @@ def test_kernel_wrappers_count_only_their_launches():
                  torch.ones(8, 64))
     fa.flash_attention(torch.randn(1, 1, 4, 64), torch.randn(1, 2, 16, 64),
                        torch.randn(1, 2, 16, 64), torch.zeros(1, 1, dtype=torch.int32), 0.125)
+    sc = torch.ones(1, 2, 1, 16)
+    for fn, codes in ((fa.flash_attention_q8, torch.zeros(1, 2, 16, 64, dtype=torch.int8)),
+                      (fa.flash_attention_q4hp, torch.zeros(1, 1, 16, 64, dtype=torch.uint8)),
+                      (fa.flash_attention_q4, torch.zeros(1, 2, 16, 32, dtype=torch.uint8))):
+        fn(torch.randn(1, 1, 4, 64), codes, sc, codes, sc, torch.zeros(1, 1, dtype=torch.int32),
+           0.125)
     # CPU tensors take the plain versions, which launch nothing
     assert kernels.LAUNCHES == before

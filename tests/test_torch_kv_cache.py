@@ -1,9 +1,13 @@
 """KV cache lanes of rrs_tpu_torch against rrs_tpu's, and the in-place store:
 a lane with no token in a step parks its K/V rows at the top of its cache
 (the last T slots of a T-row step) and leaves the live lane's logits as a
-one-lane context computes them."""
+one-lane context computes them. Quantized caches (q8, q4 head-pair, q4
+halves): their layouts, the store of new rows, seq_cp and seq_shift against
+the JAX package's."""
 
+import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from rrs_tpu.runtime.kv_cache import KVCache as JaxKVCache
@@ -100,3 +104,168 @@ def test_serving_lane_ops_match_jax():
     assert got == ref
     # seq_cp copied the whole lane in place
     assert torch.equal(kv.k[0][kv.lane_of(5)], lane0)
+
+
+# -- quantized caches ---------------------------------------------------------
+
+# (quant, kv heads): q4 takes the head-pair layout for an even head count and
+# the halves layout for an odd one
+LAYOUTS = {"q8": ("q8", 2), "q4hp": ("q4", 2), "q4": ("q4", 3)}
+
+
+def _qcfg(hkv: int):
+    return jax_cfg(n_layers=2, n_kv_heads=hkv, n_heads=2 * hkv)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_quantized_create_matches_jax(layout):
+    quant, hkv = LAYOUTS[layout]
+    jcfg = _qcfg(hkv)
+    jkv = JaxKVCache.create(jcfg, n_lanes=3, max_seq=32, quant=quant)
+    tkv = KVCache.create(torch_cfg(jcfg), n_lanes=3, max_seq=32, quant=quant)
+    assert tkv.quantized and jkv.quantized and tkv.n_lanes == jkv.n_lanes == 3
+    for jc, tc in zip(jkv.k + jkv.v, tkv.k + tkv.v):
+        for ja, ta in zip(jc, tc):
+            assert tuple(ta.shape) == ja.shape
+            assert str(ta.dtype).split(".")[-1] == str(ja.dtype)
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))   # zeros, scales ones
+    assert tkv.nbytes() == sum(a.nbytes for c in jkv.k + jkv.v for a in c)
+    bf16 = KVCache.create(torch_cfg(jcfg), n_lanes=3, max_seq=32)
+    assert not bf16.quantized and bf16.n_lanes == 3
+
+
+def _random_quantized(kv, jkv, rng):
+    """Fill every layer of both caches with the same random quantized K/V."""
+    from rrs_tpu.runtime import kv_codec as jkc
+
+    for name in ("k", "v"):
+        for li, (codes, sc) in enumerate(getattr(jkv, name)):
+            hkv, s = sc.shape[1], sc.shape[3]
+            x = rng.standard_normal((sc.shape[0], hkv, s, 64)).astype(np.float32)
+            q, s_new = jkc.quantize_rows(jnp.asarray(x), jkc.kv_qmax(codes))
+            if codes.dtype == jnp.uint8:
+                q = jkc.pack_hp(q) if jkc.is_head_pair(codes, sc) else jkc.pack4(q)
+            jc = (q, s_new[:, :, None, :])
+            getattr(jkv, name)[li] = jc
+            getattr(kv, name)[li] = tuple(torch.from_numpy(np.array(a)) for a in jc)
+
+
+@pytest.mark.parametrize("t", [1, 6], ids=["decode", "prefill"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_quantized_store_matches_jax(layout, t):
+    """The new rows' codes equal JAX's. Their scales do at prefill; at decode
+    JAX blends the new scale into the lane (sc + (s_new - sc) * onehot), which
+    moves it on a fresh lane (scales 1): held within 1e-5 relative."""
+    from rrs_tpu.models.llama import _store_cache as jstore
+
+    quant, hkv = LAYOUTS[layout]
+    jcfg = _qcfg(hkv)
+    rng = np.random.default_rng(5)
+    jkv = JaxKVCache.create(jcfg, n_lanes=3, max_seq=32, quant=quant)
+    tkv = KVCache.create(torch_cfg(jcfg), n_lanes=3, max_seq=32, quant=quant)
+    new = rng.standard_normal((3, hkv, t, 64)).astype(np.float32)
+    first = np.array([4, 17, -1], np.int32)                       # lane 2 has no token
+    slots = np.where(first[:, None] < 0, 31, first[:, None] + np.arange(t, dtype=np.int32))
+    mask = np.where(first[:, None] < 0, -1, slots).astype(np.int32)
+    ref = jstore(jkv.k[0], jnp.asarray(new), jnp.asarray(slots), jnp.asarray(mask))
+    starts = llama._store_starts(torch.from_numpy(slots), torch.from_numpy(mask), 32, t)
+    llama._store_cache(tkv.k[0], torch.from_numpy(new), starts)
+    np.testing.assert_array_equal(tkv.k[0][0].numpy(), np.asarray(ref[0]))
+    got_s, ref_s = tkv.k[0][1].numpy(), np.asarray(ref[1])
+    if t > 1:
+        np.testing.assert_array_equal(got_s, ref_s)
+    else:
+        np.testing.assert_allclose(got_s, ref_s, rtol=1e-5, atol=0)
+    # the written scales are the quantizer's own, and a dead lane parks its
+    # rows in the top slots
+    from rrs_tpu_torch.runtime import kv_codec
+
+    _, s_new = kv_codec.quantize_rows(torch.from_numpy(new), kv_codec.kv_qmax(tkv.k[0][0]))
+    np.testing.assert_array_equal(got_s[1, :, 0, 17:17 + t], s_new[1].numpy())
+    np.testing.assert_array_equal(got_s[2, :, 0, 32 - t:], s_new[2].numpy())
+
+
+def test_jax_decode_scale_blend_bound():
+    """The JAX quirk the port does not copy: 16 fresh decode rows a step
+    (q8, B=2, H=8, D=128) stored by JAX's _store_cache keep their codes, but
+    the blended scale lands within 2.6e-6 relative of the quantizer's, not
+    on it; the port stores the quantizer's scale exactly."""
+    from rrs_tpu.models.llama import _store_cache as jstore
+    from rrs_tpu.runtime import kv_codec as jkc
+    from rrs_tpu_torch.runtime import kv_codec
+
+    rng = np.random.default_rng(0)
+    b, h, s, d = 2, 8, 32, 128
+    jcache = (jnp.zeros((b, h, s, d), jnp.int8), jnp.ones((b, h, 1, s), jnp.float32))
+    tcache = (torch.zeros((b, h, s, d), dtype=torch.int8), torch.ones((b, h, 1, s)))
+    worst = 0.0
+    for step in range(8):
+        new = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+        slots = np.full((b, 1), step, np.int32)
+        jcache = jstore(jcache, jnp.asarray(new), jnp.asarray(slots), jnp.asarray(slots))
+        llama._store_cache(tcache, torch.from_numpy(new), [step] * b)
+        q, s_new = kv_codec.quantize_rows(torch.from_numpy(new), 127.0)
+        np.testing.assert_array_equal(np.asarray(jcache[0])[:, :, step], q[:, :, 0].numpy())
+        np.testing.assert_array_equal(tcache[0][:, :, step].numpy(), q[:, :, 0].numpy())
+        np.testing.assert_array_equal(tcache[1][:, :, 0, step].numpy(), s_new[:, :, 0].numpy())
+        _, js = jkc.quantize_rows(jnp.asarray(new), 127.0)
+        np.testing.assert_array_equal(np.asarray(js), s_new.numpy())
+        got = np.asarray(jcache[1])[:, :, 0, step]
+        worst = max(worst, float(np.max(np.abs(got - s_new[:, :, 0].numpy())
+                                        / s_new[:, :, 0].numpy())))
+    assert worst <= 2.6e-6
+
+
+def test_quantized_seq_cp_matches_jax():
+    jcfg = _qcfg(2)
+    rng = np.random.default_rng(6)
+    jkv = JaxKVCache.create(jcfg, n_lanes=3, max_seq=16, quant="q4")
+    tkv = KVCache.create(torch_cfg(jcfg), n_lanes=3, max_seq=16, quant="q4")
+    _random_quantized(tkv, jkv, rng)
+    for kv in (jkv, tkv):
+        kv.seq_new(1)
+        kv.lengths[0] = 9
+        kv.seq_new(2)
+        kv.seq_rm(2)
+        kv.seq_cp(1, 3)
+    assert tkv.seq_ids == jkv.seq_ids and tkv.lengths == jkv.lengths
+    for jc, tc in zip(jkv.k + jkv.v, tkv.k + tkv.v):
+        for ja, ta in zip(jc, tc):
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(tkv.v[1][1][1].numpy(), tkv.v[1][1][0].numpy())
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_quantized_seq_shift_matches_jax(layout):
+    """Drop cells [1, 10) of lane 1: K is dequantized, rolled, rotated and
+    requantized, within one quantization step of JAX's per element (the two
+    round the rotation's f32 result at either side of a half-way point); V
+    codes and scales are only rolled, and equal JAX's."""
+    from rrs_tpu.runtime import kv_codec as jkc
+    from rrs_tpu_torch.runtime import kv_codec as tkc
+
+    quant, hkv = LAYOUTS[layout]
+    jcfg = _qcfg(hkv)
+    cfg = torch_cfg(jcfg)
+    rng = np.random.default_rng(7)
+    jkv = JaxKVCache.create(jcfg, n_lanes=2, max_seq=32, quant=quant)
+    tkv = KVCache.create(cfg, n_lanes=2, max_seq=32, quant=quant)
+    _random_quantized(tkv, jkv, rng)
+    lane0 = [t.clone() for t in tkv.k[0]]
+    for kv in (jkv, tkv):
+        kv.seq_new(7)
+        kv.seq_new(8)
+        kv.lengths[1] = 30
+    jkv.seq_shift(jcfg, 8, 1, 9)
+    tkv.seq_shift(cfg, 8, 1, 9)
+    assert tkv.lengths == jkv.lengths == [0, 21]
+    for li in range(cfg.n_layers):
+        got = tkc.dequantize(*tkv.k[li]).numpy()
+        ref = np.asarray(jkc.dequantize(*jkv.k[li]))
+        step = np.maximum(tkv.k[li][1].numpy(), np.asarray(jkv.k[li][1]))   # [B, H, 1, S]
+        assert (np.abs(got - ref) <= 1.0001 * step.transpose(0, 1, 3, 2)).all()
+        for ja, ta in zip(jkv.v[li], tkv.v[li]):
+            np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    # the other lane stays as it was
+    for before, after in zip(lane0, tkv.k[0]):
+        np.testing.assert_array_equal(after[0].numpy(), before[0].numpy())

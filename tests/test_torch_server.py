@@ -1,9 +1,10 @@
 """The HTTP server of rrs_tpu_torch on the CPU: the cases of
-tests/test_server.py for the ported routes, the 501 answers of the routes
-that wait for later slices (400 for the grammar slice's request options),
-and ``python -m rrs_tpu_torch serve`` in a subprocess. The in-process server
-runs the tiny preset with random dense weights (scale 0.3, so that greedy
-text varies) and the char-level vocabulary of tests/test_server.py."""
+tests/test_server.py for the ported routes (slot save / restore / erase
+included), the 501 answers of the routes that wait for later slices (400 for
+the grammar slice's request options), and ``python -m rrs_tpu_torch
+generate|serve|chat`` with bf16 and quantized KV caches. The in-process
+server runs the tiny preset with random dense weights (scale 0.3, so that
+greedy text varies) and the char-level vocabulary of tests/test_server.py."""
 
 import http.client
 import json
@@ -26,6 +27,7 @@ from rrs_tpu_torch.serving.server import ServerState, make_handler
 from test_torch_common import tcq4_gguf, tiny_vocab_tokens
 
 ROOT = Path(__file__).resolve().parent.parent
+_STATE: dict = {}
 
 
 @pytest.fixture(scope="module")
@@ -38,8 +40,8 @@ def server():
     n = cfg.vocab_size
     vocab = Vocab(model="gpt2", tokens=tiny_vocab_tokens(n), scores=None, token_types=[1] * n,
                   merges=[], pre="gpt-2", bos_id=0, eos_id=1, add_bos=False)
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(
-        ServerState(cfg, vocab, engine, {}, "tiny-test")))
+    _STATE["state"] = ServerState(cfg, vocab, engine, {}, "tiny-test")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(_STATE["state"]))
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     yield httpd.server_address[1], engine
     httpd.shutdown()
@@ -212,7 +214,6 @@ WAITING = [
     ("POST", "/rerank", {"query": "a", "documents": ["b"]}, "A13"),
     ("POST", "/infill", {"input_prefix": "a", "input_suffix": "b"}, "A13"),
     ("POST", "/v1/messages", {"messages": [{"role": "user", "content": "hi"}]}, "A13"),
-    ("POST", "/slots/0?action=save", {"filename": "s"}, "A13"),
     ("POST", "/models/load", {"model": "x"}, "A13"),
     ("POST", "/models/unload", {"model": "x"}, "A13"),
     ("GET", "/", None, "A13"),
@@ -235,6 +236,44 @@ def test_waiting_routes_answer_501(server, method, path, body, item):
     assert status == (400 if item == "A6" else 501), data
     err = json.loads(data)["error"]
     assert err["code"] == status and f"ROADMAP {item}" in err["message"]
+
+
+def test_slot_save_restore(server, tmp_path_factory):
+    """The cases of tests/test_server.py: save answers 400 until a save
+    directory is set and for any name that is not a plain file name; then
+    save, erase and restore give back the slot's tokens, and a request
+    continues from the restored prompt cache."""
+    port, engine = server
+    prompt = [9, 10, 11, 12, 13, 14]
+    _req(port, "POST", "/v1/completions", {"prompt": prompt, "max_tokens": 2,
+                                            "temperature": 0.0})
+    idx = next(i for i, s in enumerate(engine.slots) if s.cache_tokens[:6] == prompt)
+    _STATE["state"].slot_save_path = None
+    status, data = _req(port, "POST", f"/slots/{idx}?action=save", {"filename": "s.npz"})
+    assert status == 400 and b"slot-save-path" in data
+    base = tmp_path_factory.mktemp("slots")
+    _STATE["state"].slot_save_path = str(base)
+    try:
+        for bad in ("../evil.npz", "/tmp/evil.npz", "a/b.npz", ".."):
+            status, data = _req(port, "POST", f"/slots/{idx}?action=save", {"filename": bad})
+            assert status == 400, (bad, data)
+        status, data = _req(port, "POST", f"/slots/{idx}?action=save", {})
+        assert status == 200, data
+        saved = json.loads(data)
+        assert saved["n_saved"] == 7 and (base / f"slot{idx}.rrsstate").exists()
+        status, data = _req(port, "POST", f"/slots/{idx}?action=erase", {})
+        assert status == 200 and json.loads(data)["success"]
+        assert engine.slots[idx].retained_seq < 0
+        status, data = _req(port, "POST", f"/slots/{idx}?action=restore", {})
+        assert status == 200, data
+        assert json.loads(data)["n_restored"] == saved["n_saved"]
+        assert engine.slots[idx].cache_tokens[:6] == prompt
+        status, data = _req(port, "POST", f"/slots/{idx}?action=bogus", {})
+        assert status == 400
+        status, _ = _req(port, "POST", "/slots/9?action=save", {})
+        assert status == 400
+    finally:
+        _STATE["state"].slot_save_path = None
 
 
 @pytest.fixture(scope="module")
@@ -281,3 +320,53 @@ def test_cli_chat_subprocess(gguf):
     assert r.returncode == 0, r.stderr
     assert "chat:" in r.stderr and "(system prompt set)" in r.stderr
     assert r.stdout.count("> ") >= 3
+
+
+@pytest.mark.parametrize("cache_type", ["q8", "q4"])
+def test_cli_generate_quantized_kv(gguf, cache_type, capsys):
+    """``generate --cache-type q8|q4 --device cpu`` runs the quantized cache."""
+    from rrs_tpu_torch.__main__ import main
+
+    main(["generate", "-m", str(gguf), "-p", "the fox", "-n", "4", "--device", "cpu",
+          "--cache-type", cache_type, "--ctx", "64"])
+    out = capsys.readouterr()
+    assert "perf: prompt" in out.err and "gen 4 tok" in out.err
+
+
+def test_cli_serve_quantized_kv_slots_subprocess(gguf, tmp_path):
+    """``serve --cache-type q4 --slot-save-path DIR --device cpu``: a
+    completion, then a slot saved, erased and restored over HTTP, the file
+    landing in DIR."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rrs_tpu_torch", "serve", "-m", str(gguf), "--device", "cpu",
+         "--port", "0", "--parallel", "1", "--ctx", "128", "--cache-type", "q4",
+         "--slot-save-path", str(tmp_path / "slots")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert "serving" in line and "KV q4" in line, (
+            line, proc.stderr.read() if proc.poll() is not None else "")
+        port = int(line.split("http://127.0.0.1:")[1].split()[0])
+        status, data = _req(port, "POST", "/v1/completions",
+                            {"prompt": "the fox", "max_tokens": 3, "temperature": 0.0})
+        assert status == 200 and json.loads(data)["usage"]["completion_tokens"] == 3
+        for action, key in (("save", "n_saved"), ("erase", "success"), ("restore", "n_restored")):
+            status, data = _req(port, "POST", f"/slots/0?action={action}", {"filename": "a.bin"})
+            assert status == 200 and json.loads(data)[key], (action, data)
+        assert (tmp_path / "slots" / "a.bin").exists()
+    finally:
+        proc.send_signal(2)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def test_cli_chat_quantized_kv_subprocess(gguf):
+    r = subprocess.run(
+        [sys.executable, "-m", "rrs_tpu_torch", "chat", "-m", str(gguf), "--device", "cpu",
+         "--n-predict", "3", "--temp", "0", "--cache-type", "q8"],
+        cwd=ROOT, input="hello\n/exit\n", capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.count("> ") >= 2
