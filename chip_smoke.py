@@ -45,13 +45,25 @@ it; exits non-zero without either, and on any failed phase. Phases:
    saved, erased and restored over HTTP (codes equal, scales within 1e-6)
    and a greedy continuation from it; then one context shift of a q4 lane
    on the card held to the CPU's shift of a copy of it;
-8. the ``{"kernels": [...]}`` line, the card's name and power limit, and the
-   last line ``{"ok": true, "device": {...}}``.
+8. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
+   plain versions at gpt-oss shapes, timed beside their bounds and
+   ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
+   at the three Q8 shapes and B3 / B6-B8 over a 640-slot ring with window
+   128 and sinks; a 2-layer gpt-oss model on the card against the same
+   weights on the CPU (the CPU's expert ids replayed where the card's
+   differ; every launch held to its plain version); ``generate`` at full
+   width (fabricated weights) with prompts that reach every MoE branch,
+   launch counts, the branches taken and a decode profile, then over q8
+   rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
+   a teacher-forced 4-lane prefill chunk and decode step;
+9. the ``{"kernels": [...]}`` line (eleven kernels), the card's name and
+   power limit, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -480,7 +492,9 @@ def phase_i8p(peaks, reports):
 
 SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "tcq4_matmul_i8p": 1e-5,
              "q8_matmul": 1e-3, "flash_attention": 8e-3, "flash_attention_q8": 8e-3,
-             "flash_attention_q4hp": 8e-3, "flash_attention_q4": 8e-3}
+             "flash_attention_q4hp": 8e-3, "flash_attention_q4": 8e-3, "mxfp4_matmul": 1e-3,
+             "mxfp4_matmul_experts_rows": 1e-3, "mxfp4_matmul_all_experts": 1e-3}
+MXFP4_KERNELS = {"mxfp4_matmul", "mxfp4_matmul_experts_rows", "mxfp4_matmul_all_experts"}
 # the kernels of a step over a bf16 cache
 BF16_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
              "flash_attention"}
@@ -498,12 +512,16 @@ def held_to_plain(label: str, expect):
     kernel in ``expect`` must have been launched."""
     import torch
 
-    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models import llama, moe
     from rrs_tpu_torch.ops import flash_attention as fa
+    from rrs_tpu_torch.ops import mxfp4_matmul as mx
     from rrs_tpu_torch.ops import q8_matmul as q8
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
-    hooked = [(tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
+    hooked = [(moe, "mxfp4_matmul", mx.mxfp4_matmul_plain),
+              (moe, "mxfp4_matmul_experts_rows", mx.mxfp4_matmul_experts_rows_plain),
+              (moe, "mxfp4_matmul_all_experts", mx.mxfp4_matmul_all_experts_plain),
+              (tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
               (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
               (tm, "tcq4_matmul_i8p", tm.tcq4_matmul_i8p_plain),
               (q8, "q8_matmul", q8.q8_matmul_plain),
@@ -793,7 +811,9 @@ COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul
             "q8": "q8_matmul", "fa": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmul",
                 "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
-                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq"}
+                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq",
+                "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
+                "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows"}
 
 
 def phase_generate_kvq(cfg, weights, reports):
@@ -850,13 +870,13 @@ def host_top(prof, steps: int, n: int = 8) -> str:
                      f"(x{e.count / steps:.0f})" for e in rows)
 
 
-def profile_decode(ctx, prompt, steps: int = 8):
-    """Where a decode step's time goes at qwen3-4b width: the wall time of
-    a few eager decode steps, then torch.profiler over as many more. Prints
-    the wall time per step, the device time per step (sum of kernel
-    durations; one stream, so they do not overlap), the device's idle share,
-    the kernels launched per step, and the device time of the port's four
-    kernels and of the rest."""
+def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
+    """Where a decode step's time goes at full width: the wall time of a few
+    eager decode steps, then torch.profiler over as many more. Prints the
+    wall time per step, the device time per step (sum of kernel durations;
+    one stream, so they do not overlap), the device's idle share, the kernels
+    launched per step, and the device time of the port's kernels and of the
+    rest."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -889,7 +909,7 @@ def profile_decode(ctx, prompt, steps: int = 8):
     dev_ms = sum(by_name.values()) / steps
     split = ", ".join(f"{k} {v / steps:.3f}" for k, v in sorted(by_name.items(),
                                                                key=lambda kv: -kv[1]))
-    print(f"  decode profile ({steps} steps, qwen3-4b, S={ctx.kv.max_seq}): wall "
+    print(f"  decode profile ({steps} steps, {label}, S={ctx.kv.max_seq}): wall "
           f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
           f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / steps:.0f} kernels/step; "
           f"device ms/step by kernel: {split}", flush=True)
@@ -1212,8 +1232,11 @@ def store_held(label: str):
         q, s_new = kv_codec.quantize_rows(new.cpu(), kv_codec.kv_qmax(arr))
         q = kv_codec.pack_like(q, arr, sc)
         for lane, st in enumerate(starts):
-            if not (torch.equal(arr[lane, :, st:st + t].cpu(), q[lane])
-                    and torch.equal(sc[lane, :, 0, st:st + t].cpu(), s_new[lane])):
+            if st is None:
+                continue
+            idx = torch.arange(st, st + t) % arr.shape[2]             # a ring's run wraps
+            if not (torch.equal(arr[lane][:, idx].cpu(), q[lane])
+                    and torch.equal(sc[lane, :, 0][:, idx].cpu(), s_new[lane])):
                 raise AssertionError(f"{label}: the card's {arr.dtype} store of lane {lane} "
                                      f"(T={t}) differs from the CPU's")
         seen["stores"] += 1
@@ -1456,6 +1479,594 @@ def phase_shift_q4(ctx):
           f"and scales equal", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# gpt-oss-20b: MXFP4 experts (B11-B13), sliding-window rings with sinks, YaRN
+# ---------------------------------------------------------------------------
+
+MX = {"mx_rows": ("mxfp4_matmul_experts_rows", "rrs_tpu/ops/mxfp4_matmul.py:222", "bytes"),
+      "mx_all": ("mxfp4_matmul_all_experts", "rrs_tpu/ops/mxfp4_matmul.py:279", "bytes"),
+      "mx_mm": ("mxfp4_matmul", "rrs_tpu/ops/mxfp4_matmul.py:157", "operations")}
+# (K, N) of the Q8_0 projections of gpt-oss-20b (K padded 2880 -> 3072, N
+# padded as the loader pads it)
+GPTOSS_Q8 = {"qkv": (3072, 5120, 5120), "o": (4096, 2944, 2880), "lm_head": (3072, 202752, 201088)}
+GPTOSS_TOL = 1e-3
+
+
+def phase_parity_gptoss(peaks, reports):
+    """B11-B13 against their plain versions at gpt-oss-20b shapes (E = 32
+    experts of 2880 x 2880, N padded to 2944): the rows kernel at n_sel = 4
+    and 16 (one and four decode lanes, top-4), every expert over shared
+    activations at T = 64 and over per-expert activations [32, 128, 2880]
+    (one 512-token chunk's capacity), the plain matmul at M = 300 on one
+    expert's gate and down projections; B2 at the three Q8 shapes at M = 1;
+    B3 and B6-B8 at D = 64, G = 8 with window 128 over a 640-slot ring and
+    sinks. Each held within GPTOSS_TOL (attention 8e-3: its output is bf16)
+    and timed beside its bound, its plain version and one PyTorch call on
+    weights dequantized to bf16 beforehand (torch.matmul / torch.bmm)."""
+    import torch
+
+    from rrs_tpu_torch.ops import flash_attention as fa
+    from rrs_tpu_torch.ops import mxfp4_matmul as mx
+    from rrs_tpu_torch.ops import q8_matmul as q8
+
+    bw, bf16_peak, _ = peaks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    ms = lambda b: b / bw * 1e3                             # noqa: E731
+    bound = lambda t_bytes, t_ops: {"bound_ms": max(t_bytes, t_ops),            # noqa: E731
+                                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    for key, (name, replaces, by) in MX.items():
+        reports[key] = Report(name, "rrs_tpu_torch/csrc/mxfp4_matmul.cu", replaces, by)
+    e_n, k, n = 32, 2880, 2944
+    exp_bytes = k // 2 * n + k // 32 * n                     # one expert's packed weight
+    stacks = [(torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev,
+                             dtype=torch.uint8),
+               torch.randint(118, 123, (e_n, k // 32, n), generator=gen, device=dev,
+                             dtype=torch.uint8)) for _ in range(2)]
+    w16 = mx.dequant_mxfp4(*stacks[0]).to(torch.bfloat16)   # [32, K, N], 0.54 GB
+
+    # -- B12: decode rows; id sets cycle over all experts, so the timed
+    # launches read their tiles from device memory, not L2
+    rep = reports["mx_rows"]
+    for n_sel in (4, 16):
+        a = torch.randn((n_sel, k), generator=gen, device=dev).to(torch.bfloat16)
+        id_sets = [torch.randperm(e_n, generator=gen, device=dev)[:n_sel] for _ in range(8)]
+        ids = id_sets[0]
+        got = mx.mxfp4_matmul_experts_rows(a, *stacks[0], ids)
+        err, rel = compare(f"mxfp4 rows n_sel={n_sel}", got,
+                           mx.mxfp4_matmul_experts_rows_plain(a, *stacks[0], ids), GPTOSS_TOL)
+        distinct = int(torch.unique(ids).numel())
+        t_bytes = ms(distinct * exp_bytes + n_sel * k * 2 + n_sel * n * 4)
+        t_ops = 2 * n_sel * k * n / bf16_peak * 1e3
+        sel16 = [w16[i] for i in id_sets[:2]]
+        rep.add({"shape": f"n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts)",
+                 "max_abs_err": err, "rel_err": rel, "tol": GPTOSS_TOL,
+                 "ms": time_ms(lambda i: mx.mxfp4_matmul_experts_rows(a, *stacks[0], i),
+                               [(i,) for i in id_sets], 40),
+                 "plain_ms": time_ms(lambda i: mx.mxfp4_matmul_experts_rows_plain(
+                     a, *stacks[0], i), [(i,) for i in id_sets[:2]], 3),
+                 "library_ms": time_ms(lambda w: torch.bmm(a[:, None, :], w), [(w,) for w in sel16],
+                                       40),
+                 **bound(t_bytes, t_ops)}, headline=(n_sel == 4))
+        del sel16
+
+    # -- B13: shared T = 64 (batched decode) and per-expert [32, 128, K]
+    rep = reports["mx_all"]
+    for label, shape in (("shared T=64", (64, k)), ("per-expert C=128", (e_n, 128, k))):
+        a = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        got = mx.mxfp4_matmul_all_experts(a, *stacks[0])
+        err, rel = compare(f"mxfp4 all experts {label}", got,
+                           mx.mxfp4_matmul_all_experts_plain(a, *stacks[0]), GPTOSS_TOL)
+        t = shape[-2]
+        t_bytes = ms(e_n * exp_bytes + a.numel() * 2 + e_n * t * n * 4)
+        t_ops = 2 * e_n * t * k * n / bf16_peak * 1e3
+        lib = (lambda w: torch.matmul(a, w)) if a.dim() == 2 else (lambda w: torch.bmm(a, w))
+        rep.add({"shape": f"{label} K={k} N={n} E={e_n}", "max_abs_err": err, "rel_err": rel,
+                 "tol": GPTOSS_TOL,
+                 "ms": time_ms(lambda q, s_: mx.mxfp4_matmul_all_experts(a, q, s_), stacks, 10),
+                 "plain_ms": time_ms(lambda q, s_: mx.mxfp4_matmul_all_experts_plain(a, q, s_),
+                                     stacks, 2),
+                 "library_ms": time_ms(lib, [(w16,)], 10),
+                 **bound(t_bytes, t_ops)}, headline=(label.startswith("shared")))
+
+    # -- B11: the overflow fallback's per-expert matmul at M = 300
+    rep = reports["mx_mm"]
+    for label, ei in (("gate", 3), ("down", 17)):
+        a = torch.randn((300, k), generator=gen, device=dev).to(torch.bfloat16)
+        qs, sx = stacks[0][0][ei], stacks[0][1][ei]
+        got = mx.mxfp4_matmul(a, qs, sx)
+        err, rel = compare(f"mxfp4_matmul {label} M=300", got, mx.mxfp4_matmul_plain(a, qs, sx),
+                           GPTOSS_TOL)
+        t_bytes = ms(exp_bytes + 300 * k * 2 + 300 * n * 4)
+        t_ops = 2 * 300 * k * n / bf16_peak * 1e3
+        rep.add({"shape": f"one expert's {label} M=300 K={k} N={n}", "max_abs_err": err,
+                 "rel_err": rel, "tol": GPTOSS_TOL,
+                 "ms": time_ms(lambda e_: mx.mxfp4_matmul(a, stacks[0][0][e_], stacks[0][1][e_]),
+                               [(e_,) for e_ in range(e_n)], 32),
+                 "plain_ms": time_ms(lambda e_: mx.mxfp4_matmul_plain(
+                     a, stacks[0][0][e_], stacks[0][1][e_]), [(e_,) for e_ in range(4)], 4),
+                 "library_ms": time_ms(lambda e_: torch.matmul(a, w16[e_]),
+                                       [(e_,) for e_ in range(e_n)], 32),
+                 **bound(t_bytes, t_ops)}, headline=(label == "gate"))
+    del stacks, w16
+    torch.cuda.empty_cache()
+
+    # -- B2 at the gpt-oss Q8 shapes, decode M = 1
+    rep = reports["q8"]
+    for lname, (kq, nq, n_log) in GPTOSS_Q8.items():
+        qw = torch.randint(-127, 128, (kq, nq), generator=gen, device=dev, dtype=torch.int8)
+        qsc = 2.0 ** torch.randint(-11, -9, (kq // 32, nq), generator=gen, device=dev).float()
+        wl = (qw.float().reshape(kq // 32, 32, nq) * qsc[:, None]).reshape(kq, nq).to(
+            torch.bfloat16)
+        a = torch.randn((1, kq), generator=gen, device=dev).to(torch.bfloat16)
+        err, rel = compare(f"q8_matmul gpt-oss {lname}", q8.q8_matmul(a, qw, qsc),
+                           q8.q8_matmul_plain(a, qw, qsc), GPTOSS_TOL)
+        copies = [(a, qw, qsc)] + [(a, qw.clone(), qsc.clone())
+                                   for _ in range(n_copies(kq * nq) - 1)]
+        t_bytes = ms(kq * nq + kq // 32 * nq * 4 + kq * 2 + nq * 4)
+        rep.add({"shape": f"gpt-oss {lname} M=1 K={kq} N={nq}", "max_abs_err": err,
+                 "rel_err": rel, "tol": GPTOSS_TOL,
+                 "ms": time_ms(q8.q8_matmul, copies, 20),
+                 "plain_ms": time_ms(q8.q8_matmul_plain, copies[:1], 3),
+                 "library_ms": time_ms(torch.matmul, [(a, wl)], 20),
+                 **bound(t_bytes, 2 * kq * nq / bf16_peak * 1e3)}, headline=False)
+        del qw, qsc, wl, copies
+
+    # -- B3, B6-B8: one decode row per lane over a 640-slot ring (window 128,
+    # sinks), 2 lanes at positions 1000 and 700 (the rings have wrapped)
+    h, hkv, d, s, win = 64, 8, 64, 640, 128
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    starts = (1000, 700)
+    pos = torch.tensor([[st] for st in starts], device=dev, dtype=torch.int32)
+    sinks = torch.randn((h,), generator=gen, device=dev)
+    kv_pos = torch.arange(s, device=dev)
+    off = torch.remainder(pos[:, :, None] - kv_pos, s)
+    mask = (pos[:, :, None] - off > pos[:, :, None] - win)[:, None]          # [B, 1, 1, S]
+    q = torch.randn((2, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    for key, codec in (("fa", "bf16"), ("fa_q8", "q8"), ("fa_q4hp", "q4hp"), ("fa_q4", "q4")):
+        if codec == "bf16":
+            caches = [tuple(torch.randn((2, hkv, s, d), generator=gen, device=dev).to(
+                torch.bfloat16) for _ in range(2)) for _ in range(4)]
+            kern, plain = fa.flash_attention, fa.attention_ref
+            code_bytes = 2 * d
+            lib_sets = [(c[0], c[1]) for c in caches[:2]]
+        else:
+            caches = [kvq_caches(codec, 2, hkv, s, d, gen) for _ in range(4)]
+            kern, plain = getattr(fa, KVQ[key][0]), fa.attention_kvq_ref
+            code_bytes = (d if codec == "q8" else d // 2) + 4
+            from rrs_tpu_torch.runtime import kv_codec
+
+            lib_sets = [(kv_codec.dequantize(c[0], c[1]).to(torch.bfloat16),
+                         kv_codec.dequantize(c[2], c[3]).to(torch.bfloat16)) for c in caches[:2]]
+        kw = dict(window=win, sinks=sinks)
+        got = kern(q, *caches[0], pos, scale, **kw)
+        err, rel = compare(f"{kern.__name__} gpt-oss ring", got, plain(q, *caches[0], pos, scale,
+                                                                        **kw), 8e-3)
+        # the bound reads the window's rows only
+        t_bytes = ms(2 * 2 * hkv * win * code_bytes + 2 * 2 * h * d * 2)
+        t_ops = 4 * d * 2 * h * win / bf16_peak * 1e3
+        # SDPA has no sinks: the yardstick attends the same window without them
+        sdpa = lambda kk, vv: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1),
+            attn_mask=mask, scale=scale)
+        reports[key].add({"shape": f"gpt-oss ring T=1 B=2 S={s} window {win} sinks H={h} "
+                                   f"Hkv={hkv} D={d}",
+                          "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
+                          "ms": time_ms(lambda *c: kern(q, *c, pos, scale, **kw), caches, 40),
+                          "plain_ms": time_ms(lambda *c: plain(q, *c, pos, scale, **kw),
+                                              caches[:2], 5),
+                          "library_ms": time_ms(sdpa, lib_sets, 40),
+                          **bound(t_bytes, t_ops)}, headline=False)
+        del caches, lib_sets
+    torch.cuda.empty_cache()
+
+
+def gptoss_small_cfg():
+    """gpt-oss at reduced widths (E = 1024, 32 heads on 4 kv heads x 64, 32
+    experts of 1024 top-4, 2 layers: one sliding with window 128, YaRN),
+    every K and N a multiple of 64 so that MXFP4 applies."""
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="gpt-oss", n_layers=2, n_embd=1024, n_heads=32, n_kv_heads=4,
+                       head_dim=64, n_ff=1024, vocab_size=4096, context_length=4096,
+                       rope_theta=150000.0, rope_scaling_type="yarn", rope_scale_factor=32.0,
+                       rope_orig_context=4096, n_experts=32, n_experts_used=4, n_ff_exp=1024,
+                       swa_window=128, swa_pattern=2, attn_bias=True,
+                       expert_softmax_weight=True, moe_act="swiglu_oai")
+
+
+@contextlib.contextmanager
+def moe_branches():
+    """While open, counts the moe_ffn branches taken: rows (three B12
+    calls), all experts (B13 twice over shared activations, then once
+    per-expert), the capacity dispatch and its overflow scan. Yields the
+    counts, filled in on leaving."""
+    from rrs_tpu_torch.models import moe
+
+    orig_rows, orig_all, orig_dispatch = (moe.mxfp4_matmul_experts_rows,
+                                          moe.mxfp4_matmul_all_experts, moe._capacity_dispatch)
+    n = {"rows": 0, "shared": 0, "dispatch": 0, "fallback": 0}
+
+    def rows(*args):
+        n["rows"] += 1
+        return orig_rows(*args)
+
+    def all_experts(a, *args):
+        n["shared"] += a.dim() == 2
+        return orig_all(a, *args)
+
+    def dispatch(*args):
+        n["dispatch"] += 1
+        *head, fallback = args
+
+        def counted_fallback():
+            n["fallback"] += 1
+            return fallback()
+        return orig_dispatch(*head, counted_fallback)
+
+    branches: dict = {}
+    moe.mxfp4_matmul_experts_rows, moe.mxfp4_matmul_all_experts = rows, all_experts
+    moe._capacity_dispatch = dispatch
+    try:
+        yield branches
+    finally:
+        moe.mxfp4_matmul_experts_rows, moe.mxfp4_matmul_all_experts = orig_rows, orig_all
+        moe._capacity_dispatch = orig_dispatch
+        branches.update(rows=n["rows"] // 3, all_experts=n["shared"] // 2,
+                        capacity=n["dispatch"] - n["fallback"], fallback=n["fallback"])
+
+
+@contextlib.contextmanager
+def routes_replayed(recorded: list):
+    """While open, moe.route returns, call by call, the expert ids (and
+    weights) recorded from another run wherever its own ids differ; yields
+    {"calls", "flipped": selections that differed}."""
+    import torch
+
+    from rrs_tpu_torch.models import moe
+
+    orig = moe.route
+    seen = {"calls": 0, "flipped": 0}
+
+    def replay(cfg, mw, x2):
+        ti, tv = orig(cfg, mw, x2)
+        ri, rv = recorded[seen["calls"]]
+        seen["calls"] += 1
+        diff = int((ti.cpu() != ri).sum())
+        if diff:
+            seen["flipped"] += diff
+            return ri.to(ti.device), rv.to(tv.device)
+        return ti, tv
+
+    moe.route = replay
+    try:
+        yield seen
+    finally:
+        moe.route = orig
+
+
+def phase_gptoss_small_reference():
+    """A 2-layer gpt-oss model (gptoss_small_cfg, fabricated weights drawn on
+    the CPU) on the card against the same weights on the CPU: prompts of 40
+    tokens (B13 over shared activations), 300 random ones (capacity
+    dispatch) and 300 copies of one token (overflow: the B11 scan), each
+    with one decode step (B12). The card replays the CPU's expert ids where
+    its own differ (a flipped expert is no tolerance question; the flips are
+    counted) and every kernel launch is held to its plain version on its
+    inputs; the logits are held within GLUE_TOL relative L2."""
+    import torch
+
+    from rrs_tpu_torch.models import llama, moe
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = gptoss_small_cfg()
+    w_cpu = llama.fabricated_gptoss_weights(cfg, seed=1, device="cpu")
+    rng = torch.Generator().manual_seed(3)
+    prompts = {"40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
+               "300 copies": [77] * 300}
+    recorded, logits = [], {}
+    orig = moe.route
+
+    def record(c, mw, x2):
+        ti, tv = orig(c, mw, x2)
+        recorded.append((ti.clone(), tv.clone()))
+        return ti, tv
+
+    moe.route = record
+    try:
+        cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
+        with moe_branches() as paths_cpu:
+            for name, p in prompts.items():
+                seq = cpu.new_sequence()
+                logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
+                                       cpu.decode({seq: 11})[seq].float())
+                cpu.kv.seq_rm(seq)
+    finally:
+        moe.route = orig
+    ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
+    expect = MXFP4_KERNELS | {"q8_matmul", "flash_attention"}
+    with held_to_plain("small gpt-oss", expect) as seen, routes_replayed(recorded) as replay:
+        for name, p in prompts.items():
+            seq = ctx.new_sequence()
+            logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
+                                    ctx.decode({seq: 11})[seq].float().cpu())
+            ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    print(f"  small gpt-oss (2 layers, E=1024, 32 experts top-4, rings of {ctx.kv.sizes[0]}): "
+          "each launch vs its plain version (max rel): "
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items())
+          + f"; {replay['flipped']} expert selections of the card's own routing differed from "
+          f"the CPU's over {replay['calls']} routing calls and were replayed; MoE paths on the "
+          f"CPU {paths_cpu}", flush=True)
+    for name in prompts:
+        for i, stage in enumerate(("prefill", "decode")):
+            got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"small gpt-oss {name} {stage}: bad logits")
+            rel = ((got - ref).norm() / ref.norm()).item()
+            print(f"  small gpt-oss, prompt {name}, {stage}, card vs CPU: rel L2 {rel:.4f} <= "
+                  f"{GLUE_TOL}, argmax {int(got.argmax())} vs {int(ref.argmax())}", flush=True)
+            if rel > GLUE_TOL:
+                raise AssertionError(f"small gpt-oss {name} {stage}: rel L2 {rel:.4f} > "
+                                     f"{GLUE_TOL}")
+
+
+GPTOSS_COUNTERS = {"q8": "q8_matmul", "fa": "flash_attention", "mx_rows": MX["mx_rows"][0],
+                   "mx_all": MX["mx_all"][0], "mx_mm": MX["mx_mm"][0]}
+
+
+def phase_gptoss_generate(reports):
+    """``generate`` at full gpt-oss-20b width (24 layers, fabricated weights,
+    bf16 KV over 640-slot rings on the 12 sliding layers): greedy prompts of
+    5 (the rows kernel in prefill), 40 (all experts, shared activations),
+    300 random and 300 copies of one token (the overflow scan: the 212
+    padding rows of the 512 bucket, all token 0, route alike and overflow the
+    capacity, as in the JAX package), and 512 random ones (the capacity
+    dispatch, B13 over per-expert activations), 32 new tokens each; every kernel's launches counted from
+    0 and the MoE branches taken; a decode profile; then ``generate`` over q8
+    rings. Returns (cfg, weights)."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = PRESETS["gpt-oss-20b"]
+    t0 = time.perf_counter()
+    weights = llama.fabricated_gptoss_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    print(f"  fabricated gpt-oss-20b weights ({w_bytes / GB:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator().manual_seed(0)
+    prompts = {"5": torch.randint(0, cfg.vocab_size, (5,), generator=rng).tolist(),
+               "40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
+               "300 copies": [1234] * 300,
+               "512 random": torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()}
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    warm.generate(prompts["5"], 2)                            # first-call set-up
+    del warm
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    outs = {}
+    with moe_branches() as branches:
+        for name, p in prompts.items():
+            seq = ctx.new_sequence()
+            first = ctx.prefill(seq, p)[-1]
+            ctx.kv.seq_rm(seq)
+            if not torch.isfinite(first).all():
+                raise AssertionError(f"gpt-oss generate: non-finite prefill logits, prompt "
+                                     f"{name}")
+            outs[name] = ctx.generate(p, 32)
+        torch.cuda.synchronize()
+    launches = {key: kernels.LAUNCHES[n] for key, n in GPTOSS_COUNTERS.items()}
+    for name, out in outs.items():
+        if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+            raise AssertionError(f"gpt-oss generate {name}: {len(out)} tokens: {out}")
+    perf = ctx.perf()
+    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x 32 new tokens (each prompt "
+          f"prefilled once more first, its logits checked finite); prefill {perf['n_p_eval']} "
+          f"tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} tok @ "
+          f"{perf['tg_tok_per_s']:.2f} tok/s ({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} "
+          f"ms/token); KV resident {ctx.kv.nbytes() / GB:.4f} GB (rings {ctx.kv.sizes[0]} "
+          f"slots, full layers {ctx.kv.sizes[1]}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / GB:.2f} GB", flush=True)
+    print(f"  greedy tokens: " + "; ".join(f"{k}: {v[:6]}..." for k, v in outs.items()),
+          flush=True)
+    print(f"  MoE branches: {branches}; launches on the gpt-oss path: {launches}",
+          flush=True)
+    for key, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"gpt-oss generate: kernel {key} was never launched")
+        reports[key].entry["launches" if key.startswith("mx") else "launches_gptoss"] = n
+    profile_decode(ctx, prompts["40"], label="gpt-oss-20b")
+    del ctx
+
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
+    warm.generate(prompts["5"], 2)
+    del warm
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    q8_outs = [ctx.generate(prompts[n], 32) for n in ("40", "300 random")]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if any(len(o) != 32 for o in q8_outs) or launches["flash_attention_q8"] == 0 \
+            or launches["flash_attention"] != 0:
+        raise AssertionError(f"gpt-oss generate, q8 KV: {[len(o) for o in q8_outs]} tokens, "
+                             f"launches {launches}")
+    reports["fa_q8"].entry["launches_gptoss"] = launches["flash_attention_q8"]
+    perf = ctx.perf()
+    print(f"  generate, q8 KV over the rings: prompts 40/300 x 32 new tokens; prefill "
+          f"{perf['pp_tok_per_s']:.1f} tok/s, decode {perf['tg_tok_per_s']:.2f} tok/s; KV "
+          f"resident {ctx.kv.nbytes() / GB:.4f} GB; greedy tokens {q8_outs[0][:6]}... (bf16 KV: "
+          f"{outs['40'][:6]}...); launches {launches}", flush=True)
+    del ctx
+    return cfg, weights
+
+
+def _tensors(obj):
+    """Every tensor of a weights tree."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
+
+
+SERVE_GPTOSS_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
+
+
+def phase_serving_gptoss(cfg, weights, reports):
+    """The server in-process at gpt-oss-20b width: 4 slots, ctx 4096, bf16 KV
+    (rings of 640 slots on the sliding layers). Four concurrent completions
+    (1000 / 2000 tokens, two greedy, two sampled, 64 new tokens each) must
+    finish by length with 64 tokens; the device decode runs must be used and
+    every kernel of the path launched; the lanes are freed on release.
+    Returns the context."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.serving.engine import Engine
+    from rrs_tpu_torch.serving.server import ServerState, make_handler
+
+    ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096)
+    engine = Engine(ctx)
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, "gpt-oss-20b-fabricated")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    rng = torch.Generator().manual_seed(13)
+    jobs = []
+    for i, n in enumerate(SERVE_GPTOSS_LENGTHS):
+        body = {"prompt": torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist(),
+                "max_tokens": SERVE_NEW, "seed": i}
+        if i < 2:
+            body["temperature"] = 0.0
+        jobs.append((f"gpt-oss completion {n} {'greedy' if i < 2 else 'sampled'} #{i}", body))
+    results: dict = {}
+
+    def run(job):
+        name, body = job
+        t0 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/completions", body)
+        results[name] = (status, data, t0, time.perf_counter(), body)
+
+    runs0 = engine.n_decode_runs
+    engine.start()
+    server_thread.start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+        with moe_branches() as branches:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("gpt-oss serving: a request did not finish within 900 s")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = {key: kernels.LAUNCHES[n] for key, n in GPTOSS_COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated() / GB
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    if engine._thread.is_alive():
+        raise AssertionError("gpt-oss serving: the engine thread did not stop")
+    decode_spans, n_decode = [], 0
+    for name, (status, data, t0, t1, body) in results.items():
+        if status != 200:
+            raise AssertionError(f"gpt-oss serving: {name} answered {status}: {data[:300]!r}")
+        out = json.loads(data)
+        reason = out["choices"][0]["finish_reason"]
+        n_out = out["usage"]["completion_tokens"]
+        if reason != "length" or n_out != SERVE_NEW:
+            raise AssertionError(f"gpt-oss serving: {name} finished by {reason} with {n_out} "
+                                 f"tokens")
+        tm = out["timings"]
+        start = t0 + tm["prompt_ms"] / 1e3
+        decode_spans.append((start, start + tm["predicted_ms"] / 1e3))
+        n_decode += n_out - 1
+        print(f"  {name}: {n_out} tokens ({reason}), time to first token {tm['prompt_ms']:.1f} "
+              f"ms, decode {(n_out - 1) / max(tm['predicted_ms'] / 1e3, 1e-9):.2f} tok/s",
+              flush=True)
+    runs = engine.n_decode_runs - runs0
+    busy = _union_seconds(decode_spans)
+    print(f"  gpt-oss served {len(results)} requests in {wall:.1f} s; prompt tokens "
+          f"{sum(SERVE_GPTOSS_LENGTHS)}; decode tok/s summed over the 4 slots "
+          f"{n_decode / busy:.2f} ({n_decode} tokens over {busy:.1f} s); {runs} device decode "
+          f"runs; KV resident {ctx.kv.nbytes() / GB:.3f} GB; peak memory {peak:.2f} GB; MoE "
+          f"branches {branches}; launches {launches}", flush=True)
+    if runs == 0:
+        raise AssertionError("gpt-oss serving: no device decode run was launched")
+    if any(s is not None for s in ctx.kv.seq_ids):
+        raise AssertionError(f"gpt-oss serving: lanes not freed: {ctx.kv.seq_ids}")
+    for key in ("q8", "fa", "mx_rows"):
+        if launches[key] == 0:
+            raise AssertionError(f"gpt-oss serving: kernel {key} was never launched")
+    if launches["mx_all"] + launches["mx_mm"] == 0:
+        raise AssertionError("gpt-oss serving: no prefill MoE kernel (B11 / B13) was launched")
+    for key, n in launches.items():
+        reports[key].entry["launches_serve_gptoss" if not key.startswith("mx")
+                           else "launches_serve"] = n
+    return ctx
+
+
+def phase_gptoss_served_steps(ctx):
+    """One teacher-forced 4-lane prefill chunk (three sequences of 500, 300
+    and 40 tokens in one T = 512 step, lane 3 dead) and one 4-lane decode
+    step at gpt-oss-20b width, every kernel launch held to its plain version
+    on the very inputs it got."""
+    import torch
+
+    kv = ctx.kv
+    for seq in [s for s in kv.seq_ids if s is not None]:
+        kv.seq_rm(seq)
+    rng = torch.Generator().manual_seed(17)
+    seqs = [ctx.new_sequence() for _ in range(3)]
+    chunks = {seq: torch.randint(2, ctx.cfg.vocab_size, (n,), generator=rng).tolist()
+              for seq, n in zip(seqs, (500, 300, 40))}
+    t0 = time.perf_counter()
+    with held_to_plain("gpt-oss served steps",
+                       {"q8_matmul", "flash_attention", "mxfp4_matmul_experts_rows"}) as seen, \
+            moe_branches() as branches:
+        last = ctx.prefill_multi(chunks)
+        out = ctx.decode({seq: int(last[seq].argmax()) for seq in seqs})
+        torch.cuda.synchronize()
+    if not seen.keys() & {"mxfp4_matmul", "mxfp4_matmul_all_experts"}:
+        raise AssertionError("gpt-oss served steps: the prefill launched neither B11 nor B13")
+    for seq in seqs:
+        if not torch.isfinite(out[seq]).all():
+            raise AssertionError(f"gpt-oss served steps: non-finite decode logits for {seq}")
+        kv.seq_rm(seq)
+    for name, (worst, shapes) in seen.items():
+        print(f"  gpt-oss served steps, {name}: every launch within {SMALL_TOL[name]:.0e} of its "
+              f"plain version (max rel {worst:.2e}); shapes {sorted(shapes)[:6]}", flush=True)
+    print(f"  gpt-oss served prefill + decode step held to the plain versions in "
+          f"{time.perf_counter() - t0:.1f} s; MoE branches {branches}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1472,45 +2083,59 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    print("[1/8] build", flush=True)
+    print("[1/9] build", flush=True)
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[2/8] kernel parity at the qwen3-4b main-path shapes", flush=True)
+    print("[2/9] kernel parity at the qwen3-4b main-path shapes", flush=True)
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    print("[3/8] main path: small-model references, the q4 halves path, then generate at "
+    print("[3/9] main path: small-model references, the q4 halves path, then generate at "
           "qwen3-4b width over bf16, q8 and q4 KV", flush=True)
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    print("[4/8] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
+    print("[4/9] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
     ctx = phase_serving(cfg, weights, reports)
 
-    print("[5/8] served steps held to the plain versions; device decode run against "
+    print("[5/9] served steps held to the plain versions; device decode run against "
           "step-by-step decode", flush=True)
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    print("[6/8] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
+    print("[6/9] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
     phase_served_steps_kvq(cfg, weights)
 
-    print("[7/8] serving with --cache-type q4: slot save / erase / restore, context shift",
+    print("[7/9] serving with --cache-type q4: slot save / erase / restore, context shift",
           flush=True)
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
     del ctx, weights
+    gc.collect()                        # engine threads and servers hold reference cycles
+    torch.cuda.empty_cache()
+    print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
+          flush=True)
 
-    print("[8/8] summary", flush=True)
-    order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4")
+    print("[8/9] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
+          "serving and held served steps", flush=True)
+    phase_parity_gptoss(peaks, reports)
+    phase_gptoss_small_reference()
+    cfg, weights = phase_gptoss_generate(reports)
+    ctx = phase_serving_gptoss(cfg, weights, reports)
+    phase_gptoss_served_steps(ctx)
+    del ctx, weights
+
+    print("[9/9] summary", flush=True)
+    order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "mx_mm", "mx_rows",
+             "mx_all")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

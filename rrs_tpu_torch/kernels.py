@@ -40,13 +40,18 @@ SIGNATURES = {
                             _F, _F, _I, _P],
     "rrs_flash_attention_kvq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _I, _P],
+    "rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its
 # kernel and nowhere else (the plain CPU versions launch nothing).
 LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul_i8p": 0,
                             "q8_matmul": 0, "flash_attention": 0, "flash_attention_q8": 0,
-                            "flash_attention_q4hp": 0, "flash_attention_q4": 0}
+                            "flash_attention_q4hp": 0, "flash_attention_q4": 0,
+                            "mxfp4_matmul": 0, "mxfp4_matmul_experts_rows": 0,
+                            "mxfp4_matmul_all_experts": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

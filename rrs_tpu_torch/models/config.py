@@ -1,8 +1,13 @@
-"""Model hyperparameters from GGUF metadata: the dense Qwen3 / Qwen2 / Llama
-subset of ``rrs_tpu/models/config.py``.
+"""Model hyperparameters from GGUF metadata: the Qwen3 / Qwen2 / Llama and
+gpt-oss subset of ``rrs_tpu/models/config.py``.
 
-Any other architecture, sliding-window attention and RoPE scaling other than
-``none`` / ``llama3`` raise NotImplementedError until their slice is ported.
+gpt-oss brings the MoE fields (MXFP4 experts, swiglu_oai, top-k on raw logits
+then a softmax over the k), alternating sliding-window layers over ring
+caches, per-head sinks and qkv / output biases. Llama / Qwen GGUFs with
+``attention.sliding_window`` take every layer sliding (pattern 1), as in the
+JAX package. Other architectures, MoE layers outside gpt-oss (their TCQ4
+expert kernels are the next slice) and RoPE scaling other than ``none`` /
+``llama3`` / ``yarn`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -10,7 +15,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3")
+SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "gpt-oss")
+# MoE archs whose TCQ4 expert stacks (kernels B9 / B10) are the next slice
+NEXT_SLICE_MOE = ("qwen2moe", "qwen3moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +40,25 @@ class ModelConfig:
     qk_norm: bool = False            # qwen3-style per-head q/k RMSNorm
     attn_bias: bool = False          # qwen2-style qkv bias
     tie_embeddings: bool = False
+    # MoE (0 => dense)
+    n_experts: int = 0
+    n_experts_used: int = 0
+    n_ff_exp: int = 0
+    expert_gating_softmax: bool = True
+    norm_topk_prob: bool = False
+    expert_weights_scale: float = 1.0
+    expert_weights_norm: bool = False
+    n_expert_groups: int = 0
+    n_group_used: int = 0
+    # gpt-oss: top-k on the raw router logits, softmax over the selected k,
+    # and the clamped swiglu_oai expert activation
+    expert_softmax_weight: bool = False
+    moe_act: str = "silu"            # "silu" | "swiglu_oai"
+    # sliding-window attention: 0 => none; pattern 1 => every layer; n > 1
+    # => layer li is sliding iff li % n < n - 1 (gpt-oss: 2, even layers)
+    swa_window: int = 0
+    swa_pattern: int = 0
+    rope_theta_swa: float = 0.0      # 0 => sliding layers share rope_theta
 
     @property
     def n_q_dim(self) -> int:
@@ -42,9 +68,25 @@ class ModelConfig:
     def n_kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    def is_swa(self, li: int) -> bool:
+        """Is layer ``li`` sliding-window (over a ring cache)?"""
+        if self.swa_window <= 0 or self.swa_pattern <= 0:
+            return False
+        if self.swa_pattern == 1:
+            return True
+        return li % self.swa_pattern < self.swa_pattern - 1
+
+    @property
+    def any_swa(self) -> bool:
+        return self.swa_window > 0 and self.swa_pattern > 0
+
     @staticmethod
     def from_gguf(md: Mapping[str, Any]) -> "ModelConfig":
         arch = md["general.architecture"]
+        if arch in NEXT_SLICE_MOE:
+            raise NotImplementedError(
+                f"architecture {arch!r}: TCQ4 expert stacks (kernels B9 / B10) are the "
+                "next slice of rrs_tpu_torch")
         if arch not in SUPPORTED_ARCHS:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported to rrs_tpu_torch "
@@ -53,13 +95,29 @@ class ModelConfig:
         def key(suffix, default=None):
             return md.get(f"{arch}.{suffix}", default)
 
-        if int(key("attention.sliding_window", 0) or 0) > 0:
-            raise NotImplementedError("sliding-window attention is not ported to rrs_tpu_torch")
-        if int(key("expert_count", 0) or 0) > 0:
-            raise NotImplementedError("MoE layers are not ported to rrs_tpu_torch")
+        if arch != "gpt-oss" and int(key("expert_count", 0) or 0) > 0:
+            raise NotImplementedError(
+                f"{arch} MoE layers: only gpt-oss (MXFP4 experts) is ported; TCQ4 expert "
+                "stacks (kernels B9 / B10) are the next slice")
         scaling = str(key("rope.scaling.type", "none") or "none")
-        if scaling not in ("none", "llama3"):
+        if scaling not in ("none", "llama3", "yarn"):
             raise NotImplementedError(f"rope scaling {scaling!r} is not ported to rrs_tpu_torch")
+        extra: dict = {}
+        if arch == "gpt-oss":
+            # alternating sliding layers (pattern 2, even layers), sinks,
+            # biases, swiglu_oai experts and the post-top-k softmax
+            extra.update(
+                swa_window=int(key("attention.sliding_window", 128) or 128),
+                swa_pattern=2,
+                rope_theta_swa=float(key("rope.freq_base_swa", 0.0) or 0.0),
+                expert_softmax_weight=True,
+                moe_act="swiglu_oai",
+            )
+        else:
+            # llama / qwen: every layer sliding when the key is present
+            win = int(key("attention.sliding_window", 0) or 0)
+            if win > 0:
+                extra.update(swa_window=win, swa_pattern=1)
         n_embd = int(key("embedding_length"))
         n_heads = int(key("attention.head_count", 0) or 0)
         n_kv = int(key("attention.head_count_kv", n_heads) or 0)
@@ -68,6 +126,7 @@ class ModelConfig:
         vocab = md.get("tokenizer.ggml.tokens")
         vocab_size = int(key("vocab_size", len(vocab) if vocab is not None else 0))
         return ModelConfig(
+            **extra,
             arch=arch,
             n_layers=int(key("block_count")),
             n_embd=n_embd,
@@ -85,8 +144,12 @@ class ModelConfig:
             # llama weights are pre-permuted for interleaved (NORM) rope
             rope_neox=arch != "llama",
             qk_norm=arch == "qwen3",
-            attn_bias=arch == "qwen2",
+            attn_bias=arch in ("qwen2", "gpt-oss"),
             tie_embeddings=bool(md.get(f"{arch}.tie_word_embeddings", False)),
+            n_experts=int(key("expert_count", 0) or 0),
+            n_experts_used=int(key("expert_used_count", 0) or 0),
+            n_ff_exp=int(key("expert_feed_forward_length", 0) or 0),
+            norm_topk_prob=bool(key("norm_topk_prob", False)),
         )
 
 
@@ -105,6 +168,24 @@ PRESETS: dict[str, ModelConfig] = {
         arch="llama", n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8,
         head_dim=128, n_ff=14336, vocab_size=128256, context_length=8192,
         rope_theta=500000.0, rope_neox=False,
+    ),
+    # gpt-oss-20b (LLM_TYPE_20B): all-MoE with alternating SWA + sinks,
+    # swiglu_oai experts, post-top-k softmax
+    "gpt-oss-20b": ModelConfig(
+        arch="gpt-oss", n_layers=24, n_embd=2880, n_heads=64, n_kv_heads=8,
+        head_dim=64, n_ff=2880, vocab_size=201088, context_length=131072,
+        rope_theta=150000.0, rope_scaling_type="yarn",
+        rope_scale_factor=32.0, rope_orig_context=4096,
+        n_experts=32, n_experts_used=4, n_ff_exp=2880,
+        swa_window=128, swa_pattern=2, attn_bias=True,
+        expert_softmax_weight=True, moe_act="swiglu_oai",
+    ),
+    "tiny-oss": ModelConfig(
+        arch="gpt-oss", n_layers=3, n_embd=128, n_heads=4, n_kv_heads=2,
+        head_dim=32, n_ff=256, vocab_size=512, context_length=1024,
+        n_experts=4, n_experts_used=2, n_ff_exp=64,
+        swa_window=8, swa_pattern=2, attn_bias=True,
+        expert_softmax_weight=True, moe_act="swiglu_oai",
     ),
     "tiny": ModelConfig(
         arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,

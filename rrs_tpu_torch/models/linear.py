@@ -1,4 +1,4 @@
-"""Linear layers: dense bf16, TCQ4 W4A4 with RRS rotation, and Q8_0.
+"""Linear layers: dense bf16, TCQ4 W4A4 with RRS rotation, Q8_0 and MXFP4.
 
 Port of ``rrs_tpu/models/linear.py``: the layer dataclasses, the N-pad
 policy, ``fuse_linears``, the activation rotation, the route by M between
@@ -28,6 +28,7 @@ from rrs_tpu_torch.formats.tcq4 import (
     effective_scales,
     quantize_activations_rrs,
 )
+from rrs_tpu_torch.ops import mxfp4_matmul as mx_mm
 from rrs_tpu_torch.ops import q8_matmul as q8_mm
 from rrs_tpu_torch.ops import tcq4_matmul as tcq4_mm
 
@@ -147,6 +148,31 @@ class Q8Linear:
         return cls.from_q8_gguf(raw, w.shape, bias=bias, device=device)
 
 
+@dataclasses.dataclass
+class MXFP4Linear:
+    """MXFP4 linear (gpt-oss's native format): qs uint8 [K//2, Npad] and sexp
+    uint8 [K//32, Npad] in the device layout of ``ops/mxfp4_matmul.py``,
+    decoded inside the matmul kernel. Weights only: the activations stay
+    bf16. ``n_logical`` is the true width when N was padded."""
+
+    qs: torch.Tensor
+    scale: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+    n_logical: int = 0
+
+    @property
+    def shape(self):
+        return (self.qs.shape[0] * 2, self.n_logical or self.qs.shape[1])
+
+    @classmethod
+    def from_gguf(cls, raw: np.ndarray, shape, bias=None, device="cpu") -> "MXFP4Linear":
+        """Build from an MXFP4 GGUF payload for a logical [N, K] weight."""
+        qs, sexp = mx_mm.pack_mxfp4_device(raw, shape)
+        return cls(qs=torch.from_numpy(qs).to(device), scale=torch.from_numpy(sexp).to(device),
+                   bias=None if bias is None else torch.as_tensor(bias, device=device),
+                   n_logical=shape[0])
+
+
 def fuse_linears(layers: list):
     """Concatenate same-K linears along N (qkv / gate-up fusion): one kernel
     launch instead of several. Returns None when they cannot share one."""
@@ -180,6 +206,15 @@ def fuse_linears(layers: list):
             qs=torch.cat([l.qs for l in layers], dim=1),
             eff=torch.cat([l.eff for l in layers], dim=1),
             gather=g0,
+            bias=bias_cat(lambda l: l.qs.shape[1], torch.float32),
+        )
+    if isinstance(first, MXFP4Linear):
+        # pad columns would land mid-concat and shift the later segments
+        if any(l.n_logical and l.n_logical != l.qs.shape[1] for l in layers):
+            return None
+        return MXFP4Linear(
+            qs=torch.cat([l.qs for l in layers], dim=1),
+            scale=torch.cat([l.scale for l in layers], dim=1),
             bias=bias_cat(lambda l: l.qs.shape[1], torch.float32),
         )
     if isinstance(first, Q8Linear):
@@ -255,6 +290,10 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
             # K padded to the kernel's 256-multiple with zero-scale rows
             x2 = torch.nn.functional.pad(x2, (0, layer.q.shape[0] - k))
         y = q8_mm.q8_matmul(x2.contiguous(), layer.q, layer.scale)
+        if layer.n_logical and layer.n_logical != y.shape[-1]:
+            y = y[:, : layer.n_logical]
+    elif isinstance(layer, MXFP4Linear):
+        y = mx_mm.mxfp4_matmul(x2.contiguous(), layer.qs, layer.scale)
         if layer.n_logical and layer.n_logical != y.shape[-1]:
             y = y[:, : layer.n_logical]
     elif isinstance(layer, TCQ4Linear):

@@ -1,14 +1,18 @@
-"""Dense llama-family transformer forward (Llama 3, Qwen2.5, Qwen3).
+"""Llama-family transformer forward (Llama 3, Qwen2.5, Qwen3, gpt-oss).
 
-Port of the dense path of ``rrs_tpu/models/llama.py``: RMSNorm -> QKV
-(+ per-head q/k norm) -> RoPE -> KV store -> GQA flash attention -> output
-projection -> RMSNorm -> SwiGLU FFN, then the final norm and the lm_head.
+Port of ``rrs_tpu/models/llama.py``: RMSNorm -> QKV (+ bias, + per-head q/k
+norm) -> RoPE (per layer: sliding layers may take their own base) -> KV store
+-> GQA flash attention (window and sinks on sliding gpt-oss layers) -> output
+projection -> RMSNorm -> SwiGLU FFN or the MoE FFN (``models/moe.py``), then
+the final norm and the lm_head.
 
 Weights are plain dataclasses of tensors. Where the JAX forward returns new
-caches, this one writes the new K/V rows into the preallocated
-[B, Hkv, S, D] caches in place and returns only the logits. A quantized
-cache (a ``(codes, scales)`` pair, ``runtime/kv_codec.py``) takes the new
-rows quantized and packed, and is read by its own attention kernel.
+caches, this one writes the new K/V rows into the preallocated per-layer
+[B, Hkv, S_l, D] caches in place and returns only the logits. A sliding
+layer's cache is a ring of S_l slots (position p at slot p % S_l) whose rows
+may wrap mid-chunk, written as two slices. A quantized cache (a ``(codes,
+scales)`` pair, ``runtime/kv_codec.py``) takes the new rows quantized and
+packed, and is read by its own attention kernel.
 """
 
 from __future__ import annotations
@@ -22,12 +26,14 @@ import torch
 from rrs_tpu_torch.models.config import ModelConfig
 from rrs_tpu_torch.models.linear import (
     DenseLinear,
+    MXFP4Linear,
     Q8Linear,
     TCQ4Linear,
     linear_apply,
     n_pad_width,
     want_i8p,
 )
+from rrs_tpu_torch.models.moe import NEXT_SLICE, MoEWeights, moe_ffn
 from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
 from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
                                                flash_attention_q4hp, flash_attention_q8)
@@ -49,6 +55,8 @@ class LayerWeights:
     w_down: Any
     wqkv: Any = None                  # fused q|k|v projection (optional)
     w_gateup: Any = None              # fused gate|up projection (optional)
+    moe: Any = None                   # MoEWeights of an MoE layer (models/moe.py)
+    attn_sinks: Optional[torch.Tensor] = None   # [H] f32 per-head sink logits (gpt-oss)
 
 
 @dataclasses.dataclass
@@ -76,7 +84,10 @@ def embed_rows(embed, tokens: torch.Tensor) -> torch.Tensor:
     return embed[tokens]
 
 
-def rope_params(cfg: ModelConfig) -> RopeParams:
+def rope_params(cfg: ModelConfig, swa: bool = False) -> RopeParams:
+    if swa and cfg.rope_theta_swa > 0:
+        # sliding layers with their own base take no long-context scaling
+        return RopeParams(head_dim=cfg.head_dim, theta=cfg.rope_theta_swa, neox=cfg.rope_neox)
     return RopeParams(
         head_dim=cfg.head_dim,
         theta=cfg.rope_theta,
@@ -87,55 +98,84 @@ def rope_params(cfg: ModelConfig) -> RopeParams:
     )
 
 
-def _store_starts(cache_slots, mask_positions, s_l: int, t: int) -> list[int]:
-    """First cache slot each lane writes: its own slot, or s_l - t for a
-    padded lane (mask -1), which parks its rows at the top of the cache where
-    any sequence reaching them rewrites them before attending. The start is
-    clamped to [0, s_l - t] like the JAX dynamic_update_slice."""
+def _lane_slots(cache_slots, mask_positions) -> list[int]:
+    """First cache slot of each lane's run, -1 for a padded lane (mask -1)."""
     slots = torch.as_tensor(cache_slots).reshape(len(cache_slots), -1)[:, 0].tolist()
     masks = torch.as_tensor(mask_positions).reshape(len(mask_positions), -1)[:, 0].tolist()
-    return [min(max(sl % s_l if mk >= 0 else s_l - t, 0), s_l - t)
-            for sl, mk in zip(slots, masks)]
+    return [sl if mk >= 0 else -1 for sl, mk in zip(slots, masks)]
 
 
-def _store_cache(cache, new: torch.Tensor, starts: list[int]) -> None:
+def _layer_starts(slots: list[int], s_l: int, t: int, ring: bool) -> list:
+    """Per-lane start slots in one layer's cache of s_l slots. Full layers: a
+    lane's own slot, or s_l - t for a padded lane, which parks its rows at the
+    top of the cache where any sequence reaching them rewrites them before
+    attending; clamped to [0, s_l - t] like the JAX dynamic_update_slice.
+    Rings: slot % s_l, and None (no write) for a padded lane, whose ring may
+    hold a live sequence's window (the JAX one-hot ring store multiplies by
+    the lane's activity)."""
+    if ring:
+        return [sl % s_l if sl >= 0 else None for sl in slots]
+    return [min(max(sl % s_l if sl >= 0 else s_l - t, 0), s_l - t) for sl in slots]
+
+
+def _put(lane: torch.Tensor, rows: torch.Tensor, st: int) -> None:
+    """Write rows [H, T, ...] into one lane [H, S, ...] from slot st; a run
+    past the last slot wraps to slot 0 (only a ring's start lets it)."""
+    t = rows.shape[1]
+    n1 = min(t, lane.shape[1] - st)
+    lane[:, st:st + n1] = rows[:, :n1]
+    if n1 < t:
+        lane[:, :t - n1] = rows[:, n1:]
+
+
+def _store_cache(cache, new: torch.Tensor, starts: list) -> None:
     """Write ``new`` [B, Hkv, T, D] into ``cache`` in place at the per-lane
-    start slots (a contiguous run per lane). A quantized ``(codes, scales)``
-    cache takes the rows quantized per (head, slot) and packed in its layout,
-    and their scales written as computed: JAX's decode store blends the scale
-    in (``sc + (s_new - sc) * onehot``), which can move it by an ulp."""
-    t = new.shape[2]
+    start slots (``_layer_starts``; None skips the lane). A quantized
+    ``(codes, scales)`` cache takes the rows quantized per (head, slot) and
+    packed in its layout, and their scales written as computed: JAX's decode
+    store blends the scale in (``sc + (s_new - sc) * onehot``), which can move
+    it by an ulp."""
     if isinstance(cache, tuple):
         arr, sc = cache
         q, s_new = kv_codec.quantize_rows(new, kv_codec.kv_qmax(arr))   # [B, Hkv, T, D], [B, Hkv, T]
         q = kv_codec.pack_like(q, arr, sc)
         for lane, st in enumerate(starts):
-            arr[lane, :, st:st + t] = q[lane]
-            sc[lane, :, 0, st:st + t] = s_new[lane]
+            if st is not None:
+                _put(arr[lane], q[lane], st)
+                _put(sc[lane, :, 0], s_new[lane], st)
         return
     new = new.to(cache.dtype)
     for lane, st in enumerate(starts):
-        cache[lane, :, st:st + t] = new[lane]
+        if st is not None:
+            _put(cache[lane], new[lane], st)
 
 
-def attend(q, k_cache, v_cache, mask_positions, scale: float) -> torch.Tensor:
+def attend(q, k_cache, v_cache, mask_positions, scale: float, window: int = 0,
+           sinks=None) -> torch.Tensor:
     """Attention over a bf16 cache, or over a quantized one by its layout:
     int8 codes take the q8 kernel, uint8 head-pair codes the q4hp kernel and
-    halves-packed codes the q4 kernel."""
+    halves-packed codes the q4 kernel. ``window`` > 0: the cache is a ring
+    and each row sees its last ``window`` positions; ``sinks``: [H] logits
+    that join only the softmax denominator."""
     if not isinstance(k_cache, tuple):
-        return flash_attention(q, k_cache, v_cache, mask_positions, scale)
+        return flash_attention(q, k_cache, v_cache, mask_positions, scale, window=window,
+                               sinks=sinks)
     if k_cache[0].dtype == torch.uint8:
         kern = flash_attention_q4hp if kv_codec.is_head_pair(*k_cache) else flash_attention_q4
     else:
         kern = flash_attention_q8
-    return kern(q, *k_cache, *v_cache, mask_positions, scale)
+    return kern(q, *k_cache, *v_cache, mask_positions, scale, window=window, sinks=sinks)
 
 
 def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
               positions: torch.Tensor, k_cache, v_cache,
-              mask_positions: torch.Tensor, starts: list[int]) -> torch.Tensor:
+              mask_positions: torch.Tensor, slots: list[int], li: int = 0) -> torch.Tensor:
+    """One layer's attention; ``slots``: each lane's first cache slot (-1 =
+    padded lane), from which the layer's own start slots follow."""
     b, t, _ = x.shape
     d = cfg.head_dim
+    swa = cfg.is_swa(li)
+    window = cfg.swa_window if swa else 0
     if lw.wqkv is not None:
         qkv = linear_apply(lw.wqkv, x)
         nq, nkv = cfg.n_q_dim, cfg.n_kv_dim
@@ -150,18 +190,23 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, lw.q_norm, cfg.rms_eps)
         k = rms_norm(k, lw.k_norm, cfg.rms_eps)
-    rp = rope_params(cfg)
+    rp = rope_params(cfg, swa=swa)
     q = apply_rope(q, positions, rp)
     k = apply_rope(k, positions, rp)
+    s_l = (k_cache[0] if isinstance(k_cache, tuple) else k_cache).shape[2]
+    starts = _layer_starts(slots, s_l, t, ring=window > 0)
     _store_cache(k_cache, k.transpose(1, 2), starts)
     _store_cache(v_cache, v.transpose(1, 2), starts)
     scale = 1.0 / np.sqrt(d)
-    ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale)
+    ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale, window=window,
+                 sinks=lw.attn_sinks)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
     return linear_apply(lw.wo, ctx)
 
 
 def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor) -> torch.Tensor:
+    if lw.moe is not None:
+        return moe_ffn(cfg, lw.moe, x)
     if lw.w_gateup is not None:
         gu = linear_apply(lw.w_gateup, x)
         gate, up = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]
@@ -174,26 +219,26 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
             v_caches: list, mask_positions, cache_slots, last_idx=None,
-            starts: Optional[list] = None) -> torch.Tensor:
+            slots: Optional[list] = None) -> torch.Tensor:
     """One decode/prefill step; returns logits [B, T, V] f32 (or [B, 1, V]
     with ``last_idx``). The index inputs ([B, T] int tokens, positions,
     mask positions (-1 = padded row) and cache slots) may live on the host:
-    the K/V store reads its start slots there, and the rest is copied to the
-    weights' device. A caller whose indices already live on the device passes
-    the per-lane store ``starts`` (host ints) instead, so that nothing is
-    read back. The caches are updated in place."""
+    the K/V store reads each lane's first slot there, and the rest is copied
+    to the weights' device. A caller whose indices already live on the device
+    passes those first ``slots`` (host ints, -1 for a padded lane) instead,
+    so that nothing is read back; each layer takes its start slots from them
+    (modulo its ring). The caches are updated in place."""
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
-    s_l = (k_caches[0][0] if isinstance(k_caches[0], tuple) else k_caches[0]).shape[2]
-    if starts is None:
-        starts = _store_starts(cache_slots, mask_positions, s_l, tokens.shape[1])
+    if slots is None:
+        slots = _lane_slots(cache_slots, mask_positions)
     mask_dev = torch.as_tensor(mask_positions).to(dev)
     x = embed_rows(w.embed, tokens)
     for li, lw in enumerate(w.layers):
         h = rms_norm(x, lw.attn_norm, cfg.rms_eps)
         x = x + attention(cfg, lw, h, positions, k_caches[li], v_caches[li],
-                          mask_dev, starts)
+                          mask_dev, slots, li)
         h = rms_norm(x, lw.ffn_norm, cfg.rms_eps)
         x = x + ffn(cfg, lw, h)
     if last_idx is not None:
@@ -285,6 +330,67 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
                         lm_head=Q8Linear(q=lm_q, scale=lm_s, n_logical=cfg.vocab_size))
 
 
+def fabricated_gptoss_weights(cfg: ModelConfig, seed: int = 0, device=None) -> ModelWeights:
+    """gpt-oss weights drawn on the device from a seeded ``torch.Generator``,
+    with the recipe of benchmarks/bench_gptoss.py: MXFP4 expert stacks
+    (uniform code bytes, sexp in [118, 122], i.e. half block scales
+    2^-9 .. 2^-5) with N padded to 128; Q8_0 attention and lm_head with
+    power-of-two scales 2^-11 .. 2^-10 and K padded to 256 (2880 -> 3072);
+    a Q8-packed embedding table; router N(0, 0.05) in bf16 with a zero bias;
+    expert, qkv and output biases N(0, 0.01); per-head sinks N(0, 1). Fused
+    qkv (q / k / v carry no N pad); the lm_head pads N as the loader does.
+    For runs where the compute and the traffic matter and the values do not."""
+    from rrs_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    e, f, n_exp = cfg.n_embd, cfg.n_ff_exp, cfg.n_experts
+
+    def normal(scl, shape):
+        return torch.randn(shape, generator=gen, device=dev) * scl
+
+    def pow2(lo, hi, shape):
+        return 2.0 ** torch.randint(lo, hi, shape, generator=gen, device=dev).to(torch.float32)
+
+    def mxstack(k, n):
+        npad = -(-n // 128) * 128
+        return (torch.randint(0, 256, (n_exp, k // 2, npad), generator=gen, device=dev,
+                              dtype=torch.uint8),
+                torch.randint(118, 123, (n_exp, k // 32, npad), generator=gen, device=dev,
+                              dtype=torch.uint8))
+
+    def q8lin(k, n, bias=False):
+        npad, kpad = n_pad_width(n), -(-k // 256) * 256
+        q = torch.randint(-127, 128, (kpad, npad), generator=gen, device=dev, dtype=torch.int8)
+        return Q8Linear(q=q, scale=pow2(-11, -9, (kpad // 32, npad)),
+                        bias=normal(1e-2, (n,)) if bias else None, n_logical=n,
+                        k_logical=k if kpad != k else 0)
+
+    ones = lambda n: torch.ones((n,), dtype=torch.bfloat16, device=dev)   # noqa: E731
+    layers = []
+    for _ in range(cfg.n_layers):
+        gq, ge = mxstack(e, f)
+        uq, ue = mxstack(e, f)
+        dq, de = mxstack(f, e)
+        moe = MoEWeights(router=normal(0.05, (e, n_exp)).to(torch.bfloat16),
+                         gate_qs=gq, gate_eff=ge, up_qs=uq, up_eff=ue, down_qs=dq, down_eff=de,
+                         router_bias=torch.zeros((n_exp,), device=dev),
+                         gate_b=normal(1e-2, (n_exp, f)), up_b=normal(1e-2, (n_exp, f)),
+                         down_b=normal(1e-2, (n_exp, e)))
+        layers.append(LayerWeights(
+            attn_norm=ones(e), wq=None, wk=None, wv=None,
+            wqkv=q8lin(e, cfg.n_q_dim + 2 * cfg.n_kv_dim, bias=True),
+            wo=q8lin(cfg.n_q_dim, e, bias=True), q_norm=None, k_norm=None,
+            attn_sinks=normal(1.0, (cfg.n_heads,)), ffn_norm=ones(e),
+            w_gate=None, w_up=None, w_down=None, moe=moe))
+    embed = (torch.randint(-127, 128, (cfg.vocab_size, e), generator=gen, device=dev,
+                           dtype=torch.int8),
+             pow2(-11, -9, (cfg.vocab_size, e // 32)))
+    return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
+                        lm_head=q8lin(e, cfg.vocab_size))
+
+
 def to_device(obj, device):
     """A copy of a weights tree (dataclasses, lists, tuples of tensors) on
     ``device``."""
@@ -317,6 +423,9 @@ def _linear_from_numpy(d, device):
     if d is None:
         return None
     bias = _tensor(d.get("bias"), device)
+    if "qs" in d and "scale" in d:
+        return MXFP4Linear(qs=_tensor(d["qs"], device), scale=_tensor(d["scale"], device),
+                           bias=bias, n_logical=int(d.get("n_logical", 0) or 0))
     if "qs" in d:
         gather = d.get("gather")
         i8p = d.get("i8p")
@@ -337,7 +446,21 @@ def _linear_from_numpy(d, device):
 
 
 _LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
-_LAYER_NORMS = ("attn_norm", "q_norm", "k_norm", "ffn_norm")
+_LAYER_TENSORS = ("attn_norm", "q_norm", "k_norm", "ffn_norm", "attn_sinks")
+_MOE_TENSORS = ("router", "gate_qs", "gate_eff", "up_qs", "up_eff", "down_qs", "down_eff",
+                "probs_bias", "router_bias", "gate_b", "up_b", "down_b")
+
+
+def _moe_from_numpy(d, device) -> Optional[MoEWeights]:
+    """The JAX MoEWeights fields -> the port's; MXFP4 stacks only."""
+    if d is None:
+        return None
+    kind = str(np.asarray(d.get("quant_kind", "tcq4")))
+    extra = [k for k in ("gate", "up", "down", "shared_gate", "shared_up", "shared_down")
+             if d.get(k) is not None]
+    if kind != "mxfp4" or d.get("gate_qs") is None or extra:
+        raise NotImplementedError(f"MoE layer ({kind} stacks, fields {extra}): {NEXT_SLICE}")
+    return MoEWeights(quant_kind=kind, **{k: _tensor(d.get(k), device) for k in _MOE_TENSORS})
 
 
 def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeights:
@@ -345,22 +468,24 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     plain nested dict of NumPy arrays keyed by the JAX dataclass field names:
     ``embed`` (an array, or a (q, scale) pair), ``final_norm``, ``lm_head``
     and ``layers[i]`` with ``attn_norm``, ``wqkv`` ({qs, eff, gather, bias}),
-    ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), and so on;
-    a TCQ4 linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None.
-    Fields this dense slice does not carry (MoE, MLA, sinks, sandwich norms)
-    must be None."""
+    ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), an MXFP4
+    linear ({qs, scale, bias, n_logical}), ``attn_sinks``, ``moe`` (the
+    MoEWeights fields, MXFP4 stacks) and so on; a TCQ4 linear's ``i8p`` is
+    its (qs_sbi, f8, e2) pack or None. Fields the port does not carry yet
+    (MLA, sandwich norms) must be None."""
     from rrs_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     layers = []
     for ld in tree["layers"]:
         extra = [k for k, v in ld.items()
-                 if v is not None and k not in _LAYER_LINEARS + _LAYER_NORMS]
+                 if v is not None and k not in _LAYER_LINEARS + _LAYER_TENSORS + ("moe",)]
         if extra:
             raise NotImplementedError(f"layer fields {extra} are not ported to rrs_tpu_torch")
         layers.append(LayerWeights(
-            **{k: _tensor(ld.get(k), dev) for k in _LAYER_NORMS},
-            **{k: _linear_from_numpy(ld.get(k), dev) for k in _LAYER_LINEARS}))
+            **{k: _tensor(ld.get(k), dev) for k in _LAYER_TENSORS},
+            **{k: _linear_from_numpy(ld.get(k), dev) for k in _LAYER_LINEARS},
+            moe=_moe_from_numpy(ld.get("moe"), dev)))
     emb = tree["embed"]
     if isinstance(emb, (tuple, list)):
         embed = (_tensor(emb[0], dev), _tensor(emb[1], dev))

@@ -1,14 +1,19 @@
-"""GGUF -> device weights for the dense path.
+"""GGUF -> device weights.
 
-Port of ``load_model`` with ``_linear`` / ``_norm`` from
+Port of ``load_model`` with ``_linear`` / ``_norm`` / ``_load_moe`` from
 ``rrs_tpu/models/loader.py``: TCQ4_K32 tensors (with their ``tcq4.*.perm``
 channel permutations) decode on the host with the NumPy tile codec into the
 K-major kernel layout; Q8_0 matrices stay packed (Q8Linear, and the Q8_0
-embedding table when the head is untied); F32/F16/BF16 become bf16
-DenseLinears; a tied head is the transposed embedding.
+embedding table when the head is untied); MXFP4 matrices and gpt-oss expert
+stacks stay packed in the device layout of ``ops/mxfp4_matmul.py``;
+F32/F16/BF16 become bf16 DenseLinears; a tied head is the transposed
+embedding. gpt-oss's router and expert biases, its per-head sinks (under
+either tensor name) and its pre-FFN norm (shipped as
+``post_attention_norm``) load as the JAX package loads them.
 
-MLA, MoE, MXFP4, recurrent and hybrid layers, fused pre-packed qkv / gate-up
-tensors and split GGUFs raise NotImplementedError until their slices.
+MLA, TCQ4 or dense expert stacks and shared experts (the next slice),
+recurrent and hybrid layers, sandwich norms, fused pre-packed qkv / gate-up
+tensors and split GGUFs raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,11 +29,14 @@ from rrs_tpu_torch.formats.tile_codec import decode_tcq4_gguf
 from rrs_tpu_torch.gguf.constants import GGMLType, tcq4_perm_key
 from rrs_tpu_torch.gguf.reader import GGUFFile, read_gguf
 from rrs_tpu_torch.models.config import ModelConfig
-from rrs_tpu_torch.models.linear import DenseLinear, Q8Linear, TCQ4Linear, fuse_linears
+from rrs_tpu_torch.models.linear import (DenseLinear, MXFP4Linear, Q8Linear, TCQ4Linear,
+                                         fuse_linears)
 from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
+from rrs_tpu_torch.models.moe import NEXT_SLICE, MoEWeights
+from rrs_tpu_torch.ops.mxfp4_matmul import pack_mxfp4_device
 
-_NOT_PORTED = ("attn_kv_a_mqa", "ffn_gate_inp", "ssm_in", "time_mix_key", "attn_qkv",
-               "attn_sinks", "post_attention_norm", "post_ffw_norm")
+_NOT_PORTED = ("attn_kv_a_mqa", "ssm_in", "time_mix_key", "attn_qkv", "post_ffw_norm",
+               "ffn_gate_shexp")
 
 
 def _f32(g: GGUFFile, name: str) -> np.ndarray:
@@ -57,16 +65,49 @@ def _linear(g: GGUFFile, name: str, device, dtype=torch.bfloat16,
         return Q8Linear.from_q8_gguf(g.tensor_bytes(name), info.shape, bias=bias,
                                      device=device)
     if info.ggml_type == GGMLType.MXFP4:
-        raise NotImplementedError(f"{name}: MXFP4 is not ported to rrs_tpu_torch")
+        if len(info.shape) != 2 or info.shape[1] % 64:
+            raise NotImplementedError(f"{name}: MXFP4 {info.shape} needs a 2-D weight with "
+                                      "K % 64 == 0")
+        return MXFP4Linear.from_gguf(g.tensor_bytes(name), info.shape, bias=bias, device=device)
     w = _f32(g, name)                                     # [N, K]
     return DenseLinear(w=torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device,
                                                                         dtype=dtype),
                        bias=bias)
 
 
+def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
+    """MoEWeights of layer prefix ``p``: the router (x @ router, in
+    ``dtype``), the gpt-oss router and per-expert biases (GGUF [E, N]
+    arrays), an expert-selection bias, and the MXFP4 expert stacks packed
+    per expert (GGUF gate / up [E, F, K], down [E, K, F])."""
+    def f32(name):
+        return torch.from_numpy(_f32(g, name)).to(device)
+
+    fields = dict(router=torch.from_numpy(
+        np.ascontiguousarray(_f32(g, f"{p}.ffn_gate_inp.weight").T)).to(device=device, dtype=dtype))
+    for tname, field in (("exp_probs_b.bias", "probs_bias"), ("ffn_gate_inp.bias", "router_bias"),
+                         ("ffn_gate_exps.bias", "gate_b"), ("ffn_up_exps.bias", "up_b"),
+                         ("ffn_down_exps.bias", "down_b")):
+        if f"{p}.{tname}" in g.tensors:
+            fields[field] = f32(f"{p}.{tname}")
+    for n in ("gate", "up", "down"):
+        name = f"{p}.ffn_{n}_exps.weight"
+        info = g.tensors[name]
+        if info.ggml_type != GGMLType.MXFP4 or info.shape[-1] % 64:
+            raise NotImplementedError(f"{name}: {GGMLType(info.ggml_type).name} expert stack "
+                                      f"{info.shape}: {NEXT_SLICE}")
+        raw = g.tensor_bytes(name)
+        per = raw.size // info.shape[0]
+        packed = [pack_mxfp4_device(raw[ei * per:(ei + 1) * per], info.shape[1:])
+                  for ei in range(info.shape[0])]
+        fields[f"{n}_qs"] = torch.from_numpy(np.stack([q for q, _ in packed])).to(device)
+        fields[f"{n}_eff"] = torch.from_numpy(np.stack([s for _, s in packed])).to(device)
+    return MoEWeights(quant_kind="mxfp4", **fields)
+
+
 def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = None,
                device=None):
-    """Load a dense GGUF model onto ``device`` (``None`` = cuda), with the
+    """Load a GGUF model onto ``device`` (``None`` = cuda), with the
     q/k/v and gate/up projections fused where ``fuse_linears`` can.
     Returns (config, weights, metadata)."""
     dev = resolve_device(device)
@@ -80,35 +121,46 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
 
             cfg = dataclasses.replace(cfg, vocab_size=g.tensors["token_embd.weight"].shape[0])
         for tname in g.tensors:
-            if any(part in tname.split(".") for part in _NOT_PORTED):
+            parts = tname.split(".")
+            if any(part in parts for part in _NOT_PORTED) or (
+                    "post_attention_norm" in parts and cfg.arch != "gpt-oss"):
                 raise NotImplementedError(f"tensor {tname}: layer kind not ported to rrs_tpu_torch")
         layers = []
         for i in range(cfg.n_layers):
             p = f"blk.{i}"
             lin = lambda n, b=None: _linear(g, f"{p}.{n}.weight", dev, dtype,   # noqa: E731
                                             b and f"{p}.{n}.bias")
+            is_moe = f"{p}.ffn_gate_inp.weight" in g.tensors
             wq, wk, wv = lin("attn_q", 1), lin("attn_k", 1), lin("attn_v", 1)
-            w_gate, w_up = lin("ffn_gate"), lin("ffn_up")
+            w_gate, w_up = (None, None) if is_moe else (lin("ffn_gate"), lin("ffn_up"))
             wqkv = w_gateup = None
             if type(wq) is type(wk) is type(wv):
                 wqkv = fuse_linears([wq, wk, wv])
             if wqkv is not None:
                 wq = wk = wv = None
-            if type(w_gate) is type(w_up):
+            if not is_moe and type(w_gate) is type(w_up):
                 w_gateup = fuse_linears([w_gate, w_up])
             if w_gateup is not None:
                 w_gate = w_up = None
             has_qn = f"{p}.attn_q_norm.weight" in g.tensors
+            # gpt-oss ships its pre-FFN norm under the post_attention_norm name
+            ffn_norm = f"{p}.ffn_norm.weight"
+            if cfg.arch == "gpt-oss" and ffn_norm not in g.tensors:
+                ffn_norm = f"{p}.post_attention_norm.weight"
+            sinks = next((n for n in (f"{p}.attn_sinks.weight", f"{p}.attn_sinks")
+                          if n in g.tensors), None)
             layers.append(LayerWeights(
                 attn_norm=_norm(g, f"{p}.attn_norm.weight", dev, dtype),
                 wq=wq, wk=wk, wv=wv,
                 wo=lin("attn_output", 1),
                 q_norm=_norm(g, f"{p}.attn_q_norm.weight", dev, dtype) if has_qn else None,
                 k_norm=_norm(g, f"{p}.attn_k_norm.weight", dev, dtype) if has_qn else None,
-                ffn_norm=_norm(g, f"{p}.ffn_norm.weight", dev, dtype),
+                ffn_norm=_norm(g, ffn_norm, dev, dtype),
                 w_gate=w_gate, w_up=w_up,
-                w_down=lin("ffn_down"),
+                w_down=None if is_moe else lin("ffn_down"),
                 wqkv=wqkv, w_gateup=w_gateup,
+                moe=_load_moe(g, p, dev, dtype) if is_moe else None,
+                attn_sinks=None if sinks is None else torch.from_numpy(_f32(g, sinks)).to(dev),
             ))
 
         emb_info = g.tensors["token_embd.weight"]

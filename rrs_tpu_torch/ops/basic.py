@@ -5,8 +5,9 @@ Port of ``rrs_tpu/ops/basic.py`` (``rms_norm``, ``RopeParams``,
 kernel: XLA fused them there. They compute in f32 and cast back to the
 input dtype at the same places as the JAX package.
 
-RoPE scaling: ``none`` (Qwen3) and ``llama3`` (Llama 3.1) are ported; any
-other type, and per-dimension frequency factors, raise NotImplementedError.
+RoPE scaling: ``none`` (Qwen3), ``llama3`` (Llama 3.1) and ``yarn`` (gpt-oss; the JAX package's simplified ramp with beta_fast 32 and
+beta_slow 1, and its cos/sin scale 1 + 0.1 ln(factor)) are ported; any other
+type, and per-dimension frequency factors, raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-ROPE_SCALING_TYPES = ("none", "llama3")
+ROPE_SCALING_TYPES = ("none", "llama3", "yarn")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -39,6 +40,8 @@ class RopeParams:
     high_freq_factor: float = 4.0
     neox: bool = True              # split-half (NEOX) vs interleaved pairs (NORM)
     rot_dim: int = 0               # 0 => full head_dim
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
     attn_factor: float = 1.0
 
     def __post_init__(self):
@@ -69,6 +72,20 @@ def rope_frequencies(p: RopeParams, device=None) -> torch.Tensor:
                 (1.0 - smooth) * inv_freq / p.scale_factor + smooth * inv_freq,
             ),
         )
+    elif p.scaling_type == "yarn" and p.scale_factor != 1.0 and p.orig_context > 0:
+        # YaRN with the JAX package's simplified linear ramp between the
+        # dims that turn beta_fast and beta_slow times over orig_context
+        rot_f = float(rot)
+
+        def find_dim(n_rot_cycles):
+            return rot_f * math.log(p.orig_context / (n_rot_cycles * 2 * math.pi)) / (
+                2 * math.log(p.theta))
+
+        low = max(0.0, math.floor(find_dim(p.yarn_beta_fast)))
+        high = min(rot_f - 1.0, math.ceil(find_dim(p.yarn_beta_slow)))
+        dims = torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+        ramp = ((dims / 2 - low) / max(high - low, 1e-3)).clamp(0.0, 1.0)
+        inv_freq = inv_freq / p.scale_factor * ramp + inv_freq * (1.0 - ramp)
     return inv_freq
 
 
@@ -79,8 +96,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams,
         raise NotImplementedError("rope frequency factors are not ported to rrs_tpu_torch")
     rot = p.rot_dim or p.head_dim
     inv_freq = rope_frequencies(p, device=x.device)
+    mscale = p.attn_factor
+    if p.scaling_type == "yarn" and p.scale_factor != 1.0:
+        mscale = p.attn_factor * (1.0 + 0.1 * math.log(p.scale_factor))
     angles = positions[..., None].to(torch.float32) * inv_freq     # [..., T, rot//2]
-    return _rotate(x, angles, p.attn_factor, rot, p.neox).to(x.dtype)
+    return _rotate(x, angles, mscale, rot, p.neox).to(x.dtype)
 
 
 def _rotate(x, angles, mscale, rot: int, neox: bool):

@@ -60,9 +60,11 @@ class InferenceContext:
         set_matmul_precision()
         self.cfg = cfg
         self.weights = weights
-        self.max_chunk = min(PREFILL_BUCKETS[-1], max_seq)
+        # a ring must cover the largest chunk: models with sliding layers
+        # cap it at 512 so that their rings stay window + 512 slots
+        self.max_chunk = min(512 if cfg.any_swa else PREFILL_BUCKETS[-1], max_seq)
         self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
-                                 quant=kv_quant)
+                                 quant=kv_quant, max_chunk=self.max_chunk)
         self._next_seq_id = 0
         # perf counters (llama_perf_context analog)
         self.n_prefill_tokens = 0
@@ -298,7 +300,6 @@ class InferenceContext:
             ops.update(rep=rep, frq=frq, prs=prs, bias=bias)
             evict = self._evict_schedule(histories, lanes, params, n, offset=0)
         xtc, mir, typ, sig, dry = feats
-        s = self.kv.max_seq
         pos = np.array([[st + i if st >= 0 else -1 for st in start] for i in range(n)],
                        np.int32)                                           # [n, B]
         pos_dev = self._upload(pos)
@@ -308,10 +309,10 @@ class InferenceContext:
         t0 = time.perf_counter()
         out, cvs, cis = [], [], []
         for i in range(n):
-            starts = [int(p) if p >= 0 else s - 1 for p in pos[i]]
             pcol = pos_dev[i][:, None]
             logits = llama_model.forward(self.cfg, self.weights, tok[:, None], pcol,
-                                         self.kv.k, self.kv.v, pcol, None, starts=starts)
+                                         self.kv.k, self.kv.v, pcol, None,
+                                         slots=[int(p) for p in pos[i]])
             lg = smp.device_penalties(logits[:, 0, :].to(torch.float32), counts, ops["rep"],
                                       ops["frq"], ops["prs"], ops["bias"])
             if xtc:

@@ -1,18 +1,22 @@
 """KV cache: preallocated device tensors plus host-side lane bookkeeping.
 
-Port of ``rrs_tpu/runtime/kv_cache.py`` for dense models: per-layer
-[B, Hkv, S, D] caches (kv-head-major), bf16 or quantized (``quant="q8"`` or
+Port of ``rrs_tpu/runtime/kv_cache.py``: per-layer [B, Hkv, S_l, D] caches
+(kv-head-major), where a sliding-window layer holds a ring of
+``round_up(window + max_chunk, 128)`` slots (at most max_seq) and every other
+layer max_seq, bf16 or quantized (``quant="q8"`` or
 ``"q4"``: a ``(codes, f32 scales)`` tuple per layer in the layouts of
 ``runtime/kv_codec.py``; q4 takes the head-pair layout for an even kv-head
 count and the halves layout for an odd one), one sequence per batch lane, and
 the lane operations the engine uses: ``seq_new`` with LRU eviction of retained
 prompt caches, ``mark_retained`` / ``unmark_retained``, ``has_seq``,
-``seq_rm``, ``seq_cp``, ``seq_keep``, ``lengths_array`` and the context shift
-``seq_shift``. The forward writes new rows into these tensors in place, and
-``seq_cp`` / ``seq_shift`` update them in place too.
+``seq_rm``, ``seq_cp`` (whole lanes, right for rings too), ``seq_keep``,
+``lengths_array`` and the context shift ``seq_shift``, which raises for a
+model with sliding layers, as the JAX package's does. The forward writes new
+rows into these tensors in place, and ``seq_cp`` / ``seq_shift`` update them
+in place too.
 
-Ring (sliding-window) caches, MLA rows, tensor-parallel head sharding,
-``seq_div`` position remaps and M-RoPE deltas wait for their slices.
+MLA rows, tensor-parallel head sharding, ``seq_div`` position remaps and
+M-RoPE deltas wait for their slices.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ class KVCache:
     max_seq: int
     lengths: list                 # tokens currently stored per lane
     seq_ids: list                 # sequence occupying each lane (None = free)
+    sizes: list = dataclasses.field(default_factory=list)   # slots per layer (rings smaller)
     # seq_id -> retention time: lanes kept as prompt caches, evicted least
     # recently retained first when a new sequence needs a lane
     retained: dict = dataclasses.field(default_factory=dict)
@@ -49,30 +54,33 @@ class KVCache:
 
     @classmethod
     def create(cls, cfg: ModelConfig, n_lanes: int, max_seq: int,
-               dtype=torch.bfloat16, device="cpu", quant: str = "none") -> "KVCache":
+               dtype=torch.bfloat16, device="cpu", quant: str = "none",
+               max_chunk: int = 512) -> "KVCache":
+        """``max_chunk``: the largest step the context runs; a ring must hold
+        window + T - 1 slots for every attended slot to survive a T-row step."""
         hkv, d = cfg.n_kv_heads, cfg.head_dim
-        shape = (n_lanes, hkv, max_seq, d)
+        sizes = [min(max_seq, -(-(cfg.swa_window + max_chunk) // 128) * 128)
+                 if cfg.is_swa(li) else max_seq for li in range(cfg.n_layers)]
 
-        def make():
+        def make(s):
+            shape = (n_lanes, hkv, s, d)
             if quant == "none":
                 return torch.zeros(shape, dtype=dtype, device=device)
-            scales = torch.ones((n_lanes, hkv, 1, max_seq), dtype=torch.float32, device=device)
+            scales = torch.ones((n_lanes, hkv, 1, s), dtype=torch.float32, device=device)
             if quant == "q8":
                 codes = torch.zeros(shape, dtype=torch.int8, device=device)
             elif quant == "q4" and hkv % 2 == 0:
-                codes = torch.zeros((n_lanes, hkv // 2, max_seq, d), dtype=torch.uint8,
-                                    device=device)
+                codes = torch.zeros((n_lanes, hkv // 2, s, d), dtype=torch.uint8, device=device)
             elif quant == "q4":
-                codes = torch.zeros((n_lanes, hkv, max_seq, d // 2), dtype=torch.uint8,
-                                    device=device)
+                codes = torch.zeros((n_lanes, hkv, s, d // 2), dtype=torch.uint8, device=device)
             else:
                 raise ValueError(f"KV cache quantization {quant!r}: not none, q8 or q4")
             return codes, scales
 
-        k = [make() for _ in range(cfg.n_layers)]
-        v = [make() for _ in range(cfg.n_layers)]
+        k = [make(s) for s in sizes]
+        v = [make(s) for s in sizes]
         return cls(k=k, v=v, max_seq=max_seq, lengths=[0] * n_lanes,
-                   seq_ids=[None] * n_lanes)
+                   seq_ids=[None] * n_lanes, sizes=sizes)
 
     def tensors(self) -> list:
         """Every device tensor of the cache (codes and scales alike)."""
@@ -154,6 +162,10 @@ class KVCache:
         from rrs_tpu_torch.ops.basic import apply_rope
         from rrs_tpu_torch.runtime import kv_codec
 
+        if cfg.any_swa:
+            # as the JAX package (and the reference's iSWA cache): no context
+            # shift over ring caches
+            raise RuntimeError("context shift is not supported for SWA models")
         lane = self.lane_of(seq_id)
         n = self.lengths[lane]
         n_discard = min(n_discard, n - n_keep)

@@ -5,12 +5,15 @@ Port of ``rrs_tpu/serving/engine.py`` (``Engine``, ``Slot``, ``GenRequest``,
 slots' chunks in one step) -> GENERATING (one shared decode for every
 generating slot) -> released on a stop token or string, max_tokens or
 cancellation; a released lane keeps its KV as a prompt cache for the next
-request with a shared prefix. Decoding goes through the context's device-side
-runs of DECODE_RUN_STEPS tokens, chained so that run N+1 is enqueued before
-run N is read; slots the runs cannot serve take the per-token host sampler.
-A lane that reaches max_seq - 1 is context-shifted. Slot state (a slot's
-sequence, saved to or restored from a state file, or erased) is handled on the
-engine thread, between iterations, through ``call``.
+request with a shared prefix, except on a model with sliding layers, whose
+rings no longer hold the prefix's window (the lane is freed). Decoding goes
+through the context's device-side runs of DECODE_RUN_STEPS tokens, chained
+so that run N+1 is enqueued before run N is read; slots the runs cannot
+serve take the per-token host sampler. A lane that reaches max_seq - 1 is
+context-shifted; on a model with sliding layers, which cannot shift, the
+slot finishes by length instead. Slot state (a slot's sequence, saved to or
+restored from a state file, or erased) is handled on the engine thread,
+between iterations, through ``call``.
 
 Waiting for their slices, and refused loudly: grammar / JSON-schema requests
 (ROADMAP A6), a draft model (A13), multimodal segments (A11) and infill (A13).
@@ -278,7 +281,10 @@ class Engine:
         req = slot.req
         if req and req.on_token:
             req.on_token(None, "", True, reason)
-        if slot.seq_id >= 0:
+        if slot.seq_id >= 0 and self.ctx.cfg.any_swa:
+            # ring caches cannot serve a later request's prefix: free the lane
+            self.ctx.kv.seq_rm(slot.seq_id)
+        elif slot.seq_id >= 0:
             # retain the lane's KV as a prompt cache for the next request
             slot.retained_seq = slot.seq_id
             slot.cache_tokens = (list(req.prompt_tokens) + list(slot.generated)) if req else []
@@ -464,6 +470,10 @@ class Engine:
             if s.state == SlotState.GENERATING and s.seq_id >= 0:
                 n = kv.lengths[kv.lane_of(s.seq_id)]
                 if n >= kv.max_seq - 1:
+                    if self.ctx.cfg.any_swa:
+                        # no context shift over ring caches: finish at the limit
+                        self._release(s, "length")
+                        continue
                     n_keep = 1
                     kv.seq_shift(self.ctx.cfg, s.seq_id, n_keep, max((n - n_keep) // 2, 1))
 

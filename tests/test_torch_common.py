@@ -42,8 +42,9 @@ def to_numpy(x):
 
 
 def linear_tree(layer):
-    """A JAX linear dataclass -> dict of NumPy arrays (ints kept as ints, the
-    i8p pack as a tuple of arrays)."""
+    """A JAX linear (or MoEWeights) dataclass -> dict of NumPy arrays (ints,
+    floats and strings kept as they are, the i8p pack as a tuple of
+    arrays)."""
     if layer is None:
         return None
     out = {}
@@ -52,7 +53,7 @@ def linear_tree(layer):
         if isinstance(v, tuple):
             out[f.name] = tuple(to_numpy(a) for a in v)
         else:
-            out[f.name] = v if isinstance(v, (int, float)) or v is None else to_numpy(v)
+            out[f.name] = v if isinstance(v, (int, float, str)) or v is None else to_numpy(v)
     return out
 
 

@@ -18,6 +18,8 @@ mods = ["rrs_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
+for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.models.moe"):
+    assert m in mods, m
 bad = sorted(m for m in sys.modules
              if m in ("jax", "rrs_tpu") or m.startswith(("jax.", "rrs_tpu.")))
 print(len(mods), "modules;", "forbidden:", bad)
@@ -95,13 +97,15 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 def test_kernel_wrappers_count_only_their_launches():
     from rrs_tpu_torch import kernels
     from rrs_tpu_torch.ops import flash_attention as fa
+    from rrs_tpu_torch.ops import mxfp4_matmul as mx
     from rrs_tpu_torch.ops import q8_matmul as q8
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
     before = dict(kernels.LAUNCHES)
     assert set(before) == {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
                            "flash_attention", "flash_attention_q8", "flash_attention_q4hp",
-                           "flash_attention_q4"}
+                           "flash_attention_q4", "mxfp4_matmul", "mxfp4_matmul_experts_rows",
+                           "mxfp4_matmul_all_experts"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
@@ -119,5 +123,11 @@ def test_kernel_wrappers_count_only_their_launches():
                       (fa.flash_attention_q4, torch.zeros(1, 2, 16, 32, dtype=torch.uint8))):
         fn(torch.randn(1, 1, 4, 64), codes, sc, codes, sc, torch.zeros(1, 1, dtype=torch.int32),
            0.125)
+    mq = torch.randint(0, 256, (2, 64, 64), generator=g, dtype=torch.uint8)
+    ms = torch.randint(118, 123, (2, 4, 64), generator=g, dtype=torch.uint8)
+    mx.mxfp4_matmul(torch.randn(3, 128, generator=g), mq[0], ms[0])
+    mx.mxfp4_matmul_experts_rows(torch.randn(3, 128, generator=g), mq, ms,
+                                 torch.tensor([1, 0, 1]))
+    mx.mxfp4_matmul_all_experts(torch.randn(3, 128, generator=g), mq, ms)
     # CPU tensors take the plain versions, which launch nothing
     assert kernels.LAUNCHES == before

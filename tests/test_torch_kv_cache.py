@@ -168,7 +168,8 @@ def test_quantized_store_matches_jax(layout, t):
     slots = np.where(first[:, None] < 0, 31, first[:, None] + np.arange(t, dtype=np.int32))
     mask = np.where(first[:, None] < 0, -1, slots).astype(np.int32)
     ref = jstore(jkv.k[0], jnp.asarray(new), jnp.asarray(slots), jnp.asarray(mask))
-    starts = llama._store_starts(torch.from_numpy(slots), torch.from_numpy(mask), 32, t)
+    starts = llama._layer_starts(llama._lane_slots(torch.from_numpy(slots), torch.from_numpy(mask)),
+                                 32, t, ring=False)
     llama._store_cache(tkv.k[0], torch.from_numpy(new), starts)
     np.testing.assert_array_equal(tkv.k[0][0].numpy(), np.asarray(ref[0]))
     got_s, ref_s = tkv.k[0][1].numpy(), np.asarray(ref[1])
