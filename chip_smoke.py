@@ -55,8 +55,21 @@ it; exits non-zero without either, and on any failed phase. Phases:
    width (fabricated weights) with prompts that reach every MoE branch,
    launch counts, the branches taken and a decode profile, then over q8
    rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
-   a teacher-forced 4-lane prefill chunk and decode step;
-9. the ``{"kernels": [...]}`` line (eleven kernels), the card's name and
+   a teacher-forced 4-lane prefill chunk and decode step; one capacity-path
+   prefill run twice, its logits held bit-equal;
+9. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9 and B10 against their
+   plain versions at its shapes, timed beside their bounds and
+   ``torch.bmm`` / ``torch.matmul`` on experts dequantized beforehand; a
+   2-layer qwen3moe model on the card against the same weights on the CPU,
+   with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
+   (every launch held to its plain version, the drift reported); ``generate``
+   at full width (48 layers, fabricated weights, the config from
+   ``ModelConfig.from_gguf`` on the published metadata) with prompts that
+   reach the rows, capacity and scan branches, a capacity prefill run twice
+   and held bit-equal, a decode profile and a run over q8 KV; the server (4
+   slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
+   4-lane prefill chunk and decode step;
+10. the ``{"kernels": [...]}`` line (thirteen kernels), the card's name and
    power limit, and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -493,7 +506,8 @@ def phase_i8p(peaks, reports):
 SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "tcq4_matmul_i8p": 1e-5,
              "q8_matmul": 1e-3, "flash_attention": 8e-3, "flash_attention_q8": 8e-3,
              "flash_attention_q4hp": 8e-3, "flash_attention_q4": 8e-3, "mxfp4_matmul": 1e-3,
-             "mxfp4_matmul_experts_rows": 1e-3, "mxfp4_matmul_all_experts": 1e-3}
+             "mxfp4_matmul_experts_rows": 1e-3, "mxfp4_matmul_all_experts": 1e-3,
+             "tcq4_matmul_experts_rows": 1e-3, "tcq4_matmul_all_experts": 1e-3}
 MXFP4_KERNELS = {"mxfp4_matmul", "mxfp4_matmul_experts_rows", "mxfp4_matmul_all_experts"}
 # the kernels of a step over a bf16 cache
 BF16_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
@@ -521,6 +535,8 @@ def held_to_plain(label: str, expect):
     hooked = [(moe, "mxfp4_matmul", mx.mxfp4_matmul_plain),
               (moe, "mxfp4_matmul_experts_rows", mx.mxfp4_matmul_experts_rows_plain),
               (moe, "mxfp4_matmul_all_experts", mx.mxfp4_matmul_all_experts_plain),
+              (moe, "tcq4_matmul_experts_rows", tm.tcq4_matmul_experts_rows_plain),
+              (moe, "tcq4_matmul_all_experts", tm.tcq4_matmul_all_experts_plain),
               (tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
               (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
               (tm, "tcq4_matmul_i8p", tm.tcq4_matmul_i8p_plain),
@@ -813,7 +829,9 @@ KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmu
                 "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
                 "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq",
                 "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
-                "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows"}
+                "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
+                "tcq4_experts_gemm_kernel": "tcq4_matmul_all_experts",
+                "tcq4_rows_kernel": "tcq4_matmul_experts_rows"}
 
 
 def phase_generate_kvq(cfg, weights, reports):
@@ -1679,23 +1697,28 @@ def gptoss_small_cfg():
 
 @contextlib.contextmanager
 def moe_branches():
-    """While open, counts the moe_ffn branches taken: rows (three B12
+    """While open, counts the moe_ffn branches taken: rows (three B12 or B9
     calls), all experts (B13 twice over shared activations, then once
     per-expert), the capacity dispatch and its overflow scan. Yields the
     counts, filled in on leaving."""
     from rrs_tpu_torch.models import moe
 
-    orig_rows, orig_all, orig_dispatch = (moe.mxfp4_matmul_experts_rows,
-                                          moe.mxfp4_matmul_all_experts, moe._capacity_dispatch)
+    names = ("mxfp4_matmul_experts_rows", "mxfp4_matmul_all_experts",
+             "tcq4_matmul_experts_rows", "tcq4_matmul_all_experts", "_capacity_dispatch")
+    originals = {name: getattr(moe, name) for name in names}
     n = {"rows": 0, "shared": 0, "dispatch": 0, "fallback": 0}
 
-    def rows(*args):
-        n["rows"] += 1
-        return orig_rows(*args)
+    def rows(orig):
+        def run(*args):
+            n["rows"] += 1
+            return orig(*args)
+        return run
 
-    def all_experts(a, *args):
-        n["shared"] += a.dim() == 2
-        return orig_all(a, *args)
+    def all_experts(orig):
+        def run(a, *args):
+            n["shared"] += a.dim() == 2
+            return orig(a, *args)
+        return run
 
     def dispatch(*args):
         n["dispatch"] += 1
@@ -1704,16 +1727,17 @@ def moe_branches():
         def counted_fallback():
             n["fallback"] += 1
             return fallback()
-        return orig_dispatch(*head, counted_fallback)
+        return originals["_capacity_dispatch"](*head, counted_fallback)
 
     branches: dict = {}
-    moe.mxfp4_matmul_experts_rows, moe.mxfp4_matmul_all_experts = rows, all_experts
+    for name in names[:4]:
+        setattr(moe, name, (rows if "rows" in name else all_experts)(originals[name]))
     moe._capacity_dispatch = dispatch
     try:
         yield branches
     finally:
-        moe.mxfp4_matmul_experts_rows, moe.mxfp4_matmul_all_experts = orig_rows, orig_all
-        moe._capacity_dispatch = orig_dispatch
+        for name, orig in originals.items():
+            setattr(moe, name, orig)
         branches.update(rows=n["rows"] // 3, all_experts=n["shared"] // 2,
                         capacity=n["dispatch"] - n["fallback"], fallback=n["fallback"])
 
@@ -1825,9 +1849,10 @@ def phase_gptoss_generate(reports):
     300 random and 300 copies of one token (the overflow scan: the 212
     padding rows of the 512 bucket, all token 0, route alike and overflow the
     capacity, as in the JAX package), and 512 random ones (the capacity
-    dispatch, B13 over per-expert activations), 32 new tokens each; every kernel's launches counted from
-    0 and the MoE branches taken; a decode profile; then ``generate`` over q8
-    rings. Returns (cfg, weights)."""
+    dispatch, B13 over per-expert activations), 32 new tokens each; every
+    kernel's launches counted from 0 and the MoE branches taken; the 512-token
+    prefill run twice and held bit-equal; a decode profile; then ``generate``
+    over q8 rings. Returns (cfg, weights)."""
     import torch
 
     from rrs_tpu_torch import kernels
@@ -1886,6 +1911,7 @@ def phase_gptoss_generate(reports):
         if n == 0:
             raise AssertionError(f"gpt-oss generate: kernel {key} was never launched")
         reports[key].entry["launches" if key.startswith("mx") else "launches_gptoss"] = n
+    capacity_repeat(ctx, prompts["512 random"], "gpt-oss-20b")
     profile_decode(ctx, prompts["40"], label="gpt-oss-20b")
     del ctx
 
@@ -1928,16 +1954,16 @@ def _tensors(obj):
             yield from _tensors(o)
 
 
-SERVE_GPTOSS_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
+SERVE_MOE_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
 
 
-def phase_serving_gptoss(cfg, weights, reports):
-    """The server in-process at gpt-oss-20b width: 4 slots, ctx 4096, bf16 KV
-    (rings of 640 slots on the sliding layers). Four concurrent completions
-    (1000 / 2000 tokens, two greedy, two sampled, 64 new tokens each) must
-    finish by length with 64 tokens; the device decode runs must be used and
-    every kernel of the path launched; the lanes are freed on release.
-    Returns the context."""
+def serve_four(cfg, weights, label, counters):
+    """The server in-process: 4 slots, ctx 4096, bf16 KV (rings on sliding
+    layers). Four concurrent completions (SERVE_MOE_LENGTHS tokens, two
+    greedy, two sampled, 64 new tokens each) must finish by length with 64
+    tokens; the device decode runs must be used; a model with sliding layers
+    frees its lanes on release (the others keep them as a prompt cache).
+    Returns (the context, launches by report key, MoE branches)."""
     import torch
     from http.server import ThreadingHTTPServer
 
@@ -1948,18 +1974,18 @@ def phase_serving_gptoss(cfg, weights, reports):
 
     ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096)
     engine = Engine(ctx)
-    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, "gpt-oss-20b-fabricated")
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, f"{label}-fabricated")
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     port = httpd.server_address[1]
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     rng = torch.Generator().manual_seed(13)
     jobs = []
-    for i, n in enumerate(SERVE_GPTOSS_LENGTHS):
+    for i, n in enumerate(SERVE_MOE_LENGTHS):
         body = {"prompt": torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist(),
                 "max_tokens": SERVE_NEW, "seed": i}
         if i < 2:
             body["temperature"] = 0.0
-        jobs.append((f"gpt-oss completion {n} {'greedy' if i < 2 else 'sampled'} #{i}", body))
+        jobs.append((f"{label} completion {n} {'greedy' if i < 2 else 'sampled'} #{i}", body))
     results: dict = {}
 
     def run(job):
@@ -1983,26 +2009,26 @@ def phase_serving_gptoss(cfg, weights, reports):
             for t in threads:
                 t.join(timeout=900)
         if any(t.is_alive() for t in threads):
-            raise AssertionError("gpt-oss serving: a request did not finish within 900 s")
+            raise AssertionError(f"{label} serving: a request did not finish within 900 s")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t_start
-        launches = {key: kernels.LAUNCHES[n] for key, n in GPTOSS_COUNTERS.items()}
+        launches = {key: kernels.LAUNCHES[n] for key, n in counters.items()}
         peak = torch.cuda.max_memory_allocated() / GB
     finally:
         httpd.shutdown()
         httpd.server_close()
         engine.stop()
     if engine._thread.is_alive():
-        raise AssertionError("gpt-oss serving: the engine thread did not stop")
+        raise AssertionError(f"{label} serving: the engine thread did not stop")
     decode_spans, n_decode = [], 0
     for name, (status, data, t0, t1, body) in results.items():
         if status != 200:
-            raise AssertionError(f"gpt-oss serving: {name} answered {status}: {data[:300]!r}")
+            raise AssertionError(f"{label} serving: {name} answered {status}: {data[:300]!r}")
         out = json.loads(data)
         reason = out["choices"][0]["finish_reason"]
         n_out = out["usage"]["completion_tokens"]
         if reason != "length" or n_out != SERVE_NEW:
-            raise AssertionError(f"gpt-oss serving: {name} finished by {reason} with {n_out} "
+            raise AssertionError(f"{label} serving: {name} finished by {reason} with {n_out} "
                                  f"tokens")
         tm = out["timings"]
         start = t0 + tm["prompt_ms"] / 1e3
@@ -2013,15 +2039,22 @@ def phase_serving_gptoss(cfg, weights, reports):
               flush=True)
     runs = engine.n_decode_runs - runs0
     busy = _union_seconds(decode_spans)
-    print(f"  gpt-oss served {len(results)} requests in {wall:.1f} s; prompt tokens "
-          f"{sum(SERVE_GPTOSS_LENGTHS)}; decode tok/s summed over the 4 slots "
+    print(f"  {label} served {len(results)} requests in {wall:.1f} s; prompt tokens "
+          f"{sum(SERVE_MOE_LENGTHS)}; decode tok/s summed over the 4 slots "
           f"{n_decode / busy:.2f} ({n_decode} tokens over {busy:.1f} s); {runs} device decode "
           f"runs; KV resident {ctx.kv.nbytes() / GB:.3f} GB; peak memory {peak:.2f} GB; MoE "
           f"branches {branches}; launches {launches}", flush=True)
     if runs == 0:
-        raise AssertionError("gpt-oss serving: no device decode run was launched")
-    if any(s is not None for s in ctx.kv.seq_ids):
-        raise AssertionError(f"gpt-oss serving: lanes not freed: {ctx.kv.seq_ids}")
+        raise AssertionError(f"{label} serving: no device decode run was launched")
+    if cfg.any_swa and any(s is not None for s in ctx.kv.seq_ids):
+        raise AssertionError(f"{label} serving: lanes not freed: {ctx.kv.seq_ids}")
+    return ctx, launches, branches
+
+
+def phase_serving_gptoss(cfg, weights, reports):
+    """``serve_four`` at gpt-oss-20b width; every kernel of the path launched
+    (B11 or B13 in the prefill). Returns the context."""
+    ctx, launches, _ = serve_four(cfg, weights, "gpt-oss", GPTOSS_COUNTERS)
     for key in ("q8", "fa", "mx_rows"):
         if launches[key] == 0:
             raise AssertionError(f"gpt-oss serving: kernel {key} was never launched")
@@ -2033,11 +2066,12 @@ def phase_serving_gptoss(cfg, weights, reports):
     return ctx
 
 
-def phase_gptoss_served_steps(ctx):
+def served_steps_held(ctx, label, expect):
     """One teacher-forced 4-lane prefill chunk (three sequences of 500, 300
     and 40 tokens in one T = 512 step, lane 3 dead) and one 4-lane decode
-    step at gpt-oss-20b width, every kernel launch held to its plain version
-    on the very inputs it got."""
+    step, every kernel launch held to its plain version on the very inputs
+    it got; ``expect``: the kernels that must be reached. Returns what was
+    held."""
     import torch
 
     kv = ctx.kv
@@ -2048,23 +2082,362 @@ def phase_gptoss_served_steps(ctx):
     chunks = {seq: torch.randint(2, ctx.cfg.vocab_size, (n,), generator=rng).tolist()
               for seq, n in zip(seqs, (500, 300, 40))}
     t0 = time.perf_counter()
-    with held_to_plain("gpt-oss served steps",
-                       {"q8_matmul", "flash_attention", "mxfp4_matmul_experts_rows"}) as seen, \
-            moe_branches() as branches:
+    with held_to_plain(f"{label} served steps", expect) as seen, moe_branches() as branches:
         last = ctx.prefill_multi(chunks)
         out = ctx.decode({seq: int(last[seq].argmax()) for seq in seqs})
         torch.cuda.synchronize()
-    if not seen.keys() & {"mxfp4_matmul", "mxfp4_matmul_all_experts"}:
-        raise AssertionError("gpt-oss served steps: the prefill launched neither B11 nor B13")
     for seq in seqs:
         if not torch.isfinite(out[seq]).all():
-            raise AssertionError(f"gpt-oss served steps: non-finite decode logits for {seq}")
+            raise AssertionError(f"{label} served steps: non-finite decode logits for {seq}")
         kv.seq_rm(seq)
     for name, (worst, shapes) in seen.items():
-        print(f"  gpt-oss served steps, {name}: every launch within {SMALL_TOL[name]:.0e} of its "
-              f"plain version (max rel {worst:.2e}); shapes {sorted(shapes)[:6]}", flush=True)
-    print(f"  gpt-oss served prefill + decode step held to the plain versions in "
+        tol = SMALL_TOL[name] if name != "tcq4_matmul_i8p" else BF16_OUT_TOL
+        print(f"  {label} served steps, {name}: every launch within {tol:.0e} of its plain "
+              f"version (max rel {worst:.2e}); shapes {sorted(shapes)[:6]}", flush=True)
+    print(f"  {label} served prefill + decode step held to the plain versions in "
           f"{time.perf_counter() - t0:.1f} s; MoE branches {branches}", flush=True)
+    return seen
+
+
+def phase_gptoss_served_steps(ctx):
+    """``served_steps_held`` at gpt-oss-20b width; the prefill must launch B11
+    or B13."""
+    seen = served_steps_held(ctx, "gpt-oss",
+                             {"q8_matmul", "flash_attention", "mxfp4_matmul_experts_rows"})
+    if not seen.keys() & {"mxfp4_matmul", "mxfp4_matmul_all_experts"}:
+        raise AssertionError("gpt-oss served steps: the prefill launched neither B11 nor B13")
+
+
+def capacity_repeat(ctx, prompt, label):
+    """One prefill of ``prompt`` run twice on a fresh sequence: every MoE layer
+    must take the capacity dispatch (no overflow scan), and the logits of the
+    two runs must be equal bit for bit (the combine sums each token's k rows
+    in a fixed order; the all-experts kernels use no atomics)."""
+    import torch
+
+    outs = []
+    with moe_branches() as branches:
+        for _ in range(2):
+            seq = ctx.new_sequence()
+            outs.append(ctx.prefill(seq, prompt).clone())
+            ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    if branches["capacity"] == 0 or branches["fallback"]:
+        raise AssertionError(f"{label} capacity repeat: branches {branches}, not the capacity "
+                             f"dispatch alone")
+    if not torch.equal(outs[0], outs[1]):
+        diff = (outs[0].float() - outs[1].float()).abs().max().item()
+        raise AssertionError(f"{label}: a capacity-path prefill run twice differs by {diff:.3e}")
+    print(f"  {label}: a {len(prompt)}-token capacity-path prefill run twice gives bit-equal "
+          f"logits ({tuple(outs[0].shape)}; MoE branches {branches})", flush=True)
+
+
+# -- Qwen3-30B-A3B ---------------------------------------------------------------
+
+# The GGUF metadata of Qwen3-30B-A3B as its published config.json gives it
+# (Hugging Face Qwen/Qwen3-30B-A3B; llama.cpp's converter writes these keys)
+QWEN3_30B_A3B_GGUF = {
+    "general.architecture": "qwen3moe", "qwen3moe.block_count": 48,
+    "qwen3moe.context_length": 40960, "qwen3moe.embedding_length": 2048,
+    "qwen3moe.feed_forward_length": 6144, "qwen3moe.attention.head_count": 32,
+    "qwen3moe.attention.head_count_kv": 4, "qwen3moe.attention.key_length": 128,
+    "qwen3moe.attention.value_length": 128,
+    "qwen3moe.attention.layer_norm_rms_epsilon": 1e-6, "qwen3moe.rope.freq_base": 1e6,
+    "qwen3moe.expert_count": 128, "qwen3moe.expert_used_count": 8,
+    "qwen3moe.expert_feed_forward_length": 768, "qwen3moe.norm_topk_prob": True,
+    "qwen3moe.vocab_size": 151936}
+# report key -> (kernel, TPU kernel it replaces)
+TQ = {"tq_rows": ("tcq4_matmul_experts_rows", "rrs_tpu/ops/tcq4_matmul.py:654"),
+      "tq_all": ("tcq4_matmul_all_experts", "rrs_tpu/ops/tcq4_matmul.py:595")}
+QWEN3MOE_TOL = 1e-3
+
+
+def phase_parity_qwen3moe(peaks, reports):
+    """B9 and B10 against their plain versions at the Qwen3-30B-A3B shapes
+    (E = 128 experts; gate / up K 2048 -> N 768, down K 768 -> N 2048): the
+    rows kernel at n_sel = 8 and 32 (one and four decode lanes, top-8), every
+    expert over per-expert activations [128, 64, K] (a 512-token chunk's
+    capacity) and over shared activations at T = 64. Held within
+    QWEN3MOE_TOL relative and timed beside the bound, the plain version and
+    ``torch.bmm`` / ``torch.matmul`` on experts dequantized to bf16 (and, for
+    B9, gathered) beforehand. The id sets cycle over the experts and a stack
+    (113 MB) exceeds L2, so the timed launches read from device memory."""
+    import torch
+
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    bw, bf16_peak, _ = peaks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    ms = lambda b: b / bw * 1e3                             # noqa: E731
+    bound = lambda t_bytes, t_ops: {"bound_ms": max(t_bytes, t_ops),            # noqa: E731
+                                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    for key, (name, replaces) in TQ.items():
+        reports[key] = Report(name, "rrs_tpu_torch/csrc/tcq4_experts.cu", replaces, "bytes")
+    e_n = 128
+    for proj, (k, n) in (("gate_up", (2048, 768)), ("down", (768, 2048))):
+        exp_bytes = k // 2 * n + k // 32 * n * 2
+        qs = torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+        eff = (torch.rand((e_n, k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+               ).to(torch.bfloat16)
+        w16 = torch.stack([tm.dequantize_w(qs[e], eff[e]).to(torch.bfloat16)
+                           for e in range(e_n)])             # [128, K, N]
+
+        rep = reports["tq_rows"]
+        for n_sel in (8, 32):
+            a = torch.randn((n_sel, k), generator=gen, device=dev).to(torch.bfloat16)
+            # one lane selects 8 distinct experts; four lanes 32 ids, some shared
+            id_sets = [torch.cat([torch.randperm(e_n, generator=gen, device=dev)[:8]
+                                  for _ in range(n_sel // 8)]) for _ in range(8)]
+            ids = id_sets[0]
+            got = tm.tcq4_matmul_experts_rows(a, qs, eff, ids)
+            err, rel = compare(f"tcq4 rows {proj} n_sel={n_sel}", got,
+                               tm.tcq4_matmul_experts_rows_plain(a, qs, eff, ids), QWEN3MOE_TOL)
+            distinct = int(torch.unique(ids).numel())
+            t_bytes = ms(distinct * exp_bytes + n_sel * k * 2 + n_sel * 4 + n_sel * n * 4)
+            t_ops = 2 * n_sel * k * n / bf16_peak * 1e3
+            sel16 = [w16[i] for i in id_sets[:2]]
+            rep.add({"shape": f"{proj} n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts)",
+                     "max_abs_err": err, "rel_err": rel, "tol": QWEN3MOE_TOL,
+                     "ms": time_ms(lambda i: tm.tcq4_matmul_experts_rows(a, qs, eff, i),
+                                   [(i,) for i in id_sets], 40),
+                     "plain_ms": time_ms(lambda i: tm.tcq4_matmul_experts_rows_plain(
+                         a, qs, eff, i), [(i,) for i in id_sets[:2]], 3),
+                     "library_ms": time_ms(lambda w: torch.bmm(a[:, None, :], w),
+                                           [(w,) for w in sel16], 40),
+                     **bound(t_bytes, t_ops)}, headline=(n_sel == 8))
+            del sel16
+
+        rep = reports["tq_all"]
+        for label, shape in (("per-expert C=64", (e_n, 64, k)), ("shared T=64", (64, k))):
+            a = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            got = tm.tcq4_matmul_all_experts(a, qs, eff)
+            err, rel = compare(f"tcq4 all experts {proj} {label}", got,
+                               tm.tcq4_matmul_all_experts_plain(a, qs, eff), QWEN3MOE_TOL)
+            t = shape[-2]
+            t_bytes = ms(e_n * exp_bytes + a.numel() * 2 + e_n * t * n * 4)
+            t_ops = 2 * e_n * t * k * n / bf16_peak * 1e3
+            lib = (lambda w: torch.matmul(a, w)) if a.dim() == 2 else (lambda w: torch.bmm(a, w))
+            rep.add({"shape": f"{proj} {label} K={k} N={n} E={e_n}", "max_abs_err": err,
+                     "rel_err": rel, "tol": QWEN3MOE_TOL,
+                     "ms": time_ms(lambda: tm.tcq4_matmul_all_experts(a, qs, eff), [()], 10),
+                     "plain_ms": time_ms(lambda: tm.tcq4_matmul_all_experts_plain(a, qs, eff),
+                                         [()], 2),
+                     "library_ms": time_ms(lib, [(w16,)], 10),
+                     **bound(t_bytes, t_ops)},
+                    headline=(proj == "gate_up" and label.startswith("per-expert")))
+        del qs, eff, w16
+    torch.cuda.empty_cache()
+
+
+def qwen3moe_small_cfg():
+    """qwen3moe at reduced widths: 2 layers, E = 1024, 16 heads on 4 kv heads
+    x 64, 32 experts of 512 top-8 with norm_topk_prob; every expert dim a
+    multiple of 256, so TCQ4 applies."""
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen3moe", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=4,
+                       head_dim=64, n_ff=3072, vocab_size=4096, context_length=4096,
+                       rope_theta=1e6, qk_norm=True, n_experts=32, n_experts_used=8,
+                       n_ff_exp=512, norm_topk_prob=True)
+
+
+def phase_qwen3moe_small_reference():
+    """A 2-layer qwen3moe model (qwen3moe_small_cfg) on the card against the
+    same weights on the CPU: prompts of 40 tokens (the capacity dispatch,
+    which always covers a 64-row bucket), 300 random ones and 300 copies of
+    one token (the overflow: the scan, or the dense all-experts fallback),
+    each with one decode step (the rows kernel, or the dense gather). Twice:
+    with dense bf16 weights throughout (``random_weights``), whose logits
+    must stay within GLUE_TOL relative L2, and with fabricated TCQ4 weights
+    and experts (``fabricated_tcq4_moe_weights``, drawn on the CPU), whose
+    every kernel launch is held to its plain version on its inputs and whose
+    end-to-end drift is reported (W4A4's int4 activation codes flip on
+    last-bit differences; see phase 3). The card replays the CPU's expert
+    ids where its own differ (a near-tie is no tolerance question; the flips
+    are counted)."""
+    import torch
+
+    from rrs_tpu_torch.models import llama, moe
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = qwen3moe_small_cfg()
+    rng = torch.Generator().manual_seed(5)
+    prompts = {"40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
+               "300 copies": [77] * 300}
+    models = {"dense": (llama.random_weights(cfg, seed=1, device="cpu"), {"flash_attention"}),
+              "TCQ4": (llama.fabricated_tcq4_moe_weights(cfg, seed=1, device="cpu"),
+                       {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
+                        "flash_attention", "tcq4_matmul_experts_rows",
+                        "tcq4_matmul_all_experts"})}
+    orig = moe.route
+    for kind, (w_cpu, expect) in models.items():
+        recorded, logits = [], {}
+
+        def record(c, mw, x2):
+            ti, tv = orig(c, mw, x2)
+            recorded.append((ti.clone(), tv.clone()))
+            return ti, tv
+
+        moe.route = record
+        try:
+            cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
+            with moe_branches() as paths_cpu:
+                for name, p in prompts.items():
+                    seq = cpu.new_sequence()
+                    logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
+                                           cpu.decode({seq: 11})[seq].float())
+                    cpu.kv.seq_rm(seq)
+        finally:
+            moe.route = orig
+        ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
+        with held_to_plain(f"small qwen3moe {kind}", expect) as seen, \
+                routes_replayed(recorded) as replay:
+            for name, p in prompts.items():
+                seq = ctx.new_sequence()
+                logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
+                                        ctx.decode({seq: 11})[seq].float().cpu())
+                ctx.kv.seq_rm(seq)
+            torch.cuda.synchronize()
+        print(f"  small qwen3moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8): each "
+              "launch vs its plain version (max rel): "
+              + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items())
+              + f"; {replay['flipped']} expert selections of the card's own routing differed "
+              f"from the CPU's over {replay['calls']} routing calls and were replayed; MoE "
+              f"paths on the CPU {paths_cpu}", flush=True)
+        held = kind == "dense"
+        for name in prompts:
+            for i, stage in enumerate(("prefill", "decode")):
+                got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"small qwen3moe {kind} {name} {stage}: bad logits")
+                rel = ((got - ref).norm() / ref.norm()).item()
+                print(f"  small qwen3moe {kind}, prompt {name}, {stage}, card vs CPU: rel L2 "
+                      f"{rel:.4f}" + (f" <= {GLUE_TOL}" if held else " (reported)")
+                      + f", argmax {int(got.argmax())} vs {int(ref.argmax())}", flush=True)
+                if held and rel > GLUE_TOL:
+                    raise AssertionError(f"small qwen3moe {kind} {name} {stage}: rel L2 "
+                                         f"{rel:.4f} > {GLUE_TOL}")
+        del ctx
+
+
+QWEN3MOE_COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
+                     "q8": "q8_matmul", "fa": "flash_attention",
+                     "tq_rows": TQ["tq_rows"][0], "tq_all": TQ["tq_all"][0]}
+
+
+def phase_qwen3moe_generate(reports):
+    """``generate`` at full Qwen3-30B-A3B width (48 layers, the config from
+    ``ModelConfig.from_gguf`` on the published metadata, weights fabricated
+    on the card): greedy prompts of 5 (the rows kernel in prefill), 40 (the
+    capacity dispatch, B10 over per-expert activations), 300 random and 300
+    copies of one token (the overflow scan: the 212 padding rows of the 512
+    bucket route alike and overflow the capacity of 64, as in the JAX
+    package) and 512 random ones, 32 new tokens each; every kernel's launches
+    counted from 0 and the MoE branches taken; the 40-token prefill run twice
+    and held bit-equal; a decode profile; then ``generate`` over q8 KV.
+    Returns (cfg, weights)."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = ModelConfig.from_gguf(QWEN3_30B_A3B_GGUF)
+    t0 = time.perf_counter()
+    weights = llama.fabricated_tcq4_moe_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    exp_bytes = sum(t.numel() * t.element_size() for lw in weights.layers
+                    for t in _tensors(lw.moe) if t.dim() == 3)
+    print(f"  Qwen3-30B-A3B config: {cfg.n_layers} layers, E={cfg.n_embd}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, {cfg.n_experts} experts of "
+          f"{cfg.n_ff_exp} top-{cfg.n_experts_used}, norm_topk_prob {cfg.norm_topk_prob}; "
+          f"fabricated weights {w_bytes / GB:.2f} GB (expert stacks {exp_bytes / GB:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator().manual_seed(0)
+    prompts = {"5": torch.randint(0, cfg.vocab_size, (5,), generator=rng).tolist(),
+               "40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
+               "300 copies": [1234] * 300,
+               "512 random": torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()}
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    warm.generate(prompts["5"], 2)                            # first-call set-up
+    del warm
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    outs, per_prompt = {}, {}
+    for name, p in prompts.items():
+        with moe_branches() as branches:
+            outs[name] = ctx.generate(p, 32)
+        per_prompt[name] = branches
+    torch.cuda.synchronize()
+    launches = {key: kernels.LAUNCHES[n] for key, n in QWEN3MOE_COUNTERS.items()}
+    for name, out in outs.items():
+        if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+            raise AssertionError(f"qwen3moe generate {name}: {len(out)} tokens: {out}")
+    perf = ctx.perf()
+    peak = torch.cuda.max_memory_allocated() / GB
+    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x 32 new tokens; prefill "
+          f"{perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} "
+          f"tok @ {perf['tg_tok_per_s']:.2f} tok/s "
+          f"({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} ms/token); KV resident "
+          f"{ctx.kv.nbytes() / GB:.4f} GB (S=1024); peak memory {peak:.2f} GB", flush=True)
+    print("  greedy tokens: " + "; ".join(f"{k}: {v[:6]}..." for k, v in outs.items()),
+          flush=True)
+    print(f"  MoE branches by prompt (prefill and decode): {per_prompt}; launches on the "
+          f"Qwen3-30B-A3B path: {launches}", flush=True)
+    if not per_prompt["300 copies"]["fallback"] or not per_prompt["40"]["capacity"] \
+            or not per_prompt["5"]["rows"]:
+        raise AssertionError(f"qwen3moe generate: the rows, capacity and scan branches were not "
+                             f"all reached: {per_prompt}")
+    for key, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"qwen3moe generate: kernel {key} was never launched")
+        reports[key].entry["launches" if key.startswith("tq") else "launches_qwen3moe"] = n
+    capacity_repeat(ctx, prompts["40"], "Qwen3-30B-A3B")
+    profile_decode(ctx, prompts["40"], label="Qwen3-30B-A3B")
+    del ctx
+
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
+    warm.generate(prompts["5"], 2)
+    del warm
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    q8_outs = [ctx.generate(prompts[n], 32) for n in ("40", "300 random")]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if any(len(o) != 32 for o in q8_outs) or launches["flash_attention_q8"] == 0 \
+            or launches["flash_attention"] != 0:
+        raise AssertionError(f"qwen3moe generate, q8 KV: {[len(o) for o in q8_outs]} tokens, "
+                             f"launches {launches}")
+    reports["fa_q8"].entry["launches_qwen3moe"] = launches["flash_attention_q8"]
+    perf = ctx.perf()
+    print(f"  generate, q8 KV: prompts 40/300 x 32 new tokens; prefill "
+          f"{perf['pp_tok_per_s']:.1f} tok/s, decode {perf['tg_tok_per_s']:.2f} tok/s; KV "
+          f"resident {ctx.kv.nbytes() / GB:.4f} GB; greedy tokens {q8_outs[0][:6]}... (bf16 KV: "
+          f"{outs['40'][:6]}...); launches {launches}", flush=True)
+    del ctx
+    return cfg, weights
+
+
+def phase_serving_qwen3moe(cfg, weights, reports):
+    """``serve_four`` at Qwen3-30B-A3B width; the attention kernels, B2 and
+    B9 must be launched. Returns the context."""
+    ctx, launches, _ = serve_four(cfg, weights, "Qwen3-30B-A3B", QWEN3MOE_COUNTERS)
+    for key in ("gx2", "i8p", "q8", "fa", "tq_rows"):
+        if launches[key] == 0:
+            raise AssertionError(f"qwen3moe serving: kernel {key} was never launched")
+    for key, n in launches.items():
+        reports[key].entry["launches_serve" if key.startswith("tq")
+                           else "launches_serve_qwen3moe"] = n
+    return ctx
 
 
 def main() -> int:
@@ -2083,38 +2456,38 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    print("[1/9] build", flush=True)
+    print("[1/10] build", flush=True)
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[2/9] kernel parity at the qwen3-4b main-path shapes", flush=True)
+    print("[2/10] kernel parity at the qwen3-4b main-path shapes", flush=True)
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    print("[3/9] main path: small-model references, the q4 halves path, then generate at "
+    print("[3/10] main path: small-model references, the q4 halves path, then generate at "
           "qwen3-4b width over bf16, q8 and q4 KV", flush=True)
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    print("[4/9] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
+    print("[4/10] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
     ctx = phase_serving(cfg, weights, reports)
 
-    print("[5/9] served steps held to the plain versions; device decode run against "
+    print("[5/10] served steps held to the plain versions; device decode run against "
           "step-by-step decode", flush=True)
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    print("[6/9] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
+    print("[6/10] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
     phase_served_steps_kvq(cfg, weights)
 
-    print("[7/9] serving with --cache-type q4: slot save / erase / restore, context shift",
+    print("[7/10] serving with --cache-type q4: slot save / erase / restore, context shift",
           flush=True)
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
@@ -2124,7 +2497,7 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    print("[8/9] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
+    print("[8/10] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
           "serving and held served steps", flush=True)
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -2132,10 +2505,25 @@ def main() -> int:
     ctx = phase_serving_gptoss(cfg, weights, reports)
     phase_gptoss_served_steps(ctx)
     del ctx, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
+          flush=True)
 
-    print("[9/9] summary", flush=True)
-    order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "mx_mm", "mx_rows",
-             "mx_all")
+    print("[9/10] Qwen3-30B-A3B: TCQ4 expert kernel parity, a 2-layer model against the CPU, "
+          "generate, serving and held served steps", flush=True)
+    phase_parity_qwen3moe(peaks, reports)
+    phase_qwen3moe_small_reference()
+    cfg, weights = phase_qwen3moe_generate(reports)
+    ctx = phase_serving_qwen3moe(cfg, weights, reports)
+    served_steps_held(ctx, "Qwen3-30B-A3B",
+                      {"tcq4_matmul_gx2", "tcq4_matmul_i8p", "q8_matmul", "flash_attention",
+                       "tcq4_matmul_experts_rows"})
+    del ctx, weights
+
+    print("[10/10] summary", flush=True)
+    order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
+             "mx_mm", "mx_rows", "mx_all")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

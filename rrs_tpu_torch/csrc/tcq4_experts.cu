@@ -1,0 +1,193 @@
+// W4A4 mixture-of-experts matmuls over stacked TCQ4 expert weights, f32 out:
+//
+//   B9  rrs_tcq4_experts_rows  out[i] = bf16(a[i]) @ W[ids[i]]         (decode)
+//   B10 rrs_tcq4_all_experts   out[e] = bf16(a or a[e]) @ W[e]         (capacity)
+//
+// Replace rrs_tpu/ops/tcq4_matmul.py:654 tcq4_matmul_experts_rows
+// (_kernel_experts_rows at :638) and :595 tcq4_matmul_all_experts
+// (_kernel_all_experts at :577). Both compute as the TPU kernels do: the
+// int4 weight times its f32 group scale, rounded to bf16, against the
+// activations rounded to bf16, with f32 sums; only the order of the sums
+// differs from the plain versions.
+//
+// Layout (ops/tcq4_matmul.py): qs uint8 [E][K/2][N], byte row r of
+// superblock s holding k = 256 s + r in its low nibble and k = 256 s + 128 + r
+// in its high nibble; eff bf16 [E][K/32][N]. K is a multiple of 256, N of 8.
+// Every weight byte is decoded on chip; no dequantized expert reaches memory.
+//
+// Bound on the H100: bytes for B9 (the selected experts' 4.625-bit weights,
+// 0.88 MB per expert matrix at Qwen3-30B-A3B) and for B10 at small capacity
+// (every expert's weights, 113 MB per projection at E = 128); operations for
+// B10 once the capacity passes ~300 rows.
+//
+// Design. B10 is the tiled WMMA GEMM of gemm_bf16.cuh (BM x 64 x 64 tiles,
+// 4 warps, f32 accumulators) with the TCQ4 tile loader of tcq4_tile.cuh, the
+// experts on the grid's z axis and a zero activation stride for shared
+// activations. B9 is a matrix-vector kernel on the CUDA cores, one block per
+// (128 columns, selected row): the block reads its row's expert id on the
+// device, holds the row of a in shared memory as bf16-rounded f32, and its
+// eight warps split K by quarter superblocks (32 byte rows, two scale
+// groups); each lane decodes four columns from 4-byte loads, so a warp reads
+// 128 contiguous bytes of a byte row, and the warps' partial sums meet in
+// shared memory. Loads are synchronous: cp.async / TMA rings and wgmma come
+// with the change that makes these fast.
+
+#include "tcq4_tile.cuh"
+
+namespace {
+
+using namespace rrs::gemm;
+
+// grid (ceil(N / 64), ceil(M / BM), E): expert blockIdx.z, its activations at
+// a + e * a_stride (0: shared), its output at out + e * M * N.
+template <int BM, typename InT>
+__global__ void __launch_bounds__(kThreads)
+tcq4_experts_gemm_kernel(const InT* __restrict__ a, size_t a_stride,
+                         const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ eff,
+                         float* __restrict__ out, int M, int K, int N) {
+  __shared__ Smem<BM> sm;
+  const size_t e = blockIdx.z;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM;
+  a += e * a_stride;
+  qs += e * (K / 2) * static_cast<size_t>(N);
+  eff += e * (K / 32) * static_cast<size_t>(N);
+  out += e * M * static_cast<size_t>(N);
+  Acc<BM> acc;
+  acc.zero();
+  const int nunits = (K / 256) * 4;
+  for (int u = 0; u < nunits; ++u) {
+    const int sb = u >> 2, q = u & 3;
+    const int k0 = sb * 256 + q * 32;
+    load_a<BM>(a, M, K, m0, k0, k0 + 128, sm.a);
+    load_b_tcq4(qs, eff, N, sb, q, n0, sm.b);
+    __syncthreads();
+    acc.mma(sm.a, sm.b);
+    __syncthreads();
+  }
+  acc.store(sm.c, out, M, N, m0, n0);
+}
+
+template <typename InT>
+int launch_gemm(const void* a, size_t a_stride, const void* qs, const void* eff, void* out,
+                int E, int M, int K, int N, cudaStream_t s) {
+  const InT* ap = static_cast<const InT*>(a);
+  const uint8_t* qp = static_cast<const uint8_t*>(qs);
+  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(eff);
+  float* op = static_cast<float*>(out);
+  if (M <= 16) {
+    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, E);
+    tcq4_experts_gemm_kernel<16, InT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, op, M, K,
+                                                                N);
+  } else {
+    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, E);
+    tcq4_experts_gemm_kernel<64, InT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, op, M, K,
+                                                                N);
+  }
+  return rrs::status();
+}
+
+constexpr int kRowsWarps = 8;
+constexpr int kRowsCols = 128;     // 32 lanes x 4 columns
+constexpr int kRowsMaxK = 8192;    // the row of a in (dynamic) shared memory
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float as_bf16_f32(float v) { return bf16_round(v); }
+__device__ __forceinline__ float as_bf16_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// grid (ceil(N / 128), n_sel): out[row, n0 .. n0 + 127].
+template <typename InT>
+__global__ void __launch_bounds__(kRowsWarps * 32)
+tcq4_rows_kernel(const InT* __restrict__ a, const uint8_t* __restrict__ qs,
+                 const __nv_bfloat16* __restrict__ eff, const int* __restrict__ ids,
+                 float* __restrict__ out, int K, int N, int n_exp) {
+  extern __shared__ float sa[];
+  __shared__ float red[kRowsWarps][kRowsCols];
+  const int row = blockIdx.y;
+  const int n0 = blockIdx.x * kRowsCols;
+  const int e = min(max(ids[row], 0), n_exp - 1);
+  const InT* ar = a + static_cast<size_t>(row) * K;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) sa[i] = as_bf16_f32(ar[i]);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = n0 + lane * 4;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < N) {                    // N % 8 == 0: all four columns are in range
+    const uint8_t* qe = qs + static_cast<size_t>(e) * (K / 2) * N + col;
+    const __nv_bfloat16* ee = eff + static_cast<size_t>(e) * (K / 32) * N + col;
+    for (int u = warp; u < K / 64; u += kRowsWarps) {
+      const int sb = u >> 2, q = u & 3;
+      const int g_lo = sb * 8 + q;
+      const uint2 elo = __ldg(reinterpret_cast<const uint2*>(ee + static_cast<size_t>(g_lo) * N));
+      const uint2 ehi =
+          __ldg(reinterpret_cast<const uint2*>(ee + static_cast<size_t>(g_lo + 4) * N));
+      const __nv_bfloat16* el = reinterpret_cast<const __nv_bfloat16*>(&elo);
+      const __nv_bfloat16* eh = reinterpret_cast<const __nv_bfloat16*>(&ehi);
+      uint32_t qw[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        qw[j] = __ldg(reinterpret_cast<const uint32_t*>(
+            qe + static_cast<size_t>(sb * 128 + q * 32 + j) * N));
+      const float* alo = sa + sb * 256 + q * 32;
+      const float* ahi = alo + 128;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float sl = __bfloat162float(el[c]), sh = __bfloat162float(eh[c]);
+        float sum = acc[c];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          sum = fmaf(alo[j], bf16_round(static_cast<float>(rrs::nib_lo(qw[j], c)) * sl), sum);
+          sum = fmaf(ahi[j], bf16_round(static_cast<float>(rrs::nib_hi(qw[j], c)) * sh), sum);
+        }
+        acc[c] = sum;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) red[warp][lane * 4 + c] = acc[c];
+  __syncthreads();
+  if (threadIdx.x < kRowsCols) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRowsWarps; ++w) v += red[w][threadIdx.x];
+    const int gc = n0 + threadIdx.x;
+    if (gc < N) out[static_cast<size_t>(row) * N + gc] = v;
+  }
+}
+
+bool bad_shape(int M, int K, int N) { return M < 1 || K < 256 || K % 256 || N < 8 || N % 8; }
+
+}  // namespace
+
+RRS_EXPORT int rrs_tcq4_experts_rows(const void* a, int a_is_bf16, const void* qs,
+                                     const void* eff, const void* ids, void* out, int n_sel,
+                                     int K, int N, int n_exp, void* stream) {
+  if (bad_shape(n_sel, K, N) || K > kRowsMaxK || n_exp < 1 || n_sel > 65535)
+    return rrs::kBadArgs;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((N + kRowsCols - 1) / kRowsCols, n_sel);
+  const size_t smem = K * sizeof(float);
+  const uint8_t* qp = static_cast<const uint8_t*>(qs);
+  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(eff);
+  const int* ip = static_cast<const int*>(ids);
+  float* op = static_cast<float*>(out);
+  if (a_is_bf16)
+    tcq4_rows_kernel<__nv_bfloat16><<<grid, kRowsWarps * 32, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(a), qp, ep, ip, op, K, N, n_exp);
+  else
+    tcq4_rows_kernel<float><<<grid, kRowsWarps * 32, smem, s>>>(static_cast<const float*>(a),
+                                                                qp, ep, ip, op, K, N, n_exp);
+  return rrs::status();
+}
+
+RRS_EXPORT int rrs_tcq4_all_experts(const void* a, int a_is_bf16, int per_expert, const void* qs,
+                                    const void* eff, void* out, int E, int T, int K, int N,
+                                    void* stream) {
+  if (bad_shape(T, K, N) || E < 1 || E > 65535 || (T + 15) / 16 > 65535) return rrs::kBadArgs;
+  const size_t a_stride = per_expert ? static_cast<size_t>(T) * K : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_is_bf16) return launch_gemm<__nv_bfloat16>(a, a_stride, qs, eff, out, E, T, K, N, s);
+  return launch_gemm<float>(a, a_stride, qs, eff, out, E, T, K, N, s);
+}

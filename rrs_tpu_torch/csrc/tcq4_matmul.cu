@@ -9,52 +9,14 @@
 // Bound on the H100: operations at prefill M (2*M*K*N bf16 FLOPs against
 // 4.625 bits per weight); at M = 16 the weight stream is about as long.
 //
-// Design: the shared tiled WMMA GEMM of gemm_bf16.cuh. One K tile is a
-// quarter superblock: 32 byte rows of qs, whose low nibbles are one scale
-// group (k = 32q .. 32q+31) and whose high nibbles are the group 128 later,
-// so every qs byte is read once and every tile row has one eff per column.
-// The unpacked int4 times the bf16 eff is rounded to bf16 in shared memory,
-// exactly as the TPU kernel rounds its operand before the MXU pass.
+// Design: the shared tiled WMMA GEMM of gemm_bf16.cuh with the TCQ4 tile
+// loader of tcq4_tile.cuh (one K tile is a quarter superblock).
 
-#include "gemm_bf16.cuh"
+#include "tcq4_tile.cuh"
 
 namespace {
 
 using namespace rrs::gemm;
-
-// B tile for (superblock sb, quarter q): 32 byte rows x 64 columns of qs ->
-// 64 bf16 k rows (0..31 low nibbles, 32..63 high nibbles).
-__device__ __forceinline__ void load_b_tcq4(const uint8_t* __restrict__ qs,
-                                            const __nv_bfloat16* __restrict__ eff, int N,
-                                            int sb, int q, int n0, __nv_bfloat16* sb_tile) {
-  const int r = threadIdx.x >> 2;          // byte row 0..31
-  const int cb = (threadIdx.x & 3) * 16;   // 16 columns per thread
-  const int row = sb * 128 + q * 32 + r;
-  const int g_lo = sb * 8 + q, g_hi = g_lo + 4;
-  uint4 packed;
-  uint8_t* bytes = reinterpret_cast<uint8_t*>(&packed);
-  const int gc0 = n0 + cb;
-  if ((N & 15) == 0 && gc0 + 16 <= N) {
-    packed = __ldg(reinterpret_cast<const uint4*>(qs + static_cast<size_t>(row) * N + gc0));
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      bytes[j] = (gc0 + j < N) ? qs[static_cast<size_t>(row) * N + gc0 + j] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int gc = gc0 + j;
-    float elo = 0.f, ehi = 0.f;
-    if (gc < N) {
-      elo = __bfloat162float(eff[static_cast<size_t>(g_lo) * N + gc]);
-      ehi = __bfloat162float(eff[static_cast<size_t>(g_hi) * N + gc]);
-    }
-    const int lo = static_cast<int>(static_cast<uint32_t>(bytes[j]) << 28) >> 28;
-    const int hi = static_cast<int>(static_cast<uint32_t>(bytes[j]) << 24) >> 28;
-    sb_tile[r * kLdB + cb + j] = __float2bfloat16_rn(static_cast<float>(lo) * elo);
-    sb_tile[(32 + r) * kLdB + cb + j] = __float2bfloat16_rn(static_cast<float>(hi) * ehi);
-  }
-}
 
 template <int BM, typename OutT>
 __global__ void __launch_bounds__(kThreads)

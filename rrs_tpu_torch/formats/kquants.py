@@ -3,8 +3,10 @@
 Copied from ``rrs_tpu/formats/kquants.py`` (NumPy host code): the Q8_0
 wire-format decode (``q8_blocks``), its encoder (``quantize_q8_0``, used by
 ``Q8Linear.quantize``) and a ``dequantize`` entry for the types the dense
-loader meets. F32, F16 and BF16 are views in ``gguf.reader``; every other
-quantized type raises ``NotImplementedError`` until its codec is ported.
+loader meets: Q8_0, and TCQ4_K32 back to the original (unrotated) domain, as a
+quantized MoE router arrives. F32, F16 and BF16 are views in ``gguf.reader``;
+every other quantized type raises ``NotImplementedError`` until its codec is
+ported.
 """
 
 from __future__ import annotations
@@ -50,8 +52,41 @@ def quantize_q8_0(x: np.ndarray) -> np.ndarray:
     return out.reshape(-1)
 
 
+def dequantize_tcq4(raw: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """A TCQ4_K32 payload for a logical [N, K] weight (or a stack [E, N, K] of
+    per-expert payloads) -> f32 in the original domain: the int4 codes times
+    the group scales (plus the zero terms of an asymmetric tile), the inverse
+    block FWHT and the inverse channel permutation, as the JAX package's
+    ``dequantize_tcq4(rotated=False)``."""
+    from rrs_tpu_torch.formats.fwht import fwht_np
+    from rrs_tpu_torch.formats.tcq4 import GROUP_SIZE, GROUPS_PER_TILE, TILE_K, unpack_nibbles
+    from rrs_tpu_torch.formats.tile_codec import decode_tcq4_gguf
+
+    if len(shape) == 3:
+        per = raw.size // shape[0]
+        return np.stack([dequantize_tcq4(raw[e * per:(e + 1) * per], shape[1:])
+                         for e in range(shape[0])])
+    t = decode_tcq4_gguf(raw, shape)
+    q = unpack_nibbles(t.qs).astype(np.float32)                       # [K, N]
+    k, n = q.shape
+    rep = lambda a: np.repeat(a.astype(np.float32), GROUPS_PER_TILE,   # noqa: E731
+                              axis=0).reshape(k // GROUP_SIZE, 1, n)
+    w = q.reshape(k // GROUP_SIZE, GROUP_SIZE, n) * (
+        rep(t.S) * t.sc.astype(np.float32).reshape(k // GROUP_SIZE, 1, n) / 127.0)
+    if t.zc is not None:
+        w = w + rep(t.Z) * t.zc.astype(np.float32).reshape(k // GROUP_SIZE, 1, n) / 127.0
+    w = fwht_np(w.reshape(k // TILE_K, TILE_K, n), axis=1).astype(np.float32).reshape(k, n)
+    if t.perm is not None:
+        inv = np.empty_like(t.perm)
+        inv[t.perm] = np.arange(k, dtype=t.perm.dtype)
+        w = w[inv, :]
+    return np.ascontiguousarray(w.T.reshape(shape))
+
+
 def dequantize(raw: np.ndarray, ggml_type: GGMLType, shape: tuple[int, ...]) -> np.ndarray:
     """Dequantize a raw GGUF tensor payload to f32 in its logical shape."""
+    if ggml_type == GGMLType.TCQ4_K32:
+        return dequantize_tcq4(raw, shape)
     n = 1
     for s in shape:
         n *= s

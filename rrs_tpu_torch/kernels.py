@@ -43,6 +43,8 @@ SIGNATURES = {
     "rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its
@@ -51,7 +53,8 @@ LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul
                             "q8_matmul": 0, "flash_attention": 0, "flash_attention_q8": 0,
                             "flash_attention_q4hp": 0, "flash_attention_q4": 0,
                             "mxfp4_matmul": 0, "mxfp4_matmul_experts_rows": 0,
-                            "mxfp4_matmul_all_experts": 0}
+                            "mxfp4_matmul_all_experts": 0, "tcq4_matmul_experts_rows": 0,
+                            "tcq4_matmul_all_experts": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

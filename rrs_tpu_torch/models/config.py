@@ -1,12 +1,14 @@
-"""Model hyperparameters from GGUF metadata: the Qwen3 / Qwen2 / Llama and
-gpt-oss subset of ``rrs_tpu/models/config.py``.
+"""Model hyperparameters from GGUF metadata: the Qwen3 / Qwen2 / Llama,
+Qwen3-MoE and gpt-oss subset of ``rrs_tpu/models/config.py``.
 
 gpt-oss brings the MoE fields (MXFP4 experts, swiglu_oai, top-k on raw logits
 then a softmax over the k), alternating sliding-window layers over ring
-caches, per-head sinks and qkv / output biases. Llama / Qwen GGUFs with
+caches, per-head sinks and qkv / output biases. qwen3moe is qwen3 (q/k norms,
+no attention bias) with every layer MoE: softmax gating, and the post-top-k
+norm when the GGUF sets ``qwen3moe.norm_topk_prob``. Llama / Qwen GGUFs with
 ``attention.sliding_window`` take every layer sliding (pattern 1), as in the
-JAX package. Other architectures, MoE layers outside gpt-oss (their TCQ4
-expert kernels are the next slice) and RoPE scaling other than ``none`` /
+JAX package. Other architectures, qwen2moe (shared experts, ROADMAP A8c), MoE
+layers in a dense architecture and RoPE scaling other than ``none`` /
 ``llama3`` / ``yarn`` raise NotImplementedError.
 """
 
@@ -15,9 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "gpt-oss")
-# MoE archs whose TCQ4 expert stacks (kernels B9 / B10) are the next slice
-NEXT_SLICE_MOE = ("qwen2moe", "qwen3moe")
+SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "qwen3moe", "gpt-oss")
+MOE_ARCHS = ("qwen3moe", "gpt-oss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,10 +84,10 @@ class ModelConfig:
     @staticmethod
     def from_gguf(md: Mapping[str, Any]) -> "ModelConfig":
         arch = md["general.architecture"]
-        if arch in NEXT_SLICE_MOE:
+        if arch == "qwen2moe":
             raise NotImplementedError(
-                f"architecture {arch!r}: TCQ4 expert stacks (kernels B9 / B10) are the "
-                "next slice of rrs_tpu_torch")
+                "architecture 'qwen2moe': its shared experts are not ported to rrs_tpu_torch "
+                "yet (ROADMAP A8c)")
         if arch not in SUPPORTED_ARCHS:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported to rrs_tpu_torch "
@@ -95,10 +96,10 @@ class ModelConfig:
         def key(suffix, default=None):
             return md.get(f"{arch}.{suffix}", default)
 
-        if arch != "gpt-oss" and int(key("expert_count", 0) or 0) > 0:
+        if arch not in MOE_ARCHS and int(key("expert_count", 0) or 0) > 0:
             raise NotImplementedError(
-                f"{arch} MoE layers: only gpt-oss (MXFP4 experts) is ported; TCQ4 expert "
-                "stacks (kernels B9 / B10) are the next slice")
+                f"{arch} MoE layers: only the MoE architectures {', '.join(MOE_ARCHS)} are "
+                "ported")
         scaling = str(key("rope.scaling.type", "none") or "none")
         if scaling not in ("none", "llama3", "yarn"):
             raise NotImplementedError(f"rope scaling {scaling!r} is not ported to rrs_tpu_torch")
@@ -143,7 +144,7 @@ class ModelConfig:
             rope_orig_context=int(key("rope.scaling.original_context_length", 0) or 0),
             # llama weights are pre-permuted for interleaved (NORM) rope
             rope_neox=arch != "llama",
-            qk_norm=arch == "qwen3",
+            qk_norm=arch in ("qwen3", "qwen3moe"),
             attn_bias=arch in ("qwen2", "gpt-oss"),
             tie_embeddings=bool(md.get(f"{arch}.tie_word_embeddings", False)),
             n_experts=int(key("expert_count", 0) or 0),

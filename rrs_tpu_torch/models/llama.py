@@ -33,7 +33,7 @@ from rrs_tpu_torch.models.linear import (
     n_pad_width,
     want_i8p,
 )
-from rrs_tpu_torch.models.moe import NEXT_SLICE, MoEWeights, moe_ffn
+from rrs_tpu_torch.models.moe import SHARED_EXPERTS, MoEWeights, moe_ffn
 from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
 from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
                                                flash_attention_q4hp, flash_attention_q8)
@@ -255,8 +255,10 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
 def random_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
                    quantize: bool = False, scale: float = 0.02,
                    device="cpu") -> ModelWeights:
-    """Random weights from a NumPy generator (the JAX builder's draw order),
-    optionally TCQ4-quantized on the host; tied dense lm_head."""
+    """Random weights from a NumPy generator (the draw order of the JAX
+    ``random_weights``: an MoE layer draws its router and dense expert
+    stacks first), the linears optionally TCQ4-quantized on the host; tied
+    dense lm_head."""
     from rrs_tpu_torch.formats.tcq4 import quantize_tcq4
 
     rng = np.random.default_rng(seed)
@@ -274,13 +276,23 @@ def random_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     ones = lambda n: torch.ones((n,), dtype=dtype, device=device)   # noqa: E731
     layers = []
     for _ in range(cfg.n_layers):
+        moe = None
+        if cfg.n_experts > 0:
+            fe, n_exp = cfg.n_ff_exp or f, cfg.n_experts
+            moe = MoEWeights(router=tens(rng.standard_normal((e, n_exp)) * scale),
+                             gate=tens(rng.standard_normal((n_exp, e, fe)) * scale),
+                             up=tens(rng.standard_normal((n_exp, e, fe)) * scale),
+                             down=tens(rng.standard_normal((n_exp, fe, e)) * scale))
+        wq, wk, wv, wo = lin(e, hq), lin(e, hkv), lin(e, hkv), lin(hq, e)
         layers.append(LayerWeights(
-            attn_norm=ones(e),
-            wq=lin(e, hq), wk=lin(e, hkv), wv=lin(e, hkv), wo=lin(hq, e),
+            attn_norm=ones(e), wq=wq, wk=wk, wv=wv, wo=wo,
             q_norm=ones(d) if cfg.qk_norm else None,
             k_norm=ones(d) if cfg.qk_norm else None,
             ffn_norm=ones(e),
-            w_gate=lin(e, f), w_up=lin(e, f), w_down=lin(f, e),
+            w_gate=lin(e, f) if moe is None else None,
+            w_up=lin(e, f) if moe is None else None,
+            w_down=lin(f, e) if moe is None else None,
+            moe=moe,
         ))
     embed = tens(rng.standard_normal((cfg.vocab_size, e)) * scale)
     return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
@@ -373,7 +385,7 @@ def fabricated_gptoss_weights(cfg: ModelConfig, seed: int = 0, device=None) -> M
         gq, ge = mxstack(e, f)
         uq, ue = mxstack(e, f)
         dq, de = mxstack(f, e)
-        moe = MoEWeights(router=normal(0.05, (e, n_exp)).to(torch.bfloat16),
+        moe = MoEWeights(router=normal(0.05, (e, n_exp)).to(torch.bfloat16), quant_kind="mxfp4",
                          gate_qs=gq, gate_eff=ge, up_qs=uq, up_eff=ue, down_qs=dq, down_eff=de,
                          router_bias=torch.zeros((n_exp,), device=dev),
                          gate_b=normal(1e-2, (n_exp, f)), up_b=normal(1e-2, (n_exp, f)),
@@ -389,6 +401,59 @@ def fabricated_gptoss_weights(cfg: ModelConfig, seed: int = 0, device=None) -> M
              pow2(-11, -9, (cfg.vocab_size, e // 32)))
     return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
                         lm_head=q8lin(e, cfg.vocab_size))
+
+
+def fabricated_tcq4_moe_weights(cfg: ModelConfig, seed: int = 0, device=None) -> ModelWeights:
+    """qwen3moe weights drawn on the device from a seeded ``torch.Generator``,
+    with the recipe of benchmarks/bench_moe.py: TCQ4 expert stacks (uniform
+    qs bytes, bf16 eff in [0.001, 0.011)), a router N(0, 0.05) in bf16, and
+    per layer a fused TCQ4 qkv and an o projection (each with its i8p pack
+    unless ``RRS_PREFILL_I8=0``, as ``fabricated_tcq4_weights`` draws them),
+    q / k norms, a bf16 embedding N(0, 0.02) and an untied Q8 lm_head padded
+    by ``n_pad_width`` with f32 scales in [0, 0.001). Both expert dims must
+    be multiples of 256. For runs where the compute and the traffic matter
+    and the values do not."""
+    from rrs_tpu_torch.device import resolve_device
+    from rrs_tpu_torch.ops.tcq4_matmul import pack_i8p
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    packed = want_i8p()
+    e, f, n_exp = cfg.n_embd, cfg.n_ff_exp, cfg.n_experts
+
+    def qs_eff(lead, k, n):
+        qs = torch.randint(0, 256, (*lead, k // 2, n), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        eff = (torch.rand((*lead, k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+               ).to(torch.bfloat16)
+        return qs, eff
+
+    def qlin(k, n):
+        qs, eff = qs_eff((), k, n)
+        return TCQ4Linear(qs=qs, eff=eff, i8p=pack_i8p(qs, eff) if packed else None)
+
+    ones = lambda n: torch.ones((n,), dtype=torch.bfloat16, device=dev)   # noqa: E731
+    layers = []
+    for _ in range(cfg.n_layers):
+        gq, ge = qs_eff((n_exp,), e, f)
+        uq, ue = qs_eff((n_exp,), e, f)
+        dq, de = qs_eff((n_exp,), f, e)
+        router = (torch.randn((e, n_exp), generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+        moe = MoEWeights(router=router, gate_qs=gq, gate_eff=ge, up_qs=uq, up_eff=ue,
+                         down_qs=dq, down_eff=de, quant_kind="tcq4")
+        layers.append(LayerWeights(
+            attn_norm=ones(e), ffn_norm=ones(e), wq=None, wk=None, wv=None,
+            wqkv=qlin(e, cfg.n_q_dim + 2 * cfg.n_kv_dim), wo=qlin(cfg.n_q_dim, e),
+            q_norm=ones(cfg.head_dim), k_norm=ones(cfg.head_dim),
+            w_gate=None, w_up=None, w_down=None, moe=moe))
+    embed = (torch.randn((cfg.vocab_size, e), generator=gen, device=dev) * 0.02
+             ).to(torch.bfloat16)
+    n_pad = n_pad_width(cfg.vocab_size)
+    lm_q = torch.randint(-127, 128, (e, n_pad), generator=gen, device=dev, dtype=torch.int8)
+    lm_s = torch.rand((e // 32, n_pad), generator=gen, device=dev) * 1e-3
+    return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
+                        lm_head=Q8Linear(q=lm_q, scale=lm_s, n_logical=cfg.vocab_size))
 
 
 def to_device(obj, device):
@@ -447,19 +512,19 @@ def _linear_from_numpy(d, device):
 
 _LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
 _LAYER_TENSORS = ("attn_norm", "q_norm", "k_norm", "ffn_norm", "attn_sinks")
-_MOE_TENSORS = ("router", "gate_qs", "gate_eff", "up_qs", "up_eff", "down_qs", "down_eff",
-                "probs_bias", "router_bias", "gate_b", "up_b", "down_b")
+_MOE_TENSORS = ("router", "gate", "up", "down", "gate_qs", "gate_eff", "up_qs", "up_eff",
+                "down_qs", "down_eff", "probs_bias", "router_bias", "gate_b", "up_b", "down_b")
 
 
 def _moe_from_numpy(d, device) -> Optional[MoEWeights]:
-    """The JAX MoEWeights fields -> the port's; MXFP4 stacks only."""
+    """The JAX MoEWeights fields -> the port's: MXFP4, TCQ4 or dense bf16
+    stacks (bfloat16 arrays move bit for bit); shared experts raise."""
     if d is None:
         return None
     kind = str(np.asarray(d.get("quant_kind", "tcq4")))
-    extra = [k for k in ("gate", "up", "down", "shared_gate", "shared_up", "shared_down")
-             if d.get(k) is not None]
-    if kind != "mxfp4" or d.get("gate_qs") is None or extra:
-        raise NotImplementedError(f"MoE layer ({kind} stacks, fields {extra}): {NEXT_SLICE}")
+    shared = [k for k in ("shared_gate", "shared_up", "shared_down") if d.get(k) is not None]
+    if shared:
+        raise NotImplementedError(f"MoE layer with {shared}: {SHARED_EXPERTS}")
     return MoEWeights(quant_kind=kind, **{k: _tensor(d.get(k), device) for k in _MOE_TENSORS})
 
 
@@ -470,9 +535,9 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     and ``layers[i]`` with ``attn_norm``, ``wqkv`` ({qs, eff, gather, bias}),
     ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), an MXFP4
     linear ({qs, scale, bias, n_logical}), ``attn_sinks``, ``moe`` (the
-    MoEWeights fields, MXFP4 stacks) and so on; a TCQ4 linear's ``i8p`` is
-    its (qs_sbi, f8, e2) pack or None. Fields the port does not carry yet
-    (MLA, sandwich norms) must be None."""
+    MoEWeights fields: MXFP4, TCQ4 or dense stacks) and so on; a TCQ4
+    linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None. Fields the port
+    does not carry yet (MLA, sandwich norms, shared experts) must be None."""
     from rrs_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)

@@ -7,13 +7,16 @@ K-major kernel layout; Q8_0 matrices stay packed (Q8Linear, and the Q8_0
 embedding table when the head is untied); MXFP4 matrices and gpt-oss expert
 stacks stay packed in the device layout of ``ops/mxfp4_matmul.py``;
 F32/F16/BF16 become bf16 DenseLinears; a tied head is the transposed
-embedding. gpt-oss's router and expert biases, its per-head sinks (under
-either tensor name) and its pre-FFN norm (shipped as
+embedding. MoE expert stacks load as MXFP4 (gpt-oss), TCQ4_K32 (decoded per
+expert into the stacked kernel layout, eff rounded to bf16) or dense
+F32/F16/BF16 (transposed to [E, K, N] bf16); a quantized router is
+dequantized to the original domain. gpt-oss's router and expert biases, its
+per-head sinks (under either tensor name) and its pre-FFN norm (shipped as
 ``post_attention_norm``) load as the JAX package loads them.
 
-MLA, TCQ4 or dense expert stacks and shared experts (the next slice),
-recurrent and hybrid layers, sandwich norms, fused pre-packed qkv / gate-up
-tensors and split GGUFs raise NotImplementedError.
+MLA, shared experts (ROADMAP A8c), recurrent and hybrid layers, sandwich
+norms, fused pre-packed qkv / gate-up tensors and split GGUFs raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from rrs_tpu_torch.device import resolve_device
+from rrs_tpu_torch.formats.tcq4 import effective_scales
 from rrs_tpu_torch.formats.tile_codec import decode_tcq4_gguf
 from rrs_tpu_torch.gguf.constants import GGMLType, tcq4_perm_key
 from rrs_tpu_torch.gguf.reader import GGUFFile, read_gguf
@@ -32,7 +36,7 @@ from rrs_tpu_torch.models.config import ModelConfig
 from rrs_tpu_torch.models.linear import (DenseLinear, MXFP4Linear, Q8Linear, TCQ4Linear,
                                          fuse_linears)
 from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
-from rrs_tpu_torch.models.moe import NEXT_SLICE, MoEWeights
+from rrs_tpu_torch.models.moe import MoEWeights
 from rrs_tpu_torch.ops.mxfp4_matmul import pack_mxfp4_device
 
 _NOT_PORTED = ("attn_kv_a_mqa", "ssm_in", "time_mix_key", "attn_qkv", "post_ffw_norm",
@@ -78,8 +82,9 @@ def _linear(g: GGUFFile, name: str, device, dtype=torch.bfloat16,
 def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
     """MoEWeights of layer prefix ``p``: the router (x @ router, in
     ``dtype``), the gpt-oss router and per-expert biases (GGUF [E, N]
-    arrays), an expert-selection bias, and the MXFP4 expert stacks packed
-    per expert (GGUF gate / up [E, F, K], down [E, K, F])."""
+    arrays), an expert-selection bias, and the expert stacks (GGUF gate / up
+    [E, F, K], down [E, K, F]): MXFP4 packed per expert, TCQ4_K32 decoded per
+    expert, or dense."""
     def f32(name):
         return torch.from_numpy(_f32(g, name)).to(device)
 
@@ -90,19 +95,38 @@ def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
                          ("ffn_down_exps.bias", "down_b")):
         if f"{p}.{tname}" in g.tensors:
             fields[field] = f32(f"{p}.{tname}")
-    for n in ("gate", "up", "down"):
-        name = f"{p}.ffn_{n}_exps.weight"
-        info = g.tensors[name]
-        if info.ggml_type != GGMLType.MXFP4 or info.shape[-1] % 64:
-            raise NotImplementedError(f"{name}: {GGMLType(info.ggml_type).name} expert stack "
-                                      f"{info.shape}: {NEXT_SLICE}")
-        raw = g.tensor_bytes(name)
-        per = raw.size // info.shape[0]
-        packed = [pack_mxfp4_device(raw[ei * per:(ei + 1) * per], info.shape[1:])
+    names = {n: f"{p}.ffn_{n}_exps.weight" for n in ("gate", "up", "down")}
+    kind = g.tensors[names["gate"]].ggml_type
+    if kind == GGMLType.MXFP4 and all(g.tensors[nm].shape[-1] % 64 == 0
+                                      for nm in names.values()):
+        for n, name in names.items():
+            info = g.tensors[name]
+            raw = g.tensor_bytes(name)
+            per = raw.size // info.shape[0]
+            packed = [pack_mxfp4_device(raw[ei * per:(ei + 1) * per], info.shape[1:])
+                      for ei in range(info.shape[0])]
+            fields[f"{n}_qs"] = torch.from_numpy(np.stack([q for q, _ in packed])).to(device)
+            fields[f"{n}_eff"] = torch.from_numpy(np.stack([s for _, s in packed])).to(device)
+        return MoEWeights(quant_kind="mxfp4", **fields)
+    if kind == GGMLType.TCQ4_K32:
+        # per-expert payloads, concatenated in expert order
+        for n, name in names.items():
+            info = g.tensors[name]
+            raw = g.tensor_bytes(name)
+            per = raw.size // info.shape[0]
+            ts = [decode_tcq4_gguf(raw[ei * per:(ei + 1) * per], info.shape[1:])
                   for ei in range(info.shape[0])]
-        fields[f"{n}_qs"] = torch.from_numpy(np.stack([q for q, _ in packed])).to(device)
-        fields[f"{n}_eff"] = torch.from_numpy(np.stack([s for _, s in packed])).to(device)
-    return MoEWeights(quant_kind="mxfp4", **fields)
+            fields[f"{n}_qs"] = torch.from_numpy(np.stack([t.qs for t in ts])).to(device)
+            fields[f"{n}_eff"] = torch.from_numpy(np.stack(
+                [effective_scales(t).astype(np.float32) for t in ts])).to(torch.bfloat16).to(device)
+        return MoEWeights(quant_kind="tcq4", **fields)
+    for n, name in names.items():
+        if g.tensors[name].ggml_type not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
+            raise NotImplementedError(f"{name}: {GGMLType(g.tensors[name].ggml_type).name} "
+                                      "expert stacks are not ported to rrs_tpu_torch")
+        fields[n] = torch.from_numpy(np.ascontiguousarray(_f32(g, name).transpose(0, 2, 1))).to(
+            device=device, dtype=dtype)
+    return MoEWeights(**fields)
 
 
 def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = None,

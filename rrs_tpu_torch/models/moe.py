@@ -1,25 +1,37 @@
-"""Mixture-of-Experts FFN over MXFP4 expert stacks (gpt-oss).
+"""Mixture-of-Experts FFN over packed (MXFP4, TCQ4) or dense bf16 expert
+stacks.
 
-Port of ``rrs_tpu/models/moe.py``: ``MoEWeights``, the router ``route``
-(softmax or sigmoid gating with the post-top-k norm, the selection bias, expert
-groups, and gpt-oss's top-k on the raw logits plus router bias then a softmax
-over the k), the ``swiglu_oai`` activation, the capacity dispatch, and the
-MXFP4 branches of ``moe_ffn``, chosen by token count as there:
+Port of ``rrs_tpu/models/moe.py``: ``MoEWeights``, ``quantize_experts``, the
+router ``route`` (softmax or sigmoid gating with the post-top-k norm, the
+selection bias, expert groups, and gpt-oss's top-k on the raw logits plus
+router bias then a softmax over the k), the ``swiglu_oai`` activation, the
+capacity dispatch, and every branch of ``moe_ffn`` but shared experts, chosen
+by token count as there.
 
-  <= 16 tokens  the selected experts' rows (B12, ``mxfp4_matmul_experts_rows``);
-  <= 64 tokens  every expert over the shared activations (B13), combined with
-                the routing weights;
+Packed stacks: MXFP4 (gpt-oss) is weights-only, with bf16 activations; TCQ4
+(qwen3moe) is W4A4, its activations RRS-rotated and int4 quantize-dequantized
+(``_rotate_quant``) before each projection.
+
+  <= 16 tokens  the selected experts' rows (B12 ``mxfp4_matmul_experts_rows``,
+                B9 ``tcq4_matmul_experts_rows``);
+  <= 64 tokens  MXFP4 only: every expert over the shared activations (B13),
+                combined with the routing weights;
   more          capacity dispatch: each expert's routed tokens padded to a
-                capacity C, one per-expert B13 launch per projection, and the
-                exact per-expert scan over all tokens (B11) when routing
-                overflows C.
+                capacity C, one per-expert all-experts launch per projection
+                (B13, B10), and the exact per-expert scan over all tokens
+                when routing overflows C (B11, or a TCQ4 expert dequantized
+                by ``_dequant_expert`` and a plain matmul).
 
-The two decode-sized branches read nothing back to the host, so a device
-decode run stays free of syncs; the capacity branch reads the largest expert
-count once per layer to choose between its two paths (JAX decides with a
-``lax.cond`` on the device). TCQ4 expert stacks (kernels B9 / B10), dense bf16
-expert stacks and shared experts raise NotImplementedError: they are the next
-slice.
+Dense stacks take a gather of the selected experts' weights at <= 16 tokens,
+and otherwise the capacity dispatch with the all-experts einsum as its exact
+fallback; their products are plain f32 matmuls of the bf16 values, as in the
+JAX package, where no Pallas kernel computes them.
+
+The decode-sized branches read nothing back to the host, so a device decode
+run stays free of syncs; the capacity branch reads the largest expert count
+once per layer, and only when C can overflow (JAX decides with a
+``lax.cond`` on the device). Shared experts (qwen2moe) raise
+NotImplementedError: ROADMAP A8c.
 """
 
 from __future__ import annotations
@@ -27,24 +39,32 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
+from rrs_tpu_torch.formats.tcq4 import (dequantize_activations_rrs, effective_scales,
+                                        quantize_activations_rrs, quantize_tcq4)
 from rrs_tpu_torch.models.config import ModelConfig
+from rrs_tpu_torch.models.linear import rotate_activations
 from rrs_tpu_torch.ops.mxfp4_matmul import (_round_up, mxfp4_matmul, mxfp4_matmul_all_experts,
                                             mxfp4_matmul_experts_rows)
+from rrs_tpu_torch.ops.tcq4_matmul import tcq4_matmul_all_experts, tcq4_matmul_experts_rows
 
-NEXT_SLICE = "TCQ4 and dense expert stacks (kernels B9 / B10) are the next slice of rrs_tpu_torch"
+SHARED_EXPERTS = "shared experts (qwen2moe) are not ported to rrs_tpu_torch yet: ROADMAP A8c"
 
 
 @dataclasses.dataclass
 class MoEWeights:
-    """One MoE layer: the router [E_in, n_experts] (x @ router) and the
-    packed expert stacks ``*_qs`` uint8 [E, K//2, Npad] / ``*_eff`` uint8
-    [E, K//32, Npad] (the field names of the JAX package, which keeps TCQ4
-    scales there too), with gate / up [E, n_embd -> n_ff_exp] and down
-    [E, n_ff_exp -> n_embd]."""
+    """One MoE layer: the router [E_in, n_experts] (x @ router), and either
+    dense bf16 stacks ``gate`` / ``up`` [E, n_embd, n_ff_exp] and ``down``
+    [E, n_ff_exp, n_embd], or packed stacks ``*_qs`` uint8 [E, K//2, N] with
+    ``*_eff`` (TCQ4: bf16 [E, K//32, N] group scales; MXFP4: uint8 exponents,
+    N possibly padded), the field names of the JAX package."""
 
     router: torch.Tensor
+    gate: Optional[torch.Tensor] = None
+    up: Optional[torch.Tensor] = None
+    down: Optional[torch.Tensor] = None
     gate_qs: Optional[torch.Tensor] = None
     gate_eff: Optional[torch.Tensor] = None
     up_qs: Optional[torch.Tensor] = None
@@ -58,7 +78,32 @@ class MoEWeights:
     gate_b: Optional[torch.Tensor] = None
     up_b: Optional[torch.Tensor] = None
     down_b: Optional[torch.Tensor] = None
-    quant_kind: str = "mxfp4"
+    quant_kind: str = "tcq4"          # codec of the packed stacks: "tcq4" | "mxfp4"
+
+    @property
+    def quantized(self) -> bool:
+        return self.gate_qs is not None
+
+
+def quantize_experts(mw: MoEWeights) -> MoEWeights:
+    """Dense bf16 stacks -> TCQ4 stacks on the host (the load-time per-expert
+    analog of ``TCQ4Linear.from_tensor``), bit-equal to the JAX
+    ``quantize_experts``. Both matmul dims must be multiples of 256."""
+    def quant_stack(w):
+        qs_l, eff_l = [], []
+        for e in range(w.shape[0]):
+            t = quantize_tcq4(w[e].float().cpu().numpy().T)
+            qs_l.append(t.qs)
+            eff_l.append(effective_scales(t).astype(np.float32))
+        return (torch.from_numpy(np.stack(qs_l)).to(w.device),
+                torch.from_numpy(np.stack(eff_l)).to(torch.bfloat16).to(w.device))
+
+    gate_qs, gate_eff = quant_stack(mw.gate)
+    up_qs, up_eff = quant_stack(mw.up)
+    down_qs, down_eff = quant_stack(mw.down)
+    return dataclasses.replace(mw, gate=None, up=None, down=None, gate_qs=gate_qs,
+                               gate_eff=gate_eff, up_qs=up_qs, up_eff=up_eff, down_qs=down_qs,
+                               down_eff=down_eff, quant_kind="tcq4")
 
 
 def route(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor):
@@ -95,6 +140,24 @@ def route(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor):
     return topi, topv
 
 
+def _dequant_expert(qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """[..., K//2, F] uint8 + eff [..., K//32, F] -> [..., K, F] bf16, the
+    int4 times the f32 group scale rounded once. Within each 256-K superblock
+    the low nibbles hold k in [0, 128) and the high nibbles [128, 256)."""
+    *lead, k2, f = qs.shape
+    q = qs.to(torch.int32).reshape(*lead, k2 // 128, 128, f)
+    w_q = torch.cat([(q << 28) >> 28, (q << 24) >> 28], dim=-2).reshape(*lead, 2 * k2, f)
+    return (w_q.to(torch.float32)
+            * eff.to(torch.float32).repeat_interleave(32, dim=-2)).to(torch.bfloat16)
+
+
+def _rotate_quant(x2: torch.Tensor) -> torch.Tensor:
+    """RRS rotation, then the int4 quantize-dequantize of each 256-block: the
+    bf16 activations of a TCQ4 expert projection."""
+    a_q, a_s = quantize_activations_rrs(rotate_activations(x2, None))
+    return dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
+
+
 def _moe_act(cfg: ModelConfig, g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """swiglu_oai (gpt-oss): gate clamped above at 7, up to [-7, 7], then
     x * sigmoid(1.702 x) * (y + 1); else silu(g) * u. f32 in, f32 out."""
@@ -116,7 +179,8 @@ def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_exper
     """Sort the token slots by expert, pad each expert's group to a capacity
     C, run ``run_experts(buf [E, C, K]) -> [E, C, D]`` once and sum each
     token's weighted rows. When an expert draws more than C slots (the one
-    host readback of this path) the exact ``fallback()`` runs instead."""
+    host readback of this path, made only where C < n_tok) the exact
+    ``fallback()`` runs instead."""
     n_sel = n_tok * kk
     cap = min(_round_up(n_tok, 8), max(64, _round_up(2 * n_sel // n_exp, 64)))
     ids_flat = topi.reshape(-1)
@@ -139,63 +203,123 @@ def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_exper
     return (vals.reshape(n_tok, kk, -1) * topv[..., None]).sum(1)
 
 
-def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
-    """x [B, T, E] -> [B, T, E] in x's dtype."""
-    if mw.quant_kind != "mxfp4" or mw.gate_qs is None:
-        raise NotImplementedError(NEXT_SLICE)
-    b, t, e = x.shape
-    x2 = x.reshape(b * t, e)
-    topi, topv = route(cfg, mw, x2)
-    n_tok = b * t
-    fe = cfg.n_ff_exp
-    kk = cfg.n_experts_used
+def _packed_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv) -> torch.Tensor:
+    """The MXFP4 and TCQ4 branches: f32 [T, n_embd]."""
+    n_tok, e = x2.shape
+    fe, kk = cfg.n_ff_exp, cfg.n_experts_used
     n_exp = mw.gate_qs.shape[0]
-    a = x2.to(torch.bfloat16)                    # MXFP4 is weights-only: bf16 activations
+    mx = mw.quant_kind == "mxfp4"
+    if mx:
+        rows_mm, all_mm = mxfp4_matmul_experts_rows, mxfp4_matmul_all_experts
+        prep = lambda v: v.to(torch.bfloat16)                        # noqa: E731
+    else:
+        rows_mm, all_mm, prep = tcq4_matmul_experts_rows, tcq4_matmul_all_experts, _rotate_quant
+    a = prep(x2)                                                     # [T, K] bf16
     if n_tok <= 16:
-        # decode: only the selected experts' tiles are read (B12)
+        # decode: only the selected experts' tiles are read (B12, B9)
         ids = topi.reshape(-1)
         ar = a.repeat_interleave(kk, dim=0)
-        g = mxfp4_matmul_experts_rows(ar, mw.gate_qs, mw.gate_eff, ids)[:, :fe]
-        u = mxfp4_matmul_experts_rows(ar, mw.up_qs, mw.up_eff, ids)[:, :fe]
+        g = rows_mm(ar, mw.gate_qs, mw.gate_eff, ids)[:, :fe]
+        u = rows_mm(ar, mw.up_qs, mw.up_eff, ids)[:, :fe]
         if mw.gate_b is not None:
             g = g + mw.gate_b[ids]
             u = u + mw.up_b[ids]
-        a2 = _moe_act(cfg, g, u).to(torch.bfloat16)
-        d = mxfp4_matmul_experts_rows(a2, mw.down_qs, mw.down_eff, ids)[:, :e]
-        out = (d.reshape(n_tok, kk, e) * topv[..., None]).sum(1)
-    elif n_tok <= 64:
+        a2 = prep(_moe_act(cfg, g, u))
+        d = rows_mm(a2, mw.down_qs, mw.down_eff, ids)[:, :e]
+        return (d.reshape(n_tok, kk, e) * topv[..., None]).sum(1)
+    if mx and n_tok <= 64:
         # batched decode: every expert once over the shared activations (B13)
         g = mxfp4_matmul_all_experts(a, mw.gate_qs, mw.gate_eff)[..., :fe]
         u = mxfp4_matmul_all_experts(a, mw.up_qs, mw.up_eff)[..., :fe]
         if mw.gate_b is not None:
             g = g + mw.gate_b[:, None, :]
             u = u + mw.up_b[:, None, :]
-        a2 = _moe_act(cfg, g, u).to(torch.bfloat16)                   # [E, T, F]
+        a2 = prep(_moe_act(cfg, g, u))                                  # [E, T, F]
         d = mxfp4_matmul_all_experts(a2, mw.down_qs, mw.down_eff)[..., :e]
-        out = torch.einsum("etk,te->tk", d, _combine(topi, topv, n_exp))
+        return torch.einsum("etk,te->tk", d, _combine(topi, topv, n_exp))
+    zeros = torch.zeros((n_exp, fe), dtype=torch.float32, device=x2.device)
+    gb = mw.gate_b if mw.gate_b is not None else zeros
+    ub = mw.up_b if mw.up_b is not None else zeros
+
+    def run_experts(buf):                                             # [E, C, K] (B13, B10)
+        g = all_mm(buf, mw.gate_qs, mw.gate_eff)[..., :fe] + gb[:, None]
+        u = all_mm(buf, mw.up_qs, mw.up_eff)[..., :fe] + ub[:, None]
+        act = _moe_act(cfg, g, u)                                     # [E, C, F]
+        a2 = prep(act.reshape(-1, act.shape[-1])).reshape(act.shape)
+        return all_mm(a2, mw.down_qs, mw.down_eff)[..., :e]
+
+    def mm(act, qs, eff):
+        if mx:
+            return mxfp4_matmul(act, qs, eff)                          # B11
+        return act.to(torch.float32) @ _dequant_expert(qs, eff).to(torch.float32)
+
+    def scan_fallback():                                              # every token, per expert
+        combine = _combine(topi, topv, n_exp)
+        acc = torch.zeros((n_tok, e), dtype=torch.float32, device=x2.device)
+        for ei in range(n_exp):
+            g = mm(a, mw.gate_qs[ei], mw.gate_eff[ei])[:, :fe] + gb[ei]
+            u = mm(a, mw.up_qs[ei], mw.up_eff[ei])[:, :fe] + ub[ei]
+            a2 = prep(_moe_act(cfg, g, u))
+            y = mm(a2, mw.down_qs[ei], mw.down_eff[ei])[:, :e]
+            acc = acc + y * combine[:, ei:ei + 1]
+        return acc
+
+    return _capacity_dispatch(n_exp, kk, n_tok, a, topi, topv, run_experts, scan_fallback)
+
+
+def _dense_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv,
+               dtype) -> torch.Tensor:
+    """The dense bf16 branches: f32 [T, n_embd]. The activation between the
+    two products is rounded to the layer's dtype, as in the JAX package."""
+    n_tok = x2.shape[0]
+    f32 = lambda t: t.to(torch.float32)                              # noqa: E731
+    x32 = f32(x2)
+    if n_tok <= 16:
+        # gather: the selected experts' weights per token
+        g = torch.einsum("tk,tekf->tef", x32, f32(mw.gate[topi]))
+        u = torch.einsum("tk,tekf->tef", x32, f32(mw.up[topi]))
+        if mw.gate_b is not None:
+            g = g + mw.gate_b[topi]
+            u = u + mw.up_b[topi]
+        act = f32(_moe_act(cfg, g, u).to(dtype))                      # [T, k, F]
+        out = torch.einsum("tef,tefk->tek", act, f32(mw.down[topi]))
+        return (out * topv[..., None]).sum(1)
+    n_exp = mw.gate.shape[0]
+
+    def run_experts(buf):                                             # [E, C, K]
+        g = torch.einsum("eck,ekf->ecf", f32(buf), f32(mw.gate))
+        u = torch.einsum("eck,ekf->ecf", f32(buf), f32(mw.up))
+        if mw.gate_b is not None:
+            g = g + mw.gate_b[:, None, :]
+            u = u + mw.up_b[:, None, :]
+        act = f32(_moe_act(cfg, g, u).to(dtype))
+        return torch.einsum("ecf,efk->eck", act, f32(mw.down))
+
+    def dense_fallback():                                             # every expert, every token
+        g = torch.einsum("tk,ekf->tef", x32, f32(mw.gate))
+        u = torch.einsum("tk,ekf->tef", x32, f32(mw.up))
+        if mw.gate_b is not None:
+            g = g + mw.gate_b[None]
+            u = u + mw.up_b[None]
+        act = f32(_moe_act(cfg, g, u).to(dtype))                      # [T, E, F]
+        y = torch.einsum("tef,efk->tek", act, f32(mw.down))
+        return torch.einsum("tek,te->tk", y, _combine(topi, topv, cfg.n_experts))
+
+    return _capacity_dispatch(n_exp, cfg.n_experts_used, n_tok, x2, topi, topv, run_experts,
+                              dense_fallback)
+
+
+def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, E] -> [B, T, E] in x's dtype."""
+    if mw.quantized and mw.quant_kind not in ("mxfp4", "tcq4"):
+        raise NotImplementedError(f"expert stacks of kind {mw.quant_kind!r}")
+    b, t, e = x.shape
+    x2 = x.reshape(b * t, e)
+    topi, topv = route(cfg, mw, x2)
+    if mw.quantized:
+        out = _packed_ffn(cfg, mw, x2, topi, topv)
     else:
-        zeros = torch.zeros((n_exp, fe), dtype=torch.float32, device=x.device)
-        gb = mw.gate_b if mw.gate_b is not None else zeros
-        ub = mw.up_b if mw.up_b is not None else zeros
-
-        def run_experts(buf):                                         # [E, C, K] (B13)
-            g = mxfp4_matmul_all_experts(buf, mw.gate_qs, mw.gate_eff)[..., :fe] + gb[:, None]
-            u = mxfp4_matmul_all_experts(buf, mw.up_qs, mw.up_eff)[..., :fe] + ub[:, None]
-            a2 = _moe_act(cfg, g, u).to(torch.bfloat16)
-            return mxfp4_matmul_all_experts(a2, mw.down_qs, mw.down_eff)[..., :e]
-
-        def scan_fallback():                                          # every token, per expert (B11)
-            combine = _combine(topi, topv, n_exp)
-            acc = torch.zeros((n_tok, e), dtype=torch.float32, device=x.device)
-            for ei in range(n_exp):
-                g = mxfp4_matmul(a, mw.gate_qs[ei], mw.gate_eff[ei])[:, :fe] + gb[ei]
-                u = mxfp4_matmul(a, mw.up_qs[ei], mw.up_eff[ei])[:, :fe] + ub[ei]
-                a2 = _moe_act(cfg, g, u).to(torch.bfloat16)
-                y = mxfp4_matmul(a2, mw.down_qs[ei], mw.down_eff[ei])[:, :e]
-                acc = acc + y * combine[:, ei:ei + 1]
-            return acc
-
-        out = _capacity_dispatch(n_exp, kk, n_tok, a, topi, topv, run_experts, scan_fallback)
+        out = _dense_ffn(cfg, mw, x2, topi, topv, x.dtype)
     if mw.down_b is not None:
         # the per-expert down bias, once after the combine, weighted by topv
         out = out + (mw.down_b[topi] * topv[..., None]).sum(1)

@@ -1,6 +1,8 @@
 """TCQ4 W4A4 matmuls: the decode kernel with fused activation quantization
-(gx2), the prefill dequant kernel and the int8-superblock prefill kernel
-(i8p), each beside its plain PyTorch version.
+(gx2), the prefill dequant kernel, the int8-superblock prefill kernel (i8p)
+and the two mixture-of-experts kernels over stacked expert weights (the
+selected experts' rows, and every expert at once), each beside its plain
+PyTorch version.
 
 Port of ``rrs_tpu/ops/tcq4_matmul.py``. Weights are K-major (see
 ``formats/tcq4.py``): qs uint8 [K//2, N], eff bf16 [K//32, N] (the effective
@@ -8,8 +10,8 @@ group scale fp32(fp16(S)) * sc / 127, rounded to bf16 on the device).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_matmul.cu``,
-``csrc/tcq4_i8p.cu``) or raises; it never falls back. Each launch is counted
-in ``kernels.LAUNCHES``.
+``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or raises; it never falls
+back. Each launch is counted in ``kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -265,4 +267,102 @@ def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
         a_sbi.data_ptr(), a_scale.data_ptr(), qs_sbi.data_ptr(), f8.data_ptr(), e2.data_ptr(),
         out.data_ptr(), m, k, n, int(out_bf16), kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_i8p", code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts over stacked TCQ4 weights, qs uint8 [E, K//2, N] and eff
+# bf16 [E, K//32, N]: the selected experts' rows (decode, B9;
+# rrs_tpu/ops/tcq4_matmul.py:654) and every expert at once (capacity
+# dispatch, B10; :595). Both round the activations and each int4 * f32(eff)
+# weight to bf16 and sum in f32, as the TPU kernels do.
+# ---------------------------------------------------------------------------
+
+def _expert_w(qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """One expert's [K//2, N] + [K//32, N] -> bf16-rounded f32 [K, N]."""
+    return dequantize_w(qs, eff).to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_f32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def tcq4_matmul_experts_rows_plain(a, qs_all, eff_all, expert_ids) -> torch.Tensor:
+    """B9's plain version: out[i] = bf16(a[i]) @ W[ids[i]]; f32 [n_sel, N].
+    Decodes one distinct expert at a time."""
+    a32 = _bf16_f32(a)
+    ids = expert_ids.to(torch.int64)
+    out = torch.empty((a.shape[0], qs_all.shape[-1]), dtype=torch.float32, device=a.device)
+    for e in torch.unique(ids).tolist():
+        rows = (ids == e).nonzero()[:, 0]
+        out[rows] = a32[rows] @ _expert_w(qs_all[e], eff_all[e])
+    return out
+
+
+def tcq4_matmul_all_experts_plain(a, qs_all, eff_all) -> torch.Tensor:
+    """B10's plain version: out[e] = bf16(a or a[e]) @ W[e]; f32 [E, T, N]."""
+    a32 = _bf16_f32(a)
+    return torch.stack([(a32[e] if a.dim() == 3 else a32) @ _expert_w(qs_all[e], eff_all[e])
+                        for e in range(qs_all.shape[0])])
+
+
+def _check_stacks(name: str, qs_all: torch.Tensor, eff_all: torch.Tensor, k: int) -> None:
+    if (qs_all.dim() != 3 or k % TILE_K or qs_all.shape[1] * 2 != k or qs_all.shape[2] % 8
+            or eff_all.shape != (qs_all.shape[0], k // GROUP_SIZE, qs_all.shape[2])):
+        raise ValueError(f"{name} shapes: K {k}, qs {tuple(qs_all.shape)}, eff "
+                         f"{tuple(eff_all.shape)} (K a multiple of 256, N of 8)")
+
+
+def _check_types(name: str, a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor):
+    if (a.dtype not in (torch.bfloat16, torch.float32) or qs_all.dtype != torch.uint8
+            or eff_all.dtype != torch.bfloat16):
+        raise TypeError(f"{name}: needs bf16 or f32 a, uint8 qs, bf16 eff")
+
+
+def tcq4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor,
+                             expert_ids: torch.Tensor) -> torch.Tensor:
+    """B9: out[i] = bf16(a[i]) @ dequant(W[expert_ids[i]]) for a [n_sel, K]
+    (bf16 or f32) and int ids [n_sel] on the device (read there, never on the
+    host; an id outside [0, E) is clamped). Returns f32 [n_sel, N]."""
+    n_sel, k = a.shape
+    _check_stacks("tcq4_matmul_experts_rows", qs_all, eff_all, k)
+    if expert_ids.shape != (n_sel,):
+        raise ValueError(f"tcq4_matmul_experts_rows: ids {tuple(expert_ids.shape)} for "
+                         f"{n_sel} rows")
+    if a.device.type == "cpu":
+        return tcq4_matmul_experts_rows_plain(a, qs_all, eff_all, expert_ids)
+    _check_types("tcq4_matmul_experts_rows", a, qs_all, eff_all)
+    n_exp, _, n = qs_all.shape
+    a = a.contiguous()
+    ids = expert_ids.to(torch.int32).contiguous()
+    dev = kernels.check_tensors("tcq4_matmul_experts_rows", a, qs_all, eff_all, ids)
+    out = torch.empty((n_sel, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_experts_rows(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), qs_all.data_ptr(), eff_all.data_ptr(),
+        ids.data_ptr(), out.data_ptr(), n_sel, k, n, n_exp, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_experts_rows", code)
+    return out
+
+
+def tcq4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
+                            eff_all: torch.Tensor) -> torch.Tensor:
+    """B10: out[e] = bf16(a) @ dequant(W[e]) for shared a [T, K], or
+    bf16(a[e]) @ dequant(W[e]) for per-expert a [E, T, K] (bf16 or f32).
+    Returns f32 [E, T, N]."""
+    k = a.shape[-1]
+    _check_stacks("tcq4_matmul_all_experts", qs_all, eff_all, k)
+    n_exp, _, n = qs_all.shape
+    if a.dim() not in (2, 3) or (a.dim() == 3 and a.shape[0] != n_exp):
+        raise ValueError(f"tcq4_matmul_all_experts: a {tuple(a.shape)} for {n_exp} experts")
+    if a.device.type == "cpu":
+        return tcq4_matmul_all_experts_plain(a, qs_all, eff_all)
+    _check_types("tcq4_matmul_all_experts", a, qs_all, eff_all)
+    t = a.shape[-2]
+    a = a.contiguous()
+    dev = kernels.check_tensors("tcq4_matmul_all_experts", a, qs_all, eff_all)
+    out = torch.empty((n_exp, t, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_all_experts(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), int(a.dim() == 3), qs_all.data_ptr(),
+        eff_all.data_ptr(), out.data_ptr(), n_exp, t, k, n, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_all_experts", code)
     return out

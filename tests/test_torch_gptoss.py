@@ -328,13 +328,15 @@ def test_server_answers_gpt_oss_on_cpu(oss_gguf):
 
 
 def test_next_slice_archs_raise():
-    md = {"general.architecture": "qwen3moe", "qwen3moe.block_count": 2,
-          "qwen3moe.embedding_length": 64}
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """qwen2moe's shared experts are a later item (A8c); MoE layers in a dense
+    architecture are not ported; qwen3 with a window slides every layer."""
+    md = {"general.architecture": "qwen2moe", "qwen2moe.block_count": 2,
+          "qwen2moe.embedding_length": 64}
+    with pytest.raises(NotImplementedError, match="A8c"):
         ModelConfig.from_gguf(md)
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2,
           "qwen3.embedding_length": 64, "qwen3.expert_count": 8}
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="MoE layers"):
         ModelConfig.from_gguf(md)
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2, "qwen3.embedding_length": 64,
           "qwen3.attention.head_count": 4, "qwen3.attention.sliding_window": 32}

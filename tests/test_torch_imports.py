@@ -18,7 +18,8 @@ mods = ["rrs_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.models.moe"):
+for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.ops.tcq4_matmul",
+          "rrs_tpu_torch.models.moe", "rrs_tpu_torch.formats.kquants"):
     assert m in mods, m
 bad = sorted(m for m in sys.modules
              if m in ("jax", "rrs_tpu") or m.startswith(("jax.", "rrs_tpu.")))
@@ -105,7 +106,8 @@ def test_kernel_wrappers_count_only_their_launches():
     assert set(before) == {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
                            "flash_attention", "flash_attention_q8", "flash_attention_q4hp",
                            "flash_attention_q4", "mxfp4_matmul", "mxfp4_matmul_experts_rows",
-                           "mxfp4_matmul_all_experts"}
+                           "mxfp4_matmul_all_experts", "tcq4_matmul_experts_rows",
+                           "tcq4_matmul_all_experts"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
@@ -129,5 +131,9 @@ def test_kernel_wrappers_count_only_their_launches():
     mx.mxfp4_matmul_experts_rows(torch.randn(3, 128, generator=g), mq, ms,
                                  torch.tensor([1, 0, 1]))
     mx.mxfp4_matmul_all_experts(torch.randn(3, 128, generator=g), mq, ms)
+    tq, te = torch.stack([qs, qs]), torch.stack([eff, eff])
+    tm.tcq4_matmul_experts_rows(torch.randn(3, 256, generator=g).to(torch.bfloat16), tq, te,
+                                torch.tensor([1, 0, 1]))
+    tm.tcq4_matmul_all_experts(torch.randn(2, 3, 256, generator=g), tq, te)
     # CPU tensors take the plain versions, which launch nothing
     assert kernels.LAUNCHES == before
