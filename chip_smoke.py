@@ -45,7 +45,23 @@ it; exits non-zero without either, and on any failed phase. Phases:
    saved, erased and restored over HTTP (codes equal, scales within 1e-6)
    and a greedy continuation from it; then one context shift of a q4 lane
    on the card held to the CPU's shift of a copy of it;
-8. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
+8. the integer decode kernels and the measuring verbs at qwen3-4b width:
+   B15 (``tcq4_matmul_gx3``, ``RRS_GX3``) against its plain version at M = 1
+   and 4, B14 (``tcq4_matmul_gx``) against the integer oracle and bit-equal
+   to B1 on B1's codes, B16 (``tcq4_matmul_a8``) against the oracle at M = 1,
+   8 and 32, each timed beside its bound, its plain version and
+   ``torch.matmul`` on weights dequantized beforehand; ``generate`` without
+   and with ``RRS_GX3`` (B1 or B15 at all 144 TCQ4 decode linears of a step,
+   counted; decode profiles; greedy tokens compared, reported) and the bench
+   decode counted the same way; a teacher-forced decode step under the flag
+   with every launch held to its plain version and every B15 launch to B14
+   and B16 on its codes; ``compute_perplexity`` of a 2-layer dense model on
+   the card against the CPU, its two branches against each other and KL
+   against its own logits, and at qwen3-4b width through B4; then
+   ``bench`` (pp512 / tg64 without and with the flag, and over q8 KV),
+   ``batched-bench`` and ``perplexity`` on a GGUF, each run as a user runs
+   it, in its own process;
+9. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
    plain versions at gpt-oss shapes, timed beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
    at the three Q8 shapes and B3 / B6-B8 over a 640-slot ring with window
@@ -57,7 +73,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
    a teacher-forced 4-lane prefill chunk and decode step; one capacity-path
    prefill run twice, its logits held bit-equal;
-9. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9 and B10 against their
+10. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9 and B10 against their
    plain versions at its shapes, timed beside their bounds and
    ``torch.bmm`` / ``torch.matmul`` on experts dequantized beforehand; a
    2-layer qwen3moe model on the card against the same weights on the CPU,
@@ -69,7 +85,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    and held bit-equal, a decode profile and a run over q8 KV; the server (4
    slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
    4-lane prefill chunk and decode step;
-10. the ``{"kernels": [...]}`` line (thirteen kernels), the card's name and
+11. the ``{"kernels": [...]}`` line (sixteen kernels), the card's name and
    power limit, and the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -503,7 +519,8 @@ def phase_i8p(peaks, reports):
     torch.cuda.empty_cache()
 
 
-SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul": 1e-3, "tcq4_matmul_i8p": 1e-5,
+SMALL_TOL = {"tcq4_matmul_gx2": 1e-5, "tcq4_matmul_gx3": 1e-5, "tcq4_matmul": 1e-3,
+             "tcq4_matmul_i8p": 1e-5,
              "q8_matmul": 1e-3, "flash_attention": 8e-3, "flash_attention_q8": 8e-3,
              "flash_attention_q4hp": 8e-3, "flash_attention_q4": 8e-3, "mxfp4_matmul": 1e-3,
              "mxfp4_matmul_experts_rows": 1e-3, "mxfp4_matmul_all_experts": 1e-3,
@@ -538,6 +555,7 @@ def held_to_plain(label: str, expect):
               (moe, "tcq4_matmul_experts_rows", tm.tcq4_matmul_experts_rows_plain),
               (moe, "tcq4_matmul_all_experts", tm.tcq4_matmul_all_experts_plain),
               (tm, "tcq4_matmul_gx2", tm.tcq4_matmul_gx2_plain),
+              (tm, "tcq4_matmul_gx3", tm.tcq4_matmul_gx3_plain),
               (tm, "tcq4_matmul", tm.tcq4_matmul_plain),
               (tm, "tcq4_matmul_i8p", tm.tcq4_matmul_i8p_plain),
               (q8, "q8_matmul", q8.q8_matmul_plain),
@@ -825,7 +843,10 @@ def phase_main_path(reports):
 
 COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
             "q8": "q8_matmul", "fa": "flash_attention"}
+# the gx kernels share one template, gx2_kernel<M, prologue>: 0 gx, 1 gx2, 2 gx3
+GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmul",
+                "a8_kernel": "tcq4_matmul_a8",
                 "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
                 "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq",
                 "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
@@ -922,7 +943,7 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
         return
     by_name: dict = {}
     for e in kernels:
-        short = next((v for k, v in KERNEL_NAMES.items() if k in e.name), "other")
+        short = kernel_label(e.name)
         by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values()) / steps
     split = ", ".join(f"{k} {v / steps:.3f}" for k, v in sorted(by_name.items(),
@@ -932,6 +953,18 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
           f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / steps:.0f} kernels/step; "
           f"device ms/step by kernel: {split}", flush=True)
     print(f"  decode profile, host ms/step by op: {host_top(prof, steps)}", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "idle": 1 - dev_ms / wall_ms,
+            "kernels": len(kernels) / steps, "by_kernel": {k: v / steps for k, v in by_name.items()}}
+
+
+def kernel_label(name: str) -> str:
+    """The port kernel a profiler event belongs to, by its CUDA kernel name."""
+    import re
+
+    m = re.search(r"gx2_kernel<\d+, [^>]*?(\d)>", name)
+    if m:
+        return GX_PROLOGUES[m.group(1)]
+    return next((v for k, v in KERNEL_NAMES.items() if k in name), "other")
 
 
 def synthetic_vocab(n: int):
@@ -1495,6 +1528,400 @@ def phase_shift_q4(ctx):
     print(f"  context shift of a q4 lane on the card (keep 1, drop {n // 2} of {n}, "
           f"{dt * 1e3:.0f} ms): K within {worst:.3f} quantization steps of the CPU's, V codes "
           f"and scales equal", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The integer decode kernels (B14 gx, B15 gx3, B16 a8), the RRS_GX3 A/B and
+# the measuring verbs (bench, batched-bench, perplexity), at qwen3-4b width
+# ---------------------------------------------------------------------------
+
+# report key -> (kernel, source, TPU kernel it replaces)
+INT = {"gx3": ("tcq4_matmul_gx3", "rrs_tpu_torch/csrc/tcq4_gx2.cu",
+               "rrs_tpu/ops/tcq4_matmul.py:1394"),
+       "gx": ("tcq4_matmul_gx", "rrs_tpu_torch/csrc/tcq4_gx2.cu", "rrs_tpu/ops/tcq4_matmul.py:272"),
+       "a8": ("tcq4_matmul_a8", "rrs_tpu_torch/csrc/tcq4_a8.cu", "rrs_tpu/ops/tcq4_matmul.py:89")}
+INT_TOL = 1e-5          # the reference's limit for the integer kernels (tests/test_tcq4_matmul.py)
+# qwen3-4b's TCQ4 decode linears a step: 36 layers x (qkv, o, gate-up, down)
+QWEN3_4B_TCQ4_PER_STEP = 144
+
+
+def phase_parity_int(peaks, reports):
+    """B15 against its plain version at M = 1 and 4 (bf16 x, as the model
+    passes it), B14 against the integer oracle ``tcq4_matmul_ref`` and bit-equal
+    to B1 given B1's own codes, B16 against the oracle and its plain version
+    at M = 1, 8 and 32; each at the four qwen3-4b projections the route sends
+    to it, timed beside its bound, its plain version and ``torch.matmul`` on
+    weights dequantized to bf16 beforehand. Headline: M = 1 summed over the
+    projections, as B1's row."""
+    import torch
+
+    from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs, quantize_activations_rrs
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    bw, _, int8_peak = peaks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    for key, (name, source, replaces) in INT.items():
+        reports[key] = Report(name, source, replaces, "bytes")
+
+    def bound(nbytes, m, k, n):
+        t_bytes, t_ops = nbytes / bw * 1e3, 2 * m * k * n / int8_peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    for lname, (k, n) in QWEN3_4B_LINEARS.items():
+        wbytes = k // 2 * n + k // 32 * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        ws32 = [(q, e.float()) for q, e in ws[:n_copies(wbytes + k // 32 * n * 2)]]
+        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:2]]
+        for m in (1, 4):
+            if not tm.gx_viable(m, k, n):
+                continue
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            got = tm.tcq4_matmul_gx3(x, *ws[0])
+            err, rel = compare(f"gx3 {lname} M={m}", got, tm.tcq4_matmul_gx3_plain(x, *ws[0]),
+                               INT_TOL)
+            reports["gx3"].add({
+                "shape": f"{lname} M={m} K={k} N={n} bf16 x", "max_abs_err": err, "rel_err": rel,
+                "tol": INT_TOL, "ms": time_ms(tm.tcq4_matmul_gx3, [(x, q, e) for q, e in ws], 40),
+                "plain_ms": time_ms(tm.tcq4_matmul_gx3_plain, [(x, q, e) for q, e in ws[:2]], 5),
+                "library_ms": time_ms(torch.matmul, [(x, w) for w in wl], 40),
+                **bound(wbytes + m * k * 2 + m * n * 4, m, k, n)}, headline=(m == 1))
+            # B14 on B1's codes of the same (rotated) activations
+            a_rot = tm.fwht256(x)
+            a_q, a_s = quantize_activations_rrs(a_rot)
+            got = tm.tcq4_matmul_gx(a_q, a_s, *ws[0])
+            if not torch.equal(got, tm.tcq4_matmul_gx2(a_rot, *ws[0])):
+                raise AssertionError(f"gx {lname} M={m}: not bit-equal to gx2 on gx2's codes")
+            ref = tm.tcq4_matmul_ref(a_q, a_s, ws[0][0], ws[0][1].float())
+            err, rel = compare(f"gx {lname} M={m}", got.cpu(), ref, INT_TOL)
+            a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
+            reports["gx"].add({
+                "shape": f"{lname} M={m} K={k} N={n} (bit-equal to gx2)", "max_abs_err": err,
+                "rel_err": rel, "tol": INT_TOL,
+                "ms": time_ms(tm.tcq4_matmul_gx, [(a_q, a_s, q, e) for q, e in ws], 40),
+                "plain_ms": time_ms(tm.tcq4_matmul_gx_plain, [(a_q, a_s, q, e) for q, e in ws[:2]],
+                                    5),
+                "library_ms": time_ms(torch.matmul, [(a16, w) for w in wl], 40),
+                **bound(wbytes + m * k + m * (k // 256) * 4 + m * n * 4, m, k, n)},
+                headline=(m == 1))
+        for m in (1, 8, 32):
+            a_q = torch.randint(-7, 8, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            a_s = torch.rand((m, k // 256), generator=gen, device=dev) + 0.5
+            got = tm.tcq4_matmul_a8(a_q, a_s, *ws32[0])
+            compare(f"a8 {lname} M={m} vs plain", got, tm.tcq4_matmul_a8_plain(a_q, a_s, *ws32[0]),
+                    INT_TOL)
+            err, rel = compare(f"a8 {lname} M={m}", got.cpu(),
+                               tm.tcq4_matmul_ref(a_q, a_s, *ws32[0]), INT_TOL)
+            a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
+            reports["a8"].add({
+                "shape": f"{lname} M={m} K={k} N={n} f32 eff", "max_abs_err": err, "rel_err": rel,
+                "tol": INT_TOL,
+                "ms": time_ms(tm.tcq4_matmul_a8, [(a_q, a_s, q, e) for q, e in ws32], 20),
+                "plain_ms": time_ms(tm.tcq4_matmul_a8_plain, [(a_q, a_s, *ws32[0])], 3),
+                "library_ms": time_ms(torch.matmul, [(a16, w) for w in wl], 20),
+                **bound(k // 2 * n + k // 32 * n * 4 + m * k + m * (k // 256) * 4 + m * n * 4,
+                        m, k, n)}, headline=(m == 1))
+        del ws, ws32, wl
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def gx3_oracles(label: str):
+    """While open, every B15 launch is also held to the integer kernels on the
+    codes of the plain rotation (``fwht256`` + the activation quantizer):
+    B14 must give its output bit for bit (the same product on the same
+    codes), B16 within INT_TOL. It also counts the codes that differ from
+    those of B1's route (the f32 rotation matmul), which sums in another
+    order: the knife edge of ROADMAP queue C, reported. Yields the counts."""
+    import torch
+
+    from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
+    from rrs_tpu_torch.models.linear import rotate_activations
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    orig = tm.tcq4_matmul_gx3
+    held = {"n": 0, "a8_rel": 0.0, "flips": 0, "codes": 0}
+
+    def run(x, qs, eff):
+        out = orig(x, qs, eff)
+        a_q, a_s = quantize_activations_rrs(tm.fwht256(x))
+        if not torch.equal(tm.tcq4_matmul_gx(a_q, a_s, qs, eff), out):
+            raise AssertionError(f"{label}: B15 {tuple(x.shape)} differs from B14 on its codes")
+        _, rel = compare(f"{label}: B16 on B15's codes", tm.tcq4_matmul_a8(a_q, a_s, qs,
+                                                                          eff.float()), out,
+                         INT_TOL)
+        held["n"] += 1
+        held["a8_rel"] = max(held["a8_rel"], rel)
+        r_q, _ = quantize_activations_rrs(rotate_activations(x, None))
+        held["flips"] += int((r_q != a_q).sum())
+        held["codes"] += a_q.numel()
+        return out
+
+    tm.tcq4_matmul_gx3 = run
+    try:
+        yield held
+    finally:
+        tm.tcq4_matmul_gx3 = orig
+
+
+@contextlib.contextmanager
+def gx3_flag(on: bool):
+    import os
+
+    old = os.environ.get("RRS_GX3")
+    os.environ["RRS_GX3"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RRS_GX3")
+        else:
+            os.environ["RRS_GX3"] = old
+
+
+def phase_gx3_ab(cfg, weights, reports):
+    """``generate`` at qwen3-4b width (three greedy prompts of 5, 40 and 300
+    tokens, 32 new tokens each) without and with ``RRS_GX3``, the launch
+    counts set to 0 before each run: without the flag B1 takes all 144 TCQ4
+    decode linears of a step and B15 none, with it the reverse (the
+    fabricated weights carry no channel permutation). A decode profile of
+    each, the greedy tokens of the two runs compared (reported: the rotation
+    sums in another order, and an int4 code at a half-way point may flip);
+    the bench verb's own decode (``run_one``, tg16) counted the same way; then
+    one teacher-forced decode step under the flag with every launch held to
+    its plain version and every B15 launch to B14 and B16 on its codes."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.tools.bench_sweep import run_one
+
+    rng = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (5, 40, 300)]
+    outs, profiles = {}, {}
+    for on in (False, True):
+        tag = f"RRS_GX3={int(on)}"
+        with gx3_flag(on):
+            warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+            warm.generate(prompts[0], 2)
+            del warm
+            ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            outs[on] = [ctx.generate(p, 32) for p in prompts]
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            perf = ctx.perf()
+            steps = perf["n_eval"]
+            b1, b15 = launches["tcq4_matmul_gx2"], launches["tcq4_matmul_gx3"]
+            want = (0, QWEN3_4B_TCQ4_PER_STEP * steps) if on else \
+                (QWEN3_4B_TCQ4_PER_STEP * steps, 0)
+            if (b1, b15) != want:
+                raise AssertionError(f"generate {tag}: B1 / B15 launched {b1} / {b15} times over "
+                                     f"{steps} decode steps, expected {want}")
+            if on:
+                reports["gx3"].entry["launches"] = b15
+            print(f"  generate {tag}: prompts 5/40/300 x 32 new tokens; decode {steps} steps @ "
+                  f"{perf['tg_tok_per_s']:.2f} tok/s ({perf['t_eval_ms'] / steps:.3f} ms/token), "
+                  f"prefill {perf['pp_tok_per_s']:.1f} tok/s; B1 {b1 / steps:.0f} and B15 "
+                  f"{b15 / steps:.0f} launches a decode step; launches {launches}", flush=True)
+            profiles[on] = profile_decode(ctx, prompts[1], label=f"qwen3-4b {tag}")
+            del ctx
+            kernels.reset_launches()
+            row = run_one(cfg, weights, torch.device("cuda"), 1, "bf16", "bf16", 0, 16, 0, 1)
+            n15 = kernels.LAUNCHES["tcq4_matmul_gx3"] / 32          # warm-up + 1 rep of tg16
+            n1 = kernels.LAUNCHES["tcq4_matmul_gx2"] / 32
+            if (n1, n15) != ((0, QWEN3_4B_TCQ4_PER_STEP) if on else (QWEN3_4B_TCQ4_PER_STEP, 0)):
+                raise AssertionError(f"bench decode {tag}: B1 / B15 {n1} / {n15} a step")
+            print(f"  bench decode (run_one tg16) {tag}: {row['avg_ts']} tok/s, B1 {n1:.0f} and "
+                  f"B15 {n15:.0f} launches a step", flush=True)
+    same = [sum(a == b for a, b in zip(x, y)) for x, y in zip(outs[False], outs[True])]
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), len(x))
+             for x, y in zip(outs[False], outs[True])]
+    print(f"  greedy tokens with and without RRS_GX3 (reported, not required): equal at "
+          f"{same} of 32 positions; first difference at {first}", flush=True)
+    if all(profiles.values()):
+        a, b = profiles[False], profiles[True]
+        print(f"  RRS_GX3 A/B decode step: kernels {a['kernels']:.0f} -> {b['kernels']:.0f}, "
+              f"device {a['device_ms']:.3f} -> {b['device_ms']:.3f} ms, wall "
+              f"{a['wall_ms']:.3f} -> {b['wall_ms']:.3f} ms, idle share {a['idle']:.3f} -> "
+              f"{b['idle']:.3f}", flush=True)
+
+    with gx3_flag(True):
+        ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+        seq = ctx.new_sequence()
+        ctx.prefill(seq, prompts[1])
+        expect = {"tcq4_matmul_gx3", "q8_matmul", "flash_attention"}
+        with held_to_plain("gx3 decode step", expect) as seen, \
+                gx3_oracles("gx3 decode step") as held:
+            logits = ctx.decode({seq: 11})[seq]
+            torch.cuda.synchronize()
+        if not torch.isfinite(logits).all() or held["n"] != QWEN3_4B_TCQ4_PER_STEP:
+            raise AssertionError(f"gx3 decode step: {held['n']} B15 launches held")
+        print(f"  teacher-forced decode step with RRS_GX3=1: {held['n']} B15 launches, each "
+              f"within {seen['tcq4_matmul_gx3'][0]:.2e} of its plain version, bit-equal to B14 "
+              f"on its codes, and within {held['a8_rel']:.2e} of B16; shapes "
+              f"{sorted(seen['tcq4_matmul_gx3'][1])}; int4 codes that differ from the rotation "
+              f"matmul's (reported): {held['flips']} of {held['codes']}", flush=True)
+        reports["gx"].entry["held_launches"] = held["n"]
+        reports["a8"].entry["held_launches"] = held["n"]
+        del ctx
+
+
+def _verb(argv, env=None, timeout=600) -> str:
+    """Run ``python -m rrs_tpu_torch <argv>`` from the repository root as a
+    user does; fail on a non-zero exit. Returns its stdout."""
+    import os
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "rrs_tpu_torch", *argv],
+                       cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                       timeout=timeout, env={**os.environ, **(env or {})})
+    if r.returncode != 0:
+        raise AssertionError(f"rrs_tpu_torch {' '.join(argv)}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    print(f"  $ {' '.join(f'{k}={v}' for k, v in (env or {}).items())} python -m rrs_tpu_torch "
+          f"{' '.join(argv)}  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return r.stdout
+
+
+def phase_verbs(name: str):
+    """The measuring verbs as a user runs them, each its own process on the
+    card: ``bench`` at qwen3-4b (pp512 and tg64, two reps) without and with
+    RRS_GX3 and over a q8 cache, every jsonl row parsed and checked;
+    ``batched-bench`` at qwen3-4b (PP 128, TG 32, B 1 and 4; with the flag,
+    so that the 4-lane decode runs B15 at M = 4); ``perplexity`` on a 2-layer
+    GGUF written by the port's exporter."""
+    import math
+
+    from rrs_tpu_torch.tools.bench_sweep import FIELDS
+
+    for env, extra in (({}, []), ({"RRS_GX3": "1"}, []), ({}, ["--ctk", "q8_0"])):
+        out = _verb(["bench", "--preset", "qwen3-4b", "-p", "512", "-n", "64", "-r", "2", "-o",
+                     "jsonl", *extra], env)
+        rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+        if [(r["n_prompt"], r["n_gen"]) for r in rows] != [(512, 0), (0, 64)]:
+            raise AssertionError(f"bench rows: {rows}")
+        for r in rows:
+            if (list(r) != FIELDS or r["backends"] != "CUDA" or r["gpu_info"] != name
+                    or not (math.isfinite(r["avg_ts"]) and r["avg_ts"] > 0)):
+                raise AssertionError(f"bench row: {r}")
+            print(f"    {r['model_type']} {r['type_k']} {'pp' if r['n_prompt'] else 'tg'}"
+                  f"{r['n_prompt'] or r['n_gen']}: {r['avg_ts']} ± {r['stddev_ts']} tok/s "
+                  f"(avg {r['avg_ns'] / 1e6:.1f} ms)", flush=True)
+    out = _verb(["batched-bench", "--preset", "qwen3-4b", "--pp", "128", "--tg", "32", "--pl",
+                 "1", "4", "--json"], {"RRS_GX3": "1"})
+    rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    if [(r["PP"], r["TG"], r["B"]) for r in rows] != [(128, 32, 1), (128, 32, 4)] or \
+            not all(r["S_PP t/s"] > 0 and r["S_TG t/s"] > 0 for r in rows):
+        raise AssertionError(f"batched-bench rows: {rows}")
+    for r in rows:
+        print(f"    batched-bench {r}", flush=True)
+    from pathlib import Path
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models.export import export_random_gguf
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,
+                          head_dim=64, n_ff=512, vocab_size=256, context_length=512,
+                          qk_norm=True)
+        vocab = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(256)]
+        gguf = export_random_gguf(cfg, Path(tmp) / "tiny.gguf", seed=0, vocab_tokens=vocab)
+        text = Path(tmp) / "text.txt"
+        text.write_text("the quick brown fox jumps over the lazy dog; " * 12)
+        out = _verb(["perplexity", "-m", str(gguf), "-f", str(text), "--n-ctx", "128",
+                     "--max-chunks", "4"])
+        final = [line for line in out.splitlines() if line.startswith("Final PPL")]
+        ppl = float(final[0].split("=")[1].split()[0]) if final else float("nan")
+        if not (math.isfinite(ppl) and ppl > 1):
+            raise AssertionError(f"perplexity verb: {out[-500:]}")
+        print(f"    {final[0]}", flush=True)
+
+
+def phase_perplexity(cfg4b, weights4b):
+    """The evaluators in process. A 2-layer model with dense bf16 weights
+    (E=1024, 16/8 heads x 128, vocab 4096), on the card and on the CPU, over
+    512 random tokens in chunks of 256: the card's device-NLL perplexity
+    against the CPU's, within the bound that GLUE_TOL sets (a log-prob moves
+    by at most twice its row's largest logit move, so the mean NLL by at most
+    2 * GLUE_TOL * ||L||_F / sqrt(T) of the CPU's logits L); the card's
+    device-NLL branch against its host float64 branch (1e-5 a token); the
+    model's KL divergence against its own logits saved as f16 (as the verb
+    saves them), below 1e-4. Then qwen3-4b at full width with the i8p packs
+    dropped (the verb loads with RRS_PREFILL_I8=0): two 512-token chunks,
+    whose prefill must take B4 and not B5."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models.linear import TCQ4Linear
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.tools import perplexity as ppl
+
+    cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=8,
+                      head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
+                      rope_theta=1e6, qk_norm=True)
+    w_cpu = llama.random_weights(cfg, seed=3, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (512,), generator=torch.Generator().manual_seed(3)
+                           ).tolist()
+    card = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=256)
+    cpu = InferenceContext(cfg, w_cpu, max_seq=256, device="cpu")
+    got = ppl.compute_perplexity(card, tokens, n_ctx=256)
+    host = ppl.compute_perplexity(card, tokens, n_ctx=256, device_nll=False)
+    ref = ppl.compute_perplexity(cpu, tokens, n_ctx=256)
+    first = 128
+    rows = np.concatenate([ppl.host_logits(cpu, tokens[c * 256:(c + 1) * 256])[first:255]
+                           for c in range(2)])
+    limit = 2 * GLUE_TOL * float(np.linalg.norm(rows)) / math.sqrt(rows.shape[0])
+    d_mean = abs(got.nll_sum - ref.nll_sum) / ref.n_tokens
+    d_branch = abs(got.nll_sum - host.nll_sum) / got.n_tokens
+    if got.n_tokens != ref.n_tokens or d_mean > limit or d_branch > 1e-5:
+        raise AssertionError(f"perplexity: card {got.ppl:.4f} vs CPU {ref.ppl:.4f} (mean NLL "
+                             f"{d_mean:.2e} > {limit:.2e}?), host branch {host.ppl:.4f} "
+                             f"({d_branch:.2e} > 1e-5?)")
+    own = ppl.host_logits(card, tokens[:256]).astype(np.float16)
+    kl = ppl.kl_divergence(card, own, tokens[:256])
+    if kl["mean_kl"] > 1e-4 or kl["same_top_rate"] < 1.0:
+        raise AssertionError(f"KL against its own logits: {kl}")
+    print(f"  perplexity, 2-layer dense model: card {got.ppl:.4f} vs CPU {ref.ppl:.4f} over "
+          f"{got.n_tokens} tokens (mean NLL {d_mean:.2e} <= {limit:.2e}); host f64 branch "
+          f"{host.ppl:.4f} ({d_branch:.2e} a token <= 1e-5); KL against its own f16 logits "
+          f"mean {kl['mean_kl']:.2e} max {kl['max_kl']:.2e}, same top "
+          f"{kl['same_top_rate']:.2%}", flush=True)
+    del card, cpu
+
+    layers = [dataclasses.replace(lw, **{f: dataclasses.replace(getattr(lw, f), i8p=None)
+                                         for f in ("wqkv", "wo", "w_gateup", "w_down")
+                                         if isinstance(getattr(lw, f), TCQ4Linear)})
+              for lw in weights4b.layers]
+    ctx = InferenceContext(cfg4b, dataclasses.replace(weights4b, layers=layers), max_seq=512)
+    toks = torch.randint(0, cfg4b.vocab_size, (1024,), generator=torch.Generator().manual_seed(4)
+                         ).tolist()
+    ppl.compute_perplexity(ctx, toks[:512], n_ctx=512)                 # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = ppl.compute_perplexity(ctx, toks, n_ctx=512)
+    dt = time.perf_counter() - t0
+    n4, n5 = kernels.LAUNCHES["tcq4_matmul"], kernels.LAUNCHES["tcq4_matmul_i8p"]
+    if not math.isfinite(res.ppl) or n4 == 0 or n5 != 0:
+        raise AssertionError(f"qwen3-4b perplexity: ppl {res.ppl}, B4 {n4}, B5 {n5} launches")
+    print(f"  perplexity at qwen3-4b width without packs: PPL {res.ppl:.1f} (random weights) "
+          f"over {res.n_tokens} scored tokens of 2 x 512, {1024 / dt:.0f} tok/s; B4 {n4} and B5 "
+          f"{n5} launches", flush=True)
+    del ctx
 
 
 # ---------------------------------------------------------------------------
@@ -2440,6 +2867,14 @@ def phase_serving_qwen3moe(cfg, weights, reports):
     return ctx
 
 
+T_START = time.perf_counter()
+
+
+def header(text: str) -> None:
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2456,49 +2891,61 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    print("[1/10] build", flush=True)
+    header("[1/11] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[2/10] kernel parity at the qwen3-4b main-path shapes", flush=True)
+    header("[2/11] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    print("[3/10] main path: small-model references, the q4 halves path, then generate at "
-          "qwen3-4b width over bf16, q8 and q4 KV", flush=True)
+    header("[3/11] main path: small-model references, the q4 halves path, then generate at "
+           "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    print("[4/10] serving at qwen3-4b width, 4 slots, ctx 4096", flush=True)
+    header("[4/11] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    print("[5/10] served steps held to the plain versions; device decode run against "
-          "step-by-step decode", flush=True)
+    header("[5/11] served steps held to the plain versions; device decode run against "
+           "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    print("[6/10] served steps over q8 and q4 KV, stores held to the CPU's", flush=True)
+    header("[6/11] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    print("[7/10] serving with --cache-type q4: slot save / erase / restore, context shift",
-          flush=True)
+    header("[7/11] serving with --cache-type q4: slot save / erase / restore, context shift")
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
-    del ctx, weights
+    del ctx
     gc.collect()                        # engine threads and servers hold reference cycles
+    torch.cuda.empty_cache()
+
+    header("[8/11] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+           "(bench, batched-bench, perplexity) at qwen3-4b width")
+    t8 = time.perf_counter()
+    phase_parity_int(peaks, reports)
+    phase_gx3_ab(cfg, weights, reports)
+    phase_perplexity(cfg, weights)
+    torch.cuda.empty_cache()
+    phase_verbs(name)
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
+    del weights
+    gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    print("[8/10] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
-          "serving and held served steps", flush=True)
+    header("[9/11] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
+           "serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
     cfg, weights = phase_gptoss_generate(reports)
@@ -2510,8 +2957,8 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    print("[9/10] Qwen3-30B-A3B: TCQ4 expert kernel parity, a 2-layer model against the CPU, "
-          "generate, serving and held served steps", flush=True)
+    header("[10/11] Qwen3-30B-A3B: TCQ4 expert kernel parity, a 2-layer model against the CPU, "
+           "generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
     cfg, weights = phase_qwen3moe_generate(reports)
@@ -2521,9 +2968,9 @@ def main() -> int:
                        "tcq4_matmul_experts_rows"})
     del ctx, weights
 
-    print("[10/10] summary", flush=True)
+    header("[11/11] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
-             "mx_mm", "mx_rows", "mx_all")
+             "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

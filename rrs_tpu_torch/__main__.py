@@ -1,15 +1,17 @@
-"""CLI: ``python -m rrs_tpu_torch generate|serve|chat -m model.gguf``.
+"""CLI: ``python -m rrs_tpu_torch <verb>``.
 
-The ``generate``, ``serve`` and ``chat`` verbs of ``rrs_tpu/__main__.py``
-with the same flags, plus ``--device`` (default ``cuda``; ``cpu`` must be
-asked for). Flags whose feature is not ported yet (speculative and lookup
-decoding, multimodal projectors, the multi-model router, tensor / data
-parallelism) raise NotImplementedError when set.
+The ``generate``, ``serve``, ``chat``, ``bench``, ``batched-bench`` and
+``perplexity`` verbs of ``rrs_tpu/__main__.py`` with the same flags, plus
+``--device`` (default ``cuda``; ``cpu`` must be asked for). Flags whose
+feature is not ported yet (speculative and lookup decoding, multimodal
+projectors, the multi-model router, tensor / data / pipeline parallelism)
+raise NotImplementedError when set.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -37,11 +39,7 @@ def main(argv=None):
     g.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                    help="override a GGUF metadata KV (repeatable; "
                         "TYPE in int/float/bool/str)")
-    g.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
-    g.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
-    g.add_argument("--dist-coordinator", default=None, help="(not ported)")
-    g.add_argument("--dist-procs", type=int, default=None, help="(not ported)")
-    g.add_argument("--dist-id", type=int, default=None, help="(not ported)")
+    _parallel_args(g)
     _device_arg(g)
 
     s = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
@@ -62,11 +60,7 @@ def main(argv=None):
                    help="override a GGUF metadata KV (repeatable)")
     s.add_argument("--slot-save-path", default=None,
                    help="base dir for /slots save/restore")
-    s.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
-    s.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
-    s.add_argument("--dist-coordinator", default=None, help="(not ported)")
-    s.add_argument("--dist-procs", type=int, default=None, help="(not ported)")
-    s.add_argument("--dist-id", type=int, default=None, help="(not ported)")
+    _parallel_args(s)
     _device_arg(s)
 
     ch = sub.add_parser("chat", help="interactive chat REPL on the serving engine")
@@ -82,6 +76,65 @@ def main(argv=None):
                     help="KV cache quantization")
     _device_arg(ch)
 
+    pp = sub.add_parser("perplexity", help="windowed NLL perplexity on a text file")
+    pp.add_argument("--model", "-m", required=True)
+    pp.add_argument("--file", "-f", default=None)
+    pp.add_argument("--n-ctx", type=int, default=512)
+    pp.add_argument("--max-chunks", type=int, default=0)
+    pp.add_argument("--hellaswag", default=None, metavar="FILE",
+                    help="HellaSwag datafile (6 lines a task)")
+    pp.add_argument("--hellaswag-tasks", type=int, default=400)
+    pp.add_argument("--winogrande", default=None, metavar="CSV",
+                    help="Winogrande CSV (index,sentence,choice1,choice2,answer)")
+    pp.add_argument("--winogrande-tasks", type=int, default=0)
+    pp.add_argument("--multiple-choice", default=None, metavar="JSON",
+                    help="JSON file of {prompt, choices, answer} tasks, or the "
+                         "reference's .bin task format")
+    pp.add_argument("--kl-divergence-base", default=None, metavar="NPZ",
+                    help=".npz with 'tokens' + 'logits' from a base model; prints "
+                         "KL(base||model) stats")
+    pp.add_argument("--save-logits", default=None, metavar="NPZ",
+                    help="save this model's tokens + logits for a later "
+                         "--kl-divergence-base comparison")
+    pp.add_argument("--pp", type=int, default=1, metavar="N",
+                    help="pipeline parallelism (not ported)")
+    pp.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
+                    help="override a GGUF metadata KV (repeatable)")
+    pp.add_argument("--pp-micro", type=int, default=2, metavar="M",
+                    help="microbatches per pipeline dispatch (not ported)")
+    _device_arg(pp)
+
+    b = sub.add_parser("bench", help="pp/tg throughput sweeps")
+    b.add_argument("--model", "-m", nargs="*", default=None)
+    b.add_argument("--preset", nargs="*", default=["qwen3-4b"])
+    b.add_argument("--pp", "-p", type=int, nargs="*", default=[512])
+    b.add_argument("--tg", "-n", type=int, nargs="*", default=[128])
+    b.add_argument("--pg", nargs="*", default=[], metavar="PP,TG",
+                   help="combined prefill+decode tests, e.g. 512,128")
+    b.add_argument("--depth", "-d", type=int, nargs="*", default=[0],
+                   help="prior KV depth for each test")
+    b.add_argument("--batch", "-b", type=int, nargs="*", default=[1],
+                   help="parallel decode lanes")
+    b.add_argument("--ctk", nargs="*", default=["bf16"],
+                   choices=["bf16", "f16", "q8_0", "q4_0"], help="KV cache K type(s)")
+    b.add_argument("--ctv", default=None, choices=["bf16", "f16", "q8_0", "q4_0"],
+                   help="KV cache V type (default: same as --ctk)")
+    b.add_argument("--reps", "-r", type=int, default=3)
+    b.add_argument("--output-format", "-o", default="md",
+                   choices=["md", "csv", "json", "jsonl", "sql"])
+    b.add_argument("--json", action="store_true", help="shorthand for -o jsonl")
+    _parallel_args(b)
+    _device_arg(b)
+
+    bb = sub.add_parser("batched-bench", help="parallel decode throughput grid")
+    bb.add_argument("--model", "-m", default=None)
+    bb.add_argument("--preset", default="qwen3-0.6b")
+    bb.add_argument("--pp", type=int, nargs="*", default=[128, 512])
+    bb.add_argument("--tg", type=int, nargs="*", default=[128])
+    bb.add_argument("--pl", type=int, nargs="*", default=[1, 4, 8])
+    bb.add_argument("--json", action="store_true")
+    _device_arg(bb)
+
     args = p.parse_args(argv)
     _refuse_unported(args)
     if args.cmd == "generate":
@@ -92,11 +145,31 @@ def main(argv=None):
         serve(args)
     elif args.cmd == "chat":
         cmd_chat(args)
+    elif args.cmd == "perplexity":
+        # quality evals take the exact quantized matmuls (the i8p prefill
+        # pack trades ~0.3% weight requantization error for speed)
+        os.environ.setdefault("RRS_PREFILL_I8", "0")
+        cmd_perplexity(args)
+    elif args.cmd == "bench":
+        from rrs_tpu_torch.tools.bench_sweep import run
+
+        run(args)
+    elif args.cmd == "batched-bench":
+        cmd_batched_bench(args)
 
 
 def _device_arg(parser) -> None:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the model runs (default cuda; no silent CPU fallback)")
+
+
+def _parallel_args(parser) -> None:
+    """The JAX package's mesh and multi-host flags, which wait for ROADMAP A12."""
+    parser.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
+    parser.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
+    parser.add_argument("--dist-coordinator", default=None, help="(not ported)")
+    parser.add_argument("--dist-procs", type=int, default=None, help="(not ported)")
+    parser.add_argument("--dist-id", type=int, default=None, help="(not ported)")
 
 
 def _refuse_unported(args) -> None:
@@ -111,6 +184,7 @@ def _refuse_unported(args) -> None:
         "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
         "--dist-* (ROADMAP A12)": any(get(k) is not None
                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
+        "perplexity --pp > 1 (ROADMAP A12)": get("cmd") == "perplexity" and get("pp", 1) > 1,
     }
     bad = [k for k, on in unported.items() if on]
     if bad:
@@ -137,6 +211,87 @@ def cmd_generate(args):
     perf = ctx.perf()
     print(f"perf: prompt {perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s | "
           f"gen {perf['n_eval']} tok @ {perf['tg_tok_per_s']:.1f} tok/s", file=sys.stderr)
+
+
+def cmd_perplexity(args):
+    """Perplexity of a text file, or KL divergence against saved logits, or
+    multiple-choice accuracy (HellaSwag, Winogrande, JSON / .bin tasks); the
+    output lines of the JAX verb."""
+    import json
+
+    import numpy as np
+
+    from rrs_tpu_torch.models.loader import load_model, parse_kv_overrides
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.tools import perplexity as ppl
+
+    cfg, weights, md = load_model(args.model, device=args.device,
+                                  overrides=parse_kv_overrides(args.override_kv))
+    vocab = Vocab.from_gguf(md)
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.n_ctx, device=args.device)
+    if args.hellaswag:
+        with open(args.hellaswag, encoding="utf-8") as f:
+            tasks = ppl.load_hellaswag(f.read())
+        acc = ppl.hellaswag_score(ctx, vocab, tasks, n_tasks=args.hellaswag_tasks, progress=True)
+        n = min(args.hellaswag_tasks or len(tasks), len(tasks))
+        print(f"hellaswag acc_norm = {100 * acc:.4f}% over {n} tasks")
+        return
+    if args.winogrande:
+        with open(args.winogrande, encoding="utf-8") as f:
+            tasks = ppl.load_winogrande(f.read())
+        acc = ppl.winogrande_score(ctx, vocab, tasks, n_tasks=args.winogrande_tasks,
+                                   progress=True)
+        n = min(args.winogrande_tasks or len(tasks), len(tasks))
+        print(f"winogrande accuracy = {100 * acc:.4f}% over {n} tasks")
+        return
+    if args.multiple_choice:
+        if args.multiple_choice.endswith(".bin"):
+            with open(args.multiple_choice, "rb") as f:
+                tasks = ppl.load_multiple_choice_bin(f.read())
+        else:
+            with open(args.multiple_choice, encoding="utf-8") as f:
+                tasks = json.load(f)
+        acc, _ = ppl.multiple_choice_score(ctx, vocab, tasks)
+        print(f"multiple-choice accuracy = {acc:.4f} over {len(tasks)} tasks")
+        return
+    if args.kl_divergence_base:
+        z = np.load(args.kl_divergence_base)
+        r = ppl.kl_divergence(ctx, z["logits"], [int(t) for t in z["tokens"]])
+        print(f"KL(base||model): mean={r['mean_kl']:.6f} max={r['max_kl']:.4f} "
+              f"same_top={r['same_top_rate']:.2%} over {r['n_pos']} positions")
+        return
+    if not args.file:
+        raise SystemExit("need --file, --multiple-choice, or --kl-divergence-base")
+    with open(args.file, encoding="utf-8") as f:
+        tokens = vocab.encode(f.read(), add_special=False)
+    if args.max_chunks:
+        tokens = tokens[: args.max_chunks * args.n_ctx]
+    if args.save_logits:
+        toks = tokens[: args.n_ctx]
+        logits = ppl.host_logits(ctx, toks)
+        np.savez_compressed(args.save_logits, tokens=np.asarray(toks),
+                            logits=logits.astype(np.float16))
+        print(f"saved {logits.shape} logits -> {args.save_logits}")
+        return
+    res = ppl.compute_perplexity(ctx, tokens, n_ctx=args.n_ctx, progress=True)
+    print(f"Final PPL = {res.ppl:.4f} over {res.n_tokens} tokens")
+
+
+def cmd_batched_bench(args):
+    from rrs_tpu_torch.tools.batched_bench import run_batched_bench
+
+    if args.model:
+        from rrs_tpu_torch.models.loader import load_model
+
+        cfg, weights, _ = load_model(args.model, device=args.device)
+    else:
+        from rrs_tpu_torch.models import llama
+        from rrs_tpu_torch.models.config import PRESETS
+
+        cfg = PRESETS[args.preset]
+        weights = llama.fabricated_tcq4_weights(cfg, seed=0, device=args.device)
+    run_batched_bench(cfg, weights, args.pp, args.tg, args.pl, as_json=args.json)
 
 
 def cmd_chat(args, read_line=input):

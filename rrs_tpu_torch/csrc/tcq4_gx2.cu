@@ -1,11 +1,17 @@
-// W4A4 decode matmul with the activation quantization fused into the
-// prologue.
+// W4A4 decode matmuls over int8 group dots: the pre-quantized one (gx), the
+// one with the activation quantization fused into its prologue (gx2), and the
+// one that also fuses the 256-point Walsh-Hadamard rotation (gx3). The three
+// share one body and differ only in the prologue that fills shared memory
+// with the int4 activation codes and their per-superblock scales.
 //
 // Replaces rrs_tpu/ops/tcq4_matmul.py:1262 tcq4_matmul_gx2 (_kernel_gx2 at
-// :1194). C[m, n] = sum over 32-groups g of
+// :1194), :272 tcq4_matmul_gx (_kernel_gx at :160) and :1394
+// tcq4_matmul_gx3 (_kernel_gx3 at :1332). C[m, n] = sum over 32-groups g of
 //     (dot32(q_a[m, g], w_q[g, n]) * (amax[m, sb] / 7)) * eff[g, n]
-// where q_a = clip(rint(a_rot * (7 / amax)), -7, 7) per 256-block, exactly
-// as quantize_activations_rrs computes it; the group dots are int32-exact.
+// where, for gx2, q_a = clip(rint(a_rot * (7 / amax)), -7, 7) per 256-block,
+// exactly as quantize_activations_rrs computes it; gx3 first rotates the raw
+// activations, x_rot = FWHT256(x) / 16; gx takes q_a and amax as given. The
+// group dots are int32-exact.
 //
 // Bound on the H100: bytes. At M = 1 each weight byte feeds two int8 MACs,
 // far below the card's ops/byte balance, so the time is the qs
@@ -21,6 +27,17 @@
 // reduce by warp shuffles and then through shared memory. A thin N tile keeps
 // enough blocks in flight for the fat-K, thin-N projections (o, down);
 // split-K, wider loads and dp4a are left for a later change.
+//
+// gx3's rotation: the quantizing prologue already gives one warp per (row,
+// superblock) with 8 consecutive elements per lane, which is the layout of a
+// 256-point butterfly: stages h = 1, 2, 4 run inside the lane's registers and
+// h = 8 ... 128 exchange with lane ^ (h / 8) by __shfl_xor_sync (the lower
+// index keeps a + b, the upper a - b), then the result is scaled by 1/16,
+// which is exact. That is the Sylvester (natural) order of
+// formats/fwht.py hadamard_matrix, about 2k adds per (row, superblock) in
+// place of JAX's in-kernel 256 x 256 dot. The epilogue uses explicit
+// round-to-nearest products and sums, so that every instantiation rounds
+// alike and gx is bit-equal to gx2 given gx2's own codes.
 
 #include "common.cuh"
 
@@ -31,6 +48,9 @@ constexpr int kColThreads = 8;                       // threads across the N til
 constexpr int kBN = kColThreads * 4;                 // 32 columns per block
 constexpr int kSlices = kThreads / kColThreads;      // 32 K-slices
 constexpr int kWarps = kThreads / 32;
+
+// The prologue: what fills aq / ascale in shared memory.
+enum Prologue { kGiven = 0, kQuantize = 1, kRotateQuantize = 2 };
 
 struct Layout {
   size_t scale_off, red_off, bytes;
@@ -44,41 +64,121 @@ inline Layout layout(int M, int K) {
   return l;
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
-gx2_kernel(const float* __restrict__ a, const uint8_t* __restrict__ qs,
-           const __nv_bfloat16* __restrict__ eff, float* __restrict__ out,
-           int K, int N, int scale_off, int red_off) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* aq = reinterpret_cast<int8_t*>(smem);                    // [M][K]
-  float* ascale = reinterpret_cast<float*>(smem + scale_off);      // [M][nsb]
-  float* red = reinterpret_cast<float*>(smem + red_off);           // [warps][M][kBN]
+struct Args {
+  const void* a;           // f32 / bf16 activations [M, K], or int8 codes (kGiven)
+  const float* a_scale;    // kGiven: f32 [M, K/256] per-block absmax
+  const uint8_t* qs;       // [K/2, N]
+  const void* eff;         // bf16 or f32 [K/32, N]
+  float* out;              // f32 [M, N]
+  int K, N, scale_off, red_off;
+  int x_bf16, eff_f32;
+};
 
+// Quantize one lane's 8 rotated values of a (row, superblock) and store the
+// codes and the block's scale amax / 7.
+__device__ __forceinline__ void quantize8(float (&x)[8], int8_t* dst, float* scale, int lane) {
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(x[i]));
+  amax = rrs::warp_max(amax);
+  if (amax < 1e-10f) amax = 1.0f;
+  const float rec = 7.0f / amax;                     // a true division
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float q = fminf(fmaxf(rintf(__fmul_rn(x[i], rec)), -7.0f), 7.0f);
+    dst[i] = static_cast<int8_t>(q);
+  }
+  if (lane == 0) *scale = __fmul_rn(amax, 1.0f / 7.0f);
+}
+
+// In-place natural-order 256-point Walsh-Hadamard transform over a warp, 8
+// consecutive elements per lane, scaled by 1/16.
+__device__ __forceinline__ void fwht256(float (&x)[8], int lane) {
+#pragma unroll
+  for (int h = 1; h < 8; h <<= 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i & h) continue;
+      const float a = x[i], b = x[i + h];
+      x[i] = __fadd_rn(a, b);
+      x[i + h] = __fsub_rn(a, b);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) {
+    const bool upper = lane & m;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float other = __shfl_xor_sync(0xffffffffu, x[i], m);
+      x[i] = upper ? __fsub_rn(other, x[i]) : __fadd_rn(x[i], other);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = __fmul_rn(x[i], 0.0625f);
+}
+
+__device__ __forceinline__ void load8(const Args& p, int m, int sb, int lane, float (&x)[8]) {
+  const size_t off = static_cast<size_t>(m) * p.K + sb * 256 + lane * 8;
+  if (p.x_bf16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(p.a) + off);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(h[i]);
+  } else {
+    const float* src = static_cast<const float*>(p.a) + off;
+    const float4 x0 = *reinterpret_cast<const float4*>(src);
+    const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
+    x[0] = x0.x; x[1] = x0.y; x[2] = x0.z; x[3] = x0.w;
+    x[4] = x1.x; x[5] = x1.y; x[6] = x1.z; x[7] = x1.w;
+  }
+}
+
+__device__ __forceinline__ void load_eff(const Args& p, int g, int col0, float (&e)[4]) {
+  const size_t off = static_cast<size_t>(g) * p.N + col0;
+  if (p.eff_f32) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(p.eff) + off));
+    e[0] = v.x; e[1] = v.y; e[2] = v.z; e[3] = v.w;
+  } else {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(p.eff) + off));
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e[c] = __bfloat162float(h[c]);
+  }
+}
+
+template <int M, int Pro>
+__global__ void __launch_bounds__(kThreads)
+gx2_kernel(const Args p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* aq = reinterpret_cast<int8_t*>(smem);                      // [M][K]
+  float* ascale = reinterpret_cast<float*>(smem + p.scale_off);      // [M][nsb], amax / 7
+  float* red = reinterpret_cast<float*>(smem + p.red_off);           // [warps][M][kBN]
+
+  const int K = p.K, N = p.N;
   const int nsb = K / 256;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  // Prologue: per (row, superblock) absmax int4 quantization, one warp each.
-  for (int p = warp; p < M * nsb; p += kWarps) {
-    const int m = p / nsb, sb = p - m * nsb;
-    const float* src = a + static_cast<size_t>(m) * K + sb * 256 + lane * 8;
-    const float4 x0 = *reinterpret_cast<const float4*>(src);
-    const float4 x1 = *reinterpret_cast<const float4*>(src + 4);
-    float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    float amax = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(x[i]));
-    amax = rrs::warp_max(amax);
-    if (amax < 1e-10f) amax = 1.0f;
-    const float rec = 7.0f / amax;
-    int8_t* dst = aq + static_cast<size_t>(m) * K + sb * 256 + lane * 8;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float q = fminf(fmaxf(rintf(x[i] * rec), -7.0f), 7.0f);
-      dst[i] = static_cast<int8_t>(q);
+  if (Pro == kGiven) {
+    // the codes as given (16 bytes a thread per step) and amax / 7
+    const uint4* src = static_cast<const uint4*>(p.a);
+    for (int c = tid; c < M * K / 16; c += kThreads)
+      reinterpret_cast<uint4*>(aq)[c] = src[c];
+    for (int c = tid; c < M * nsb; c += kThreads)
+      ascale[c] = __fmul_rn(p.a_scale[c], 1.0f / 7.0f);
+  } else {
+    // per (row, superblock) absmax int4 quantization, one warp each
+    for (int q = warp; q < M * nsb; q += kWarps) {
+      const int m = q / nsb, sb = q - m * nsb;
+      float x[8];
+      load8(p, m, sb, lane, x);
+      if (Pro == kRotateQuantize) fwht256(x, lane);
+      quantize8(x, aq + static_cast<size_t>(m) * K + sb * 256 + lane * 8,
+                ascale + m * nsb + sb, lane);
     }
-    if (lane == 0) ascale[m * nsb + sb] = amax * (1.0f / 7.0f);
   }
   __syncthreads();
 
@@ -100,7 +200,7 @@ gx2_kernel(const float* __restrict__ a, const uint8_t* __restrict__ qs,
       for (int m = 0; m < M; ++m)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc_lo[m][c] = acc_hi[m][c] = 0;
-      const uint8_t* wrow = qs + static_cast<size_t>(sb * 128 + qq * 32) * N + col0;
+      const uint8_t* wrow = p.qs + static_cast<size_t>(sb * 128 + qq * 32) * N + col0;
       const int8_t* arow = aq + sb * 256 + qq * 32;
 #pragma unroll 8
       for (int r = 0; r < 32; ++r) {
@@ -123,23 +223,18 @@ gx2_kernel(const float* __restrict__ a, const uint8_t* __restrict__ qs,
         }
       }
       const int g_lo = sb * 8 + qq, g_hi = g_lo + 4;
-      const uint2 elo_raw = __ldg(reinterpret_cast<const uint2*>(eff + static_cast<size_t>(g_lo) * N + col0));
-      const uint2 ehi_raw = __ldg(reinterpret_cast<const uint2*>(eff + static_cast<size_t>(g_hi) * N + col0));
-      const __nv_bfloat16* elo_h = reinterpret_cast<const __nv_bfloat16*>(&elo_raw);
-      const __nv_bfloat16* ehi_h = reinterpret_cast<const __nv_bfloat16*>(&ehi_raw);
       float elo[4], ehi[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        elo[c] = __bfloat162float(elo_h[c]);
-        ehi[c] = __bfloat162float(ehi_h[c]);
-      }
+      load_eff(p, g_lo, col0, elo);
+      load_eff(p, g_hi, col0, ehi);
 #pragma unroll
       for (int m = 0; m < M; ++m) {
         const float s = ascale[m * nsb + sb];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          y[m][c] += (static_cast<float>(acc_lo[m][c]) * s) * elo[c];
-          y[m][c] += (static_cast<float>(acc_hi[m][c]) * s) * ehi[c];
+          y[m][c] = __fadd_rn(y[m][c], __fmul_rn(__fmul_rn(static_cast<float>(acc_lo[m][c]), s),
+                                                 elo[c]));
+          y[m][c] = __fadd_rn(y[m][c], __fmul_rn(__fmul_rn(static_cast<float>(acc_hi[m][c]), s),
+                                                 ehi[c]));
         }
       }
     }
@@ -170,39 +265,62 @@ gx2_kernel(const float* __restrict__ a, const uint8_t* __restrict__ qs,
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[(w * M + m) * kBN + col];
-    out[static_cast<size_t>(m) * N + gc] = s;
+    p.out[static_cast<size_t>(m) * N + gc] = s;
   }
 }
 
-template <int M>
-int launch(const float* a, const uint8_t* qs, const __nv_bfloat16* eff, float* out,
-           int K, int N, cudaStream_t stream) {
-  const Layout l = layout(M, K);
+template <int M, int Pro>
+int launch(Args p, cudaStream_t stream) {
+  const Layout l = layout(M, p.K);
   if (l.bytes > 48 * 1024) return rrs::kBadArgs;
-  const dim3 grid((N + kBN - 1) / kBN);
-  gx2_kernel<M><<<grid, kThreads, l.bytes, stream>>>(
-      a, qs, eff, out, K, N, static_cast<int>(l.scale_off), static_cast<int>(l.red_off));
+  p.scale_off = static_cast<int>(l.scale_off);
+  p.red_off = static_cast<int>(l.red_off);
+  const dim3 grid((p.N + kBN - 1) / kBN);
+  gx2_kernel<M, Pro><<<grid, kThreads, l.bytes, stream>>>(p);
   return rrs::status();
 }
 
+template <int Pro>
+int dispatch(const Args& p, int M, cudaStream_t s) {
+  switch (M) {
+    case 1: return launch<1, Pro>(p, s);
+    case 2: return launch<2, Pro>(p, s);
+    case 3: return launch<3, Pro>(p, s);
+    case 4: return launch<4, Pro>(p, s);
+    case 5: return launch<5, Pro>(p, s);
+    case 6: return launch<6, Pro>(p, s);
+    case 7: return launch<7, Pro>(p, s);
+    default: return launch<8, Pro>(p, s);
+  }
+}
+
+bool bad_shape(int M, int K, int N) { return K % 256 != 0 || N % 4 != 0 || M < 1 || M > 8; }
+
 }  // namespace
 
+// gx2 (B1): f32 rotated activations, bf16 eff.
 RRS_EXPORT int rrs_tcq4_gx2(const void* a, const void* qs, const void* eff, void* out,
                             int M, int K, int N, void* stream) {
-  if (K % 256 != 0 || N % 4 != 0 || M < 1 || M > 8) return rrs::kBadArgs;
-  const float* ap = static_cast<const float*>(a);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(eff);
-  float* op = static_cast<float*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1: return launch<1>(ap, qp, ep, op, K, N, s);
-    case 2: return launch<2>(ap, qp, ep, op, K, N, s);
-    case 3: return launch<3>(ap, qp, ep, op, K, N, s);
-    case 4: return launch<4>(ap, qp, ep, op, K, N, s);
-    case 5: return launch<5>(ap, qp, ep, op, K, N, s);
-    case 6: return launch<6>(ap, qp, ep, op, K, N, s);
-    case 7: return launch<7>(ap, qp, ep, op, K, N, s);
-    default: return launch<8>(ap, qp, ep, op, K, N, s);
-  }
+  if (bad_shape(M, K, N)) return rrs::kBadArgs;
+  const Args p{a, nullptr, static_cast<const uint8_t*>(qs), eff, static_cast<float*>(out),
+               K, N, 0, 0, 0, 0};
+  return dispatch<kQuantize>(p, M, static_cast<cudaStream_t>(stream));
+}
+
+// gx (B14): int8 codes and f32 per-block absmax as given; bf16 or f32 eff.
+RRS_EXPORT int rrs_tcq4_gx(const void* a_q, const void* a_scale, const void* qs, const void* eff,
+                           int eff_f32, void* out, int M, int K, int N, void* stream) {
+  if (bad_shape(M, K, N)) return rrs::kBadArgs;
+  const Args p{a_q, static_cast<const float*>(a_scale), static_cast<const uint8_t*>(qs), eff,
+               static_cast<float*>(out), K, N, 0, 0, 0, eff_f32 ? 1 : 0};
+  return dispatch<kGiven>(p, M, static_cast<cudaStream_t>(stream));
+}
+
+// gx3 (B15): f32 or bf16 unrotated activations, bf16 eff.
+RRS_EXPORT int rrs_tcq4_gx3(const void* x, int x_bf16, const void* qs, const void* eff, void* out,
+                            int M, int K, int N, void* stream) {
+  if (bad_shape(M, K, N)) return rrs::kBadArgs;
+  const Args p{x, nullptr, static_cast<const uint8_t*>(qs), eff, static_cast<float*>(out),
+               K, N, 0, 0, x_bf16 ? 1 : 0, 0};
+  return dispatch<kRotateQuantize>(p, M, static_cast<cudaStream_t>(stream));
 }

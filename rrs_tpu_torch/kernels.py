@@ -33,6 +33,9 @@ _F = ctypes.c_float
 # C entry points and their argument types (see the matching csrc/*.cu).
 SIGNATURES = {
     "rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_gx": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
@@ -54,7 +57,8 @@ LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul
                             "flash_attention_q4hp": 0, "flash_attention_q4": 0,
                             "mxfp4_matmul": 0, "mxfp4_matmul_experts_rows": 0,
                             "mxfp4_matmul_all_experts": 0, "tcq4_matmul_experts_rows": 0,
-                            "tcq4_matmul_all_experts": 0}
+                            "tcq4_matmul_all_experts": 0, "tcq4_matmul_gx": 0,
+                            "tcq4_matmul_gx3": 0, "tcq4_matmul_a8": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

@@ -10,6 +10,11 @@ A TCQ4 linear carries the int8-superblock prefill pack (``i8p``) unless
 ``tcq4_matmul_i8p``. JAX's route skips that kernel in interpret mode, so its
 CPU forward never takes it; the port follows the production rule on every
 device, and its CPU tests hold the i8p route to JAX at the kernel level.
+
+``RRS_GX3`` (read at call time, default off, as in the JAX package) sends a
+decode-sized TCQ4 linear without a channel permutation to ``tcq4_matmul_gx3``,
+which rotates and quantizes inside the kernel. JAX never takes gx3 on the
+CPU, and neither does the port: there the flag changes nothing.
 """
 
 from __future__ import annotations
@@ -255,6 +260,12 @@ def rotate_activations(x: torch.Tensor, gather: Optional[torch.Tensor]) -> torch
     return rot.reshape(*lead, k)
 
 
+def _gx3_on() -> bool:
+    """``RRS_GX3`` as the JAX package reads it (rrs_tpu/models/linear.py:357),
+    at call time, so that one process can run with and without it."""
+    return os.environ.get("RRS_GX3", "0") != "0"
+
+
 def _tcq4_matmul_route_rot(rot: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
                            i8p: Optional[tuple] = None) -> torch.Tensor:
     """Decode-sized M takes gx2 (activation quant fused into the kernel);
@@ -268,6 +279,17 @@ def _tcq4_matmul_route_rot(rot: torch.Tensor, qs: torch.Tensor, eff: torch.Tenso
         return tcq4_mm.tcq4_matmul_i8p(tcq4_mm.prep_a_sbi(a_q), a_s, *i8p)
     a = dequantize_activations_rrs(a_q, a_s)
     return tcq4_mm.tcq4_matmul(a, qs, eff)
+
+
+def _tcq4_matmul_route(a_q: torch.Tensor, a_s: torch.Tensor, qs: torch.Tensor,
+                       eff: torch.Tensor) -> torch.Tensor:
+    """The pre-quantized entry (rrs_tpu/models/linear.py:408-416): int8 codes
+    a_q [M, K] and per-block absmax a_s [M, K//256]. Decode-sized M takes the
+    gx kernel, every other M dequantizes and runs the dequant kernel."""
+    m, k = a_q.shape
+    if tcq4_mm.gx_viable(m, k, qs.shape[1]):
+        return tcq4_mm.tcq4_matmul_gx(a_q, a_s, qs, eff)
+    return tcq4_mm.tcq4_matmul(dequantize_activations_rrs(a_q, a_s), qs, eff)
 
 
 def _dense_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -297,8 +319,12 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
         if layer.n_logical and layer.n_logical != y.shape[-1]:
             y = y[:, : layer.n_logical]
     elif isinstance(layer, TCQ4Linear):
-        rot = rotate_activations(x2, layer.gather)
-        y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff, layer.i8p)
+        if (layer.gather is None and x2.is_cuda and _gx3_on()
+                and tcq4_mm.gx_viable(x2.shape[0], k, layer.qs.shape[1])):
+            y = tcq4_mm.tcq4_matmul_gx3(x2.contiguous(), layer.qs, layer.eff)
+        else:
+            rot = rotate_activations(x2, layer.gather)
+            y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff, layer.i8p)
     else:
         raise TypeError(f"unknown linear layer {type(layer)}")
     if layer.bias is not None:

@@ -248,6 +248,47 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     return linear_apply(w.lm_head, x).to(torch.float32)
 
 
+def scratch_caches(cfg: ModelConfig, b: int, t: int, dtype=torch.bfloat16, device="cpu"):
+    """Throwaway zero K/V caches [B, Hkv, T, D] per layer for one forward of
+    T tokens (tools that run a stateless forward; rrs_tpu/models/llama.py:529)."""
+    shape = (b, cfg.n_kv_heads, t, cfg.head_dim)
+    ks = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+    vs = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+    return ks, vs
+
+
+@torch.inference_mode()
+def decode_scan(cfg: ModelConfig, w: ModelWeights, first_token, start_pos, k_caches: list,
+                v_caches: list, n_steps: int, logits_fixup=None):
+    """Greedy-decode n_steps tokens on the device, the twin of the JAX
+    ``decode_scan`` (rrs_tpu/models/llama.py:547): step i feeds each lane's
+    token at position start_pos + i and takes the argmax. ``first_token``:
+    [B] ints (host or device); ``start_pos``: [B] host ints. Each step's slot
+    is clip(pos, 0, s - 1) over the largest cache (ring layers wrap it modulo
+    their own size). The positions are uploaded once and the tokens stay on
+    the device, so nothing is read back. Returns (tokens [B, n_steps], the
+    tokens fed, first_token first; last, the final argmax [B]; and the caches,
+    updated in place)."""
+    dev = w.device
+    s = max((c[0] if isinstance(c, tuple) else c).shape[2] for c in k_caches)
+    start = np.asarray(start_pos, np.int64).reshape(-1)
+    pos = start[None, :] + np.arange(n_steps, dtype=np.int64)[:, None]      # [n, B]
+    slots = np.clip(pos, 0, s - 1)
+    pos_t = torch.from_numpy(pos.astype(np.int32))
+    pos_dev = pos_t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else pos_t
+    token = torch.as_tensor(first_token).to(device=dev, dtype=torch.int64).reshape(-1)
+    toks = []
+    for i in range(n_steps):
+        pcol = pos_dev[i][:, None]
+        logits = forward(cfg, w, token[:, None], pcol, k_caches, v_caches, pcol, None,
+                         slots=slots[i].tolist())
+        if logits_fixup is not None:
+            logits = logits_fixup(logits)
+        toks.append(token)
+        token = torch.argmax(logits[:, 0, :], dim=-1)
+    return torch.stack(toks, dim=1), token, k_caches, v_caches
+
+
 # ---------------------------------------------------------------------------
 # Weight builders
 # ---------------------------------------------------------------------------

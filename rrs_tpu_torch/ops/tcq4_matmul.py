@@ -1,17 +1,18 @@
-"""TCQ4 W4A4 matmuls: the decode kernel with fused activation quantization
-(gx2), the prefill dequant kernel, the int8-superblock prefill kernel (i8p)
-and the two mixture-of-experts kernels over stacked expert weights (the
-selected experts' rows, and every expert at once), each beside its plain
-PyTorch version.
+"""TCQ4 W4A4 matmuls: the integer decode kernels over int8 group dots (gx on
+pre-quantized activations, gx2 with the activation quantization fused, gx3
+with the Hadamard rotation fused too, and the tensor-core oracle a8), the
+prefill dequant kernel, the int8-superblock prefill kernel (i8p) and the two
+mixture-of-experts kernels over stacked expert weights (the selected experts'
+rows, and every expert at once), each beside its plain PyTorch version.
 
 Port of ``rrs_tpu/ops/tcq4_matmul.py``. Weights are K-major (see
 ``formats/tcq4.py``): qs uint8 [K//2, N], eff bf16 [K//32, N] (the effective
 group scale fp32(fp16(S)) * sc / 127, rounded to bf16 on the device).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_matmul.cu``,
-``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or raises; it never falls
-back. Each launch is counted in ``kernels.LAUNCHES``.
+tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_a8.cu``,
+``csrc/tcq4_matmul.cu``, ``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or
+raises; it never falls back. Each launch is counted in ``kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from rrs_tpu_torch.formats.tcq4 import (
 )
 
 GROUPS = TILE_K // GROUP_SIZE  # 8
+A8_MAX_M = 32                  # the a8 kernel's M limit (rrs_tpu/ops/tcq4_matmul.py:48)
 
 
 def gx_viable(m: int, k: int, n: int = 0) -> bool:
@@ -62,24 +64,34 @@ def _check_weights(qs: torch.Tensor, eff: torch.Tensor, k: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Decode: gx2 (rrs_tpu/ops/tcq4_matmul.py:1262)
+# Decode: the integer group-dot family. gx2 (rrs_tpu/ops/tcq4_matmul.py:1262)
+# quantizes rotated activations in its prologue, gx (:272) takes the codes
+# as given, gx3 (:1394) also rotates; one CUDA body (csrc/tcq4_gx2.cu).
 # ---------------------------------------------------------------------------
 
-def tcq4_matmul_gx2_plain(a_rot: torch.Tensor, qs: torch.Tensor,
-                          eff: torch.Tensor) -> torch.Tensor:
-    """quant(a_rot) @ dequant(w), f32 [M, N]. The group dots are exact: int4
-    times int4 sums of 32 stay below 2^24, so an f32 matmul holds them exactly
-    (the f32 matmul also runs on the card, where integer matmuls do not)."""
-    m, k = a_rot.shape
-    n = _check_weights(qs, eff, k)
-    a_q, amax = quantize_activations_rrs(a_rot)
+def _gx_dots(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+             eff: torch.Tensor) -> torch.Tensor:
+    """(a_q/7 * a_scale) @ dequant(w) in the gx kernels' arithmetic: per 32-group
+    exact dots, times a_scale/7, times eff, summed over the groups. The group
+    dots are exact: int4 times int4 sums of 32 stay below 2^24, so an f32
+    matmul holds them exactly (the f32 matmul also runs on the card, where
+    integer matmuls do not)."""
+    m, k = a_q.shape
+    n = qs.shape[1]
     g = k // GROUP_SIZE
     w = unpack_nibbles_torch(qs).to(torch.float32).reshape(g, GROUP_SIZE, n)
     aq = a_q.to(torch.float32).reshape(m, g, GROUP_SIZE).transpose(0, 1)   # [g, m, 32]
     p = torch.bmm(aq, w)                                                  # [g, m, n] exact
-    s = (amax * (1.0 / 7.0)).repeat_interleave(GROUPS, dim=1)              # [m, g]
+    s = (a_scale.to(torch.float32) * (1.0 / 7.0)).repeat_interleave(GROUPS, dim=1)   # [m, g]
     pf = p * s.t()[:, :, None]
     return (pf * eff.to(torch.float32)[:, None, :]).sum(0)
+
+
+def tcq4_matmul_gx2_plain(a_rot: torch.Tensor, qs: torch.Tensor,
+                          eff: torch.Tensor) -> torch.Tensor:
+    """quant(a_rot) @ dequant(w), f32 [M, N]."""
+    _check_weights(qs, eff, a_rot.shape[1])
+    return _gx_dots(*quantize_activations_rrs(a_rot), qs, eff)
 
 
 def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
@@ -100,6 +112,138 @@ def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
         a_rot.data_ptr(), qs.data_ptr(), eff.data_ptr(), out.data_ptr(),
         m, k, n, kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_gx2", code)
+    return out
+
+
+def _check_codes(name: str, a_q: torch.Tensor, a_scale: torch.Tensor) -> tuple[int, int]:
+    m, k = a_q.shape
+    if a_scale.shape != (m, k // TILE_K):
+        raise ValueError(f"{name}: a_q {tuple(a_q.shape)} with a_scale {tuple(a_scale.shape)}")
+    return m, k
+
+
+def tcq4_matmul_gx_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                         eff: torch.Tensor) -> torch.Tensor:
+    """(a_q/7 * a_scale) @ dequant(w), f32 [M, N]."""
+    _check_weights(qs, eff, a_q.shape[1])
+    return _gx_dots(a_q, a_scale, qs, eff)
+
+
+def tcq4_matmul_gx(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                   eff: torch.Tensor) -> torch.Tensor:
+    """B14: integer-exact decode matmul on pre-quantized activations,
+    C = (a_q/7 * a_scale) @ dequant(w). a_q int8 [M, K] in [-7, 7], a_scale
+    f32 [M, K//256] (the per-block absmax), eff bf16 or f32; M <= 8 within
+    gx_viable. Given gx2's own codes it is bit-equal to gx2."""
+    m, k = _check_codes("tcq4_matmul_gx", a_q, a_scale)
+    if not gx_viable(m, k):
+        raise ValueError(f"tcq4_matmul_gx: M={m}, K={k} is outside gx_viable")
+    if a_q.device.type == "cpu":
+        return tcq4_matmul_gx_plain(a_q, a_scale, qs, eff)
+    n = _check_weights(qs, eff, k)
+    if (a_q.dtype != torch.int8 or a_scale.dtype != torch.float32 or qs.dtype != torch.uint8
+            or eff.dtype not in (torch.bfloat16, torch.float32)):
+        raise TypeError("tcq4_matmul_gx: needs int8 a_q, f32 a_scale, uint8 qs, bf16 or f32 eff")
+    dev = kernels.check_tensors("tcq4_matmul_gx", a_q, a_scale, qs, eff)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_gx(
+        a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(),
+        int(eff.dtype == torch.float32), out.data_ptr(), m, k, n, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_gx", code)
+    return out
+
+
+def fwht256(x: torch.Tensor) -> torch.Tensor:
+    """Per-256-block normalized Walsh-Hadamard transform of f32 [..., K] as
+    the gx3 kernel computes it: the natural-order butterfly, stages h = 1 ...
+    128 in turn (f32 a + b to the lower index, a - b to the upper), then
+    times 1/16 (exact). Equal to ``x @ hadamard_matrix(256)`` per block up to
+    the order of the sums."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = x.to(torch.float32).reshape(-1, k // TILE_K, TILE_K)
+    h = 1
+    while h < TILE_K:
+        y = y.reshape(y.shape[0], y.shape[1], TILE_K // (2 * h), 2, h)
+        a, b = y[..., 0, :], y[..., 1, :]
+        y = torch.stack([a + b, a - b], dim=-2)
+        h *= 2
+    return (y.reshape(*lead, k) * 0.0625).contiguous()
+
+
+def tcq4_matmul_gx3_plain(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """quant(fwht256(x)) @ dequant(w), f32 [M, N]; x f32 or bf16 unrotated."""
+    return tcq4_matmul_gx2_plain(fwht256(x), qs, eff)
+
+
+def tcq4_matmul_gx3(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """B15: integer-exact decode matmul with the rotation and the activation
+    quantization fused, C = quant(fwht256(x)) @ dequant(w). x f32 or bf16
+    [M, K] unrotated (a layer with no channel permutation), M <= 8 within
+    gx_viable; bf16 eff."""
+    m, k = x.shape
+    if not gx_viable(m, k):
+        raise ValueError(f"tcq4_matmul_gx3: M={m}, K={k} is outside gx_viable")
+    if x.device.type == "cpu":
+        return tcq4_matmul_gx3_plain(x, qs, eff)
+    n = _check_weights(qs, eff, k)
+    if (x.dtype not in (torch.float32, torch.bfloat16) or qs.dtype != torch.uint8
+            or eff.dtype != torch.bfloat16):
+        raise TypeError("tcq4_matmul_gx3: needs f32 or bf16 x, uint8 qs, bf16 eff")
+    dev = kernels.check_tensors("tcq4_matmul_gx3", x, qs, eff)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_gx3(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), qs.data_ptr(), eff.data_ptr(),
+        out.data_ptr(), m, k, n, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_gx3", code)
+    return out
+
+
+def tcq4_matmul_a8_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                         eff: torch.Tensor) -> torch.Tensor:
+    """The a8 kernel's arithmetic in the JAX kernel's order (rrs_tpu/ops/
+    tcq4_matmul.py:64-82): per superblock sbacc += p_g * eff[g] over its 8
+    groups in turn, then acc += sbacc * (a_scale / 7), superblock by
+    superblock. f32 [M, N]."""
+    m, k = _check_codes("tcq4_matmul_a8", a_q, a_scale)
+    n = _check_weights(qs, eff, k)
+    g = k // GROUP_SIZE
+    w = unpack_nibbles_torch(qs).to(torch.float32).reshape(g, GROUP_SIZE, n)
+    aq = a_q.to(torch.float32).reshape(m, g, GROUP_SIZE).transpose(0, 1)
+    p = torch.bmm(aq, w).reshape(k // TILE_K, GROUPS, m, n)              # exact
+    e = eff.to(torch.float32).reshape(k // TILE_K, GROUPS, 1, n)
+    sbacc = torch.zeros((k // TILE_K, m, n), dtype=torch.float32, device=a_q.device)
+    for gi in range(GROUPS):
+        sbacc = sbacc + p[:, gi] * e[:, gi]
+    s7 = a_scale.to(torch.float32) * (1.0 / 7.0)
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a_q.device)
+    for sb in range(k // TILE_K):
+        acc = acc + sbacc[sb] * s7[:, sb:sb + 1]
+    return acc
+
+
+def tcq4_matmul_a8(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                   eff: torch.Tensor) -> torch.Tensor:
+    """B16: the integer oracle kernel on the int8 tensor cores,
+    C = (a_q/7 * a_scale) @ dequant(w) for M <= A8_MAX_M, one exact int32
+    dot per 32-group. a_q int8 [M, K] in [-7, 7], a_scale f32 [M, K//256],
+    eff f32 [K//32, N]; N a multiple of 8 on the card."""
+    m, k = _check_codes("tcq4_matmul_a8", a_q, a_scale)
+    if not 1 <= m <= A8_MAX_M:
+        raise ValueError(f"tcq4_matmul_a8: M={m} is outside 1..{A8_MAX_M}")
+    if a_q.device.type == "cpu":
+        return tcq4_matmul_a8_plain(a_q, a_scale, qs, eff)
+    n = _check_weights(qs, eff, k)
+    if n % 8:
+        raise ValueError(f"tcq4_matmul_a8: N={n} is not a multiple of 8")
+    if (a_q.dtype != torch.int8 or a_scale.dtype != torch.float32 or qs.dtype != torch.uint8
+            or eff.dtype != torch.float32):
+        raise TypeError("tcq4_matmul_a8: needs int8 a_q, f32 a_scale, uint8 qs, f32 eff")
+    dev = kernels.check_tensors("tcq4_matmul_a8", a_q, a_scale, qs, eff)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_a8(
+        a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(), out.data_ptr(),
+        m, k, n, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_a8", code)
     return out
 
 

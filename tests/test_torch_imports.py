@@ -19,7 +19,9 @@ for m in mods:
     importlib.import_module(m)
 import chip_smoke
 for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.ops.tcq4_matmul",
-          "rrs_tpu_torch.models.moe", "rrs_tpu_torch.formats.kquants"):
+          "rrs_tpu_torch.models.moe", "rrs_tpu_torch.formats.kquants",
+          "rrs_tpu_torch.tools.bench_sweep", "rrs_tpu_torch.tools.batched_bench",
+          "rrs_tpu_torch.tools.perplexity", "rrs_tpu_torch.tools.timing"):
     assert m in mods, m
 bad = sorted(m for m in sys.modules
              if m in ("jax", "rrs_tpu") or m.startswith(("jax.", "rrs_tpu.")))
@@ -59,6 +61,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         load_model(tmp_path / "absent.gguf")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["generate", "-m", str(tmp_path / "absent.gguf")])
+    # the measuring verbs too, with a file or with fabricated weights
+    for argv in (["bench", "-m", str(tmp_path / "absent.gguf")], ["bench", "--preset", "tiny"],
+                 ["batched-bench", "--preset", "tiny"],
+                 ["perplexity", "-m", str(tmp_path / "absent.gguf"), "-f", "t.txt"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(argv)
+    with pytest.raises(NotImplementedError, match="A12"):
+        main(["perplexity", "-m", "absent.gguf", "--pp", "2", "--device", "cpu"])
     # asked for explicitly, the CPU works
     ctx = InferenceContext(cfg, w, max_seq=32, device="cpu")
     assert len(ctx.generate([1, 2, 3], 2)) == 2
@@ -107,11 +117,16 @@ def test_kernel_wrappers_count_only_their_launches():
                            "flash_attention", "flash_attention_q8", "flash_attention_q4hp",
                            "flash_attention_q4", "mxfp4_matmul", "mxfp4_matmul_experts_rows",
                            "mxfp4_matmul_all_experts", "tcq4_matmul_experts_rows",
-                           "tcq4_matmul_all_experts"}
+                           "tcq4_matmul_all_experts", "tcq4_matmul_gx", "tcq4_matmul_gx3",
+                           "tcq4_matmul_a8"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
     tm.tcq4_matmul_gx2(torch.randn(1, 256, generator=g), qs, eff)
+    a_q = torch.randint(-7, 8, (2, 256), generator=g, dtype=torch.int8)
+    tm.tcq4_matmul_gx(a_q, torch.rand(2, 1, generator=g) + 0.5, qs, eff)
+    tm.tcq4_matmul_gx3(torch.randn(2, 256, generator=g), qs, eff)
+    tm.tcq4_matmul_a8(a_q, torch.rand(2, 1, generator=g) + 0.5, qs, eff.float())
     tm.tcq4_matmul(torch.randn(20, 256, generator=g), qs, eff)
     tm.tcq4_matmul_i8p(torch.randint(-7, 8, (4, 256), generator=g, dtype=torch.int8),
                        torch.rand(4, 1, generator=g) + 0.5, *tm.pack_i8p(qs, eff))
