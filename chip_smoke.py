@@ -61,7 +61,17 @@ it; exits non-zero without either, and on any failed phase. Phases:
    ``bench`` (pp512 / tg64 without and with the flag, and over q8 KV),
    ``batched-bench`` and ``perplexity`` on a GGUF, each run as a user runs
    it, in its own process;
-9. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
+9. B17 (``tcq4_matmul_fused``) and B18 (``tcq4_matmul_pb``), which no model
+   path calls (as in the JAX package), at the four qwen3-4b projections, M = 1
+   and 512: each against its plain version, B17 bit-equal to B4 on its
+   dequantized activations, B18 within the JAX bound of B4 and of the
+   integer oracle (M = 1, 4, 16), each timed beside its bound, its plain
+   version and ``torch.matmul`` on weights dequantized beforehand; then one
+   teacher-forced 512-token prefill chunk at qwen3-4b width whose 144 TCQ4
+   linears each also run B17 and B18 on their own activations, held the
+   same way, with the int4 codes that differ from the model's rotation
+   counted;
+10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
    plain versions at gpt-oss shapes, timed beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
    at the three Q8 shapes and B3 / B6-B8 over a 640-slot ring with window
@@ -73,8 +83,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
    rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
    a teacher-forced 4-lane prefill chunk and decode step; one capacity-path
    prefill run twice, its logits held bit-equal;
-10. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9 and B10 against their
-   plain versions at its shapes, timed beside their bounds and
+11. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
+   (``tcq4_matmul_experts``, no model path calls it) against their plain
+   versions at its shapes (B19 at M = 1 and 40 with bf16 and f32 eff,
+   bit-equal to B10 on the same experts), timed beside their bounds and
    ``torch.bmm`` / ``torch.matmul`` on experts dequantized beforehand; a
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
@@ -84,9 +96,11 @@ it; exits non-zero without either, and on any failed phase. Phases:
    reach the rows, capacity and scan branches, a capacity prefill run twice
    and held bit-equal, a decode profile and a run over q8 KV; the server (4
    slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
-   4-lane prefill chunk and decode step;
-11. the ``{"kernels": [...]}`` line (sixteen kernels), the card's name and
-   power limit, and the last line ``{"ok": true, "device": {...}}``.
+   4-lane prefill chunk and decode step, every B9 launch also running B19
+   on its rows and ids, whose diagonal must match B9;
+12. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+   B19 launch on no model path and carry ``held_launches``), the card's name
+   and power limit, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,12 +116,13 @@ import threading
 import time
 
 GB = 1e9
-# Published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s, int8 OP/s.
+# Published dense peaks (NVIDIA data sheets): bytes/s, bf16 FLOP/s, int8 OP/s,
+# and f32 FLOP/s outside the tensor cores (B17's rotation).
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 1513e12),
-    "H100 NVL": (3.9e12, 835e12, 1671e12),
-    "H200": (4.8e12, 989e12, 1979e12),
-    "H100": (3.35e12, 989e12, 1979e12),     # SXM
+    "H100 PCIe": (2.0e12, 756e12, 1513e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 1671e12, 60e12),
+    "H200": (4.8e12, 989e12, 1979e12, 67e12),
+    "H100": (3.35e12, 989e12, 1979e12, 67e12),     # SXM
 }
 
 QWEN3_4B_LINEARS = {            # (K, N) of the fused projections of one layer
@@ -199,7 +214,7 @@ def phase_parity(peaks):
     from rrs_tpu_torch.ops import q8_matmul as q8
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
-    bw, bf16_peak, int8_peak = peaks
+    bw, bf16_peak, int8_peak, _ = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -390,7 +405,7 @@ def phase_parity_kvq(peaks, reports):
     from rrs_tpu_torch.ops import flash_attention as fa
     from rrs_tpu_torch.runtime import kv_codec
 
-    bw, bf16_peak, _ = peaks
+    bw, bf16_peak, _, _ = peaks
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     ms = lambda b: b / bw * 1e3                             # noqa: E731
@@ -459,7 +474,7 @@ def phase_i8p(peaks, reports):
     from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
-    bw, bf16_peak, int8_peak = peaks
+    bw, bf16_peak, int8_peak, _ = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1558,7 +1573,7 @@ def phase_parity_int(peaks, reports):
     from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs, quantize_activations_rrs
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
-    bw, _, int8_peak = peaks
+    bw, _, int8_peak, _ = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -1925,6 +1940,204 @@ def phase_perplexity(cfg4b, weights4b):
 
 
 # ---------------------------------------------------------------------------
+# The last three TCQ4 kernels (B17 fused, B18 paired-bias, B19 selected
+# experts), which no model path calls, in either package
+# ---------------------------------------------------------------------------
+
+EXTRA = {"fused": ("tcq4_matmul_fused", "rrs_tpu_torch/csrc/tcq4_fused.cu",
+                   "rrs_tpu/ops/tcq4_matmul.py:732"),
+         "pb": ("tcq4_matmul_pb", "rrs_tpu_torch/csrc/tcq4_pb.cu", "rrs_tpu/ops/tcq4_matmul.py:453")}
+EXTRA_TOL = 1e-3        # bf16 operands, f32 sums in another order
+PB_JAX_TOL = 2e-2       # B18 against the oracle and the dequant path (tests/test_tcq4_matmul.py)
+def phase_parity_extra(peaks, reports):
+    """B17 and B18 at the four qwen3-4b projections, M = 1 and 512 (bf16 x,
+    as the model passes it): each against its plain version within
+    EXTRA_TOL; B17 bit-equal to B4 on B17-plain's dequantized activations;
+    B18 on those activations within PB_JAX_TOL of B4, and on random codes at
+    M = 1, 4 and 16 within PB_JAX_TOL of the integer oracle. Each timed
+    beside its bound, its plain version and ``torch.matmul`` in bf16 on
+    weights dequantized beforehand. Headline: M = 512 summed over the four
+    projections, as B4's row. B17's bound counts its rotation once per row
+    and superblock (2 M K 256 f32 FLOPs on the CUDA cores, though the kernel
+    redoes it for every 64-column tile) on top of the dot's 2 M K N bf16
+    FLOPs on the tensor cores; B18's adds its 2G-deep bias dot to the dot."""
+    import torch
+
+    from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
+    from rrs_tpu_torch.models.linear import _hadamard_f32
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    bw, bf16_peak, _, f32_peak = peaks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    had = _hadamard_f32(dev)
+    for key, (name, source, replaces) in EXTRA.items():
+        reports[key] = Report(name, source, replaces, "operations")
+
+    def bound(nbytes, t_ops):
+        t_bytes = nbytes / bw * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    for lname, (k, n) in QWEN3_4B_LINEARS.items():
+        g = k // 32
+        wbytes = k // 2 * n + g * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((g, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        gis = [(tm.pack_gi(q), e) for q, e in ws]
+        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:2]]
+        for m in (1, 512):
+            reps = 40 if m == 1 else 5
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            got = tm.tcq4_matmul_fused(x, had, *ws[0])
+            err, rel = compare(f"fused {lname} M={m}", got,
+                               tm.tcq4_matmul_fused_plain(x, had, *ws[0]), EXTRA_TOL)
+            a = tm.fused_activations(x, had)
+            b4 = tm.tcq4_matmul(a, *ws[0])
+            if not torch.equal(got, b4):
+                raise AssertionError(f"fused {lname} M={m}: not bit-equal to B4 on its "
+                                     f"activations")
+            t_ops = 2 * m * k * n / bf16_peak * 1e3 + 2 * m * k * 256 / f32_peak * 1e3
+            reports["fused"].add({
+                "shape": f"{lname} M={m} K={k} N={n} bf16 x (bit-equal to B4)",
+                "max_abs_err": err, "rel_err": rel, "tol": EXTRA_TOL,
+                "ms": time_ms(tm.tcq4_matmul_fused, [(x, had, q, e) for q, e in ws], reps),
+                "plain_ms": time_ms(tm.tcq4_matmul_fused_plain, [(x, had, *ws[0])], 2),
+                "library_ms": time_ms(torch.matmul, [(x, w) for w in wl], reps),
+                **bound(wbytes + 256 * 256 * 4 + m * k * 2 + m * n * 4, t_ops)},
+                headline=(m == 512))
+            a_gi, ag24 = tm.pb_prepare(a)
+            got = tm.tcq4_matmul_pb(a_gi, ag24, *gis[0])
+            err, rel = compare(f"pb {lname} M={m}", got,
+                               tm.tcq4_matmul_pb_plain(a_gi, ag24, *gis[0]), EXTRA_TOL)
+            _, rel_b4 = compare(f"pb {lname} M={m} against B4", got, b4, PB_JAX_TOL)
+            a16 = a.to(torch.bfloat16)
+            t_ops = (2 * m * k * n + 2 * m * 2 * g * n) / bf16_peak * 1e3
+            reports["pb"].add({
+                "shape": f"{lname} M={m} K={k} N={n} (B4 rel {rel_b4:.1e})",
+                "max_abs_err": err, "rel_err": rel, "tol": EXTRA_TOL,
+                "ms": time_ms(tm.tcq4_matmul_pb, [(a_gi, ag24, q, e) for q, e in gis], reps),
+                "plain_ms": time_ms(tm.tcq4_matmul_pb_plain, [(a_gi, ag24, *gis[0])], 2),
+                "library_ms": time_ms(torch.matmul, [(a16, w) for w in wl], reps),
+                **bound(wbytes + m * k * 2 + m * 2 * g * 2 + m * n * 4, t_ops)},
+                headline=(m == 512))
+        worst = 0.0
+        for m in (1, 4, 16):
+            a_q = torch.randint(-7, 8, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            a_s = torch.rand((m, k // 256), generator=gen, device=dev) + 0.5
+            a_gi, ag24 = tm.pb_prepare(dequantize_activations_rrs(a_q, a_s))
+            got = tm.tcq4_matmul_pb(a_gi, ag24, *gis[0])
+            _, rel = compare(f"pb {lname} M={m} against the oracle", got.cpu(),
+                             tm.tcq4_matmul_ref(a_q, a_s, ws[0][0], ws[0][1].float()), PB_JAX_TOL)
+            worst = max(worst, rel)
+        print(f"  pb {lname}: within {worst:.2e} of tcq4_matmul_ref at M = 1, 4, 16 "
+              f"(<= {PB_JAX_TOL:.0e})", flush=True)
+        del ws, gis, wl
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def extra_oracles(label: str):
+    """While open, every TCQ4 linear without a gather that the model applies
+    also runs B17 from its own unrotated input (had: the port's f32
+    Hadamard), held within EXTRA_TOL of its plain version and bit for bit to
+    B4 on B17-plain's dequantized activations; and B18 on those activations
+    (its weights packed by ``pack_gi`` once, as each linear runs once a
+    chunk), within EXTRA_TOL of its plain version and PB_JAX_TOL of B4. It
+    counts the int4 codes that differ from the model's own route (the
+    rotation matmul, then the activation quantizer), which sums in another
+    order: the knife edge of ROADMAP queue C, reported. Yields the counts."""
+    import torch
+
+    from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.linear import TCQ4Linear, _hadamard_f32, rotate_activations
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    orig = llama.linear_apply
+    held = {"n": 0, "fused_rel": 0.0, "pb_rel": 0.0, "pb_b4_rel": 0.0, "flips": 0, "codes": 0,
+            "shapes": set()}
+
+    def run(layer, x):
+        y = orig(layer, x)
+        if not isinstance(layer, TCQ4Linear) or layer.gather is not None:
+            return y
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        had = _hadamard_f32(x.device)
+        shape = (x2.shape[0], *layer.shape)
+        out = tm.tcq4_matmul_fused(x2, had, layer.qs, layer.eff)
+        _, rel = compare(f"{label}: B17 {shape}", out,
+                         tm.tcq4_matmul_fused_plain(x2, had, layer.qs, layer.eff), EXTRA_TOL)
+        held["fused_rel"] = max(held["fused_rel"], rel)
+        a = tm.fused_activations(x2, had)
+        b4 = tm.tcq4_matmul(a, layer.qs, layer.eff)
+        if not torch.equal(out, b4):
+            raise AssertionError(f"{label}: B17 {shape} differs from B4 on its activations")
+        a_gi, ag24 = tm.pb_prepare(a)
+        qs_gi = tm.pack_gi(layer.qs)
+        pb = tm.tcq4_matmul_pb(a_gi, ag24, qs_gi, layer.eff)
+        _, rel = compare(f"{label}: B18 {shape}", pb,
+                         tm.tcq4_matmul_pb_plain(a_gi, ag24, qs_gi, layer.eff), EXTRA_TOL)
+        held["pb_rel"] = max(held["pb_rel"], rel)
+        _, rel = compare(f"{label}: B18 {shape} against B4", pb, b4, PB_JAX_TOL)
+        held["pb_b4_rel"] = max(held["pb_b4_rel"], rel)
+        q, _ = tm.fused_codes(x2, had)
+        r_q, _ = quantize_activations_rrs(rotate_activations(x2, None))
+        held["flips"] += int((r_q.to(torch.float32) != q).sum())
+        held["codes"] += q.numel()
+        held["n"] += 1
+        held["shapes"].add(shape)
+        return y
+
+    llama.linear_apply = run
+    try:
+        yield held
+    finally:
+        llama.linear_apply = orig
+
+
+def phase_prefill_extra(cfg, weights, reports):
+    """One teacher-forced 512-token prefill chunk of qwen3-4b at full width
+    (36 layers) under ``extra_oracles``, the launch counts set to 0 just
+    before it: every one of the 144 TCQ4 linears (qkv, o, gate-up, down; no
+    gather in the fabricated weights) runs B17 and B18 on its own
+    activations, held as that context says."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    seq = ctx.new_sequence()
+    tokens = torch.randint(0, cfg.vocab_size, (512,), generator=torch.Generator().manual_seed(9)
+                           ).tolist()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with extra_oracles("qwen3-4b prefill chunk") as held:
+        logits = ctx.prefill(seq, tokens, all_logits=False)
+        torch.cuda.synchronize()
+    launches = {name: kernels.LAUNCHES[name] for name in ("tcq4_matmul_fused", "tcq4_matmul_pb")}
+    want = QWEN3_4B_TCQ4_PER_STEP
+    if not torch.isfinite(logits).all() or held["n"] != want \
+            or set(launches.values()) != {want}:
+        raise AssertionError(f"qwen3-4b prefill chunk: {held['n']} linears held, launches "
+                             f"{launches}, expected {want} each")
+    for key, (name, _, _) in EXTRA.items():
+        reports[key].entry["held_launches"] = launches[name]
+    print(f"  teacher-forced 512-token prefill chunk, 36 layers, in "
+          f"{time.perf_counter() - t0:.1f} s: {held['n']} TCQ4 linears, each running B17 (within "
+          f"{held['fused_rel']:.2e} of its plain version, bit-equal to B4 on its activations) "
+          f"and B18 (within {held['pb_rel']:.2e} of plain, {held['pb_b4_rel']:.2e} of B4); "
+          f"launches {launches}; shapes {sorted(held['shapes'])}; int4 codes that differ "
+          f"from the rotation matmul's (reported): {held['flips']} of {held['codes']}",
+          flush=True)
+    del ctx
+
+
+# ---------------------------------------------------------------------------
 # gpt-oss-20b: MXFP4 experts (B11-B13), sliding-window rings with sinks, YaRN
 # ---------------------------------------------------------------------------
 
@@ -1954,7 +2167,7 @@ def phase_parity_gptoss(peaks, reports):
     from rrs_tpu_torch.ops import mxfp4_matmul as mx
     from rrs_tpu_torch.ops import q8_matmul as q8
 
-    bw, bf16_peak, _ = peaks
+    bw, bf16_peak, _, _ = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
@@ -2575,25 +2788,29 @@ QWEN3_30B_A3B_GGUF = {
     "qwen3moe.vocab_size": 151936}
 # report key -> (kernel, TPU kernel it replaces)
 TQ = {"tq_rows": ("tcq4_matmul_experts_rows", "rrs_tpu/ops/tcq4_matmul.py:654"),
-      "tq_all": ("tcq4_matmul_all_experts", "rrs_tpu/ops/tcq4_matmul.py:595")}
+      "tq_all": ("tcq4_matmul_all_experts", "rrs_tpu/ops/tcq4_matmul.py:595"),
+      "tq_sel": ("tcq4_matmul_experts", "rrs_tpu/ops/tcq4_matmul.py:536")}
 QWEN3MOE_TOL = 1e-3
 
 
 def phase_parity_qwen3moe(peaks, reports):
-    """B9 and B10 against their plain versions at the Qwen3-30B-A3B shapes
-    (E = 128 experts; gate / up K 2048 -> N 768, down K 768 -> N 2048): the
-    rows kernel at n_sel = 8 and 32 (one and four decode lanes, top-8), every
-    expert over per-expert activations [128, 64, K] (a 512-token chunk's
-    capacity) and over shared activations at T = 64. Held within
-    QWEN3MOE_TOL relative and timed beside the bound, the plain version and
-    ``torch.bmm`` / ``torch.matmul`` on experts dequantized to bf16 (and, for
-    B9, gathered) beforehand. The id sets cycle over the experts and a stack
+    """B9, B10 and B19 against their plain versions at the Qwen3-30B-A3B
+    shapes (E = 128 experts; gate / up K 2048 -> N 768, down K 768 -> N
+    2048): the rows kernel at n_sel = 8 and 32 (one and four decode lanes,
+    top-8), every expert over per-expert activations [128, 64, K] (a
+    512-token chunk's capacity) and over shared activations at T = 64, and
+    the selected-experts kernel (no model path calls it) at n_sel = 8 over
+    shared rows at M = 1 and 40 with bf16 and f32 eff, bit-equal to B10 on
+    the same experts where eff is bf16. Held within QWEN3MOE_TOL relative and
+    timed beside the bound, the plain version and ``torch.bmm`` /
+    ``torch.matmul`` on experts dequantized to bf16 (and, for B9 and B19,
+    gathered) beforehand. The id sets cycle over the experts and a stack
     (113 MB) exceeds L2, so the timed launches read from device memory."""
     import torch
 
     from rrs_tpu_torch.ops import tcq4_matmul as tm
 
-    bw, bf16_peak, _ = peaks
+    bw, bf16_peak, _, _ = peaks
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(30)
@@ -2654,6 +2871,40 @@ def phase_parity_qwen3moe(peaks, reports):
                      "library_ms": time_ms(lib, [(w16,)], 10),
                      **bound(t_bytes, t_ops)},
                     headline=(proj == "gate_up" and label.startswith("per-expert")))
+
+        rep = reports["tq_sel"]
+        eff32 = eff.float()
+        for m in (1, 40):
+            for eff_kind, e_ in (("bf16", eff), ("f32", eff32)):
+                # the model's rows are bf16; the JAX test's f32: one of each
+                a = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16 if m == 1 else torch.float32)
+                id_sets = [torch.randperm(e_n, generator=gen, device=dev)[:8] for _ in range(8)]
+                ids = id_sets[0]
+                got = tm.tcq4_matmul_experts(a, qs, e_, ids)
+                err, rel = compare(f"tcq4 experts {proj} M={m} {eff_kind} eff", got,
+                                   tm.tcq4_matmul_experts_plain(a, qs, e_, ids), QWEN3MOE_TOL)
+                if eff_kind == "bf16" and not torch.equal(
+                        got, tm.tcq4_matmul_all_experts(a, qs, eff)[ids.long()]):
+                    raise AssertionError(f"tcq4 experts {proj} M={m}: not bit-equal to B10")
+                e_bytes = k // 2 * n + k // 32 * n * e_.element_size()
+                t_bytes = ms(8 * e_bytes + a.numel() * a.element_size() + 8 * m * n * 4)
+                t_ops = 2 * 8 * m * k * n / bf16_peak * 1e3
+                a16 = a.to(torch.bfloat16).expand(8, m, k)
+                sel16 = [w16[i] for i in id_sets[:2]]
+                rep.add({"shape": f"{proj} n_sel=8 M={m} K={k} N={n} E={e_n} {a.dtype} a, "
+                                  f"{eff_kind} eff" + (" (bit-equal to B10)"
+                                                       if eff_kind == "bf16" else ""),
+                         "max_abs_err": err, "rel_err": rel, "tol": QWEN3MOE_TOL,
+                         "ms": time_ms(lambda i: tm.tcq4_matmul_experts(a, qs, e_, i),
+                                       [(i,) for i in id_sets], 40),
+                         "plain_ms": time_ms(lambda i: tm.tcq4_matmul_experts_plain(
+                             a, qs, e_, i), [(i,) for i in id_sets[:2]], 2),
+                         "library_ms": time_ms(lambda w: torch.bmm(a16, w),
+                                               [(w,) for w in sel16], 40),
+                         **bound(t_bytes, t_ops)}, headline=(m == 1 and eff_kind == "bf16"))
+                del sel16
+        del eff32
         del qs, eff, w16
     torch.cuda.empty_cache()
 
@@ -2854,6 +3105,37 @@ def phase_qwen3moe_generate(reports):
     return cfg, weights
 
 
+@contextlib.contextmanager
+def b19_diagonal(label: str):
+    """While open, every B9 launch also runs B19 on the same rows, shared
+    (M = n_sel), and the same ids: B19's out[i, i] is the product B9 gives
+    for row i, held within QWEN3MOE_TOL. Yields the counts."""
+    import torch
+
+    from rrs_tpu_torch.models import moe
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    orig = moe.tcq4_matmul_experts_rows
+    held = {"n": 0, "rel": 0.0, "shapes": set()}
+
+    def run(a, qs_all, eff_all, expert_ids):
+        out = orig(a, qs_all, eff_all, expert_ids)
+        sel = tm.tcq4_matmul_experts(a, qs_all, eff_all, expert_ids)
+        i = torch.arange(a.shape[0], device=a.device)
+        _, rel = compare(f"{label}: B19 diagonal {tuple(sel.shape)}", sel[i, i], out,
+                         QWEN3MOE_TOL)
+        held["n"] += 1
+        held["rel"] = max(held["rel"], rel)
+        held["shapes"].add(tuple(sel.shape))
+        return out
+
+    moe.tcq4_matmul_experts_rows = run
+    try:
+        yield held
+    finally:
+        moe.tcq4_matmul_experts_rows = orig
+
+
 def phase_serving_qwen3moe(cfg, weights, reports):
     """``serve_four`` at Qwen3-30B-A3B width; the attention kernels, B2 and
     B9 must be launched. Returns the context."""
@@ -2891,45 +3173,45 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/11] build")
+    header("[1/12] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/11] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/12] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/11] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/12] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/11] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/12] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/11] served steps held to the plain versions; device decode run against "
+    header("[5/12] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/11] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/12] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/11] serving with --cache-type q4: slot save / erase / restore, context shift")
+    header("[7/12] serving with --cache-type q4: slot save / erase / restore, context shift")
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
     del ctx
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/11] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/12] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -2938,14 +3220,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
+
+    header("[9/12] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+           "TCQ4 linear of a 512-token prefill chunk")
+    t9 = time.perf_counter()
+    phase_parity_extra(peaks, reports)
+    phase_prefill_extra(cfg, weights, reports)
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[9/11] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, generate, "
-           "serving and held served steps")
+    header("[10/12] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+           "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
     cfg, weights = phase_gptoss_generate(reports)
@@ -2957,20 +3246,30 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[10/11] Qwen3-30B-A3B: TCQ4 expert kernel parity, a 2-layer model against the CPU, "
-           "generate, serving and held served steps")
+    header("[11/12] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+           "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
     cfg, weights = phase_qwen3moe_generate(reports)
     ctx = phase_serving_qwen3moe(cfg, weights, reports)
-    served_steps_held(ctx, "Qwen3-30B-A3B",
-                      {"tcq4_matmul_gx2", "tcq4_matmul_i8p", "q8_matmul", "flash_attention",
-                       "tcq4_matmul_experts_rows"})
+    kernels.reset_launches()
+    with b19_diagonal("Qwen3-30B-A3B served steps") as held:
+        served_steps_held(ctx, "Qwen3-30B-A3B",
+                          {"tcq4_matmul_gx2", "tcq4_matmul_i8p", "q8_matmul", "flash_attention",
+                           "tcq4_matmul_experts_rows"})
+    n19 = kernels.LAUNCHES["tcq4_matmul_experts"]
+    if held["n"] == 0 or n19 != held["n"]:
+        raise AssertionError(f"Qwen3-30B-A3B served steps: {held['n']} B9 launches held, "
+                             f"{n19} B19 launches")
+    reports["tq_sel"].entry["held_launches"] = n19
+    print(f"  Qwen3-30B-A3B served steps: every B9 launch ({held['n']}) also ran B19 on its "
+          f"rows and ids, the diagonal within {held['rel']:.2e} of B9 (<= {QWEN3MOE_TOL:.0e}); "
+          f"B19 shapes {sorted(held['shapes'])}", flush=True)
     del ctx, weights
 
-    header("[11/11] summary")
+    header("[12/12] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
-             "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8")
+             "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

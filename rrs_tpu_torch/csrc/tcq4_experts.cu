@@ -2,35 +2,41 @@
 //
 //   B9  rrs_tcq4_experts_rows  out[i] = bf16(a[i]) @ W[ids[i]]         (decode)
 //   B10 rrs_tcq4_all_experts   out[e] = bf16(a or a[e]) @ W[e]         (capacity)
+//   B19 rrs_tcq4_experts_sel   out[i] = bf16(a) @ W[ids[i]]            (selected)
 //
 // Replace rrs_tpu/ops/tcq4_matmul.py:654 tcq4_matmul_experts_rows
-// (_kernel_experts_rows at :638) and :595 tcq4_matmul_all_experts
-// (_kernel_all_experts at :577). Both compute as the TPU kernels do: the
-// int4 weight times its f32 group scale, rounded to bf16, against the
-// activations rounded to bf16, with f32 sums; only the order of the sums
-// differs from the plain versions.
+// (_kernel_experts_rows at :638), :595 tcq4_matmul_all_experts
+// (_kernel_all_experts at :577) and :536 tcq4_matmul_experts
+// (_kernel_experts at :519). All compute as the TPU kernels do: the int4
+// weight times its f32 group scale, rounded to bf16, against the activations
+// rounded to bf16, with f32 sums; only the order of the sums differs from
+// the plain versions.
 //
 // Layout (ops/tcq4_matmul.py): qs uint8 [E][K/2][N], byte row r of
 // superblock s holding k = 256 s + r in its low nibble and k = 256 s + 128 + r
-// in its high nibble; eff bf16 [E][K/32][N]. K is a multiple of 256, N of 8.
-// Every weight byte is decoded on chip; no dequantized expert reaches memory.
+// in its high nibble; eff bf16 [E][K/32][N] (B19 also takes f32 eff, as its
+// TPU kernel does). K is a multiple of 256, N of 8. Every weight byte is
+// decoded on chip; no dequantized expert reaches memory.
 //
-// Bound on the H100: bytes for B9 (the selected experts' 4.625-bit weights,
-// 0.88 MB per expert matrix at Qwen3-30B-A3B) and for B10 at small capacity
-// (every expert's weights, 113 MB per projection at E = 128); operations for
-// B10 once the capacity passes ~300 rows.
+// Bound on the H100: bytes for B9 and B19 at decode M (the selected experts'
+// 4.625-bit weights, 0.88 MB per expert matrix at Qwen3-30B-A3B) and for B10
+// at small capacity (every expert's weights, 113 MB per projection at
+// E = 128); operations for B10 once the capacity passes ~300 rows.
 //
 // Design. B10 is the tiled WMMA GEMM of gemm_bf16.cuh (BM x 64 x 64 tiles,
 // 4 warps, f32 accumulators) with the TCQ4 tile loader of tcq4_tile.cuh, the
 // experts on the grid's z axis and a zero activation stride for shared
-// activations. B9 is a matrix-vector kernel on the CUDA cores, one block per
-// (128 columns, selected row): the block reads its row's expert id on the
-// device, holds the row of a in shared memory as bf16-rounded f32, and its
-// eight warps split K by quarter superblocks (32 byte rows, two scale
-// groups); each lane decodes four columns from 4-byte loads, so a warp reads
-// 128 contiguous bytes of a byte row, and the warps' partial sums meet in
-// shared memory. Loads are synchronous: cp.async / TMA rings and wgmma come
-// with the change that makes these fast.
+// activations. B19 is the same GEMM over shared activations with grid z
+// running over the selected experts: each block reads ids[z] on the device
+// (clamped to [0, E), as B9 does), so with bf16 eff its out[i] is bit-equal
+// to B10's out[ids[i]]. B9 is a matrix-vector kernel on the CUDA cores, one
+// block per (128 columns, selected row): the block reads its row's expert id
+// on the device, holds the row of a in shared memory as bf16-rounded f32,
+// and its eight warps split K by quarter superblocks (32 byte rows, two
+// scale groups); each lane decodes four columns from 4-byte loads, so a warp
+// reads 128 contiguous bytes of a byte row, and the warps' partial sums meet
+// in shared memory. Loads are synchronous: cp.async / TMA rings and wgmma
+// come with the change that makes these fast.
 
 #include "tcq4_tile.cuh"
 
@@ -38,21 +44,24 @@ namespace {
 
 using namespace rrs::gemm;
 
-// grid (ceil(N / 64), ceil(M / BM), E): expert blockIdx.z, its activations at
-// a + e * a_stride (0: shared), its output at out + e * M * N.
-template <int BM, typename InT>
+// grid (ceil(N / 64), ceil(M / BM), Z): output z at out + z * M * N, its
+// activations at a + z * a_stride (0: shared), its expert z (ids null, B10)
+// or ids[z] clamped to [0, n_exp) (B19).
+template <int BM, typename InT, typename EffT>
 __global__ void __launch_bounds__(kThreads)
 tcq4_experts_gemm_kernel(const InT* __restrict__ a, size_t a_stride,
-                         const uint8_t* __restrict__ qs, const __nv_bfloat16* __restrict__ eff,
-                         float* __restrict__ out, int M, int K, int N) {
+                         const uint8_t* __restrict__ qs, const EffT* __restrict__ eff,
+                         const int* __restrict__ ids, int n_exp, float* __restrict__ out,
+                         int M, int K, int N) {
   __shared__ Smem<BM> sm;
-  const size_t e = blockIdx.z;
+  const size_t z = blockIdx.z;
+  const size_t e = ids ? static_cast<size_t>(min(max(ids[z], 0), n_exp - 1)) : z;
   const int n0 = blockIdx.x * kBN;
   const int m0 = blockIdx.y * BM;
-  a += e * a_stride;
+  a += z * a_stride;
   qs += e * (K / 2) * static_cast<size_t>(N);
   eff += e * (K / 32) * static_cast<size_t>(N);
-  out += e * M * static_cast<size_t>(N);
+  out += z * M * static_cast<size_t>(N);
   Acc<BM> acc;
   acc.zero();
   const int nunits = (K / 256) * 4;
@@ -68,21 +77,22 @@ tcq4_experts_gemm_kernel(const InT* __restrict__ a, size_t a_stride,
   acc.store(sm.c, out, M, N, m0, n0);
 }
 
-template <typename InT>
-int launch_gemm(const void* a, size_t a_stride, const void* qs, const void* eff, void* out,
-                int E, int M, int K, int N, cudaStream_t s) {
+// Z outputs; ids null: expert z, else expert ids[z] of n_exp.
+template <typename InT, typename EffT>
+int launch_gemm(const void* a, size_t a_stride, const void* qs, const void* eff, const int* ids,
+                int n_exp, void* out, int Z, int M, int K, int N, cudaStream_t s) {
   const InT* ap = static_cast<const InT*>(a);
   const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(eff);
+  const EffT* ep = static_cast<const EffT*>(eff);
   float* op = static_cast<float*>(out);
   if (M <= 16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, E);
-    tcq4_experts_gemm_kernel<16, InT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, op, M, K,
-                                                                N);
+    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, Z);
+    tcq4_experts_gemm_kernel<16, InT, EffT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, ids,
+                                                                      n_exp, op, M, K, N);
   } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, E);
-    tcq4_experts_gemm_kernel<64, InT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, op, M, K,
-                                                                N);
+    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, Z);
+    tcq4_experts_gemm_kernel<64, InT, EffT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, ids,
+                                                                      n_exp, op, M, K, N);
   }
   return rrs::status();
 }
@@ -188,6 +198,25 @@ RRS_EXPORT int rrs_tcq4_all_experts(const void* a, int a_is_bf16, int per_expert
   if (bad_shape(T, K, N) || E < 1 || E > 65535 || (T + 15) / 16 > 65535) return rrs::kBadArgs;
   const size_t a_stride = per_expert ? static_cast<size_t>(T) * K : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_is_bf16) return launch_gemm<__nv_bfloat16>(a, a_stride, qs, eff, out, E, T, K, N, s);
-  return launch_gemm<float>(a, a_stride, qs, eff, out, E, T, K, N, s);
+  if (a_is_bf16)
+    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(a, a_stride, qs, eff, nullptr, E, out, E, T,
+                                                     K, N, s);
+  return launch_gemm<float, __nv_bfloat16>(a, a_stride, qs, eff, nullptr, E, out, E, T, K, N, s);
+}
+
+RRS_EXPORT int rrs_tcq4_experts_sel(const void* a, int a_is_bf16, const void* qs, const void* eff,
+                                    int eff_is_f32, const void* ids, void* out, int n_sel, int M,
+                                    int K, int N, int n_exp, void* stream) {
+  if (bad_shape(M, K, N) || n_exp < 1 || n_sel < 1 || n_sel > 65535 || (M + 15) / 16 > 65535)
+    return rrs::kBadArgs;
+  const int* ip = static_cast<const int*>(ids);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_is_bf16 && eff_is_f32)
+    return launch_gemm<__nv_bfloat16, float>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
+  if (a_is_bf16)
+    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K,
+                                                     N, s);
+  if (eff_is_f32)
+    return launch_gemm<float, float>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
+  return launch_gemm<float, __nv_bfloat16>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
 }

@@ -1,13 +1,13 @@
 // The TCQ4 weight-tile loader of the bf16 WMMA GEMM (gemm_bf16.cuh), shared
-// by the prefill matmul (tcq4_matmul.cu) and the all-experts matmul
-// (tcq4_experts.cu).
+// by the prefill matmul (tcq4_matmul.cu), the expert matmuls
+// (tcq4_experts.cu) and the fused rotate-quantize matmul (tcq4_fused.cu).
 //
 // One K tile is a quarter superblock: 32 byte rows of qs, whose low nibbles
 // are one scale group (k = 256 sb + 32 q .. + 31) and whose high nibbles are
 // the group 128 later, so every qs byte is read once and every tile row has
-// one eff per column. The unpacked int4 times the bf16 eff is rounded to bf16
-// in shared memory, exactly as the TPU kernels round their operand before the
-// MXU pass.
+// one eff per column. The unpacked int4 times the eff (bf16, or f32 for the
+// selected-experts and fused kernels) is rounded to bf16 in shared memory,
+// exactly as the TPU kernels round their operand before the MXU pass.
 #pragma once
 
 #include "gemm_bf16.cuh"
@@ -15,11 +15,15 @@
 namespace rrs {
 namespace gemm {
 
+__device__ __forceinline__ float eff_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float eff_f32(float v) { return v; }
+
 // B tile for (superblock sb, quarter q): 32 byte rows x 64 columns of qs ->
 // 64 bf16 k rows (0..31 low nibbles, 32..63 high nibbles); columns past N
 // are zero.
+template <typename EffT>
 __device__ __forceinline__ void load_b_tcq4(const uint8_t* __restrict__ qs,
-                                            const __nv_bfloat16* __restrict__ eff, int N,
+                                            const EffT* __restrict__ eff, int N,
                                             int sb, int q, int n0, __nv_bfloat16* sb_tile) {
   const int r = threadIdx.x >> 2;          // byte row 0..31
   const int cb = (threadIdx.x & 3) * 16;   // 16 columns per thread
@@ -40,8 +44,8 @@ __device__ __forceinline__ void load_b_tcq4(const uint8_t* __restrict__ qs,
     const int gc = gc0 + j;
     float elo = 0.f, ehi = 0.f;
     if (gc < N) {
-      elo = __bfloat162float(eff[static_cast<size_t>(g_lo) * N + gc]);
-      ehi = __bfloat162float(eff[static_cast<size_t>(g_hi) * N + gc]);
+      elo = eff_f32(eff[static_cast<size_t>(g_lo) * N + gc]);
+      ehi = eff_f32(eff[static_cast<size_t>(g_hi) * N + gc]);
     }
     const int lo = static_cast<int>(static_cast<uint32_t>(bytes[j]) << 28) >> 28;
     const int hi = static_cast<int>(static_cast<uint32_t>(bytes[j]) << 24) >> 28;

@@ -48,6 +48,9 @@ SIGNATURES = {
     "rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_experts_sel": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_fused": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
 }
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its
@@ -58,7 +61,9 @@ LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul
                             "mxfp4_matmul": 0, "mxfp4_matmul_experts_rows": 0,
                             "mxfp4_matmul_all_experts": 0, "tcq4_matmul_experts_rows": 0,
                             "tcq4_matmul_all_experts": 0, "tcq4_matmul_gx": 0,
-                            "tcq4_matmul_gx3": 0, "tcq4_matmul_a8": 0}
+                            "tcq4_matmul_gx3": 0, "tcq4_matmul_a8": 0,
+                            "tcq4_matmul_experts": 0, "tcq4_matmul_pb": 0,
+                            "tcq4_matmul_fused": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 

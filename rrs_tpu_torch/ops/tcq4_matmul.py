@@ -1,9 +1,13 @@
 """TCQ4 W4A4 matmuls: the integer decode kernels over int8 group dots (gx on
 pre-quantized activations, gx2 with the activation quantization fused, gx3
 with the Hadamard rotation fused too, and the tensor-core oracle a8), the
-prefill dequant kernel, the int8-superblock prefill kernel (i8p) and the two
+prefill dequant kernel, the dequant kernel with the rotation and the
+quantization fused (fused), the paired-bias kernel over a group-interleaved
+pack (pb), the int8-superblock prefill kernel (i8p) and the three
 mixture-of-experts kernels over stacked expert weights (the selected experts'
-rows, and every expert at once), each beside its plain PyTorch version.
+rows, every expert at once, and shared rows against each selected expert),
+each beside its plain PyTorch version. No model path calls fused, pb or the
+selected-experts kernel, as in the JAX package.
 
 Port of ``rrs_tpu/ops/tcq4_matmul.py``. Weights are K-major (see
 ``formats/tcq4.py``): qs uint8 [K//2, N], eff bf16 [K//32, N] (the effective
@@ -11,8 +15,9 @@ group scale fp32(fp16(S)) * sc / 127, rounded to bf16 on the device).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_a8.cu``,
-``csrc/tcq4_matmul.cu``, ``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or
-raises; it never falls back. Each launch is counted in ``kernels.LAUNCHES``.
+``csrc/tcq4_matmul.cu``, ``csrc/tcq4_fused.cu``, ``csrc/tcq4_pb.cu``,
+``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or raises; it never falls
+back. Each launch is counted in ``kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -308,6 +313,181 @@ def tcq4_matmul_ref(a_q, a_scale, qs, eff):
     return (per_sb * a_scale.to(torch.float32)[:, :, None]).sum(1) * (1.0 / 7.0)
 
 
+def _bf16_f32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Prefill with the rotation and the activation quantization fused
+# (rrs_tpu/ops/tcq4_matmul.py:732): per superblock rot = x_sb @ had, the int4
+# quantize-dequantize, and the bf16 dot of B4. No model path calls it.
+# ---------------------------------------------------------------------------
+
+def fused_rotate(x: torch.Tensor, had: torch.Tensor) -> torch.Tensor:
+    """x_sb @ had per 256-block in the fused kernel's order of sums: for each
+    output, j = 0 ... 255 in turn, each product and each sum rounded to f32
+    (separate multiplies and adds, which nothing contracts to an fma). f32
+    [M, K//256, 256]."""
+    m, k = x.shape
+    xb = x.to(torch.float32).reshape(m, k // TILE_K, TILE_K)
+    h = had.to(torch.float32)
+    rot = torch.zeros_like(xb)
+    for j in range(TILE_K):
+        rot = rot + xb[:, :, j:j + 1] * h[j]
+    return rot
+
+
+def fused_codes(x: torch.Tensor, had: torch.Tensor):
+    """The fused kernel's activation codes: (q f32 [M, K] in [-7, 7], amax f32
+    [M, K//256]) with q = clip(rint(rot * (7 / amax)), -7, 7), both divisions
+    tensor by tensor (ROADMAP queue C)."""
+    rot = fused_rotate(x, had)
+    amax = rot.abs().amax(dim=-1, keepdim=True)
+    amax = torch.where(amax < 1e-10, torch.ones_like(amax), amax)
+    q = torch.round(rot * torch.div(torch.full_like(amax, 7.0), amax)).clamp(-7, 7)
+    return q.reshape(x.shape), amax[..., 0]
+
+
+def fused_activations(x: torch.Tensor, had: torch.Tensor) -> torch.Tensor:
+    """The dequantized activations the fused kernel feeds its dot: f32 [M, K],
+    q * (amax / 7) with a true division."""
+    q, amax = fused_codes(x, had)
+    m, k = x.shape
+    d = torch.div(amax, torch.full_like(amax, 7.0))
+    return (q.reshape(m, k // TILE_K, TILE_K) * d[..., None]).reshape(m, k)
+
+
+def _check_fused(x, had, qs, eff) -> tuple[int, int, int]:
+    if x.dim() != 2 or x.shape[0] < 1 or had.shape != (TILE_K, TILE_K):
+        raise ValueError(f"tcq4_matmul_fused: x {tuple(x.shape)} is not [M >= 1, K] or had "
+                         f"{tuple(had.shape)} is not [256, 256]")
+    n = _check_weights(qs, eff, x.shape[1])
+    if (x.dtype not in (torch.float32, torch.bfloat16) or had.dtype != torch.float32
+            or qs.dtype != torch.uint8 or eff.dtype not in (torch.bfloat16, torch.float32)):
+        raise TypeError("tcq4_matmul_fused: needs f32 or bf16 x, f32 had, uint8 qs, "
+                        "bf16 or f32 eff")
+    return x.shape[0], x.shape[1], n
+
+
+def tcq4_matmul_fused_plain(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
+                            eff: torch.Tensor) -> torch.Tensor:
+    """bf16(fused_activations(x, had)) @ bf16(q * f32(eff)), f32 sums; f32 [M, N]."""
+    _check_fused(x, had, qs, eff)
+    return _bf16_f32(fused_activations(x, had)) @ _bf16_f32(dequantize_w(qs, eff))
+
+
+def tcq4_matmul_fused(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
+                      eff: torch.Tensor) -> torch.Tensor:
+    """B17: C = quant(x_sb @ had) @ dequant(w) in one kernel, f32 [M, N] at
+    every M. x f32 or bf16 [M, K] unrotated, had f32 [256, 256], eff bf16 or
+    f32; N a multiple of 8 on the card. Given ``fused_activations(x, had)``,
+    B4 (``tcq4_matmul``) returns the same output bit for bit while it stores
+    f32 (padded M < 1024)."""
+    m, k, n = _check_fused(x, had, qs, eff)
+    if x.device.type == "cpu":
+        return tcq4_matmul_fused_plain(x, had, qs, eff)
+    if n % 8:
+        raise ValueError(f"tcq4_matmul_fused: N={n} is not a multiple of 8")
+    dev = kernels.check_tensors("tcq4_matmul_fused", x, had, qs, eff)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_fused(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), had.data_ptr(), qs.data_ptr(),
+        eff.data_ptr(), int(eff.dtype == torch.float32), out.data_ptr(), m, k, n,
+        kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_fused", code)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Paired-bias dequant kernel over the group-interleaved pack
+# (rrs_tpu/ops/tcq4_matmul.py:453). Byte row r of qs_gi holds k_new = 2r (low
+# nibble) and 2r + 1 (high nibble), k_new = j * G + g for the original
+# k = g * 32 + j (G = K / 32), so row k_new's scale is eff[k_new mod G]. A
+# nibble decodes to bf16(q + 24) (the bit pattern 0x4180 | ((q + 8) << 3)),
+# its product with the scale is rounded to bf16, and a 2G-deep dot of the
+# hi / lo split of 24 * (group sums of a) against [e; e] cancels the bias.
+# Callers: the JAX package's benchmark scripts only.
+# ---------------------------------------------------------------------------
+
+def pack_gi(qs: torch.Tensor) -> torch.Tensor:
+    """Repack sb-layout qs (uint8 [K//2, N]) into the group-interleaved layout,
+    byte-equal to the JAX ``pack_gi_np`` and ``pack_gi_jnp``."""
+    k2, n = qs.shape
+    k = 2 * k2
+    g = k // GROUP_SIZE
+    b = qs.reshape(k // TILE_K, TILE_K // 2, n)
+    codes = torch.cat([b & 15, b >> 4], dim=1).reshape(k, n)
+    cg = codes.reshape(g, GROUP_SIZE, n).transpose(0, 1).reshape(k, n)
+    return (cg[0::2] | (cg[1::2] << 4)).contiguous()
+
+
+def pb_prepare(a: torch.Tensor):
+    """[M, K] f32 dequantized rotated activations -> (a_gi bf16 [M, K] in
+    k_new order, ag24 bf16 [M, 2G]: the hi / lo split of 24 * the per-group
+    sums of the bf16-rounded activations)."""
+    m, k = a.shape
+    g = k // GROUP_SIZE
+    av = a.reshape(m, g, GROUP_SIZE).to(torch.bfloat16)
+    a_gi = av.transpose(1, 2).reshape(m, k).contiguous()
+    ag24 = av.to(torch.float32).sum(-1) * 24.0
+    hi = ag24.to(torch.bfloat16)
+    lo = (ag24 - hi.to(torch.float32)).to(torch.bfloat16)
+    return a_gi, torch.cat([hi, lo], dim=-1).contiguous()
+
+
+def decode_pb(qs_gi: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
+    """[K//2, N] gi pack + [G, N] scales -> the kernel's weights in k_new row
+    order, bf16(bf16(q + 24) * e[row mod G]) as f32 [K, N]."""
+    k2, n = qs_gi.shape
+    g = eff.shape[0]
+    codes = torch.stack([qs_gi & 15, qs_gi >> 4], dim=1).reshape(2 * k2, n)
+    biased = ((codes ^ 8).to(torch.float32) + 16.0)                  # q + 24, exact
+    return _bf16_f32(biased * eff.to(torch.float32).repeat(2 * k2 // g, 1))
+
+
+def _check_pb(a_gi, ag24, qs_gi, eff) -> tuple[int, int, int]:
+    m, k = a_gi.shape
+    n = qs_gi.shape[1]
+    g = k // GROUP_SIZE
+    if (m < 1 or k % TILE_K or ag24.shape != (m, 2 * g) or qs_gi.shape != (k // 2, n)
+            or eff.shape != (g, n)):
+        raise ValueError(f"tcq4_matmul_pb shapes: a_gi {tuple(a_gi.shape)}, ag24 "
+                         f"{tuple(ag24.shape)}, qs_gi {tuple(qs_gi.shape)}, eff {tuple(eff.shape)}")
+    if (a_gi.dtype != torch.bfloat16 or ag24.dtype != torch.bfloat16
+            or qs_gi.dtype != torch.uint8 or eff.dtype != torch.bfloat16):
+        raise TypeError("tcq4_matmul_pb: needs bf16 a_gi and ag24, uint8 qs_gi, bf16 eff")
+    return m, k, n
+
+
+def tcq4_matmul_pb_plain(a_gi, ag24, qs_gi, eff) -> torch.Tensor:
+    """-(ag24 @ [e; e]) + a_gi @ decode_pb(qs_gi, eff), bf16 operands and f32
+    sums, as the TPU kernel computes it (its output block starts at -bias).
+    f32 [M, N]."""
+    _check_pb(a_gi, ag24, qs_gi, eff)
+    e2 = torch.cat([eff, eff]).to(torch.float32)
+    bias = ag24.to(torch.float32) @ e2
+    return -bias + a_gi.to(torch.float32) @ decode_pb(qs_gi, eff)
+
+
+def tcq4_matmul_pb(a_gi: torch.Tensor, ag24: torch.Tensor, qs_gi: torch.Tensor,
+                   eff: torch.Tensor) -> torch.Tensor:
+    """B18: C = a @ dequant(w) through the paired-bias decode, f32 [M, N], any
+    M. a_gi bf16 [M, K] and ag24 bf16 [M, 2G] from ``pb_prepare``, qs_gi
+    from ``pack_gi``, eff bf16 [K//32, N]; N a multiple of 8 on the card."""
+    m, k, n = _check_pb(a_gi, ag24, qs_gi, eff)
+    if a_gi.device.type == "cpu":
+        return tcq4_matmul_pb_plain(a_gi, ag24, qs_gi, eff)
+    if n % 8:
+        raise ValueError(f"tcq4_matmul_pb: N={n} is not a multiple of 8")
+    dev = kernels.check_tensors("tcq4_matmul_pb", a_gi, ag24, qs_gi, eff)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_pb(
+        a_gi.data_ptr(), ag24.data_ptr(), qs_gi.data_ptr(), eff.data_ptr(), out.data_ptr(),
+        m, k, n, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_pb", code)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Prefill: int8 superblock requant (rrs_tpu/ops/tcq4_matmul.py:1107)
 #
@@ -417,18 +597,15 @@ def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Mixture of experts over stacked TCQ4 weights, qs uint8 [E, K//2, N] and eff
 # bf16 [E, K//32, N]: the selected experts' rows (decode, B9;
-# rrs_tpu/ops/tcq4_matmul.py:654) and every expert at once (capacity
-# dispatch, B10; :595). Both round the activations and each int4 * f32(eff)
-# weight to bf16 and sum in f32, as the TPU kernels do.
+# rrs_tpu/ops/tcq4_matmul.py:654), every expert at once (capacity dispatch,
+# B10; :595) and shared rows against each selected expert (B19; :536, which
+# no model path calls; eff bf16 or f32). All round the activations and each
+# int4 * f32(eff) weight to bf16 and sum in f32, as the TPU kernels do.
 # ---------------------------------------------------------------------------
 
 def _expert_w(qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
     """One expert's [K//2, N] + [K//32, N] -> bf16-rounded f32 [K, N]."""
     return dequantize_w(qs, eff).to(torch.bfloat16).to(torch.float32)
-
-
-def _bf16_f32(a: torch.Tensor) -> torch.Tensor:
-    return a.to(torch.bfloat16).to(torch.float32)
 
 
 def tcq4_matmul_experts_rows_plain(a, qs_all, eff_all, expert_ids) -> torch.Tensor:
@@ -457,10 +634,12 @@ def _check_stacks(name: str, qs_all: torch.Tensor, eff_all: torch.Tensor, k: int
                          f"{tuple(eff_all.shape)} (K a multiple of 256, N of 8)")
 
 
-def _check_types(name: str, a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor):
+def _check_types(name: str, a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor,
+                 f32_eff: bool = False):
+    eff_types = (torch.bfloat16, torch.float32) if f32_eff else (torch.bfloat16,)
     if (a.dtype not in (torch.bfloat16, torch.float32) or qs_all.dtype != torch.uint8
-            or eff_all.dtype != torch.bfloat16):
-        raise TypeError(f"{name}: needs bf16 or f32 a, uint8 qs, bf16 eff")
+            or eff_all.dtype not in eff_types):
+        raise TypeError(f"{name}: needs bf16 or f32 a, uint8 qs, bf16{' or f32' * f32_eff} eff")
 
 
 def tcq4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor,
@@ -509,4 +688,45 @@ def tcq4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
         a.data_ptr(), int(a.dtype == torch.bfloat16), int(a.dim() == 3), qs_all.data_ptr(),
         eff_all.data_ptr(), out.data_ptr(), n_exp, t, k, n, kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_all_experts", code)
+    return out
+
+
+def tcq4_matmul_experts_plain(a, qs_all, eff_all, expert_ids) -> torch.Tensor:
+    """B19's plain version: out[i] = bf16(a) @ W[ids[i]]; f32 [n_sel, M, N].
+    Decodes one distinct expert at a time."""
+    a32 = _bf16_f32(a)
+    ids = expert_ids.to(torch.int64)
+    out = torch.empty((ids.shape[0], a.shape[0], qs_all.shape[-1]), dtype=torch.float32,
+                      device=a.device)
+    for e in torch.unique(ids).tolist():
+        out[(ids == e).nonzero()[:, 0]] = a32 @ _expert_w(qs_all[e], eff_all[e])
+    return out
+
+
+def tcq4_matmul_experts(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor,
+                        expert_ids: torch.Tensor) -> torch.Tensor:
+    """B19: out[i] = bf16(a) @ dequant(W[expert_ids[i]]) for shared a [M, K]
+    (bf16 or f32), eff bf16 or f32, and int ids [n_sel] on the device (read
+    there, never on the host; an id outside [0, E) is clamped). Returns f32
+    [n_sel, M, N]; with bf16 eff, out[i] is bit-equal to B10's out[ids[i]]."""
+    if a.dim() != 2 or a.shape[0] < 1:
+        raise ValueError(f"tcq4_matmul_experts: a {tuple(a.shape)} is not [M >= 1, K]")
+    m, k = a.shape
+    _check_stacks("tcq4_matmul_experts", qs_all, eff_all, k)
+    if expert_ids.dim() != 1 or expert_ids.numel() < 1:
+        raise ValueError(f"tcq4_matmul_experts: ids {tuple(expert_ids.shape)} is not [n_sel]")
+    _check_types("tcq4_matmul_experts", a, qs_all, eff_all, f32_eff=True)
+    if a.device.type == "cpu":
+        return tcq4_matmul_experts_plain(a, qs_all, eff_all, expert_ids)
+    n_exp, _, n = qs_all.shape
+    n_sel = expert_ids.shape[0]
+    a = a.contiguous()
+    ids = expert_ids.to(torch.int32).contiguous()
+    dev = kernels.check_tensors("tcq4_matmul_experts", a, qs_all, eff_all, ids)
+    out = torch.empty((n_sel, m, n), dtype=torch.float32, device=dev)
+    code = kernels.lib().rrs_tcq4_experts_sel(
+        a.data_ptr(), int(a.dtype == torch.bfloat16), qs_all.data_ptr(), eff_all.data_ptr(),
+        int(eff_all.dtype == torch.float32), ids.data_ptr(), out.data_ptr(), n_sel, m, k, n,
+        n_exp, kernels.stream_ptr(dev))
+    kernels.check("tcq4_matmul_experts", code)
     return out

@@ -23,6 +23,11 @@ for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.ops.tcq4_matmul",
           "rrs_tpu_torch.tools.bench_sweep", "rrs_tpu_torch.tools.batched_bench",
           "rrs_tpu_torch.tools.perplexity", "rrs_tpu_torch.tools.timing"):
     assert m in mods, m
+tm = importlib.import_module("rrs_tpu_torch.ops.tcq4_matmul")
+for fn in ("tcq4_matmul_fused", "tcq4_matmul_fused_plain", "tcq4_matmul_pb",
+           "tcq4_matmul_pb_plain", "pack_gi", "pb_prepare", "tcq4_matmul_experts",
+           "tcq4_matmul_experts_plain"):
+    assert callable(getattr(tm, fn)), fn
 bad = sorted(m for m in sys.modules
              if m in ("jax", "rrs_tpu") or m.startswith(("jax.", "rrs_tpu.")))
 print(len(mods), "modules;", "forbidden:", bad)
@@ -118,7 +123,8 @@ def test_kernel_wrappers_count_only_their_launches():
                            "flash_attention_q4", "mxfp4_matmul", "mxfp4_matmul_experts_rows",
                            "mxfp4_matmul_all_experts", "tcq4_matmul_experts_rows",
                            "tcq4_matmul_all_experts", "tcq4_matmul_gx", "tcq4_matmul_gx3",
-                           "tcq4_matmul_a8"}
+                           "tcq4_matmul_a8", "tcq4_matmul_experts", "tcq4_matmul_pb",
+                           "tcq4_matmul_fused"}
     g = torch.Generator().manual_seed(0)
     qs = torch.randint(0, 256, (128, 64), generator=g, dtype=torch.uint8)
     eff = torch.rand((8, 64), generator=g).to(torch.bfloat16)
@@ -150,5 +156,8 @@ def test_kernel_wrappers_count_only_their_launches():
     tm.tcq4_matmul_experts_rows(torch.randn(3, 256, generator=g).to(torch.bfloat16), tq, te,
                                 torch.tensor([1, 0, 1]))
     tm.tcq4_matmul_all_experts(torch.randn(2, 3, 256, generator=g), tq, te)
+    tm.tcq4_matmul_experts(torch.randn(3, 256, generator=g), tq, te, torch.tensor([1, 0]))
+    tm.tcq4_matmul_fused(torch.randn(3, 256, generator=g), torch.eye(256), qs, eff)
+    tm.tcq4_matmul_pb(*tm.pb_prepare(torch.randn(3, 256, generator=g)), tm.pack_gi(qs), eff)
     # CPU tensors take the plain versions, which launch nothing
     assert kernels.LAUNCHES == before
