@@ -11,9 +11,11 @@ it; exits non-zero without either, and on any failed phase. Phases:
 2. kernel parity: each kernel of the generate and serving paths against its
    plain PyTorch version at the qwen3-4b shapes of those paths (a served
    step's M = 4, and attention over 4 lanes of a 4096-slot cache with a dead
-   lane and a padded row, among them), with the stated tolerance, timed
-   with CUDA events beside its bound, its plain version and one PyTorch
-   library call for the same product (the i8p kernel also against the
+   lane and a padded row, among them; B4 also at the down projection's M =
+   2 and 8, outside gx_viable), with the stated tolerance, timed with CUDA
+   events beside its bound, its plain version and one PyTorch library call
+   for the same product, over as many weight copies as the kernel reads
+   (together past L2; the i8p kernel also against the
    dequant path, within the JAX bound, and beside ``torch._int_mm`` on
    pre-decoded int8 weights; attention over quantized caches beside SDPA on
    caches dequantized beforehand); then each kernel's other instantiations
@@ -74,9 +76,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
 10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
    plain versions at gpt-oss shapes, timed beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
-   at the three Q8 shapes and B3 / B6-B8 over a 640-slot ring with window
-   128 and sinks; a 2-layer gpt-oss model on the card against the same
-   weights on the CPU (the CPU's expert ids replayed where the card's
+   at the three Q8 shapes (qkv and o also at a served step's M = 4 and a
+   served prefill chunk's M = 2048) and B3 / B6-B8 over a 640-slot ring
+   with window 128 and sinks; a 2-layer gpt-oss model on the card against
+   the same weights on the CPU (the CPU's expert ids replayed where the card's
    differ; every launch held to its plain version); ``generate`` at full
    width (fabricated weights) with prompts that reach every MoE branch,
    launch counts, the branches taken and a decode profile, then over q8
@@ -258,11 +261,14 @@ def phase_parity(peaks):
         del ws, wl
 
     # -- tcq4_matmul: the served decode step's M = 4 (the down projection's
-    # route; all four held), and the prefill buckets M = 16, 64, 512 --------
+    # route; all four held), the down projection at M = 2 and 8 (outside
+    # gx_viable), and the prefill buckets M = 16, 64, 512 --------------------
     rep = reports["tcq4"] = Report("tcq4_matmul", "rrs_tpu_torch/csrc/tcq4_matmul.cu",
                                    "rrs_tpu/ops/tcq4_matmul.py:895", "operations")
-    for m in (4, 16, 64, 512):
+    for m in (2, 4, 8, 16, 64, 512):
         for lname, (k, n) in QWEN3_4B_LINEARS.items():
+            if m in (2, 8) and lname != "down":
+                continue
             wbytes = k // 2 * n + k // 32 * n * 2
             ws = tcq4_weights(k, n, n_copies(wbytes))
             a = (torch.randint(-7, 8, (m, k), generator=gen, device=dev).float()
@@ -270,7 +276,8 @@ def phase_parity(peaks):
             got = tm.tcq4_matmul(a, *ws[0])
             ref = tm.tcq4_matmul_plain(a, *ws[0])
             err, rel = compare(f"tcq4_matmul {lname} M={m}", got, ref, 1e-3)
-            wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:2]]
+            # the library call reads as many bf16 copies as the kernel's, past L2
+            wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
             a16 = a.to(torch.bfloat16)
             t_bytes = ms(wbytes + m * k * 4 + m * n * 4)
             t_ops = 2 * m * k * n / bf16_peak * 1e3
@@ -860,9 +867,12 @@ COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul
             "q8": "q8_matmul", "fa": "flash_attention"}
 # the gx kernels share one template, gx2_kernel<M, prologue>: 0 gx, 1 gx2, 2 gx3
 GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3"}
-KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "tcq4_gemm_kernel": "tcq4_matmul",
-                "a8_kernel": "tcq4_matmul_a8",
-                "i8p_kernel": "tcq4_matmul_i8p", "q8_gemm_kernel": "q8_matmul",
+# B2 and B4 share the two bodies of gemm_sm90.cuh, splitk_kernel<Loader, MT>
+# and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...> or TCQ4<...>) names
+# the kernel
+SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul"}
+KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
+                "i8p_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
                 "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq",
                 "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
                 "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
@@ -979,6 +989,9 @@ def kernel_label(name: str) -> str:
     m = re.search(r"gx2_kernel<\d+, [^>]*?(\d)>", name)
     if m:
         return GX_PROLOGUES[m.group(1)]
+    m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4)<", name)
+    if m:
+        return SM90_LOADERS[m.group(1)]
     return next((v for k, v in KERNEL_NAMES.items() if k in name), "other")
 
 
@@ -1262,7 +1275,7 @@ def profile_decode_run(ctx, seqs, first, lengths):
         return
     by_name: dict = {}
     for e in events:
-        short = next((v for k, v in KERNEL_NAMES.items() if k in e.name), "other")
+        short = kernel_label(e.name)
         by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values()) / n
     split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
@@ -2156,11 +2169,12 @@ def phase_parity_gptoss(peaks, reports):
     and 16 (one and four decode lanes, top-4), every expert over shared
     activations at T = 64 and over per-expert activations [32, 128, 2880]
     (one 512-token chunk's capacity), the plain matmul at M = 300 on one
-    expert's gate and down projections; B2 at the three Q8 shapes at M = 1;
-    B3 and B6-B8 at D = 64, G = 8 with window 128 over a 640-slot ring and
-    sinks. Each held within GPTOSS_TOL (attention 8e-3: its output is bf16)
-    and timed beside its bound, its plain version and one PyTorch call on
-    weights dequantized to bf16 beforehand (torch.matmul / torch.bmm)."""
+    expert's gate and down projections; B2 at the three Q8 shapes at M = 1
+    (qkv and o also at M = 4 and 2048); B3 and B6-B8 at D = 64, G = 8 with
+    window 128 over a 640-slot ring and sinks. Each held within GPTOSS_TOL
+    (attention 8e-3: its output is bf16) and timed beside its bound, its
+    plain version and one PyTorch call on weights dequantized to bf16
+    beforehand (torch.matmul / torch.bmm)."""
     import torch
 
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -2250,26 +2264,32 @@ def phase_parity_gptoss(peaks, reports):
     del stacks, w16
     torch.cuda.empty_cache()
 
-    # -- B2 at the gpt-oss Q8 shapes, decode M = 1
+    # -- B2 at the gpt-oss Q8 shapes: decode M = 1, a served decode step's
+    # M = 4 and a served prefill chunk's M = 2048 (the lm_head at M = 1); the
+    # library call reads as many bf16 copies as the kernel reads int8 ones
     rep = reports["q8"]
     for lname, (kq, nq, n_log) in GPTOSS_Q8.items():
         qw = torch.randint(-127, 128, (kq, nq), generator=gen, device=dev, dtype=torch.int8)
         qsc = 2.0 ** torch.randint(-11, -9, (kq // 32, nq), generator=gen, device=dev).float()
         wl = (qw.float().reshape(kq // 32, 32, nq) * qsc[:, None]).reshape(kq, nq).to(
             torch.bfloat16)
-        a = torch.randn((1, kq), generator=gen, device=dev).to(torch.bfloat16)
-        err, rel = compare(f"q8_matmul gpt-oss {lname}", q8.q8_matmul(a, qw, qsc),
-                           q8.q8_matmul_plain(a, qw, qsc), GPTOSS_TOL)
-        copies = [(a, qw, qsc)] + [(a, qw.clone(), qsc.clone())
-                                   for _ in range(n_copies(kq * nq) - 1)]
-        t_bytes = ms(kq * nq + kq // 32 * nq * 4 + kq * 2 + nq * 4)
-        rep.add({"shape": f"gpt-oss {lname} M=1 K={kq} N={nq}", "max_abs_err": err,
-                 "rel_err": rel, "tol": GPTOSS_TOL,
-                 "ms": time_ms(q8.q8_matmul, copies, 20),
-                 "plain_ms": time_ms(q8.q8_matmul_plain, copies[:1], 3),
-                 "library_ms": time_ms(torch.matmul, [(a, wl)], 20),
-                 **bound(t_bytes, 2 * kq * nq / bf16_peak * 1e3)}, headline=False)
-        del qw, qsc, wl, copies
+        copies = [(qw, qsc)] + [(qw.clone(), qsc.clone()) for _ in range(n_copies(kq * nq) - 1)]
+        wls = [wl] + [wl.clone() for _ in range(n_copies(2 * kq * nq) - 1)]
+        for m in ((1,) if lname == "lm_head" else (1, 4, 2048)):
+            a = torch.randn((m, kq), generator=gen, device=dev).to(torch.bfloat16)
+            err, rel = compare(f"q8_matmul gpt-oss {lname} M={m}", q8.q8_matmul(a, qw, qsc),
+                               q8.q8_matmul_plain(a, qw, qsc), GPTOSS_TOL)
+            t_bytes = ms(kq * nq + kq // 32 * nq * 4 + m * kq * 2 + m * nq * 4)
+            reps = 20 if m < 2048 else 5
+            rep.add({"shape": f"gpt-oss {lname} M={m} K={kq} N={nq}", "max_abs_err": err,
+                     "rel_err": rel, "tol": GPTOSS_TOL,
+                     "ms": time_ms(lambda q_, s_: q8.q8_matmul(a, q_, s_), copies, reps),
+                     "plain_ms": time_ms(lambda q_, s_: q8.q8_matmul_plain(a, q_, s_),
+                                         copies[:1], 3),
+                     "library_ms": time_ms(lambda w: torch.matmul(a, w), [(w,) for w in wls],
+                                           reps),
+                     **bound(t_bytes, 2 * m * kq * nq / bf16_peak * 1e3)}, headline=False)
+        del qw, qsc, wl, wls, copies
 
     # -- B3, B6-B8: one decode row per lane over a 640-slot ring (window 128,
     # sinks), 2 lanes at positions 1000 and 700 (the rings have wrapped)

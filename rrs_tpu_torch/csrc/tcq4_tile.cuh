@@ -1,12 +1,12 @@
-// The TCQ4 weight-tile loader of the bf16 WMMA GEMM (gemm_bf16.cuh), shared
-// by the prefill matmul (tcq4_matmul.cu), the expert matmuls
-// (tcq4_experts.cu) and the fused rotate-quantize matmul (tcq4_fused.cu).
+// The TCQ4 weight-tile loader of the bf16 WMMA GEMM (gemm_bf16.cuh), used by
+// the expert matmuls (tcq4_experts.cu: B10, B19). B4 and B17 have their own
+// loader on gemm_sm90.cuh (tcq4_matmul.cu).
 //
 // One K tile is a quarter superblock: 32 byte rows of qs, whose low nibbles
 // are one scale group (k = 256 sb + 32 q .. + 31) and whose high nibbles are
 // the group 128 later, so every qs byte is read once and every tile row has
 // one eff per column. The unpacked int4 times the eff (bf16, or f32 for the
-// selected-experts and fused kernels) is rounded to bf16 in shared memory,
+// selected-experts kernel) is rounded to bf16 in shared memory,
 // exactly as the TPU kernels round their operand before the MXU pass.
 #pragma once
 

@@ -36,9 +36,9 @@ SIGNATURES = {
     "rrs_tcq4_gx": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
     "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "rrs_flash_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _I, _P],
     "rrs_flash_attention_kvq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -50,7 +50,7 @@ SIGNATURES = {
     "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_experts_sel": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "rrs_tcq4_fused": [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    "rrs_tcq4_fused": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its

@@ -1,0 +1,77 @@
+"""The split-K plan of the weight matmuls B2 (``q8_matmul``) and B4
+(``tcq4_matmul``, and B17 ``tcq4_matmul_fused`` through B4), and their
+scratch.
+
+The kernels (``csrc/gemm_sm90.cuh``) cover C[M, N] with a grid of output
+tiles (column strips of STRIP; at M > MAX_M also row tiles of 64 rows below
+M = 128, else 128) times K slices. A slice is ``slice_units`` whole units of
+K (a Q8 scale group of 32, a TCQ4 superblock of 256; at M > MAX_M a Q8 slice
+is a whole number of the prefill body's 64-deep steps). The plan gives the
+grid at least MIN_BLOCKS blocks at M <= MAX_M (two waves on the H100's 132
+SMs) and PREFILL_MIN_BLOCKS above it (one block on every SM; more slices
+there cost more in partial sums than they gain), wherever K allows it. With more than one slice, each block writes its partial sums to
+``scratch`` [slices, M, strips * STRIP] f32, and the tile's last block to
+finish adds the partials in slice order, so the result does not depend on
+which block ends first. ``counters`` holds one int32 per tile: zero before a
+launch and left zero by it, so one buffer per device serves every call on
+its stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+STRIP = 128
+MIN_BLOCKS = 264            # decode: two waves of one-strip blocks
+PREFILL_MIN_BLOCKS = 132    # prefill: one block on every SM
+MAX_M = 16
+PREFILL_BK = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    strips: int
+    slices: int
+    slice_units: int            # units of K per slice (the last may be shorter)
+    scratch_elems: int          # f32 elements of the partial sums (0: one slice)
+
+
+def plan(m: int, k: int, n: int, unit: int) -> Plan:
+    """The grid of the weight matmul at (M, K, N) with K in units of ``unit``."""
+    strips = -(-n // STRIP)
+    if m <= MAX_M:
+        tiles, step, blocks = strips, unit, MIN_BLOCKS
+    else:
+        tiles = strips * -(-m // (64 if m < 128 else 128))
+        step, blocks = max(unit, PREFILL_BK), PREFILL_MIN_BLOCKS
+    units = k // step
+    need = -(-blocks // tiles)
+    per = units if need <= 1 else max(1, units // need)
+    slices = -(-units // per)
+    per_units = per * (step // unit)
+    return Plan(strips, slices, per_units, slices * m * strips * STRIP if slices > 1 else 0)
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def buffers(p: Plan, device: torch.device):
+    """(scratch, counters) for a launch under plan ``p``: the partial sums,
+    fresh from the caching allocator, and the device's tile counters (grown
+    here, zeroed once, kept zero by the kernels). Both None with one slice."""
+    if p.slices == 1:
+        return None, None
+    scratch = torch.empty((p.scratch_elems,), dtype=torch.float32, device=device)
+    tiles = p.scratch_elems // (p.slices * STRIP)          # strips x rows, an upper bound
+    counters = _COUNTERS.get(device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros((max(tiles, 4096),), dtype=torch.int32, device=device)
+        _COUNTERS[device] = counters
+    return scratch, counters
+
+
+def ptr(t) -> int:
+    """A buffer's address for the C entry points (0 for None)."""
+    return 0 if t is None else t.data_ptr()

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from rrs_tpu_torch import kernels
+from rrs_tpu_torch.ops import splitk
 from rrs_tpu_torch.formats.tcq4 import (
     GROUP_SIZE,
     TILE_K,
@@ -272,6 +273,12 @@ def tcq4_matmul_plain(a: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
     return y.to(torch.bfloat16) if tcq4_out_bf16(m) else y
 
 
+def splitk_plan(m: int, k: int, n: int) -> splitk.Plan:
+    """The kernel's grid at (M, K, N): K slices of whole superblocks. B17
+    takes the same plan, so that its dot is B4's bit for bit."""
+    return splitk.plan(m, k, n, TILE_K)
+
+
 def tcq4_matmul(a: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
                 fast: bool = True) -> torch.Tensor:
     """C = a @ dequant(w) for the dequantized rotated activations a f32 [M, K].
@@ -289,9 +296,14 @@ def tcq4_matmul(a: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
     out_bf16 = tcq4_out_bf16(m)
     out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32,
                       device=dev)
+    if m > splitk.MAX_M:
+        a = a.to(torch.bfloat16)        # the prefill body reads bf16, as it would round
+    plan = splitk_plan(m, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_tcq4_matmul(
-        a.data_ptr(), qs.data_ptr(), eff.data_ptr(), out.data_ptr(),
-        m, k, n, int(out_bf16), kernels.stream_ptr(dev))
+        a.data_ptr(), int(a.dtype == torch.bfloat16), qs.data_ptr(), eff.data_ptr(),
+        out.data_ptr(), m, k, n, int(out_bf16), plan.slice_units, splitk.ptr(scratch),
+        splitk.ptr(counters), kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul", code)
     return out
 
@@ -378,11 +390,12 @@ def tcq4_matmul_fused_plain(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor
 
 def tcq4_matmul_fused(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
                       eff: torch.Tensor) -> torch.Tensor:
-    """B17: C = quant(x_sb @ had) @ dequant(w) in one kernel, f32 [M, N] at
-    every M. x f32 or bf16 [M, K] unrotated, had f32 [256, 256], eff bf16 or
-    f32; N a multiple of 8 on the card. Given ``fused_activations(x, had)``,
-    B4 (``tcq4_matmul``) returns the same output bit for bit while it stores
-    f32 (padded M < 1024)."""
+    """B17: C = quant(x_sb @ had) @ dequant(w) in one call (the rotation
+    prologue, then B4's body on its bf16 scratch under B4's split-K plan),
+    f32 [M, N] at every M. x f32 or bf16 [M, K] unrotated, had f32 [256,
+    256], eff bf16 or f32; N a multiple of 8 on the card. Given
+    ``fused_activations(x, had)``, B4 (``tcq4_matmul``) returns the same
+    output bit for bit while it stores f32 (padded M < 1024)."""
     m, k, n = _check_fused(x, had, qs, eff)
     if x.device.type == "cpu":
         return tcq4_matmul_fused_plain(x, had, qs, eff)
@@ -390,9 +403,13 @@ def tcq4_matmul_fused(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
         raise ValueError(f"tcq4_matmul_fused: N={n} is not a multiple of 8")
     dev = kernels.check_tensors("tcq4_matmul_fused", x, had, qs, eff)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    act = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+    plan = splitk_plan(m, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_tcq4_fused(
         x.data_ptr(), int(x.dtype == torch.bfloat16), had.data_ptr(), qs.data_ptr(),
-        eff.data_ptr(), int(eff.dtype == torch.float32), out.data_ptr(), m, k, n,
+        eff.data_ptr(), int(eff.dtype == torch.float32), act.data_ptr(), out.data_ptr(),
+        m, k, n, plan.slice_units, splitk.ptr(scratch), splitk.ptr(counters),
         kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_fused", code)
     return out

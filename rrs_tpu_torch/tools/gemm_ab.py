@@ -1,0 +1,208 @@
+"""Same-card before / after of the weight matmuls B2 (``q8_matmul``) and B4
+(``tcq4_matmul``) against an older tree of this repository.
+
+    python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--json OUT]
+
+DIR holds an older checkout (for example ``git archive <commit>`` unpacked).
+Its ``rrs_tpu_torch/csrc/q8_matmul.cu`` and ``tcq4_matmul.cu`` are copied to
+a temporary directory, built there with this tree's ``nvcc`` flags into a
+library of their own, and bound with their own C signatures (the older
+entries take no split-K plan). At each shape ``chip_smoke.py`` times (phase
+2: B4 at the four qwen3-4b projections at M = 4, 16, 64, 512 and the down
+projection at M = 2 and 8, B2 at the qwen3-4b lm_head at M = 1, 4, 64;
+phase 10: B2 at gpt-oss-20b's qkv and o at M = 1, 4, 2048 and its lm_head at
+M = 1) both kernels run on the same inputs, in turns (old, new, new, old,
+CUDA events, weight copies rotated past L2), beside ``torch.matmul`` on bf16
+weights dequantized beforehand, timed over as many copies as the kernels
+get, and the shape's bound. The new kernel is held to its plain version and
+to the old one (within 1e-3). Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from rrs_tpu_torch import kernels
+from rrs_tpu_torch.ops import q8_matmul as q8
+from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+L2_BYTES = 50e6
+BYTES_S, BF16_FLOPS = 3.35e12, 989e12        # H100 SXM data sheet
+_P, _I = ctypes.c_void_p, ctypes.c_int
+OLD_SIGNATURES = {"rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+                  "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
+QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
+            "down": (9728, 2560)}
+GPTOSS_Q8 = {"qkv": (3072, 5120), "o": (4096, 2944), "lm_head": (3072, 202752)}
+
+
+def build_old(parent: Path) -> ctypes.CDLL:
+    """The older tree's B2 and B4, built in a temporary directory."""
+    tmp = Path(tempfile.mkdtemp(prefix="gemm_ab_"))
+    src = parent / "rrs_tpu_torch" / "csrc"
+    for p in src.iterdir():
+        if p.suffix in (".cu", ".cuh"):
+            shutil.copy(p, tmp / p.name)
+    nvcc = kernels._nvcc()
+    procs = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-c", str(tmp / name), "-o",
+                               str(tmp / (name + ".o"))], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for name in ("q8_matmul.cu", "tcq4_matmul.cu")]
+    for p in procs:
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError("older kernels failed to build:\n" + log)
+    lib_path = tmp / "libgemm_old.so"
+    subprocess.run([nvcc, kernels.ARCH, "-shared", str(tmp / "q8_matmul.cu.o"),
+                    str(tmp / "tcq4_matmul.cu.o"), "-o", str(lib_path)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in OLD_SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def n_copies(nbytes: float) -> int:
+    return max(2, min(24, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def time_ms(fn, arg_sets, reps: int) -> float:
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(reps * 2e5))
+    start.record()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _checked(code: int) -> None:
+    if code != 0:
+        raise RuntimeError(f"older kernel: launch returned {code}")
+
+
+def rel(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, rows):
+    """Hold new to plain and to old, then time old, new, new, old and the
+    library call; append and print the row."""
+    got, ref, prev = new(*sets[0]), plain(*sets[0]), old(*sets[0])
+    torch.cuda.synchronize()
+    r_plain, r_old = rel(got, ref), rel(got, prev)
+    if not (torch.isfinite(got.float()).all() and r_plain <= tol and r_old <= tol):
+        raise AssertionError(f"{label}: new kernel off: rel {r_plain:.2e} to plain, "
+                             f"{r_old:.2e} to the older kernel")
+    t = [time_ms(f, sets, reps) for f in (old, new, new, old)]
+    t_bytes, t_ops = nbytes / BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    row = {"shape": label, "old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2,
+           "library_ms": time_ms(lib, lib_sets, reps), "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "rel_plain": r_plain, "turns_ms": t}
+    rows.append(row)
+    print(f"  {label}: old {row['old_ms']:.4f} new {row['new_ms']:.4f} ms "
+          f"({row['old_ms'] / row['new_ms']:.2f}x) library {row['library_ms']:.4f} "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']}); turns "
+          f"{' / '.join(f'{x:.4f}' for x in t)}; rel {r_plain:.1e} to plain", flush=True)
+
+
+def run(old_lib) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    stream = lambda: kernels.stream_ptr(dev)                    # noqa: E731
+    rows: list[dict] = []
+
+    def old_tcq4(a, qs, eff):
+        m, k = a.shape
+        n = qs.shape[1]
+        out_bf16 = tm.tcq4_out_bf16(m)
+        out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32,
+                          device=dev)
+        _checked(old_lib.rrs_tcq4_matmul(a.data_ptr(), qs.data_ptr(), eff.data_ptr(),
+                                         out.data_ptr(), m, k, n, int(out_bf16), stream()))
+        return out
+
+    def old_q8(a, q, scale):
+        m, k = a.shape
+        out = torch.empty((m, q.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_q8_matmul(a.data_ptr(), int(a.dtype == torch.bfloat16),
+                                       q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
+                                       q.shape[1], stream()))
+        return out
+
+    print("B4 tcq4_matmul, qwen3-4b (phase 2 shapes, and down at M = 2, 8)", flush=True)
+    for lname, (k, n) in QWEN3_4B.items():
+        wbytes = k // 2 * n + k // 32 * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+        for m in ((2, 4, 8, 16, 64, 512) if lname == "down" else (4, 16, 64, 512)):
+            a = (torch.randint(-7, 8, (m, k), generator=gen, device=dev).float()
+                 * (torch.rand((m, 1), generator=gen, device=dev) + 0.5) / 7.0)
+            a16 = a.to(torch.bfloat16)
+            ab(f"tcq4 {lname} M={m} K={k} N={n}", old_tcq4, tm.tcq4_matmul, tm.tcq4_matmul_plain,
+               lambda w: torch.matmul(a16, w), [(a, q, e) for q, e in ws], [(w,) for w in wl],
+               wbytes + m * k * 4 + m * n * 4, 2 * m * k * n, 20, 1e-3, rows)
+        del ws, wl
+        torch.cuda.empty_cache()
+
+    print("B2 q8_matmul (phase 2: qwen3-4b lm_head; phase 10: gpt-oss-20b)", flush=True)
+    shapes = [("qwen3-4b lm_head", 2560, 153600, (1, 4, 64))]
+    shapes += [(f"gpt-oss {n_}", k, n, (1, 4, 2048) if n_ != "lm_head" else (1,))
+               for n_, (k, n) in GPTOSS_Q8.items()]
+    for lname, k, n, ms_ in shapes:
+        wbytes = k * n + k // 32 * n * 4
+        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        sc = 2.0 ** torch.randint(-11, -9, (k // 32, n), generator=gen, device=dev).float()
+        wl = (qw.float().reshape(k // 32, 32, n) * sc[:, None]).reshape(k, n).to(torch.bfloat16)
+        ws = [(qw, sc)] + [(qw.clone(), sc.clone()) for _ in range(n_copies(wbytes) - 1)]
+        wls = [wl] + [wl.clone() for _ in range(n_copies(2 * k * n) - 1)]
+        for m in ms_:
+            a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            ab(f"q8 {lname} M={m} K={k} N={n}", lambda q_, s_: old_q8(a, q_, s_),
+               lambda q_, s_: q8.q8_matmul(a, q_, s_), lambda q_, s_: q8.q8_matmul_plain(a, q_, s_),
+               lambda w: torch.matmul(a, w), ws, [(w,) for w in wls],
+               wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 5, 1e-3, rows)
+        del qw, sc, wl, ws, wls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path, help="an older tree of this repo")
+    ap.add_argument("--json", type=Path, help="write the rows here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("gemm_ab: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[device] {torch.cuda.get_device_name(0)}; {smi}", flush=True)
+    kernels.lib()
+    rows = run(build_old(args.parent))
+    if args.json:
+        args.json.parent.mkdir(parents=True, exist_ok=True)
+        args.json.write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
