@@ -17,9 +17,12 @@ it; exits non-zero without either, and on any failed phase. Phases:
    for the same product, over as many weight copies as the kernel reads
    (together past L2; the i8p kernel also against the
    dequant path, within the JAX bound, and beside ``torch._int_mm`` on
-   pre-decoded int8 weights; attention over quantized caches beside SDPA on
-   caches dequantized beforehand); then each kernel's other instantiations
-   and options, untimed;
+   pre-decoded int8 weights; attention beside the faster of two SDPA forms,
+   K/V expanded to the query heads and ``enable_gqa``, on bf16 caches
+   (dequantized beforehand for the quantized ones); B7 and B8 also
+   bit-equal across two launches at the served decode step and the prefill
+   chunk); then each kernel's other instantiations and options, untimed
+   (attention at T = 9 and T = 1);
 3. main path: a 2-layer model on the card against the same weights on the
    CPU (bf16, q8 and q4 KV caches), and a 2-layer model with 3 kv heads and
    q4 KV, whose halves-packed cache takes B8 in the model; then
@@ -46,7 +49,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    completions (1000 and 2000 tokens, greedy and sampled), then a slot
    saved, erased and restored over HTTP (codes equal, scales within 1e-6)
    and a greedy continuation from it; then one context shift of a q4 lane
-   on the card held to the CPU's shift of a copy of it;
+   on the card held to the CPU's shift of a copy of it, and a profile of
+   one q4 served decode run (4 lanes, B7 its only attention kernel);
 8. the integer decode kernels and the measuring verbs at qwen3-4b width:
    B15 (``tcq4_matmul_gx3``, ``RRS_GX3``) against its plain version at M = 1
    and 4, B14 (``tcq4_matmul_gx``) against the integer oracle and bit-equal
@@ -110,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -188,8 +193,13 @@ class Report:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "library_int_mm_ms"):
                 if key in shape:
                     self.entry[key] = self.entry.get(key, 0.0) + shape[key]
-        extra = "".join(f" {k} {shape[k]:.4f}" for k in ("library_int_mm_ms", "dequant_dev")
+            if "library_form" in shape:
+                self.entry["library_form"] = shape["library_form"]
+        extra = "".join(f" {k} {shape[k]:.4f}" for k in ("library_int_mm_ms", "dequant_dev",
+                                                         "library_expanded_ms", "library_gqa_ms")
                         if k in shape)
+        if "library_form" in shape:
+            extra += f" (SDPA {shape['library_form']})"
         timed = (f" ms {shape['ms']:.4f} bound {shape['bound_ms']:.4f} ({shape['bound_by']}) "
                  f"plain {shape['plain_ms']:.4f} library {shape['library_ms']:.4f}"
                  if "ms" in shape else "")
@@ -207,6 +217,25 @@ def compare(name, got, ref, tol):
         raise AssertionError(f"{name}: kernel disagrees with its plain version: "
                              f"max abs err {err:.3e}, rel {rel:.3e} > {tol:.0e}")
     return err, rel
+
+
+def sdpa_ms(q, kv_sets, mask, g, scale, reps):
+    """The attention yardstick: SDPA on bf16 caches [B, Hkv, S, D] timed in
+    two forms, K/V expanded to the query heads with ``repeat_interleave``
+    (outside the timing) and unexpanded with ``enable_gqa=True``; the faster
+    is ``library_ms``. q [B, T, H, D], mask [B, 1, T, S] bool."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt = q.transpose(1, 2)
+    expanded = [(k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)) for k, v in kv_sets]
+    forms = {"expanded": time_ms(lambda k, v: sdpa(qt, k, v, attn_mask=mask, scale=scale),
+                                 expanded, reps),
+             "enable_gqa": time_ms(lambda k, v: sdpa(qt, k, v, attn_mask=mask, scale=scale,
+                                                    enable_gqa=True), kv_sets, reps)}
+    form = min(forms, key=forms.get)
+    return {"library_ms": forms[form], "library_form": form,
+            "library_expanded_ms": forms["expanded"], "library_gqa_ms": forms["enable_gqa"]}
 
 
 def phase_parity(peaks):
@@ -323,8 +352,6 @@ def phase_parity(peaks):
     h, hkv, d = 32, 8, 128
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
-    sdpa = lambda qq, kk, vv, mm: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qq, kk, vv, attn_mask=mm, scale=scale)
     # (T, S, each lane's first position (-1: a dead lane), headline)
     for t, s, starts, headline in ((1, 384, (367,), True), (64, 384, (304,), False),
                                    (1, 4096, (3999, 1500, 299, -1), False),
@@ -352,8 +379,6 @@ def phase_parity(peaks):
         t_ops = 4 * d * pairs / bf16_peak * 1e3
         mask = (torch.arange(s, device=dev)[None, None, :] <= pos[:, :, None]) \
             & (pos[:, :, None] >= 0)
-        lib_sets = [(q.transpose(1, 2), kc.repeat_interleave(g, 1), vc.repeat_interleave(g, 1),
-                     mask[:, None]) for kc, vc in caches[:4]]
         reps = 40 if t == 1 else (10 if t <= 64 else 3)
         rep.add({"shape": f"{label} H={h} Hkv={hkv} D={d}" + (" lane 3 dead" if b > 1 else ""),
                  "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
@@ -361,20 +386,23 @@ def phase_parity(peaks):
                                reps),
                  "plain_ms": time_ms(lambda kc, vc: fa.attention_ref(q, kc, vc, pos, scale),
                                      caches, max(2, reps // 4)),
-                 "library_ms": time_ms(sdpa, lib_sets, reps),
+                 **sdpa_ms(q, caches[:4], mask[:, None], g, scale, reps),
                  "bound_ms": max(t_bytes, t_ops),
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
                 headline=headline)
-        del caches, lib_sets, ref
+        del caches, ref
     torch.cuda.empty_cache()
     return reports
 
 
 # Attention over quantized caches: report key -> (kernel, TPU kernel it
-# replaces, codec), B6-B8.
-KVQ = {"fa_q8": ("flash_attention_q8", "rrs_tpu/ops/flash_attention.py:398", "q8"),
-       "fa_q4hp": ("flash_attention_q4hp", "rrs_tpu/ops/flash_attention.py:519", "q4hp"),
-       "fa_q4": ("flash_attention_q4", "rrs_tpu/ops/flash_attention.py:457", "q4")}
+# replaces, codec, source), B6-B8.
+KVQ = {"fa_q8": ("flash_attention_q8", "rrs_tpu/ops/flash_attention.py:398", "q8",
+                 "rrs_tpu_torch/csrc/flash_attention_kvq.cu"),
+       "fa_q4hp": ("flash_attention_q4hp", "rrs_tpu/ops/flash_attention.py:519", "q4hp",
+                   "rrs_tpu_torch/csrc/flash_attention_q4.cu"),
+       "fa_q4": ("flash_attention_q4", "rrs_tpu/ops/flash_attention.py:457", "q4",
+                 "rrs_tpu_torch/csrc/flash_attention_q4.cu")}
 
 
 def kvq_caches(codec, b, hkv, s, d, gen):
@@ -406,7 +434,10 @@ def phase_parity_kvq(peaks, reports):
     T = 1024 from 0 / 2048 / 3000 with lane 3 dead and one padded row;
     timed beside the byte bound of the codes and scales up to each lane's
     position (FLOPs at prefill), the plain version and SDPA over caches
-    dequantized to bf16 beforehand (a yardstick the port never calls)."""
+    dequantized to bf16 beforehand (a yardstick the port never calls; the
+    faster of its expanded and ``enable_gqa`` forms). B7 and B8 must give
+    the same bits on two launches at the served decode step and the prefill
+    chunk (split-S partials merged in a fixed order)."""
     import torch
 
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -419,11 +450,8 @@ def phase_parity_kvq(peaks, reports):
     h, hkv, d = 32, 8, 128
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
-    sdpa = lambda qq, kk, vv, mm: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qq, kk, vv, attn_mask=mm, scale=scale)
-    for key, (name, replaces, codec) in KVQ.items():
-        rep = reports[key] = Report(name, "rrs_tpu_torch/csrc/flash_attention_kvq.cu", replaces,
-                                    "bytes")
+    for key, (name, replaces, codec, source) in KVQ.items():
+        rep = reports[key] = Report(name, source, replaces, "bytes")
         fn = getattr(fa, name)
         code_bytes = d if codec == "q8" else d // 2          # per kv head and slot
         for t, s, starts, headline in ((1, 1024, (1000,), False), (64, 1024, (900,), False),
@@ -443,6 +471,10 @@ def phase_parity_kvq(peaks, reports):
             err, rel = compare(f"{name} {label}", got, ref, 8e-3)
             if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
                 raise AssertionError(f"{name} {label}: a padded row must output 0")
+            if codec != "q8" and s == 4096:
+                if not torch.equal(got, fn(q, *caches[0], pos, scale)):
+                    raise AssertionError(f"{name} {label}: two launches differ")
+                print(f"  {name} {label}: two launches bit-equal", flush=True)
             valid = pos[pos >= 0].to(torch.int64)
             pairs = int((valid + 1).sum().item()) * h
             slots = sum(int(row.max().item()) + 1 for row in pos if row.max().item() >= 0)
@@ -450,17 +482,16 @@ def phase_parity_kvq(peaks, reports):
             t_ops = 4 * d * pairs / bf16_peak * 1e3
             mask = (torch.arange(s, device="cuda")[None, None, :] <= pos[:, :, None]) \
                 & (pos[:, :, None] >= 0)
-            lib_sets = [(q.transpose(1, 2),
-                         kv_codec.dequantize(kq, ks).to(torch.bfloat16).repeat_interleave(g, 1),
-                         kv_codec.dequantize(vq, vs).to(torch.bfloat16).repeat_interleave(g, 1),
-                         mask[:, None]) for kq, ks, vq, vs in caches[:2]]
+            lib_sets = [(kv_codec.dequantize(kq, ks).to(torch.bfloat16),
+                         kv_codec.dequantize(vq, vs).to(torch.bfloat16))
+                        for kq, ks, vq, vs in caches[:2]]
             reps = 40 if t == 1 else (10 if t <= 64 else 3)
             rep.add({"shape": f"{label} H={h} Hkv={hkv} D={d}" + (" lane 3 dead" if b > 1 else ""),
                      "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
                      "ms": time_ms(lambda *c: fn(q, *c, pos, scale), caches, reps),
                      "plain_ms": time_ms(lambda *c: fa.attention_kvq_ref(q, *c, pos, scale),
                                          caches, max(2, reps // 4)),
-                     "library_ms": time_ms(sdpa, lib_sets, reps),
+                     **sdpa_ms(q, lib_sets, mask[:, None], g, scale, reps),
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
                     headline=headline)
@@ -622,7 +653,8 @@ def phase_variants():
     M >= 1024) and a ragged N, and attention over bf16, q8, q4 head-pair and
     q4 halves caches at head dims 64 and 256, without grouping, over two
     lanes with one padded, and with each option (window over a ring cache,
-    softcap, ALiBi, sinks)."""
+    softcap, ALiBi, sinks), each at T = 9 and T = 1 (B7 / B8's prefill and
+    split-S decode bodies)."""
     import torch
 
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -658,9 +690,9 @@ def phase_variants():
              "B=2 dead lane": dict(b=2), "window ring": dict(s=64, window=24, start=100),
              "softcap": dict(softcap=20.0), "alibi": dict(alibi=8.0), "sinks": dict(sinks=True)}
     for codec in ("bf16", "q8", "q4hp", "q4"):
-        for name, c in cases.items():
-            b, t, h, hkv, d, s = c.get("b", 1), 9, c.get("h", 8), c.get("hkv", 2), \
-                c.get("d", 128), c.get("s", 160)
+        for (name, c), t in itertools.product(cases.items(), (9, 1)):
+            b, h, hkv, d, s = c.get("b", 1), c.get("h", 8), c.get("hkv", 2), c.get("d", 128), \
+                c.get("s", 160)
             start = c.get("start", 60)
             q = torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
             if codec == "bf16":
@@ -671,7 +703,8 @@ def phase_variants():
                 caches = kvq_caches(codec, b, hkv, s, d, gen)
                 kernel, plain = getattr(fa, KVQ["fa_" + codec][0]), fa.attention_kvq_ref
             pos = torch.arange(start, start + t, device=dev, dtype=torch.int32).repeat(b, 1)
-            pos[0, -2:] = -1                                # two padded rows
+            if t > 1:
+                pos[0, -2:] = -1                            # two padded rows
             if b > 1:
                 pos[1] = -1                                 # a lane with no token
             kw = dict(softcap=c.get("softcap", 0.0), window=c.get("window", 0),
@@ -680,10 +713,12 @@ def phase_variants():
                 kw["sinks"] = torch.randn((h,), generator=gen, device=dev)
             scale = 1.0 / math.sqrt(d)
             got = kernel(q, *caches, pos, scale, **kw)
-            compare(f"{kernel.__name__} {name}", got, plain(q, *caches, pos, scale, **kw), 8e-3)
-            if got[pos < 0].float().abs().max().item() != 0.0:
-                raise AssertionError(f"{kernel.__name__} {name}: a padded row must output 0")
-            done.append(f"{codec} {name}")
+            compare(f"{kernel.__name__} {name} T={t}", got,
+                    plain(q, *caches, pos, scale, **kw), 8e-3)
+            if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
+                raise AssertionError(f"{kernel.__name__} {name} T={t}: a padded row must "
+                                     f"output 0")
+            done.append(f"{codec} {name} T={t}")
     print(f"  variants agree with their plain versions: {', '.join(done)}", flush=True)
 
 
@@ -871,9 +906,11 @@ GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul
 # and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...> or TCQ4<...>) names
 # the kernel
 SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul"}
+# B7 and B8 share q4_attention_kernel<D, codec, decode body>
+Q4_CODECS = {"1": "flash_attention_q4hp", "2": "flash_attention_q4"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
                 "i8p_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
-                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_kvq",
+                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_q8",
                 "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
                 "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
                 "tcq4_experts_gemm_kernel": "tcq4_matmul_all_experts",
@@ -992,6 +1029,9 @@ def kernel_label(name: str) -> str:
     m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4)<", name)
     if m:
         return SM90_LOADERS[m.group(1)]
+    m = re.search(r"q4_attention_kernel<\d+, (\d), (true|false)>", name)
+    if m:
+        return f"{Q4_CODECS[m.group(1)]} ({'decode' if m.group(2) == 'true' else 'prefill'})"
     return next((v for k, v in KERNEL_NAMES.items() if k in name), "other")
 
 
@@ -1205,17 +1245,7 @@ def phase_decode_run_check(ctx):
     from rrs_tpu_torch.runtime.sampler import SamplerParams, topk_candidates
 
     kv = ctx.kv
-    for seq in [s for s in kv.seq_ids if s is not None]:
-        kv.seq_rm(seq)
-    rng = torch.Generator().manual_seed(11)
-    seqs, first, lengths = [], {}, {}
-    for n in (40, 300, 1000, 100):
-        seq = ctx.new_sequence()
-        logits = ctx.prefill(seq, torch.randint(2, ctx.cfg.vocab_size, (n,),
-                                                generator=rng).tolist(), all_logits=False)
-        seqs.append(seq)
-        first[seq] = int(logits[-1].argmax())
-        lengths[seq] = kv.lengths[kv.lane_of(seq)]
+    seqs, first, lengths = prefill_four(ctx)
     n = ctx.DECODE_RUN_STEPS
     greedy = SamplerParams(temperature=0.0)
     toks, _ = ctx.decode_run(first, {s: torch.Generator(device=ctx.device).manual_seed(s)
@@ -1241,7 +1271,28 @@ def phase_decode_run_check(ctx):
         kv.seq_rm(seq)
 
 
-def profile_decode_run(ctx, seqs, first, lengths):
+def prefill_four(ctx):
+    """The 4-lane context emptied, then four prompts (40 / 300 / 1000 / 100
+    tokens) prefilled one by one: (sequences, each one's first token, each
+    one's length)."""
+    import torch
+
+    kv = ctx.kv
+    for seq in [s for s in kv.seq_ids if s is not None]:
+        kv.seq_rm(seq)
+    rng = torch.Generator().manual_seed(11)
+    seqs, first, lengths = [], {}, {}
+    for n in (40, 300, 1000, 100):
+        seq = ctx.new_sequence()
+        logits = ctx.prefill(seq, torch.randint(2, ctx.cfg.vocab_size, (n,),
+                                                generator=rng).tolist(), all_logits=False)
+        seqs.append(seq)
+        first[seq] = int(logits[-1].argmax())
+        lengths[seq] = kv.lengths[kv.lane_of(seq)]
+    return seqs, first, lengths
+
+
+def profile_decode_run(ctx, seqs, first, lengths, label: str = "bf16 KV"):
     """Where a served decode step's time goes: one sampled 4-lane device run
     (the server's default chain) timed by the host clock to its readback,
     then one more under torch.profiler."""
@@ -1280,11 +1331,11 @@ def profile_decode_run(ctx, seqs, first, lengths):
     dev_ms = sum(by_name.values()) / n
     split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
                                                            key=lambda kv: -kv[1]))
-    print(f"  decode-run profile ({n} steps, 4 lanes, S={ctx.kv.max_seq}, sampled): wall "
+    print(f"  decode-run profile, {label} ({n} steps, 4 lanes, S={ctx.kv.max_seq}, sampled): wall "
           f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
           f"{1 - dev_ms / wall_ms:.3f}, {len(events) / n:.0f} kernels/step; device ms/step "
           f"by kernel: {split}", flush=True)
-    print(f"  decode-run profile, host ms/step by op: {host_top(prof, n)}", flush=True)
+    print(f"  decode-run profile, {label}, host ms/step by op: {host_top(prof, n)}", flush=True)
 
 
 @contextlib.contextmanager
@@ -1514,6 +1565,21 @@ def slot_round_trip(port, engine, ids) -> str:
     return (f"slot 0 round trip: saved {n} slots ({n_bytes / 1e6:.1f} MB file), erased, "
             f"restored with equal codes and scales within rel {worst:.1e}; a greedy "
             f"continuation reused {slot.n_reused} cached tokens and gave 16 tokens")
+
+
+def phase_q4_decode_profile(ctx):
+    """Where a q4 served decode step's time goes: the q4 server's 4-lane
+    context, four prompts prefilled, then ``profile_decode_run`` as phase 5
+    runs it over bf16 KV; the run's attention must be B7 alone."""
+    from rrs_tpu_torch import kernels
+
+    seqs, first, lengths = prefill_four(ctx)
+    kernels.reset_launches()
+    profile_decode_run(ctx, seqs, first, lengths, label="q4 KV")
+    if kernels.LAUNCHES["flash_attention_q4hp"] == 0 or kernels.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"q4 decode run: attention launches {kernels.LAUNCHES}")
+    for seq in seqs:
+        ctx.kv.seq_rm(seq)
 
 
 def phase_shift_q4(ctx):
@@ -2326,16 +2392,13 @@ def phase_parity_gptoss(peaks, reports):
         t_bytes = ms(2 * 2 * hkv * win * code_bytes + 2 * 2 * h * d * 2)
         t_ops = 4 * d * 2 * h * win / bf16_peak * 1e3
         # SDPA has no sinks: the yardstick attends the same window without them
-        sdpa = lambda kk, vv: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-            q.transpose(1, 2), kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1),
-            attn_mask=mask, scale=scale)
         reports[key].add({"shape": f"gpt-oss ring T=1 B=2 S={s} window {win} sinks H={h} "
                                    f"Hkv={hkv} D={d}",
                           "max_abs_err": err, "rel_err": rel, "tol": 8e-3,
                           "ms": time_ms(lambda *c: kern(q, *c, pos, scale, **kw), caches, 40),
                           "plain_ms": time_ms(lambda *c: plain(q, *c, pos, scale, **kw),
                                               caches[:2], 5),
-                          "library_ms": time_ms(sdpa, lib_sets, 40),
+                          **sdpa_ms(q, lib_sets, mask, g, scale, 40),
                           **bound(t_bytes, t_ops)}, headline=False)
         del caches, lib_sets
     torch.cuda.empty_cache()
@@ -3224,9 +3287,11 @@ def main() -> int:
     header("[6/12] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/12] serving with --cache-type q4: slot save / erase / restore, context shift")
+    header("[7/12] serving with --cache-type q4: slot save / erase / restore, context shift, "
+           "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
+    phase_q4_decode_profile(ctx)
     del ctx
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()

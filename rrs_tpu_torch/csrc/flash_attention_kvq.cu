@@ -1,42 +1,30 @@
-// Online-softmax GQA attention over quantized KV caches: int8 rows (q8), and
-// packed int4 in the head-pair (q4hp) and halves (q4) layouts, each with an
-// f32 scale per (kv head, slot) in [B, Hkv, 1, S].
+// Online-softmax GQA attention over an int8 KV cache (q8 rows of
+// rrs_tpu_torch/runtime/kv_codec.py) with an f32 scale per (kv head, slot)
+// in [B, Hkv, 1, S].
 //
-// Replaces three TPU kernels of rrs_tpu/ops/flash_attention.py:
-//   B6 :398 flash_attention_q8   (_kernel_q8 :198, _kernel_q8_sink :291);
-//   B7 :519 flash_attention_q4hp (_kernel_q4hp :262, _kernel_q4hp_sink :276,
-//                                 _q4hp_kv :249);
-//   B8 :457 flash_attention_q4   (_kernel_q4 :221, _kernel_q4_sink :235,
-//                                 _unpack_kv4 :212).
-// The function is dequantize, then attend (rrs_tpu_torch/runtime/kv_codec.py
-// layouts), with every option of the bf16 kernel: the causal mask from
+// Replaces B6 rrs_tpu/ops/flash_attention.py:398 flash_attention_q8
+// (_kernel_q8 :198, _kernel_q8_sink :291). The function is dequantize, then
+// attend, with every option of the bf16 kernel: the causal mask from
 // per-row positions (-1 marks a padded row, which outputs exactly 0), ring
 // caches with a sliding window, logit softcap, ALiBi and per-head sinks.
+// The packed int4 caches (B7, B8) have their own bodies in
+// csrc/flash_attention_q4.cu.
 //
 // Bound on the H100: bytes at decode (codes and scales up to each row's
-// position, read once per step: a quarter (q4) or half (q8) of the bf16
-// cache's), operations at prefill (4 * D FLOPs per unmasked (query, slot)
-// pair).
+// position, read once per step: half the bf16 cache's), operations at
+// prefill (4 * D FLOPs per unmasked (query, slot) pair).
 //
-// Design: the bf16 kernel's (csrc/flash_attention.cu), templated on the
-// codec. One block of 128 threads per (lane, code plane, query tile); the
-// query heads of the plane's kv heads share every staged tile. K/V tiles are
-// staged in shared memory as raw codes, one byte per element for q8 and half
-// a byte for q4 (rows skewed to an odd number of words, so the QK loop's
-// row-per-thread reads are conflict-free), and decoded to f32 inside the QK
-// and PV loops. The TPU kernels apply the scales and the head-pair +8 bias
-// in an epilogue, a Mosaic layout workaround; here the nibble is decoded
-// with its bias, the score is multiplied by scale * k_s[slot], and p by
+// Design: the bf16 kernel's (csrc/flash_attention.cu). One block of 128
+// threads per (lane, kv head, query tile); the G query heads of the kv head
+// share every staged tile. K/V tiles are staged in shared memory as raw
+// int8 codes (rows skewed to an odd number of words, so the QK loop's
+// row-per-thread reads are conflict-free) and converted to f32 inside the
+// QK and PV loops; the score is multiplied by scale * k_s[slot], and p by
 // v_s[slot] before the PV loop (the running denominator sums p unscaled).
-//
-// Head pairs (B7): one block serves a whole plane, both kv heads of a pair
-// and their 2G query rows, each row decoding its own nibble and reading its
-// own head's scales. At decode the kernel is bound by bytes, and this reads
-// every packed byte from device memory once; one block per kv head would
-// read each byte twice (once per nibble) and stage half-used tiles. The cost
-// is half as many blocks at decode (B * Hkv / 2), a grid already far too
-// small to fill the card in the bf16 kernel: splitting S (flash-decoding),
-// mma tiles and TMA are left for the change that makes these kernels fast.
+// At decode the grid (B * Hkv blocks) is far too small to fill the card and
+// the loops are scalar: the split-S and tensor-core bodies of
+// flash_attention_q4.cu, given an int8 loader, are its redesign (ROADMAP
+// queue R).
 
 #include <algorithm>
 
@@ -44,17 +32,15 @@
 
 namespace {
 
-enum Codec { kQ8 = 0, kQ4HeadPair = 1, kQ4Halves = 2 };
-
 constexpr int kThreads = 128;
 constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;   // NEG_INF of the JAX kernel
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-template <int D, int C>
+template <int D>
 struct Cfg {
-  static constexpr int kNH = C == kQ4HeadPair ? 2 : 1;         // kv heads per code plane
-  static constexpr int kRowBytes = C == kQ4Halves ? D / 2 : D;  // code bytes of one slot
+  static constexpr int kNH = 1;                                 // kv heads per code plane
+  static constexpr int kRowBytes = D;                           // code bytes of one slot
   static constexpr int kLdC = kRowBytes + 4;                    // odd word count per row
   static constexpr int kBS = D <= 128 ? 64 : 32;                // KV slots per tile
   static constexpr int kRMax = D <= 128 ? 64 : 32;              // query rows per block
@@ -87,71 +73,30 @@ struct Args {
   int window;
 };
 
-// Code of byte `c` of a little-endian word: a signed byte (q8), the nibble
-// of kv head `sub` less its +8 bias (q4hp), or the low nibble sign-extended
-// (q4 halves; the high nibble is `hi_code`).
-template <int C>
-__device__ __forceinline__ float byte_code(uint32_t word, int c, int sub) {
-  const uint32_t b = (word >> (8 * c)) & 0xffu;
-  if constexpr (C == kQ8) {
-    return static_cast<float>(static_cast<int8_t>(b));
-  } else if constexpr (C == kQ4HeadPair) {
-    return static_cast<float>(static_cast<int>((b >> (4 * sub)) & 15u) - 8);
-  } else {
-    return static_cast<float>(static_cast<int>((b & 15u) ^ 8u) - 8);
-  }
-}
-
-__device__ __forceinline__ float hi_code(uint32_t word, int c) {
-  return static_cast<float>(static_cast<int>(((word >> (8 * c + 4)) & 15u) ^ 8u) - 8);
-}
-
-// Code of element d of a staged slot row.
-template <int D, int C>
-__device__ __forceinline__ float code_at(const uint8_t* row, int d, int sub) {
-  if constexpr (C == kQ4Halves) {
-    return d < D / 2 ? byte_code<C>(row[d], 0, 0) : hi_code(row[d - D / 2], 0);
-  } else {
-    return byte_code<C>(row[d], 0, sub);
-  }
+// Code of byte `c` of a little-endian word (a signed byte).
+__device__ __forceinline__ float byte_code(uint32_t word, int c) {
+  return static_cast<float>(static_cast<int8_t>((word >> (8 * c)) & 0xffu));
 }
 
 // q . codes over D for one query row (bf16 in shared memory) and one staged
 // slot row.
-template <int D, int C>
-__device__ __forceinline__ float qk_dot(const __nv_bfloat16* qr, const uint8_t* kr, int sub) {
+template <int D>
+__device__ __forceinline__ float qk_dot(const __nv_bfloat16* qr, const uint8_t* kr) {
   float dot = 0.f;
-  if constexpr (C == kQ4Halves) {
 #pragma unroll 4
-    for (int w = 0; w < D / 8; ++w) {
-      const uint32_t word = *reinterpret_cast<const uint32_t*>(kr + 4 * w);
-      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w));
-      const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w + 2));
-      const float2 b0 =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + D / 2 + 4 * w));
-      const float2 b1 =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + D / 2 + 4 * w + 2));
-      dot += a0.x * byte_code<C>(word, 0, 0) + a0.y * byte_code<C>(word, 1, 0) +
-             a1.x * byte_code<C>(word, 2, 0) + a1.y * byte_code<C>(word, 3, 0);
-      dot += b0.x * hi_code(word, 0) + b0.y * hi_code(word, 1) + b1.x * hi_code(word, 2) +
-             b1.y * hi_code(word, 3);
-    }
-  } else {
-#pragma unroll 4
-    for (int w = 0; w < D / 4; ++w) {
-      const uint32_t word = *reinterpret_cast<const uint32_t*>(kr + 4 * w);
-      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w));
-      const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w + 2));
-      dot += a0.x * byte_code<C>(word, 0, sub) + a0.y * byte_code<C>(word, 1, sub) +
-             a1.x * byte_code<C>(word, 2, sub) + a1.y * byte_code<C>(word, 3, sub);
-    }
+  for (int w = 0; w < D / 4; ++w) {
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(kr + 4 * w);
+    const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w));
+    const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qr + 4 * w + 2));
+    dot += a0.x * byte_code(word, 0) + a0.y * byte_code(word, 1) + a1.x * byte_code(word, 2) +
+           a1.y * byte_code(word, 3);
   }
   return dot;
 }
 
-template <int D, int C>
+template <int D>
 __global__ void __launch_bounds__(kThreads) kvq_kernel(const Args a) {
-  using K = Cfg<D, C>;
+  using K = Cfg<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   uint8_t* Ks = smem + K::kQ;
@@ -258,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) kvq_kernel(const Args a) {
       valid = valid && slot < S;
       float sc = neg_inf();
       if (valid) {
-        sc = qk_dot<D, C>(Qs + r * K::kLdQ, Ks + s * K::kLdC, sub) * a.scale *
+        sc = qk_dot<D>(Qs + r * K::kLdQ, Ks + s * K::kLdC) * a.scale *
              KSs[sub * K::kBS + s];
         if (a.softcap > 0.f) sc = tanhf(sc / a.softcap) * a.softcap;
         if (a.slopes != nullptr) sc += a.slopes[p * GG + gg] * static_cast<float>(real - pos);
@@ -297,12 +242,12 @@ __global__ void __launch_bounds__(kThreads) kvq_kernel(const Args a) {
       if (r < R) {
         const float corr = row_corr[r];
         const float* pr = Ps + r * K::kBS;
-        const int sub = (r % GG) / G;
 #pragma unroll
         for (int c = 0; c < K::kCPT; ++c) {
           const int d = dcol + c * K::kDC;
           float sacc = 0.f;
-          for (int s = 0; s < K::kBS; ++s) sacc += pr[s] * code_at<D, C>(Vs + s * K::kLdC, d, sub);
+          for (int s = 0; s < K::kBS; ++s) sacc += pr[s] * static_cast<float>(
+              static_cast<int8_t>(Vs[s * K::kLdC + d]));
           acc[i][c] = acc[i][c] * corr + sacc;
         }
       }
@@ -327,30 +272,29 @@ __global__ void __launch_bounds__(kThreads) kvq_kernel(const Args a) {
   }
 }
 
-template <int D, int C>
+template <int D>
 int launch(Args a, int B, cudaStream_t st) {
-  using K = Cfg<D, C>;
+  using K = Cfg<D>;
   const int G = a.H / a.Hkv;
   if (a.Hkv % K::kNH != 0 || K::kNH * G > K::kRMax) return rrs::kBadArgs;
   a.tq = std::min(a.T, K::kRMax / (K::kNH * G));
   static bool configured = false;
   if (!configured) {
-    if (cudaFuncSetAttribute(kvq_kernel<D, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (cudaFuncSetAttribute(kvq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(K::kBytes)) != cudaSuccess)
       return rrs::status();
     configured = true;
   }
   const dim3 grid(B * (a.Hkv / K::kNH), (a.T + a.tq - 1) / a.tq);
-  kvq_kernel<D, C><<<grid, kThreads, K::kBytes, st>>>(a);
+  kvq_kernel<D><<<grid, kThreads, K::kBytes, st>>>(a);
   return rrs::status();
 }
 
-template <int C>
 int launch_d(const Args& a, int B, int D, cudaStream_t st) {
   switch (D) {
-    case 64: return launch<64, C>(a, B, st);
-    case 128: return launch<128, C>(a, B, st);
-    case 256: return launch<256, C>(a, B, st);
+    case 64: return launch<64>(a, B, st);
+    case 128: return launch<128>(a, B, st);
+    case 256: return launch<256>(a, B, st);
     default: return rrs::kBadArgs;
   }
 }
@@ -362,17 +306,11 @@ RRS_EXPORT int rrs_flash_attention_kvq(int codec, const void* q, const void* kc,
                                        const void* sinks, const void* slopes, void* out, int B,
                                        int T, int H, int Hkv, int S, int D, float scale,
                                        float softcap, int window, void* stream) {
-  if (B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || S < 1) return rrs::kBadArgs;
+  if (codec != 0 || B < 1 || T < 1 || Hkv < 1 || H % Hkv != 0 || S < 1) return rrs::kBadArgs;
   Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(kc),
          static_cast<const float*>(ks), static_cast<const uint8_t*>(vc),
          static_cast<const float*>(vs), static_cast<const int*>(pos),
          static_cast<const float*>(sinks), static_cast<const float*>(slopes),
          static_cast<__nv_bfloat16*>(out), T, H, Hkv, S, 0, scale, softcap, window};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (codec) {
-    case kQ8: return launch_d<kQ8>(a, B, D, st);
-    case kQ4HeadPair: return launch_d<kQ4HeadPair>(a, B, D, st);
-    case kQ4Halves: return launch_d<kQ4Halves>(a, B, D, st);
-    default: return rrs::kBadArgs;
-  }
+  return launch_d(a, B, D, static_cast<cudaStream_t>(stream));
 }

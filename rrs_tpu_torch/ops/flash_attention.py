@@ -12,8 +12,9 @@ attend.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches its kernel (``csrc/flash_attention.cu`` for bf16 caches,
-``csrc/flash_attention_kvq.cu`` for the quantized ones; bf16 q, D in
-64/128/256) or raises.
+``csrc/flash_attention_kvq.cu`` for int8 ones, ``csrc/flash_attention_q4.cu``
+for packed int4 ones, on the split-S plan of ``ops/attn_split.py``; bf16 q,
+D in 64/128/256) or raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from rrs_tpu_torch import kernels
+from rrs_tpu_torch.ops import attn_split, splitk
 from rrs_tpu_torch.runtime import kv_codec
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
@@ -125,7 +127,8 @@ def flash_attention(q, k_cache, v_cache, positions, scale: float,
 
 
 
-# codec ids of rrs_flash_attention_kvq (csrc/flash_attention_kvq.cu)
+# codec ids of rrs_flash_attention_kvq (csrc/flash_attention_kvq.cu, q8) and
+# rrs_flash_attention_q4 (csrc/flash_attention_q4.cu)
 _CODECS = {"flash_attention_q8": 0, "flash_attention_q4hp": 1, "flash_attention_q4": 2}
 
 
@@ -171,11 +174,18 @@ def _attention_kvq(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, windo
     if alibi:
         slopes = torch.from_numpy(alibi_slopes_np(h, alibi)).to(dev)
     out = torch.empty_like(q)
-    code = kernels.lib().rrs_flash_attention_kvq(
-        _CODECS[name], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-        v_s.data_ptr(), pos.data_ptr(), None if sk is None else sk.data_ptr(),
-        None if slopes is None else slopes.data_ptr(), out.data_ptr(), b, t, h, hkv, s, d,
-        float(scale), float(softcap), int(window), kernels.stream_ptr(dev))
+    args = (_CODECS[name], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), pos.data_ptr(), None if sk is None else sk.data_ptr(),
+            None if slopes is None else slopes.data_ptr(), out.data_ptr(), b, t, h, hkv, s, d,
+            float(scale), float(softcap), int(window))
+    if name == "flash_attention_q8":
+        code = kernels.lib().rrs_flash_attention_kvq(*args, kernels.stream_ptr(dev))
+    else:
+        p = attn_split.plan(b, planes, hkv // planes, t, h // hkv, s, d)
+        scratch, counters = attn_split.buffers(p, dev)
+        code = kernels.lib().rrs_flash_attention_q4(
+            *args, p.n_split, p.split_tiles, splitk.ptr(scratch), splitk.ptr(counters),
+            kernels.stream_ptr(dev))
     kernels.check(name, code)
     return out
 

@@ -57,19 +57,27 @@ def plan(m: int, k: int, n: int, unit: int) -> Plan:
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 arrival counters, at least ``n``: grown here,
+    zeroed once, and left zero by every kernel that counts on them (the
+    split-K matmuls here, the split-S attention of ``ops/attn_split.py``),
+    so launches in stream order share them."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 4096),), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
 def buffers(p: Plan, device: torch.device):
     """(scratch, counters) for a launch under plan ``p``: the partial sums,
-    fresh from the caching allocator, and the device's tile counters (grown
-    here, zeroed once, kept zero by the kernels). Both None with one slice."""
+    fresh from the caching allocator, and the device's tile counters. Both
+    None with one slice."""
     if p.slices == 1:
         return None, None
     scratch = torch.empty((p.scratch_elems,), dtype=torch.float32, device=device)
     tiles = p.scratch_elems // (p.slices * STRIP)          # strips x rows, an upper bound
-    counters = _COUNTERS.get(device)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros((max(tiles, 4096),), dtype=torch.int32, device=device)
-        _COUNTERS[device] = counters
-    return scratch, counters
+    return scratch, counters(device, tiles)
 
 
 def ptr(t) -> int:

@@ -46,9 +46,12 @@ QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
 GPTOSS_Q8 = {"qkv": (3072, 5120), "o": (4096, 2944), "lm_head": (3072, 202752)}
 
 
-def build_old(parent: Path) -> ctypes.CDLL:
-    """The older tree's B2 and B4, built in a temporary directory."""
-    tmp = Path(tempfile.mkdtemp(prefix="gemm_ab_"))
+def build_old(parent: Path, sources=("q8_matmul.cu", "tcq4_matmul.cu"),
+              signatures=OLD_SIGNATURES) -> ctypes.CDLL:
+    """The older tree's kernels in ``sources`` (files of its
+    ``rrs_tpu_torch/csrc``), built in a temporary directory with this tree's
+    ``nvcc`` flags and bound with the older C ``signatures``."""
+    tmp = Path(tempfile.mkdtemp(prefix="ab_old_"))
     src = parent / "rrs_tpu_torch" / "csrc"
     for p in src.iterdir():
         if p.suffix in (".cu", ".cuh"):
@@ -57,16 +60,16 @@ def build_old(parent: Path) -> ctypes.CDLL:
     procs = [subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-c", str(tmp / name), "-o",
                                str(tmp / (name + ".o"))], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for name in ("q8_matmul.cu", "tcq4_matmul.cu")]
+             for name in sources]
     for p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError("older kernels failed to build:\n" + log)
-    lib_path = tmp / "libgemm_old.so"
-    subprocess.run([nvcc, kernels.ARCH, "-shared", str(tmp / "q8_matmul.cu.o"),
-                    str(tmp / "tcq4_matmul.cu.o"), "-o", str(lib_path)], check=True)
+    lib_path = tmp / "libab_old.so"
+    subprocess.run([nvcc, kernels.ARCH, "-shared", *[str(tmp / (name + ".o")) for name in sources],
+                    "-o", str(lib_path)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in OLD_SIGNATURES.items():
+    for name, argtypes in signatures.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
