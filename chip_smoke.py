@@ -19,7 +19,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    dequant path, within the JAX bound, and beside ``torch._int_mm`` on
    pre-decoded int8 weights; attention beside the faster of two SDPA forms,
    K/V expanded to the query heads and ``enable_gqa``, on bf16 caches
-   (dequantized beforehand for the quantized ones); B7 and B8 also
+   (dequantized beforehand for the quantized ones); B3 and B6-B8 also
    bit-equal across two launches at the served decode step and the prefill
    chunk); then each kernel's other instantiations and options, untimed
    (attention at T = 9 and T = 1);
@@ -347,7 +347,7 @@ def phase_parity(peaks):
     # -- flash_attention: generate's T = 1 and 64 over S = 384, and a served
     # step's 4 lanes over the 4096-slot cache at T = 1 (decode) and T = 1024
     # (a prefill chunk), lane 3 dead; at T > 1 one row is padded ------------
-    rep = reports["fa"] = Report("flash_attention", "rrs_tpu_torch/csrc/flash_attention.cu",
+    rep = reports["fa"] = Report("flash_attention", ATTN_SOURCE,
                                  "rrs_tpu/ops/flash_attention.py:343", "bytes")
     h, hkv, d = 32, 8, 128
     g = h // hkv
@@ -372,6 +372,10 @@ def phase_parity(peaks):
         err, rel = compare(f"flash_attention {label}", got, ref, 8e-3)
         if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
             raise AssertionError(f"flash_attention {label}: a padded row must output 0")
+        if s == 4096:
+            if not torch.equal(got, fa.flash_attention(q, *caches[0], pos, scale)):
+                raise AssertionError(f"flash_attention {label}: two launches differ")
+            print(f"  flash_attention {label}: two launches bit-equal", flush=True)
         valid = pos[pos >= 0].to(torch.int64)
         pairs = int((valid + 1).sum().item()) * h          # unmasked (row, slot) pairs
         slots = sum(int(row.max().item()) + 1 for row in pos if row.max().item() >= 0)
@@ -395,14 +399,14 @@ def phase_parity(peaks):
     return reports
 
 
+# B3 and B6-B8 are one kernel template with a loader per cache codec
+ATTN_SOURCE = "rrs_tpu_torch/csrc/attention_sm90.cuh"
 # Attention over quantized caches: report key -> (kernel, TPU kernel it
 # replaces, codec, source), B6-B8.
-KVQ = {"fa_q8": ("flash_attention_q8", "rrs_tpu/ops/flash_attention.py:398", "q8",
-                 "rrs_tpu_torch/csrc/flash_attention_kvq.cu"),
+KVQ = {"fa_q8": ("flash_attention_q8", "rrs_tpu/ops/flash_attention.py:398", "q8", ATTN_SOURCE),
        "fa_q4hp": ("flash_attention_q4hp", "rrs_tpu/ops/flash_attention.py:519", "q4hp",
-                   "rrs_tpu_torch/csrc/flash_attention_q4.cu"),
-       "fa_q4": ("flash_attention_q4", "rrs_tpu/ops/flash_attention.py:457", "q4",
-                 "rrs_tpu_torch/csrc/flash_attention_q4.cu")}
+                   ATTN_SOURCE),
+       "fa_q4": ("flash_attention_q4", "rrs_tpu/ops/flash_attention.py:457", "q4", ATTN_SOURCE)}
 
 
 def kvq_caches(codec, b, hkv, s, d, gen):
@@ -435,8 +439,8 @@ def phase_parity_kvq(peaks, reports):
     timed beside the byte bound of the codes and scales up to each lane's
     position (FLOPs at prefill), the plain version and SDPA over caches
     dequantized to bf16 beforehand (a yardstick the port never calls; the
-    faster of its expanded and ``enable_gqa`` forms). B7 and B8 must give
-    the same bits on two launches at the served decode step and the prefill
+    faster of its expanded and ``enable_gqa`` forms). Each must give the
+    same bits on two launches at the served decode step and the prefill
     chunk (split-S partials merged in a fixed order)."""
     import torch
 
@@ -471,7 +475,7 @@ def phase_parity_kvq(peaks, reports):
             err, rel = compare(f"{name} {label}", got, ref, 8e-3)
             if (pos < 0).any() and got[pos < 0].float().abs().max().item() != 0.0:
                 raise AssertionError(f"{name} {label}: a padded row must output 0")
-            if codec != "q8" and s == 4096:
+            if s == 4096:
                 if not torch.equal(got, fn(q, *caches[0], pos, scale)):
                     raise AssertionError(f"{name} {label}: two launches differ")
                 print(f"  {name} {label}: two launches bit-equal", flush=True)
@@ -653,8 +657,8 @@ def phase_variants():
     M >= 1024) and a ragged N, and attention over bf16, q8, q4 head-pair and
     q4 halves caches at head dims 64 and 256, without grouping, over two
     lanes with one padded, and with each option (window over a ring cache,
-    softcap, ALiBi, sinks), each at T = 9 and T = 1 (B7 / B8's prefill and
-    split-S decode bodies)."""
+    softcap, ALiBi, sinks), each at T = 9 and T = 1 (the prefill and split-S
+    decode bodies of each codec)."""
     import torch
 
     from rrs_tpu_torch.ops import flash_attention as fa
@@ -906,11 +910,12 @@ GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul
 # and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...> or TCQ4<...>) names
 # the kernel
 SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul"}
-# B7 and B8 share q4_attention_kernel<D, codec, decode body>
-Q4_CODECS = {"1": "flash_attention_q4hp", "2": "flash_attention_q4"}
+# B3 and B6-B8 share attention_kernel<D, codec, decode body>, with the codec
+# ids of csrc/attention_sm90.cuh
+ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
+               "3": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
                 "i8p_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
-                "flash_kernel": "flash_attention", "kvq_kernel": "flash_attention_q8",
                 "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
                 "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
                 "tcq4_experts_gemm_kernel": "tcq4_matmul_all_experts",
@@ -1029,9 +1034,9 @@ def kernel_label(name: str) -> str:
     m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4)<", name)
     if m:
         return SM90_LOADERS[m.group(1)]
-    m = re.search(r"q4_attention_kernel<\d+, (\d), (true|false)>", name)
+    m = re.search(r"attention_kernel<\d+, (\d), (true|false)>", name)
     if m:
-        return f"{Q4_CODECS[m.group(1)]} ({'decode' if m.group(2) == 'true' else 'prefill'})"
+        return f"{ATTN_CODECS[m.group(1)]} ({'decode' if m.group(2) == 'true' else 'prefill'})"
     return next((v for k, v in KERNEL_NAMES.items() if k in name), "other")
 
 

@@ -11,10 +11,11 @@ f32 [B, Hkv, 1, S] scales) layouts, and their function is dequantize, then
 attend.
 
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
-it launches its kernel (``csrc/flash_attention.cu`` for bf16 caches,
-``csrc/flash_attention_kvq.cu`` for int8 ones, ``csrc/flash_attention_q4.cu``
-for packed int4 ones, on the split-S plan of ``ops/attn_split.py``; bf16 q,
-D in 64/128/256) or raises.
+it launches its kernel or raises. All four kernels are one template
+(``csrc/attention_sm90.cuh``, a split-S decode body and a tensor-core
+prefill body) with a loader per cache codec, reached through one C entry,
+``rrs_flash_attention``, on the plan of ``ops/attn_split.py`` (bf16 q, D in
+64/128/256).
 """
 
 from __future__ import annotations
@@ -95,41 +96,14 @@ def flash_attention(q, k_cache, v_cache, positions, scale: float,
     if q.device.type == "cpu":
         return attention_ref(q, k_cache, v_cache, positions, scale, softcap=softcap,
                              window=window, sinks=sinks, alibi=alibi)
-    b, t, h, d = q.shape
-    hkv, s = k_cache.shape[1], k_cache.shape[2]
-    if h % hkv or k_cache.shape != (b, hkv, s, d) or v_cache.shape != k_cache.shape \
-            or positions.shape != (b, t):
-        raise ValueError(f"flash_attention shapes: q {tuple(q.shape)}, k "
-                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}, "
-                         f"positions {tuple(positions.shape)}")
-    if d not in (64, 128, 256):
-        raise NotImplementedError(f"flash_attention: head dim {d} has no CUDA kernel")
-    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
-            or v_cache.dtype != torch.bfloat16:
-        raise TypeError("flash_attention: the CUDA kernel takes bf16 q and caches")
-    dev = kernels.check_tensors("flash_attention", q, k_cache, v_cache)
-    pos = positions.to(device=dev, dtype=torch.int32).contiguous()
-    sk = None
-    if sinks is not None:
-        sk = torch.as_tensor(sinks, dtype=torch.float32, device=dev).reshape(h).contiguous()
-    slopes = None
-    if alibi:
-        slopes = torch.from_numpy(alibi_slopes_np(h, alibi)).to(dev)
-    out = torch.empty_like(q)
-    code = kernels.lib().rrs_flash_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        None if sk is None else sk.data_ptr(),
-        None if slopes is None else slopes.data_ptr(),
-        out.data_ptr(), b, t, h, hkv, s, d, float(scale), float(softcap),
-        int(window), kernels.stream_ptr(dev))
-    kernels.check("flash_attention", code)
-    return out
+    return _launch("flash_attention", q, k_cache, None, v_cache, None, positions, scale, softcap,
+                   window, sinks, alibi)
 
 
-
-# codec ids of rrs_flash_attention_kvq (csrc/flash_attention_kvq.cu, q8) and
-# rrs_flash_attention_q4 (csrc/flash_attention_q4.cu)
-_CODECS = {"flash_attention_q8": 0, "flash_attention_q4hp": 1, "flash_attention_q4": 2}
+# kernel -> (cache codec of ops/attn_split.py, codec id of rrs_flash_attention:
+# csrc/attention_sm90.cuh Codec)
+_CODECS = {"flash_attention_q8": ("q8", 0), "flash_attention_q4hp": ("q4hp", 1),
+           "flash_attention_q4": ("q4", 2), "flash_attention": ("bf16", 3)}
 
 
 def attention_kvq_ref(q, k_q, k_s, v_q, v_s, positions, scale, softcap=0.0, window: int = 0,
@@ -148,24 +122,37 @@ def _attention_kvq(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, windo
     if q.device.type == "cpu":
         return attention_kvq_ref(q, k_q, k_s, v_q, v_s, positions, scale, softcap=softcap,
                                  window=window, sinks=sinks, alibi=alibi)
+    return _launch(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, window, sinks, alibi)
+
+
+def _launch(name, q, kc, ks, vc, vs, positions, scale, softcap, window, sinks, alibi):
+    """Check the shapes and types of one of the four kernels (``ks`` / ``vs``
+    None for bf16 rows), plan it and launch it."""
+    codec, codec_id = _CODECS[name]
     b, t, h, d = q.shape
-    hkv, s = k_s.shape[1], k_s.shape[3]
-    planes, row = {"flash_attention_q8": (hkv, d), "flash_attention_q4hp": (hkv // 2, d),
-                   "flash_attention_q4": (hkv, d // 2)}[name]
-    want = torch.int8 if name == "flash_attention_q8" else torch.uint8
-    if h % hkv or (name == "flash_attention_q4hp" and hkv % 2) \
-            or k_q.shape != (b, planes, s, row) or v_q.shape != k_q.shape \
-            or k_s.shape != (b, hkv, 1, s) or v_s.shape != k_s.shape \
-            or positions.shape != (b, t):
-        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, k {tuple(k_q.shape)} + "
-                         f"{tuple(k_s.shape)}, v {tuple(v_q.shape)} + {tuple(v_s.shape)}, "
-                         f"positions {tuple(positions.shape)}")
+    if codec == "bf16":
+        hkv, s = kc.shape[1], kc.shape[2]
+        planes, row, want = hkv, d, torch.bfloat16
+        scales_ok = True
+    else:
+        hkv, s = ks.shape[1], ks.shape[3]
+        planes = hkv // attn_split.HEADS_PER_PLANE[codec]
+        row = d // 2 if codec == "q4" else d
+        want = torch.int8 if codec == "q8" else torch.uint8
+        scales_ok = ks.shape == (b, hkv, 1, s) and vs.shape == ks.shape
+    if h % hkv or hkv % attn_split.HEADS_PER_PLANE[codec] or kc.shape != (b, planes, s, row) \
+            or vc.shape != kc.shape or not scales_ok or positions.shape != (b, t):
+        raise ValueError(f"{name} shapes: q {tuple(q.shape)}, k {tuple(kc.shape)}"
+                         + ("" if ks is None else f" + {tuple(ks.shape)}")
+                         + f", v {tuple(vc.shape)}" + ("" if vs is None else f" + {tuple(vs.shape)}")
+                         + f", positions {tuple(positions.shape)}")
     if d not in (64, 128, 256):
         raise NotImplementedError(f"{name}: head dim {d} has no CUDA kernel")
-    if q.dtype != torch.bfloat16 or k_q.dtype != want or v_q.dtype != want \
-            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes bf16 q, {want} codes and f32 scales")
-    dev = kernels.check_tensors(name, q, k_q, k_s, v_q, v_s)
+    if q.dtype != torch.bfloat16 or kc.dtype != want or vc.dtype != want or (
+            ks is not None and (ks.dtype != torch.float32 or vs.dtype != torch.float32)):
+        raise TypeError(f"{name}: the CUDA kernel takes bf16 q, {want} rows"
+                        + ("" if ks is None else " and f32 scales"))
+    dev = kernels.check_tensors(name, q, *(x for x in (kc, ks, vc, vs) if x is not None))
     pos = positions.to(device=dev, dtype=torch.int32).contiguous()
     sk = None
     if sinks is not None:
@@ -174,18 +161,13 @@ def _attention_kvq(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, windo
     if alibi:
         slopes = torch.from_numpy(alibi_slopes_np(h, alibi)).to(dev)
     out = torch.empty_like(q)
-    args = (_CODECS[name], q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-            v_s.data_ptr(), pos.data_ptr(), None if sk is None else sk.data_ptr(),
-            None if slopes is None else slopes.data_ptr(), out.data_ptr(), b, t, h, hkv, s, d,
-            float(scale), float(softcap), int(window))
-    if name == "flash_attention_q8":
-        code = kernels.lib().rrs_flash_attention_kvq(*args, kernels.stream_ptr(dev))
-    else:
-        p = attn_split.plan(b, planes, hkv // planes, t, h // hkv, s, d)
-        scratch, counters = attn_split.buffers(p, dev)
-        code = kernels.lib().rrs_flash_attention_q4(
-            *args, p.n_split, p.split_tiles, splitk.ptr(scratch), splitk.ptr(counters),
-            kernels.stream_ptr(dev))
+    p = attn_split.plan(codec, b, hkv, t, h // hkv, s, d)
+    scratch, counters = attn_split.buffers(p, dev)
+    code = kernels.lib().rrs_flash_attention(
+        codec_id, q.data_ptr(), kc.data_ptr(), splitk.ptr(ks), vc.data_ptr(), splitk.ptr(vs),
+        pos.data_ptr(), splitk.ptr(sk), splitk.ptr(slopes), out.data_ptr(), b, t, h, hkv, s, d,
+        float(scale), float(softcap), int(window), p.n_split, p.split_tiles,
+        splitk.ptr(scratch), splitk.ptr(counters), kernels.stream_ptr(dev))
     kernels.check(name, code)
     return out
 

@@ -64,3 +64,22 @@ def test_alibi_slopes_match():
 
     for h in (4, 6, 12, 32):
         np.testing.assert_array_equal(tfa.alibi_slopes_np(h, 8.0), alibi_slopes_np(h, 8.0))
+
+
+def test_wrapper_refuses_bad_shapes_before_launch():
+    """On a device tensor the wrapper launches or raises; what the kernel
+    cannot take is refused by the checks that run first (exercised with meta
+    tensors, which never reach a kernel)."""
+    q = torch.empty((1, 1, 4, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((1, 2, 16, 64), dtype=torch.bfloat16, device="meta")
+    pos = torch.empty((1, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="shapes"):
+        tfa.flash_attention(q, k, k[:, :, :8], pos, 0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        tfa.flash_attention(q, k[:, :1].expand(1, 3, 16, 64), k, pos, 0.125)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_attention(q, k.float(), k.float(), pos, 0.125)
+    q48 = torch.empty((1, 1, 4, 48), dtype=torch.bfloat16, device="meta")
+    k48 = torch.empty((1, 2, 16, 48), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(NotImplementedError, match="head dim 48"):
+        tfa.flash_attention(q48, k48, k48, pos, 0.125)
