@@ -16,9 +16,11 @@ it; exits non-zero without either, and on any failed phase. Phases:
    events beside its bound, its plain version and one PyTorch library call
    for the same product, over as many weight copies as the kernel reads
    (together past L2; the i8p kernel also against the
-   dequant path, within the JAX bound, and beside ``torch._int_mm`` on
-   pre-decoded int8 weights; attention beside the faster of two SDPA forms,
-   K/V expanded to the query heads and ``enable_gqa``, on bf16 caches
+   dequant path, within the JAX bound, beside ``torch._int_mm`` on
+   pre-decoded int8 weights, and bit-equal across two launches and, where
+   its plan takes one K slice, to its plain version; attention beside the
+   faster of two SDPA forms, K/V expanded to the query heads and
+   ``enable_gqa``, on bf16 caches
    (dequantized beforehand for the quantized ones); B3 and B6-B8 also
    bit-equal across two launches at the served decode step and the prefill
    chunk); then each kernel's other instantiations and options, untimed
@@ -39,9 +41,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
    launched;
 5. served steps: one 4-lane prefill step (T = 1024, a dead lane) and one
    4-lane decode step at qwen3-4b width with every kernel launch held to its
-   plain version on the inputs it got; then one greedy device decode run on
-   the 4-lane context against the same tokens fed step by step through
-   ``ctx.decode``;
+   plain version on the inputs it got, and the prefill step's shape again
+   unheld under torch.profiler (B5's share of its device time); then one
+   greedy device decode run on the 4-lane context against the same tokens
+   fed step by step through ``ctx.decode``;
 6. quantized served steps: the same prefill and decode step over q8 and q4
    KV caches, every kernel launch held to its plain version and every K/V
    store on the card held bit for bit to the CPU's store of the same rows;
@@ -78,7 +81,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    same way, with the int4 codes that differ from the model's rotation
    counted;
 10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
-   plain versions at gpt-oss shapes, timed beside their bounds and
+   plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048, bit-equal
+   across two launches), timed beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
    at the three Q8 shapes (qkv and o also at a served step's M = 4 and a
    served prefill chunk's M = 2048) and B3 / B6-B8 over a 640-slot ring
@@ -88,8 +92,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
    width (fabricated weights) with prompts that reach every MoE branch,
    launch counts, the branches taken and a decode profile, then over q8
    rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
-   a teacher-forced 4-lane prefill chunk and decode step; one capacity-path
-   prefill run twice, its logits held bit-equal;
+   a teacher-forced 4-lane prefill chunk and decode step, and the chunk's
+   shape again unheld under torch.profiler (B11's share of an overflow-scan
+   prefill step); one capacity-path prefill run twice, its logits held
+   bit-equal;
 11. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
    (``tcq4_matmul_experts``, no model path calls it) against their plain
    versions at its shapes (B19 at M = 1 and 40 with bf16 and f32 eff,
@@ -507,7 +513,8 @@ def phase_i8p(peaks, reports):
     """B5 at the prefill M of the serving and generate paths (n_lanes x
     bucket: 256 to 4096) for the four qwen3-4b projections: the kernel
     against its plain version (f32 output rel 1e-5; bf16 output, padded M
-    >= 1024, 8e-3: one bf16 ulp where the sums round to either side) and
+    >= 1024, 8e-3: one bf16 ulp where the sums round to either side; bit for
+    bit where its plan takes one K slice), two launches bit-equal, and
     against the dequant path on the same quantized activations within the
     JAX bound 0.06 * mean|ref| + 0.02 (tests/test_tcq4_matmul.py:278-310),
     in f32; timed at M = 512 and 1024."""
@@ -536,8 +543,16 @@ def phase_i8p(peaks, reports):
             a_sbi = tm.prep_a_sbi(a_q)
             got = tm.tcq4_matmul_i8p(a_sbi, a_s, *packs[0])
             tol = BF16_OUT_TOL if got.dtype == torch.bfloat16 else 1e-5
-            err, rel = compare(f"i8p {lname} M={m}", got,
-                               tm.tcq4_matmul_i8p_plain(a_sbi, a_s, *packs[0]), tol)
+            plain = tm.tcq4_matmul_i8p_plain(a_sbi, a_s, *packs[0])
+            err, rel = compare(f"i8p {lname} M={m}", got, plain, tol)
+            # the slices are summed in a fixed order: two launches give the
+            # same bits, and one slice gives the plain version's
+            slices = tm.i8p_plan(m, k, n).slices
+            if not torch.equal(tm.tcq4_matmul_i8p(a_sbi, a_s, *packs[0]), got):
+                raise AssertionError(f"i8p {lname} M={m}: two launches differ")
+            if slices == 1 and not torch.equal(got, plain):
+                raise AssertionError(f"i8p {lname} M={m}: one K slice, not the plain version's "
+                                     f"bits")
             # the requant error, held in f32: both kernels on 512-row slices
             # (their f32-output launches) against the JAX bound
             rows = range(0, m, 512)
@@ -551,8 +566,10 @@ def phase_i8p(peaks, reports):
             if dev_dq > limit:
                 raise AssertionError(f"i8p {lname} M={m}: {dev_dq:.4f} from the dequant path "
                                      f"> 0.06 * mean|ref| + 0.02 = {limit:.4f}")
-            shape = {"shape": f"{lname} M={m} K={k} N={n}", "max_abs_err": err, "rel_err": rel,
-                     "tol": tol, "dequant_dev": dev_dq, "dequant_limit": limit}
+            shape = {"shape": f"{lname} M={m} K={k} N={n} ({slices} K slices; two launches "
+                              f"bit-equal{', bit-equal to plain' if slices == 1 else ''})",
+                     "max_abs_err": err, "rel_err": rel, "tol": tol, "dequant_dev": dev_dq,
+                     "dequant_limit": limit}
             if m in (512, 1024):
                 out_bytes = m * n * (2 if got.dtype == torch.bfloat16 else 4)
                 t_bytes = ms(pbytes + m * k + m * k // 256 * 4 + out_bytes)
@@ -906,17 +923,17 @@ COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul
             "q8": "q8_matmul", "fa": "flash_attention"}
 # the gx kernels share one template, gx2_kernel<M, prologue>: 0 gx, 1 gx2, 2 gx3
 GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3"}
-# B2 and B4 share the two bodies of gemm_sm90.cuh, splitk_kernel<Loader, MT>
-# and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...> or TCQ4<...>) names
-# the kernel
-SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul"}
+# B2, B4 and B11 share the two bodies of gemm_sm90.cuh, splitk_kernel<Loader,
+# MT> and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...>, TCQ4<...> or
+# MXFP4<...>) names the kernel
+SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul", "MXFP4": "mxfp4_matmul"}
 # B3 and B6-B8 share attention_kernel<D, codec, decode body>, with the codec
 # ids of csrc/attention_sm90.cuh
 ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
                "3": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
-                "i8p_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
-                "mxfp4_gemm_kernel": "mxfp4 gemm (B11/B13)",
+                "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
+                "mxfp4_gemm_kernel": "mxfp4_matmul_all_experts",
                 "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
                 "tcq4_experts_gemm_kernel": "tcq4_matmul_all_experts",
                 "tcq4_rows_kernel": "tcq4_matmul_experts_rows"}
@@ -1003,15 +1020,11 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
             torch.cuda.synchronize()
     finally:
         ctx.kv.seq_rm(seq)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels, by_name = device_ms_by_kernel(prof)
     if not kernels:
         print("  decode profile: the profiler recorded no device time (not measured)",
               flush=True)
         return
-    by_name: dict = {}
-    for e in kernels:
-        short = kernel_label(e.name)
-        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values()) / steps
     split = ", ".join(f"{k} {v / steps:.3f}" for k, v in sorted(by_name.items(),
                                                                key=lambda kv: -kv[1]))
@@ -1024,6 +1037,64 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
             "kernels": len(kernels) / steps, "by_kernel": {k: v / steps for k, v in by_name.items()}}
 
 
+def device_ms_by_kernel(prof):
+    """The device events of a torch.profiler run and their ms summed by port
+    kernel (kernel_label)."""
+    import torch
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in kernels:
+        short = kernel_label(e.name)
+        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
+    return kernels, by_name
+
+
+def profile_prefill(ctx, lengths, label: str, focus: str) -> dict:
+    """Where a served prefill step's time goes: ``prefill_multi`` over fresh
+    sequences of ``lengths`` tokens (one lane each), once to warm up, once
+    on the host clock and once under torch.profiler. Prints the wall and
+    device ms of the step, the idle share, and the device ms by kernel with
+    ``focus`` (the kernel whose share is asked) first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kv = ctx.kv
+    for seq in [s for s in kv.seq_ids if s is not None]:
+        kv.seq_rm(seq)
+    rng = torch.Generator().manual_seed(23)
+
+    def step():
+        seqs = [ctx.new_sequence() for _ in lengths]
+        ctx.prefill_multi({seq: torch.randint(2, ctx.cfg.vocab_size, (n,),
+                                              generator=rng).tolist()
+                           for seq, n in zip(seqs, lengths)})
+        torch.cuda.synchronize()
+        for seq in seqs:
+            kv.seq_rm(seq)
+
+    step()
+    t0 = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    kernels, by_name = device_ms_by_kernel(prof)
+    if not kernels:
+        print(f"  {label} prefill profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return {}
+    dev_ms = sum(by_name.values())
+    split = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+        by_name.items(), key=lambda kv_: (kv_[0] != focus, -kv_[1])))
+    print(f"  {label} prefill profile (one prefill_multi step, chunks {list(lengths)}): wall "
+          f"{wall_ms:.2f} ms, device {dev_ms:.2f} ms, idle share {1 - dev_ms / wall_ms:.3f}, "
+          f"{len(kernels)} kernels; {focus} {by_name.get(focus, 0.0):.3f} ms = "
+          f"{by_name.get(focus, 0.0) / dev_ms:.3f} of the device time; device ms by kernel: "
+          f"{split}", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "by_kernel": by_name}
+
+
 def kernel_label(name: str) -> str:
     """The port kernel a profiler event belongs to, by its CUDA kernel name."""
     import re
@@ -1031,7 +1102,7 @@ def kernel_label(name: str) -> str:
     m = re.search(r"gx2_kernel<\d+, [^>]*?(\d)>", name)
     if m:
         return GX_PROLOGUES[m.group(1)]
-    m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4)<", name)
+    m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4|MXFP4)<", name)
     if m:
         return SM90_LOADERS[m.group(1)]
     m = re.search(r"attention_kernel<\d+, (\d), (true|false)>", name)
@@ -1237,6 +1308,8 @@ def phase_served_steps_held(ctx):
               f"(max rel {worst:.2e}); shapes {sorted(shapes)}", flush=True)
     print(f"  served prefill + decode step held to the plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the same chunks' shape unheld, under the profiler: B5's share of the step
+    profile_prefill(ctx, (1000, 700, 40), "qwen3-4b served", "tcq4_matmul_i8p")
 
 
 def phase_decode_run_check(ctx):
@@ -1324,15 +1397,11 @@ def profile_decode_run(ctx, seqs, first, lengths, label: str = "bf16 KV"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events, by_name = device_ms_by_kernel(prof)
     if not events:
         print("  decode-run profile: the profiler recorded no device time (not measured)",
               flush=True)
         return
-    by_name: dict = {}
-    for e in events:
-        short = kernel_label(e.name)
-        by_name[short] = by_name.get(short, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values()) / n
     split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
                                                            key=lambda kv: -kv[1]))
@@ -2239,8 +2308,9 @@ def phase_parity_gptoss(peaks, reports):
     experts of 2880 x 2880, N padded to 2944): the rows kernel at n_sel = 4
     and 16 (one and four decode lanes, top-4), every expert over shared
     activations at T = 64 and over per-expert activations [32, 128, 2880]
-    (one 512-token chunk's capacity), the plain matmul at M = 300 on one
-    expert's gate and down projections; B2 at the three Q8 shapes at M = 1
+    (one 512-token chunk's capacity), the plain matmul on one expert's gate
+    and down projections at M = 300 (and at M = 2048 and 4, untimed at 4);
+    B2 at the three Q8 shapes at M = 1
     (qkv and o also at M = 4 and 2048); B3 and B6-B8 at D = 64, G = 8 with
     window 128 over a 640-slot ring and sinks. Each held within GPTOSS_TOL
     (attention 8e-3: its output is bf16) and timed beside its bound, its
@@ -2313,25 +2383,36 @@ def phase_parity_gptoss(peaks, reports):
                  "library_ms": time_ms(lib, [(w16,)], 10),
                  **bound(t_bytes, t_ops)}, headline=(label.startswith("shared")))
 
-    # -- B11: the overflow fallback's per-expert matmul at M = 300
+    # -- B11: the overflow scan's per-expert matmul at a 300-token prompt's M,
+    # a served 4 x 512 prefill chunk's and a decode step's (the split-K
+    # stream), each held to plain and across two launches (bit-equal: the K
+    # slices are summed in a fixed order); timed at M = 300 and 2048
     rep = reports["mx_mm"]
-    for label, ei in (("gate", 3), ("down", 17)):
-        a = torch.randn((300, k), generator=gen, device=dev).to(torch.bfloat16)
+    for label, ei, m in (("gate", 3, 300), ("down", 17, 300), ("gate", 5, 2048),
+                         ("down", 9, 4)):
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         qs, sx = stacks[0][0][ei], stacks[0][1][ei]
         got = mx.mxfp4_matmul(a, qs, sx)
-        err, rel = compare(f"mxfp4_matmul {label} M=300", got, mx.mxfp4_matmul_plain(a, qs, sx),
+        err, rel = compare(f"mxfp4_matmul {label} M={m}", got, mx.mxfp4_matmul_plain(a, qs, sx),
                            GPTOSS_TOL)
-        t_bytes = ms(exp_bytes + 300 * k * 2 + 300 * n * 4)
-        t_ops = 2 * 300 * k * n / bf16_peak * 1e3
-        rep.add({"shape": f"one expert's {label} M=300 K={k} N={n}", "max_abs_err": err,
-                 "rel_err": rel, "tol": GPTOSS_TOL,
-                 "ms": time_ms(lambda e_: mx.mxfp4_matmul(a, stacks[0][0][e_], stacks[0][1][e_]),
-                               [(e_,) for e_ in range(e_n)], 32),
-                 "plain_ms": time_ms(lambda e_: mx.mxfp4_matmul_plain(
-                     a, stacks[0][0][e_], stacks[0][1][e_]), [(e_,) for e_ in range(4)], 4),
-                 "library_ms": time_ms(lambda e_: torch.matmul(a, w16[e_]),
-                                       [(e_,) for e_ in range(e_n)], 32),
-                 **bound(t_bytes, t_ops)}, headline=(label == "gate"))
+        if not torch.equal(mx.mxfp4_matmul(a, qs, sx), got):
+            raise AssertionError(f"mxfp4_matmul {label} M={m}: two launches differ")
+        shape = {"shape": f"one expert's {label} M={m} K={k} N={n} "
+                          f"({mx.splitk_plan(m, k, n).slices} K slices; two launches bit-equal)",
+                 "max_abs_err": err, "rel_err": rel, "tol": GPTOSS_TOL}
+        if m != 4:
+            t_bytes = ms(exp_bytes + m * k * 2 + m * n * 4)
+            t_ops = 2 * m * k * n / bf16_peak * 1e3
+            reps = 32 if m < 2048 else 8
+            shape.update(
+                ms=time_ms(lambda e_: mx.mxfp4_matmul(a, stacks[0][0][e_], stacks[0][1][e_]),
+                           [(e_,) for e_ in range(e_n)], reps),
+                plain_ms=time_ms(lambda e_: mx.mxfp4_matmul_plain(
+                    a, stacks[0][0][e_], stacks[0][1][e_]), [(e_,) for e_ in range(4)], 4),
+                library_ms=time_ms(lambda e_: torch.matmul(a, w16[e_]),
+                                   [(e_,) for e_ in range(e_n)], reps),
+                **bound(t_bytes, t_ops))
+        rep.add(shape, headline=(label == "gate" and m == 300))
     del stacks, w16
     torch.cuda.empty_cache()
 
@@ -2834,6 +2915,8 @@ def phase_gptoss_served_steps(ctx):
                              {"q8_matmul", "flash_attention", "mxfp4_matmul_experts_rows"})
     if not seen.keys() & {"mxfp4_matmul", "mxfp4_matmul_all_experts"}:
         raise AssertionError("gpt-oss served steps: the prefill launched neither B11 nor B13")
+    # unheld, under the profiler: B11's share of an overflow-scan prefill step
+    profile_prefill(ctx, (500, 300, 40), "gpt-oss-20b served", "mxfp4_matmul")
 
 
 def capacity_repeat(ctx, prompt, label):

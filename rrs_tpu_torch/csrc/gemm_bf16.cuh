@@ -1,6 +1,6 @@
 // A plain tiled bf16 tensor-core GEMM, C[M, N] = A[M, K] @ W[K, N], shared by
-// the TCQ4 expert matmuls (B10 and B19, tcq4_experts.cu), the MXFP4 matmuls
-// (B11 and B13, mxfp4_matmul.cu) and the paired-bias matmul (B18,
+// the TCQ4 expert matmuls (B10 and B19, tcq4_experts.cu), the MXFP4
+// all-experts matmul (B13, mxfp4_matmul.cu) and the paired-bias matmul (B18,
 // tcq4_pb.cu). Only the loader of the weight tile differs: each kernel
 // dequantizes its own format into a bf16 shared-memory tile, so no
 // dequantized weight ever reaches device memory.
@@ -9,7 +9,7 @@
 // f32 accumulators. One K tile is 64 logical k, given as two 32-wide runs
 // (k0 .. k0+31 and k1 .. k1+31): a TCQ4 weight quarter-superblock holds k and
 // k + 128 in one byte, so its two runs are 128 apart. Loads are synchronous
-// and there is no split-K. B2 and B4 (and B17 through B4) moved to the
+// and there is no split-K. B2, B4 (and B17 through B4) and B11 moved to the
 // split-K stream and the pipelined GEMM of gemm_sm90.cuh; the kernels above
 // move there one by one, and this header goes with the last of them.
 #pragma once

@@ -37,11 +37,11 @@ SIGNATURES = {
     "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "rrs_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _I, _I, _I, _P, _P, _P],
-    "rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -22,7 +22,9 @@ differ only in the order of their sums.
 Each wrapper takes its plain version only for CPU tensors; for CUDA tensors
 it launches its kernel (``csrc/mxfp4_matmul.cu``) or raises:
 
-  B11 ``mxfp4_matmul``               a [M, K] @ W [K, N]
+  B11 ``mxfp4_matmul``               a [M, K] @ W [K, N], on the two bodies of
+                                     ``csrc/gemm_sm90.cuh`` with K split by
+                                     ``splitk_plan`` (whole scale groups)
   B12 ``mxfp4_matmul_experts_rows``  out[i] = a[i] @ W[ids[i]]   (decode)
   B13 ``mxfp4_matmul_all_experts``   out[e] = a (or a[e]) @ W[e]
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from rrs_tpu_torch import kernels
+from rrs_tpu_torch.ops import splitk
 
 GROUP = 32          # elements per MXFP4 scale block
 SUPER = 64          # elements per K tile of the kernels (two scale groups)
@@ -144,6 +147,13 @@ def _check_weights(name, qs, sexp, k):
         raise TypeError(f"{name}: needs uint8 qs and sexp")
 
 
+def splitk_plan(m: int, k: int, n: int) -> splitk.Plan:
+    """B11's grid at (M, K, N): K slices of whole scale groups (of the
+    prefill body's 64-deep steps at M > 16, where a split costs about three
+    steps: a 128 x 128 f32 partial against a step's 20 KB of operands)."""
+    return splitk.plan(m, k, n, GROUP, split_steps=3)
+
+
 def mxfp4_matmul(a: torch.Tensor, qs: torch.Tensor, sexp: torch.Tensor) -> torch.Tensor:
     """B11: C = bf16(a) @ dequant(qs, sexp) for a [M, K] bf16 or f32.
     Returns f32 [M, N]."""
@@ -156,9 +166,14 @@ def mxfp4_matmul(a: torch.Tensor, qs: torch.Tensor, sexp: torch.Tensor) -> torch
     dev = kernels.check_tensors("mxfp4_matmul", a, qs, sexp)
     n = qs.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m > splitk.MAX_M:
+        a = a.to(torch.bfloat16)        # the prefill body reads bf16, as it would round
+    plan = splitk_plan(m, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_mxfp4_matmul(
         a.data_ptr(), int(a.dtype == torch.bfloat16), qs.data_ptr(), sexp.data_ptr(),
-        out.data_ptr(), m, k, n, kernels.stream_ptr(dev))
+        out.data_ptr(), m, k, n, plan.slice_units, splitk.ptr(scratch), splitk.ptr(counters),
+        kernels.stream_ptr(dev))
     kernels.check("mxfp4_matmul", code)
     return out
 

@@ -1,11 +1,12 @@
-"""The split-K plan of the weight matmuls B2 (``q8_matmul``) and B4
-(``tcq4_matmul``, and B17 ``tcq4_matmul_fused`` through B4), and their
-scratch.
+"""The split-K plan of the weight matmuls B2 (``q8_matmul``), B4
+(``tcq4_matmul``, and B17 ``tcq4_matmul_fused`` through B4), B11
+(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``), and their scratch.
 
-The kernels (``csrc/gemm_sm90.cuh``) cover C[M, N] with a grid of output
-tiles (column strips of STRIP; at M > MAX_M also row tiles of 64 rows below
-M = 128, else 128) times K slices. A slice is ``slice_units`` whole units of
-K (a Q8 scale group of 32, a TCQ4 superblock of 256; at M > MAX_M a Q8 slice
+The kernels (``csrc/gemm_sm90.cuh``, and B5's ``csrc/tcq4_i8p.cu``) cover
+C[M, N] with a grid of output tiles (column strips of STRIP; at M > MAX_M
+also row tiles of 64 rows below M = 128, else 128; B5's are always 128) times
+K slices. A slice is ``slice_units`` whole units of K (a Q8 or MXFP4 scale
+group of 32, a TCQ4 superblock of 256; at M > MAX_M a slice of 32-wide groups
 is a whole number of the prefill body's 64-deep steps). The plan gives the
 grid at least MIN_BLOCKS blocks at M <= MAX_M (two waves on the H100's 132
 SMs) and PREFILL_MIN_BLOCKS above it (one block on every SM; more slices
@@ -25,7 +26,8 @@ import torch
 
 STRIP = 128
 MIN_BLOCKS = 264            # decode: two waves of one-strip blocks
-PREFILL_MIN_BLOCKS = 132    # prefill: one block on every SM
+SMS = 132                   # the H100 SXM's streaming multiprocessors
+PREFILL_MIN_BLOCKS = SMS    # prefill: one block on every SM
 MAX_M = 16
 PREFILL_BK = 64
 
@@ -38,17 +40,33 @@ class Plan:
     scratch_elems: int          # f32 elements of the partial sums (0: one slice)
 
 
-def plan(m: int, k: int, n: int, unit: int) -> Plan:
-    """The grid of the weight matmul at (M, K, N) with K in units of ``unit``."""
+def plan(m: int, k: int, n: int, unit: int, row_tile: int = 0, split_steps: int = 0) -> Plan:
+    """The grid of the weight matmul at (M, K, N) with K in units of ``unit``.
+
+    By default (B2, B4): at least MIN_BLOCKS / PREFILL_MIN_BLOCKS blocks.
+    With ``split_steps`` (B11, B5; M > MAX_M): the slice count that takes the
+    fewest steps on the busiest SM, ceil(blocks / SMS) blocks of ceil(steps /
+    slices) steps each, where a block of a split grid takes ``split_steps``
+    steps more (its partial sums written, and read and added by the tile's
+    last block); ``row_tile`` is the kernel's (0: 64 below M = 128, else
+    128)."""
     strips = -(-n // STRIP)
     if m <= MAX_M:
         tiles, step, blocks = strips, unit, MIN_BLOCKS
     else:
-        tiles = strips * -(-m // (64 if m < 128 else 128))
+        tiles = strips * -(-m // (row_tile or (64 if m < 128 else 128)))
         step, blocks = max(unit, PREFILL_BK), PREFILL_MIN_BLOCKS
     units = k // step
-    need = -(-blocks // tiles)
-    per = units if need <= 1 else max(1, units // need)
+    if split_steps and m > MAX_M:
+        def cost(s: int) -> tuple[int, int]:
+            per = -(-units // s)
+            n_slices = -(-units // per)
+            waves = -(-tiles * n_slices // SMS)
+            return waves * (per + (split_steps if n_slices > 1 else 0)), n_slices
+        per = -(-units // min(range(1, units + 1), key=cost))
+    else:
+        need = -(-blocks // tiles)
+        per = units if need <= 1 else max(1, units // need)
     slices = -(-units // per)
     per_units = per * (step // unit)
     return Plan(strips, slices, per_units, slices * m * strips * STRIP if slices > 1 else 0)

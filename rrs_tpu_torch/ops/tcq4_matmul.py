@@ -590,6 +590,15 @@ def tcq4_matmul_i8p_plain(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
     return acc.to(torch.bfloat16) if i8p_out_bf16(m) else acc
 
 
+def i8p_plan(m: int, k: int, n: int) -> splitk.Plan:
+    """The kernel's grid at (M, K, N): 128 x 128 output tiles (one block an
+    SM) times K slices of whole superblocks, summed in slice order (one
+    slice: the plain version's bits). A block of a split grid costs about
+    three superblocks more: its 64 KB f32 partial written, and the tile's
+    partials read and added by the last block (measured on the H100)."""
+    return splitk.plan(m, k, n, TILE_K, row_tile=128, split_steps=3)
+
+
 def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
     """Prefill C = (a_sbi / 7 * a_scale) @ dequant(w) on the int8 tensor
     cores. a_sbi int8 [M, K] in sbi order, a_scale f32 [M, K//256] (the
@@ -604,9 +613,12 @@ def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
     dev = kernels.check_tensors("tcq4_matmul_i8p", a_sbi, a_scale, qs_sbi, f8, e2)
     out_bf16 = i8p_out_bf16(m)
     out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32, device=dev)
+    plan = i8p_plan(m, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_tcq4_i8p(
         a_sbi.data_ptr(), a_scale.data_ptr(), qs_sbi.data_ptr(), f8.data_ptr(), e2.data_ptr(),
-        out.data_ptr(), m, k, n, int(out_bf16), kernels.stream_ptr(dev))
+        out.data_ptr(), m, k, n, int(out_bf16), plan.slice_units, splitk.ptr(scratch),
+        splitk.ptr(counters), kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_i8p", code)
     return out
 

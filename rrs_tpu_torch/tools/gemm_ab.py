@@ -1,21 +1,28 @@
-"""Same-card before / after of the weight matmuls B2 (``q8_matmul``) and B4
-(``tcq4_matmul``) against an older tree of this repository.
+"""Same-card before / after of the weight matmuls against an older tree of
+this repository: B2 (``q8_matmul``) and B4 (``tcq4_matmul``), or B11
+(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``).
 
-    python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--json OUT]
+    python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--subjects b11,b5] [--json OUT]
 
 DIR holds an older checkout (for example ``git archive <commit>`` unpacked).
-Its ``rrs_tpu_torch/csrc/q8_matmul.cu`` and ``tcq4_matmul.cu`` are copied to
-a temporary directory, built there with this tree's ``nvcc`` flags into a
-library of their own, and bound with their own C signatures (the older
-entries take no split-K plan). At each shape ``chip_smoke.py`` times (phase
-2: B4 at the four qwen3-4b projections at M = 4, 16, 64, 512 and the down
-projection at M = 2 and 8, B2 at the qwen3-4b lm_head at M = 1, 4, 64;
-phase 10: B2 at gpt-oss-20b's qkv and o at M = 1, 4, 2048 and its lm_head at
-M = 1) both kernels run on the same inputs, in turns (old, new, new, old,
-CUDA events, weight copies rotated past L2), beside ``torch.matmul`` on bf16
-weights dequantized beforehand, timed over as many copies as the kernels
-get, and the shape's bound. The new kernel is held to its plain version and
-to the old one (within 1e-3). Needs one CUDA card.
+The subjects' sources in its ``rrs_tpu_torch/csrc`` are copied to a
+temporary directory, built there with this tree's ``nvcc`` flags into a
+library of their own, and bound with the older C signatures: for ``b2,b4``
+those before the split-K plan (a parent older than the sm90 GEMM bodies),
+for ``b11,b5`` those before B11 and B5 took it (the default; a parent older
+than their sm90 redesign). At each shape both kernels run on the same
+inputs, in turns (old, new, new, old, CUDA events, weight copies rotated past
+L2), beside ``torch.matmul`` on bf16 weights dequantized beforehand (and, for
+B5, ``torch._int_mm`` on its int8 codes and decoded w8 weights), timed over
+as many copies as the kernels get, and the shape's bound. The new kernel is
+held to its plain version and to the old one. Shapes: B4 at the four
+qwen3-4b projections at M = 4, 16, 64, 512 and the down projection at M = 2
+and 8, B2 at the qwen3-4b lm_head at M = 1, 4, 64 and at gpt-oss-20b's qkv
+and o at M = 1, 4, 2048 and its lm_head at M = 1; B11 at one gpt-oss-20b
+expert projection (K 2,880, N 2,944) at M = 4, 300 and 2,048 (a decode step,
+the overflow scan of a 300-token prompt, a served 4 x 512 prefill chunk); B5
+at the four qwen3-4b projections at M = 256, 512 and 4,096 (bf16 out), with
+the four summed. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -33,14 +40,19 @@ from pathlib import Path
 import torch
 
 from rrs_tpu_torch import kernels
+from rrs_tpu_torch.ops import mxfp4_matmul as mx
 from rrs_tpu_torch.ops import q8_matmul as q8
 from rrs_tpu_torch.ops import tcq4_matmul as tm
 
 L2_BYTES = 50e6
-BYTES_S, BF16_FLOPS = 3.35e12, 989e12        # H100 SXM data sheet
+BYTES_S, BF16_FLOPS, INT8_OPS = 3.35e12, 989e12, 1979e12        # H100 SXM data sheet
 _P, _I = ctypes.c_void_p, ctypes.c_int
 OLD_SIGNATURES = {"rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
                   "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
+OLD_SIGNATURES_B11_B5 = {"rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+                         "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
+            "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5)}
 QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
             "down": (9728, 2560)}
 GPTOSS_Q8 = {"qkv": (3072, 5120), "o": (4096, 2944), "lm_head": (3072, 202752)}
@@ -102,9 +114,11 @@ def rel(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
-def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, rows):
+def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, rows,
+       peak=BF16_FLOPS, extra=None):
     """Hold new to plain and to old, then time old, new, new, old and the
-    library call; append and print the row."""
+    library call (and ``extra``: name -> (call, arg sets), each timed as
+    ``<name>_ms``); append and print the row."""
     got, ref, prev = new(*sets[0]), plain(*sets[0]), old(*sets[0])
     torch.cuda.synchronize()
     r_plain, r_old = rel(got, ref), rel(got, prev)
@@ -112,19 +126,23 @@ def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, ro
         raise AssertionError(f"{label}: new kernel off: rel {r_plain:.2e} to plain, "
                              f"{r_old:.2e} to the older kernel")
     t = [time_ms(f, sets, reps) for f in (old, new, new, old)]
-    t_bytes, t_ops = nbytes / BYTES_S * 1e3, flops / BF16_FLOPS * 1e3
+    t_bytes, t_ops = nbytes / BYTES_S * 1e3, flops / peak * 1e3
     row = {"shape": label, "old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2,
            "library_ms": time_ms(lib, lib_sets, reps), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "rel_plain": r_plain, "turns_ms": t}
+           "rel_plain": r_plain, "rel_old": r_old, "turns_ms": t}
+    for name, (call, call_sets) in (extra or {}).items():
+        row[f"{name}_ms"] = time_ms(call, call_sets, reps)
     rows.append(row)
+    more = "".join(f" {name} {row[name + '_ms']:.4f}" for name in (extra or {}))
     print(f"  {label}: old {row['old_ms']:.4f} new {row['new_ms']:.4f} ms "
-          f"({row['old_ms'] / row['new_ms']:.2f}x) library {row['library_ms']:.4f} "
+          f"({row['old_ms'] / row['new_ms']:.2f}x) library {row['library_ms']:.4f}{more} "
           f"bound {row['bound_ms']:.4f} ({row['bound_by']}); turns "
-          f"{' / '.join(f'{x:.4f}' for x in t)}; rel {r_plain:.1e} to plain", flush=True)
+          f"{' / '.join(f'{x:.4f}' for x in t)}; rel {r_plain:.1e} to plain, "
+          f"{r_old:.1e} to old", flush=True)
 
 
-def run(old_lib) -> list[dict]:
+def run_b2_b4(old_lib) -> list[dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -188,9 +206,90 @@ def run(old_lib) -> list[dict]:
     return rows
 
 
+def run_b11_b5(old_lib) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    stream = lambda: kernels.stream_ptr(dev)                    # noqa: E731
+    rows: list[dict] = []
+
+    def old_mx(a, qs, sx):
+        m, k = a.shape
+        out = torch.empty((m, qs.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_mxfp4_matmul(a.data_ptr(), int(a.dtype == torch.bfloat16),
+                                          qs.data_ptr(), sx.data_ptr(), out.data_ptr(), m, k,
+                                          qs.shape[1], stream()))
+        return out
+
+    def old_i8p(a_sbi, a_s, qs, f8, e2):
+        m, k = a_sbi.shape
+        n = qs.shape[1]
+        out_bf16 = tm.i8p_out_bf16(m)
+        out = torch.empty((m, n), dtype=torch.bfloat16 if out_bf16 else torch.float32,
+                          device=dev)
+        _checked(old_lib.rrs_tcq4_i8p(a_sbi.data_ptr(), a_s.data_ptr(), qs.data_ptr(),
+                                      f8.data_ptr(), e2.data_ptr(), out.data_ptr(), m, k, n,
+                                      int(out_bf16), stream()))
+        return out
+
+    print("B11 mxfp4_matmul, one gpt-oss-20b expert projection", flush=True)
+    k, n = 2880, 2944
+    wbytes = k // 2 * n + k // 32 * n
+    ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+           torch.randint(118, 123, (k // 32, n), generator=gen, device=dev, dtype=torch.uint8))
+          for _ in range(n_copies(wbytes))]
+    wl = [mx.dequant_mxfp4(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+    for m in (4, 300, 2048):
+        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        ab(f"mxfp4 M={m} K={k} N={n}", lambda q_, s_: old_mx(a, q_, s_),
+           lambda q_, s_: mx.mxfp4_matmul(a, q_, s_),
+           lambda q_, s_: mx.mxfp4_matmul_plain(a, q_, s_),
+           lambda w: torch.matmul(a, w), ws, [(w,) for w in wl],
+           wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 10, 1e-3, rows)
+    del ws, wl
+    torch.cuda.empty_cache()
+
+    print("B5 tcq4_matmul_i8p, qwen3-4b projections", flush=True)
+    for lname, (k, n) in QWEN3_4B.items():
+        pbytes = k // 2 * n + k // 32 * n + k // 256 * n * 4
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(pbytes))]
+        packs = [tm.pack_i8p(q, e) for q, e in ws]
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+        w8 = [tm.decode_w8(*pk[:2]).to(torch.int8).t().contiguous().t()
+              for pk in packs[:n_copies(k * n)]]
+        for m in (256, 512, 4096):
+            a_q = torch.randint(-7, 8, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            a_s = torch.rand((m, k // 256), generator=gen, device=dev) + 0.5
+            a_sbi = tm.prep_a_sbi(a_q)
+            a16 = (a_q.float() * a_s.repeat_interleave(256, dim=1) / 7.0).to(torch.bfloat16)
+            out_bytes = m * n * (2 if tm.i8p_out_bf16(m) else 4)
+            ab(f"i8p {lname} M={m} K={k} N={n}", lambda *pk: old_i8p(a_sbi, a_s, *pk),
+               lambda *pk: tm.tcq4_matmul_i8p(a_sbi, a_s, *pk),
+               lambda *pk: tm.tcq4_matmul_i8p_plain(a_sbi, a_s, *pk),
+               lambda w: torch.matmul(a16, w), packs, [(w,) for w in wl],
+               pbytes + m * k + m * k // 256 * 4 + out_bytes, 2 * m * k * n,
+               20 if m < 4096 else 5, 8e-3 if tm.i8p_out_bf16(m) else 1e-5, rows,
+               peak=INT8_OPS, extra={"int_mm": (torch._int_mm, [(a_sbi, w) for w in w8])})
+        del ws, packs, wl, w8
+        torch.cuda.empty_cache()
+    for m in (256, 512, 4096):
+        sel = [r for r in rows if r["shape"].startswith("i8p") and f" M={m} " in r["shape"]]
+        tot = {key: sum(r[key] for r in sel)
+               for key in ("old_ms", "new_ms", "library_ms", "int_mm_ms", "bound_ms")}
+        rows.append({"shape": f"i8p four projections summed M={m}", **tot})
+        print(f"  i8p four summed M={m}: old {tot['old_ms']:.4f} new {tot['new_ms']:.4f} "
+              f"library {tot['library_ms']:.4f} int_mm {tot['int_mm_ms']:.4f} "
+              f"bound {tot['bound_ms']:.4f}", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path, help="an older tree of this repo")
+    ap.add_argument("--subjects", choices=sorted(SUBJECTS), default="b11,b5",
+                    help="the kernels to hold and time (the parent must predate their redesign)")
     ap.add_argument("--json", type=Path, help="write the rows here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -200,10 +299,13 @@ def main(argv=None) -> int:
                          capture_output=True, text=True).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}; {smi}", flush=True)
     kernels.lib()
-    rows = run(build_old(args.parent))
+    sources, signatures = SUBJECTS[args.subjects]
+    old_lib = build_old(args.parent, sources=sources, signatures=signatures)
+    rows = (run_b2_b4 if args.subjects == "b2,b4" else run_b11_b5)(old_lib)
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps({"device": smi, "rows": rows}, indent=1))
+        args.json.write_text(json.dumps({"device": smi, "subjects": args.subjects, "rows": rows},
+                                        indent=1))
     return 0
 
 
