@@ -81,8 +81,9 @@ it; exits non-zero without either, and on any failed phase. Phases:
    same way, with the int4 codes that differ from the model's rotation
    counted;
 10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
-   plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048, bit-equal
-   across two launches), timed beside their bounds and
+   plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048 and B13 over
+   shared T = 64 and per-expert C = 128, each bit-equal across two
+   launches), timed beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
    at the three Q8 shapes (qkv and o also at a served step's M = 4 and a
    served prefill chunk's M = 2048) and B3 / B6-B8 over a 640-slot ring
@@ -90,16 +91,19 @@ it; exits non-zero without either, and on any failed phase. Phases:
    the same weights on the CPU (the CPU's expert ids replayed where the card's
    differ; every launch held to its plain version); ``generate`` at full
    width (fabricated weights) with prompts that reach every MoE branch,
-   launch counts, the branches taken and a decode profile, then over q8
-   rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
+   launch counts, the branches taken, a decode profile and a one-lane
+   40-token prefill step under torch.profiler (B13's share of it), then over
+   q8 rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
    a teacher-forced 4-lane prefill chunk and decode step, and the chunk's
    shape again unheld under torch.profiler (B11's share of an overflow-scan
    prefill step); one capacity-path prefill run twice, its logits held
    bit-equal;
 11. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
    (``tcq4_matmul_experts``, no model path calls it) against their plain
-   versions at its shapes (B19 at M = 1 and 40 with bf16 and f32 eff,
-   bit-equal to B10 on the same experts), timed beside their bounds and
+   versions at its shapes (B10 over per-expert C = 64 with bf16 and f32
+   rows, per-expert C = 40 and shared T = 64, each bit-equal across two
+   launches; B19 at M = 1 and 40 with bf16 and f32 eff, bit-equal to B10 on
+   the same experts), timed beside their bounds and
    ``torch.bmm`` / ``torch.matmul`` on experts dequantized beforehand; a
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
@@ -107,7 +111,9 @@ it; exits non-zero without either, and on any failed phase. Phases:
    at full width (48 layers, fabricated weights, the config from
    ``ModelConfig.from_gguf`` on the published metadata) with prompts that
    reach the rows, capacity and scan branches, a capacity prefill run twice
-   and held bit-equal, a decode profile and a run over q8 KV; the server (4
+   and held bit-equal, a decode profile, a one-lane 40-token prefill step
+   under torch.profiler (B10's share of a capacity-path step) and a run over
+   q8 KV; the server (4
    slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
    4-lane prefill chunk and decode step, every B9 launch also running B19
    on its rows and ids, whose diagonal must match B9;
@@ -927,15 +933,16 @@ GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul
 # MT> and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...>, TCQ4<...> or
 # MXFP4<...>) names the kernel
 SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul", "MXFP4": "mxfp4_matmul"}
+# B10 and B13 run the prefill body on its expert grid, experts_kernel<Loader,
+# BM> (B19's launches, on the TCQ4 loader too, count as B10's)
+SM90_EXPERTS = {"TCQ4": "tcq4_matmul_all_experts", "MXFP4": "mxfp4_matmul_all_experts"}
 # B3 and B6-B8 share attention_kernel<D, codec, decode body>, with the codec
 # ids of csrc/attention_sm90.cuh
 ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
                "3": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
                 "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
-                "mxfp4_gemm_kernel": "mxfp4_matmul_all_experts",
                 "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
-                "tcq4_experts_gemm_kernel": "tcq4_matmul_all_experts",
                 "tcq4_rows_kernel": "tcq4_matmul_experts_rows"}
 
 
@@ -1105,6 +1112,9 @@ def kernel_label(name: str) -> str:
     m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4|MXFP4)<", name)
     if m:
         return SM90_LOADERS[m.group(1)]
+    m = re.search(r"sm90::experts_kernel<[^<]*?\b(TCQ4|MXFP4)<", name)
+    if m:
+        return SM90_EXPERTS[m.group(1)]
     m = re.search(r"attention_kernel<\d+, (\d), (true|false)>", name)
     if m:
         return f"{ATTN_CODECS[m.group(1)]} ({'decode' if m.group(2) == 'true' else 'prefill'})"
@@ -2308,7 +2318,8 @@ def phase_parity_gptoss(peaks, reports):
     experts of 2880 x 2880, N padded to 2944): the rows kernel at n_sel = 4
     and 16 (one and four decode lanes, top-4), every expert over shared
     activations at T = 64 and over per-expert activations [32, 128, 2880]
-    (one 512-token chunk's capacity), the plain matmul on one expert's gate
+    (one 512-token chunk's capacity), each bit-equal across two launches,
+    the plain matmul on one expert's gate
     and down projections at M = 300 (and at M = 2048 and 4, untimed at 4);
     B2 at the three Q8 shapes at M = 1
     (qkv and o also at M = 4 and 2048); B3 and B6-B8 at D = 64, G = 8 with
@@ -2371,12 +2382,14 @@ def phase_parity_gptoss(peaks, reports):
         got = mx.mxfp4_matmul_all_experts(a, *stacks[0])
         err, rel = compare(f"mxfp4 all experts {label}", got,
                            mx.mxfp4_matmul_all_experts_plain(a, *stacks[0]), GPTOSS_TOL)
+        if not torch.equal(mx.mxfp4_matmul_all_experts(a, *stacks[0]), got):
+            raise AssertionError(f"mxfp4 all experts {label}: two launches differ")
         t = shape[-2]
         t_bytes = ms(e_n * exp_bytes + a.numel() * 2 + e_n * t * n * 4)
         t_ops = 2 * e_n * t * k * n / bf16_peak * 1e3
         lib = (lambda w: torch.matmul(a, w)) if a.dim() == 2 else (lambda w: torch.bmm(a, w))
-        rep.add({"shape": f"{label} K={k} N={n} E={e_n}", "max_abs_err": err, "rel_err": rel,
-                 "tol": GPTOSS_TOL,
+        rep.add({"shape": f"{label} K={k} N={n} E={e_n} (two launches bit-equal)",
+                 "max_abs_err": err, "rel_err": rel, "tol": GPTOSS_TOL,
                  "ms": time_ms(lambda q, s_: mx.mxfp4_matmul_all_experts(a, q, s_), stacks, 10),
                  "plain_ms": time_ms(lambda q, s_: mx.mxfp4_matmul_all_experts_plain(a, q, s_),
                                      stacks, 2),
@@ -2722,6 +2735,7 @@ def phase_gptoss_generate(reports):
         reports[key].entry["launches" if key.startswith("mx") else "launches_gptoss"] = n
     capacity_repeat(ctx, prompts["512 random"], "gpt-oss-20b")
     profile_decode(ctx, prompts["40"], label="gpt-oss-20b")
+    profile_expert_prefill(ctx, "gpt-oss-20b", "mxfp4_matmul_all_experts")
     del ctx
 
     warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
@@ -2919,6 +2933,19 @@ def phase_gptoss_served_steps(ctx):
     profile_prefill(ctx, (500, 300, 40), "gpt-oss-20b served", "mxfp4_matmul")
 
 
+def profile_expert_prefill(ctx, label: str, focus: str):
+    """A one-lane prefill step of a 40-token prompt under torch.profiler (its
+    64-token bucket takes every expert at once: B13 over shared rows on
+    gpt-oss, the capacity dispatch through B10 on Qwen3-30B-A3B): the
+    all-experts kernel's share of the step. Fails if the step did not launch
+    it."""
+    with moe_branches() as branches:
+        prof = profile_prefill(ctx, (40,), f"{label} 40-token", focus)
+    if prof and not prof["by_kernel"].get(focus):
+        raise AssertionError(f"{label} 40-token prefill profile: no {focus} device time "
+                             f"(MoE branches {branches})")
+
+
 def capacity_repeat(ctx, prompt, label):
     """One prefill of ``prompt`` run twice on a fresh sequence: every MoE layer
     must take the capacity dispatch (no overflow scan), and the logits of the
@@ -2969,7 +2996,9 @@ def phase_parity_qwen3moe(peaks, reports):
     shapes (E = 128 experts; gate / up K 2048 -> N 768, down K 768 -> N
     2048): the rows kernel at n_sel = 8 and 32 (one and four decode lanes,
     top-8), every expert over per-expert activations [128, 64, K] (a
-    512-token chunk's capacity) and over shared activations at T = 64, and
+    512-token chunk's capacity; bf16 rows, then f32 ones), [128, 40, K] (a
+    capacity below the 64-row tile) and over shared activations at T = 64,
+    each held bit-equal across two launches, and
     the selected-experts kernel (no model path calls it) at n_sel = 8 over
     shared rows at M = 1 and 40 with bf16 and f32 eff, bit-equal to B10 on
     the same experts where eff is bf16. Held within QWEN3MOE_TOL relative and
@@ -3025,23 +3054,32 @@ def phase_parity_qwen3moe(peaks, reports):
             del sel16
 
         rep = reports["tq_all"]
-        for label, shape in (("per-expert C=64", (e_n, 64, k)), ("shared T=64", (64, k))):
-            a = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        # per-expert C = 40 is not a multiple of the 64-row tile; the f32 rows
+        # are rounded to bf16 by the wrapper, as the kernel would round them
+        for label, shape, dtype in (("per-expert C=64", (e_n, 64, k), torch.bfloat16),
+                                    ("shared T=64", (64, k), torch.bfloat16),
+                                    ("per-expert C=64, f32 a", (e_n, 64, k), torch.float32),
+                                    ("per-expert C=40", (e_n, 40, k), torch.bfloat16)):
+            a = torch.randn(shape, generator=gen, device=dev).to(dtype)
             got = tm.tcq4_matmul_all_experts(a, qs, eff)
             err, rel = compare(f"tcq4 all experts {proj} {label}", got,
                                tm.tcq4_matmul_all_experts_plain(a, qs, eff), QWEN3MOE_TOL)
+            if not torch.equal(tm.tcq4_matmul_all_experts(a, qs, eff), got):
+                raise AssertionError(f"tcq4 all experts {proj} {label}: two launches differ")
             t = shape[-2]
-            t_bytes = ms(e_n * exp_bytes + a.numel() * 2 + e_n * t * n * 4)
+            t_bytes = ms(e_n * exp_bytes + a.numel() * a.element_size() + e_n * t * n * 4)
             t_ops = 2 * e_n * t * k * n / bf16_peak * 1e3
-            lib = (lambda w: torch.matmul(a, w)) if a.dim() == 2 else (lambda w: torch.bmm(a, w))
-            rep.add({"shape": f"{proj} {label} K={k} N={n} E={e_n}", "max_abs_err": err,
-                     "rel_err": rel, "tol": QWEN3MOE_TOL,
+            a16 = a.to(torch.bfloat16)
+            lib = (lambda w: torch.matmul(a16, w)) if a.dim() == 2 else \
+                (lambda w: torch.bmm(a16, w))
+            rep.add({"shape": f"{proj} {label} K={k} N={n} E={e_n} (two launches bit-equal)",
+                     "max_abs_err": err, "rel_err": rel, "tol": QWEN3MOE_TOL,
                      "ms": time_ms(lambda: tm.tcq4_matmul_all_experts(a, qs, eff), [()], 10),
                      "plain_ms": time_ms(lambda: tm.tcq4_matmul_all_experts_plain(a, qs, eff),
                                          [()], 2),
                      "library_ms": time_ms(lib, [(w16,)], 10),
                      **bound(t_bytes, t_ops)},
-                    headline=(proj == "gate_up" and label.startswith("per-expert")))
+                    headline=(proj == "gate_up" and label == "per-expert C=64"))
 
         rep = reports["tq_sel"]
         eff32 = eff.float()
@@ -3251,6 +3289,7 @@ def phase_qwen3moe_generate(reports):
         reports[key].entry["launches" if key.startswith("tq") else "launches_qwen3moe"] = n
     capacity_repeat(ctx, prompts["40"], "Qwen3-30B-A3B")
     profile_decode(ctx, prompts["40"], label="Qwen3-30B-A3B")
+    profile_expert_prefill(ctx, "Qwen3-30B-A3B", "tcq4_matmul_all_experts")
     del ctx
 
     warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")

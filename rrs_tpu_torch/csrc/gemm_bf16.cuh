@@ -1,17 +1,14 @@
-// A plain tiled bf16 tensor-core GEMM, C[M, N] = A[M, K] @ W[K, N], shared by
-// the TCQ4 expert matmuls (B10 and B19, tcq4_experts.cu), the MXFP4
-// all-experts matmul (B13, mxfp4_matmul.cu) and the paired-bias matmul (B18,
-// tcq4_pb.cu). Only the loader of the weight tile differs: each kernel
-// dequantizes its own format into a bf16 shared-memory tile, so no
-// dequantized weight ever reaches device memory.
+// A plain tiled bf16 tensor-core GEMM, C[M, N] = A[M, K] @ W[K, N], used by
+// the paired-bias matmul alone (B18, tcq4_pb.cu, which no model path
+// calls). Its weight-tile loader dequantizes the format into a bf16
+// shared-memory tile, so no dequantized weight ever reaches device memory.
 //
 // Tile: BM x 64 (N) x 64 (K), 128 threads (4 warps), WMMA m16n16k16 bf16 with
 // f32 accumulators. One K tile is 64 logical k, given as two 32-wide runs
-// (k0 .. k0+31 and k1 .. k1+31): a TCQ4 weight quarter-superblock holds k and
-// k + 128 in one byte, so its two runs are 128 apart. Loads are synchronous
-// and there is no split-K. B2, B4 (and B17 through B4) and B11 moved to the
-// split-K stream and the pipelined GEMM of gemm_sm90.cuh; the kernels above
-// move there one by one, and this header goes with the last of them.
+// (k0 .. k0+31 and k1 .. k1+31). Loads are synchronous and there is no
+// split-K. Every other weight matmul runs on the split-K stream and the
+// pipelined GEMM of gemm_sm90.cuh: B2, B4 (and B17 through B4) and B11 since
+// their redesigns, B10, B13 and B19 on its expert grid.
 #pragma once
 
 #include <mma.h>

@@ -1,8 +1,10 @@
 // The two bodies of the quantized weight matmuls C[M, N] = bf16(A) @ bf16(W)
-// with f32 sums, shared by B2 (q8_matmul.cu) and B4 (tcq4_matmul.cu, and B17
-// through it). Each body is templated on a weight loader, which knows its
-// format's bytes and how to round a weight to bf16; the bodies know tiles,
-// pipelines, the tensor-core instruction and the reduction.
+// with f32 sums, shared by B2 (q8_matmul.cu), B4 (tcq4_matmul.cu, and B17
+// through it) and B11 (mxfp4_matmul.cu); the second also runs on an expert
+// grid for B10 and B19 (tcq4_experts.cu, through tcq4_experts below) and B13
+// (mxfp4_matmul.cu). Each body is templated on a weight loader, which knows
+// its format's bytes and how to round a weight to bf16; the bodies know
+// tiles, pipelines, the tensor-core instruction and the reduction.
 //
 // 1. splitk_kernel, M <= 16 (decode): a weight stream, bound by bytes.
 //    The grid is (column strips of 128) x (K slices of whole slice units: a
@@ -34,15 +36,19 @@
 //    weights into the other of two bf16 B tiles, and runs the mma on this
 //    stage. Both operands reach the tensor cores through ldmatrix (B
 //    transposed). Where the output tiles are fewer than the SMs the grid
-//    splits K too, reduced as in the decode body.
+//    splits K too, reduced as in the decode body. One block's work is
+//    gemm_block; experts_kernel runs it with the experts on the grid's z
+//    axis (one K slice, each block its own expert's weights and
+//    activations), a flag that gemm_kernel's instantiations do not take.
 //
-// A loader supplies (see q8_matmul.cu and tcq4_matmul.cu):
+// A loader supplies (see q8_matmul.cu, tcq4_matmul.cu and mxfp4_matmul.cu):
 //   kUnitK, kInner       slice unit in k, and inner units (a warp's grain) in it
 //   Raw, load, compute   the decode body's registers, their loads, and the
 //                        dequantize + mma of one inner unit
 //   kRawBytes, runs,     the prefill body's raw weight bytes per 64-k stage,
 //   issue, dequant       the two 32-wide k runs of a stage, its cp.async
 //                        copies, and its dequantize into the bf16 B tile
+//   expert               (expert grid only) the Params of expert e of a stack
 #pragma once
 
 #include "common.cuh"
@@ -374,18 +380,30 @@ __device__ __forceinline__ void store2(__nv_bfloat16* out, int M, int N, int r, 
   }
 }
 
-// grid (ceil(N / 128), ceil(M / BM), slices), kPrefillThreads threads,
-// dynamic shared memory PrefillSmem<L, BM>::kBytes. a bf16 [M, K] (the
-// wrappers round f32 activations to bf16 first, as the kernel would); K a
-// multiple of kBK; slice z sums k steps [z * slice_steps, (z + 1) *
-// slice_steps), and with more than one slice scratch [slices, M, gridDim.x *
-// 128] and counters [gridDim.x * gridDim.y] take the partials as in
-// splitk_kernel.
-template <class L, int BM, typename OutT>
-__global__ void __launch_bounds__(kPrefillThreads, 2)
-gemm_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, OutT* __restrict__ out,
-            int M, int K, int N, int slice_steps, float* __restrict__ scratch,
-            int* __restrict__ counters) {
+// One block of the pipelined GEMM, the body of gemm_kernel and, with
+// kExperts, of experts_kernel (below). Without kExperts: grid (ceil(N /
+// 128), ceil(M / BM), slices); slice z sums k steps [z * slice_steps, (z +
+// 1) * slice_steps), and with more than one slice scratch [slices, M,
+// gridDim.x * 128] and counters [gridDim.x * gridDim.y] take the partials
+// as in splitk_kernel. With kExperts: grid z is the output z of the expert
+// grid, whose block takes expert e = z (ids null) or ids[z] clamped to [0,
+// n_exp), its activations at a + z * a_stride, its weights at the loader's
+// offset for expert e (L::expert) and its output at out + z * M * N, over
+// all of K (one slice).
+template <class L, int BM, typename OutT, bool kExperts>
+__device__ __forceinline__ void gemm_block(typename L::Params p,
+                                           const __nv_bfloat16* __restrict__ a,
+                                           OutT* __restrict__ out, int M, int K, int N,
+                                           int slice_steps, float* __restrict__ scratch,
+                                           int* __restrict__ counters, size_t a_stride,
+                                           const int* __restrict__ ids, int n_exp) {
+  if constexpr (kExperts) {
+    const size_t z = blockIdx.z;
+    const size_t e = ids ? static_cast<size_t>(min(max(ids[z], 0), n_exp - 1)) : z;
+    p = L::expert(p, e, K, N);
+    a += z * a_stride;
+    out += z * M * static_cast<size_t>(N);
+  }
   using SM = PrefillSmem<L, BM>;
   constexpr int kS = SM::kStages;
   constexpr int kWarpM = BM / 2, kMF = kWarpM / 16, kNF = 4;
@@ -396,7 +414,7 @@ gemm_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, OutT* __r
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
-  const int u0 = blockIdx.z * slice_steps;                        // this slice's k steps
+  const int u0 = kExperts ? 0 : blockIdx.z * slice_steps;       // this slice's k steps
   const int units = min(K / kBK - u0, slice_steps);
 
   auto stage = [&](int u) { return smem + (u % kS) * SM::kStageBytes; };
@@ -465,7 +483,7 @@ gemm_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, OutT* __r
   }
   cp_async_wait<0>();
 
-  const int S = gridDim.z, npad = gridDim.x * kBN;
+  const int S = kExperts ? 1 : gridDim.z, npad = gridDim.x * kBN;
   float* part = scratch + static_cast<size_t>(blockIdx.z) * M * npad;
 #pragma unroll
   for (int i = 0; i < kMF; ++i)
@@ -484,6 +502,19 @@ gemm_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, OutT* __r
   if (S > 1)
     finish_slices(scratch, out, counters + blockIdx.y * gridDim.x + blockIdx.x, S, M, N, npad,
                   m0, BM, n0, kBN);
+}
+
+// grid (ceil(N / 128), ceil(M / BM), slices), kPrefillThreads threads,
+// dynamic shared memory PrefillSmem<L, BM>::kBytes. a bf16 [M, K] (the
+// wrappers round f32 activations to bf16 first, as the kernel would); K a
+// multiple of kBK; scratch and counters as gemm_block takes them.
+template <class L, int BM, typename OutT>
+__global__ void __launch_bounds__(kPrefillThreads, 2)
+gemm_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, OutT* __restrict__ out,
+            int M, int K, int N, int slice_steps, float* __restrict__ scratch,
+            int* __restrict__ counters) {
+  gemm_block<L, BM, OutT, false>(p, a, out, M, K, N, slice_steps, scratch, counters, 0, nullptr,
+                                 0);
 }
 
 template <class L, int BM, typename OutT>
@@ -519,6 +550,51 @@ int launch_gemm(const typename L::Params& p, const __nv_bfloat16* a, OutT* out, 
   return launch_gemm_bm<L, 128, OutT>(p, a, out, M, K, N, slice_steps, scratch, counters, stream);
 }
 
+// The expert grid (B10, B13, B19): out[z] = a[z] @ W[e(z)] for z < Z, each
+// f32 [M, N]. grid (ceil(N / 128), ceil(M / BM), Z), one K slice: at every
+// model shape the grid already has several blocks for each of the 264 block
+// slots. Block z as gemm_block takes it with kExperts (a_stride 0: the
+// activations are shared by every z).
+template <class L, int BM>
+__global__ void __launch_bounds__(kPrefillThreads, 2)
+experts_kernel(typename L::Params p, const __nv_bfloat16* __restrict__ a, size_t a_stride,
+               const int* __restrict__ ids, int n_exp, float* __restrict__ out, int M, int K,
+               int N) {
+  gemm_block<L, BM, float, true>(p, a, out, M, K, N, K / kBK, nullptr, nullptr, a_stride, ids,
+                                 n_exp);
+}
+
+template <class L, int BM>
+int launch_experts_bm(const typename L::Params& p, const __nv_bfloat16* a, size_t a_stride,
+                      const int* ids, int n_exp, float* out, int Z, int M, int K, int N,
+                      cudaStream_t stream) {
+  constexpr int bytes = PrefillSmem<L, BM>::kBytes;
+  auto kernel = experts_kernel<L, BM>;
+  static bool configured = false;
+  if (!configured) {
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
+        cudaSuccess)
+      return status();
+    configured = true;
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, Z);
+  kernel<<<grid, kPrefillThreads, bytes, stream>>>(p, a, a_stride, ids, n_exp, out, M, K, N);
+  return status();
+}
+
+// row_tile: BM, 64 or 128 (ops/splitk.py experts_grid); ids null: Z = E.
+template <class L>
+int launch_experts(const typename L::Params& p, const __nv_bfloat16* a, size_t a_stride,
+                   const int* ids, int n_exp, float* out, int Z, int M, int K, int N,
+                   int row_tile, cudaStream_t stream) {
+  if (M < 1 || K % kBK || Z < 1 || Z > 65535 || n_exp < 1 ||
+      (row_tile != 64 && row_tile != 128) || (M + row_tile - 1) / row_tile > 65535)
+    return kBadArgs;
+  if (row_tile == 64)
+    return launch_experts_bm<L, 64>(p, a, a_stride, ids, n_exp, out, Z, M, K, N, stream);
+  return launch_experts_bm<L, 128>(p, a, a_stride, ids, n_exp, out, Z, M, K, N, stream);
+}
+
 }  // namespace sm90
 
 // B4's body for any caller in the library (B17 runs its dot through it):
@@ -527,5 +603,12 @@ int launch_gemm(const typename L::Params& p, const __nv_bfloat16* a, OutT* out, 
 int tcq4_gemm(const void* a, bool a_bf16, const uint8_t* qs, const void* eff, bool eff_f32,
               void* out, bool out_bf16, int M, int K, int N, int slice_units, float* scratch,
               int* counters, cudaStream_t stream);
+
+// B4's prefill body on the expert grid, for the expert matmuls (tcq4_experts.cu):
+// out[z] = bf16 a[z] @ W[e(z)] (sm90::experts_kernel), qs [E][K/2][N] and eff
+// [E][K/32][N] bf16 or f32.
+int tcq4_experts(const __nv_bfloat16* a, size_t a_stride, const uint8_t* qs, const void* eff,
+                 bool eff_f32, const int* ids, int n_exp, float* out, int Z, int M, int K, int N,
+                 int row_tile, cudaStream_t stream);
 
 }  // namespace rrs

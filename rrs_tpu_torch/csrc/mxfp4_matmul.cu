@@ -18,8 +18,11 @@
 // weight byte is decoded on chip and no dequantized weight reaches memory.
 //
 // Bound on the H100: bytes for B12 (each selected expert's 4.25-bit tiles,
-// 4.5 MB per projection at gpt-oss-20b), and for B11 and B13 at decode M;
-// operations for B11 and B13 at prefill M.
+// 4.5 MB per projection at gpt-oss-20b), and for B11 and B13 at decode M and
+// at the shared T <= 64 of batched decode (B13 at T = 64 moves every
+// expert's 144 MB with its activations and f32 outputs, 0.050 ms at
+// 3.35 TB/s, against 0.035 ms of bf16 tensor-core work); operations for B11
+// and B13 at prefill M (B13 from about C = 110 rows an expert on).
 //
 // Design. B11 runs on the two bodies of gemm_sm90.cuh (as B2 and B4 do) with
 // the MXFP4 loader below, whose slice unit is one scale group of 32 k. At M
@@ -30,23 +33,23 @@
 // first, as the kernel would): a 64-deep stage is 32 byte rows x 128 columns
 // and two scale rows, and each thread decodes one 16-byte run of a byte row
 // into two rows of the bf16 B tile, two columns a 32-bit store. Both bodies
-// decode with the same bit formula on 16-bit halves (fp4x2_bf16). B13 is the
-// tiled WMMA GEMM of gemm_bf16.cuh (BM x 64 x 64 tiles, 4 warps, synchronous
-// loads) with an MXFP4 tile loader, its experts on the grid's z axis with a
-// zero activation stride for shared activations; it moves onto the MXFP4
-// loader next. B12 is a matrix-vector kernel on the CUDA cores, one block
-// per (128 columns, selected row): the expert id is read on the device, the
-// bf16 row of a is held in shared memory as f32, eight warps split K by
-// scale group, each lane decodes four columns from 4-byte loads (a warp reads
-// 128 contiguous bytes of a byte row), and the warps' partial sums meet in
-// shared memory.
+// decode with the same bit formula on 16-bit halves (fp4x2_bf16). B13 runs
+// the same prefill body and loader on the expert grid of gemm_sm90.cuh
+// (experts_kernel): block (strip, row tile, expert) streams its expert's
+// stages through the ring while the next stage is decoded and this one
+// multiplied, 64 x 128 tiles below 128 rows (the wrapper picks the row
+// tile, ops/splitk.py experts_grid), two blocks an SM, with a zero
+// activation stride for shared activations; at gpt-oss-20b the grid has at
+// least 736 blocks for the 264 block slots, so K is not split. B12 is a
+// matrix-vector kernel on the CUDA cores, one block per (128 columns,
+// selected row): the expert id is read on the device, the bf16 row of a is
+// held in shared memory as f32, eight warps split K by scale group, each
+// lane decodes four columns from 4-byte loads (a warp reads 128 contiguous
+// bytes of a byte row), and the warps' partial sums meet in shared memory.
 
-#include "gemm_bf16.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
-
-using namespace rrs::gemm;
 
 // f32 bit pattern of remapped code `code` (0..15) times 2^(sexp - 127).
 __device__ __forceinline__ uint32_t fp4_bits(uint32_t code, uint32_t sexp) {
@@ -55,16 +58,11 @@ __device__ __forceinline__ uint32_t fp4_bits(uint32_t code, uint32_t sexp) {
   return mag | ((code & 8u) << 28);
 }
 
-__device__ __forceinline__ __nv_bfloat16 fp4_bf16(uint32_t code, uint32_t sexp) {
-  // the low 16 bits of the f32 pattern are zero: bf16 is its top half
-  return __ushort_as_bfloat16(static_cast<unsigned short>(fp4_bits(code, sexp) >> 16));
-}
-
 // Two remapped codes in bits 0-3 and 16-19 of `nib` with the exponents
-// s2 = sexp_lo | sexp_hi << 16 -> the exact bf16 pair (fp4_bf16 of each), in
-// 16-bit halves: the magnitude (em << 6) + (sexp << 7) cannot carry out of
-// its half (sexp <= 251), code 1 (em == 1) is masked to zero, and the sign
-// moves from bit 3 to bit 15.
+// s2 = sexp_lo | sexp_hi << 16 -> the exact bf16 pair (the top half of each
+// code's fp4_bits), in 16-bit halves: the magnitude (em << 6) + (sexp << 7)
+// cannot carry out of its half (sexp <= 251), code 1 (em == 1) is masked to
+// zero, and the sign moves from bit 3 to bit 15.
 __device__ __forceinline__ uint32_t fp4x2_bf16(uint32_t nib, uint32_t s2) {
   const uint32_t em = nib & 0x00070007u;
   const uint32_t mag = (em << 6) + (s2 << 7);
@@ -79,7 +77,7 @@ __device__ __forceinline__ uint32_t byte_pair(const uint4& v, int c) {
   return __byte_perm(w, 0u, b | (4u << 4) | ((b + 1) << 8) | (4u << 12));
 }
 
-// B11's weight loader for the bodies of gemm_sm90.cuh.
+// B11's and B13's weight loader for the bodies of gemm_sm90.cuh.
 template <typename InT>
 struct MXFP4 {
   struct Params {
@@ -87,6 +85,12 @@ struct MXFP4 {
     const uint8_t* qs;
     const uint8_t* sexp;
   };
+
+  // expert e of stacks qs [E][K/2][N] and sexp [E][K/32][N] (the expert grid)
+  static __device__ __forceinline__ Params expert(const Params& p, size_t e, int K, int N) {
+    return {p.a, p.qs + e * (K / 2) * static_cast<size_t>(N),
+            p.sexp + e * (K / 32) * static_cast<size_t>(N)};
+  }
 
   // -- decode: an inner unit is one scale group, 16 byte rows
   static constexpr int kUnitK = 32;
@@ -205,75 +209,6 @@ int run_b11(const void* a, const void* qs, const void* sexp, float* out, int M, 
   return rrs::kBadArgs;   // the prefill body takes bf16 activations
 }
 
-// The 64 (k) x 64 (n) bf16 tile at k0, n0 of one expert's packed weight.
-__device__ __forceinline__ void load_b_mxfp4(const uint8_t* __restrict__ qs,
-                                             const uint8_t* __restrict__ sexp, int N, int k0,
-                                             int n0, __nv_bfloat16* sb) {
-  const int r = threadIdx.x >> 2;           // byte row of the tile, 0..31
-  const int cb = (threadIdx.x & 3) * 16;    // first of 16 columns
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-      qs + static_cast<size_t>(k0 / 2 + r) * N + n0 + cb));
-  const uint4 s = __ldg(reinterpret_cast<const uint4*>(
-      sexp + static_cast<size_t>(k0 / 32 + r / 16) * N + n0 + cb));
-  const uint8_t* qb = reinterpret_cast<const uint8_t*>(&q);
-  const uint8_t* se = reinterpret_cast<const uint8_t*>(&s);
-  __nv_bfloat16* lo = sb + (2 * r) * kLdB + cb;
-  __nv_bfloat16* hi = lo + kLdB;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const uint32_t byte = qb[j], e = se[j];
-    lo[j] = fp4_bf16(byte & 15u, e);
-    hi[j] = fp4_bf16(byte >> 4, e);
-  }
-}
-
-static_assert(kThreads == 128 && kBK == 64 && kBN == 64,
-              "load_b_mxfp4 maps 128 threads onto 32 byte rows x 4 runs of 16 columns");
-
-// B13: grid (N / 64, ceil(M / BM), E): expert blockIdx.z, its activations at
-// a + e * a_stride (0: shared), its output at out + e * M * N.
-template <int BM>
-__global__ void __launch_bounds__(kThreads)
-mxfp4_gemm_kernel(const __nv_bfloat16* __restrict__ a, size_t a_stride, const uint8_t* __restrict__ qs,
-                  const uint8_t* __restrict__ sexp, float* __restrict__ out, int M, int K,
-                  int N) {
-  __shared__ Smem<BM> sm;
-  const size_t e = blockIdx.z;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  a += e * a_stride;
-  qs += e * (K / 2) * static_cast<size_t>(N);
-  sexp += e * (K / 32) * static_cast<size_t>(N);
-  out += e * M * static_cast<size_t>(N);
-  Acc<BM> acc;
-  acc.zero();
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    load_a<BM>(a, M, K, m0, k0, k0 + 32, sm.a);
-    load_b_mxfp4(qs, sexp, N, k0, n0, sm.b);
-    __syncthreads();
-    acc.mma(sm.a, sm.b);
-    __syncthreads();
-  }
-  acc.store(sm.c, out, M, N, m0, n0);
-}
-
-int launch_experts(const void* a, size_t a_stride, const void* qs, const void* sexp, void* out,
-                   int E, int M, int K, int N, cudaStream_t s) {
-  using bf16 = __nv_bfloat16;
-  const bf16* ap = static_cast<const bf16*>(a);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const uint8_t* sp = static_cast<const uint8_t*>(sexp);
-  float* op = static_cast<float*>(out);
-  if (M <= 16) {
-    const dim3 grid(N / kBN, (M + 15) / 16, E);
-    mxfp4_gemm_kernel<16><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, sp, op, M, K, N);
-  } else {
-    const dim3 grid(N / kBN, (M + 63) / 64, E);
-    mxfp4_gemm_kernel<64><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, sp, op, M, K, N);
-  }
-  return rrs::status();
-}
-
 constexpr int kRowsWarps = 8;
 constexpr int kRowsCols = 128;     // 32 lanes x 4 columns
 constexpr int kRowsMaxK = 8192;    // the row of a in (dynamic) shared memory
@@ -362,11 +297,15 @@ RRS_EXPORT int rrs_mxfp4_rows(const void* a, const void* qs, const void* sexp, c
   return rrs::status();
 }
 
+// a bf16; row_tile 64 or 128 (ops/splitk.py experts_grid).
 RRS_EXPORT int rrs_mxfp4_all_experts(const void* a, int per_expert, const void* qs,
                                      const void* sexp, void* out, int E, int T, int K, int N,
-                                     void* stream) {
-  if (bad_shape(T, K, N) || E < 1 || E > 65535 || (T + 15) / 16 > 65535) return rrs::kBadArgs;
+                                     int row_tile, void* stream) {
+  if (bad_shape(T, K, N) || E < 1) return rrs::kBadArgs;
+  using L = MXFP4<__nv_bfloat16>;
+  const L::Params p{static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(qs),
+                    static_cast<const uint8_t*>(sexp)};
   const size_t a_stride = per_expert ? static_cast<size_t>(T) * K : 0;
-  return launch_experts(a, a_stride, qs, sexp, out, E, T, K, N,
-                        static_cast<cudaStream_t>(stream));
+  return rrs::sm90::launch_experts<L>(p, p.a, a_stride, nullptr, E, static_cast<float*>(out), E,
+                                      T, K, N, row_tile, static_cast<cudaStream_t>(stream));
 }

@@ -20,82 +20,38 @@
 //
 // Bound on the H100: bytes for B9 and B19 at decode M (the selected experts'
 // 4.625-bit weights, 0.88 MB per expert matrix at Qwen3-30B-A3B) and for B10
-// at small capacity (every expert's weights, 113 MB per projection at
-// E = 128); operations for B10 once the capacity passes ~300 rows.
+// at the capacities the model gives it (C = 24 .. 64: every expert's
+// weights, 113 MB per projection at E = 128; with the per-expert
+// activations and f32 outputs 0.051 ms at 3.35 TB/s against 0.026 ms of
+// bf16 tensor-core work at C = 64); operations for B10 from about C = 250
+// (gate / up) and C = 1,000 (down) rows on.
 //
-// Design. B10 is the tiled WMMA GEMM of gemm_bf16.cuh (BM x 64 x 64 tiles,
-// 4 warps, f32 accumulators) with the TCQ4 tile loader of tcq4_tile.cuh, the
-// experts on the grid's z axis and a zero activation stride for shared
-// activations. B19 is the same GEMM over shared activations with grid z
-// running over the selected experts: each block reads ids[z] on the device
-// (clamped to [0, E), as B9 does), so with bf16 eff its out[i] is bit-equal
-// to B10's out[ids[i]]. B9 is a matrix-vector kernel on the CUDA cores, one
+// Design. B10 and B19 run the pipelined prefill body of gemm_sm90.cuh on its
+// expert grid (sm90::experts_kernel, through rrs::tcq4_experts and B4's TCQ4
+// loader in tcq4_matmul.cu): block (strip, row tile, z) streams expert
+// e(z)'s quarter superblocks through a 3-stage cp.async ring, dequantizing
+// the next stage while it multiplies this one (ldmatrix into mma.sync
+// m16n8k16), 64 x 128 tiles below 128 rows (the wrapper picks
+// the row tile, ops/splitk.py experts_grid), two blocks an SM. At the model's
+// capacities the grid has at least 768 blocks for the 264 block slots, so
+// no K split is needed, and each weight byte is read once per row tile. The
+// activations are bf16 (the wrappers round f32 ones first, as the kernel
+// would). B10 takes e(z) = z, with a zero activation stride for shared
+// activations; B19 is the same kernel over shared activations with z running
+// over the selected experts, e(z) = ids[z] read on the device and clamped to
+// [0, E), as B9 does, so with bf16 eff its out[i] is B10's out[ids[i]] bit
+// for bit (same body, tile and K order at every M); with f32 eff it takes
+// B17's f32-eff loader. B9 is a matrix-vector kernel on the CUDA cores, one
 // block per (128 columns, selected row): the block reads its row's expert id
 // on the device, holds the row of a in shared memory as bf16-rounded f32,
 // and its eight warps split K by quarter superblocks (32 byte rows, two
 // scale groups); each lane decodes four columns from 4-byte loads, so a warp
 // reads 128 contiguous bytes of a byte row, and the warps' partial sums meet
-// in shared memory. Loads are synchronous: cp.async / TMA rings and wgmma
-// come with the change that makes these fast.
+// in shared memory.
 
-#include "tcq4_tile.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
-
-using namespace rrs::gemm;
-
-// grid (ceil(N / 64), ceil(M / BM), Z): output z at out + z * M * N, its
-// activations at a + z * a_stride (0: shared), its expert z (ids null, B10)
-// or ids[z] clamped to [0, n_exp) (B19).
-template <int BM, typename InT, typename EffT>
-__global__ void __launch_bounds__(kThreads)
-tcq4_experts_gemm_kernel(const InT* __restrict__ a, size_t a_stride,
-                         const uint8_t* __restrict__ qs, const EffT* __restrict__ eff,
-                         const int* __restrict__ ids, int n_exp, float* __restrict__ out,
-                         int M, int K, int N) {
-  __shared__ Smem<BM> sm;
-  const size_t z = blockIdx.z;
-  const size_t e = ids ? static_cast<size_t>(min(max(ids[z], 0), n_exp - 1)) : z;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
-  a += z * a_stride;
-  qs += e * (K / 2) * static_cast<size_t>(N);
-  eff += e * (K / 32) * static_cast<size_t>(N);
-  out += z * M * static_cast<size_t>(N);
-  Acc<BM> acc;
-  acc.zero();
-  const int nunits = (K / 256) * 4;
-  for (int u = 0; u < nunits; ++u) {
-    const int sb = u >> 2, q = u & 3;
-    const int k0 = sb * 256 + q * 32;
-    load_a<BM>(a, M, K, m0, k0, k0 + 128, sm.a);
-    load_b_tcq4(qs, eff, N, sb, q, n0, sm.b);
-    __syncthreads();
-    acc.mma(sm.a, sm.b);
-    __syncthreads();
-  }
-  acc.store(sm.c, out, M, N, m0, n0);
-}
-
-// Z outputs; ids null: expert z, else expert ids[z] of n_exp.
-template <typename InT, typename EffT>
-int launch_gemm(const void* a, size_t a_stride, const void* qs, const void* eff, const int* ids,
-                int n_exp, void* out, int Z, int M, int K, int N, cudaStream_t s) {
-  const InT* ap = static_cast<const InT*>(a);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const EffT* ep = static_cast<const EffT*>(eff);
-  float* op = static_cast<float*>(out);
-  if (M <= 16) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 15) / 16, Z);
-    tcq4_experts_gemm_kernel<16, InT, EffT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, ids,
-                                                                      n_exp, op, M, K, N);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + 63) / 64, Z);
-    tcq4_experts_gemm_kernel<64, InT, EffT><<<grid, kThreads, 0, s>>>(ap, a_stride, qp, ep, ids,
-                                                                      n_exp, op, M, K, N);
-  }
-  return rrs::status();
-}
 
 constexpr int kRowsWarps = 8;
 constexpr int kRowsCols = 128;     // 32 lanes x 4 columns
@@ -192,31 +148,25 @@ RRS_EXPORT int rrs_tcq4_experts_rows(const void* a, int a_is_bf16, const void* q
   return rrs::status();
 }
 
-RRS_EXPORT int rrs_tcq4_all_experts(const void* a, int a_is_bf16, int per_expert, const void* qs,
-                                    const void* eff, void* out, int E, int T, int K, int N,
+// a bf16 (the wrapper rounds f32 activations first); row_tile 64 or 128
+// (ops/splitk.py experts_grid).
+RRS_EXPORT int rrs_tcq4_all_experts(const void* a, int per_expert, const void* qs, const void* eff,
+                                    void* out, int E, int T, int K, int N, int row_tile,
                                     void* stream) {
-  if (bad_shape(T, K, N) || E < 1 || E > 65535 || (T + 15) / 16 > 65535) return rrs::kBadArgs;
+  if (bad_shape(T, K, N) || E < 1) return rrs::kBadArgs;
   const size_t a_stride = per_expert ? static_cast<size_t>(T) * K : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_is_bf16)
-    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(a, a_stride, qs, eff, nullptr, E, out, E, T,
-                                                     K, N, s);
-  return launch_gemm<float, __nv_bfloat16>(a, a_stride, qs, eff, nullptr, E, out, E, T, K, N, s);
+  return rrs::tcq4_experts(static_cast<const __nv_bfloat16*>(a), a_stride,
+                           static_cast<const uint8_t*>(qs), eff, false, nullptr, E,
+                           static_cast<float*>(out), E, T, K, N, row_tile,
+                           static_cast<cudaStream_t>(stream));
 }
 
-RRS_EXPORT int rrs_tcq4_experts_sel(const void* a, int a_is_bf16, const void* qs, const void* eff,
+RRS_EXPORT int rrs_tcq4_experts_sel(const void* a, const void* qs, const void* eff,
                                     int eff_is_f32, const void* ids, void* out, int n_sel, int M,
-                                    int K, int N, int n_exp, void* stream) {
-  if (bad_shape(M, K, N) || n_exp < 1 || n_sel < 1 || n_sel > 65535 || (M + 15) / 16 > 65535)
-    return rrs::kBadArgs;
-  const int* ip = static_cast<const int*>(ids);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a_is_bf16 && eff_is_f32)
-    return launch_gemm<__nv_bfloat16, float>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
-  if (a_is_bf16)
-    return launch_gemm<__nv_bfloat16, __nv_bfloat16>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K,
-                                                     N, s);
-  if (eff_is_f32)
-    return launch_gemm<float, float>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
-  return launch_gemm<float, __nv_bfloat16>(a, 0, qs, eff, ip, n_exp, out, n_sel, M, K, N, s);
+                                    int K, int N, int n_exp, int row_tile, void* stream) {
+  if (bad_shape(M, K, N) || n_exp < 1 || n_sel < 1) return rrs::kBadArgs;
+  return rrs::tcq4_experts(static_cast<const __nv_bfloat16*>(a), 0,
+                           static_cast<const uint8_t*>(qs), eff, eff_is_f32 != 0,
+                           static_cast<const int*>(ids), n_exp, static_cast<float*>(out), n_sel,
+                           M, K, N, row_tile, static_cast<cudaStream_t>(stream));
 }

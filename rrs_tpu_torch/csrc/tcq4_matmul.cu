@@ -21,7 +21,9 @@
 // (M > 16) is the pipelined GEMM on bf16 activations (the wrapper rounds the
 // f32 ones first, as the kernel would): a stage is a quarter superblock, 32
 // byte rows of 128 columns and two eff rows. B17 (tcq4_fused.cu) runs its dot
-// through tcq4_gemm below, so it is this kernel's output bit for bit.
+// through tcq4_gemm below, so it is this kernel's output bit for bit; B10 and
+// B19 (tcq4_experts.cu) run the prefill body on the expert grid through
+// tcq4_experts below, with this loader.
 
 #include "gemm_sm90.cuh"
 
@@ -38,6 +40,12 @@ struct TCQ4 {
   };
   static constexpr bool kBf16 = sizeof(EffT) == 2;
   static constexpr int kEffVec = 16 * static_cast<int>(sizeof(EffT)) / 16;   // uint4 per 16 cols
+
+  // expert e of stacks qs [E][K/2][N] and eff [E][K/32][N] (the expert grid)
+  static __device__ __forceinline__ Params expert(const Params& p, size_t e, int K, int N) {
+    return {p.a, p.qs + e * (K / 2) * static_cast<size_t>(N),
+            p.eff + e * (K / 32) * static_cast<size_t>(N)};
+  }
 
   // bf16(q * eff) of the pair of codes in `nib` whose scales are eff[c0] and
   // eff[c1] of the 16 held in e.
@@ -214,6 +222,21 @@ int tcq4_gemm(const void* a, bool a_bf16, const uint8_t* qs, const void* eff, bo
   if (out_bf16)
     return run<bf16, bf16, bf16>(a, qs, eff, out, M, K, N, slice_units, scratch, counters, s);
   return run<bf16, bf16, float>(a, qs, eff, out, M, K, N, slice_units, scratch, counters, s);
+}
+
+int tcq4_experts(const __nv_bfloat16* a, size_t a_stride, const uint8_t* qs, const void* eff,
+                 bool eff_f32, const int* ids, int n_exp, float* out, int Z, int M, int K, int N,
+                 int row_tile, cudaStream_t s) {
+  if (K % 256 != 0 || N % 8 != 0) return kBadArgs;
+  using bf16 = __nv_bfloat16;
+  if (eff_f32) {            // B19 with f32 eff (B17's loader)
+    using L = TCQ4<float, bf16>;
+    return sm90::launch_experts<L>({a, qs, static_cast<const float*>(eff)}, a, a_stride, ids,
+                                   n_exp, out, Z, M, K, N, row_tile, s);
+  }
+  using L = TCQ4<bf16, bf16>;
+  return sm90::launch_experts<L>({a, qs, static_cast<const bf16*>(eff)}, a, a_stride, ids, n_exp,
+                                 out, Z, M, K, N, row_tile, s);
 }
 
 }  // namespace rrs

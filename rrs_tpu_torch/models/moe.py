@@ -174,6 +174,12 @@ def _combine(topi, topv, n_exp: int) -> torch.Tensor:
                        device=topv.device).scatter(1, topi, topv)
 
 
+def capacity(n_exp: int, kk: int, n_tok: int) -> int:
+    """The capacity dispatch's rows an expert (C) for n_tok tokens of k
+    selections each over n_exp experts."""
+    return min(_round_up(n_tok, 8), max(64, _round_up(2 * n_tok * kk // n_exp, 64)))
+
+
 def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_experts,
                        fallback):
     """Sort the token slots by expert, pad each expert's group to a capacity
@@ -182,7 +188,7 @@ def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_exper
     host readback of this path, made only where C < n_tok) the exact
     ``fallback()`` runs instead."""
     n_sel = n_tok * kk
-    cap = min(_round_up(n_tok, 8), max(64, _round_up(2 * n_sel // n_exp, 64)))
+    cap = capacity(n_exp, kk, n_tok)
     ids_flat = topi.reshape(-1)
     counts = torch.zeros((n_exp,), dtype=torch.int64, device=a.device).scatter_add_(
         0, ids_flat, torch.ones_like(ids_flat))

@@ -26,7 +26,9 @@ it launches its kernel (``csrc/mxfp4_matmul.cu``) or raises:
                                      ``csrc/gemm_sm90.cuh`` with K split by
                                      ``splitk_plan`` (whole scale groups)
   B12 ``mxfp4_matmul_experts_rows``  out[i] = a[i] @ W[ids[i]]   (decode)
-  B13 ``mxfp4_matmul_all_experts``   out[e] = a (or a[e]) @ W[e]
+  B13 ``mxfp4_matmul_all_experts``   out[e] = a (or a[e]) @ W[e], on the
+                                     prefill body of ``csrc/gemm_sm90.cuh``
+                                     over ``splitk.experts_grid``
 """
 
 from __future__ import annotations
@@ -219,8 +221,9 @@ def mxfp4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
     a16 = a.to(torch.bfloat16).contiguous()
     dev = kernels.check_tensors("mxfp4_matmul_all_experts", a16, qs_all, s_all)
     out = torch.empty((n_exp, t, n), dtype=torch.float32, device=dev)
+    grid = splitk.experts_grid(n_exp, t, n)
     code = kernels.lib().rrs_mxfp4_all_experts(
         a16.data_ptr(), int(a.dim() == 3), qs_all.data_ptr(), s_all.data_ptr(), out.data_ptr(),
-        n_exp, t, k, n, kernels.stream_ptr(dev))
+        n_exp, t, k, n, grid.row_tile, kernels.stream_ptr(dev))
     kernels.check("mxfp4_matmul_all_experts", code)
     return out

@@ -16,6 +16,11 @@ finish adds the partials in slice order, so the result does not depend on
 which block ends first. ``counters`` holds one int32 per tile: zero before a
 launch and left zero by it, so one buffer per device serves every call on
 its stream.
+
+The expert matmuls B10 (``tcq4_matmul_all_experts``), B13
+(``mxfp4_matmul_all_experts``) and B19 (``tcq4_matmul_experts``) run the
+prefill body on an expert grid instead (``experts_grid``): output tiles
+times experts, one K slice.
 """
 
 from __future__ import annotations
@@ -70,6 +75,29 @@ def plan(m: int, k: int, n: int, unit: int, row_tile: int = 0, split_steps: int 
     slices = -(-units // per)
     per_units = per * (step // unit)
     return Plan(strips, slices, per_units, slices * m * strips * STRIP if slices > 1 else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertsGrid:
+    strips: int
+    row_tiles: int
+    experts: int                # grid z: every expert (B10, B13) or each selected one (B19)
+    row_tile: int               # the kernel's BM
+
+    @property
+    def blocks(self) -> int:
+        return self.strips * self.row_tiles * self.experts
+
+
+def experts_grid(z: int, m: int, n: int) -> ExpertsGrid:
+    """The grid of the expert kernel (csrc/gemm_sm90.cuh ``experts_kernel``)
+    for ``z`` outputs of [M, N]: strips of STRIP columns, row tiles of 64
+    rows below M = 128, else 128 (rows past M are zero), and one K slice,
+    since at every model shape the grid already holds several blocks for
+    each of the card's 2 x SMS block slots. B19 takes the grid B10 takes at
+    the same M, so its outputs are B10's bit for bit."""
+    row_tile = 64 if m < 128 else 128
+    return ExpertsGrid(-(-n // STRIP), -(-m // row_tile), z, row_tile)
 
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}

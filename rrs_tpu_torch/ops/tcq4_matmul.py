@@ -710,12 +710,13 @@ def tcq4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
         return tcq4_matmul_all_experts_plain(a, qs_all, eff_all)
     _check_types("tcq4_matmul_all_experts", a, qs_all, eff_all)
     t = a.shape[-2]
-    a = a.contiguous()
-    dev = kernels.check_tensors("tcq4_matmul_all_experts", a, qs_all, eff_all)
+    a16 = a.to(torch.bfloat16).contiguous()     # the kernel reads bf16, as it would round
+    dev = kernels.check_tensors("tcq4_matmul_all_experts", a16, qs_all, eff_all)
     out = torch.empty((n_exp, t, n), dtype=torch.float32, device=dev)
+    grid = splitk.experts_grid(n_exp, t, n)
     code = kernels.lib().rrs_tcq4_all_experts(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), int(a.dim() == 3), qs_all.data_ptr(),
-        eff_all.data_ptr(), out.data_ptr(), n_exp, t, k, n, kernels.stream_ptr(dev))
+        a16.data_ptr(), int(a.dim() == 3), qs_all.data_ptr(), eff_all.data_ptr(),
+        out.data_ptr(), n_exp, t, k, n, grid.row_tile, kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_all_experts", code)
     return out
 
@@ -749,13 +750,14 @@ def tcq4_matmul_experts(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Te
         return tcq4_matmul_experts_plain(a, qs_all, eff_all, expert_ids)
     n_exp, _, n = qs_all.shape
     n_sel = expert_ids.shape[0]
-    a = a.contiguous()
+    a16 = a.to(torch.bfloat16).contiguous()     # the kernel reads bf16, as it would round
     ids = expert_ids.to(torch.int32).contiguous()
-    dev = kernels.check_tensors("tcq4_matmul_experts", a, qs_all, eff_all, ids)
+    dev = kernels.check_tensors("tcq4_matmul_experts", a16, qs_all, eff_all, ids)
     out = torch.empty((n_sel, m, n), dtype=torch.float32, device=dev)
+    grid = splitk.experts_grid(n_sel, m, n)
     code = kernels.lib().rrs_tcq4_experts_sel(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), qs_all.data_ptr(), eff_all.data_ptr(),
+        a16.data_ptr(), qs_all.data_ptr(), eff_all.data_ptr(),
         int(eff_all.dtype == torch.float32), ids.data_ptr(), out.data_ptr(), n_sel, m, k, n,
-        n_exp, kernels.stream_ptr(dev))
+        n_exp, grid.row_tile, kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_experts", code)
     return out

@@ -1,6 +1,7 @@
 """Same-card before / after of the weight matmuls against an older tree of
-this repository: B2 (``q8_matmul``) and B4 (``tcq4_matmul``), or B11
-(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``).
+this repository: B2 (``q8_matmul``) and B4 (``tcq4_matmul``), B11
+(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``), or B13
+(``mxfp4_matmul_all_experts``) and B10 (``tcq4_matmul_all_experts``).
 
     python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--subjects b11,b5] [--json OUT]
 
@@ -10,7 +11,15 @@ temporary directory, built there with this tree's ``nvcc`` flags into a
 library of their own, and bound with the older C signatures: for ``b2,b4``
 those before the split-K plan (a parent older than the sm90 GEMM bodies),
 for ``b11,b5`` those before B11 and B5 took it (the default; a parent older
-than their sm90 redesign). At each shape both kernels run on the same
+than their sm90 redesign), for ``b13,b10`` those before the expert grid (a
+parent older than B10's and B13's move onto it). ``b2,b4,b11`` checks a
+parent whose B2, B4 and B11 entries take this tree's arguments (one as old
+as the expert grid's parent): the SASS of every ``gemm_kernel`` in their
+sources is compared with the parent's (``cuobjdump``), with the registers
+and spills ``ptxas`` reports for each prefill kernel of this tree; then
+this tree's wrappers run on the parent's library, and every output must be
+the parent's bit for bit, at B2's, B4's and B11's shapes below. At each
+shape both kernels run on the same
 inputs, in turns (old, new, new, old, CUDA events, weight copies rotated past
 L2), beside ``torch.matmul`` on bf16 weights dequantized beforehand (and, for
 B5, ``torch._int_mm`` on its int8 codes and decoded w8 weights), timed over
@@ -22,7 +31,11 @@ and o at M = 1, 4, 2048 and its lm_head at M = 1; B11 at one gpt-oss-20b
 expert projection (K 2,880, N 2,944) at M = 4, 300 and 2,048 (a decode step,
 the overflow scan of a 300-token prompt, a served 4 x 512 prefill chunk); B5
 at the four qwen3-4b projections at M = 256, 512 and 4,096 (bf16 out), with
-the four summed. Needs one CUDA card.
+the four summed; B10 at Qwen3-30B-A3B's gate / up (K 2,048, N 768) and down
+(K 768, N 2,048) over per-expert C = 64 and shared T = 64, B13 at
+gpt-oss-20b's (E = 32, K 2,880, N 2,944) over shared T = 64 and per-expert
+C = 128, beside ``torch.bmm`` / ``torch.matmul`` on the stacks dequantized
+to bf16 beforehand. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -51,8 +65,14 @@ OLD_SIGNATURES = {"rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
                   "rrs_tcq4_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P]}
 OLD_SIGNATURES_B11_B5 = {"rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
                          "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+OLD_SIGNATURES_B13_B10 = {"rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+                          "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
+SAME_ABI = ("rrs_q8_matmul", "rrs_tcq4_matmul", "rrs_mxfp4_matmul")
 SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
-            "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5)}
+            "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5),
+            "b13,b10": (("mxfp4_matmul.cu", "tcq4_experts.cu"), OLD_SIGNATURES_B13_B10),
+            "b2,b4,b11": (("q8_matmul.cu", "tcq4_matmul.cu", "mxfp4_matmul.cu"),
+                          {name: kernels.SIGNATURES[name] for name in SAME_ABI})}
 QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
             "down": (9728, 2560)}
 GPTOSS_Q8 = {"qkv": (3072, 5120), "o": (4096, 2944), "lm_head": (3072, 202752)}
@@ -87,6 +107,55 @@ def build_old(parent: Path, sources=("q8_matmul.cu", "tcq4_matmul.cu"),
     return lib
 
 
+def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
+    """{kernel: SASS instructions} of the prefill kernels in ``src`` and
+    {kernel: ptxas's registers and spills}, built with this tree's flags."""
+    nvcc = kernels._nvcc()
+    cubin = tmp / (src.stem + ".cubin")
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    r = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-cubin", str(src), "-o", str(cubin)],
+                       capture_output=True, text=True, check=True)
+    lines, regs = (r.stdout + r.stderr).splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m and re.search("gemm_kernel|experts_kernel", m.group(1)):
+            regs[m.group(1)] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+    dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), []) if "_kernel" in m.group(1) else None
+        elif cur is not None and (m := re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?);", line)):
+            cur.append(m.group(1).strip())
+    return funcs, regs
+
+
+def compare_sass(parent: Path, sources) -> list[dict]:
+    """Every ``gemm_kernel`` of ``sources`` here and in the parent: the same
+    SASS or not (names compared without the per-file anonymous namespace);
+    and ptxas's report of this tree's prefill kernels."""
+    tmp = Path(tempfile.mkdtemp(prefix="ab_sass_"))
+    canon = lambda name: re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anon)", name)  # noqa: E731
+    rows = []
+    for name in sources:
+        (tmp / "new").mkdir(exist_ok=True)
+        (tmp / "old").mkdir(exist_ok=True)
+        new, regs = sass(kernels.CSRC / name, tmp / "new")
+        old = {canon(k): v for k, v in sass(parent / "rrs_tpu_torch" / "csrc" / name,
+                                            tmp / "old")[0].items()}
+        for kernel, report in regs.items():
+            row = {"source": name, "kernel": canon(kernel), "ptxas": report}
+            if "gemm_kernel" in kernel:
+                row["sass_identical"] = old.get(canon(kernel)) == new[kernel]
+            rows.append(row)
+            same = {True: "SASS identical to the parent's", False: "SASS differs from the "
+                    "parent's"}.get(row.get("sass_identical"), "new")
+            print(f"  {name} {canon(kernel)}: {same}; {report}", flush=True)
+    return rows
+
+
 def n_copies(nbytes: float) -> int:
     return max(2, min(24, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
@@ -114,23 +183,39 @@ def rel(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
+def on_lib(old_lib, wrapper):
+    """``wrapper`` (this tree's) launching the older tree's kernel: for a
+    parent whose C entry takes this tree's arguments."""
+    def run(*args):
+        saved, kernels._lib = kernels._lib, old_lib
+        try:
+            return wrapper(*args)
+        finally:
+            kernels._lib = saved
+    return run
+
+
 def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, rows,
-       peak=BF16_FLOPS, extra=None):
-    """Hold new to plain and to old, then time old, new, new, old and the
-    library call (and ``extra``: name -> (call, arg sets), each timed as
-    ``<name>_ms``); append and print the row."""
+       peak=BF16_FLOPS, extra=None, same_bits=False):
+    """Hold new to plain and to old (bit for bit with ``same_bits``), then
+    time old, new, new, old and the library call (and ``extra``: name ->
+    (call, arg sets), each timed as ``<name>_ms``); append and print the
+    row."""
     got, ref, prev = new(*sets[0]), plain(*sets[0]), old(*sets[0])
     torch.cuda.synchronize()
     r_plain, r_old = rel(got, ref), rel(got, prev)
     if not (torch.isfinite(got.float()).all() and r_plain <= tol and r_old <= tol):
         raise AssertionError(f"{label}: new kernel off: rel {r_plain:.2e} to plain, "
                              f"{r_old:.2e} to the older kernel")
+    if same_bits and not torch.equal(got, prev):
+        raise AssertionError(f"{label}: not the older kernel's output bit for bit")
     t = [time_ms(f, sets, reps) for f in (old, new, new, old)]
     t_bytes, t_ops = nbytes / BYTES_S * 1e3, flops / peak * 1e3
     row = {"shape": label, "old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2,
            "library_ms": time_ms(lib, lib_sets, reps), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "rel_plain": r_plain, "rel_old": r_old, "turns_ms": t}
+           "rel_plain": r_plain, "rel_old": r_old, "turns_ms": t,
+           **({"bit_equal_to_old": True} if same_bits else {})}
     for name, (call, call_sets) in (extra or {}).items():
         row[f"{name}_ms"] = time_ms(call, call_sets, reps)
     rows.append(row)
@@ -142,12 +227,15 @@ def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, ro
           f"{r_old:.1e} to old", flush=True)
 
 
-def run_b2_b4(old_lib) -> list[dict]:
+def old_calls(old_lib, subjects: str) -> dict:
+    """The older tree's kernels as functions of this tree's wrappers'
+    arguments: through the older C signatures, or (``b2,b4,b11``) through
+    this tree's wrappers on the older library."""
+    if subjects == "b2,b4,b11":
+        return {"tcq4": on_lib(old_lib, tm.tcq4_matmul), "q8": on_lib(old_lib, q8.q8_matmul),
+                "mx": on_lib(old_lib, mx.mxfp4_matmul)}
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(8)
     stream = lambda: kernels.stream_ptr(dev)                    # noqa: E731
-    rows: list[dict] = []
 
     def old_tcq4(a, qs, eff):
         m, k = a.shape
@@ -166,52 +254,6 @@ def run_b2_b4(old_lib) -> list[dict]:
                                        q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k,
                                        q.shape[1], stream()))
         return out
-
-    print("B4 tcq4_matmul, qwen3-4b (phase 2 shapes, and down at M = 2, 8)", flush=True)
-    for lname, (k, n) in QWEN3_4B.items():
-        wbytes = k // 2 * n + k // 32 * n * 2
-        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
-               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
-                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
-        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
-        for m in ((2, 4, 8, 16, 64, 512) if lname == "down" else (4, 16, 64, 512)):
-            a = (torch.randint(-7, 8, (m, k), generator=gen, device=dev).float()
-                 * (torch.rand((m, 1), generator=gen, device=dev) + 0.5) / 7.0)
-            a16 = a.to(torch.bfloat16)
-            ab(f"tcq4 {lname} M={m} K={k} N={n}", old_tcq4, tm.tcq4_matmul, tm.tcq4_matmul_plain,
-               lambda w: torch.matmul(a16, w), [(a, q, e) for q, e in ws], [(w,) for w in wl],
-               wbytes + m * k * 4 + m * n * 4, 2 * m * k * n, 20, 1e-3, rows)
-        del ws, wl
-        torch.cuda.empty_cache()
-
-    print("B2 q8_matmul (phase 2: qwen3-4b lm_head; phase 10: gpt-oss-20b)", flush=True)
-    shapes = [("qwen3-4b lm_head", 2560, 153600, (1, 4, 64))]
-    shapes += [(f"gpt-oss {n_}", k, n, (1, 4, 2048) if n_ != "lm_head" else (1,))
-               for n_, (k, n) in GPTOSS_Q8.items()]
-    for lname, k, n, ms_ in shapes:
-        wbytes = k * n + k // 32 * n * 4
-        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
-        sc = 2.0 ** torch.randint(-11, -9, (k // 32, n), generator=gen, device=dev).float()
-        wl = (qw.float().reshape(k // 32, 32, n) * sc[:, None]).reshape(k, n).to(torch.bfloat16)
-        ws = [(qw, sc)] + [(qw.clone(), sc.clone()) for _ in range(n_copies(wbytes) - 1)]
-        wls = [wl] + [wl.clone() for _ in range(n_copies(2 * k * n) - 1)]
-        for m in ms_:
-            a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            ab(f"q8 {lname} M={m} K={k} N={n}", lambda q_, s_: old_q8(a, q_, s_),
-               lambda q_, s_: q8.q8_matmul(a, q_, s_), lambda q_, s_: q8.q8_matmul_plain(a, q_, s_),
-               lambda w: torch.matmul(a, w), ws, [(w,) for w in wls],
-               wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 5, 1e-3, rows)
-        del qw, sc, wl, ws, wls
-        torch.cuda.empty_cache()
-    return rows
-
-
-def run_b11_b5(old_lib) -> list[dict]:
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    stream = lambda: kernels.stream_ptr(dev)                    # noqa: E731
-    rows: list[dict] = []
 
     def old_mx(a, qs, sx):
         m, k = a.shape
@@ -232,6 +274,84 @@ def run_b11_b5(old_lib) -> list[dict]:
                                       int(out_bf16), stream()))
         return out
 
+    def old_mx_all(a, qs_all, s_all):
+        e_n, _, n = qs_all.shape
+        t, k = a.shape[-2:]
+        out = torch.empty((e_n, t, n), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_mxfp4_all_experts(a.data_ptr(), int(a.dim() == 3),
+                                               qs_all.data_ptr(), s_all.data_ptr(),
+                                               out.data_ptr(), e_n, t, k, n, stream()))
+        return out
+
+    def old_tq_all(a, qs_all, eff_all):
+        e_n, _, n = qs_all.shape
+        t, k = a.shape[-2:]
+        out = torch.empty((e_n, t, n), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_all_experts(a.data_ptr(), int(a.dtype == torch.bfloat16),
+                                              int(a.dim() == 3), qs_all.data_ptr(),
+                                              eff_all.data_ptr(), out.data_ptr(), e_n, t, k, n,
+                                              stream()))
+        return out
+
+    return {"tcq4": old_tcq4, "q8": old_q8, "mx": old_mx, "i8p": old_i8p,
+            "mx_all": old_mx_all, "tq_all": old_tq_all}
+
+
+def run_b2_b4(old: dict, same_bits: bool = False) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rows: list[dict] = []
+    old_tcq4, old_q8 = old["tcq4"], old["q8"]
+
+    print("B4 tcq4_matmul, qwen3-4b (phase 2 shapes, and down at M = 2, 8)", flush=True)
+    for lname, (k, n) in QWEN3_4B.items():
+        wbytes = k // 2 * n + k // 32 * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+        for m in ((2, 4, 8, 16, 64, 512) if lname == "down" else (4, 16, 64, 512)):
+            a = (torch.randint(-7, 8, (m, k), generator=gen, device=dev).float()
+                 * (torch.rand((m, 1), generator=gen, device=dev) + 0.5) / 7.0)
+            a16 = a.to(torch.bfloat16)
+            ab(f"tcq4 {lname} M={m} K={k} N={n}", old_tcq4, tm.tcq4_matmul, tm.tcq4_matmul_plain,
+               lambda w: torch.matmul(a16, w), [(a, q, e) for q, e in ws], [(w,) for w in wl],
+               wbytes + m * k * 4 + m * n * 4, 2 * m * k * n, 20, 1e-3, rows,
+               same_bits=same_bits)
+        del ws, wl
+        torch.cuda.empty_cache()
+
+    print("B2 q8_matmul (phase 2: qwen3-4b lm_head; phase 10: gpt-oss-20b)", flush=True)
+    shapes = [("qwen3-4b lm_head", 2560, 153600, (1, 4, 64))]
+    shapes += [(f"gpt-oss {n_}", k, n, (1, 4, 2048) if n_ != "lm_head" else (1,))
+               for n_, (k, n) in GPTOSS_Q8.items()]
+    for lname, k, n, ms_ in shapes:
+        wbytes = k * n + k // 32 * n * 4
+        qw = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        sc = 2.0 ** torch.randint(-11, -9, (k // 32, n), generator=gen, device=dev).float()
+        wl = (qw.float().reshape(k // 32, 32, n) * sc[:, None]).reshape(k, n).to(torch.bfloat16)
+        ws = [(qw, sc)] + [(qw.clone(), sc.clone()) for _ in range(n_copies(wbytes) - 1)]
+        wls = [wl] + [wl.clone() for _ in range(n_copies(2 * k * n) - 1)]
+        for m in ms_:
+            a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            ab(f"q8 {lname} M={m} K={k} N={n}", lambda q_, s_: old_q8(a, q_, s_),
+               lambda q_, s_: q8.q8_matmul(a, q_, s_), lambda q_, s_: q8.q8_matmul_plain(a, q_, s_),
+               lambda w: torch.matmul(a, w), ws, [(w,) for w in wls],
+               wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 5, 1e-3, rows,
+               same_bits=same_bits)
+        del qw, sc, wl, ws, wls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_b11(old: dict, same_bits: bool = False) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rows: list[dict] = []
+    old_mx = old["mx"]
+
     print("B11 mxfp4_matmul, one gpt-oss-20b expert projection", flush=True)
     k, n = 2880, 2944
     wbytes = k // 2 * n + k // 32 * n
@@ -245,9 +365,19 @@ def run_b11_b5(old_lib) -> list[dict]:
            lambda q_, s_: mx.mxfp4_matmul(a, q_, s_),
            lambda q_, s_: mx.mxfp4_matmul_plain(a, q_, s_),
            lambda w: torch.matmul(a, w), ws, [(w,) for w in wl],
-           wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 10, 1e-3, rows)
+           wbytes + m * k * 2 + m * n * 4, 2 * m * k * n, 20 if m < 2048 else 10, 1e-3, rows,
+           same_bits=same_bits)
     del ws, wl
     torch.cuda.empty_cache()
+    return rows
+
+
+def run_b5(old: dict) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rows: list[dict] = []
+    old_i8p = old["i8p"]
 
     print("B5 tcq4_matmul_i8p, qwen3-4b projections", flush=True)
     for lname, (k, n) in QWEN3_4B.items():
@@ -285,6 +415,59 @@ def run_b11_b5(old_lib) -> list[dict]:
     return rows
 
 
+def run_b13_b10(old: dict) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    rows: list[dict] = []
+
+    def shapes(e_n, k, n, wbytes, stacks, w16, new, plain, old_fn, cases, label):
+        for case, shape in cases:
+            a = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            t = shape[-2]
+            lib = (lambda w: torch.matmul(a, w)) if a.dim() == 2 else (lambda w: torch.bmm(a, w))
+            ab(f"{label} {case} K={k} N={n} E={e_n}", lambda q_, e_: old_fn(a, q_, e_),
+               lambda q_, e_: new(a, q_, e_), lambda q_, e_: plain(a, q_, e_), lib, stacks,
+               [(w,) for w in w16], e_n * wbytes + a.numel() * 2 + e_n * t * n * 4,
+               2 * e_n * t * k * n, 10, 1e-3, rows)
+
+    print("B10 tcq4_matmul_all_experts, Qwen3-30B-A3B (E = 128)", flush=True)
+    for proj, (k, n) in (("gate_up", (2048, 768)), ("down", (768, 2048))):
+        e_n, wbytes = 128, k // 2 * n + k // 32 * n * 2
+        stacks = [(torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev,
+                                 dtype=torch.uint8),
+                   (torch.rand((e_n, k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                    ).to(torch.bfloat16)) for _ in range(n_copies(e_n * wbytes))]
+        w16 = [torch.stack([tm.dequantize_w(q[i], e[i]).to(torch.bfloat16) for i in range(e_n)])
+               for q, e in stacks[:n_copies(2 * e_n * k * n)]]
+        shapes(e_n, k, n, wbytes, stacks, w16, tm.tcq4_matmul_all_experts,
+               tm.tcq4_matmul_all_experts_plain, old["tq_all"],
+               (("per-expert C=64", (e_n, 64, k)), ("shared T=64", (64, k))), f"tcq4 {proj}")
+        del stacks, w16
+        torch.cuda.empty_cache()
+
+    print("B13 mxfp4_matmul_all_experts, gpt-oss-20b (E = 32)", flush=True)
+    e_n, k, n = 32, 2880, 2944
+    wbytes = k // 2 * n + k // 32 * n
+    stacks = [(torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev,
+                             dtype=torch.uint8),
+               torch.randint(118, 123, (e_n, k // 32, n), generator=gen, device=dev,
+                             dtype=torch.uint8)) for _ in range(n_copies(e_n * wbytes))]
+    w16 = [mx.dequant_mxfp4(*w).to(torch.bfloat16) for w in stacks[:n_copies(2 * e_n * k * n)]]
+    shapes(e_n, k, n, wbytes, stacks, w16, mx.mxfp4_matmul_all_experts,
+           mx.mxfp4_matmul_all_experts_plain, old["mx_all"],
+           (("shared T=64", (64, k)), ("per-expert C=128", (e_n, 128, k))), "mxfp4")
+    del stacks, w16
+    torch.cuda.empty_cache()
+    return rows
+
+
+RUNS = {"b2,b4": lambda old: run_b2_b4(old),
+        "b11,b5": lambda old: run_b11(old) + run_b5(old),
+        "b13,b10": run_b13_b10,
+        "b2,b4,b11": lambda old: run_b2_b4(old, same_bits=True) + run_b11(old, same_bits=True)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path, help="an older tree of this repo")
@@ -301,7 +484,8 @@ def main(argv=None) -> int:
     kernels.lib()
     sources, signatures = SUBJECTS[args.subjects]
     old_lib = build_old(args.parent, sources=sources, signatures=signatures)
-    rows = (run_b2_b4 if args.subjects == "b2,b4" else run_b11_b5)(old_lib)
+    rows = compare_sass(args.parent, sources) if args.subjects == "b2,b4,b11" else []
+    rows += RUNS[args.subjects](old_calls(old_lib, args.subjects))
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"device": smi, "subjects": args.subjects, "rows": rows},

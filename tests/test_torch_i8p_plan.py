@@ -298,8 +298,9 @@ def test_i8p_half_decode_every_code_and_ratio():
 
 def test_profile_labels_name_the_new_kernels():
     """chip_smoke.py's decode and prefill profiles attribute B11's two sm90
-    bodies (MXFP4 loader), B5's kernel and B13's WMMA GEMM to their own
-    kernels, and B2 / B4 as before."""
+    bodies (MXFP4 loader), B5's kernel and B13's expert grid (the prefill
+    body's experts_kernel on the same loader) to their own kernels, and B2 /
+    B4 as before."""
     import chip_smoke
 
     label = chip_smoke.kernel_label
@@ -310,8 +311,8 @@ def test_profile_labels_name_the_new_kernels():
         == "mxfp4_matmul"
     assert label(f"void {anon}::i8p_sm90_kernel<__nv_bfloat16>({anon}::Args, ...)") \
         == "tcq4_matmul_i8p"
-    assert label(f"void {anon}::mxfp4_gemm_kernel<64>(__nv_bfloat16 const*, ...)") \
-        == "mxfp4_matmul_all_experts"
+    assert label(f"void rrs::sm90::experts_kernel<{anon}::MXFP4<__nv_bfloat16>, 64>"
+                 f"({anon}::MXFP4<__nv_bfloat16>::Params, ...)") == "mxfp4_matmul_all_experts"
     assert label(f"void rrs::sm90::gemm_kernel<{anon}::TCQ4<__nv_bfloat16, __nv_bfloat16>, "
                  f"128, float>(...)") == "tcq4_matmul"
     assert label(f"void rrs::sm90::splitk_kernel<{anon}::Q8<float>, 2>(...)") == "q8_matmul"
