@@ -81,9 +81,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
    same way, with the int4 codes that differ from the model's rotation
    counted;
 10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
-   plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048 and B13 over
-   shared T = 64 and per-expert C = 128, each bit-equal across two
-   launches), timed beside their bounds and
+   plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048, B12 at
+   n_sel = 4 and 16, also with ids outside [0, E), and B13 over shared T =
+   64 and per-expert C = 128, each bit-equal across two launches), timed
+   beside their bounds and
    ``torch.matmul`` / ``torch.bmm`` on weights dequantized beforehand, with B2
    at the three Q8 shapes (qkv and o also at a served step's M = 4 and a
    served prefill chunk's M = 2048) and B3 / B6-B8 over a 640-slot ring
@@ -100,10 +101,11 @@ it; exits non-zero without either, and on any failed phase. Phases:
    bit-equal;
 11. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
    (``tcq4_matmul_experts``, no model path calls it) against their plain
-   versions at its shapes (B10 over per-expert C = 64 with bf16 and f32
-   rows, per-expert C = 40 and shared T = 64, each bit-equal across two
-   launches; B19 at M = 1 and 40 with bf16 and f32 eff, bit-equal to B10 on
-   the same experts), timed beside their bounds and
+   versions at its shapes (B9 at n_sel = 8 and 32, also with ids outside
+   [0, E); B10 over per-expert C = 64 with bf16 and f32 rows, per-expert C
+   = 40 and shared T = 64; each bit-equal across two launches; B19 at M = 1
+   and 40 with bf16 and f32 eff, bit-equal to B10 on the same experts),
+   timed beside their bounds and
    ``torch.bmm`` / ``torch.matmul`` on experts dequantized beforehand; a
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
@@ -936,14 +938,15 @@ SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul", "MXFP4": "mxfp4_matmul
 # B10 and B13 run the prefill body on its expert grid, experts_kernel<Loader,
 # BM> (B19's launches, on the TCQ4 loader too, count as B10's)
 SM90_EXPERTS = {"TCQ4": "tcq4_matmul_all_experts", "MXFP4": "mxfp4_matmul_all_experts"}
+# B9 and B12 run the decode body with the selected rows on its grid,
+# rows_kernel<Loader, MT>
+SM90_ROWS = {"TCQ4": "tcq4_matmul_experts_rows", "MXFP4": "mxfp4_matmul_experts_rows"}
 # B3 and B6-B8 share attention_kernel<D, codec, decode body>, with the codec
 # ids of csrc/attention_sm90.cuh
 ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
                "3": "flash_attention"}
 KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
-                "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused",
-                "mxfp4_rows_kernel": "mxfp4_matmul_experts_rows",
-                "tcq4_rows_kernel": "tcq4_matmul_experts_rows"}
+                "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused"}
 
 
 def phase_generate_kvq(cfg, weights, reports):
@@ -1115,6 +1118,9 @@ def kernel_label(name: str) -> str:
     m = re.search(r"sm90::experts_kernel<[^<]*?\b(TCQ4|MXFP4)<", name)
     if m:
         return SM90_EXPERTS[m.group(1)]
+    m = re.search(r"sm90::rows_kernel<[^<]*?\b(TCQ4|MXFP4)<", name)
+    if m:
+        return SM90_ROWS[m.group(1)]
     m = re.search(r"attention_kernel<\d+, (\d), (true|false)>", name)
     if m:
         return f"{ATTN_CODECS[m.group(1)]} ({'decode' if m.group(2) == 'true' else 'prefill'})"
@@ -2313,10 +2319,30 @@ GPTOSS_Q8 = {"qkv": (3072, 5120, 5120), "o": (4096, 2944, 2880), "lm_head": (307
 GPTOSS_TOL = 1e-3
 
 
+def held_rows(label, kernel, plain, a, qs_all, scales, ids, n_exp, tol):
+    """B9's or B12's holds beyond the plain version: two launches bit-equal,
+    and ids outside [0, E) (one past the end, one negative) beside a repeated
+    one, which the kernel clamps: held to the plain version on the clamped
+    ids. Returns the first launch's output."""
+    import torch
+
+    got = kernel(a, qs_all, scales, ids)
+    if not torch.equal(kernel(a, qs_all, scales, ids), got):
+        raise AssertionError(f"{label}: two launches differ")
+    odd = ids.clone()
+    odd[0], odd[-1] = n_exp + 7, -5
+    if odd.numel() > 3:
+        odd[1] = odd[2]
+    compare(f"{label}, ids outside [0, E)", kernel(a, qs_all, scales, odd),
+            plain(a, qs_all, scales, odd.clamp(0, n_exp - 1)), tol)
+    return got
+
+
 def phase_parity_gptoss(peaks, reports):
     """B11-B13 against their plain versions at gpt-oss-20b shapes (E = 32
     experts of 2880 x 2880, N padded to 2944): the rows kernel at n_sel = 4
-    and 16 (one and four decode lanes, top-4), every expert over shared
+    and 16 (one and four decode lanes, top-4; four K slices and one), also
+    with ids outside [0, E) that it clamps, every expert over shared
     activations at T = 64 and over per-expert activations [32, 128, 2880]
     (one 512-token chunk's capacity), each bit-equal across two launches,
     the plain matmul on one expert's gate
@@ -2332,6 +2358,7 @@ def phase_parity_gptoss(peaks, reports):
     from rrs_tpu_torch.ops import flash_attention as fa
     from rrs_tpu_torch.ops import mxfp4_matmul as mx
     from rrs_tpu_torch.ops import q8_matmul as q8
+    from rrs_tpu_torch.tools.gemm_ab import rotating_ids
 
     bw, bf16_peak, _, _ = peaks
     dev = torch.device("cuda")
@@ -2350,21 +2377,25 @@ def phase_parity_gptoss(peaks, reports):
                              dtype=torch.uint8)) for _ in range(2)]
     w16 = mx.dequant_mxfp4(*stacks[0]).to(torch.bfloat16)   # [32, K, N], 0.54 GB
 
-    # -- B12: decode rows; id sets cycle over all experts, so the timed
-    # launches read their tiles from device memory, not L2
+    # -- B12: decode rows; the id sets take every expert in turn, so the
+    # timed launches read their tiles from device memory, not L2
     rep = reports["mx_rows"]
     for n_sel in (4, 16):
         a = torch.randn((n_sel, k), generator=gen, device=dev).to(torch.bfloat16)
-        id_sets = [torch.randperm(e_n, generator=gen, device=dev)[:n_sel] for _ in range(8)]
+        id_sets = rotating_ids(e_n, n_sel // 4, 4, n_copies(n_sel * exp_bytes), gen)
         ids = id_sets[0]
-        got = mx.mxfp4_matmul_experts_rows(a, *stacks[0], ids)
+        slices = mx.rows_plan(n_sel, k, n).slices
+        got = held_rows(f"mxfp4 rows n_sel={n_sel} ({slices} K slices)",
+                        mx.mxfp4_matmul_experts_rows, mx.mxfp4_matmul_experts_rows_plain, a,
+                        *stacks[0], ids, e_n, GPTOSS_TOL)
         err, rel = compare(f"mxfp4 rows n_sel={n_sel}", got,
                            mx.mxfp4_matmul_experts_rows_plain(a, *stacks[0], ids), GPTOSS_TOL)
         distinct = int(torch.unique(ids).numel())
         t_bytes = ms(distinct * exp_bytes + n_sel * k * 2 + n_sel * n * 4)
         t_ops = 2 * n_sel * k * n / bf16_peak * 1e3
-        sel16 = [w16[i] for i in id_sets[:2]]
-        rep.add({"shape": f"n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts)",
+        sel16 = [w16[i.long()] for i in id_sets[:2]]
+        rep.add({"shape": f"n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts, {slices} K "
+                          f"slices; two launches bit-equal, ids outside [0, E) clamped)",
                  "max_abs_err": err, "rel_err": rel, "tol": GPTOSS_TOL,
                  "ms": time_ms(lambda i: mx.mxfp4_matmul_experts_rows(a, *stacks[0], i),
                                [(i,) for i in id_sets], 40),
@@ -2995,7 +3026,8 @@ def phase_parity_qwen3moe(peaks, reports):
     """B9, B10 and B19 against their plain versions at the Qwen3-30B-A3B
     shapes (E = 128 experts; gate / up K 2048 -> N 768, down K 768 -> N
     2048): the rows kernel at n_sel = 8 and 32 (one and four decode lanes,
-    top-8), every expert over per-expert activations [128, 64, K] (a
+    top-8; eight, three, two and one K slices), also with ids outside [0, E)
+    that it clamps, every expert over per-expert activations [128, 64, K] (a
     512-token chunk's capacity; bf16 rows, then f32 ones), [128, 40, K] (a
     capacity below the 64-row tile) and over shared activations at T = 64,
     each held bit-equal across two launches, and
@@ -3004,11 +3036,13 @@ def phase_parity_qwen3moe(peaks, reports):
     the same experts where eff is bf16. Held within QWEN3MOE_TOL relative and
     timed beside the bound, the plain version and ``torch.bmm`` /
     ``torch.matmul`` on experts dequantized to bf16 (and, for B9 and B19,
-    gathered) beforehand. The id sets cycle over the experts and a stack
-    (113 MB) exceeds L2, so the timed launches read from device memory."""
+    gathered) beforehand. The id sets take every expert in turn and a stack
+    (113 MB) exceeds L2, so the timed launches read from device memory; the
+    gathered bf16 copies rotate past 2 x L2 too."""
     import torch
 
     from rrs_tpu_torch.ops import tcq4_matmul as tm
+    from rrs_tpu_torch.tools.gemm_ab import rotating_ids
 
     bw, bf16_peak, _, _ = peaks
     dev = torch.device("cuda")
@@ -3031,18 +3065,23 @@ def phase_parity_qwen3moe(peaks, reports):
         rep = reports["tq_rows"]
         for n_sel in (8, 32):
             a = torch.randn((n_sel, k), generator=gen, device=dev).to(torch.bfloat16)
-            # one lane selects 8 distinct experts; four lanes 32 ids, some shared
-            id_sets = [torch.cat([torch.randperm(e_n, generator=gen, device=dev)[:8]
-                                  for _ in range(n_sel // 8)]) for _ in range(8)]
+            # one lane's 8 distinct experts, four lanes' 32; the sets take every
+            # expert in turn, and the gathered bf16 copies pass 2 x L2 too
+            id_sets = rotating_ids(e_n, n_sel // 8, 8, n_copies(n_sel * exp_bytes), gen)
             ids = id_sets[0]
-            got = tm.tcq4_matmul_experts_rows(a, qs, eff, ids)
+            slices = tm.rows_plan(n_sel, k, n).slices
+            got = held_rows(f"tcq4 rows {proj} n_sel={n_sel} ({slices} K slices)",
+                            tm.tcq4_matmul_experts_rows, tm.tcq4_matmul_experts_rows_plain,
+                            a, qs, eff, ids, e_n, QWEN3MOE_TOL)
             err, rel = compare(f"tcq4 rows {proj} n_sel={n_sel}", got,
                                tm.tcq4_matmul_experts_rows_plain(a, qs, eff, ids), QWEN3MOE_TOL)
             distinct = int(torch.unique(ids).numel())
             t_bytes = ms(distinct * exp_bytes + n_sel * k * 2 + n_sel * 4 + n_sel * n * 4)
             t_ops = 2 * n_sel * k * n / bf16_peak * 1e3
-            sel16 = [w16[i] for i in id_sets[:2]]
-            rep.add({"shape": f"{proj} n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts)",
+            sel16 = [w16[i.long()] for i in id_sets[:n_copies(n_sel * k * n * 2)]]
+            rep.add({"shape": f"{proj} n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts, "
+                              f"{slices} K slices; two launches bit-equal, ids outside [0, E) "
+                              f"clamped)",
                      "max_abs_err": err, "rel_err": rel, "tol": QWEN3MOE_TOL,
                      "ms": time_ms(lambda i: tm.tcq4_matmul_experts_rows(a, qs, eff, i),
                                    [(i,) for i in id_sets], 40),
@@ -3100,7 +3139,7 @@ def phase_parity_qwen3moe(peaks, reports):
                 t_bytes = ms(8 * e_bytes + a.numel() * a.element_size() + 8 * m * n * 4)
                 t_ops = 2 * 8 * m * k * n / bf16_peak * 1e3
                 a16 = a.to(torch.bfloat16).expand(8, m, k)
-                sel16 = [w16[i] for i in id_sets[:2]]
+                sel16 = [w16[i] for i in id_sets[:n_copies(8 * k * n * 2)]]
                 rep.add({"shape": f"{proj} n_sel=8 M={m} K={k} N={n} E={e_n} {a.dtype} a, "
                                   f"{eff_kind} eff" + (" (bit-equal to B10)"
                                                        if eff_kind == "bf16" else ""),

@@ -1,10 +1,13 @@
 // The two bodies of the quantized weight matmuls C[M, N] = bf16(A) @ bf16(W)
 // with f32 sums, shared by B2 (q8_matmul.cu), B4 (tcq4_matmul.cu, and B17
-// through it) and B11 (mxfp4_matmul.cu); the second also runs on an expert
-// grid for B10 and B19 (tcq4_experts.cu, through tcq4_experts below) and B13
-// (mxfp4_matmul.cu). Each body is templated on a weight loader, which knows
-// its format's bytes and how to round a weight to bf16; the bodies know
-// tiles, pipelines, the tensor-core instruction and the reduction.
+// through it) and B11 (mxfp4_matmul.cu); the first also runs with the
+// selected rows of an expert matmul on the grid for B9 (tcq4_experts.cu,
+// through tcq4_rows below) and B12 (mxfp4_matmul.cu), the second on an
+// expert grid for B10 and B19 (tcq4_experts.cu, through tcq4_experts below)
+// and B13 (mxfp4_matmul.cu). Each body is templated on a weight loader,
+// which knows its format's bytes and how to round a weight to bf16; the
+// bodies know tiles, pipelines, the tensor-core instruction and the
+// reduction.
 //
 // 1. splitk_kernel, M <= 16 (decode): a weight stream, bound by bytes.
 //    The grid is (column strips of 128) x (K slices of whole slice units: a
@@ -25,7 +28,11 @@
 //    w3) through shared memory; the slices in order by the last block of
 //    the strip to arrive (an integer counter per strip, reset by that
 //    block), which reads every slice's partial from the scratch. No float
-//    atomics, one launch: the result is the same bits on every run.
+//    atomics, one launch: the result is the same bits on every run. One
+//    block's work is splitk_block; rows_kernel runs it at M = 1 with the
+//    selected rows on the grid's z axis (each block its row's activations
+//    and the weights of the expert its id names, read on the device), a
+//    flag that splitk_kernel's instantiations do not take.
 // 2. gemm_kernel, M > 16 (prefill): a pipelined tensor-core GEMM, bound by
 //    operations at large M. Block tile BM x 128 x 64 k (BM = 64 below M =
 //    128, else 128), 8 warps (2 x 4; warp tile BM/2 x 32). A cp.async ring
@@ -48,7 +55,7 @@
 //   kRawBytes, runs,     the prefill body's raw weight bytes per 64-k stage,
 //   issue, dequant       the two 32-wide k runs of a stage, its cp.async
 //                        copies, and its dequantize into the bf16 B tile
-//   expert               (expert grid only) the Params of expert e of a stack
+//   expert               (rows and expert grids) the Params of expert e of a stack
 #pragma once
 
 #include "common.cuh"
@@ -234,13 +241,32 @@ __device__ __forceinline__ void row16(const float (&acc)[MT][8][4], int mt, int 
   }
 }
 
-// grid (strips, slices), kDecodeWarps warps. MT: n8 tiles of M (1: M <= 8,
-// 2: M <= 16). scratch [slices, M, strips * kStrip] f32 and counters
-// [strips] (zero, and left zero) are needed only with more than one slice.
-template <class L, int MT>
-__global__ void __launch_bounds__(kDecodeWarps * 32, MT == 1 ? 3 : 2)
-splitk_kernel(typename L::Params p, float* __restrict__ out, int M, int K, int N,
-              int slice_units, float* __restrict__ scratch, int* __restrict__ counters) {
+// One block of the split-K stream, the body of splitk_kernel and, with
+// kRows, of rows_kernel (below). Without kRows: grid (strips, slices); MT:
+// n8 tiles of M (1: M <= 8, 2: M <= 16); scratch [slices, M, strips *
+// kStrip] f32 and counters [strips] (zero, and left zero) are needed only
+// with more than one slice. With kRows: grid z is the
+// selected row, M = 1; block (strip, s, z) takes expert e = ids[z] clamped
+// to [0, n_exp), its weights at the loader's offset for e (L::expert), its
+// activations at row z of a [n_sel, K], its output at row z of out [n_sel,
+// N], and row z's own scratch [slices, 1, npad] (of [n_sel, slices, npad])
+// and counters [strips] (of [n_sel, strips]).
+template <class L, int MT, bool kRows>
+__device__ __forceinline__ void splitk_block(typename L::Params p, float* __restrict__ out, int M,
+                                             int K, int N, int slice_units,
+                                             float* __restrict__ scratch,
+                                             int* __restrict__ counters,
+                                             const int* __restrict__ ids, int n_exp) {
+  if constexpr (kRows) {
+    const size_t z = blockIdx.z;
+    p = L::expert(p, static_cast<size_t>(min(max(ids[z], 0), n_exp - 1)), K, N);
+    p.a += z * K;
+    out += z * N;
+    if (gridDim.y > 1) {
+      scratch += z * gridDim.y * gridDim.x * kStrip;
+      counters += z * gridDim.x;
+    }
+  }
   __shared__ float red[kDecodeWarps - 1][MT * 32][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -314,6 +340,14 @@ splitk_kernel(typename L::Params p, float* __restrict__ out, int M, int K, int N
                   strip * kStrip, kStrip);
 }
 
+// grid (strips, slices), kDecodeWarps warps; splitk_block without kRows.
+template <class L, int MT>
+__global__ void __launch_bounds__(kDecodeWarps * 32, MT == 1 ? 3 : 2)
+splitk_kernel(typename L::Params p, float* __restrict__ out, int M, int K, int N,
+              int slice_units, float* __restrict__ scratch, int* __restrict__ counters) {
+  splitk_block<L, MT, false>(p, out, M, K, N, slice_units, scratch, counters, nullptr, 0);
+}
+
 template <class L>
 int launch_splitk(const typename L::Params& p, float* out, int M, int K, int N, int slice_units,
                   float* scratch, int* counters, cudaStream_t stream) {
@@ -329,6 +363,39 @@ int launch_splitk(const typename L::Params& p, float* out, int M, int K, int N, 
   else
     splitk_kernel<L, 2><<<grid, kDecodeWarps * 32, 0, stream>>>(p, out, M, K, N, slice_units,
                                                                scratch, counters);
+  return status();
+}
+
+// The selected rows (B9, B12): out[z] = bf16(a[z]) @ W[e(z)] for z < n_sel,
+// out f32 [n_sel, N], a [n_sel, K], e(z) = ids[z] clamped to [0, n_exp),
+// read on the device. grid (strips, slices, n_sel), kDecodeWarps warps and
+// three blocks an SM, as splitk_kernel's at MT = 1 (ops/splitk.py
+// ROWS_SLOTS plans for them), each block splitk_block with kRows at M = 1;
+// with more than one slice, scratch [n_sel, slices, strips * kStrip] f32
+// and counters [n_sel, strips] (zero, and left zero), so each (row, strip)
+// tile sums its slices in slice order through its own counter. Its own
+// name, so profiles tell B9 from B4 and B12 from B11.
+template <class L, int MT>
+__global__ void __launch_bounds__(kDecodeWarps * 32, MT == 1 ? 3 : 2)
+rows_kernel(typename L::Params p, const int* __restrict__ ids, int n_exp, float* __restrict__ out,
+            int K, int N, int slice_units, float* __restrict__ scratch,
+            int* __restrict__ counters) {
+  splitk_block<L, MT, true>(p, out, 1, K, N, slice_units, scratch, counters, ids, n_exp);
+}
+
+// slice_units: the loader's slice units per K slice (ops/splitk.py rows_plan).
+template <class L>
+int launch_rows(const typename L::Params& p, const int* ids, int n_exp, float* out, int n_sel,
+                int K, int N, int slice_units, float* scratch, int* counters,
+                cudaStream_t stream) {
+  const int units = K / L::kUnitK;
+  if (n_sel < 1 || n_sel > 65535 || n_exp < 1 || slice_units < 1) return kBadArgs;
+  const int slices = (units + slice_units - 1) / slice_units;
+  if (slices > 65535 || (slices > 1 && (scratch == nullptr || counters == nullptr)))
+    return kBadArgs;
+  const dim3 grid((N + kStrip - 1) / kStrip, slices, n_sel);
+  rows_kernel<L, 1><<<grid, kDecodeWarps * 32, 0, stream>>>(p, ids, n_exp, out, K, N,
+                                                           slice_units, scratch, counters);
   return status();
 }
 
@@ -603,6 +670,13 @@ int launch_experts(const typename L::Params& p, const __nv_bfloat16* a, size_t a
 int tcq4_gemm(const void* a, bool a_bf16, const uint8_t* qs, const void* eff, bool eff_f32,
               void* out, bool out_bf16, int M, int K, int N, int slice_units, float* scratch,
               int* counters, cudaStream_t stream);
+
+// B4's decode body with the selected rows on the grid, for B9 (tcq4_experts.cu):
+// out[z] = a[z] @ W[ids[z]] (sm90::rows_kernel), a bf16 [n_sel, K], qs
+// [E][K/2][N] and eff [E][K/32][N] bf16.
+int tcq4_rows(const __nv_bfloat16* a, const uint8_t* qs, const __nv_bfloat16* eff,
+              const int* ids, int n_exp, float* out, int n_sel, int K, int N, int slice_units,
+              float* scratch, int* counters, cudaStream_t stream);
 
 // B4's prefill body on the expert grid, for the expert matmuls (tcq4_experts.cu):
 // out[z] = bf16 a[z] @ W[e(z)] (sm90::experts_kernel), qs [E][K/2][N] and eff

@@ -40,29 +40,27 @@
 // multiplied, 64 x 128 tiles below 128 rows (the wrapper picks the row
 // tile, ops/splitk.py experts_grid), two blocks an SM, with a zero
 // activation stride for shared activations; at gpt-oss-20b the grid has at
-// least 736 blocks for the 264 block slots, so K is not split. B12 is a
-// matrix-vector kernel on the CUDA cores, one block per (128 columns,
-// selected row): the expert id is read on the device, the bf16 row of a is
-// held in shared memory as f32, eight warps split K by scale group, each
-// lane decodes four columns from 4-byte loads (a warp reads 128 contiguous
-// bytes of a byte row), and the warps' partial sums meet in shared memory.
+// least 736 blocks for the 264 block slots, so K is not split. B12 runs the
+// decode body, the split-K weight stream, with the same loader and the
+// selected rows on the grid (rows_kernel of gemm_sm90.cuh): block (strip, K
+// slice, row) reads its row's expert id on the device, streams that
+// expert's scale groups of its slice with 16-byte loads (the next group's
+// in flight), decodes them in registers into the A operand of mma.sync
+// m16n8k16 against its row of bf16 activations, and each (row, strip)
+// tile's last block sums the slices in slice order (ops/splitk.py
+// rows_plan: at gpt-oss-20b decode, 4 slices of 23 groups at n_sel = 4,
+// 368 blocks, one wave of three blocks an SM).
 
 #include "gemm_sm90.cuh"
 
 namespace {
 
-// f32 bit pattern of remapped code `code` (0..15) times 2^(sexp - 127).
-__device__ __forceinline__ uint32_t fp4_bits(uint32_t code, uint32_t sexp) {
-  const uint32_t em = code & 7u;
-  const uint32_t mag = em == 1u ? 0u : (em << 22) + (sexp << 23);
-  return mag | ((code & 8u) << 28);
-}
-
 // Two remapped codes in bits 0-3 and 16-19 of `nib` with the exponents
 // s2 = sexp_lo | sexp_hi << 16 -> the exact bf16 pair (the top half of each
-// code's fp4_bits), in 16-bit halves: the magnitude (em << 6) + (sexp << 7)
-// cannot carry out of its half (sexp <= 251), code 1 (em == 1) is masked to
-// zero, and the sign moves from bit 3 to bit 15.
+// code's f32 bits, the layout's formula above), in 16-bit halves: the
+// magnitude (em << 6) + (sexp << 7) cannot carry out of its half (sexp <=
+// 251), code 1 (em == 1) is masked to zero, and the sign moves from bit 3
+// to bit 15.
 __device__ __forceinline__ uint32_t fp4x2_bf16(uint32_t nib, uint32_t s2) {
   const uint32_t em = nib & 0x00070007u;
   const uint32_t mag = (em << 6) + (s2 << 7);
@@ -209,62 +207,6 @@ int run_b11(const void* a, const void* qs, const void* sexp, float* out, int M, 
   return rrs::kBadArgs;   // the prefill body takes bf16 activations
 }
 
-constexpr int kRowsWarps = 8;
-constexpr int kRowsCols = 128;     // 32 lanes x 4 columns
-constexpr int kRowsMaxK = 8192;    // the row of a in (dynamic) shared memory
-
-// grid (ceil(N / 128), n_sel): out[row, n0 .. n0 + 127].
-__global__ void __launch_bounds__(kRowsWarps * 32)
-mxfp4_rows_kernel(const __nv_bfloat16* __restrict__ a, const uint8_t* __restrict__ qs,
-                  const uint8_t* __restrict__ sexp, const int* __restrict__ ids,
-                  float* __restrict__ out, int K, int N, int n_exp) {
-  extern __shared__ float sa[];
-  __shared__ float red[kRowsWarps][kRowsCols];
-  const int row = blockIdx.y;
-  const int n0 = blockIdx.x * kRowsCols;
-  const int e = min(max(ids[row], 0), n_exp - 1);
-  const __nv_bfloat16* ar = a + static_cast<size_t>(row) * K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) sa[i] = __bfloat162float(ar[i]);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = n0 + lane * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (col < N) {
-    const uint8_t* qe = qs + static_cast<size_t>(e) * (K / 2) * N + col;
-    const uint8_t* se = sexp + static_cast<size_t>(e) * (K / 32) * N + col;
-    for (int g = warp; g < K / 32; g += kRowsWarps) {
-      const uint32_t s4 = __ldg(reinterpret_cast<const uint32_t*>(se + static_cast<size_t>(g) * N));
-      uint32_t q[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        q[j] = __ldg(reinterpret_cast<const uint32_t*>(qe + static_cast<size_t>(g * 16 + j) * N));
-      const float* ag = sa + g * 32;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const uint32_t sc = (s4 >> (8 * c)) & 0xffu;
-        float sum = acc[c];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const uint32_t byte = (q[j] >> (8 * c)) & 0xffu;
-          sum = fmaf(ag[2 * j], __uint_as_float(fp4_bits(byte & 15u, sc)), sum);
-          sum = fmaf(ag[2 * j + 1], __uint_as_float(fp4_bits(byte >> 4, sc)), sum);
-        }
-        acc[c] = sum;
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) red[warp][lane * 4 + c] = acc[c];
-  __syncthreads();
-  if (threadIdx.x < kRowsCols) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRowsWarps; ++w) v += red[w][threadIdx.x];
-    const int gc = n0 + threadIdx.x;
-    if (gc < N) out[static_cast<size_t>(row) * N + gc] = v;
-  }
-}
-
 bool bad_shape(int M, int K, int N) { return M < 1 || K < 64 || K % 64 || N < 64 || N % 64; }
 
 }  // namespace
@@ -284,17 +226,20 @@ RRS_EXPORT int rrs_mxfp4_matmul(const void* a, int a_is_bf16, const void* qs, co
   return run_b11<float>(a, qs, sexp, op, M, K, N, slice_units, sp, cp, s);
 }
 
+// a bf16 [n_sel, K]; slice_units: scale groups per K slice (ops/splitk.py
+// rows_plan); scratch [n_sel, slices, strips * 128] f32 and counters [n_sel,
+// strips] with more than one slice, else unused.
 RRS_EXPORT int rrs_mxfp4_rows(const void* a, const void* qs, const void* sexp, const void* ids,
-                              void* out, int n_sel, int K, int N, int n_exp, void* stream) {
-  if (bad_shape(n_sel, K, N) || K > kRowsMaxK || n_exp < 1 || n_sel > 65535)
-    return rrs::kBadArgs;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kRowsCols - 1) / kRowsCols, n_sel);
-  mxfp4_rows_kernel<<<grid, kRowsWarps * 32, K * sizeof(float), s>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(qs),
-      static_cast<const uint8_t*>(sexp), static_cast<const int*>(ids), static_cast<float*>(out),
-      K, N, n_exp);
-  return rrs::status();
+                              void* out, int n_sel, int K, int N, int n_exp, int slice_units,
+                              void* scratch, void* counters, void* stream) {
+  if (bad_shape(n_sel, K, N)) return rrs::kBadArgs;
+  using L = MXFP4<__nv_bfloat16>;
+  const L::Params p{static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(qs),
+                    static_cast<const uint8_t*>(sexp)};
+  return rrs::sm90::launch_rows<L>(p, static_cast<const int*>(ids), n_exp,
+                                   static_cast<float*>(out), n_sel, K, N, slice_units,
+                                   static_cast<float*>(scratch), static_cast<int*>(counters),
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // a bf16; row_tile 64 or 128 (ops/splitk.py experts_grid).

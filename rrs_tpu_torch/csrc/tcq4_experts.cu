@@ -41,111 +41,39 @@
 // over the selected experts, e(z) = ids[z] read on the device and clamped to
 // [0, E), as B9 does, so with bf16 eff its out[i] is B10's out[ids[i]] bit
 // for bit (same body, tile and K order at every M); with f32 eff it takes
-// B17's f32-eff loader. B9 is a matrix-vector kernel on the CUDA cores, one
-// block per (128 columns, selected row): the block reads its row's expert id
-// on the device, holds the row of a in shared memory as bf16-rounded f32,
-// and its eight warps split K by quarter superblocks (32 byte rows, two
-// scale groups); each lane decodes four columns from 4-byte loads, so a warp
-// reads 128 contiguous bytes of a byte row, and the warps' partial sums meet
-// in shared memory.
+// B17's f32-eff loader. B9 runs B4's decode body, the split-K weight stream
+// of gemm_sm90.cuh, with the selected rows on the grid (sm90::rows_kernel,
+// through rrs::tcq4_rows and the same TCQ4 loader): block (strip, K slice,
+// row) reads its row's expert id on the device, streams that expert's
+// superblocks of its slice with 16-byte loads (the next unit's in flight),
+// decodes them in registers into the A operand of mma.sync m16n8k16 against
+// its row of bf16 activations (the wrapper rounds f32 ones first, as the
+// kernel would), and each (row, strip) tile's last block sums the slices in
+// slice order (ops/splitk.py rows_plan picks them: the most that fit one
+// wave of resident blocks, at least 264 blocks where K allows).
 
 #include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kRowsWarps = 8;
-constexpr int kRowsCols = 128;     // 32 lanes x 4 columns
-constexpr int kRowsMaxK = 8192;    // the row of a in (dynamic) shared memory
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float as_bf16_f32(float v) { return bf16_round(v); }
-__device__ __forceinline__ float as_bf16_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// grid (ceil(N / 128), n_sel): out[row, n0 .. n0 + 127].
-template <typename InT>
-__global__ void __launch_bounds__(kRowsWarps * 32)
-tcq4_rows_kernel(const InT* __restrict__ a, const uint8_t* __restrict__ qs,
-                 const __nv_bfloat16* __restrict__ eff, const int* __restrict__ ids,
-                 float* __restrict__ out, int K, int N, int n_exp) {
-  extern __shared__ float sa[];
-  __shared__ float red[kRowsWarps][kRowsCols];
-  const int row = blockIdx.y;
-  const int n0 = blockIdx.x * kRowsCols;
-  const int e = min(max(ids[row], 0), n_exp - 1);
-  const InT* ar = a + static_cast<size_t>(row) * K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) sa[i] = as_bf16_f32(ar[i]);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = n0 + lane * 4;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  if (col < N) {                    // N % 8 == 0: all four columns are in range
-    const uint8_t* qe = qs + static_cast<size_t>(e) * (K / 2) * N + col;
-    const __nv_bfloat16* ee = eff + static_cast<size_t>(e) * (K / 32) * N + col;
-    for (int u = warp; u < K / 64; u += kRowsWarps) {
-      const int sb = u >> 2, q = u & 3;
-      const int g_lo = sb * 8 + q;
-      const uint2 elo = __ldg(reinterpret_cast<const uint2*>(ee + static_cast<size_t>(g_lo) * N));
-      const uint2 ehi =
-          __ldg(reinterpret_cast<const uint2*>(ee + static_cast<size_t>(g_lo + 4) * N));
-      const __nv_bfloat16* el = reinterpret_cast<const __nv_bfloat16*>(&elo);
-      const __nv_bfloat16* eh = reinterpret_cast<const __nv_bfloat16*>(&ehi);
-      uint32_t qw[32];
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        qw[j] = __ldg(reinterpret_cast<const uint32_t*>(
-            qe + static_cast<size_t>(sb * 128 + q * 32 + j) * N));
-      const float* alo = sa + sb * 256 + q * 32;
-      const float* ahi = alo + 128;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float sl = __bfloat162float(el[c]), sh = __bfloat162float(eh[c]);
-        float sum = acc[c];
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          sum = fmaf(alo[j], bf16_round(static_cast<float>(rrs::nib_lo(qw[j], c)) * sl), sum);
-          sum = fmaf(ahi[j], bf16_round(static_cast<float>(rrs::nib_hi(qw[j], c)) * sh), sum);
-        }
-        acc[c] = sum;
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) red[warp][lane * 4 + c] = acc[c];
-  __syncthreads();
-  if (threadIdx.x < kRowsCols) {
-    float v = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRowsWarps; ++w) v += red[w][threadIdx.x];
-    const int gc = n0 + threadIdx.x;
-    if (gc < N) out[static_cast<size_t>(row) * N + gc] = v;
-  }
-}
-
 bool bad_shape(int M, int K, int N) { return M < 1 || K < 256 || K % 256 || N < 8 || N % 8; }
 
 }  // namespace
 
-RRS_EXPORT int rrs_tcq4_experts_rows(const void* a, int a_is_bf16, const void* qs,
-                                     const void* eff, const void* ids, void* out, int n_sel,
-                                     int K, int N, int n_exp, void* stream) {
-  if (bad_shape(n_sel, K, N) || K > kRowsMaxK || n_exp < 1 || n_sel > 65535)
-    return rrs::kBadArgs;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + kRowsCols - 1) / kRowsCols, n_sel);
-  const size_t smem = K * sizeof(float);
-  const uint8_t* qp = static_cast<const uint8_t*>(qs);
-  const __nv_bfloat16* ep = static_cast<const __nv_bfloat16*>(eff);
-  const int* ip = static_cast<const int*>(ids);
-  float* op = static_cast<float*>(out);
-  if (a_is_bf16)
-    tcq4_rows_kernel<__nv_bfloat16><<<grid, kRowsWarps * 32, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(a), qp, ep, ip, op, K, N, n_exp);
-  else
-    tcq4_rows_kernel<float><<<grid, kRowsWarps * 32, smem, s>>>(static_cast<const float*>(a),
-                                                                qp, ep, ip, op, K, N, n_exp);
-  return rrs::status();
+// a bf16 [n_sel, K] (the wrapper rounds f32 rows first); slice_units:
+// superblocks per K slice (ops/splitk.py rows_plan); scratch [n_sel,
+// slices, strips * 128] f32 and counters [n_sel, strips] with more than one
+// slice, else unused.
+RRS_EXPORT int rrs_tcq4_experts_rows(const void* a, const void* qs, const void* eff,
+                                     const void* ids, void* out, int n_sel, int K, int N,
+                                     int n_exp, int slice_units, void* scratch, void* counters,
+                                     void* stream) {
+  if (bad_shape(n_sel, K, N)) return rrs::kBadArgs;
+  return rrs::tcq4_rows(static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(qs),
+                        static_cast<const __nv_bfloat16*>(eff), static_cast<const int*>(ids),
+                        n_exp, static_cast<float*>(out), n_sel, K, N, slice_units,
+                        static_cast<float*>(scratch), static_cast<int*>(counters),
+                        static_cast<cudaStream_t>(stream));
 }
 
 // a bf16 (the wrapper rounds f32 activations first); row_tile 64 or 128

@@ -23,7 +23,8 @@
 // byte rows of 128 columns and two eff rows. B17 (tcq4_fused.cu) runs its dot
 // through tcq4_gemm below, so it is this kernel's output bit for bit; B10 and
 // B19 (tcq4_experts.cu) run the prefill body on the expert grid through
-// tcq4_experts below, with this loader.
+// tcq4_experts below, and B9 (tcq4_experts.cu) the decode body with the
+// selected rows on the grid through tcq4_rows below, with this loader.
 
 #include "gemm_sm90.cuh"
 
@@ -222,6 +223,15 @@ int tcq4_gemm(const void* a, bool a_bf16, const uint8_t* qs, const void* eff, bo
   if (out_bf16)
     return run<bf16, bf16, bf16>(a, qs, eff, out, M, K, N, slice_units, scratch, counters, s);
   return run<bf16, bf16, float>(a, qs, eff, out, M, K, N, slice_units, scratch, counters, s);
+}
+
+int tcq4_rows(const __nv_bfloat16* a, const uint8_t* qs, const __nv_bfloat16* eff,
+              const int* ids, int n_exp, float* out, int n_sel, int K, int N, int slice_units,
+              float* scratch, int* counters, cudaStream_t s) {
+  if (K % 256 != 0 || N % 8 != 0) return kBadArgs;
+  using L = TCQ4<__nv_bfloat16, __nv_bfloat16>;
+  return sm90::launch_rows<L>({a, qs, eff}, ids, n_exp, out, n_sel, K, N, slice_units, scratch,
+                              counters, s);
 }
 
 int tcq4_experts(const __nv_bfloat16* a, size_t a_stride, const uint8_t* qs, const void* eff,

@@ -42,9 +42,9 @@ SIGNATURES = {
     "rrs_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _F, _I, _I, _I, _P, _P, _P],
     "rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_experts_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rrs_tcq4_experts_sel": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -25,7 +25,10 @@ it launches its kernel (``csrc/mxfp4_matmul.cu``) or raises:
   B11 ``mxfp4_matmul``               a [M, K] @ W [K, N], on the two bodies of
                                      ``csrc/gemm_sm90.cuh`` with K split by
                                      ``splitk_plan`` (whole scale groups)
-  B12 ``mxfp4_matmul_experts_rows``  out[i] = a[i] @ W[ids[i]]   (decode)
+  B12 ``mxfp4_matmul_experts_rows``  out[i] = a[i] @ W[ids[i]]   (decode), on
+                                     the decode body of ``csrc/gemm_sm90.cuh``
+                                     with the rows on the grid, K split by
+                                     ``rows_plan``
   B13 ``mxfp4_matmul_all_experts``   out[e] = a (or a[e]) @ W[e], on the
                                      prefill body of ``csrc/gemm_sm90.cuh``
                                      over ``splitk.experts_grid``
@@ -156,6 +159,11 @@ def splitk_plan(m: int, k: int, n: int) -> splitk.Plan:
     return splitk.plan(m, k, n, GROUP, split_steps=3)
 
 
+def rows_plan(n_sel: int, k: int, n: int) -> splitk.Plan:
+    """B12's grid for ``n_sel`` rows: K slices of whole scale groups."""
+    return splitk.rows_plan(n_sel, k, n, GROUP)
+
+
 def mxfp4_matmul(a: torch.Tensor, qs: torch.Tensor, sexp: torch.Tensor) -> torch.Tensor:
     """B11: C = bf16(a) @ dequant(qs, sexp) for a [M, K] bf16 or f32.
     Returns f32 [M, N]."""
@@ -198,9 +206,12 @@ def mxfp4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, s_all: torc
     ids = expert_ids.to(torch.int32).contiguous()
     dev = kernels.check_tensors("mxfp4_matmul_experts_rows", a16, qs_all, s_all, ids)
     out = torch.empty((n_sel, n), dtype=torch.float32, device=dev)
+    plan = rows_plan(n_sel, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_mxfp4_rows(
         a16.data_ptr(), qs_all.data_ptr(), s_all.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        n_sel, k, n, n_exp, kernels.stream_ptr(dev))
+        n_sel, k, n, n_exp, plan.slice_units, splitk.ptr(scratch), splitk.ptr(counters),
+        kernels.stream_ptr(dev))
     kernels.check("mxfp4_matmul_experts_rows", code)
     return out
 

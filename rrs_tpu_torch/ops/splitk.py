@@ -17,10 +17,13 @@ which block ends first. ``counters`` holds one int32 per tile: zero before a
 launch and left zero by it, so one buffer per device serves every call on
 its stream.
 
-The expert matmuls B10 (``tcq4_matmul_all_experts``), B13
-(``mxfp4_matmul_all_experts``) and B19 (``tcq4_matmul_experts``) run the
-prefill body on an expert grid instead (``experts_grid``): output tiles
-times experts, one K slice.
+The decode expert matmuls B9 (``tcq4_matmul_experts_rows``) and B12
+(``mxfp4_matmul_experts_rows``) run the decode body with the selected rows
+on the grid (``rows_plan``): strips times K slices times rows, each row at
+M = 1 with its own scratch and counters. The expert matmuls B10
+(``tcq4_matmul_all_experts``), B13 (``mxfp4_matmul_all_experts``) and B19
+(``tcq4_matmul_experts``) run the prefill body on an expert grid instead
+(``experts_grid``): output tiles times experts, one K slice.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ STRIP = 128
 MIN_BLOCKS = 264            # decode: two waves of one-strip blocks
 SMS = 132                   # the H100 SXM's streaming multiprocessors
 PREFILL_MIN_BLOCKS = SMS    # prefill: one block on every SM
+ROWS_SLOTS = 3 * SMS        # the rows kernel's resident blocks (its launch bounds: 3 an SM)
 MAX_M = 16
 PREFILL_BK = 64
 
@@ -57,12 +61,11 @@ def plan(m: int, k: int, n: int, unit: int, row_tile: int = 0, split_steps: int 
     128)."""
     strips = -(-n // STRIP)
     if m <= MAX_M:
-        tiles, step, blocks = strips, unit, MIN_BLOCKS
-    else:
-        tiles = strips * -(-m // (row_tile or (64 if m < 128 else 128)))
-        step, blocks = max(unit, PREFILL_BK), PREFILL_MIN_BLOCKS
+        return _decode_plan(strips, strips, m, k // unit)
+    tiles = strips * -(-m // (row_tile or (64 if m < 128 else 128)))
+    step = max(unit, PREFILL_BK)
     units = k // step
-    if split_steps and m > MAX_M:
+    if split_steps:
         def cost(s: int) -> tuple[int, int]:
             per = -(-units // s)
             n_slices = -(-units // per)
@@ -70,11 +73,42 @@ def plan(m: int, k: int, n: int, unit: int, row_tile: int = 0, split_steps: int 
             return waves * (per + (split_steps if n_slices > 1 else 0)), n_slices
         per = -(-units // min(range(1, units + 1), key=cost))
     else:
-        need = -(-blocks // tiles)
+        need = -(-PREFILL_MIN_BLOCKS // tiles)
         per = units if need <= 1 else max(1, units // need)
     slices = -(-units // per)
     per_units = per * (step // unit)
     return Plan(strips, slices, per_units, slices * m * strips * STRIP if slices > 1 else 0)
+
+
+def _decode_plan(strips: int, tiles: int, rows: int, units: int) -> Plan:
+    """The decode rule: ``units`` slice units of K split evenly enough that
+    ``tiles`` output tiles times the slices reach MIN_BLOCKS, wherever K
+    allows it; scratch for ``rows`` rows of the strips."""
+    need = -(-MIN_BLOCKS // tiles)
+    per = units if need <= 1 else max(1, units // need)
+    slices = -(-units // per)
+    return Plan(strips, slices, per, slices * rows * strips * STRIP if slices > 1 else 0)
+
+
+def rows_plan(n_sel: int, k: int, n: int, unit: int) -> Plan:
+    """The grid of the selected-rows matmuls B9 and B12 (csrc/gemm_sm90.cuh
+    ``rows_kernel``) for ``n_sel`` rows of [1, K] @ [K, N], K in units of
+    ``unit`` (a TCQ4 superblock, an MXFP4 scale group), over the rows'
+    tiles, strips x n_sel: the most even slices whose blocks still fit one
+    wave of resident blocks (ROWS_SLOTS) and number at least MIN_BLOCKS;
+    where no slice count gives that, ``plan``'s decode rule (at least
+    MIN_BLOCKS blocks wherever K allows it). The scratch is [n_sel, slices,
+    strips * STRIP] (each row's own slices) and the counters one a (row,
+    strip) tile."""
+    strips = -(-n // STRIP)
+    tiles, units = strips * n_sel, k // unit
+    for want in range(min(units, ROWS_SLOTS // tiles), 0, -1):
+        per = -(-units // want)
+        slices = -(-units // per)
+        if tiles * slices >= MIN_BLOCKS:
+            return Plan(strips, slices, per,
+                        slices * n_sel * strips * STRIP if slices > 1 else 0)
+    return _decode_plan(strips, tiles, n_sel, units)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -671,11 +671,17 @@ def _check_types(name: str, a: torch.Tensor, qs_all: torch.Tensor, eff_all: torc
         raise TypeError(f"{name}: needs bf16 or f32 a, uint8 qs, bf16{' or f32' * f32_eff} eff")
 
 
+def rows_plan(n_sel: int, k: int, n: int) -> splitk.Plan:
+    """B9's grid for ``n_sel`` rows: K slices of whole superblocks."""
+    return splitk.rows_plan(n_sel, k, n, TILE_K)
+
+
 def tcq4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Tensor,
                              expert_ids: torch.Tensor) -> torch.Tensor:
     """B9: out[i] = bf16(a[i]) @ dequant(W[expert_ids[i]]) for a [n_sel, K]
     (bf16 or f32) and int ids [n_sel] on the device (read there, never on the
-    host; an id outside [0, E) is clamped). Returns f32 [n_sel, N]."""
+    host; an id outside [0, E) is clamped), on B4's decode body with the
+    rows on the grid, K split by ``rows_plan``. Returns f32 [n_sel, N]."""
     n_sel, k = a.shape
     _check_stacks("tcq4_matmul_experts_rows", qs_all, eff_all, k)
     if expert_ids.shape != (n_sel,):
@@ -685,13 +691,16 @@ def tcq4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, eff_all: tor
         return tcq4_matmul_experts_rows_plain(a, qs_all, eff_all, expert_ids)
     _check_types("tcq4_matmul_experts_rows", a, qs_all, eff_all)
     n_exp, _, n = qs_all.shape
-    a = a.contiguous()
+    a16 = a.to(torch.bfloat16).contiguous()     # the kernel reads bf16, as it would round
     ids = expert_ids.to(torch.int32).contiguous()
-    dev = kernels.check_tensors("tcq4_matmul_experts_rows", a, qs_all, eff_all, ids)
+    dev = kernels.check_tensors("tcq4_matmul_experts_rows", a16, qs_all, eff_all, ids)
     out = torch.empty((n_sel, n), dtype=torch.float32, device=dev)
+    plan = rows_plan(n_sel, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_tcq4_experts_rows(
-        a.data_ptr(), int(a.dtype == torch.bfloat16), qs_all.data_ptr(), eff_all.data_ptr(),
-        ids.data_ptr(), out.data_ptr(), n_sel, k, n, n_exp, kernels.stream_ptr(dev))
+        a16.data_ptr(), qs_all.data_ptr(), eff_all.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        n_sel, k, n, n_exp, plan.slice_units, splitk.ptr(scratch), splitk.ptr(counters),
+        kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_experts_rows", code)
     return out
 

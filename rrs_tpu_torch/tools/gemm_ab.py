@@ -1,7 +1,8 @@
 """Same-card before / after of the weight matmuls against an older tree of
 this repository: B2 (``q8_matmul``) and B4 (``tcq4_matmul``), B11
-(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``), or B13
-(``mxfp4_matmul_all_experts``) and B10 (``tcq4_matmul_all_experts``).
+(``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``), B13
+(``mxfp4_matmul_all_experts``) and B10 (``tcq4_matmul_all_experts``), or B12
+(``mxfp4_matmul_experts_rows``) and B9 (``tcq4_matmul_experts_rows``).
 
     python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--subjects b11,b5] [--json OUT]
 
@@ -12,14 +13,17 @@ library of their own, and bound with the older C signatures: for ``b2,b4``
 those before the split-K plan (a parent older than the sm90 GEMM bodies),
 for ``b11,b5`` those before B11 and B5 took it (the default; a parent older
 than their sm90 redesign), for ``b13,b10`` those before the expert grid (a
-parent older than B10's and B13's move onto it). ``b2,b4,b11`` checks a
-parent whose B2, B4 and B11 entries take this tree's arguments (one as old
-as the expert grid's parent): the SASS of every ``gemm_kernel`` in their
-sources is compared with the parent's (``cuobjdump``), with the registers
-and spills ``ptxas`` reports for each prefill kernel of this tree; then
-this tree's wrappers run on the parent's library, and every output must be
-the parent's bit for bit, at B2's, B4's and B11's shapes below. At each
-shape both kernels run on the same
+parent older than B10's and B13's move onto it), for ``b12,b9`` those
+before the selected rows ran on the split-K stream (a parent older than
+that move; its B9 entry needs its ``tcq4_matmul.cu`` too). ``b2,b4,b11``
+checks a parent whose B2, B4 and B11 entries take this tree's arguments
+(one as old as the expert grid's parent): the SASS of every
+``splitk_kernel`` and ``gemm_kernel`` in their sources is compared with the
+parent's (``cuobjdump``), with the registers and spills ``ptxas`` reports
+for each kernel of the two bodies in this tree; then this tree's wrappers
+run on the parent's library, and every output must be the parent's bit for
+bit, at B2's, B4's and B11's shapes below. At each shape both kernels run
+on the same
 inputs, in turns (old, new, new, old, CUDA events, weight copies rotated past
 L2), beside ``torch.matmul`` on bf16 weights dequantized beforehand (and, for
 B5, ``torch._int_mm`` on its int8 codes and decoded w8 weights), timed over
@@ -35,7 +39,14 @@ the four summed; B10 at Qwen3-30B-A3B's gate / up (K 2,048, N 768) and down
 (K 768, N 2,048) over per-expert C = 64 and shared T = 64, B13 at
 gpt-oss-20b's (E = 32, K 2,880, N 2,944) over shared T = 64 and per-expert
 C = 128, beside ``torch.bmm`` / ``torch.matmul`` on the stacks dequantized
-to bf16 beforehand. Needs one CUDA card.
+to bf16 beforehand; B9 at Qwen3-30B-A3B's gate / up and down at n_sel = 8,
+32 and 128 (1, 4 and 16 decode tokens, top-8 of E = 128), B12 at
+gpt-oss-20b's expert projection at n_sel = 4, 16 and 64 (top-4 of E = 32),
+each over id sets that take every expert in turn (``rotating_ids``), held
+to its plain version and bit for bit to itself across two launches (its
+order of sums differs from the parent's), beside ``torch.bmm`` on the
+selected experts gathered and dequantized to bf16 beforehand, over as many
+gathered copies as pass 2 x L2. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -67,10 +78,14 @@ OLD_SIGNATURES_B11_B5 = {"rrs_mxfp4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _P
                          "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 OLD_SIGNATURES_B13_B10 = {"rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
                           "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
+OLD_SIGNATURES_B12_B9 = {"rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                         "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 SAME_ABI = ("rrs_q8_matmul", "rrs_tcq4_matmul", "rrs_mxfp4_matmul")
 SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
             "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5),
             "b13,b10": (("mxfp4_matmul.cu", "tcq4_experts.cu"), OLD_SIGNATURES_B13_B10),
+            "b12,b9": (("mxfp4_matmul.cu", "tcq4_experts.cu", "tcq4_matmul.cu"),
+                       OLD_SIGNATURES_B12_B9),
             "b2,b4,b11": (("q8_matmul.cu", "tcq4_matmul.cu", "mxfp4_matmul.cu"),
                           {name: kernels.SIGNATURES[name] for name in SAME_ABI})}
 QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
@@ -108,8 +123,9 @@ def build_old(parent: Path, sources=("q8_matmul.cu", "tcq4_matmul.cu"),
 
 
 def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
-    """{kernel: SASS instructions} of the prefill kernels in ``src`` and
-    {kernel: ptxas's registers and spills}, built with this tree's flags."""
+    """{kernel: SASS instructions} of the kernels in ``src`` and {kernel:
+    ptxas's registers and spills} of those of gemm_sm90.cuh's two bodies,
+    built with this tree's flags."""
     nvcc = kernels._nvcc()
     cubin = tmp / (src.stem + ".cubin")
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
@@ -118,7 +134,7 @@ def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
     lines, regs = (r.stdout + r.stderr).splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m and re.search("gemm_kernel|experts_kernel", m.group(1)):
+        if m and re.search("gemm_kernel|experts_kernel|splitk_kernel|rows_kernel", m.group(1)):
             regs[m.group(1)] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
     dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, check=True).stdout
@@ -133,9 +149,10 @@ def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
 
 
 def compare_sass(parent: Path, sources) -> list[dict]:
-    """Every ``gemm_kernel`` of ``sources`` here and in the parent: the same
-    SASS or not (names compared without the per-file anonymous namespace);
-    and ptxas's report of this tree's prefill kernels."""
+    """Every ``splitk_kernel`` and ``gemm_kernel`` of ``sources`` here and in
+    the parent: the same SASS or not (names compared without the per-file
+    anonymous namespace); and ptxas's report of this tree's kernels of the
+    two bodies (those of the expert and rows grids are new)."""
     tmp = Path(tempfile.mkdtemp(prefix="ab_sass_"))
     canon = lambda name: re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anon)", name)  # noqa: E731
     rows = []
@@ -147,7 +164,7 @@ def compare_sass(parent: Path, sources) -> list[dict]:
                                             tmp / "old")[0].items()}
         for kernel, report in regs.items():
             row = {"source": name, "kernel": canon(kernel), "ptxas": report}
-            if "gemm_kernel" in kernel:
+            if re.search("gemm_kernel|splitk_kernel", kernel):
                 row["sass_identical"] = old.get(canon(kernel)) == new[kernel]
             rows.append(row)
             same = {True: "SASS identical to the parent's", False: "SASS differs from the "
@@ -158,6 +175,20 @@ def compare_sass(parent: Path, sources) -> list[dict]:
 
 def n_copies(nbytes: float) -> int:
     return max(2, min(24, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def rotating_ids(n_exp: int, lanes: int, top_k: int, n_sets: int, gen) -> list:
+    """``n_sets`` int32 id sets on ``gen``'s device of ``lanes`` x ``top_k``
+    expert ids, each lane's ``top_k`` distinct: consecutive chunks of a
+    stream of permutations of the experts, so that an expert comes round
+    again only after the stream has passed every other one (a whole stack
+    read between two reads of it, past L2 where the stack is)."""
+    if n_exp % top_k:
+        raise ValueError(f"rotating_ids: {n_exp} experts in chunks of {top_k}")
+    per = lanes * top_k
+    stream = torch.cat([torch.randperm(n_exp, generator=gen, device=gen.device)
+                        for _ in range(-(-n_sets * per // n_exp))])
+    return [stream[j * per:(j + 1) * per].to(torch.int32) for j in range(n_sets)]
 
 
 def time_ms(fn, arg_sets, reps: int) -> float:
@@ -196,11 +227,11 @@ def on_lib(old_lib, wrapper):
 
 
 def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, rows,
-       peak=BF16_FLOPS, extra=None, same_bits=False):
-    """Hold new to plain and to old (bit for bit with ``same_bits``), then
-    time old, new, new, old and the library call (and ``extra``: name ->
-    (call, arg sets), each timed as ``<name>_ms``); append and print the
-    row."""
+       peak=BF16_FLOPS, extra=None, same_bits=False, self_bits=False):
+    """Hold new to plain and to old (bit for bit with ``same_bits``; to
+    itself across two launches with ``self_bits``), then time old, new, new,
+    old and the library call (and ``extra``: name -> (call, arg sets), each
+    timed as ``<name>_ms``); append and print the row."""
     got, ref, prev = new(*sets[0]), plain(*sets[0]), old(*sets[0])
     torch.cuda.synchronize()
     r_plain, r_old = rel(got, ref), rel(got, prev)
@@ -209,13 +240,16 @@ def ab(label, old, new, plain, lib, sets, lib_sets, nbytes, flops, reps, tol, ro
                              f"{r_old:.2e} to the older kernel")
     if same_bits and not torch.equal(got, prev):
         raise AssertionError(f"{label}: not the older kernel's output bit for bit")
+    if self_bits and not torch.equal(got, new(*sets[0])):
+        raise AssertionError(f"{label}: two launches of the new kernel differ")
     t = [time_ms(f, sets, reps) for f in (old, new, new, old)]
     t_bytes, t_ops = nbytes / BYTES_S * 1e3, flops / peak * 1e3
     row = {"shape": label, "old_ms": (t[0] + t[3]) / 2, "new_ms": (t[1] + t[2]) / 2,
            "library_ms": time_ms(lib, lib_sets, reps), "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "rel_plain": r_plain, "rel_old": r_old, "turns_ms": t,
-           **({"bit_equal_to_old": True} if same_bits else {})}
+           **({"bit_equal_to_old": True} if same_bits else {}),
+           **({"two_launches_bit_equal": True} if self_bits else {})}
     for name, (call, call_sets) in (extra or {}).items():
         row[f"{name}_ms"] = time_ms(call, call_sets, reps)
     rows.append(row)
@@ -293,8 +327,28 @@ def old_calls(old_lib, subjects: str) -> dict:
                                               stream()))
         return out
 
+    def old_mx_rows(a, qs_all, s_all, ids):
+        n_sel, k = a.shape
+        e_n, _, n = qs_all.shape
+        out = torch.empty((n_sel, n), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_mxfp4_rows(a.data_ptr(), qs_all.data_ptr(), s_all.data_ptr(),
+                                        ids.data_ptr(), out.data_ptr(), n_sel, k, n, e_n,
+                                        stream()))
+        return out
+
+    def old_tq_rows(a, qs_all, eff_all, ids):
+        n_sel, k = a.shape
+        e_n, _, n = qs_all.shape
+        out = torch.empty((n_sel, n), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_experts_rows(a.data_ptr(), int(a.dtype == torch.bfloat16),
+                                               qs_all.data_ptr(), eff_all.data_ptr(),
+                                               ids.data_ptr(), out.data_ptr(), n_sel, k, n, e_n,
+                                               stream()))
+        return out
+
     return {"tcq4": old_tcq4, "q8": old_q8, "mx": old_mx, "i8p": old_i8p,
-            "mx_all": old_mx_all, "tq_all": old_tq_all}
+            "mx_all": old_mx_all, "tq_all": old_tq_all, "mx_rows": old_mx_rows,
+            "tq_rows": old_tq_rows}
 
 
 def run_b2_b4(old: dict, same_bits: bool = False) -> list[dict]:
@@ -462,9 +516,62 @@ def run_b13_b10(old: dict) -> list[dict]:
     return rows
 
 
+def run_b12_b9(old: dict) -> list[dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    rows: list[dict] = []
+
+    def shapes(label, e_n, k, n, top_k, stacks, exp_bytes, w16_all, new, plain, old_fn, plan,
+               n_sels):
+        for n_sel in n_sels:
+            a = torch.randn((n_sel, k), generator=gen, device=dev).to(torch.bfloat16)
+            id_sets = rotating_ids(e_n, n_sel // top_k, top_k, n_copies(n_sel * exp_bytes), gen)
+            gathered = [w16_all[ids.long()] for ids in id_sets[:n_copies(n_sel * k * n * 2)]]
+            distinct = int(torch.unique(id_sets[0]).numel())
+            ab(f"{label} n_sel={n_sel} K={k} N={n} E={e_n} ({distinct} experts; "
+               f"{plan(n_sel, k, n).slices} K slices)",
+               lambda i: old_fn(a, *stacks, i), lambda i: new(a, *stacks, i),
+               lambda i: plain(a, *stacks, i), lambda w: torch.bmm(a[:, None, :], w),
+               [(i,) for i in id_sets], [(w,) for w in gathered],
+               distinct * exp_bytes + n_sel * k * 2 + n_sel * 4 + n_sel * n * 4,
+               2 * n_sel * k * n, 40, 1e-3, rows, self_bits=True)
+            del gathered
+
+    print("B9 tcq4_matmul_experts_rows, Qwen3-30B-A3B (E = 128, top-8)", flush=True)
+    for proj, (k, n) in (("gate/up", (2048, 768)), ("down", (768, 2048))):
+        e_n, exp_bytes = 128, k // 2 * n + k // 32 * n * 2
+        stacks = (torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev,
+                                dtype=torch.uint8),
+                  (torch.rand((e_n, k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                   ).to(torch.bfloat16))
+        w16_all = torch.stack([tm.dequantize_w(stacks[0][e], stacks[1][e]).to(torch.bfloat16)
+                               for e in range(e_n)])
+        shapes(f"tcq4 rows {proj}", e_n, k, n, 8, stacks, exp_bytes, w16_all,
+               tm.tcq4_matmul_experts_rows, tm.tcq4_matmul_experts_rows_plain, old["tq_rows"],
+               tm.rows_plan, (8, 32, 128))
+        del stacks, w16_all
+        torch.cuda.empty_cache()
+
+    print("B12 mxfp4_matmul_experts_rows, gpt-oss-20b (E = 32, top-4)", flush=True)
+    e_n, k, n = 32, 2880, 2944
+    stacks = (torch.randint(0, 256, (e_n, k // 2, n), generator=gen, device=dev,
+                            dtype=torch.uint8),
+              torch.randint(118, 123, (e_n, k // 32, n), generator=gen, device=dev,
+                            dtype=torch.uint8))
+    w16_all = mx.dequant_mxfp4(*stacks).to(torch.bfloat16)
+    shapes("mxfp4 rows", e_n, k, n, 4, stacks, k // 2 * n + k // 32 * n, w16_all,
+           mx.mxfp4_matmul_experts_rows, mx.mxfp4_matmul_experts_rows_plain, old["mx_rows"],
+           mx.rows_plan, (4, 16, 64))
+    del stacks, w16_all
+    torch.cuda.empty_cache()
+    return rows
+
+
 RUNS = {"b2,b4": lambda old: run_b2_b4(old),
         "b11,b5": lambda old: run_b11(old) + run_b5(old),
         "b13,b10": run_b13_b10,
+        "b12,b9": run_b12_b9,
         "b2,b4,b11": lambda old: run_b2_b4(old, same_bits=True) + run_b11(old, same_bits=True)}
 
 
