@@ -15,7 +15,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    2 and 8, outside gx_viable), with the stated tolerance, timed with CUDA
    events beside its bound, its plain version and one PyTorch library call
    for the same product, over as many weight copies as the kernel reads
-   (together past L2; the i8p kernel also against the
+   (together past L2; B1 also bit-equal across two launches and, at M = 1,
+   to its order of sums emulated in PyTorch; the i8p kernel also against the
    dequant path, within the JAX bound, beside ``torch._int_mm`` on
    pre-decoded int8 weights, and bit-equal across two launches and, where
    its plan takes one K slice, to its plain version; attention beside the
@@ -56,8 +57,9 @@ it; exits non-zero without either, and on any failed phase. Phases:
    one q4 served decode run (4 lanes, B7 its only attention kernel);
 8. the integer decode kernels and the measuring verbs at qwen3-4b width:
    B15 (``tcq4_matmul_gx3``, ``RRS_GX3``) against its plain version at M = 1
-   and 4, B14 (``tcq4_matmul_gx``) against the integer oracle and bit-equal
-   to B1 on B1's codes, B16 (``tcq4_matmul_a8``) against the oracle at M = 1,
+   and 4 and bit-equal to B14 on its own codes, B14 (``tcq4_matmul_gx``)
+   against the integer oracle and bit-equal to B1 on B1's codes (both held
+   bit-equal across two launches), B16 (``tcq4_matmul_a8``) against the oracle at M = 1,
    8 and 32, each timed beside its bound, its plain version and
    ``torch.matmul`` on weights dequantized beforehand; ``generate`` without
    and with ``RRS_GX3`` (B1 or B15 at all 144 TCQ4 decode linears of a step,
@@ -275,9 +277,14 @@ def phase_parity(peaks):
     reports = {}
 
     # -- gx2: decode M = 1 (generate) and M = 4 (a 4-lane served step) ------
-    # for every projection the route sends to it (gx_viable: not down at M = 4)
+    # for every projection the route sends to it (gx_viable: not down at M =
+    # 4); two launches bit-equal, and at M = 1 bit-equal to the kernel's
+    # order of sums emulated in plain PyTorch (tcq4_matmul_gx_splitk_plain)
+    from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
+
     rep = reports["gx2"] = Report("tcq4_matmul_gx2", "rrs_tpu_torch/csrc/tcq4_gx2.cu",
                                   "rrs_tpu/ops/tcq4_matmul.py:1262", "bytes")
+    hold_s = 0.0
     for lname, (k, n) in QWEN3_4B_LINEARS.items():
         wbytes = k // 2 * n + k // 32 * n * 2
         ws = tcq4_weights(k, n, n_copies(wbytes))
@@ -289,11 +296,20 @@ def phase_parity(peaks):
             got = tm.tcq4_matmul_gx2(a, *ws[0])
             ref = tm.tcq4_matmul_gx2_plain(a, *ws[0])
             err, rel = compare(f"gx2 {lname} M={m}", got, ref, 1e-5)
+            t_hold = time.perf_counter()
+            if not torch.equal(got, tm.tcq4_matmul_gx2(a, *ws[0])):
+                raise AssertionError(f"gx2 {lname} M={m}: two launches differ")
+            plan = tm.gx_plan(m, k, n)
+            if m == 1 and not torch.equal(got, tm.tcq4_matmul_gx_splitk_plain(
+                    *quantize_activations_rrs(a), *ws[0], plan)):
+                raise AssertionError(f"gx2 {lname} M={m}: not the kernel order's bits")
+            hold_s += time.perf_counter() - t_hold
             a16 = a.to(torch.bfloat16)
             t_bytes = ms(wbytes + m * k * 4 + m * n * 4)
             t_ops = 2 * m * k * n / int8_peak * 1e3
-            rep.add({"shape": f"{lname} M={m} K={k} N={n}", "max_abs_err": err, "rel_err": rel,
-                     "tol": 1e-5,
+            rep.add({"shape": f"{lname} M={m} K={k} N={n} ({plan.slices} K slices; two launches "
+                              f"bit-equal{', the emulated order bit for bit' if m == 1 else ''})",
+                     "max_abs_err": err, "rel_err": rel, "tol": 1e-5,
                      "ms": time_ms(tm.tcq4_matmul_gx2, [(a, q, e) for q, e in ws], 40),
                      "plain_ms": time_ms(tm.tcq4_matmul_gx2_plain, [(a, q, e) for q, e in ws],
                                          10),
@@ -302,6 +318,8 @@ def phase_parity(peaks):
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"},
                     headline=(m == 1))
         del ws, wl
+    print(f"  gx2 holds beyond the plain version (two launches, the emulated order): "
+          f"{hold_s:.2f} s", flush=True)
 
     # -- tcq4_matmul: the served decode step's M = 4 (the down projection's
     # route; all four held), the down projection at M = 2 and 8 (outside
@@ -929,7 +947,7 @@ def phase_main_path(reports):
 
 COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
             "q8": "q8_matmul", "fa": "flash_attention"}
-# the gx kernels share one template, gx2_kernel<M, prologue>: 0 gx, 1 gx2, 2 gx3
+# the gx kernels share one template, gx_sm90_kernel<prologue, eff type>: 0 gx, 1 gx2, 2 gx3
 GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3"}
 # B2, B4 and B11 share the two bodies of gemm_sm90.cuh, splitk_kernel<Loader,
 # MT> and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...>, TCQ4<...> or
@@ -945,7 +963,7 @@ SM90_ROWS = {"TCQ4": "tcq4_matmul_experts_rows", "MXFP4": "mxfp4_matmul_experts_
 # ids of csrc/attention_sm90.cuh
 ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
                "3": "flash_attention"}
-KERNEL_NAMES = {"gx2_kernel": "tcq4_matmul_gx2", "a8_kernel": "tcq4_matmul_a8",
+KERNEL_NAMES = {"a8_kernel": "tcq4_matmul_a8",
                 "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused"}
 
 
@@ -1109,7 +1127,7 @@ def kernel_label(name: str) -> str:
     """The port kernel a profiler event belongs to, by its CUDA kernel name."""
     import re
 
-    m = re.search(r"gx2_kernel<\d+, [^>]*?(\d)>", name)
+    m = re.search(r"gx_sm90_kernel<[^,>]*?(\d)\s*,", name)
     if m:
         return GX_PROLOGUES[m.group(1)]
     m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4|MXFP4)<", name)
@@ -1748,6 +1766,7 @@ def phase_parity_int(peaks, reports):
     gen.manual_seed(6)
     for key, (name, source, replaces) in INT.items():
         reports[key] = Report(name, source, replaces, "bytes")
+    hold_s = 0.0
 
     def bound(nbytes, m, k, n):
         t_bytes, t_ops = nbytes / bw * 1e3, 2 * m * k * n / int8_peak * 1e3
@@ -1768,8 +1787,17 @@ def phase_parity_int(peaks, reports):
             got = tm.tcq4_matmul_gx3(x, *ws[0])
             err, rel = compare(f"gx3 {lname} M={m}", got, tm.tcq4_matmul_gx3_plain(x, *ws[0]),
                                INT_TOL)
+            t_hold = time.perf_counter()
+            if not torch.equal(got, tm.tcq4_matmul_gx3(x, *ws[0])):
+                raise AssertionError(f"gx3 {lname} M={m}: two launches differ")
+            # B15 is B14 on B15's own codes (the plain rotation's, bit for bit)
+            if not torch.equal(got, tm.tcq4_matmul_gx(*quantize_activations_rrs(tm.fwht256(x)),
+                                                      *ws[0])):
+                raise AssertionError(f"gx3 {lname} M={m}: not bit-equal to gx on its codes")
+            hold_s += time.perf_counter() - t_hold
             reports["gx3"].add({
-                "shape": f"{lname} M={m} K={k} N={n} bf16 x", "max_abs_err": err, "rel_err": rel,
+                "shape": f"{lname} M={m} K={k} N={n} bf16 x (two launches bit-equal, bit-equal "
+                         f"to gx on its codes)", "max_abs_err": err, "rel_err": rel,
                 "tol": INT_TOL, "ms": time_ms(tm.tcq4_matmul_gx3, [(x, q, e) for q, e in ws], 40),
                 "plain_ms": time_ms(tm.tcq4_matmul_gx3_plain, [(x, q, e) for q, e in ws[:2]], 5),
                 "library_ms": time_ms(torch.matmul, [(x, w) for w in wl], 40),
@@ -1780,11 +1808,16 @@ def phase_parity_int(peaks, reports):
             got = tm.tcq4_matmul_gx(a_q, a_s, *ws[0])
             if not torch.equal(got, tm.tcq4_matmul_gx2(a_rot, *ws[0])):
                 raise AssertionError(f"gx {lname} M={m}: not bit-equal to gx2 on gx2's codes")
+            t_hold = time.perf_counter()
+            if not torch.equal(got, tm.tcq4_matmul_gx(a_q, a_s, *ws[0])):
+                raise AssertionError(f"gx {lname} M={m}: two launches differ")
+            hold_s += time.perf_counter() - t_hold
             ref = tm.tcq4_matmul_ref(a_q, a_s, ws[0][0], ws[0][1].float())
             err, rel = compare(f"gx {lname} M={m}", got.cpu(), ref, INT_TOL)
             a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
             reports["gx"].add({
-                "shape": f"{lname} M={m} K={k} N={n} (bit-equal to gx2)", "max_abs_err": err,
+                "shape": f"{lname} M={m} K={k} N={n} (bit-equal to gx2; two launches bit-equal)",
+                "max_abs_err": err,
                 "rel_err": rel, "tol": INT_TOL,
                 "ms": time_ms(tm.tcq4_matmul_gx, [(a_q, a_s, q, e) for q, e in ws], 40),
                 "plain_ms": time_ms(tm.tcq4_matmul_gx_plain, [(a_q, a_s, q, e) for q, e in ws[:2]],
@@ -1811,6 +1844,8 @@ def phase_parity_int(peaks, reports):
                         m, k, n)}, headline=(m == 1))
         del ws, ws32, wl
     torch.cuda.empty_cache()
+    print(f"  gx3 / gx holds beyond the plain version (two launches, gx3 on gx): {hold_s:.2f} s",
+          flush=True)
 
 
 @contextlib.contextmanager

@@ -32,9 +32,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types (see the matching csrc/*.cu).
 SIGNATURES = {
-    "rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "rrs_tcq4_gx": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
-    "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_gx": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
+    "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "rrs_tcq4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -24,6 +24,13 @@ M = 1 with its own scratch and counters. The expert matmuls B10
 (``tcq4_matmul_all_experts``), B13 (``mxfp4_matmul_all_experts``) and B19
 (``tcq4_matmul_experts``) run the prefill body on an expert grid instead
 (``experts_grid``): output tiles times experts, one K slice.
+
+The integer decode matmuls B1 (``tcq4_matmul_gx2``), B14 (``tcq4_matmul_gx``)
+and B15 (``tcq4_matmul_gx3``, ``csrc/tcq4_gx2.cu``) take ``gx_plan``: column
+strips of STRIP times K slices of whole superblocks, so that each block
+quantizes (and for B15 rotates) only its own slice's superblocks; a strip's
+slices form one thread-block cluster and add their partials through
+distributed shared memory, so these launches take no scratch or counters.
 """
 
 from __future__ import annotations
@@ -109,6 +116,46 @@ def rows_plan(n_sel: int, k: int, n: int, unit: int) -> Plan:
             return Plan(strips, slices, per,
                         slices * n_sel * strips * STRIP if slices > 1 else 0)
     return _decode_plan(strips, tiles, n_sel, units)
+
+
+GX_MAX_SLICES = 16          # csrc/tcq4_gx2.cu kMaxSlices: a strip's slices are one cluster
+GX_MAX_TASKS = 16           # kMaxTasks: M x slice_units, the activation rows a block stages
+GX_PROLOGUE_TASKS = 8       # two (row, superblock) quantizations for each of a block's 4 warps
+GX_STAGES = 4               # kStages: the weight ring's superblocks
+GX_BLOCK_SMEM = 76800       # a third of the SM's 228 KB, less 1 KB each: three blocks an SM
+
+
+def gx_smem(m: int, slice_units: int, eff_bytes: int = 2, x_bytes: int = 4) -> int:
+    """csrc/tcq4_gx2.cu smem_bytes: the ring of min(slice_units, GX_STAGES)
+    superblocks (128 qs rows and 8 eff rows of a strip), the codes (rows of
+    slice_units * 256 + 16 bytes), the scales (16-byte padded) and, unless a
+    full ring stages them in its last stage, the staged activations."""
+    ring = min(slice_units, GX_STAGES)
+    return (ring * (128 * STRIP + 8 * STRIP * eff_bytes)
+            + m * (slice_units * 256 + 16) + -(-m * slice_units * 4 // 16) * 16
+            + (0 if ring == GX_STAGES else m * slice_units * 256 * x_bytes))
+
+
+def gx_plan(m: int, k: int, n: int) -> Plan:
+    """The grid of the integer decode kernel (csrc/tcq4_gx2.cu) at (M, K, N),
+    M <= 8 and K in superblocks of 256: of the even splits into at most
+    GX_MAX_SLICES slices (a strip's slices are one thread-block cluster and
+    add their partials through distributed shared memory: no scratch, no
+    counters) whose blocks stage at most GX_MAX_TASKS activation rows of a
+    superblock and fit three to an SM (GX_BLOCK_SMEM, with f32 activations),
+    preferably those whose prologue is at most GX_PROLOGUE_TASKS
+    quantizations, the slice count whose blocks come nearest MIN_BLOCKS, two
+    on each SM (the fewer slices on a tie). The K-slice sweep of
+    ``tools/gemm_ab.py --subjects b1,b15`` chose these rules."""
+    strips, units = -(-n // STRIP), k // 256
+    counts = {-(-units // per) for per in range(1, units + 1)
+              if -(-units // per) <= GX_MAX_SLICES and m * per <= GX_MAX_TASKS
+              and gx_smem(m, per) <= GX_BLOCK_SMEM}
+    if not counts:
+        raise ValueError(f"gx_plan: no K split of K={k} at M={m} fits the kernel")
+    slices = min(counts, key=lambda s: (m * -(-units // s) > GX_PROLOGUE_TASKS,
+                                        abs(strips * s - MIN_BLOCKS), s))
+    return Plan(strips, slices, -(-units // slices), 0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,8 +72,29 @@ def _check_weights(qs: torch.Tensor, eff: torch.Tensor, k: int) -> int:
 # ---------------------------------------------------------------------------
 # Decode: the integer group-dot family. gx2 (rrs_tpu/ops/tcq4_matmul.py:1262)
 # quantizes rotated activations in its prologue, gx (:272) takes the codes
-# as given, gx3 (:1394) also rotates; one CUDA body (csrc/tcq4_gx2.cu).
+# as given, gx3 (:1394) also rotates; one CUDA body (csrc/tcq4_gx2.cu), a
+# split-K weight stream whose blocks each quantize only their own slice's
+# superblocks and run the group dots on the int8 tensor cores.
 # ---------------------------------------------------------------------------
+
+def gx_plan(m: int, k: int, n: int) -> splitk.Plan:
+    """The grid of the gx kernels at (M, K, N): column strips times K slices
+    of whole superblocks (``splitk.gx_plan``). The slices change only the
+    order in which the f32 group terms are summed, never the codes."""
+    return splitk.gx_plan(m, k, n)
+
+
+def _gx_launch(name: str, entry, lead: tuple, m: int, k: int, n: int,
+               dev: torch.device) -> torch.Tensor:
+    """Launch C entry ``entry`` of the gx family with its leading arguments
+    ``lead`` (inputs and flags), then (out, M, K, N, slice_units, stream)
+    under ``gx_plan``; count it under ``name``."""
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    code = entry(*lead, out.data_ptr(), m, k, n, gx_plan(m, k, n).slice_units,
+                 kernels.stream_ptr(dev))
+    kernels.check(name, code)
+    return out
+
 
 def _gx_dots(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
              eff: torch.Tensor) -> torch.Tensor:
@@ -93,6 +114,33 @@ def _gx_dots(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     return (pf * eff.to(torch.float32)[:, None, :]).sum(0)
 
 
+def tcq4_matmul_gx_splitk_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                                eff: torch.Tensor, plan: splitk.Plan) -> torch.Tensor:
+    """The gx kernels' arithmetic in their order of sums under ``plan``
+    (csrc/tcq4_gx2.cu): within each K slice, superblock by superblock and
+    quarter by quarter, the low-nibble group qq and then the high one
+    qq + 4, y = y + (f32(dot) * (a_scale / 7)) * eff, each operation rounded
+    to f32; then the slices' partials added in slice order. The kernel's
+    16 x dot times (a_scale / 7) / 16 is the same product, so this is its
+    output bit for bit. f32 [M, N]."""
+    m, k = _check_codes("tcq4_matmul_gx_splitk_plain", a_q, a_scale)
+    n = _check_weights(qs, eff, k)
+    g = k // GROUP_SIZE
+    w = unpack_nibbles_torch(qs).to(torch.float32).reshape(g, GROUP_SIZE, n)
+    aq = a_q.to(torch.float32).reshape(m, g, GROUP_SIZE).transpose(0, 1)
+    p = torch.bmm(aq, w)                                                  # [g, m, n] exact
+    s7 = a_scale.to(torch.float32) * torch.tensor(1.0 / 7.0, dtype=torch.float32)
+    e = eff.to(torch.float32)
+    units, out = k // TILE_K, None
+    for s0 in range(0, units, plan.slice_units):
+        y = torch.zeros((m, n), dtype=torch.float32, device=a_q.device)
+        for sb in range(s0, min(units, s0 + plan.slice_units)):
+            for gi in (sb * GROUPS + qq + 4 * hi for qq in range(4) for hi in range(2)):
+                y = y + (p[gi] * s7[:, sb:sb + 1]) * e[gi]
+        out = y if out is None else out + y
+    return out
+
+
 def tcq4_matmul_gx2_plain(a_rot: torch.Tensor, qs: torch.Tensor,
                           eff: torch.Tensor) -> torch.Tensor:
     """quant(a_rot) @ dequant(w), f32 [M, N]."""
@@ -102,8 +150,11 @@ def tcq4_matmul_gx2_plain(a_rot: torch.Tensor, qs: torch.Tensor,
 
 def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
                     eff: torch.Tensor) -> torch.Tensor:
-    """Integer-exact decode matmul with fused activation quantization:
-    C = quant(a_rot) @ dequant(w). a_rot f32 [M, K] rotated, M <= 8."""
+    """B1: integer-exact decode matmul with fused activation quantization,
+    C = quant(a_rot) @ dequant(w). a_rot f32 [M, K] rotated, M <= 8 within
+    gx_viable; bf16 eff. On the card each block of ``gx_plan``'s grid
+    quantizes only its K slice's superblocks (the codes of the whole row,
+    bit for bit) and sums the slices' terms in slice order."""
     m, k = a_rot.shape
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx2: M={m}, K={k} is outside gx_viable")
@@ -113,12 +164,8 @@ def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
     if a_rot.dtype != torch.float32 or qs.dtype != torch.uint8 or eff.dtype != torch.bfloat16:
         raise TypeError("tcq4_matmul_gx2: needs f32 a_rot, uint8 qs, bf16 eff")
     dev = kernels.check_tensors("tcq4_matmul_gx2", a_rot, qs, eff)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = kernels.lib().rrs_tcq4_gx2(
-        a_rot.data_ptr(), qs.data_ptr(), eff.data_ptr(), out.data_ptr(),
-        m, k, n, kernels.stream_ptr(dev))
-    kernels.check("tcq4_matmul_gx2", code)
-    return out
+    return _gx_launch("tcq4_matmul_gx2", kernels.lib().rrs_tcq4_gx2,
+                      (a_rot.data_ptr(), qs.data_ptr(), eff.data_ptr()), m, k, n, dev)
 
 
 def _check_codes(name: str, a_q: torch.Tensor, a_scale: torch.Tensor) -> tuple[int, int]:
@@ -140,7 +187,8 @@ def tcq4_matmul_gx(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     """B14: integer-exact decode matmul on pre-quantized activations,
     C = (a_q/7 * a_scale) @ dequant(w). a_q int8 [M, K] in [-7, 7], a_scale
     f32 [M, K//256] (the per-block absmax), eff bf16 or f32; M <= 8 within
-    gx_viable. Given gx2's own codes it is bit-equal to gx2."""
+    gx_viable. B1's body and grid with the codes copied in place of its
+    quantizing prologue: given gx2's own codes it is bit-equal to gx2."""
     m, k = _check_codes("tcq4_matmul_gx", a_q, a_scale)
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx: M={m}, K={k} is outside gx_viable")
@@ -151,12 +199,9 @@ def tcq4_matmul_gx(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
             or eff.dtype not in (torch.bfloat16, torch.float32)):
         raise TypeError("tcq4_matmul_gx: needs int8 a_q, f32 a_scale, uint8 qs, bf16 or f32 eff")
     dev = kernels.check_tensors("tcq4_matmul_gx", a_q, a_scale, qs, eff)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = kernels.lib().rrs_tcq4_gx(
-        a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(),
-        int(eff.dtype == torch.float32), out.data_ptr(), m, k, n, kernels.stream_ptr(dev))
-    kernels.check("tcq4_matmul_gx", code)
-    return out
+    return _gx_launch("tcq4_matmul_gx", kernels.lib().rrs_tcq4_gx,
+                      (a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(),
+                       int(eff.dtype == torch.float32)), m, k, n, dev)
 
 
 def fwht256(x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +230,10 @@ def tcq4_matmul_gx3(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> tor
     """B15: integer-exact decode matmul with the rotation and the activation
     quantization fused, C = quant(fwht256(x)) @ dequant(w). x f32 or bf16
     [M, K] unrotated (a layer with no channel permutation), M <= 8 within
-    gx_viable; bf16 eff."""
+    gx_viable; bf16 eff. B1's body and grid: each block rotates and
+    quantizes only its K slice's superblocks, so the rotation runs once a
+    (row, superblock, strip) and not over the whole row in every block;
+    given its own codes, B14 gives its output bit for bit."""
     m, k = x.shape
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx3: M={m}, K={k} is outside gx_viable")
@@ -196,12 +244,9 @@ def tcq4_matmul_gx3(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> tor
             or eff.dtype != torch.bfloat16):
         raise TypeError("tcq4_matmul_gx3: needs f32 or bf16 x, uint8 qs, bf16 eff")
     dev = kernels.check_tensors("tcq4_matmul_gx3", x, qs, eff)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = kernels.lib().rrs_tcq4_gx3(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), qs.data_ptr(), eff.data_ptr(),
-        out.data_ptr(), m, k, n, kernels.stream_ptr(dev))
-    kernels.check("tcq4_matmul_gx3", code)
-    return out
+    return _gx_launch("tcq4_matmul_gx3", kernels.lib().rrs_tcq4_gx3,
+                      (x.data_ptr(), int(x.dtype == torch.bfloat16), qs.data_ptr(),
+                       eff.data_ptr()), m, k, n, dev)
 
 
 def tcq4_matmul_a8_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,

@@ -52,6 +52,7 @@ gathered copies as pass 2 x L2. Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -67,6 +68,7 @@ import torch
 from rrs_tpu_torch import kernels
 from rrs_tpu_torch.ops import mxfp4_matmul as mx
 from rrs_tpu_torch.ops import q8_matmul as q8
+from rrs_tpu_torch.ops import splitk
 from rrs_tpu_torch.ops import tcq4_matmul as tm
 
 L2_BYTES = 50e6
@@ -80,6 +82,8 @@ OLD_SIGNATURES_B13_B10 = {"rrs_mxfp4_all_experts": [_P, _I, _P, _P, _P, _I, _I, 
                           "rrs_tcq4_all_experts": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P]}
 OLD_SIGNATURES_B12_B9 = {"rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                          "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
+OLD_SIGNATURES_B1_B15 = {"rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _P],
+                         "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P]}
 SAME_ABI = ("rrs_q8_matmul", "rrs_tcq4_matmul", "rrs_mxfp4_matmul")
 SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
             "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5),
@@ -87,9 +91,11 @@ SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
             "b12,b9": (("mxfp4_matmul.cu", "tcq4_experts.cu", "tcq4_matmul.cu"),
                        OLD_SIGNATURES_B12_B9),
             "b2,b4,b11": (("q8_matmul.cu", "tcq4_matmul.cu", "mxfp4_matmul.cu"),
-                          {name: kernels.SIGNATURES[name] for name in SAME_ABI})}
+                          {name: kernels.SIGNATURES[name] for name in SAME_ABI}),
+            "b1,b15": (("tcq4_gx2.cu",), OLD_SIGNATURES_B1_B15)}
 QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
             "down": (9728, 2560)}
+QWEN3_30B_ATTN = {"30b qkv": (2048, 5120), "30b o": (4096, 2048)}
 GPTOSS_Q8 = {"qkv": (3072, 5120), "o": (4096, 2944), "lm_head": (3072, 202752)}
 
 
@@ -346,9 +352,24 @@ def old_calls(old_lib, subjects: str) -> dict:
                                                stream()))
         return out
 
+    def old_gx2(a, qs, eff):
+        m, k = a.shape
+        out = torch.empty((m, qs.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_gx2(a.data_ptr(), qs.data_ptr(), eff.data_ptr(),
+                                      out.data_ptr(), m, k, qs.shape[1], stream()))
+        return out
+
+    def old_gx3(x, qs, eff):
+        m, k = x.shape
+        out = torch.empty((m, qs.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_gx3(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                                      qs.data_ptr(), eff.data_ptr(), out.data_ptr(), m, k,
+                                      qs.shape[1], stream()))
+        return out
+
     return {"tcq4": old_tcq4, "q8": old_q8, "mx": old_mx, "i8p": old_i8p,
             "mx_all": old_mx_all, "tq_all": old_tq_all, "mx_rows": old_mx_rows,
-            "tq_rows": old_tq_rows}
+            "tq_rows": old_tq_rows, "gx2": old_gx2, "gx3": old_gx3}
 
 
 def run_b2_b4(old: dict, same_bits: bool = False) -> list[dict]:
@@ -568,11 +589,122 @@ def run_b12_b9(old: dict) -> list[dict]:
     return rows
 
 
+@contextlib.contextmanager
+def gx_slices_forced(slices: int):
+    """The gx wrappers launched with K in ``slices`` even slices of whole
+    superblocks while open (``tcq4_matmul.gx_plan`` replaced)."""
+    saved = tm.gx_plan
+
+    def forced(m: int, k: int, n: int) -> splitk.Plan:
+        strips, units = -(-n // splitk.STRIP), k // tm.TILE_K
+        per = -(-units // slices)
+        s = -(-units // per)
+        return splitk.Plan(strips, s, per, 0)
+
+    tm.gx_plan = forced
+    try:
+        yield
+    finally:
+        tm.gx_plan = saved
+
+
+def gx_shapes():
+    """(label, M, K, N) of the b1,b15 subject: qwen3-4b's four projections at
+    M = 1, qkv / o / gate_up at M = 4 and 8 (down is outside gx_viable
+    there), Qwen3-30B-A3B's attention projections at M = 1."""
+    shapes = [(name, 1, k, n) for name, (k, n) in QWEN3_4B.items()]
+    shapes += [(name, m, k, n) for m in (4, 8) for name, (k, n) in QWEN3_4B.items()
+               if tm.gx_viable(m, k, n)]
+    return shapes + [(name, 1, k, n) for name, (k, n) in QWEN3_30B_ATTN.items()]
+
+
+def run_b1_b15(old: dict) -> list[dict]:
+    """B1 and B15 at ``gx_shapes``, each held to its plain version and the
+    parent (rel 1e-5), to itself across two launches, and B1 at M = 1 bit
+    for bit to ``tcq4_matmul_gx_splitk_plain`` (the kernel's order of sums);
+    timed in turns beside ``torch.matmul`` on bf16 weights, the read floor,
+    a library reduction (``view(torch.int32).sum()``, and ``view(torch.
+    float32).sum()``) over uint8 buffers of the weights' byte count, all
+    rotated past L2, and the launch floor, a one-element ``add_``. Then the K
+    slice sweep of B1 at each shape: every even split into 1 .. K/256
+    slices that the kernel takes (at most ``splitk.GX_MAX_SLICES``, a
+    cluster's blocks, of at most ``splitk.GX_MAX_TASKS`` / M superblocks),
+    held to plain and timed, beside the slice count ``gx_plan`` picks."""
+    from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    rows: list[dict] = []
+    sweeps: list[dict] = []
+    print("B1 tcq4_matmul_gx2 and B15 tcq4_matmul_gx3 (bf16 x), qwen3-4b and Qwen3-30B-A3B",
+          flush=True)
+    for label, m, k, n in gx_shapes():
+        wbytes = k // 2 * n + k // 32 * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+        floor = [torch.randint(0, 256, (wbytes // 4 * 4,), generator=gen, device=dev,
+                               dtype=torch.uint8) for _ in range(n_copies(wbytes))]
+        tiny = torch.zeros((1,), device=dev)
+        extra = {"read_floor": (lambda b: b.view(torch.int32).sum(), [(b,) for b in floor]),
+                 "read_floor_f32": (lambda b: b.view(torch.float32).sum(), [(b,) for b in floor]),
+                 "launch_floor": (lambda t: t.add_(1.0), [(tiny,)])}
+        a = torch.randn((m, k), generator=gen, device=dev)
+        x = a.to(torch.bfloat16)
+        plan = tm.gx_plan(m, k, n)
+        if m == 1:
+            a_q, a_s = quantize_activations_rrs(a)
+            got = tm.tcq4_matmul_gx2(a, *ws[0])
+            if not torch.equal(got, tm.tcq4_matmul_gx_splitk_plain(a_q, a_s, *ws[0], plan)):
+                raise AssertionError(f"gx2 {label} M={m}: not the kernel order's bits")
+        shape = f"{label} M={m} K={k} N={n} ({plan.slices} K slices)"
+        for kind, new, plain, old_fn, act in (
+                ("gx2", tm.tcq4_matmul_gx2, tm.tcq4_matmul_gx2_plain, old["gx2"], a),
+                ("gx3 bf16 x", tm.tcq4_matmul_gx3, tm.tcq4_matmul_gx3_plain, old["gx3"], x)):
+            ab(f"{kind} {shape}", lambda q_, e_: old_fn(act, q_, e_),
+               lambda q_, e_: new(act, q_, e_), lambda q_, e_: plain(act, q_, e_),
+               lambda w: torch.matmul(x, w), ws, [(w,) for w in wl],
+               wbytes + act.numel() * act.element_size() + m * n * 4, 2 * m * k * n, 40, 1e-5,
+               rows, peak=INT8_OPS, extra=extra, self_bits=True)
+        units, times = k // tm.TILE_K, {}
+        ref = tm.tcq4_matmul_gx2_plain(a, *ws[0])
+        fits = (lambda c: c <= splitk.GX_MAX_SLICES                      # noqa: E731
+                and m * -(-units // c) <= splitk.GX_MAX_TASKS)
+        for s in sorted({c for c in (-(-units // per) for per in range(1, units + 1)) if fits(c)}):
+            with gx_slices_forced(s):
+                r = rel(tm.tcq4_matmul_gx2(a, *ws[0]), ref)
+                if not r <= 1e-5:
+                    raise AssertionError(f"gx2 {label} M={m} {s} slices: rel {r:.2e}")
+                times[s] = time_ms(tm.tcq4_matmul_gx2, [(a, q, e) for q, e in ws], 40)
+        sweeps.append({"shape": f"sweep gx2 {label} M={m} K={k} N={n}", "strips": plan.strips,
+                       "ms_by_slices": times, "gx_plan_slices": plan.slices})
+        print(f"  sweep gx2 {label} M={m} ({plan.strips} strips): slices -> ms: " +
+              ", ".join(f"{s} {t:.4f}{' *' if s == plan.slices else ''}"
+                        for s, t in times.items()) + "  (* gx_plan)", flush=True)
+        del ws, wl, floor
+        torch.cuda.empty_cache()
+    for kind in ("gx2", "gx3 bf16 x"):
+        sel = [r for r in rows if r["shape"].startswith(kind + " ") and " M=1 " in r["shape"]
+               and "30b" not in r["shape"]]
+        tot = {key: sum(r[key] for r in sel)
+               for key in ("old_ms", "new_ms", "library_ms", "read_floor_ms",
+                           "read_floor_f32_ms", "launch_floor_ms", "bound_ms")}
+        rows.append({"shape": f"{kind} qwen3-4b four projections summed M=1", **tot})
+        print(f"  {kind} four summed M=1: old {tot['old_ms']:.4f} new {tot['new_ms']:.4f} "
+              f"library {tot['library_ms']:.4f} read floor {tot['read_floor_ms']:.4f} / "
+              f"{tot['read_floor_f32_ms']:.4f} launch floor {tot['launch_floor_ms']:.4f} "
+              f"bound {tot['bound_ms']:.4f}", flush=True)
+    return rows + sweeps
+
+
 RUNS = {"b2,b4": lambda old: run_b2_b4(old),
         "b11,b5": lambda old: run_b11(old) + run_b5(old),
         "b13,b10": run_b13_b10,
         "b12,b9": run_b12_b9,
-        "b2,b4,b11": lambda old: run_b2_b4(old, same_bits=True) + run_b11(old, same_bits=True)}
+        "b2,b4,b11": lambda old: run_b2_b4(old, same_bits=True) + run_b11(old, same_bits=True),
+        "b1,b15": run_b1_b15}
 
 
 def main(argv=None) -> int:
