@@ -60,8 +60,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
    and 4 and bit-equal to B14 on its own codes, B14 (``tcq4_matmul_gx``)
    against the integer oracle and bit-equal to B1 on B1's codes (both held
    bit-equal across two launches), B16 (``tcq4_matmul_a8``) against the oracle at M = 1,
-   8 and 32, each timed beside its bound, its plain version and
-   ``torch.matmul`` on weights dequantized beforehand; ``generate`` without
+   8 and 32, bit-equal across two launches and to its order of sums in
+   PyTorch, each timed beside its bound, its plain version and
+   ``torch.matmul`` on weights dequantized beforehand (rotated past L2, as
+   the kernel's copies are); ``generate`` without
    and with ``RRS_GX3`` (B1 or B15 at all 144 TCQ4 decode linears of a step,
    counted; decode profiles; greedy tokens compared, reported) and the bench
    decode counted the same way; a teacher-forced decode step under the flag
@@ -75,9 +77,10 @@ it; exits non-zero without either, and on any failed phase. Phases:
 9. B17 (``tcq4_matmul_fused``) and B18 (``tcq4_matmul_pb``), which no model
    path calls (as in the JAX package), at the four qwen3-4b projections, M = 1
    and 512: each against its plain version, B17 bit-equal to B4 on its
-   dequantized activations, B18 within the JAX bound of B4 and of the
-   integer oracle (M = 1, 4, 16), each timed beside its bound, its plain
-   version and ``torch.matmul`` on weights dequantized beforehand; then one
+   dequantized activations, B18 bit-equal across two launches and within
+   the JAX bound of B4 and of the integer oracle (M = 1, 4, 16), each timed
+   beside its bound, its plain version and ``torch.matmul`` on weights
+   dequantized beforehand (rotated past L2); then one
    teacher-forced 512-token prefill chunk at qwen3-4b width whose 144 TCQ4
    linears each also run B17 and B18 on their own activations, held the
    same way, with the int4 codes that differ from the model's rotation
@@ -947,12 +950,15 @@ def phase_main_path(reports):
 
 COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
             "q8": "q8_matmul", "fa": "flash_attention"}
-# the gx kernels share one template, gx_sm90_kernel<prologue, eff type>: 0 gx, 1 gx2, 2 gx3
-GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3"}
-# B2, B4 and B11 share the two bodies of gemm_sm90.cuh, splitk_kernel<Loader,
-# MT> and gemm_kernel<Loader, BM, OutT>; the loader (Q8<...>, TCQ4<...> or
-# MXFP4<...>) names the kernel
-SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul", "MXFP4": "mxfp4_matmul"}
+# the gx kernels share one template, gx_sm90_kernel<prologue, eff type, row tiles>:
+# 0 gx, 1 gx2, 2 gx3, 3 a8
+GX_PROLOGUES = {"0": "tcq4_matmul_gx", "1": "tcq4_matmul_gx2", "2": "tcq4_matmul_gx3",
+                "3": "tcq4_matmul_a8"}
+# B2, B4, B11 and B18 share the two bodies of gemm_sm90.cuh,
+# splitk_kernel<Loader, MT> and gemm_kernel<Loader, BM, OutT>; the loader
+# (Q8<...>, TCQ4<...>, MXFP4<...> or PB) names the kernel
+SM90_LOADERS = {"Q8": "q8_matmul", "TCQ4": "tcq4_matmul", "MXFP4": "mxfp4_matmul",
+                "PB": "tcq4_matmul_pb"}
 # B10 and B13 run the prefill body on its expert grid, experts_kernel<Loader,
 # BM> (B19's launches, on the TCQ4 loader too, count as B10's)
 SM90_EXPERTS = {"TCQ4": "tcq4_matmul_all_experts", "MXFP4": "mxfp4_matmul_all_experts"}
@@ -963,8 +969,7 @@ SM90_ROWS = {"TCQ4": "tcq4_matmul_experts_rows", "MXFP4": "mxfp4_matmul_experts_
 # ids of csrc/attention_sm90.cuh
 ATTN_CODECS = {"0": "flash_attention_q8", "1": "flash_attention_q4hp", "2": "flash_attention_q4",
                "3": "flash_attention"}
-KERNEL_NAMES = {"a8_kernel": "tcq4_matmul_a8",
-                "i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused"}
+KERNEL_NAMES = {"i8p_sm90_kernel": "tcq4_matmul_i8p", "rotate_kernel": "tcq4_matmul_fused"}
 
 
 def phase_generate_kvq(cfg, weights, reports):
@@ -1130,7 +1135,7 @@ def kernel_label(name: str) -> str:
     m = re.search(r"gx_sm90_kernel<[^,>]*?(\d)\s*,", name)
     if m:
         return GX_PROLOGUES[m.group(1)]
-    m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4|MXFP4)<", name)
+    m = re.search(r"sm90::(?:splitk|gemm)_kernel<[^<]*?\b(Q8|TCQ4|MXFP4|PB)\b", name)
     if m:
         return SM90_LOADERS[m.group(1)]
     m = re.search(r"sm90::experts_kernel<[^<]*?\b(TCQ4|MXFP4)<", name)
@@ -1741,7 +1746,7 @@ def phase_shift_q4(ctx):
 INT = {"gx3": ("tcq4_matmul_gx3", "rrs_tpu_torch/csrc/tcq4_gx2.cu",
                "rrs_tpu/ops/tcq4_matmul.py:1394"),
        "gx": ("tcq4_matmul_gx", "rrs_tpu_torch/csrc/tcq4_gx2.cu", "rrs_tpu/ops/tcq4_matmul.py:272"),
-       "a8": ("tcq4_matmul_a8", "rrs_tpu_torch/csrc/tcq4_a8.cu", "rrs_tpu/ops/tcq4_matmul.py:89")}
+       "a8": ("tcq4_matmul_a8", "rrs_tpu_torch/csrc/tcq4_gx2.cu", "rrs_tpu/ops/tcq4_matmul.py:89")}
 INT_TOL = 1e-5          # the reference's limit for the integer kernels (tests/test_tcq4_matmul.py)
 # qwen3-4b's TCQ4 decode linears a step: 36 layers x (qkv, o, gate-up, down)
 QWEN3_4B_TCQ4_PER_STEP = 144
@@ -1751,10 +1756,12 @@ def phase_parity_int(peaks, reports):
     """B15 against its plain version at M = 1 and 4 (bf16 x, as the model
     passes it), B14 against the integer oracle ``tcq4_matmul_ref`` and bit-equal
     to B1 given B1's own codes, B16 against the oracle and its plain version
-    at M = 1, 8 and 32; each at the four qwen3-4b projections the route sends
-    to it, timed beside its bound, its plain version and ``torch.matmul`` on
-    weights dequantized to bf16 beforehand. Headline: M = 1 summed over the
-    projections, as B1's row."""
+    at M = 1, 8 and 32, bit-equal across two launches and to
+    ``tcq4_matmul_a8_splitk_plain`` (its order of sums under ``a8_plan``);
+    each at the four qwen3-4b projections the route sends to it, timed
+    beside its bound, its plain version and ``torch.matmul`` on weights
+    dequantized to bf16 beforehand, as many bf16 copies as pass 2 x L2.
+    Headline: M = 1 summed over the projections, as B1's row."""
     import torch
 
     from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs, quantize_activations_rrs
@@ -1779,7 +1786,7 @@ def phase_parity_int(peaks, reports):
                (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
                 ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
         ws32 = [(q, e.float()) for q, e in ws[:n_copies(wbytes + k // 32 * n * 2)]]
-        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:2]]
+        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:n_copies(2 * k * n)]]
         for m in (1, 4):
             if not tm.gx_viable(m, k, n):
                 continue
@@ -1833,9 +1840,17 @@ def phase_parity_int(peaks, reports):
                     INT_TOL)
             err, rel = compare(f"a8 {lname} M={m}", got.cpu(),
                                tm.tcq4_matmul_ref(a_q, a_s, *ws32[0]), INT_TOL)
+            t_hold = time.perf_counter()
+            if not torch.equal(got, tm.tcq4_matmul_a8(a_q, a_s, *ws32[0])):
+                raise AssertionError(f"a8 {lname} M={m}: two launches differ")
+            if not torch.equal(got, tm.tcq4_matmul_a8_splitk_plain(a_q, a_s, *ws32[0],
+                                                                   tm.a8_plan(m, k, n))):
+                raise AssertionError(f"a8 {lname} M={m}: not its order of sums bit for bit")
+            hold_s += time.perf_counter() - t_hold
             a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
             reports["a8"].add({
-                "shape": f"{lname} M={m} K={k} N={n} f32 eff", "max_abs_err": err, "rel_err": rel,
+                "shape": f"{lname} M={m} K={k} N={n} f32 eff (two launches bit-equal, bit-equal "
+                         f"to its order of sums)", "max_abs_err": err, "rel_err": rel,
                 "tol": INT_TOL,
                 "ms": time_ms(tm.tcq4_matmul_a8, [(a_q, a_s, q, e) for q, e in ws32], 20),
                 "plain_ms": time_ms(tm.tcq4_matmul_a8_plain, [(a_q, a_s, *ws32[0])], 3),
@@ -1844,8 +1859,8 @@ def phase_parity_int(peaks, reports):
                         m, k, n)}, headline=(m == 1))
         del ws, ws32, wl
     torch.cuda.empty_cache()
-    print(f"  gx3 / gx holds beyond the plain version (two launches, gx3 on gx): {hold_s:.2f} s",
-          flush=True)
+    print(f"  gx3 / gx / a8 holds beyond the plain version (two launches, gx3 on gx, a8 on its "
+          f"order of sums): {hold_s:.2f} s", flush=True)
 
 
 @contextlib.contextmanager
@@ -2161,10 +2176,12 @@ def phase_parity_extra(peaks, reports):
     M = 1, 4 and 16 within PB_JAX_TOL of the integer oracle. Each timed
     beside its bound, its plain version and ``torch.matmul`` in bf16 on
     weights dequantized beforehand. Headline: M = 512 summed over the four
-    projections, as B4's row. B17's bound counts its rotation once per row
-    and superblock (2 M K 256 f32 FLOPs on the CUDA cores, though the kernel
-    redoes it for every 64-column tile) on top of the dot's 2 M K N bf16
-    FLOPs on the tensor cores; B18's adds its 2G-deep bias dot to the dot."""
+    projections, as B4's row; B18 also held bit-equal across two launches.
+    The library call reads as many bf16 weight copies as pass 2 x L2. B17's
+    bound counts its rotation once per row and superblock (2 M K 256 f32
+    FLOPs on the CUDA cores, though the kernel redoes it for every 64-column
+    tile) on top of the dot's 2 M K N bf16 FLOPs on the tensor cores; B18's
+    adds its 2G-deep bias dot to the dot."""
     import torch
 
     from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
@@ -2178,6 +2195,7 @@ def phase_parity_extra(peaks, reports):
     had = _hadamard_f32(dev)
     for key, (name, source, replaces) in EXTRA.items():
         reports[key] = Report(name, source, replaces, "operations")
+    hold_s = 0.0
 
     def bound(nbytes, t_ops):
         t_bytes = nbytes / bw * 1e3
@@ -2191,7 +2209,7 @@ def phase_parity_extra(peaks, reports):
                (torch.rand((g, n), generator=gen, device=dev) * 0.01 + 0.001
                 ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
         gis = [(tm.pack_gi(q), e) for q, e in ws]
-        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:2]]
+        wl = [tm.dequantize_w(q, e).to(torch.bfloat16) for q, e in ws[:n_copies(2 * k * n)]]
         for m in (1, 512):
             reps = 40 if m == 1 else 5
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -2217,10 +2235,15 @@ def phase_parity_extra(peaks, reports):
             err, rel = compare(f"pb {lname} M={m}", got,
                                tm.tcq4_matmul_pb_plain(a_gi, ag24, *gis[0]), EXTRA_TOL)
             _, rel_b4 = compare(f"pb {lname} M={m} against B4", got, b4, PB_JAX_TOL)
+            t_hold = time.perf_counter()
+            if not torch.equal(got, tm.tcq4_matmul_pb(a_gi, ag24, *gis[0])):
+                raise AssertionError(f"pb {lname} M={m}: two launches differ")
+            hold_s += time.perf_counter() - t_hold
             a16 = a.to(torch.bfloat16)
             t_ops = (2 * m * k * n + 2 * m * 2 * g * n) / bf16_peak * 1e3
             reports["pb"].add({
-                "shape": f"{lname} M={m} K={k} N={n} (B4 rel {rel_b4:.1e})",
+                "shape": f"{lname} M={m} K={k} N={n} (B4 rel {rel_b4:.1e}; two launches "
+                         f"bit-equal)",
                 "max_abs_err": err, "rel_err": rel, "tol": EXTRA_TOL,
                 "ms": time_ms(tm.tcq4_matmul_pb, [(a_gi, ag24, q, e) for q, e in gis], reps),
                 "plain_ms": time_ms(tm.tcq4_matmul_pb_plain, [(a_gi, ag24, *gis[0])], 2),
@@ -2240,6 +2263,7 @@ def phase_parity_extra(peaks, reports):
               f"(<= {PB_JAX_TOL:.0e})", flush=True)
         del ws, gis, wl
     torch.cuda.empty_cache()
+    print(f"  pb holds beyond the plain version (two launches): {hold_s:.2f} s", flush=True)
 
 
 @contextlib.contextmanager

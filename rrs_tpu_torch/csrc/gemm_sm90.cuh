@@ -1,6 +1,6 @@
 // The two bodies of the quantized weight matmuls C[M, N] = bf16(A) @ bf16(W)
 // with f32 sums, shared by B2 (q8_matmul.cu), B4 (tcq4_matmul.cu, and B17
-// through it) and B11 (mxfp4_matmul.cu); the first also runs with the
+// through it), B11 (mxfp4_matmul.cu) and B18 (tcq4_pb.cu); the first also runs with the
 // selected rows of an expert matmul on the grid for B9 (tcq4_experts.cu,
 // through tcq4_rows below) and B12 (mxfp4_matmul.cu), the second on an
 // expert grid for B10 and B19 (tcq4_experts.cu, through tcq4_experts below)
@@ -47,6 +47,11 @@
 //    gemm_block; experts_kernel runs it with the experts on the grid's z
 //    axis (one K slice, each block its own expert's weights and
 //    activations), a flag that gemm_kernel's instantiations do not take.
+//    A loader with kBiasDot (B18's PB) also has a bias dot folded into the
+//    k walk: with the first stage of each 256-k unit the block copies the
+//    unit's 16 bias activations of its rows and 8 weight rows of its strip
+//    into a tile of their own (two, by unit parity), and after the unit's
+//    last stage runs one more m16n8k16 step on them (BiasTile below).
 //
 // A loader supplies (see q8_matmul.cu, tcq4_matmul.cu and mxfp4_matmul.cu):
 //   kUnitK, kInner       slice unit in k, and inner units (a warp's grain) in it
@@ -56,7 +61,11 @@
 //   issue, dequant       the two 32-wide k runs of a stage, its cp.async
 //                        copies, and its dequantize into the bf16 B tile
 //   expert               (rows and expert grids) the Params of expert e of a stack
+//   kBiasDot, bias_issue (the prefill bias dot, optional) the flag, and the
+//                        cp.async copies of a unit's bias tile
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -403,6 +412,22 @@ int launch_rows(const typename L::Params& p, const int* ids, int n_exp, float* o
 // 2. Prefill: the pipelined tensor-core GEMM
 // ---------------------------------------------------------------------------
 
+// Whether loader L folds a bias dot into the prefill k walk (its kBiasDot).
+template <class L, class = void>
+struct BiasDot : std::false_type {};
+template <class L>
+struct BiasDot<L, std::void_t<decltype(L::kBiasDot)>> : std::bool_constant<L::kBiasDot> {};
+
+// A unit's bias tile: the A operand, BM rows x 16 bf16 (the two 16-byte
+// chunks of row r at chunk c ^ ((r >> 2) & 1), so ldmatrix's 8 rows meet 32
+// banks), then the B operand's 8 weight rows of the strip (rows 8-15 of the
+// 16-deep step read rows 0-7 again).
+template <int BM>
+struct BiasTile {
+  static constexpr int kABytes = BM * 16 * 2;
+  static constexpr int kBytes = kABytes + 8 * kLdB * 2;
+};
+
 // The ring: kStages raw stages (bf16 A rows of 64, their eight 16-byte
 // chunks swizzled by the row (chunk c of row r at c ^ (r & 7)) so that
 // ldmatrix reads 8 rows without bank conflicts; then the loader's raw bytes)
@@ -413,7 +438,8 @@ struct PrefillSmem {
   static constexpr int kStages = 3;
   static constexpr int kABytes = BM * kBK * 2;
   static constexpr int kStageBytes = kABytes + L::kRawBytes;
-  static constexpr int kBytes = kStages * kStageBytes + 2 * kBK * kLdB * 2;
+  static constexpr int kBiasBytes = BiasDot<L>::value ? 2 * BiasTile<BM>::kBytes : 0;
+  static constexpr int kBytes = kStages * kStageBytes + 2 * kBK * kLdB * 2 + kBiasBytes;
   static_assert(kABytes % 16 == 0 && L::kRawBytes % 16 == 0, "16-byte aligned stages");
   static_assert(kBytes <= 232448 / 2 - 1024, "two blocks an SM (the SM keeps 1 KB a block)");
 };
@@ -499,6 +525,13 @@ __device__ __forceinline__ void gemm_block(typename L::Params p,
                    a + static_cast<size_t>(gr < M ? gr : 0) * K + gk, gr < M ? 16 : 0);
       }
       L::issue(st + SM::kABytes, p, u0 + u, n0, N, tid);
+      if constexpr (BiasDot<L>::value) {
+        // a unit's first stage (slices are whole units) also copies its bias tile
+        if ((u & 3) == 0)
+          L::template bias_issue<BM>(smem + kS * SM::kStageBytes + 2 * kBK * kLdB * 2 +
+                                         ((u >> 2) & 1) * BiasTile<BM>::kBytes,
+                                     p, (u0 + u) >> 2, m0, M, n0, N, tid);
+      }
     }
     cp_async_commit();
   };
@@ -546,6 +579,36 @@ __device__ __forceinline__ void gemm_block(typename L::Params p,
         for (int j = 0; j < kNF; ++j)
           mma16816(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3], bf[j / 2][(j & 1) * 2],
                    bf[j / 2][(j & 1) * 2 + 1]);
+    }
+    if constexpr (BiasDot<L>::value) {
+      // after a unit's last stage, its bias step, the A operand negated (exact
+      // in bf16); the tile was copied with the unit's first stage, three steps
+      // back, and the other parity's tile is the next unit's
+      if ((u & 3) == 3) {
+        const unsigned char* bt = smem + kS * SM::kStageBytes + 2 * kBK * kLdB * 2 +
+                                  ((u >> 2) & 1) * BiasTile<BM>::kBytes;
+        const __nv_bfloat16* ba = reinterpret_cast<const __nv_bfloat16*>(bt);
+        const __nv_bfloat16* bb =
+            reinterpret_cast<const __nv_bfloat16*>(bt + BiasTile<BM>::kABytes);
+        uint32_t af[kMF][4];
+#pragma unroll
+        for (int i = 0; i < kMF; ++i) {
+          const int r = wm * kWarpM + i * 16 + (lane & 15);
+          ldsm_x4(af[i], ba + r * 16 + (((lane >> 4) ^ ((r >> 2) & 1)) * 8));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) af[i][q] ^= 0x80008000u;
+        }
+        uint32_t bf[kNF / 2][4];
+#pragma unroll
+        for (int j = 0; j < kNF / 2; ++j)
+          ldsm_x4_trans(bf[j], bb + (lane & 7) * kLdB + wn * 32 + j * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < kMF; ++i)
+#pragma unroll
+          for (int j = 0; j < kNF; ++j)
+            mma16816(acc[i][j], af[i][0], af[i][1], af[i][2], af[i][3], bf[j / 2][(j & 1) * 2],
+                     bf[j / 2][(j & 1) * 2 + 1]);
+      }
     }
   }
   cp_async_wait<0>();

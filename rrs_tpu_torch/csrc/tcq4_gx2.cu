@@ -1,17 +1,21 @@
 // W4A4 decode matmuls over int8 group dots: the pre-quantized one (gx), the
-// one with the activation quantization fused into its prologue (gx2), and the
-// one that also fuses the 256-point Walsh-Hadamard rotation (gx3). The three
-// share one body and differ only in the prologue that fills shared memory
-// with the int4 activation codes and their per-superblock scales.
+// one with the activation quantization fused into its prologue (gx2), the
+// one that also fuses the 256-point Walsh-Hadamard rotation (gx3), and the
+// integer oracle (a8). The four share one body and differ only in the
+// prologue that fills shared memory with the int4 activation codes and their
+// per-superblock scales, and a8 in its epilogue and its rows.
 //
 // Replaces rrs_tpu/ops/tcq4_matmul.py:1262 tcq4_matmul_gx2 (_kernel_gx2 at
-// :1194), :272 tcq4_matmul_gx (_kernel_gx at :160) and :1394
-// tcq4_matmul_gx3 (_kernel_gx3 at :1332). C[m, n] = sum over 32-groups g of
+// :1194), :272 tcq4_matmul_gx (_kernel_gx at :160), :1394 tcq4_matmul_gx3
+// (_kernel_gx3 at :1332) and :89 tcq4_matmul_a8 (_kernel_a8 at :64).
+// C[m, n] = sum over 32-groups g of
 //     (dot32(q_a[m, g], w_q[g, n]) * (amax[m, sb] / 7)) * eff[g, n]
 // where, for gx2, q_a = clip(rint(a_rot * (7 / amax)), -7, 7) per 256-block,
 // exactly as quantize_activations_rrs computes it; gx3 first rotates the raw
 // activations, x_rot = FWHT256(x) / 16; gx takes q_a and amax as given. The
-// group dots are int32-exact.
+// group dots are int32-exact. a8 takes the codes as given too (M <= 32, f32
+// eff) and sums in the JAX kernel's order: per superblock sb, sbacc = sum
+// over its groups of f32(dot) * eff, then acc += sbacc * (amax[m, sb] / 7).
 //
 // Bound on the H100: bytes. At M = 1 each weight byte feeds two int8 MACs,
 // far below the card's ops/byte balance, so the time is the qs
@@ -23,8 +27,9 @@
 // block quantizes (and for gx3 rotates) only the superblocks of its own
 // slice, and its codes are those of whole-row quantization bit for bit.
 // 1. Bytes in flight: before the prologue, the block issues 16-byte
-//    cp.async copies of its slice's activations (at most kMaxTasks rows x
-//    superblocks, 16 KB of f32) and then of its first kStages superblocks
+//    cp.async copies of its slice's activations (to be quantized: at most
+//    kMaxTasks rows x superblocks, 16 KB of f32; given codes go straight
+//    into place) and then of its first kStages superblocks
 //    of weights (each 128 byte rows x 128 columns of qs and 8 eff rows, 18
 //    KB with bf16 eff) into a shared-memory ring; the weights do not depend
 //    on the activations, and the activations, issued first, do not queue
@@ -48,7 +53,8 @@
 //    strip's 16-byte chunks are XOR-swizzled by the row (chunk c of row r
 //    at c ^ 2 ((r >> 2) & 3)), so the 32 lanes' words meet 32 banks.
 // 3. Epilogue per group, in a fixed order (superblocks, quarters, then
-//    low before high): y += (f32(16 dot) * (amax / 7 / 16)) * eff with
+//    low before high, so groups 0, 4, 1, 5, 2, 6, 3, 7 of a superblock):
+//    y += (f32(16 dot) * (amax / 7 / 16)) * eff with
 //    explicit round-to-nearest products and sums, the order that
 //    ops/tcq4_matmul.py tcq4_matmul_gx_splitk_plain emulates. Scaling by
 //    16 and 1/16 is exact, so each term is (f32(dot) * (amax / 7)) * eff
@@ -57,13 +63,22 @@
 //    accumulator starts at the bits of 1.5 * 2^23, so |16 dot| < 2^22
 //    lands in the f32 mantissa and f32(16 dot) is a reinterpretation and
 //    one exact subtraction on the FMA pipe, not a quarter-rate
-//    integer-to-float conversion.
+//    integer-to-float conversion. a8's epilogue (kGivenA8) sums the same
+//    group terms f32(16 dot) * eff into sbacc over the superblock, in that
+//    order, then y += sbacc * (amax / 7 / 16): 16 x sbacc and amax / 7 / 16
+//    are exact, so that is JAX's sbacc * (amax / 7) bit for bit
+//    (ops/tcq4_matmul.py tcq4_matmul_a8_splitk_plain). Its rows are MT n8
+//    tiles of M (1, 2 or 4; M <= 32): each weight fragment, decoded once,
+//    feeds every tile's mma. (JAX's group order, 0 .. 7, would read each
+//    quarter's words twice; a variant in that order timed no faster at M =
+//    1 and slower at M = 32.)
 // 4. With more than one slice, a strip's slices are one thread-block
 //    cluster (1 x slices, at most kMaxSlices): each block leaves its partial
 //    sums in its own shared memory, and after a cluster barrier the slice-0
-//    block reads every slice's partials through distributed shared memory
-//    and adds them in slice order, a thread a column. No global scratch, no
-//    fence, no atomic counter; one launch, the same bits on every run.
+//    block (for a8, every block, a share of the rows each) reads every
+//    slice's partials through distributed shared memory and adds them in
+//    slice order, a thread a column. No global scratch, no fence, no atomic
+//    counter; one launch, the same bits on every run.
 //
 // gx3's rotation: the quantizing prologue gives one warp per (row,
 // superblock) with 8 consecutive elements per lane, which is the layout of a
@@ -96,8 +111,9 @@ constexpr int kMaxSmem = 200 * 1024;         // above any smem_bytes gx_viable a
 constexpr int kBias = 0x4B400000;            // 1.5 * 2^23 as f32 bits
 constexpr float kBiasF = 12582912.0f;
 
-// The prologue: what fills the codes and scales in shared memory.
-enum Prologue { kGiven = 0, kQuantize = 1, kRotateQuantize = 2 };
+// The prologue: what fills the codes and scales in shared memory; kGivenA8
+// is kGiven's with the a8 epilogue.
+enum Prologue { kGiven = 0, kQuantize = 1, kRotateQuantize = 2, kGivenA8 = 3 };
 
 // A stage: a superblock's qs rows of the strip, then its 8 eff rows.
 template <typename EffT>
@@ -270,22 +286,28 @@ __device__ __forceinline__ void issue(const Args& p, unsigned char* st, int sb, 
 // The end of a split launch, after every warp is past the main loop: the
 // block's partial sums go to its shared memory [M][kStrip]; the slice-0
 // block of the strip's cluster adds the S partials of each output in slice
-// order, thread c taking column c in all M rows, and stores them. The second
-// barrier keeps every block's shared memory alive until it has been read.
-__device__ __forceinline__ void finish_cluster(const Args& p, const float (&y)[4][2], float* part,
-                                               int wcol, int t, int S, int col0) {
+// order, thread c taking column c in all M rows, and stores them. With
+// kSpread (a8, up to 32 rows) block s of the cluster takes rows s, s + S,
+// ... instead, so no block reads more than a share of the M x S partials
+// through distributed shared memory. The second barrier keeps every block's
+// shared memory alive until it has been read.
+template <int MT, bool kSpread>
+__device__ __forceinline__ void finish_cluster(const Args& p, const float (&y)[MT][4][2],
+                                               float* part, int wcol, int t, int S, int col0) {
   static_assert(kThreads == kStrip, "a thread a column");
   namespace cg = cooperative_groups;
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    if (2 * t + r < p.M)
-      *reinterpret_cast<float4*>(part + (2 * t + r) * kStrip + wcol) =
-          make_float4(y[0][r], y[1][r], y[2][r], y[3][r]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (mt * 8 + 2 * t + r < p.M)
+        *reinterpret_cast<float4*>(part + (mt * 8 + 2 * t + r) * kStrip + wcol) =
+            make_float4(y[mt][0][r], y[mt][1][r], y[mt][2][r], y[mt][3][r]);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int c = threadIdx.x;
-  if (blockIdx.y == 0 && col0 + c < p.N) {
-    for (int m = 0; m < p.M; ++m) {
+  if ((kSpread || blockIdx.y == 0) && col0 + c < p.N) {
+    for (int m = kSpread ? blockIdx.y : 0; m < p.M; m += kSpread ? S : 1) {
       float x[kMaxSlices];
 #pragma unroll
       for (int s = 0; s < kMaxSlices; ++s)
@@ -303,10 +325,13 @@ __device__ __forceinline__ void finish_cluster(const Args& p, const float (&y)[4
 // grid (strips, slices), kThreads threads, dynamic shared memory
 // smem_bytes<EffT>(M, slice_units, x_bytes): the ring, then the codes
 // [M][code_stride], the scales [M][slice_units] and the staged activations
-// of the slice.
-template <int Pro, typename EffT>
+// of the slice. MT: n8 tiles of rows (more than one for kGivenA8 alone).
+template <int Pro, typename EffT, int MT = 1>
 __global__ void __launch_bounds__(kThreads)
 gx_sm90_kernel(const Args p) {
+  constexpr bool kA8 = Pro == kGivenA8;
+  constexpr bool kCodes = Pro == kGiven || kA8;                  // the codes as given
+  static_assert(MT == 1 || kA8, "more than 8 rows: the a8 kernel alone");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kStage = kStageBytes<EffT>;
   const int M = p.M, K = p.K, nsb = K / 256, units = p.slice_units;
@@ -325,20 +350,20 @@ gx_sm90_kernel(const Args p) {
   // behind the slice's weight bytes. A full ring stages them in its last
   // stage and copies that stage's weights after the prologue: the groups
   // still complete in stage order.
-  const int x_bytes = Pro == kGiven ? 0 : (p.x_bf16 ? 2 : 4);
-  const bool late = Pro != kGiven && late_stage(units);
+  const int x_bytes = kCodes ? 0 : (p.x_bf16 ? 2 : 4);
+  const bool late = !kCodes && late_stage(units);
   unsigned char* xs = late ? smem + (kStages - 1) * kStage
                            : reinterpret_cast<unsigned char*>(ascale) + scale_bytes(M, units);
   {
-    const int row_bytes = per * 256 * (Pro == kGiven ? 1 : x_bytes);
+    const int row_bytes = per * 256 * (kCodes ? 1 : x_bytes);
     const int chunks = row_bytes / 16;
     for (int c = tid; c < M * chunks; c += kThreads) {
       const int m = c / chunks, i = c - m * chunks;
       const unsigned char* src = static_cast<const unsigned char*>(p.a) +
                                  (static_cast<size_t>(m) * K + sb0 * 256) *
-                                     (Pro == kGiven ? 1 : x_bytes);
-      unsigned char* dst = Pro == kGiven ? reinterpret_cast<unsigned char*>(aq + m * astride)
-                                         : xs + m * units * 256 * x_bytes;
+                                     (kCodes ? 1 : x_bytes);
+      unsigned char* dst = kCodes ? reinterpret_cast<unsigned char*>(aq + m * astride)
+                                  : xs + m * units * 256 * x_bytes;
       cp_async16(dst + i * 16, src + i * 16, 16);
     }
     cp_async_commit();
@@ -357,7 +382,7 @@ gx_sm90_kernel(const Args p) {
   }
   __syncthreads();
 
-  if (Pro == kGiven) {
+  if (kCodes) {
     // (amax / 7) / 16 of the given absmax
     for (int c = tid; c < M * per; c += kThreads) {
       const int m = c / per, j = c - m * per;
@@ -382,19 +407,35 @@ gx_sm90_kernel(const Args p) {
 
   const int g = lane >> 2, t = lane & 3;
   const int wcol = warp * 32 + 4 * g;                    // the thread's 4 columns in the strip
-  const int8_t* arow = aq + (g < M ? g : 0) * astride;   // its B operand row, m = g
-  float y[4][2];
+  const int8_t* arow[MT];                                // its B operand rows, m = 8 mt + g
 #pragma unroll
-  for (int c = 0; c < 4; ++c) y[c][0] = y[c][1] = 0.0f;
+  for (int mt = 0; mt < MT; ++mt) arow[mt] = aq + (mt * 8 + g < M ? mt * 8 + g : 0) * astride;
+  float y[MT][4][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[mt][c][0] = y[mt][c][1] = 0.0f;
 
   for (int j = 0; j < per; ++j) {
     cp_async_wait<kStages - 1>();
     __syncthreads();
     const unsigned char* st = smem + (j % kStages) * kStage;
     const EffT* est = reinterpret_cast<const EffT*>(st + kQsBytes) + wcol;
-    float s16[2];
+    float s16[MT][2];
 #pragma unroll
-    for (int e = 0; e < 2; ++e) s16[e] = 2 * t + e < M ? ascale[(2 * t + e) * units + j] : 0.0f;
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = mt * 8 + 2 * t + e;
+        s16[mt][e] = m < M ? ascale[m * units + j] : 0.0f;
+      }
+    float sb[MT][4][2];                                  // kA8: the superblock's sbacc
+    if constexpr (kA8) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sb[mt][c][0] = sb[mt][c][1] = 0.0f;
+    }
 #pragma unroll
     for (int qq = 0; qq < 4; ++qq) {
       uint32_t rw[2][4], cw[2][4];
@@ -410,11 +451,15 @@ gx_sm90_kernel(const Args p) {
       transpose4(rw[1], cw[1]);
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {       // the low-nibble group qq, then the high qq + 4
-        uint32_t b[2] = {0u, 0u};
-        if (g < M) {
-          const int8_t* ak = arow + j * 256 + hi * 128 + qq * 32 + 4 * t;
-          b[0] = *reinterpret_cast<const uint32_t*>(ak);
-          b[1] = *reinterpret_cast<const uint32_t*>(ak + 16);
+        uint32_t b[MT][2];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          b[mt][0] = b[mt][1] = 0u;
+          if (mt * 8 + g < M) {
+            const int8_t* ak = arow[mt] + j * 256 + hi * 128 + qq * 32 + 4 * t;
+            b[mt][0] = *reinterpret_cast<const uint32_t*>(ak);
+            b[mt][1] = *reinterpret_cast<const uint32_t*>(ak + 16);
+          }
         }
         float e[4];
         eff4(est + (qq + 4 * hi) * kStrip, e);
@@ -422,21 +467,37 @@ gx_sm90_kernel(const Args p) {
         for (int tile = 0; tile < 2; ++tile) {
           const uint32_t a[4] = {nib16(cw[0][2 * tile], hi), nib16(cw[0][2 * tile + 1], hi),
                                  nib16(cw[1][2 * tile], hi), nib16(cw[1][2 * tile + 1], hi)};
-          int d[4] = {kBias, kBias, kBias, kBias};
-          mma_s8(d, a, b);
-          // d[0] / d[1]: column 2 tile, rows 2t / 2t + 1; d[2] / d[3]: column 2 tile + 1
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            if (2 * t + r >= M) continue;
+          for (int mt = 0; mt < MT; ++mt) {
+            int d[4] = {kBias, kBias, kBias, kBias};
+            mma_s8(d, a, b[mt]);
+            // d[0] / d[1]: column 2 tile, rows 2t / 2t + 1; d[2] / d[3]: column 2 tile + 1
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const int col = 2 * tile + c;
-              const float dot16 = __fsub_rn(__int_as_float(d[2 * c + r]), kBiasF);   // exact
-              y[col][r] = __fadd_rn(y[col][r], __fmul_rn(__fmul_rn(dot16, s16[r]), e[col]));
+            for (int r = 0; r < 2; ++r) {
+              if (mt * 8 + 2 * t + r >= M) continue;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const int col = 2 * tile + c;
+                const float dot16 = __fsub_rn(__int_as_float(d[2 * c + r]), kBiasF);   // exact
+                if constexpr (kA8)
+                  sb[mt][col][r] = __fadd_rn(sb[mt][col][r], __fmul_rn(dot16, e[col]));
+                else
+                  y[mt][col][r] = __fadd_rn(y[mt][col][r],
+                                            __fmul_rn(__fmul_rn(dot16, s16[mt][r]), e[col]));
+              }
             }
           }
         }
       }
+    }
+    if constexpr (kA8) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            y[mt][c][r] = __fadd_rn(y[mt][c][r], __fmul_rn(sb[mt][c][r], s16[mt][r]));
     }
     __syncthreads();
     if (j + kStages < per) issue<EffT>(p, smem + (j % kStages) * kStage, sb0 + j + kStages, col0);
@@ -444,21 +505,26 @@ gx_sm90_kernel(const Args p) {
   }
 
   if (S > 1) {
-    finish_cluster(p, y, reinterpret_cast<float*>(smem), wcol, t, S, col0);   // stage 0 is free
+    // stage 0 is free
+    finish_cluster<MT, kA8>(p, y, reinterpret_cast<float*>(smem), wcol, t, S, col0);
     return;
   }
   const int col = col0 + wcol;
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    if (2 * t + r < M && col < p.N)
-      *reinterpret_cast<float4*>(p.out + static_cast<size_t>(2 * t + r) * p.N + col) =
-          make_float4(y[0][r], y[1][r], y[2][r], y[3][r]);
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (mt * 8 + 2 * t + r < M && col < p.N)
+        *reinterpret_cast<float4*>(p.out + static_cast<size_t>(mt * 8 + 2 * t + r) * p.N + col) =
+            make_float4(y[mt][0][r], y[mt][1][r], y[mt][2][r], y[mt][3][r]);
 }
 
-// grid (strips, slices), clusters of (1, slices) blocks.
-template <int Pro, typename EffT>
+// grid (strips, slices), clusters of (1, slices) blocks. A quantizing
+// prologue stages at most kMaxTasks (row, superblock) activations; given
+// codes go straight into place, so only the shared memory bounds them.
+template <int Pro, typename EffT, int MT = 1>
 int launch(const Args& p, cudaStream_t stream) {
-  auto kernel = gx_sm90_kernel<Pro, EffT>;
+  auto kernel = gx_sm90_kernel<Pro, EffT, MT>;
   static bool configured = false;
   if (!configured) {
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem) !=
@@ -470,9 +536,11 @@ int launch(const Args& p, cudaStream_t stream) {
   }
   const int nsb = p.K / 256;
   const int slices = (nsb + p.slice_units - 1) / p.slice_units;
-  const int x_bytes = Pro == kGiven ? 0 : (p.x_bf16 ? 2 : 4);
+  const bool codes = Pro == kGiven || Pro == kGivenA8;
+  const int x_bytes = codes ? 0 : (p.x_bf16 ? 2 : 4);
   const size_t bytes = smem_bytes<EffT>(p.M, p.slice_units, x_bytes);
-  if (bytes > kMaxSmem || slices > kMaxSlices || p.M * p.slice_units > kMaxTasks)
+  if (bytes > kMaxSmem || slices > kMaxSlices || (!codes && p.M * p.slice_units > kMaxTasks) ||
+      p.M > 8 * MT)
     return rrs::kBadArgs;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((p.N + kStrip - 1) / kStrip, slices);
@@ -529,4 +597,18 @@ RRS_EXPORT int rrs_tcq4_gx3(const void* x, int x_bf16, const void* qs, const voi
   return launch<kRotateQuantize, __nv_bfloat16>(
       args(x, nullptr, qs, eff, out, M, K, N, slice_units, x_bf16 ? 1 : 0),
       static_cast<cudaStream_t>(stream));
+}
+
+// a8 (B16): int8 codes and f32 per-block absmax as given, f32 eff, M <= 32
+// in n8 tiles of rows. slice_units: superblocks a K slice (ops/splitk.py
+// a8_plan).
+RRS_EXPORT int rrs_tcq4_a8(const void* a_q, const void* a_scale, const void* qs, const void* eff,
+                           void* out, int M, int K, int N, int slice_units, void* stream) {
+  if (K % 256 != 0 || N % 8 != 0 || M < 1 || M > 32 || slice_units < 1) return rrs::kBadArgs;
+  const Args p = args(a_q, static_cast<const float*>(a_scale), qs, eff, out, M, K, N,
+                      slice_units, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 8) return launch<kGivenA8, float, 1>(p, s);
+  if (M <= 16) return launch<kGivenA8, float, 2>(p, s);
+  return launch<kGivenA8, float, 4>(p, s);
 }

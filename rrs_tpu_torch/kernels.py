@@ -35,7 +35,7 @@ SIGNATURES = {
     "rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_gx": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rrs_tcq4_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_i8p": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_q8_matmul": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -47,7 +47,7 @@ SIGNATURES = {
     "rrs_tcq4_experts_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_all_experts": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rrs_tcq4_experts_sel": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "rrs_tcq4_fused": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 

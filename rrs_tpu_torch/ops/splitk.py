@@ -31,6 +31,11 @@ strips of STRIP times K slices of whole superblocks, so that each block
 quantizes (and for B15 rotates) only its own slice's superblocks; a strip's
 slices form one thread-block cluster and add their partials through
 distributed shared memory, so these launches take no scratch or counters.
+B16 (``tcq4_matmul_a8``) runs the same body on given codes at M <= 32 with
+f32 eff, under ``a8_plan``.
+
+B18 (``tcq4_matmul_pb``) takes ``plan`` with a TCQ4 superblock's unit, as B4
+does: its loader walks K in units of 8 groups (256 k).
 """
 
 from __future__ import annotations
@@ -134,6 +139,51 @@ def gx_smem(m: int, slice_units: int, eff_bytes: int = 2, x_bytes: int = 4) -> i
     return (ring * (128 * STRIP + 8 * STRIP * eff_bytes)
             + m * (slice_units * 256 + 16) + -(-m * slice_units * 4 // 16) * 16
             + (0 if ring == GX_STAGES else m * slice_units * 256 * x_bytes))
+
+
+GX_MAX_SMEM = 200 * 1024    # kMaxSmem
+A8_MAX_M = 32
+SM_SMEM = 233472            # an H100 SM's 228 KB of shared memory (1 KB of it kept a block)
+GPCS, GPC_SMS = 8, 16       # the H100 SXM's 132 SMs in 8 GPCs, counted at 16 SMs each
+A8_BLOCKS_BY_REGS = {1: 8, 2: 5, 4: 3}   # B16's blocks an SM by registers (ptxas: 59, 88, 141)
+A8_SPLIT_COST = 3           # a B16 block's fixed cost, in superblocks streamed
+
+
+def a8_cost(m: int, k: int, n: int, slices: int):
+    """B16's cost under an even split of K into ``slices`` slices, in
+    superblocks streamed by the busiest SM: waves x (slice_units +
+    A8_SPLIT_COST), where a strip's slices are one cluster, whose blocks
+    share a GPC, so a wave is GPCS x (GPC_SMS x blocks an SM // slices)
+    strips. None where a block's shared memory (f32 eff, given codes)
+    passes GX_MAX_SMEM or no cluster fits a GPC."""
+    strips, units = -(-n // STRIP), k // 256
+    per = -(-units // slices)
+    smem = gx_smem(m, per, 4, 0)
+    if slices > GX_MAX_SLICES or smem > GX_MAX_SMEM:
+        return None
+    tiles = 1 if m <= 8 else 2 if m <= 16 else 4
+    per_sm = min(A8_BLOCKS_BY_REGS[tiles], SM_SMEM // (smem + 1024))
+    clusters = GPCS * (GPC_SMS * per_sm // slices)
+    return -(-strips // clusters) * (per + A8_SPLIT_COST) if clusters else None
+
+
+def a8_plan(m: int, k: int, n: int) -> Plan:
+    """The grid of B16 (csrc/tcq4_gx2.cu, the a8 epilogue) at (M, K, N), M
+    <= A8_MAX_M: B1's column strips and whole-superblock K slices. Its
+    prologue copies int8 codes, 256 bytes a (row, superblock), straight into
+    place, so only the shared memory bounds a slice; of the even splits, the
+    one of least ``a8_cost`` (the fewer slices on a tie). The cost's terms
+    come from the K-slice sweep of ``tools/gemm_ab.py --subjects b18,b16``:
+    a split whose clusters overflow the GPCs takes a second wave."""
+    if not 1 <= m <= A8_MAX_M:
+        raise ValueError(f"a8_plan: M={m} is outside 1..{A8_MAX_M}")
+    strips, units = -(-n // STRIP), k // 256
+    costs = {s: a8_cost(m, k, n, s) for s in {-(-units // per) for per in range(1, units + 1)}}
+    costs = {s: c for s, c in costs.items() if c is not None}
+    if not costs:
+        raise ValueError(f"a8_plan: no K split of K={k} at M={m} fits the kernel")
+    slices = min(costs, key=lambda s: (costs[s], s))
+    return Plan(strips, slices, -(-units // slices), 0)
 
 
 def gx_plan(m: int, k: int, n: int) -> Plan:

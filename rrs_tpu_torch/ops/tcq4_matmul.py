@@ -14,10 +14,10 @@ Port of ``rrs_tpu/ops/tcq4_matmul.py``. Weights are K-major (see
 group scale fp32(fp16(S)) * sc / 127, rounded to bf16 on the device).
 
 A wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_a8.cu``,
-``csrc/tcq4_matmul.cu``, ``csrc/tcq4_fused.cu``, ``csrc/tcq4_pb.cu``,
-``csrc/tcq4_i8p.cu``, ``csrc/tcq4_experts.cu``) or raises; it never falls
-back. Each launch is counted in ``kernels.LAUNCHES``.
+tensors it launches its kernel (``csrc/tcq4_gx2.cu``, ``csrc/tcq4_matmul.cu``,
+``csrc/tcq4_fused.cu``, ``csrc/tcq4_pb.cu``, ``csrc/tcq4_i8p.cu``,
+``csrc/tcq4_experts.cu``) or raises; it never falls back. Each launch is
+counted in ``kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from rrs_tpu_torch.formats.tcq4 import (
 )
 
 GROUPS = TILE_K // GROUP_SIZE  # 8
-A8_MAX_M = 32                  # the a8 kernel's M limit (rrs_tpu/ops/tcq4_matmul.py:48)
+A8_MAX_M = splitk.A8_MAX_M     # the a8 kernel's M limit (rrs_tpu/ops/tcq4_matmul.py:48)
 
 
 def gx_viable(m: int, k: int, n: int = 0) -> bool:
@@ -72,8 +72,9 @@ def _check_weights(qs: torch.Tensor, eff: torch.Tensor, k: int) -> int:
 # ---------------------------------------------------------------------------
 # Decode: the integer group-dot family. gx2 (rrs_tpu/ops/tcq4_matmul.py:1262)
 # quantizes rotated activations in its prologue, gx (:272) takes the codes
-# as given, gx3 (:1394) also rotates; one CUDA body (csrc/tcq4_gx2.cu), a
-# split-K weight stream whose blocks each quantize only their own slice's
+# as given, gx3 (:1394) also rotates, a8 (:89) takes the codes at M <= 32
+# and sums in its own order; one CUDA body (csrc/tcq4_gx2.cu), a split-K
+# weight stream whose blocks each quantize only their own slice's
 # superblocks and run the group dots on the int8 tensor cores.
 # ---------------------------------------------------------------------------
 
@@ -84,14 +85,19 @@ def gx_plan(m: int, k: int, n: int) -> splitk.Plan:
     return splitk.gx_plan(m, k, n)
 
 
-def _gx_launch(name: str, entry, lead: tuple, m: int, k: int, n: int,
+def a8_plan(m: int, k: int, n: int) -> splitk.Plan:
+    """B16's grid at (M, K, N), M <= A8_MAX_M (``splitk.a8_plan``); as in
+    ``gx_plan``, the slices order only the sums."""
+    return splitk.a8_plan(m, k, n)
+
+
+def _gx_launch(name: str, entry, lead: tuple, m: int, k: int, n: int, plan: splitk.Plan,
                dev: torch.device) -> torch.Tensor:
     """Launch C entry ``entry`` of the gx family with its leading arguments
     ``lead`` (inputs and flags), then (out, M, K, N, slice_units, stream)
-    under ``gx_plan``; count it under ``name``."""
+    under ``plan``; count it under ``name``."""
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = entry(*lead, out.data_ptr(), m, k, n, gx_plan(m, k, n).slice_units,
-                 kernels.stream_ptr(dev))
+    code = entry(*lead, out.data_ptr(), m, k, n, plan.slice_units, kernels.stream_ptr(dev))
     kernels.check(name, code)
     return out
 
@@ -165,7 +171,8 @@ def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
         raise TypeError("tcq4_matmul_gx2: needs f32 a_rot, uint8 qs, bf16 eff")
     dev = kernels.check_tensors("tcq4_matmul_gx2", a_rot, qs, eff)
     return _gx_launch("tcq4_matmul_gx2", kernels.lib().rrs_tcq4_gx2,
-                      (a_rot.data_ptr(), qs.data_ptr(), eff.data_ptr()), m, k, n, dev)
+                      (a_rot.data_ptr(), qs.data_ptr(), eff.data_ptr()), m, k, n,
+                      gx_plan(m, k, n), dev)
 
 
 def _check_codes(name: str, a_q: torch.Tensor, a_scale: torch.Tensor) -> tuple[int, int]:
@@ -201,7 +208,7 @@ def tcq4_matmul_gx(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     dev = kernels.check_tensors("tcq4_matmul_gx", a_q, a_scale, qs, eff)
     return _gx_launch("tcq4_matmul_gx", kernels.lib().rrs_tcq4_gx,
                       (a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(),
-                       int(eff.dtype == torch.float32)), m, k, n, dev)
+                       int(eff.dtype == torch.float32)), m, k, n, gx_plan(m, k, n), dev)
 
 
 def fwht256(x: torch.Tensor) -> torch.Tensor:
@@ -246,7 +253,7 @@ def tcq4_matmul_gx3(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> tor
     dev = kernels.check_tensors("tcq4_matmul_gx3", x, qs, eff)
     return _gx_launch("tcq4_matmul_gx3", kernels.lib().rrs_tcq4_gx3,
                       (x.data_ptr(), int(x.dtype == torch.bfloat16), qs.data_ptr(),
-                       eff.data_ptr()), m, k, n, dev)
+                       eff.data_ptr()), m, k, n, gx_plan(m, k, n), dev)
 
 
 def tcq4_matmul_a8_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
@@ -272,12 +279,47 @@ def tcq4_matmul_a8_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Ten
     return acc
 
 
+A8_GROUP_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)   # the kernel's walk: quarter qq, low then high
+
+
+def tcq4_matmul_a8_splitk_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
+                                eff: torch.Tensor, plan: splitk.Plan) -> torch.Tensor:
+    """B16's arithmetic in its order of sums under ``plan`` (csrc/tcq4_gx2.cu,
+    the a8 epilogue): within each K slice, superblock by superblock, sbacc =
+    sbacc + f32(dot) * eff over the groups in A8_GROUP_ORDER, then y = y +
+    sbacc * (a_scale / 7), each operation rounded to f32; then the slices'
+    partials added in slice order. The kernel's 16 x sbacc times
+    (a_scale / 7) / 16 is the same product, so this is its output bit for
+    bit. f32 [M, N]."""
+    m, k = _check_codes("tcq4_matmul_a8_splitk_plain", a_q, a_scale)
+    n = _check_weights(qs, eff, k)
+    g = k // GROUP_SIZE
+    w = unpack_nibbles_torch(qs).to(torch.float32).reshape(g, GROUP_SIZE, n)
+    aq = a_q.to(torch.float32).reshape(m, g, GROUP_SIZE).transpose(0, 1)
+    p = torch.bmm(aq, w)                                                  # [g, m, n] exact
+    s7 = a_scale.to(torch.float32) * torch.tensor(1.0 / 7.0, dtype=torch.float32)
+    e = eff.to(torch.float32)
+    units, out = k // TILE_K, None
+    for s0 in range(0, units, plan.slice_units):
+        y = torch.zeros((m, n), dtype=torch.float32, device=a_q.device)
+        for sb in range(s0, min(units, s0 + plan.slice_units)):
+            sbacc = torch.zeros((m, n), dtype=torch.float32, device=a_q.device)
+            for gi in A8_GROUP_ORDER:
+                sbacc = sbacc + p[sb * GROUPS + gi] * e[sb * GROUPS + gi]
+            y = y + sbacc * s7[:, sb:sb + 1]
+        out = y if out is None else out + y
+    return out
+
+
 def tcq4_matmul_a8(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
                    eff: torch.Tensor) -> torch.Tensor:
     """B16: the integer oracle kernel on the int8 tensor cores,
     C = (a_q/7 * a_scale) @ dequant(w) for M <= A8_MAX_M, one exact int32
     dot per 32-group. a_q int8 [M, K] in [-7, 7], a_scale f32 [M, K//256],
-    eff f32 [K//32, N]; N a multiple of 8 on the card."""
+    eff f32 [K//32, N]; N a multiple of 8 on the card. B1's body with the
+    codes copied in place of its quantizing prologue, up to four n8 tiles of
+    rows and JAX's epilogue (``tcq4_matmul_a8_splitk_plain``), under
+    ``a8_plan``."""
     m, k = _check_codes("tcq4_matmul_a8", a_q, a_scale)
     if not 1 <= m <= A8_MAX_M:
         raise ValueError(f"tcq4_matmul_a8: M={m} is outside 1..{A8_MAX_M}")
@@ -290,12 +332,9 @@ def tcq4_matmul_a8(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
             or eff.dtype != torch.float32):
         raise TypeError("tcq4_matmul_a8: needs int8 a_q, f32 a_scale, uint8 qs, f32 eff")
     dev = kernels.check_tensors("tcq4_matmul_a8", a_q, a_scale, qs, eff)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    code = kernels.lib().rrs_tcq4_a8(
-        a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr(), out.data_ptr(),
-        m, k, n, kernels.stream_ptr(dev))
-    kernels.check("tcq4_matmul_a8", code)
-    return out
+    return _gx_launch("tcq4_matmul_a8", kernels.lib().rrs_tcq4_a8,
+                      (a_q.data_ptr(), a_scale.data_ptr(), qs.data_ptr(), eff.data_ptr()),
+                      m, k, n, a8_plan(m, k, n), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -468,7 +507,8 @@ def tcq4_matmul_fused(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
 # nibble decodes to bf16(q + 24) (the bit pattern 0x4180 | ((q + 8) << 3)),
 # its product with the scale is rounded to bf16, and a 2G-deep dot of the
 # hi / lo split of 24 * (group sums of a) against [e; e] cancels the bias.
-# Callers: the JAX package's benchmark scripts only.
+# Callers: the JAX package's benchmark scripts only. The kernel walks K group
+# by group (csrc/tcq4_pb.cu): B4's two bodies, K in units of 8 groups.
 # ---------------------------------------------------------------------------
 
 def pack_gi(qs: torch.Tensor) -> torch.Tensor:
@@ -495,6 +535,14 @@ def pb_prepare(a: torch.Tensor):
     hi = ag24.to(torch.bfloat16)
     lo = (ag24 - hi.to(torch.float32)).to(torch.bfloat16)
     return a_gi, torch.cat([hi, lo], dim=-1).contiguous()
+
+
+def pb_group_major(a_gi: torch.Tensor) -> torch.Tensor:
+    """a_gi [M, K] in k_new = j * G + g order -> the activations in
+    group-major order (column 32 g + j), which is ``pb_prepare``'s bf16
+    activations before their transpose: the prefill kernel's operand."""
+    m, k = a_gi.shape
+    return a_gi.view(m, GROUP_SIZE, k // GROUP_SIZE).transpose(1, 2).reshape(m, k)
 
 
 def decode_pb(qs_gi: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
@@ -535,17 +583,24 @@ def tcq4_matmul_pb(a_gi: torch.Tensor, ag24: torch.Tensor, qs_gi: torch.Tensor,
                    eff: torch.Tensor) -> torch.Tensor:
     """B18: C = a @ dequant(w) through the paired-bias decode, f32 [M, N], any
     M. a_gi bf16 [M, K] and ag24 bf16 [M, 2G] from ``pb_prepare``, qs_gi
-    from ``pack_gi``, eff bf16 [K//32, N]; N a multiple of 8 on the card."""
+    from ``pack_gi``, eff bf16 [K//32, N]; N a multiple of 8 on the card.
+    On the card, B4's bodies and plan with the group-major walk: at M <= 16
+    the kernel reads a_gi in place, above it the wrapper first puts a_gi
+    back into group-major order (``pb_group_major``, one M x K bf16 copy)."""
     m, k, n = _check_pb(a_gi, ag24, qs_gi, eff)
     if a_gi.device.type == "cpu":
         return tcq4_matmul_pb_plain(a_gi, ag24, qs_gi, eff)
     if n % 8:
         raise ValueError(f"tcq4_matmul_pb: N={n} is not a multiple of 8")
     dev = kernels.check_tensors("tcq4_matmul_pb", a_gi, ag24, qs_gi, eff)
+    a = a_gi if m <= splitk.MAX_M else pb_group_major(a_gi)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan = splitk_plan(m, k, n)
+    scratch, counters = splitk.buffers(plan, dev)
     code = kernels.lib().rrs_tcq4_pb(
-        a_gi.data_ptr(), ag24.data_ptr(), qs_gi.data_ptr(), eff.data_ptr(), out.data_ptr(),
-        m, k, n, kernels.stream_ptr(dev))
+        a.data_ptr(), ag24.data_ptr(), qs_gi.data_ptr(), eff.data_ptr(), out.data_ptr(),
+        m, k, n, plan.slice_units, splitk.ptr(scratch), splitk.ptr(counters),
+        kernels.stream_ptr(dev))
     kernels.check("tcq4_matmul_pb", code)
     return out
 

@@ -1,8 +1,10 @@
 """Same-card before / after of the weight matmuls against an older tree of
 this repository: B2 (``q8_matmul``) and B4 (``tcq4_matmul``), B11
 (``mxfp4_matmul``) and B5 (``tcq4_matmul_i8p``), B13
-(``mxfp4_matmul_all_experts``) and B10 (``tcq4_matmul_all_experts``), or B12
-(``mxfp4_matmul_experts_rows``) and B9 (``tcq4_matmul_experts_rows``).
+(``mxfp4_matmul_all_experts``) and B10 (``tcq4_matmul_all_experts``), B12
+(``mxfp4_matmul_experts_rows``) and B9 (``tcq4_matmul_experts_rows``), B1
+(``tcq4_matmul_gx2``) and B15 (``tcq4_matmul_gx3``), or B18
+(``tcq4_matmul_pb``) and B16 (``tcq4_matmul_a8``).
 
     python3 -m rrs_tpu_torch.tools.gemm_ab --parent DIR [--subjects b11,b5] [--json OUT]
 
@@ -15,15 +17,21 @@ for ``b11,b5`` those before B11 and B5 took it (the default; a parent older
 than their sm90 redesign), for ``b13,b10`` those before the expert grid (a
 parent older than B10's and B13's move onto it), for ``b12,b9`` those
 before the selected rows ran on the split-K stream (a parent older than
-that move; its B9 entry needs its ``tcq4_matmul.cu`` too). ``b2,b4,b11``
-checks a parent whose B2, B4 and B11 entries take this tree's arguments
-(one as old as the expert grid's parent): the SASS of every
-``splitk_kernel`` and ``gemm_kernel`` in their sources is compared with the
-parent's (``cuobjdump``), with the registers and spills ``ptxas`` reports
-for each kernel of the two bodies in this tree; then this tree's wrappers
-run on the parent's library, and every output must be the parent's bit for
-bit, at B2's, B4's and B11's shapes below. At each shape both kernels run
-on the same
+that move; its B9 entry needs its ``tcq4_matmul.cu`` too), for ``b1,b15``
+those before the split-K integer stream, for ``b18,b16`` those before B18
+moved onto ``gemm_sm90.cuh`` and B16 onto B1's body (a parent older than
+that move, such as 4051f56). ``b2,b4,b11`` checks a parent whose B2, B4
+and B11 entries take this tree's arguments (one as old as the expert grid's
+parent): the SASS of every ``splitk_kernel``, ``gemm_kernel``,
+``experts_kernel`` and ``rows_kernel`` in their sources is compared with
+the parent's where the parent has it (``cuobjdump``), with the registers
+and spills ``ptxas`` reports for each kernel of the two bodies in this
+tree; then this tree's wrappers run on the parent's library, and every
+output must be the parent's bit for bit, at B2's, B4's and B11's shapes
+below. ``b1,b14,b15`` does the same for ``tcq4_gx2.cu``'s
+``gx_sm90_kernel`` instantiations of B1, B14 and B15 (a parent whose gx
+entries take this tree's arguments, such as 4051f56) at B1's shapes. At
+each shape both kernels run on the same
 inputs, in turns (old, new, new, old, CUDA events, weight copies rotated past
 L2), beside ``torch.matmul`` on bf16 weights dequantized beforehand (and, for
 B5, ``torch._int_mm`` on its int8 codes and decoded w8 weights), timed over
@@ -46,7 +54,8 @@ each over id sets that take every expert in turn (``rotating_ids``), held
 to its plain version and bit for bit to itself across two launches (its
 order of sums differs from the parent's), beside ``torch.bmm`` on the
 selected experts gathered and dequantized to bf16 beforehand, over as many
-gathered copies as pass 2 x L2. Needs one CUDA card.
+gathered copies as pass 2 x L2; B1 / B15 (and B14) at ``gx_shapes``, B18
+/ B16 as ``run_b18_b16`` says. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -84,7 +93,10 @@ OLD_SIGNATURES_B12_B9 = {"rrs_mxfp4_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, 
                          "rrs_tcq4_experts_rows": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]}
 OLD_SIGNATURES_B1_B15 = {"rrs_tcq4_gx2": [_P, _P, _P, _P, _I, _I, _I, _P],
                          "rrs_tcq4_gx3": [_P, _I, _P, _P, _P, _I, _I, _I, _P]}
+OLD_SIGNATURES_B18_B16 = {"rrs_tcq4_pb": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+                          "rrs_tcq4_a8": [_P, _P, _P, _P, _P, _I, _I, _I, _P]}
 SAME_ABI = ("rrs_q8_matmul", "rrs_tcq4_matmul", "rrs_mxfp4_matmul")
+SAME_ABI_GX = ("rrs_tcq4_gx2", "rrs_tcq4_gx", "rrs_tcq4_gx3")
 SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
             "b11,b5": (("mxfp4_matmul.cu", "tcq4_i8p.cu"), OLD_SIGNATURES_B11_B5),
             "b13,b10": (("mxfp4_matmul.cu", "tcq4_experts.cu"), OLD_SIGNATURES_B13_B10),
@@ -92,7 +104,13 @@ SUBJECTS = {"b2,b4": (("q8_matmul.cu", "tcq4_matmul.cu"), OLD_SIGNATURES),
                        OLD_SIGNATURES_B12_B9),
             "b2,b4,b11": (("q8_matmul.cu", "tcq4_matmul.cu", "mxfp4_matmul.cu"),
                           {name: kernels.SIGNATURES[name] for name in SAME_ABI}),
-            "b1,b15": (("tcq4_gx2.cu",), OLD_SIGNATURES_B1_B15)}
+            "b1,b15": (("tcq4_gx2.cu",), OLD_SIGNATURES_B1_B15),
+            "b1,b14,b15": (("tcq4_gx2.cu",),
+                           {name: kernels.SIGNATURES[name] for name in SAME_ABI_GX}),
+            "b18,b16": (("tcq4_pb.cu", "tcq4_a8.cu"), OLD_SIGNATURES_B18_B16)}
+SASS_SUBJECTS = {"b2,b4,b11", "b1,b14,b15"}
+# the kernels whose SASS is compared, and those whose ptxas report is printed
+SASS_KERNELS = "gemm_kernel|splitk_kernel|experts_kernel|rows_kernel|gx_sm90_kernel"
 QWEN3_4B = {"qkv": (2560, 6144), "o": (4096, 2560), "gate_up": (2560, 19456),
             "down": (9728, 2560)}
 QWEN3_30B_ATTN = {"30b qkv": (2048, 5120), "30b o": (4096, 2048)}
@@ -130,8 +148,8 @@ def build_old(parent: Path, sources=("q8_matmul.cu", "tcq4_matmul.cu"),
 
 def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
     """{kernel: SASS instructions} of the kernels in ``src`` and {kernel:
-    ptxas's registers and spills} of those of gemm_sm90.cuh's two bodies,
-    built with this tree's flags."""
+    ptxas's registers and spills} of those of gemm_sm90.cuh's two bodies and
+    of tcq4_gx2.cu's, built with this tree's flags."""
     nvcc = kernels._nvcc()
     cubin = tmp / (src.stem + ".cubin")
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
@@ -140,7 +158,7 @@ def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
     lines, regs = (r.stdout + r.stderr).splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m and re.search("gemm_kernel|experts_kernel|splitk_kernel|rows_kernel", m.group(1)):
+        if m and re.search(SASS_KERNELS, m.group(1)):
             regs[m.group(1)] = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
     dump = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
                           capture_output=True, text=True, check=True).stdout
@@ -154,13 +172,19 @@ def sass(src: Path, tmp: Path) -> tuple[dict, dict]:
     return funcs, regs
 
 
+def canon(name: str) -> str:
+    """A mangled kernel name without its file's anonymous namespace, and a
+    ``gx_sm90_kernel`` of one n8 tile of rows under the name it had before
+    the tile count became a template argument."""
+    name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anon)", name)
+    return re.sub(r"(gx_sm90_kernelILi\dE(?:f|13__nv_bfloat16))Li1E", r"\1", name)
+
+
 def compare_sass(parent: Path, sources) -> list[dict]:
-    """Every ``splitk_kernel`` and ``gemm_kernel`` of ``sources`` here and in
-    the parent: the same SASS or not (names compared without the per-file
-    anonymous namespace); and ptxas's report of this tree's kernels of the
-    two bodies (those of the expert and rows grids are new)."""
+    """Every kernel of ``sources`` that SASS_KERNELS names, here and in the
+    parent: the same SASS or not (``canon`` names), or new where the parent
+    has no such kernel; and ptxas's report of this tree's kernels."""
     tmp = Path(tempfile.mkdtemp(prefix="ab_sass_"))
-    canon = lambda name: re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]+", "(anon)", name)  # noqa: E731
     rows = []
     for name in sources:
         (tmp / "new").mkdir(exist_ok=True)
@@ -170,8 +194,8 @@ def compare_sass(parent: Path, sources) -> list[dict]:
                                             tmp / "old")[0].items()}
         for kernel, report in regs.items():
             row = {"source": name, "kernel": canon(kernel), "ptxas": report}
-            if re.search("gemm_kernel|splitk_kernel", kernel):
-                row["sass_identical"] = old.get(canon(kernel)) == new[kernel]
+            if canon(kernel) in old:
+                row["sass_identical"] = old[canon(kernel)] == new[kernel]
             rows.append(row)
             same = {True: "SASS identical to the parent's", False: "SASS differs from the "
                     "parent's"}.get(row.get("sass_identical"), "new")
@@ -274,6 +298,10 @@ def old_calls(old_lib, subjects: str) -> dict:
     if subjects == "b2,b4,b11":
         return {"tcq4": on_lib(old_lib, tm.tcq4_matmul), "q8": on_lib(old_lib, q8.q8_matmul),
                 "mx": on_lib(old_lib, mx.mxfp4_matmul)}
+    if subjects == "b1,b14,b15":
+        return {"gx2": on_lib(old_lib, tm.tcq4_matmul_gx2),
+                "gx": on_lib(old_lib, tm.tcq4_matmul_gx),
+                "gx3": on_lib(old_lib, tm.tcq4_matmul_gx3)}
     dev = torch.device("cuda")
     stream = lambda: kernels.stream_ptr(dev)                    # noqa: E731
 
@@ -367,9 +395,25 @@ def old_calls(old_lib, subjects: str) -> dict:
                                       qs.shape[1], stream()))
         return out
 
+    def old_pb(a_gi, ag24, qs_gi, eff):
+        m, k = a_gi.shape
+        out = torch.empty((m, qs_gi.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_pb(a_gi.data_ptr(), ag24.data_ptr(), qs_gi.data_ptr(),
+                                     eff.data_ptr(), out.data_ptr(), m, k, qs_gi.shape[1],
+                                     stream()))
+        return out
+
+    def old_a8(a_q, a_s, qs, eff):
+        m, k = a_q.shape
+        out = torch.empty((m, qs.shape[1]), dtype=torch.float32, device=dev)
+        _checked(old_lib.rrs_tcq4_a8(a_q.data_ptr(), a_s.data_ptr(), qs.data_ptr(),
+                                     eff.data_ptr(), out.data_ptr(), m, k, qs.shape[1], stream()))
+        return out
+
     return {"tcq4": old_tcq4, "q8": old_q8, "mx": old_mx, "i8p": old_i8p,
             "mx_all": old_mx_all, "tq_all": old_tq_all, "mx_rows": old_mx_rows,
-            "tq_rows": old_tq_rows, "gx2": old_gx2, "gx3": old_gx3}
+            "tq_rows": old_tq_rows, "gx2": old_gx2, "gx3": old_gx3, "pb": old_pb,
+            "a8": old_a8}
 
 
 def run_b2_b4(old: dict, same_bits: bool = False) -> list[dict]:
@@ -590,22 +634,25 @@ def run_b12_b9(old: dict) -> list[dict]:
 
 
 @contextlib.contextmanager
-def gx_slices_forced(slices: int):
-    """The gx wrappers launched with K in ``slices`` even slices of whole
-    superblocks while open (``tcq4_matmul.gx_plan`` replaced)."""
-    saved = tm.gx_plan
+def gx_slices_forced(slices: int, plan: str = "gx_plan"):
+    """The wrappers that take ``tcq4_matmul.<plan>`` (``gx_plan``: B1, B14,
+    B15; ``a8_plan``: B16; ``splitk_plan``: B4, B17, B18) launched with K in
+    ``slices`` even slices of whole superblocks while open (the plan
+    replaced; the split-K bodies of gemm_sm90.cuh get their scratch)."""
+    saved = getattr(tm, plan)
 
     def forced(m: int, k: int, n: int) -> splitk.Plan:
         strips, units = -(-n // splitk.STRIP), k // tm.TILE_K
         per = -(-units // slices)
         s = -(-units // per)
-        return splitk.Plan(strips, s, per, 0)
+        scratch = s * m * strips * splitk.STRIP if s > 1 and plan == "splitk_plan" else 0
+        return splitk.Plan(strips, s, per, scratch)
 
-    tm.gx_plan = forced
+    setattr(tm, plan, forced)
     try:
         yield
     finally:
-        tm.gx_plan = saved
+        setattr(tm, plan, saved)
 
 
 def gx_shapes():
@@ -618,7 +665,7 @@ def gx_shapes():
     return shapes + [(name, 1, k, n) for name, (k, n) in QWEN3_30B_ATTN.items()]
 
 
-def run_b1_b15(old: dict) -> list[dict]:
+def run_b1_b15(old: dict, same_bits: bool = False) -> list[dict]:
     """B1 and B15 at ``gx_shapes``, each held to its plain version and the
     parent (rel 1e-5), to itself across two launches, and B1 at M = 1 bit
     for bit to ``tcq4_matmul_gx_splitk_plain`` (the kernel's order of sums);
@@ -629,7 +676,9 @@ def run_b1_b15(old: dict) -> list[dict]:
     slice sweep of B1 at each shape: every even split into 1 .. K/256
     slices that the kernel takes (at most ``splitk.GX_MAX_SLICES``, a
     cluster's blocks, of at most ``splitk.GX_MAX_TASKS`` / M superblocks),
-    held to plain and timed, beside the slice count ``gx_plan`` picks."""
+    held to plain and timed, beside the slice count ``gx_plan`` picks. With
+    ``same_bits`` (a parent with this tree's gx entries): B14 on B1's codes
+    too, every output bit for bit the parent's, and no sweep."""
     from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
 
     dev = torch.device("cuda")
@@ -660,14 +709,22 @@ def run_b1_b15(old: dict) -> list[dict]:
             if not torch.equal(got, tm.tcq4_matmul_gx_splitk_plain(a_q, a_s, *ws[0], plan)):
                 raise AssertionError(f"gx2 {label} M={m}: not the kernel order's bits")
         shape = f"{label} M={m} K={k} N={n} ({plan.slices} K slices)"
-        for kind, new, plain, old_fn, act in (
-                ("gx2", tm.tcq4_matmul_gx2, tm.tcq4_matmul_gx2_plain, old["gx2"], a),
-                ("gx3 bf16 x", tm.tcq4_matmul_gx3, tm.tcq4_matmul_gx3_plain, old["gx3"], x)):
-            ab(f"{kind} {shape}", lambda q_, e_: old_fn(act, q_, e_),
-               lambda q_, e_: new(act, q_, e_), lambda q_, e_: plain(act, q_, e_),
+        kinds = [("gx2", tm.tcq4_matmul_gx2, tm.tcq4_matmul_gx2_plain, old["gx2"], (a,)),
+                 ("gx3 bf16 x", tm.tcq4_matmul_gx3, tm.tcq4_matmul_gx3_plain, old["gx3"], (x,))]
+        if same_bits:
+            kinds.append(("gx", tm.tcq4_matmul_gx, tm.tcq4_matmul_gx_plain, old["gx"],
+                          quantize_activations_rrs(a)))
+        for kind, new, plain, old_fn, act in kinds:
+            ab(f"{kind} {shape}", lambda q_, e_: old_fn(*act, q_, e_),
+               lambda q_, e_: new(*act, q_, e_), lambda q_, e_: plain(*act, q_, e_),
                lambda w: torch.matmul(x, w), ws, [(w,) for w in wl],
-               wbytes + act.numel() * act.element_size() + m * n * 4, 2 * m * k * n, 40, 1e-5,
-               rows, peak=INT8_OPS, extra=extra, self_bits=True)
+               wbytes + sum(t.numel() * t.element_size() for t in act) + m * n * 4,
+               2 * m * k * n, 40, 1e-5, rows, peak=INT8_OPS, extra=extra, self_bits=True,
+               same_bits=same_bits)
+        if same_bits:
+            del ws, wl, floor
+            torch.cuda.empty_cache()
+            continue
         units, times = k // tm.TILE_K, {}
         ref = tm.tcq4_matmul_gx2_plain(a, *ws[0])
         fits = (lambda c: c <= splitk.GX_MAX_SLICES                      # noqa: E731
@@ -685,7 +742,7 @@ def run_b1_b15(old: dict) -> list[dict]:
                         for s, t in times.items()) + "  (* gx_plan)", flush=True)
         del ws, wl, floor
         torch.cuda.empty_cache()
-    for kind in ("gx2", "gx3 bf16 x"):
+    for kind in ("gx2", "gx3 bf16 x") + (("gx",) if same_bits else ()):
         sel = [r for r in rows if r["shape"].startswith(kind + " ") and " M=1 " in r["shape"]
                and "30b" not in r["shape"]]
         tot = {key: sum(r[key] for r in sel)
@@ -699,12 +756,121 @@ def run_b1_b15(old: dict) -> list[dict]:
     return rows + sweeps
 
 
+def summed(rows: list[dict], prefix: str, m: int, keys=("old_ms", "new_ms", "library_ms",
+                                                         "bound_ms")) -> dict:
+    """The qwen3-4b rows of ``prefix`` at M = m summed over the four
+    projections; printed."""
+    sel = [r for r in rows if r["shape"].startswith(prefix + " ") and f" M={m} " in r["shape"]
+           and "30b" not in r["shape"]]
+    tot = {key: sum(r[key] for r in sel) for key in keys}
+    print(f"  {prefix} four summed M={m}: " + " ".join(f"{key[:-3]} {v:.4f}"
+                                                      for key, v in tot.items()), flush=True)
+    return {"shape": f"{prefix} qwen3-4b four projections summed M={m}", **tot}
+
+
+def sweep(label: str, plan: str, counts, call, arg_sets, ref, tol: float, picked: int,
+          reps: int) -> dict:
+    """``call`` timed under each K-slice count in ``counts`` (the plan
+    ``plan`` forced), each output held to ``ref`` within ``tol``; printed
+    beside the plan's pick."""
+    times = {}
+    for s in counts:
+        with gx_slices_forced(s, plan):
+            r = rel(call(*arg_sets[0]), ref)
+            if not r <= tol:
+                raise AssertionError(f"{label} {s} slices: rel {r:.2e}")
+            times[s] = time_ms(call, arg_sets, reps)
+    print(f"  sweep {label}: slices -> ms: " + ", ".join(
+        f"{s} {t:.4f}{' *' if s == picked else ''}" for s, t in times.items()) + "  (* the plan)",
+        flush=True)
+    return {"shape": f"sweep {label}", "ms_by_slices": times, "plan_slices": picked}
+
+
+def even_counts(units: int, fits) -> list[int]:
+    return sorted({c for c in (-(-units // per) for per in range(1, units + 1)) if fits(c)})
+
+
+def run_b18_b16(old: dict) -> list[dict]:
+    """B18 at the four qwen3-4b projections, M = 1, 16 and 512, and B16 at M
+    = 1, 8 and 32, both also at Qwen3-30B-A3B's qkv / o at M = 1: each held
+    to its plain version (1e-3 for B18's bf16 operands, 1e-5 for B16), to
+    the parent and to itself across two launches, B16 also bit for bit to
+    ``tcq4_matmul_a8_splitk_plain`` (its order of sums); timed in turns
+    beside ``torch.matmul`` on bf16 weights dequantized beforehand, kernel
+    and library operands rotated past L2; B18 on random activations through
+    ``pb_prepare``, B16 on random codes. Then the K-slice sweeps: B18 at M =
+    1 (``splitk_plan``), B16 at M = 1, 8 and 32 (``a8_plan``)."""
+    from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    rows: list[dict] = []
+    sweeps: list[dict] = []
+    print("B18 tcq4_matmul_pb and B16 tcq4_matmul_a8, qwen3-4b and Qwen3-30B-A3B", flush=True)
+    for lname, (k, n) in {**QWEN3_4B, **QWEN3_30B_ATTN}.items():
+        g = k // 32
+        wbytes = k // 2 * n + g * n * 2
+        ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8),
+               (torch.rand((g, n), generator=gen, device=dev) * 0.01 + 0.001
+                ).to(torch.bfloat16)) for _ in range(n_copies(wbytes))]
+        gis = [(tm.pack_gi(q), e) for q, e in ws]
+        ws32 = [(q, e.float()) for q, e in ws[:n_copies(wbytes + g * n * 2)]]
+        wl = [tm.dequantize_w(*w).to(torch.bfloat16) for w in ws[:n_copies(2 * k * n)]]
+        units = k // tm.TILE_K
+        for m in ((1,) if "30b" in lname else (1, 16, 512)):
+            a = torch.randn((m, k), generator=gen, device=dev) * 0.5
+            a_gi, ag24 = tm.pb_prepare(a)
+            a16 = a.to(torch.bfloat16)
+            plan = tm.splitk_plan(m, k, n)
+            call = lambda q_, e_: tm.tcq4_matmul_pb(a_gi, ag24, q_, e_)      # noqa: E731
+            ab(f"pb {lname} M={m} K={k} N={n} ({plan.slices} K slices)",
+               lambda q_, e_: old["pb"](a_gi, ag24, q_, e_), call,
+               lambda q_, e_: tm.tcq4_matmul_pb_plain(a_gi, ag24, q_, e_),
+               lambda w: torch.matmul(a16, w), gis, [(w,) for w in wl],
+               wbytes + m * k * 2 + m * 2 * g * 2 + m * n * 4, 2 * m * k * n + 2 * m * 2 * g * n,
+               40 if m < 512 else 10, 1e-3, rows, self_bits=True)
+            if m == 1:
+                sweeps.append(sweep(f"pb {lname} M=1 K={k} N={n}", "splitk_plan",
+                                    even_counts(units, lambda c: True), call, gis,
+                                    tm.tcq4_matmul_pb_plain(a_gi, ag24, *gis[0]), 1e-3,
+                                    plan.slices, 40))
+        for m in ((1,) if "30b" in lname else (1, 8, 32)):
+            a_q = torch.randint(-7, 8, (m, k), generator=gen, device=dev, dtype=torch.int8)
+            a_s = torch.rand((m, k // 256), generator=gen, device=dev) + 0.5
+            a16 = dequantize_activations_rrs(a_q, a_s).to(torch.bfloat16)
+            plan = tm.a8_plan(m, k, n)
+            call = lambda q_, e_: tm.tcq4_matmul_a8(a_q, a_s, q_, e_)        # noqa: E731
+            if not torch.equal(call(*ws32[0]), tm.tcq4_matmul_a8_splitk_plain(a_q, a_s, *ws32[0],
+                                                                              plan)):
+                raise AssertionError(f"a8 {lname} M={m}: not the kernel order's bits")
+            ab(f"a8 {lname} M={m} K={k} N={n} ({plan.slices} K slices)",
+               lambda q_, e_: old["a8"](a_q, a_s, q_, e_), call,
+               lambda q_, e_: tm.tcq4_matmul_a8_plain(a_q, a_s, q_, e_),
+               lambda w: torch.matmul(a16, w), ws32, [(w,) for w in wl],
+               k // 2 * n + g * n * 4 + m * k + m * (k // 256) * 4 + m * n * 4, 2 * m * k * n,
+               40, 1e-5, rows, peak=INT8_OPS, self_bits=True)
+            fits = (lambda c: c <= splitk.GX_MAX_SLICES                     # noqa: E731
+                    and splitk.gx_smem(m, -(-units // c), 4, 0) <= splitk.GX_MAX_SMEM)
+            sweeps.append(sweep(f"a8 {lname} M={m} K={k} N={n}", "a8_plan",
+                                even_counts(units, fits), call, ws32,
+                                tm.tcq4_matmul_a8_plain(a_q, a_s, *ws32[0]), 1e-5, plan.slices,
+                                40))
+        del ws, gis, ws32, wl
+        torch.cuda.empty_cache()
+    rows += [summed(rows, "pb", m) for m in (1, 16, 512)]
+    rows += [summed(rows, "a8", m) for m in (1, 8, 32)]
+    return rows + sweeps
+
+
 RUNS = {"b2,b4": lambda old: run_b2_b4(old),
         "b11,b5": lambda old: run_b11(old) + run_b5(old),
         "b13,b10": run_b13_b10,
         "b12,b9": run_b12_b9,
         "b2,b4,b11": lambda old: run_b2_b4(old, same_bits=True) + run_b11(old, same_bits=True),
-        "b1,b15": run_b1_b15}
+        "b1,b15": run_b1_b15,
+        "b1,b14,b15": lambda old: run_b1_b15(old, same_bits=True),
+        "b18,b16": run_b18_b16}
 
 
 def main(argv=None) -> int:
@@ -723,7 +889,7 @@ def main(argv=None) -> int:
     kernels.lib()
     sources, signatures = SUBJECTS[args.subjects]
     old_lib = build_old(args.parent, sources=sources, signatures=signatures)
-    rows = compare_sass(args.parent, sources) if args.subjects == "b2,b4,b11" else []
+    rows = compare_sass(args.parent, sources) if args.subjects in SASS_SUBJECTS else []
     rows += RUNS[args.subjects](old_calls(old_lib, args.subjects))
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -332,12 +332,15 @@ def test_wrappers_check_shapes_types_and_m():
 
 def test_no_model_path_reaches_the_three_kernels():
     """As in the JAX package, nothing in the port's models, runtime, serving
-    or tools calls B17, B18 or B19."""
+    or tools calls B17, B18 or B19; ``tools/gemm_ab.py``, which times kernels
+    against an older tree and drives no model, is the one exception."""
     from pathlib import Path
 
     root = Path(tm.__file__).resolve().parent.parent
     names = ("tcq4_matmul_fused", "tcq4_matmul_pb", "tcq4_matmul_experts(")
     for sub in ("models", "runtime", "serving", "tools"):
         for path in (root / sub).rglob("*.py"):
+            if path == root / "tools" / "gemm_ab.py":
+                continue
             text = path.read_text()
             assert not any(name in text for name in names), path
