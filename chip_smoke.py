@@ -124,9 +124,36 @@ it; exits non-zero without either, and on any failed phase. Phases:
    slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
    4-lane prefill chunk and decode step, every B9 launch also running B19
    on its rows and ids, whose diagonal must match B9;
-12. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
-   B19 launch on no model path and carry ``held_launches``), the card's name
-   and power limit, and the last line ``{"ok": true, "device": {...}}``.
+12. the GGUF pipeline at qwen3-4b's widths cut to 2 layers, each verb a
+   process of its own (the native host codec built in phase 1 and required;
+   the host encoders timed first): the port's exporter writes F16 GGUFs;
+   ``imatrix`` on the card, its mean squares per tensor held to the CPU
+   port's on the same chunks (IMATRIX_TOL) and the permutation entries that
+   differ counted; ``quantize --imatrix`` to TCQ4 (native encoder),
+   ``gguf-split --split 2`` and ``generate`` from the first shard and from
+   the unsplit file, greedy text identical; a teacher-forced prefill and
+   decode step from the TCQ4 file on the card, every launch held to its
+   plain version, the logits drift against the CPU reported; then
+   ``quantize --type q4_k_m --imatrix`` on a 1-layer model with 4,096
+   tokens (it runs beside phase 13), ``generate`` and ``perplexity`` on it,
+   and its logits on the card within GLUE_TOL of the CPU's;
+13. Qwen2-57B-A14B (config from ``ModelConfig.from_gguf`` on its published
+   metadata): a 2-layer qwen2moe model at reduced widths on the card
+   against the CPU, with dense experts (logits within GLUE_TOL) and TCQ4
+   experts (every launch held to plain, drift reported), both with the
+   dense shared expert; ``generate`` at the published widths, all 28
+   layers (fabricated TCQ4 attention and experts, dense bf16 shared
+   experts, Q8_0 lm_head) over prompts that take the rows, capacity and
+   scan branches, with launch counts; on the same 28 layers, teacher-forced
+   prefills of 40 tokens and of 300 copies and a decode step each, every
+   launch held to its plain version; after the Q4_K_M part of phase 12 (no
+   verb process beside them), decode profiles with and without the shared
+   expert, whose difference is its device time a step;
+14. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+   B19 launch on no model path and carry ``held_launches``; the kernels of
+   phases 12 and 13 also carry ``launches_gguf_tcq4`` / ``launches_qwen2moe``),
+   the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2006,22 +2033,54 @@ def phase_gx3_ab(cfg, weights, reports):
         del ctx
 
 
-def _verb(argv, env=None, timeout=600) -> str:
-    """Run ``python -m rrs_tpu_torch <argv>`` from the repository root as a
-    user does; fail on a non-zero exit. Returns its stdout."""
+# the verb processes started and not yet waited for; main() stops any left
+_CHILDREN: list = []
+
+
+def _verb_start(argv, env=None):
+    """Start ``python -m rrs_tpu_torch <argv>`` from the repository root as a
+    user does; returns a handle for ``_verb_wait``."""
     import os
     from pathlib import Path
 
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "rrs_tpu_torch", *argv],
-                       cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                       timeout=timeout, env={**os.environ, **(env or {})})
-    if r.returncode != 0:
-        raise AssertionError(f"rrs_tpu_torch {' '.join(argv)}: exit {r.returncode}\n"
-                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    argv = [str(a) for a in argv]
+    proc = subprocess.Popen([sys.executable, "-m", "rrs_tpu_torch", *argv],
+                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env={**os.environ, **(env or {})})
+    _CHILDREN.append(proc)
+    return proc, argv, env, time.perf_counter()
+
+
+def _verb_wait(handle, timeout=600) -> str:
+    """Wait for a verb started by ``_verb_start``; fail on a non-zero exit.
+    Prints its command line and seconds; returns its stdout."""
+    proc, argv, env, t0 = handle
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        _CHILDREN.remove(proc)
+    if proc.returncode != 0:
+        raise AssertionError(f"rrs_tpu_torch {' '.join(argv)}: exit {proc.returncode}\n"
+                             f"{out[-2000:]}\n{err[-4000:]}")
     print(f"  $ {' '.join(f'{k}={v}' for k, v in (env or {}).items())} python -m rrs_tpu_torch "
           f"{' '.join(argv)}  ({time.perf_counter() - t0:.1f} s)", flush=True)
-    return r.stdout
+    return out
+
+
+def _verb(argv, env=None, timeout=600) -> str:
+    """Run ``python -m rrs_tpu_torch <argv>`` to its end; returns its stdout."""
+    return _verb_wait(_verb_start(argv, env), timeout)
+
+
+def stop_children() -> None:
+    for proc in list(_CHILDREN):
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+        _CHILDREN.remove(proc)
 
 
 def phase_verbs(name: str):
@@ -3457,6 +3516,510 @@ def phase_serving_qwen3moe(cfg, weights, reports):
     return ctx
 
 
+# ---------------------------------------------------------------------------
+# The GGUF pipeline at qwen3-4b widths: export, imatrix on the card, quantize
+# (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, perplexity
+# ---------------------------------------------------------------------------
+
+# Card-vs-CPU limit on each tensor's imatrix (relative L2 of the mean
+# squares). Each entry is a mean of squares of bf16 activations; the card's
+# bf16 matmuls and the CPU's f32 ones round some of them one bf16 step (2^-8)
+# apart, which moves a mean over 512 tokens by ~1e-3 (3.5e-3 between the two
+# packages on the CPU, tests/test_torch_imatrix.py); a skipped norm, a wrong
+# layer's input or a lost chunk moves it by order one.
+IMATRIX_TOL = 1e-2
+PIPELINE_PROMPT = "the quick brown fox jumps over the lazy dog"
+
+
+def encoder_speeds(name: str) -> dict:
+    """ns per element of the host encoders on one 256 x 4096 f32 matrix, on
+    this machine's host (one thread; NumPy, or the native codec)."""
+    import numpy as np
+
+    from rrs_tpu_torch.formats import kquants
+    from rrs_tpu_torch.formats.tcq4 import quantize_tcq4
+
+    x = (np.random.default_rng(0).standard_normal((256, 4096)) * 0.05).astype(np.float32)
+    out = {}
+    for label, fn in (("Q4_K", kquants.quantize_q4_k), ("IQ4_XS", kquants.quantize_iq4_xs),
+                      ("Q3_K", kquants.quantize_q3_k), ("Q6_K", kquants.quantize_q6_k),
+                      ("Q8_0", kquants.quantize_q8_0), ("TCQ4 native", quantize_tcq4),
+                      ("TCQ4 NumPy", lambda a: quantize_tcq4(a, use_native=False)),
+                      ("TCQ4 search", lambda a: quantize_tcq4(a, search=True))):
+        t0 = time.perf_counter()
+        fn(x)
+        out[label] = (time.perf_counter() - t0) * 1e9 / x.size
+    print(f"  host encoders on a 256 x 4096 f32 matrix, ns per element (this machine's host, "
+          f"beside {name}): " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def _rel(got, ref) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+
+
+def card_vs_cpu_step(path, prompt, label: str, expect, held: bool):
+    """Load the GGUF at ``path`` on the card and on the CPU; a prefill of
+    ``prompt`` and one decode step (token 11, teacher-forced) on each, the
+    card's under ``held_to_plain`` (every launch of ``expect`` held to its
+    plain version). Returns ({kernel: launches}, [(stage, rel L2, argmax
+    card, argmax CPU)]); with ``held`` the logits must agree within
+    GLUE_TOL, else the drift is only reported."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    t0 = time.perf_counter()
+    cfg, w_cpu, _ = load_model(path, device="cpu")
+    cpu = InferenceContext(cfg, w_cpu, max_seq=256, device="cpu")
+    seq = cpu.new_sequence()
+    ref = (cpu.prefill(seq, prompt)[-1].float(), cpu.decode({seq: 11})[seq].float())
+    del cpu, w_cpu
+    _, w_card, _ = load_model(path, device="cuda")
+    ctx = InferenceContext(cfg, w_card, max_seq=256)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with held_to_plain(label, expect) as seen:
+        seq = ctx.new_sequence()
+        got = (ctx.prefill(seq, prompt)[-1].float().cpu(), ctx.decode({seq: 11})[seq].float().cpu())
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rows = []
+    for stage, g, r in zip(("prefill", "decode"), got, ref):
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {stage}: bad logits {tuple(g.shape)}")
+        rel = ((g - r).norm() / r.norm()).item()
+        rows.append((stage, rel, int(g.argmax()), int(r.argmax())))
+        if held and rel > GLUE_TOL:
+            raise AssertionError(f"{label} {stage}: card vs CPU rel L2 {rel:.4f} > {GLUE_TOL}")
+    print(f"  {label}: each launch vs its plain version (max rel): "
+          + (", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items())
+             or "no port kernel on this path")
+          + "; logits card vs CPU: " + ", ".join(
+              f"{st} rel L2 {rel:.4f}" + (f" <= {GLUE_TOL}" if held else " (reported)")
+              + f", argmax {a} vs {b}" for st, rel, a, b in rows)
+          + f"; launches {launches} ({time.perf_counter() - t0:.1f} s with both loads)",
+          flush=True)
+    del ctx, w_card
+    return launches, rows
+
+
+def phase_gguf_pipeline(name: str, reports, tmp):
+    """The GGUF pipeline as a user runs it, each verb its own process, at
+    qwen3-4b's widths (``PRESETS["qwen3-4b"]``) cut to 2 layers, its files in
+    the directory ``tmp``: the port's exporter writes an F16 GGUF (and a
+    1-layer one with the vocabulary cut to 4,096 tokens, for Q4_K's host
+    encoder); ``imatrix`` on the card over a text made here, its mean squares
+    held per tensor to the CPU port's on the same chunks (IMATRIX_TOL) and
+    the permutation entries that differ counted; ``quantize --imatrix`` to
+    TCQ4 under the permutations (native encoder), ``gguf-split --split 2``,
+    then ``generate`` from the first shard and from the unsplit file at once,
+    greedy tokens identical; a teacher-forced prefill and decode step from
+    the TCQ4 file on the card against the CPU port's (every launch held to
+    its plain version, the logits drift reported).
+
+    ``quantize --type q4_k_m --imatrix`` starts in the background beside the
+    TCQ4 steps and is left running (Q4_K's host encoder takes about two
+    minutes), so that phase 13 drives the card meanwhile; returns its handle
+    and the prompt for ``phase_gguf_q4km``, which finishes the pipeline."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch import native
+    from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.models.export import export_random_gguf
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.quantize.imatrix import collect_imatrix, derive_tcq4_perms, load_imatrix
+
+    if not native.available():
+        raise AssertionError("the native host codec (rrs_tpu_torch/csrc/rrs_core.cpp) did not "
+                             "build on this machine")
+    print(f"  native host codec: {native.library_path().name}", flush=True)
+    encoder_speeds(name)
+    cfg2 = dataclasses.replace(PRESETS["qwen3-4b"], n_layers=2)
+    cfg1 = dataclasses.replace(cfg2, n_layers=1, vocab_size=4096)
+    vocab = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(cfg2.vocab_size)]
+    t0 = time.perf_counter()
+    f16 = export_random_gguf(cfg2, tmp / "f16.gguf", seed=0, dtype=np.float16,
+                             vocab_tokens=vocab)
+    f16_small = export_random_gguf(cfg1, tmp / "f16_1layer_v4096.gguf", seed=1,
+                                   dtype=np.float16, vocab_tokens=vocab[:4096])
+    print(f"  exported F16 GGUFs (qwen3-4b widths): 2 layers {f16.stat().st_size / GB:.2f} "
+          f"GB and 1 layer with 4,096 tokens {f16_small.stat().st_size / GB:.3f} GB in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(12)
+    words = ["".join(chr(97 + int(c)) for c in rng.integers(0, 26, rng.integers(2, 9)))
+             for _ in range(160)]
+    text = " ".join(words)
+    calib = tmp / "calib.txt"
+    calib.write_text(text, encoding="utf-8")
+    imat = tmp / "imatrix.gguf"
+
+    # the card's imatrix in its own process, the CPU port's here meanwhile
+    card_im = _verb_start(["imatrix", "-m", f16, "-f", calib, "-o", imat, "--chunk-len",
+                           "256", "--max-chunks", "2"])
+    t0 = time.perf_counter()
+    cfg_c, w_c, md = load_model(f16, device="cpu")
+    toks = Vocab.from_gguf(md).encode(text, add_special=False)
+    chunks = [toks[i:i + 256] for i in range(0, len(toks), 256)][:2]
+    acc = collect_imatrix(cfg_c, w_c, chunks, chunk_len=256)
+    del w_c
+    t_cpu = time.perf_counter() - t0
+    out = _verb_wait(card_im)
+    if "saved imatrix for 14 tensors" not in out:
+        raise AssertionError(f"imatrix verb: {out[-500:]}")
+    card = load_imatrix(imat)
+    cpu = {k: s / max(n, 1) for k, (s, n) in acc.items()}
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"imatrix tensors: card {sorted(card)} vs CPU {sorted(cpu)}")
+    rels = {k: _rel(card[k], cpu[k]) for k in cpu}
+    worst = max(rels, key=rels.get)
+    if rels[worst] > IMATRIX_TOL:
+        raise AssertionError(f"imatrix {worst}: card vs CPU rel L2 {rels[worst]:.2e} > "
+                             f"{IMATRIX_TOL}")
+    p_card, p_cpu = derive_tcq4_perms(card), derive_tcq4_perms(cpu)
+    differ = {k: int((p_card[k] != p_cpu[k]).sum()) for k in p_cpu}
+    print(f"  imatrix over {len(chunks)} chunks ({sum(map(len, chunks))} tokens): card vs "
+          f"CPU (CPU {t_cpu:.1f} s, in this process) worst rel L2 {rels[worst]:.2e} "
+          f"({worst}) <= {IMATRIX_TOL}; permutation entries that differ: "
+          f"{sum(differ.values())} of {sum(p.size for p in p_cpu.values())} "
+          f"({ {k: v for k, v in differ.items() if v} })", flush=True)
+
+    q4 = tmp / "q4_k_m.gguf"
+    q4_run = _verb_start(["quantize", f16_small, q4, "--type", "q4_k_m", "--imatrix", imat])
+    tcq4 = tmp / "tcq4.gguf"
+    out = _verb(["quantize", f16, tcq4, "--imatrix", imat])
+    stats = [line for line in out.splitlines() if line.startswith("quantized:")]
+    if "derived 14 channel permutations" not in out or not stats:
+        raise AssertionError(f"quantize --imatrix: {out[-800:]}")
+    print(f"    {stats[0]}", flush=True)
+    out = _verb(["gguf-split", "--split", "2", tcq4, tmp / "tcq4"])
+    first = tmp / "tcq4-00001-of-00002.gguf"
+    if not first.exists() or not (tmp / "tcq4-00002-of-00002.gguf").exists():
+        raise AssertionError(f"gguf-split: {out}")
+    runs = [_verb_start(["generate", "-m", m, "-p", PIPELINE_PROMPT, "-n", "16"])
+            for m in (first, tcq4)]
+    texts = [_verb_wait(r).rstrip("\n") for r in runs]
+    if texts[0] != texts[1] or len(texts[0]) == 0:
+        raise AssertionError(f"generate: first shard {texts[0]!r} vs unsplit {texts[1]!r}")
+    print(f"    greedy text from the first shard = from the unsplit file: {texts[0]!r}",
+          flush=True)
+    prompt = toks[:40]
+    launches, _ = card_vs_cpu_step(first, prompt, "TCQ4 GGUF (imatrix perms), 2 layers",
+                                   {"tcq4_matmul_gx2", "tcq4_matmul", "flash_attention"},
+                                   held=False)
+    for key, kname in (("gx2", "tcq4_matmul_gx2"), ("tcq4", "tcq4_matmul"),
+                       ("fa", "flash_attention")):
+        reports[key].entry["launches_gguf_tcq4"] = launches.get(kname, 0)
+    torch.cuda.empty_cache()
+    print(f"  phase 12 leaves the Q4_K_M quantization running "
+          f"({time.perf_counter() - q4_run[3]:.1f} s in)", flush=True)
+    return q4_run, prompt
+
+
+def phase_gguf_q4km(q4_run, prompt, tmp):
+    """The rest of phase 12: wait for the Q4_K_M quantization that
+    ``phase_gguf_pipeline`` left running in ``tmp``, then ``generate`` and
+    ``perplexity`` on its file, its mix stats printed, and its logits on the
+    card within GLUE_TOL of the CPU port's."""
+
+    q4, calib = tmp / "q4_k_m.gguf", tmp / "calib.txt"
+    t0 = time.perf_counter()
+    out = _verb_wait(q4_run)
+    print(f"  waited {time.perf_counter() - t0:.1f} s for it", flush=True)
+    stats = [line for line in out.splitlines() if line.startswith("quantized:")]
+    if not stats or "'mix'" not in stats[0]:
+        raise AssertionError(f"quantize --type q4_k_m: {out[-800:]}")
+    print(f"    {stats[0]}", flush=True)
+    runs = [_verb_start(["generate", "-m", q4, "-p", PIPELINE_PROMPT, "-n", "16"]),
+            _verb_start(["perplexity", "-m", q4, "-f", calib, "--n-ctx", "128",
+                         "--max-chunks", "2"])]
+    out = _verb_wait(runs[0])
+    if not out.strip():
+        raise AssertionError("generate on the Q4_K_M file printed nothing")
+    out = _verb_wait(runs[1])
+    final = [line for line in out.splitlines() if line.startswith("Final PPL")]
+    ppl = float(final[0].split("=")[1].split()[0]) if final else float("nan")
+    if not (math.isfinite(ppl) and ppl > 1):
+        raise AssertionError(f"perplexity on the Q4_K_M file: {out[-500:]}")
+    print(f"    {final[0]}", flush=True)
+    card_vs_cpu_step(q4, [t % 4096 for t in prompt], "Q4_K_M GGUF, 1 layer, 4096 tokens",
+                     {"flash_attention"}, held=True)
+
+
+# -- Qwen2-57B-A14B ----------------------------------------------------------------
+
+# The GGUF metadata of Qwen2-57B-A14B as its published config.json gives it
+# (Hugging Face Qwen/Qwen2-57B-A14B; llama.cpp's converter writes these keys)
+QWEN2_57B_A14B_GGUF = {
+    "general.architecture": "qwen2moe", "qwen2moe.block_count": 28,
+    "qwen2moe.context_length": 65536, "qwen2moe.embedding_length": 3584,
+    "qwen2moe.feed_forward_length": 18944, "qwen2moe.attention.head_count": 28,
+    "qwen2moe.attention.head_count_kv": 4,
+    "qwen2moe.attention.layer_norm_rms_epsilon": 1e-6, "qwen2moe.rope.freq_base": 1e6,
+    "qwen2moe.expert_count": 64, "qwen2moe.expert_used_count": 8,
+    "qwen2moe.expert_feed_forward_length": 2560,
+    "qwen2moe.expert_shared_feed_forward_length": 20480, "qwen2moe.vocab_size": 151936}
+QWEN2MOE_SHARED_FF = 20480
+
+
+def with_shared_experts(w, n_ff_shared: int, seed: int, device):
+    """qwen2moe's extra weights on a qwen3moe-shaped tree: per layer a dense
+    bf16 shared expert N(0, 0.01) of width ``n_ff_shared`` (the loader's
+    form of ``ffn_*_shexp``) and f32 q / k / v biases N(0, 0.02)."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    normal = lambda shape, scl, dt=torch.bfloat16: (torch.randn(   # noqa: E731
+        shape, generator=gen, device=device) * scl).to(dt)
+    layers = []
+    for lw in w.layers:
+        e = lw.attn_norm.shape[0]
+        moe = dataclasses.replace(lw.moe, shared_gate=normal((e, n_ff_shared), 0.01),
+                                  shared_up=normal((e, n_ff_shared), 0.01),
+                                  shared_down=normal((n_ff_shared, e), 0.01))
+        lins = {f: dataclasses.replace(getattr(lw, f), bias=normal(
+                    (getattr(lw, f).shape[1],), 0.02, torch.float32))
+                for f in ("wqkv", "wq", "wk", "wv") if getattr(lw, f) is not None}
+        layers.append(dataclasses.replace(lw, moe=moe, q_norm=None, k_norm=None, **lins))
+    return dataclasses.replace(w, layers=layers)
+
+
+def qwen2moe_small_cfg():
+    """qwen2moe at reduced widths, as phase 11 cuts qwen3moe: 2 layers, E =
+    1024, 16 heads on 4 kv heads x 64, 32 experts of 512 top-8, qkv biases;
+    the shared expert (4,096 wide, eight experts' width as in Qwen2-57B-A14B)
+    is added by ``with_shared_experts``."""
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen2moe", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=4,
+                       head_dim=64, n_ff=3072, vocab_size=4096, context_length=4096,
+                       rope_theta=1e6, attn_bias=True, n_experts=32, n_experts_used=8,
+                       n_ff_exp=512)
+
+
+def phase_qwen2moe_small_reference():
+    """A 2-layer qwen2moe model (qwen2moe_small_cfg) on the card against the
+    same weights on the CPU, as phase 11 runs qwen3moe's: prompts of 40
+    tokens (capacity), 300 random ones and 300 copies of one token (the
+    overflow), each with one decode step (rows), with dense bf16 experts
+    (logits within GLUE_TOL) and with fabricated TCQ4 attention and experts
+    (every launch held to its plain version, drift reported); both with the
+    dense shared expert. The card replays the CPU's expert ids where its
+    own differ."""
+    import torch
+
+    from rrs_tpu_torch.models import llama, moe
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = qwen2moe_small_cfg()
+    rng = torch.Generator().manual_seed(6)
+    prompts = {"40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
+               "300 copies": [77] * 300}
+    models = {"dense": (llama.random_weights(cfg, seed=2, device="cpu"), {"flash_attention"}),
+              "TCQ4": (llama.fabricated_tcq4_moe_weights(cfg, seed=2, device="cpu"),
+                       {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
+                        "flash_attention", "tcq4_matmul_experts_rows",
+                        "tcq4_matmul_all_experts"})}
+    orig = moe.route
+    for kind, (w_base, expect) in models.items():
+        w_cpu = with_shared_experts(w_base, 8 * cfg.n_ff_exp, seed=3, device="cpu")
+        recorded, logits = [], {}
+
+        def record(c, mw, x2):
+            ti, tv = orig(c, mw, x2)
+            recorded.append((ti.clone(), tv.clone()))
+            return ti, tv
+
+        moe.route = record
+        try:
+            cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
+            for name, p in prompts.items():
+                seq = cpu.new_sequence()
+                logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
+                                       cpu.decode({seq: 11})[seq].float())
+                cpu.kv.seq_rm(seq)
+        finally:
+            moe.route = orig
+        ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
+        with held_to_plain(f"small qwen2moe {kind}", expect) as seen, \
+                routes_replayed(recorded) as replay:
+            for name, p in prompts.items():
+                seq = ctx.new_sequence()
+                logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
+                                        ctx.decode({seq: 11})[seq].float().cpu())
+                ctx.kv.seq_rm(seq)
+            torch.cuda.synchronize()
+        held = kind == "dense"
+        rows = []
+        for name in prompts:
+            for i, stage in enumerate(("prefill", "decode")):
+                got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
+                if got.shape != ref.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"small qwen2moe {kind} {name} {stage}: bad logits")
+                rel = ((got - ref).norm() / ref.norm()).item()
+                rows.append(f"{name} {stage} {rel:.4f}")
+                if held and rel > GLUE_TOL:
+                    raise AssertionError(f"small qwen2moe {kind} {name} {stage}: rel L2 "
+                                         f"{rel:.4f} > {GLUE_TOL}")
+        print(f"  small qwen2moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8, shared "
+              f"expert 4096): each launch vs its plain version (max rel): "
+              + (", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items()))
+              + f"; {replay['flipped']} expert selections replayed over {replay['calls']} "
+              f"routing calls; logits card vs CPU, rel L2 "
+              + ("<= " + str(GLUE_TOL) if held else "(reported)") + ": " + ", ".join(rows),
+              flush=True)
+        del ctx
+
+
+def phase_qwen2moe_generate(reports):
+    """``generate`` at Qwen2-57B-A14B's published widths (the config from
+    ``ModelConfig.from_gguf`` on its metadata; all 28 layers), weights
+    fabricated on the card: TCQ4 attention (with q / k / v biases) and
+    experts, a dense bf16 shared expert 20,480 wide per layer, a Q8_0
+    lm_head. Greedy prompts of 5 (rows), 40 (capacity) and 300 copies of one
+    token (the overflow scan), 16 new tokens each; every kernel's launches
+    counted from 0 and the MoE branches taken. Returns what the held steps
+    and the decode profiles that follow run on."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = ModelConfig.from_gguf(QWEN2_57B_A14B_GGUF)
+    t0 = time.perf_counter()
+    weights = with_shared_experts(llama.fabricated_tcq4_moe_weights(cfg, seed=0, device="cuda"),
+                                  QWEN2MOE_SHARED_FF, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    exp_bytes = sum(t.numel() * t.element_size() for lw in weights.layers
+                    for t in _tensors(lw.moe) if t.dim() == 3)
+    sh_bytes = sum(getattr(lw.moe, f).numel() * 2 for lw in weights.layers
+                   for f in ("shared_gate", "shared_up", "shared_down"))
+    print(f"  Qwen2-57B-A14B config: {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim}, {cfg.n_experts} experts of {cfg.n_ff_exp} "
+          f"top-{cfg.n_experts_used}, shared expert {QWEN2MOE_SHARED_FF}, attn_bias "
+          f"{cfg.attn_bias}, norm_topk_prob {cfg.norm_topk_prob}; fabricated weights "
+          f"{w_bytes / GB:.2f} GB (TCQ4 expert stacks {exp_bytes / GB:.2f} GB, bf16 shared "
+          f"experts {sh_bytes / GB:.2f} GB) in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator().manual_seed(0)
+    prompts = {"5": torch.randint(0, cfg.vocab_size, (5,), generator=rng).tolist(),
+               "40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
+               "300 copies": [1234] * 300}
+    t0 = time.perf_counter()
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    warm.generate(prompts["5"], 2)
+    del warm
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    torch.cuda.synchronize()
+    print(f"  warm-up generate {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    outs, per_prompt = {}, {}
+    t0 = time.perf_counter()
+    for name, p in prompts.items():
+        with moe_branches() as branches:
+            outs[name] = ctx.generate(p, 16)
+        per_prompt[name] = branches
+    print(f"  three requests {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    launches = {key: kernels.LAUNCHES[n] for key, n in QWEN3MOE_COUNTERS.items()}
+    for name, out in outs.items():
+        if len(out) != 16 or not all(0 <= tok < cfg.vocab_size for tok in out):
+            raise AssertionError(f"qwen2moe generate {name}: {len(out)} tokens: {out}")
+    perf = ctx.perf()
+    print(f"  requests: prompts 5/40/300 copies x 16 new tokens; prefill {perf['n_p_eval']} tok "
+          f"@ {perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} tok @ "
+          f"{perf['tg_tok_per_s']:.2f} tok/s ({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} "
+          f"ms/token); peak memory {torch.cuda.max_memory_allocated() / GB:.2f} GB", flush=True)
+    print("  greedy tokens: " + "; ".join(f"{k}: {v[:6]}..." for k, v in outs.items()),
+          flush=True)
+    print(f"  MoE branches by prompt (prefill and decode): {per_prompt}; launches on the "
+          f"Qwen2-57B-A14B path: {launches}", flush=True)
+    if not per_prompt["300 copies"]["fallback"] or not per_prompt["40"]["capacity"] \
+            or not per_prompt["5"]["rows"]:
+        raise AssertionError(f"qwen2moe generate: the rows, capacity and scan branches were not "
+                             f"all reached: {per_prompt}")
+    for key in ("gx2", "tcq4", "q8", "fa", "tq_rows", "tq_all"):
+        if launches[key] == 0:
+            raise AssertionError(f"qwen2moe generate: kernel {key} was never launched")
+    for key, n in launches.items():
+        reports[key].entry["launches_qwen2moe"] = n
+    return cfg, weights, ctx, prompts, sh_bytes
+
+
+def phase_qwen2moe_held(ctx, prompts):
+    """On the 28-layer Qwen2-57B-A14B weights ``generate`` ran, at the
+    published widths: teacher-forced prefills of the 40-token prompt
+    (capacity) and of 300 copies of one token (the overflow scan; M >= 256,
+    so the i8p kernel) and one decode step after each (rows), every kernel
+    launch held to its plain version on the very inputs it got."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+
+    expect = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
+              "flash_attention", "tcq4_matmul_experts_rows", "tcq4_matmul_all_experts"}
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    with held_to_plain("Qwen2-57B-A14B", expect) as seen, moe_branches() as branches:
+        for name in ("40", "300 copies"):
+            seq = ctx.new_sequence()
+            last = ctx.prefill(seq, prompts[name])[-1]
+            out = ctx.decode({seq: int(last.argmax())})[seq]
+            if not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+                raise AssertionError(f"Qwen2-57B-A14B held steps, {name}: non-finite logits")
+            ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    if not (branches["rows"] and branches["capacity"] and branches["fallback"]):
+        raise AssertionError(f"Qwen2-57B-A14B held steps: the rows, capacity and scan branches "
+                             f"were not all reached: {branches}")
+    for name, (worst, shapes) in sorted(seen.items()):
+        print(f"  Qwen2-57B-A14B held, {name}: {kernels.LAUNCHES[name]} launches, each within "
+              f"its tolerance of its plain version (max rel {worst:.2e}); shapes "
+              f"{sorted(shapes)}", flush=True)
+    print(f"  Qwen2-57B-A14B prefills of 40 and 300 copies + a decode step each, held to the "
+          f"plain versions in {time.perf_counter() - t0:.1f} s; MoE branches {branches}",
+          flush=True)
+
+
+def phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes):
+    """Two decode profiles at Qwen2-57B-A14B's widths, with and without the
+    shared expert; their difference is its device ms a step. Run with no
+    verb process beside it, so that the wall and idle share are the card
+    machine's alone."""
+    import dataclasses
+
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    t0 = time.perf_counter()
+    with_sh = profile_decode(ctx, prompts["40"], label="Qwen2-57B-A14B")
+    no_sh = dataclasses.replace(weights, layers=[
+        dataclasses.replace(lw, moe=dataclasses.replace(lw.moe, shared_gate=None))
+        for lw in weights.layers])
+    ctx_ns = InferenceContext(cfg, no_sh, n_lanes=1, max_seq=1024)
+    without = profile_decode(ctx_ns, prompts["40"], label="Qwen2-57B-A14B, shared expert off")
+    if with_sh and without:
+        d = with_sh["device_ms"] - without["device_ms"]
+        print(f"  the shared expert's device time a decode step: {d:.3f} ms of "
+              f"{with_sh['device_ms']:.3f} ms ({d / with_sh['device_ms']:.3f} of the device "
+              f"time; bound {sh_bytes / 3.35e12 * 1e3:.3f} ms for its {sh_bytes / GB:.2f} GB "
+              f"at 3.35 TB/s; both profiles {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 T_START = time.perf_counter()
 
 
@@ -3466,6 +4029,8 @@ def header(text: str) -> None:
 
 
 def main() -> int:
+    from pathlib import Path
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3481,38 +4046,46 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/12] build")
+    header("[1/14] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
     print(f"  built {path.name} in {time.perf_counter() - t0:.1f} s", flush=True)
+    from rrs_tpu_torch import native
 
-    header("[2/12] kernel parity at the qwen3-4b main-path shapes")
+    t0 = time.perf_counter()
+    if native.build() is None or not native.available():
+        raise AssertionError("the native host codec (rrs_tpu_torch/csrc/rrs_core.cpp) did not "
+                             "build with g++")
+    print(f"  built the native host codec {native.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    header("[2/14] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/12] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/14] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/12] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/14] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/12] served steps held to the plain versions; device decode run against "
+    header("[5/14] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/12] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/14] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/12] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/14] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
@@ -3521,7 +4094,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/12] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/14] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -3531,7 +4104,7 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/12] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/14] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
@@ -3543,7 +4116,7 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[10/12] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[10/14] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -3556,7 +4129,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/12] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[11/14] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -3576,8 +4149,47 @@ def main() -> int:
           f"rows and ids, the diagonal within {held['rel']:.2e} of B9 (<= {QWEN3MOE_TOL:.0e}); "
           f"B19 shapes {sorted(held['shapes'])}", flush=True)
     del ctx, weights
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    header("[12/12] summary")
+    header("[12/14] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+           "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
+           "perplexity")
+    t12 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        tmp = Path(tmp_name)
+        # the Q4_K_M quantization goes on beside phase 13's card work
+        q4_run, prompt = phase_gguf_pipeline(name, reports, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter() - t12
+
+        header("[13/14] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+               "the published widths with the shared expert, held steps, its decode profile")
+        t13 = time.perf_counter()
+        phase_qwen2moe_small_reference()
+        print(f"  small reference {time.perf_counter() - t13:.1f} s", flush=True)
+        cfg, weights, ctx, prompts, sh_bytes = phase_qwen2moe_generate(reports)
+        phase_qwen2moe_held(ctx, prompts)
+        t13 = time.perf_counter() - t13
+
+        header("[12/14, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        t0 = time.perf_counter()
+        phase_gguf_q4km(q4_run, prompt, tmp)
+        print(f"  phase 12 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
+              flush=True)
+
+    header("[13/14, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    t0 = time.perf_counter()
+    phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
+    del ctx, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 13 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
+
+    header("[14/14] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))
@@ -3588,4 +4200,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -1,8 +1,11 @@
 """CLI: ``python -m rrs_tpu_torch <verb>``.
 
-The ``generate``, ``serve``, ``chat``, ``bench``, ``batched-bench`` and
-``perplexity`` verbs of ``rrs_tpu/__main__.py`` with the same flags, plus
-``--device`` (default ``cuda``; ``cpu`` must be asked for). Flags whose
+The ``generate``, ``serve``, ``chat``, ``bench``, ``batched-bench``,
+``perplexity``, ``imatrix``, ``quantize`` and ``gguf-split`` verbs of
+``rrs_tpu/__main__.py`` with the same flags, plus ``--device`` on the verbs
+that run the model (default ``cuda``; ``cpu`` must be asked for). Every
+``-m`` takes a single GGUF or any shard of a ``-NNNNN-of-NNNNN`` set;
+``quantize`` and ``gguf-split`` are host code. Flags whose
 feature is not ported yet (speculative and lookup decoding, multimodal
 projectors, the multi-model router, tensor / data / pipeline parallelism)
 raise NotImplementedError when set.
@@ -135,6 +138,33 @@ def main(argv=None):
     bb.add_argument("--json", action="store_true")
     _device_arg(bb)
 
+    q = sub.add_parser("quantize", help="requantize a GGUF model to TCQ4_K32")
+    q.add_argument("src")
+    q.add_argument("dst")
+    q.add_argument("--type", dest="out_type", default="tcq4",
+                   choices=("tcq4", "q2_k", "q2_k_s", "q3_k_s", "q3_k_m", "q3_k_l", "q4_0",
+                            "q4_1", "q4_k", "q4_k_s", "q4_k_m", "q5_0", "q5_1", "q5_k_s",
+                            "q5_k_m", "q6_k", "iq4_nl", "iq4_xs", "q8_0", "mxfp4", "f16"),
+                   help="output ftype (llama-quantize menu analog; K-quant ftypes apply the "
+                        "per-tensor mix policy)")
+    q.add_argument("--tcq4-imatrix", "--imatrix", dest="imatrix", default=None,
+                   help="imatrix GGUF: per-block channel reordering for --type tcq4, "
+                        "importance-weighted encoders for the K-quant/IQ4 ftypes")
+
+    im = sub.add_parser("imatrix", help="collect activation statistics")
+    im.add_argument("--model", "-m", required=True)
+    im.add_argument("--file", "-f", required=True)
+    im.add_argument("--output", "-o", default="imatrix.gguf")
+    im.add_argument("--chunk-len", type=int, default=512)
+    im.add_argument("--max-chunks", type=int, default=20)
+    _device_arg(im)
+
+    sp = sub.add_parser("gguf-split", help="shard or merge GGUF files")
+    sp.add_argument("--split", type=int, default=0, help="number of shards")
+    sp.add_argument("--merge", action="store_true")
+    sp.add_argument("src")
+    sp.add_argument("dst")
+
     args = p.parse_args(argv)
     _refuse_unported(args)
     if args.cmd == "generate":
@@ -156,6 +186,19 @@ def main(argv=None):
         run(args)
     elif args.cmd == "batched-bench":
         cmd_batched_bench(args)
+    elif args.cmd == "quantize":
+        cmd_quantize(args)
+    elif args.cmd == "imatrix":
+        cmd_imatrix(args)
+    elif args.cmd == "gguf-split":
+        from rrs_tpu_torch.tools.gguf_split import merge_gguf, split_gguf
+
+        if args.merge:
+            out = merge_gguf(args.src, args.dst)
+            print(f"merged -> {out}")
+        else:
+            paths = split_gguf(args.src, args.dst, args.split or 2)
+            print("wrote:\n  " + "\n  ".join(str(p) for p in paths))
 
 
 def _device_arg(parser) -> None:
@@ -292,6 +335,41 @@ def cmd_batched_bench(args):
         cfg = PRESETS[args.preset]
         weights = llama.fabricated_tcq4_weights(cfg, seed=0, device=args.device)
     run_batched_bench(cfg, weights, args.pp, args.tg, args.pl, as_json=args.json)
+
+
+def cmd_quantize(args):
+    from rrs_tpu_torch.quantize.quantizer import quantize_model
+
+    perms = None
+    imatrix = None
+    if args.imatrix:
+        from rrs_tpu_torch.quantize.imatrix import derive_tcq4_perms, load_imatrix
+
+        imatrix = load_imatrix(args.imatrix)
+        if args.out_type == "tcq4":
+            perms = derive_tcq4_perms(imatrix)
+            print(f"derived {len(perms)} channel permutations from imatrix")
+        else:
+            print(f"imatrix-weighted encoders for {len(imatrix)} tensors")
+    stats = quantize_model(args.src, args.dst, perms=perms, out_type=args.out_type,
+                           imatrix=imatrix)
+    print(f"quantized: {stats}")
+
+
+def cmd_imatrix(args):
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.quantize.imatrix import collect_imatrix, save_imatrix
+
+    cfg, weights, md = load_model(args.model, device=args.device)
+    vocab = Vocab.from_gguf(md)
+    with open(args.file, encoding="utf-8") as f:
+        tokens = vocab.encode(f.read(), add_special=False)
+    chunks = [tokens[i:i + args.chunk_len]
+              for i in range(0, len(tokens), args.chunk_len)][:args.max_chunks]
+    acc = collect_imatrix(cfg, weights, chunks, chunk_len=args.chunk_len)
+    save_imatrix(args.output, acc)
+    print(f"saved imatrix for {len(acc)} tensors -> {args.output}")
 
 
 def cmd_chat(args, read_line=input):

@@ -1,8 +1,8 @@
-"""Byte-level decode of GGUF `block_tcq4_tile` payloads into TCQ4Tensor.
+"""Byte-level codec between GGUF `block_tcq4_tile` payloads and TCQ4Tensor.
 
-Copied from ``rrs_tpu/formats/tile_codec.py`` (its decoder; the encoder
-stays with the JAX package's quantizer), so the port reads
-reference-produced TCQ4_K32 GGUF files.
+Copied from ``rrs_tpu/formats/tile_codec.py`` (decoder and encoder), so the
+port reads reference-produced TCQ4_K32 GGUF files and its ``quantize`` verb
+writes them.
 The on-disk tile is 1184 bytes covering 8 output channels x 256 K
 (ggml/src/ggml-common.h:308-348):
 
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rrs_tpu_torch.formats.tcq4 import TCQ4Tensor, TILE_K, pack_nibbles
+from rrs_tpu_torch.formats.tcq4 import TCQ4Tensor, TILE_K, pack_nibbles, unpack_nibbles
 
 TILE_BYTES = 1184
 
@@ -44,6 +44,17 @@ def _tiles_to_q(tiles: np.ndarray) -> np.ndarray:
     vals = vals.reshape(t, 8, 8, 4, 8)          # [T, g, c, k_slice, i]
     vals = vals.transpose(0, 2, 1, 3, 4)        # [T, c, g, k_slice, i]
     return vals.reshape(t, 8, 256)
+
+
+def _q_to_tiles(q: np.ndarray) -> np.ndarray:
+    """int8 q [T, 8c, 256k] -> [T, 8g, 128B] uint8."""
+    t = q.shape[0]
+    v = q.reshape(t, 8, 8, 4, 8)                # [T, c, g, k_slice, i]
+    v = v.transpose(0, 2, 1, 3, 4)              # [T, g, c, k_slice, i]
+    v = v.reshape(t, 8, 32, 8)                  # [T, g, lane, i]
+    u = (v.astype(np.int16) & 0xF).astype(np.uint8)
+    packed = u[..., 0::2] | (u[..., 1::2] << 4)  # [T, g, lane, 4]
+    return packed.reshape(t, 8, 128)
 
 
 def decode_tcq4_gguf(raw: np.ndarray, shape: tuple[int, ...]) -> TCQ4Tensor:
@@ -77,3 +88,31 @@ def decode_tcq4_gguf(raw: np.ndarray, shape: tuple[int, ...]) -> TCQ4Tensor:
         Z=None if symmetric else np.ascontiguousarray(Z_kn),
     )
 
+
+def encode_tcq4_gguf(t: TCQ4Tensor) -> bytes:
+    """Serialize a TCQ4Tensor to reference block_tcq4_tile bytes."""
+    k, n = t.K, t.N
+    if n % 8 or k % TILE_K:
+        raise ValueError(f"TCQ4_K32 tensor [{n}, {k}]: needs N % 8 == 0 and K % 256 == 0")
+    kt = k // TILE_K
+    q = unpack_nibbles(t.qs)                                  # [K, N]
+    q_t = q.reshape(kt, 256, n // 8, 8).transpose(2, 0, 1, 3)  # [rg, kt, k, c]
+    q_t = q_t.transpose(0, 1, 3, 2).reshape(-1, 8, 256)        # [T, c, k]
+    frag = _q_to_tiles(q_t).reshape(n // 8, kt, 1024)
+
+    sc = t.sc.reshape(kt, 8, n // 8, 8).transpose(2, 0, 3, 1)  # [rg, kt, c, g]
+    S = t.S.astype(np.float16).reshape(kt, n // 8, 8).transpose(1, 0, 2)
+    if t.zc is not None:
+        zc = t.zc.reshape(kt, 8, n // 8, 8).transpose(2, 0, 3, 1)
+        Z = t.Z.astype(np.float16).reshape(kt, n // 8, 8).transpose(1, 0, 2)
+    else:
+        zc = np.zeros_like(sc)
+        Z = np.zeros_like(S)
+
+    out = np.empty((n // 8, kt, TILE_BYTES), np.uint8)
+    out[:, :, :1024] = frag
+    out[:, :, 1024:1040] = S.copy().view(np.uint8).reshape(n // 8, kt, 16)
+    out[:, :, 1040:1056] = Z.copy().view(np.uint8).reshape(n // 8, kt, 16)
+    out[:, :, 1056:1120] = sc.view(np.uint8).reshape(n // 8, kt, 64)
+    out[:, :, 1120:1184] = zc.view(np.uint8).reshape(n // 8, kt, 64)
+    return out.tobytes()

@@ -1,13 +1,15 @@
 """Model hyperparameters from GGUF metadata: the Qwen3 / Qwen2 / Llama,
-Qwen3-MoE and gpt-oss subset of ``rrs_tpu/models/config.py``.
+Qwen2-MoE, Qwen3-MoE and gpt-oss subset of ``rrs_tpu/models/config.py``.
 
 gpt-oss brings the MoE fields (MXFP4 experts, swiglu_oai, top-k on raw logits
 then a softmax over the k), alternating sliding-window layers over ring
 caches, per-head sinks and qkv / output biases. qwen3moe is qwen3 (q/k norms,
 no attention bias) with every layer MoE: softmax gating, and the post-top-k
-norm when the GGUF sets ``qwen3moe.norm_topk_prob``. Llama / Qwen GGUFs with
-``attention.sliding_window`` take every layer sliding (pattern 1), as in the
-JAX package. Other architectures, qwen2moe (shared experts, ROADMAP A8c), MoE
+norm when the GGUF sets ``qwen3moe.norm_topk_prob``. qwen2moe is qwen2 (qkv
+bias, no q/k norms) with every layer MoE plus a dense SwiGLU shared expert,
+added with no gate as in the JAX package (the published model gates it; ROADMAP
+queue C). Llama / Qwen GGUFs with ``attention.sliding_window`` take every
+layer sliding (pattern 1), as in the JAX package. Other architectures, MoE
 layers in a dense architecture and RoPE scaling other than ``none`` /
 ``llama3`` / ``yarn`` raise NotImplementedError.
 """
@@ -17,8 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
-SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "qwen3moe", "gpt-oss")
-MOE_ARCHS = ("qwen3moe", "gpt-oss")
+SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gpt-oss")
+MOE_ARCHS = ("qwen2moe", "qwen3moe", "gpt-oss")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +86,6 @@ class ModelConfig:
     @staticmethod
     def from_gguf(md: Mapping[str, Any]) -> "ModelConfig":
         arch = md["general.architecture"]
-        if arch == "qwen2moe":
-            raise NotImplementedError(
-                "architecture 'qwen2moe': its shared experts are not ported to rrs_tpu_torch "
-                "yet (ROADMAP A8c)")
         if arch not in SUPPORTED_ARCHS:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported to rrs_tpu_torch "
@@ -145,7 +143,7 @@ class ModelConfig:
             # llama weights are pre-permuted for interleaved (NORM) rope
             rope_neox=arch != "llama",
             qk_norm=arch in ("qwen3", "qwen3moe"),
-            attn_bias=arch in ("qwen2", "gpt-oss"),
+            attn_bias=arch in ("qwen2", "qwen2moe", "gpt-oss"),
             tie_embeddings=bool(md.get(f"{arch}.tie_word_embeddings", False)),
             n_experts=int(key("expert_count", 0) or 0),
             n_experts_used=int(key("expert_used_count", 0) or 0),

@@ -18,10 +18,11 @@ from rrs_tpu_torch.models.config import ModelConfig
 
 
 def export_random_gguf(cfg: ModelConfig, path: str | Path, seed: int = 0, scale: float = 0.05,
-                       vocab_tokens: list[str] | None = None,
+                       dtype=np.float32, vocab_tokens: list[str] | None = None,
                        vocab_model: str = "gpt2") -> Path:
-    """Write an f32 GGUF with N(0, scale) weights and unit norms matching the
-    dense ``cfg``; ``vocab_tokens`` adds a tokenizer of ``vocab_model``."""
+    """Write a GGUF with N(0, scale) weights and unit norms matching the
+    dense ``cfg``, every tensor in ``dtype`` (float32 or float16);
+    ``vocab_tokens`` adds a tokenizer of ``vocab_model``."""
     if cfg.n_experts or cfg.arch == "gpt-oss" or cfg.swa_window:
         raise NotImplementedError(f"{cfg.arch} export waits for ROADMAP A10")
     rng = np.random.default_rng(seed)
@@ -45,10 +46,10 @@ def export_random_gguf(cfg: ModelConfig, path: str | Path, seed: int = 0, scale:
         w.add_kv("tokenizer.ggml.tokens", vocab_tokens, GGUFValueType.ARRAY)
 
     def t(name, shape):
-        w.add_tensor(name, (rng.standard_normal(shape) * scale).astype(np.float32))
+        w.add_tensor(name, (rng.standard_normal(shape) * scale).astype(dtype))
 
     def norm(name, n):
-        w.add_tensor(name, np.ones((n,), np.float32))
+        w.add_tensor(name, np.ones((n,), dtype))
 
     e, hq, hkv, d, f = cfg.n_embd, cfg.n_q_dim, cfg.n_kv_dim, cfg.head_dim, cfg.n_ff
     t("token_embd.weight", (cfg.vocab_size, e))

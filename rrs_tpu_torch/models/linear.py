@@ -72,13 +72,20 @@ class TCQ4Linear:
 
     @classmethod
     def from_tensor(cls, t: TCQ4Tensor, bias=None, device="cpu") -> "TCQ4Linear":
+        return cls.from_arrays(t.qs, effective_scales(t), perm=t.perm, bias=bias, device=device)
+
+    @classmethod
+    def from_arrays(cls, qs: np.ndarray, eff: np.ndarray, perm=None, bias=None,
+                    device="cpu") -> "TCQ4Linear":
+        """From the K-major codes and f32 effective scales (those of
+        ``effective_scales``, or the native tile decode's, which are the
+        same bits)."""
         gather = None
-        if t.perm is not None:
-            gather = torch.as_tensor(np.asarray(t.perm, np.int64) % 256, device=device)
+        if perm is not None:
+            gather = torch.as_tensor(np.asarray(perm, np.int64) % 256, device=device)
         # eff at bf16: its rounding (<= 0.4%) is far below the int4 noise
-        eff = torch.from_numpy(effective_scales(t).astype(np.float32)).to(torch.bfloat16)
-        qs = torch.from_numpy(np.ascontiguousarray(t.qs)).to(device)
-        eff = eff.to(device)
+        eff = torch.from_numpy(np.asarray(eff, np.float32)).to(torch.bfloat16).to(device)
+        qs = torch.from_numpy(np.ascontiguousarray(qs)).to(device)
         return cls(
             qs=qs,
             eff=eff,

@@ -33,7 +33,7 @@ from rrs_tpu_torch.models.linear import (
     n_pad_width,
     want_i8p,
 )
-from rrs_tpu_torch.models.moe import SHARED_EXPERTS, MoEWeights, moe_ffn
+from rrs_tpu_torch.models.moe import MoEWeights, moe_ffn
 from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
 from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
                                                flash_attention_q4hp, flash_attention_q8)
@@ -167,15 +167,29 @@ def attend(q, k_cache, v_cache, mask_positions, scale: float, window: int = 0,
     return kern(q, *k_cache, *v_cache, mask_positions, scale, window=window, sinks=sinks)
 
 
+def _capture(cap, li: int, name: str, x: torch.Tensor) -> None:
+    """With a capture dict, record the per-input-channel sum of squares of a
+    linear's input for imatrix collection (the JAX package's ``_capture``,
+    IMatrixCollector::collect_imatrix analog); without one, nothing."""
+    if cap is not None:
+        x32 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        cap[f"blk.{li}.{name}"] = (x32 * x32).sum(0)
+        cap.setdefault("__counts__", {})[f"blk.{li}.{name}"] = x32.shape[0]
+
+
 def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
               positions: torch.Tensor, k_cache, v_cache,
-              mask_positions: torch.Tensor, slots: list[int], li: int = 0) -> torch.Tensor:
+              mask_positions: torch.Tensor, slots: list[int], li: int = 0,
+              cap=None) -> torch.Tensor:
     """One layer's attention; ``slots``: each lane's first cache slot (-1 =
     padded lane), from which the layer's own start slots follow."""
     b, t, _ = x.shape
     d = cfg.head_dim
     swa = cfg.is_swa(li)
     window = cfg.swa_window if swa else 0
+    _capture(cap, li, "attn_q.weight", x)
+    _capture(cap, li, "attn_k.weight", x)
+    _capture(cap, li, "attn_v.weight", x)
     if lw.wqkv is not None:
         qkv = linear_apply(lw.wqkv, x)
         nq, nkv = cfg.n_q_dim, cfg.n_kv_dim
@@ -201,12 +215,16 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale, window=window,
                  sinks=lw.attn_sinks)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
+    _capture(cap, li, "attn_output.weight", ctx)
     return linear_apply(lw.wo, ctx)
 
 
-def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
+        li: int = 0) -> torch.Tensor:
     if lw.moe is not None:
         return moe_ffn(cfg, lw.moe, x)
+    _capture(cap, li, "ffn_gate.weight", x)
+    _capture(cap, li, "ffn_up.weight", x)
     if lw.w_gateup is not None:
         gu = linear_apply(lw.w_gateup, x)
         gate, up = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]
@@ -214,12 +232,13 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor) -> torch.Tensor:
         gate = linear_apply(lw.w_gate, x)
         up = linear_apply(lw.w_up, x)
     act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
+    _capture(cap, li, "ffn_down.weight", act)
     return linear_apply(lw.w_down, act)
 
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
             v_caches: list, mask_positions, cache_slots, last_idx=None,
-            slots: Optional[list] = None) -> torch.Tensor:
+            slots: Optional[list] = None, cap=None) -> torch.Tensor:
     """One decode/prefill step; returns logits [B, T, V] f32 (or [B, 1, V]
     with ``last_idx``). The index inputs ([B, T] int tokens, positions,
     mask positions (-1 = padded row) and cache slots) may live on the host:
@@ -227,7 +246,8 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     to the weights' device. A caller whose indices already live on the device
     passes those first ``slots`` (host ints, -1 for a padded lane) instead,
     so that nothing is read back; each layer takes its start slots from them
-    (modulo its ring). The caches are updated in place."""
+    (modulo its ring). The caches are updated in place. ``cap``, a dict,
+    receives each linear's input sums of squares (``_capture``)."""
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
@@ -238,9 +258,9 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     for li, lw in enumerate(w.layers):
         h = rms_norm(x, lw.attn_norm, cfg.rms_eps)
         x = x + attention(cfg, lw, h, positions, k_caches[li], v_caches[li],
-                          mask_dev, slots, li)
+                          mask_dev, slots, li, cap=cap)
         h = rms_norm(x, lw.ffn_norm, cfg.rms_eps)
-        x = x + ffn(cfg, lw, h)
+        x = x + ffn(cfg, lw, h, cap=cap, li=li)
     if last_idx is not None:
         idx = torch.as_tensor(last_idx).to(dev).clamp_min(0).to(torch.int64)
         x = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
@@ -554,18 +574,16 @@ def _linear_from_numpy(d, device):
 _LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
 _LAYER_TENSORS = ("attn_norm", "q_norm", "k_norm", "ffn_norm", "attn_sinks")
 _MOE_TENSORS = ("router", "gate", "up", "down", "gate_qs", "gate_eff", "up_qs", "up_eff",
-                "down_qs", "down_eff", "probs_bias", "router_bias", "gate_b", "up_b", "down_b")
+                "down_qs", "down_eff", "probs_bias", "router_bias", "gate_b", "up_b", "down_b",
+                "shared_gate", "shared_up", "shared_down")
 
 
 def _moe_from_numpy(d, device) -> Optional[MoEWeights]:
     """The JAX MoEWeights fields -> the port's: MXFP4, TCQ4 or dense bf16
-    stacks (bfloat16 arrays move bit for bit); shared experts raise."""
+    stacks and the dense shared expert (bfloat16 arrays move bit for bit)."""
     if d is None:
         return None
     kind = str(np.asarray(d.get("quant_kind", "tcq4")))
-    shared = [k for k in ("shared_gate", "shared_up", "shared_down") if d.get(k) is not None]
-    if shared:
-        raise NotImplementedError(f"MoE layer with {shared}: {SHARED_EXPERTS}")
     return MoEWeights(quant_kind=kind, **{k: _tensor(d.get(k), device) for k in _MOE_TENSORS})
 
 
@@ -576,9 +594,9 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     and ``layers[i]`` with ``attn_norm``, ``wqkv`` ({qs, eff, gather, bias}),
     ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), an MXFP4
     linear ({qs, scale, bias, n_logical}), ``attn_sinks``, ``moe`` (the
-    MoEWeights fields: MXFP4, TCQ4 or dense stacks) and so on; a TCQ4
-    linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None. Fields the port
-    does not carry yet (MLA, sandwich norms, shared experts) must be None."""
+    MoEWeights fields: MXFP4, TCQ4 or dense stacks, and a shared expert) and
+    so on; a TCQ4 linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None.
+    Fields the port does not carry yet (MLA, sandwich norms) must be None."""
     from rrs_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)

@@ -1,32 +1,41 @@
 """GGUF -> device weights.
 
 Port of ``load_model`` with ``_linear`` / ``_norm`` / ``_load_moe`` from
-``rrs_tpu/models/loader.py``: TCQ4_K32 tensors (with their ``tcq4.*.perm``
-channel permutations) decode on the host with the NumPy tile codec into the
-K-major kernel layout; Q8_0 matrices stay packed (Q8Linear, and the Q8_0
-embedding table when the head is untied); MXFP4 matrices and gpt-oss expert
-stacks stay packed in the device layout of ``ops/mxfp4_matmul.py``;
-F32/F16/BF16 become bf16 DenseLinears; a tied head is the transposed
-embedding. MoE expert stacks load as MXFP4 (gpt-oss), TCQ4_K32 (decoded per
-expert into the stacked kernel layout, eff rounded to bf16) or dense
-F32/F16/BF16 (transposed to [E, K, N] bf16); a quantized router is
-dequantized to the original domain. gpt-oss's router and expert biases, its
-per-head sinks (under either tensor name) and its pre-FFN norm (shipped as
-``post_attention_norm``) load as the JAX package loads them.
+``rrs_tpu/models/loader.py``. A path named ``<base>-NNNNN-of-NNNNN.gguf``
+opens the whole shard set (``tools.gguf_split.MultiGGUF``). TCQ4_K32 tensors
+(with their ``tcq4.*.perm`` channel permutations) decode on the host into the
+K-major kernel layout, through the native tile decode where it builds, else
+the NumPy tile codec (the same codes and f32 eff; eff is rounded to bf16
+either way, where the JAX package's native route keeps it f32); Q8_0 matrices
+stay packed (Q8Linear, and the Q8_0 embedding table when the head is
+untied); MXFP4 matrices and gpt-oss expert stacks stay packed in the device
+layout of ``ops/mxfp4_matmul.py``; every other type (F32/F16/BF16, the
+K-quants, legacy quants and i-quants) is dequantized by ``kquants`` into a
+bf16 DenseLinear; a tied head is the transposed embedding. MoE expert stacks
+load as MXFP4 (gpt-oss), TCQ4_K32 (decoded per expert into the stacked
+kernel layout, eff rounded to bf16) or dense (any other type, dequantized and
+transposed to [E, K, N] bf16); a quantized router is dequantized to the
+original domain; qwen2moe's shared expert (``ffn_{gate,up,down}_shexp``)
+loads dense, whatever its type, as in the JAX package, and its gate
+``ffn_gate_inp_shexp`` is ignored with a warning, as JAX ignores it.
+gpt-oss's router and expert biases, its per-head sinks (under either tensor
+name) and its pre-FFN norm (shipped as ``post_attention_norm``) load as the
+JAX package loads them.
 
-MLA, shared experts (ROADMAP A8c), recurrent and hybrid layers, sandwich
-norms, fused pre-packed qkv / gate-up tensors and split GGUFs raise
-NotImplementedError.
+MLA, recurrent and hybrid layers, sandwich norms and fused pre-packed qkv /
+gate-up tensors raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import warnings
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from rrs_tpu_torch import native
 from rrs_tpu_torch.device import resolve_device
 from rrs_tpu_torch.formats.tcq4 import effective_scales
 from rrs_tpu_torch.formats.tile_codec import decode_tcq4_gguf
@@ -38,9 +47,9 @@ from rrs_tpu_torch.models.linear import (DenseLinear, MXFP4Linear, Q8Linear, TCQ
 from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
 from rrs_tpu_torch.models.moe import MoEWeights
 from rrs_tpu_torch.ops.mxfp4_matmul import pack_mxfp4_device
+from rrs_tpu_torch.tools.gguf_split import SPLIT_RE, MultiGGUF
 
-_NOT_PORTED = ("attn_kv_a_mqa", "ssm_in", "time_mix_key", "attn_qkv", "post_ffw_norm",
-               "ffn_gate_shexp")
+_NOT_PORTED = ("attn_kv_a_mqa", "ssm_in", "time_mix_key", "attn_qkv", "post_ffw_norm")
 
 
 def _f32(g: GGUFFile, name: str) -> np.ndarray:
@@ -52,6 +61,22 @@ def _norm(g: GGUFFile, name: str, device, dtype=torch.bfloat16) -> torch.Tensor:
     return torch.from_numpy(_f32(g, name)).to(device=device, dtype=dtype)
 
 
+def _tcq4_codes(raw: np.ndarray, shape) -> tuple[np.ndarray, np.ndarray]:
+    """A TCQ4_K32 payload for a logical [N, K] weight -> (qs u8 [K//2, N],
+    eff f32 [K//32, N]): the native tile decode where it builds, else the
+    NumPy codec (the same bits)."""
+    if native.available():
+        return native.tcq4_decode_tiles(raw, shape[0], shape[1])
+    t = decode_tcq4_gguf(raw, shape)
+    return t.qs, effective_scales(t)
+
+
+def _dense(w: np.ndarray, device, dtype) -> DenseLinear:
+    """A bf16 DenseLinear from a logical [N, K] f32 weight."""
+    return DenseLinear(w=torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device,
+                                                                        dtype=dtype))
+
+
 def _linear(g: GGUFFile, name: str, device, dtype=torch.bfloat16,
             bias_name: Optional[str] = None):
     """A linear from GGUF tensor ``name`` (logical [N, K])."""
@@ -60,11 +85,9 @@ def _linear(g: GGUFFile, name: str, device, dtype=torch.bfloat16,
     if bias_name and bias_name in g.tensors:
         bias = torch.from_numpy(_f32(g, bias_name)).to(device)
     if info.ggml_type == GGMLType.TCQ4_K32:
-        t = decode_tcq4_gguf(g.tensor_bytes(name), info.shape)
-        perm = g.metadata.get(tcq4_perm_key(name))
-        if perm is not None:
-            t.perm = np.asarray(perm, np.int32)
-        return TCQ4Linear.from_tensor(t, bias=bias, device=device)
+        qs, eff = _tcq4_codes(g.tensor_bytes(name), info.shape)
+        return TCQ4Linear.from_arrays(qs, eff, perm=g.metadata.get(tcq4_perm_key(name)),
+                                      bias=bias, device=device)
     if info.ggml_type == GGMLType.Q8_0 and len(info.shape) == 2 and info.shape[1] % 32 == 0:
         return Q8Linear.from_q8_gguf(g.tensor_bytes(name), info.shape, bias=bias,
                                      device=device)
@@ -73,18 +96,18 @@ def _linear(g: GGUFFile, name: str, device, dtype=torch.bfloat16,
             raise NotImplementedError(f"{name}: MXFP4 {info.shape} needs a 2-D weight with "
                                       "K % 64 == 0")
         return MXFP4Linear.from_gguf(g.tensor_bytes(name), info.shape, bias=bias, device=device)
-    w = _f32(g, name)                                     # [N, K]
-    return DenseLinear(w=torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device,
-                                                                        dtype=dtype),
-                       bias=bias)
+    lin = _dense(_f32(g, name), device, dtype)            # any other type, dequantized
+    lin.bias = bias
+    return lin
 
 
 def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
     """MoEWeights of layer prefix ``p``: the router (x @ router, in
     ``dtype``), the gpt-oss router and per-expert biases (GGUF [E, N]
-    arrays), an expert-selection bias, and the expert stacks (GGUF gate / up
+    arrays), an expert-selection bias, a shared expert (dense bf16, [K, N]
+    like a DenseLinear's weight), and the expert stacks (GGUF gate / up
     [E, F, K], down [E, K, F]): MXFP4 packed per expert, TCQ4_K32 decoded per
-    expert, or dense."""
+    expert, or dense (any other type, dequantized)."""
     def f32(name):
         return torch.from_numpy(_f32(g, name)).to(device)
 
@@ -95,6 +118,9 @@ def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
                          ("ffn_down_exps.bias", "down_b")):
         if f"{p}.{tname}" in g.tensors:
             fields[field] = f32(f"{p}.{tname}")
+    for n in ("gate", "up", "down"):
+        if f"{p}.ffn_{n}_shexp.weight" in g.tensors:
+            fields[f"shared_{n}"] = _dense(_f32(g, f"{p}.ffn_{n}_shexp.weight"), device, dtype).w
     names = {n: f"{p}.ffn_{n}_exps.weight" for n in ("gate", "up", "down")}
     kind = g.tensors[names["gate"]].ggml_type
     if kind == GGMLType.MXFP4 and all(g.tensors[nm].shape[-1] % 64 == 0
@@ -114,16 +140,14 @@ def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
             info = g.tensors[name]
             raw = g.tensor_bytes(name)
             per = raw.size // info.shape[0]
-            ts = [decode_tcq4_gguf(raw[ei * per:(ei + 1) * per], info.shape[1:])
-                  for ei in range(info.shape[0])]
-            fields[f"{n}_qs"] = torch.from_numpy(np.stack([t.qs for t in ts])).to(device)
+            codes = [_tcq4_codes(raw[ei * per:(ei + 1) * per], info.shape[1:])
+                     for ei in range(info.shape[0])]
+            fields[f"{n}_qs"] = torch.from_numpy(np.stack([q for q, _ in codes])).to(device)
             fields[f"{n}_eff"] = torch.from_numpy(np.stack(
-                [effective_scales(t).astype(np.float32) for t in ts])).to(torch.bfloat16).to(device)
+                [e for _, e in codes])).to(torch.bfloat16).to(device)
         return MoEWeights(quant_kind="tcq4", **fields)
     for n, name in names.items():
-        if g.tensors[name].ggml_type not in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
-            raise NotImplementedError(f"{name}: {GGMLType(g.tensors[name].ggml_type).name} "
-                                      "expert stacks are not ported to rrs_tpu_torch")
+        # any other stack type is dequantized whole (the reader's kquants route)
         fields[n] = torch.from_numpy(np.ascontiguousarray(_f32(g, name).transpose(0, 2, 1))).to(
             device=device, dtype=dtype)
     return MoEWeights(**fields)
@@ -131,11 +155,12 @@ def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
 
 def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = None,
                device=None):
-    """Load a GGUF model onto ``device`` (``None`` = cuda), with the
-    q/k/v and gate/up projections fused where ``fuse_linears`` can.
+    """Load a GGUF model (one file, or any shard of a ``-NNNNN-of-NNNNN``
+    set) onto ``device`` (``None`` = cuda), with the q/k/v and gate/up
+    projections fused where ``fuse_linears`` can.
     Returns (config, weights, metadata)."""
     dev = resolve_device(device)
-    g = read_gguf(path)
+    g = MultiGGUF(path) if SPLIT_RE.match(Path(path).name) else read_gguf(path)
     try:
         if overrides:
             g.metadata.update(overrides)
@@ -149,6 +174,10 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
             if any(part in parts for part in _NOT_PORTED) or (
                     "post_attention_norm" in parts and cfg.arch != "gpt-oss"):
                 raise NotImplementedError(f"tensor {tname}: layer kind not ported to rrs_tpu_torch")
+        if any(t.endswith("ffn_gate_inp_shexp.weight") for t in g.tensors):
+            warnings.warn(f"{path}: ffn_gate_inp_shexp (the shared expert's gate) is ignored and "
+                          "the shared expert is added ungated, as the JAX package does; the "
+                          "outputs differ from the published model's", stacklevel=2)
         layers = []
         for i in range(cfg.n_layers):
             p = f"blk.{i}"

@@ -5,8 +5,9 @@ Port of ``rrs_tpu/models/moe.py``: ``MoEWeights``, ``quantize_experts``, the
 router ``route`` (softmax or sigmoid gating with the post-top-k norm, the
 selection bias, expert groups, and gpt-oss's top-k on the raw logits plus
 router bias then a softmax over the k), the ``swiglu_oai`` activation, the
-capacity dispatch, and every branch of ``moe_ffn`` but shared experts, chosen
-by token count as there.
+capacity dispatch, every branch of ``moe_ffn``, chosen by token count as
+there, and qwen2moe's dense SwiGLU shared expert, added to the routed output
+with no gate, as in the JAX package.
 
 Packed stacks: MXFP4 (gpt-oss) is weights-only, with bf16 activations; TCQ4
 (qwen3moe) is W4A4, its activations RRS-rotated and int4 quantize-dequantized
@@ -30,8 +31,7 @@ JAX package, where no Pallas kernel computes them.
 The decode-sized branches read nothing back to the host, so a device decode
 run stays free of syncs; the capacity branch reads the largest expert count
 once per layer, and only when C can overflow (JAX decides with a
-``lax.cond`` on the device). Shared experts (qwen2moe) raise
-NotImplementedError: ROADMAP A8c.
+``lax.cond`` on the device).
 """
 
 from __future__ import annotations
@@ -45,13 +45,10 @@ import torch
 from rrs_tpu_torch.formats.tcq4 import (dequantize_activations_rrs, effective_scales,
                                         quantize_activations_rrs, quantize_tcq4)
 from rrs_tpu_torch.models.config import ModelConfig
-from rrs_tpu_torch.models.linear import rotate_activations
+from rrs_tpu_torch.models.linear import _dense_matmul, rotate_activations
 from rrs_tpu_torch.ops.mxfp4_matmul import (_round_up, mxfp4_matmul, mxfp4_matmul_all_experts,
                                             mxfp4_matmul_experts_rows)
 from rrs_tpu_torch.ops.tcq4_matmul import tcq4_matmul_all_experts, tcq4_matmul_experts_rows
-
-SHARED_EXPERTS = "shared experts (qwen2moe) are not ported to rrs_tpu_torch yet: ROADMAP A8c"
-
 
 @dataclasses.dataclass
 class MoEWeights:
@@ -59,7 +56,9 @@ class MoEWeights:
     dense bf16 stacks ``gate`` / ``up`` [E, n_embd, n_ff_exp] and ``down``
     [E, n_ff_exp, n_embd], or packed stacks ``*_qs`` uint8 [E, K//2, N] with
     ``*_eff`` (TCQ4: bf16 [E, K//32, N] group scales; MXFP4: uint8 exponents,
-    N possibly padded), the field names of the JAX package."""
+    N possibly padded), the field names of the JAX package; qwen2moe adds a
+    dense shared expert ``shared_gate`` / ``shared_up`` [n_embd, F_sh] and
+    ``shared_down`` [F_sh, n_embd] (bf16, x @ w)."""
 
     router: torch.Tensor
     gate: Optional[torch.Tensor] = None
@@ -78,6 +77,9 @@ class MoEWeights:
     gate_b: Optional[torch.Tensor] = None
     up_b: Optional[torch.Tensor] = None
     down_b: Optional[torch.Tensor] = None
+    shared_gate: Optional[torch.Tensor] = None
+    shared_up: Optional[torch.Tensor] = None
+    shared_down: Optional[torch.Tensor] = None
     quant_kind: str = "tcq4"          # codec of the packed stacks: "tcq4" | "mxfp4"
 
     @property
@@ -329,4 +331,10 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
     if mw.down_b is not None:
         # the per-expert down bias, once after the combine, weighted by topv
         out = out + (mw.down_b[topi] * topv[..., None]).sum(1)
+    if mw.shared_gate is not None:
+        # the shared expert, on every token, added with no gate
+        g = _dense_matmul(x2, mw.shared_gate)
+        u = _dense_matmul(x2, mw.shared_up)
+        act = (torch.nn.functional.silu(g) * u).to(x.dtype)
+        out = out + _dense_matmul(act, mw.shared_down)
     return out.reshape(b, t, e).to(x.dtype)

@@ -1,8 +1,8 @@
 """Tokenizers: SPM (sentencepiece-style) and byte-level BPE, from GGUF vocab.
 
 Host code copied from ``rrs_tpu/models/vocab.py`` for the two models this
-slice serves (``llama`` SPM and ``gpt2`` BPE), without the native BPE merge
-engine and the grammar token trie; other tokenizer models raise
+slice serves (``llama`` SPM and ``gpt2`` BPE), with the native BPE merge loop
+of ``rrs_tpu_torch.native`` where it builds, without the grammar token trie; other tokenizer models raise
 NotImplementedError. Behaviour of src/llama-vocab.cpp:
   * SPM (llm_tokenizer_spm): utf-8 symbols, best-score bigram merging with a
     priority queue, byte fallback <0xXX>, space -> U+2581 escaping.
@@ -397,6 +397,7 @@ class Vocab:
 
         enc = _byte_encoder()
         out: list[int] = []
+        native_h = self._native_bpe_handle()
         ignore_merges = self.pre in _IGNORE_MERGES_PRE
         for word in words:
             frag = "".join(enc[b] for b in word.encode("utf-8"))
@@ -406,6 +407,13 @@ class Vocab:
                 tid = self._token_to_id.get(frag)
                 if tid is not None:
                     out.append(tid)
+                    continue
+            if native_h is not None:
+                from rrs_tpu_torch import native
+
+                ids = native.bpe_encode(native_h, frag)
+                if ids is not None:
+                    out.extend(ids)
                     continue
             pieces = self._bpe_merge(list(frag))
             for p in pieces:
@@ -418,6 +426,18 @@ class Vocab:
                         if tid is not None:
                             out.append(tid)
         return out
+
+    def _native_bpe_handle(self):
+        """The native BPE merge loop's session for this vocabulary, built at
+        first use; None without merges or without the library (the Python
+        loop below then merges)."""
+        if not hasattr(self, "_bpe_native"):
+            self._bpe_native = None
+            if self.merges:
+                from rrs_tpu_torch import native
+
+                self._bpe_native = native.bpe_session(self.tokens, self.merges)
+        return self._bpe_native
 
     def _bpe_merge(self, pieces: list[str]) -> list[str]:
         ranks = self._merge_ranks
