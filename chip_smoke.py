@@ -85,7 +85,29 @@ it; exits non-zero without either, and on any failed phase. Phases:
    linears each also run B17 and B18 on their own activations, held the
    same way, with the int4 codes that differ from the model's rotation
    counted;
-10. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
+10. the rest of the server at qwen3-4b width (the synthetic vocabulary with
+   three FIM ids, 4 slots, ctx 2048): a ``json_schema`` request alone (the
+   optimistic path must resample), then a greedy and a sampled
+   ``[a-z ]+`` grammar, a ``response_format: json_object`` chat and a lazy
+   grammar with a trigger word at once, every text accepted as a prefix by
+   a fresh host grammar; the ``[a-z ]+`` token DFA compiled in a spawned
+   process (≤ 4 states) and a later request's runs carrying it with no
+   resample, timed beside the same request without a grammar; one DFA run
+   stepped on the card, its state trajectory equal to the host DFA's walk;
+   ``/v1/embeddings`` of 40 and 300 tokens (B4 and B5 held to their plain
+   versions), ``/rerank`` of 3 documents, ``/infill``, ``/v1/messages``
+   (streamed and not), ``GET /`` equal to the port's ``webui.html``; a
+   2-layer dense model's ``embed`` on the card against the CPU (GLUE_TOL),
+   and its self-draft, whose decode logits must agree with the verify
+   chunk's within GLUE_TOL at every drafted position;
+   ``generate_speculative`` at qwen3-4b width with the target as its own
+   draft (one round's launches held to their plain versions; that drift,
+   W4A4's B1 against B4, reported) and with a fabricated qwen3-0.6b
+   draft, their acceptance and agreement with plain greedy decode
+   reported; ``Engine`` with the 0.6b draft on 4 concurrent greedy
+   requests and ``generate_lookup`` on a repetitive prompt, their drafted
+   and accepted counts reported;
+11. gpt-oss-20b (the qwen3-4b tensors freed first): B11-B13 against their
    plain versions at gpt-oss shapes (B11 at M = 4, 300 and 2048, B12 at
    n_sel = 4 and 16, also with ids outside [0, E), and B13 over shared T =
    64 and per-expert C = 128, each bit-equal across two launches), timed
@@ -104,7 +126,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    shape again unheld under torch.profiler (B11's share of an overflow-scan
    prefill step); one capacity-path prefill run twice, its logits held
    bit-equal;
-11. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
+12. Qwen3-30B-A3B (the gpt-oss tensors freed first): B9, B10 and B19
    (``tcq4_matmul_experts``, no model path calls it) against their plain
    versions at its shapes (B9 at n_sel = 8 and 32, also with ids outside
    [0, E); B10 over per-expert C = 64 with bf16 and f32 rows, per-expert C
@@ -124,7 +146,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    slots, ctx 4096, four 1000 / 2000-token requests); a teacher-forced
    4-lane prefill chunk and decode step, every B9 launch also running B19
    on its rows and ids, whose diagonal must match B9;
-12. the GGUF pipeline at qwen3-4b's widths cut to 2 layers, each verb a
+13. the GGUF pipeline at qwen3-4b's widths cut to 2 layers, each verb a
    process of its own (the native host codec built in phase 1 and required;
    the host encoders timed first): the port's exporter writes F16 GGUFs;
    ``imatrix`` on the card, its mean squares per tensor held to the CPU
@@ -133,11 +155,14 @@ it; exits non-zero without either, and on any failed phase. Phases:
    ``gguf-split --split 2`` and ``generate`` from the first shard and from
    the unsplit file, greedy text identical; a teacher-forced prefill and
    decode step from the TCQ4 file on the card, every launch held to its
-   plain version, the logits drift against the CPU reported; then
+   plain version, the logits drift against the CPU reported; the model
+   router: a server on the tiny preset ``/models/load``s the TCQ4 file
+   under a name, answers a completion routed to it and ``/models/unload``s
+   it, the card's allocated memory back within 0.1 GB; then
    ``quantize --type q4_k_m --imatrix`` on a 1-layer model with 4,096
-   tokens (it runs beside phase 13), ``generate`` and ``perplexity`` on it,
+   tokens (it runs beside phase 14), ``generate`` and ``perplexity`` on it,
    and its logits on the card within GLUE_TOL of the CPU's;
-13. Qwen2-57B-A14B (config from ``ModelConfig.from_gguf`` on its published
+14. Qwen2-57B-A14B (config from ``ModelConfig.from_gguf`` on its published
    metadata): a 2-layer qwen2moe model at reduced widths on the card
    against the CPU, with dense experts (logits within GLUE_TOL) and TCQ4
    experts (every launch held to plain, drift reported), both with the
@@ -146,12 +171,13 @@ it; exits non-zero without either, and on any failed phase. Phases:
    experts, Q8_0 lm_head) over prompts that take the rows, capacity and
    scan branches, with launch counts; on the same 28 layers, teacher-forced
    prefills of 40 tokens and of 300 copies and a decode step each, every
-   launch held to its plain version; after the Q4_K_M part of phase 12 (no
+   launch held to its plain version; after the Q4_K_M part of phase 13 (no
    verb process beside them), decode profiles with and without the shared
    expert, whose difference is its device time a step;
-14. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+15. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 12 and 13 also carry ``launches_gguf_tcq4`` / ``launches_qwen2moe``),
+   phases 10, 13 and 14 also carry ``launches_server_rest`` /
+   ``launches_gguf_tcq4`` / ``launches_qwen2moe``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1063,6 +1089,7 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    t_prof = time.perf_counter()
     seq = ctx.new_sequence()
     try:
         ctx.prefill(seq, prompt)
@@ -1092,7 +1119,8 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
           f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
           f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / steps:.0f} kernels/step; "
           f"device ms/step by kernel: {split}", flush=True)
-    print(f"  decode profile, host ms/step by op: {host_top(prof, steps)}", flush=True)
+    print(f"  decode profile, host ms/step by op: {host_top(prof, steps)} "
+          f"({time.perf_counter() - t_prof:.1f} s with the profiler's reading)", flush=True)
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "idle": 1 - dev_ms / wall_ms,
             "kernels": len(kernels) / steps, "by_kernel": {k: v / steps for k, v in by_name.items()}}
 
@@ -1177,14 +1205,16 @@ def kernel_label(name: str) -> str:
     return next((v for k, v in KERNEL_NAMES.items() if k in name), "other")
 
 
-def synthetic_vocab(n: int):
+def synthetic_vocab(n: int, fim: bool = False):
     """The char-level gpt2 vocabulary of tests/test_server.py at the model's
-    width: token i is a printable char, or <tok{i}> past U+02FF."""
+    width: token i is a printable char, or <tok{i}> past U+02FF. ``fim``:
+    the last three ids are the fill-in-the-middle tokens."""
     from rrs_tpu_torch.models.vocab import Vocab
 
     toks = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(n)]
+    ids = dict(fim_pre_id=n - 3, fim_suf_id=n - 2, fim_mid_id=n - 1) if fim else {}
     return Vocab(model="gpt2", tokens=toks, scores=None, token_types=[1] * n, merges=[],
-                 pre="gpt-2", bos_id=0, eos_id=1, add_bos=False)
+                 pre="gpt-2", bos_id=0, eos_id=1, add_bos=False, **ids)
 
 
 def _http(port, method, path, body=None, timeout=900):
@@ -1439,13 +1469,16 @@ def prefill_four(ctx):
 def profile_decode_run(ctx, seqs, first, lengths, label: str = "bf16 KV"):
     """Where a served decode step's time goes: one sampled 4-lane device run
     (the server's default chain) timed by the host clock to its readback,
-    then one more under torch.profiler."""
+    then one more under torch.profiler. The runs are 8 steps, not the
+    server's 24: per step they cost the same, and the profiler's reading of
+    a 24-step run's ~150,000 kernel events took over a minute of host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rrs_tpu_torch.runtime.sampler import SamplerParams
 
-    n = ctx.DECODE_RUN_STEPS
+    t_prof = time.perf_counter()
+    n = min(8, ctx.DECODE_RUN_STEPS)
     params = SamplerParams(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05)
 
     def run():
@@ -1475,7 +1508,8 @@ def profile_decode_run(ctx, seqs, first, lengths, label: str = "bf16 KV"):
           f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
           f"{1 - dev_ms / wall_ms:.3f}, {len(events) / n:.0f} kernels/step; device ms/step "
           f"by kernel: {split}", flush=True)
-    print(f"  decode-run profile, {label}, host ms/step by op: {host_top(prof, n)}", flush=True)
+    print(f"  decode-run profile, {label}, host ms/step by op: {host_top(prof, n)} "
+          f"({time.perf_counter() - t_prof:.1f} s with the profiler's reading)", flush=True)
 
 
 @contextlib.contextmanager
@@ -3624,7 +3658,7 @@ def phase_gguf_pipeline(name: str, reports, tmp):
 
     ``quantize --type q4_k_m --imatrix`` starts in the background beside the
     TCQ4 steps and is left running (Q4_K's host encoder takes about two
-    minutes), so that phase 13 drives the card meanwhile; returns its handle
+    minutes), so that phase 14 drives the card meanwhile; returns its handle
     and the prompt for ``phase_gguf_q4km``, which finishes the pipeline."""
     import dataclasses
 
@@ -3719,13 +3753,13 @@ def phase_gguf_pipeline(name: str, reports, tmp):
                        ("fa", "flash_attention")):
         reports[key].entry["launches_gguf_tcq4"] = launches.get(kname, 0)
     torch.cuda.empty_cache()
-    print(f"  phase 12 leaves the Q4_K_M quantization running "
+    print(f"  phase 13 leaves the Q4_K_M quantization running "
           f"({time.perf_counter() - q4_run[3]:.1f} s in)", flush=True)
     return q4_run, prompt
 
 
 def phase_gguf_q4km(q4_run, prompt, tmp):
-    """The rest of phase 12: wait for the Q4_K_M quantization that
+    """The rest of phase 13: wait for the Q4_K_M quantization that
     ``phase_gguf_pipeline`` left running in ``tmp``, then ``generate`` and
     ``perplexity`` on its file, its mix stats printed, and its logits on the
     card within GLUE_TOL of the CPU port's."""
@@ -3796,7 +3830,7 @@ def with_shared_experts(w, n_ff_shared: int, seed: int, device):
 
 
 def qwen2moe_small_cfg():
-    """qwen2moe at reduced widths, as phase 11 cuts qwen3moe: 2 layers, E =
+    """qwen2moe at reduced widths, as phase 12 cuts qwen3moe: 2 layers, E =
     1024, 16 heads on 4 kv heads x 64, 32 experts of 512 top-8, qkv biases;
     the shared expert (4,096 wide, eight experts' width as in Qwen2-57B-A14B)
     is added by ``with_shared_experts``."""
@@ -3810,7 +3844,7 @@ def qwen2moe_small_cfg():
 
 def phase_qwen2moe_small_reference():
     """A 2-layer qwen2moe model (qwen2moe_small_cfg) on the card against the
-    same weights on the CPU, as phase 11 runs qwen3moe's: prompts of 40
+    same weights on the CPU, as phase 12 runs qwen3moe's: prompts of 40
     tokens (capacity), 300 random ones and 300 copies of one token (the
     overflow), each with one decode step (rows), with dense bf16 experts
     (logits within GLUE_TOL) and with fabricated TCQ4 attention and experts
@@ -4020,6 +4054,488 @@ def phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes):
               f"at 3.35 TB/s; both profiles {time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _grammar_holds(label: str, text: str, gbnf: str, lazy_words=()) -> None:
+    """A served text must be accepted, as a prefix, by a fresh host grammar
+    (a lazy one fed as the engine feeds it: unconstrained until a trigger
+    word, then character by character)."""
+    from rrs_tpu_torch.runtime.grammar import Grammar
+
+    g = Grammar(gbnf, lazy=bool(lazy_words), trigger_words=list(lazy_words))
+    ok = True
+    for ch in text:
+        if g.awaiting_trigger:
+            g.feed_token(-1, ch)
+        elif not g.accept_text(ch):
+            ok = False
+            break
+    if not ok:
+        raise AssertionError(f"{label}: served text {text!r} breaks its grammar {gbnf!r}")
+
+
+def _sse_events(data: bytes) -> list:
+    return [json.loads(line[6:]) for line in data.decode().split("\n")
+            if line.startswith("data: {")]
+
+
+def self_draft_drift(target, draft, prompt, n_new: int, n_draft: int = 4):
+    """``generate_speculative`` with a draft context on the target's own
+    weights, recording the draft's decode logits and each verify chunk's:
+    at every drafted position both saw the same tokens, so a draft or
+    target cache out of step shows as logits that part. Returns (tokens,
+    stats, the largest rel L2 between a draft row and its verify row)."""
+    import torch
+
+    from rrs_tpu_torch.runtime.speculative import generate_speculative
+
+    rows = {"draft": [], "verify": []}
+    decode, prefill = draft.decode, target.prefill
+
+    def draft_decode(seq_tokens):
+        out = decode(seq_tokens)
+        rows["draft"].append(next(iter(out.values())).float().cpu())
+        return out
+
+    def target_prefill(seq, tokens, all_logits=True):
+        out = prefill(seq, tokens, all_logits)
+        if len(tokens) == n_draft + 1:
+            rows["verify"].append(out[:n_draft].float().cpu())
+        return out
+
+    draft.decode, target.prefill = draft_decode, target_prefill
+    out, st = generate_speculative(target, draft, prompt, n_new, n_draft=n_draft)
+    if len(rows["draft"]) != n_draft * len(rows["verify"]) or not rows["verify"]:
+        raise AssertionError(f"self-draft: {len(rows['draft'])} draft steps for "
+                             f"{len(rows['verify'])} verify chunks")
+    drift = 0.0
+    for r, ver in enumerate(rows["verify"]):
+        for k in range(n_draft):
+            d = rows["draft"][r * n_draft + k]
+            drift = max(drift, float(((d - ver[k]).norm() / ver[k].norm()).item()))
+    return out, st, drift
+
+
+REST_SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                                "age": {"type": "integer"}},
+               "required": ["name", "age"]}
+
+
+def phase_server_rest(cfg, weights, reports):
+    """The rest of the server at qwen3-4b width (``Engine`` over a 4-lane,
+    2048-token context; the synthetic vocabulary with three FIM ids): the
+    grammar options over HTTP, embeddings, rerank, infill, /v1/messages and
+    the web UI, then speculative and prompt-lookup decoding. Every response
+    must answer 200 and every hold raises on failure."""
+    import torch
+    from http.server import ThreadingHTTPServer
+    from pathlib import Path
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.json_schema import json_schema_to_gbnf
+    from rrs_tpu_torch.runtime.lookup import generate_lookup
+    from rrs_tpu_torch.runtime.speculative import generate_speculative
+    from rrs_tpu_torch.serving import engine as engine_mod
+    from rrs_tpu_torch.serving.engine import Engine, GenRequest
+    from rrs_tpu_torch.serving.server import WEBUI, ServerState, make_handler
+    from rrs_tpu_torch.runtime.sampler import SamplerParams
+
+    t_phase = time.perf_counter()
+    vocab = synthetic_vocab(cfg.vocab_size, fim=True)
+    t0 = time.perf_counter()
+    vocab.pieces()
+    vocab.token_trie()
+    print(f"  vocabulary pieces and token trie ({cfg.vocab_size} tokens) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=2048)
+    # a grammar violation costs the rest of its run: short runs while the
+    # optimistic path serves, the default length for the timed requests
+    run_steps = ctx.DECODE_RUN_STEPS
+    ctx.DECODE_RUN_STEPS = 8
+    engine = Engine(ctx)
+    state = ServerState(cfg, vocab, engine, {}, "qwen3-4b-fabricated")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    rng = torch.Generator().manual_seed(17)
+    ids = lambda n: torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()  # noqa: E731
+    chat = [{"role": "user", "content": "Give me a record."}]
+    gbnf_az = "root ::= [a-z ]+"
+    key_az = (gbnf_az, cfg.vocab_size)
+    with engine_mod._DFA_LOCK:
+        engine_mod._DFA_CACHE.pop(key_az, None)
+
+    def post(path, body):
+        t1 = time.perf_counter()
+        status, data = _http(port, "POST", path, body)
+        if status != 200:
+            raise AssertionError(f"server rest: {path} answered {status}: {data[:300]!r}")
+        return data, time.perf_counter() - t1
+
+    def completion_text(data):
+        c = json.loads(data)["choices"][0]
+        return c["message"]["content"] if "message" in c else c["text"]
+
+    engine.start()
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        kernels.reset_launches()
+        # 1) the schema request alone: random weights make most tokens
+        # illegal, so the optimistic path must resample
+        r0 = engine.n_resampled
+        data, dt = post("/v1/completions", {"prompt": ids(30), "json_schema": REST_SCHEMA,
+                                            "max_tokens": 6, "temperature": 0.0})
+        text = completion_text(data)
+        _grammar_holds("json_schema", text, json_schema_to_gbnf(REST_SCHEMA))
+        n_res_schema = engine.n_resampled - r0
+        if n_res_schema < 1:
+            raise AssertionError("json_schema request: the optimistic path never resampled")
+        print(f"  json_schema (required name, age): {text!r} in {dt:.1f} s, "
+              f"{n_res_schema} candidate resamples", flush=True)
+        # 2) four grammar requests at once
+        jobs = {"grammar greedy": ("/v1/completions", {"prompt": ids(20), "grammar": gbnf_az,
+                                                       "max_tokens": 8, "temperature": 0.0},
+                                   gbnf_az, ()),
+                "grammar sampled": ("/v1/completions", {"prompt": ids(20), "grammar": gbnf_az,
+                                                        "max_tokens": 8, "temperature": 0.8,
+                                                        "seed": 3}, gbnf_az, ()),
+                "json_object chat": ("/v1/chat/completions",
+                                     {"messages": chat, "max_tokens": 6, "temperature": 0.0,
+                                      "response_format": {"type": "json_object"}},
+                                     json_schema_to_gbnf({}), ()),
+                "lazy grammar": ("/v1/completions",
+                                 {"prompt": ids(20), "grammar": 'root ::= "a" [a-z]+',
+                                  "grammar_triggers": [{"type": "word", "value": "a"}],
+                                  "max_tokens": 12, "temperature": 0.0},
+                                 'root ::= "a" [a-z]+', ("a",))}
+        results = {}
+
+        def run(name):
+            path, body, _, _ = jobs[name]
+            results[name] = post(path, body)
+
+        threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if set(results) != set(jobs):
+            raise AssertionError(f"grammar requests: {set(jobs) - set(results)} did not answer")
+        for name, (data, dt) in results.items():
+            text = completion_text(data)
+            _grammar_holds(name, text, jobs[name][2], jobs[name][3])
+            print(f"  {name}: {text!r} ({dt:.1f} s)", flush=True)
+        # 3) the [a-z ]+ DFA, compiled in a spawned process since the first
+        # such request
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 120:
+            with engine_mod._DFA_LOCK:
+                if key_az in engine_mod._DFA_CACHE:
+                    break
+            time.sleep(0.1)
+        with engine_mod._DFA_LOCK:
+            dfa = engine_mod._DFA_CACHE.get(key_az)
+            compile_s = engine_mod.DFA_COMPILE_S.get(key_az, float("nan"))
+        if dfa is None or dfa.masks.shape[0] > 4:
+            raise AssertionError(f"the [a-z ]+ token DFA did not compile within 4 states: "
+                                 f"{None if dfa is None else dfa.masks.shape}")
+        print(f"  [a-z ]+ token DFA: {dfa.masks.shape[0]} states x {dfa.masks.shape[1]} tokens, "
+              f"compiled in a spawned process in {compile_s:.2f} s", flush=True)
+        # 4) the DFA request alone at the default run length, then the same
+        # request without a grammar: served tok/s with and without
+        ctx.DECODE_RUN_STEPS = run_steps
+        prompt = ids(40)
+        speeds = {}
+        for name, extra in (("DFA grammar", {"grammar": gbnf_az}), ("no grammar", {})):
+            d0, r0 = engine.n_dfa_runs, engine.n_resampled
+            data, dt = post("/v1/completions", {"prompt": prompt, "max_tokens": 64,
+                                                "temperature": 0.0, **extra})
+            out = json.loads(data)
+            tm = out["timings"]
+            n = out["usage"]["completion_tokens"]
+            speeds[name] = (n - 1) / max(tm["predicted_ms"] / 1e3, 1e-9)
+            if extra:
+                _grammar_holds(name, completion_text(data), gbnf_az)
+                if engine.n_dfa_runs == d0 or engine.n_resampled != r0:
+                    raise AssertionError(f"DFA request: {engine.n_dfa_runs - d0} DFA runs, "
+                                         f"{engine.n_resampled - r0} resamples (want > 0, 0)")
+                print(f"  DFA request: {engine.n_dfa_runs - d0} device runs carried the DFA, "
+                      f"0 candidate resamples", flush=True)
+        print(f"  served decode tok/s, one request of 64 tokens alone (runs of {run_steps}): "
+              f"DFA grammar {speeds['DFA grammar']:.2f}, no grammar {speeds['no grammar']:.2f}",
+              flush=True)
+        # 5) embeddings (B4 at 40 rows, B5 at 300), rerank, infill, messages
+        lat = {}
+        for n in (40, 300, 40, 300):                  # the second of each is timed
+            data, lat[n] = post("/v1/embeddings", {"input": [ids(n)]})
+        kernels.reset_launches()
+        with held_to_plain("embeddings", {"tcq4_matmul", "tcq4_matmul_i8p",
+                                          "flash_attention"}) as seen:
+            for n in (40, 300):
+                data, _ = post("/v1/embeddings", {"input": [ids(n)]})
+                vec = torch.tensor(json.loads(data)["data"][0]["embedding"])
+                if vec.shape != (cfg.n_embd,) or not torch.isfinite(vec).all():
+                    raise AssertionError(f"embedding of {n} tokens: {tuple(vec.shape)}")
+        emb_launches = {k: kernels.LAUNCHES[v] for k, v in COUNTERS.items()}
+        print(f"  /v1/embeddings (mean pooling) request latency: 40 tokens "
+              f"{lat[40] * 1e3:.1f} ms, 300 tokens {lat[300] * 1e3:.1f} ms; held: launches "
+              f"{emb_launches}, each vs its plain version (max rel): "
+              + ", ".join(f"{k} {v[0]:.2e} (shapes {sorted(v[1])})" for k, v in seen.items()),
+              flush=True)
+        data, dt = post("/rerank", {"query": "graphics cards", "top_n": 3,
+                                    "documents": ["gpus and tensor cores", "a recipe for soup",
+                                                  "memory bandwidth of accelerators"]})
+        res = json.loads(data)["results"]
+        scores = [r["relevance_score"] for r in res]
+        if len(res) != 3 or scores != sorted(scores, reverse=True) or not all(
+                math.isfinite(s) for s in scores):
+            raise AssertionError(f"rerank: {res}")
+        print(f"  /rerank of 3 documents in {dt * 1e3:.0f} ms: "
+              f"{[(r['index'], round(r['relevance_score'], 3)) for r in res]}", flush=True)
+        data, dt = post("/infill", {"input_prefix": "def add(a, b):", "input_suffix": "return c",
+                                    "max_tokens": 8})
+        out = json.loads(data)
+        if out["stop_type"] not in ("stop", "length") or not isinstance(out["content"], str) \
+                or out["tokens_predicted"] > 8:
+            raise AssertionError(f"infill: {out}")
+        print(f"  /infill: {out['content']!r} ({out['tokens_predicted']} tokens, stop "
+              f"{out['stop_type']}, {dt:.1f} s)", flush=True)
+        data, dt = post("/v1/messages", {"messages": chat, "system": "be brief",
+                                         "max_tokens": 8, "temperature": 0.0})
+        msg = json.loads(data)
+        if msg["type"] != "message" or msg["usage"]["output_tokens"] < 1:
+            raise AssertionError(f"/v1/messages: {msg}")
+        data, _ = post("/v1/messages", {"messages": chat, "system": "be brief",
+                                        "max_tokens": 8, "temperature": 0.0, "stream": True})
+        events = _sse_events(data)
+        kinds = [e["type"] for e in events]
+        streamed = "".join(e["delta"]["text"] for e in events
+                           if e["type"] == "content_block_delta")
+        if kinds[:2] != ["message_start", "content_block_start"] or kinds[-3:] != [
+                "content_block_stop", "message_delta", "message_stop"]:
+            raise AssertionError(f"/v1/messages stream events: {kinds}")
+        n_streamed = events[-2]["usage"]["output_tokens"]
+        if not 1 <= n_streamed <= 8:
+            raise AssertionError(f"/v1/messages stream: {n_streamed} output tokens")
+        # the streamed request reuses the first one's prompt cache, so its
+        # prefill runs other row counts and W4A4 greedy text may part
+        print(f"  /v1/messages: {msg['content'][0]['text']!r} ({msg['stop_reason']}); "
+              f"streamed in {len(events)} events, {n_streamed} tokens: {streamed!r}", flush=True)
+        status, page = _http(port, "GET", "/")
+        if status != 200 or page != WEBUI.read_bytes():
+            raise AssertionError(f"GET /: {status}, {len(page)} bytes")
+        rest_launches = {k: kernels.LAUNCHES[v] for k, v in COUNTERS.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    for key, n in rest_launches.items():
+        reports[key].entry["launches_server_rest"] = n
+    print(f"  launches since the embeddings (embeddings, rerank, infill, messages): "
+          f"{rest_launches}; server part {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # 6) the trajectory of the DFA states on the card, one step a run
+    seq = ctx.new_sequence()
+    first = int(ctx.prefill(seq, ids(20), all_logits=False)[-1].argmax())
+    gm, gt = engine._dfa_device(dfa)
+    gen = torch.Generator(device=ctx.device).manual_seed(5)
+    p = SamplerParams(temperature=0.8, top_k=40, top_p=0.95)
+    h = ctx.decode_run_start({seq: first}, {seq: gen}, {seq: p}, 1, dfa=(gm, gt, {seq: 0}))
+    lane = h["lanes"][seq]
+    toks, states = [], []
+    for i in range(8):
+        if i:
+            h = ctx.decode_run_start({seq: None}, {seq: gen}, {seq: p}, 1, chain=h)
+        toks.append(int(h["toks"][lane, 0]))
+        states.append(int(h["gstate"][lane]))
+    walk, host = 0, []
+    for t in toks:
+        if not dfa.masks[walk, t]:
+            raise AssertionError(f"DFA run: token {t} is illegal in state {walk}")
+        walk = int(dfa.trans[walk, t])
+        host.append(walk)
+    if states != host:
+        raise AssertionError(f"DFA run: card states {states} vs the host walk {host}")
+    print(f"  one DFA run (8 sampled steps): the card's gstate trajectory {states} equals the "
+          f"host DFA's walk over the card's tokens {toks}", flush=True)
+    ctx.kv.seq_rm(seq)
+    del ctx, engine, state, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7) a 2-layer glue hold: embed on the card against the CPU, dense bf16
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    gcfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=8,
+                       head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
+                       rope_theta=1e6, qk_norm=True)
+    dense = llama.random_weights(gcfg, seed=1, device="cpu")
+    toks = list(range(7, 47))
+    rows = []
+    for pooling in ("mean", "last"):
+        got = InferenceContext(gcfg, llama.to_device(dense, "cuda"), max_seq=64).embed(
+            toks, pooling)
+        ref = InferenceContext(gcfg, dense, max_seq=64, device="cpu").embed(toks, pooling)
+        rel = float(((torch.from_numpy(got) - torch.from_numpy(ref)).norm()
+                     / torch.from_numpy(ref).norm()).item())
+        if not (got.shape == ref.shape and math.isfinite(rel) and rel <= GLUE_TOL):
+            raise AssertionError(f"embed {pooling} on the card vs the CPU: rel L2 {rel:.4f} "
+                                 f"> {GLUE_TOL}")
+        rows.append(f"{pooling} rel L2 {rel:.4f}")
+    print(f"  2-layer dense embed, card vs CPU (40 tokens): {', '.join(rows)} <= {GLUE_TOL}",
+          flush=True)
+    # its self-draft: on dense weights the draft's decode step and the
+    # verify chunk see the same cache, so their logits must agree
+    mkd = lambda: InferenceContext(gcfg, dense_card, n_lanes=1, max_seq=256)   # noqa: E731
+    dense_card = llama.to_device(dense, "cuda")
+    out, st, drift = self_draft_drift(mkd(), mkd(), toks, 32)
+    plain = mkd().generate(toks, 32)
+    if drift > GLUE_TOL:
+        raise AssertionError(f"2-layer dense self-draft: the draft's decode logits and the "
+                             f"verify chunk's part by rel L2 {drift:.4f} > {GLUE_TOL}")
+    agree = next((i for i, (a, b) in enumerate(zip(out, plain)) if a != b), len(out))
+    print(f"  2-layer dense self-draft: draft decode vs verify chunk logits within rel L2 "
+          f"{drift:.4f} <= {GLUE_TOL} at every drafted position; {st.n_accepted} of "
+          f"{st.n_drafted} drafts accepted ({st.acceptance_rate:.3f}); agrees with plain greedy "
+          f"decode for the first {agree} of 32 tokens (reported)", flush=True)
+    del dense_card
+
+    # 8) speculative decoding: the target as its own draft, then the
+    # fabricated qwen3-0.6b as the draft; prompt lookup
+    t0 = time.perf_counter()
+    dcfg = PRESETS["qwen3-0.6b"]
+    dweights = llama.fabricated_tcq4_weights(dcfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  fabricated the qwen3-0.6b draft ({dcfg.n_layers} layers, vocab "
+          f"{dcfg.vocab_size}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompt = ids(40)
+    mk = lambda c, w: InferenceContext(c, w, n_lanes=1, max_seq=512)      # noqa: E731
+    plain = mk(cfg, weights).generate(prompt, 24)
+    with held_to_plain("one speculative round", {"tcq4_matmul_gx2", "tcq4_matmul",
+                                                 "q8_matmul", "flash_attention"}) as seen:
+        out, st = generate_speculative(mk(cfg, weights), mk(cfg, weights), prompt, 2,
+                                       n_draft=4)
+        torch.cuda.synchronize()
+    if st.n_drafted != 4:
+        raise AssertionError(f"one speculative round drafted {st.n_drafted} tokens, not 4")
+    print("  one speculative round (4 drafts, a 5-token verify), each launch vs its plain "
+          "version (max rel): " + ", ".join(f"{k} {v[0]:.2e} (shapes {sorted(v[1])})"
+                                            for k, v in seen.items()), flush=True)
+    for label in ("self-draft", "qwen3-0.6b draft"):
+        t1 = time.perf_counter()
+        if label == "self-draft":
+            out, st, drift = self_draft_drift(mk(cfg, weights), mk(cfg, weights), prompt, 24)
+            extra = (f"; draft decode vs verify chunk logits part by rel L2 up to {drift:.4f} "
+                     f"(B1's integer path against B4's dequantized one, reported)")
+        else:
+            out, st = generate_speculative(mk(cfg, weights), mk(dcfg, dweights), prompt, 24,
+                                           n_draft=4)
+            extra = ""
+        torch.cuda.synchronize()
+        agree = next((i for i, (a, b) in enumerate(zip(out, plain)) if a != b), len(out))
+        print(f"  generate_speculative, {label}: {st.n_accepted} of {st.n_drafted} drafts "
+              f"accepted ({st.acceptance_rate:.3f}), 24 tokens in "
+              f"{time.perf_counter() - t1:.1f} s; agrees with plain greedy decode for the "
+              f"first {agree} of 24 tokens (reported){extra}", flush=True)
+    # the server's engine with the 0.6b draft: four greedy requests at once
+    tctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=512)
+    eng = Engine(tctx, draft_ctx=InferenceContext(dcfg, dweights, n_lanes=4, max_seq=512),
+                 n_draft=4)
+    done, outs = {}, {i: [] for i in range(4)}
+    for i, n_new in enumerate((6, 10, 14, 24)):
+        eng.submit(GenRequest(prompt_tokens=ids(30), max_tokens=n_new,
+                              params=SamplerParams(temperature=0.0),
+                              on_token=lambda tk, pc, f, r, i=i:
+                              done.__setitem__(i, r) if f else outs[i].append(tk)))
+    t1 = time.perf_counter()
+    for _ in range(2000):
+        eng._iterate()
+        if len(done) == 4:
+            break
+    torch.cuda.synchronize()
+    if len(done) != 4 or [len(outs[i]) for i in range(4)] != [6, 10, 14, 24]:
+        raise AssertionError(f"engine with a draft: {done}, {[len(o) for o in outs.values()]}")
+    print(f"  Engine(ctx, draft_ctx=qwen3-0.6b), 4 greedy requests at once (6 / 10 / 14 / 24 "
+          f"tokens) in {time.perf_counter() - t1:.1f} s: {eng.n_draft_accepted} of "
+          f"{eng.n_drafted} drafts accepted", flush=True)
+    del eng, tctx
+    rep = ids(8) * 10
+    t1 = time.perf_counter()
+    out, st = generate_lookup(mk(cfg, weights), rep, 48)
+    torch.cuda.synchronize()
+    if len(out) != 48:
+        raise AssertionError(f"generate_lookup returned {len(out)} tokens")
+    print(f"  generate_lookup on an 8-token pattern x 10: {st.n_accepted} of {st.n_drafted} "
+          f"drafts accepted, 48 tokens in {time.perf_counter() - t1:.1f} s (random weights "
+          f"need not follow the pattern: a draft needs an n-gram seen before)", flush=True)
+    del dweights
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_router(tcq4_path) -> None:
+    """The model router: a server whose default model is the tiny preset on
+    the card ``/models/load``s the 2-layer qwen3-4b-width TCQ4 GGUF of phase
+    13 under a name, answers one completion routed to it by ``"model"``, and
+    ``/models/unload``s it; the card's allocated memory must come back to
+    within 0.1 GB of its value before the load."""
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.serving.engine import Engine
+    from rrs_tpu_torch.serving.server import ModelHandle, ServerState, make_handler
+
+    t0 = time.perf_counter()
+    tiny = PRESETS["tiny"]
+    engine = Engine(InferenceContext(tiny, llama.random_weights(tiny, seed=0, device="cuda"),
+                                     n_lanes=1, max_seq=128))
+    state = ServerState(tiny, synthetic_vocab(tiny.vocab_size), engine, {}, "tiny")
+    state.models["tcq4-2layer"] = ModelHandle("tcq4-2layer", str(tcq4_path), n_lanes=1,
+                                              max_seq=256)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    engine.start()
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        status, data = _http(port, "POST", "/models/load", {"model": "tcq4-2layer"})
+        t_load = time.perf_counter() - t1
+        if status != 200:
+            raise AssertionError(f"/models/load answered {status}: {data[:300]!r}")
+        loaded = torch.cuda.memory_allocated()
+        status, data = _http(port, "POST", "/v1/completions",
+                             {"model": "tcq4-2layer", "prompt": PIPELINE_PROMPT,
+                              "max_tokens": 8, "temperature": 0.0})
+        out = json.loads(data) if status == 200 else {}
+        if status != 200 or out.get("model") != "tcq4-2layer" \
+                or out["usage"]["completion_tokens"] < 1:
+            raise AssertionError(f"routed completion: {status} {data[:300]!r}")
+        status, data = _http(port, "POST", "/models/unload", {"model": "tcq4-2layer"})
+        if status != 200:
+            raise AssertionError(f"/models/unload answered {status}: {data[:300]!r}")
+        gc.collect()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    if abs(after - before) > 0.1 * GB:
+        raise AssertionError(f"router: {after / GB:.3f} GB allocated after the unload, "
+                             f"{before / GB:.3f} GB before the load")
+    print(f"  router: /models/load of the 2-layer TCQ4 GGUF in {t_load:.1f} s "
+          f"(+{(loaded - before) / GB:.3f} GB), a routed completion {out['choices'][0]['text']!r}, "
+          f"/models/unload back to {after / GB:.3f} GB (before the load {before / GB:.3f} GB); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 T_START = time.perf_counter()
 
 
@@ -4046,7 +4562,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/14] build")
+    header("[1/15] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -4060,32 +4576,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/14] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/15] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/14] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/15] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/14] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/15] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/14] served steps held to the plain versions; device decode run against "
+    header("[5/15] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/14] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/15] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/14] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/15] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     phase_shift_q4(ctx)
@@ -4094,7 +4610,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/14] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/15] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -4104,19 +4620,24 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/14] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/15] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+
+    header("[10/15] the rest of the server at qwen3-4b width: grammar, JSON schema, "
+           "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
+           "prompt-lookup decoding")
+    phase_server_rest(cfg, weights, reports)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[10/14] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/15] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -4129,7 +4650,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/14] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/15] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -4152,21 +4673,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[12/14] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/15] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
-           "perplexity")
+           "the model router, perplexity")
     t12 = time.perf_counter()
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
         tmp = Path(tmp_name)
-        # the Q4_K_M quantization goes on beside phase 13's card work
+        # the Q4_K_M quantization goes on beside phase 14's card work
         q4_run, prompt = phase_gguf_pipeline(name, reports, tmp)
+        phase_router(tmp / "tcq4.gguf")
         gc.collect()
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[13/14] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/15] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -4175,21 +4697,21 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[12/14, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/15, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
-        print(f"  phase 12 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
+        print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[13/14, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/15, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  phase 13 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
+    print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[14/14] summary")
+    header("[15/15] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

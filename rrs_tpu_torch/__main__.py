@@ -5,10 +5,11 @@ The ``generate``, ``serve``, ``chat``, ``bench``, ``batched-bench``,
 ``rrs_tpu/__main__.py`` with the same flags, plus ``--device`` on the verbs
 that run the model (default ``cuda``; ``cpu`` must be asked for). Every
 ``-m`` takes a single GGUF or any shard of a ``-NNNNN-of-NNNNN`` set;
-``quantize`` and ``gguf-split`` are host code. Flags whose
-feature is not ported yet (speculative and lookup decoding, multimodal
-projectors, the multi-model router, tensor / data / pipeline parallelism)
-raise NotImplementedError when set.
+``quantize`` and ``gguf-split`` are host code. ``generate`` decodes
+speculatively with ``--model-draft`` or by prompt lookup with ``--lookup``;
+``serve`` takes a draft model and extra routable ``--models``. Flags whose
+feature is not ported yet (multimodal projectors, tensor / data / pipeline
+parallelism) raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -35,10 +36,10 @@ def main(argv=None):
     g.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"],
                    help="KV cache quantization")
     g.add_argument("--model-draft", "-md", default=None,
-                   help="draft model for speculative decoding (not ported)")
+                   help="draft model for speculative decoding")
     g.add_argument("--draft", type=int, default=4, help="draft length")
     g.add_argument("--lookup", action="store_true",
-                   help="prompt-lookup speculative decoding (not ported)")
+                   help="prompt-lookup (n-gram) speculative decoding")
     g.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                    help="override a GGUF metadata KV (repeatable; "
                         "TYPE in int/float/bool/str)")
@@ -54,10 +55,10 @@ def main(argv=None):
     s.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"],
                    help="KV cache quantization")
     s.add_argument("--models", nargs="*", default=None,
-                   help="extra routable models name=path.gguf (not ported)")
+                   help="extra routable models: name=path.gguf ... (multi-model router)")
     s.add_argument("--mmproj", default=None, help="multimodal projector GGUF (not ported)")
     s.add_argument("--model-draft", "-md", default=None,
-                   help="draft model for server-side speculative decoding (not ported)")
+                   help="draft model GGUF for server-side speculative decoding")
     s.add_argument("--draft", type=int, default=4, help="speculative draft length")
     s.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                    help="override a GGUF metadata KV (repeatable)")
@@ -220,10 +221,7 @@ def _refuse_unported(args) -> None:
     slice (ROADMAP queue A)."""
     get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
     unported = {
-        "--model-draft (ROADMAP A13)": get("model_draft") is not None,
-        "--lookup (ROADMAP A13)": bool(get("lookup")),
         "--mmproj (ROADMAP A11)": get("mmproj") is not None,
-        "--models (ROADMAP A13)": bool(get("models")),
         "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
         "--dist-* (ROADMAP A12)": any(get(k) is not None
                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
@@ -249,7 +247,23 @@ def cmd_generate(args):
     params = SamplerParams(temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
                            seed=args.seed)
     stop = tuple(t for t in (vocab.eos_id,) if t >= 0)
-    out = ctx.generate(tokens, args.n_tokens, params, stop_tokens=stop)
+    if args.model_draft:
+        from rrs_tpu_torch.runtime.speculative import generate_speculative
+
+        dcfg, dweights, _ = load_model(args.model_draft, device=args.device)
+        draft_ctx = InferenceContext(dcfg, dweights, n_lanes=1, max_seq=args.ctx,
+                                     device=args.device)
+        out, stats = generate_speculative(ctx, draft_ctx, tokens, args.n_tokens,
+                                          n_draft=args.draft, stop_tokens=stop)
+        print(f"speculative: {stats.n_accepted}/{stats.n_drafted} drafts accepted "
+              f"({stats.acceptance_rate:.0%})", file=sys.stderr)
+    elif args.lookup:
+        from rrs_tpu_torch.runtime.lookup import generate_lookup
+
+        out, stats = generate_lookup(ctx, tokens, args.n_tokens, stop_tokens=stop)
+        print(f"lookup: {stats.n_accepted}/{stats.n_drafted} drafts accepted", file=sys.stderr)
+    else:
+        out = ctx.generate(tokens, args.n_tokens, params, stop_tokens=stop)
     print(vocab.decode(out))
     perf = ctx.perf()
     print(f"perf: prompt {perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s | "

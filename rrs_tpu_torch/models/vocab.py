@@ -2,7 +2,8 @@
 
 Host code copied from ``rrs_tpu/models/vocab.py`` for the two models this
 slice serves (``llama`` SPM and ``gpt2`` BPE), with the native BPE merge loop
-of ``rrs_tpu_torch.native`` where it builds, without the grammar token trie; other tokenizer models raise
+of ``rrs_tpu_torch.native`` where it builds, and the grammar slice's
+``pieces`` and ``token_trie``; other tokenizer models raise
 NotImplementedError. Behaviour of src/llama-vocab.cpp:
   * SPM (llm_tokenizer_spm): utf-8 symbols, best-score bigram merging with a
     priority queue, byte fallback <0xXX>, space -> U+2581 escaping.
@@ -207,6 +208,20 @@ class Vocab:
     @property
     def n_tokens(self) -> int:
         return len(self.tokens)
+
+    def pieces(self) -> list[str]:
+        """Decoded text of every token id (cached); used by grammar masking."""
+        if not hasattr(self, "_pieces"):
+            self._pieces = [self.decode([i]) for i in range(len(self.tokens))]
+        return self._pieces
+
+    def token_trie(self) -> dict:
+        """Character trie over pieces() (cached); grammar-mask accelerator."""
+        if not hasattr(self, "_trie"):
+            from rrs_tpu_torch.runtime.grammar import build_token_trie
+
+            self._trie = build_token_trie(self.pieces())
+        return self._trie
 
     def token_to_id(self, t: str) -> Optional[int]:
         return self._token_to_id.get(t)

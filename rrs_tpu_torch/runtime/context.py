@@ -15,8 +15,10 @@ mirostat mu and the DRY ring stay on the device; positions and cache slots
 come from the known host lengths (start + i), uploaded once per run, so the
 loop reads nothing back; the run is read back once, when the caller reads
 the handle; a chained run starts from the previous handle's device outputs.
-The mesh, embeddings, the grammar token-DFA in the run and the multimodal
-prefill wait for their slices.
+A run may carry a grammar's token DFA (``dfa=``): each step masks the
+lane's illegal tokens and steps the lane's DFA state on the device.
+``embed`` pools the final hidden states of a standalone forward. The mesh
+and the multimodal prefill wait for their slices.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from rrs_tpu_torch.device import resolve_device, set_matmul_precision
 from rrs_tpu_torch.models import llama as llama_model
 from rrs_tpu_torch.models.config import ModelConfig
+from rrs_tpu_torch.ops.basic import rms_norm
 from rrs_tpu_torch.runtime import sampler as smp
 from rrs_tpu_torch.runtime.kv_cache import KVCache
 from rrs_tpu_torch.runtime.sampler import SamplerParams, sample
@@ -258,7 +261,7 @@ class InferenceContext:
     @torch.inference_mode()
     def decode_run_start(self, seq_tokens: dict, keys: dict, params: dict, n_steps: int = 0,
                          chain: Optional[dict] = None, histories: Optional[dict] = None,
-                         mus: Optional[dict] = None, dfa=None) -> dict:
+                         mus: Optional[dict] = None, dfa: Optional[tuple] = None) -> dict:
         """Enqueue (without waiting) an n_steps decode + sample run. Feeds each
         sequence's pending token and samples n_steps tokens per lane on the
         device; lane lengths advance by n_steps (the final sampled token is
@@ -271,11 +274,14 @@ class InferenceContext:
         sequence's generated tokens, for the penalty counts of a fresh run
         and the per-step eviction schedule that slides the penalty window
         (callers keep penalty_last_n >= 2 * n_steps for chained runs).
-        ``mus``: mirostat-v2 mu per sequence. Returns the handle; its tensors
-        stay on the device until the caller reads them."""
-        if dfa is not None:
-            raise NotImplementedError("grammar token-DFA decode runs wait for the grammar "
-                                      "slice (ROADMAP A6)")
+        ``mus``: mirostat-v2 mu per sequence. ``dfa``: (masks [S, V] bool,
+        trans [S, V] int16, {seq_id: state row}) of a grammar's token DFA on
+        this device; each step sets a live lane's illegal logits to NEG_INF
+        (after XTC and top-n-sigma, before the candidates) and moves its
+        state through ``trans`` (a -1 entry ends the lane's masking); the run
+        leaves the states in the handle's ``gstate`` for a chained run.
+        Returns the handle; its tensors stay on the device until the caller
+        reads them."""
         n = n_steps or self.DECODE_RUN_STEPS
         b, dev = self.kv.n_lanes, self.device
         if chain is not None:
@@ -286,6 +292,7 @@ class InferenceContext:
             gens = chain["gens"]
             ops = chain["ops"]
             counts, mu, dwin = chain["counts"], chain["mu"], chain["dwin"]
+            gmask, gtrans, gstate = chain["gmask"], chain["gtrans"], chain["gstate"]
             evict = self._evict_schedule(histories, lanes, chain.get("params", {}), n,
                                          offset=chain["n"])
         else:
@@ -293,13 +300,21 @@ class InferenceContext:
                      any(p.mirostat for p in params.values()),
                      any(p.typical_p < 1.0 for p in params.values()),
                      any(p.top_n_sigma > 0 for p in params.values()),
-                     any(p.dry_multiplier > 0 for p in params.values()))
+                     any(p.dry_multiplier > 0 for p in params.values()),
+                     dfa is not None)
             lanes, start, tok, gens, ops, mu, dwin = self._run_operands(
                 seq_tokens, keys, params, histories, mus)
+            gmask = gtrans = None
+            gstate = np.full((b,), -1, np.int64)
+            if dfa is not None:
+                gmask, gtrans, rows = dfa
+                for seq_id, row in rows.items():
+                    gstate[lanes[seq_id]] = row
+            gstate = self._upload(gstate)
             rep, frq, prs, counts, bias = self._penalty_operands(lanes, params, histories)
             ops.update(rep=rep, frq=frq, prs=prs, bias=bias)
             evict = self._evict_schedule(histories, lanes, params, n, offset=0)
-        xtc, mir, typ, sig, dry = feats
+        xtc, mir, typ, sig, dry, gdfa = feats
         pos = np.array([[st + i if st >= 0 else -1 for st in start] for i in range(n)],
                        np.int32)                                           # [n, B]
         pos_dev = self._upload(pos)
@@ -319,6 +334,11 @@ class InferenceContext:
                 lg = smp.device_xtc(lg, gens, ops["temp"], ops["xtc_p"], ops["xtc_t"])
             if sig:
                 lg = smp.device_top_n_sigma(lg, ops["nsig"])
+            if gdfa:
+                glive = gstate >= 0
+                srow = gstate.clamp(0, gmask.shape[0] - 1)
+                rowm = gmask.index_select(0, srow)[:, : lg.shape[-1]]           # [B, V]
+                lg = torch.where(glive[:, None] & ~rowm, smp.NEG_INF, lg)
             cv, ci = smp.topk_candidates(lg)
             if dry:
                 cv, ci = smp.device_dry(dwin, cv, ci, ops["dry_mult"], ops["dry_base"],
@@ -340,6 +360,9 @@ class InferenceContext:
                 1, ev.clamp_min(0)[:, None], -(ev >= 0).to(torch.float32)[:, None])
             if dry:
                 dwin = torch.cat([dwin[:, 1:], nxt[:, None]], dim=1)
+            if gdfa:
+                ns = gtrans.reshape(-1).index_select(0, srow * gtrans.shape[1] + nxt)
+                gstate = torch.where(glive & live, ns.to(gstate.dtype), gstate)
             out.append(nxt)
             cvs.append(cv)
             cis.append(ci)
@@ -351,6 +374,7 @@ class InferenceContext:
         return {"toks": torch.stack(out, dim=1), "cand_v": torch.stack(cvs, dim=1),
                 "cand_i": torch.stack(cis, dim=1), "gens": gens, "lanes": lanes, "n": n,
                 "start": start, "ops": ops, "counts": counts, "mu": mu, "dwin": dwin,
+                "gmask": gmask, "gtrans": gtrans, "gstate": gstate,
                 "feats": feats, "params": dict(params)}
 
     def _run_operands(self, seq_tokens, keys, params, histories, mus):
@@ -474,6 +498,27 @@ class InferenceContext:
         toks = h["toks"].cpu().numpy()
         return ({s: toks[lane] for s, lane in h["lanes"].items()},
                 {s: h["gens"][lane] for s, lane in h["lanes"].items()})
+
+    @torch.inference_mode()
+    def embed(self, tokens: list[int], pooling: str = "mean") -> np.ndarray:
+        """Sequence embedding from the final hidden states: one standalone
+        forward over throwaway caches (``scratch_caches``; the context's own
+        cache is untouched), no lm_head, the final norm, then mean or last
+        pooling. Returns f32 [E] on the host."""
+        cfg, w = self.cfg, self.weights
+        t = len(tokens)
+        ks, vs = llama_model.scratch_caches(cfg, 1, t, device=self.device)
+        pos = torch.arange(t, dtype=torch.int32, device=self.device)[None, :]
+        x = llama_model.embed_rows(
+            w.embed, torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)[None, :])
+        for li, lw in enumerate(w.layers):
+            h = rms_norm(x, lw.attn_norm, cfg.rms_eps)
+            x = x + llama_model.attention(cfg, lw, h, pos, ks[li], vs[li], pos, [0], li)
+            h = rms_norm(x, lw.ffn_norm, cfg.rms_eps)
+            x = x + llama_model.ffn(cfg, lw, h, li=li)
+        hs = rms_norm(x, w.final_norm, cfg.rms_eps)[0].to(torch.float32)
+        vec = hs[-1] if pooling == "last" else hs.mean(dim=0)
+        return vec.cpu().numpy()
 
     def generate(self, prompt: list[int], max_new_tokens: int,
                  params: Optional[SamplerParams] = None,

@@ -11,8 +11,8 @@ device, never from the global RNG. ``jax.random`` and ``torch.Generator`` are
 different streams, so a seed does not give the JAX package's tokens: the
 tests hold greedy picks to identical tokens and sampled draws to the JAX
 chain's support. The device twins take one generator per lane (``None`` for
-a lane with no sequence, whose draw is discarded). ``infill_sample`` waits
-for the infill slice.
+a lane with no sequence, whose draw is discarded). ``infill_sample`` is the
+fill-in-the-middle sampler of the ``/infill`` route.
 """
 
 from __future__ import annotations
@@ -167,6 +167,59 @@ def mirostat_v2_sample(logits, gen: torch.Generator, mu: float,
     u = float(torch.rand((), generator=gen, device=gen.device))
     token = min(int(np.searchsorted(np.cumsum(pk), u)), len(pk) - 1)
     return token, mu - p.mirostat_eta * (float(surprise[token]) - p.mirostat_tau)
+
+
+def infill_sample(logits, pieces: list[str], eog_ids: set, gen: torch.Generator,
+                  k_max: int = 64, thold: float = 0.2) -> int:
+    """Fill-in-the-middle sampler (llama_sampler_init_infill) on one host row
+    [V] of logits, over its top ``k_max`` candidates:
+      1. if EOG mass dominates (3 * p_eog * n > p_txt) sample among EOG only;
+      2. merge tokens whose piece is a prefix of another candidate's piece
+         into the more probable one;
+      3. drop non-EOG tokens below the ``thold`` probability threshold;
+      4. if nothing non-EOG survives, emit EOG deterministically.
+    The one uniform draw comes from ``gen``."""
+    x = np.asarray(logits, np.float64)
+    v = x.shape[-1]
+    x = x - x.max()
+    p_full = np.exp(x)
+    p_full /= p_full.sum()
+    k = min(k_max, v)
+    cand = np.argpartition(-p_full, k - 1)[:k]
+    cand = cand[np.argsort(-p_full[cand])]
+    probs = p_full[cand].copy()
+    is_eog = np.asarray([int(c) in eog_ids for c in cand])
+    p_eog = probs[is_eog].sum()
+    p_txt = probs[~is_eog].sum()
+
+    def draw(ids, ps):
+        ps = np.maximum(ps, 0)
+        tot = ps.sum()
+        if tot <= 0 or len(ids) == 1:
+            return int(ids[0])
+        r = float(torch.rand((), generator=gen, device=gen.device))
+        return int(ids[np.searchsorted(np.cumsum(ps / tot), r)])
+
+    if p_eog > 0 and 3.0 * p_eog * len(cand) > p_txt:
+        return draw(cand[is_eog], probs[is_eog])
+    # combine common-prefix tokens into the more probable one
+    texts = [pieces[int(c)] if int(c) < len(pieces) else "" for c in cand]
+    alive = np.ones(len(cand), bool)
+    for i0 in range(len(cand)):
+        for i1 in range(len(cand)):
+            if i0 == i1 or not alive[i0] or not alive[i1]:
+                continue
+            t0, t1 = texts[i0], texts[i1]
+            if t0 and len(t0) <= len(t1) and t1.startswith(t0):
+                dst, src = (i0, i1) if probs[i0] >= probs[i1] else (i1, i0)
+                probs[dst] += probs[src]
+                probs[src] = 0.0
+                alive[src] = False
+    keep = alive & (is_eog | (probs >= thold))
+    if not (keep & ~is_eog).any():
+        eogs = [int(c) for c in cand[is_eog]] or sorted(eog_ids)
+        return int(eogs[0]) if eogs else int(cand[0])
+    return draw(cand[keep], probs[keep])
 
 
 def dry_penalties(tokens: list[int], vocab_size: int, multiplier: float = 0.0,

@@ -1,8 +1,8 @@
 """Continuous-batching inference engine (server-context.cpp analog).
 
 Port of ``rrs_tpu/serving/engine.py`` (``Engine``, ``Slot``, ``GenRequest``,
-``SlotState``). Slot lifecycle: IDLE -> PROMPT (chunked prefill, several
-slots' chunks in one step) -> GENERATING (one shared decode for every
+``SlotState``, the token-DFA compile cache). Slot lifecycle: IDLE -> PROMPT
+(chunked prefill, several slots' chunks in one step) -> GENERATING (one shared decode for every
 generating slot) -> released on a stop token or string, max_tokens or
 cancellation; a released lane keeps its KV as a prompt cache for the next
 request with a shared prefix, except on a model with sliding layers, whose
@@ -15,14 +15,21 @@ slot finishes by length instead. Slot state (a slot's sequence, saved to or
 restored from a state file, or erased) is handled on the engine thread,
 between iterations, through ``call``.
 
-Waiting for their slices, and refused loudly: grammar / JSON-schema requests
-(ROADMAP A6), a draft model (A13), multimodal segments (A11) and infill (A13).
+Grammar slots ride the device runs: with the grammar's token DFA compiled
+(in a spawned process, ``_dfa_compile_async``), the run masks illegal tokens
+on the device and stays chained; without it, the run samples freely and the
+host PDA validates each token at flush, a violation resampled from the run's
+captured candidates. Infill slots take the host chain's infill sampler. With
+a draft context, a lone greedy slot decodes speculatively (the draft
+proposes, the target verifies in one chunked step). Multimodal segments wait
+for ROADMAP A11 and are refused loudly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import queue
 import threading
 import time
@@ -33,8 +40,70 @@ import numpy as np
 import torch
 
 from rrs_tpu_torch.runtime.context import InferenceContext
-from rrs_tpu_torch.runtime.sampler import (SamplerParams, dry_penalties, mirostat_v2_sample,
-                                           sample)
+from rrs_tpu_torch.runtime.sampler import (SamplerParams, dry_penalties, infill_sample,
+                                           mirostat_v2_sample, sample)
+
+# Token DFAs of grammars whose PDA state space closes within the state budget
+# (runtime/grammar.py TokenDFA), compiled once and then enforced inside the
+# device decode run. The compile runs in a spawned process
+# (runtime/dfa_worker.py, which imports no torch): seconds of pure-Python
+# trie walking on a sibling thread would hold the GIL against the engine
+# thread. Keyed by (gbnf, vocab size); None records a failed or oversized
+# compile, which is not retried.
+_DFA_CACHE: dict = {}
+_DFA_PENDING: set = set()
+_DFA_LOCK = threading.Lock()
+# seconds of the last compile of each key, for the measuring scripts
+DFA_COMPILE_S: dict = {}
+
+
+def _dfa_compile_async(key, grammar, pieces, eog_ids) -> None:
+    """Compile the grammar's token DFA in a spawned process on a
+    background thread; the result lands in ``_DFA_CACHE[key]``."""
+    gbnf = getattr(grammar, "gbnf", "")
+    if not gbnf:
+        return                      # the child rebuilds the grammar from its text
+    with _DFA_LOCK:
+        if key in _DFA_CACHE or key in _DFA_PENDING:
+            return
+        _DFA_PENDING.add(key)
+
+    def work():
+        import multiprocessing as mp
+        import pickle
+        import tempfile
+
+        from rrs_tpu_torch.runtime.dfa_worker import dfa_worker
+
+        dfa, path = None, None
+        t0 = time.perf_counter()
+        try:
+            fd, path = tempfile.mkstemp(prefix="rrs_dfa_", suffix=".pkl")
+            os.close(fd)
+            proc = mp.get_context("spawn").Process(
+                target=dfa_worker, args=(gbnf, list(pieces), tuple(eog_ids), path),
+                daemon=True)
+            proc.start()
+            proc.join(timeout=600)
+            if proc.is_alive():
+                proc.terminate()
+            else:
+                with open(path, "rb") as f:
+                    dfa = pickle.load(f)
+        except Exception:                                     # noqa: BLE001
+            dfa = None
+        finally:
+            if path is not None:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+        with _DFA_LOCK:
+            _DFA_CACHE[key] = dfa
+            DFA_COMPILE_S[key] = time.perf_counter() - t0
+            _DFA_PENDING.discard(key)
+
+    threading.Thread(target=work, daemon=True).start()
 
 
 class SlotState(enum.Enum):
@@ -53,12 +122,14 @@ class GenRequest:
     # callback(token_id, text_piece, finished, finish_reason)
     on_token: Optional[Callable] = None
     decode_fn: Optional[Callable[[list[int]], str]] = None  # ids -> text
-    grammar: Optional[object] = None          # waits for ROADMAP A6
+    grammar: Optional[object] = None          # runtime.grammar.Grammar
+    token_pieces: Optional[list[str]] = None  # vocab pieces for grammar masking
+    token_trie: Optional[dict] = None         # prefix trie over the pieces
     n_probs: int = 0                          # top-k logprobs per token
     # callback(token_id, logprob, [(tid, logprob) x n_probs])
     on_probs: Optional[Callable] = None
     segments: Optional[list] = None           # multimodal: waits for ROADMAP A11
-    infill: bool = False                      # waits for ROADMAP A13
+    infill: bool = False                      # fill-in-the-middle: the infill sampler
     # set by the submitter (e.g. on client disconnect) to stop generating
     abort: bool = False
     id: int = 0
@@ -77,7 +148,9 @@ class Slot:
     key: Optional[torch.Generator] = None          # per request, on the device
     t_start: float = 0.0
     n_prompt: int = 0
+    grammar: Optional[object] = None               # the request's grammar, advanced
     mirostat_mu: float = 10.0
+    draft_seq: int = -1                            # the draft model's sequence
     # prompt-cache retention: the lane's KV survives release so the next
     # request with a shared prefix skips re-prefilling it
     retained_seq: int = -1
@@ -88,12 +161,8 @@ class Slot:
 
 
 def _unported(req: GenRequest) -> Optional[str]:
-    if req.grammar is not None:
-        return "grammar-constrained decoding waits for ROADMAP A6"
     if req.segments is not None:
         return "multimodal prompts wait for ROADMAP A11"
-    if req.infill:
-        return "infill waits for ROADMAP A13"
     return None
 
 
@@ -104,13 +173,18 @@ class Engine:
     # 1024 / 2048 prefill buckets
     PROMPT_CHUNK = 1024
 
-    def __init__(self, ctx: InferenceContext, draft_ctx=None, n_draft=None):
+    def __init__(self, ctx: InferenceContext, draft_ctx: Optional[InferenceContext] = None,
+                 n_draft: int = 4):
         """The engine serves on the context's device (``InferenceContext``
         chooses ``cuda`` unless asked for the CPU, and raises without a GPU).
-        ``draft_ctx`` / ``n_draft`` (speculative decoding) wait for ROADMAP
-        A13."""
-        if draft_ctx is not None or n_draft is not None:
-            raise NotImplementedError("server-side speculative decoding waits for ROADMAP A13")
+        ``draft_ctx``: a draft model's context for server-side speculative
+        decoding, engaged in a decode round where exactly one slot generates
+        greedily with no grammar, penalties or logprobs; it proposes
+        ``n_draft`` tokens, which the target verifies in one chunked step."""
+        self.draft_ctx = draft_ctx
+        self.n_draft = n_draft
+        self.n_drafted = 0
+        self.n_draft_accepted = 0
         self.ctx = ctx
         self.slots = [Slot(i) for i in range(ctx.kv.n_lanes)]
         self.pending: "queue.Queue[GenRequest]" = queue.Queue()
@@ -129,6 +203,8 @@ class Engine:
         self.n_generated_tokens = 0
         self.n_requests = 0
         self.n_decode_runs = 0
+        self.n_dfa_runs = 0                 # device runs that carried a token DFA
+        self.n_resampled = 0                # grammar violations resampled at flush
 
     def start(self):
         self._thread.start()
@@ -241,6 +317,11 @@ class Engine:
         slot.state = SlotState.PROMPT
         slot.req = req
         slot.n_reused = 0
+        if self.draft_ctx is not None:
+            # the draft runs the whole prompt, so the target's prefix reuse
+            # is off in speculative mode (the two caches stay in lockstep)
+            self.erase_slot(slot.index)
+            slot.draft_seq = self.draft_ctx.new_sequence()
         if slot.retained_seq >= 0 and not kv.has_seq(slot.retained_seq):
             slot.retained_seq = -1      # the prompt cache was LRU-evicted
             slot.cache_tokens = []
@@ -273,6 +354,11 @@ class Engine:
         slot.key = torch.Generator(device=self.ctx.device).manual_seed(req.params.seed + req.id)
         slot.t_start = time.time()
         slot.n_prompt = n_prompt
+        slot.grammar = req.grammar.copy() if req.grammar is not None else None
+        if (slot.grammar is not None and req.token_pieces and req.token_trie is not None
+                and not getattr(req.grammar, "lazy", False)):
+            _dfa_compile_async(self._dfa_key(req), req.grammar, req.token_pieces,
+                               tuple(req.stop_tokens))
         slot.mirostat_mu = 2.0 * req.params.mirostat_tau
         slot.finish_reason = "stop"
         self.n_requests += 1
@@ -281,6 +367,10 @@ class Engine:
         req = slot.req
         if req and req.on_token:
             req.on_token(None, "", True, reason)
+        if slot.draft_seq >= 0 and self.draft_ctx is not None:
+            if self.draft_ctx.kv.has_seq(slot.draft_seq):
+                self.draft_ctx.kv.seq_rm(slot.draft_seq)
+            slot.draft_seq = -1
         if slot.seq_id >= 0 and self.ctx.cfg.any_swa:
             # ring caches cannot serve a later request's prefix: free the lane
             self.ctx.kv.seq_rm(slot.seq_id)
@@ -386,7 +476,8 @@ class Engine:
 
     def _sample_token(self, slot: Slot) -> int:
         """The host chain on the slot's last logits, drawing from its
-        generator."""
+        generator; a grammar slot's pick is checked (and, if illegal,
+        resampled under the grammar's mask) by ``_grammar_check``."""
         raw = slot.last_logits
         p = slot.req.params
         if p.dry_multiplier > 0.0:
@@ -401,14 +492,52 @@ class Engine:
         if p.mirostat:
             token, slot.mirostat_mu = mirostat_v2_sample(
                 raw.to(torch.float32).cpu().numpy(), slot.key, slot.mirostat_mu, p)
-            return token
+            return self._grammar_check(slot, token)
+        if slot.req.infill and slot.req.token_pieces:
+            token = infill_sample(raw.to(torch.float32).cpu().numpy(), slot.req.token_pieces,
+                                  set(slot.req.stop_tokens), slot.key)
+            return self._grammar_check(slot, token)
         counts = None
         if p.penalty_repeat != 1.0 or p.penalty_freq or p.penalty_present:
             c = np.zeros((1, raw.shape[-1]), np.float32)
             for t in self.ctx._pen_window(slot.generated, p.penalty_last_n):
                 c[0, t] += 1
             counts = torch.from_numpy(c)
-        return int(sample(raw[None, :], slot.key, p, recent_counts=counts)[0])
+        token = int(sample(raw[None, :], slot.key, p, recent_counts=counts)[0])
+        return self._grammar_check(slot, token, counts)
+
+    def _grammar_check(self, slot: Slot, token: int, counts=None) -> int:
+        """Advance the slot's grammar with ``token`` when it is legal; else
+        mask the logits with the grammar's full mask, resample, and advance
+        with the new pick (the sample-first, mask-on-rejection strategy). A
+        lazy grammar awaiting its trigger only watches the text."""
+        g = slot.grammar
+        if g is None:
+            return token
+        pieces = slot.req.token_pieces
+        piece = pieces[token] if pieces and token < len(pieces) else ""
+        if getattr(g, "awaiting_trigger", False):
+            g.feed_token(token, piece)
+            return token
+        if token in slot.req.stop_tokens:
+            if g.done:
+                return token            # grammar complete: EOS allowed
+        elif piece and g.accept_text(piece):
+            return token
+        mask = np.asarray(g.allowed_mask(pieces, trie=slot.req.token_trie), bool)
+        if g.done:
+            for st in slot.req.stop_tokens:
+                if st < mask.shape[0]:
+                    mask[st] = True
+        logits = slot.last_logits.to(torch.float32)
+        keep = torch.zeros(logits.shape[-1], dtype=torch.bool)
+        keep[: mask.shape[0]] = torch.from_numpy(mask[: logits.shape[-1]])
+        masked = torch.where(keep.to(logits.device), logits, -1e30)
+        token = int(sample(masked[None, :], slot.key, slot.req.params, recent_counts=counts)[0])
+        if token in slot.req.stop_tokens:
+            return token
+        g.accept_text(pieces[token] if token < len(pieces) else "")
+        return token
 
     # -- the loop --------------------------------------------------------------
 
@@ -476,11 +605,19 @@ class Engine:
                         continue
                     n_keep = 1
                     kv.seq_shift(self.ctx.cfg, s.seq_id, n_keep, max((n - n_keep) // 2, 1))
+                    if s.draft_seq >= 0:
+                        # the draft cache cannot follow the shift (its
+                        # positions would diverge): drop it, and the slot
+                        # decodes one token a step from here on
+                        self.draft_ctx.kv.seq_rm(s.draft_seq)
+                        s.draft_seq = -1
 
-        # 1) prompt chunks: several mid-prompt slots share one step
+        # 1) prompt chunks: several mid-prompt slots share one step (a slot
+        # with a draft sequence prefills alone, the draft beside it)
         prompt_slots = [s for s in self.slots if s.state == SlotState.PROMPT]
         if prompt_slots:
-            group = prompt_slots if len(prompt_slots) >= 2 else prompt_slots[:1]
+            batchable = [s for s in prompt_slots if s.draft_seq < 0]
+            group = batchable if len(batchable) >= 2 else prompt_slots[:1]
             try:
                 if len(group) >= 2:
                     self._prompt_step_multi(group)
@@ -530,10 +667,67 @@ class Engine:
         if not chunk:
             chunk = [0]         # empty prompt: one placeholder token
         logits = self.ctx.prefill(s.seq_id, list(chunk), all_logits=False)
+        if s.draft_seq >= 0:
+            self.draft_ctx.prefill(s.draft_seq, list(chunk), all_logits=False)
         s.prompt_pos += len(chunk)
         self.n_prompt_tokens += len(chunk)
         if s.prompt_pos >= len(s.req.prompt_tokens):
             self._finish_prompt(s, logits[-1])
+
+    # -- speculative decoding with a draft model ---------------------------
+
+    def _spec_eligible(self, s: Slot) -> bool:
+        """A speculative round suits the slot: a draft sequence, greedy, no
+        grammar, penalties, DRY, mirostat or logprobs, and room in both
+        caches for the n_draft + 1 tokens a round feeds before the next
+        context-shift check."""
+        p = s.req.params
+        if not (self.draft_ctx is not None and s.draft_seq >= 0 and p.temperature == 0.0
+                and s.grammar is None and s.req.n_probs == 0 and p.penalty_repeat == 1.0
+                and not p.penalty_freq and not p.penalty_present and not p.dry_multiplier
+                and not p.mirostat):
+            return False
+        kv, dkv = self.ctx.kv, self.draft_ctx.kv
+        return (kv.lengths[kv.lane_of(s.seq_id)] + self.n_draft + 1 <= kv.max_seq
+                and dkv.lengths[dkv.lane_of(s.draft_seq)] + self.n_draft + 1 <= dkv.max_seq)
+
+    def _decode_step_spec(self, s: Slot) -> None:
+        """One speculative round: the draft proposes n_draft tokens greedily,
+        the target verifies [last] + proposal in one chunked prefill, and
+        both caches roll back to the accepted length."""
+        last = s.generated[-1]
+        kv, dkv = self.ctx.kv, self.draft_ctx.kv
+        l0 = kv.lengths[kv.lane_of(s.seq_id)]
+        d0 = dkv.lengths[dkv.lane_of(s.draft_seq)]
+        proposal = []
+        cur = last
+        for _ in range(self.n_draft):
+            cur = int(torch.argmax(self.draft_ctx.decode({s.draft_seq: cur})[s.draft_seq]))
+            proposal.append(cur)
+        self.n_drafted += len(proposal)
+        logits = self.ctx.prefill(s.seq_id, [last] + proposal)
+        want = torch.argmax(logits, dim=-1).tolist()
+        accepted = []
+        for i, p in enumerate(proposal):
+            accepted.append(want[i])
+            if want[i] != p:
+                break
+        else:
+            accepted.append(want[len(proposal)])
+        self.n_draft_accepted += sum(1 for i in range(min(len(accepted), len(proposal)))
+                                     if accepted[i] == proposal[i])
+        # both caches back to "everything fed but the newest token": the
+        # target keeps l0 + len(accepted); the draft rewinds the whole round
+        # and is fed [last] + accepted[:-1] again (its own proposals may part
+        # from them after the first rejection)
+        kv.seq_rm(s.seq_id, p0=l0 + len(accepted))
+        dkv.seq_rm(s.draft_seq, p0=d0)
+        self.draft_ctx.prefill(s.draft_seq, [last] + accepted[:-1], all_logits=False)
+        s.last_logits = logits[min(len(accepted) - 1, len(proposal))]
+        for tok in accepted:
+            if self._emit(s, tok):
+                self._release(s, s.finish_reason)
+                return
 
     # -- the fast path: device-side decode runs ------------------------------
 
@@ -541,31 +735,79 @@ class Engine:
         """The slot can decode through the device run: every sampler of the
         chain has a device twin; mirostat v1 and n_probs > 128 do not;
         penalties with a window shorter than 2n cannot slide it for chained
-        runs; the lane needs room for the whole run below the shift
-        trigger."""
+        runs; a grammar slot needs its pieces (to be validated at flush);
+        infill and draft slots take their own paths; the lane needs room for
+        the whole run below the shift trigger."""
         p = s.req.params
         n = self.ctx.DECODE_RUN_STEPS
         kv = self.ctx.kv
         if self.ctx._penalties_active(p) and 0 <= p.penalty_last_n < 2 * n:
             return False
+        if s.grammar is not None and not s.req.token_pieces:
+            return False
         if p.mirostat and p.mirostat != 2:
             return False
         if s.req.n_probs > 128:
             return False
-        return (p.top_k <= 128
+        return (s.draft_seq < 0 and not s.req.infill and p.top_k <= 128
                 and kv.lengths[kv.lane_of(s.seq_id)] + n + 1 < kv.max_seq)
+
+    @staticmethod
+    def _dfa_key(req) -> tuple:
+        return (getattr(req.grammar, "gbnf", "") or id(req.grammar),
+                len(req.token_pieces or ()))
+
+    def _slot_dfa(self, s: Slot):
+        """(TokenDFA, state row) when the slot's grammar has a compiled DFA
+        and its current host PDA state maps to a row; else None."""
+        g = s.grammar
+        if g is None or getattr(g, "awaiting_trigger", False):
+            return None
+        with _DFA_LOCK:
+            dfa = _DFA_CACHE.get(self._dfa_key(s.req))
+        if dfa is None:
+            return None
+        row = dfa.index_of(g)
+        return (dfa, row) if row >= 0 else None
+
+    def _dfa_device(self, dfa):
+        """(masks, trans) of a TokenDFA on this context's device, uploaded
+        once and padded to the model's vocabulary (a pad column is illegal
+        and leads nowhere)."""
+        dev = getattr(dfa, "_dev", None)
+        if dev is None:
+            v = self.ctx.cfg.vocab_size
+            m, t = dfa.masks, dfa.trans
+            if m.shape[1] < v:
+                pad = v - m.shape[1]
+                m = np.pad(m, ((0, 0), (0, pad)))
+                t = np.pad(t, ((0, 0), (0, pad)), constant_values=-1)
+            dev = dfa._dev = (self.ctx._upload(np.ascontiguousarray(m[:, :v])),
+                              self.ctx._upload(np.ascontiguousarray(t[:, :v])))
+        return dev
 
     def _dispatch_fast(self, gen: list, chain=None) -> dict:
         """Enqueue one device run (DECODE_RUN_STEPS tokens per slot);
-        returns the in-flight record."""
+        returns the in-flight record. A fresh run carries the token DFA when
+        every grammar slot of it has the same compiled one."""
+        dfa_arg = None
+        if chain is None:
+            gslots = [s for s in gen if s.grammar is not None]
+            if gslots:
+                infos = [self._slot_dfa(s) for s in gslots]
+                if all(i is not None for i in infos) and len({id(i[0]) for i in infos}) == 1:
+                    gm, gt = self._dfa_device(infos[0][0])
+                    dfa_arg = (gm, gt, {s.seq_id: i[1] for s, i in zip(gslots, infos)})
         handle = self.ctx.decode_run_start(
             {s.seq_id: (s.generated[-1] if chain is None else None) for s in gen},
             {s.seq_id: s.key for s in gen},
             {s.seq_id: s.req.params for s in gen},
             chain=chain,
             histories={s.seq_id: s.generated for s in gen},
-            mus={s.seq_id: s.mirostat_mu for s in gen if s.req.params.mirostat})
+            mus={s.seq_id: s.mirostat_mu for s in gen if s.req.params.mirostat},
+            dfa=dfa_arg)
         self.n_decode_runs += 1
+        self.n_dfa_runs += int(handle["feats"][5])
         kv = self.ctx.kv
         # keyed by (seq_id, request id): a released lane keeps its seq_id as
         # a prompt cache, so a later request on it must not match this run
@@ -575,15 +817,25 @@ class Engine:
 
     def _flush_fast(self, inf: dict) -> None:
         """Read a run's tokens (one readback, the candidate rows with it when
-        a slot reports logprobs) and emit them. Slots released while the run
-        was in flight are skipped; the run's extra cache writes sit past the
-        rewound length and are overwritten on reuse."""
+        a slot validates a grammar or reports logprobs) and emit them. Slots
+        released while the run was in flight are skipped; the run's extra
+        cache writes sit past the rewound length and are overwritten on
+        reuse.
+
+        A grammar slot's tokens are validated against its host PDA here. A
+        run without the DFA samples freely, so a token may break the
+        grammar: it is resampled from the run's captured top-128 candidates
+        (its step's KV cell holds the previous, accepted token, so nothing
+        on the device needs redoing), or, with no legal candidate there, the
+        cache rewinds one token and the host chain masks and resamples.
+        Chaining waits while a grammar slot may rewind (``_decode_step``)."""
         h = inf["handle"]
         toks = h["toks"].cpu().numpy()
         cands = None
         if any(s.state == SlotState.GENERATING and s.req is not None
                and (s.seq_id, s.req.id) in inf["items"]
-               and s.req.n_probs > 0 and s.req.on_probs is not None for s in self.slots):
+               and (s.grammar is not None or (s.req.n_probs > 0 and s.req.on_probs is not None))
+               for s in self.slots):
             cands = (h["cand_v"].cpu().numpy(), h["cand_i"].cpu().numpy())
         for (seq_id, req_id), base in inf["items"].items():
             slot = next((s for s in self.slots
@@ -594,6 +846,25 @@ class Engine:
             lane = h["lanes"][seq_id]
             slot.key = h["gens"][lane]
             for i, tok in enumerate(toks[lane].tolist()):
+                if slot.grammar is not None and not self._grammar_accepts(slot, tok):
+                    self.n_resampled += 1
+                    cv, ci = cands[0][lane, i], cands[1][lane, i]
+                    tok2 = self._resample_from_candidates(
+                        slot, cv, ci, seed=slot.key.initial_seed() ^ (base + i))
+                    if tok2 is not None:
+                        self.ctx.kv.seq_rm(seq_id, p0=base + i + 1)
+                        self._emit_probs_fast(slot, tok2, cv, ci)
+                        if self._emit(slot, tok2):
+                            self._release(slot, slot.finish_reason)
+                        break
+                    # no legal candidate in the top 128: the full host path
+                    self.ctx.kv.seq_rm(seq_id, p0=base + i)
+                    slot.last_logits = self.ctx.decode({seq_id: slot.generated[-1]})[seq_id]
+                    tok = self._sample_token(slot)
+                    self._emit_probs(slot, tok)
+                    if self._emit(slot, tok):
+                        self._release(slot, slot.finish_reason)
+                    break
                 if cands is not None:
                     self._emit_probs_fast(slot, tok, cands[0][lane, i], cands[1][lane, i])
                 if self._emit(slot, tok):
@@ -603,14 +874,74 @@ class Engine:
                     self._release(slot, slot.finish_reason)
                     break
 
+    def _resample_from_candidates(self, slot: Slot, vals, ids, seed: int):
+        """A grammar violation's resample over the run's captured top-128
+        candidate row: device_sample's temperature / top-k / top-p / min-p
+        with the grammar's legality mask, a Gumbel draw seeded with
+        ``seed``; advances the PDA with the pick and returns it, or None when
+        no candidate is legal. Host NumPy only."""
+        g = slot.grammar
+        pieces = slot.req.token_pieces
+        p = slot.req.params
+        ids = np.asarray(ids)
+        legal = np.zeros(len(ids), bool)
+        for j, tid in enumerate(ids.tolist()):
+            if tid in slot.req.stop_tokens:
+                legal[j] = g.done
+            else:
+                piece = pieces[tid] if tid < len(pieces) else ""
+                legal[j] = bool(piece) and g.accepts_text(piece)
+        if not legal.any():
+            return None
+        v = np.asarray(vals, np.float64)
+        k = min(p.top_k, len(ids)) if p.top_k > 0 else len(ids)
+        allowed = np.arange(len(ids)) < k
+        t = p.temperature if p.temperature > 0 else 1.0
+        scaled = np.where(allowed, v / t, -np.inf)
+        e = np.exp(scaled - scaled.max())
+        probs = e / e.sum()
+        cum = np.cumsum(probs)
+        keep = allowed & ((cum - probs) < p.top_p) & (probs >= p.min_p * probs.max())
+        keep[0] = True
+        final = keep & legal
+        if not final.any():
+            final = legal               # the filters excluded every legal one
+        if p.temperature <= 0:
+            j = int(np.argmax(np.where(final, v, -np.inf)))
+        else:
+            # unfiltered logits: a legal candidate past top-k has none in
+            # ``scaled``, and the draw must still land on a legal one
+            gum = np.random.default_rng(seed & 0x7FFFFFFF).gumbel(size=len(ids))
+            j = int(np.argmax(np.where(final, v / t, -np.inf) + gum))
+        tok = int(ids[j])
+        if tok not in slot.req.stop_tokens:
+            g.accept_text(pieces[tok] if tok < len(pieces) else "")
+        return tok
+
+    def _grammar_accepts(self, slot: Slot, token: int) -> bool:
+        """Advance the slot's grammar with ``token`` if it is legal (the
+        accept arm of ``_grammar_check``); False is a violation."""
+        g = slot.grammar
+        pieces = slot.req.token_pieces
+        piece = pieces[token] if pieces and token < len(pieces) else ""
+        if getattr(g, "awaiting_trigger", False):
+            g.feed_token(token, piece)        # unconstrained until the trigger
+            return True
+        if token in slot.req.stop_tokens:
+            return g.done                     # EOS only once the grammar can end
+        return bool(piece) and g.accept_text(piece)
+
     def _decode_step(self, gen: list) -> None:
         # pipelined runs: enqueue run N+1, chained on run N's device outputs,
         # before reading run N, so the host's readback and emitting overlap
-        # the device's work
+        # the device's work. A grammar slot validates (and may rewind) run N
+        # first, unless run N carried the DFA: its tokens are legal by
+        # construction, so no rewind can undo the chain.
         if self._inflight is not None:
             prev, self._inflight = self._inflight, None
             if (set(prev["items"]) == {(s.seq_id, s.req.id) for s in gen}
-                    and all(self._fast_eligible(s) for s in gen)):
+                    and all(self._fast_eligible(s) for s in gen)
+                    and (all(s.grammar is None for s in gen) or prev["handle"]["feats"][5])):
                 self._inflight = self._dispatch_fast(gen, chain=prev["handle"])
                 self._flush_fast(prev)
                 return
@@ -618,6 +949,9 @@ class Engine:
             gen = [s for s in self.slots if s.state == SlotState.GENERATING]
             if not gen:
                 return
+        if len(gen) == 1 and self._spec_eligible(gen[0]):
+            self._decode_step_spec(gen[0])
+            return
         if all(self._fast_eligible(s) for s in gen):
             self._inflight = self._dispatch_fast(gen)
             return

@@ -1,25 +1,34 @@
 """OpenAI-compatible HTTP server (tools/server analog, stdlib http.server).
 
-Port of ``rrs_tpu/serving/server.py`` (``ServerState``, ``_sampler_params``,
-``make_handler``, ``serve``) over the port's engine. Routes:
+Port of ``rrs_tpu/serving/server.py`` (``ModelHandle``, ``ServerState``,
+``_sampler_params``, ``make_handler``, ``serve``) over the port's engine.
+Routes:
+  GET  /, /index.html (the web UI, the port's own ``webui.html``)
   GET  /health, /props, /slots, /metrics (Prometheus text), /v1/models
   POST /tokenize, /detokenize, /apply-template
   POST /completion, /v1/completions, /v1/chat/completions (SSE streaming or
-       not, with logprobs / n_probs)
+       not, with logprobs / n_probs; ``grammar``, ``json_schema``,
+       ``response_format`` json_schema / json_object, and lazy grammars with
+       ``grammar_triggers`` / ``grammar_lazy``; a bad grammar answers 400)
+  POST /v1/messages (Anthropic messages, streamed as its SSE events or not)
+  POST /infill (fill-in-the-middle; 400 without the vocab's FIM tokens)
+  POST /rerank, /v1/rerank, /reranking (mean log p(document | query))
+  POST /v1/embeddings, /embeddings, /embedding (mean-pooled final hidden)
+  POST /models/load, /models/unload (the router: a request whose "model"
+       names a registered model runs on that model's engine)
   POST /slots/{id}?action=save|restore|erase (slot state files, confined to
        ``--slot-save-path``: a plain file name, else 400)
 A non-streamed completion reports ``usage`` with the exact count of
 generated tokens and the reference server's ``timings`` (prompt_ms: submit
 to first token; predicted_ms: first token to finish).
 
-The JAX package's other routes answer 501 with a JSON error naming the
-ROADMAP item that brings them; so do image or audio content parts. Grammar,
-JSON-schema and response-format requests answer 400 with the same kind of
-error, naming the grammar slice.
+Image or audio content parts answer 501 with a JSON error naming ROADMAP
+A11, which brings them.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import queue
@@ -27,29 +36,58 @@ import re
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import numpy as np
 
 from rrs_tpu_torch.runtime.sampler import SamplerParams
 from rrs_tpu_torch.serving.chat import (build_prompt, detect_template, detect_tool_format,
                                         extract_reasoning, parse_tool_calls)
 from rrs_tpu_torch.serving.engine import Engine, GenRequest
 
-# Routes of the JAX server that wait for a later slice of the port.
-WAITING_ROUTES = {
-    "/": "the web UI waits for ROADMAP A13",
-    "/index.html": "the web UI waits for ROADMAP A13",
-    "/v1/embeddings": "embeddings wait for ROADMAP A13",
-    "/embeddings": "embeddings wait for ROADMAP A13",
-    "/embedding": "embeddings wait for ROADMAP A13",
-    "/rerank": "reranking waits for ROADMAP A13",
-    "/v1/rerank": "reranking waits for ROADMAP A13",
-    "/reranking": "reranking waits for ROADMAP A13",
-    "/infill": "infill waits for ROADMAP A13",
-    "/v1/messages": "the Anthropic messages route waits for ROADMAP A13",
-    "/models/load": "the multi-model router waits for ROADMAP A13",
-    "/models/unload": "the multi-model router waits for ROADMAP A13",
-}
-GRAMMAR = "grammar, json_schema and response_format wait for ROADMAP A6 (grammar slice)"
 MEDIA = "image and audio content parts wait for ROADMAP A11 (multimodal slice)"
+WEBUI = Path(__file__).resolve().parent / "webui.html"
+
+
+class ModelHandle:
+    """One model of the router: loaded on its first request (or
+    ``/models/load``) onto ``device``, unloaded to free the card's memory."""
+
+    def __init__(self, name: str, path: str, n_lanes: int = 2, max_seq: int = 2048,
+                 kv_quant: str = "none", device=None):
+        self.name = name
+        self.path = path
+        self.n_lanes = n_lanes
+        self.max_seq = max_seq
+        self.kv_quant = kv_quant
+        self.device = device
+        self.state: "ServerState | None" = None
+
+    @property
+    def loaded(self) -> bool:
+        return self.state is not None
+
+    def load(self) -> "ServerState":
+        if self.state is None:
+            from rrs_tpu_torch.models.loader import load_model
+            from rrs_tpu_torch.models.vocab import Vocab
+            from rrs_tpu_torch.runtime.context import InferenceContext
+
+            cfg, weights, md = load_model(self.path, device=self.device)
+            ctx = InferenceContext(cfg, weights, n_lanes=self.n_lanes, max_seq=self.max_seq,
+                                   kv_quant=self.kv_quant, device=self.device)
+            engine = Engine(ctx)
+            engine.start()
+            self.state = ServerState(cfg, Vocab.from_gguf(md), engine, md, self.name)
+        return self.state
+
+    def unload(self) -> None:
+        """Stop the model's engine and drop every reference to its weights
+        and caches (the engine thread holds reference cycles)."""
+        if self.state is not None:
+            self.state.engine.stop()
+            self.state = None
+            gc.collect()
 
 
 class ServerState:
@@ -70,6 +108,9 @@ class ServerState:
         # base directory of slot state files; the save / restore actions are
         # refused while it is unset (``--slot-save-path``)
         self.slot_save_path = None
+        # the router: name -> ModelHandle; a request whose "model" names one
+        # runs on that model's engine
+        self.models: dict[str, ModelHandle] = {}
 
     def render_chat(self, messages, tools=None, add_assistant=True):
         """(prompt text, extra stop strings) via the model's Jinja template,
@@ -110,13 +151,40 @@ def _has_media(messages) -> bool:
                for m in messages if isinstance(m, dict))
 
 
-class _Unported(Exception):
-    """A request for a feature of a later slice: answered with ``code``
-    (501, or 400 for a request option the route cannot honour yet)."""
+def _grammar_from_body(body: dict):
+    """The request's grammar, or None: ``grammar`` (GBNF text), else
+    ``json_schema``, else ``response_format`` (``json_schema`` with its
+    schema, or ``json_object``: any JSON), converted to GBNF. Trigger words,
+    patterns or tokens in ``grammar_triggers`` (or ``grammar_lazy``) make
+    it lazy: unconstrained until a trigger fires. A bad grammar raises."""
+    from rrs_tpu_torch.runtime.grammar import Grammar
+    from rrs_tpu_torch.runtime.json_schema import json_schema_to_gbnf
 
-    def __init__(self, why: str, code: int = 501):
-        super().__init__(why)
-        self.code = code
+    gbnf = body.get("grammar")
+    rf = body.get("response_format") or {}
+    if not gbnf and body.get("json_schema"):
+        gbnf = json_schema_to_gbnf(body["json_schema"])
+    if not gbnf and rf.get("type") == "json_schema":
+        gbnf = json_schema_to_gbnf(rf.get("json_schema", {}).get("schema", {}))
+    if not gbnf and rf.get("type") == "json_object":
+        gbnf = json_schema_to_gbnf({})
+    if not gbnf:
+        return None
+    words, patterns, ttoks = [], [], []
+    for trig in body.get("grammar_triggers") or []:
+        if isinstance(trig, str):
+            words.append(trig)
+        elif isinstance(trig, dict):
+            ty = trig.get("type", "word")
+            val = trig.get("value", trig.get("word", ""))
+            if ty in ("pattern", "pattern_full", 2, 3):
+                patterns.append(str(val))
+            elif ty in ("token", 0):
+                ttoks.append(int(val))
+            else:
+                words.append(str(val))
+    return Grammar(gbnf, lazy=bool(body.get("grammar_lazy")) or bool(words or patterns or ttoks),
+                   trigger_words=words, trigger_patterns=patterns, trigger_tokens=ttoks)
 
 
 def make_handler(state: ServerState):
@@ -145,14 +213,14 @@ def make_handler(state: ServerState):
             n = int(self.headers.get("Content-Length", 0))
             return json.loads(self.rfile.read(n) or b"{}")
 
-        def _run_request(self, prompt_tokens, body, stop_strings=(), probs_out=None):
+        def _run_request(self, prompt_tokens, body, stop_strings=(), probs_out=None,
+                         infill=False):
             """Submit and collect: returns an iterator of (piece, finished,
             reason) with the submitted GenRequest as ``.req`` (aborted on
-            disconnect). Set-up runs eagerly, so an invalid request raises
-            here and the route answers 400 (or 501 for a later slice's
-            route) instead of dropping the connection."""
-            if body.get("grammar") or body.get("json_schema") or body.get("response_format"):
-                raise _Unported(GRAMMAR, 400)
+            disconnect). Set-up (grammar parse, schema conversion, submit)
+            runs eagerly, so an invalid request raises here and the route
+            answers 400 instead of dropping the connection."""
+            grammar = _grammar_from_body(body)
             q: "queue.Queue" = queue.Queue()
             stats = {"n": 0, "t0": time.perf_counter(), "t_first": None, "t_end": None}
 
@@ -187,8 +255,12 @@ def make_handler(state: ServerState):
                 stop_strings=tuple(stops) + tuple(stop_strings),
                 on_token=on_token,
                 decode_fn=lambda ids: self.st.vocab.decode(ids),
+                grammar=grammar,
+                token_pieces=self.st.vocab.pieces() if grammar or infill else None,
+                token_trie=self.st.vocab.token_trie() if grammar is not None else None,
                 n_probs=n_probs,
                 on_probs=on_probs,
+                infill=infill,
             )
             self.st.engine.submit(req)
 
@@ -211,12 +283,10 @@ def make_handler(state: ServerState):
             return _Collected(_collect(), req)
 
         def _start(self, toks, body, **kw):
-            """_run_request with its errors mapped to 501 / 400; None when
-            the response was already sent."""
+            """_run_request with its errors (a bad grammar, say) answered
+            400; None when the response was already sent."""
             try:
                 return self._run_request(toks, body, **kw)
-            except _Unported as e:
-                self._not_ported(str(e), e.code)
             except Exception as e:                            # noqa: BLE001
                 self._json({"error": str(e)}, 400)
             return None
@@ -307,15 +377,23 @@ def make_handler(state: ServerState):
 
         def do_GET(self):
             e = self.st.engine
-            if self.path in WAITING_ROUTES:
-                self._not_ported(WAITING_ROUTES[self.path])
+            if self.path in ("/", "/index.html"):
+                page = WEBUI.read_bytes()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(page)))
+                self.end_headers()
+                self.wfile.write(page)
             elif self.path == "/health":
                 self._json({"status": "ok"})
             elif self.path in ("/v1/models", "/models"):
-                self._json({"object": "list", "data": [{
-                    "id": self.st.model_name, "object": "model",
-                    "created": int(self.st.t_start), "owned_by": "rrs_tpu_torch",
-                    "loaded": True}]})
+                data = [{"id": self.st.model_name, "object": "model",
+                         "created": int(self.st.t_start), "owned_by": "rrs_tpu_torch",
+                         "loaded": True}]
+                data += [{"id": name, "object": "model", "created": int(self.st.t_start),
+                          "owned_by": "rrs_tpu_torch", "loaded": h.loaded}
+                         for name, h in self.st.models.items()]
+                self._json({"object": "list", "data": data})
             elif self.path == "/props":
                 self._json({"model": self.st.model_name, "chat_template": self.st.template,
                             "total_slots": len(e.slots), "n_ctx": e.ctx.kv.max_seq})
@@ -359,9 +437,15 @@ def make_handler(state: ServerState):
                 self._json({"error": str(e)}, 400)
                 return
             path = self.path
-            if path in WAITING_ROUTES:
-                self._not_ported(WAITING_ROUTES[path])
-            elif path.startswith("/slots/"):
+            if path in ("/models/load", "/models/unload"):
+                self._model_action(path, body)
+                return
+            try:
+                self._route(body)
+            except Exception as e:                            # noqa: BLE001
+                self._json({"error": f"model {body.get('model')!r}: {e}"}, 400)
+                return
+            if path.startswith("/slots/"):
                 self._slot_action(body)
             elif path == "/tokenize":
                 self._json({"tokens": self.st.vocab.encode(
@@ -379,8 +463,177 @@ def make_handler(state: ServerState):
                 self._chat(body)
             elif path in ("/v1/completions", "/completion", "/completions"):
                 self._completion(body)
+            elif path == "/v1/messages":
+                self._anthropic(body)
+            elif path == "/infill":
+                self._infill(body)
+            elif path in ("/rerank", "/v1/rerank", "/reranking"):
+                self._rerank(body)
+            elif path in ("/v1/embeddings", "/embeddings", "/embedding"):
+                self._embeddings(body)
             else:
                 self._json({"error": "not found"}, 404)
+
+        # -- the router ------------------------------------------------------
+
+        def _route(self, body) -> None:
+            """A request naming a registered model other than the default
+            runs on that model's engine (loaded on first use)."""
+            name = body.get("model")
+            if name and name != state.model_name and name in state.models:
+                self.st = state.models[name].load()
+
+        def _model_action(self, path, body) -> None:
+            h = state.models.get(body.get("model", ""))
+            if h is None:
+                self._json({"error": "unknown model"}, 400)
+                return
+            try:
+                h.load() if path == "/models/load" else h.unload()
+            except Exception as e:                            # noqa: BLE001
+                self._json({"error": str(e)}, 400)
+                return
+            self._json({"success": True, "model": h.name})
+
+        # -- the other routes ------------------------------------------------
+
+        def _anthropic(self, body):
+            """Anthropic /v1/messages: a message object, or its SSE events
+            (message_start, content_block_start / _delta / _stop,
+            message_delta, message_stop) when streamed."""
+            messages = list(body.get("messages", []))
+            if _has_media(messages):
+                self._not_ported(MEDIA)
+                return
+            if body.get("system"):
+                messages = [{"role": "system", "content": body["system"]}] + messages
+            text, stops = self.st.render_chat(messages)
+            toks = self.st.vocab.encode(text, add_special=False)
+            rid = f"msg_{uuid.uuid4().hex[:16]}"
+            body = dict(body)
+            body.setdefault("max_tokens", 256)
+            gen = self._start(toks, body, stop_strings=stops)
+            if gen is None:
+                return
+            if not body.get("stream"):
+                content, reason = self._gather(gen)
+                self._json({"id": rid, "type": "message", "role": "assistant",
+                            "model": self.st.model_name,
+                            "content": [{"type": "text", "text": content}],
+                            "stop_reason": "max_tokens" if reason == "length" else "end_turn",
+                            "usage": {"input_tokens": len(toks),
+                                      "output_tokens": gen.stats["n"]}})
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+
+            def ev(name, obj):
+                data = f"event: {name}\ndata: {json.dumps(obj)}\n\n".encode()
+                self.wfile.write(hex(len(data))[2:].encode() + b"\r\n" + data + b"\r\n")
+
+            try:
+                ev("message_start", {"type": "message_start", "message": {
+                    "id": rid, "type": "message", "role": "assistant", "content": [],
+                    "model": self.st.model_name,
+                    "usage": {"input_tokens": len(toks), "output_tokens": 0}}})
+                ev("content_block_start", {"type": "content_block_start", "index": 0,
+                                           "content_block": {"type": "text", "text": ""}})
+                stop_reason = "end_turn"
+                for piece, finished, reason in gen:
+                    if piece:
+                        ev("content_block_delta", {"type": "content_block_delta", "index": 0,
+                                                   "delta": {"type": "text_delta",
+                                                             "text": piece}})
+                    if finished:
+                        stop_reason = "max_tokens" if reason == "length" else "end_turn"
+                ev("content_block_stop", {"type": "content_block_stop", "index": 0})
+                ev("message_delta", {"type": "message_delta",
+                                     "delta": {"stop_reason": stop_reason},
+                                     "usage": {"output_tokens": gen.stats["n"]}})
+                ev("message_stop", {"type": "message_stop"})
+            except (BrokenPipeError, ConnectionResetError):
+                gen.req.abort = True
+                return
+            self.wfile.write(b"0\r\n\r\n")
+
+        def _infill(self, body):
+            """Fill-in-the-middle: fim_pre + prefix + fim_suf + suffix +
+            fim_mid [+ prompt], sampled by the infill sampler."""
+            v = self.st.vocab
+            if v.fim_pre_id < 0 or v.fim_suf_id < 0 or v.fim_mid_id < 0:
+                self._json({"error": "model has no FIM tokens"}, 400)
+                return
+            extra = str(body.get("prompt", "") or "")
+            toks = ([v.fim_pre_id] + v.encode(str(body.get("input_prefix", "")),
+                                              add_special=False)
+                    + [v.fim_suf_id] + v.encode(str(body.get("input_suffix", "")),
+                                                add_special=False)
+                    + [v.fim_mid_id] + (v.encode(extra, add_special=False) if extra else []))
+            gen = self._start(toks, body, infill=True)
+            if gen is None:
+                return
+            content, reason = self._gather(gen)
+            self._json({"content": content, "stop_type": reason, "tokens_evaluated": len(toks),
+                        "tokens_predicted": gen.stats["n"]})
+
+        def _rerank(self, body):
+            """Causal-LM reranking: a document's score is the mean log
+            probability of its tokens after "Query: {query}\nDocument: ",
+            from ``prefill_logprobs`` on the engine thread."""
+            query = str(body.get("query", ""))
+            docs = body.get("documents") or []
+            top_n = int(body.get("top_n") or len(docs))
+            eng = self.st.engine
+            results = []
+            for i, doc in enumerate(docs):
+                q_toks = self.st.vocab.encode(f"Query: {query}\nDocument: ", add_special=True)
+                d_toks = self.st.vocab.encode(str(doc), add_special=False)
+                if not d_toks:
+                    results.append({"index": i, "relevance_score": -1e30})
+                    continue
+                toks = (q_toks + d_toks)[: eng.ctx.kv.max_seq - 1]
+                nd = len(toks) - len(q_toks)
+
+                def score(toks=toks, nd=nd):
+                    ctx = eng.ctx
+                    seq = ctx.new_sequence()
+                    try:
+                        lp = ctx.prefill_logprobs(seq, toks, list(toks[1:]) + [0])
+                    finally:
+                        ctx.kv.seq_rm(seq)
+                    return float(lp[len(toks) - nd - 1: len(toks) - 1].sum()) / max(nd, 1)
+
+                try:
+                    results.append({"index": i, "relevance_score": eng.call(score)})
+                except Exception as e:                        # noqa: BLE001
+                    self._json({"error": str(e)}, 400)
+                    return
+            results.sort(key=lambda r: -r["relevance_score"])
+            self._json({"model": self.st.model_name, "object": "list",
+                        "results": results[:top_n], "usage": {"total_tokens": 0}})
+
+        def _embeddings(self, body):
+            """One mean-pooled embedding per input (a text, or a list of
+            token ids), each a standalone forward on the engine thread."""
+            inputs = body.get("input") or body.get("content") or ""
+            if isinstance(inputs, str):
+                inputs = [inputs]
+            eng = self.st.engine
+            data = []
+            try:
+                for i, text in enumerate(inputs):
+                    toks = (list(text) if isinstance(text, list)
+                            else self.st.vocab.encode(str(text), add_special=True))
+                    vec = eng.call(lambda toks=toks: eng.ctx.embed(toks))
+                    data.append({"object": "embedding", "index": i,
+                                 "embedding": np.asarray(vec, np.float64).tolist()})
+            except Exception as e:                            # noqa: BLE001
+                self._json({"error": str(e)}, 400)
+                return
+            self._json({"object": "list", "data": data, "model": self.st.model_name})
 
         def _chat(self, body):
             messages = body.get("messages", [])
@@ -470,12 +723,23 @@ def serve(args):
     vocab = Vocab.from_gguf(md)
     ctx = InferenceContext(cfg, weights, n_lanes=args.parallel, max_seq=args.ctx,
                            kv_quant=args.cache_type, device=args.device)
-    engine = Engine(ctx)
+    draft_ctx = None
+    if args.model_draft:
+        dcfg, dweights, _ = load_model(args.model_draft, device=args.device)
+        draft_ctx = InferenceContext(dcfg, dweights, n_lanes=args.parallel, max_seq=args.ctx,
+                                     device=args.device)
+        print(f"speculative decoding with draft {args.model_draft}", flush=True)
+    engine = Engine(ctx, draft_ctx=draft_ctx, n_draft=args.draft)
     engine.start()
     state = ServerState(cfg, vocab, engine, md, model_name=str(args.model))
     if args.slot_save_path:
         os.makedirs(args.slot_save_path, exist_ok=True)
         state.slot_save_path = args.slot_save_path
+    for extra in args.models or []:
+        name, _, path = extra.partition("=")
+        state.models[name] = ModelHandle(name, path or name, n_lanes=args.parallel,
+                                         max_seq=args.ctx, kv_quant=args.cache_type,
+                                         device=args.device)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(state))
     print(f"serving {args.model} on http://{args.host}:{httpd.server_address[1]} "
           f"({args.parallel} slots, ctx {args.ctx}, KV {args.cache_type}, {ctx.device})",
@@ -487,3 +751,5 @@ def serve(args):
     finally:
         httpd.server_close()
         engine.stop()
+        for h in state.models.values():
+            h.unload()

@@ -200,21 +200,38 @@ def test_prefill_logprobs_matches_jax():
 
 
 def test_later_slices_raise():
-    """Grammar, multimodal segments, infill and a draft model fail loudly,
-    naming their ROADMAP item; slot save and restore are ported and refuse
-    only a slot with nothing to save or a busy slot."""
+    """Multimodal segments still fail loudly, naming ROADMAP A11. Grammar,
+    infill and a draft model, which once raised naming A6 / A13, are taken:
+    each request is served (a grammar one with only legal tokens, infill
+    through the infill sampler) and a draft context is kept. Slot save and
+    restore refuse only a slot with nothing to save or a busy slot."""
+    from rrs_tpu_torch.runtime.grammar import Grammar
+
     ctx = InferenceContext(CFG, random_weights(CFG, seed=0, device="cpu"), max_seq=32,
                            device="cpu")
     eng = Engine(ctx)
-    for kw, item in ((dict(grammar=object()), "A6"), (dict(segments=[]), "A11"),
-                     (dict(infill=True), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            eng.submit(GenRequest(prompt_tokens=[1, 2], **kw))
+    with pytest.raises(NotImplementedError, match="A11"):
+        eng.submit(GenRequest(prompt_tokens=[1, 2], segments=[]))
     assert eng.pending.empty()
     with pytest.raises(ValueError, match="no sequence to save"):
         eng.save_slot(0, "slot.bin")
     eng.slots[0].state = SlotState.PROMPT
     with pytest.raises(ValueError, match="busy"):
         eng.restore_slot(0, "slot.bin")
-    with pytest.raises(NotImplementedError, match="A13"):
-        Engine(ctx, draft_ctx=ctx)
+    eng = Engine(ctx)
+    pieces = [chr(97 + i % 26) if i % 3 else "!" for i in range(CFG.vocab_size)]
+    for kw in (dict(grammar=Grammar("root ::= [a-z]+"), token_pieces=pieces),
+               dict(infill=True, token_pieces=pieces)):
+        out, done = [], {}
+        eng.submit(GenRequest(prompt_tokens=[1, 2], max_tokens=3,
+                              on_token=lambda t, pc, f, r, out=out, done=done:
+                              done.__setitem__("r", r) if f else out.append(t), **kw))
+        for _ in range(100):
+            eng._iterate()
+            if done:
+                break
+        assert done and len(out) >= 1
+        if "grammar" in kw:
+            assert all(pieces[t] != "!" for t in out)
+    spec = Engine(ctx, draft_ctx=ctx, n_draft=2)
+    assert spec.draft_ctx is ctx and spec.n_draft == 2

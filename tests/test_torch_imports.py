@@ -21,7 +21,10 @@ import chip_smoke
 for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.ops.tcq4_matmul",
           "rrs_tpu_torch.models.moe", "rrs_tpu_torch.formats.kquants",
           "rrs_tpu_torch.tools.bench_sweep", "rrs_tpu_torch.tools.batched_bench",
-          "rrs_tpu_torch.tools.perplexity", "rrs_tpu_torch.tools.timing"):
+          "rrs_tpu_torch.tools.perplexity", "rrs_tpu_torch.tools.timing",
+          "rrs_tpu_torch.runtime.grammar", "rrs_tpu_torch.runtime.json_schema",
+          "rrs_tpu_torch.runtime.speculative", "rrs_tpu_torch.runtime.lookup",
+          "rrs_tpu_torch.runtime.dfa_worker"):
     assert m in mods, m
 tm = importlib.import_module("rrs_tpu_torch.ops.tcq4_matmul")
 for fn in ("tcq4_matmul_fused", "tcq4_matmul_fused_plain", "tcq4_matmul_pb",
@@ -41,6 +44,28 @@ def test_port_imports_neither_jax_nor_rrs_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20, r.stdout
+
+
+_WORKER_PROBE = r"""
+import sys
+from rrs_tpu_torch.runtime.dfa_worker import dfa_worker
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "rrs_tpu", "torch") or m.startswith(("jax.", "rrs_tpu.", "torch.")))
+print("forbidden:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_dfa_worker_module_imports_neither_torch_nor_jax():
+    """The spawned DFA compile's module (and the grammar it imports when it
+    runs) loads no torch, no JAX and nothing of rrs_tpu, so the child
+    starts in well under a second."""
+    probe = _WORKER_PROBE.replace("print(", "import rrs_tpu_torch.runtime.grammar, "
+                                  "rrs_tpu_torch.runtime.json_schema\nprint(")
+    for code in (_WORKER_PROBE, probe):
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode == 0, r.stdout + r.stderr
 
 
 def _no_cuda():
@@ -97,15 +122,19 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     for verb in ("serve", "chat"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([verb, "-m", str(tmp_path / "absent.gguf")])
-    # flags of later slices raise before anything loads; the quantized cache
-    # and the slot save path are ported, and still default to the card
-    for flags in (["--model-draft", "d.gguf"], ["--mmproj", "m.gguf"],
-                  ["--tp", "2"], ["--models", "a=b.gguf"]):
+    # flags of later slices raise before anything loads; the quantized cache,
+    # the slot save path, a draft model and extra routed models are ported,
+    # and still default to the card
+    for flags in (["--mmproj", "m.gguf"], ["--tp", "2"]):
         with pytest.raises(NotImplementedError):
             main(["serve", "-m", "absent.gguf", "--device", "cpu", *flags])
-    for flags in (["--cache-type", "q8"], ["--slot-save-path", str(tmp_path)]):
+    for flags in (["--cache-type", "q8"], ["--slot-save-path", str(tmp_path)],
+                  ["--model-draft", "d.gguf"], ["--models", "a=b.gguf"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["serve", "-m", str(tmp_path / "absent.gguf"), *flags])
+    for flags in (["--model-draft", "d.gguf"], ["--lookup"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["generate", "-m", str(tmp_path / "absent.gguf"), *flags])
     eng = Engine(ctx)
     assert eng.ctx is ctx and len(eng.slots) == 4
 

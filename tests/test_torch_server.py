@@ -1,8 +1,8 @@
 """The HTTP server of rrs_tpu_torch on the CPU: the cases of
 tests/test_server.py for the ported routes (slot save / restore / erase
-included), the 501 answers of the routes that wait for later slices (400 for
-the grammar slice's request options), and ``python -m rrs_tpu_torch
-generate|serve|chat`` with bf16 and quantized KV caches. The in-process
+included), the routes and request options that once waited for the grammar
+and server slices (now answering), the 501 answer of image parts, and
+``python -m rrs_tpu_torch generate|serve|chat`` with bf16 and quantized KV caches. The in-process
 server runs the tiny preset with random dense weights (scale 0.3, so that
 greedy text varies) and the char-level vocabulary of tests/test_server.py."""
 
@@ -209,33 +209,48 @@ def test_stop_string_reason_and_no_prefix_leak(server):
     assert out["text"] == text.split(stop)[0]
 
 
+# Routes and request options that once answered 501 / 400 naming the ROADMAP
+# item that brings them. The A6 (grammar) and A13 (the rest of the server)
+# cases now answer: 200, or 400 where the request itself is wrong for this
+# server (no FIM tokens in the vocabulary, an unregistered model name). The
+# A11 case (image parts) still answers 501 naming its item.
 WAITING = [
-    ("POST", "/v1/embeddings", {"input": "AB"}, "A13"),
-    ("POST", "/rerank", {"query": "a", "documents": ["b"]}, "A13"),
-    ("POST", "/infill", {"input_prefix": "a", "input_suffix": "b"}, "A13"),
-    ("POST", "/v1/messages", {"messages": [{"role": "user", "content": "hi"}]}, "A13"),
-    ("POST", "/models/load", {"model": "x"}, "A13"),
-    ("POST", "/models/unload", {"model": "x"}, "A13"),
-    ("GET", "/", None, "A13"),
-    # a request option of the grammar slice is a bad request for this
-    # server, not a missing route: 400, naming the slice
-    ("POST", "/completion", {"prompt": "ab", "grammar": "root ::= [a-z]+"}, "A6"),
-    ("POST", "/v1/completions", {"prompt": "ab", "json_schema": {"type": "object"}}, "A6"),
+    ("POST", "/v1/embeddings", {"input": "AB"}, "A13", 200),
+    ("POST", "/rerank", {"query": "a", "documents": ["b"]}, "A13", 200),
+    ("POST", "/infill", {"input_prefix": "a", "input_suffix": "b"}, "A13", 400),
+    ("POST", "/v1/messages", {"messages": [{"role": "user", "content": "hi"}],
+                              "max_tokens": 4}, "A13", 200),
+    ("POST", "/models/load", {"model": "x"}, "A13", 400),
+    ("POST", "/models/unload", {"model": "x"}, "A13", 400),
+    ("GET", "/", None, "A13", 200),
+    ("POST", "/completion", {"prompt": "ab", "grammar": "root ::= [a-z]+", "max_tokens": 4},
+     "A6", 200),
+    ("POST", "/v1/completions", {"prompt": "ab", "json_schema": {"type": "object"},
+                                 "max_tokens": 4}, "A6", 200),
     ("POST", "/v1/chat/completions", {"messages": [{"role": "user", "content": "hi"}],
-                                      "response_format": {"type": "json_object"}}, "A6"),
+                                      "response_format": {"type": "json_object"},
+                                      "max_tokens": 4}, "A6", 200),
     ("POST", "/v1/chat/completions", {"messages": [{"role": "user", "content": [
-        {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}]}]}, "A11"),
+        {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}]}]}, "A11",
+     501),
 ]
 
 
-@pytest.mark.parametrize("method,path,body,item", WAITING,
-                         ids=[f"{m} {p} {i}" for m, p, _, i in WAITING])
-def test_waiting_routes_answer_501(server, method, path, body, item):
+@pytest.mark.parametrize("method,path,body,item,code", WAITING,
+                         ids=[f"{m} {p} {i}" for m, p, _, i, _ in WAITING])
+def test_waiting_routes_answer_501(server, method, path, body, item, code):
     port, _ = server
     status, data = _req(port, method, path, body)
-    assert status == (400 if item == "A6" else 501), data
-    err = json.loads(data)["error"]
-    assert err["code"] == status and f"ROADMAP {item}" in err["message"]
+    assert status == code, data
+    if code == 501:
+        err = json.loads(data)["error"]
+        assert err["code"] == status and f"ROADMAP {item}" in err["message"]
+    elif code == 400:
+        assert "ROADMAP" not in json.loads(data)["error"]
+    elif path == "/":
+        assert data.startswith(b"<!")
+    else:
+        assert "error" not in json.loads(data)
 
 
 def test_slot_save_restore(server, tmp_path_factory):
