@@ -31,8 +31,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    q4 KV, whose halves-packed cache takes B8 in the model; then
    ``generate`` at full qwen3-4b width (36 layers, fabricated TCQ4 weights
    with their i8p packs, Q8_0 lm_head) for three greedy requests and one
-   sampled one, with every kernel's launch count read after the run, and a
-   torch.profiler breakdown of a few decode steps; then ``generate`` with
+   sampled one, with every kernel's launch count read after the run (its
+   decode profile is phase 8's, without ``RRS_GX3``); then ``generate`` with
    q8 and with q4 KV caches;
 4. serving: the OpenAI-compatible server in-process at qwen3-4b width with
    4 slots and a 4096 context, answering concurrent completions (prompts of
@@ -71,7 +71,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    and B16 on its codes; ``compute_perplexity`` of a 2-layer dense model on
    the card against the CPU, its two branches against each other and KL
    against its own logits, and at qwen3-4b width through B4; then
-   ``bench`` (pp512 / tg64 without and with the flag, and over q8 KV),
+   ``bench`` (pp512 / tg64 over bf16 and q8 KV, and with the flag),
    ``batched-bench`` and ``perplexity`` on a GGUF, each run as a user runs
    it, in its own process;
 9. B17 (``tcq4_matmul_fused``) and B18 (``tcq4_matmul_pb``), which no model
@@ -137,8 +137,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
    (every launch held to its plain version, the drift reported); ``generate``
-   at full width (48 layers, fabricated weights, the config from
-   ``ModelConfig.from_gguf`` on the published metadata) with prompts that
+   at full width, cut to 24 of its 48 layers (fabricated weights, the config
+   from ``ModelConfig.from_gguf`` on the published metadata) with prompts that
    reach the rows, capacity and scan branches, a capacity prefill run twice
    and held bit-equal, a decode profile, a one-lane 40-token prefill step
    under torch.profiler (B10's share of a capacity-path step) and a run over
@@ -166,18 +166,42 @@ it; exits non-zero without either, and on any failed phase. Phases:
    metadata): a 2-layer qwen2moe model at reduced widths on the card
    against the CPU, with dense experts (logits within GLUE_TOL) and TCQ4
    experts (every launch held to plain, drift reported), both with the
-   dense shared expert; ``generate`` at the published widths, all 28
-   layers (fabricated TCQ4 attention and experts, dense bf16 shared
+   dense shared expert; ``generate`` at the published widths, cut to 14 of
+   its 28 layers (fabricated TCQ4 attention and experts, dense bf16 shared
    experts, Q8_0 lm_head) over prompts that take the rows, capacity and
-   scan branches, with launch counts; on the same 28 layers, teacher-forced
+   scan branches, with launch counts; on the same 14 layers, teacher-forced
    prefills of 40 tokens and of 300 copies and a decode step each, every
    launch held to its plain version; after the Q4_K_M part of phase 13 (no
    verb process beside them), decode profiles with and without the shared
    expert, whose difference is its device time a step;
-15. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+15. the attention families: tiny-mla (q LoRA, V3 routing) in 2 layers on
+   the card against the CPU with dense weights (logits within GLUE_TOL) and
+   at E = 256 with TCQ4 weights (every launch held to its plain version),
+   and gemma2 (softcaps 50 / 30 through B3 and B6), granite, minicpm, olmo2,
+   phi3 (partial rotary, LongRoPE factors) and a llama-architecture MoE in 2
+   layers against the CPU (GLUE_TOL); DeepSeek-V2-Lite at its published
+   widths, all 27 layers (MLA over one 576 / 512-wide cached row, a dense
+   lead layer, 64 dense bf16 experts of 1,408 top-6 and two shared; TCQ4
+   projections, Q8_0 lead down and head): ``generate`` over prompts of 5, 40
+   and 300 tokens x 32 over bf16 and q8 KV with launch counts and the MoE
+   branches, and of 40 x 32 over q4 KV (one head, the halves layout); over
+   the q8 and the q4 cache held prefills of 40 and 300 tokens and decode
+   steps, every K / V store bit-equal to the CPU's, and one context shift
+   of an MLA lane held to the CPU's; the server (4 slots, ctx 4096, four
+   1,000 / 2,000-token requests), then on its context a profiled 4-lane
+   decode run and MLA's plain attention at 4 lanes x 4,096 slots over bf16
+   and q8 KV as a share of it; a B = 1 decode profile, split by timing its
+   router, routed-expert gather, shared experts and MLA attention alone;
+   then gemma3-4b, all 34 layers:
+   ``generate`` over prompts of 5, 40 and 1,600 tokens (the 1,536-slot rings
+   wrap) over bf16 and q8 KV, a held 560-token prefill and decode step, a
+   decode profile;
+16. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13 and 14 also carry ``launches_server_rest`` /
-   ``launches_gguf_tcq4`` / ``launches_qwen2moe``),
+   phases 10, 13, 14 and 15 also carry ``launches_server_rest`` /
+   ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
+   ``launches_mla_q8`` and ``launches_mla_q4``) and ``launches_gemma3``
+   (with ``launches_gemma3_q8``)),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -729,7 +753,9 @@ def held_to_plain(label: str, expect):
             err = (out.float() - ref.float()).abs().max().item()
             rel = err / max(ref.float().abs().max().item(), 1e-30)
             tol = BF16_OUT_TOL if out.dtype == torch.bfloat16 else SMALL_TOL[name]
-            shape = tuple(args[0].shape) if not name.startswith("flash_attention") else \
+            # a matmul's (M, K, N); attention's (B, T, S)
+            shape = tuple(args[0].shape) + (out.shape[-1],) \
+                if not name.startswith("flash_attention") else \
                 tuple(args[0].shape[:2]) + (args[1].shape[2],)
             if not torch.isfinite(out.float()).all() or rel > tol:
                 raise AssertionError(f"{label}: {name} {shape} disagrees with its plain "
@@ -996,7 +1022,6 @@ def phase_main_path(reports):
         if n == 0:
             raise AssertionError(f"kernel {key} was never launched on the main path")
         reports[key].entry["launches"] = n
-    profile_decode(ctx, prompts[1])
     del ctx
     return cfg, weights
 
@@ -1029,8 +1054,7 @@ def phase_generate_kvq(cfg, weights, reports):
     """``generate`` at full qwen3-4b width over q8 and then q4 (head-pair) KV
     caches: prompts of 40 and 300 tokens, 32 greedy tokens each, the launch
     counts set to 0 before and read after each run; prefill and decode tok/s,
-    the cache's resident bytes and the peak memory; then a decode profile of
-    the q4 context."""
+    the cache's resident bytes and the peak memory."""
     import torch
 
     from rrs_tpu_torch import kernels
@@ -1065,8 +1089,6 @@ def phase_generate_kvq(cfg, weights, reports):
               f"{ctx.kv.nbytes() / GB:.3f} GB (S=1024), peak memory "
               f"{torch.cuda.max_memory_allocated() / GB:.2f} GB; greedy tokens {outs[0][:8]}...; "
               f"launches {launches}", flush=True)
-        if quant == "q4":
-            profile_decode(ctx, prompts[0])
         del ctx
 
 
@@ -1079,9 +1101,14 @@ def host_top(prof, steps: int, n: int = 8) -> str:
                      f"(x{e.count / steps:.0f})" for e in rows)
 
 
-def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
-    """Where a decode step's time goes at full width: the wall time of a few
-    eager decode steps, then torch.profiler over as many more. Prints the
+# decode steps read under torch.profiler (its reading took 16-34 s for 8 steps)
+PROFILE_STEPS = 2
+
+
+def profile_decode(ctx, prompt, steps: int = 4, label: str = "qwen3-4b"):
+    """Where a decode step's time goes at full width: the wall time of
+    ``steps`` eager decode steps, then torch.profiler over PROFILE_STEPS more
+    (the profiler's reading costs seconds per step on the host). Prints the
     wall time per step, the device time per step (sum of kernel durations;
     one stream, so they do not overlap), the device's idle share, the kernels
     launched per step, and the device time of the port's kernels and of the
@@ -1102,7 +1129,7 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(steps):
+            for i in range(PROFILE_STEPS):
                 ctx.decode({seq: 13 + steps + i})
             torch.cuda.synchronize()
     finally:
@@ -1112,17 +1139,18 @@ def profile_decode(ctx, prompt, steps: int = 8, label: str = "qwen3-4b"):
         print("  decode profile: the profiler recorded no device time (not measured)",
               flush=True)
         return
-    dev_ms = sum(by_name.values()) / steps
-    split = ", ".join(f"{k} {v / steps:.3f}" for k, v in sorted(by_name.items(),
-                                                               key=lambda kv: -kv[1]))
-    print(f"  decode profile ({steps} steps, {label}, S={ctx.kv.max_seq}): wall "
-          f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
-          f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / steps:.0f} kernels/step; "
+    n = PROFILE_STEPS
+    dev_ms = sum(by_name.values()) / n
+    split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
+                                                           key=lambda kv: -kv[1]))
+    print(f"  decode profile ({steps} steps timed, {n} profiled, {label}, S={ctx.kv.max_seq}): "
+          f"wall {wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
+          f"{1 - dev_ms / wall_ms:.3f}, {len(kernels) / n:.0f} kernels/step; "
           f"device ms/step by kernel: {split}", flush=True)
-    print(f"  decode profile, host ms/step by op: {host_top(prof, steps)} "
+    print(f"  decode profile, host ms/step by op: {host_top(prof, n)} "
           f"({time.perf_counter() - t_prof:.1f} s with the profiler's reading)", flush=True)
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "idle": 1 - dev_ms / wall_ms,
-            "kernels": len(kernels) / steps, "by_kernel": {k: v / steps for k, v in by_name.items()}}
+            "kernels": len(kernels) / n, "by_kernel": {k: v / n for k, v in by_name.items()}}
 
 
 def device_ms_by_kernel(prof):
@@ -1241,6 +1269,10 @@ def _union_seconds(intervals) -> float:
 
 SERVE_LENGTHS = (40, 300, 1000, 2000)       # prompt tokens, two requests each
 SERVE_NEW = 64
+# new tokens a gpt-oss-20b / Qwen3-30B-A3B generate request
+MOE_NEW = 32
+# tokens of each speculative / lookup run of phase 10 (lookup twice as many)
+SPEC_NEW = 24
 
 
 def phase_serving(cfg, weights, reports):
@@ -1469,47 +1501,50 @@ def prefill_four(ctx):
 def profile_decode_run(ctx, seqs, first, lengths, label: str = "bf16 KV"):
     """Where a served decode step's time goes: one sampled 4-lane device run
     (the server's default chain) timed by the host clock to its readback,
-    then one more under torch.profiler. The runs are 8 steps, not the
-    server's 24: per step they cost the same, and the profiler's reading of
-    a 24-step run's ~150,000 kernel events took over a minute of host time."""
+    then a PROFILE_STEPS-step one under torch.profiler. The runs are 4 and
+    2 steps, not the server's 24: per step they cost the same, and the
+    profiler's reading of a 24-step run's ~150,000 kernel events took over a
+    minute of host time (an 8-step run's 16-34 s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from rrs_tpu_torch.runtime.sampler import SamplerParams
 
     t_prof = time.perf_counter()
-    n = min(8, ctx.DECODE_RUN_STEPS)
+    n = min(4, ctx.DECODE_RUN_STEPS)
     params = SamplerParams(temperature=0.8, top_k=40, top_p=0.95, min_p=0.05)
 
-    def run():
+    def run(steps):
         for seq in seqs:
             ctx.kv.seq_rm(seq, p0=lengths[seq])
         gens = {s: torch.Generator(device=ctx.device).manual_seed(s) for s in seqs}
-        h = ctx.decode_run_start(first, gens, {s: params for s in seqs}, n)
+        h = ctx.decode_run_start(first, gens, {s: params for s in seqs}, steps)
         return h["toks"].cpu()
 
-    run()
+    run(n)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run()
+    run(n)
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
+        run(PROFILE_STEPS)
         torch.cuda.synchronize()
     events, by_name = device_ms_by_kernel(prof)
     if not events:
         print("  decode-run profile: the profiler recorded no device time (not measured)",
               flush=True)
         return
-    dev_ms = sum(by_name.values()) / n
-    split = ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(by_name.items(),
+    p = PROFILE_STEPS
+    dev_ms = sum(by_name.values()) / p
+    split = ", ".join(f"{k} {v / p:.3f}" for k, v in sorted(by_name.items(),
                                                            key=lambda kv: -kv[1]))
-    print(f"  decode-run profile, {label} ({n} steps, 4 lanes, S={ctx.kv.max_seq}, sampled): wall "
-          f"{wall_ms:.3f} ms/step, device {dev_ms:.3f} ms/step, idle share "
-          f"{1 - dev_ms / wall_ms:.3f}, {len(events) / n:.0f} kernels/step; device ms/step "
-          f"by kernel: {split}", flush=True)
-    print(f"  decode-run profile, {label}, host ms/step by op: {host_top(prof, n)} "
+    print(f"  decode-run profile, {label} ({n} steps timed, {p} profiled, 4 lanes, "
+          f"S={ctx.kv.max_seq}, sampled): wall {wall_ms:.3f} ms/step, device {dev_ms:.3f} "
+          f"ms/step, idle share {1 - dev_ms / wall_ms:.3f}, {len(events) / p:.0f} kernels/step; "
+          f"device ms/step by kernel: {split}", flush=True)
+    print(f"  decode-run profile, {label}, host ms/step by op: {host_top(prof, p)} "
           f"({time.perf_counter() - t_prof:.1f} s with the profiler's reading)", flush=True)
+    return {"wall_ms": wall_ms, "device_ms": dev_ms}
 
 
 @contextlib.contextmanager
@@ -1593,7 +1628,7 @@ SERVE_Q4_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
 def phase_serving_q4(cfg, weights, reports):
     """The server in-process at qwen3-4b width with ``--cache-type q4``: 4
     slots, ctx 4096, a slot save path in a temporary directory. Four
-    concurrent completions (1000 / 2000 tokens, 64 new; two greedy, two
+    concurrent completions (1000 / 2000 tokens, SERVE_NEW new; two greedy, two
     sampled), then over HTTP: save slot 0, erase it, restore it (the lane's
     codes must equal the saved lane's, its scales within 1e-6 relative), and
     a greedy continuation that reuses the restored prefix. Returns the
@@ -1756,10 +1791,11 @@ def phase_q4_decode_profile(ctx):
         ctx.kv.seq_rm(seq)
 
 
-def phase_shift_q4(ctx):
-    """One context shift of a q4 head-pair lane on the card (keep 1, drop
-    half), held to the CPU's shift of a copy of that lane: dequantized K
-    within one quantization step per element, V codes and scales equal."""
+def shift_held(ctx, label: str) -> None:
+    """One context shift of the longest lane of a quantized cache on the card
+    (keep 1, drop half), held to the CPU's shift of a copy of that lane:
+    dequantized K within one quantization step per element, V codes and
+    scales equal (an MLA row rotates only its leading rope dims)."""
     import torch
 
     from rrs_tpu_torch.runtime import kv_codec
@@ -1769,7 +1805,8 @@ def phase_shift_q4(ctx):
     seq = max((s for s in kv.seq_ids if s is not None), key=lambda s: kv.lengths[kv.lane_of(s)])
     lane = kv.lane_of(seq)
     n = kv.lengths[lane]
-    cpu = KVCache.create(cfg, 1, kv.max_seq, device="cpu", quant="q4")
+    quant = "q8" if kv.k[0][0].dtype == torch.int8 else "q4"
+    cpu = KVCache.create(cfg, 1, kv.max_seq, device="cpu", quant=quant)
     for dst, src in zip(cpu.k + cpu.v, kv.k + kv.v):
         for d_t, s_t in zip(dst, src):
             d_t[0].copy_(s_t[lane].cpu())
@@ -1787,15 +1824,18 @@ def phase_shift_q4(ctx):
         step = torch.maximum(ks[lane].cpu(), cs[0]).transpose(-1, -2)
         worst = max(worst, ((got - ref).abs() / step).max().item())
     if worst > 1.0001:
-        raise AssertionError(f"context shift: K {worst:.3f} quantization steps from the CPU's")
+        raise AssertionError(f"{label} context shift: K {worst:.3f} quantization steps from the "
+                             f"CPU's")
     for (va, vs), (ca, cs) in zip(kv.v, cpu.v):
         if not (torch.equal(va[lane].cpu(), ca[0]) and torch.equal(vs[lane].cpu(), cs[0])):
-            raise AssertionError("context shift: V codes or scales differ from the CPU's")
+            raise AssertionError(f"{label} context shift: V codes or scales differ from the "
+                                 f"CPU's")
     if kv.lengths[lane] != cpu.lengths[0] or kv.lengths[lane] != n - n // 2:
-        raise AssertionError(f"context shift: lengths {kv.lengths[lane]} / {cpu.lengths[0]}")
-    print(f"  context shift of a q4 lane on the card (keep 1, drop {n // 2} of {n}, "
-          f"{dt * 1e3:.0f} ms): K within {worst:.3f} quantization steps of the CPU's, V codes "
-          f"and scales equal", flush=True)
+        raise AssertionError(f"{label} context shift: lengths {kv.lengths[lane]} / "
+                             f"{cpu.lengths[0]}")
+    print(f"  context shift of a {label} {quant} lane on the card (keep 1, drop {n // 2} of "
+          f"{n}, {dt * 1e3:.0f} ms): K within {worst:.3f} quantization steps of the CPU's, V "
+          f"codes and scales equal", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2119,8 +2159,9 @@ def stop_children() -> None:
 
 def phase_verbs(name: str):
     """The measuring verbs as a user runs them, each its own process on the
-    card: ``bench`` at qwen3-4b (pp512 and tg64, two reps) without and with
-    RRS_GX3 and over a q8 cache, every jsonl row parsed and checked;
+    card: ``bench`` at qwen3-4b (pp512 and tg64, two reps) over bf16 and q8
+    caches in one process and with RRS_GX3 in another, every jsonl row
+    parsed and checked;
     ``batched-bench`` at qwen3-4b (PP 128, TG 32, B 1 and 4; with the flag,
     so that the 4-lane decode runs B15 at M = 4); ``perplexity`` on a 2-layer
     GGUF written by the port's exporter."""
@@ -2128,11 +2169,11 @@ def phase_verbs(name: str):
 
     from rrs_tpu_torch.tools.bench_sweep import FIELDS
 
-    for env, extra in (({}, []), ({"RRS_GX3": "1"}, []), ({}, ["--ctk", "q8_0"])):
+    for env, ctk in (({}, ["bf16", "q8_0"]), ({"RRS_GX3": "1"}, ["bf16"])):
         out = _verb(["bench", "--preset", "qwen3-4b", "-p", "512", "-n", "64", "-r", "2", "-o",
-                     "jsonl", *extra], env)
+                     "jsonl", "--ctk", *ctk], env)
         rows = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
-        if [(r["n_prompt"], r["n_gen"]) for r in rows] != [(512, 0), (0, 64)]:
+        if [(r["n_prompt"], r["n_gen"]) for r in rows] != [(512, 0), (0, 64)] * len(ctk):
             raise AssertionError(f"bench rows: {rows}")
         for r in rows:
             if (list(r) != FIELDS or r["backends"] != "CUDA" or r["gpu_info"] != name
@@ -2776,6 +2817,63 @@ def routes_replayed(recorded: list):
         moe.route = orig
 
 
+def card_vs_cpu(label, cfg, w_cpu, prompts, expect, held_logits: bool, kv_quant="none"):
+    """The same weights and prompts on the CPU and on the card (each prompt's
+    last prefill logits and one decode step's), the card's expert ids
+    replayed where they differ from the CPU's, every kernel launch held to
+    its plain version; the logits within GLUE_TOL (``held_logits``) or
+    their drift reported. Returns the rel L2 by prompt and stage."""
+    import torch
+
+    from rrs_tpu_torch.models import llama, moe
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    orig = moe.route
+    recorded, logits = [], {}
+
+    def record(c, mw, x2):
+        ti, tv = orig(c, mw, x2)
+        recorded.append((ti.clone(), tv.clone()))
+        return ti, tv
+
+    moe.route = record
+    try:
+        cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu", kv_quant=kv_quant)
+        for name, p in prompts.items():
+            seq = cpu.new_sequence()
+            logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
+                                   cpu.decode({seq: 11})[seq].float())
+            cpu.kv.seq_rm(seq)
+    finally:
+        moe.route = orig
+    ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024, kv_quant=kv_quant)
+    with held_to_plain(label, expect) as seen, routes_replayed(recorded) as replay:
+        for name, p in prompts.items():
+            seq = ctx.new_sequence()
+            logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
+                                    ctx.decode({seq: 11})[seq].float().cpu())
+            ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    rels = {}
+    for name in prompts:
+        for i, stage in enumerate(("prefill", "decode")):
+            got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{label} {name} {stage}: bad logits")
+            rels[f"{name} {stage}"] = rel = ((got - ref).norm() / ref.norm()).item()
+            if held_logits and rel > GLUE_TOL:
+                raise AssertionError(f"{label} {name} {stage}: card vs CPU rel L2 {rel:.4f} > "
+                                     f"{GLUE_TOL}")
+    print(f"  {label}: each launch vs its plain version (max rel): "
+          + (", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items()) or "none")
+          + f"; {replay['flipped']} expert selections replayed over {replay['calls']} routing "
+          f"calls; logits card vs CPU, rel L2 " + ("<= " + str(GLUE_TOL) if held_logits
+                                                   else "(reported)") + ": "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rels.items()), flush=True)
+    del ctx
+    return rels
+
+
 def phase_gptoss_small_reference():
     """A 2-layer gpt-oss model (gptoss_small_cfg, fabricated weights drawn on
     the CPU) on the card against the same weights on the CPU: prompts of 40
@@ -2787,8 +2885,7 @@ def phase_gptoss_small_reference():
     inputs; the logits are held within GLUE_TOL relative L2."""
     import torch
 
-    from rrs_tpu_torch.models import llama, moe
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.models import llama
 
     cfg = gptoss_small_cfg()
     w_cpu = llama.fabricated_gptoss_weights(cfg, seed=1, device="cpu")
@@ -2796,51 +2893,10 @@ def phase_gptoss_small_reference():
     prompts = {"40": torch.randint(0, cfg.vocab_size, (40,), generator=rng).tolist(),
                "300 random": torch.randint(0, cfg.vocab_size, (300,), generator=rng).tolist(),
                "300 copies": [77] * 300}
-    recorded, logits = [], {}
-    orig = moe.route
-
-    def record(c, mw, x2):
-        ti, tv = orig(c, mw, x2)
-        recorded.append((ti.clone(), tv.clone()))
-        return ti, tv
-
-    moe.route = record
-    try:
-        cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
-        with moe_branches() as paths_cpu:
-            for name, p in prompts.items():
-                seq = cpu.new_sequence()
-                logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
-                                       cpu.decode({seq: 11})[seq].float())
-                cpu.kv.seq_rm(seq)
-    finally:
-        moe.route = orig
-    ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
-    expect = MXFP4_KERNELS | {"q8_matmul", "flash_attention"}
-    with held_to_plain("small gpt-oss", expect) as seen, routes_replayed(recorded) as replay:
-        for name, p in prompts.items():
-            seq = ctx.new_sequence()
-            logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
-                                    ctx.decode({seq: 11})[seq].float().cpu())
-            ctx.kv.seq_rm(seq)
-        torch.cuda.synchronize()
-    print(f"  small gpt-oss (2 layers, E=1024, 32 experts top-4, rings of {ctx.kv.sizes[0]}): "
-          "each launch vs its plain version (max rel): "
-          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items())
-          + f"; {replay['flipped']} expert selections of the card's own routing differed from "
-          f"the CPU's over {replay['calls']} routing calls and were replayed; MoE paths on the "
-          f"CPU {paths_cpu}", flush=True)
-    for name in prompts:
-        for i, stage in enumerate(("prefill", "decode")):
-            got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
-            if got.shape != ref.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"small gpt-oss {name} {stage}: bad logits")
-            rel = ((got - ref).norm() / ref.norm()).item()
-            print(f"  small gpt-oss, prompt {name}, {stage}, card vs CPU: rel L2 {rel:.4f} <= "
-                  f"{GLUE_TOL}, argmax {int(got.argmax())} vs {int(ref.argmax())}", flush=True)
-            if rel > GLUE_TOL:
-                raise AssertionError(f"small gpt-oss {name} {stage}: rel L2 {rel:.4f} > "
-                                     f"{GLUE_TOL}")
+    with moe_branches() as paths:
+        card_vs_cpu("small gpt-oss (2 layers, E=1024, 32 experts top-4)", cfg, w_cpu, prompts,
+                    MXFP4_KERNELS | {"q8_matmul", "flash_attention"}, held_logits=True)
+    print(f"  MoE paths taken on the CPU and the card together: {paths}", flush=True)
 
 
 GPTOSS_COUNTERS = {"q8": "q8_matmul", "fa": "flash_attention", "mx_rows": MX["mx_rows"][0],
@@ -2854,7 +2910,7 @@ def phase_gptoss_generate(reports):
     300 random and 300 copies of one token (the overflow scan: the 212
     padding rows of the 512 bucket, all token 0, route alike and overflow the
     capacity, as in the JAX package), and 512 random ones (the capacity
-    dispatch, B13 over per-expert activations), 32 new tokens each; every
+    dispatch, B13 over per-expert activations), MOE_NEW new tokens each; every
     kernel's launches counted from 0 and the MoE branches taken; the 512-token
     prefill run twice and held bit-equal; a decode profile; then ``generate``
     over q8 rings. Returns (cfg, weights)."""
@@ -2894,14 +2950,15 @@ def phase_gptoss_generate(reports):
             if not torch.isfinite(first).all():
                 raise AssertionError(f"gpt-oss generate: non-finite prefill logits, prompt "
                                      f"{name}")
-            outs[name] = ctx.generate(p, 32)
+            outs[name] = ctx.generate(p, MOE_NEW)
         torch.cuda.synchronize()
     launches = {key: kernels.LAUNCHES[n] for key, n in GPTOSS_COUNTERS.items()}
     for name, out in outs.items():
-        if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+        if len(out) != MOE_NEW or not all(0 <= tok < cfg.vocab_size for tok in out):
             raise AssertionError(f"gpt-oss generate {name}: {len(out)} tokens: {out}")
     perf = ctx.perf()
-    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x 32 new tokens (each prompt "
+    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x {MOE_NEW} new tokens "
+          f"(each prompt "
           f"prefilled once more first, its logits checked finite); prefill {perf['n_p_eval']} "
           f"tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} tok @ "
           f"{perf['tg_tok_per_s']:.2f} tok/s ({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} "
@@ -2927,16 +2984,16 @@ def phase_gptoss_generate(reports):
     ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
     torch.cuda.synchronize()
     kernels.reset_launches()
-    q8_outs = [ctx.generate(prompts[n], 32) for n in ("40", "300 random")]
+    q8_outs = [ctx.generate(prompts[n], MOE_NEW) for n in ("40", "300 random")]
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if any(len(o) != 32 for o in q8_outs) or launches["flash_attention_q8"] == 0 \
+    if any(len(o) != MOE_NEW for o in q8_outs) or launches["flash_attention_q8"] == 0 \
             or launches["flash_attention"] != 0:
         raise AssertionError(f"gpt-oss generate, q8 KV: {[len(o) for o in q8_outs]} tokens, "
                              f"launches {launches}")
     reports["fa_q8"].entry["launches_gptoss"] = launches["flash_attention_q8"]
     perf = ctx.perf()
-    print(f"  generate, q8 KV over the rings: prompts 40/300 x 32 new tokens; prefill "
+    print(f"  generate, q8 KV over the rings: prompts 40/300 x {MOE_NEW} new tokens; prefill "
           f"{perf['pp_tok_per_s']:.1f} tok/s, decode {perf['tg_tok_per_s']:.2f} tok/s; KV "
           f"resident {ctx.kv.nbytes() / GB:.4f} GB; greedy tokens {q8_outs[0][:6]}... (bf16 KV: "
           f"{outs['40'][:6]}...); launches {launches}", flush=True)
@@ -2966,8 +3023,8 @@ SERVE_MOE_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
 def serve_four(cfg, weights, label, counters):
     """The server in-process: 4 slots, ctx 4096, bf16 KV (rings on sliding
     layers). Four concurrent completions (SERVE_MOE_LENGTHS tokens, two
-    greedy, two sampled, 64 new tokens each) must finish by length with 64
-    tokens; the device decode runs must be used; a model with sliding layers
+    greedy, two sampled, SERVE_NEW new tokens each) must finish by length with
+    SERVE_NEW tokens; the device decode runs must be used; a model with sliding layers
     frees its lanes on release (the others keep them as a prompt cache).
     Returns (the context, launches by report key, MoE branches)."""
     import torch
@@ -3155,6 +3212,10 @@ def capacity_repeat(ctx, prompt, label):
 
 # -- Qwen3-30B-A3B ---------------------------------------------------------------
 
+# the layers of Qwen3-30B-A3B's and Qwen2-57B-A14B's full-width runs (48
+# and 28 published): cut so that the script fits its time limit
+QWEN3MOE_LAYERS = 24
+QWEN2MOE_LAYERS = 14
 # The GGUF metadata of Qwen3-30B-A3B as its published config.json gives it
 # (Hugging Face Qwen/Qwen3-30B-A3B; llama.cpp's converter writes these keys)
 QWEN3_30B_A3B_GGUF = {
@@ -3337,8 +3398,7 @@ def phase_qwen3moe_small_reference():
     are counted)."""
     import torch
 
-    from rrs_tpu_torch.models import llama, moe
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.models import llama
 
     cfg = qwen3moe_small_cfg()
     rng = torch.Generator().manual_seed(5)
@@ -3350,55 +3410,11 @@ def phase_qwen3moe_small_reference():
                        {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
                         "flash_attention", "tcq4_matmul_experts_rows",
                         "tcq4_matmul_all_experts"})}
-    orig = moe.route
     for kind, (w_cpu, expect) in models.items():
-        recorded, logits = [], {}
-
-        def record(c, mw, x2):
-            ti, tv = orig(c, mw, x2)
-            recorded.append((ti.clone(), tv.clone()))
-            return ti, tv
-
-        moe.route = record
-        try:
-            cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
-            with moe_branches() as paths_cpu:
-                for name, p in prompts.items():
-                    seq = cpu.new_sequence()
-                    logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
-                                           cpu.decode({seq: 11})[seq].float())
-                    cpu.kv.seq_rm(seq)
-        finally:
-            moe.route = orig
-        ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
-        with held_to_plain(f"small qwen3moe {kind}", expect) as seen, \
-                routes_replayed(recorded) as replay:
-            for name, p in prompts.items():
-                seq = ctx.new_sequence()
-                logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
-                                        ctx.decode({seq: 11})[seq].float().cpu())
-                ctx.kv.seq_rm(seq)
-            torch.cuda.synchronize()
-        print(f"  small qwen3moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8): each "
-              "launch vs its plain version (max rel): "
-              + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items())
-              + f"; {replay['flipped']} expert selections of the card's own routing differed "
-              f"from the CPU's over {replay['calls']} routing calls and were replayed; MoE "
-              f"paths on the CPU {paths_cpu}", flush=True)
-        held = kind == "dense"
-        for name in prompts:
-            for i, stage in enumerate(("prefill", "decode")):
-                got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
-                if got.shape != ref.shape or not torch.isfinite(got).all():
-                    raise AssertionError(f"small qwen3moe {kind} {name} {stage}: bad logits")
-                rel = ((got - ref).norm() / ref.norm()).item()
-                print(f"  small qwen3moe {kind}, prompt {name}, {stage}, card vs CPU: rel L2 "
-                      f"{rel:.4f}" + (f" <= {GLUE_TOL}" if held else " (reported)")
-                      + f", argmax {int(got.argmax())} vs {int(ref.argmax())}", flush=True)
-                if held and rel > GLUE_TOL:
-                    raise AssertionError(f"small qwen3moe {kind} {name} {stage}: rel L2 "
-                                         f"{rel:.4f} > {GLUE_TOL}")
-        del ctx
+        with moe_branches() as paths:
+            card_vs_cpu(f"small qwen3moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8)",
+                        cfg, w_cpu, prompts, expect, held_logits=kind == "dense")
+        print(f"  MoE paths taken on the CPU and the card together: {paths}", flush=True)
 
 
 QWEN3MOE_COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
@@ -3407,16 +3423,19 @@ QWEN3MOE_COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tc
 
 
 def phase_qwen3moe_generate(reports):
-    """``generate`` at full Qwen3-30B-A3B width (48 layers, the config from
-    ``ModelConfig.from_gguf`` on the published metadata, weights fabricated
-    on the card): greedy prompts of 5 (the rows kernel in prefill), 40 (the
-    capacity dispatch, B10 over per-expert activations), 300 random and 300
-    copies of one token (the overflow scan: the 212 padding rows of the 512
-    bucket route alike and overflow the capacity of 64, as in the JAX
-    package) and 512 random ones, 32 new tokens each; every kernel's launches
-    counted from 0 and the MoE branches taken; the 40-token prefill run twice
+    """``generate`` at full Qwen3-30B-A3B width, cut to QWEN3MOE_LAYERS of its
+    48 layers (the config from ``ModelConfig.from_gguf`` on the published
+    metadata, weights fabricated on the card): greedy prompts of 5 (the rows
+    kernel in prefill), 40 (the capacity dispatch, B10 over per-expert
+    activations), 300 random and 300 copies of one token (the overflow scan:
+    the 212 padding rows of the 512 bucket route alike and overflow the
+    capacity of 64, as in the JAX package) and 512 random ones, MOE_NEW new
+    tokens each; every kernel's launches counted from 0 and the MoE branches
+    taken; the 40-token prefill run twice
     and held bit-equal; a decode profile; then ``generate`` over q8 KV.
     Returns (cfg, weights)."""
+    import dataclasses
+
     import torch
 
     from rrs_tpu_torch import kernels
@@ -3424,14 +3443,15 @@ def phase_qwen3moe_generate(reports):
     from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    cfg = ModelConfig.from_gguf(QWEN3_30B_A3B_GGUF)
+    cfg = dataclasses.replace(ModelConfig.from_gguf(QWEN3_30B_A3B_GGUF),
+                              n_layers=QWEN3MOE_LAYERS)
     t0 = time.perf_counter()
     weights = llama.fabricated_tcq4_moe_weights(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
     exp_bytes = sum(t.numel() * t.element_size() for lw in weights.layers
                     for t in _tensors(lw.moe) if t.dim() == 3)
-    print(f"  Qwen3-30B-A3B config: {cfg.n_layers} layers, E={cfg.n_embd}, "
+    print(f"  Qwen3-30B-A3B config: {cfg.n_layers} of its 48 layers, E={cfg.n_embd}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, {cfg.n_experts} experts of "
           f"{cfg.n_ff_exp} top-{cfg.n_experts_used}, norm_topk_prob {cfg.norm_topk_prob}; "
           f"fabricated weights {w_bytes / GB:.2f} GB (expert stacks {exp_bytes / GB:.2f} GB) in "
@@ -3452,16 +3472,17 @@ def phase_qwen3moe_generate(reports):
     outs, per_prompt = {}, {}
     for name, p in prompts.items():
         with moe_branches() as branches:
-            outs[name] = ctx.generate(p, 32)
+            outs[name] = ctx.generate(p, MOE_NEW)
         per_prompt[name] = branches
     torch.cuda.synchronize()
     launches = {key: kernels.LAUNCHES[n] for key, n in QWEN3MOE_COUNTERS.items()}
     for name, out in outs.items():
-        if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+        if len(out) != MOE_NEW or not all(0 <= tok < cfg.vocab_size for tok in out):
             raise AssertionError(f"qwen3moe generate {name}: {len(out)} tokens: {out}")
     perf = ctx.perf()
     peak = torch.cuda.max_memory_allocated() / GB
-    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x 32 new tokens; prefill "
+    print(f"  requests: prompts 5/40/300 random/300 copies/512 random x {MOE_NEW} new tokens; "
+          f"prefill "
           f"{perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} "
           f"tok @ {perf['tg_tok_per_s']:.2f} tok/s "
           f"({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} ms/token); KV resident "
@@ -3489,16 +3510,16 @@ def phase_qwen3moe_generate(reports):
     ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q8")
     torch.cuda.synchronize()
     kernels.reset_launches()
-    q8_outs = [ctx.generate(prompts[n], 32) for n in ("40", "300 random")]
+    q8_outs = [ctx.generate(prompts[n], MOE_NEW) for n in ("40", "300 random")]
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if any(len(o) != 32 for o in q8_outs) or launches["flash_attention_q8"] == 0 \
+    if any(len(o) != MOE_NEW for o in q8_outs) or launches["flash_attention_q8"] == 0 \
             or launches["flash_attention"] != 0:
         raise AssertionError(f"qwen3moe generate, q8 KV: {[len(o) for o in q8_outs]} tokens, "
                              f"launches {launches}")
     reports["fa_q8"].entry["launches_qwen3moe"] = launches["flash_attention_q8"]
     perf = ctx.perf()
-    print(f"  generate, q8 KV: prompts 40/300 x 32 new tokens; prefill "
+    print(f"  generate, q8 KV: prompts 40/300 x {MOE_NEW} new tokens; prefill "
           f"{perf['pp_tok_per_s']:.1f} tok/s, decode {perf['tg_tok_per_s']:.2f} tok/s; KV "
           f"resident {ctx.kv.nbytes() / GB:.4f} GB; greedy tokens {q8_outs[0][:6]}... (bf16 KV: "
           f"{outs['40'][:6]}...); launches {launches}", flush=True)
@@ -3853,8 +3874,7 @@ def phase_qwen2moe_small_reference():
     own differ."""
     import torch
 
-    from rrs_tpu_torch.models import llama, moe
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.models import llama
 
     cfg = qwen2moe_small_cfg()
     rng = torch.Generator().manual_seed(6)
@@ -3866,66 +3886,25 @@ def phase_qwen2moe_small_reference():
                        {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul",
                         "flash_attention", "tcq4_matmul_experts_rows",
                         "tcq4_matmul_all_experts"})}
-    orig = moe.route
     for kind, (w_base, expect) in models.items():
         w_cpu = with_shared_experts(w_base, 8 * cfg.n_ff_exp, seed=3, device="cpu")
-        recorded, logits = [], {}
-
-        def record(c, mw, x2):
-            ti, tv = orig(c, mw, x2)
-            recorded.append((ti.clone(), tv.clone()))
-            return ti, tv
-
-        moe.route = record
-        try:
-            cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu")
-            for name, p in prompts.items():
-                seq = cpu.new_sequence()
-                logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
-                                       cpu.decode({seq: 11})[seq].float())
-                cpu.kv.seq_rm(seq)
-        finally:
-            moe.route = orig
-        ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024)
-        with held_to_plain(f"small qwen2moe {kind}", expect) as seen, \
-                routes_replayed(recorded) as replay:
-            for name, p in prompts.items():
-                seq = ctx.new_sequence()
-                logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
-                                        ctx.decode({seq: 11})[seq].float().cpu())
-                ctx.kv.seq_rm(seq)
-            torch.cuda.synchronize()
-        held = kind == "dense"
-        rows = []
-        for name in prompts:
-            for i, stage in enumerate(("prefill", "decode")):
-                got, ref = logits[name, "cuda"][i], logits[name, "cpu"][i]
-                if got.shape != ref.shape or not torch.isfinite(got).all():
-                    raise AssertionError(f"small qwen2moe {kind} {name} {stage}: bad logits")
-                rel = ((got - ref).norm() / ref.norm()).item()
-                rows.append(f"{name} {stage} {rel:.4f}")
-                if held and rel > GLUE_TOL:
-                    raise AssertionError(f"small qwen2moe {kind} {name} {stage}: rel L2 "
-                                         f"{rel:.4f} > {GLUE_TOL}")
-        print(f"  small qwen2moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8, shared "
-              f"expert 4096): each launch vs its plain version (max rel): "
-              + (", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}" for k, v in seen.items()))
-              + f"; {replay['flipped']} expert selections replayed over {replay['calls']} "
-              f"routing calls; logits card vs CPU, rel L2 "
-              + ("<= " + str(GLUE_TOL) if held else "(reported)") + ": " + ", ".join(rows),
-              flush=True)
-        del ctx
+        card_vs_cpu(f"small qwen2moe, {kind} (2 layers, E=1024, 32 experts of 512 top-8, "
+                    f"shared expert 4096)", cfg, w_cpu, prompts, expect,
+                    held_logits=kind == "dense")
 
 
 def phase_qwen2moe_generate(reports):
     """``generate`` at Qwen2-57B-A14B's published widths (the config from
-    ``ModelConfig.from_gguf`` on its metadata; all 28 layers), weights
+    ``ModelConfig.from_gguf`` on its metadata, cut to QWEN2MOE_LAYERS of its
+    28 layers), weights
     fabricated on the card: TCQ4 attention (with q / k / v biases) and
     experts, a dense bf16 shared expert 20,480 wide per layer, a Q8_0
     lm_head. Greedy prompts of 5 (rows), 40 (capacity) and 300 copies of one
     token (the overflow scan), 16 new tokens each; every kernel's launches
     counted from 0 and the MoE branches taken. Returns what the held steps
     and the decode profiles that follow run on."""
+    import dataclasses
+
     import torch
 
     from rrs_tpu_torch import kernels
@@ -3933,7 +3912,8 @@ def phase_qwen2moe_generate(reports):
     from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    cfg = ModelConfig.from_gguf(QWEN2_57B_A14B_GGUF)
+    cfg = dataclasses.replace(ModelConfig.from_gguf(QWEN2_57B_A14B_GGUF),
+                              n_layers=QWEN2MOE_LAYERS)
     t0 = time.perf_counter()
     weights = with_shared_experts(llama.fabricated_tcq4_moe_weights(cfg, seed=0, device="cuda"),
                                   QWEN2MOE_SHARED_FF, seed=1, device="cuda")
@@ -3943,7 +3923,8 @@ def phase_qwen2moe_generate(reports):
                     for t in _tensors(lw.moe) if t.dim() == 3)
     sh_bytes = sum(getattr(lw.moe, f).numel() * 2 for lw in weights.layers
                    for f in ("shared_gate", "shared_up", "shared_down"))
-    print(f"  Qwen2-57B-A14B config: {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads}/"
+    print(f"  Qwen2-57B-A14B config: {cfg.n_layers} of its 28 layers, E={cfg.n_embd}, "
+          f"{cfg.n_heads}/"
           f"{cfg.n_kv_heads} heads x {cfg.head_dim}, {cfg.n_experts} experts of {cfg.n_ff_exp} "
           f"top-{cfg.n_experts_used}, shared expert {QWEN2MOE_SHARED_FF}, attn_bias "
           f"{cfg.attn_bias}, norm_topk_prob {cfg.norm_topk_prob}; fabricated weights "
@@ -3996,8 +3977,8 @@ def phase_qwen2moe_generate(reports):
 
 
 def phase_qwen2moe_held(ctx, prompts):
-    """On the 28-layer Qwen2-57B-A14B weights ``generate`` ran, at the
-    published widths: teacher-forced prefills of the 40-token prompt
+    """On the QWEN2MOE_LAYERS-layer Qwen2-57B-A14B weights ``generate`` ran,
+    at the published widths: teacher-forced prefills of the 40-token prompt
     (capacity) and of 300 copies of one token (the overflow scan; M >= 256,
     so the i8p kernel) and one decode step after each (rows), every kernel
     launch held to its plain version on the very inputs it got."""
@@ -4410,7 +4391,7 @@ def phase_server_rest(cfg, weights, reports):
           f"{dcfg.vocab_size}) in {time.perf_counter() - t0:.1f} s", flush=True)
     prompt = ids(40)
     mk = lambda c, w: InferenceContext(c, w, n_lanes=1, max_seq=512)      # noqa: E731
-    plain = mk(cfg, weights).generate(prompt, 24)
+    plain = mk(cfg, weights).generate(prompt, SPEC_NEW)
     with held_to_plain("one speculative round", {"tcq4_matmul_gx2", "tcq4_matmul",
                                                  "q8_matmul", "flash_attention"}) as seen:
         out, st = generate_speculative(mk(cfg, weights), mk(cfg, weights), prompt, 2,
@@ -4424,19 +4405,21 @@ def phase_server_rest(cfg, weights, reports):
     for label in ("self-draft", "qwen3-0.6b draft"):
         t1 = time.perf_counter()
         if label == "self-draft":
-            out, st, drift = self_draft_drift(mk(cfg, weights), mk(cfg, weights), prompt, 24)
+            out, st, drift = self_draft_drift(mk(cfg, weights), mk(cfg, weights), prompt,
+                                              SPEC_NEW)
             extra = (f"; draft decode vs verify chunk logits part by rel L2 up to {drift:.4f} "
                      f"(B1's integer path against B4's dequantized one, reported)")
         else:
-            out, st = generate_speculative(mk(cfg, weights), mk(dcfg, dweights), prompt, 24,
+            out, st = generate_speculative(mk(cfg, weights), mk(dcfg, dweights), prompt,
+                                           SPEC_NEW,
                                            n_draft=4)
             extra = ""
         torch.cuda.synchronize()
         agree = next((i for i, (a, b) in enumerate(zip(out, plain)) if a != b), len(out))
         print(f"  generate_speculative, {label}: {st.n_accepted} of {st.n_drafted} drafts "
-              f"accepted ({st.acceptance_rate:.3f}), 24 tokens in "
+              f"accepted ({st.acceptance_rate:.3f}), {SPEC_NEW} tokens in "
               f"{time.perf_counter() - t1:.1f} s; agrees with plain greedy decode for the "
-              f"first {agree} of 24 tokens (reported){extra}", flush=True)
+              f"first {agree} of {SPEC_NEW} tokens (reported){extra}", flush=True)
     # the server's engine with the 0.6b draft: four greedy requests at once
     tctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=512)
     eng = Engine(tctx, draft_ctx=InferenceContext(dcfg, dweights, n_lanes=4, max_seq=512),
@@ -4461,12 +4444,13 @@ def phase_server_rest(cfg, weights, reports):
     del eng, tctx
     rep = ids(8) * 10
     t1 = time.perf_counter()
-    out, st = generate_lookup(mk(cfg, weights), rep, 48)
+    out, st = generate_lookup(mk(cfg, weights), rep, 2 * SPEC_NEW)
     torch.cuda.synchronize()
-    if len(out) != 48:
+    if len(out) != 2 * SPEC_NEW:
         raise AssertionError(f"generate_lookup returned {len(out)} tokens")
     print(f"  generate_lookup on an 8-token pattern x 10: {st.n_accepted} of {st.n_drafted} "
-          f"drafts accepted, 48 tokens in {time.perf_counter() - t1:.1f} s (random weights "
+          f"drafts accepted, {len(out)} tokens in {time.perf_counter() - t1:.1f} s (random "
+          f"weights "
           f"need not follow the pattern: a draft needs an n-gram seen before)", flush=True)
     del dweights
     gc.collect()
@@ -4539,6 +4523,497 @@ def phase_router(tcq4_path) -> None:
 T_START = time.perf_counter()
 
 
+# -- DeepSeek-V2-Lite (MLA) and gemma3-4b: the attention families of the layer body --
+
+# The GGUF metadata of DeepSeek-V2-Lite as its published config.json gives it
+# (Hugging Face deepseek-ai/DeepSeek-V2-Lite; llama.cpp's converter writes these
+# keys, the split k_b / v_b layout: the cache row sizes under key / value_length,
+# the head sizes under the *_mla keys, 0.1 * mscale_all_dim as the YaRN log
+# multiplier)
+DEEPSEEK_V2_LITE_GGUF = {
+    "general.architecture": "deepseek2", "deepseek2.block_count": 27,
+    "deepseek2.context_length": 163840, "deepseek2.embedding_length": 2048,
+    "deepseek2.feed_forward_length": 10944, "deepseek2.attention.head_count": 16,
+    "deepseek2.attention.head_count_kv": 1, "deepseek2.attention.key_length": 576,
+    "deepseek2.attention.value_length": 512, "deepseek2.attention.key_length_mla": 192,
+    "deepseek2.attention.value_length_mla": 128,
+    "deepseek2.attention.layer_norm_rms_epsilon": 1e-6, "deepseek2.rope.freq_base": 10000.0,
+    "deepseek2.rope.dimension_count": 64, "deepseek2.rope.scaling.type": "yarn",
+    "deepseek2.rope.scaling.factor": 40.0,
+    "deepseek2.rope.scaling.original_context_length": 4096,
+    "deepseek2.rope.scaling.yarn_log_multiplier": 0.0707,
+    "deepseek2.attention.kv_lora_rank": 512, "deepseek2.leading_dense_block_count": 1,
+    "deepseek2.expert_count": 64, "deepseek2.expert_used_count": 6,
+    "deepseek2.expert_shared_count": 2, "deepseek2.expert_feed_forward_length": 1408,
+    "deepseek2.expert_weights_scale": 1.0, "deepseek2.vocab_size": 102400}
+# The GGUF metadata of gemma-3-4b's text model as the published config.json of
+# google/gemma-3-4b-it gives it (query_pre_attn_scalar 256 = head_dim)
+GEMMA3_4B_GGUF = {
+    "general.architecture": "gemma3", "gemma3.block_count": 34,
+    "gemma3.context_length": 131072, "gemma3.embedding_length": 2560,
+    "gemma3.feed_forward_length": 10240, "gemma3.attention.head_count": 8,
+    "gemma3.attention.head_count_kv": 4, "gemma3.attention.key_length": 256,
+    "gemma3.attention.value_length": 256, "gemma3.attention.layer_norm_rms_epsilon": 1e-6,
+    "gemma3.rope.freq_base": 1e6, "gemma3.attention.sliding_window": 1024,
+    "gemma3.rope.scaling.type": "linear", "gemma3.rope.scaling.factor": 8.0,
+    "gemma3.vocab_size": 262208}
+MLA_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul"}
+GEMMA3_NEW = 16
+# the 2-layer family checks: arch -> config fields at reduced widths
+FAMILY_SMALL = {
+    "gemma2": dict(arch="gemma2", n_heads=4, n_kv_heads=2, head_dim=256, swa_window=32,
+                   swa_pattern=2, attn_softcap=50.0, final_softcap=30.0, ffn_act="gelu",
+                   embd_scale=1024.0 ** 0.5, sandwich_norm=True, attn_scale=1.0 / 16.0,
+                   tie_embeddings=True),
+    "granite": dict(arch="granite", rope_neox=False, embd_scale=6.0, residual_scale=0.22,
+                    logits_divisor=4.0, attn_scale=0.015625),
+    "minicpm": dict(arch="minicpm", embd_scale=12.0, residual_scale=1.4 / 2 ** 0.5,
+                    logits_divisor=0.25),
+    "olmo2": dict(arch="olmo2", qk_norm=True, qk_norm_full=True, post_norm_only=True),
+    "phi3": dict(arch="phi3", rope_rot_dim=64, rope_orig_context=1024, rope_scale_factor=4.0),
+    "llama-moe": dict(arch="llama", rope_neox=False, n_experts=8, n_experts_used=2,
+                      n_ff_exp=512),
+}
+
+
+def mark_launches(reports, key: str) -> dict:
+    """Every kernel's launch count since the last reset, into its report
+    under ``key``; returns the non-zero ones."""
+    from rrs_tpu_torch import kernels
+
+    out = {}
+    for rep in reports.values():
+        n = kernels.LAUNCHES[rep.entry["name"]]
+        rep.entry[key] = n
+        if n:
+            out[rep.entry["name"]] = n
+    return out
+
+
+def family_small_weights(cfg, seed: int):
+    """Dense bf16 weights of a 2-layer family check on the CPU
+    (``random_weights``), with the norms drawn around 1, olmo2's q / k norms
+    over the whole projection and its post norms, and phi3's LongRoPE
+    factors."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+
+    w = llama.random_weights(cfg, seed=seed, device="cpu", scale=0.05)
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def norm(n):
+        return (1.0 + 0.2 * torch.randn(n, generator=gen)).to(torch.bfloat16)
+
+    layers = []
+    for lw in w.layers:
+        e = cfg.n_embd
+        extra = dict(attn_norm=norm(e), ffn_norm=norm(e))
+        if cfg.qk_norm:
+            qd, kd = (cfg.n_q_dim, cfg.n_kv_dim) if cfg.qk_norm_full else (cfg.head_dim,) * 2
+            extra.update(q_norm=norm(qd), k_norm=norm(kd))
+        if cfg.sandwich_norm or cfg.post_norm_only:
+            extra.update(attn_post_norm=norm(e), ffn_post_norm=norm(e))
+        layers.append(dataclasses.replace(lw, **extra))
+    factors = None
+    if cfg.rope_rot_dim:
+        factors = 1.0 + 3.0 * torch.rand(cfg.rope_rot_dim // 2, generator=gen)
+    return dataclasses.replace(w, layers=layers, rope_factors=factors,
+                               final_norm=norm(cfg.n_embd))
+
+
+def phase_families_small():
+    """tiny-mla (q LoRA, V3 routing: sigmoid gating, groups, selection bias)
+    in 2 layers on the card against the CPU, with dense weights (logits
+    within GLUE_TOL) and, at E = 256 so that every projection is TCQ4, with
+    fabricated TCQ4 weights (every launch held to its plain version, the
+    drift reported); then each dense family in 2 layers at reduced widths,
+    logits within GLUE_TOL: gemma2 (softcaps 50 / 30) over bf16 and q8 KV
+    (B3 and B6 with the softcap), granite, minicpm, olmo2, phi3 (partial
+    rotary, LongRoPE factors) and a llama-architecture MoE."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import PRESETS, ModelConfig
+
+    t0 = time.perf_counter()
+    rng = torch.Generator().manual_seed(8)
+    tiny = dataclasses.replace(PRESETS["tiny-mla"], n_layers=2)
+    wide = dataclasses.replace(tiny, n_embd=256, q_lora_rank=256, v_head_dim=64, n_ff=512)
+    prompts = {"40": torch.randint(0, 512, (40,), generator=rng).tolist(),
+               "300": torch.randint(0, 512, (300,), generator=rng).tolist()}
+    card_vs_cpu("tiny-mla dense (2 layers)", tiny,
+                llama.fabricated_mla_weights(tiny, seed=3, device="cpu", quantized=False),
+                prompts, set(), held_logits=True)
+    card_vs_cpu("tiny-mla TCQ4 at E=256 (2 layers)", wide,
+                llama.fabricated_mla_weights(wide, seed=3, device="cpu"), prompts, MLA_PATH,
+                held_logits=False)
+    base = dict(n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4, head_dim=128, n_ff=2048,
+                vocab_size=4096, context_length=4096)
+    fam_prompts = {"40": torch.randint(0, 4096, (40,), generator=rng).tolist()}
+    for i, (fam, fields) in enumerate(FAMILY_SMALL.items()):
+        cfg = ModelConfig(**{**base, **fields})
+        w = family_small_weights(cfg, seed=20 + i)
+        for kvq in (("none", "q8") if fam == "gemma2" else ("none",)):
+            expect = {"flash_attention_q8" if kvq == "q8" else "flash_attention"}
+            card_vs_cpu(f"{fam} (2 layers{', q8 KV' if kvq == 'q8' else ''})", cfg, w,
+                        fam_prompts, expect, held_logits=True, kv_quant=kvq)
+    print(f"  2-layer checks took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_mla_generate(reports):
+    """``generate`` at DeepSeek-V2-Lite's published widths, all 27 layers (the
+    config from ``ModelConfig.from_gguf`` on its metadata; weights fabricated
+    on the card in the quantizer's types by ``fabricated_mla_weights``):
+    greedy prompts of 5, 40 and 300 tokens x 32 new tokens over bf16 and then
+    q8 KV, the launch counts set to 0 before and read after, the MoE
+    branches taken (the dense expert stacks: the gather at <= 16 tokens, the
+    capacity dispatch and its all-experts fallback)."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = ModelConfig.from_gguf(DEEPSEEK_V2_LITE_GGUF)
+    t0 = time.perf_counter()
+    weights = llama.fabricated_mla_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    exp_bytes = sum(t.numel() * t.element_size() for lw in weights.layers if lw.moe is not None
+                    for t in (lw.moe.gate, lw.moe.up, lw.moe.down))
+    kinds = {f: type(getattr(weights.layers[0], f)).__name__
+             for f in ("wq", "wkv_a", "wo", "w_gate", "w_down")}
+    print(f"  DeepSeek-V2-Lite config: {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads} heads "
+          f"(nope {cfg.qk_nope_dim} + rope {cfg.qk_rope_dim}, v {cfg.v_head_dim}), kv_lora "
+          f"{cfg.kv_lora_rank} (cache rows {cfg.kv_k_dim} / {cfg.kv_v_dim}), {cfg.n_dense_lead} "
+          f"dense lead layer of {cfg.n_ff}, {cfg.n_experts} experts of {cfg.n_ff_exp} top-"
+          f"{cfg.n_experts_used} + 2 shared, YaRN x{cfg.rope_scale_factor:g} (log mul "
+          f"{cfg.rope_yarn_log_mul:.3f}, kq scale {llama.mla_kq_scale(cfg):.6f}); fabricated "
+          f"weights {w_bytes / GB:.2f} GB (routed experts {exp_bytes / GB:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; lead layer linears {kinds}", flush=True)
+    rng = torch.Generator().manual_seed(0)
+    prompts = {n: torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (5, 40, 300)}
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024)
+    warm.generate(prompts[5], 2)
+    del warm
+    ctxs = {}
+    for quant in ("none", "q8"):
+        ctxs[quant] = ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024,
+                                             kv_quant=quant)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = {}
+        with moe_branches() as branches:
+            for n, p in prompts.items():
+                outs[n] = ctx.generate(p, 32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = mark_launches(reports, "launches_mla" if quant == "none" else "launches_mla_q8")
+        for n, out in outs.items():
+            if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out):
+                raise AssertionError(f"DeepSeek-V2-Lite generate {n}: {len(out)} tokens: {out}")
+        if MLA_PATH - set(launches) or any(k.startswith("flash") for k in launches):
+            raise AssertionError(f"DeepSeek-V2-Lite generate ({quant} KV): launches {launches}")
+        if branches["rows"] or not branches["capacity"] + branches["fallback"]:
+            raise AssertionError(f"DeepSeek-V2-Lite generate: dense branches {branches}")
+        perf = ctx.perf()
+        print(f"  generate ({'bf16' if quant == 'none' else quant} KV): prompts 5/40/300 x 32 "
+              f"new tokens in {dt:.1f} s; prefill {perf['n_p_eval']} tok @ "
+              f"{perf['pp_tok_per_s']:.1f} tok/s, decode {perf['n_eval']} tok @ "
+              f"{perf['tg_tok_per_s']:.2f} tok/s ({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f}"
+              f" ms/token); KV resident {ctx.kv.nbytes() / GB:.4f} GB (S=1024, one 576 + 512 "
+              f"row a slot and layer), peak memory {torch.cuda.max_memory_allocated() / GB:.2f} "
+              f"GB; MoE branches {branches}; greedy {outs[40][:6]}...; launches {launches}",
+              flush=True)
+    return cfg, weights, ctxs, prompts
+
+
+def phase_mla_held(ctx, prompts, quant: str):
+    """On the 27 layers ``generate`` ran, over the context's quantized cache:
+    teacher-forced prefills of 40 tokens (B4 at N = 3,072 and 576, B2 at K =
+    10,944) and of 300 (a 512-row bucket: B5) and one decode step after each
+    (B1), every kernel launch held to its plain version on the very inputs
+    it got and every K / V store (one head, 576- and 512-wide rows) held bit
+    for bit to the CPU's (``store_held``); then one context shift of the
+    300-token lane held to the CPU's (``shift_held``) and a decode step
+    after it."""
+    import torch
+
+    label = f"DeepSeek-V2-Lite {quant}"
+    t0 = time.perf_counter()
+    with held_to_plain(label, MLA_PATH) as seen, store_held(label) as stores:
+        for n in (40, 300):
+            seq = ctx.new_sequence()
+            last = ctx.prefill(seq, prompts[n])[-1]
+            out = ctx.decode({seq: int(last.argmax())})[seq]
+            if not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+                raise AssertionError(f"{label} held steps, {n}: non-finite logits")
+            if n == 40:
+                ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    for name, (worst, shapes) in sorted(seen.items()):
+        print(f"  {label} held, {name}: max rel {worst:.2e} <= {SMALL_TOL[name]:.0e}; "
+              f"shapes {sorted(shapes)}", flush=True)
+    print(f"  {label}: held prefills of 40 and 300 tokens + a decode step each in "
+          f"{time.perf_counter() - t0:.1f} s; {stores['stores']} K/V stores "
+          f"({stores['rows']} rows) bit-equal to the CPU's", flush=True)
+    shift_held(ctx, "DeepSeek-V2-Lite MLA")
+    if not torch.isfinite(ctx.decode({seq: 7})[seq]).all():
+        raise AssertionError(f"{label} context shift: non-finite logits after it")
+    ctx.kv.seq_rm(seq)
+
+
+def phase_mla_q4(cfg, weights, prompts, reports):
+    """MLA over a q4 cache (one head, the halves layout: 288-byte K rows and
+    256-byte V rows a slot): greedy ``generate`` of the 40-token prompt x 32
+    new tokens with its launch counts, then ``phase_mla_held`` over it."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=1024, kv_quant="q4")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = ctx.generate(prompts[40], 32)
+    torch.cuda.synchronize()
+    launches = mark_launches(reports, "launches_mla_q4")
+    if len(out) != 32 or not all(0 <= tok < cfg.vocab_size for tok in out) \
+            or MLA_PATH - {"tcq4_matmul_i8p"} - set(launches) or any(k.startswith("flash") for k in launches):
+        raise AssertionError(f"DeepSeek-V2-Lite generate (q4 KV): {out}; launches {launches}")
+    print(f"  generate (q4 KV): prompt 40 x 32 new tokens in {time.perf_counter() - t0:.1f} s; "
+          f"K / V rows of {ctx.kv.k[0][0].shape[-1]} / {ctx.kv.v[0][0].shape[-1]} bytes a slot; "
+          f"greedy {out[:6]}...; launches {launches}", flush=True)
+    phase_mla_held(ctx, prompts, "q4")
+    del ctx
+
+
+def device_ms_of(fn, reps: int = 5) -> float:
+    """The device ms of one call of ``fn``: torch.profiler over ``reps``
+    calls after two warm-up calls, the kernels' durations summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events, by_name = device_ms_by_kernel(prof)
+    if not events:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(by_name.values()) / reps
+
+
+def mla_attend_ms(cfg, b: int, s: int, quant: str) -> float:
+    """The device ms a decode step spends in MLA's plain attention
+    (``mla_attend``: the q8 / q4 dequantization of the whole cache, scores,
+    softmax, read-out) at B lanes of S slots, all live, times the layers.
+    The cache is filled with random rows through the model's store."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.runtime.kv_cache import KVCache
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kv = KVCache.create(dataclasses.replace(cfg, n_layers=1), b, s, device="cuda", quant=quant)
+    kc, vc = kv.k[0], kv.v[0]
+    new = torch.randn((b, 1, s, cfg.kv_k_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    llama._store_cache(kc, new, [0] * b)
+    llama._store_cache(vc, new[..., cfg.qk_rope_dim:], [0] * b)
+    q = torch.randn((b, 1, cfg.n_heads, cfg.kv_k_dim), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    mask = torch.full((b, 1), s - 1, device="cuda")
+    scale = llama.mla_kq_scale(cfg)
+    ms = device_ms_of(lambda: llama.mla_attend(q, kc, vc, mask, scale)) * cfg.n_layers
+    del kv
+    return ms
+
+
+def mla_decode_split(cfg, weights, device_ms: float, s: int) -> None:
+    """Where DeepSeek-V2-Lite's B = 1 decode step's device time goes, each
+    part timed alone at the decode shape over its layers: the MoE layers'
+    router (``moe.route``), the routed experts' dense gather
+    (``moe._dense_ffn``, less the router) and the shared experts with the
+    combine (``moe_ffn``, less both), and MLA's plain attention over a bf16
+    cache of S slots; each as a share of the step's ``device_ms``."""
+    import torch
+
+    from rrs_tpu_torch.models import moe
+
+    mws = [lw.moe for lw in weights.layers if lw.moe is not None]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x2 = torch.randn((1, cfg.n_embd), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def routers():
+        for mw in mws:
+            moe.route(cfg, mw, x2)
+
+    def routed():
+        for mw in mws:
+            topi, topv = moe.route(cfg, mw, x2)
+            moe._dense_ffn(cfg, mw, x2, topi, topv, x2.dtype)
+
+    def whole():
+        for mw in mws:
+            moe.moe_ffn(cfg, mw, x2[None])
+
+    r_ms, g_ms, w_ms = device_ms_of(routers), device_ms_of(routed), device_ms_of(whole)
+    a_ms = mla_attend_ms(cfg, 1, s, "none")
+    parts = {"router": r_ms, "routed experts' dense gather": g_ms - r_ms,
+             "shared experts and combine": w_ms - g_ms, "MLA's plain attention": a_ms}
+    rest = device_ms - sum(parts.values())
+    print(f"  DeepSeek-V2-Lite decode step, B=1, of its {device_ms:.3f} device ms ("
+          f"{len(mws)} MoE layers, each part timed alone): "
+          + ", ".join(f"{k} {v:.3f} ({v / device_ms:.3f})" for k, v in parts.items())
+          + f"; the rest (the port's kernels, norms, RoPE, the lead layer, the head) "
+          f"{rest:.3f} ({rest / device_ms:.3f})", flush=True)
+
+
+def mla_served_share(ctx) -> None:
+    """MLA's plain attention at the served geometry: the server's 4-lane,
+    4,096-slot context with four prompts prefilled, one sampled decode run
+    profiled (``profile_decode_run``); ``mla_attend`` at 4 lanes x 4,096
+    live slots over bf16 and q8 caches, each as a share of that step's
+    device ms (the step's other work does not depend on the KV type)."""
+    seqs, first, lengths = prefill_four(ctx)
+    prof = profile_decode_run(ctx, seqs, first, lengths, label="DeepSeek-V2-Lite bf16 KV")
+    for seq in seqs:
+        ctx.kv.seq_rm(seq)
+    if not prof:
+        return
+    dev = prof["device_ms"]
+    b, s = ctx.kv.n_lanes, ctx.kv.max_seq
+    for quant in ("none", "q8"):
+        ms = mla_attend_ms(ctx.cfg, b, s, quant)
+        print(f"  MLA's plain attention at {b} lanes x {s} slots, "
+              f"{'bf16' if quant == 'none' else quant} KV: {ms:.3f} device ms a decode step = "
+              f"{ms / dev:.3f} of the served step's {dev:.3f} device ms", flush=True)
+
+
+MLA_COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
+                "q8": "q8_matmul"}
+
+
+def phase_mla(reports):
+    """DeepSeek-V2-Lite at its published widths: generate, held steps with
+    the stores held and a context shift over q8 and q4 KV, the server (4
+    slots, ctx 4096, four 1,000 / 2,000-token requests) and MLA's plain
+    attention's share of its decode step, a B = 1 decode profile split by
+    part."""
+    cfg, weights, ctxs, prompts = phase_mla_generate(reports)
+    phase_mla_held(ctxs["q8"], prompts, "q8")
+    del ctxs["q8"]
+    phase_mla_q4(cfg, weights, prompts, reports)
+    t0 = time.perf_counter()
+    served, _, _ = serve_four(cfg, weights, "DeepSeek-V2-Lite", MLA_COUNTERS)
+    print(f"  DeepSeek-V2-Lite serving took {time.perf_counter() - t0:.1f} s", flush=True)
+    mla_served_share(served)
+    del served
+    prof = profile_decode(ctxs["none"], prompts[40], label="DeepSeek-V2-Lite")
+    if prof:
+        mla_decode_split(cfg, weights, prof["device_ms"], ctxs["none"].kv.max_seq)
+    del ctxs, weights
+
+
+def phase_gemma3(reports):
+    """gemma3-4b at its published widths, all 34 layers (the config from
+    ``ModelConfig.from_gguf`` on its metadata: 8 / 4 heads x 256, FF 10,240,
+    five sliding layers of every six over 1,024-window rings with a 10k
+    base, linear x8 RoPE on the global ones, the sqrt(E) embedding scale,
+    GEGLU, q / k and sandwich norms; fabricated TCQ4 linears with their i8p
+    packs, a Q8_0 lm_head over the 262,208-entry vocabulary): greedy prompts
+    of 5, 40 and 1,600 tokens (past the 1,536-slot rings, which wrap) x 16
+    new tokens over bf16 and q8 KV, launch counts read after each; a
+    teacher-forced 560-token prefill (chunks of 512 rows, B5, and 48, B4)
+    and a decode step with every launch held to its plain version; one
+    decode profile."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg = ModelConfig.from_gguf(GEMMA3_4B_GGUF)
+    t0 = time.perf_counter()
+    weights = llama.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    n_swa = sum(cfg.is_swa(i) for i in range(cfg.n_layers))
+    print(f"  gemma3-4b config: {cfg.n_layers} layers ({n_swa} "
+          f"sliding, window {cfg.swa_window}, base {cfg.rope_theta_swa:g}; global base "
+          f"{cfg.rope_theta:g} with {cfg.rope_scaling_type} x{cfg.rope_scale_factor:g}), E="
+          f"{cfg.n_embd}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, FF {cfg.n_ff}, "
+          f"vocab {cfg.vocab_size}, embd scale {cfg.embd_scale:.3f}; fabricated weights "
+          f"{w_bytes / GB:.2f} GB in {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = torch.Generator().manual_seed(0)
+    prompts = {n: torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (5, 40, 1600)}
+    warm = InferenceContext(cfg, weights, n_lanes=1, max_seq=2048)
+    warm.generate(prompts[5], 2)
+    del warm
+    ctxs = {}
+    for quant in ("none", "q8"):
+        ctxs[quant] = ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=2048,
+                                             kv_quant=quant)
+        ring = min(ctx.kv.sizes)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = {n: ctx.generate(p, GEMMA3_NEW) for n, p in prompts.items()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = mark_launches(reports, "launches_gemma3" if quant == "none"
+                                 else "launches_gemma3_q8")
+        attn = "flash_attention" if quant == "none" else "flash_attention_q8"
+        for n, out in outs.items():
+            if len(out) != GEMMA3_NEW or not all(0 <= tok < cfg.vocab_size for tok in out):
+                raise AssertionError(f"gemma3-4b generate {n}: {len(out)} tokens: {out}")
+        if ({"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul", attn}
+                - set(launches)) or 1600 + GEMMA3_NEW <= ring:
+            raise AssertionError(f"gemma3-4b generate ({quant} KV): ring {ring}, launches "
+                                 f"{launches}")
+        perf = ctx.perf()
+        print(f"  generate ({'bf16' if quant == 'none' else quant} KV): prompts 5/40/1600 x "
+              f"{GEMMA3_NEW} new tokens in {dt:.1f} s (rings of {ring} slots wrapped); prefill "
+              f"{perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode "
+              f"{perf['n_eval']} tok @ {perf['tg_tok_per_s']:.2f} tok/s; KV resident "
+              f"{ctx.kv.nbytes() / GB:.3f} GB; greedy {outs[40][:6]}...; launches {launches}",
+              flush=True)
+    t0 = time.perf_counter()
+    ctx = ctxs["none"]
+    with held_to_plain("gemma3-4b", BF16_PATH) as seen:
+        seq = ctx.new_sequence()
+        last = ctx.prefill(seq, prompts[1600][:560])[-1]
+        out = ctx.decode({seq: int(last.argmax())})[seq]
+        if not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+            raise AssertionError("gemma3-4b held steps: non-finite logits")
+        ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    print("  gemma3-4b held (bf16 KV; a 560-token prefill, chunks of 512 and 48, + a decode "
+          "step), max rel by "
+          "kernel: " + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e}"
+                                 for k, v in sorted(seen.items()))
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+    prof = profile_decode(ctx, prompts[40], label="gemma3-4b")
+    del ctx, ctxs, weights
+    return prof
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -4562,7 +5037,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/15] build")
+    header("[1/16] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -4576,41 +5051,41 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/15] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/16] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/15] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/16] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/15] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/16] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/15] served steps held to the plain versions; device decode run against "
+    header("[5/16] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/15] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/16] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/15] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/16] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
-    phase_shift_q4(ctx)
+    shift_held(ctx, "qwen3-4b")
     phase_q4_decode_profile(ctx)
     del ctx
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/15] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/16] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -4620,14 +5095,14 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/15] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/16] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/15] the rest of the server at qwen3-4b width: grammar, JSON schema, "
+    header("[10/16] the rest of the server at qwen3-4b width: grammar, JSON schema, "
            "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(cfg, weights, reports)
@@ -4637,7 +5112,7 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/15] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/16] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -4650,7 +5125,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/15] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/16] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -4673,7 +5148,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/15] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/16] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -4688,7 +5163,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/15] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/16] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -4697,13 +5172,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/15, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/16, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/15, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/16, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -4711,7 +5186,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/15] summary")
+    header("[15/16] the attention families: tiny-mla and the dense families in 2 layers against "
+           "the CPU, then DeepSeek-V2-Lite (MLA) and gemma3-4b at their published widths")
+    t15 = time.perf_counter()
+    phase_families_small()
+    phase_mla(reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gemma3(reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
+
+    header("[16/16] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

@@ -1,26 +1,40 @@
-"""Model hyperparameters from GGUF metadata: the Qwen3 / Qwen2 / Llama,
-Qwen2-MoE, Qwen3-MoE and gpt-oss subset of ``rrs_tpu/models/config.py``.
+"""Model hyperparameters from GGUF metadata: the attention families of
+``rrs_tpu/models/config.py``.
 
-gpt-oss brings the MoE fields (MXFP4 experts, swiglu_oai, top-k on raw logits
-then a softmax over the k), alternating sliding-window layers over ring
-caches, per-head sinks and qkv / output biases. qwen3moe is qwen3 (q/k norms,
-no attention bias) with every layer MoE: softmax gating, and the post-top-k
-norm when the GGUF sets ``qwen3moe.norm_topk_prob``. qwen2moe is qwen2 (qkv
-bias, no q/k norms) with every layer MoE plus a dense SwiGLU shared expert,
-added with no gate as in the JAX package (the published model gates it; ROADMAP
-queue C). Llama / Qwen GGUFs with ``attention.sliding_window`` take every
-layer sliding (pattern 1), as in the JAX package. Other architectures, MoE
-layers in a dense architecture and RoPE scaling other than ``none`` /
-``llama3`` / ``yarn`` raise NotImplementedError.
+Ported: llama / mistral / qwen2 / qwen3 (dense, or with MoE layers when the
+GGUF has ``expert_count``), qwen2moe / qwen3moe, gpt-oss, deepseek2 (MLA,
+with its leading dense layers and V2's softmax or V3's sigmoid / group /
+selection-bias routing), gemma2 / gemma3 (softcaps, GELU, the sqrt(E)
+embedding scale, sandwich norms, sliding patterns 2 and 6), granite /
+minicpm (embedding, residual and logit scales), olmo2 (post-norm-only
+layers, q / k normed over the whole projection) and phi3 (partial rotary,
+LongRoPE factors, pre-fused qkv). gpt-oss brings the MXFP4 experts, swiglu_oai,
+top-k on raw logits then a softmax over the k, alternating sliding-window
+layers over ring caches, per-head sinks and qkv / output biases. qwen2moe adds
+a dense SwiGLU shared expert, added with no gate as in the JAX package (the
+published model gates it; ROADMAP queue C). Llama / Qwen / Mistral / phi3
+GGUFs with ``attention.sliding_window`` take every layer sliding (pattern 1),
+as in the JAX package.
+
+The recurrent and hybrid architectures (mamba, mamba2, falcon_mamba, rwkv6,
+rwkv6qwen2, jamba: ROADMAP A9b), the multimodal qwen2vl (M-RoPE sections,
+A11), any other architecture, and RoPE scaling other than ``none`` /
+``linear`` / ``llama3`` / ``yarn`` raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
 
-SUPPORTED_ARCHS = ("llama", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gpt-oss")
-MOE_ARCHS = ("qwen2moe", "qwen3moe", "gpt-oss")
+from rrs_tpu_torch.ops.basic import ROPE_SCALING_TYPES
+
+SUPPORTED_ARCHS = ("llama", "mistral", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gpt-oss",
+                   "deepseek2", "gemma2", "gemma3", "granite", "minicpm", "olmo2", "phi3")
+# architectures the JAX package runs that wait for a later slice, by ROADMAP item
+LATER_ARCHS = {"mamba": "A9b", "mamba2": "A9b", "falcon_mamba": "A9b", "rwkv6": "A9b",
+               "rwkv6qwen2": "A9b", "jamba": "A9b", "qwen2vl": "A11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +63,9 @@ class ModelConfig:
     n_ff_exp: int = 0
     expert_gating_softmax: bool = True
     norm_topk_prob: bool = False
+    # DeepSeek-family routing: leading dense layers, routed-weight scale,
+    # post-top-k weight norm, V3's expert-group restriction
+    n_dense_lead: int = 0
     expert_weights_scale: float = 1.0
     expert_weights_norm: bool = False
     n_expert_groups: int = 0
@@ -62,6 +79,26 @@ class ModelConfig:
     swa_window: int = 0
     swa_pattern: int = 0
     rope_theta_swa: float = 0.0      # 0 => sliding layers share rope_theta
+    # MLA (deepseek2): low-rank q / kv projections; kv_lora_rank > 0 => MLA.
+    # head_dim is the decompressed qk head size (nope + rope, e.g. 192),
+    # v_head_dim the decompressed v size
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    rope_yarn_log_mul: float = 0.0   # mscale_all_dim (pre-multiplies the kq scale)
+    # gemma / granite / minicpm / olmo2 / phi3
+    attn_softcap: float = 0.0        # attention logit softcap (gemma2)
+    final_softcap: float = 0.0       # final logit softcap (gemma2)
+    attn_scale: float = 0.0          # 0 => 1 / sqrt(head_dim)
+    embd_scale: float = 1.0          # token embeddings times it (gemma: sqrt(E))
+    residual_scale: float = 1.0      # attention / FFN outputs times it (granite, minicpm)
+    logits_divisor: float = 1.0      # logits divided by it (granite, minicpm)
+    qk_norm_full: bool = False       # olmo2: q / k RMS over the whole projection
+    post_norm_only: bool = False     # olmo2: no pre-norms; outputs normed before the add
+    sandwich_norm: bool = False      # gemma2 / 3: post-attention and post-FFN norms
+    ffn_act: str = "silu"            # "silu" | "gelu" (tanh-approximate GEGLU)
+    rope_rot_dim: int = 0            # partial rotary (phi3); 0 => head_dim
 
     @property
     def n_q_dim(self) -> int:
@@ -70,6 +107,30 @@ class ModelConfig:
     @property
     def n_kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def is_mla(self) -> bool:
+        """Multi-head latent attention: the cache holds one compressed
+        [rope | kv_lora_rank] row a position (the absorbed-MQA form)."""
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_nope_dim(self) -> int:
+        return self.head_dim - self.qk_rope_dim
+
+    # cache geometry: MLA caches one head of [k_pe | c_kv] for K and c_kv
+    # for V; everything else n_kv_heads of head_dim for both
+    @property
+    def kv_cache_heads(self) -> int:
+        return 1 if self.is_mla else self.n_kv_heads
+
+    @property
+    def kv_k_dim(self) -> int:
+        return self.qk_rope_dim + self.kv_lora_rank if self.is_mla else self.head_dim
+
+    @property
+    def kv_v_dim(self) -> int:
+        return self.kv_lora_rank if self.is_mla else self.head_dim
 
     def is_swa(self, li: int) -> bool:
         """Is layer ``li`` sliding-window (over a ring cache)?"""
@@ -86,6 +147,9 @@ class ModelConfig:
     @staticmethod
     def from_gguf(md: Mapping[str, Any]) -> "ModelConfig":
         arch = md["general.architecture"]
+        if arch in LATER_ARCHS:
+            raise NotImplementedError(
+                f"architecture {arch!r} waits for ROADMAP {LATER_ARCHS[arch]} in rrs_tpu_torch")
         if arch not in SUPPORTED_ARCHS:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported to rrs_tpu_torch "
@@ -94,15 +158,70 @@ class ModelConfig:
         def key(suffix, default=None):
             return md.get(f"{arch}.{suffix}", default)
 
-        if arch not in MOE_ARCHS and int(key("expert_count", 0) or 0) > 0:
-            raise NotImplementedError(
-                f"{arch} MoE layers: only the MoE architectures {', '.join(MOE_ARCHS)} are "
-                "ported")
         scaling = str(key("rope.scaling.type", "none") or "none")
-        if scaling not in ("none", "llama3", "yarn"):
+        if scaling not in ROPE_SCALING_TYPES:
             raise NotImplementedError(f"rope scaling {scaling!r} is not ported to rrs_tpu_torch")
+        n_embd = int(key("embedding_length"))
+        n_heads = int(key("attention.head_count", 0) or 0)
+        n_kv = int(key("attention.head_count_kv", n_heads) or 0)
+        head_dim = int(key("attention.key_length",
+                           n_embd // n_heads if n_heads else 0) or 0)
+        vocab = md.get("tokenizer.ggml.tokens")
+        vocab_size = int(key("vocab_size", len(vocab) if vocab is not None else 0))
+        n_layers = int(key("block_count"))
         extra: dict = {}
-        if arch == "gpt-oss":
+        if arch == "gemma2":
+            # pattern 2 with a 4096 default window, softcaps, GELU, sqrt(E)
+            # embedding scale, sandwich norms; the 46-layer 27B scales the
+            # scores by sqrt(E / n_heads)
+            extra.update(
+                swa_window=int(key("attention.sliding_window", 4096) or 4096),
+                swa_pattern=2,
+                attn_softcap=float(key("attn_logit_softcapping", 50.0) or 0.0),
+                final_softcap=float(key("final_logit_softcapping", 30.0) or 0.0),
+                ffn_act="gelu",
+                embd_scale=float(n_embd) ** 0.5,
+                sandwich_norm=True,
+                attn_scale=(1.0 / (n_embd / n_heads) ** 0.5) if n_layers == 46
+                else (1.0 / head_dim ** 0.5),
+            )
+        elif arch == "gemma3":
+            # pattern 6, base 10k on sliding layers, q / k norms, GELU,
+            # sandwich norms; the 62-layer 27B scales by sqrt(E / n_heads)
+            win = int(key("attention.sliding_window", 0) or 0)
+            extra.update(
+                swa_window=win,
+                swa_pattern=6 if win > 0 else 0,
+                rope_theta_swa=float(key("rope.freq_base_swa", 10000.0) or 10000.0),
+                final_softcap=float(key("final_logit_softcapping", 0.0) or 0.0),
+                ffn_act="gelu",
+                embd_scale=float(n_embd) ** 0.5,
+                sandwich_norm=True,
+                attn_scale=(1.0 / (n_embd / n_heads) ** 0.5) if n_layers == 62
+                else (1.0 / head_dim ** 0.5),
+            )
+        elif arch == "granite":
+            # the llama body with four scales: embeddings, attention / FFN
+            # outputs, the kq scale and the logits divisor
+            extra.update(
+                embd_scale=float(key("embedding_scale", 1.0) or 1.0),
+                residual_scale=float(key("residual_scale", 1.0) or 1.0),
+                logits_divisor=float(key("logit_scale", 1.0) or 1.0),
+                attn_scale=float(key("attention.scale", 0.0) or 0.0),
+            )
+        elif arch == "olmo2":
+            # no pre-norms: the outputs are normed before the residual add;
+            # q / k normed over the whole projection before the head reshape
+            extra.update(qk_norm_full=True, post_norm_only=True)
+        elif arch == "minicpm":
+            # granite's scales with the defaults of older GGUFs
+            res = 1.4 / math.sqrt(n_layers)
+            extra.update(
+                embd_scale=float(key("embedding_scale", 12.0) or 12.0),
+                residual_scale=float(key("residual_scale", res) or res),
+                logits_divisor=float(key("logit_scale", 256.0 / n_embd) or (256.0 / n_embd)),
+            )
+        elif arch == "gpt-oss":
             # alternating sliding layers (pattern 2, even layers), sinks,
             # biases, swiglu_oai experts and the post-top-k softmax
             extra.update(
@@ -112,22 +231,42 @@ class ModelConfig:
                 expert_softmax_weight=True,
                 moe_act="swiglu_oai",
             )
-        else:
-            # llama / qwen: every layer sliding when the key is present
+        elif arch != "deepseek2":
+            # llama / mistral / phi3 / qwen: every layer sliding when the key is present
             win = int(key("attention.sliding_window", 0) or 0)
             if win > 0:
                 extra.update(swa_window=win, swa_pattern=1)
-        n_embd = int(key("embedding_length"))
-        n_heads = int(key("attention.head_count", 0) or 0)
-        n_kv = int(key("attention.head_count_kv", n_heads) or 0)
-        head_dim = int(key("attention.key_length",
-                           n_embd // n_heads if n_heads else 0) or 0)
-        vocab = md.get("tokenizer.ggml.tokens")
-        vocab_size = int(key("vocab_size", len(vocab) if vocab is not None else 0))
+        if arch == "phi3":
+            extra.update(rope_rot_dim=int(key("rope.dimension_count", 0) or 0))
+        if arch == "deepseek2":
+            # head_dim is the decompressed MLA head size when the *_mla keys
+            # are present (files with split k_b / v_b write the cache row sizes
+            # 576 / 512 under key_length / value_length); files with the
+            # legacy wkv_b carry 192 under key_length itself
+            k_mla = int(key("attention.key_length_mla", 0) or 0)
+            v_mla = int(key("attention.value_length_mla", 0) or 0)
+            if k_mla:
+                head_dim = k_mla
+            log_mul = float(key("rope.scaling.yarn_log_multiplier", 0.0) or 0.0)
+            extra.update(
+                q_lora_rank=int(key("attention.q_lora_rank", 0) or 0),
+                kv_lora_rank=int(key("attention.kv_lora_rank", 0) or 0),
+                qk_rope_dim=int(key("rope.dimension_count", 64) or 64),
+                v_head_dim=v_mla or int(key("attention.value_length", head_dim) or head_dim),
+                n_dense_lead=int(key("leading_dense_block_count", 0) or 0),
+                expert_weights_scale=float(key("expert_weights_scale", 1.0) or 1.0),
+                expert_weights_norm=bool(key("expert_weights_norm", False)),
+                # the GGUF stores 0.1 * mscale_all_dim: cancel the 0.1
+                rope_yarn_log_mul=log_mul / 0.1 if log_mul else 0.0,
+                n_expert_groups=int(key("expert_group_count", 0) or 0),
+                n_group_used=int(key("expert_group_used_count", 0) or 0),
+                # V2 files predate the gating-function key: softmax
+                expert_gating_softmax=int(key("expert_gating_func", 1) or 1) == 1,
+            )
         return ModelConfig(
             **extra,
             arch=arch,
-            n_layers=int(key("block_count")),
+            n_layers=n_layers,
             n_embd=n_embd,
             n_heads=n_heads,
             n_kv_heads=n_kv,
@@ -140,9 +279,9 @@ class ModelConfig:
             rope_scaling_type=scaling,
             rope_scale_factor=float(key("rope.scaling.factor", 1.0) or 1.0),
             rope_orig_context=int(key("rope.scaling.original_context_length", 0) or 0),
-            # llama weights are pre-permuted for interleaved (NORM) rope
-            rope_neox=arch != "llama",
-            qk_norm=arch in ("qwen3", "qwen3moe"),
+            # llama and granite weights are pre-permuted for interleaved (NORM) rope
+            rope_neox=arch not in ("llama", "granite"),
+            qk_norm=arch in ("qwen3", "qwen3moe", "gemma3", "olmo2"),
             attn_bias=arch in ("qwen2", "qwen2moe", "gpt-oss"),
             tie_embeddings=bool(md.get(f"{arch}.tie_word_embeddings", False)),
             n_experts=int(key("expert_count", 0) or 0),
@@ -185,6 +324,48 @@ PRESETS: dict[str, ModelConfig] = {
         n_experts=4, n_experts_used=2, n_ff_exp=64,
         swa_window=8, swa_pattern=2, attn_bias=True,
         expert_softmax_weight=True, moe_act="swiglu_oai",
+    ),
+    "gemma3-4b": ModelConfig(
+        arch="gemma3", n_layers=34, n_embd=2560, n_heads=8, n_kv_heads=4,
+        head_dim=256, n_ff=10240, vocab_size=262208, context_length=131072,
+        rope_theta=1e6, rope_scaling_type="linear", rope_scale_factor=8.0,
+        qk_norm=True, tie_embeddings=True,
+        swa_window=1024, swa_pattern=6, rope_theta_swa=10000.0,
+        ffn_act="gelu", embd_scale=2560.0 ** 0.5, sandwich_norm=True,
+        attn_scale=1.0 / 256.0 ** 0.5,
+    ),
+    "gemma2-9b": ModelConfig(
+        arch="gemma2", n_layers=42, n_embd=3584, n_heads=16, n_kv_heads=8,
+        head_dim=256, n_ff=14336, vocab_size=256000, context_length=8192,
+        rope_theta=10000.0, tie_embeddings=True,
+        swa_window=4096, swa_pattern=2, attn_softcap=50.0, final_softcap=30.0,
+        ffn_act="gelu", embd_scale=3584.0 ** 0.5, sandwich_norm=True,
+        attn_scale=1.0 / 256.0 ** 0.5,
+    ),
+    "mistral-7b": ModelConfig(
+        arch="llama", n_layers=32, n_embd=4096, n_heads=32, n_kv_heads=8,
+        head_dim=128, n_ff=14336, vocab_size=32000, context_length=32768,
+        rope_theta=10000.0, rope_neox=False,
+        swa_window=4096, swa_pattern=1,
+    ),
+    "deepseek-v2-lite": ModelConfig(
+        arch="deepseek2", n_layers=27, n_embd=2048, n_heads=16,
+        n_kv_heads=1, head_dim=192, n_ff=10944, vocab_size=102400,
+        context_length=163840, rope_theta=10000.0,
+        rope_scaling_type="yarn", rope_scale_factor=40.0,
+        rope_orig_context=4096, rope_yarn_log_mul=0.707,
+        kv_lora_rank=512, qk_rope_dim=64, v_head_dim=128,
+        n_dense_lead=1, n_experts=64, n_experts_used=6, n_ff_exp=1408,
+    ),
+    # MLA with a q LoRA and V3-style routing (sigmoid gating, selection
+    # bias, expert groups)
+    "tiny-mla": ModelConfig(
+        arch="deepseek2", n_layers=3, n_embd=128, n_heads=4, n_kv_heads=1,
+        head_dim=48, n_ff=256, vocab_size=512, context_length=1024,
+        kv_lora_rank=64, q_lora_rank=48, qk_rope_dim=16, v_head_dim=32,
+        n_dense_lead=1, n_experts=8, n_experts_used=2, n_ff_exp=64,
+        expert_gating_softmax=False, expert_weights_norm=True,
+        expert_weights_scale=2.5, n_expert_groups=4, n_group_used=2,
     ),
     "tiny": ModelConfig(
         arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,

@@ -1,10 +1,19 @@
-"""Llama-family transformer forward (Llama 3, Qwen2.5, Qwen3, gpt-oss).
+"""Llama-family transformer forward: every attention family of the JAX
+package (Llama 3, Mistral, Qwen2.5, Qwen3, gpt-oss, DeepSeek-V2 / V3 with
+MLA, gemma2 / 3, granite, minicpm, olmo2, phi3).
 
 Port of ``rrs_tpu/models/llama.py``: RMSNorm -> QKV (+ bias, + per-head q/k
-norm) -> RoPE (per layer: sliding layers may take their own base) -> KV store
--> GQA flash attention (window and sinks on sliding gpt-oss layers) -> output
-projection -> RMSNorm -> SwiGLU FFN or the MoE FFN (``models/moe.py``), then
-the final norm and the lm_head.
+norm, or olmo2's norm over the whole projection) -> RoPE (per layer: sliding
+layers may take their own base; partial rotary and LongRoPE factors) -> KV
+store -> GQA flash attention (window and sinks on sliding gpt-oss layers, a
+logit softcap on gemma2) -> output projection -> RMSNorm -> SwiGLU or GEGLU
+FFN, or the MoE FFN (``models/moe.py``), with gemma's sandwich norms, olmo2's
+post-norm-only layers and granite / minicpm's residual scale around them;
+then the final norm, the lm_head, the logits divisor and the final softcap.
+DeepSeek's layers take ``mla_attention``, multi-head latent attention in its
+absorbed-MQA form over one cached [k_pe | c_kv] row a position; its score,
+softmax and value products are plain torch, as they are plain jnp in the JAX
+package, and every TCQ4 / Q8 linear around them takes the ported kernels.
 
 Weights are plain dataclasses of tensors. Where the JAX forward returns new
 caches, this one writes the new K/V rows into the preallocated per-layer
@@ -18,6 +27,7 @@ packed, and is read by its own attention kernel.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -34,7 +44,7 @@ from rrs_tpu_torch.models.linear import (
     want_i8p,
 )
 from rrs_tpu_torch.models.moe import MoEWeights, moe_ffn
-from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, rms_norm
+from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, gelu_tanh, rms_norm
 from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
                                                flash_attention_q4hp, flash_attention_q8)
 from rrs_tpu_torch.runtime import kv_codec
@@ -57,6 +67,16 @@ class LayerWeights:
     w_gateup: Any = None              # fused gate|up projection (optional)
     moe: Any = None                   # MoEWeights of an MoE layer (models/moe.py)
     attn_sinks: Optional[torch.Tensor] = None   # [H] f32 per-head sink logits (gpt-oss)
+    attn_post_norm: Optional[torch.Tensor] = None   # gemma2 / 3, olmo2: after attention
+    ffn_post_norm: Optional[torch.Tensor] = None    # gemma2 / 3, olmo2: after the FFN
+    # MLA (deepseek2): the q LoRA down projection (wq is then its up
+    # projection and q_norm its norm), the joint [c_kv | k_pe] projection
+    # (k_norm is c_kv's norm), and the per-head absorption and
+    # decompression factors wk_b [H, nope, r] and wv_b [H, r, v] (bf16)
+    wq_a: Any = None
+    wkv_a: Any = None
+    wk_b: Optional[torch.Tensor] = None
+    wv_b: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -67,6 +87,7 @@ class ModelWeights:
     layers: list
     final_norm: torch.Tensor
     lm_head: Any
+    rope_factors: Optional[torch.Tensor] = None   # [rot // 2] LongRoPE divisors (phi3)
 
     @property
     def device(self) -> torch.device:
@@ -87,7 +108,8 @@ def embed_rows(embed, tokens: torch.Tensor) -> torch.Tensor:
 def rope_params(cfg: ModelConfig, swa: bool = False) -> RopeParams:
     if swa and cfg.rope_theta_swa > 0:
         # sliding layers with their own base take no long-context scaling
-        return RopeParams(head_dim=cfg.head_dim, theta=cfg.rope_theta_swa, neox=cfg.rope_neox)
+        return RopeParams(head_dim=cfg.head_dim, theta=cfg.rope_theta_swa, neox=cfg.rope_neox,
+                          rot_dim=cfg.rope_rot_dim)
     return RopeParams(
         head_dim=cfg.head_dim,
         theta=cfg.rope_theta,
@@ -95,7 +117,31 @@ def rope_params(cfg: ModelConfig, swa: bool = False) -> RopeParams:
         scale_factor=cfg.rope_scale_factor,
         orig_context=cfg.rope_orig_context,
         neox=cfg.rope_neox,
+        rot_dim=cfg.rope_rot_dim,
     )
+
+
+def mla_rope_params(cfg: ModelConfig) -> RopeParams:
+    """RoPE of MLA's rope sub-dimension (q_pe, k_pe): interleaved pairs, and
+    ``attn_factor`` = 1 / (1 + 0.1 ln s), which cancels apply_rope's YaRN
+    mscale: DeepSeek moves that magnitude into the kq scale instead
+    (``mla_kq_scale``)."""
+    attn_factor = 1.0
+    if cfg.rope_scaling_type == "yarn" and cfg.rope_scale_factor != 1.0:
+        attn_factor = 1.0 / (1.0 + 0.1 * math.log(cfg.rope_scale_factor))
+    return RopeParams(head_dim=cfg.qk_rope_dim, theta=cfg.rope_theta,
+                      scaling_type=cfg.rope_scaling_type, scale_factor=cfg.rope_scale_factor,
+                      orig_context=cfg.rope_orig_context, neox=False, attn_factor=attn_factor)
+
+
+def mla_kq_scale(cfg: ModelConfig) -> float:
+    """mscale^2 / sqrt(head_dim), mscale = 1 + 0.1 * rope_yarn_log_mul * ln s
+    (head_dim is the decompressed qk head size, e.g. 192)."""
+    mscale = 1.0
+    if (cfg.rope_scaling_type == "yarn" and cfg.rope_scale_factor != 1.0
+            and cfg.rope_yarn_log_mul):
+        mscale = 1.0 + 0.1 * cfg.rope_yarn_log_mul * math.log(cfg.rope_scale_factor)
+    return float(mscale * mscale / math.sqrt(cfg.head_dim))
 
 
 def _lane_slots(cache_slots, mask_positions) -> list[int]:
@@ -151,20 +197,22 @@ def _store_cache(cache, new: torch.Tensor, starts: list) -> None:
 
 
 def attend(q, k_cache, v_cache, mask_positions, scale: float, window: int = 0,
-           sinks=None) -> torch.Tensor:
+           sinks=None, softcap: float = 0.0) -> torch.Tensor:
     """Attention over a bf16 cache, or over a quantized one by its layout:
     int8 codes take the q8 kernel, uint8 head-pair codes the q4hp kernel and
     halves-packed codes the q4 kernel. ``window`` > 0: the cache is a ring
     and each row sees its last ``window`` positions; ``sinks``: [H] logits
-    that join only the softmax denominator."""
+    that join only the softmax denominator; ``softcap`` > 0 caps the scores
+    at +-softcap through tanh (gemma2)."""
     if not isinstance(k_cache, tuple):
-        return flash_attention(q, k_cache, v_cache, mask_positions, scale, window=window,
-                               sinks=sinks)
+        return flash_attention(q, k_cache, v_cache, mask_positions, scale, softcap=softcap,
+                               window=window, sinks=sinks)
     if k_cache[0].dtype == torch.uint8:
         kern = flash_attention_q4hp if kv_codec.is_head_pair(*k_cache) else flash_attention_q4
     else:
         kern = flash_attention_q8
-    return kern(q, *k_cache, *v_cache, mask_positions, scale, window=window, sinks=sinks)
+    return kern(q, *k_cache, *v_cache, mask_positions, scale, softcap=softcap, window=window,
+                sinks=sinks)
 
 
 def _capture(cap, li: int, name: str, x: torch.Tensor) -> None:
@@ -180,9 +228,10 @@ def _capture(cap, li: int, name: str, x: torch.Tensor) -> None:
 def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
               positions: torch.Tensor, k_cache, v_cache,
               mask_positions: torch.Tensor, slots: list[int], li: int = 0,
-              cap=None) -> torch.Tensor:
+              cap=None, rope_factors=None) -> torch.Tensor:
     """One layer's attention; ``slots``: each lane's first cache slot (-1 =
-    padded lane), from which the layer's own start slots follow."""
+    padded lane), from which the layer's own start slots follow;
+    ``rope_factors``: LongRoPE's per-dimension frequency divisors."""
     b, t, _ = x.shape
     d = cfg.head_dim
     swa = cfg.is_swa(li)
@@ -198,25 +247,103 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
         qf = linear_apply(lw.wq, x)
         kf = linear_apply(lw.wk, x)
         vf = linear_apply(lw.wv, x)
+    if cfg.qk_norm_full:
+        # olmo2: RMS over the whole projection, before the head reshape
+        qf = rms_norm(qf, lw.q_norm, cfg.rms_eps)
+        kf = rms_norm(kf, lw.k_norm, cfg.rms_eps)
     q = qf.reshape(b, t, cfg.n_heads, d)
     k = kf.reshape(b, t, cfg.n_kv_heads, d)
     v = vf.reshape(b, t, cfg.n_kv_heads, d)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cfg.qk_norm_full:
         q = rms_norm(q, lw.q_norm, cfg.rms_eps)
         k = rms_norm(k, lw.k_norm, cfg.rms_eps)
     rp = rope_params(cfg, swa=swa)
-    q = apply_rope(q, positions, rp)
-    k = apply_rope(k, positions, rp)
+    q = apply_rope(q, positions, rp, freq_factors=rope_factors)
+    k = apply_rope(k, positions, rp, freq_factors=rope_factors)
     s_l = (k_cache[0] if isinstance(k_cache, tuple) else k_cache).shape[2]
     starts = _layer_starts(slots, s_l, t, ring=window > 0)
     _store_cache(k_cache, k.transpose(1, 2), starts)
     _store_cache(v_cache, v.transpose(1, 2), starts)
-    scale = 1.0 / np.sqrt(d)
+    scale = cfg.attn_scale if cfg.attn_scale > 0 else 1.0 / np.sqrt(d)
     ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale, window=window,
-                 sinks=lw.attn_sinks)
+                 sinks=lw.attn_sinks, softcap=cfg.attn_softcap)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
     _capture(cap, li, "attn_output.weight", ctx)
     return linear_apply(lw.wo, ctx)
+
+
+def _mla_mm(eq: str, a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """One of MLA's per-head products (the wk_b absorption, the wv_b
+    decompression) in f32 on every device, rounded to ``dtype``."""
+    return torch.einsum(eq, a.to(torch.float32), w.to(torch.float32)).to(dtype)
+
+
+def mla_attend(q_full: torch.Tensor, k_cache, v_cache, mask_positions: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """MLA's attention proper, in plain f32 torch as the JAX package computes
+    it in jnp: q_full [B, T, H, rope + r] against the one cached K row a
+    position (a q8 / q4 cache dequantized whole), each row seeing the slots
+    up to its mask position (-1: none, an all-zero row), the softmax, and
+    the read-out of the cached c_kv rows. Returns [B, T, H, r] f32."""
+    if isinstance(k_cache, tuple):
+        kf = kv_codec.dequantize(*k_cache)[:, 0]                    # [B, S, rope + r] f32
+        vf = kv_codec.dequantize(*v_cache)[:, 0]
+    else:
+        kf = k_cache[:, 0].to(torch.float32)
+        vf = v_cache[:, 0].to(torch.float32)
+    scores = torch.einsum("bthd,bsd->bhts", q_full.to(torch.float32), kf) * scale
+    kv_pos = torch.arange(kf.shape[1], device=kf.device)
+    mask = (kv_pos[None, None, :] <= mask_positions[:, :, None])[:, None]   # [B, 1, T, S]
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
+    return torch.einsum("bhts,bsr->bthr", probs, vf)
+
+
+def mla_attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
+                  positions: torch.Tensor, k_cache, v_cache,
+                  mask_positions: torch.Tensor, slots: list[int], li: int = 0,
+                  cap=None, rope_factors=None) -> torch.Tensor:
+    """Multi-head latent attention in the absorbed-MQA form of the JAX
+    ``mla_attention``: the per-head nope query is absorbed through wk_b into
+    the kv_lora_rank latent space, and attention runs as MQA over one cached
+    row a position, [k_pe | c_kv] for K (the rope part first, so that a
+    context shift re-rotates a leading slice) and c_kv for V; the value is
+    read out through wv_b after the softmax. Over a q8 / q4 cache the rows
+    are dequantized whole, as in the JAX package. The score / softmax /
+    value products (``mla_attend``) are plain f32 torch (no kernel computes
+    them in either package); the projections go through ``linear_apply``."""
+    b, t, _ = x.shape
+    h = cfg.n_heads
+    rope_d, nope, r = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.kv_lora_rank
+    rp = mla_rope_params(cfg)
+    if lw.wq_a is not None:
+        _capture(cap, li, "attn_q_a.weight", x)
+        ql = rms_norm(linear_apply(lw.wq_a, x), lw.q_norm, cfg.rms_eps)
+        _capture(cap, li, "attn_q_b.weight", ql)
+        q = linear_apply(lw.wq, ql)
+    else:
+        _capture(cap, li, "attn_q.weight", x)
+        q = linear_apply(lw.wq, x)
+    q = q.reshape(b, t, h, nope + rope_d)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    _capture(cap, li, "attn_kv_a_mqa.weight", x)
+    kv = linear_apply(lw.wkv_a, x)                                  # [B, T, r + rope]
+    c_kv = rms_norm(kv[..., :r], lw.k_norm, cfg.rms_eps)
+    q_pe = apply_rope(q_pe, positions, rp)
+    k_pe = apply_rope(kv[..., r:][:, :, None, :], positions, rp)[:, :, 0, :]
+    q_abs = _mla_mm("bthn,hnr->bthr", q_nope, lw.wk_b, x.dtype)     # [B, T, H, r]
+    q_full = torch.cat([q_pe, q_abs], dim=-1)                       # [B, T, H, rope + r]
+    k_new = torch.cat([k_pe, c_kv], dim=-1)                         # [B, T, rope + r]
+    s_l = (k_cache[0] if isinstance(k_cache, tuple) else k_cache).shape[2]
+    starts = _layer_starts(slots, s_l, t, ring=False)
+    _store_cache(k_cache, k_new[:, None], starts)
+    _store_cache(v_cache, c_kv[:, None], starts)
+    ctx = mla_attend(q_full, k_cache, v_cache, mask_positions, mla_kq_scale(cfg))
+    out_v = _mla_mm("bthr,hrv->bthv", ctx, lw.wv_b, x.dtype).reshape(b, t, h * cfg.v_head_dim)
+    _capture(cap, li, "attn_output.weight", out_v)
+    return linear_apply(lw.wo, out_v)
 
 
 def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
@@ -231,7 +358,8 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
     else:
         gate = linear_apply(lw.w_gate, x)
         up = linear_apply(lw.w_up, x)
-    act = torch.nn.functional.silu(gate.to(torch.float32)).to(x.dtype) * up
+    act_fn = gelu_tanh if cfg.ffn_act == "gelu" else torch.nn.functional.silu
+    act = act_fn(gate.to(torch.float32)).to(x.dtype) * up
     _capture(cap, li, "ffn_down.weight", act)
     return linear_apply(lw.w_down, act)
 
@@ -254,26 +382,63 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     if slots is None:
         slots = _lane_slots(cache_slots, mask_positions)
     mask_dev = torch.as_tensor(mask_positions).to(dev)
-    x = embed_rows(w.embed, tokens)
+    x = embed_tokens(cfg, w, tokens)
     for li, lw in enumerate(w.layers):
-        h = rms_norm(x, lw.attn_norm, cfg.rms_eps)
-        x = x + attention(cfg, lw, h, positions, k_caches[li], v_caches[li],
-                          mask_dev, slots, li, cap=cap)
-        h = rms_norm(x, lw.ffn_norm, cfg.rms_eps)
-        x = x + ffn(cfg, lw, h, cap=cap, li=li)
+        x = layer(cfg, w, lw, x, positions, k_caches[li], v_caches[li], mask_dev, slots, li,
+                  cap=cap)
     if last_idx is not None:
         idx = torch.as_tensor(last_idx).to(dev).clamp_min(0).to(torch.int64)
         x = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
     x = rms_norm(x, w.final_norm, cfg.rms_eps)
-    return linear_apply(w.lm_head, x).to(torch.float32)
+    logits = linear_apply(w.lm_head, x).to(torch.float32)
+    if cfg.logits_divisor != 1.0:
+        logits = logits / cfg.logits_divisor
+    if cfg.final_softcap > 0:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+def embed_tokens(cfg: ModelConfig, w: ModelWeights, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings, times ``embd_scale`` (gemma's sqrt(E), granite,
+    minicpm) in f32 and rounded back."""
+    x = embed_rows(w.embed, tokens)
+    if cfg.embd_scale != 1.0:
+        x = (x.to(torch.float32) * cfg.embd_scale).to(x.dtype)
+    return x
+
+
+def layer(cfg: ModelConfig, w: ModelWeights, lw: LayerWeights, x: torch.Tensor, positions,
+          k_cache, v_cache, mask_positions, slots: list[int], li: int, cap=None) -> torch.Tensor:
+    """One transformer block of the JAX ``forward``: pre-norms (none under
+    ``post_norm_only``), attention (MLA for deepseek2), the sandwich norms
+    where the layer has them, ``residual_scale`` on each branch, FFN."""
+    attn_fn = mla_attention if cfg.is_mla else attention
+    h = x if cfg.post_norm_only else rms_norm(x, lw.attn_norm, cfg.rms_eps)
+    a = attn_fn(cfg, lw, h, positions, k_cache, v_cache, mask_positions, slots, li, cap=cap,
+                rope_factors=w.rope_factors)
+    if lw.attn_post_norm is not None:
+        a = rms_norm(a, lw.attn_post_norm, cfg.rms_eps)
+    if cfg.residual_scale != 1.0:
+        a = a * cfg.residual_scale
+    x = x + a
+    h = x if cfg.post_norm_only else rms_norm(x, lw.ffn_norm, cfg.rms_eps)
+    f = ffn(cfg, lw, h, cap=cap, li=li)
+    if lw.ffn_post_norm is not None:
+        f = rms_norm(f, lw.ffn_post_norm, cfg.rms_eps)
+    if cfg.residual_scale != 1.0:
+        f = f * cfg.residual_scale
+    return x + f
 
 
 def scratch_caches(cfg: ModelConfig, b: int, t: int, dtype=torch.bfloat16, device="cpu"):
-    """Throwaway zero K/V caches [B, Hkv, T, D] per layer for one forward of
-    T tokens (tools that run a stateless forward; rrs_tpu/models/llama.py:529)."""
-    shape = (b, cfg.n_kv_heads, t, cfg.head_dim)
-    ks = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
-    vs = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+    """Throwaway zero K/V caches per layer for one forward of T tokens (tools
+    that run a stateless forward; rrs_tpu/models/llama.py:529), in the
+    cache geometry of ``cfg`` (MLA: one head, K and V of other widths)."""
+    h = cfg.kv_cache_heads
+    ks = [torch.zeros((b, h, t, cfg.kv_k_dim), dtype=dtype, device=device)
+          for _ in range(cfg.n_layers)]
+    vs = [torch.zeros((b, h, t, cfg.kv_v_dim), dtype=dtype, device=device)
+          for _ in range(cfg.n_layers)]
     return ks, vs
 
 
@@ -354,6 +519,8 @@ def random_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
             w_up=lin(e, f) if moe is None else None,
             w_down=lin(f, e) if moe is None else None,
             moe=moe,
+            attn_post_norm=ones(e) if cfg.sandwich_norm else None,
+            ffn_post_norm=ones(e) if cfg.sandwich_norm else None,
         ))
     embed = tens(rng.standard_normal((cfg.vocab_size, e)) * scale)
     return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
@@ -364,7 +531,8 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
                             device=None) -> ModelWeights:
     """Structurally valid random TCQ4 weights drawn directly (no quantizer),
     on the device from a seeded ``torch.Generator``: fused qkv and gate-up
-    projections with uniform qs bytes and bf16
+    projections (q / k norms and gemma's sandwich norms as ones where the
+    config has them) with uniform qs bytes and bf16
     eff in [0.001, 0.011), each with its i8p pack unless ``RRS_PREFILL_I8=0``
     (as the JAX package packs them, at their fused widths), a Q8 lm_head padded
     by ``n_pad_width`` with f32 scales in [0, 0.001). For throughput runs,
@@ -390,7 +558,9 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
     for _ in range(cfg.n_layers):
         norms = dict(attn_norm=ones(e), ffn_norm=ones(e),
                      q_norm=ones(d) if cfg.qk_norm else None,
-                     k_norm=ones(d) if cfg.qk_norm else None)
+                     k_norm=ones(d) if cfg.qk_norm else None,
+                     attn_post_norm=ones(e) if cfg.sandwich_norm else None,
+                     ffn_post_norm=ones(e) if cfg.sandwich_norm else None)
         layers.append(LayerWeights(
             wq=None, wk=None, wv=None, wo=qlin(hq, e),
             w_gate=None, w_up=None, w_down=qlin(f, e),
@@ -401,6 +571,85 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
     lm_s = torch.rand((e // 32, n_pad), generator=gen, device=dev) * 1e-3
     return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
                         lm_head=Q8Linear(q=lm_q, scale=lm_s, n_logical=cfg.vocab_size))
+
+
+def fabricated_mla_weights(cfg: ModelConfig, seed: int = 0, device=None,
+                           quantized: bool = True) -> ModelWeights:
+    """deepseek2 (MLA) weights drawn on the device from a seeded
+    ``torch.Generator``, in the types the repository's quantizer and loader
+    give a deepseek2 GGUF: each 2-D projection TCQ4 (uniform qs bytes, bf16
+    eff in [0.001, 0.011), with its i8p pack unless ``RRS_PREFILL_I8=0``) where
+    K % 256 == 0 and N % 8 == 0, else Q8_0 with K padded to 256 (the lead
+    layers' ffn_down at K = 10,944), unfused as the loader keeps MLA layers;
+    wk_b [H, nope, r] and wv_b [H, r, v] bf16 N(0, 0.02); the first
+    ``n_dense_lead`` layers a dense FFN, the others a router N(0, 0.05) in
+    bf16 (with a selection bias N(0, 0.1) under sigmoid gating), dense bf16
+    expert stacks N(0, 0.02) (n_ff_exp = 1,408 is not TCQ4-eligible) and a
+    dense bf16 shared expert of two experts' width; the norms ones; a bf16
+    embedding N(0, 0.02) and a Q8_0 lm_head padded by ``n_pad_width``.
+    ``quantized=False`` draws every projection as a bf16 DenseLinear N(0,
+    0.05) instead (the card-vs-CPU glue checks)."""
+    from rrs_tpu_torch.device import resolve_device
+    from rrs_tpu_torch.ops.tcq4_matmul import pack_i8p
+
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    packed = want_i8p()
+
+    def normal(scl, shape, dt=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scl).to(dt)
+
+    def q8lin(k, n):
+        npad, kpad = n_pad_width(n), -(-k // 256) * 256
+        q = torch.randint(-127, 128, (kpad, npad), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((kpad // 32, npad), generator=gen, device=dev) * 1e-3
+        if kpad != k:
+            sc[k // 32:] = 0.0
+        return Q8Linear(q=q, scale=sc, n_logical=n, k_logical=k if kpad != k else 0)
+
+    def lin(k, n):
+        if not quantized:
+            return DenseLinear(w=normal(0.05, (k, n)))
+        if k % 256 or n % 8:
+            return q8lin(k, n)
+        qs = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+        eff = (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+               ).to(torch.bfloat16)
+        return TCQ4Linear(qs=qs, eff=eff, i8p=pack_i8p(qs, eff) if packed else None)
+
+    e, h, r = cfg.n_embd, cfg.n_heads, cfg.kv_lora_rank
+    ones = lambda n: torch.ones((n,), dtype=torch.bfloat16, device=dev)   # noqa: E731
+    layers = []
+    for li in range(cfg.n_layers):
+        attn = dict(attn_norm=ones(e), ffn_norm=ones(e), wk=None, wv=None,
+                    wkv_a=lin(e, r + cfg.qk_rope_dim), k_norm=ones(r),
+                    wk_b=normal(0.02, (h, cfg.qk_nope_dim, r)),
+                    wv_b=normal(0.02, (h, r, cfg.v_head_dim)),
+                    wo=lin(h * cfg.v_head_dim, e))
+        if cfg.q_lora_rank:
+            attn.update(wq_a=lin(e, cfg.q_lora_rank), q_norm=ones(cfg.q_lora_rank),
+                        wq=lin(cfg.q_lora_rank, h * cfg.head_dim))
+        else:
+            attn.update(q_norm=None, wq=lin(e, h * cfg.head_dim))
+        if li < cfg.n_dense_lead or not cfg.n_experts:
+            layers.append(LayerWeights(w_gate=lin(e, cfg.n_ff), w_up=lin(e, cfg.n_ff),
+                                       w_down=lin(cfg.n_ff, e), **attn))
+            continue
+        n_exp, fe = cfg.n_experts, cfg.n_ff_exp
+        moe = MoEWeights(router=normal(0.05, (e, n_exp)),
+                         gate=normal(0.02, (n_exp, e, fe)), up=normal(0.02, (n_exp, e, fe)),
+                         down=normal(0.02, (n_exp, fe, e)),
+                         probs_bias=None if cfg.expert_gating_softmax
+                         else normal(0.1, (n_exp,), torch.float32),
+                         shared_gate=normal(0.02, (e, 2 * fe)),
+                         shared_up=normal(0.02, (e, 2 * fe)),
+                         shared_down=normal(0.02, (2 * fe, e)))
+        layers.append(LayerWeights(w_gate=None, w_up=None, w_down=None, moe=moe, **attn))
+    embed = normal(0.02, (cfg.vocab_size, e))
+    lm_head = DenseLinear(w=normal(0.05, (e, cfg.vocab_size))) if not quantized \
+        else q8lin(e, cfg.vocab_size)
+    return ModelWeights(embed=embed, layers=layers, final_norm=ones(e), lm_head=lm_head)
 
 
 def fabricated_gptoss_weights(cfg: ModelConfig, seed: int = 0, device=None) -> ModelWeights:
@@ -571,8 +820,10 @@ def _linear_from_numpy(d, device):
     raise NotImplementedError(f"linear layer with fields {sorted(d)} is not ported")
 
 
-_LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
-_LAYER_TENSORS = ("attn_norm", "q_norm", "k_norm", "ffn_norm", "attn_sinks")
+_LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup",
+                  "wq_a", "wkv_a")
+_LAYER_TENSORS = ("attn_norm", "q_norm", "k_norm", "ffn_norm", "attn_sinks", "attn_post_norm",
+                  "ffn_post_norm", "wk_b", "wv_b")
 _MOE_TENSORS = ("router", "gate", "up", "down", "gate_qs", "gate_eff", "up_qs", "up_eff",
                 "down_qs", "down_eff", "probs_bias", "router_bias", "gate_b", "up_b", "down_b",
                 "shared_gate", "shared_up", "shared_down")
@@ -595,8 +846,10 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     ``lm_head`` ({q, scale, n_logical, k_logical} or {w, bias}), an MXFP4
     linear ({qs, scale, bias, n_logical}), ``attn_sinks``, ``moe`` (the
     MoEWeights fields: MXFP4, TCQ4 or dense stacks, and a shared expert) and
-    so on; a TCQ4 linear's ``i8p`` is its (qs_sbi, f8, e2) pack or None.
-    Fields the port does not carry yet (MLA, sandwich norms) must be None."""
+    so on, MLA's ``wq_a`` / ``wkv_a`` linears and ``wk_b`` / ``wv_b`` factors,
+    the sandwich norms ``attn_post_norm`` / ``ffn_post_norm``, and at the top
+    ``rope_factors`` (LongRoPE); a TCQ4 linear's ``i8p`` is its (qs_sbi, f8,
+    e2) pack or None. A field the port does not know raises."""
     from rrs_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -617,4 +870,5 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
         embed = _tensor(emb, dev)
     return ModelWeights(embed=embed, layers=layers,
                         final_norm=_tensor(tree["final_norm"], dev),
-                        lm_head=_linear_from_numpy(tree["lm_head"], dev))
+                        lm_head=_linear_from_numpy(tree["lm_head"], dev),
+                        rope_factors=_tensor(tree.get("rope_factors"), dev, torch.float32))

@@ -22,8 +22,23 @@ gpt-oss's router and expert biases, its per-head sinks (under either tensor
 name) and its pre-FFN norm (shipped as ``post_attention_norm``) load as the
 JAX package loads them.
 
-MLA, recurrent and hybrid layers, sandwich norms and fused pre-packed qkv /
-gate-up tensors raise NotImplementedError.
+The other attention families load as in ``rrs_tpu/models/loader.py``: an MLA
+layer (``attn_kv_a_mqa``) takes ``attn_q_a`` + ``attn_q_a_norm`` + ``attn_q_b``
+(or the lite form's single ``attn_q``), ``attn_kv_a_mqa`` + ``attn_kv_a_norm``,
+and the split ``attn_k_b`` / ``attn_v_b`` factors, or the legacy ``attn_kv_b``
+split on load, as bf16 [H, nope, r] / [H, r, v]; its linears stay unfused,
+its leading dense layers take ``ffn_gate`` / ``ffn_up`` / ``ffn_down`` and its
+MoE layers their ``_shexp`` shared experts (dense). gemma's
+``post_attention_norm`` / ``post_ffw_norm`` (and olmo2's) load as the
+sandwich norms, and a missing pre-norm (olmo2 ships none) as ones; phi3's
+pre-fused ``attn_qkv`` (with its bias) fills the fused qkv slot, a lone
+``ffn_up`` of 2 x n_ff the fused gate-up slot, and ``rope_factors_long`` or
+``_short`` (long when the trained context exceeds the original) the LongRoPE
+factors. A llama / mistral / qwen file whose layers carry ``ffn_gate_inp``
+loads them as MoE layers.
+
+Recurrent layers (``ssm_in``, ``time_mix_key``: ROADMAP A9b) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,7 +64,7 @@ from rrs_tpu_torch.models.moe import MoEWeights
 from rrs_tpu_torch.ops.mxfp4_matmul import pack_mxfp4_device
 from rrs_tpu_torch.tools.gguf_split import SPLIT_RE, MultiGGUF
 
-_NOT_PORTED = ("attn_kv_a_mqa", "ssm_in", "time_mix_key", "attn_qkv", "post_ffw_norm")
+_NOT_PORTED = ("ssm_in", "time_mix_key")
 
 
 def _f32(g: GGUFFile, name: str) -> np.ndarray:
@@ -153,6 +168,42 @@ def _load_moe(g: GGUFFile, p: str, device, dtype=torch.bfloat16) -> MoEWeights:
     return MoEWeights(**fields)
 
 
+def _mla_layer(g: GGUFFile, cfg: ModelConfig, p: str, lin, norm, has, device, dtype,
+               moe) -> LayerWeights:
+    """One deepseek2 layer: the q LoRA (or the lite form's single attn_q),
+    the joint kv projection with its norm, the wk_b / wv_b factors (split in
+    the file, or the legacy attn_kv_b split here) as bf16, and a dense FFN or
+    the MoE layer, every linear unfused as the JAX loader keeps them."""
+    nope = cfg.qk_nope_dim
+    if has("attn_k_b"):
+        # GGUF [H, r, nope] -> [H, nope, r]; [H, v, r] -> [H, r, v]
+        wk_b = _f32(g, f"{p}.attn_k_b.weight").transpose(0, 2, 1)
+        wv_b = _f32(g, f"{p}.attn_v_b.weight").transpose(0, 2, 1)
+    else:
+        # legacy [H * (nope + v), r]
+        kvb = _f32(g, f"{p}.attn_kv_b.weight").reshape(cfg.n_heads, nope + cfg.v_head_dim, -1)
+        wk_b = kvb[:, :nope, :]
+        wv_b = kvb[:, nope:, :].transpose(0, 2, 1)
+
+    def fac(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+    lite = not has("attn_q_a")
+    return LayerWeights(
+        attn_norm=norm("attn_norm"),
+        wq=lin("attn_q") if lite else lin("attn_q_b"),
+        wq_a=None if lite else lin("attn_q_a"),
+        q_norm=None if lite else norm("attn_q_a_norm"),
+        wkv_a=lin("attn_kv_a_mqa"), k_norm=norm("attn_kv_a_norm"),
+        wk_b=fac(wk_b), wv_b=fac(wv_b), wk=None, wv=None,
+        wo=lin("attn_output"),
+        ffn_norm=norm("ffn_norm"),
+        w_gate=None if moe is not None else lin("ffn_gate"),
+        w_up=None if moe is not None else lin("ffn_up"),
+        w_down=None if moe is not None else lin("ffn_down"),
+        moe=moe)
+
+
 def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = None,
                device=None):
     """Load a GGUF model (one file, or any shard of a ``-NNNNN-of-NNNNN``
@@ -171,9 +222,9 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
             cfg = dataclasses.replace(cfg, vocab_size=g.tensors["token_embd.weight"].shape[0])
         for tname in g.tensors:
             parts = tname.split(".")
-            if any(part in parts for part in _NOT_PORTED) or (
-                    "post_attention_norm" in parts and cfg.arch != "gpt-oss"):
-                raise NotImplementedError(f"tensor {tname}: layer kind not ported to rrs_tpu_torch")
+            if any(part in parts for part in _NOT_PORTED):
+                raise NotImplementedError(f"tensor {tname}: recurrent layers wait for ROADMAP A9b "
+                                          "in rrs_tpu_torch")
         if any(t.endswith("ffn_gate_inp_shexp.weight") for t in g.tensors):
             warnings.warn(f"{path}: ffn_gate_inp_shexp (the shared expert's gate) is ignored and "
                           "the shared expert is added ungated, as the JAX package does; the "
@@ -183,37 +234,57 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
             p = f"blk.{i}"
             lin = lambda n, b=None: _linear(g, f"{p}.{n}.weight", dev, dtype,   # noqa: E731
                                             b and f"{p}.{n}.bias")
-            is_moe = f"{p}.ffn_gate_inp.weight" in g.tensors
-            wq, wk, wv = lin("attn_q", 1), lin("attn_k", 1), lin("attn_v", 1)
-            w_gate, w_up = (None, None) if is_moe else (lin("ffn_gate"), lin("ffn_up"))
-            wqkv = w_gateup = None
-            if type(wq) is type(wk) is type(wv):
-                wqkv = fuse_linears([wq, wk, wv])
-            if wqkv is not None:
-                wq = wk = wv = None
-            if not is_moe and type(w_gate) is type(w_up):
-                w_gateup = fuse_linears([w_gate, w_up])
-            if w_gateup is not None:
-                w_gate = w_up = None
-            has_qn = f"{p}.attn_q_norm.weight" in g.tensors
-            # gpt-oss ships its pre-FFN norm under the post_attention_norm name
-            ffn_norm = f"{p}.ffn_norm.weight"
-            if cfg.arch == "gpt-oss" and ffn_norm not in g.tensors:
-                ffn_norm = f"{p}.post_attention_norm.weight"
+            norm = lambda n: _norm(g, f"{p}.{n}.weight", dev, dtype)           # noqa: E731
+            has = lambda n: f"{p}.{n}.weight" in g.tensors                     # noqa: E731
+            is_moe = has("ffn_gate_inp")
+            moe = _load_moe(g, p, dev, dtype) if is_moe else None
+            if has("attn_kv_a_mqa"):
+                layers.append(_mla_layer(g, cfg, p, lin, norm, has, dev, dtype, moe))
+                continue
+            wq = wk = wv = w_gate = w_up = wqkv = w_gateup = None
+            if has("attn_qkv"):
+                wqkv = lin("attn_qkv", 1)             # phi3: pre-fused q|k|v
+            else:
+                wq, wk, wv = lin("attn_q", 1), lin("attn_k", 1), lin("attn_v", 1)
+                if type(wq) is type(wk) is type(wv):
+                    wqkv = fuse_linears([wq, wk, wv])
+                if wqkv is not None:
+                    wq = wk = wv = None
+            if not is_moe:
+                if not has("ffn_gate") and has("ffn_up"):
+                    w_gateup = lin("ffn_up")          # phi3: pre-fused gate|up
+                else:
+                    w_gate, w_up = lin("ffn_gate"), lin("ffn_up")
+                    if type(w_gate) is type(w_up):
+                        w_gateup = fuse_linears([w_gate, w_up])
+                    if w_gateup is not None:
+                        w_gate = w_up = None
+            has_qn = has("attn_q_norm")
+            # gpt-oss ships its pre-FFN norm under the post_attention_norm
+            # name; every other family's is a sandwich norm
+            ffn_norm = "ffn_norm"
+            if cfg.arch == "gpt-oss" and not has(ffn_norm):
+                ffn_norm = "post_attention_norm"
+            sandwich = cfg.arch != "gpt-oss"
             sinks = next((n for n in (f"{p}.attn_sinks.weight", f"{p}.attn_sinks")
                           if n in g.tensors), None)
+            ones = torch.ones((cfg.n_embd,), dtype=dtype, device=dev)
             layers.append(LayerWeights(
-                attn_norm=_norm(g, f"{p}.attn_norm.weight", dev, dtype),
+                # olmo2 ships no pre-norms: ones stand in (unused)
+                attn_norm=norm("attn_norm") if has("attn_norm") else ones,
                 wq=wq, wk=wk, wv=wv,
                 wo=lin("attn_output", 1),
-                q_norm=_norm(g, f"{p}.attn_q_norm.weight", dev, dtype) if has_qn else None,
-                k_norm=_norm(g, f"{p}.attn_k_norm.weight", dev, dtype) if has_qn else None,
-                ffn_norm=_norm(g, ffn_norm, dev, dtype),
+                q_norm=norm("attn_q_norm") if has_qn else None,
+                k_norm=norm("attn_k_norm") if has_qn else None,
+                ffn_norm=norm(ffn_norm) if has(ffn_norm) else ones,
                 w_gate=w_gate, w_up=w_up,
                 w_down=None if is_moe else lin("ffn_down"),
                 wqkv=wqkv, w_gateup=w_gateup,
-                moe=_load_moe(g, p, dev, dtype) if is_moe else None,
+                moe=moe,
                 attn_sinks=None if sinks is None else torch.from_numpy(_f32(g, sinks)).to(dev),
+                attn_post_norm=norm("post_attention_norm")
+                if sandwich and has("post_attention_norm") else None,
+                ffn_post_norm=norm("post_ffw_norm") if has("post_ffw_norm") else None,
             ))
 
         emb_info = g.tensors["token_embd.weight"]
@@ -231,9 +302,17 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
             lm_head = _linear(g, "output.weight", dev, dtype)
         else:
             lm_head = DenseLinear(w=embed.t())            # tied embeddings
+        # LongRoPE (phi3): the long factors when the trained context exceeds
+        # the original one, else the short ones
+        rope_factors = None
+        if "rope_factors_long.weight" in g.tensors:
+            orig = cfg.rope_orig_context or cfg.context_length
+            name = ("rope_factors_long.weight" if cfg.context_length > orig
+                    else "rope_factors_short.weight")
+            rope_factors = torch.from_numpy(_f32(g, name)).to(dev)
         weights = ModelWeights(embed=embed, layers=layers,
                                final_norm=_norm(g, "output_norm.weight", dev, dtype),
-                               lm_head=lm_head)
+                               lm_head=lm_head, rope_factors=rope_factors)
         md = dict(g.metadata)
     finally:
         g.close()

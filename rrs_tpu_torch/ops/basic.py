@@ -5,9 +5,16 @@ Port of ``rrs_tpu/ops/basic.py`` (``rms_norm``, ``RopeParams``,
 kernel: XLA fused them there. They compute in f32 and cast back to the
 input dtype at the same places as the JAX package.
 
-RoPE scaling: ``none`` (Qwen3), ``llama3`` (Llama 3.1) and ``yarn`` (gpt-oss; the JAX package's simplified ramp with beta_fast 32 and
-beta_slow 1, and its cos/sin scale 1 + 0.1 ln(factor)) are ported; any other
-type, and per-dimension frequency factors, raise NotImplementedError.
+RoPE scaling: ``none`` (Qwen3), ``linear`` (gemma3's global layers: every
+frequency over the factor), ``llama3`` (Llama 3.1) and ``yarn`` (gpt-oss,
+deepseek2; the JAX package's simplified ramp with beta_fast 32 and beta_slow
+1, and its cos/sin scale ``attn_factor`` * (1 + 0.1 ln(factor)), which MLA
+cancels through ``attn_factor``) are ported, with partial rotary (``rot_dim``,
+phi3) and LongRoPE's per-dimension frequency factors (phi3's
+``rope_factors_long`` / ``_short``, with their attention scale
+sqrt(1 + ln(factor) / ln(orig_context))); any other type raises
+NotImplementedError. ``gelu_tanh`` is the tanh-approximate GELU of the gemma
+GEGLU.
 """
 
 from __future__ import annotations
@@ -17,7 +24,12 @@ import math
 
 import torch
 
-ROPE_SCALING_TYPES = ("none", "llama3", "yarn")
+ROPE_SCALING_TYPES = ("none", "linear", "llama3", "yarn")
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -55,7 +67,9 @@ def rope_frequencies(p: RopeParams, device=None) -> torch.Tensor:
     rot = p.rot_dim or p.head_dim
     exponents = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
     inv_freq = 1.0 / (p.theta ** exponents)
-    if p.scaling_type == "llama3":
+    if p.scaling_type == "linear":
+        inv_freq = inv_freq / p.scale_factor
+    elif p.scaling_type == "llama3":
         # llama 3.1 frequency-dependent scaling (HF Llama3RotaryEmbedding)
         low_wavelen = p.orig_context / p.low_freq_factor
         high_wavelen = p.orig_context / p.high_freq_factor
@@ -91,14 +105,18 @@ def rope_frequencies(p: RopeParams, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams,
                freq_factors=None) -> torch.Tensor:
-    """x [..., T, n_heads, head_dim]; positions broadcastable to [..., T]."""
-    if freq_factors is not None:
-        raise NotImplementedError("rope frequency factors are not ported to rrs_tpu_torch")
+    """x [..., T, n_heads, head_dim]; positions broadcastable to [..., T];
+    ``freq_factors``: [rot_dim // 2] per-dimension frequency divisors."""
     rot = p.rot_dim or p.head_dim
     inv_freq = rope_frequencies(p, device=x.device)
     mscale = p.attn_factor
     if p.scaling_type == "yarn" and p.scale_factor != 1.0:
         mscale = p.attn_factor * (1.0 + 0.1 * math.log(p.scale_factor))
+    if freq_factors is not None:
+        inv_freq = inv_freq / freq_factors.to(device=x.device, dtype=torch.float32)
+        if p.orig_context > 0 and p.scale_factor > 1.0:
+            mscale = mscale * math.sqrt(
+                1.0 + math.log(p.scale_factor) / math.log(p.orig_context))
     angles = positions[..., None].to(torch.float32) * inv_freq     # [..., T, rot//2]
     return _rotate(x, angles, mscale, rot, p.neox).to(x.dtype)
 

@@ -504,18 +504,18 @@ class InferenceContext:
         """Sequence embedding from the final hidden states: one standalone
         forward over throwaway caches (``scratch_caches``; the context's own
         cache is untouched), no lm_head, the final norm, then mean or last
-        pooling. Returns f32 [E] on the host."""
+        pooling. Returns f32 [E] on the host. The layers are the forward's
+        own (``llama.layer``), embedding scale, sandwich norms, post-norms
+        and residual scale included, where the JAX package's ``hidden``
+        skips them (ROADMAP queue C)."""
         cfg, w = self.cfg, self.weights
         t = len(tokens)
         ks, vs = llama_model.scratch_caches(cfg, 1, t, device=self.device)
         pos = torch.arange(t, dtype=torch.int32, device=self.device)[None, :]
-        x = llama_model.embed_rows(
-            w.embed, torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)[None, :])
+        x = llama_model.embed_tokens(
+            cfg, w, torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)[None, :])
         for li, lw in enumerate(w.layers):
-            h = rms_norm(x, lw.attn_norm, cfg.rms_eps)
-            x = x + llama_model.attention(cfg, lw, h, pos, ks[li], vs[li], pos, [0], li)
-            h = rms_norm(x, lw.ffn_norm, cfg.rms_eps)
-            x = x + llama_model.ffn(cfg, lw, h, li=li)
+            x = llama_model.layer(cfg, w, lw, x, pos, ks[li], vs[li], pos, [0], li)
         hs = rms_norm(x, w.final_norm, cfg.rms_eps)[0].to(torch.float32)
         vec = hs[-1] if pooling == "last" else hs.mean(dim=0)
         return vec.cpu().numpy()

@@ -1,22 +1,24 @@
 """KV cache: preallocated device tensors plus host-side lane bookkeeping.
 
 Port of ``rrs_tpu/runtime/kv_cache.py``: per-layer [B, Hkv, S_l, D] caches
-(kv-head-major), where a sliding-window layer holds a ring of
-``round_up(window + max_chunk, 128)`` slots (at most max_seq) and every other
-layer max_seq, bf16 or quantized (``quant="q8"`` or
-``"q4"``: a ``(codes, f32 scales)`` tuple per layer in the layouts of
+(kv-head-major; an MLA model caches one head of [k_pe | c_kv] rows for K and
+c_kv rows for V, ``cfg.kv_cache_heads`` / ``kv_k_dim`` / ``kv_v_dim``),
+where a sliding-window layer holds a ring of ``round_up(window + max_chunk,
+128)`` slots (at most max_seq) and every other layer max_seq, bf16 or
+quantized (``quant="q8"`` or ``"q4"``: a ``(codes, f32 scales)`` tuple per layer in the layouts of
 ``runtime/kv_codec.py``; q4 takes the head-pair layout for an even kv-head
 count and the halves layout for an odd one), one sequence per batch lane, and
 the lane operations the engine uses: ``seq_new`` with LRU eviction of retained
 prompt caches, ``mark_retained`` / ``unmark_retained``, ``has_seq``,
 ``seq_rm``, ``seq_cp`` (whole lanes, right for rings too), ``seq_keep``,
 ``lengths_array`` and the context shift ``seq_shift``, which raises for a
-model with sliding layers, as the JAX package's does. The forward writes new
+model with sliding layers, as the JAX package's does, and re-rotates only the
+leading ``qk_rope_dim`` dims of an MLA row. The forward writes new
 rows into these tensors in place, and ``seq_cp`` / ``seq_shift`` update them
 in place too.
 
-MLA rows, tensor-parallel head sharding, ``seq_div`` position remaps and
-M-RoPE deltas wait for their slices.
+Tensor-parallel head sharding, ``seq_div`` position remaps and M-RoPE deltas
+wait for their slices.
 """
 
 from __future__ import annotations
@@ -58,11 +60,11 @@ class KVCache:
                max_chunk: int = 512) -> "KVCache":
         """``max_chunk``: the largest step the context runs; a ring must hold
         window + T - 1 slots for every attended slot to survive a T-row step."""
-        hkv, d = cfg.n_kv_heads, cfg.head_dim
+        hkv = cfg.kv_cache_heads
         sizes = [min(max_seq, -(-(cfg.swa_window + max_chunk) // 128) * 128)
                  if cfg.is_swa(li) else max_seq for li in range(cfg.n_layers)]
 
-        def make(s):
+        def make(s, d):
             shape = (n_lanes, hkv, s, d)
             if quant == "none":
                 return torch.zeros(shape, dtype=dtype, device=device)
@@ -77,8 +79,8 @@ class KVCache:
                 raise ValueError(f"KV cache quantization {quant!r}: not none, q8 or q4")
             return codes, scales
 
-        k = [make(s) for s in sizes]
-        v = [make(s) for s in sizes]
+        k = [make(s, cfg.kv_k_dim) for s in sizes]
+        v = [make(s, cfg.kv_v_dim) for s in sizes]
         return cls(k=k, v=v, max_seq=max_seq, lengths=[0] * n_lanes,
                    seq_ids=[None] * n_lanes, sizes=sizes)
 
@@ -157,8 +159,12 @@ class KVCache:
         JAX package, the whole lane is rolled and rotated in f32 and the first
         n_keep cells are kept as they were; a quantized K lane is dequantized,
         shifted and requantized whole (the kept cells included), while V codes
-        and scales are only rolled. The lane's tensors are updated in place."""
-        from rrs_tpu_torch.models.llama import rope_params
+        and scales are only rolled. An MLA row rotates only its leading
+        ``qk_rope_dim`` dims, with MLA's rope (interleaved pairs, YaRN's mscale
+        cancelled). The lane's tensors are updated in place."""
+        import dataclasses
+
+        from rrs_tpu_torch.models.llama import mla_rope_params, rope_params
         from rrs_tpu_torch.ops.basic import apply_rope
         from rrs_tpu_torch.runtime import kv_codec
 
@@ -171,7 +177,11 @@ class KVCache:
         n_discard = min(n_discard, n - n_keep)
         if n_discard <= 0:
             return
-        rp = rope_params(cfg)
+        if cfg.is_mla:
+            rp = dataclasses.replace(mla_rope_params(cfg), head_dim=cfg.kv_k_dim,
+                                     rot_dim=cfg.qk_rope_dim)
+        else:
+            rp = rope_params(cfg)
         dev = self.tensors()[0].device
         delta = torch.full((1, 1), -n_discard, dtype=torch.int32, device=dev)
         keep = torch.arange(self.max_seq, device=dev)[None, :, None] < n_keep   # [1, S, 1]

@@ -8,6 +8,7 @@ package's weights cross over as the plain nested dict of NumPy arrays that
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -74,7 +75,8 @@ def weights_tree(w) -> dict:
     embed = w.embed
     embed = tuple(to_numpy(e) for e in embed) if isinstance(embed, tuple) else to_numpy(embed)
     return {"embed": embed, "layers": [layer(lw) for lw in w.layers],
-            "final_norm": to_numpy(w.final_norm), "lm_head": linear_tree(w.lm_head)}
+            "final_norm": to_numpy(w.final_norm), "lm_head": linear_tree(w.lm_head),
+            "rope_factors": to_numpy(getattr(w, "rope_factors", None))}
 
 
 def small_jax_model(seed: int = 0, perm_layer: bool = False):
@@ -126,3 +128,47 @@ def tcq4_gguf(directory, seed: int = 0):
     export_random_gguf(jax_cfg(), src, seed=seed, vocab_tokens=vocab)
     quantize_model(src, dst, verbose=False)
     return dst
+
+
+def rewrite_gguf(src, dst, kv: dict | None = None, edit=None, drop_kv=()):
+    """Copy the GGUF ``src`` to ``dst`` with JAX's writer: every KV but those
+    named in ``drop_kv``, plus or over ``kv``; every tensor as f32, passed
+    through ``edit(name, array) -> {name: array}`` when given (which may
+    rename, split, merge or drop by returning several or none); then the
+    tensors ``edit("", None)`` returns last."""
+    from rrs_tpu.gguf.reader import read_gguf as jax_read_gguf
+    from rrs_tpu.gguf.writer import GGUFWriter as JaxWriter
+
+    g = jax_read_gguf(src)
+    w = JaxWriter(dst)
+    for k, v in g.metadata.items():
+        if k not in (kv or {}) and k not in drop_kv:
+            w.add_kv(k, v, vtype=g.metadata_types.get(k))
+    for k, v in (kv or {}).items():
+        w.add_kv(k, v)
+    out = {}
+    for name in g.tensors:
+        arr = np.array(g.tensor(name), np.float32)
+        out.update(edit(name, arr) if edit else {name: arr})
+    if edit:
+        out.update(edit("", None) or {})
+    for name, arr in out.items():
+        w.add_tensor(name, np.ascontiguousarray(arr, np.float32))
+    w.write()
+    g.close()
+    return dst
+
+
+def assert_same_greedy(got: list, ref: list, rows: np.ndarray) -> None:
+    """Greedy tokens identical, step by step, up to a step where the
+    reference's top two logits tie at bf16 resolution (one step of the top
+    value apart, so that either package's rounding may pick either): there
+    the port's token must be one of the tied ones, and the runs part."""
+    assert len(got) == len(ref)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if a == b:
+            continue
+        top = rows[i].max()
+        ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7)
+        assert rows[i][a] >= top - ulp, (i, got, ref, rows[i][a], top)
+        return

@@ -328,12 +328,22 @@ def test_server_answers_gpt_oss_on_cpu(oss_gguf):
 
 
 def test_next_slice_archs_raise():
-    """MoE layers in a dense architecture are not ported; qwen3 with a window
-    slides every layer. (qwen2moe, which raised here, is ported: its config is
-    checked in tests/test_torch_qwen2moe.py.)"""
+    """A qwen3 file with MoE layers reads as JAX reads it (MoE layers in a
+    dense architecture, which raised here, are ported); the recurrent
+    architectures wait for ROADMAP A9b; qwen3 with a window slides every
+    layer. (qwen2moe, which raised here, is ported: its config is checked in
+    tests/test_torch_qwen2moe.py.)"""
+    from rrs_tpu.models.config import ModelConfig as JaxConfig
+
+    from test_torch_common import torch_cfg
+
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2,
           "qwen3.embedding_length": 64, "qwen3.expert_count": 8}
-    with pytest.raises(NotImplementedError, match="MoE layers"):
+    cfg = ModelConfig.from_gguf(md)
+    assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.n_experts == 8
+    md = {"general.architecture": "rwkv6", "rwkv6.block_count": 2,
+          "rwkv6.embedding_length": 64}
+    with pytest.raises(NotImplementedError, match="A9b"):
         ModelConfig.from_gguf(md)
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2, "qwen3.embedding_length": 64,
           "qwen3.attention.head_count": 4, "qwen3.attention.sliding_window": 32}

@@ -99,11 +99,19 @@ def test_from_gguf_matches_jax(extra):
 
 
 def test_qwen2moe_and_dense_moe_raise():
-    """An MoE layer in a dense architecture raises. (qwen2moe, which raised
-    here, is ported: its config is checked in tests/test_torch_qwen2moe.py.)"""
+    """A llama file with MoE layers (Mixtral-style) reads as JAX reads it: an
+    MoE layer in a dense architecture, which raised here, is ported (its
+    forward is held in tests/test_torch_families.py). A mamba file still
+    raises, naming ROADMAP A9b. (qwen2moe, which raised here, is ported: its
+    config is checked in tests/test_torch_qwen2moe.py.)"""
+    from rrs_tpu.models.config import ModelConfig as JaxConfig
+
     md = {"general.architecture": "llama", "llama.block_count": 2,
           "llama.embedding_length": 64, "llama.expert_count": 8}
-    with pytest.raises(NotImplementedError, match="MoE layers"):
+    cfg = ModelConfig.from_gguf(md)
+    assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.n_experts == 8
+    md = {"general.architecture": "mamba", "mamba.block_count": 2, "mamba.embedding_length": 64}
+    with pytest.raises(NotImplementedError, match="A9b"):
         ModelConfig.from_gguf(md)
 
 
