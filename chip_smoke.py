@@ -196,12 +196,33 @@ it; exits non-zero without either, and on any failed phase. Phases:
    ``generate`` over prompts of 5, 40 and 1,600 tokens (the 1,536-slot rings
    wrap) over bf16 and q8 KV, a held 560-token prefill and decode step, a
    decode profile;
-16. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+16. the recurrent families, every model through ``make_context``: Mamba,
+   Falcon-Mamba (the weightless dt / B / C norms), RWKV6 and Jamba (an MoE
+   Mamba layer, attention without RoPE) in 2 layers at E = 512 on the card
+   against the CPU with dense weights (logits within GLUE_TOL, the states
+   after prefill reported) and with TCQ4 weights (every launch held to its
+   plain version, the drift reported); Falcon-Mamba-7B at its published
+   widths, cut to 32 of its 64 layers (fabricated TCQ4 linears with their
+   i8p packs: ssm_x at N = 288, ssm_dt at K = 256; a Q8_0 head):
+   ``generate`` over 5-,
+   40- and 300-token prompts x 32 with launch counts, a held 128-token
+   chunk and decode step, a B = 1 decode profile with the conv's and the
+   log-step scan's shares timed alone (and their shares of a 128-token
+   chunk beside a loop over T), the server over a 4-lane context (ctx
+   4,096; four 300 / 1,000-token requests prefilled at M = 4 x 128, B5; a
+   full-prefix prompt-cache reuse and a mismatch that restarts) and one
+   held 4-lane prefill step; RWKV-6 7B cut to 16 of 32 layers: ``generate``, a
+   held chunk and decode step (B4 at M = 1 for K = 14,336), a decode
+   profile with wkv6's share, and its share of a chunk; Jamba-v0.1 cut to 8
+   of its 32 layers (one period): ``generate``, a held chunk and decode
+   step (B3, B9, B1 / B4), a decode profile with the scan's share;
+17. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14 and 15 also carry ``launches_server_rest`` /
+   phases 10, 13, 14, 15 and 16 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
-   ``launches_mla_q8`` and ``launches_mla_q4``) and ``launches_gemma3``
-   (with ``launches_gemma3_q8``)),
+   ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
+   (with ``launches_gemma3_q8``) and ``launches_falcon_mamba`` /
+   ``launches_rwkv6`` / ``launches_jamba``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -2817,16 +2838,26 @@ def routes_replayed(recorded: list):
         moe.route = orig
 
 
+def _states(ctx, lane: int) -> list:
+    """A recurrent or hybrid context's per-lane states (conv / token shift
+    and ssm / wkv), on the host in f32; [] for a KV cache."""
+    kv = ctx.kv
+    return [t[lane].float().cpu() for t in getattr(kv, "conv", []) + getattr(kv, "ssm", [])
+            if t is not None]
+
+
 def card_vs_cpu(label, cfg, w_cpu, prompts, expect, held_logits: bool, kv_quant="none"):
     """The same weights and prompts on the CPU and on the card (each prompt's
-    last prefill logits and one decode step's), the card's expert ids
-    replayed where they differ from the CPU's, every kernel launch held to
-    its plain version; the logits within GLUE_TOL (``held_logits``) or
-    their drift reported. Returns the rel L2 by prompt and stage."""
+    last prefill logits and one decode step's), through the context
+    ``make_context`` picks, the card's expert ids replayed where they differ
+    from the CPU's, every kernel launch held to its plain version; the
+    logits within GLUE_TOL (``held_logits``) or their drift reported; a
+    recurrent context's states after each prefill reported (rel L2 of all
+    its layers' states). Returns the rel L2 by prompt and stage."""
     import torch
 
     from rrs_tpu_torch.models import llama, moe
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.recurrent import make_context
 
     orig = moe.route
     recorded, logits = [], {}
@@ -2837,21 +2868,24 @@ def card_vs_cpu(label, cfg, w_cpu, prompts, expect, held_logits: bool, kv_quant=
         return ti, tv
 
     moe.route = record
+    states = {}
     try:
-        cpu = InferenceContext(cfg, w_cpu, max_seq=1024, device="cpu", kv_quant=kv_quant)
+        cpu = make_context(cfg, w_cpu, max_seq=1024, device="cpu", kv_quant=kv_quant)
         for name, p in prompts.items():
             seq = cpu.new_sequence()
-            logits[name, "cpu"] = (cpu.prefill(seq, p)[-1].float(),
-                                   cpu.decode({seq: 11})[seq].float())
+            last = cpu.prefill(seq, p)[-1].float()
+            states[name, "cpu"] = _states(cpu, cpu.kv.lane_of(seq))
+            logits[name, "cpu"] = (last, cpu.decode({seq: 11})[seq].float())
             cpu.kv.seq_rm(seq)
     finally:
         moe.route = orig
-    ctx = InferenceContext(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024, kv_quant=kv_quant)
+    ctx = make_context(cfg, llama.to_device(w_cpu, "cuda"), max_seq=1024, kv_quant=kv_quant)
     with held_to_plain(label, expect) as seen, routes_replayed(recorded) as replay:
         for name, p in prompts.items():
             seq = ctx.new_sequence()
-            logits[name, "cuda"] = (ctx.prefill(seq, p)[-1].float().cpu(),
-                                    ctx.decode({seq: 11})[seq].float().cpu())
+            last = ctx.prefill(seq, p)[-1].float().cpu()
+            states[name, "cuda"] = _states(ctx, ctx.kv.lane_of(seq))
+            logits[name, "cuda"] = (last, ctx.decode({seq: 11})[seq].float().cpu())
             ctx.kv.seq_rm(seq)
         torch.cuda.synchronize()
     rels = {}
@@ -2870,6 +2904,18 @@ def card_vs_cpu(label, cfg, w_cpu, prompts, expect, held_logits: bool, kv_quant=
           f"calls; logits card vs CPU, rel L2 " + ("<= " + str(GLUE_TOL) if held_logits
                                                    else "(reported)") + ": "
           + ", ".join(f"{k} {v:.4f}" for k, v in rels.items()), flush=True)
+    if any(states.values()):
+        st_rel = {}
+        for name in prompts:
+            got, ref = states[name, "cuda"], states[name, "cpu"]
+            num = sum(float((g - r).norm()) ** 2 for g, r in zip(got, ref)) ** 0.5
+            den = sum(float(r.norm()) ** 2 for r in ref) ** 0.5
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"{label} {name}: non-finite recurrent states")
+            st_rel[name] = num / max(den, 1e-30)
+        print(f"  {label}: recurrent states after prefill, card vs CPU (rel L2 over "
+              f"{len(ref)} state tensors, reported): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in st_rel.items()), flush=True)
     del ctx
     return rels
 
@@ -4799,7 +4845,11 @@ def phase_mla_q4(cfg, weights, prompts, reports):
 
 def device_ms_of(fn, reps: int = 5) -> float:
     """The device ms of one call of ``fn``: torch.profiler over ``reps``
-    calls after two warm-up calls, the kernels' durations summed."""
+    calls after two warm-up calls, the kernels' durations summed. Where the
+    profiler records no device event (it missed a session late in a long
+    process once), CUDA events around the calls instead, queued behind a
+    device sleep longer than the host takes to issue them, so that the
+    launch gaps do not count; that reading is said to be so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4811,9 +4861,24 @@ def device_ms_of(fn, reps: int = 5) -> float:
             fn()
         torch.cuda.synchronize()
     events, by_name = device_ms_by_kernel(prof)
-    if not events:
-        raise AssertionError("the profiler recorded no device time")
-    return sum(by_name.values()) / reps
+    if events:
+        return sum(by_name.values()) / reps
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(host_s * reps * 4e9))        # cycles: ~2 s per s of issue time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"  (the profiler recorded no device time: {ms:.3f} ms a call from CUDA events)",
+          flush=True)
+    return ms
 
 
 def mla_attend_ms(cfg, b: int, s: int, quant: str) -> float:
@@ -5014,6 +5079,540 @@ def phase_gemma3(reports):
     return prof
 
 
+# -- The recurrent families: Falcon-Mamba-7B, RWKV-6 7B, Jamba-v0.1 ---------------
+
+# The GGUF metadata of Falcon-Mamba-7B as its published config.json gives it
+# (Hugging Face tiiuae/falcon-mamba-7b: hidden 4,096, 64 layers, expand 2,
+# d_state 16, d_conv 4, time_step_rank 256, vocab 65,024, the weightless
+# dt / B / C norms; llama.cpp's converter writes these keys), cut to 32 of
+# its 64 layers and RWKV-6 7B to 16 of 32 below, so that the script keeps to
+# its time limit on a slow host (with both whole it took 1,118 s on an
+# H100 80GB HBM3 at 700 W); widths as published
+FALCON_MAMBA_LAYERS = 32
+RWKV6_LAYERS = 16
+FALCON_MAMBA_7B_GGUF = {
+    "general.architecture": "falcon_mamba", "falcon_mamba.block_count": FALCON_MAMBA_LAYERS,
+    "falcon_mamba.context_length": 1048576, "falcon_mamba.embedding_length": 4096,
+    "falcon_mamba.feed_forward_length": 0, "falcon_mamba.attention.head_count": 0,
+    "falcon_mamba.attention.layer_norm_rms_epsilon": 1e-5, "falcon_mamba.ssm.conv_kernel": 4,
+    "falcon_mamba.ssm.inner_size": 8192, "falcon_mamba.ssm.state_size": 16,
+    "falcon_mamba.ssm.time_step_rank": 256, "falcon_mamba.ssm.dt_b_c_rms": True,
+    "falcon_mamba.vocab_size": 65024}
+# RWKV-6 Finch 7B (Hugging Face RWKV/v6-Finch-7B-HF: hidden 4,096, 32 layers,
+# head size 64, intermediate 14,336, vocab 65,536, rescale_every 6; the
+# converter's extra widths for a 4,096-wide model, 64 and 128)
+RWKV6_7B_GGUF = {
+    "general.architecture": "rwkv6", "rwkv6.block_count": RWKV6_LAYERS,
+    "rwkv6.context_length": 1048576,
+    "rwkv6.embedding_length": 4096, "rwkv6.feed_forward_length": 14336,
+    "rwkv6.attention.head_count": 0, "rwkv6.wkv.head_size": 64,
+    "rwkv6.time_mix_extra_dim": 64, "rwkv6.time_decay_extra_dim": 128,
+    "rwkv6.rescale_every_n_layers": 6, "rwkv6.attention.layer_norm_epsilon": 1e-5,
+    "rwkv6.vocab_size": 65536}
+# Jamba-v0.1 (Hugging Face ai21labs/Jamba-v0.1: hidden 4,096, 32 / 8 heads,
+# intermediate 14,336, 16 experts top-2 on odd layers, attention at layer 4
+# of each period of 8, expand 2, d_state 16, dt_rank 256, vocab 65,536),
+# cut to one period of 8 of its 32 layers; head_count_kv as the scalar the
+# JAX package reads (llama.cpp's converter writes a per-layer array)
+JAMBA_LAYERS = 8
+JAMBA_V01_GGUF = {
+    "general.architecture": "jamba", "jamba.block_count": JAMBA_LAYERS,
+    "jamba.context_length": 262144, "jamba.embedding_length": 4096,
+    "jamba.feed_forward_length": 14336, "jamba.attention.head_count": 32,
+    "jamba.attention.head_count_kv": 8, "jamba.attention.layer_norm_rms_epsilon": 1e-6,
+    "jamba.ssm.conv_kernel": 4, "jamba.ssm.inner_size": 8192, "jamba.ssm.state_size": 16,
+    "jamba.ssm.time_step_rank": 256, "jamba.expert_count": 16, "jamba.expert_used_count": 2,
+    "jamba.vocab_size": 65536}
+# new tokens a recurrent generate / served request asks for
+RECUR_NEW = 32
+RECUR_SERVE_NEW = 16
+RECUR_COUNTERS = {"gx2": "tcq4_matmul_gx2", "tcq4": "tcq4_matmul", "i8p": "tcq4_matmul_i8p",
+                  "q8": "q8_matmul"}
+# the 2-layer checks: arch -> config fields at reduced widths (every linear
+# TCQ4-eligible where the full-width one is: Falcon-Mamba's dt_rank 256)
+RECUR_SMALL = {
+    "mamba": dict(arch="mamba", ssm_d_conv=4, ssm_d_inner=1024, ssm_d_state=16, ssm_dt_rank=32),
+    "falcon_mamba": dict(arch="falcon_mamba", ssm_d_conv=4, ssm_d_inner=1024, ssm_d_state=16,
+                         ssm_dt_rank=256, ssm_dt_b_c_rms=True, rms_eps=1e-5),
+    "rwkv6": dict(arch="rwkv6", n_ff=1792, rwkv_head_size=64, rwkv_tm_extra=32,
+                  rwkv_decay_extra=64, rwkv_rescale_every=1),
+    "jamba": dict(arch="jamba", n_layers=2, n_heads=4, n_kv_heads=2, head_dim=128, n_ff=1024,
+                  ssm_d_conv=4, ssm_d_inner=1024, ssm_d_state=16, ssm_dt_rank=256, no_rope=True,
+                  n_experts=4, n_experts_used=2),
+}
+
+
+def recurrent_weights(cfg, seed: int, device, quantized: bool = True):
+    """Fabricated weights of a recurrent / hybrid config (the model module's
+    ``fabricated_tcq4_weights``); Jamba's 2-layer check puts its attention
+    layer second and its MoE FFN first."""
+    from rrs_tpu_torch.models import hybrid, mamba, rwkv6
+
+    if cfg.is_hybrid:
+        kw = dict(attn_period=2, attn_offset=1, expert_period=2, expert_offset=0) \
+            if cfg.n_layers == 2 else {}
+        return hybrid.fabricated_tcq4_weights(cfg, seed=seed, device=device,
+                                              quantized=quantized, **kw)
+    mod = rwkv6 if cfg.rwkv_head_size else mamba
+    return mod.fabricated_tcq4_weights(cfg, seed=seed, device=device, quantized=quantized)
+
+
+def phase_recurrent_small():
+    """Each recurrent family in 2 layers at reduced widths (E = 512, vocab
+    4,096) on the card against the same weights on the CPU, through the
+    context ``make_context`` picks: bf16 dense weights (logits within
+    GLUE_TOL; the states after prefill reported), then fabricated TCQ4
+    weights (every launch held to its plain version, the drift reported):
+    Mamba, Falcon-Mamba (the weightless dt / B / C norms, ssm_dt TCQ4 at K =
+    256, ssm_x at N = 288), RWKV6 (x halved every layer) and Jamba (an MoE
+    Mamba layer, then attention without RoPE and a dense FFN)."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    t0 = time.perf_counter()
+    rng = torch.Generator().manual_seed(16)
+    base = dict(n_layers=2, n_embd=512, n_heads=0, n_kv_heads=0, head_dim=0, n_ff=0,
+                vocab_size=4096, context_length=4096)
+    prompts = {"40": torch.randint(0, 4096, (40,), generator=rng).tolist(),
+               "300": torch.randint(0, 4096, (300,), generator=rng).tolist()}
+    for i, (fam, fields) in enumerate(RECUR_SMALL.items()):
+        cfg = ModelConfig(**{**base, **fields})
+        attn = {"flash_attention"} if cfg.is_hybrid else set()
+        card_vs_cpu(f"{fam} dense (2 layers)", cfg,
+                    recurrent_weights(cfg, 40 + i, "cpu", quantized=False), prompts, attn,
+                    held_logits=True)
+        expect = {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul"} | attn
+        if cfg.is_hybrid:
+            expect |= {"tcq4_matmul_experts_rows"}
+        card_vs_cpu(f"{fam} TCQ4 (2 layers)", cfg, recurrent_weights(cfg, 40 + i, "cpu"),
+                    prompts, expect, held_logits=False)
+    print(f"  recurrent 2-layer checks took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def decode_step_bytes(cfg, weights, state_bytes: int) -> float:
+    """The bytes a B = 1 decode step must move: every weight it reads once
+    (a TCQ4 linear's codes and scales, not its i8p pack, which only prefill
+    reads; a Q8 head's codes and scales; an MoE layer's router and top-k of
+    its experts' stacks; the f32 norms, lerps, conv taps, A and D), one
+    embedding row, and the recurrent state read and written."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models.linear import Q8Linear, TCQ4Linear
+    from rrs_tpu_torch.models.moe import MoEWeights
+
+    def nbytes(t):
+        return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+    def walk(obj) -> float:
+        if isinstance(obj, TCQ4Linear):
+            return nbytes(obj.qs) + nbytes(obj.eff)
+        if isinstance(obj, Q8Linear):
+            return nbytes(obj.q) + nbytes(obj.scale)
+        if isinstance(obj, MoEWeights):
+            stacks = sum(nbytes(getattr(obj, f)) for f in (
+                "gate", "up", "down", "gate_qs", "gate_eff", "up_qs", "up_eff", "down_qs",
+                "down_eff"))
+            return nbytes(obj.router) + stacks * cfg.n_experts_used / cfg.n_experts
+        if isinstance(obj, torch.Tensor):
+            return nbytes(obj)
+        if dataclasses.is_dataclass(obj):
+            return sum(walk(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                       if f.name != "embed")
+        if isinstance(obj, (list, tuple)):
+            return sum(walk(o) for o in obj)
+        return 0
+    row = weights.embed[0]
+    return walk(weights) + nbytes(row) + 2 * state_bytes
+
+
+def recurrent_generate(label, cfg, weights, key, reports, expect):
+    """``generate`` of 5-, 40- and 300-token greedy prompts x RECUR_NEW new
+    tokens on a one-lane context (``make_context``), after a warm-up; the
+    launch counts set to 0 before and read after (into each report under
+    ``key``); every kernel of ``expect`` must have launched. Returns the
+    context and the prompts."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.recurrent import make_context
+
+    rng = torch.Generator().manual_seed(0)
+    prompts = {n: torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (5, 40, 300)}
+    ctx = make_context(cfg, weights, n_lanes=1, max_seq=1024)
+    ctx.generate(prompts[5], 2)
+    ctx.n_prefill_tokens = ctx.n_decode_tokens = 0
+    ctx.t_prefill_s = ctx.t_decode_s = 0.0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with moe_branches() as branches:
+        outs = {n: ctx.generate(p, RECUR_NEW) for n, p in prompts.items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = mark_launches(reports, key)
+    for n, out in outs.items():
+        if len(out) != RECUR_NEW or not all(0 <= tok < cfg.vocab_size for tok in out):
+            raise AssertionError(f"{label} generate {n}: {len(out)} tokens: {out}")
+    if set(expect) - set(launches):
+        raise AssertionError(f"{label} generate: kernels not launched: "
+                             f"{set(expect) - set(launches)}; launches {launches}")
+    perf = ctx.perf()
+    step_bytes = decode_step_bytes(cfg, weights, ctx.kv.nbytes() - sum(
+        t.numel() * t.element_size() for t in getattr(ctx.kv, "k", []) + getattr(ctx.kv, "v", [])
+        if t is not None))
+    bw = card_peaks(torch.cuda.get_device_name(0))[0]
+    print(f"  {label} generate: prompts 5/40/300 x {RECUR_NEW} new tokens in {dt:.1f} s; "
+          f"prefill {perf['n_p_eval']} tok @ {perf['pp_tok_per_s']:.1f} tok/s, decode "
+          f"{perf['n_eval']} tok @ {perf['tg_tok_per_s']:.2f} tok/s "
+          f"({perf['t_eval_ms'] / max(perf['n_eval'], 1):.3f} ms/token; bytes bound "
+          f"{step_bytes / bw * 1e3:.3f} ms a step: {step_bytes / GB:.3f} GB at "
+          f"{bw / 1e12:.2f} TB/s); recurrent state {ctx.kv.nbytes() / GB:.4f} GB; MoE branches "
+          f"{branches}; greedy {outs[40][:6]}...; launches {launches}", flush=True)
+    return ctx, prompts
+
+
+def recurrent_held(ctx, label, prompt, expect):
+    """A teacher-forced 128-token chunk (one exact chunk) and a decode step
+    after it, every kernel launch held to its plain version on the inputs
+    it got."""
+    import torch
+
+    t0 = time.perf_counter()
+    with held_to_plain(f"{label} held", expect) as seen:
+        seq = ctx.new_sequence()
+        last = ctx.prefill(seq, prompt[:128])[-1]
+        out = ctx.decode({seq: int(last.argmax())})[seq]
+        torch.cuda.synchronize()
+        ctx.kv.seq_rm(seq)
+    if not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+        raise AssertionError(f"{label} held steps: non-finite logits")
+    print(f"  {label} held (a 128-token chunk + a decode step) in "
+          f"{time.perf_counter() - t0:.1f} s, max rel by kernel: "
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e} at (M, K, N) {sorted(v[1])}"
+                      for k, v in sorted(seen.items())), flush=True)
+
+
+def recurrent_shares(label, cfg, n_layers: int, step_ms: float, parts) -> None:
+    """Each plain-torch part of a step timed alone (``device_ms_of``) at the
+    step's shape, times its layers, as a share of the step's device ms;
+    ``parts``: name -> (fn, layers it runs on)."""
+    out = []
+    for name, (fn, layers) in parts.items():
+        ms = device_ms_of(fn, reps=3) * layers
+        out.append(f"{name} {ms:.3f} ({ms / step_ms:.3f})")
+    print(f"  {label}: of a {step_ms:.3f} device ms step, each part timed alone: "
+          + ", ".join(out), flush=True)
+
+
+def mamba_parts(cfg, b: int, t: int):
+    """Mamba's plain-torch parts at B lanes x T tokens: the conv and the
+    log-step scan, and at T > 1 a loop over T of ``ssm_step`` (the
+    alternative to the log-step scan, not on the path)."""
+    import torch
+
+    from rrs_tpu_torch.ops import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    di, ds = cfg.ssm_d_inner, cfg.ssm_d_state
+    f32 = dict(generator=gen, device="cuda")
+    x = torch.randn((b, t, di), **f32).to(torch.bfloat16)
+    dt = torch.randn((b, t, di), **f32)
+    a = -torch.exp(torch.randn((di, ds), **f32) * 0.5)
+    bc, cc = torch.randn((b, t, ds), **f32), torch.randn((b, t, ds), **f32)
+    h0 = torch.zeros((b, di, ds), device="cuda")
+    conv_w, conv_b = torch.randn((4, di), **f32), torch.zeros((di,), device="cuda")
+    st = torch.zeros((b, 3, di), dtype=torch.bfloat16, device="cuda")
+    parts = {"ssm_conv": lambda: ssm.ssm_conv(x, st, conv_w, conv_b),
+             "ssm_scan (log-step)": lambda: ssm.ssm_scan(h0, x, dt, a, bc, cc)}
+    if t > 1:
+        def loop():
+            h = h0
+            for i in range(t):
+                _, h = ssm.ssm_step(h, x[:, i], dt[:, i], a, bc[:, i], cc[:, i])
+        parts["ssm_step looped over T (not on the path)"] = loop
+    return parts
+
+
+def wkv_parts(cfg, b: int, t: int):
+    import torch
+
+    from rrs_tpu_torch.ops import rwkv
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    hs = cfg.rwkv_head_size
+    h = cfg.n_embd // hs
+    k, v, r = (torch.randn((b, t, h, hs), generator=gen, device="cuda") for _ in range(3))
+    td = torch.rand((b, t, h, hs), generator=gen, device="cuda")
+    tf = torch.randn((h, hs), generator=gen, device="cuda")
+    s0 = torch.zeros((b, h, hs, hs), device="cuda")
+    return {"wkv6": lambda: rwkv.wkv6(k, v, r, tf, td, s0)}
+
+
+def chunk_device_ms(ctx, prompt) -> float:
+    """The device ms of one 128-token prefill chunk on a fresh sequence."""
+    def step():
+        seq = ctx.new_sequence()
+        ctx.prefill(seq, prompt[:128])
+        ctx.kv.seq_rm(seq)
+    return device_ms_of(step, reps=2)
+
+
+def serve_recurrent(cfg, weights, label, reports, expect_served):
+    """The server in-process over a 4-lane recurrent context (``make_context``,
+    ctx 4096): four concurrent completions (300 / 1,000 / 300 / 1,000
+    tokens, two greedy, two sampled, RECUR_SERVE_NEW new tokens each), each
+    prefilled one slot a step over all 4 lanes (M = 4 x 128: B5); then, on
+    the same engine, a request extending slot 0's retained sequence by two
+    tokens (its whole stored prefix reused) and one that parts from it
+    after 10 tokens (restarted). Every response must finish by length with
+    its count and no device decode run may be launched. Then one 4-lane
+    prefill step held to the plain versions (B5). Returns the context."""
+    import queue as _queue
+
+    import torch
+    from http.server import ThreadingHTTPServer
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.recurrent import make_context
+    from rrs_tpu_torch.runtime.sampler import SamplerParams
+    from rrs_tpu_torch.serving.engine import Engine, GenRequest
+    from rrs_tpu_torch.serving.server import ServerState, make_handler
+
+    ctx = make_context(cfg, weights, n_lanes=4, max_seq=4096)
+    engine = Engine(ctx)
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, f"{label}-fabricated")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    rng = torch.Generator().manual_seed(13)
+    lengths = (300, 1000, 300, 1000)
+    bodies = []
+    for i, n in enumerate(lengths):
+        body = {"prompt": torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist(),
+                "max_tokens": RECUR_SERVE_NEW, "seed": i}
+        if i < 2:
+            body["temperature"] = 0.0
+        bodies.append(body)
+    results: dict = {}
+
+    def run(i):
+        t0 = time.perf_counter()
+        results[i] = _http(port, "POST", "/v1/completions", bodies[i]) + (t0,
+                                                                          time.perf_counter())
+
+    def direct(prompt):
+        q: "_queue.Queue" = _queue.Queue()
+        got = []
+        engine.submit(GenRequest(
+            prompt_tokens=prompt, max_tokens=RECUR_SERVE_NEW,
+            params=SamplerParams(temperature=0.0),
+            on_token=lambda tok, piece, fin, reason: q.put(reason) if fin else got.append(tok)))
+        reason = q.get(timeout=600)
+        if reason != "length" or len(got) != RECUR_SERVE_NEW:
+            raise AssertionError(f"{label} serving: a direct request finished by {reason} "
+                                 f"with {len(got)} tokens")
+        return got
+
+    engine.start()
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"{label} serving: a request did not finish within 600 s")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        launches = {k: kernels.LAUNCHES[n] for k, n in RECUR_COUNTERS.items()}
+        for i, (status, data, t0, t1) in sorted(results.items()):
+            if status != 200:
+                raise AssertionError(f"{label} serving: request {i} answered {status}: "
+                                     f"{data[:300]!r}")
+            out = json.loads(data)
+            reason = out["choices"][0]["finish_reason"]
+            n_out = out["usage"]["completion_tokens"]
+            if reason != "length" or n_out != RECUR_SERVE_NEW:
+                raise AssertionError(f"{label} serving: request {i} finished by {reason} "
+                                     f"with {n_out} tokens")
+            tm = out["timings"]
+            print(f"  {label} completion {lengths[i]} {'greedy' if i < 2 else 'sampled'}: "
+                  f"{n_out} tokens, time to first token {tm['prompt_ms']:.1f} ms, decode "
+                  f"{(n_out - 1) / max(tm['predicted_ms'] / 1e3, 1e-9):.2f} tok/s", flush=True)
+        slot = engine.slots[0]
+        stored = ctx.kv.lengths[ctx.kv.lane_of(slot.retained_seq)]
+        direct(slot.cache_tokens[:stored] + [5, 6])
+        reused = slot.n_reused
+        direct(slot.cache_tokens[:10] + [7, 8, 9])
+        if reused != stored or slot.n_reused != 0:
+            raise AssertionError(f"{label} serving: prompt cache reused {reused} of {stored} "
+                                 f"on a full prefix, {slot.n_reused} on a mismatch")
+        if engine.n_decode_runs or engine.n_drafted:
+            raise AssertionError(f"{label} serving: {engine.n_decode_runs} device decode runs")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    if engine._thread.is_alive():
+        raise AssertionError(f"{label} serving: the engine thread did not stop")
+    if launches["i8p"] == 0:
+        raise AssertionError(f"{label} serving: B5 never launched: {launches}")
+    for key, n in launches.items():
+        reports[key].entry[f"launches_serve_{label.split()[0].lower().replace('-', '_')}"] = n
+    print(f"  {label} served 4 requests ({sum(lengths)} prompt tokens) in {wall:.1f} s, then "
+          f"a full-prefix reuse ({stored} tokens kept) and a mismatch (restarted); "
+          f"launches {launches}", flush=True)
+    # one 4-lane prefill step held: B5 at M = 4 x 128
+    t0 = time.perf_counter()
+    with held_to_plain(f"{label} 4-lane prefill step", expect_served) as seen:
+        seq = ctx.new_sequence()
+        last = ctx.prefill(seq, bodies[1]["prompt"][:128])[-1]
+        torch.cuda.synchronize()
+        ctx.kv.seq_rm(seq)
+    if not torch.isfinite(last).all():
+        raise AssertionError(f"{label} 4-lane prefill step: non-finite logits")
+    print(f"  {label} 4-lane prefill step held in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v[0]:.2e} at {sorted(v[1])}" for k, v in sorted(seen.items())),
+          flush=True)
+    return ctx
+
+
+def phase_falcon_mamba(reports):
+    """Falcon-Mamba-7B at its published widths, cut to 32 of its 64 layers
+    (config from ``ModelConfig.from_gguf`` on its metadata; fabricated TCQ4
+    linears with their i8p packs, a Q8_0 head): generate, a held chunk and decode step,
+    a B = 1 decode profile with the conv's and the scan's shares (and the
+    scan's share of a 128-token chunk, beside a loop over T), the server."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models import mamba
+
+    cfg = ModelConfig.from_gguf(FALCON_MAMBA_7B_GGUF)
+    t0 = time.perf_counter()
+    weights = mamba.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    kinds = {f: type(getattr(weights.layers[0], f)).__name__
+             for f in ("w_in", "w_x", "w_dt", "w_out")}
+    print(f"  Falcon-Mamba-7B config: {cfg.n_layers} layers, E={cfg.n_embd}, d_inner "
+          f"{cfg.ssm_d_inner}, d_state {cfg.ssm_d_state}, d_conv {cfg.ssm_d_conv}, dt_rank "
+          f"{cfg.ssm_dt_rank}, dt_b_c_rms {cfg.ssm_dt_b_c_rms}, vocab {cfg.vocab_size} (of 64 "
+          f"layers); "
+          f"fabricated weights {w_bytes / GB:.2f} GB in {time.perf_counter() - t0:.1f} s; "
+          f"linears {kinds}", flush=True)
+    path = {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul"}
+    ctx, prompts = recurrent_generate("Falcon-Mamba-7B", cfg, weights, "launches_falcon_mamba",
+                                      reports, path)
+    recurrent_held(ctx, "Falcon-Mamba-7B", prompts[300], path)
+    prof = profile_decode(ctx, prompts[40], label="Falcon-Mamba-7B")
+    if prof:
+        recurrent_shares("Falcon-Mamba-7B decode, B=1", cfg, cfg.n_layers, prof["device_ms"],
+                         {k: (fn, cfg.n_layers) for k, fn in mamba_parts(cfg, 1, 1).items()})
+    recurrent_shares("Falcon-Mamba-7B 128-token chunk, B=1", cfg, cfg.n_layers,
+                     chunk_device_ms(ctx, prompts[300]),
+                     {k: (fn, cfg.n_layers) for k, fn in mamba_parts(cfg, 1, 128).items()})
+    del ctx
+    t0 = time.perf_counter()
+    served = serve_recurrent(cfg, weights, "Falcon-Mamba-7B", reports,
+                             {"tcq4_matmul_i8p", "q8_matmul"})
+    print(f"  Falcon-Mamba-7B serving took {time.perf_counter() - t0:.1f} s", flush=True)
+    del served, weights
+
+
+def phase_rwkv6(reports):
+    """RWKV-6 Finch 7B at its published widths, cut to 16 of its 32 layers:
+    generate, a held chunk and decode step (B4 at M = 1 for K = 14,336), a
+    decode profile with wkv6's share, and wkv6's share of a 128-token
+    chunk."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models import rwkv6
+
+    cfg = ModelConfig.from_gguf(RWKV6_7B_GGUF)
+    t0 = time.perf_counter()
+    weights = rwkv6.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    print(f"  RWKV-6 7B config: {cfg.n_layers} of 32 layers, E={cfg.n_embd}, head size "
+          f"{cfg.rwkv_head_size}, FF {cfg.n_ff}, extra {cfg.rwkv_tm_extra} / "
+          f"{cfg.rwkv_decay_extra}, rescale every {cfg.rwkv_rescale_every}, vocab "
+          f"{cfg.vocab_size}; fabricated weights {w_bytes / GB:.2f} GB in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    path = {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul"}
+    ctx, prompts = recurrent_generate("RWKV-6 7B", cfg, weights, "launches_rwkv6", reports, path)
+    recurrent_held(ctx, "RWKV-6 7B", prompts[300], path)
+    prof = profile_decode(ctx, prompts[40], label="RWKV-6 7B")
+    if prof:
+        recurrent_shares("RWKV-6 7B decode, B=1", cfg, cfg.n_layers, prof["device_ms"],
+                         {k: (fn, cfg.n_layers) for k, fn in wkv_parts(cfg, 1, 1).items()})
+    recurrent_shares("RWKV-6 7B 128-token chunk, B=1", cfg, cfg.n_layers,
+                     chunk_device_ms(ctx, prompts[300]),
+                     {k: (fn, cfg.n_layers) for k, fn in wkv_parts(cfg, 1, 128).items()})
+    del ctx, weights
+
+
+def phase_jamba(reports):
+    """Jamba-v0.1 at its published widths, cut to 8 of its 32 layers (one
+    period: attention at layer 4, MoE on the odd layers): generate, a held
+    chunk and decode step (B3 without RoPE, B9 at decode, B10 or the scan at
+    prefill, B1 / B4), a decode profile with the scan's and conv's
+    shares."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models import hybrid
+
+    cfg = ModelConfig.from_gguf(JAMBA_V01_GGUF)
+    t0 = time.perf_counter()
+    weights = hybrid.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(weights))
+    kinds = [("attn" if hl.kind == "attn" else "ssm") + ("+moe" if hl.moe else "")
+             for hl in weights.layers]
+    print(f"  Jamba-v0.1 config: {cfg.n_layers} of 32 layers {kinds}, E={cfg.n_embd}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim} (no RoPE), FF {cfg.n_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.n_experts_used}, d_inner {cfg.ssm_d_inner}, "
+          f"dt_rank {cfg.ssm_dt_rank}, vocab {cfg.vocab_size}; fabricated weights "
+          f"{w_bytes / GB:.2f} GB in {time.perf_counter() - t0:.1f} s", flush=True)
+    path = {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul", "flash_attention",
+            "tcq4_matmul_experts_rows"}
+    ctx, prompts = recurrent_generate("Jamba-v0.1 (8 layers)", cfg, weights, "launches_jamba",
+                                      reports, path)
+    recurrent_held(ctx, "Jamba-v0.1", prompts[300], path)
+    prof = profile_decode(ctx, prompts[40], label="Jamba-v0.1 (8 layers)")
+    if prof:
+        n_ssm = sum(hl.kind == "ssm" for hl in weights.layers)
+        recurrent_shares("Jamba-v0.1 decode, B=1", cfg, n_ssm, prof["device_ms"],
+                         {k: (fn, n_ssm) for k, fn in mamba_parts(cfg, 1, 1).items()})
+    del ctx, weights
+
+
+def phase_recurrent(reports):
+    """Phase 16: the 2-layer card-vs-CPU checks, then Falcon-Mamba-7B,
+    RWKV-6 7B and Jamba-v0.1 (8 layers), each model's tensors freed before
+    the next."""
+    import torch
+
+    for name, run in (("2-layer checks", phase_recurrent_small),
+                      ("Falcon-Mamba-7B", lambda: phase_falcon_mamba(reports)),
+                      ("RWKV-6 7B", lambda: phase_rwkv6(reports)),
+                      ("Jamba-v0.1", lambda: phase_jamba(reports))):
+        t0 = time.perf_counter()
+        run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -5037,7 +5636,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/16] build")
+    header("[1/17] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -5051,32 +5650,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/16] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/17] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/16] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/17] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/16] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/17] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/16] served steps held to the plain versions; device decode run against "
+    header("[5/17] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/16] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/17] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/16] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/17] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     shift_held(ctx, "qwen3-4b")
@@ -5085,7 +5684,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/16] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/17] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -5095,14 +5694,14 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/16] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/17] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/16] the rest of the server at qwen3-4b width: grammar, JSON schema, "
+    header("[10/17] the rest of the server at qwen3-4b width: grammar, JSON schema, "
            "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(cfg, weights, reports)
@@ -5112,7 +5711,7 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/16] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/17] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -5125,7 +5724,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/16] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/17] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -5148,7 +5747,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/16] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/17] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -5163,7 +5762,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/16] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/17] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -5172,13 +5771,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/16, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/17, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/16, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/17, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -5186,7 +5785,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/16] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/17] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA) and gemma3-4b at their published widths")
     t15 = time.perf_counter()
     phase_families_small()
@@ -5198,7 +5797,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/16] summary")
+    header("[16/17] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+           "against the CPU, then Falcon-Mamba-7B (32 of 64 layers), RWKV-6 7B (16 of 32) and "
+           "Jamba-v0.1 (8 of 32) at their published widths")
+    t16 = time.perf_counter()
+    phase_recurrent(reports)
+    print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
+
+    header("[17/17] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

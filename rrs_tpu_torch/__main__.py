@@ -235,14 +235,14 @@ def _refuse_unported(args) -> None:
 def cmd_generate(args):
     from rrs_tpu_torch.models.loader import load_model, parse_kv_overrides
     from rrs_tpu_torch.models.vocab import Vocab
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.recurrent import make_context
     from rrs_tpu_torch.runtime.sampler import SamplerParams
 
     cfg, weights, md = load_model(args.model, device=args.device,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
-    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx,
-                           kv_quant=args.cache_type, device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=1, max_seq=args.ctx, kv_quant=args.cache_type,
+                       device=args.device)
     tokens = vocab.encode(args.prompt, add_special=not args.no_bos)
     params = SamplerParams(temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
                            seed=args.seed)
@@ -251,8 +251,8 @@ def cmd_generate(args):
         from rrs_tpu_torch.runtime.speculative import generate_speculative
 
         dcfg, dweights, _ = load_model(args.model_draft, device=args.device)
-        draft_ctx = InferenceContext(dcfg, dweights, n_lanes=1, max_seq=args.ctx,
-                                     device=args.device)
+        draft_ctx = make_context(dcfg, dweights, n_lanes=1, max_seq=args.ctx,
+                                 device=args.device)
         out, stats = generate_speculative(ctx, draft_ctx, tokens, args.n_tokens,
                                           n_draft=args.draft, stop_tokens=stop)
         print(f"speculative: {stats.n_accepted}/{stats.n_drafted} drafts accepted "
@@ -394,15 +394,15 @@ def cmd_chat(args, read_line=input):
 
     from rrs_tpu_torch.models.loader import load_model
     from rrs_tpu_torch.models.vocab import Vocab
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.recurrent import make_context
     from rrs_tpu_torch.runtime.sampler import SamplerParams
     from rrs_tpu_torch.serving.chat import build_prompt, detect_template
     from rrs_tpu_torch.serving.engine import Engine, GenRequest
 
     cfg, weights, md = load_model(args.model, device=args.device)
     vocab = Vocab.from_gguf(md)
-    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=args.ctx,
-                           kv_quant=args.cache_type, device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=1, max_seq=args.ctx, kv_quant=args.cache_type,
+                       device=args.device)
     template = str(md.get("tokenizer.chat_template", "") or "")
     fallback = detect_template(md)
     eng = Engine(ctx)

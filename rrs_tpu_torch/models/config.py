@@ -16,10 +16,14 @@ published model gates it; ROADMAP queue C). Llama / Qwen / Mistral / phi3
 GGUFs with ``attention.sliding_window`` take every layer sliding (pattern 1),
 as in the JAX package.
 
-The recurrent and hybrid architectures (mamba, mamba2, falcon_mamba, rwkv6,
-rwkv6qwen2, jamba: ROADMAP A9b), the multimodal qwen2vl (M-RoPE sections,
-A11), any other architecture, and RoPE scaling other than ``none`` /
-``linear`` / ``llama3`` / ``yarn`` raise NotImplementedError.
+The recurrent families read as the JAX package reads them: mamba, mamba2
+and falcon_mamba (the ``ssm.*`` keys, with falcon-mamba's ``ssm.dt_b_c_rms``),
+rwkv6 and rwkv6qwen2 (head size, the low-rank extra widths and
+``rescale_every_n_layers``), and the hybrid jamba (the ``ssm.*`` keys, and
+attention without RoPE). ``is_recurrent`` / ``is_hybrid`` pick their memories
+(``runtime/recurrent.py``'s ``make_context``). The multimodal qwen2vl
+(M-RoPE sections, A11), any other architecture, and RoPE scaling other than
+``none`` / ``linear`` / ``llama3`` / ``yarn`` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,10 +35,10 @@ from typing import Any, Mapping
 from rrs_tpu_torch.ops.basic import ROPE_SCALING_TYPES
 
 SUPPORTED_ARCHS = ("llama", "mistral", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gpt-oss",
-                   "deepseek2", "gemma2", "gemma3", "granite", "minicpm", "olmo2", "phi3")
+                   "deepseek2", "gemma2", "gemma3", "granite", "minicpm", "olmo2", "phi3",
+                   "mamba", "mamba2", "falcon_mamba", "rwkv6", "rwkv6qwen2", "jamba")
 # architectures the JAX package runs that wait for a later slice, by ROADMAP item
-LATER_ARCHS = {"mamba": "A9b", "mamba2": "A9b", "falcon_mamba": "A9b", "rwkv6": "A9b",
-               "rwkv6qwen2": "A9b", "jamba": "A9b", "qwen2vl": "A11"}
+LATER_ARCHS = {"qwen2vl": "A11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +103,18 @@ class ModelConfig:
     sandwich_norm: bool = False      # gemma2 / 3: post-attention and post-FFN norms
     ffn_act: str = "silu"            # "silu" | "gelu" (tanh-approximate GEGLU)
     rope_rot_dim: int = 0            # partial rotary (phi3); 0 => head_dim
+    # recurrent (Mamba) sizes; falcon-mamba's weightless RMS norms on dt / B / C
+    ssm_d_conv: int = 0
+    ssm_d_inner: int = 0
+    ssm_d_state: int = 0
+    ssm_dt_rank: int = 0
+    ssm_dt_b_c_rms: bool = False
+    no_rope: bool = False            # jamba: attention layers without RoPE
+    # RWKV6: head size, the low-rank lerp and decay widths, x halved every n layers
+    rwkv_head_size: int = 0
+    rwkv_tm_extra: int = 0
+    rwkv_decay_extra: int = 0
+    rwkv_rescale_every: int = 0
 
     @property
     def n_q_dim(self) -> int:
@@ -131,6 +147,16 @@ class ModelConfig:
     @property
     def kv_v_dim(self) -> int:
         return self.kv_lora_rank if self.is_mla else self.head_dim
+
+    @property
+    def is_hybrid(self) -> bool:
+        """Attention and Mamba layers in one model (jamba)."""
+        return self.arch == "jamba"
+
+    @property
+    def is_recurrent(self) -> bool:
+        """Every layer recurrent (Mamba or RWKV6)."""
+        return (self.ssm_d_inner > 0 or self.rwkv_head_size > 0) and not self.is_hybrid
 
     def is_swa(self, li: int) -> bool:
         """Is layer ``li`` sliding-window (over a ring cache)?"""
@@ -231,7 +257,7 @@ class ModelConfig:
                 expert_softmax_weight=True,
                 moe_act="swiglu_oai",
             )
-        elif arch != "deepseek2":
+        elif arch in ("mistral", "llama", "phi3", "qwen2", "qwen3", "qwen2moe", "qwen3moe"):
             # llama / mistral / phi3 / qwen: every layer sliding when the key is present
             win = int(key("attention.sliding_window", 0) or 0)
             if win > 0:
@@ -262,6 +288,24 @@ class ModelConfig:
                 n_group_used=int(key("expert_group_used_count", 0) or 0),
                 # V2 files predate the gating-function key: softmax
                 expert_gating_softmax=int(key("expert_gating_func", 1) or 1) == 1,
+            )
+        if arch == "jamba":
+            extra.update(no_rope=True)
+        if arch in ("rwkv6", "rwkv6qwen2"):
+            extra.update(
+                rwkv_head_size=int(key("wkv.head_size", 64) or 64),
+                rwkv_tm_extra=int(key("time_mix_extra_dim", 32) or 32),
+                rwkv_decay_extra=int(key("time_decay_extra_dim", 64) or 64),
+                rwkv_rescale_every=int(key("rescale_every_n_layers", 0) or 0),
+            )
+        if arch in ("mamba", "mamba2", "falcon_mamba", "jamba"):
+            dt_rank = -(-n_embd // 16)
+            extra.update(
+                ssm_d_conv=int(key("ssm.conv_kernel", 4) or 4),
+                ssm_d_inner=int(key("ssm.inner_size", 2 * n_embd) or 2 * n_embd),
+                ssm_d_state=int(key("ssm.state_size", 16) or 16),
+                ssm_dt_rank=int(key("ssm.time_step_rank", dt_rank) or dt_rank),
+                ssm_dt_b_c_rms=bool(key("ssm.dt_b_c_rms", False)),
             )
         return ModelConfig(
             **extra,

@@ -23,7 +23,8 @@ def export_random_gguf(cfg: ModelConfig, path: str | Path, seed: int = 0, scale:
     """Write a GGUF with N(0, scale) weights and unit norms matching the
     dense ``cfg``, every tensor in ``dtype`` (float32 or float16);
     ``vocab_tokens`` adds a tokenizer of ``vocab_model``."""
-    if cfg.n_experts or cfg.arch == "gpt-oss" or cfg.swa_window:
+    if cfg.n_experts or cfg.arch == "gpt-oss" or cfg.swa_window or cfg.is_recurrent \
+            or cfg.is_hybrid:
         raise NotImplementedError(f"{cfg.arch} export waits for ROADMAP A10")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path)

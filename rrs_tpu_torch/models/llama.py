@@ -257,9 +257,10 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     if cfg.qk_norm and not cfg.qk_norm_full:
         q = rms_norm(q, lw.q_norm, cfg.rms_eps)
         k = rms_norm(k, lw.k_norm, cfg.rms_eps)
-    rp = rope_params(cfg, swa=swa)
-    q = apply_rope(q, positions, rp, freq_factors=rope_factors)
-    k = apply_rope(k, positions, rp, freq_factors=rope_factors)
+    if not cfg.no_rope:                       # jamba's attention layers take none
+        rp = rope_params(cfg, swa=swa)
+        q = apply_rope(q, positions, rp, freq_factors=rope_factors)
+        k = apply_rope(k, positions, rp, freq_factors=rope_factors)
     s_l = (k_cache[0] if isinstance(k_cache, tuple) else k_cache).shape[2]
     starts = _layer_starts(slots, s_l, t, ring=window > 0)
     _store_cache(k_cache, k.transpose(1, 2), starts)

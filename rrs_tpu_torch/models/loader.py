@@ -37,8 +37,15 @@ pre-fused ``attn_qkv`` (with its bias) fills the fused qkv slot, a lone
 factors. A llama / mistral / qwen file whose layers carry ``ffn_gate_inp``
 loads them as MoE layers.
 
-Recurrent layers (``ssm_in``, ``time_mix_key``: ROADMAP A9b) raise
-NotImplementedError.
+The recurrent families load as ``_load_mamba`` / ``_load_rwkv6`` /
+``_load_hybrid`` of the JAX loader, chosen as it chooses them (hybrid, then
+RWKV6, then Mamba): the same tensor names, the conv taps transposed to
+[d_conv, d_inner], ``ssm_a`` / ``ssm_d`` with or without their ``.weight``
+suffix, dt / B / C norms where a layer has them; RWKV6's LoRA factors
+transposed to x @ w, its lerps flattened (``time_mix_lerp_fused``, or the
+five ``time_mix_lerp_{w,k,v,r,g}``) and its norms f32; a jamba layer is a
+Mamba layer when it has ``ssm_in`` and attention otherwise, its FFN dense or
+MoE. Their linears stay unfused, as the JAX loader keeps them.
 """
 
 from __future__ import annotations
@@ -63,9 +70,6 @@ from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
 from rrs_tpu_torch.models.moe import MoEWeights
 from rrs_tpu_torch.ops.mxfp4_matmul import pack_mxfp4_device
 from rrs_tpu_torch.tools.gguf_split import SPLIT_RE, MultiGGUF
-
-_NOT_PORTED = ("ssm_in", "time_mix_key")
-
 
 def _f32(g: GGUFFile, name: str) -> np.ndarray:
     """A writable f32 copy (the reader hands out read-only mmap views)."""
@@ -220,11 +224,12 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
             import dataclasses
 
             cfg = dataclasses.replace(cfg, vocab_size=g.tensors["token_embd.weight"].shape[0])
-        for tname in g.tensors:
-            parts = tname.split(".")
-            if any(part in parts for part in _NOT_PORTED):
-                raise NotImplementedError(f"tensor {tname}: recurrent layers wait for ROADMAP A9b "
-                                          "in rrs_tpu_torch")
+        if cfg.is_hybrid:
+            return _load_hybrid(g, cfg, dev, dtype)
+        if cfg.rwkv_head_size > 0:
+            return _load_rwkv6(g, cfg, dev, dtype)
+        if cfg.is_recurrent:
+            return _load_mamba(g, cfg, dev, dtype)
         if any(t.endswith("ffn_gate_inp_shexp.weight") for t in g.tensors):
             warnings.warn(f"{path}: ffn_gate_inp_shexp (the shared expert's gate) is ignored and "
                           "the shared expert is added ungated, as the JAX package does; the "
@@ -317,6 +322,125 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
     finally:
         g.close()
     return cfg, weights, md
+
+
+def _embed_and_head(g: GGUFFile, device, dtype):
+    """A recurrent model's bf16 embedding and its head: ``output.weight``,
+    or the tied transposed embedding."""
+    embed = torch.from_numpy(_f32(g, "token_embd.weight")).to(device=device, dtype=dtype)
+    if "output.weight" in g.tensors:
+        return embed, _linear(g, "output.weight", device, dtype)
+    return embed, DenseLinear(w=embed.t())
+
+
+def _mamba_layer(g: GGUFFile, p: str, device, dtype):
+    """One Mamba layer of prefix ``p``."""
+    from rrs_tpu_torch.models.mamba import MambaLayer
+
+    def f32(name):
+        t = f"{p}.{name}.weight" if f"{p}.{name}.weight" in g.tensors else f"{p}.{name}"
+        return torch.from_numpy(_f32(g, t)).to(device)
+
+    def norm(name):
+        t = f"{p}.{name}.weight"
+        return _norm(g, t, device, dtype) if t in g.tensors else None
+
+    return MambaLayer(
+        norm=_norm(g, f"{p}.attn_norm.weight", device, dtype),
+        w_in=_linear(g, f"{p}.ssm_in.weight", device, dtype),
+        conv_w=f32("ssm_conv1d").t().contiguous(),              # -> [d_conv, d_inner]
+        conv_b=torch.from_numpy(_f32(g, f"{p}.ssm_conv1d.bias")).to(device),
+        w_x=_linear(g, f"{p}.ssm_x.weight", device, dtype),
+        w_dt=_linear(g, f"{p}.ssm_dt.weight", device, dtype),
+        dt_bias=torch.from_numpy(_f32(g, f"{p}.ssm_dt.bias")).to(device),
+        A=f32("ssm_a"), D=f32("ssm_d"),
+        w_out=_linear(g, f"{p}.ssm_out.weight", device, dtype),
+        dt_norm=norm("ssm_dt_norm"), b_norm=norm("ssm_b_norm"), c_norm=norm("ssm_c_norm"))
+
+
+def _load_mamba(g: GGUFFile, cfg: ModelConfig, device, dtype):
+    from rrs_tpu_torch.models.mamba import MambaWeights
+
+    layers = [_mamba_layer(g, f"blk.{i}", device, dtype) for i in range(cfg.n_layers)]
+    embed, head = _embed_and_head(g, device, dtype)
+    return cfg, MambaWeights(embed=embed, layers=layers,
+                             final_norm=_norm(g, "output_norm.weight", device, dtype),
+                             lm_head=head), dict(g.metadata)
+
+
+def _load_rwkv6(g: GGUFFile, cfg: ModelConfig, device, dtype):
+    """RWKV6 tensors (numpy shapes, the GGUF ne order reversed)."""
+    from rrs_tpu_torch.models.rwkv6 import Rwkv6Layer, Rwkv6Weights
+
+    e = cfg.n_embd
+
+    def f32(name, transform=lambda a: a):
+        return torch.from_numpy(np.ascontiguousarray(transform(_f32(g, name)))).to(device)
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}"
+        if f"{p}.time_mix_lerp_fused.weight" in g.tensors:
+            fused = f32(f"{p}.time_mix_lerp_fused.weight", lambda a: a.reshape(5, e))
+        else:
+            fused = torch.stack([f32(f"{p}.time_mix_lerp_{n}.weight", lambda a: a.reshape(e))
+                                 for n in ("w", "k", "v", "r", "g")])
+        flat = lambda a: a.reshape(e)          # noqa: E731
+        lin = lambda n: _linear(g, f"{p}.{n}.weight", device, dtype)   # noqa: E731
+        layers.append(Rwkv6Layer(
+            ln1_w=f32(f"{p}.attn_norm.weight"), ln1_b=f32(f"{p}.attn_norm.bias"),
+            ln2_w=f32(f"{p}.attn_norm_2.weight"), ln2_b=f32(f"{p}.attn_norm_2.bias"),
+            tm_w1=f32(f"{p}.time_mix_w1.weight", np.transpose),
+            tm_w2=f32(f"{p}.time_mix_w2.weight", lambda a: a.transpose(0, 2, 1)),
+            tm_lerp_x=f32(f"{p}.time_mix_lerp_x.weight", flat), tm_lerp_fused=fused,
+            tm_first=f32(f"{p}.time_mix_first.weight"),
+            tm_decay=f32(f"{p}.time_mix_decay.weight", flat),
+            tm_decay_w1=f32(f"{p}.time_mix_decay_w1.weight", np.transpose),
+            tm_decay_w2=f32(f"{p}.time_mix_decay_w2.weight", np.transpose),
+            w_key=lin("time_mix_key"), w_value=lin("time_mix_value"),
+            w_recept=lin("time_mix_receptance"), w_gate=lin("time_mix_gate"),
+            w_out=lin("time_mix_output"),
+            tm_ln_w=f32(f"{p}.time_mix_ln.weight"), tm_ln_b=f32(f"{p}.time_mix_ln.bias"),
+            cm_lerp_k=f32(f"{p}.channel_mix_lerp_k.weight", flat),
+            cm_lerp_r=f32(f"{p}.channel_mix_lerp_r.weight", flat),
+            cm_key=lin("channel_mix_key"), cm_value=lin("channel_mix_value"),
+            cm_recept=lin("channel_mix_receptance")))
+    embed, head = _embed_and_head(g, device, dtype)
+    return cfg, Rwkv6Weights(
+        embed=embed, tok_norm_w=f32("token_embd_norm.weight"),
+        tok_norm_b=f32("token_embd_norm.bias"), layers=layers,
+        final_norm_w=f32("output_norm.weight"), final_norm_b=f32("output_norm.bias"),
+        lm_head=head), dict(g.metadata)
+
+
+def _load_hybrid(g: GGUFFile, cfg: ModelConfig, device, dtype):
+    """jamba: a Mamba layer where ``ssm_in`` is present, else attention
+    (unfused q / k / v / o, no q / k norms); then a dense FFN or MoE."""
+    from rrs_tpu_torch.models.hybrid import HybridLayer, HybridWeights
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}"
+        lin = lambda n: _linear(g, f"{p}.{n}.weight", device, dtype)   # noqa: E731
+        attn = ssm = None
+        if f"{p}.ssm_in.weight" in g.tensors:
+            ssm = _mamba_layer(g, p, device, dtype)
+        else:
+            attn = LayerWeights(attn_norm=_norm(g, f"{p}.attn_norm.weight", device, dtype),
+                                wq=lin("attn_q"), wk=lin("attn_k"), wv=lin("attn_v"),
+                                wo=lin("attn_output"), q_norm=None, k_norm=None, ffn_norm=None,
+                                w_gate=None, w_up=None, w_down=None)
+        moe = (_load_moe(g, p, device, dtype) if f"{p}.ffn_gate_inp.weight" in g.tensors
+               else None)
+        layers.append(HybridLayer(
+            kind="ssm" if ssm is not None else "attn", attn=attn, ssm=ssm,
+            ffn_norm=_norm(g, f"{p}.ffn_norm.weight", device, dtype),
+            w_gate=None if moe else lin("ffn_gate"), w_up=None if moe else lin("ffn_up"),
+            w_down=None if moe else lin("ffn_down"), moe=moe))
+    embed, head = _embed_and_head(g, device, dtype)
+    return cfg, HybridWeights(embed=embed, layers=layers,
+                              final_norm=_norm(g, "output_norm.weight", device, dtype),
+                              lm_head=head), dict(g.metadata)
 
 
 def parse_kv_overrides(specs) -> dict:

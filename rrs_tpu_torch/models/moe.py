@@ -214,7 +214,9 @@ def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_exper
 def _packed_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv) -> torch.Tensor:
     """The MXFP4 and TCQ4 branches: f32 [T, n_embd]."""
     n_tok, e = x2.shape
-    fe, kk = cfg.n_ff_exp, cfg.n_experts_used
+    # a jamba file carries no expert_feed_forward_length: its experts are
+    # n_ff wide (the JAX package slices them to 0 there; ROADMAP queue C)
+    fe, kk = cfg.n_ff_exp or cfg.n_ff, cfg.n_experts_used
     n_exp = mw.gate_qs.shape[0]
     mx = mw.quant_kind == "mxfp4"
     if mx:

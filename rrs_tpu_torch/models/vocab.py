@@ -1,15 +1,19 @@
-"""Tokenizers: SPM (sentencepiece-style) and byte-level BPE, from GGUF vocab.
+"""Tokenizers: SPM (sentencepiece-style), byte-level BPE and the RWKV world
+tokenizer, from GGUF vocab.
 
-Host code copied from ``rrs_tpu/models/vocab.py`` for the two models this
-slice serves (``llama`` SPM and ``gpt2`` BPE), with the native BPE merge loop
-of ``rrs_tpu_torch.native`` where it builds, and the grammar slice's
-``pieces`` and ``token_trie``; other tokenizer models raise
-NotImplementedError. Behaviour of src/llama-vocab.cpp:
+Host code copied from ``rrs_tpu/models/vocab.py`` for the models the port
+serves (``llama`` SPM, ``gpt2`` BPE and ``rwkv``), with the native BPE merge
+loop of ``rrs_tpu_torch.native`` where it builds, and the grammar slice's
+``pieces`` and ``token_trie``; other tokenizer models (``bert``, ``t5`` /
+``unigram``, ``plamo2``: ROADMAP A10) raise NotImplementedError. Behaviour
+of src/llama-vocab.cpp:
   * SPM (llm_tokenizer_spm): utf-8 symbols, best-score bigram merging with a
     priority queue, byte fallback <0xXX>, space -> U+2581 escaping.
   * BPE (llm_tokenizer_bpe): per-model pretokenizer regex (tokenizer.ggml.pre),
     GPT-2 byte-to-unicode mapping, lowest-rank pair merging from
     tokenizer.ggml.merges.
+  * RWKV (llm_tokenizer_rwkv): greedy longest match on the raw token
+    strings; decoding joins them as text.
   * Special-token partitioning before either algorithm (tokenizer_st_partition).
 """
 
@@ -285,6 +289,8 @@ class Vocab:
                 out.extend(self._encode_spm(raw))
             elif self.model == "gpt2":
                 out.extend(self._encode_bpe(frag))
+            elif self.model == "rwkv":
+                out.extend(self._encode_rwkv(frag))
             else:
                 raise NotImplementedError(
                     f"tokenizer model {self.model!r} is not ported to rrs_tpu_torch")
@@ -292,6 +298,31 @@ class Vocab:
 
         if add_special and self.add_eos and self.eos_id >= 0:
             out.append(self.eos_id)
+        return out
+
+    def _encode_rwkv(self, text: str) -> list[int]:
+        """RWKV world tokenizer (llm_tokenizer_rwkv): greedy longest match
+        against the raw token strings; an unmatched character is the unknown
+        token (or nothing without one)."""
+        if not hasattr(self, "_rwkv_maxlen"):
+            self._rwkv_maxlen = max((len(t) for t in self.tokens if t), default=1)
+        out: list[int] = []
+        i, n = 0, len(text)
+        while i < n:
+            end = min(n, i + self._rwkv_maxlen)
+            tid = None
+            while end > i:
+                tid = self._token_to_id.get(text[i:end])
+                if tid is not None:
+                    break
+                end -= 1
+            if tid is None:
+                if self.unk_id >= 0:
+                    out.append(self.unk_id)
+                i += 1
+            else:
+                out.append(tid)
+                i = end
         return out
 
     def _split_specials(self, text: str, parse_special: bool = True):

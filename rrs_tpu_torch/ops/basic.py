@@ -1,6 +1,6 @@
 """Normalization and positional ops: plain PyTorch.
 
-Port of ``rrs_tpu/ops/basic.py`` (``rms_norm``, ``RopeParams``,
+Port of ``rrs_tpu/ops/basic.py`` (``rms_norm``, ``layer_norm``, ``RopeParams``,
 ``rope_frequencies``, ``apply_rope``, ``_rotate``). None of these is a TPU
 kernel: XLA fused them there. They compute in f32 and cast back to the
 input dtype at the same places as the JAX package.
@@ -32,13 +32,32 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 accumulation, cast back to x's dtype."""
+def rms_norm(x: torch.Tensor, weight, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 accumulation, cast back to x's dtype; ``weight``
+    None is the weightless norm (falcon-mamba's dt / B / C)."""
     dt = x.dtype
     x = x.to(torch.float32)
     var = (x * x).mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)).to(dt)
+    if weight is not None:
+        x = x * weight.to(torch.float32)
+    return x.to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight=None, bias=None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 accumulation, cast back to x's dtype; without
+    ``weight`` / ``bias`` it is the bare normalization (RWKV6's per-head
+    group norm)."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(dt)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,9 @@ the handle; a chained run starts from the previous handle's device outputs.
 A run may carry a grammar's token DFA (``dfa=``): each step masks the
 lane's illegal tokens and steps the lane's DFA state on the device.
 ``embed`` pools the final hidden states of a standalone forward. The mesh
-and the multimodal prefill wait for their slices.
+and the multimodal prefill wait for their slices. ``ContextBase`` holds what
+this context shares with the recurrent and hybrid ones (the device check,
+sequence ids, perf counters, the host penalty window, ``generate``).
 """
 
 from __future__ import annotations
@@ -48,26 +50,21 @@ def _bucket(n: int) -> int:
     return PREFILL_BUCKETS[-1]
 
 
-class InferenceContext:
-    """Single-model inference context over a fixed-lane KV cache."""
+class ContextBase:
+    """What every context shares (this one, and the recurrent and hybrid
+    ones of ``runtime/recurrent.py`` / ``runtime/hybrid.py``): the device
+    check, sequence ids, the perf counters, the host penalty window and
+    ``generate``. A subclass sets ``self.kv``."""
 
-    def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights,
-                 n_lanes: int = 1, max_seq: int = 2048, kv_dtype=torch.bfloat16,
-                 kv_quant: str = "none", device=None):
+    def __init__(self, cfg: ModelConfig, weights, device=None):
         """``device``: where the step runs; ``None`` means ``cuda``, which
-        raises when there is no GPU. The weights must already live there.
-        ``kv_quant``: "none" (``kv_dtype`` caches), "q8" or "q4"."""
+        raises when there is no GPU. The weights must already live there."""
         self.device = resolve_device(device)
         if weights.device.type != self.device.type:
             raise ValueError(f"weights are on {weights.device}, context on {self.device}")
         set_matmul_precision()
         self.cfg = cfg
         self.weights = weights
-        # a ring must cover the largest chunk: models with sliding layers
-        # cap it at 512 so that their rings stay window + 512 slots
-        self.max_chunk = min(512 if cfg.any_swa else PREFILL_BUCKETS[-1], max_seq)
-        self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
-                                 quant=kv_quant, max_chunk=self.max_chunk)
         self._next_seq_id = 0
         # perf counters (llama_perf_context analog)
         self.n_prefill_tokens = 0
@@ -91,6 +88,75 @@ class InferenceContext:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the context's device without waiting for
+        the device: pinned memory and an asynchronous copy on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def new_sequence(self) -> int:
+        seq_id = self._next_seq_id
+        self._next_seq_id += 1
+        self.kv.seq_new(seq_id)
+        return seq_id
+
+    @staticmethod
+    def _penalties_active(p) -> bool:
+        # penalty_last_n == 0 disables penalties outright
+        return (p.penalty_last_n != 0
+                and (p.penalty_repeat != 1.0 or p.penalty_freq != 0.0
+                     or p.penalty_present != 0.0))
+
+    @staticmethod
+    def _pen_window(hist, last_n: int):
+        """penalty_last_n sentinels: 0 is an empty window, < 0 the whole
+        history."""
+        if last_n == 0:
+            return []
+        if last_n < 0:
+            return hist
+        return hist[-last_n:]
+
+    def generate(self, prompt: list[int], max_new_tokens: int,
+                 params: Optional[SamplerParams] = None,
+                 stop_tokens: tuple[int, ...] = ()) -> list[int]:
+        """Single-sequence generation: prefill, then one host sample and one
+        decode step per token. The draws come from a CPU ``torch.Generator``
+        seeded with ``params.seed``."""
+        params = params or SamplerParams(temperature=0.0)
+        gen = torch.Generator().manual_seed(params.seed)
+        seq = self.new_sequence()
+        try:
+            last = self.prefill(seq, prompt)[-1:]
+            out = []
+            for _ in range(max_new_tokens):
+                token = int(sample(last, gen, params)[0])
+                if token in stop_tokens:
+                    break
+                out.append(token)
+                last = self.decode({seq: token})[seq][None, :]
+        finally:
+            self.kv.seq_rm(seq)
+        return out
+
+
+class InferenceContext(ContextBase):
+    """Single-model inference context over a fixed-lane KV cache."""
+
+    def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights,
+                 n_lanes: int = 1, max_seq: int = 2048, kv_dtype=torch.bfloat16,
+                 kv_quant: str = "none", device=None):
+        """``device``: as ``ContextBase`` takes it. ``kv_quant``: "none"
+        (``kv_dtype`` caches), "q8" or "q4"."""
+        super().__init__(cfg, weights, device)
+        # a ring must cover the largest chunk: models with sliding layers
+        # cap it at 512 so that their rings stay window + 512 slots
+        self.max_chunk = min(512 if cfg.any_swa else PREFILL_BUCKETS[-1], max_seq)
+        self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
+                                 quant=kv_quant, max_chunk=self.max_chunk)
 
     @staticmethod
     def _step(cfg, weights, kv: KVCache, tokens: np.ndarray, start_pos: np.ndarray,
@@ -117,20 +183,6 @@ class InferenceContext:
              last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
         return self._step(self.cfg, self.weights, self.kv, tokens_np, start_pos_np,
                           last_only=last_only, last_idx=last_idx)
-
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A small host array on the context's device without waiting for
-        the device: pinned memory and an asynchronous copy on the card."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    def new_sequence(self) -> int:
-        seq_id = self._next_seq_id
-        self._next_seq_id += 1
-        self.kv.seq_new(seq_id)
-        return seq_id
 
     @torch.inference_mode()
     def prefill(self, seq_id: int, tokens: list[int], all_logits: bool = True) -> torch.Tensor:
@@ -425,23 +477,6 @@ class InferenceContext:
         return (lanes, start, self._upload(tok), gens, ops, self._upload(mu),
                 self._upload(dwin))
 
-    @staticmethod
-    def _penalties_active(p) -> bool:
-        # penalty_last_n == 0 disables penalties outright
-        return (p.penalty_last_n != 0
-                and (p.penalty_repeat != 1.0 or p.penalty_freq != 0.0
-                     or p.penalty_present != 0.0))
-
-    @staticmethod
-    def _pen_window(hist, last_n: int):
-        """penalty_last_n sentinels: 0 is an empty window, < 0 the whole
-        history."""
-        if last_n == 0:
-            return []
-        if last_n < 0:
-            return hist
-        return hist[-last_n:]
-
     def _penalty_operands(self, lanes, params, histories):
         """[B] rep / frq / prs and [B, V] counts / bias of a fresh run. The
         all-identity case reuses cached device tensors (the run never writes
@@ -519,25 +554,3 @@ class InferenceContext:
         hs = rms_norm(x, w.final_norm, cfg.rms_eps)[0].to(torch.float32)
         vec = hs[-1] if pooling == "last" else hs.mean(dim=0)
         return vec.cpu().numpy()
-
-    def generate(self, prompt: list[int], max_new_tokens: int,
-                 params: Optional[SamplerParams] = None,
-                 stop_tokens: tuple[int, ...] = ()) -> list[int]:
-        """Single-sequence generation: prefill, then one host sample and one
-        decode step per token. The draws come from a CPU ``torch.Generator``
-        seeded with ``params.seed``."""
-        params = params or SamplerParams(temperature=0.0)
-        gen = torch.Generator().manual_seed(params.seed)
-        seq = self.new_sequence()
-        try:
-            last = self.prefill(seq, prompt)[-1:]
-            out = []
-            for _ in range(max_new_tokens):
-                token = int(sample(last, gen, params)[0])
-                if token in stop_tokens:
-                    break
-                out.append(token)
-                last = self.decode({seq: token})[seq][None, :]
-        finally:
-            self.kv.seq_rm(seq)
-        return out

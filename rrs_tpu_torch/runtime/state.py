@@ -15,6 +15,10 @@ dequantized and requantized on load, with NumPy on the host (the codec's
 mirror), so its codes come back as they were and a scale may move by an ulp.
 The file is written to exactly the path given (NumPy would append ``.npz``
 to a name without it).
+
+A recurrent or hybrid context's memory has no such file format: every entry
+raises NotImplementedError on it (the JAX package's fails there on the
+missing K/V layers; ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -104,6 +108,17 @@ def _store_host(c, index, data: np.ndarray) -> None:
         c.device, c.dtype)
 
 
+def _kv_of(ctx):
+    """The context's KV cache; a recurrent or hybrid memory raises."""
+    from rrs_tpu_torch.runtime.kv_cache import KVCache
+
+    if not isinstance(ctx.kv, KVCache):
+        raise NotImplementedError(
+            f"state save / restore of a {ctx.cfg.arch} context: a recurrent or hybrid memory "
+            "has no state file format (nor has the JAX package's)")
+    return ctx.kv
+
+
 def _write(path, meta: dict, arrays: dict) -> int:
     arrays = {"__meta__": np.frombuffer(json.dumps(meta).encode(), np.uint8), **arrays}
     path = Path(path)
@@ -114,7 +129,7 @@ def _write(path, meta: dict, arrays: dict) -> int:
 
 def save_state(ctx, path) -> int:
     """Serialize the full context (all lanes). Returns bytes written."""
-    kv = ctx.kv
+    kv = _kv_of(ctx)
     meta = {"magic": STATE_MAGIC, "version": STATE_VERSION,
             "fingerprint": _fingerprint(ctx.cfg), "lengths": kv.lengths,
             "seq_ids": kv.seq_ids, "max_seq": kv.max_seq}
@@ -127,7 +142,7 @@ def save_state(ctx, path) -> int:
 
 
 def load_state(ctx, path) -> None:
-    kv = ctx.kv
+    kv = _kv_of(ctx)
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         _check_header(meta, ctx.cfg)
@@ -145,7 +160,7 @@ def load_state(ctx, path) -> None:
 def save_sequence(ctx, seq_id: int, path, tokens=None) -> int:
     """Serialize one sequence's KV prefix (and its token history, if given).
     Returns bytes written."""
-    kv = ctx.kv
+    kv = _kv_of(ctx)
     lane = kv.lane_of(seq_id)
     n = kv.lengths[lane]
     meta = {"magic": STATE_MAGIC, "version": STATE_VERSION,
@@ -160,7 +175,7 @@ def save_sequence(ctx, seq_id: int, path, tokens=None) -> int:
 
 def load_sequence(ctx, path):
     """Restore a saved sequence into a fresh lane. Returns (seq_id, tokens)."""
-    kv = ctx.kv
+    kv = _kv_of(ctx)
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         _check_header(meta, ctx.cfg)

@@ -11,7 +11,12 @@ through the context's device-side runs of DECODE_RUN_STEPS tokens, chained
 so that run N+1 is enqueued before run N is read; slots the runs cannot
 serve take the per-token host sampler. A lane that reaches max_seq - 1 is
 context-shifted; on a model with sliding layers, which cannot shift, the
-slot finishes by length instead. Slot state (a slot's sequence, saved to or
+slot finishes by length instead. A recurrent or hybrid context
+(``runtime/recurrent.py``, ``runtime/hybrid.py``) cannot rewind, as in the
+JAX package: its prompt cache is reused only on a full-prefix match (any
+other restarts the sequence), it prefills one slot a step, decodes step by
+step with no draft, and finishes by length at the limit. Slot state (a
+slot's sequence, saved to or
 restored from a state file, or erased) is handled on the engine thread,
 between iterations, through ``call``.
 
@@ -175,8 +180,8 @@ class Engine:
 
     def __init__(self, ctx: InferenceContext, draft_ctx: Optional[InferenceContext] = None,
                  n_draft: int = 4):
-        """The engine serves on the context's device (``InferenceContext``
-        chooses ``cuda`` unless asked for the CPU, and raises without a GPU).
+        """The engine serves on the context's device (every context chooses
+        ``cuda`` unless asked for the CPU, and raises without a GPU).
         ``draft_ctx``: a draft model's context for server-side speculative
         decoding, engaged in a decode round where exactly one slot generates
         greedily with no grammar, penalties or logprobs; it proposes
@@ -339,8 +344,13 @@ class Engine:
             slot.retained_seq = -1
             kv.unmark_retained(slot.seq_id)
             if n_common > 0:
-                kv.seq_rm(slot.seq_id, p0=n_common)
-            else:
+                try:
+                    kv.seq_rm(slot.seq_id, p0=n_common)
+                except RuntimeError:
+                    # a recurrent or hybrid memory cannot rewind mid-sequence:
+                    # only a full-prefix match is reused; anything else restarts
+                    n_common = 0
+            if n_common == 0:
                 kv.seq_rm(slot.seq_id)
                 slot.seq_id = self.ctx.new_sequence()
             slot.prompt_pos = n_common
@@ -604,7 +614,12 @@ class Engine:
                         self._release(s, "length")
                         continue
                     n_keep = 1
-                    kv.seq_shift(self.ctx.cfg, s.seq_id, n_keep, max((n - n_keep) // 2, 1))
+                    try:
+                        kv.seq_shift(self.ctx.cfg, s.seq_id, n_keep, max((n - n_keep) // 2, 1))
+                    except RuntimeError:
+                        # nor over a recurrent or hybrid memory
+                        self._release(s, "length")
+                        continue
                     if s.draft_seq >= 0:
                         # the draft cache cannot follow the shift (its
                         # positions would diverge): drop it, and the slot
@@ -616,7 +631,10 @@ class Engine:
         # with a draft sequence prefills alone, the draft beside it)
         prompt_slots = [s for s in self.slots if s.state == SlotState.PROMPT]
         if prompt_slots:
-            batchable = [s for s in prompt_slots if s.draft_seq < 0]
+            # a context without prefill_multi (recurrent, hybrid) prefills one
+            # slot a step
+            batchable = [s for s in prompt_slots if s.draft_seq < 0] \
+                if hasattr(self.ctx, "prefill_multi") else []
             group = batchable if len(batchable) >= 2 else prompt_slots[:1]
             try:
                 if len(group) >= 2:
@@ -678,14 +696,16 @@ class Engine:
 
     def _spec_eligible(self, s: Slot) -> bool:
         """A speculative round suits the slot: a draft sequence, greedy, no
-        grammar, penalties, DRY, mirostat or logprobs, and room in both
-        caches for the n_draft + 1 tokens a round feeds before the next
-        context-shift check."""
+        grammar, penalties, DRY, mirostat or logprobs, a target memory that
+        can rewind (not recurrent or hybrid), and room in both caches for the
+        n_draft + 1 tokens a round feeds before the next context-shift
+        check."""
         p = s.req.params
         if not (self.draft_ctx is not None and s.draft_seq >= 0 and p.temperature == 0.0
                 and s.grammar is None and s.req.n_probs == 0 and p.penalty_repeat == 1.0
                 and not p.penalty_freq and not p.penalty_present and not p.dry_multiplier
-                and not p.mirostat):
+                and not p.mirostat and not self.ctx.cfg.is_recurrent
+                and not self.ctx.cfg.is_hybrid):
             return False
         kv, dkv = self.ctx.kv, self.draft_ctx.kv
         return (kv.lengths[kv.lane_of(s.seq_id)] + self.n_draft + 1 <= kv.max_seq
@@ -737,7 +757,10 @@ class Engine:
         penalties with a window shorter than 2n cannot slide it for chained
         runs; a grammar slot needs its pieces (to be validated at flush);
         infill and draft slots take their own paths; the lane needs room for
-        the whole run below the shift trigger."""
+        the whole run below the shift trigger. A context without a device
+        decode run (recurrent, hybrid) decodes step by step."""
+        if not hasattr(self.ctx, "decode_run_start"):
+            return False
         p = s.req.params
         n = self.ctx.DECODE_RUN_STEPS
         kv = self.ctx.kv

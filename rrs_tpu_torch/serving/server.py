@@ -71,11 +71,11 @@ class ModelHandle:
         if self.state is None:
             from rrs_tpu_torch.models.loader import load_model
             from rrs_tpu_torch.models.vocab import Vocab
-            from rrs_tpu_torch.runtime.context import InferenceContext
+            from rrs_tpu_torch.runtime.recurrent import make_context
 
             cfg, weights, md = load_model(self.path, device=self.device)
-            ctx = InferenceContext(cfg, weights, n_lanes=self.n_lanes, max_seq=self.max_seq,
-                                   kv_quant=self.kv_quant, device=self.device)
+            ctx = make_context(cfg, weights, n_lanes=self.n_lanes, max_seq=self.max_seq,
+                               kv_quant=self.kv_quant, device=self.device)
             engine = Engine(ctx)
             engine.start()
             self.state = ServerState(cfg, Vocab.from_gguf(md), engine, md, self.name)
@@ -716,18 +716,18 @@ def serve(args):
     start the engine and serve HTTP until interrupted."""
     from rrs_tpu_torch.models.loader import load_model, parse_kv_overrides
     from rrs_tpu_torch.models.vocab import Vocab
-    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.recurrent import make_context
 
     cfg, weights, md = load_model(args.model, device=args.device,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
-    ctx = InferenceContext(cfg, weights, n_lanes=args.parallel, max_seq=args.ctx,
-                           kv_quant=args.cache_type, device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=args.parallel, max_seq=args.ctx,
+                       kv_quant=args.cache_type, device=args.device)
     draft_ctx = None
     if args.model_draft:
         dcfg, dweights, _ = load_model(args.model_draft, device=args.device)
-        draft_ctx = InferenceContext(dcfg, dweights, n_lanes=args.parallel, max_seq=args.ctx,
-                                     device=args.device)
+        draft_ctx = make_context(dcfg, dweights, n_lanes=args.parallel, max_seq=args.ctx,
+                                 device=args.device)
         print(f"speculative decoding with draft {args.model_draft}", flush=True)
     engine = Engine(ctx, draft_ctx=draft_ctx, n_draft=args.draft)
     engine.start()

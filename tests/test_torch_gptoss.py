@@ -329,10 +329,11 @@ def test_server_answers_gpt_oss_on_cpu(oss_gguf):
 
 def test_next_slice_archs_raise():
     """A qwen3 file with MoE layers reads as JAX reads it (MoE layers in a
-    dense architecture, which raised here, are ported); the recurrent
-    architectures wait for ROADMAP A9b; qwen3 with a window slides every
-    layer. (qwen2moe, which raised here, is ported: its config is checked in
-    tests/test_torch_qwen2moe.py.)"""
+    dense architecture, which raised here, are ported); the multimodal
+    qwen2vl waits for ROADMAP A11 (the recurrent architectures, which raised
+    here naming A9b, are ported: tests/test_torch_rwkv.py checks rwkv6's
+    config); qwen3 with a window slides every layer. (qwen2moe, which raised
+    here, is ported: its config is checked in tests/test_torch_qwen2moe.py.)"""
     from rrs_tpu.models.config import ModelConfig as JaxConfig
 
     from test_torch_common import torch_cfg
@@ -341,9 +342,9 @@ def test_next_slice_archs_raise():
           "qwen3.embedding_length": 64, "qwen3.expert_count": 8}
     cfg = ModelConfig.from_gguf(md)
     assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.n_experts == 8
-    md = {"general.architecture": "rwkv6", "rwkv6.block_count": 2,
-          "rwkv6.embedding_length": 64}
-    with pytest.raises(NotImplementedError, match="A9b"):
+    md = {"general.architecture": "qwen2vl", "qwen2vl.block_count": 2,
+          "qwen2vl.embedding_length": 64}
+    with pytest.raises(NotImplementedError, match="A11"):
         ModelConfig.from_gguf(md)
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2, "qwen3.embedding_length": 64,
           "qwen3.attention.head_count": 4, "qwen3.attention.sliding_window": 32}

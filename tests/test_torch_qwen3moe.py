@@ -101,8 +101,10 @@ def test_from_gguf_matches_jax(extra):
 def test_qwen2moe_and_dense_moe_raise():
     """A llama file with MoE layers (Mixtral-style) reads as JAX reads it: an
     MoE layer in a dense architecture, which raised here, is ported (its
-    forward is held in tests/test_torch_families.py). A mamba file still
-    raises, naming ROADMAP A9b. (qwen2moe, which raised here, is ported: its
+    forward is held in tests/test_torch_families.py). A mamba file, which
+    raised here naming ROADMAP A9b, reads as JAX reads it (its forward is
+    held in tests/test_torch_recurrent.py); the multimodal qwen2vl still
+    raises, naming ROADMAP A11. (qwen2moe, which raised here, is ported: its
     config is checked in tests/test_torch_qwen2moe.py.)"""
     from rrs_tpu.models.config import ModelConfig as JaxConfig
 
@@ -111,7 +113,11 @@ def test_qwen2moe_and_dense_moe_raise():
     cfg = ModelConfig.from_gguf(md)
     assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.n_experts == 8
     md = {"general.architecture": "mamba", "mamba.block_count": 2, "mamba.embedding_length": 64}
-    with pytest.raises(NotImplementedError, match="A9b"):
+    cfg = ModelConfig.from_gguf(md)
+    assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.is_recurrent
+    md = {"general.architecture": "qwen2vl", "qwen2vl.block_count": 2,
+          "qwen2vl.embedding_length": 64}
+    with pytest.raises(NotImplementedError, match="A11"):
         ModelConfig.from_gguf(md)
 
 
