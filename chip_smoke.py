@@ -137,7 +137,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
    (every launch held to its plain version, the drift reported); ``generate``
-   at full width, cut to 24 of its 48 layers (fabricated weights, the config
+   at full width, cut to 12 of its 48 layers (fabricated weights, the config
    from ``ModelConfig.from_gguf`` on the published metadata) with prompts that
    reach the rows, capacity and scan branches, a capacity prefill run twice
    and held bit-equal, a decode profile, a one-lane 40-token prefill step
@@ -166,7 +166,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    metadata): a 2-layer qwen2moe model at reduced widths on the card
    against the CPU, with dense experts (logits within GLUE_TOL) and TCQ4
    experts (every launch held to plain, drift reported), both with the
-   dense shared expert; ``generate`` at the published widths, cut to 14 of
+   dense shared expert; ``generate`` at the published widths, cut to 7 of
    its 28 layers (fabricated TCQ4 attention and experts, dense bf16 shared
    experts, Q8_0 lm_head) over prompts that take the rows, capacity and
    scan branches, with launch counts; on the same 14 layers, teacher-forced
@@ -202,7 +202,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    against the CPU with dense weights (logits within GLUE_TOL, the states
    after prefill reported) and with TCQ4 weights (every launch held to its
    plain version, the drift reported); Falcon-Mamba-7B at its published
-   widths, cut to 32 of its 64 layers (fabricated TCQ4 linears with their
+   widths, cut to 16 of its 64 layers (fabricated TCQ4 linears with their
    i8p packs: ssm_x at N = 288, ssm_dt at K = 256; a Q8_0 head):
    ``generate`` over 5-,
    40- and 300-token prompts x 32 with launch counts, a held 128-token
@@ -211,18 +211,37 @@ it; exits non-zero without either, and on any failed phase. Phases:
    chunk beside a loop over T), the server over a 4-lane context (ctx
    4,096; four 300 / 1,000-token requests prefilled at M = 4 x 128, B5; a
    full-prefix prompt-cache reuse and a mismatch that restarts) and one
-   held 4-lane prefill step; RWKV-6 7B cut to 16 of 32 layers: ``generate``, a
+   held 4-lane prefill step; RWKV-6 7B cut to 8 of 32 layers: ``generate``, a
    held chunk and decode step (B4 at M = 1 for K = 14,336), a decode
    profile with wkv6's share, and its share of a chunk; Jamba-v0.1 cut to 8
    of its 32 layers (one period): ``generate``, a held chunk and decode
    step (B3, B9, B1 / B4), a decode profile with the scan's share;
-17. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+17. the tool suite at Qwen3-4B's published widths cut to 2 of its 36
+   layers, each verb a process of its own: an HF-format directory
+   (``config.json``, one BF16 ``model.safetensors`` drawn from a seed and
+   written by the port's safetensors writer, a ``tokenizer.json``) through
+   ``convert-hf --outtype f16`` and ``quantize`` (TCQ4); ``tokenize`` on both
+   files equal to the port's ids; a rank-16 LoRA adapter on the seven
+   projections of both layers: attached to the unfused F16 weights on the
+   card against the ``export-lora`` merged file and against the CPU port
+   (GLUE_TOL), then attached to the unfused TCQ4 weights for a
+   teacher-forced 512-token prefill (B5 + delta), a 40-token prefill (B4 +
+   delta) and a decode step (B1 + delta), every launch held to its plain
+   version, the adapter's effect and a decode step's time with and without
+   it reported; control vectors on the F16 file, the card's directions
+   within GLUE_TOL of the CPU port's, the GGUF read back equal, a steered
+   forward card vs CPU (GLUE_TOL); the ``cvector`` verb on the TCQ4 file;
+   ``quantize-stats`` on the card (B4) and at ``--device cpu`` over the TCQ4
+   file's four smallest projections (the k / v of both layers), the TCQ4
+   matvec errors within B4's tolerance of each other; ``fit-params --hbm-gib 80`` beside the card's
+   allocation for the same file;
+18. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14, 15 and 16 also carry ``launches_server_rest`` /
+   phases 10, 13, 14, 15, 16 and 17 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
    ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
-   (with ``launches_gemma3_q8``) and ``launches_falcon_mamba`` /
-   ``launches_rwkv6`` / ``launches_jamba``),
+   (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
+   ``launches_rwkv6`` / ``launches_jamba`` and ``launches_tools``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -3259,9 +3278,11 @@ def capacity_repeat(ctx, prompt, label):
 # -- Qwen3-30B-A3B ---------------------------------------------------------------
 
 # the layers of Qwen3-30B-A3B's and Qwen2-57B-A14B's full-width runs (48
-# and 28 published): cut so that the script fits its time limit
-QWEN3MOE_LAYERS = 24
-QWEN2MOE_LAYERS = 14
+# and 28 published): cut so that the script fits its time limit (24 and 14
+# until phase 17 came; the script then took 953 s without it on an H100
+# 80GB HBM3 at 700 W)
+QWEN3MOE_LAYERS = 12
+QWEN2MOE_LAYERS = 7
 # The GGUF metadata of Qwen3-30B-A3B as its published config.json gives it
 # (Hugging Face Qwen/Qwen3-30B-A3B; llama.cpp's converter writes these keys)
 QWEN3_30B_A3B_GGUF = {
@@ -5084,12 +5105,13 @@ def phase_gemma3(reports):
 # The GGUF metadata of Falcon-Mamba-7B as its published config.json gives it
 # (Hugging Face tiiuae/falcon-mamba-7b: hidden 4,096, 64 layers, expand 2,
 # d_state 16, d_conv 4, time_step_rank 256, vocab 65,024, the weightless
-# dt / B / C norms; llama.cpp's converter writes these keys), cut to 32 of
-# its 64 layers and RWKV-6 7B to 16 of 32 below, so that the script keeps to
+# dt / B / C norms; llama.cpp's converter writes these keys), cut to 16 of
+# its 64 layers and RWKV-6 7B to 8 of 32 below, so that the script keeps to
 # its time limit on a slow host (with both whole it took 1,118 s on an
-# H100 80GB HBM3 at 700 W); widths as published
-FALCON_MAMBA_LAYERS = 32
-RWKV6_LAYERS = 16
+# H100 80GB HBM3 at 700 W; at 32 and 16 layers, before phase 17, 953 s);
+# widths as published
+FALCON_MAMBA_LAYERS = 16
+RWKV6_LAYERS = 8
 FALCON_MAMBA_7B_GGUF = {
     "general.architecture": "falcon_mamba", "falcon_mamba.block_count": FALCON_MAMBA_LAYERS,
     "falcon_mamba.context_length": 1048576, "falcon_mamba.embedding_length": 4096,
@@ -5485,7 +5507,7 @@ def serve_recurrent(cfg, weights, label, reports, expect_served):
 
 
 def phase_falcon_mamba(reports):
-    """Falcon-Mamba-7B at its published widths, cut to 32 of its 64 layers
+    """Falcon-Mamba-7B at its published widths, cut to 16 of its 64 layers
     (config from ``ModelConfig.from_gguf`` on its metadata; fabricated TCQ4
     linears with their i8p packs, a Q8_0 head): generate, a held chunk and decode step,
     a B = 1 decode profile with the conv's and the scan's shares (and the
@@ -5613,6 +5635,407 @@ def phase_recurrent(reports):
         print(f"  {name} took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# -- the tool suite: convert-hf, LoRA, control vectors, quantize-stats, fit-params -------
+
+TOOLS_SEED = 20
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_TARGETS = ("attn_q", "attn_k", "attn_v", "attn_output", "ffn_gate", "ffn_up", "ffn_down")
+CV_POSITIVE = ("the weather is lovely and the sun is warm today",
+               "what a wonderful kind and happy morning this is",
+               "we laughed and sang together in the bright garden",
+               "thank you so much, this gift is perfect")
+CV_NEGATIVE = ("the weather is awful and the rain is cold today",
+               "what a dreadful cruel and miserable morning this is",
+               "we argued and shouted at each other in the dark street",
+               "no thanks, this gift is useless")
+TOOLS_PROMPT = "the tool suite runs the port on the card: convert, adapt, steer, and count"
+
+
+def write_hf_qwen3(d, cfg, seed: int) -> int:
+    """An HF-format Qwen3 directory at ``cfg``'s widths: ``config.json``, one
+    ``model.safetensors`` of BF16 N(0, 0.05) weights drawn on the card from
+    ``seed`` (norms one) written by the port's writer, and a BPE
+    ``tokenizer.json`` of ``synthetic_vocab``'s tokens. Returns its bytes."""
+    import torch
+
+    from rrs_tpu_torch.tools.safetensors_io import save_safetensors
+
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+        "hidden_size": cfg.n_embd, "intermediate_size": cfg.n_ff,
+        "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+        "vocab_size": cfg.vocab_size, "max_position_embeddings": cfg.context_length,
+        "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+        "tie_word_embeddings": cfg.tie_embeddings, "torch_dtype": "bfloat16"}))
+    toks = synthetic_vocab(cfg.vocab_size).tokens
+    (d / "tokenizer.json").write_text(json.dumps({
+        "model": {"type": "BPE", "vocab": {t: i for i, t in enumerate(toks)}, "merges": []},
+        "added_tokens": []}))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16)
+
+    e, f = cfg.n_embd, cfg.n_ff
+    sd = {"model.embed_tokens.weight": rnd(cfg.vocab_size, e), "model.norm.weight": ones(e)}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(e),
+                   p + "post_attention_layernorm.weight": ones(e),
+                   p + "self_attn.q_proj.weight": rnd(cfg.n_q_dim, e),
+                   p + "self_attn.k_proj.weight": rnd(cfg.n_kv_dim, e),
+                   p + "self_attn.v_proj.weight": rnd(cfg.n_kv_dim, e),
+                   p + "self_attn.o_proj.weight": rnd(e, cfg.n_q_dim),
+                   p + "self_attn.q_norm.weight": ones(cfg.head_dim),
+                   p + "self_attn.k_norm.weight": ones(cfg.head_dim),
+                   p + "mlp.gate_proj.weight": rnd(f, e), p + "mlp.up_proj.weight": rnd(f, e),
+                   p + "mlp.down_proj.weight": rnd(e, f)})
+    save_safetensors(d / "model.safetensors", sd, metadata={"format": "pt"})
+    return sum(p.stat().st_size for p in d.iterdir())
+
+
+def write_lora(path, cfg, seed: int):
+    """A rank-LORA_RANK adapter (alpha LORA_ALPHA) on LORA_TARGETS of every
+    layer, N(0, 0.02) factors, written by the port's GGUF writer."""
+    import numpy as np
+
+    from rrs_tpu_torch.gguf.writer import GGUFWriter
+
+    rng = np.random.default_rng(seed)
+    shapes = {"attn_q": (cfg.n_q_dim, cfg.n_embd), "attn_k": (cfg.n_kv_dim, cfg.n_embd),
+              "attn_v": (cfg.n_kv_dim, cfg.n_embd), "attn_output": (cfg.n_embd, cfg.n_q_dim),
+              "ffn_gate": (cfg.n_ff, cfg.n_embd), "ffn_up": (cfg.n_ff, cfg.n_embd),
+              "ffn_down": (cfg.n_embd, cfg.n_ff)}
+    w = GGUFWriter(path)
+    w.add_string("general.architecture", cfg.arch)
+    w.add_string("general.type", "adapter")
+    w.add_string("adapter.type", "lora")
+    w.add_float32("adapter.lora.alpha", LORA_ALPHA)
+    for li in range(cfg.n_layers):
+        for t in LORA_TARGETS:
+            n, k = shapes[t]
+            w.add_tensor(f"blk.{li}.{t}.weight.lora_a",
+                         (rng.standard_normal((LORA_RANK, k)) * 0.02).astype(np.float32))
+            w.add_tensor(f"blk.{li}.{t}.weight.lora_b",
+                         (rng.standard_normal((n, LORA_RANK)) * 0.02).astype(np.float32))
+    return w.write()
+
+
+def _prefill_logits(cfg, weights, tokens, device, max_seq: int = 1024):
+    """One prefill of ``tokens`` in a fresh one-lane context; logits [T, V]
+    f32 on the host."""
+    import torch
+
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=max_seq, device=device)
+    out = ctx.prefill(ctx.new_sequence(), tokens).float().cpu()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+def _rel_t(got, ref) -> float:
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def _decode_ms(ctx, seq, steps: int = 8) -> float:
+    """Host-clock ms of one decode step (teacher-forced token 11), over
+    ``steps`` steps after one warm step, each ending in a synchronize."""
+    import torch
+
+    ctx.decode({seq: 11})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ctx.decode({seq: 11})
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def tools_lora_f16(cfg, f16, lora, merged_run, tokens):
+    """LoRA on the F16 file: the adapter attached to unfused weights on the
+    card against the ``export-lora`` merged file loaded plainly, and against
+    the same attachment on the CPU port (GLUE_TOL each); the adapter must
+    move the logits."""
+    import torch
+
+    from rrs_tpu_torch.models.adapter import attach_lora, load_lora_gguf
+    from rrs_tpu_torch.models.loader import load_model
+
+    t0 = time.perf_counter()
+    _, w_cpu, _ = load_model(f16, device="cpu", fuse=False)
+    attach_lora(w_cpu, load_lora_gguf(lora, device="cpu")[0])
+    ref_cpu = _prefill_logits(cfg, w_cpu, tokens, "cpu")
+    del w_cpu
+    _, w_card, _ = load_model(f16, device="cuda", fuse=False)
+    base = _prefill_logits(cfg, w_card, tokens, "cuda")
+    attach_lora(w_card, load_lora_gguf(lora, device="cuda")[0])
+    got = _prefill_logits(cfg, w_card, tokens, "cuda")
+    del w_card
+    _verb_wait(merged_run[0])
+    _, w_merged, _ = load_model(merged_run[1], device="cuda")
+    merged = _prefill_logits(cfg, w_merged, tokens, "cuda")
+    del w_merged
+    torch.cuda.empty_cache()
+    rows = {"card LoRA vs merged file": _rel_t(got, merged),
+            "card LoRA vs CPU LoRA": _rel_t(got, ref_cpu)}
+    moved = _rel_t(got, base)
+    for label, rel in rows.items():
+        if not (torch.isfinite(got).all() and rel <= GLUE_TOL):
+            raise AssertionError(f"tools, F16 LoRA: {label} rel L2 {rel:.4f} > {GLUE_TOL}")
+    if moved < 1e-2:
+        raise AssertionError(f"tools, F16 LoRA: the adapter moved the logits by {moved:.2e}")
+    print(f"  F16 base, rank-{LORA_RANK} adapter on {len(LORA_TARGETS)} linears x "
+          f"{cfg.n_layers} layers, {len(tokens)}-token prompt: "
+          + ", ".join(f"{k} rel L2 {v:.4f} <= {GLUE_TOL}" for k, v in rows.items())
+          + f"; with vs without the adapter rel L2 {moved:.4f} "
+          f"({time.perf_counter() - t0:.1f} s with the loads)", flush=True)
+
+
+def tools_lora_tcq4(cfg, tcq4, lora, tokens, reports):
+    """LoRA on the TCQ4 file (unfused, i8p packs kept): a teacher-forced
+    512-token prefill (B5 + delta), a 40-token prefill (B4 + delta) and a
+    decode step (B1 + delta), every launch held to its plain version; the
+    counts since the reset go under ``launches_tools``. The logits must
+    move with the adapter; a decode step's host-clock time with and without
+    it is reported."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models.adapter import attach_lora, load_lora_gguf
+    from rrs_tpu_torch.models.linear import TCQ4Linear
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    t0 = time.perf_counter()
+    _, w, _ = load_model(tcq4, device="cuda", fuse=False)
+    lw = w.layers[0]
+    if not (isinstance(lw.wq, TCQ4Linear) and lw.wq.i8p is not None and lw.wqkv is None):
+        raise AssertionError("tools: the unfused TCQ4 load lost its i8p packs or fused")
+    short = tokens[:40]
+    long = (tokens * (512 // len(tokens) + 1))[:512]
+    base = _prefill_logits(cfg, w, short, "cuda")
+    ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=128)
+    seq = ctx.new_sequence()
+    ctx.prefill(seq, short)
+    base_ms = _decode_ms(ctx, seq)
+    del ctx
+    attach_lora(w, load_lora_gguf(lora, device="cuda")[0])
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with held_to_plain("tools, TCQ4 + LoRA", {"tcq4_matmul_i8p", "tcq4_matmul",
+                                               "tcq4_matmul_gx2", "flash_attention"}) as seen:
+        _prefill_logits(cfg, w, long, "cuda")
+        ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=128)
+        seq = ctx.new_sequence()
+        got = ctx.prefill(seq, short).float().cpu()
+        step = ctx.decode({seq: 11})[seq].float().cpu()
+        torch.cuda.synchronize()
+    launches = mark_launches(reports, "launches_tools")
+    lora_ms = _decode_ms(ctx, seq)
+    moved = _rel_t(got, base)
+    if not (torch.isfinite(got).all() and torch.isfinite(step).all()) or moved < 1e-2:
+        raise AssertionError(f"tools, TCQ4 + LoRA: the adapter moved the logits by {moved:.2e}")
+    print(f"  TCQ4 base + adapter (unfused, i8p packs): 512- and {len(short)}-token prefills and "
+          f"a decode step, each launch vs its plain version (max rel): "
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e} at {sorted(v[1])}"
+                      for k, v in seen.items())
+          + f"; launches_tools {launches}; with vs without the adapter rel L2 {moved:.4f}; "
+          f"decode step {lora_ms:.2f} ms with the adapter, {base_ms:.2f} ms without "
+          f"(host clock, {cfg.n_layers} layers; {time.perf_counter() - t0:.1f} s)", flush=True)
+    del ctx, w
+    torch.cuda.empty_cache()
+
+
+def tools_cvector(cfg, f16, vocab, tokens, tmp):
+    """Control vectors on the F16 file: the mean-difference directions of
+    CV_POSITIVE against CV_NEGATIVE on the card and on the CPU port (rel L2
+    per layer <= GLUE_TOL), the GGUF written and read back equal, a forward
+    with the vector on the card against the CPU (GLUE_TOL), and the vector
+    must move the logits."""
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.tools.cvector import (build_control_vector, load_control_vector,
+                                             save_control_vector)
+
+    t0 = time.perf_counter()
+    pos = [vocab.encode(s, add_special=True) for s in CV_POSITIVE]
+    neg = [vocab.encode(s, add_special=True) for s in CV_NEGATIVE]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        _, w, _ = load_model(f16, device=dev)
+        dirs = build_control_vector(cfg, w, pos, neg)
+        if dev == "cuda":
+            path = save_control_vector(tmp / "cv_card.gguf", dirs, model_hint="tools")
+            cv = load_control_vector(path, cfg.n_layers, cfg.n_embd, device="cpu")
+            if not np.array_equal(cv.vectors.numpy(), dirs):
+                raise AssertionError("tools: the control vector read back differs")
+        cv = load_control_vector(tmp / "cv_card.gguf", cfg.n_layers, cfg.n_embd, device=dev)
+        t = len(tokens)
+        pos_ids = np.arange(t, dtype=np.int32)[None]
+        logits = []
+        for vec in (None, cv):
+            kc, vc = llama.scratch_caches(cfg, 1, t, device=dev)
+            with torch.inference_mode():
+                logits.append(llama.forward(cfg, w, np.asarray([tokens], np.int32), pos_ids, kc,
+                                            vc, pos_ids, pos_ids, control_vector=vec
+                                            ).float().cpu())
+        out[dev] = (dirs, logits)
+        del w
+    torch.cuda.empty_cache()
+    (d_card, (plain, steered)), (d_cpu, (_, steered_cpu)) = out["cuda"], out["cpu"]
+    rels = [float(np.linalg.norm(d_card[li] - d_cpu[li]) / np.linalg.norm(d_cpu[li]))
+            for li in range(cfg.n_layers)]
+    fwd = _rel_t(steered, steered_cpu)
+    moved = _rel_t(steered, plain)
+    if max(rels) > GLUE_TOL or fwd > GLUE_TOL or moved < 1e-2:
+        raise AssertionError(f"tools, cvector: directions card vs CPU {rels}, forward {fwd:.4f} "
+                             f"(<= {GLUE_TOL}), moved {moved:.2e}")
+    print(f"  cvector on the F16 file ({len(pos)} + {len(neg)} prompts): directions card vs CPU "
+          f"rel L2 per layer {[f'{r:.2e}' for r in rels]} <= {GLUE_TOL}, norms "
+          f"{[f'{float(np.linalg.norm(d)):.3f}' for d in d_card]}; the GGUF read back equal; "
+          f"steered forward card vs CPU rel L2 {fwd:.4f} <= {GLUE_TOL}; the vector moves the "
+          f"logits by rel L2 {moved:.4f} ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def stats_subset(src, dst, n: int = 4):
+    """A GGUF of the ``n`` smallest 2-D blk.* tensors of ``src`` (at
+    Qwen3-4B's widths the k / v projections of both layers), in file order,
+    payloads copied raw. quantize-stats reads a file's 2-D tensors in order;
+    Q4_K's host encoder takes ~1 us a weight there, so the embedding's 389 M
+    weights would take minutes and the 10.5 M of a q / o projection ~15 s."""
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.gguf.writer import GGUFWriter
+
+    with read_gguf(src) as g:
+        w = GGUFWriter(dst)
+        w.add_string("general.architecture", str(g.metadata["general.architecture"]))
+        cands = [k for k, info in g.tensors.items()
+                 if k.startswith("blk.") and len(info.shape) == 2 and info.shape[-1] % 256 == 0]
+        small = sorted(cands, key=lambda k: (math.prod(g.tensors[k].shape), cands.index(k)))[:n]
+        names = [k for k in cands if k in small]
+        for k in names:
+            info = g.tensors[k]
+            w.add_tensor(k, g.tensor_bytes(k), shape=tuple(info.shape), ggml_type=info.ggml_type)
+        w.write()
+    return names
+
+
+def phase_tools(reports, tmp):
+    """Phase 17 (see the module docstring): the tool suite at Qwen3-4B's
+    published widths cut to 2 of 36 layers, each verb a process of its own,
+    the checks on the card in this process while they run."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.models.config import PRESETS, ModelConfig
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+
+    cfg = dataclasses.replace(PRESETS["qwen3-4b"], n_layers=2)
+    t0 = time.perf_counter()
+    hf = tmp / "Qwen3-4B-2layer"
+    nbytes = write_hf_qwen3(hf, cfg, TOOLS_SEED)
+    print(f"  HF directory (config.json, BF16 model.safetensors, tokenizer.json) "
+          f"{nbytes / GB:.3f} GB written in {time.perf_counter() - t0:.1f} s", flush=True)
+    f16, tcq4, lora = tmp / "f16.gguf", tmp / "tcq4.gguf", tmp / "lora.gguf"
+    t0 = time.perf_counter()
+    out = _verb(["convert-hf", hf, f16, "--outtype", "f16"])
+    if out.strip() != f"wrote {f16}":
+        raise AssertionError(f"convert-hf: {out[-500:]}")
+    print(f"    F16 GGUF {f16.stat().st_size / GB:.3f} GB ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    write_lora(lora, cfg, TOOLS_SEED + 1)
+    quant = _verb_start(["quantize", f16, tcq4])
+    merged_run = (_verb_start(["export-lora", "-m", f16, "--lora", lora, "-o",
+                               tmp / "merged.gguf"]), tmp / "merged.gguf")
+    tok_f16 = _verb_start(["tokenize", "-m", f16, "-p", TOOLS_PROMPT, "--ids-only"])
+    with read_gguf(f16) as g:
+        vocab = Vocab.from_gguf(g.metadata)
+        cfg_f = ModelConfig.from_gguf(g.metadata)
+        q_shape = g.tensors["blk.0.attn_q.weight"].shape
+        tied = "output.weight" not in g.tensors
+    if (cfg_f.n_embd, cfg_f.n_ff, cfg_f.vocab_size, cfg_f.n_layers, cfg_f.qk_norm, tied,
+            tuple(q_shape)) != (cfg.n_embd, cfg.n_ff, cfg.vocab_size, 2, True, True,
+                                (cfg.n_q_dim, cfg.n_embd)):
+        raise AssertionError(f"convert-hf: the file's config {cfg_f}, attn_q {q_shape}")
+    tokens = vocab.encode(TOOLS_PROMPT)
+    tools_lora_f16(cfg_f, f16, lora, merged_run, tokens[:40])
+    print(f"    merged F16 file {merged_run[1].stat().st_size / GB:.3f} GB", flush=True)
+    tools_cvector(cfg_f, f16, vocab, tokens[:40], tmp)
+    out = _verb_wait(quant, timeout=900)
+    stats = [line for line in out.splitlines() if line.startswith("quantized:")]
+    print(f"    TCQ4 GGUF {tcq4.stat().st_size / GB:.3f} GB; {stats[0] if stats else out[-300:]}",
+          flush=True)
+    names = stats_subset(tcq4, tmp / "stats.gguf")
+    (tmp / "pos.txt").write_text("\n".join(CV_POSITIVE) + "\n", encoding="utf-8")
+    (tmp / "neg.txt").write_text("\n".join(CV_NEGATIVE) + "\n", encoding="utf-8")
+    runs = {"tok_tcq4": _verb_start(["tokenize", "-m", tcq4, "-p", TOOLS_PROMPT, "--ids-only"]),
+            "cvector": _verb_start(["cvector", "-m", tcq4, "--positive-file", tmp / "pos.txt",
+                                    "--negative-file", tmp / "neg.txt", "-o", tmp / "cv.gguf"]),
+            "qs_card": _verb_start(["quantize-stats", "-m", tmp / "stats.gguf", "--max-tensors",
+                                    "4", "--json"]),
+            "qs_cpu": _verb_start(["quantize-stats", "-m", tmp / "stats.gguf", "--max-tensors",
+                                   "4", "--json", "--device", "cpu"]),
+            "fit": _verb_start(["fit-params", "-m", tcq4, "--hbm-gib", "80"])}
+    tools_lora_tcq4(cfg_f, tcq4, lora, tokens, reports)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _, w_plain, _ = load_model(tcq4, device="cuda")
+    torch.cuda.synchronize()
+    loaded = torch.cuda.memory_allocated() - before
+    del w_plain
+    torch.cuda.empty_cache()
+    for label, handle in (("F16", tok_f16), ("TCQ4", runs["tok_tcq4"])):
+        ids = [int(t) for t in _verb_wait(handle).split()]
+        if ids != tokens:
+            raise AssertionError(f"tokenize -m {label}: {ids[:8]}... vs the port's "
+                                 f"{tokens[:8]}...")
+    print(f"    tokenize: both files give the CPU port's {len(tokens)} ids", flush=True)
+    out = _verb_wait(runs["cvector"])
+    with read_gguf(tmp / "cv.gguf") as g:
+        dirs = sorted(k for k in g.tensors if k.startswith("direction."))
+    if "wrote control vector (2 layers)" not in out or dirs != ["direction.1", "direction.2"]:
+        raise AssertionError(f"cvector verb: {out[-300:]} {dirs}")
+    rows = {}
+    for dev in ("qs_card", "qs_cpu"):
+        rows[dev] = [json.loads(line) for line in _verb_wait(runs[dev]).splitlines()
+                     if line.startswith("{")]
+    if [r["tensor"] for r in rows["qs_card"]] != names or \
+            [r["tensor"] for r in rows["qs_cpu"]] != names:
+        raise AssertionError(f"quantize-stats tensors: {rows}")
+    tol = SMALL_TOL["tcq4_matmul"]
+    for card, cpu in zip(rows["qs_card"], rows["qs_cpu"]):
+        for key in card:
+            if key in ("tensor", "shape"):
+                continue
+            a, b = card[key], cpu[key]
+            lim = tol * abs(b) if key.endswith("rmse_dot") and key.startswith("tcq4") else 0.0
+            if not abs(a - b) <= lim:
+                raise AssertionError(f"quantize-stats {card['tensor']} {key}: card {a} vs CPU {b}")
+        print(f"    quantize-stats {card['tensor']} {card['shape']}: rel RMSE(y) card / CPU "
+              f"tcq4 {card['tcq4_rmse_dot']} / {cpu['tcq4_rmse_dot']}, tcq4_reorder "
+              f"{card['tcq4_reorder_rmse_dot']} / {cpu['tcq4_reorder_rmse_dot']} (B4 vs its plain "
+              f"version, <= {tol:.0e} relative); q4_k {card['q4_k_rmse_dot']}, q8_0 "
+              f"{card['q8_0_rmse_dot']}; rel RMSE(w) tcq4 {card['tcq4_rmse_w']}", flush=True)
+    out = _verb_wait(runs["fit"]).strip()
+    model_gb = float(out.split("model=")[1].split("GB")[0])
+    print(f"    fit-params: {out}; the same file loaded on the card allocates "
+          f"{loaded / GB:.3f} GB (fit-params' model estimate {model_gb:.2f} GB; reported)",
+          flush=True)
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -5636,7 +6059,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/17] build")
+    header("[1/18] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -5650,32 +6073,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/17] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/18] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/17] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/18] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/17] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/18] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/17] served steps held to the plain versions; device decode run against "
+    header("[5/18] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/17] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/18] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/17] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/18] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     shift_held(ctx, "qwen3-4b")
@@ -5684,7 +6107,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/17] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/18] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -5694,14 +6117,14 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/17] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/18] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/17] the rest of the server at qwen3-4b width: grammar, JSON schema, "
+    header("[10/18] the rest of the server at qwen3-4b width: grammar, JSON schema, "
            "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(cfg, weights, reports)
@@ -5711,7 +6134,7 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/17] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/18] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate, serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -5724,7 +6147,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/17] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/18] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -5747,7 +6170,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/17] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/18] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -5762,7 +6185,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/17] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/18] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -5771,13 +6194,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/17, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/18, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/17, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/18, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -5785,7 +6208,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/17] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/18] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA) and gemma3-4b at their published widths")
     t15 = time.perf_counter()
     phase_families_small()
@@ -5797,14 +6220,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/17] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
-           "against the CPU, then Falcon-Mamba-7B (32 of 64 layers), RWKV-6 7B (16 of 32) and "
+    header("[16/18] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+           "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/17] summary")
+    header("[17/18] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+           "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
+           "cvector, quantize-stats, fit-params")
+    t17 = time.perf_counter()
+    build = Path(__file__).resolve().parent / "build"
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        phase_tools(reports, Path(tmp_name))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
+
+    header("[18/18] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

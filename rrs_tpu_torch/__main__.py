@@ -1,15 +1,19 @@
 """CLI: ``python -m rrs_tpu_torch <verb>``.
 
-The ``generate``, ``serve``, ``chat``, ``bench``, ``batched-bench``,
-``perplexity``, ``imatrix``, ``quantize`` and ``gguf-split`` verbs of
-``rrs_tpu/__main__.py`` with the same flags, plus ``--device`` on the verbs
-that run the model (default ``cuda``; ``cpu`` must be asked for). Every
-``-m`` takes a single GGUF or any shard of a ``-NNNNN-of-NNNNN`` set;
-``quantize`` and ``gguf-split`` are host code. ``generate`` decodes
-speculatively with ``--model-draft`` or by prompt lookup with ``--lookup``;
-``serve`` takes a draft model and extra routable ``--models``. Flags whose
-feature is not ported yet (multimodal projectors, tensor / data / pipeline
-parallelism) raise NotImplementedError when set.
+The verbs of ``rrs_tpu/__main__.py`` with the same flags: ``generate``,
+``serve``, ``chat``, ``bench``, ``batched-bench``, ``perplexity``,
+``imatrix``, ``quantize``, ``gguf-split``, ``quantize-stats``, ``tokenize``,
+``export-lora``, ``cvector``, ``fit-params`` and ``convert-hf``, plus
+``--device`` on the verbs that compute on a device (default ``cuda``;
+``cpu`` must be asked for). Every ``-m`` takes a single GGUF or any shard of
+a ``-NNNNN-of-NNNNN`` set; ``quantize``, ``gguf-split``, ``tokenize``,
+``export-lora``, ``fit-params`` and ``convert-hf`` are host code.
+``generate`` decodes speculatively with ``--model-draft`` or by prompt
+lookup with ``--lookup``; ``serve`` takes a draft model and extra routable
+``--models``. Flags whose feature is not ported yet (multimodal
+projectors, tensor / data / pipeline parallelism) raise NotImplementedError
+naming their ROADMAP item; ``tts`` (A11) and ``finetune`` (A12) are not
+verbs yet.
 """
 
 from __future__ import annotations
@@ -166,6 +170,49 @@ def main(argv=None):
     sp.add_argument("src")
     sp.add_argument("dst")
 
+    qs2 = sub.add_parser("quantize-stats",
+                         help="per-tensor RMSE + matvec error per format "
+                              "(test-quantize-stats analog)")
+    qs2.add_argument("--model", "-m", default=None,
+                     help="GGUF to analyze (default: synthetic weights)")
+    qs2.add_argument("--max-tensors", type=int, default=8)
+    qs2.add_argument("--samples", type=int, default=64, help="activation rows per tensor")
+    qs2.add_argument("--seed", type=int, default=0)
+    qs2.add_argument("--json", action="store_true")
+    _device_arg(qs2)
+
+    tk = sub.add_parser("tokenize", help="tokenize text with a model's vocab")
+    tk.add_argument("--model", "-m", required=True)
+    tk.add_argument("--prompt", "-p", required=True)
+    tk.add_argument("--ids-only", action="store_true")
+
+    el = sub.add_parser("export-lora", help="merge a LoRA adapter into a GGUF")
+    el.add_argument("--model", "-m", required=True)
+    el.add_argument("--lora", required=True)
+    el.add_argument("--output", "-o", required=True)
+    el.add_argument("--lora-scale", type=float, default=1.0)
+
+    cv = sub.add_parser("cvector", help="generate a control vector GGUF")
+    cv.add_argument("--model", "-m", required=True)
+    cv.add_argument("--positive-file", required=True, help="one positive prompt per line")
+    cv.add_argument("--negative-file", required=True)
+    cv.add_argument("--output", "-o", default="control_vector.gguf")
+    _device_arg(cv)
+
+    fp = sub.add_parser("fit-params", help="max context/lanes for a memory budget")
+    fp.add_argument("--model", "-m", required=True)
+    fp.add_argument("--hbm-gib", type=float, default=16.0)
+    fp.add_argument("--parallel", type=int, default=1)
+    fp.add_argument("--ctx", type=int, default=0)
+    fp.add_argument("--cache-type", default="none", choices=["none", "q8", "q4"])
+
+    hf = sub.add_parser("convert-hf", help="convert a local HF checkpoint dir to GGUF")
+    hf.add_argument("model_dir")
+    hf.add_argument("out")
+    hf.add_argument("--outtype", default="f32", choices=["f32", "f16"])
+    hf.add_argument("--mmproj", action="store_true",
+                    help="extract the VLM vision tower into an mmproj GGUF (not ported)")
+
     args = p.parse_args(argv)
     _refuse_unported(args)
     if args.cmd == "generate":
@@ -200,6 +247,29 @@ def main(argv=None):
         else:
             paths = split_gguf(args.src, args.dst, args.split or 2)
             print("wrote:\n  " + "\n  ".join(str(p) for p in paths))
+    elif args.cmd == "quantize-stats":
+        from rrs_tpu_torch.tools.quantize_stats import run
+
+        run(args)
+    elif args.cmd == "tokenize":
+        cmd_tokenize(args)
+    elif args.cmd == "export-lora":
+        from rrs_tpu_torch.tools.export_lora import export_lora_merged
+
+        out = export_lora_merged(args.model, args.lora, args.output, scale=args.lora_scale)
+        print(f"wrote merged model -> {out}")
+    elif args.cmd == "cvector":
+        cmd_cvector(args)
+    elif args.cmd == "fit-params":
+        cmd_fit_params(args)
+    elif args.cmd == "convert-hf":
+        import numpy as np
+
+        from rrs_tpu_torch.tools.convert_hf import convert_hf_to_gguf
+
+        out = convert_hf_to_gguf(args.model_dir, args.out,
+                                 out_dtype=np.float16 if args.outtype == "f16" else np.float32)
+        print(f"wrote {out}")
 
 
 def _device_arg(parser) -> None:
@@ -221,7 +291,7 @@ def _refuse_unported(args) -> None:
     slice (ROADMAP queue A)."""
     get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
     unported = {
-        "--mmproj (ROADMAP A11)": get("mmproj") is not None,
+        "--mmproj (ROADMAP A11)": get("mmproj") not in (None, False),
         "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
         "--dist-* (ROADMAP A12)": any(get(k) is not None
                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
@@ -384,6 +454,52 @@ def cmd_imatrix(args):
     acc = collect_imatrix(cfg, weights, chunks, chunk_len=args.chunk_len)
     save_imatrix(args.output, acc)
     print(f"saved imatrix for {len(acc)} tensors -> {args.output}")
+
+
+def cmd_tokenize(args):
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.models.vocab import Vocab
+
+    with read_gguf(args.model) as g:
+        vocab = Vocab.from_gguf(g.metadata)
+    ids = vocab.encode(args.prompt)
+    if args.ids_only:
+        print(" ".join(map(str, ids)))
+    else:
+        for i in ids:
+            print(f"{i:>8} -> {vocab.tokens[i]!r}")
+
+
+def cmd_cvector(args):
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.tools.cvector import build_control_vector, save_control_vector
+
+    cfg, weights, md = load_model(args.model, device=args.device)
+    vocab = Vocab.from_gguf(md)
+
+    def prompts(path):
+        with open(path, encoding="utf-8") as f:
+            return [vocab.encode(line, add_special=True) for line in f.read().splitlines() if line]
+
+    dirs = build_control_vector(cfg, weights, prompts(args.positive_file),
+                                prompts(args.negative_file))
+    out = save_control_vector(args.output, dirs, model_hint=str(md.get("general.name", "")))
+    print(f"wrote control vector ({dirs.shape[0]} layers) -> {out}")
+
+
+def cmd_fit_params(args):
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.utils.fit_params import fit_params
+
+    with read_gguf(args.model) as g:
+        cfg = ModelConfig.from_gguf(g.metadata)
+    r = fit_params(cfg, hbm_bytes=int(args.hbm_gib * 1024**3), n_lanes=args.parallel,
+                   n_ctx=args.ctx, kv_quant=args.cache_type)
+    print(f"fits={r.fits} n_ctx={r.n_ctx} n_lanes={r.n_lanes} "
+          f"model={r.model_bytes/1e9:.2f}GB kv={r.kv_bytes/1e9:.2f}GB "
+          f"free={r.free_bytes/1e9:.2f}GB")
 
 
 def cmd_chat(args, read_line=input):

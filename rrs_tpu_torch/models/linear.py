@@ -2,8 +2,9 @@
 
 Port of ``rrs_tpu/models/linear.py``: the layer dataclasses, the N-pad
 policy, ``fuse_linears``, the activation rotation, the route by M between
-the TCQ4 kernels, and ``linear_apply``. The straight-through backward
-waits for the training slice.
+the TCQ4 kernels, and ``linear_apply`` (which also runs a LoRA-wrapped
+linear: its base on the base's kernel, then the delta). The
+straight-through backward waits for the training slice.
 
 A TCQ4 linear carries the int8-superblock prefill pack (``i8p``) unless
 ``RRS_PREFILL_I8=0``, the JAX package's switch; with it every M >= 256 goes to
@@ -33,6 +34,7 @@ from rrs_tpu_torch.formats.tcq4 import (
     effective_scales,
     quantize_activations_rrs,
 )
+from rrs_tpu_torch.models.adapter import LoraLinear, apply_lora_delta
 from rrs_tpu_torch.ops import mxfp4_matmul as mx_mm
 from rrs_tpu_torch.ops import q8_matmul as q8_mm
 from rrs_tpu_torch.ops import tcq4_matmul as tcq4_mm
@@ -308,10 +310,16 @@ def _dense_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ W^T (+ bias). x: [..., K] -> [..., N], in x's dtype."""
+    """y = x @ W^T (+ bias). x: [..., K] -> [..., N], in x's dtype. A
+    ``LoraLinear`` runs its base on the base's route and adds its low-rank
+    delta to the (logical-width) f32 product before the bias, as
+    rrs_tpu/models/linear.py:447-488 does."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
+    lora = None
+    if isinstance(layer, LoraLinear):
+        lora, layer = layer, layer.base
     if isinstance(layer, DenseLinear):
         y = _dense_matmul(x2, layer.w)
     elif isinstance(layer, Q8Linear):
@@ -334,6 +342,8 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
             y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff, layer.i8p)
     else:
         raise TypeError(f"unknown linear layer {type(layer)}")
+    if lora is not None:
+        y = apply_lora_delta(lora, x2, y)
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
     y = y.to(x.dtype)

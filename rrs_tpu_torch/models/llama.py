@@ -33,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from rrs_tpu_torch.models.adapter import LoraLinear
 from rrs_tpu_torch.models.config import ModelConfig
 from rrs_tpu_torch.models.linear import (
     DenseLinear,
@@ -367,7 +368,7 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
             v_caches: list, mask_positions, cache_slots, last_idx=None,
-            slots: Optional[list] = None, cap=None) -> torch.Tensor:
+            slots: Optional[list] = None, cap=None, control_vector=None) -> torch.Tensor:
     """One decode/prefill step; returns logits [B, T, V] f32 (or [B, 1, V]
     with ``last_idx``). The index inputs ([B, T] int tokens, positions,
     mask positions (-1 = padded row) and cache slots) may live on the host:
@@ -376,7 +377,10 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     passes those first ``slots`` (host ints, -1 for a padded lane) instead,
     so that nothing is read back; each layer takes its start slots from them
     (modulo its ring). The caches are updated in place. ``cap``, a dict,
-    receives each linear's input sums of squares (``_capture``)."""
+    receives each linear's input sums of squares (``_capture``), and with a
+    ``"__hidden__"`` dict in it each layer's mean output row in f32 (the
+    cvector tool's collection); ``control_vector`` (``models.adapter.
+    ControlVector``) is added to the residual after each layer's FFN."""
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
@@ -387,6 +391,10 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     for li, lw in enumerate(w.layers):
         x = layer(cfg, w, lw, x, positions, k_caches[li], v_caches[li], mask_dev, slots, li,
                   cap=cap)
+        if control_vector is not None:
+            x = control_vector.apply(x, li)
+        if cap is not None and "__hidden__" in cap:
+            cap["__hidden__"][li] = x.reshape(-1, x.shape[-1]).to(torch.float32).mean(0)
     if last_idx is not None:
         idx = torch.as_tensor(last_idx).to(dev).clamp_min(0).to(torch.int64)
         x = torch.gather(x, 1, idx[:, None, None].expand(-1, 1, x.shape[-1]))
@@ -798,6 +806,10 @@ def _tensor(a, device, dtype=None) -> Optional[torch.Tensor]:
 def _linear_from_numpy(d, device):
     if d is None:
         return None
+    if "base" in d:                          # a LoRA-wrapped linear
+        return LoraLinear(base=_linear_from_numpy(d["base"], device),
+                          a=_tensor(d["a"], device, torch.bfloat16),
+                          b=_tensor(d["b"], device, torch.bfloat16), scale=float(d["scale"]))
     bias = _tensor(d.get("bias"), device)
     if "qs" in d and "scale" in d:
         return MXFP4Linear(qs=_tensor(d["qs"], device), scale=_tensor(d["scale"], device),
@@ -850,7 +862,8 @@ def weights_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> ModelWeight
     so on, MLA's ``wq_a`` / ``wkv_a`` linears and ``wk_b`` / ``wv_b`` factors,
     the sandwich norms ``attn_post_norm`` / ``ffn_post_norm``, and at the top
     ``rope_factors`` (LongRoPE); a TCQ4 linear's ``i8p`` is its (qs_sbi, f8,
-    e2) pack or None. A field the port does not know raises."""
+    e2) pack or None; a LoRA-wrapped linear is {base, a, b, scale}. A field
+    the port does not know raises."""
     from rrs_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)

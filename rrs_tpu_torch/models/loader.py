@@ -209,10 +209,12 @@ def _mla_layer(g: GGUFFile, cfg: ModelConfig, p: str, lin, norm, has, device, dt
 
 
 def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = None,
-               device=None):
+               device=None, fuse: bool = True):
     """Load a GGUF model (one file, or any shard of a ``-NNNNN-of-NNNNN``
     set) onto ``device`` (``None`` = cuda), with the q/k/v and gate/up
-    projections fused where ``fuse_linears`` can.
+    projections fused where ``fuse_linears`` can. ``fuse=False`` keeps every
+    linear separate (TCQ4 ones with their i8p packs), as LoRA adapters need
+    (``models.adapter.attach_lora``).
     Returns (config, weights, metadata)."""
     dev = resolve_device(device)
     g = MultiGGUF(path) if SPLIT_RE.match(Path(path).name) else read_gguf(path)
@@ -251,7 +253,7 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
                 wqkv = lin("attn_qkv", 1)             # phi3: pre-fused q|k|v
             else:
                 wq, wk, wv = lin("attn_q", 1), lin("attn_k", 1), lin("attn_v", 1)
-                if type(wq) is type(wk) is type(wv):
+                if fuse and type(wq) is type(wk) is type(wv):
                     wqkv = fuse_linears([wq, wk, wv])
                 if wqkv is not None:
                     wq = wk = wv = None
@@ -260,7 +262,7 @@ def load_model(path: str | Path, dtype=torch.bfloat16, overrides: dict | None = 
                     w_gateup = lin("ffn_up")          # phi3: pre-fused gate|up
                 else:
                     w_gate, w_up = lin("ffn_gate"), lin("ffn_up")
-                    if type(w_gate) is type(w_up):
+                    if fuse and type(w_gate) is type(w_up):
                         w_gateup = fuse_linears([w_gate, w_up])
                     if w_gateup is not None:
                         w_gate = w_up = None

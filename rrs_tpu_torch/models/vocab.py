@@ -1,17 +1,22 @@
-"""Tokenizers: SPM (sentencepiece-style), byte-level BPE and the RWKV world
-tokenizer, from GGUF vocab.
+"""Tokenizers: SPM (sentencepiece-style), byte-level BPE, BERT WordPiece,
+T5 Unigram, PLaMo-2 and the RWKV world tokenizer, from GGUF vocab.
 
-Host code copied from ``rrs_tpu/models/vocab.py`` for the models the port
-serves (``llama`` SPM, ``gpt2`` BPE and ``rwkv``), with the native BPE merge
-loop of ``rrs_tpu_torch.native`` where it builds, and the grammar slice's
-``pieces`` and ``token_trie``; other tokenizer models (``bert``, ``t5`` /
-``unigram``, ``plamo2``: ROADMAP A10) raise NotImplementedError. Behaviour
-of src/llama-vocab.cpp:
+Host code copied from ``rrs_tpu/models/vocab.py`` (every tokenizer model of
+the JAX package: ``llama`` SPM, ``gpt2`` BPE, ``bert`` WPM, ``t5`` /
+``unigram`` UGM, ``plamo2`` and ``rwkv``), with the native BPE merge loop of
+``rrs_tpu_torch.native`` where it builds, and the grammar slice's ``pieces``
+and ``token_trie``. Behaviour of src/llama-vocab.cpp:
   * SPM (llm_tokenizer_spm): utf-8 symbols, best-score bigram merging with a
     priority queue, byte fallback <0xXX>, space -> U+2581 escaping.
   * BPE (llm_tokenizer_bpe): per-model pretokenizer regex (tokenizer.ggml.pre),
     GPT-2 byte-to-unicode mapping, lowest-rank pair merging from
     tokenizer.ggml.merges.
+  * WPM (llm_tokenizer_wpm): NFD + lowercase, punctuation / CJK isolated,
+    greedy longest match per "▁"-prefixed word, UNK for a word that fails.
+  * UGM (llm_tokenizer_ugm): Viterbi over the piece scores with an UNK
+    penalty; the first text fragment takes the space prefix.
+  * PLaMo-2 (llm_tokenizer_plamo2): Viterbi over rounded scores with a
+    <0xXX> byte fallback.
   * RWKV (llm_tokenizer_rwkv): greedy longest match on the raw token
     strings; decoding joins them as text.
   * Special-token partitioning before either algorithm (tokenizer_st_partition).
@@ -201,7 +206,7 @@ class Vocab:
             key=lambda p: len(p[0].encode("utf-8")), reverse=True,
         )
         self._byte_tokens: dict[int, int] = {}
-        if self.model == "llama":
+        if self.model in ("llama", "plamo2"):
             for b in range(256):
                 tid = self._token_to_id.get(f"<0x{b:02X}>")
                 if tid is not None:
@@ -289,15 +294,131 @@ class Vocab:
                 out.extend(self._encode_spm(raw))
             elif self.model == "gpt2":
                 out.extend(self._encode_bpe(frag))
+            elif self.model == "bert":
+                out.extend(self._encode_wpm(frag))
+            elif self.model in ("t5", "unigram"):
+                raw = frag
+                if is_first and self.add_space_prefix and raw and raw[0] != " ":
+                    raw = " " + raw
+                out.extend(self._encode_ugm(raw))
             elif self.model == "rwkv":
                 out.extend(self._encode_rwkv(frag))
+            elif self.model == "plamo2":
+                out.extend(self._encode_plamo2(frag))
             else:
-                raise NotImplementedError(
-                    f"tokenizer model {self.model!r} is not ported to rrs_tpu_torch")
+                raise NotImplementedError(f"tokenizer model {self.model!r}")
             is_first = False
 
         if add_special and self.add_eos and self.eos_id >= 0:
             out.append(self.eos_id)
+        return out
+
+    def _encode_wpm(self, text: str) -> list[int]:
+        """BERT WordPiece (llm_tokenizer_wpm_session, llama-vocab.cpp:674):
+        NFD + lowercase, isolate punctuation / ASCII symbols / CJK chars,
+        then per word prepend the phantom "▁" and greedy longest-match over
+        raw substrings (GGUF BERT vocabs use the ▁-prefix convention, not
+        "##"); a word with any unmatched span collapses to UNK."""
+        import unicodedata
+
+        words: list[str] = [""]
+        for ch in unicodedata.normalize("NFD", text):
+            cat = unicodedata.category(ch)
+            if ch.isspace():
+                if words[-1]:
+                    words.append("")
+                continue
+            if ord(ch) in (0, 0xFFFD) or cat.startswith("C") \
+                    or cat.startswith("M"):
+                # drop control chars and combining accent marks (uncased
+                # BERT strip-accents; 'Äpfel' -> 'apfel')
+                continue
+            s = ch.lower()
+            if cat.startswith("P") or (ord(ch) < 0x7F and cat.startswith("S")) \
+                    or _is_cjk(ch):
+                if words[-1]:
+                    words.append("")
+                words[-1] = s          # single-char word
+                words.append("")
+            else:
+                words[-1] += s
+        if words and not words[-1]:
+            words.pop()
+
+        if not hasattr(self, "_wpm_maxlen"):
+            self._wpm_maxlen = max((len(t) for t in self.tokens if t),
+                                   default=1)
+        out: list[int] = []
+        for word in words:
+            if not word:
+                continue
+            word1 = SPIECE_UNDERLINE + word
+            n = len(word1)
+            start_len = len(out)
+            i = 0
+            while i < n:
+                match = False
+                for j in range(min(n, i + self._wpm_maxlen + 1), i, -1):
+                    tid = self._token_to_id.get(word1[i:j])
+                    if tid is not None:
+                        out.append(tid)
+                        i = j
+                        match = True
+                        break
+                if not match:          # discard the whole word
+                    del out[start_len:]
+                    break
+            if len(out) == start_len and self.unk_id >= 0:
+                out.append(self.unk_id)
+        return out
+
+    def _encode_ugm(self, text: str) -> list[int]:
+        """T5 Unigram (llm_tokenizer_ugm): Viterbi over log-prob piece
+        scores; unknown bytes get the UNK penalty (score floor)."""
+        text = text.replace(" ", SPIECE_UNDERLINE)
+        n = len(text)
+        if n == 0:
+            return []
+        scores = self.scores or [0.0] * len(self.tokens)
+        min_score = min(scores) if scores else 0.0
+        unk_score = min_score - 10.0
+        max_len = max((len(t) for t in self.tokens), default=1)
+        best = [float("-inf")] * (n + 1)
+        back: list[tuple[int, int]] = [(-1, -1)] * (n + 1)
+        best[0] = 0.0
+        for i in range(n):
+            if best[i] == float("-inf"):
+                continue
+            matched = False
+            for end in range(i + 1, min(n, i + max_len) + 1):
+                tid = self._token_to_id.get(text[i:end])
+                if tid is None:
+                    continue
+                matched = True
+                s = best[i] + scores[tid]
+                if s > best[end]:
+                    best[end] = s
+                    back[end] = (i, tid)
+            if not matched or best[i + 1] == float("-inf"):
+                # single-char unknown fallback
+                s = best[i] + unk_score
+                if s > best[i + 1]:
+                    best[i + 1] = s
+                    back[i + 1] = (i, self.unk_id)
+        ids: list[int] = []
+        pos = n
+        while pos > 0:
+            i, tid = back[pos]
+            if tid >= 0:
+                ids.append(tid)
+            pos = i
+        ids.reverse()
+        # merge consecutive UNKs (llm_tokenizer_ugm does)
+        out: list[int] = []
+        for t in ids:
+            if t == self.unk_id and out and out[-1] == self.unk_id:
+                continue
+            out.append(t)
         return out
 
     def _encode_rwkv(self, text: str) -> list[int]:
@@ -323,6 +444,74 @@ class Vocab:
             else:
                 out.append(tid)
                 i = end
+        return out
+
+    def _encode_plamo2(self, text: str) -> list[int]:
+        """PLaMo-2 tokenizer (llm_tokenizer_plamo2,
+        llama-vocab.cpp:1242-1479): right-to-left Viterbi minimizing
+        sum(-round(score * 1e4)) over vocab pieces, with a heavily
+        penalized (UNKNOWN_SCORE = -1e7) single-codepoint fallback that
+        emits <0xXX> byte tokens for the codepoint's UTF-8 bytes. The
+        reference accelerates the per-position piece lookup with a
+        reversed-suffix automaton table; this computes the same optimum
+        with a direct bounded scan."""
+        import math
+
+        UNKNOWN = -10_000_000
+        if not hasattr(self, "_plamo2_pieces"):
+            pieces: dict[str, tuple[int, int]] = {}
+            maxlen = 1
+            for i, t in enumerate(self.tokens):
+                tt = (self.token_types[i] if self.token_types
+                      else TOKEN_TYPE_NORMAL)
+                if tt == TOKEN_TYPE_BYTE or not t:
+                    continue
+                sc = self.scores[i] if self.scores else 0.0
+                if not math.isfinite(sc):
+                    continue                      # INVALID_SCORE rows
+                pieces[t] = (i, int(round(sc * 1e4)))
+                maxlen = max(maxlen, len(t))
+            self._plamo2_pieces = pieces
+            self._plamo2_maxlen = maxlen
+        pieces, maxlen = self._plamo2_pieces, self._plamo2_maxlen
+
+        if text and text[0] == "﻿":          # BOM skip
+            text = text[1:]
+        n = len(text)
+        if n == 0:
+            return []
+        INF = 1 << 60
+        scores = [INF] * (n + 1)
+        scores[n] = 0
+        best: list[tuple[int, int]] = [(1, -1)] * n   # (cp_len, token_id)
+        for i in range(n - 1, -1, -1):
+            # longest-first, strict improvement = the reference's table
+            # order (prefix pieces in decreasing length, sentinel last)
+            s_best = INF
+            for ln in range(min(maxlen, n - i), 0, -1):
+                info = pieces.get(text[i:i + ln])
+                if info is None:
+                    continue
+                s = scores[i + ln] - info[1]
+                if s < s_best:
+                    s_best = s
+                    best[i] = (ln, info[0])
+            s_unk = scores[i + 1] - UNKNOWN
+            if s_unk < s_best:
+                s_best = s_unk
+                best[i] = (1, -1)
+            scores[i] = s_best
+
+        out: list[int] = []
+        pos = 0
+        while pos < n:
+            ln, tid = best[pos]
+            if tid >= 0:
+                out.append(tid)
+            else:
+                for b in text[pos].encode("utf-8"):
+                    out.append(self._byte_tokens[b])
+            pos += ln
         return out
 
     def _split_specials(self, text: str, parse_special: bool = True):
@@ -517,6 +706,13 @@ class Vocab:
                     parts.append(bytes([int(t[3:5], 16)]))
                 else:
                     parts.append(t.replace(SPIECE_UNDERLINE, " ").encode("utf-8"))
+            elif self.model == "plamo2":
+                # raw text pieces; <0xXX> byte tokens emit the byte
+                # (llama-vocab.cpp:3162-3178)
+                if ttype == TOKEN_TYPE_BYTE:
+                    parts.append(bytes([int(t[3:5], 16)]))
+                else:
+                    parts.append(t.encode("utf-8"))
             elif self.model == "gpt2":
                 if ttype in (TOKEN_TYPE_CONTROL, TOKEN_TYPE_USER_DEFINED):
                     parts.append(t.encode("utf-8"))

@@ -1,0 +1,1 @@
+"""utils modules of rrs_tpu_torch (see rrs_tpu/utils)."""

@@ -53,6 +53,8 @@ def linear_tree(layer):
         v = getattr(layer, f.name)
         if isinstance(v, tuple):
             out[f.name] = tuple(to_numpy(a) for a in v)
+        elif dataclasses.is_dataclass(v):          # a LoRA adapter's base linear
+            out[f.name] = linear_tree(v)
         else:
             out[f.name] = v if isinstance(v, (int, float, str)) or v is None else to_numpy(v)
     return out

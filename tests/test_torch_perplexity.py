@@ -203,8 +203,8 @@ def test_hellaswag_and_winogrande_scores_run(tcq4):
 
 @pytest.mark.parametrize("over,vocab", [({}, True), ({"arch": "llama", "qk_norm": False}, False)])
 def test_export_random_gguf_writes_the_jax_file(tmp_path, over, vocab):
-    """The port's dense exporter (which gives chip_smoke.py its GGUF) writes
-    the JAX exporter's file byte for byte from the same seed."""
+    """The port's exporter (which gives chip_smoke.py its GGUF) writes the
+    JAX exporter's file byte for byte from the same seed, dense and MoE."""
     from rrs_tpu_torch.models.export import export_random_gguf as texport
     from test_torch_common import tiny_vocab_tokens, torch_cfg
 
@@ -213,6 +213,7 @@ def test_export_random_gguf_writes_the_jax_file(tmp_path, over, vocab):
     export_random_gguf(jax_cfg(**over), jpath, seed=4, vocab_tokens=tokens)
     texport(torch_cfg(jax_cfg(**over)), tpath, seed=4, vocab_tokens=tokens)
     assert tpath.read_bytes() == jpath.read_bytes()
-    with pytest.raises(NotImplementedError, match="A10"):
-        texport(torch_cfg(jax_cfg(n_experts=4, n_experts_used=2, n_ff_exp=256, arch="qwen3moe")),
-                tmp_path / "moe.gguf")
+    moe = jax_cfg(n_experts=4, n_experts_used=2, n_ff_exp=256, arch="qwen3moe")
+    export_random_gguf(moe, tmp_path / "moe_j.gguf", seed=4, vocab_tokens=tokens)
+    texport(torch_cfg(moe), tmp_path / "moe_t.gguf", seed=4, vocab_tokens=tokens)
+    assert (tmp_path / "moe_t.gguf").read_bytes() == (tmp_path / "moe_j.gguf").read_bytes()
