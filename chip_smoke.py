@@ -118,7 +118,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    with window 128 and sinks; a 2-layer gpt-oss model on the card against
    the same weights on the CPU (the CPU's expert ids replayed where the card's
    differ; every launch held to its plain version); ``generate`` at full
-   width (fabricated weights) with prompts that reach every MoE branch,
+   width, cut to 12 of its 24 layers (fabricated weights), with prompts that
+   reach every MoE branch,
    launch counts, the branches taken, a decode profile and a one-lane
    40-token prefill step under torch.profiler (B13's share of it), then over
    q8 rings; the server (4 slots, ctx 4096, four 1000 / 2000-token requests);
@@ -180,7 +181,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    and gemma2 (softcaps 50 / 30 through B3 and B6), granite, minicpm, olmo2,
    phi3 (partial rotary, LongRoPE factors) and a llama-architecture MoE in 2
    layers against the CPU (GLUE_TOL); DeepSeek-V2-Lite at its published
-   widths, all 27 layers (MLA over one 576 / 512-wide cached row, a dense
+   widths, cut to 9 of its 27 layers (MLA over one 576 / 512-wide cached row, a dense
    lead layer, 64 dense bf16 experts of 1,408 top-6 and two shared; TCQ4
    projections, Q8_0 lead down and head): ``generate`` over prompts of 5, 40
    and 300 tokens x 32 over bf16 and q8 KV with launch counts and the MoE
@@ -192,7 +193,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    decode run and MLA's plain attention at 4 lanes x 4,096 slots over bf16
    and q8 KV as a share of it; a B = 1 decode profile, split by timing its
    router, routed-expert gather, shared experts and MLA attention alone;
-   then gemma3-4b, all 34 layers:
+   then gemma3-4b, cut to 12 of its 34 layers (two of them global):
    ``generate`` over prompts of 5, 40 and 1,600 tokens (the 1,536-slot rings
    wrap) over bf16 and q8 KV, a held 560-token prefill and decode step, a
    decode profile;
@@ -231,17 +232,39 @@ it; exits non-zero without either, and on any failed phase. Phases:
    it reported; control vectors on the F16 file, the card's directions
    within GLUE_TOL of the CPU port's, the GGUF read back equal, a steered
    forward card vs CPU (GLUE_TOL); the ``cvector`` verb on the TCQ4 file;
-   ``quantize-stats`` on the card (B4) and at ``--device cpu`` over the TCQ4
-   file's four smallest projections (the k / v of both layers), the TCQ4
-   matvec errors within B4's tolerance of each other; ``fit-params --hbm-gib 80`` beside the card's
-   allocation for the same file;
-18. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+   ``quantize-stats`` on the card and at ``--device cpu`` over the TCQ4
+   file's four smallest projections (the k / v of both layers): every
+   statistic equal, the TCQ4 ``rmse_dot`` from the integer oracle, and the
+   matvec through B4 (``rmse_dot_b4``) within B4's tolerance of its plain
+   version's; ``fit-params --hbm-gib 80`` beside the card's allocation for
+   the same file;
+18. vision, Qwen2-VL-2B at its published widths, all 28 text layers
+   (fabricated TCQ4 linears with their i8p packs and qkv biases, a Q8_0
+   head) and the whole 32-layer vision tower (``random_clip_weights``, f32):
+   two PNGs written here and decoded by the port (448 x 448 and 448 x 672
+   after the bicubic resize), each image's tower timed on the card beside
+   its f32 bound; ``generate_with_images`` over each (launch counts as
+   ``launches_qwen2vl``: B1-B5); a teacher-forced [text, image, text]
+   prefill and a decode step with every launch held to its plain version;
+   the server (4 slots, ctx 4096) with the tower loaded: four chat requests
+   at once, two with an ``image_url`` part, each one's time to first token
+   and the served decode tok/s; a B = 1 decode profile of an image lane;
+   the tower on the card against the CPU port (a 112 x 112 image, rel L2 <=
+   VISION_TOL); a 2-layer qwen2vl model fed an image chunk (GLUE_TOL), each
+   projector at a small width (VISION_TOL) and ``seq_div`` over a bf16 and
+   a q4 cache (K bit-equal), card against CPU; an HF-format directory (text
+   cut to 2 layers, the full tower, BF16) through ``convert-hf`` and
+   ``convert-hf --mmproj`` as processes (the converted tower bit-equal to
+   the in-memory one of the same BF16 weights) and ``serve --mmproj``
+   answering a chat request with an image;
+19. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14, 15, 16 and 17 also carry ``launches_server_rest`` /
+   phases 10, 13, 14, 15, 16, 17 and 18 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
    ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
    (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
-   ``launches_rwkv6`` / ``launches_jamba`` and ``launches_tools``),
+   ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools`` and
+   ``launches_qwen2vl``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -1145,21 +1168,25 @@ def host_top(prof, steps: int, n: int = 8) -> str:
 PROFILE_STEPS = 2
 
 
-def profile_decode(ctx, prompt, steps: int = 4, label: str = "qwen3-4b"):
+def profile_decode(ctx, prompt, steps: int = 4, label: str = "qwen3-4b", prefill=None):
     """Where a decode step's time goes at full width: the wall time of
     ``steps`` eager decode steps, then torch.profiler over PROFILE_STEPS more
     (the profiler's reading costs seconds per step on the host). Prints the
     wall time per step, the device time per step (sum of kernel durations;
     one stream, so they do not overlap), the device's idle share, the kernels
     launched per step, and the device time of the port's kernels and of the
-    rest."""
+    rest. ``prefill(seq)``, where given, fills the new sequence in place of
+    ``ctx.prefill(seq, prompt)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     t_prof = time.perf_counter()
     seq = ctx.new_sequence()
     try:
-        ctx.prefill(seq, prompt)
+        if prefill is None:
+            ctx.prefill(seq, prompt)
+        else:
+            prefill(seq)
         for tok in (11, 12):                                  # warm-up steps
             ctx.decode({seq: tok})
         torch.cuda.synchronize()
@@ -2968,9 +2995,15 @@ GPTOSS_COUNTERS = {"q8": "q8_matmul", "fa": "flash_attention", "mx_rows": MX["mx
                    "mx_all": MX["mx_all"][0], "mx_mm": MX["mx_mm"][0]}
 
 
+# the layers of gpt-oss-20b's full-width runs (24 published), cut so that the
+# script fits its time limit beside phase 18: six sliding and six full layers
+GPTOSS_LAYERS = 12
+
+
 def phase_gptoss_generate(reports):
-    """``generate`` at full gpt-oss-20b width (24 layers, fabricated weights,
-    bf16 KV over 640-slot rings on the 12 sliding layers): greedy prompts of
+    """``generate`` at full gpt-oss-20b width, cut to GPTOSS_LAYERS of its 24
+    layers (fabricated weights, bf16 KV over 640-slot rings on the sliding
+    half): greedy prompts of
     5 (the rows kernel in prefill), 40 (all experts, shared activations),
     300 random and 300 copies of one token (the overflow scan: the 212
     padding rows of the 512 bucket, all token 0, route alike and overflow the
@@ -2979,6 +3012,8 @@ def phase_gptoss_generate(reports):
     kernel's launches counted from 0 and the MoE branches taken; the 512-token
     prefill run twice and held bit-equal; a decode profile; then ``generate``
     over q8 rings. Returns (cfg, weights)."""
+    import dataclasses
+
     import torch
 
     from rrs_tpu_torch import kernels
@@ -2986,7 +3021,7 @@ def phase_gptoss_generate(reports):
     from rrs_tpu_torch.models.config import PRESETS
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    cfg = PRESETS["gpt-oss-20b"]
+    cfg = dataclasses.replace(PRESETS["gpt-oss-20b"], n_layers=GPTOSS_LAYERS)
     t0 = time.perf_counter()
     weights = llama.fabricated_gptoss_weights(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -4624,6 +4659,13 @@ GEMMA3_4B_GGUF = {
     "gemma3.rope.freq_base": 1e6, "gemma3.attention.sliding_window": 1024,
     "gemma3.rope.scaling.type": "linear", "gemma3.rope.scaling.factor": 8.0,
     "gemma3.vocab_size": 262208}
+# the layers of their full-width runs, cut so that the script fits its time
+# limit beside phase 18 (with all 27 and 34, and before phase 18, it took
+# 1,058 s to its summary on an H100 80GB HBM3 at 700 W): DeepSeek-V2-Lite
+# keeps its dense lead layer and 8 MoE layers, gemma3-4b two periods of five
+# sliding layers and a global one
+DEEPSEEK_V2_LITE_LAYERS = 9
+GEMMA3_LAYERS = 12
 MLA_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p", "q8_matmul"}
 GEMMA3_NEW = 16
 # the 2-layer family checks: arch -> config fields at reduced widths
@@ -4733,13 +4775,16 @@ def phase_families_small():
 
 
 def phase_mla_generate(reports):
-    """``generate`` at DeepSeek-V2-Lite's published widths, all 27 layers (the
-    config from ``ModelConfig.from_gguf`` on its metadata; weights fabricated
+    """``generate`` at DeepSeek-V2-Lite's published widths, cut to
+    DEEPSEEK_V2_LITE_LAYERS of its 27 layers (the config from
+    ``ModelConfig.from_gguf`` on its metadata; weights fabricated
     on the card in the quantizer's types by ``fabricated_mla_weights``):
     greedy prompts of 5, 40 and 300 tokens x 32 new tokens over bf16 and then
     q8 KV, the launch counts set to 0 before and read after, the MoE
     branches taken (the dense expert stacks: the gather at <= 16 tokens, the
     capacity dispatch and its all-experts fallback)."""
+    import dataclasses
+
     import torch
 
     from rrs_tpu_torch import kernels
@@ -4747,7 +4792,8 @@ def phase_mla_generate(reports):
     from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    cfg = ModelConfig.from_gguf(DEEPSEEK_V2_LITE_GGUF)
+    cfg = dataclasses.replace(ModelConfig.from_gguf(DEEPSEEK_V2_LITE_GGUF),
+                              n_layers=DEEPSEEK_V2_LITE_LAYERS)
     t0 = time.perf_counter()
     weights = llama.fabricated_mla_weights(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -4805,7 +4851,7 @@ def phase_mla_generate(reports):
 
 
 def phase_mla_held(ctx, prompts, quant: str):
-    """On the 27 layers ``generate`` ran, over the context's quantized cache:
+    """On the layers ``generate`` ran, over the context's quantized cache:
     teacher-forced prefills of 40 tokens (B4 at N = 3,072 and 576, B2 at K =
     10,944) and of 300 (a 512-row bucket: B5) and one decode step after each
     (B1), every kernel launch held to its plain version on the very inputs
@@ -5016,7 +5062,8 @@ def phase_mla(reports):
 
 
 def phase_gemma3(reports):
-    """gemma3-4b at its published widths, all 34 layers (the config from
+    """gemma3-4b at its published widths, cut to GEMMA3_LAYERS of its 34
+    layers (the config from
     ``ModelConfig.from_gguf`` on its metadata: 8 / 4 heads x 256, FF 10,240,
     five sliding layers of every six over 1,024-window rings with a 10k
     base, linear x8 RoPE on the global ones, the sqrt(E) embedding scale,
@@ -5027,6 +5074,8 @@ def phase_gemma3(reports):
     teacher-forced 560-token prefill (chunks of 512 rows, B5, and 48, B4)
     and a decode step with every launch held to its plain version; one
     decode profile."""
+    import dataclasses
+
     import torch
 
     from rrs_tpu_torch import kernels
@@ -5034,7 +5083,7 @@ def phase_gemma3(reports):
     from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    cfg = ModelConfig.from_gguf(GEMMA3_4B_GGUF)
+    cfg = dataclasses.replace(ModelConfig.from_gguf(GEMMA3_4B_GGUF), n_layers=GEMMA3_LAYERS)
     t0 = time.perf_counter()
     weights = llama.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -6021,19 +6070,712 @@ def phase_tools(reports, tmp):
             if key in ("tensor", "shape"):
                 continue
             a, b = card[key], cpu[key]
-            lim = tol * abs(b) if key.endswith("rmse_dot") and key.startswith("tcq4") else 0.0
+            lim = tol * abs(b) if key.endswith("rmse_dot_b4") else 0.0
             if not abs(a - b) <= lim:
                 raise AssertionError(f"quantize-stats {card['tensor']} {key}: card {a} vs CPU {b}")
-        print(f"    quantize-stats {card['tensor']} {card['shape']}: rel RMSE(y) card / CPU "
-              f"tcq4 {card['tcq4_rmse_dot']} / {cpu['tcq4_rmse_dot']}, tcq4_reorder "
-              f"{card['tcq4_reorder_rmse_dot']} / {cpu['tcq4_reorder_rmse_dot']} (B4 vs its plain "
-              f"version, <= {tol:.0e} relative); q4_k {card['q4_k_rmse_dot']}, q8_0 "
+        print(f"    quantize-stats {card['tensor']} {card['shape']}: rel RMSE(y) tcq4 "
+              f"{card['tcq4_rmse_dot']}, tcq4_reorder {card['tcq4_reorder_rmse_dot']} (the "
+              f"integer oracle, the same in both processes); through B4 card / CPU plain tcq4 "
+              f"{card['tcq4_rmse_dot_b4']} / {cpu['tcq4_rmse_dot_b4']}, tcq4_reorder "
+              f"{card['tcq4_reorder_rmse_dot_b4']} / {cpu['tcq4_reorder_rmse_dot_b4']} (<= "
+              f"{tol:.0e} relative); q4_k {card['q4_k_rmse_dot']}, q8_0 "
               f"{card['q8_0_rmse_dot']}; rel RMSE(w) tcq4 {card['tcq4_rmse_w']}", flush=True)
     out = _verb_wait(runs["fit"]).strip()
     model_gb = float(out.split("model=")[1].split("GB")[0])
     print(f"    fit-params: {out}; the same file loaded on the card allocates "
           f"{loaded / GB:.3f} GB (fit-params' model estimate {model_gb:.2f} GB; reported)",
           flush=True)
+
+
+# -- Qwen2-VL-2B: vision, the qwen2vl text stack with M-RoPE and its ViT ----------
+
+# The GGUF metadata of Qwen2-VL-2B-Instruct's text model as its published
+# config.json gives it (Hugging Face Qwen/Qwen2-VL-2B-Instruct; the converter
+# pads mrope_section [16, 24, 24] with an empty fourth channel)
+QWEN2VL_2B_GGUF = {
+    "general.architecture": "qwen2vl", "qwen2vl.block_count": 28,
+    "qwen2vl.context_length": 32768, "qwen2vl.embedding_length": 1536,
+    "qwen2vl.feed_forward_length": 8960, "qwen2vl.attention.head_count": 12,
+    "qwen2vl.attention.head_count_kv": 2, "qwen2vl.attention.layer_norm_rms_epsilon": 1e-6,
+    "qwen2vl.rope.freq_base": 1e6, "qwen2vl.rope.dimension_sections": [16, 24, 24, 0],
+    "qwen2vl.tie_word_embeddings": True, "qwen2vl.vocab_size": 151936}
+# its vision_config (embed_dim 1,280, depth 32, 16 heads, mlp_ratio 4 with
+# quick-GELU, patch 14, spatial merge 2, temporal patch 2, merger to 1,536) as
+# HF writes it, and as convert-hf --mmproj turns it into clip.cpp's keys
+QWEN2VL_2B_VISION = dict(depth=32, embed_dim=1280, hidden_size=1536, hidden_act="quick_gelu",
+                         mlp_ratio=4, num_heads=16, in_channels=3, patch_size=14,
+                         spatial_merge_size=2, temporal_patch_size=2)
+QWEN2VL_2B_MMPROJ = {
+    "clip.projector_type": "qwen2vl_merger", "clip.vision.patch_size": 14,
+    "clip.vision.image_size": 28, "clip.vision.embedding_length": 1280,
+    "clip.vision.block_count": 32, "clip.vision.attention.head_count": 16,
+    "clip.vision.feed_forward_length": 5120, "clip.vision.projection_dim": 1536,
+    "clip.vision.spatial_merge_size": 2,
+    "clip.vision.attention.layer_norm_epsilon": 9.999999974752427e-07}     # 1e-6 as f32
+VISION_NEW = 32
+# the f32 tower, card against the CPU port (rel L2; no TF32, which the port
+# turns off in set_matmul_precision)
+VISION_TOL = 1e-3
+# the two images, (h, w) as written; each resizes to multiples of 28: 448 x 448
+# (a 32 x 32 patch grid, 256 merged tokens) and 448 x 672 (384, h != w)
+VISION_IMAGES = {"448x448": (440, 440), "448x672": (450, 660)}
+
+
+def vision_png(h: int, w: int, seed: int) -> bytes:
+    """A gradient with noise, h x w RGB, as PNG from the port's writer."""
+    import numpy as np
+
+    from rrs_tpu_torch.mtmd.image_io import encode_png
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 127 // (h + w)], axis=-1)
+    return encode_png(np.clip(base + rng.integers(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8))
+
+
+def vision_model():
+    """Qwen2-VL-2B at full width: the config from ``ModelConfig.from_gguf`` on
+    its metadata, fabricated TCQ4 linears with their i8p packs (qkv biases
+    N(0, 0.02)) and a Q8_0 head over the 151,936-entry vocabulary, all 28
+    layers; the whole 32-layer tower from ``random_clip_weights`` at the
+    published vision config, f32, on the card."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.mtmd.clip import ClipConfig, random_clip_weights
+
+    cfg = ModelConfig.from_gguf(QWEN2VL_2B_GGUF)
+    t0 = time.perf_counter()
+    w = llama.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_qkv = cfg.n_q_dim + 2 * cfg.n_kv_dim
+    w = dataclasses.replace(w, layers=[dataclasses.replace(lw, wqkv=dataclasses.replace(
+        lw.wqkv, bias=(torch.randn(n_qkv, generator=gen, device="cuda") * 0.02).to(
+            torch.bfloat16))) for lw in w.layers])
+    torch.cuda.synchronize()
+    t_text = time.perf_counter() - t0
+    ccfg = ClipConfig.from_gguf(QWEN2VL_2B_MMPROJ)
+    t0 = time.perf_counter()
+    cw = random_clip_weights(ccfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(w))
+    print(f"  Qwen2-VL-2B config: {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim}, FF {cfg.n_ff}, vocab {cfg.vocab_size}, "
+          f"M-RoPE sections {cfg.rope_sections}, qkv bias {cfg.attn_bias}; fabricated text "
+          f"weights {w_bytes / GB:.3f} GB in {t_text:.1f} s; tower ({ccfg.n_layers} layers, "
+          f"E={ccfg.n_embd}, {ccfg.n_heads} heads, FF {ccfg.n_ff} {ccfg.ffn_act}, merger to "
+          f"{ccfg.n_embd_llm}) {cw.nbytes() / GB:.3f} GB f32 from random_clip_weights in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, w, ccfg, cw
+
+
+def tower_flops(ccfg, n: int) -> float:
+    """The tower's operations for n patches: the stem, each layer's four
+    projections, FFN and attention (QK^T and AV), and the merger."""
+    e, f, m2 = ccfg.n_embd, ccfg.n_ff, ccfg.spatial_merge ** 2
+    per_layer = 2 * n * (4 * e * e + 2 * e * f) + 4 * n * n * e
+    merger = 2 * (n // m2) * (m2 * e) * (m2 * e + ccfg.n_embd_llm)
+    return 2 * n * 3 * ccfg.patch_size ** 2 * e + ccfg.n_layers * per_layer + merger
+
+
+def vision_encode(ccfg, cw, arrays, peaks) -> dict:
+    """Each decoded image through the port's preprocessing (bicubic resize,
+    normalization, patches: host ms) and the tower on the card (CUDA events,
+    after a warm-up encode), beside its bound at the f32 peak."""
+    import torch
+
+    from rrs_tpu_torch.mtmd.clip import encode_image_qwen2vl, preprocess_image_qwen2vl
+
+    out = {}
+    for name, arr in arrays.items():
+        t0 = time.perf_counter()
+        patches, grid = preprocess_image_qwen2vl(arr, ccfg)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        emb = encode_image_qwen2vl(ccfg, cw, patches, grid)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        emb = encode_image_qwen2vl(ccfg, cw, patches, grid)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        flops = tower_flops(ccfg, patches.shape[0])
+        m = ccfg.spatial_merge
+        if tuple(emb.shape) != (patches.shape[0] // m ** 2, ccfg.n_embd_llm) or \
+                not torch.isfinite(emb).all():
+            raise AssertionError(f"Qwen2-VL-2B tower {name}: {tuple(emb.shape)}")
+        out[name] = ms
+        print(f"  image {name}: {arr.shape[1]} x {arr.shape[0]} PNG -> patch grid {grid} -> "
+              f"{emb.shape[0]} tokens; host preprocessing {host_ms:.1f} ms; tower on the card "
+              f"{ms:.2f} ms for {flops / 1e12:.3f} TFLOP f32 (bound {flops / peaks[3] * 1e3:.2f} "
+              f"ms at {peaks[3] / 1e12:.0f} TFLOP/s, {flops / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    return out
+
+
+def vision_generate(cfg, w, ccfg, cw, pngs, reports):
+    """``generate_with_images`` over each PNG, decoded by the port (a 1-lane
+    context, ctx 2,048), VISION_NEW greedy tokens each, the launch counts set
+    to 0 before and read after both (``launches_qwen2vl``): B1-B5 must all
+    have run, B5 on the image chunks' o / down projections. Returns the
+    context."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.mtmd.image_io import decode_image
+    from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER, generate_with_images
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    vocab = synthetic_vocab(cfg.vocab_size)
+    ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=2048)
+    ctx.generate([5, 6, 7], 2)                                       # warm-up
+    prompt = f"describe {IMAGE_MARKER} in a few words"
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = {name: generate_with_images(ctx, vocab, prompt, [decode_image(png)], ccfg, cw,
+                                       max_new_tokens=VISION_NEW) for name, png in pngs.items()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = mark_launches(reports, "launches_qwen2vl")
+    for name, out in outs.items():
+        if len(out) != VISION_NEW or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"Qwen2-VL-2B generate_with_images {name}: {out}")
+    if BF16_PATH - set(launches):
+        raise AssertionError(f"Qwen2-VL-2B generate_with_images: launches {launches}")
+    perf = ctx.perf()
+    print(f"  generate_with_images, both images x {VISION_NEW} new tokens in {dt:.1f} s (the "
+          f"towers on the card included); prefill {perf['n_p_eval']} rows @ "
+          f"{perf['pp_tok_per_s']:.1f} rows/s, decode {perf['n_eval']} tok @ "
+          f"{perf['tg_tok_per_s']:.2f} tok/s; greedy {outs['448x672'][:6]}...; launches "
+          f"{launches}", flush=True)
+    return ctx
+
+
+def vision_held(ctx, chunks) -> None:
+    """A teacher-forced [text, image, text] prefill (40 tokens, the 448 x 672
+    image's 384 rows with its M-RoPE grid, 30 tokens) and a decode step after
+    it, every B1 / B2 / B3 / B4 / B5 launch held to its plain version; the
+    lane's text delta equals base + max(gh, gw) - slots."""
+    import torch
+
+    cfg = ctx.cfg
+    emb, grid = chunks["448x672"]
+    rng = torch.Generator().manual_seed(18)
+    pre, post = (torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 30))
+    t0 = time.perf_counter()
+    with held_to_plain("Qwen2-VL-2B", BF16_PATH) as seen:
+        seq = ctx.new_sequence()
+        ctx.prefill(seq, pre)
+        ctx.prefill_embeds(seq, emb, mrope_grid=grid)
+        delta = ctx.kv.mrope_delta[0]
+        last = ctx.prefill(seq, post)[-1]
+        out = ctx.decode({seq: int(last.argmax())})[seq]
+        ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    if delta != 40 + max(grid) - (40 + grid[0] * grid[1]) or \
+            not (torch.isfinite(last).all() and torch.isfinite(out).all()):
+        raise AssertionError(f"Qwen2-VL-2B held steps: delta {delta}, grid {grid}")
+    print(f"  Qwen2-VL-2B held ([40 tokens, a {grid[0]} x {grid[1]} image chunk, 30 tokens] + a "
+          f"decode step; M-RoPE delta {delta}), max rel by kernel: "
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e} {sorted(v[1])}"
+                      for k, v in sorted(seen.items()))
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def vision_serve(cfg, w, ccfg, cw, pngs):
+    """The server in-process with the tower loaded, 4 slots, ctx 4096: four
+    chat requests at once, two with an ``image_url`` PNG part (greedy) and two
+    text-only (one greedy, one sampled), VISION_NEW tokens each; every request
+    must finish by length with that many tokens. Prints each request's time
+    to first token (the client's: the image decoded and encoded in the
+    handler, the prompt prefilled) and the served decode tok/s."""
+    import base64
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.serving.engine import Engine
+    from rrs_tpu_torch.serving.server import ServerState, make_handler
+
+    ctx = InferenceContext(cfg, w, n_lanes=4, max_seq=4096)
+    engine = Engine(ctx)
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {},
+                        "Qwen2-VL-2B-fabricated")
+    state.clip_cfg, state.clip_weights = ccfg, cw
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    jobs = []
+    for name, png in pngs.items():
+        url = "data:image/png;base64," + base64.b64encode(png).decode()
+        jobs.append((f"image {name}", {"messages": [{"role": "user", "content": [
+            {"type": "text", "text": "what is in this picture? "},
+            {"type": "image_url", "image_url": {"url": url}}]}], "temperature": 0}))
+    text = "tell me about the weather on the coast in the spring " * 6
+    jobs.append(("text greedy", {"messages": [{"role": "user", "content": text}],
+                                 "temperature": 0}))
+    jobs.append(("text sampled", {"messages": [{"role": "user", "content": text[::-1]}],
+                                  "seed": 3}))
+    results: dict = {}
+
+    def run(job):
+        name, body = job
+        t0 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/chat/completions",
+                             {**body, "max_tokens": VISION_NEW})
+        results[name] = (status, data, t0, time.perf_counter())
+
+    runs0 = engine.n_decode_runs
+    engine.start()
+    server_thread.start()
+    try:
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(j,)) for j in jobs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("Qwen2-VL-2B serving: a request did not finish within 600 s")
+        wall = time.perf_counter() - t_start
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+    spans, n_decode = [], 0
+    for name, (status, data, t0, t1) in results.items():
+        if status != 200:
+            raise AssertionError(f"Qwen2-VL-2B serving: {name} answered {status}: {data[:300]!r}")
+        out = json.loads(data)
+        reason = out["choices"][0]["finish_reason"]
+        n_out = out["usage"]["completion_tokens"]
+        if reason != "length" or n_out != VISION_NEW:
+            raise AssertionError(f"Qwen2-VL-2B serving: {name} finished by {reason} with "
+                                 f"{n_out} tokens")
+        decode_s = out["timings"]["predicted_ms"] / 1e3
+        spans.append((t1 - decode_s, t1))
+        n_decode += n_out - 1
+        ttft_ms = (t1 - t0 - decode_s) * 1e3
+        print(f"  {name}: {n_out} tokens ({reason}), time to first token {ttft_ms:.1f} ms "
+              f"(client), decode {(n_out - 1) / max(decode_s, 1e-9):.2f} tok/s", flush=True)
+    busy = _union_seconds(spans)
+    print(f"  Qwen2-VL-2B served {len(results)} chat requests (2 with an image) in {wall:.1f} s; "
+          f"decode tok/s summed over the slots {n_decode / busy:.2f} ({n_decode} tokens over "
+          f"{busy:.1f} s); {engine.n_decode_runs - runs0} device decode runs (an image lane "
+          f"decodes step by step); KV resident {ctx.kv.nbytes() / GB:.3f} GB", flush=True)
+    if any(s is not None and ctx.kv.mrope_delta.get(ctx.kv.lane_of(s)) for s in ctx.kv.seq_ids):
+        raise AssertionError("Qwen2-VL-2B serving: an image lane was kept as a prompt cache")
+
+
+def vision_tower_cpu(ccfg, cw) -> None:
+    """The 32-layer tower on the card against the same weights on the CPU, a
+    112 x 112 PNG (64 patches), both f32: rel L2 <= VISION_TOL. The script
+    sets no TF32 switch; the port's contexts turn TF32 off."""
+    import torch
+
+    from rrs_tpu_torch.models.llama import to_device
+    from rrs_tpu_torch.mtmd.image_io import decode_image
+    from rrs_tpu_torch.mtmd.pipeline import embed_images
+
+    t0 = time.perf_counter()
+    arr = decode_image(vision_png(112, 112, seed=5))
+    (got, grid), = embed_images(ccfg, cw, [arr])
+    cpu = to_device(cw, "cpu")
+    (ref, _), = embed_images(ccfg, cpu, [arr])
+    rel = _rel_t(got.float().cpu(), ref)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if rel > VISION_TOL or tf32:
+        raise AssertionError(f"Qwen2-VL-2B tower card vs CPU: rel L2 {rel:.2e} (TF32 {tf32})")
+    print(f"  the 32-layer tower, card vs the CPU port on a 112 x 112 image ({grid} merged grid): "
+          f"rel L2 {rel:.2e} <= {VISION_TOL:.0e} (f32 both; torch.backends.cuda.matmul."
+          f"allow_tf32 {tf32}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    del cpu
+
+
+def small_projectors() -> dict:
+    """label -> (ClipConfig, ClipWeights on the CPU, patches, grid or None):
+    each projector at a small width, drawn from a seed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch.mtmd.clip import ClipConfig, random_clip_weights
+
+    gen = torch.Generator().manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen) * 0.05
+
+    def base(**kw):
+        cfg = ClipConfig(**{**dict(image_size=64, patch_size=8, n_embd=128, n_layers=2,
+                                   n_heads=4, n_ff=256, n_embd_llm=192, n_merge=2), **kw})
+        return cfg, random_clip_weights(cfg, seed=7, device="cpu")
+
+    out = {}
+    cfg, w = base()
+    out["mlp"] = (cfg, w, None)
+    out["gemma3"] = (*base(projector_type="gemma3"), None)
+    cfg, w = base(projector_type="qwen2.5vl_merger", ffn_act="silu_gated", n_wa_pattern=2,
+                  attn_window_size=32)
+    e, f = cfg.n_embd, cfg.n_ff
+    w.layers = [dataclasses.replace(lw, w_gate=rnd(e, f), b_gate=rnd(f)) for lw in w.layers]
+    out["qwen2.5vl_merger"] = (cfg, w, (10, 6))                  # ragged 2 x 2-unit windows
+    cfg, w = base(projector_type="resampler", query_num=16)
+    ep = 128
+    w.rs = {"query": rnd(16, ep), "kv_w": rnd(e, ep), "ln_q_w": 1 + rnd(ep),
+            "ln_q_b": rnd(ep), "ln_kv_w": 1 + rnd(ep), "ln_kv_b": rnd(ep),
+            "ln_post_w": 1 + rnd(ep), "ln_post_b": rnd(ep), "proj": rnd(ep, cfg.n_embd_llm),
+            **{f"{n}_{s}": rnd(ep, ep) if s == "w" else rnd(ep)
+               for n in ("q", "k", "v", "o") for s in ("w", "b")}}
+    out["resampler"] = (cfg, w, None)
+    cfg, w = base(projector_type="pixtral", spatial_merge=1)
+    w.layers = [dataclasses.replace(lw, w_gate=rnd(e, f)) for lw in w.layers]
+    w.img_break = rnd(cfg.n_embd_llm)
+    out["pixtral"] = (cfg, w, (6, 5))
+    cfg, w = base(projector_type="idefics3")
+    w.mm_fc = rnd(4 * e, cfg.n_embd_llm)
+    out["idefics3"] = (cfg, w, None)
+    cfg, w = base(projector_type="internvl")
+    w.cls_embd, w.mm_ln_w, w.mm_ln_b = rnd(e), 1 + rnd(4 * e), rnd(4 * e)
+    w.pos_embd = rnd(cfg.n_patches + 1, e)
+    w.mm0_w, w.mm0_b = rnd(4 * e, 256), rnd(256)
+    w.mm2_w = rnd(256, cfg.n_embd_llm)
+    w.layers = [dataclasses.replace(lw, ls1=1 + rnd(e), ls2=1 + rnd(e)) for lw in w.layers]
+    out["internvl"] = (cfg, w, None)
+    rng = np.random.default_rng(9)
+    return {k: (c, w_, rng.standard_normal(((g[0] * g[1]) if g else c.n_patches,
+                                             3 * c.patch_size ** 2)).astype(np.float32), g)
+            for k, (c, w_, g) in out.items()}
+
+
+def vision_small() -> None:
+    """2-layer checks, card against CPU: a qwen2vl text model at reduced
+    widths with dense bf16 weights and qkv biases fed [text, a 4 x 6 image
+    chunk with its M-RoPE grid, text] then a decode step (logits within
+    GLUE_TOL, the text delta equal); each projector at a small width (rel L2
+    <= VISION_TOL); ``seq_div`` over a bf16 and a q4 cache, K bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.mtmd import clip
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.runtime.kv_cache import KVCache
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(arch="qwen2vl", n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4,
+                      head_dim=128, n_ff=2048, vocab_size=4096, context_length=4096,
+                      rope_theta=1e6, attn_bias=True, rope_sections=(16, 24, 24, 0))
+    w = family_small_weights(cfg, seed=30)
+    gen = torch.Generator().manual_seed(31)
+
+    def bias(lin):
+        return dataclasses.replace(lin, bias=(torch.randn(lin.w.shape[1], generator=gen) * 0.02
+                                              ).to(torch.bfloat16))
+
+    w = dataclasses.replace(w, layers=[dataclasses.replace(
+        lw, wq=bias(lw.wq), wk=bias(lw.wk), wv=bias(lw.wv)) for lw in w.layers])
+    emb = torch.randn((24, cfg.n_embd), generator=gen) * 0.05
+    pre, post = (torch.randint(2, 4096, (n,), generator=gen).tolist() for n in (40, 20))
+    res = {}
+    for dev, weights in (("cpu", w), ("cuda", llama.to_device(w, "cuda"))):
+        ctx = InferenceContext(cfg, weights, n_lanes=1, max_seq=256, device=dev)
+        seq = ctx.new_sequence()
+        ctx.prefill(seq, pre)
+        img = ctx.prefill_embeds(seq, emb, mrope_grid=(4, 6))[-1]
+        last = ctx.prefill(seq, post)[-1]
+        step = ctx.decode({seq: 11})[seq]
+        res[dev] = ([t.float().cpu() for t in (img, last, step)], ctx.kv.mrope_delta)
+    rels = [_rel_t(a, b) for a, b in zip(res["cuda"][0], res["cpu"][0])]
+    if max(rels) > GLUE_TOL or res["cuda"][1] != res["cpu"][1] or not res["cpu"][1]:
+        raise AssertionError(f"qwen2vl 2 layers card vs CPU: rel {rels}, deltas "
+                             f"{res['cuda'][1]} / {res['cpu'][1]}")
+    print(f"  qwen2vl (2 layers, dense, [40 tokens, a 4 x 6 image chunk, 20 tokens] + a decode "
+          f"step): logits card vs CPU rel L2 image / text / decode "
+          + " / ".join(f"{r:.4f}" for r in rels) + f" <= {GLUE_TOL}; M-RoPE delta "
+          f"{res['cuda'][1]} on both", flush=True)
+    rels = {}
+    for label, (ccfg, cw, patches, grid) in small_projectors().items():
+        outs = []
+        for dev, weights in (("cpu", cw), ("cuda", llama.to_device(cw, "cuda"))):
+            if ccfg.projector_type in clip.MERGERS:
+                outs.append(clip.encode_image_qwen2vl(ccfg, weights, patches, grid))
+            elif ccfg.projector_type == "pixtral":
+                outs.append(clip.encode_image_pixtral(ccfg, weights, patches, grid))
+            elif ccfg.projector_type == "resampler":
+                outs.append(clip.encode_image_minicpmv(ccfg, weights, patches))
+            else:
+                outs.append(clip.encode_image(ccfg, weights, patches))
+        rels[label] = rel = _rel_t(outs[1].float().cpu(), outs[0])
+        if rel > VISION_TOL or outs[1].shape != outs[0].shape:
+            raise AssertionError(f"projector {label} card vs CPU: rel L2 {rel:.2e}")
+    print("  projectors card vs CPU (rel L2 <= " + f"{VISION_TOL:.0e}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()), flush=True)
+    for quant in ("none", "q4"):
+        kvs = {}
+        for dev in ("cpu", "cuda"):
+            kv = KVCache.create(cfg, n_lanes=2, max_seq=256, device=dev, quant=quant)
+            g = torch.Generator().manual_seed(40)
+            for c in kv.k + kv.v:
+                for t in (c if isinstance(c, tuple) else (c,)):
+                    src = (torch.randint(0, 256, t.shape, generator=g) if t.dtype == torch.uint8
+                           else torch.rand(t.shape, generator=g) * 0.1 if t.dtype == torch.float32
+                           else torch.randn(t.shape, generator=g))
+                    t.copy_(src.to(t.dtype))
+            kv.seq_new(0)
+            kv.seq_new(1)
+            kv.lengths[1] = 200
+            kv.seq_div(cfg, 1, 20, 200, 3)
+            kvs[dev] = kv
+        same = all(torch.equal(a.cpu(), b) for ca, cb in zip(kvs["cuda"].k, kvs["cpu"].k)
+                   for a, b in zip(ca if quant == "q4" else (ca,), cb if quant == "q4" else (cb,)))
+        if not same or not (kvs["cuda"].slot_pos[1] == kvs["cpu"].slot_pos[1]).all():
+            raise AssertionError(f"seq_div over a {quant} cache: K differs from the CPU's")
+        print(f"  seq_div ([20, 200) of 200 positions / 3) over a "
+              f"{'bf16' if quant == 'none' else 'q4 head-pair'} cache: K bit-equal to the CPU's, "
+              f"next position offset {kvs['cuda'].pos_offset(1)}", flush=True)
+    print(f"  2-layer and small-width checks took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def write_hf_qwen2vl(d, cfg, ccfg, cw, seed: int) -> dict:
+    """An HF-format Qwen2-VL directory: ``config.json`` at Qwen2-VL-2B's
+    widths with the text cut to ``cfg.n_layers`` layers, BF16 text weights
+    N(0, 0.05) drawn on the card from ``seed`` (qkv biases, norms one, tied
+    embeddings), the 32-layer tower's weights ``cw`` rounded to BF16 (the
+    conv3d stem as two halves of the summed stem, q / k / v fused into qkv),
+    all written by the port's safetensors writer, and ``synthetic_vocab``'s
+    BPE ``tokenizer.json``. Returns the BF16 tower tensors by HF name."""
+    import torch
+
+    from rrs_tpu_torch.tools.safetensors_io import save_safetensors
+
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen2VLForConditionalGeneration"], "model_type": "qwen2_vl",
+        "hidden_size": cfg.n_embd, "intermediate_size": cfg.n_ff,
+        "num_hidden_layers": cfg.n_layers, "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads, "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.context_length, "rms_norm_eps": cfg.rms_eps,
+        "rope_theta": cfg.rope_theta, "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+        "rope_scaling": {"type": "mrope", "mrope_section": list(cfg.rope_sections[:3])},
+        "vision_config": QWEN2VL_2B_VISION}))
+    toks = synthetic_vocab(cfg.vocab_size).tokens
+    (d / "tokenizer.json").write_text(json.dumps({
+        "model": {"type": "BPE", "vocab": {t: i for i, t in enumerate(toks)}, "merges": []},
+        "added_tokens": []}))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.05).to(torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones((n,), dtype=torch.bfloat16)
+
+    e, f = cfg.n_embd, cfg.n_ff
+    pfx = "model.language_model."
+    sd = {pfx + "embed_tokens.weight": rnd(cfg.vocab_size, e), pfx + "norm.weight": ones(e)}
+    for i in range(cfg.n_layers):
+        p = f"{pfx}layers.{i}."
+        sd.update({p + "input_layernorm.weight": ones(e),
+                   p + "post_attention_layernorm.weight": ones(e),
+                   p + "self_attn.q_proj.weight": rnd(cfg.n_q_dim, e),
+                   p + "self_attn.q_proj.bias": rnd(cfg.n_q_dim),
+                   p + "self_attn.k_proj.weight": rnd(cfg.n_kv_dim, e),
+                   p + "self_attn.k_proj.bias": rnd(cfg.n_kv_dim),
+                   p + "self_attn.v_proj.weight": rnd(cfg.n_kv_dim, e),
+                   p + "self_attn.v_proj.bias": rnd(cfg.n_kv_dim),
+                   p + "self_attn.o_proj.weight": rnd(e, cfg.n_q_dim),
+                   p + "mlp.gate_proj.weight": rnd(f, e), p + "mlp.up_proj.weight": rnd(f, e),
+                   p + "mlp.down_proj.weight": rnd(e, f)})
+
+    def b16(t):
+        return t.to(torch.bfloat16).cpu().contiguous()
+
+    v = "model.visual."
+    half = b16(cw.patch_w.T.reshape(ccfg.n_embd, 3, ccfg.patch_size, ccfg.patch_size) / 2)
+    tower = {v + "patch_embed.proj.weight": torch.stack([half, half], dim=2)}
+    for i, lw in enumerate(cw.layers):
+        p = f"{v}blocks.{i}."
+        tower.update({p + "norm1.weight": b16(lw.ln1_w), p + "norm1.bias": b16(lw.ln1_b),
+                      p + "norm2.weight": b16(lw.ln2_w), p + "norm2.bias": b16(lw.ln2_b),
+                      p + "attn.qkv.weight": b16(torch.cat([lw.wq.T, lw.wk.T, lw.wv.T])),
+                      p + "attn.qkv.bias": b16(torch.cat([lw.bq, lw.bk, lw.bv])),
+                      p + "attn.proj.weight": b16(lw.wo.T), p + "attn.proj.bias": b16(lw.bo),
+                      p + "mlp.fc1.weight": b16(lw.w_up.T), p + "mlp.fc1.bias": b16(lw.b_up),
+                      p + "mlp.fc2.weight": b16(lw.w_down.T), p + "mlp.fc2.bias": b16(lw.b_down)})
+    tower.update({v + "merger.ln_q.weight": b16(cw.post_ln_w),
+                  v + "merger.ln_q.bias": b16(cw.post_ln_b),
+                  v + "merger.mlp.0.weight": b16(cw.mm0_w.T),
+                  v + "merger.mlp.0.bias": b16(cw.mm0_b),
+                  v + "merger.mlp.2.weight": b16(cw.mm2_w.T),
+                  v + "merger.mlp.2.bias": b16(cw.mm2_b)})
+    save_safetensors(d / "model-00001-of-00002.safetensors", sd, metadata={"format": "pt"})
+    save_safetensors(d / "model-00002-of-00002.safetensors", tower, metadata={"format": "pt"})
+    return tower
+
+
+def tower_from_hf(ccfg, tower):
+    """The in-memory tower of the BF16 HF tensors, on the card: each weight
+    widened to f32 and laid out as ``load_mmproj`` lays out the converted
+    file's (the two stem halves summed in f32, [in, out] contiguous)."""
+    import torch
+
+    from rrs_tpu_torch.mtmd.clip import ClipLayer, ClipWeights
+
+    v, e = "model.visual.", ccfg.n_embd
+
+    def f32(name):
+        return tower[name].to(torch.float32)
+
+    def lin(t):
+        return t.T.contiguous().cuda()
+
+    stem = f32(v + "patch_embed.proj.weight")
+    patch_w = (stem[:, :, 0].reshape(e, -1) + stem[:, :, 1].reshape(e, -1)).T.contiguous()
+    layers = []
+    for i in range(ccfg.n_layers):
+        p = f"{v}blocks.{i}."
+        qkv, qkv_b = f32(p + "attn.qkv.weight"), f32(p + "attn.qkv.bias")
+        layers.append(ClipLayer(
+            ln1_w=f32(p + "norm1.weight").cuda(), ln1_b=f32(p + "norm1.bias").cuda(),
+            wq=lin(qkv[:e]), bq=qkv_b[:e].cuda(), wk=lin(qkv[e:2 * e]),
+            bk=qkv_b[e:2 * e].cuda(), wv=lin(qkv[2 * e:]), bv=qkv_b[2 * e:].cuda(),
+            wo=lin(f32(p + "attn.proj.weight")), bo=f32(p + "attn.proj.bias").cuda(),
+            ln2_w=f32(p + "norm2.weight").cuda(), ln2_b=f32(p + "norm2.bias").cuda(),
+            w_up=lin(f32(p + "mlp.fc1.weight")), b_up=f32(p + "mlp.fc1.bias").cuda(),
+            w_down=lin(f32(p + "mlp.fc2.weight")), b_down=f32(p + "mlp.fc2.bias").cuda()))
+    return ClipWeights(
+        patch_w=patch_w.cuda(), patch_b=None, pos_embd=None, pre_ln_w=None, pre_ln_b=None,
+        post_ln_w=f32(v + "merger.ln_q.weight").cuda(),
+        post_ln_b=f32(v + "merger.ln_q.bias").cuda(), layers=layers,
+        mm0_w=lin(f32(v + "merger.mlp.0.weight")), mm0_b=f32(v + "merger.mlp.0.bias").cuda(),
+        mm2_w=lin(f32(v + "merger.mlp.2.weight")), mm2_b=f32(v + "merger.mlp.2.bias").cuda())
+
+
+def vision_files_start(cfg_full, ccfg, cw, tmp):
+    """The file path's first half: the HF-format directory at Qwen2-VL-2B's
+    widths (text cut to 2 layers, the full 32-layer tower, BF16), then
+    ``convert-hf`` and ``convert-hf --mmproj``, each a process of its own,
+    left running beside the checks that follow. Returns what
+    ``vision_files_finish`` takes."""
+    import dataclasses
+
+    t0 = time.perf_counter()
+    hf = tmp / "qwen2vl-hf"
+    tower = write_hf_qwen2vl(hf, dataclasses.replace(cfg_full, n_layers=2), ccfg, cw,
+                             seed=TOOLS_SEED)
+    size = sum(p.stat().st_size for p in hf.iterdir())
+    print(f"  HF directory (text 2 of 28 layers, the 32-layer tower, BF16): {size / GB:.3f} GB "
+          f"written in {time.perf_counter() - t0:.1f} s; convert-hf and convert-hf --mmproj "
+          f"started", flush=True)
+    runs = [_verb_start(["convert-hf", hf, tmp / "qwen2vl-f16.gguf", "--outtype", "f16"]),
+            _verb_start(["convert-hf", hf, tmp / "mmproj.gguf", "--mmproj"])]
+    return runs, tower, t0
+
+
+def vision_files_finish(ccfg, pngs, tmp, started) -> None:
+    """The file path's second half: the converted tower's embeddings of the
+    448 x 448 image bit-equal, on the card, to those of the in-memory tower
+    built from the same BF16 weights; then ``serve -m ... --mmproj ...`` as a
+    process answering one chat request with the 448 x 672 image."""
+    import base64
+
+    import torch
+
+    from rrs_tpu_torch.mtmd.clip import load_mmproj
+    from rrs_tpu_torch.mtmd.image_io import decode_image
+    from rrs_tpu_torch.mtmd.pipeline import embed_images
+
+    runs, tower, t0 = started
+    ref_tower = tower_from_hf(ccfg, tower)
+    for r in runs:
+        _verb_wait(r, timeout=600)
+    fcfg, fw = load_mmproj(tmp / "mmproj.gguf", device="cuda")
+    arr = decode_image(pngs["448x448"])
+    (got, grid), = embed_images(fcfg, fw, [arr])
+    (ref, _), = embed_images(ccfg, ref_tower, [arr])
+    if fcfg != ccfg or not torch.equal(got, ref):
+        raise AssertionError(f"mmproj file tower vs the in-memory BF16 tower: config "
+                             f"{fcfg == ccfg}, max diff {(got - ref).abs().max().item():.3e}")
+    print(f"  convert-hf --mmproj: {(tmp / 'mmproj.gguf').stat().st_size / GB:.3f} GB f32; its "
+          f"tower's embeddings of the 448 x 448 image ({grid} merged grid) bit-equal to the "
+          f"in-memory tower of the same BF16 weights", flush=True)
+    del fw, ref_tower
+    torch.cuda.empty_cache()
+    handle = _verb_start(["serve", "-m", tmp / "qwen2vl-f16.gguf", "--mmproj",
+                          tmp / "mmproj.gguf", "--port", "0", "--parallel", "1", "--ctx", "1024"])
+    proc = handle[0]
+    t1 = time.perf_counter()
+    try:
+        port = None
+        for line in proc.stdout:
+            if line.startswith("serving "):
+                port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+                break
+        if port is None:
+            raise AssertionError(f"serve --mmproj did not start: {proc.stderr.read()[-2000:]}")
+        t_up = time.perf_counter() - t1
+        url = "data:image/png;base64," + base64.b64encode(pngs["448x672"]).decode()
+        t1 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/chat/completions", {"messages": [
+            {"role": "user", "content": [{"type": "text", "text": "what is this? "},
+                                         {"type": "image_url", "image_url": {"url": url}}]}],
+            "max_tokens": 8, "temperature": 0}, timeout=300)
+        dt = time.perf_counter() - t1
+        out = json.loads(data) if status == 200 else {}
+        if status != 200 or out["usage"]["completion_tokens"] != 8:
+            raise AssertionError(f"serve --mmproj chat: {status} {data[:300]!r}")
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=60)
+        _CHILDREN.remove(proc)
+    print(f"  $ python -m rrs_tpu_torch serve -m qwen2vl-f16.gguf --mmproj mmproj.gguf --port 0 "
+          f"--parallel 1 --ctx 1024: serving after {t_up:.1f} s; one chat request with the "
+          f"448 x 672 image answered 8 tokens in {dt * 1e3:.0f} ms; the file path took "
+          f"{time.perf_counter() - t0:.1f} s from the HF directory's first byte", flush=True)
+
+
+def phase_vision(reports, peaks, tmp) -> None:
+    """Qwen2-VL-2B (phase 18): (a) the full-width model in memory: each
+    image's tower, ``generate_with_images``, a held [text, image, text]
+    prefill and decode step, the server with image parts, a B = 1 decode
+    profile of an image lane; then (d)'s HF directory and converters, left
+    running beside (b) the tower on the card against the CPU port and (c) the
+    2-layer and small-width checks; then the rest of (d), the converted files
+    through ``serve --mmproj``."""
+    import torch
+
+    from rrs_tpu_torch.mtmd.image_io import decode_image
+    from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER, embed_images, multimodal_prefill
+
+    cfg, w, ccfg, cw = vision_model()
+    pngs = {name: vision_png(h, wd, seed=i) for i, (name, (h, wd)) in
+            enumerate(VISION_IMAGES.items())}
+    arrays = {name: decode_image(png) for name, png in pngs.items()}
+    vision_encode(ccfg, cw, arrays, peaks)
+    ctx = vision_generate(cfg, w, ccfg, cw, pngs, reports)
+    chunks = dict(zip(arrays, embed_images(ccfg, cw, list(arrays.values()))))
+    vision_held(ctx, chunks)
+    vision_serve(cfg, w, ccfg, cw, pngs)
+    vocab = synthetic_vocab(cfg.vocab_size)
+    profile_decode(ctx, None, label="Qwen2-VL-2B, a lane after the 448 x 448 image",
+                   prefill=lambda seq: multimodal_prefill(
+                       ctx, vocab, seq, f"describe {IMAGE_MARKER} briefly", [chunks["448x448"]]))
+    del ctx, w
+    started = vision_files_start(cfg, ccfg, cw, tmp)
+    vision_tower_cpu(ccfg, cw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision_small()
+    vision_files_finish(ccfg, pngs, tmp, started)
 
 
 def header(text: str) -> None:
@@ -6059,7 +6801,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/18] build")
+    header("[1/19] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -6073,32 +6815,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/18] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/19] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/18] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/19] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/18] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/19] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/18] served steps held to the plain versions; device decode run against "
+    header("[5/19] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/18] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/19] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/18] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/19] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     shift_held(ctx, "qwen3-4b")
@@ -6107,7 +6849,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/18] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/19] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -6117,14 +6859,14 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/18] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/19] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/18] the rest of the server at qwen3-4b width: grammar, JSON schema, "
+    header("[10/19] the rest of the server at qwen3-4b width: grammar, JSON schema, "
            "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(cfg, weights, reports)
@@ -6134,8 +6876,8 @@ def main() -> int:
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/18] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
-           "generate, serving and held served steps")
+    header("[11/19] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+           "generate (12 of 24 layers), serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
     cfg, weights = phase_gptoss_generate(reports)
@@ -6147,7 +6889,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/18] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/19] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -6170,7 +6912,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/18] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/19] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -6185,7 +6927,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/18] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/19] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -6194,13 +6936,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/18, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/19, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/18, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/19, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -6208,8 +6950,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/18] the attention families: tiny-mla and the dense families in 2 layers against "
-           "the CPU, then DeepSeek-V2-Lite (MLA) and gemma3-4b at their published widths")
+    header("[15/19] the attention families: tiny-mla and the dense families in 2 layers against "
+           "the CPU, then DeepSeek-V2-Lite (MLA, 9 of 27 layers) and gemma3-4b (12 of 34) at "
+           "their published widths")
     t15 = time.perf_counter()
     phase_families_small()
     phase_mla(reports)
@@ -6220,14 +6963,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/18] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+    header("[16/19] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
            "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/18] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+    header("[17/19] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
            "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
            "cvector, quantize-stats, fit-params")
     t17 = time.perf_counter()
@@ -6238,7 +6981,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
-    header("[18/18] summary")
+    header("[18/19] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
+           "image encodes, generate_with_images, held steps, image parts on the server, a "
+           "decode profile; the tower card vs CPU; 2-layer and projector checks; convert-hf "
+           "--mmproj and serve --mmproj as processes")
+    t18 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        phase_vision(reports, peaks, Path(tmp_name))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
+
+    header("[19/19] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

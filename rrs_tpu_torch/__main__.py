@@ -10,10 +10,11 @@ a ``-NNNNN-of-NNNNN`` set; ``quantize``, ``gguf-split``, ``tokenize``,
 ``export-lora``, ``fit-params`` and ``convert-hf`` are host code.
 ``generate`` decodes speculatively with ``--model-draft`` or by prompt
 lookup with ``--lookup``; ``serve`` takes a draft model and extra routable
-``--models``. Flags whose feature is not ported yet (multimodal
-projectors, tensor / data / pipeline parallelism) raise NotImplementedError
-naming their ROADMAP item; ``tts`` (A11) and ``finetune`` (A12) are not
-verbs yet.
+``--models`` and a vision projector (``--mmproj``). ``convert-hf --mmproj``
+extracts a VLM's vision tower. Flags whose feature is not ported yet (tensor /
+data / pipeline parallelism) raise NotImplementedError naming their ROADMAP
+item, as does an audio tower given to ``serve --mmproj`` (A11b); ``tts``
+(A11b) and ``finetune`` (A12) are not verbs yet.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def main(argv=None):
                    help="KV cache quantization")
     s.add_argument("--models", nargs="*", default=None,
                    help="extra routable models: name=path.gguf ... (multi-model router)")
-    s.add_argument("--mmproj", default=None, help="multimodal projector GGUF (not ported)")
+    s.add_argument("--mmproj", default=None,
+                   help="vision projector GGUF (an audio tower waits for ROADMAP A11b)")
     s.add_argument("--model-draft", "-md", default=None,
                    help="draft model GGUF for server-side speculative decoding")
     s.add_argument("--draft", type=int, default=4, help="speculative draft length")
@@ -211,7 +213,7 @@ def main(argv=None):
     hf.add_argument("out")
     hf.add_argument("--outtype", default="f32", choices=["f32", "f16"])
     hf.add_argument("--mmproj", action="store_true",
-                    help="extract the VLM vision tower into an mmproj GGUF (not ported)")
+                    help="extract the VLM vision tower into an mmproj GGUF")
 
     args = p.parse_args(argv)
     _refuse_unported(args)
@@ -265,10 +267,11 @@ def main(argv=None):
     elif args.cmd == "convert-hf":
         import numpy as np
 
-        from rrs_tpu_torch.tools.convert_hf import convert_hf_to_gguf
+        from rrs_tpu_torch.tools.convert_hf import convert_hf_mmproj, convert_hf_to_gguf
 
-        out = convert_hf_to_gguf(args.model_dir, args.out,
-                                 out_dtype=np.float16 if args.outtype == "f16" else np.float32)
+        fn = convert_hf_mmproj if args.mmproj else convert_hf_to_gguf
+        out = fn(args.model_dir, args.out,
+                 out_dtype=np.float16 if args.outtype == "f16" else np.float32)
         print(f"wrote {out}")
 
 
@@ -291,7 +294,6 @@ def _refuse_unported(args) -> None:
     slice (ROADMAP queue A)."""
     get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
     unported = {
-        "--mmproj (ROADMAP A11)": get("mmproj") not in (None, False),
         "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
         "--dist-* (ROADMAP A12)": any(get(k) is not None
                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),

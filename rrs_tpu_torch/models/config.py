@@ -21,9 +21,11 @@ and falcon_mamba (the ``ssm.*`` keys, with falcon-mamba's ``ssm.dt_b_c_rms``),
 rwkv6 and rwkv6qwen2 (head size, the low-rank extra widths and
 ``rescale_every_n_layers``), and the hybrid jamba (the ``ssm.*`` keys, and
 attention without RoPE). ``is_recurrent`` / ``is_hybrid`` pick their memories
-(``runtime/recurrent.py``'s ``make_context``). The multimodal qwen2vl
-(M-RoPE sections, A11), any other architecture, and RoPE scaling other than
-``none`` / ``linear`` / ``llama3`` / ``yarn`` raise NotImplementedError.
+(``runtime/recurrent.py``'s ``make_context``). qwen2vl, the text stack of
+Qwen2-VL / Qwen2.5-VL, is qwen2's body (qkv biases) with M-RoPE: its
+``rope.dimension_sections`` become ``rope_sections``. Any other architecture,
+and RoPE scaling other than ``none`` / ``linear`` / ``llama3`` / ``yarn``,
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,9 +38,8 @@ from rrs_tpu_torch.ops.basic import ROPE_SCALING_TYPES
 
 SUPPORTED_ARCHS = ("llama", "mistral", "qwen2", "qwen3", "qwen2moe", "qwen3moe", "gpt-oss",
                    "deepseek2", "gemma2", "gemma3", "granite", "minicpm", "olmo2", "phi3",
-                   "mamba", "mamba2", "falcon_mamba", "rwkv6", "rwkv6qwen2", "jamba")
-# architectures the JAX package runs that wait for a later slice, by ROADMAP item
-LATER_ARCHS = {"qwen2vl": "A11"}
+                   "mamba", "mamba2", "falcon_mamba", "rwkv6", "rwkv6qwen2", "jamba",
+                   "qwen2vl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +116,9 @@ class ModelConfig:
     rwkv_tm_extra: int = 0
     rwkv_decay_extra: int = 0
     rwkv_rescale_every: int = 0
+    # M-RoPE (qwen2vl): per-channel frequency-dim counts over rot / 2 (t, h,
+    # w[, e]); () => plain RoPE
+    rope_sections: tuple = ()
 
     @property
     def n_q_dim(self) -> int:
@@ -173,9 +177,6 @@ class ModelConfig:
     @staticmethod
     def from_gguf(md: Mapping[str, Any]) -> "ModelConfig":
         arch = md["general.architecture"]
-        if arch in LATER_ARCHS:
-            raise NotImplementedError(
-                f"architecture {arch!r} waits for ROADMAP {LATER_ARCHS[arch]} in rrs_tpu_torch")
         if arch not in SUPPORTED_ARCHS:
             raise NotImplementedError(
                 f"architecture {arch!r} is not ported to rrs_tpu_torch "
@@ -289,6 +290,10 @@ class ModelConfig:
                 # V2 files predate the gating-function key: softmax
                 expert_gating_softmax=int(key("expert_gating_func", 1) or 1) == 1,
             )
+        if arch == "qwen2vl":
+            sect = key("rope.dimension_sections")
+            if sect is not None:
+                extra.update(rope_sections=tuple(int(x) for x in sect))
         if arch == "jamba":
             extra.update(no_rope=True)
         if arch in ("rwkv6", "rwkv6qwen2"):
@@ -326,7 +331,7 @@ class ModelConfig:
             # llama and granite weights are pre-permuted for interleaved (NORM) rope
             rope_neox=arch not in ("llama", "granite"),
             qk_norm=arch in ("qwen3", "qwen3moe", "gemma3", "olmo2"),
-            attn_bias=arch in ("qwen2", "qwen2moe", "gpt-oss"),
+            attn_bias=arch in ("qwen2", "qwen2vl", "qwen2moe", "gpt-oss"),
             tie_embeddings=bool(md.get(f"{arch}.tie_word_embeddings", False)),
             n_experts=int(key("expert_count", 0) or 0),
             n_experts_used=int(key("expert_used_count", 0) or 0),

@@ -45,7 +45,7 @@ from rrs_tpu_torch.models.linear import (
     want_i8p,
 )
 from rrs_tpu_torch.models.moe import MoEWeights, moe_ffn
-from rrs_tpu_torch.ops.basic import RopeParams, apply_rope, gelu_tanh, rms_norm
+from rrs_tpu_torch.ops.basic import RopeParams, apply_mrope, apply_rope, gelu_tanh, rms_norm
 from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
                                                flash_attention_q4hp, flash_attention_q8)
 from rrs_tpu_torch.runtime import kv_codec
@@ -260,8 +260,14 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
         k = rms_norm(k, lw.k_norm, cfg.rms_eps)
     if not cfg.no_rope:                       # jamba's attention layers take none
         rp = rope_params(cfg, swa=swa)
-        q = apply_rope(q, positions, rp, freq_factors=rope_factors)
-        k = apply_rope(k, positions, rp, freq_factors=rope_factors)
+        if cfg.rope_sections and positions.dim() == 3:
+            # M-RoPE (qwen2vl): (t, h, w) channels; [B, T] positions of a
+            # text-only step fall through to apply_rope, the same rotation
+            q = apply_mrope(q, positions, rp, cfg.rope_sections)
+            k = apply_mrope(k, positions, rp, cfg.rope_sections)
+        else:
+            q = apply_rope(q, positions, rp, freq_factors=rope_factors)
+            k = apply_rope(k, positions, rp, freq_factors=rope_factors)
     s_l = (k_cache[0] if isinstance(k_cache, tuple) else k_cache).shape[2]
     starts = _layer_starts(slots, s_l, t, ring=window > 0)
     _store_cache(k_cache, k.transpose(1, 2), starts)
@@ -368,7 +374,8 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
             v_caches: list, mask_positions, cache_slots, last_idx=None,
-            slots: Optional[list] = None, cap=None, control_vector=None) -> torch.Tensor:
+            slots: Optional[list] = None, cap=None, control_vector=None,
+            embeds=None) -> torch.Tensor:
     """One decode/prefill step; returns logits [B, T, V] f32 (or [B, 1, V]
     with ``last_idx``). The index inputs ([B, T] int tokens, positions,
     mask positions (-1 = padded row) and cache slots) may live on the host:
@@ -380,14 +387,18 @@ def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list
     receives each linear's input sums of squares (``_capture``), and with a
     ``"__hidden__"`` dict in it each layer's mean output row in f32 (the
     cvector tool's collection); ``control_vector`` (``models.adapter.
-    ControlVector``) is added to the residual after each layer's FFN."""
+    ControlVector``) is added to the residual after each layer's FFN.
+    ``embeds`` [B, T, E] replaces the token embedding (image chunks; no
+    ``embd_scale``, which scales token embeddings only); ``positions`` of
+    rank 3 ([B, T, C]) are M-RoPE channels for a model with
+    ``rope_sections``."""
     dev = w.device
     tokens = torch.as_tensor(tokens).to(dev)
     positions = torch.as_tensor(positions).to(dev)
     if slots is None:
         slots = _lane_slots(cache_slots, mask_positions)
     mask_dev = torch.as_tensor(mask_positions).to(dev)
-    x = embed_tokens(cfg, w, tokens)
+    x = embed_tokens(cfg, w, tokens) if embeds is None else torch.as_tensor(embeds).to(dev)
     for li, lw in enumerate(w.layers):
         x = layer(cfg, w, lw, x, positions, k_caches[li], v_caches[li], mask_dev, slots, li,
                   cap=cap)
@@ -776,8 +787,8 @@ def fabricated_tcq4_moe_weights(cfg: ModelConfig, seed: int = 0, device=None) ->
 
 
 def to_device(obj, device):
-    """A copy of a weights tree (dataclasses, lists, tuples of tensors) on
-    ``device``."""
+    """A copy of a weights tree (dataclasses, lists, tuples and dicts of
+    tensors) on ``device``."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     if dataclasses.is_dataclass(obj):
@@ -785,6 +796,8 @@ def to_device(obj, device):
             f.name: to_device(getattr(obj, f.name), device) for f in dataclasses.fields(obj)})
     if isinstance(obj, (list, tuple)):
         return type(obj)(to_device(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
     return obj
 
 

@@ -1,0 +1,2 @@
+"""The multimodal front end of rrs_tpu_torch (see rrs_tpu/mtmd): the vision
+towers and projectors, image decoding, and the prompt pipeline."""

@@ -1,8 +1,8 @@
 """Normalization and positional ops: plain PyTorch.
 
 Port of ``rrs_tpu/ops/basic.py`` (``rms_norm``, ``layer_norm``, ``RopeParams``,
-``rope_frequencies``, ``apply_rope``, ``_rotate``). None of these is a TPU
-kernel: XLA fused them there. They compute in f32 and cast back to the
+``rope_frequencies``, ``apply_rope``, ``_rotate``, ``apply_mrope``: Qwen2-VL's
+M-RoPE). None of these is a TPU kernel: XLA fused them there. They compute in f32 and cast back to the
 input dtype at the same places as the JAX package.
 
 RoPE scaling: ``none`` (Qwen3), ``linear`` (gemma3's global layers: every
@@ -122,29 +122,39 @@ def rope_frequencies(p: RopeParams, device=None) -> torch.Tensor:
     return inv_freq
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams,
-               freq_factors=None) -> torch.Tensor:
-    """x [..., T, n_heads, head_dim]; positions broadcastable to [..., T];
-    ``freq_factors``: [rot_dim // 2] per-dimension frequency divisors."""
-    rot = p.rot_dim or p.head_dim
-    inv_freq = rope_frequencies(p, device=x.device)
+def rope_angles(positions: torch.Tensor, p: RopeParams, freq_factors=None):
+    """(angles [..., T, rot//2] f32, the cos / sin scale) of ``apply_rope``,
+    on the positions' device."""
+    inv_freq = rope_frequencies(p, device=positions.device)
     mscale = p.attn_factor
     if p.scaling_type == "yarn" and p.scale_factor != 1.0:
         mscale = p.attn_factor * (1.0 + 0.1 * math.log(p.scale_factor))
     if freq_factors is not None:
-        inv_freq = inv_freq / freq_factors.to(device=x.device, dtype=torch.float32)
+        inv_freq = inv_freq / freq_factors.to(device=positions.device, dtype=torch.float32)
         if p.orig_context > 0 and p.scale_factor > 1.0:
             mscale = mscale * math.sqrt(
                 1.0 + math.log(p.scale_factor) / math.log(p.orig_context))
-    angles = positions[..., None].to(torch.float32) * inv_freq     # [..., T, rot//2]
-    return _rotate(x, angles, mscale, rot, p.neox).to(x.dtype)
+    return positions[..., None].to(torch.float32) * inv_freq, mscale
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams,
+               freq_factors=None) -> torch.Tensor:
+    """x [..., T, n_heads, head_dim]; positions broadcastable to [..., T];
+    ``freq_factors``: [rot_dim // 2] per-dimension frequency divisors."""
+    angles, mscale = rope_angles(positions.to(x.device), p, freq_factors)
+    return _rotate(x, angles, mscale, p.rot_dim or p.head_dim, p.neox).to(x.dtype)
 
 
 def _rotate(x, angles, mscale, rot: int, neox: bool):
     """Rotate x [..., T, H, D] by per-(position, freq) angles [..., T, rot//2].
     Returns f32."""
-    cos = (torch.cos(angles) * mscale)[..., None, :]                # [..., T, 1, rot//2]
-    sin = (torch.sin(angles) * mscale)[..., None, :]
+    return rotate_cos_sin(x, torch.cos(angles) * mscale, torch.sin(angles) * mscale, rot, neox)
+
+
+def rotate_cos_sin(x, cos, sin, rot: int, neox: bool):
+    """Rotate x [..., T, H, D] by cos / sin [..., T, rot//2] (scale folded
+    in). Returns f32."""
+    cos, sin = cos[..., None, :], sin[..., None, :]                 # [..., T, 1, rot//2]
     xr = x[..., :rot].to(torch.float32)
     if neox:
         x1 = xr[..., : rot // 2]
@@ -157,3 +167,26 @@ def _rotate(x, angles, mscale, rot: int, neox: bool):
     if rot < x.shape[-1]:
         out = torch.cat([out, x[..., rot:].to(torch.float32)], dim=-1)
     return out
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, p: RopeParams,
+                sections: tuple) -> torch.Tensor:
+    """Multimodal rotary (Qwen2-VL's M-RoPE): x [..., T, n_heads, head_dim],
+    positions [..., T, C] integer channels (t, h, w[, e]). Frequency dim
+    j < rot/2 takes its angle from the channel whose section holds j; with
+    all channels equal this is ``apply_rope`` exactly."""
+    rot = p.rot_dim or p.head_dim
+    inv_freq = rope_frequencies(p, device=x.device)
+    parts = []
+    j = 0
+    for c, s in enumerate(sections):
+        if s <= 0:
+            continue
+        pc = positions[..., c].to(torch.float32)                    # [..., T]
+        parts.append(pc[..., None] * inv_freq[j:j + s])
+        j += s
+    if j != rot // 2:
+        raise ValueError(f"rope sections {sections} sum to {j}, "
+                         f"need rot/2 = {rot // 2}")
+    angles = torch.cat(parts, dim=-1)                               # [..., T, rot//2]
+    return _rotate(x, angles, p.attn_factor, rot, p.neox).to(x.dtype)

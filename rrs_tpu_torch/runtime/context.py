@@ -17,10 +17,15 @@ loop reads nothing back; the run is read back once, when the caller reads
 the handle; a chained run starts from the previous handle's device outputs.
 A run may carry a grammar's token DFA (``dfa=``): each step masks the
 lane's illegal tokens and steps the lane's DFA state on the device.
-``embed`` pools the final hidden states of a standalone forward. The mesh
-and the multimodal prefill wait for their slices. ``ContextBase`` holds what
-this context shares with the recurrent and hybrid ones (the device check,
-sequence ids, perf counters, the host penalty window, ``generate``).
+``embed`` pools the final hidden states of a standalone forward.
+``prefill_embeds`` feeds raw [T, E] embeddings (image chunks) in place of the
+token embedding, with Qwen2-VL's [T, 3] M-RoPE rows when given the chunk's
+merged grid. Whenever a lane's RoPE positions leave its slots (``seq_div``'s
+``slot_pos`` or an M-RoPE delta), every step feeds absolute positions per
+row (``_pos_rows``); the mask and the cache slots stay slot-derived. The mesh
+waits for its slice. ``ContextBase`` holds what this context shares with the
+recurrent and hybrid ones (the device check, sequence ids, perf counters,
+the host penalty window, ``generate``).
 """
 
 from __future__ import annotations
@@ -160,12 +165,16 @@ class InferenceContext(ContextBase):
 
     @staticmethod
     def _step(cfg, weights, kv: KVCache, tokens: np.ndarray, start_pos: np.ndarray,
-              last_only: bool = False, last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
+              last_only: bool = False, last_idx: Optional[np.ndarray] = None,
+              pos_row: Optional[np.ndarray] = None, embeds=None) -> torch.Tensor:
         """tokens [B, T] (-1 = padding); start_pos [B] (-1 = lane not in this
         step). Builds the causal positions and cache slots on the host and
         runs the forward; padded lanes attend nothing and park their cache
         writes at the top of the cache. ``last_only`` / ``last_idx`` [B]: only
-        the final / the given position of each lane reaches the lm_head."""
+        the final / the given position of each lane reaches the lm_head.
+        ``pos_row`` ([B, T] or M-RoPE [B, T, 3] ints): the RoPE positions, when
+        they leave the slots; ``embeds`` [B, T, E]: raw input embeddings in
+        place of the tokens'."""
         b, t = tokens.shape
         s = kv.max_seq
         pos = start_pos[:, None].astype(np.int32) + np.arange(t, dtype=np.int32)[None, :]
@@ -175,14 +184,27 @@ class InferenceContext(ContextBase):
         if last_only and last_idx is None:
             last_idx = np.full((b,), t - 1, np.int64)
         return llama_model.forward(
-            cfg, weights, torch.from_numpy(safe_tokens), torch.from_numpy(pos),
+            cfg, weights, torch.from_numpy(safe_tokens),
+            torch.from_numpy(pos if pos_row is None else pos_row),
             kv.k, kv.v, torch.from_numpy(mask_pos), torch.from_numpy(safe_slots),
-            last_idx=last_idx)
+            last_idx=last_idx, embeds=embeds)
+
+    def _pos_rows(self, start_pos_np: np.ndarray, t: int) -> Optional[np.ndarray]:
+        """[B, t] absolute RoPE positions when some lane's positions leave
+        its slots (a ``seq_div`` remap or an M-RoPE delta); None otherwise."""
+        if not (self.kv.slot_pos or self.kv.mrope_delta):
+            return None
+        rows = np.zeros((len(start_pos_np), t), np.int32)
+        for lane, st in enumerate(start_pos_np):
+            if int(st) >= 0:
+                rows[lane] = self.kv.positions_row(lane, int(st), t)
+        return rows
 
     def _run(self, tokens_np: np.ndarray, start_pos_np: np.ndarray, last_only: bool = False,
              last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
         return self._step(self.cfg, self.weights, self.kv, tokens_np, start_pos_np,
-                          last_only=last_only, last_idx=last_idx)
+                          last_only=last_only, last_idx=last_idx,
+                          pos_row=self._pos_rows(start_pos_np, tokens_np.shape[1]))
 
     @torch.inference_mode()
     def prefill(self, seq_id: int, tokens: list[int], all_logits: bool = True) -> torch.Tensor:
@@ -279,6 +301,38 @@ class InferenceContext(ContextBase):
         self._sync()
         self.t_prefill_s += time.perf_counter() - t0
         return out
+
+    @torch.inference_mode()
+    def prefill_embeds(self, seq_id: int, embeds, mrope_grid=None) -> torch.Tensor:
+        """Feed raw input embeddings [T, E] (an image chunk) in one step of
+        exactly T rows, in bf16; returns logits [T, V] f32 on the context's
+        device. ``mrope_grid`` ((gh, gw), the merged grid of a Qwen2-VL image):
+        the chunk takes the (t, h, w) M-RoPE rows of ``mrope_begin_image``,
+        which leaves the lane's later text positions trailing its slots."""
+        lane = self.kv.lane_of(seq_id)
+        b = self.kv.n_lanes
+        embeds = torch.as_tensor(embeds)
+        t = embeds.shape[0]
+        emb = torch.zeros((b, t, embeds.shape[1]), dtype=torch.bfloat16, device=self.device)
+        emb[lane] = embeds.to(self.device, torch.bfloat16)
+        start = np.full((b,), -1, np.int32)
+        start[lane] = self.kv.lengths[lane]
+        if mrope_grid is not None:
+            gh, gw = mrope_grid
+            if gh * gw != t:
+                raise ValueError(f"M-RoPE grid {mrope_grid} for a chunk of {t} rows")
+            pos_row = np.zeros((b, t, 3), np.int32)
+            pos_row[lane] = self.kv.mrope_begin_image(lane, gh, gw)
+        else:
+            pos_row = self._pos_rows(start, t)
+        t0 = time.perf_counter()
+        logits = self._step(self.cfg, self.weights, self.kv, np.zeros((b, t), np.int32), start,
+                            pos_row=pos_row, embeds=emb)[lane]
+        self._sync()
+        self.t_prefill_s += time.perf_counter() - t0
+        self.kv.lengths[lane] += t
+        self.n_prefill_tokens += t
+        return logits
 
     @torch.inference_mode()
     def decode(self, seq_tokens: dict[int, int]) -> dict[int, torch.Tensor]:

@@ -14,11 +14,15 @@ prompt caches, ``mark_retained`` / ``unmark_retained``, ``has_seq``,
 ``lengths_array`` and the context shift ``seq_shift``, which raises for a
 model with sliding layers, as the JAX package's does, and re-rotates only the
 leading ``qk_rope_dim`` dims of an MLA row. The forward writes new
-rows into these tensors in place, and ``seq_cp`` / ``seq_shift`` update them
-in place too.
+rows into these tensors in place, and ``seq_cp`` / ``seq_shift`` / ``seq_div``
+update them in place too.
 
-Tensor-parallel head sharding, ``seq_div`` position remaps and M-RoPE deltas
-wait for their slices.
+The position rows: a lane's RoPE positions are its slots unless ``seq_div``
+(self-extend) remapped them (``slot_pos``) or a Qwen2-VL image chunk left an
+M-RoPE text-position delta (``mrope_delta``, set by ``mrope_begin_image``);
+``positions_row`` / ``pos_offset`` read them for the context's ``pos_row``
+feed. The causal mask and the ring slots stay slot-derived. Tensor-parallel
+head sharding waits for its slice.
 """
 
 from __future__ import annotations
@@ -45,6 +49,12 @@ class KVCache:
     # seq_id -> retention time: lanes kept as prompt caches, evicted least
     # recently retained first when a new sequence needs a lane
     retained: dict = dataclasses.field(default_factory=dict)
+    # lane -> int32 NumPy [max_seq] slot -> position map (after seq_div);
+    # absent = positions are the slots
+    slot_pos: dict = dataclasses.field(default_factory=dict)
+    # lane -> M-RoPE text-position delta: after a Qwen2-VL image chunk, text
+    # positions resume at base + max(gh, gw), so positions = slot + delta
+    mrope_delta: dict = dataclasses.field(default_factory=dict)
 
     @property
     def quantized(self) -> bool:
@@ -114,6 +124,8 @@ class KVCache:
             raise RuntimeError("KV cache: no free lane")
         self.seq_ids[lane] = seq_id
         self.lengths[lane] = 0
+        self.slot_pos.pop(lane, None)
+        self.mrope_delta.pop(lane, None)
         return lane
 
     def mark_retained(self, seq_id: int) -> None:
@@ -133,6 +145,8 @@ class KVCache:
             self.seq_ids[lane] = None
             self.lengths[lane] = 0
             self.retained.pop(seq_id, None)
+            self.slot_pos.pop(lane, None)
+            self.mrope_delta.pop(lane, None)
         else:
             self.lengths[lane] = min(self.lengths[lane], p0)
 
@@ -143,6 +157,10 @@ class KVCache:
         for c in self.tensors():
             c[dst].copy_(c[src])
         self.lengths[dst] = self.lengths[src]
+        if src in self.slot_pos:
+            self.slot_pos[dst] = self.slot_pos[src].copy()
+        if src in self.mrope_delta:
+            self.mrope_delta[dst] = self.mrope_delta[src]
 
     def seq_keep(self, seq_id: int) -> None:
         for s in list(self.seq_ids):
@@ -208,3 +226,102 @@ class KVCache:
             k[lane] = shift_k(k[lane]).to(k.dtype)
             v[lane] = roll(v[lane])
         self.lengths[lane] = n - n_discard
+
+    def positions_row(self, lane: int, start: int, t: int):
+        """RoPE positions (int32 NumPy [t]) for t new tokens written at slots
+        [start, start + t): the slots, plus the lane's M-RoPE delta, unless
+        ``seq_div`` remapped the lane."""
+        import numpy as np
+
+        sp = self.slot_pos.get(lane)
+        if sp is None:
+            return np.arange(start, start + t, dtype=np.int32) + self.mrope_delta.get(lane, 0)
+        return sp[start:start + t].copy()
+
+    def pos_offset(self, lane: int) -> int:
+        """position - slot for the lane's next token (constant for all later
+        slots)."""
+        sp = self.slot_pos.get(lane)
+        if sp is None:
+            return self.mrope_delta.get(lane, 0)
+        n = self.lengths[lane]
+        return int(sp[min(n, self.max_seq - 1)]) - n
+
+    def mrope_begin_image(self, lane: int, gh: int, gw: int):
+        """Qwen2-VL M-RoPE positions for an image chunk of gh x gw merged grid
+        tokens about to be appended to this lane: channel t stays at the
+        chunk's base position while h / w walk the grid's rows / columns; the
+        text after it resumes at base + max(gh, gw), recorded as the lane's
+        delta. Returns the chunk's int32 [gh * gw, 3] (t, h, w) rows."""
+        import numpy as np
+
+        base = self.lengths[lane] + self.mrope_delta.get(lane, 0)
+        r = np.arange(gh * gw, dtype=np.int32)
+        rows = np.stack([np.full(gh * gw, base, np.int32), base + r // gw, base + r % gw], axis=1)
+        self.mrope_delta[lane] = base + max(gh, gw) - (self.lengths[lane] + gh * gw)
+        return rows
+
+    def seq_div(self, cfg: ModelConfig, seq_id: int, p0: int, p1: int, d: int) -> None:
+        """Self-extend: divide the positions of this sequence's cached cells
+        whose position lies in [p0, p1) by d. Cells stay in their slots (floor
+        division is monotone, so the slot-ordered causal mask stays valid) and
+        the cached K is re-rotated by each slot's position delta; later tokens
+        continue at max(new positions) + 1 through ``slot_pos``. As in the
+        JAX package, a quantized K lane is dequantized, rotated and
+        requantized whole. The rotation's cos / sin table is computed on the
+        host, so that the card and the CPU rotate by the same bits. Raises for
+        a model with sliding layers."""
+        import numpy as np
+
+        from rrs_tpu_torch.models.llama import mla_rope_params, rope_params
+        from rrs_tpu_torch.ops.basic import rope_angles, rotate_cos_sin
+        from rrs_tpu_torch.runtime import kv_codec
+
+        if d <= 1:
+            return
+        if cfg.any_swa:
+            raise RuntimeError("seq_div is not supported for SWA models")
+        lane = self.lane_of(seq_id)
+        n = self.lengths[lane]
+        if n == 0:
+            return
+        pos = self.slot_pos.get(lane)
+        pos = np.arange(self.max_seq, dtype=np.int32) if pos is None else pos.copy()
+        p0 = max(p0, 0)
+        if p1 < 0:
+            p1 = np.iinfo(np.int32).max
+        sel = (pos[:n] >= p0) & (pos[:n] < p1)
+        if not sel.any():
+            return
+        new_prefix = pos[:n].copy()
+        new_prefix[sel] //= d
+        delta_np = np.zeros((self.max_seq,), np.int32)
+        delta_np[:n] = new_prefix - pos[:n]
+        pos[:n] = new_prefix
+        pos[n:] = int(new_prefix.max()) + 1 + np.arange(self.max_seq - n, dtype=np.int32)
+        self.slot_pos[lane] = pos
+        if not delta_np.any():
+            return
+        if cfg.is_mla:
+            rp = dataclasses.replace(mla_rope_params(cfg), head_dim=cfg.kv_k_dim,
+                                     rot_dim=cfg.qk_rope_dim)
+        else:
+            rp = rope_params(cfg)
+        dev = self.tensors()[0].device
+        angles, mscale = rope_angles(torch.from_numpy(delta_np)[None, :], rp)      # [1, S, rot/2]
+        cos = (torch.cos(angles) * mscale).to(dev)
+        sin = (torch.sin(angles) * mscale).to(dev)
+
+        def rotate(lk):                                  # [H, S, D] -> f32 rotated
+            return rotate_cos_sin(lk.to(torch.float32).transpose(0, 1)[None], cos, sin,
+                                  rp.rot_dim or rp.head_dim, rp.neox)[0].transpose(0, 1)
+
+        for k in self.k:
+            if isinstance(k, tuple):
+                arr, sc = k
+                q, s_new = kv_codec.quantize_rows(
+                    rotate(kv_codec.dequantize(arr[lane], sc[lane])), kv_codec.kv_qmax(arr))
+                arr[lane] = kv_codec.pack_like(q, arr[lane], sc[lane])
+                sc[lane, :, 0] = s_new
+                continue
+            k[lane] = rotate(k[lane]).to(k.dtype)

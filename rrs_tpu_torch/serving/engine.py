@@ -26,8 +26,11 @@ on the device and stays chained; without it, the run samples freely and the
 host PDA validates each token at flush, a violation resampled from the run's
 captured candidates. Infill slots take the host chain's infill sampler. With
 a draft context, a lone greedy slot decodes speculatively (the draft
-proposes, the target verifies in one chunked step). Multimodal segments wait
-for ROADMAP A11 and are refused loudly.
+proposes, the target verifies in one chunked step). A multimodal request
+carries ordered ``segments`` (token runs and image embedding chunks, a
+Qwen2-VL chunk with its merged grid): it prefills one segment a step, skips
+the prompt cache on both ends, and decodes step by step once its lane's
+positions leave its slots (an M-RoPE delta or a ``seq_div`` remap).
 """
 
 from __future__ import annotations
@@ -133,7 +136,9 @@ class GenRequest:
     n_probs: int = 0                          # top-k logprobs per token
     # callback(token_id, logprob, [(tid, logprob) x n_probs])
     on_probs: Optional[Callable] = None
-    segments: Optional[list] = None           # multimodal: waits for ROADMAP A11
+    # multimodal: ordered prompt segments ("tokens", [ids]) | ("embeds", [T, E])
+    # | ("embeds_mrope", ([T, E], (gh, gw))); when set, prompt_tokens is not fed
+    segments: Optional[list] = None
     infill: bool = False                      # fill-in-the-middle: the infill sampler
     # set by the submitter (e.g. on client disconnect) to stop generating
     abort: bool = False
@@ -165,10 +170,14 @@ class Slot:
     finish_reason: str = "stop"
 
 
-def _unported(req: GenRequest) -> Optional[str]:
-    if req.segments is not None:
-        return "multimodal prompts wait for ROADMAP A11"
-    return None
+def _segment_rows(seg) -> int:
+    """Cache rows a prompt segment fills."""
+    kind, payload = seg
+    if kind == "embeds":
+        return payload.shape[0]
+    if kind == "embeds_mrope":
+        return payload[0].shape[0]
+    return len(payload)
 
 
 class Engine:
@@ -220,9 +229,6 @@ class Engine:
         self._thread.join(timeout=5)
 
     def submit(self, req: GenRequest) -> int:
-        why = _unported(req)
-        if why:
-            raise NotImplementedError(why)
         with self._lock:
             self._next_id += 1
             req.id = self._next_id
@@ -312,7 +318,8 @@ class Engine:
 
     def _launch(self, slot: Slot, req: GenRequest):
         kv = self.ctx.kv
-        n_prompt = len(req.prompt_tokens)
+        n_prompt = (len(req.prompt_tokens) if req.segments is None
+                    else sum(_segment_rows(seg) for seg in req.segments))
         if n_prompt >= kv.max_seq:
             # admitting it would clip every overflow position into the last cell
             if req.on_token:
@@ -327,6 +334,9 @@ class Engine:
             # is off in speculative mode (the two caches stay in lockstep)
             self.erase_slot(slot.index)
             slot.draft_seq = self.draft_ctx.new_sequence()
+        if req.segments is not None:
+            # image chunks are not tokens: no prefix reuse
+            self.erase_slot(slot.index)
         if slot.retained_seq >= 0 and not kv.has_seq(slot.retained_seq):
             slot.retained_seq = -1      # the prompt cache was LRU-evicted
             slot.cache_tokens = []
@@ -381,8 +391,10 @@ class Engine:
             if self.draft_ctx.kv.has_seq(slot.draft_seq):
                 self.draft_ctx.kv.seq_rm(slot.draft_seq)
             slot.draft_seq = -1
-        if slot.seq_id >= 0 and self.ctx.cfg.any_swa:
-            # ring caches cannot serve a later request's prefix: free the lane
+        if slot.seq_id >= 0 and (self.ctx.cfg.any_swa or (req is not None
+                                                          and req.segments is not None)):
+            # ring caches cannot serve a later request's prefix, nor can a
+            # lane holding image rows (its cache is not its tokens): free it
             self.ctx.kv.seq_rm(slot.seq_id)
         elif slot.seq_id >= 0:
             # retain the lane's KV as a prompt cache for the next request
@@ -633,7 +645,7 @@ class Engine:
         if prompt_slots:
             # a context without prefill_multi (recurrent, hybrid) prefills one
             # slot a step
-            batchable = [s for s in prompt_slots if s.draft_seq < 0] \
+            batchable = [s for s in prompt_slots if s.draft_seq < 0 and s.req.segments is None] \
                 if hasattr(self.ctx, "prefill_multi") else []
             group = batchable if len(batchable) >= 2 else prompt_slots[:1]
             try:
@@ -681,6 +693,21 @@ class Engine:
                 self._finish_prompt(s, outs[s.seq_id])
 
     def _prompt_step(self, s: Slot) -> None:
+        if s.req.segments is not None:
+            # multimodal: one segment a step, tokens or an image chunk
+            kind, payload = s.req.segments[s.prompt_pos]
+            if kind == "embeds":
+                logits = self.ctx.prefill_embeds(s.seq_id, payload)
+            elif kind == "embeds_mrope":
+                emb, grid = payload
+                logits = self.ctx.prefill_embeds(s.seq_id, emb, mrope_grid=grid)
+            else:
+                logits = self.ctx.prefill(s.seq_id, list(payload) or [0], all_logits=False)
+            self.n_prompt_tokens += _segment_rows((kind, payload))
+            s.prompt_pos += 1
+            if s.prompt_pos >= len(s.req.segments):
+                self._finish_prompt(s, logits[-1])
+            return
         chunk = s.req.prompt_tokens[s.prompt_pos: s.prompt_pos + self.PROMPT_CHUNK]
         if not chunk:
             chunk = [0]         # empty prompt: one placeholder token
@@ -758,12 +785,16 @@ class Engine:
         runs; a grammar slot needs its pieces (to be validated at flush);
         infill and draft slots take their own paths; the lane needs room for
         the whole run below the shift trigger. A context without a device
-        decode run (recurrent, hybrid) decodes step by step."""
+        decode run (recurrent, hybrid), and a lane whose positions leave its
+        slots (``seq_div``, an M-RoPE image), decode step by step."""
         if not hasattr(self.ctx, "decode_run_start"):
             return False
         p = s.req.params
         n = self.ctx.DECODE_RUN_STEPS
         kv = self.ctx.kv
+        lane = kv.lane_of(s.seq_id)
+        if kv.slot_pos.get(lane) is not None or kv.mrope_delta.get(lane):
+            return False
         if self.ctx._penalties_active(p) and 0 <= p.penalty_last_n < 2 * n:
             return False
         if s.grammar is not None and not s.req.token_pieces:

@@ -22,8 +22,14 @@ A non-streamed completion reports ``usage`` with the exact count of
 generated tokens and the reference server's ``timings`` (prompt_ms: submit
 to first token; predicted_ms: first token to finish).
 
-Image or audio content parts answer 501 with a JSON error naming ROADMAP
-A11, which brings them.
+With a vision projector (``serve --mmproj``), the chat route lifts each
+``image_url`` part out of the messages, in order, leaving a marker in the
+rendered text; each image is decoded (PNG without Pillow; a format that
+cannot be decoded answers 400), encoded by the tower and fed as an embedding
+chunk between the text's token runs (the engine's ``segments``). Without a
+projector an image part reaches the chat template as it is, as in the JAX
+package. Audio content parts answer 501 with a JSON error naming ROADMAP
+A11b, which brings them.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from rrs_tpu_torch.serving.chat import (build_prompt, detect_template, detect_to
                                         extract_reasoning, parse_tool_calls)
 from rrs_tpu_torch.serving.engine import Engine, GenRequest
 
-MEDIA = "image and audio content parts wait for ROADMAP A11 (multimodal slice)"
+AUDIO = "audio content parts (input_audio) wait for ROADMAP A11b (the audio slice)"
 WEBUI = Path(__file__).resolve().parent / "webui.html"
 
 
@@ -111,6 +117,9 @@ class ServerState:
         # the router: name -> ModelHandle; a request whose "model" names one
         # runs on that model's engine
         self.models: dict[str, ModelHandle] = {}
+        # the vision tower (``--mmproj``): its ClipConfig and ClipWeights
+        self.clip_cfg = None
+        self.clip_weights = None
 
     def render_chat(self, messages, tools=None, add_assistant=True):
         """(prompt text, extra stop strings) via the model's Jinja template,
@@ -144,9 +153,9 @@ def _sampler_params(body: dict) -> SamplerParams:
     )
 
 
-def _has_media(messages) -> bool:
+def _has_audio(messages) -> bool:
     return any(isinstance(m.get("content"), list)
-               and any(isinstance(p, dict) and p.get("type") in ("image_url", "input_audio")
+               and any(isinstance(p, dict) and p.get("type") == "input_audio"
                        for p in m["content"])
                for m in messages if isinstance(m, dict))
 
@@ -214,7 +223,7 @@ def make_handler(state: ServerState):
             return json.loads(self.rfile.read(n) or b"{}")
 
         def _run_request(self, prompt_tokens, body, stop_strings=(), probs_out=None,
-                         infill=False):
+                         infill=False, segments=None):
             """Submit and collect: returns an iterator of (piece, finished,
             reason) with the submitted GenRequest as ``.req`` (aborted on
             disconnect). Set-up (grammar parse, schema conversion, submit)
@@ -261,6 +270,7 @@ def make_handler(state: ServerState):
                 n_probs=n_probs,
                 on_probs=on_probs,
                 infill=infill,
+                segments=segments,
             )
             self.st.engine.submit(req)
 
@@ -454,8 +464,8 @@ def make_handler(state: ServerState):
                 self._json({"content": self.st.vocab.decode(body.get("tokens", []))})
             elif path == "/apply-template":
                 messages = body.get("messages", [])
-                if _has_media(messages):
-                    self._not_ported(MEDIA)
+                if _has_audio(messages):
+                    self._not_ported(AUDIO)
                     return
                 text, _ = self.st.render_chat(messages, tools=body.get("tools") or None)
                 self._json({"prompt": text})
@@ -502,8 +512,8 @@ def make_handler(state: ServerState):
             (message_start, content_block_start / _delta / _stop,
             message_delta, message_stop) when streamed."""
             messages = list(body.get("messages", []))
-            if _has_media(messages):
-                self._not_ported(MEDIA)
+            if _has_audio(messages):
+                self._not_ported(AUDIO)
                 return
             if body.get("system"):
                 messages = [{"role": "system", "content": body["system"]}] + messages
@@ -637,15 +647,26 @@ def make_handler(state: ServerState):
 
         def _chat(self, body):
             messages = body.get("messages", [])
-            if _has_media(messages):
-                self._not_ported(MEDIA)
+            if _has_audio(messages):
+                self._not_ported(AUDIO)
                 return
             tools = body.get("tools") or None
+            images = []
+            if self.st.clip_weights is not None:
+                messages, images = _lift_images(messages)
             text, chat_stops = self.st.render_chat(messages, tools=tools)
             toks = self.st.vocab.encode(text, add_special=False)
             rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
             probs = []
-            gen = self._start(toks, body, stop_strings=chat_stops, probs_out=probs)
+            segments = None
+            if images:
+                try:
+                    segments = self._image_segments(text, images)
+                except Exception as e:                        # noqa: BLE001
+                    self._json({"error": str(e)}, 400)
+                    return
+            gen = self._start(toks, body, stop_strings=chat_stops, probs_out=probs,
+                              segments=segments)
             if gen is None:
                 return
             if body.get("stream"):
@@ -679,6 +700,24 @@ def make_handler(state: ServerState):
                         "created": int(time.time()), "choices": [choice],
                         **self._usage(gen, len(toks))})
 
+        def _image_segments(self, text: str, images: list) -> list:
+            """The rendered text split at the image markers into token runs,
+            each image decoded and encoded into its embedding chunk between
+            them (a Qwen2-VL chunk with its merged grid)."""
+            from rrs_tpu_torch.mtmd.pipeline import (IMAGE_MARKER, decode_image_b64,
+                                                     embed_images)
+
+            chunks = embed_images(self.st.clip_cfg, self.st.clip_weights,
+                                  [decode_image_b64(url) for url in images])
+            segments = []
+            for i, piece in enumerate(text.split(IMAGE_MARKER)):
+                if piece:
+                    segments.append(("tokens", self.st.vocab.encode(piece, add_special=False)))
+                if i < len(chunks):
+                    segments.append(("embeds_mrope" if isinstance(chunks[i], tuple)
+                                     else "embeds", chunks[i]))
+            return segments
+
         def _completion(self, body):
             prompt = body.get("prompt", "")
             toks = (prompt if isinstance(prompt, list)
@@ -711,6 +750,43 @@ def make_handler(state: ServerState):
     return Handler
 
 
+def _lift_images(messages):
+    """Each ``image_url`` part of the messages, in order, replaced by a text
+    part holding the image marker: (new messages, the image URLs)."""
+    from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER
+
+    images, out = [], []
+    for m in messages:
+        c = m.get("content")
+        if isinstance(c, list):
+            parts = []
+            for part in c:
+                if isinstance(part, dict) and part.get("type") == "image_url":
+                    url = part["image_url"]
+                    images.append(url.get("url") if isinstance(url, dict) else url)
+                    parts.append({"type": "text", "text": IMAGE_MARKER})
+                else:
+                    parts.append(part)
+            m = {**m, "content": parts}
+        out.append(m)
+    return out, images
+
+
+def load_vision_tower(path: str, device=None):
+    """``--mmproj``: the vision tower of an mmproj GGUF, (ClipConfig,
+    ClipWeights) on ``device``; a file with an audio tower is refused."""
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.mtmd.clip import load_mmproj
+
+    with read_gguf(path) as g:
+        names = set(g.tensors)
+    if "a.conv1d.1.weight" in names:
+        raise NotImplementedError(f"{path}: audio towers wait for ROADMAP A11b")
+    if "v.blk.0.ln1.weight" not in names and "v.patch_embd.weight" not in names:
+        raise ValueError(f"{path}: no vision tower (v.* tensors) in this mmproj file")
+    return load_mmproj(path, device=device)
+
+
 def serve(args):
     """``python -m rrs_tpu_torch serve``: load the GGUF on ``args.device``,
     start the engine and serve HTTP until interrupted."""
@@ -729,9 +805,13 @@ def serve(args):
         draft_ctx = make_context(dcfg, dweights, n_lanes=args.parallel, max_seq=args.ctx,
                                  device=args.device)
         print(f"speculative decoding with draft {args.model_draft}", flush=True)
+    clip = load_vision_tower(args.mmproj, device=args.device) if args.mmproj else None
     engine = Engine(ctx, draft_ctx=draft_ctx, n_draft=args.draft)
     engine.start()
     state = ServerState(cfg, vocab, engine, md, model_name=str(args.model))
+    if clip is not None:
+        state.clip_cfg, state.clip_weights = clip
+        print(f"loaded vision projector {args.mmproj} ({clip[0].projector_type})", flush=True)
     if args.slot_save_path:
         os.makedirs(args.slot_save_path, exist_ok=True)
         state.slot_save_path = args.slot_save_path

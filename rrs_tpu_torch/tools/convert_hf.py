@@ -12,8 +12,11 @@ cannot hold BF16); ``.bin`` files go through ``torch.load(weights_only=True)``.
 
 Covered architectures: llama / mistral, granite, olmo2, qwen2, qwen3,
 qwen2moe, qwen3moe, gemma2, gemma3, mamba, deepseek2 (V2 / V3), gpt-oss,
-phi3 and the qwen2vl text stack. The vision tower's mmproj extraction
-(``convert-hf --mmproj``) waits for ROADMAP A11.
+phi3 and the qwen2vl text stack. ``convert_hf_mmproj`` (``convert-hf
+--mmproj``) extracts a VLM's vision tower into an mmproj GGUF with clip.cpp's
+tensor and key names: Qwen2-VL / Qwen2.5-VL (the conv3d stem split into its
+two temporal slices, the fused qkv split, the merger), Pixtral, Idefics3 and
+InternVL, the same bytes as the JAX package's.
 
 Key conversion details mirrored from the reference converter:
   * llama/mistral q/k weights are PERMUTED for interleaved (NORM) rope
@@ -532,5 +535,330 @@ def convert_hf_to_gguf(model_dir: str | Path, out_path: str | Path,
     put_norm("output_norm.weight", sd[f"{pfx}norm.weight"])
     if not tie and "lm_head.weight" in sd:
         put("output.weight", sd["lm_head.weight"])
+    w.write()
+    return Path(out_path)
+
+
+def convert_hf_mmproj(model_dir: str | Path, out_path: str | Path,
+                      out_dtype=np.float32) -> Path:
+    """Extract the vision tower of a VLM checkpoint into an mmproj GGUF
+    (the reference's --mmproj converter mode; clip-impl.h tensor/KV names).
+    Supports Qwen2-VL (PROJECTOR_TYPE_QWEN2VL: conv3d stem split into two
+    temporal slices, fused qkv split, merger MLP)."""
+    model_dir = Path(model_dir)
+    cfg = json.loads((model_dir / "config.json").read_text())
+    arch_name = (cfg.get("architectures") or ["?"])[0]
+    vc_type = (cfg.get("vision_config") or {}).get("model_type")
+    if vc_type == "pixtral":
+        return _convert_mmproj_pixtral(model_dir, cfg, out_path, out_dtype)
+    if arch_name == "Idefics3ForConditionalGeneration":
+        return _convert_mmproj_idefics3(model_dir, cfg, out_path, out_dtype)
+    if arch_name == "InternVLForConditionalGeneration":
+        return _convert_mmproj_internvl(model_dir, cfg, out_path, out_dtype)
+    is25 = (arch_name == "Qwen2_5_VLForConditionalGeneration"
+            or cfg.get("model_type") == "qwen2_5_vl"
+            or vc_type == "qwen2_5_vl")
+    if not is25 and arch_name != "Qwen2VLForConditionalGeneration" \
+            and cfg.get("model_type") != "qwen2_vl":
+        raise ValueError(f"mmproj extraction not supported for {arch_name}")
+    vc = cfg["vision_config"]
+    e = int(vc.get("embed_dim", vc.get("hidden_size")))
+    depth = int(vc.get("depth", 32))
+    heads = int(vc.get("num_heads", 16))
+    n_ff = int(vc.get("intermediate_size", e * int(vc.get("mlp_ratio", 4))))
+    # 2.5 renames: vision dim = hidden_size, LLM dim = out_hidden_size
+    out_dim = int(vc.get("out_hidden_size",
+                         vc.get("hidden_size", cfg.get("hidden_size"))))
+    patch = int(vc.get("patch_size", 14))
+    merge = int(vc.get("spatial_merge_size", 2))
+    tpatch = int(vc.get("temporal_patch_size", 2))
+
+    sd = _load_state_dict(model_dir)
+    vp = "visual." if any(k.startswith("visual.") for k in sd) \
+        else "model.visual."
+
+    w = GGUFWriter(out_path)
+    w.add_string("general.architecture", "clip")
+    w.add_string("clip.projector_type",
+                 "qwen2.5vl_merger" if is25 else "qwen2vl_merger")
+    w.add_bool("clip.has_vision_encoder", True)
+    if is25:
+        # HF fullatt_block_indexes [7,15,23,31] <-> the reference's
+        # periodic n_wa_pattern (clip.cpp KEY_WIN_ATTN_PATTERN): full
+        # attention every (idx0+1) layers
+        fab = vc.get("fullatt_block_indexes") or [7]
+        w.add_uint32("clip.vision.n_wa_pattern", int(fab[0]) + 1)
+        w.add_uint32("clip.vision.attn_window_size",
+                     int(vc.get("window_size", 112)))
+    w.add_uint32("clip.vision.patch_size", patch)
+    w.add_uint32("clip.vision.image_size", patch * merge)  # dynamic-res min
+    w.add_uint32("clip.vision.embedding_length", e)
+    w.add_uint32("clip.vision.block_count", depth)
+    w.add_uint32("clip.vision.attention.head_count", heads)
+    w.add_uint32("clip.vision.feed_forward_length", n_ff)
+    w.add_uint32("clip.vision.projection_dim", out_dim)
+    w.add_uint32("clip.vision.spatial_merge_size", merge)
+    w.add_float32("clip.vision.attention.layer_norm_epsilon", 1e-6)
+
+    def put(name, arr):
+        w.add_tensor(name, np.ascontiguousarray(
+            np.asarray(arr).astype(out_dtype)))
+
+    # conv3d stem [E, 3, tpatch, p, p] -> two temporal slices, matching the
+    # reference's v.patch_embd.weight / .weight.1 split
+    pw = sd[vp + "patch_embed.proj.weight"].reshape(e, 3, tpatch, patch,
+                                                    patch)
+    put("v.patch_embd.weight", pw[:, :, 0])
+    put("v.patch_embd.weight.1", pw[:, :, 1])
+    for i in range(depth):
+        hp = f"{vp}blocks.{i}."
+        gp = f"v.blk.{i}."
+        put(gp + "ln1.weight", sd[hp + "norm1.weight"])
+        if hp + "norm1.bias" in sd:               # 2.5: RMS, no bias
+            put(gp + "ln1.bias", sd[hp + "norm1.bias"])
+        qkv_w = sd[hp + "attn.qkv.weight"]        # [3E, E] fused
+        qkv_b = sd[hp + "attn.qkv.bias"]
+        for j, nm in enumerate(("q", "k", "v")):
+            put(gp + f"attn_{nm}.weight", qkv_w[j * e:(j + 1) * e])
+            put(gp + f"attn_{nm}.bias", qkv_b[j * e:(j + 1) * e])
+        put(gp + "attn_out.weight", sd[hp + "attn.proj.weight"])
+        put(gp + "attn_out.bias", sd[hp + "attn.proj.bias"])
+        put(gp + "ln2.weight", sd[hp + "norm2.weight"])
+        if hp + "norm2.bias" in sd:
+            put(gp + "ln2.bias", sd[hp + "norm2.bias"])
+        if is25:                                  # silu-gated MLP
+            put(gp + "ffn_gate.weight", sd[hp + "mlp.gate_proj.weight"])
+            put(gp + "ffn_gate.bias", sd[hp + "mlp.gate_proj.bias"])
+            put(gp + "ffn_up.weight", sd[hp + "mlp.up_proj.weight"])
+            put(gp + "ffn_up.bias", sd[hp + "mlp.up_proj.bias"])
+            put(gp + "ffn_down.weight", sd[hp + "mlp.down_proj.weight"])
+            put(gp + "ffn_down.bias", sd[hp + "mlp.down_proj.bias"])
+        else:
+            put(gp + "ffn_up.weight", sd[hp + "mlp.fc1.weight"])
+            put(gp + "ffn_up.bias", sd[hp + "mlp.fc1.bias"])
+            put(gp + "ffn_down.weight", sd[hp + "mlp.fc2.weight"])
+            put(gp + "ffn_down.bias", sd[hp + "mlp.fc2.bias"])
+    # merger: ln_q -> post_ln, mlp.{0,2} -> mm.{0,2}
+    put("v.post_ln.weight", sd[vp + "merger.ln_q.weight"])
+    if vp + "merger.ln_q.bias" in sd:
+        put("v.post_ln.bias", sd[vp + "merger.ln_q.bias"])
+    put("mm.0.weight", sd[vp + "merger.mlp.0.weight"])
+    put("mm.0.bias", sd[vp + "merger.mlp.0.bias"])
+    put("mm.2.weight", sd[vp + "merger.mlp.2.weight"])
+    put("mm.2.bias", sd[vp + "merger.mlp.2.bias"])
+    w.write()
+    return Path(out_path)
+
+
+def _convert_mmproj_pixtral(model_dir: Path, cfg: dict, out_path, out_dtype):
+    """Pixtral vision tower -> mmproj GGUF (clip-impl.h
+    PROJECTOR_TYPE_PIXTRAL tensor names: RMSNorm ln1/ln2 without biases,
+    silu-gated ffn_gate, mm.1/mm.2 projector, learned
+    v.token_embd.img_break row from the LLM embedding table)."""
+    vc = cfg["vision_config"]
+    e = int(vc.get("hidden_size", 1024))
+    depth = int(vc.get("num_hidden_layers", 24))
+    heads = int(vc.get("num_attention_heads", 16))
+    n_ff = int(vc.get("intermediate_size", 4 * e))
+    patch = int(vc.get("patch_size", 16))
+    theta = float(vc.get("rope_theta", 10000.0))
+    out_dim = int((cfg.get("text_config") or {}).get("hidden_size",
+                                                     cfg.get("hidden_size",
+                                                             e)))
+
+    sd = _load_state_dict(model_dir)
+    vt = "vision_tower." if any(k.startswith("vision_tower.") for k in sd) \
+        else "model.vision_tower."
+    mp = "multi_modal_projector." \
+        if any(k.startswith("multi_modal_projector.") for k in sd) \
+        else "model.multi_modal_projector."
+
+    w = GGUFWriter(out_path)
+    w.add_string("general.architecture", "clip")
+    w.add_string("clip.projector_type", "pixtral")
+    w.add_bool("clip.has_vision_encoder", True)
+    w.add_uint32("clip.vision.patch_size", patch)
+    w.add_uint32("clip.vision.image_size", int(vc.get("image_size", 1024)))
+    w.add_uint32("clip.vision.embedding_length", e)
+    w.add_uint32("clip.vision.block_count", depth)
+    w.add_uint32("clip.vision.attention.head_count", heads)
+    w.add_uint32("clip.vision.feed_forward_length", n_ff)
+    w.add_uint32("clip.vision.projection_dim", out_dim)
+    w.add_uint32("clip.vision.spatial_merge_size", 1)
+    w.add_float32("clip.vision.attention.layer_norm_epsilon", 1e-5)
+    w.add_float32("clip.vision.rope.freq_base", theta)
+
+    def put(name, arr):
+        w.add_tensor(name, np.ascontiguousarray(
+            np.asarray(arr).astype(out_dtype)))
+
+    put("v.patch_embd.weight", sd[vt + "patch_conv.weight"])
+    put("v.pre_ln.weight", sd[vt + "ln_pre.weight"])
+    for i in range(depth):
+        hp = f"{vt}transformer.layers.{i}."
+        gp = f"v.blk.{i}."
+        put(gp + "ln1.weight", sd[hp + "attention_norm.weight"])
+        put(gp + "ln2.weight", sd[hp + "ffn_norm.weight"])
+        for nm, hf in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj")):
+            put(gp + f"attn_{nm}.weight",
+                sd[hp + f"attention.{hf}.weight"])
+        put(gp + "attn_out.weight", sd[hp + "attention.o_proj.weight"])
+        put(gp + "ffn_gate.weight",
+            sd[hp + "feed_forward.gate_proj.weight"])
+        put(gp + "ffn_up.weight", sd[hp + "feed_forward.up_proj.weight"])
+        put(gp + "ffn_down.weight",
+            sd[hp + "feed_forward.down_proj.weight"])
+    put("mm.1.weight", sd[mp + "linear_1.weight"])
+    if mp + "linear_1.bias" in sd:
+        put("mm.1.bias", sd[mp + "linear_1.bias"])
+    put("mm.2.weight", sd[mp + "linear_2.weight"])
+    if mp + "linear_2.bias" in sd:
+        put("mm.2.bias", sd[mp + "linear_2.bias"])
+    # the [IMG_BREAK] embedding row from the language model's table
+    brk = cfg.get("image_break_token_id")
+    emb_key = next((k for k in ("model.language_model.embed_tokens.weight",
+                                "language_model.model.embed_tokens.weight",
+                                "model.embed_tokens.weight")
+                    if k in sd), None)
+    if brk is not None and emb_key is not None:
+        put("v.token_embd.img_break", sd[emb_key][int(brk)])
+    w.write()
+    return Path(out_path)
+
+
+def _mmproj_writer(out_path, proj_type, *, image_size, patch, e, depth,
+                   heads, n_ff, out_dim, eps=1e-6, extra=None):
+    w = GGUFWriter(out_path)
+    w.add_string("general.architecture", "clip")
+    w.add_string("clip.projector_type", proj_type)
+    w.add_bool("clip.has_vision_encoder", True)
+    w.add_uint32("clip.vision.image_size", image_size)
+    w.add_uint32("clip.vision.patch_size", patch)
+    w.add_uint32("clip.vision.embedding_length", e)
+    w.add_uint32("clip.vision.block_count", depth)
+    w.add_uint32("clip.vision.attention.head_count", heads)
+    w.add_uint32("clip.vision.feed_forward_length", n_ff)
+    w.add_uint32("clip.vision.projection_dim", out_dim)
+    w.add_float32("clip.vision.attention.layer_norm_epsilon", eps)
+    for k, v in (extra or {}).items():
+        if isinstance(v, bool):
+            w.add_bool(k, v)
+        elif isinstance(v, int):
+            w.add_uint32(k, v)
+        elif isinstance(v, float):
+            w.add_float32(k, v)
+        else:
+            w.add_string(k, v)
+    return w
+
+
+def _convert_mmproj_idefics3(model_dir: Path, cfg: dict, out_path,
+                             out_dtype):
+    """Idefics3/SmolVLM vision tower -> mmproj GGUF (clip-impl.h:217
+    PROJECTOR_TYPE_IDEFICS3: SigLIP-shaped ViT + pixel shuffle +
+    mm.model.fc projection)."""
+    vc = cfg["vision_config"]
+    e = int(vc["hidden_size"])
+    depth = int(vc["num_hidden_layers"])
+    sd = _load_state_dict(model_dir)
+    vp = "model.vision_model."
+    out_dim = int(cfg.get("text_config", {}).get("hidden_size", 2048))
+    w = _mmproj_writer(
+        out_path, "idefics3", image_size=int(vc["image_size"]),
+        patch=int(vc["patch_size"]), e=e, depth=depth,
+        heads=int(vc["num_attention_heads"]),
+        n_ff=int(vc["intermediate_size"]), out_dim=out_dim,
+        extra={"clip.vision.projector.scale_factor":
+               int(cfg.get("scale_factor", 2))})
+
+    def put(name, arr):
+        w.add_tensor(name, np.ascontiguousarray(
+            np.asarray(arr).astype(out_dtype)))
+
+    put("v.patch_embd.weight", sd[vp + "embeddings.patch_embedding.weight"])
+    put("v.patch_embd.bias", sd[vp + "embeddings.patch_embedding.bias"])
+    put("v.position_embd.weight",
+        sd[vp + "embeddings.position_embedding.weight"])
+    for i in range(depth):
+        hp = f"{vp}encoder.layers.{i}."
+        gp = f"v.blk.{i}."
+        for a, b in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            put(gp + f"{a}.weight", sd[hp + b + ".weight"])
+            put(gp + f"{a}.bias", sd[hp + b + ".bias"])
+        for a, b in (("attn_q", "self_attn.q_proj"),
+                     ("attn_k", "self_attn.k_proj"),
+                     ("attn_v", "self_attn.v_proj"),
+                     ("attn_out", "self_attn.out_proj"),
+                     ("ffn_up", "mlp.fc1"), ("ffn_down", "mlp.fc2")):
+            put(gp + f"{a}.weight", sd[hp + b + ".weight"])
+            put(gp + f"{a}.bias", sd[hp + b + ".bias"])
+    put("v.post_ln.weight", sd[vp + "post_layernorm.weight"])
+    put("v.post_ln.bias", sd[vp + "post_layernorm.bias"])
+    put("mm.model.fc.weight",
+        sd["model.connector.modality_projection.proj.weight"])
+    w.write()
+    return Path(out_path)
+
+
+def _convert_mmproj_internvl(model_dir: Path, cfg: dict, out_path,
+                             out_dtype):
+    """InternVL vision tower -> mmproj GGUF (clip-impl.h:221
+    PROJECTOR_TYPE_INTERNVL: CLS token, per-layer ls1/ls2 scales, pixel
+    shuffle, mm.model.mlp.{0,1,3} projector)."""
+    vc = cfg["vision_config"]
+    e = int(vc["hidden_size"])
+    depth = int(vc["num_hidden_layers"])
+    sd = _load_state_dict(model_dir)
+    vp = "model.vision_tower." if any(
+        k.startswith("model.vision_tower.") for k in sd) else "vision_tower."
+    out_dim = int(cfg.get("text_config", {}).get("hidden_size", 2048))
+    ds = float(cfg.get("downsample_ratio", 0.5))
+    def _sq(v):      # InternVL stores [h, w] lists for these
+        return int(v[0] if isinstance(v, (list, tuple)) else v)
+
+    w = _mmproj_writer(
+        out_path, "internvl", image_size=_sq(vc["image_size"]),
+        patch=_sq(vc["patch_size"]), e=e, depth=depth,
+        heads=int(vc["num_attention_heads"]),
+        n_ff=int(vc["intermediate_size"]), out_dim=out_dim,
+        eps=float(vc.get("layer_norm_eps", 1e-6)),
+        extra={"clip.vision.projector.scale_factor": int(round(1.0 / ds))})
+
+    def put(name, arr):
+        w.add_tensor(name, np.ascontiguousarray(
+            np.asarray(arr).astype(out_dtype)))
+
+    put("v.patch_embd.weight",
+        sd[vp + "embeddings.patch_embeddings.projection.weight"])
+    put("v.patch_embd.bias",
+        sd[vp + "embeddings.patch_embeddings.projection.bias"])
+    put("v.class_embd", sd[vp + "embeddings.cls_token"].reshape(-1))
+    put("v.position_embd.weight",
+        sd[vp + "embeddings.position_embeddings"].reshape(-1, e))
+    for i in range(depth):
+        hp = f"{vp}encoder.layer.{i}."
+        gp = f"v.blk.{i}."
+        put(gp + "ls1.weight", sd[hp + "lambda_1"])
+        put(gp + "ls2.weight", sd[hp + "lambda_2"])
+        for a, b in (("ln1", "layernorm_before"), ("ln2", "layernorm_after")):
+            put(gp + f"{a}.weight", sd[hp + b + ".weight"])
+            put(gp + f"{a}.bias", sd[hp + b + ".bias"])
+        for a, b in (("attn_q", "attention.q_proj"),
+                     ("attn_k", "attention.k_proj"),
+                     ("attn_v", "attention.v_proj"),
+                     ("attn_out", "attention.projection_layer"),
+                     ("ffn_up", "mlp.fc1"), ("ffn_down", "mlp.fc2")):
+            put(gp + f"{a}.weight", sd[hp + b + ".weight"])
+            if hp + b + ".bias" in sd:
+                put(gp + f"{a}.bias", sd[hp + b + ".bias"])
+    mp = "model.multi_modal_projector." if any(
+        k.startswith("model.multi_modal_projector.") for k in sd) \
+        else "multi_modal_projector."
+    put("mm.model.mlp.0.weight", sd[mp + "layer_norm.weight"])
+    put("mm.model.mlp.0.bias", sd[mp + "layer_norm.bias"])
+    put("mm.model.mlp.1.weight", sd[mp + "linear_1.weight"])
+    put("mm.model.mlp.1.bias", sd[mp + "linear_1.bias"])
+    put("mm.model.mlp.3.weight", sd[mp + "linear_2.weight"])
+    put("mm.model.mlp.3.bias", sd[mp + "linear_2.bias"])
     w.write()
     return Path(out_path)

@@ -18,13 +18,13 @@ Q4_K, Q8_0. This is the first-principles argument for PPL parity when no
 real checkpoint is available (PERF.md).
 
 Port of ``rrs_tpu/tools/quantize_stats.py``. The weight-only errors and the
-activation rotation and quantization stay host NumPy, as in the JAX package.
-The TCQ4 matvec, which JAX computes with its integer-exact host oracle, runs
-through the port's ``tcq4_matmul`` wrapper on ``device`` (the dequantized
-int4 activations against the K-major codes and bf16 effective scales): on the
-card that is the B4 kernel, on the CPU its plain version, both with bf16
-operands and f32 sums, so the TCQ4 ``rmse_dot`` differs from JAX's by that
-rounding (about 1e-3 of its value).
+activation rotation and quantization stay host NumPy, as in the JAX package,
+and the TCQ4 ``rmse_dot`` comes, as there, from the integer-exact host oracle
+(``ops/tcq4_matmul.py`` ``tcq4_matmul_ref``). Beside it each TCQ4 row
+reports ``rmse_dot_b4``: the same matvec through the port's ``tcq4_matmul``
+wrapper on ``device`` (the dequantized int4 activations against the K-major
+codes and bf16 effective scales; on the card the B4 kernel, on the CPU its
+plain version, both with bf16 operands and f32 sums).
 """
 
 from __future__ import annotations
@@ -49,7 +49,8 @@ def tcq4_matvec(a_q: np.ndarray, a_scale: np.ndarray, qs: np.ndarray, eff: np.nd
                 device="cpu") -> np.ndarray:
     """X @ W_q^T from int4 activation codes a_q [T, K] with per-block scales
     [T, K//256] and a TCQ4 weight (qs u8 [K//2, N], eff f32 [K//32, N]),
-    through ``tcq4_matmul`` on ``device``. Returns f32 [T, N] on the host."""
+    through ``tcq4_matmul`` on ``device`` (B4 on the card). Returns f32
+    [T, N] on the host."""
     import torch
 
     from rrs_tpu_torch.formats.tcq4 import dequantize_activations_rrs
@@ -65,12 +66,14 @@ def tcq4_matvec(a_q: np.ndarray, a_scale: np.ndarray, qs: np.ndarray, eff: np.nd
 
 def tensor_stats(w: np.ndarray, x: np.ndarray, imatrix=None, device="cpu") -> dict:
     """w: [N, K] f32 weight; x: [T, K] activations. Returns
-    {fmt: {rmse_w, max_w, rmse_dot}} with rel values; the TCQ4 matvecs run on
-    ``device``."""
+    {fmt: {rmse_w, max_w, rmse_dot}} with rel values, and for TCQ4 also
+    ``rmse_dot_b4``, the matvec through ``tcq4_matmul`` on ``device``."""
+    import torch
     from rrs_tpu_torch.formats.fwht import fwht_np
     from rrs_tpu_torch.formats.kquants import (dequantize_q4_k, dequantize_q8_0,
                                                quantize_q4_k, quantize_q8_0)
     from rrs_tpu_torch.formats.tcq4 import dequantize_tcq4, effective_scales, quantize_tcq4
+    from rrs_tpu_torch.ops.tcq4_matmul import tcq4_matmul_ref
 
     n, k = w.shape
     w_norm = np.sqrt(np.mean(w * w))
@@ -96,8 +99,11 @@ def tensor_stats(w: np.ndarray, x: np.ndarray, imatrix=None, device="cpu") -> di
                         ).astype(np.float32).reshape(-1, k)
         a_q, a_scale = _act_quant_rrs(x_rot)
         eff = effective_scales(t).astype(np.float32)    # [K//32, N]
-        y = tcq4_matvec(a_q, a_scale, np.asarray(t.qs), eff, device)
-        return {"rmse_w": rmse_w, "max_w": max_w, "rmse_dot": dot_err(y)}
+        y = tcq4_matmul_ref(torch.from_numpy(a_q), torch.from_numpy(a_scale.astype(np.float32)),
+                            torch.from_numpy(np.asarray(t.qs)), torch.from_numpy(eff)).numpy()
+        y_b4 = tcq4_matvec(a_q, a_scale, np.asarray(t.qs), eff, device)
+        return {"rmse_w": rmse_w, "max_w": max_w, "rmse_dot": dot_err(y),
+                "rmse_dot_b4": dot_err(y_b4)}
 
     out["tcq4"] = tcq4_stats(None)
 

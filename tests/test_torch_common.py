@@ -38,6 +38,25 @@ def torch_cfg(cfg):
     return ModelConfig(**{k: getattr(cfg, k) for k in names})
 
 
+def torch_clip(ccfg, cw, device="cpu"):
+    """The port's (ClipConfig, ClipWeights) with the fields of the JAX
+    package's: every array as an f32 tensor on ``device`` (the layers and the
+    resampler dict too)."""
+    from rrs_tpu_torch.mtmd import clip
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    def fields(obj, skip=()):
+        return {f.name: t(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if f.name not in skip}
+
+    layers = [clip.ClipLayer(**fields(lw)) for lw in cw.layers]
+    rs = None if cw.rs is None else {k: t(v) for k, v in cw.rs.items()}
+    return (clip.ClipConfig(**dataclasses.asdict(ccfg)),
+            clip.ClipWeights(layers=layers, rs=rs, **fields(cw, skip=("layers", "rs"))))
+
+
 def to_numpy(x):
     return None if x is None else np.asarray(x)
 

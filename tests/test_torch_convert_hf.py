@@ -189,8 +189,21 @@ def test_bin_checkpoint(tmp_path):
     assert out.read_bytes() == (tmp_path / "j.gguf").read_bytes()
 
 
-def test_mmproj_refused():
+def test_mmproj_refused(tmp_path, capsys):
+    """``convert-hf --mmproj``, which raised naming ROADMAP A11, extracts the
+    vision tower: from a tiny Qwen2-VL checkpoint the verb writes JAX's
+    mmproj file byte for byte, F32 and F16 (every branch is held in
+    tests/test_torch_mtmd_projectors.py)."""
+    from rrs_tpu.tools.convert_hf import convert_hf_mmproj as jax_mmproj
     from rrs_tpu_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(["convert-hf", "dir", "out.gguf", "--mmproj"])
+    from test_torch_qwen2vl import tiny_qwen2vl
+
+    d = tiny_qwen2vl(tmp_path / "hf")
+    for outtype, dt in (("f32", np.float32), ("f16", np.float16)):
+        main(["convert-hf", str(d), str(tmp_path / f"t-{outtype}.gguf"), "--mmproj",
+              "--outtype", outtype])
+        assert f"wrote {tmp_path / f't-{outtype}.gguf'}" in capsys.readouterr().out
+        jax_mmproj(d, tmp_path / f"j-{outtype}.gguf", out_dtype=dt)
+        assert (tmp_path / f"t-{outtype}.gguf").read_bytes() == \
+            (tmp_path / f"j-{outtype}.gguf").read_bytes()

@@ -200,19 +200,32 @@ def test_prefill_logprobs_matches_jax():
 
 
 def test_later_slices_raise():
-    """Multimodal segments still fail loudly, naming ROADMAP A11. Grammar,
-    infill and a draft model, which once raised naming A6 / A13, are taken:
-    each request is served (a grammar one with only legal tokens, infill
-    through the infill sampler) and a draft context is kept. Slot save and
-    restore refuse only a slot with nothing to save or a busy slot."""
+    """Multimodal segments, which raised naming ROADMAP A11, are served: a
+    [tokens, embeddings, tokens] request prefills one segment a step, counts
+    the embedding rows as prompt, gets its tokens and frees its lane rather
+    than keeping it as a prompt cache (the lane's agreement with JAX's engine
+    is held in tests/test_torch_mtmd.py). Grammar, infill and a draft model,
+    which once raised naming A6 / A13, are taken: each request is served (a
+    grammar one with only legal tokens, infill through the infill sampler)
+    and a draft context is kept. Slot save and restore refuse only a slot
+    with nothing to save or a busy slot."""
     from rrs_tpu_torch.runtime.grammar import Grammar
 
     ctx = InferenceContext(CFG, random_weights(CFG, seed=0, device="cpu"), max_seq=32,
                            device="cpu")
     eng = Engine(ctx)
-    with pytest.raises(NotImplementedError, match="A11"):
-        eng.submit(GenRequest(prompt_tokens=[1, 2], segments=[]))
-    assert eng.pending.empty()
+    emb = torch.randn((5, CFG.n_embd), generator=torch.Generator().manual_seed(0)) * 0.02
+    seg_out, seg_done = [], {}
+    eng.submit(GenRequest(prompt_tokens=[], max_tokens=3, segments=[
+        ("tokens", [1, 2]), ("embeds", emb), ("tokens", [3])],
+        on_token=lambda t, pc, f, r: seg_done.__setitem__("r", r) if f else seg_out.append(t)))
+    for _ in range(20):
+        eng._iterate()
+        if seg_done:
+            break
+    assert seg_done["r"] == "length" and len(seg_out) == 3
+    assert eng.n_prompt_tokens == 8 and eng.slots[0].retained_seq < 0
+    assert all(s is None for s in ctx.kv.seq_ids)
     with pytest.raises(ValueError, match="no sequence to save"):
         eng.save_slot(0, "slot.bin")
     eng.slots[0].state = SlotState.PROMPT

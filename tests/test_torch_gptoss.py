@@ -330,7 +330,8 @@ def test_server_answers_gpt_oss_on_cpu(oss_gguf):
 def test_next_slice_archs_raise():
     """A qwen3 file with MoE layers reads as JAX reads it (MoE layers in a
     dense architecture, which raised here, are ported); the multimodal
-    qwen2vl waits for ROADMAP A11 (the recurrent architectures, which raised
+    qwen2vl, which raised here naming ROADMAP A11, reads as JAX reads it,
+    with its M-RoPE sections (the recurrent architectures, which raised
     here naming A9b, are ported: tests/test_torch_rwkv.py checks rwkv6's
     config); qwen3 with a window slides every layer. (qwen2moe, which raised
     here, is ported: its config is checked in tests/test_torch_qwen2moe.py.)"""
@@ -343,9 +344,9 @@ def test_next_slice_archs_raise():
     cfg = ModelConfig.from_gguf(md)
     assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.n_experts == 8
     md = {"general.architecture": "qwen2vl", "qwen2vl.block_count": 2,
-          "qwen2vl.embedding_length": 64}
-    with pytest.raises(NotImplementedError, match="A11"):
-        ModelConfig.from_gguf(md)
+          "qwen2vl.embedding_length": 64, "qwen2vl.rope.dimension_sections": [2, 3, 3, 0]}
+    cfg = ModelConfig.from_gguf(md)
+    assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.rope_sections == (2, 3, 3, 0)
     md = {"general.architecture": "qwen3", "qwen3.block_count": 2, "qwen3.embedding_length": 64,
           "qwen3.attention.head_count": 4, "qwen3.attention.sliding_window": 32}
     cfg = ModelConfig.from_gguf(md)

@@ -1,5 +1,6 @@
-"""rrs_tpu_torch stands alone: no JAX, nothing of rrs_tpu, and no quiet CPU
-fallback in its entry points."""
+"""rrs_tpu_torch stands alone: no JAX, nothing of rrs_tpu, no Pillow at import
+(the card's machine has none), and no quiet CPU fallback in its entry
+points."""
 
 import subprocess
 import sys
@@ -32,7 +33,7 @@ for fn in ("tcq4_matmul_fused", "tcq4_matmul_fused_plain", "tcq4_matmul_pb",
            "tcq4_matmul_experts_plain"):
     assert callable(getattr(tm, fn)), fn
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "rrs_tpu") or m.startswith(("jax.", "rrs_tpu.")))
+             if m in ("jax", "rrs_tpu", "PIL") or m.startswith(("jax.", "rrs_tpu.", "PIL.")))
 print(len(mods), "modules;", "forbidden:", bad)
 sys.exit(1 if bad else 0)
 """
@@ -123,13 +124,15 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([verb, "-m", str(tmp_path / "absent.gguf")])
     # flags of later slices raise before anything loads; the quantized cache,
-    # the slot save path, a draft model and extra routed models are ported,
+    # the slot save path, a draft model, extra routed models and a vision
+    # projector (--mmproj, which raised here naming ROADMAP A11) are ported,
     # and still default to the card
-    for flags in (["--mmproj", "m.gguf"], ["--tp", "2"]):
+    for flags in (["--tp", "2"],):
         with pytest.raises(NotImplementedError):
             main(["serve", "-m", "absent.gguf", "--device", "cpu", *flags])
     for flags in (["--cache-type", "q8"], ["--slot-save-path", str(tmp_path)],
-                  ["--model-draft", "d.gguf"], ["--models", "a=b.gguf"]):
+                  ["--model-draft", "d.gguf"], ["--models", "a=b.gguf"],
+                  ["--mmproj", "m.gguf"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["serve", "-m", str(tmp_path / "absent.gguf"), *flags])
     for flags in (["--model-draft", "d.gguf"], ["--lookup"]):

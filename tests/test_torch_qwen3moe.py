@@ -103,8 +103,9 @@ def test_qwen2moe_and_dense_moe_raise():
     MoE layer in a dense architecture, which raised here, is ported (its
     forward is held in tests/test_torch_families.py). A mamba file, which
     raised here naming ROADMAP A9b, reads as JAX reads it (its forward is
-    held in tests/test_torch_recurrent.py); the multimodal qwen2vl still
-    raises, naming ROADMAP A11. (qwen2moe, which raised here, is ported: its
+    held in tests/test_torch_recurrent.py); the multimodal qwen2vl, which
+    raised here naming ROADMAP A11, reads as JAX reads it, with its M-RoPE
+    sections. (qwen2moe, which raised here, is ported: its
     config is checked in tests/test_torch_qwen2moe.py.)"""
     from rrs_tpu.models.config import ModelConfig as JaxConfig
 
@@ -116,9 +117,9 @@ def test_qwen2moe_and_dense_moe_raise():
     cfg = ModelConfig.from_gguf(md)
     assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.is_recurrent
     md = {"general.architecture": "qwen2vl", "qwen2vl.block_count": 2,
-          "qwen2vl.embedding_length": 64}
-    with pytest.raises(NotImplementedError, match="A11"):
-        ModelConfig.from_gguf(md)
+          "qwen2vl.embedding_length": 64, "qwen2vl.rope.dimension_sections": [2, 3, 3, 0]}
+    cfg = ModelConfig.from_gguf(md)
+    assert cfg == torch_cfg(JaxConfig.from_gguf(md)) and cfg.rope_sections == (2, 3, 3, 0)
 
 
 @pytest.mark.parametrize("shape", [(16, 512), (3, 24, 256)], ids=["router", "expert stack"])

@@ -213,7 +213,9 @@ def test_stop_string_reason_and_no_prefix_leak(server):
 # item that brings them. The A6 (grammar) and A13 (the rest of the server)
 # cases now answer: 200, or 400 where the request itself is wrong for this
 # server (no FIM tokens in the vocabulary, an unregistered model name). The
-# A11 case (image parts) still answers 501 naming its item.
+# A11 case (an image part) answers as JAX's server does without a projector:
+# the part reaches the chat template as it is (200); an audio part still
+# answers 501, naming A11b.
 WAITING = [
     ("POST", "/v1/embeddings", {"input": "AB"}, "A13", 200),
     ("POST", "/rerank", {"query": "a", "documents": ["b"]}, "A13", 200),
@@ -232,6 +234,9 @@ WAITING = [
                                       "max_tokens": 4}, "A6", 200),
     ("POST", "/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "image_url", "image_url": {"url": "data:image/png;base64,AA=="}}]}]}, "A11",
+     200),
+    ("POST", "/v1/chat/completions", {"messages": [{"role": "user", "content": [
+        {"type": "input_audio", "input_audio": {"data": "AA==", "format": "wav"}}]}]}, "A11b",
      501),
 ]
 
