@@ -85,7 +85,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
    linears each also run B17 and B18 on their own activations, held the
    same way, with the int4 codes that differ from the model's rotation
    counted;
-10. the rest of the server at qwen3-4b width (the synthetic vocabulary with
+10. the rest of the server at qwen3-4b width, cut to its first 12 of 36
+   layers (the synthetic vocabulary with
    three FIM ids, 4 slots, ctx 2048): a ``json_schema`` request alone (the
    optimistic path must resample), then a greedy and a sampled
    ``[a-z ]+`` grammar, a ``response_format: json_object`` chat and a lazy
@@ -118,7 +119,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    with window 128 and sinks; a 2-layer gpt-oss model on the card against
    the same weights on the CPU (the CPU's expert ids replayed where the card's
    differ; every launch held to its plain version); ``generate`` at full
-   width, cut to 12 of its 24 layers (fabricated weights), with prompts that
+   width, cut to 6 of its 24 layers (fabricated weights), with prompts that
    reach every MoE branch,
    launch counts, the branches taken, a decode profile and a one-lane
    40-token prefill step under torch.profiler (B13's share of it), then over
@@ -138,7 +139,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    2-layer qwen3moe model on the card against the same weights on the CPU,
    with dense bf16 experts (logits within GLUE_TOL) and with TCQ4 experts
    (every launch held to its plain version, the drift reported); ``generate``
-   at full width, cut to 12 of its 48 layers (fabricated weights, the config
+   at full width, cut to 6 of its 48 layers (fabricated weights, the config
    from ``ModelConfig.from_gguf`` on the published metadata) with prompts that
    reach the rows, capacity and scan branches, a capacity prefill run twice
    and held bit-equal, a decode profile, a one-lane 40-token prefill step
@@ -257,14 +258,37 @@ it; exits non-zero without either, and on any failed phase. Phases:
    ``convert-hf --mmproj`` as processes (the converted tower bit-equal to
    the in-memory one of the same BF16 weights) and ``serve --mmproj``
    answering a chat request with an image;
-19. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+19. audio and TTS: Ultravox v0.5 at its published widths, all 16 of
+   Llama-3.2-1B's layers (fabricated TCQ4 linears with their i8p packs, a
+   Q8_0 head) and the whole 32-layer whisper-large-v3-turbo tower with the
+   ultravox projector (f32, drawn on the card): two WAVs written here (5 s
+   mono at 16 kHz, 8 s stereo at 44.1 kHz) decoded by ``decode_audio_b64``,
+   each one's mel front end on the host and its tower on the card beside its
+   f32 bound; ``multimodal_prefill`` over [text, audio, text] + greedy
+   decode (``launches_audio``: B1-B4, B4 at the chunk's M = 188); a held
+   [text, audio, text] prefill and decode step; the server (4 slots, ctx
+   4096) with two ``input_audio`` chats and two text chats at once, each
+   one's time to first token and the served decode tok/s; a B = 1 decode
+   profile after the audio; the tower cut to 2 layers at full width with the
+   ultravox and qwen2a projectors on the card against the CPU port
+   (AUDIO_TOL); then OuteTTS-0.2-500M at its published widths, all 24 layers
+   (Q8_0 qkv / o / gate-up at K = 896 padded to 1,024, TCQ4 ``ffn_down``,
+   the head favouring the code ids) with WavTokenizer's decoder at its
+   published widths: ``synthesize`` (``launches_tts``; its decode tok/s, the
+   vocoder's and the synthesis' ms, the real-time factor), a held prefill and
+   decode step (B2 padded, B3 at the GQA group of 7), a decode profile, the
+   vocoder on the card against the CPU port (AUDIO_TOL); then the files,
+   written by a process started at the phase's beginning, through ``serve
+   --mmproj`` (an audio chat) and ``tts`` (a 24 kHz 16-bit mono WAV of the
+   right length) as processes;
+20. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14, 15, 16, 17 and 18 also carry ``launches_server_rest`` /
+   phases 10, 13, 14, 15, 16, 17, 18 and 19 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
    ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
    (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
-   ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools`` and
-   ``launches_qwen2vl``),
+   ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools``,
+   ``launches_qwen2vl``, ``launches_audio`` and ``launches_tts``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -2996,8 +3020,9 @@ GPTOSS_COUNTERS = {"q8": "q8_matmul", "fa": "flash_attention", "mx_rows": MX["mx
 
 
 # the layers of gpt-oss-20b's full-width runs (24 published), cut so that the
-# script fits its time limit beside phase 18: six sliding and six full layers
-GPTOSS_LAYERS = 12
+# script fits its time limit beside phases 18 and 19: three sliding and three
+# full layers (12 before phase 19 came)
+GPTOSS_LAYERS = 6
 
 
 def phase_gptoss_generate(reports):
@@ -3314,9 +3339,10 @@ def capacity_repeat(ctx, prompt, label):
 
 # the layers of Qwen3-30B-A3B's and Qwen2-57B-A14B's full-width runs (48
 # and 28 published): cut so that the script fits its time limit (24 and 14
-# until phase 17 came; the script then took 953 s without it on an H100
-# 80GB HBM3 at 700 W)
-QWEN3MOE_LAYERS = 12
+# until phase 17 came, when the script took 953 s without it on an H100
+# 80GB HBM3 at 700 W; Qwen3-30B-A3B 12 until phase 19 came, when it took
+# 926 s without it)
+QWEN3MOE_LAYERS = 6
 QWEN2MOE_LAYERS = 7
 # The GGUF metadata of Qwen3-30B-A3B as its published config.json gives it
 # (Hugging Face Qwen/Qwen3-30B-A3B; llama.cpp's converter writes these keys)
@@ -4202,8 +4228,23 @@ REST_SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
                "required": ["name", "age"]}
 
 
+# the layers of qwen3-4b that phase 10 runs, cut from 36 so that the script
+# fits its time limit beside phase 19 (with all 36, and before phase 19, it
+# took 926 s to its summary on an H100 80GB HBM3 at 700 W)
+SERVER_REST_LAYERS = 12
+
+
+def first_layers(cfg, weights, n: int):
+    """(cfg, weights) of the model's first ``n`` layers, sharing its tensors."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layers=n),
+            dataclasses.replace(weights, layers=weights.layers[:n]))
+
+
 def phase_server_rest(cfg, weights, reports):
-    """The rest of the server at qwen3-4b width (``Engine`` over a 4-lane,
+    """The rest of the server at qwen3-4b width, cut to SERVER_REST_LAYERS of
+    its 36 layers (``Engine`` over a 4-lane,
     2048-token context; the synthetic vocabulary with three FIM ids): the
     grammar options over HTTP, embeddings, rerank, infill, /v1/messages and
     the web UI, then speculative and prompt-lookup decoding. Every response
@@ -6285,14 +6326,15 @@ def vision_held(ctx, chunks) -> None:
           + f" in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def vision_serve(cfg, w, ccfg, cw, pngs):
-    """The server in-process with the tower loaded, 4 slots, ctx 4096: four
-    chat requests at once, two with an ``image_url`` PNG part (greedy) and two
-    text-only (one greedy, one sampled), VISION_NEW tokens each; every request
-    must finish by length with that many tokens. Prints each request's time
-    to first token (the client's: the image decoded and encoded in the
-    handler, the prompt prefilled) and the served decode tok/s."""
-    import base64
+def serve_chats(cfg, w, label: str, towers: dict, media_jobs: list, n_new: int):
+    """The server in-process with ``towers`` set on its state (``clip_cfg`` /
+    ``clip_weights``, ``audio_cfg`` / ``audio_weights``), 4 slots, ctx 4096:
+    the ``media_jobs`` (name, content parts) and two text-only chats (one
+    greedy, one sampled) at once, ``n_new`` tokens each, the media ones
+    greedy; every request must finish by length with that many tokens.
+    Prints each one's time to first token (the client's: the media decoded
+    and encoded in the handler, the prompt prefilled) and the served decode
+    tok/s. Returns the context."""
     from http.server import ThreadingHTTPServer
 
     import torch
@@ -6303,18 +6345,14 @@ def vision_serve(cfg, w, ccfg, cw, pngs):
 
     ctx = InferenceContext(cfg, w, n_lanes=4, max_seq=4096)
     engine = Engine(ctx)
-    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {},
-                        "Qwen2-VL-2B-fabricated")
-    state.clip_cfg, state.clip_weights = ccfg, cw
+    state = ServerState(cfg, synthetic_vocab(cfg.vocab_size), engine, {}, f"{label}-fabricated")
+    for key, value in towers.items():
+        setattr(state, key, value)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
     port = httpd.server_address[1]
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    jobs = []
-    for name, png in pngs.items():
-        url = "data:image/png;base64," + base64.b64encode(png).decode()
-        jobs.append((f"image {name}", {"messages": [{"role": "user", "content": [
-            {"type": "text", "text": "what is in this picture? "},
-            {"type": "image_url", "image_url": {"url": url}}]}], "temperature": 0}))
+    jobs = [(name, {"messages": [{"role": "user", "content": parts}], "temperature": 0})
+            for name, parts in media_jobs]
     text = "tell me about the weather on the coast in the spring " * 6
     jobs.append(("text greedy", {"messages": [{"role": "user", "content": text}],
                                  "temperature": 0}))
@@ -6325,8 +6363,7 @@ def vision_serve(cfg, w, ccfg, cw, pngs):
     def run(job):
         name, body = job
         t0 = time.perf_counter()
-        status, data = _http(port, "POST", "/v1/chat/completions",
-                             {**body, "max_tokens": VISION_NEW})
+        status, data = _http(port, "POST", "/v1/chat/completions", {**body, "max_tokens": n_new})
         results[name] = (status, data, t0, time.perf_counter())
 
     runs0 = engine.n_decode_runs
@@ -6341,7 +6378,7 @@ def vision_serve(cfg, w, ccfg, cw, pngs):
         for t in threads:
             t.join(timeout=600)
         if any(t.is_alive() for t in threads):
-            raise AssertionError("Qwen2-VL-2B serving: a request did not finish within 600 s")
+            raise AssertionError(f"{label} serving: a request did not finish within 600 s")
         wall = time.perf_counter() - t_start
     finally:
         httpd.shutdown()
@@ -6350,24 +6387,41 @@ def vision_serve(cfg, w, ccfg, cw, pngs):
     spans, n_decode = [], 0
     for name, (status, data, t0, t1) in results.items():
         if status != 200:
-            raise AssertionError(f"Qwen2-VL-2B serving: {name} answered {status}: {data[:300]!r}")
+            raise AssertionError(f"{label} serving: {name} answered {status}: {data[:300]!r}")
         out = json.loads(data)
         reason = out["choices"][0]["finish_reason"]
         n_out = out["usage"]["completion_tokens"]
-        if reason != "length" or n_out != VISION_NEW:
-            raise AssertionError(f"Qwen2-VL-2B serving: {name} finished by {reason} with "
+        if reason != "length" or n_out != n_new:
+            raise AssertionError(f"{label} serving: {name} finished by {reason} with "
                                  f"{n_out} tokens")
         decode_s = out["timings"]["predicted_ms"] / 1e3
         spans.append((t1 - decode_s, t1))
         n_decode += n_out - 1
-        ttft_ms = (t1 - t0 - decode_s) * 1e3
-        print(f"  {name}: {n_out} tokens ({reason}), time to first token {ttft_ms:.1f} ms "
-              f"(client), decode {(n_out - 1) / max(decode_s, 1e-9):.2f} tok/s", flush=True)
+        print(f"  {name}: {n_out} tokens ({reason}), prompt {out['usage']['prompt_tokens']} "
+              f"tokens, time to first token {(t1 - t0 - decode_s) * 1e3:.1f} ms (client), "
+              f"decode {(n_out - 1) / max(decode_s, 1e-9):.2f} tok/s", flush=True)
     busy = _union_seconds(spans)
-    print(f"  Qwen2-VL-2B served {len(results)} chat requests (2 with an image) in {wall:.1f} s; "
-          f"decode tok/s summed over the slots {n_decode / busy:.2f} ({n_decode} tokens over "
-          f"{busy:.1f} s); {engine.n_decode_runs - runs0} device decode runs (an image lane "
-          f"decodes step by step); KV resident {ctx.kv.nbytes() / GB:.3f} GB", flush=True)
+    print(f"  {label} served {len(results)} chat requests ({len(media_jobs)} with media) in "
+          f"{wall:.1f} s; decode tok/s summed over the slots {n_decode / busy:.2f} ({n_decode} "
+          f"tokens over {busy:.1f} s); {engine.n_decode_runs - runs0} device decode runs; KV "
+          f"resident {ctx.kv.nbytes() / GB:.3f} GB", flush=True)
+    return ctx
+
+
+def vision_serve(cfg, w, ccfg, cw, pngs):
+    """``serve_chats`` with the tower loaded: two ``image_url`` PNG chats
+    beside the text ones, VISION_NEW tokens each (an image lane decodes step
+    by step, so no device run carries it, and it is kept as no prompt
+    cache)."""
+    import base64
+
+    jobs = [(f"image {name}", [
+        {"type": "text", "text": "what is in this picture? "},
+        {"type": "image_url", "image_url": {
+            "url": "data:image/png;base64," + base64.b64encode(png).decode()}}])
+        for name, png in pngs.items()]
+    ctx = serve_chats(cfg, w, "Qwen2-VL-2B", {"clip_cfg": ccfg, "clip_weights": cw}, jobs,
+                      VISION_NEW)
     if any(s is not None and ctx.kv.mrope_delta.get(ctx.kv.lane_of(s)) for s in ctx.kv.seq_ids):
         raise AssertionError("Qwen2-VL-2B serving: an image lane was kept as a prompt cache")
 
@@ -6778,6 +6832,804 @@ def phase_vision(reports, peaks, tmp) -> None:
     vision_files_finish(ccfg, pngs, tmp, started)
 
 
+# -- audio and TTS: Ultravox v0.5 (Llama-3.2-1B) and OuteTTS-0.2-500M ----------
+
+# The GGUF metadata of Llama-3.2-1B as the published config.json of
+# meta-llama/Llama-3.2-1B gives it (Ultravox v0.5's text model,
+# fixie-ai/ultravox-v0_5-llama-3_2-1b): tied embeddings, llama3 RoPE scaling
+ULTRAVOX_LLAMA_GGUF = {
+    "general.architecture": "llama", "llama.block_count": 16,
+    "llama.context_length": 131072, "llama.embedding_length": 2048,
+    "llama.feed_forward_length": 8192, "llama.attention.head_count": 32,
+    "llama.attention.head_count_kv": 8, "llama.attention.layer_norm_rms_epsilon": 1e-5,
+    "llama.rope.freq_base": 500000.0, "llama.rope.scaling.type": "llama3",
+    "llama.rope.scaling.factor": 32.0, "llama.rope.scaling.original_context_length": 8192,
+    "llama.tie_word_embeddings": True, "llama.vocab_size": 128256}
+# its audio tower, whisper-large-v3-turbo's encoder (128 mel bins, 32 layers,
+# 1,280 wide, 20 heads, FF 5,120), and the ultravox projector (stack factor 8,
+# hidden 4,096) under clip.cpp's keys
+ULTRAVOX_MMPROJ = {
+    "clip.projector_type": "ultravox", "clip.audio.num_mel_bins": 128,
+    "clip.audio.embedding_length": 1280, "clip.audio.block_count": 32,
+    "clip.audio.attention.head_count": 20, "clip.audio.feed_forward_length": 5120,
+    "clip.audio.projection_dim": 2048, "clip.audio.projector.stack_factor": 8,
+    "clip.audio.attention.layer_norm_epsilon": 1e-5}
+ULTRAVOX_HIDDEN = 4096
+# Qwen2-Audio-7B's projector: one fc from the same tower to its 4,096-wide text
+QWEN2_AUDIO_DIM = 4096
+# OuteTTS-0.2-500M (OuteAI/OuteTTS-0.2-500M's config.json: Qwen2.5-0.5B with
+# the vocabulary extended to 157,696) and the OuteTTS special tokens its
+# prompt uses, at the ids of the published tokenizer
+OUTETTS_GGUF = {
+    "general.architecture": "qwen2", "qwen2.block_count": 24,
+    "qwen2.context_length": 32768, "qwen2.embedding_length": 896,
+    "qwen2.feed_forward_length": 4864, "qwen2.attention.head_count": 14,
+    "qwen2.attention.head_count_kv": 2, "qwen2.attention.layer_norm_rms_epsilon": 1e-6,
+    "qwen2.rope.freq_base": 1e6, "qwen2.tie_word_embeddings": True,
+    "qwen2.vocab_size": 157696}
+OUTETTS_SPECIALS = {151643: "<|endoftext|>", 151644: "<|im_start|>", 151645: "<|im_end|>",
+                    151661: "<|text_start|>", 151662: "<|text_end|>", 151663: "<|text_sep|>",
+                    151666: "<|audio_start|>"}
+OUTETTS_EOS = 151645
+# the fabricated head's Q8_0 scales on the columns of WavTokenizer's 4,096
+# codes (ids 151,672-155,767) are this many times the others', so that
+# greedy decoding of random weights emits codes, as a trained model does
+CODE_SCALE = 4.0
+# WavTokenizer-large-speech-75token as llama.cpp converts it: 4,096 codes of
+# 512, the stem to 768, posnet 6 blocks, 12 ConvNeXt blocks of FF 2,304, the
+# head to 1,282 (n_fft 1,280, hop 320 at 24 kHz: 75 codes a second)
+WAVTOKENIZER = dict(n_codes=4096, c_embd=512, c=768, ff=2304, n_convnext=12, n_out=1282)
+AUDIO_NEW = 32
+TTS_MAX_CODES = 256
+# nine words: with the char-level vocabulary its prompt is 52 tokens, so the
+# prefill bucket is 64 rows and ffn_down takes B4 (65-256 tokens take B5)
+TTS_TEXT = "hello from the card, this is the port speaking"
+# the f32 towers and the vocoder, card against the CPU port (rel L2)
+AUDIO_TOL = 1e-3
+# a dense text model's step: no B5 unless a prefill chunk reaches 256 rows
+AUDIO_PATH = {"tcq4_matmul_gx2", "tcq4_matmul", "q8_matmul", "flash_attention"}
+# the two clips: (seconds, sample rate, channels) of PCM16
+AUDIO_CLIPS = {"5s-16k-mono": (5.0, 16000, 1), "8s-44k1-stereo": (8.0, 44100, 2)}
+
+
+def audio_wav(seconds: float, sr: int, channels: int, seed: int) -> bytes:
+    """A PCM16 WAV of two tones with noise (the channels phase-shifted),
+    written by the standard library's ``wave``."""
+    import io
+    import wave
+
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    rng = np.random.default_rng(seed)
+    chans = [0.3 * np.sin(2 * np.pi * 440 * t + c) + 0.1 * np.sin(2 * np.pi * 1313 * t)
+             + 0.02 * rng.standard_normal(t.size) for c in range(channels)]
+    pcm = (np.clip(np.stack(chans, axis=1), -1, 1) * 32767).astype(np.int16)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+    return buf.getvalue()
+
+
+def random_audio_tower(acfg, seed: int, proj: str = "ultravox", device="cuda"):
+    """f32 AudioWeights at ``acfg``'s widths drawn on ``device`` from a
+    seeded ``torch.Generator`` (matrices N(0, 0.02), biases zero, norms one;
+    the JAX package draws its towers on the host, too slow at 637 M
+    weights): the ultravox projector at ULTRAVOX_HIDDEN, or qwen2a's fc."""
+    import torch
+
+    from rrs_tpu_torch.mtmd.audio import AudioLayer, AudioWeights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e, f = acfg.n_embd, acfg.n_ff
+
+    def m(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    def zero(n):
+        return torch.zeros((n,), device=device)
+
+    def one(n):
+        return torch.ones((n,), device=device)
+
+    layers = [AudioLayer(ln1_w=one(e), ln1_b=zero(e), wq=m(e, e), bq=zero(e), wk=m(e, e),
+                         wv=m(e, e), bv=zero(e), wo=m(e, e), bo=zero(e), ln2_w=one(e),
+                         ln2_b=zero(e), w_up=m(e, f), b_up=zero(f), w_down=m(f, e),
+                         b_down=zero(e)) for _ in range(acfg.n_layers)]
+    if proj == "ultravox":
+        sf, h = acfg.stack_factor, ULTRAVOX_HIDDEN
+        p = {"norm_pre_w": one(e * sf), "w1": m(e * sf, 2 * h), "norm_mid_w": one(h),
+             "w2": m(h, acfg.n_embd_llm)}
+    else:
+        p = {"fc_w": m(e, acfg.n_embd_llm), "fc_b": zero(acfg.n_embd_llm)}
+    return AudioWeights(conv1_w=m(e, acfg.n_mel, 3), conv1_b=zero(e), conv2_w=m(e, e, 3),
+                        conv2_b=zero(e), pos_embd=m(1500, e), layers=layers, ln_post_w=one(e),
+                        ln_post_b=zero(e), proj=p)
+
+
+def audio_tower_flops(acfg, aw, frames: int = 3000) -> float:
+    """One chunk's operations: the two convs, each layer's four projections,
+    FFN and attention (QK^T and AV) over the 1,500 rows, and the projector."""
+    e, f, n = acfg.n_embd, acfg.n_ff, frames // 2
+    convs = 2 * frames * acfg.n_mel * 3 * e + 2 * n * e * e * 3
+    per_layer = 2 * n * (4 * e * e + 2 * e * f) + 4 * n * n * e
+    p = aw.proj
+    if "w1" in p:
+        rows = -(-n // acfg.stack_factor)
+        proj = 2 * rows * (p["w1"].numel() + p["w2"].numel())
+    else:
+        proj = 2 * n * p["fc_w"].numel()
+    return convs + acfg.n_layers * per_layer + proj
+
+
+def ultravox_model():
+    """Ultravox v0.5 at full width: Llama-3.2-1B's config from
+    ``ModelConfig.from_gguf`` on its metadata, fabricated TCQ4 linears with
+    their i8p packs and a Q8_0 head over the 128,256-entry vocabulary, all 16
+    layers; the whole 32-layer whisper-large-v3-turbo tower and the ultravox
+    projector, f32 on the card."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.mtmd.audio import AudioConfig
+
+    cfg = ModelConfig.from_gguf(ULTRAVOX_LLAMA_GGUF)
+    t0 = time.perf_counter()
+    w = llama.fabricated_tcq4_weights(cfg, seed=0, device="cuda")
+    acfg = AudioConfig.from_gguf(ULTRAVOX_MMPROJ)
+    aw = random_audio_tower(acfg, seed=1)
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for t in _tensors(w))
+    print(f"  Ultravox v0.5: Llama-3.2-1B {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim}, FF {cfg.n_ff}, vocab {cfg.vocab_size}, rope "
+          f"{cfg.rope_scaling_type} x{cfg.rope_scale_factor:g}, fabricated text weights "
+          f"{w_bytes / GB:.3f} GB; tower {acfg.n_layers} layers, E={acfg.n_embd}, "
+          f"{acfg.n_heads} heads, FF {acfg.n_ff}, {acfg.n_mel} mel bins, ultravox x"
+          f"{acfg.stack_factor} -> {ULTRAVOX_HIDDEN} -> {acfg.n_embd_llm}, {aw.nbytes() / GB:.3f}"
+          f" GB f32 (projector {sum(t.numel() for t in aw.proj.values()) * 4 / GB:.3f} GB); "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, w, acfg, aw
+
+
+def audio_encode(acfg, aw, wavs, peaks) -> dict:
+    """Each WAV decoded by ``decode_audio_b64`` (the channel mean, the
+    resample), its log-mel front end on the host (timed apart), and the tower
+    over its chunk on the card (CUDA events after a warm-up encode) beside
+    its bound at the f32 peak. Returns (name -> the [rows, E] chunk, name ->
+    the chunk's mel)."""
+    import base64
+
+    import torch
+
+    from rrs_tpu_torch.mtmd.audio import chunk_mel, encoder_forward, log_mel_spectrogram
+    from rrs_tpu_torch.mtmd.pipeline import decode_audio_b64
+
+    out, mels = {}, {}
+    for name, wav in wavs.items():
+        t0 = time.perf_counter()
+        pcm = decode_audio_b64(base64.b64encode(wav).decode())
+        t1 = time.perf_counter()
+        mel = log_mel_spectrogram(pcm, n_mel=acfg.n_mel)
+        chunks = chunk_mel(mel)
+        t2 = time.perf_counter()
+        emb = encoder_forward(acfg, aw, chunks[0])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        emb = encoder_forward(acfg, aw, chunks[0])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        flops = audio_tower_flops(acfg, aw)
+        if len(chunks) != 1 or tuple(emb.shape) != (188, acfg.n_embd_llm) or \
+                not torch.isfinite(emb).all():
+            raise AssertionError(f"Ultravox tower {name}: {len(chunks)} chunks, "
+                                 f"{tuple(emb.shape)}")
+        out[name], mels[name] = emb, chunks[0]
+        print(f"  clip {name}: {pcm.size} samples at 16 kHz after decode_audio_b64 "
+              f"({(t1 - t0) * 1e3:.1f} ms); the mel front end on the host {(t2 - t1) * 1e3:.1f} ms "
+              f"({mel.shape[1]} frames, {len(chunks)} chunk); the tower on the card {ms:.2f} ms "
+              f"for {flops / 1e12:.3f} TFLOP f32 (bound {flops / peaks[3] * 1e3:.2f} ms at "
+              f"{peaks[3] / 1e12:.0f} TFLOP/s, {flops / ms / 1e9:.1f} TFLOP/s) -> {emb.shape[0]} "
+              f"rows", flush=True)
+    return out, mels
+
+
+AUDIO_PROMPT = "transcribe this clip: {} and then say what it means."
+
+
+def zero_perf(ctx) -> None:
+    """The context's perf counters back to 0 (after its warm-up)."""
+    ctx.n_prefill_tokens = ctx.n_decode_tokens = 0
+    ctx.t_prefill_s = ctx.t_decode_s = 0.0
+
+
+def audio_generate(cfg, w, chunks, reports):
+    """``multimodal_prefill`` over [text, an audio chunk, text] then AUDIO_NEW
+    greedy decode steps, for each clip on a 1-lane context (ctx 2,048), the
+    launch counts set to 0 before and read after both (``launches_audio``).
+    Returns the context."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER, multimodal_prefill
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    vocab = synthetic_vocab(cfg.vocab_size)
+    ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=2048)
+    ctx.generate([5, 6, 7], 2)                                       # warm-up
+    zero_perf(ctx)
+    prompt = AUDIO_PROMPT.format(IMAGE_MARKER)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    outs = {}
+    for name, chunk in chunks.items():
+        seq = ctx.new_sequence()
+        try:
+            last = multimodal_prefill(ctx, vocab, seq, prompt, [chunk])
+            outs[name] = []
+            for _ in range(AUDIO_NEW):
+                tok = int(torch.argmax(last))
+                outs[name].append(tok)
+                last = ctx.decode({seq: tok})[seq]
+        finally:
+            ctx.kv.seq_rm(seq)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = mark_launches(reports, "launches_audio")
+    if AUDIO_PATH - set(launches) or any(len(o) != AUDIO_NEW for o in outs.values()):
+        raise AssertionError(f"Ultravox multimodal_prefill + decode: launches {launches}")
+    perf = ctx.perf()
+    print(f"  multimodal_prefill ([{len(vocab.encode(prompt.split(IMAGE_MARKER)[0]))} tokens, "
+          f"188 audio rows, text]) + {AUDIO_NEW} greedy steps for both clips in {dt:.1f} s; "
+          f"prefill {perf['n_p_eval']} rows @ {perf['pp_tok_per_s']:.1f} rows/s, decode "
+          f"{perf['n_eval']} tok @ {perf['tg_tok_per_s']:.2f} tok/s; greedy "
+          f"{outs['5s-16k-mono'][:6]}...; launches {launches}", flush=True)
+    return ctx, vocab
+
+
+def audio_held(ctx, chunk) -> None:
+    """A teacher-forced [text, audio, text] prefill (30 tokens, the chunk's
+    188 rows: B4 at M = 188 on every linear, 20 tokens) and a decode step
+    after it, every B1 / B2 / B3 / B4 launch held to its plain version."""
+    import torch
+
+    cfg = ctx.cfg
+    rng = torch.Generator().manual_seed(19)
+    pre, post = (torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist() for n in (30, 20))
+    t0 = time.perf_counter()
+    with held_to_plain("Ultravox", AUDIO_PATH) as seen:
+        seq = ctx.new_sequence()
+        ctx.prefill(seq, pre)
+        ctx.prefill_embeds(seq, chunk)
+        last = ctx.prefill(seq, post)[-1]
+        out = ctx.decode({seq: int(last.argmax())})[seq]
+        ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    if not (torch.isfinite(last).all() and torch.isfinite(out).all()) or \
+            not any(s[0] == 188 for s in seen["tcq4_matmul"][1]):
+        raise AssertionError(f"Ultravox held steps: B4 shapes {seen['tcq4_matmul'][1]}")
+    print("  Ultravox held ([30 tokens, 188 audio rows, 20 tokens] + a decode step), max rel "
+          "by kernel: " + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e} {sorted(v[1])}"
+                                    for k, v in sorted(seen.items()))
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def audio_serve(cfg, w, acfg, aw, wavs):
+    """``serve_chats`` with the audio tower loaded: an ``input_audio`` chat
+    with each WAV beside the text ones, AUDIO_NEW tokens each."""
+    import base64
+
+    jobs = [(f"audio {name}", [
+        {"type": "text", "text": "what is said in this clip? "},
+        {"type": "input_audio", "input_audio": {"data": base64.b64encode(wav).decode(),
+                                                "format": "wav"}}])
+        for name, wav in wavs.items()]
+    serve_chats(cfg, w, "Ultravox", {"audio_cfg": acfg, "audio_weights": aw}, jobs, AUDIO_NEW)
+
+
+def audio_tower_cpu(acfg, aw, mel) -> None:
+    """The tower at full width cut to 2 of its 32 layers, on the card against
+    the same weights on the CPU over one 30 s chunk, with the ultravox
+    projector at Ultravox's widths and qwen2a's fc at Qwen2-Audio-7B's, both
+    f32: rel L2 <= AUDIO_TOL. The script sets no TF32 switch; the port's
+    ``set_matmul_precision`` turns TF32 off."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models.llama import to_device
+    from rrs_tpu_torch.mtmd.audio import encoder_forward
+
+    t0 = time.perf_counter()
+    rels = {}
+    qwen2a = random_audio_tower(dataclasses.replace(acfg, n_layers=0,
+                                                    n_embd_llm=QWEN2_AUDIO_DIM), 2, "qwen2a")
+    for name, proj, cfg in (("ultravox", aw.proj, acfg),
+                            ("qwen2a", qwen2a.proj,
+                             dataclasses.replace(acfg, projector="qwen2a",
+                                                 n_embd_llm=QWEN2_AUDIO_DIM))):
+        cfg = dataclasses.replace(cfg, n_layers=2)
+        card = dataclasses.replace(aw, layers=aw.layers[:2], proj=proj)
+        got = encoder_forward(cfg, card, mel)
+        ref = encoder_forward(cfg, to_device(card, "cpu"), mel)
+        rel = _rel_t(got.cpu(), ref)
+        if rel > AUDIO_TOL or got.shape != ref.shape:
+            raise AssertionError(f"audio tower ({name}) card vs CPU: rel L2 {rel:.2e}")
+        rels[name] = f"{rel:.2e} ({ref.shape[0]} x {ref.shape[1]})"
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if tf32:
+        raise AssertionError("audio tower card vs CPU: TF32 is on")
+    print(f"  the tower cut to 2 layers at full width, card vs the CPU port over one 30 s chunk "
+          f"(rel L2 <= {AUDIO_TOL:.0e}, f32 both; torch.backends.cuda.matmul.allow_tf32 "
+          f"{tf32}): " + ", ".join(f"{k} {v}" for k, v in rels.items())
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def outetts_vocab(n: int):
+    """``synthetic_vocab`` at OuteTTS's size with its special tokens (control
+    tokens, so that ``format_prompt``'s text encodes them) and its EOS."""
+    from rrs_tpu_torch.models.vocab import Vocab
+
+    toks = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(n)]
+    types = [1] * n
+    for i, t in OUTETTS_SPECIALS.items():
+        toks[i], types[i] = t, 3
+    return Vocab(model="gpt2", tokens=toks, scores=None, token_types=types, merges=[],
+                 pre="gpt-2", bos_id=151643, eos_id=OUTETTS_EOS, add_bos=False)
+
+
+def outetts_model():
+    """OuteTTS-0.2-500M at full width, all 24 layers, in the types the
+    repository's quantizer gives its GGUF: E = 896 is no multiple of 256, so
+    qkv (with its biases), o and gate-up are Q8_0 with K padded to 1,024
+    (B2), ``ffn_down`` (K = 4,864) TCQ4 with its i8p pack (B1 / B4), the tied
+    head Q8_0 over 157,696 ids with the code columns' scales CODE_SCALE
+    times the others'; a bf16 embedding N(0, 0.02). Drawn on the card from a
+    seeded ``torch.Generator``."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models.linear import Q8Linear, TCQ4Linear, n_pad_width, want_i8p
+    from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
+    from rrs_tpu_torch.ops.tcq4_matmul import pack_i8p
+    from rrs_tpu_torch.tts.pipeline import CODE_TOKEN_MIN
+
+    cfg = ModelConfig.from_gguf(OUTETTS_GGUF)
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def q8(k, n, bias=False):
+        npad, kpad = n_pad_width(n), -(-k // 256) * 256
+        q = torch.randint(-127, 128, (kpad, npad), generator=gen, device=dev, dtype=torch.int8)
+        sc = torch.rand((kpad // 32, npad), generator=gen, device=dev) * 1e-3
+        sc[k // 32:] = 0.0
+        b = (torch.randn(n, generator=gen, device=dev) * 0.02).to(torch.bfloat16) if bias \
+            else None
+        return Q8Linear(q=q, scale=sc, bias=b, n_logical=n, k_logical=k if kpad != k else 0)
+
+    def tcq4(k, n):
+        qs = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev, dtype=torch.uint8)
+        eff = (torch.rand((k // 32, n), generator=gen, device=dev) * 0.01 + 0.001
+               ).to(torch.bfloat16)
+        return TCQ4Linear(qs=qs, eff=eff, i8p=pack_i8p(qs, eff) if want_i8p() else None)
+
+    e, f = cfg.n_embd, cfg.n_ff
+    ones = lambda n: torch.ones((n,), dtype=torch.bfloat16, device=dev)   # noqa: E731
+    layers = [LayerWeights(wq=None, wk=None, wv=None, wo=q8(cfg.n_q_dim, e), w_gate=None,
+                           w_up=None, w_down=tcq4(f, e),
+                           wqkv=q8(e, cfg.n_q_dim + 2 * cfg.n_kv_dim, bias=True),
+                           w_gateup=q8(e, 2 * f), attn_norm=ones(e), ffn_norm=ones(e),
+                           q_norm=None, k_norm=None)
+              for _ in range(cfg.n_layers)]
+    head = q8(e, cfg.vocab_size)
+    head.scale[:, CODE_TOKEN_MIN:CODE_TOKEN_MIN + WAVTOKENIZER["n_codes"]] *= CODE_SCALE
+    embed = (torch.randn((cfg.vocab_size, e), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    w = ModelWeights(embed=embed, layers=layers, final_norm=ones(e), lm_head=head)
+    torch.cuda.synchronize()
+    print(f"  OuteTTS-0.2-500M: qwen2 {cfg.n_layers} layers, E={cfg.n_embd}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads x {cfg.head_dim} (GQA group "
+          f"{cfg.n_heads // cfg.n_kv_heads}), FF {cfg.n_ff}, vocab {cfg.vocab_size}; qkv / o / "
+          f"gate-up Q8_0 at K {e} -> {-(-e // 256) * 256}, ffn_down TCQ4, the head's code "
+          f"columns x{CODE_SCALE:g}; "
+          f"{sum(t.numel() * t.element_size() for t in _tensors(w)) / GB:.3f} GB", flush=True)
+    return cfg, w, outetts_vocab(cfg.vocab_size)
+
+
+def random_wavtokenizer(seed: int, device="cuda"):
+    """WavTokenizer's decoder at WAVTOKENIZER's widths, f32 on ``device``
+    from a seeded ``torch.Generator``: matrices and convs N(0, 0.02), the
+    code embedding N(0, 0.1), norms one, biases zero, gamma 0.1."""
+    import torch
+
+    from rrs_tpu_torch.tts.vocoder import PosnetLayer, VocoderWeights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = WAVTOKENIZER
+    c = v["c"]
+
+    def m(*shape, s=0.02):
+        return torch.randn(shape, generator=gen, device=device) * s
+
+    def zero(n=c):
+        return torch.zeros((n,), device=device)
+
+    def one(n=c):
+        return torch.ones((n,), device=device)
+
+    def res():
+        return PosnetLayer(kind="res", params=dict(
+            norm1_w=one(), norm1_b=zero(), conv1_w=m(c, c, 3), conv1_b=zero(),
+            norm2_w=one(), norm2_b=zero(), conv2_w=m(c, c, 3), conv2_b=zero()))
+
+    attn = PosnetLayer(kind="attn", params=dict(
+        norm_w=one(), norm_b=zero(), q_w=m(c, c, 1), q_b=zero(), k_w=m(c, c, 1), k_b=zero(),
+        v_w=m(c, c, 1), v_b=zero(), o_w=m(c, c, 1), o_b=zero()))
+    convnext = [dict(dw_w=m(c, 1, 7), dw_b=zero(), norm_w=one(), norm_b=zero(),
+                     pw1_w=m(c, v["ff"]), pw1_b=zero(v["ff"]), pw2_w=m(v["ff"], c),
+                     pw2_b=zero(), gamma=one() * 0.1) for _ in range(v["n_convnext"])]
+    return VocoderWeights(
+        embed=m(v["n_codes"], v["c_embd"], s=0.1), conv_w=m(c, v["c_embd"], 7), conv_b=zero(),
+        posnet=[res(), res(), attn, res(), res(),
+                PosnetLayer(kind="norm", params=dict(norm_w=one(), norm_b=zero()))],
+        tok_norm_w=one(), tok_norm_b=zero(), convnext=convnext, out_norm_w=one(),
+        out_norm_b=zero(), head_w=m(c, v["n_out"]), head_b=zero(v["n_out"]))
+
+
+def write_wavtokenizer(path, voc) -> None:
+    """The vocoder's tensors as a WavTokenizer-dec GGUF under the names
+    ``load_vocoder`` reads (llama.cpp's), f32, with the port's writer: a conv
+    (Cout, Cin, k) as it is (ggml's ne {k, Cin, Cout}), a linear as (out,
+    in)."""
+    import numpy as np
+
+    from rrs_tpu_torch.gguf.writer import GGUFWriter
+
+    w = GGUFWriter(path)
+    w.add_string("general.architecture", "wavtokenizer-dec")
+
+    def add(name, t, linear=False):
+        a = t.detach().float().cpu().numpy()
+        w.add_tensor(name, np.ascontiguousarray(a.T if linear else a))
+
+    add("token_embd.weight", voc.embed)
+    add("conv1d.weight", voc.conv_w)
+    add("conv1d.bias", voc.conv_b)
+    names = {"norm_w": "attn_norm.weight", "norm_b": "attn_norm.bias", "q_w": "attn_q.weight",
+             "q_b": "attn_q.bias", "k_w": "attn_k.weight", "k_b": "attn_k.bias",
+             "v_w": "attn_v.weight", "v_b": "attn_v.bias", "o_w": "attn_output.weight",
+             "o_b": "attn_output.bias"}
+    for il, layer in enumerate(voc.posnet):
+        for key, t in layer.params.items():
+            if layer.kind == "attn":
+                name = names[key]
+            elif layer.kind == "norm":
+                name = "norm." + ("weight" if key == "norm_w" else "bias")
+            else:
+                name = f"{key[:-2]}.{'weight' if key.endswith('_w') else 'bias'}"
+            add(f"posnet.{il}.{name}", t)
+    add("token_embd_norm.weight", voc.tok_norm_w)
+    add("token_embd_norm.bias", voc.tok_norm_b)
+    for il, blk in enumerate(voc.convnext):
+        for key, t in blk.items():
+            name = "gamma" if key == "gamma" else \
+                f"{key[:-2]}.{'weight' if key.endswith('_w') else 'bias'}"
+            add(f"convnext.{il}.{name}", t, linear=key in ("pw1_w", "pw2_w"))
+    add("output_norm.weight", voc.out_norm_w)
+    add("output_norm.bias", voc.out_norm_b)
+    add("output.weight", voc.head_w, linear=True)
+    add("output.bias", voc.head_b)
+    w.write()
+
+
+def tts_run(cfg, w, vocab, voc, reports, tmp):
+    """``synthesize`` of TTS_TEXT with max_codes TTS_MAX_CODES on a 1-lane
+    context (ctx 4,096, as the ``tts`` verb builds it), its vocoder and
+    ``embd_to_audio`` calls timed where ``synthesize`` makes them (the
+    vocoder with a sync on each side), the launch counts set to 0 before and
+    read after (``launches_tts``). Prints the text model's decode tok/s, the
+    vocoder's and the synthesis' ms for the codes made, and the real-time
+    factor: seconds of audio a second of the whole call. Returns the
+    context."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.tts import dsp, pipeline, vocoder
+
+    ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=4096)
+    ctx.generate([5, 6, 7], 2)                                       # warm-up
+    vocoder.vocoder_forward(voc, [1, 2, 3])
+    zero_perf(ctx)
+    times = {}
+    forward, to_audio = vocoder.vocoder_forward, dsp.embd_to_audio
+
+    def timed_forward(weights, codes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(weights, codes)
+        torch.cuda.synchronize()
+        times["vocoder"] = time.perf_counter() - t0
+        times["codes"] = list(codes)
+        return out
+
+    def timed_audio(embd):
+        t0 = time.perf_counter()
+        out = to_audio(embd)
+        times["dsp"] = time.perf_counter() - t0
+        return out
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    vocoder.vocoder_forward, dsp.embd_to_audio = timed_forward, timed_audio
+    try:
+        t0 = time.perf_counter()
+        path, n = pipeline.synthesize(ctx, vocab, voc, TTS_TEXT, max_codes=TTS_MAX_CODES,
+                                      out_path=tmp / "tts.wav")
+        wall = time.perf_counter() - t0
+    finally:
+        vocoder.vocoder_forward, dsp.embd_to_audio = forward, to_audio
+    launches = mark_launches(reports, "launches_tts")
+    frames = _wav_frames(path)
+    want = (n - 1) * dsp.N_HOP + dsp.N_WIN - (dsp.N_WIN - dsp.N_HOP)
+    if AUDIO_PATH - set(launches) or frames != want or n != len(times["codes"]) or n < 16:
+        raise AssertionError(f"OuteTTS synthesize: {n} codes, {frames} frames (want {want}), "
+                             f"launches {launches}")
+    perf = ctx.perf()
+    secs = frames / dsp.SAMPLE_RATE
+    print(f"  synthesize({TTS_TEXT!r}, max_codes {TTS_MAX_CODES}): {n} audio codes "
+          f"({len(set(times['codes']))} distinct) -> {frames} samples, {secs:.2f} s of 24 kHz "
+          f"audio in {wall:.2f} s: real-time factor {secs / wall:.3f} (audio s / compute s); "
+          f"the text model's prefill {perf['n_p_eval']} tokens @ {perf['pp_tok_per_s']:.1f} "
+          f"tok/s, decode {perf['n_eval']} tok @ {perf['tg_tok_per_s']:.2f} tok/s; the vocoder "
+          f"{times['vocoder'] * 1e3:.2f} ms, embd_to_audio on the host {times['dsp'] * 1e3:.2f} "
+          f"ms; launches {launches}", flush=True)
+    return ctx
+
+
+def _wav_frames(path) -> int:
+    """The frame count of a 24 kHz, 16-bit mono WAV; raises on another
+    format."""
+    import wave
+
+    with wave.open(str(path), "rb") as f:
+        if (f.getframerate(), f.getsampwidth(), f.getnchannels()) != (24000, 2, 1):
+            raise AssertionError(f"{path}: {f.getframerate()} Hz, {8 * f.getsampwidth()}-bit, "
+                                 f"{f.getnchannels()} channels")
+        return f.getnframes()
+
+
+def tts_held(ctx, vocab) -> None:
+    """A teacher-forced prefill of the TTS prompt and a decode step, every
+    B1 / B2 / B3 / B4 launch held to its plain version: B2 at K = 896 padded
+    to 1,024, B3 at the GQA group of 7."""
+    import torch
+
+    from rrs_tpu_torch.tts.pipeline import format_prompt
+
+    toks = vocab.encode(format_prompt(TTS_TEXT), add_special=True)
+    if len(toks) > 64:
+        raise AssertionError(f"the TTS prompt is {len(toks)} tokens: B5, not B4, would run")
+    t0 = time.perf_counter()
+    with held_to_plain("OuteTTS", AUDIO_PATH) as seen:
+        seq = ctx.new_sequence()
+        last = ctx.prefill(seq, toks)[-1]
+        out = ctx.decode({seq: int(last.argmax())})[seq]
+        ctx.kv.seq_rm(seq)
+        torch.cuda.synchronize()
+    kpad = -(-ctx.cfg.n_embd // 256) * 256
+    if not (torch.isfinite(last).all() and torch.isfinite(out).all()) or \
+            not any(s[1] == kpad != ctx.cfg.n_embd for s in seen["q8_matmul"][1]):
+        raise AssertionError(f"OuteTTS held steps: B2 shapes {seen['q8_matmul'][1]}")
+    print(f"  OuteTTS held (a {len(toks)}-token prompt + a decode step), max rel by kernel: "
+          + ", ".join(f"{k} {v[0]:.2e} <= {SMALL_TOL[k]:.0e} {sorted(v[1])}"
+                      for k, v in sorted(seen.items()))
+          + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def vocoder_cpu(voc) -> None:
+    """The full-width vocoder on the card against the same weights on the
+    CPU over 128 codes from a seed: rel L2 <= AUDIO_TOL; then its time on
+    the card for those codes (CUDA events after a warm-up)."""
+    import torch
+
+    from rrs_tpu_torch.models.llama import to_device
+    from rrs_tpu_torch.tts.vocoder import vocoder_forward
+
+    codes = torch.randint(0, WAVTOKENIZER["n_codes"], (128,),
+                          generator=torch.Generator().manual_seed(23)).tolist()
+    got = vocoder_forward(voc, codes)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    got = vocoder_forward(voc, codes)
+    end.record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = vocoder_forward(to_device(voc, "cpu"), codes)
+    rel = _rel_t(got.cpu(), ref)
+    if rel > AUDIO_TOL or got.shape != (128, WAVTOKENIZER["n_out"]):
+        raise AssertionError(f"vocoder card vs CPU: rel L2 {rel:.2e}, {tuple(got.shape)}")
+    print(f"  the WavTokenizer decoder ({voc.nbytes() / GB:.3f} GB f32), card vs the CPU port "
+          f"over 128 codes: rel L2 {rel:.2e} <= {AUDIO_TOL:.0e}; {start.elapsed_time(end):.2f} "
+          f"ms on the card, {(time.perf_counter() - t0) * 1e3:.0f} ms on the host's CPU",
+          flush=True)
+
+
+def write_audio_files(tmp) -> None:
+    """The file path's inputs, written on the host (run in a process of its
+    own beside the card work): an ultravox mmproj at full widths with the
+    tower cut to 2 layers (``write_audio_mmproj``, whose projector hidden is
+    the tower's FF, 5,120, as the JAX writer sizes it); Llama-3.2-1B's
+    widths and OuteTTS-0.2-500M's, each cut to 2 layers, from the port's
+    exporter in F16 (tied embeddings), the latter over OuteTTS's vocabulary
+    with the code rows of its embedding scaled by CODE_SCALE in place."""
+    import dataclasses
+    from pathlib import Path
+
+    import numpy as np
+
+    from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models.export import export_random_gguf
+    from rrs_tpu_torch.mtmd.audio import AudioConfig, write_audio_mmproj
+    from rrs_tpu_torch.tts.pipeline import CODE_TOKEN_MIN
+
+    tmp = Path(tmp)
+    t0 = time.perf_counter()
+    write_audio_mmproj(tmp / "ultravox-mmproj.gguf", dataclasses.replace(
+        AudioConfig.from_gguf(ULTRAVOX_MMPROJ), n_layers=2), seed=24)
+    for name, md, vocab in (("llama32-1b-2l", ULTRAVOX_LLAMA_GGUF, None),
+                            ("outetts-2l", OUTETTS_GGUF, outetts_vocab(157696))):
+        cfg = dataclasses.replace(ModelConfig.from_gguf(md), n_layers=2, tie_embeddings=True)
+        vocab = vocab or synthetic_vocab(cfg.vocab_size)
+        export_random_gguf(cfg, tmp / f"{name}.gguf", seed=25, dtype=np.float16,
+                           vocab_tokens=vocab.tokens, vocab_types=vocab.token_types)
+    path = tmp / "outetts-2l.gguf"
+    with read_gguf(path) as g:
+        info = g.tensors["token_embd.weight"]
+        row = info.shape[1] * 2
+        start = g.data_start + info.offset + CODE_TOKEN_MIN * row
+    with open(path, "r+b") as f:
+        f.seek(start)
+        rows = np.frombuffer(f.read(WAVTOKENIZER["n_codes"] * row), np.float16) * CODE_SCALE
+        f.seek(start)
+        f.write(rows.astype(np.float16).tobytes())
+    print(f"wrote the file path's GGUFs in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def audio_files_start(tmp):
+    """``write_audio_files`` in a process of its own; returns its handle."""
+    from pathlib import Path
+
+    proc = subprocess.Popen([sys.executable, "-c", "import sys, chip_smoke; "
+                             "chip_smoke.write_audio_files(sys.argv[1])", str(tmp)],
+                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    _CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def audio_files_finish(tmp, wavs, started) -> None:
+    """The file path: ``serve -m <Llama-3.2-1B widths, 2 layers> --mmproj
+    <the ultravox mmproj>`` as a process answering one chat request with the
+    5 s clip as an ``input_audio`` part, and beside it ``tts -m <OuteTTS, 2
+    layers> -mv <the vocoder GGUF>``, whose WAV must be 24 kHz, 16-bit, mono
+    with (n_codes - 1) * 320 + 1,280 - 960 frames."""
+    import base64
+
+    from rrs_tpu_torch.tts import dsp
+
+    writer, t0 = started
+    try:
+        out, err = writer.communicate(timeout=600)
+    finally:
+        _CHILDREN.remove(writer)
+    if writer.returncode != 0:
+        raise AssertionError(f"write_audio_files: exit {writer.returncode}\n{err[-3000:]}")
+    sizes = ", ".join(f"{p.name} {p.stat().st_size / GB:.3f} GB" for p in sorted(tmp.glob("*.gguf")))
+    print(f"  {out.strip()} ({sizes}; {time.perf_counter() - t0:.1f} s since the phase began)",
+          flush=True)
+    tts = _verb_start(["tts", "-m", tmp / "outetts-2l.gguf", "-mv", tmp / "wavtokenizer.gguf",
+                       "-p", TTS_TEXT, "-o", tmp / "verb.wav", "--max-codes", "48"])
+    handle = _verb_start(["serve", "-m", tmp / "llama32-1b-2l.gguf", "--mmproj",
+                          tmp / "ultravox-mmproj.gguf", "--port", "0", "--parallel", "1",
+                          "--ctx", "1024"])
+    proc = handle[0]
+    t1 = time.perf_counter()
+    try:
+        port, lines = None, []
+        for line in proc.stdout:
+            lines.append(line.strip())
+            if line.startswith("serving "):
+                port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+                break
+        if port is None or not any(s.startswith("loaded audio tower") for s in lines):
+            raise AssertionError(f"serve --mmproj did not start: {lines} "
+                                 f"{proc.stderr.read()[-2000:]}")
+        t_up = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        status, data = _http(port, "POST", "/v1/chat/completions", {"messages": [
+            {"role": "user", "content": [
+                {"type": "text", "text": "what is said here? "},
+                {"type": "input_audio", "input_audio": {
+                    "data": base64.b64encode(wavs["5s-16k-mono"]).decode(), "format": "wav"}}]}],
+            "max_tokens": 8, "temperature": 0}, timeout=300)
+        dt = time.perf_counter() - t1
+        res = json.loads(data) if status == 200 else {}
+        if status != 200 or res["usage"]["completion_tokens"] != 8:
+            raise AssertionError(f"serve --mmproj audio chat: {status} {data[:300]!r}")
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=60)
+        _CHILDREN.remove(proc)
+    print(f"  $ python -m rrs_tpu_torch serve -m llama32-1b-2l.gguf --mmproj "
+          f"ultravox-mmproj.gguf --port 0 --parallel 1 --ctx 1024: {lines[-2]!r}; serving "
+          f"after {t_up:.1f} s; one chat request with the 5 s clip (its 188 audio rows beside "
+          f"{res['usage']['prompt_tokens']} prompt tokens) answered 8 tokens in {dt * 1e3:.0f} "
+          f"ms", flush=True)
+    line = _verb_wait(tts, timeout=600).strip().splitlines()[-1]
+    n = int(line.split("(")[1].split()[0])
+    frames = _wav_frames(tmp / "verb.wav")
+    if frames != (n - 1) * dsp.N_HOP + dsp.N_WIN - (dsp.N_WIN - dsp.N_HOP) or n < 1:
+        raise AssertionError(f"tts verb: {line!r}, {frames} frames")
+    print(f"  tts: {line!r}: 24 kHz 16-bit mono, {frames} frames = ({n} - 1) * {dsp.N_HOP} + "
+          f"{dsp.N_WIN} - {dsp.N_WIN - dsp.N_HOP}; the file path took "
+          f"{time.perf_counter() - t0:.1f} s since the phase began", flush=True)
+
+
+def phase_audio(reports, peaks, tmp) -> None:
+    """Audio and TTS (phase 19): (a) Ultravox v0.5 at full width in memory:
+    each clip's front end and tower, ``multimodal_prefill`` + greedy decode,
+    a held [text, audio, text] prefill and decode step, the server with audio
+    parts, a B = 1 decode profile; (b) the tower cut to 2 layers with both
+    projectors, card against the CPU port; (c) OuteTTS-0.2-500M at full
+    width with the full WavTokenizer decoder: ``synthesize``, a held step, a
+    decode profile, the vocoder card against the CPU port; (d) the files,
+    written by a process started first, through ``serve --mmproj`` and
+    ``tts`` as processes."""
+    import torch
+
+    from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER, multimodal_prefill
+    from rrs_tpu_torch.tts.pipeline import format_prompt
+
+    started = audio_files_start(tmp)
+    cfg, w, acfg, aw = ultravox_model()
+    wavs = {name: audio_wav(s, sr, ch, seed=i)
+            for i, (name, (s, sr, ch)) in enumerate(AUDIO_CLIPS.items())}
+    chunks, mels = audio_encode(acfg, aw, wavs, peaks)
+    ctx, vocab = audio_generate(cfg, w, chunks, reports)
+    audio_held(ctx, chunks["8s-44k1-stereo"])
+    audio_serve(cfg, w, acfg, aw, wavs)
+    profile_decode(ctx, None, label="Ultravox (Llama-3.2-1B), a lane after the 5 s clip",
+                   prefill=lambda seq: multimodal_prefill(
+                       ctx, vocab, seq, AUDIO_PROMPT.format(IMAGE_MARKER),
+                       [chunks["5s-16k-mono"]]))
+    del ctx, w
+    audio_tower_cpu(acfg, aw, mels["8s-44k1-stereo"])
+    del aw, chunks
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, w, vocab = outetts_model()
+    voc = random_wavtokenizer(seed=26)
+    ctx = tts_run(cfg, w, vocab, voc, reports, tmp)
+    tts_held(ctx, vocab)
+    profile_decode(ctx, vocab.encode(format_prompt(TTS_TEXT), add_special=True),
+                   label="OuteTTS-0.2-500M")
+    vocoder_cpu(voc)
+    write_wavtokenizer(tmp / "wavtokenizer.gguf", voc)
+    del ctx, w, voc
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio_files_finish(tmp, wavs, started)
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -6801,7 +7653,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/19] build")
+    header("[1/20] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -6815,32 +7667,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/19] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/20] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/19] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/20] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/19] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/20] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/19] served steps held to the plain versions; device decode run against "
+    header("[5/20] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/19] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/20] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/19] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/20] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     shift_held(ctx, "qwen3-4b")
@@ -6849,7 +7701,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/19] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/20] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -6859,25 +7711,25 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/19] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/20] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/19] the rest of the server at qwen3-4b width: grammar, JSON schema, "
-           "embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
+    header("[10/20] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
+           "schema, embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
-    phase_server_rest(cfg, weights, reports)
+    phase_server_rest(*first_layers(cfg, weights, SERVER_REST_LAYERS), reports)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/19] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
-           "generate (12 of 24 layers), serving and held served steps")
+    header("[11/20] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+           "generate (6 of 24 layers), serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
     cfg, weights = phase_gptoss_generate(reports)
@@ -6889,7 +7741,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/19] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/20] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -6912,7 +7764,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/19] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/20] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -6927,7 +7779,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/19] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/20] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -6936,13 +7788,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/19, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/20, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/19, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/20, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -6950,7 +7802,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/19] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/20] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA, 9 of 27 layers) and gemma3-4b (12 of 34) at "
            "their published widths")
     t15 = time.perf_counter()
@@ -6963,14 +7815,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/19] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+    header("[16/20] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
            "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/19] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+    header("[17/20] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
            "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
            "cvector, quantize-stats, fit-params")
     t17 = time.perf_counter()
@@ -6981,7 +7833,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
-    header("[18/19] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
+    header("[18/20] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
            "image encodes, generate_with_images, held steps, image parts on the server, a "
            "decode profile; the tower card vs CPU; 2-layer and projector checks; convert-hf "
            "--mmproj and serve --mmproj as processes")
@@ -6992,7 +7844,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
 
-    header("[19/19] summary")
+    header("[19/20] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
+           "32-layer whisper-large-v3-turbo tower): audio encodes, multimodal_prefill, held "
+           "steps, audio parts on the server, a decode profile; the tower card vs CPU; "
+           "OuteTTS-0.2-500M (24 layers) with the full WavTokenizer: synthesize, held steps, a "
+           "decode profile, the vocoder card vs CPU; serve --mmproj and tts as processes")
+    t19 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        phase_audio(reports, peaks, Path(tmp_name))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
+
+    header("[20/20] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

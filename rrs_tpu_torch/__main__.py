@@ -3,18 +3,19 @@
 The verbs of ``rrs_tpu/__main__.py`` with the same flags: ``generate``,
 ``serve``, ``chat``, ``bench``, ``batched-bench``, ``perplexity``,
 ``imatrix``, ``quantize``, ``gguf-split``, ``quantize-stats``, ``tokenize``,
-``export-lora``, ``cvector``, ``fit-params`` and ``convert-hf``, plus
+``export-lora``, ``cvector``, ``fit-params``, ``convert-hf`` and ``tts``, plus
 ``--device`` on the verbs that compute on a device (default ``cuda``;
 ``cpu`` must be asked for). Every ``-m`` takes a single GGUF or any shard of
 a ``-NNNNN-of-NNNNN`` set; ``quantize``, ``gguf-split``, ``tokenize``,
 ``export-lora``, ``fit-params`` and ``convert-hf`` are host code.
 ``generate`` decodes speculatively with ``--model-draft`` or by prompt
 lookup with ``--lookup``; ``serve`` takes a draft model and extra routable
-``--models`` and a vision projector (``--mmproj``). ``convert-hf --mmproj``
-extracts a VLM's vision tower. Flags whose feature is not ported yet (tensor /
-data / pipeline parallelism) raise NotImplementedError naming their ROADMAP
-item, as does an audio tower given to ``serve --mmproj`` (A11b); ``tts``
-(A11b) and ``finetune`` (A12) are not verbs yet.
+``--models`` and the vision and audio towers of an mmproj file
+(``--mmproj``). ``convert-hf --mmproj`` extracts a VLM's vision tower.
+``tts`` speaks a prompt with an OuteTTS model and a WavTokenizer vocoder
+into a WAV. Flags whose feature is not ported yet (tensor / data / pipeline
+parallelism) raise NotImplementedError naming their ROADMAP item;
+``finetune`` (A12) is not a verb yet.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def main(argv=None):
     s.add_argument("--models", nargs="*", default=None,
                    help="extra routable models: name=path.gguf ... (multi-model router)")
     s.add_argument("--mmproj", default=None,
-                   help="vision projector GGUF (an audio tower waits for ROADMAP A11b)")
+                   help="mmproj GGUF: its vision tower, audio tower, or both")
     s.add_argument("--model-draft", "-md", default=None,
                    help="draft model GGUF for server-side speculative decoding")
     s.add_argument("--draft", type=int, default=4, help="speculative draft length")
@@ -215,6 +216,14 @@ def main(argv=None):
     hf.add_argument("--mmproj", action="store_true",
                     help="extract the VLM vision tower into an mmproj GGUF")
 
+    tts = sub.add_parser("tts", help="text-to-speech (OuteTTS + WavTokenizer)")
+    tts.add_argument("--model", "-m", required=True, help="OuteTTS GGUF")
+    tts.add_argument("--model-vocoder", "-mv", required=True, help="WavTokenizer-dec GGUF")
+    tts.add_argument("--prompt", "-p", required=True)
+    tts.add_argument("--output", "-o", default="output.wav")
+    tts.add_argument("--max-codes", type=int, default=768)
+    _device_arg(tts)
+
     args = p.parse_args(argv)
     _refuse_unported(args)
     if args.cmd == "generate":
@@ -264,6 +273,8 @@ def main(argv=None):
         cmd_cvector(args)
     elif args.cmd == "fit-params":
         cmd_fit_params(args)
+    elif args.cmd == "tts":
+        cmd_tts(args)
     elif args.cmd == "convert-hf":
         import numpy as np
 
@@ -470,6 +481,21 @@ def cmd_tokenize(args):
     else:
         for i in ids:
             print(f"{i:>8} -> {vocab.tokens[i]!r}")
+
+
+def cmd_tts(args):
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.runtime.recurrent import make_context
+    from rrs_tpu_torch.tts.pipeline import synthesize
+    from rrs_tpu_torch.tts.vocoder import load_vocoder
+
+    cfg, weights, md = load_model(args.model, device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=1, max_seq=4096, device=args.device)
+    voc = load_vocoder(args.model_vocoder, device=args.device)
+    path, n_codes = synthesize(ctx, Vocab.from_gguf(md), voc, args.prompt,
+                               max_codes=args.max_codes, out_path=args.output)
+    print(f"wrote {path} ({n_codes} audio codes)")
 
 
 def cmd_cvector(args):

@@ -3,16 +3,18 @@ image into an embedding chunk, and drive a context with interleaved token
 and embedding prefills.
 
 Port of ``rrs_tpu/mtmd/pipeline.py`` (``IMAGE_MARKER``,
-``decode_image_b64``, ``embed_images``, ``_prefill_chunk``,
-``multimodal_prefill``, ``generate_with_images``). Images decode through
-``mtmd/image_io.py`` (PNG without Pillow). A Qwen2-VL chunk carries its
-merged grid for the M-RoPE rows of ``prefill_embeds``. The audio branch
-(``decode_audio_b64``) waits for ROADMAP A11b.
+``decode_image_b64``, ``decode_audio_b64``, ``embed_images``,
+``_prefill_chunk``, ``multimodal_prefill``, ``generate_with_images``). Images
+decode through ``mtmd/image_io.py`` (PNG without Pillow); WAV audio through
+the standard library's ``wave``, resampled to 16 kHz for ``mtmd/audio.py``.
+A Qwen2-VL chunk carries its merged grid for the M-RoPE rows of
+``prefill_embeds``; an audio chunk is plain rows and uses the same marker.
 """
 
 from __future__ import annotations
 
 import base64
+import io
 
 import numpy as np
 import torch
@@ -33,6 +35,38 @@ def decode_image_b64(data: str) -> np.ndarray:
     if data.startswith("data:"):
         data = data.split(",", 1)[1]
     return decode_image(base64.b64decode(data))
+
+
+def decode_audio_b64(data: str) -> np.ndarray:
+    """base64 (optionally a data: URL) WAV -> mono f32 PCM at 16 kHz: 8-bit
+    unsigned, 16- or 32-bit signed PCM, the channels averaged, a linear
+    resample. A payload that ``wave`` cannot read raises ValueError."""
+    import wave
+
+    if data.startswith("data:"):
+        data = data.split(",", 1)[1]
+    try:
+        with wave.open(io.BytesIO(base64.b64decode(data))) as w:
+            sr = w.getframerate()
+            n_ch = w.getnchannels()
+            width = w.getsampwidth()
+            frames = w.readframes(w.getnframes())
+    except (wave.Error, EOFError) as e:
+        raise ValueError(f"cannot decode the audio as WAV: {e}") from e
+    if width == 2:
+        x = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
+    elif width == 1:
+        x = (np.frombuffer(frames, np.uint8).astype(np.float32) - 128) / 128.0
+    elif width == 4:
+        x = np.frombuffer(frames, np.int32).astype(np.float32) / 2147483648.0
+    else:
+        raise ValueError(f"unsupported WAV sample width {width}")
+    if n_ch > 1:
+        x = x.reshape(-1, n_ch).mean(-1)
+    if sr != 16000:
+        n_out = int(round(x.size * 16000 / sr))
+        x = np.interp(np.linspace(0, x.size - 1, n_out), np.arange(x.size), x).astype(np.float32)
+    return x
 
 
 def embed_images(cfg: ClipConfig, weights: ClipWeights, images) -> list:

@@ -22,14 +22,16 @@ A non-streamed completion reports ``usage`` with the exact count of
 generated tokens and the reference server's ``timings`` (prompt_ms: submit
 to first token; predicted_ms: first token to finish).
 
-With a vision projector (``serve --mmproj``), the chat route lifts each
+With a vision tower (``serve --mmproj``), the chat route lifts each
 ``image_url`` part out of the messages, in order, leaving a marker in the
 rendered text; each image is decoded (PNG without Pillow; a format that
 cannot be decoded answers 400), encoded by the tower and fed as an embedding
-chunk between the text's token runs (the engine's ``segments``). Without a
-projector an image part reaches the chat template as it is, as in the JAX
-package. Audio content parts answer 501 with a JSON error naming ROADMAP
-A11b, which brings them.
+chunk between the text's token runs (the engine's ``segments``). With an
+audio tower (the same flag: a file may hold both), each ``input_audio`` part
+is lifted the same way: the WAV is decoded (one that cannot be decoded
+answers 400) and its 30 s chunks, encoded and concatenated, make one
+embedding chunk. Without the tower a part needs, it reaches the chat
+template as it is, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ from rrs_tpu_torch.serving.chat import (build_prompt, detect_template, detect_to
                                         extract_reasoning, parse_tool_calls)
 from rrs_tpu_torch.serving.engine import Engine, GenRequest
 
-AUDIO = "audio content parts (input_audio) wait for ROADMAP A11b (the audio slice)"
 WEBUI = Path(__file__).resolve().parent / "webui.html"
 
 
@@ -117,9 +118,12 @@ class ServerState:
         # the router: name -> ModelHandle; a request whose "model" names one
         # runs on that model's engine
         self.models: dict[str, ModelHandle] = {}
-        # the vision tower (``--mmproj``): its ClipConfig and ClipWeights
+        # the towers of ``--mmproj``: vision (ClipConfig, ClipWeights) and
+        # audio (AudioConfig, AudioWeights)
         self.clip_cfg = None
         self.clip_weights = None
+        self.audio_cfg = None
+        self.audio_weights = None
 
     def render_chat(self, messages, tools=None, add_assistant=True):
         """(prompt text, extra stop strings) via the model's Jinja template,
@@ -151,13 +155,6 @@ def _sampler_params(body: dict) -> SamplerParams:
             (int(k), float(v)) for k, v in (body.get("logit_bias") or {}).items()
         ) if isinstance(body.get("logit_bias"), dict) else (),
     )
-
-
-def _has_audio(messages) -> bool:
-    return any(isinstance(m.get("content"), list)
-               and any(isinstance(p, dict) and p.get("type") == "input_audio"
-                       for p in m["content"])
-               for m in messages if isinstance(m, dict))
 
 
 def _grammar_from_body(body: dict):
@@ -213,10 +210,6 @@ def make_handler(state: ServerState):
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
             self.wfile.write(data)
-
-        def _not_ported(self, why: str, code: int = 501):
-            kind = "not_implemented" if code == 501 else "invalid_request_error"
-            self._json({"error": {"code": code, "type": kind, "message": why}}, code)
 
         def _read_body(self) -> dict:
             n = int(self.headers.get("Content-Length", 0))
@@ -463,11 +456,8 @@ def make_handler(state: ServerState):
             elif path == "/detokenize":
                 self._json({"content": self.st.vocab.decode(body.get("tokens", []))})
             elif path == "/apply-template":
-                messages = body.get("messages", [])
-                if _has_audio(messages):
-                    self._not_ported(AUDIO)
-                    return
-                text, _ = self.st.render_chat(messages, tools=body.get("tools") or None)
+                text, _ = self.st.render_chat(body.get("messages", []),
+                                              tools=body.get("tools") or None)
                 self._json({"prompt": text})
             elif path == "/v1/chat/completions":
                 self._chat(body)
@@ -512,9 +502,6 @@ def make_handler(state: ServerState):
             (message_start, content_block_start / _delta / _stop,
             message_delta, message_stop) when streamed."""
             messages = list(body.get("messages", []))
-            if _has_audio(messages):
-                self._not_ported(AUDIO)
-                return
             if body.get("system"):
                 messages = [{"role": "system", "content": body["system"]}] + messages
             text, stops = self.st.render_chat(messages)
@@ -646,22 +633,18 @@ def make_handler(state: ServerState):
             self._json({"object": "list", "data": data, "model": self.st.model_name})
 
         def _chat(self, body):
-            messages = body.get("messages", [])
-            if _has_audio(messages):
-                self._not_ported(AUDIO)
-                return
             tools = body.get("tools") or None
-            images = []
-            if self.st.clip_weights is not None:
-                messages, images = _lift_images(messages)
+            messages, media = _lift_media(body.get("messages", []),
+                                          images=self.st.clip_weights is not None,
+                                          audio=self.st.audio_weights is not None)
             text, chat_stops = self.st.render_chat(messages, tools=tools)
             toks = self.st.vocab.encode(text, add_special=False)
             rid = f"chatcmpl-{uuid.uuid4().hex[:12]}"
             probs = []
             segments = None
-            if images:
+            if media:
                 try:
-                    segments = self._image_segments(text, images)
+                    segments = self._media_segments(text, media)
                 except Exception as e:                        # noqa: BLE001
                     self._json({"error": str(e)}, 400)
                     return
@@ -700,15 +683,25 @@ def make_handler(state: ServerState):
                         "created": int(time.time()), "choices": [choice],
                         **self._usage(gen, len(toks))})
 
-        def _image_segments(self, text: str, images: list) -> list:
-            """The rendered text split at the image markers into token runs,
-            each image decoded and encoded into its embedding chunk between
-            them (a Qwen2-VL chunk with its merged grid)."""
-            from rrs_tpu_torch.mtmd.pipeline import (IMAGE_MARKER, decode_image_b64,
-                                                     embed_images)
+        def _media_segments(self, text: str, media: list) -> list:
+            """The rendered text split at the media markers into token runs,
+            each image or audio clip decoded and encoded into its embedding
+            chunk between them (a Qwen2-VL chunk with its merged grid; an
+            audio clip's 30 s chunks concatenated)."""
+            import torch
 
-            chunks = embed_images(self.st.clip_cfg, self.st.clip_weights,
-                                  [decode_image_b64(url) for url in images])
+            from rrs_tpu_torch.mtmd.audio import embed_audio
+            from rrs_tpu_torch.mtmd.pipeline import (IMAGE_MARKER, decode_audio_b64,
+                                                     decode_image_b64, embed_images)
+
+            chunks = []
+            for kind, payload in media:
+                if kind == "image":
+                    chunks.extend(embed_images(self.st.clip_cfg, self.st.clip_weights,
+                                               [decode_image_b64(payload)]))
+                else:
+                    chunks.append(torch.cat(embed_audio(
+                        self.st.audio_cfg, self.st.audio_weights, decode_audio_b64(payload))))
             segments = []
             for i, piece in enumerate(text.split(IMAGE_MARKER)):
                 if piece:
@@ -750,41 +743,50 @@ def make_handler(state: ServerState):
     return Handler
 
 
-def _lift_images(messages):
-    """Each ``image_url`` part of the messages, in order, replaced by a text
-    part holding the image marker: (new messages, the image URLs)."""
+def _lift_media(messages, images: bool, audio: bool):
+    """Each ``image_url`` part (when ``images``) and ``input_audio`` part
+    (when ``audio``) of the messages, in order, replaced by a text part
+    holding the media marker: (new messages, [("image", url) | ("audio",
+    base64 WAV)])."""
     from rrs_tpu_torch.mtmd.pipeline import IMAGE_MARKER
 
-    images, out = [], []
+    media, out = [], []
     for m in messages:
         c = m.get("content")
-        if isinstance(c, list):
+        if (images or audio) and isinstance(c, list):
             parts = []
             for part in c:
-                if isinstance(part, dict) and part.get("type") == "image_url":
+                kind = part.get("type") if isinstance(part, dict) else None
+                if kind == "image_url" and images:
                     url = part["image_url"]
-                    images.append(url.get("url") if isinstance(url, dict) else url)
-                    parts.append({"type": "text", "text": IMAGE_MARKER})
+                    media.append(("image", url.get("url") if isinstance(url, dict) else url))
+                elif kind == "input_audio" and audio:
+                    media.append(("audio", part.get("input_audio", {}).get("data", "")))
                 else:
                     parts.append(part)
+                    continue
+                parts.append({"type": "text", "text": IMAGE_MARKER})
             m = {**m, "content": parts}
         out.append(m)
-    return out, images
+    return out, media
 
 
-def load_vision_tower(path: str, device=None):
-    """``--mmproj``: the vision tower of an mmproj GGUF, (ClipConfig,
-    ClipWeights) on ``device``; a file with an audio tower is refused."""
+def load_towers(path: str, device=None):
+    """``--mmproj``: the towers an mmproj GGUF holds, each on ``device``:
+    (vision (ClipConfig, ClipWeights) or None, audio (AudioConfig,
+    AudioWeights) or None). A file with neither is refused."""
     from rrs_tpu_torch.gguf.reader import read_gguf
+    from rrs_tpu_torch.mtmd.audio import load_audio_mmproj
     from rrs_tpu_torch.mtmd.clip import load_mmproj
 
     with read_gguf(path) as g:
         names = set(g.tensors)
-    if "a.conv1d.1.weight" in names:
-        raise NotImplementedError(f"{path}: audio towers wait for ROADMAP A11b")
-    if "v.blk.0.ln1.weight" not in names and "v.patch_embd.weight" not in names:
-        raise ValueError(f"{path}: no vision tower (v.* tensors) in this mmproj file")
-    return load_mmproj(path, device=device)
+    has_vision = "v.blk.0.ln1.weight" in names or "v.patch_embd.weight" in names
+    has_audio = "a.conv1d.1.weight" in names
+    if not (has_vision or has_audio):
+        raise ValueError(f"{path}: no vision (v.*) or audio (a.*) tower in this mmproj file")
+    return (load_mmproj(path, device=device) if has_vision else None,
+            load_audio_mmproj(path, device=device) if has_audio else None)
 
 
 def serve(args):
@@ -805,13 +807,17 @@ def serve(args):
         draft_ctx = make_context(dcfg, dweights, n_lanes=args.parallel, max_seq=args.ctx,
                                  device=args.device)
         print(f"speculative decoding with draft {args.model_draft}", flush=True)
-    clip = load_vision_tower(args.mmproj, device=args.device) if args.mmproj else None
+    clip, audio = load_towers(args.mmproj, device=args.device) if args.mmproj else (None, None)
     engine = Engine(ctx, draft_ctx=draft_ctx, n_draft=args.draft)
     engine.start()
     state = ServerState(cfg, vocab, engine, md, model_name=str(args.model))
     if clip is not None:
         state.clip_cfg, state.clip_weights = clip
         print(f"loaded vision projector {args.mmproj} ({clip[0].projector_type})", flush=True)
+    if audio is not None:
+        state.audio_cfg, state.audio_weights = audio
+        print(f"loaded audio tower {args.mmproj} ({audio[0].projector} projector, "
+              f"{audio[0].n_mel} mel bins)", flush=True)
     if args.slot_save_path:
         os.makedirs(args.slot_save_path, exist_ok=True)
         state.slot_save_path = args.slot_save_path

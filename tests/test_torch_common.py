@@ -57,6 +57,51 @@ def torch_clip(ccfg, cw, device="cpu"):
             clip.ClipWeights(layers=layers, rs=rs, **fields(cw, skip=("layers", "rs"))))
 
 
+def torch_audio(acfg, aw, device="cpu"):
+    """The port's (AudioConfig, AudioWeights) of the JAX package's: every
+    array an f32 tensor on ``device`` (the layers and the projector dict
+    too). The conv weights are [Cout, Cin, 3] in both packages."""
+    from rrs_tpu_torch.mtmd import audio
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    def fields(obj, skip=()):
+        return {f.name: t(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if f.name not in skip}
+
+    return (audio.AudioConfig(**dataclasses.asdict(acfg)),
+            audio.AudioWeights(layers=[audio.AudioLayer(**fields(lw)) for lw in aw.layers],
+                               proj={k: t(v) for k, v in aw.proj.items()},
+                               **fields(aw, skip=("layers", "proj"))))
+
+
+# the vocoder's conv weights: the JAX package's [k, Cin, Cout] -> conv1d's
+# [Cout, Cin / groups, k], turned once here as the port's loader turns them
+VOCODER_CONVS = ("conv_w", "conv1_w", "conv2_w", "q_w", "k_w", "v_w", "o_w", "dw_w")
+
+
+def torch_vocoder(vw, device="cpu"):
+    """The port's VocoderWeights of the JAX package's, f32 on ``device``."""
+    from rrs_tpu_torch.tts import vocoder
+
+    def t(name, x):
+        a = np.array(x, np.float32)
+        if name in VOCODER_CONVS:
+            a = np.ascontiguousarray(a.transpose(2, 1, 0))
+        return torch.from_numpy(a).to(device)
+
+    def params(d):
+        return {k: t(k, v) for k, v in d.items()}
+
+    skip = ("posnet", "convnext")
+    return vocoder.VocoderWeights(
+        posnet=[vocoder.PosnetLayer(kind=p.kind, params=params(p.params)) for p in vw.posnet],
+        convnext=[params(c) for c in vw.convnext],
+        **{f.name: t(f.name, getattr(vw, f.name)) for f in dataclasses.fields(vw)
+           if f.name not in skip})
+
+
 def to_numpy(x):
     return None if x is None else np.asarray(x)
 

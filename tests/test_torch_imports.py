@@ -92,10 +92,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         load_model(tmp_path / "absent.gguf")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["generate", "-m", str(tmp_path / "absent.gguf")])
-    # the measuring verbs too, with a file or with fabricated weights
+    # the measuring verbs too, with a file or with fabricated weights, and tts
     for argv in (["bench", "-m", str(tmp_path / "absent.gguf")], ["bench", "--preset", "tiny"],
                  ["batched-bench", "--preset", "tiny"],
-                 ["perplexity", "-m", str(tmp_path / "absent.gguf"), "-f", "t.txt"]):
+                 ["perplexity", "-m", str(tmp_path / "absent.gguf"), "-f", "t.txt"],
+                 ["tts", "-m", str(tmp_path / "absent.gguf"), "-mv", "v.gguf", "-p", "hi"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
     with pytest.raises(NotImplementedError, match="A12"):

@@ -200,7 +200,7 @@ def vlm(tmp_path_factory):
     mm = convert_hf_mmproj(hf, d / "mmproj.gguf")
     cfg, w, md = load_model(model, dtype=torch.float32, device="cpu", fuse=False)
     jcfg, jw, jmd = jload(model, dtype=np.float32, fuse=False)
-    return dict(cfg=cfg, w=w, md=md, jcfg=jcfg, jw=jw, jmd=jmd,
+    return dict(cfg=cfg, w=w, md=md, jcfg=jcfg, jw=jw, jmd=jmd, mmproj=mm,
                 clip=load_mmproj(mm, device="cpu"), jclip=jload_mmproj(mm))
 
 
@@ -271,8 +271,9 @@ def _req(port, body):
 def test_server_image_parts_match_jax(vlm):
     """A chat request with text and an ``image_url`` PNG data URL, served
     with the tower loaded (``--mmproj``): the port's server answers JAX's
-    greedy text. An image the port cannot decode answers 400; an audio part
-    501 naming ROADMAP A11b; the CLI refuses an audio tower's file."""
+    greedy text. An image the port cannot decode answers 400; an audio part,
+    with no audio tower loaded, reaches the chat template as in JAX's server
+    and gets JAX's answer."""
     import json
     import threading
     from http.server import ThreadingHTTPServer
@@ -329,9 +330,19 @@ def test_server_image_parts_match_jax(vlm):
         status, out = _req(port, bad)
         assert status == 400 and "error" in out
         audio = {"messages": [{"role": "user", "content": [
-            {"type": "input_audio", "input_audio": {"data": "AA==", "format": "wav"}}]}]}
+            {"type": "text", "text": "hear "},
+            {"type": "input_audio", "input_audio": {"data": "AA==", "format": "wav"}}]}],
+            "max_tokens": 4, "temperature": 0}
         status, out = _req(port, audio)
-        assert status == 501 and "ROADMAP A11b" in out["error"]["message"]
+        t = threading.Thread(target=lambda: box.update(r=_req(jport, audio)))
+        t.start()
+        with jax.disable_jit():
+            while t.is_alive():
+                jeng._iterate()
+        t.join()
+        jstatus, jout = box["r"]
+        assert status == jstatus == 200, (out, jout)
+        assert out["choices"][0]["message"] == jout["choices"][0]["message"]
     finally:
         for h in httpds:
             h.shutdown()
@@ -339,18 +350,46 @@ def test_server_image_parts_match_jax(vlm):
         eng.stop()
 
 
-def test_audio_tower_refused(tmp_path):
-    """``serve --mmproj`` on an audio tower's file names ROADMAP A11b; a file
-    with no tower at all is refused too."""
+def test_audio_tower_refused(vlm, tmp_path):
+    """``serve --mmproj`` loads each tower its file holds, as JAX's server
+    does: an audio-only file its audio tower, the tiny Qwen2-VL's file its
+    vision tower, a file holding both (the vision file with an audio tower
+    added) both, each as JAX's loaders read it; a file with no tower at all
+    is refused (JAX's server loads nothing and serves on)."""
+    from rrs_tpu.gguf.reader import read_gguf as jread
+    from rrs_tpu.mtmd import audio as jaudio
+    from rrs_tpu.mtmd.clip import load_mmproj as jload_mmproj
     from rrs_tpu_torch.gguf.writer import GGUFWriter
-    from rrs_tpu_torch.serving.server import load_vision_tower
+    from rrs_tpu_torch.mtmd import audio
+    from rrs_tpu_torch.serving.server import load_towers
 
-    for name, tensor in (("audio", "a.conv1d.1.weight"), ("none", "x.weight")):
-        w = GGUFWriter(tmp_path / f"{name}.gguf")
-        w.add_string("general.architecture", "clip")
-        w.add_tensor(tensor, np.zeros((4, 4), np.float32))
-        w.write()
-    with pytest.raises(NotImplementedError, match="A11b"):
-        load_vision_tower(str(tmp_path / "audio.gguf"), device="cpu")
-    with pytest.raises(ValueError, match="no vision tower"):
-        load_vision_tower(str(tmp_path / "none.gguf"), device="cpu")
+    from test_torch_common import rewrite_gguf, torch_audio
+
+    acfg = audio.AudioConfig(n_mel=80, n_embd=64, n_layers=1, n_heads=4, n_ff=128,
+                             n_embd_llm=64, projector="ultravox", stack_factor=32)
+    apath = audio.write_audio_mmproj(tmp_path / "audio.gguf", acfg, seed=2)
+    w = GGUFWriter(tmp_path / "none.gguf")
+    w.add_string("general.architecture", "clip")
+    w.add_tensor("x.weight", np.zeros((4, 4), np.float32))
+    w.write()
+    vpath = vlm["mmproj"]
+    with jread(apath) as g:
+        akv = {k: v for k, v in g.metadata.items() if k.startswith("clip.audio.")}
+        atensors = {n: np.array(g.tensor(n), np.float32) for n in g.tensors}
+    both = rewrite_gguf(vpath, tmp_path / "both.gguf", kv=akv,
+                        edit=lambda name, arr: atensors if name == "" else {name: arr})
+    clip, aud = load_towers(str(apath), device="cpu")
+    assert clip is None and aud[0] == torch_audio(*jaudio.load_audio_mmproj(apath))[0]
+    assert aud[0].projector == "ultravox" and len(aud[1].layers) == 1
+    clip, aud = load_towers(str(vpath), device="cpu")
+    assert aud is None and clip[0] == vlm["clip"][0]
+    clip, aud = load_towers(str(both), device="cpu")
+    assert clip[0] == vlm["clip"][0] and len(clip[1].layers) == len(vlm["clip"][1].layers)
+    ref = torch_audio(*jaudio.load_audio_mmproj(both))
+    assert aud[0] == ref[0] and aud[0].projector == jload_mmproj(both)[0].projector_type
+    for a, b in zip([aud[1], *aud[1].layers], [ref[1], *ref[1].layers]):
+        for f in a.__dataclass_fields__:
+            if isinstance(getattr(a, f), torch.Tensor):
+                assert torch.equal(getattr(a, f), getattr(b, f)), f
+    with pytest.raises(ValueError, match="no vision .* or audio .* tower"):
+        load_towers(str(tmp_path / "none.gguf"), device="cpu")

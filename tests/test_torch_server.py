@@ -213,9 +213,8 @@ def test_stop_string_reason_and_no_prefix_leak(server):
 # item that brings them. The A6 (grammar) and A13 (the rest of the server)
 # cases now answer: 200, or 400 where the request itself is wrong for this
 # server (no FIM tokens in the vocabulary, an unregistered model name). The
-# A11 case (an image part) answers as JAX's server does without a projector:
-# the part reaches the chat template as it is (200); an audio part still
-# answers 501, naming A11b.
+# A11 and A11b cases (an image part, an audio part) answer as JAX's server
+# does without a tower: the part reaches the chat template as it is (200).
 WAITING = [
     ("POST", "/v1/embeddings", {"input": "AB"}, "A13", 200),
     ("POST", "/rerank", {"query": "a", "documents": ["b"]}, "A13", 200),
@@ -237,7 +236,7 @@ WAITING = [
      200),
     ("POST", "/v1/chat/completions", {"messages": [{"role": "user", "content": [
         {"type": "input_audio", "input_audio": {"data": "AA==", "format": "wav"}}]}]}, "A11b",
-     501),
+     200),
 ]
 
 
@@ -247,10 +246,7 @@ def test_waiting_routes_answer_501(server, method, path, body, item, code):
     port, _ = server
     status, data = _req(port, method, path, body)
     assert status == code, data
-    if code == 501:
-        err = json.loads(data)["error"]
-        assert err["code"] == status and f"ROADMAP {item}" in err["message"]
-    elif code == 400:
+    if code == 400:
         assert "ROADMAP" not in json.loads(data)["error"]
     elif path == "/":
         assert data.startswith(b"<!")
