@@ -281,14 +281,30 @@ it; exits non-zero without either, and on any failed phase. Phases:
    written by a process started at the phase's beginning, through ``serve
    --mmproj`` (an audio chat) and ``tts`` (a 24 kHz 16-bit mono WAV of the
    right length) as processes;
-20. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+20. training (``train/finetune.py``), run right after phase 10 on its
+   qwen3-4b weights with f32 copies of the float leaves, as the verb loads
+   them: the ``finetune`` verb as a process at Qwen3-0.6B's published widths
+   (4 of 28 layers, f32, an untied head), its reloaded output's loss within
+   1e-3 of the trained one; 2 layers trained at T = 256 / 128 / 8 with every
+   B5 / B4 / B1 / B2 launch inside the autograd Functions held to its plain
+   version; the STE backward (qkv at M = 8 / 128 / 256) and the Q8 head's
+   (dx and d scale) card against CPU; a dense f32 2-layer model's three AdamW
+   steps card against CPU (losses and weights); the wrappers' refusal under
+   autograd; then ``train()`` at all 36 layers (AdamW over one repeated
+   T = 256 batch, one step at T = 128 and one at T = 8): the loss falls, the
+   frozen codes keep their checksums, B5 / B4 / B1 / B2 launch and B3 does
+   not (``launches_training``); each step's wall and device-timeline ms, the
+   peak memory, a profiled step split into forward, backward and optimizer,
+   and the step's bound;
+21. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14, 15, 16, 17, 18 and 19 also carry ``launches_server_rest`` /
+   phases 10, 13, 14, 15, 16, 17, 18, 19 and 20 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
    ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
    (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
    ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools``,
-   ``launches_qwen2vl``, ``launches_audio`` and ``launches_tts``),
+   ``launches_qwen2vl``, ``launches_audio``, ``launches_tts`` and
+   ``launches_training``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -7630,6 +7646,450 @@ def phase_audio(reports, peaks, tmp) -> None:
     audio_files_finish(tmp, wavs, started)
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: training (train/finetune.py and the finetune verb)
+# ---------------------------------------------------------------------------
+
+# qwen3-4b's full depth: AdamW steps on one repeated B = 1, T = 256 batch
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-3
+# the backwards card against CPU (f32 products of the same operands in
+# another order; TF32 is off)
+TRAIN_BWD_TOL = 1e-4
+# a dense f32 model's AdamW steps card against CPU: the first loss (the
+# forward alone) absolute; the later ones absolute at the reference's limit
+# on a reloaded loss; each tensor's update in rel L2. Adam moves a weight
+# whose gradient is near zero by up to lr a step, either way of a last-bit
+# difference, so single weights may part by a few lr (2.5 lr measured)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_LATER_LOSS_TOL = 1e-3
+TRAIN_UPDATE_TOL = 5e-2
+# Qwen3-0.6B's published widths for the finetune verb, cut to this many of
+# its 28 layers (the phase's time: the f32 file is written and read twice)
+VERB_LAYERS = 4
+TRAIN_EXPECT = {"tcq4_matmul_i8p", "tcq4_matmul", "tcq4_matmul_gx2", "q8_matmul"}
+NORM_FIELDS = ("attn_norm", "ffn_norm", "q_norm", "k_norm", "attn_post_norm", "ffn_post_norm")
+
+
+def f32_floats(w):
+    """The weights as the finetune verb loads them (f32 floats): f32 copies
+    of the embedding and the norms; the TCQ4 codes, their bf16 scales and
+    packs, and the Q8 head shared."""
+    import dataclasses
+
+    f = lambda t: None if t is None else t.float()                     # noqa: E731
+    layers = [dataclasses.replace(lw, **{k: f(getattr(lw, k)) for k in NORM_FIELDS})
+              for lw in w.layers]
+    return dataclasses.replace(w, embed=f(w.embed), layers=layers, final_norm=f(w.final_norm))
+
+
+def frozen_checksums(w) -> dict:
+    """{path: position-weighted byte sum} of every TCQ4 code tensor, i8p pack
+    tensor (its f32 scales too) and Q8 code tensor of the weights."""
+    import torch
+
+    def digest(t):
+        b = t.contiguous().view(torch.uint8).reshape(-1).to(torch.int64)
+        return int((b * (torch.arange(b.numel(), device=b.device) % 65521 + 1)).sum())
+
+    out = {}
+    for i, lw in enumerate(w.layers):
+        for name in ("wqkv", "wo", "w_gateup", "w_down", "wq", "wk", "wv", "w_gate", "w_up"):
+            lin = getattr(lw, name)
+            if lin is None:
+                continue
+            out[f"{i}.{name}.qs"] = digest(lin.qs)
+            for j, t in enumerate(lin.i8p or ()):
+                out[f"{i}.{name}.i8p{j}"] = digest(t)
+    out["lm_head.q"] = digest(w.lm_head.q)
+    return out
+
+
+def training_batch(vocab: int, t: int, seed: int):
+    """One [1, t + 1] block of a repeating 64-token pattern."""
+    import numpy as np
+
+    from rrs_tpu_torch.train.finetune import make_dataset
+
+    pattern = np.random.default_rng(seed).integers(0, vocab, 64).tolist()
+    return make_dataset(pattern * (t // 64 + 2), seq_len=t, batch=1)[0]
+
+
+def training_backwards_held(cfg, w) -> None:
+    """Each quantized linear's backward on the card against the CPU's on the
+    same inputs and cotangent: the fused qkv (TCQ4 with its pack) at the M of
+    B1, B4 and B5, and the Q8 head at M = 8."""
+    import torch
+
+    from rrs_tpu_torch.models.linear import linear_apply
+    from rrs_tpu_torch.models.llama import to_device
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for label, lin, ms in (("qkv (TCQ4)", w.layers[0].wqkv, (8, 128, 256)),
+                           ("lm_head (Q8_0)", w.lm_head, (8,))):
+        lin_cpu = to_device(lin, "cpu")
+        k = lin.shape[0]
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            g = torch.randn((m, lin.shape[1]), generator=gen, device="cuda")
+            grads = []
+            for dev, layer in (("cuda", lin), ("cpu", lin_cpu)):
+                xr = x.to(dev).clone().requires_grad_(True)
+                if hasattr(layer, "scale"):
+                    layer = type(layer)(**{**layer.__dict__,
+                                           "scale": layer.scale.clone().requires_grad_(True)})
+                linear_apply(layer, xr).backward(g.to(dev))
+                grads.append([xr.grad] + ([layer.scale.grad] if hasattr(layer, "scale") else []))
+            for name, got, ref in zip(("dx", "d scale"), *grads):
+                err, rel = compare(f"training backward, {label} {name} at M = {m}", got.cpu(),
+                                   ref, TRAIN_BWD_TOL)
+                print(f"  backward {label} {name} at M = {m}: card vs CPU err {err:.3e} "
+                      f"(rel {rel:.2e} <= {TRAIN_BWD_TOL:.0e})", flush=True)
+
+
+def training_dense_held() -> None:
+    """A dense f32 2-layer model's three AdamW steps on the card against the
+    same steps on the CPU: the first loss (before any update), the later
+    losses, and every tensor's update."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.train.finetune import TrainConfig, _leaves, train
+
+    cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=8, n_kv_heads=4,
+                      head_dim=128, n_ff=3072, vocab_size=4096, context_length=256,
+                      qk_norm=True)
+    w = llama.random_weights(cfg, seed=17, dtype=torch.float32)
+    batches = [training_batch(cfg.vocab_size, 64, seed=18)] * 3
+    tc = TrainConfig(lr=TRAIN_LR)
+    w_card, l_card = train(cfg, llama.to_device(w, "cuda"), batches, tc, device="cuda")
+    w_cpu, l_cpu = train(cfg, w, batches, tc, device="cpu")
+    d0 = abs(l_card[0] - l_cpu[0])
+    dl = max(abs(a - b) for a, b in zip(l_card, l_cpu))
+    # the tied head trains apart from the embedding: w's head is a view of
+    # its embedding, so each trained tensor is compared with w's own
+    upd = max(float(torch.linalg.vector_norm(a.cpu() - b)
+                    / torch.linalg.vector_norm(b - w0).clamp_min(1e-30))
+              for a, b, w0 in zip(_leaves(w_card), _leaves(w_cpu), _leaves(w)))
+    print(f"  dense f32 2-layer model (E 1,024, vocab 4,096), 3 AdamW steps on one T = 64 "
+          f"batch: losses {[round(x, 5) for x in l_card]} (CPU {[round(x, 5) for x in l_cpu]}; "
+          f"first {d0:.2e} <= {TRAIN_LOSS_TOL:.0e}, all {dl:.2e} <= {TRAIN_LATER_LOSS_TOL:.0e}); "
+          f"updates card vs CPU, worst tensor's rel L2 {upd:.2e} <= {TRAIN_UPDATE_TOL:.0e}",
+          flush=True)
+    if not (len(l_card) == 3 and d0 <= TRAIN_LOSS_TOL and dl <= TRAIN_LATER_LOSS_TOL
+            and upd <= TRAIN_UPDATE_TOL and l_card[-1] < l_card[0]):
+        raise AssertionError(f"dense training card vs CPU: losses {l_card} / {l_cpu}, "
+                             f"updates {upd:.3e}")
+
+
+def training_guard_held(w) -> None:
+    """A kernel wrapper called under grad outside its autograd Function
+    raises on the card (it would cut the gradient)."""
+    import torch
+
+    from rrs_tpu_torch.ops import q8_matmul as q8
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    lin = w.layers[0].wqkv
+    x = torch.randn((4, lin.shape[0]), device="cuda", requires_grad=True)
+    for name, call in (("tcq4_matmul_gx2", lambda: tm.tcq4_matmul_gx2(x, lin.qs, lin.eff)),
+                       ("q8_matmul", lambda: q8.q8_matmul(x, w.lm_head.q, w.lm_head.scale))):
+        try:
+            call()
+        except RuntimeError as e:
+            if name not in str(e):
+                raise
+            continue
+        raise AssertionError(f"{name} ran under grad on an input that requires grad")
+    print("  tcq4_matmul_gx2 and q8_matmul refuse an input that requires grad under autograd",
+          flush=True)
+
+
+def training_held(cfg, weights) -> None:
+    """Phase 20 (a): 2 layers of qwen3-4b width in f32 floats: one training
+    step at each route's T (256: B5; 128: B4; 8: B1 and B4 for the down
+    projection; B2 the head), every launch inside the autograd Functions held
+    to its plain version on the inputs it got; the backwards card vs CPU; a
+    dense model's AdamW steps card vs CPU; the wrappers' refusal."""
+    from rrs_tpu_torch.train.finetune import TrainConfig, train
+
+    t0 = time.perf_counter()
+    cfg2, w2 = first_layers(cfg, f32_floats(weights), 2)
+    batches = [training_batch(cfg.vocab_size, t, seed=t) for t in (256, 128, 8)]
+    with held_to_plain("training, 2 of qwen3-4b's layers", TRAIN_EXPECT) as seen:
+        _, losses = train(cfg2, w2, batches, TrainConfig(lr=TRAIN_LR), device="cuda")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training at 2 layers: losses {losses}")
+    print(f"  2 layers, T = 256 / 128 / 8: losses {[round(x, 4) for x in losses]}; held to "
+          f"the plain versions: " + ", ".join(f"{k} (worst rel {v[0]:.2e}, shapes "
+                                              f"{sorted(v[1])})" for k, v in sorted(seen.items()))
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    training_backwards_held(cfg2, w2)
+    t1 = time.perf_counter()
+    training_dense_held()
+    training_guard_held(w2)
+    print(f"  the backwards {t1 - t0:.1f} s, the dense model and the refusal "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+
+def training_profile(cfg, w32, batch, peaks) -> dict:
+    """One AdamW step at full depth under torch.profiler, its device time
+    split into forward, backward and optimizer (each part ends in a
+    synchronize, and a kernel belongs to the part in whose span it starts),
+    by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rrs_tpu_torch.train import finetune as ft
+
+    params, static, plist = ft.trainable(w32)
+    opt = ft.make_optimizer(ft.TrainConfig(lr=TRAIN_LR))
+
+    def step(parts):
+        for p in plist:
+            p.grad = None
+        with parts("forward"):
+            loss = ft._loss_fn(cfg, ft.combine(params, static), batch)
+            torch.cuda.synchronize()
+        with parts("backward"):
+            loss.backward()
+            torch.cuda.synchronize()
+        with parts("optimizer"):
+            opt.step(plist, [p.grad for p in plist])
+            torch.cuda.synchronize()
+
+    step(lambda name: contextlib.nullcontext())                      # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(record_function)
+    parts = ("forward", "backward", "optimizer")
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.name in parts and e.device_type == torch.autograd.DeviceType.CPU}
+    # a record_function span shows on the device timeline too: not a kernel
+    kernels = [e for e in device_ms_by_kernel(prof)[0] if e.name not in parts]
+    if not kernels or len(spans) != 3:
+        print("  training profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return {}
+    out = {}
+    for part, (t0, t1) in spans.items():
+        by: dict = {}
+        for e in kernels:
+            if t0 <= e.time_range.start <= t1:
+                name = kernel_label(e.name)
+                if name == "other":
+                    name = training_kernel_kind(e.name)
+                by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        out[part] = {"wall_ms": (t1 - t0) / 1e3, "device_ms": sum(by.values()), "by_kernel": by,
+                     "kernels": sum(1 for e in kernels if t0 <= e.time_range.start <= t1)}
+        split = ", ".join(f"{k} {v:.3f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:8])
+        raw: dict = {}
+        for e in kernels:
+            if t0 <= e.time_range.start <= t1 and kernel_label(e.name) == "other":
+                raw[e.name[:70]] = raw.get(e.name[:70], 0.0) + e.time_range.elapsed_us() / 1e3
+        top = "; ".join(f"{k} {v:.2f}" for k, v in sorted(raw.items(), key=lambda kv: -kv[1])[:4])
+        print(f"  training profile, {part}: wall {out[part]['wall_ms']:.2f} ms, device "
+              f"{out[part]['device_ms']:.2f} ms, {out[part]['kernels']} kernels; device ms by "
+              f"kernel: {split}; the largest library kernels: {top}", flush=True)
+    print(f"  training profile, host ms by op: {host_top(prof, 1, 10)} (the profiler's own cost "
+          f"included)", flush=True)
+    del params, plist, opt
+    return out
+
+
+def training_kernel_kind(name: str) -> str:
+    """A library kernel's kind, by its CUDA name."""
+    import re
+
+    for kind, pat in (("matmul (library)", r"gemm|cutlass|xmma|sm90_|ampere_|cublas"),
+                      ("reduction", r"reduce|Reduce"), ("index / scatter", r"index|scatter|gather"),
+                      ("copy / cast", r"copy|Copy|cast"), ("cat", r"[Cc]at"),
+                      ("elementwise", r"elementwise|vectorized|unrolled|Elementwise")):
+        if re.search(pat, name):
+            return kind
+    return "other"
+
+
+def training_bound_ms(cfg, w, t: int, peaks) -> tuple:
+    """(least ms, bound) of one training step at B = 1, T = t: operations
+    (the STE backward's f32 products g @ W^T, the head's dx and d scale in
+    f32, the W4A4 forward in int8, the head's forward in bf16) over the
+    card's peaks against the bytes moved (the codes read forward and
+    backward, the AdamW pass over every trained value: p, g, m, v read, p,
+    m, v written) over its memory rate."""
+    bw, bf16, i8, f32 = peaks
+    kn = sum(lin.shape[0] * lin.shape[1] for lw in w.layers
+             for lin in (lw.wqkv, lw.wo, lw.w_gateup, lw.w_down))
+    head = w.lm_head.q.shape[0] * w.lm_head.q.shape[1]
+    t_ops = 2 * t * (kn + 2 * head) / f32 + 2 * t * kn / i8 + 2 * t * head / bf16
+    trained = w.embed.numel() + w.lm_head.scale.numel() + sum(
+        lw.wqkv.eff.numel() + lw.wo.eff.numel() + lw.w_gateup.eff.numel()
+        + lw.w_down.eff.numel() for lw in w.layers)
+    code_bytes = 2 * (kn // 2 + head)
+    t_bytes = (code_bytes + 7 * 4 * trained) / bw
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            t_ops * 1e3, t_bytes * 1e3)
+
+
+def training_full(cfg, weights, reports, peaks) -> None:
+    """Phase 20 (b): ``train`` at all 36 layers of qwen3-4b (f32 floats,
+    frozen codes shared): AdamW at lr 1e-3 on one repeated B = 1, T = 256
+    batch, then one step at T = 128 and one at T = 8; the loss falls, every
+    loss is finite, the frozen tensors keep their checksums, B5 / B4 / B1 /
+    B2 launch and B3 does not; each step's wall and device-timeline ms, the
+    peak memory, one profiled step split into its parts."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.train.finetune import TrainConfig, train
+
+    w32 = f32_floats(weights)
+    before = frozen_checksums(w32)
+    b256 = training_batch(cfg.vocab_size, 256, seed=20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    marks = []
+
+    def on_step(i, loss):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((time.perf_counter(), ev))
+
+    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    marks.append((t0, start))
+    w_out, losses = train(cfg, w32, [b256] * TRAIN_STEPS, TrainConfig(lr=TRAIN_LR),
+                          on_step=on_step, device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / GB
+    wall = [(b[0] - a[0]) * 1e3 for a, b in zip(marks, marks[1:])]
+    dev = [a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])]
+    extra = {}
+    for t in (128, 8):
+        t1 = time.perf_counter()
+        _, ls = train(cfg, w32, [training_batch(cfg.vocab_size, t, seed=t)],
+                      TrainConfig(lr=TRAIN_LR), device="cuda")
+        torch.cuda.synchronize()
+        extra[t] = (ls[0], (time.perf_counter() - t1) * 1e3)
+    launches = {k: kernels.LAUNCHES[k] for k in ("tcq4_matmul_i8p", "tcq4_matmul",
+                                                "tcq4_matmul_gx2", "q8_matmul", "flash_attention")}
+    after = frozen_checksums(w_out)
+    print(f"  qwen3-4b, 36 layers, B = 1: AdamW at lr {TRAIN_LR} over one repeated T = 256 "
+          f"batch: losses {[round(x, 4) for x in losses]}; T = 128: loss {extra[128][0]:.4f} "
+          f"({extra[128][1]:.1f} ms with set-up), T = 8: {extra[8][0]:.4f} "
+          f"({extra[8][1]:.1f} ms)", flush=True)
+    print(f"  T = 256 step wall ms (host clock, each step ending in its loss read-back): "
+          f"{[round(x, 2) for x in wall]}; device-timeline ms (CUDA events between the "
+          f"read-backs): {[round(x, 2) for x in dev]}; peak memory {peak:.2f} GB", flush=True)
+    print(f"  launches in training: {launches}", flush=True)
+    if not (all(math.isfinite(x) for x in losses + [extra[128][0], extra[8][0]])
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"training at full depth: losses {losses}, {extra}")
+    if after != before:
+        bad = [k for k in before if before[k] != after.get(k)]
+        raise AssertionError(f"training changed frozen tensors: {bad[:8]}")
+    if launches["flash_attention"] or not all(launches[k] for k in TRAIN_EXPECT):
+        raise AssertionError(f"training launches: {launches}")
+    print(f"  frozen tensors unchanged ({len(before)} checksums: TCQ4 codes, i8p packs, the Q8 "
+          f"head's codes)", flush=True)
+    for key, name in (("i8p", "tcq4_matmul_i8p"), ("tcq4", "tcq4_matmul"),
+                      ("gx2", "tcq4_matmul_gx2"), ("q8", "q8_matmul"), ("fa", "flash_attention")):
+        reports[key].entry["launches_training"] = launches[name]
+    del w_out
+    torch.cuda.empty_cache()
+    bound, by, t_ops, t_bytes = training_bound_ms(cfg, w32, 256, peaks)
+    prof = training_profile(cfg, w32, b256, peaks)
+    steady = wall[1:] or wall
+    wall_ms = sum(steady) / len(steady)
+    busy = sum(p["device_ms"] for p in prof.values()) if prof else float("nan")
+    print(f"  training step at T = 256: wall {wall_ms:.2f} ms (steps 2-{TRAIN_STEPS}), device "
+          f"busy {busy:.2f} ms (profiled step), idle share {1 - busy / wall_ms:.3f}; bound "
+          f"{bound:.2f} ms ({by}: operations {t_ops:.2f}, bytes {t_bytes:.2f}); peak memory "
+          f"{peak:.2f} GB", flush=True)
+    del w32
+
+
+def training_verb_start(tmp):
+    """Phase 20 (c), its start: an f32 GGUF at Qwen3-0.6B's published widths
+    (VERB_LAYERS of its 28 layers, an untied head), written by the port's
+    exporter with the synthetic vocabulary, and a text of its tokens; then
+    ``finetune`` on them as a process. Returns what ``training_verb_finish``
+    needs."""
+    import dataclasses
+
+    import numpy as np
+
+    from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.models.export import export_random_gguf
+
+    cfg = dataclasses.replace(PRESETS["qwen3-0.6b"], n_layers=VERB_LAYERS, tie_embeddings=False)
+    vocab = synthetic_vocab(cfg.vocab_size)
+    t0 = time.perf_counter()
+    src = export_random_gguf(cfg, tmp / "qwen3-0.6b-f32.gguf", seed=21, scale=0.02,
+                             vocab_tokens=vocab.tokens)
+    chars = [t for t in vocab.tokens[:200] if len(t) == 1 and not t.isspace()]
+    pattern = "".join(np.random.default_rng(22).choice(chars, 64))
+    text = tmp / "train.txt"
+    text.write_text(pattern * 8)
+    print(f"  wrote {src.name} ({src.stat().st_size / GB:.2f} GB) and a {len(pattern) * 8}-char "
+          f"text in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = tmp / "qwen3-0.6b-trained.gguf"
+    handle = _verb_start(["finetune", "-m", src, "-f", text, "-o", out, "--lr", "1e-3",
+                          "--seq-len", "128", "--batch", "1", "--epochs", "1"])
+    return handle, out, text
+
+
+def training_verb_finish(started) -> None:
+    """Phase 20 (c), its end: the verb's per-step losses, its written file
+    reloaded on the card, and the reloaded model's loss over the verb's first
+    two batches within 1e-3 of the trained loss the verb printed."""
+    import re
+
+    import torch
+
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.train.finetune import evaluate, make_dataset
+
+    handle, out, text = started
+    log = _verb_wait(handle, timeout=300)
+    losses = [float(v) for v in re.findall(r"step \d+: loss ([0-9.]+)", log)]
+    trained = float(re.search(r"trained loss ([0-9.]+)", log).group(1))
+    t0 = time.perf_counter()
+    cfg, w, md = load_model(out, dtype=torch.float32, fuse=False, device="cuda")
+    toks = Vocab.from_gguf(md).encode(text.read_text(), add_special=True)
+    reloaded = evaluate(cfg, w, make_dataset(toks, seq_len=128, batch=1)[:2], device="cuda")
+    print(f"  finetune (Qwen3-0.6B widths, {cfg.n_layers} of 28 layers, f32): step losses "
+          f"{losses}; trained loss {trained:.6f}, reloaded {reloaded:.6f} "
+          f"(|diff| {abs(reloaded - trained):.2e} <= 1e-3; reload and evaluation "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not (losses and all(math.isfinite(x) for x in losses) and trained < losses[0]
+            and abs(reloaded - trained) <= 1e-3):
+        raise AssertionError(f"finetune verb: losses {losses}, trained {trained}, "
+                             f"reloaded {reloaded}")
+    del w
+    torch.cuda.empty_cache()
+
+
+def phase_training(cfg, weights, reports, peaks, tmp) -> None:
+    """Phase 20: the finetune verb's process started first (it writes and
+    reads its files while the card runs the rest), then the held checks at 2
+    layers, the full-depth steps, and the verb's result."""
+    t0 = time.perf_counter()
+    started = training_verb_start(tmp)
+    training_held(cfg, weights)
+    t1 = time.perf_counter()
+    training_verb_finish(started)
+    t2 = time.perf_counter()
+    training_full(cfg, weights, reports, peaks)
+    print(f"  phase 20 took {time.perf_counter() - t0:.1f} s (the held part {t1 - t0:.1f} s, the "
+          f"verb's wait and reload {t2 - t1:.1f} s, full depth {time.perf_counter() - t2:.1f} s)",
+          flush=True)
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -7653,7 +8113,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/20] build")
+    header("[1/21] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -7667,32 +8127,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/20] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/21] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/20] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/21] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/20] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/21] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/20] served steps held to the plain versions; device decode run against "
+    header("[5/21] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/20] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/21] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/20] serving with --cache-type q4: slot save / erase / restore, context shift, "
+    header("[7/21] serving with --cache-type q4: slot save / erase / restore, context shift, "
            "a q4 decode-run profile")
     ctx = phase_serving_q4(cfg, weights, reports)
     shift_held(ctx, "qwen3-4b")
@@ -7701,7 +8161,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/20] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/21] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -7711,24 +8171,34 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/20] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/21] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/20] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
+    header("[10/21] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
            "schema, embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(*first_layers(cfg, weights, SERVER_REST_LAYERS), reports)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[20/21] training, run here on phase 3's qwen3-4b weights: the finetune verb at "
+           "Qwen3-0.6B's widths as a process; 2 layers with every launch held, the backwards "
+           "and a dense model's AdamW steps card vs CPU; train() at all 36 layers")
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        phase_training(cfg, weights, reports, peaks, Path(tmp_name))
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/20] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/21] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate (6 of 24 layers), serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -7741,7 +8211,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/20] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/21] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -7764,7 +8234,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/20] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/21] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -7779,7 +8249,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/20] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/21] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -7788,13 +8258,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/20, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/21, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/20, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/21, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -7802,7 +8272,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/20] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/21] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA, 9 of 27 layers) and gemma3-4b (12 of 34) at "
            "their published widths")
     t15 = time.perf_counter()
@@ -7815,14 +8285,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/20] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+    header("[16/21] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
            "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/20] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+    header("[17/21] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
            "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
            "cvector, quantize-stats, fit-params")
     t17 = time.perf_counter()
@@ -7833,7 +8303,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
-    header("[18/20] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
+    header("[18/21] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
            "image encodes, generate_with_images, held steps, image parts on the server, a "
            "decode profile; the tower card vs CPU; 2-layer and projector checks; convert-hf "
            "--mmproj and serve --mmproj as processes")
@@ -7844,7 +8314,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
 
-    header("[19/20] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
+    header("[19/21] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
            "32-layer whisper-large-v3-turbo tower): audio encodes, multimodal_prefill, held "
            "steps, audio parts on the server, a decode profile; the tower card vs CPU; "
            "OuteTTS-0.2-500M (24 layers) with the full WavTokenizer: synthesize, held steps, a "
@@ -7856,7 +8326,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
 
-    header("[20/20] summary")
+    header("[21/21] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

@@ -3,7 +3,8 @@
 The verbs of ``rrs_tpu/__main__.py`` with the same flags: ``generate``,
 ``serve``, ``chat``, ``bench``, ``batched-bench``, ``perplexity``,
 ``imatrix``, ``quantize``, ``gguf-split``, ``quantize-stats``, ``tokenize``,
-``export-lora``, ``cvector``, ``fit-params``, ``convert-hf`` and ``tts``, plus
+``export-lora``, ``cvector``, ``fit-params``, ``convert-hf``, ``tts`` and
+``finetune``, plus
 ``--device`` on the verbs that compute on a device (default ``cuda``;
 ``cpu`` must be asked for). Every ``-m`` takes a single GGUF or any shard of
 a ``-NNNNN-of-NNNNN`` set; ``quantize``, ``gguf-split``, ``tokenize``,
@@ -13,9 +14,10 @@ lookup with ``--lookup``; ``serve`` takes a draft model and extra routable
 ``--models`` and the vision and audio towers of an mmproj file
 (``--mmproj``). ``convert-hf --mmproj`` extracts a VLM's vision tower.
 ``tts`` speaks a prompt with an OuteTTS model and a WavTokenizer vocoder
-into a WAV. Flags whose feature is not ported yet (tensor / data / pipeline
-parallelism) raise NotImplementedError naming their ROADMAP item;
-``finetune`` (A12) is not a verb yet.
+into a WAV. ``finetune`` trains an f32 model on a text file and writes it
+back to GGUF (a quantized or fused layer refuses to export, as in JAX).
+Flags whose feature is not ported yet (tensor / data / pipeline
+parallelism) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -224,6 +226,17 @@ def main(argv=None):
     tts.add_argument("--max-codes", type=int, default=768)
     _device_arg(tts)
 
+    ft = sub.add_parser("finetune", help="finetune a model on a text file")
+    ft.add_argument("--model", "-m", required=True)
+    ft.add_argument("--file", "-f", required=True)
+    ft.add_argument("--output", "-o", required=True)
+    ft.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    ft.add_argument("--lr", type=float, default=1e-4)
+    ft.add_argument("--epochs", type=int, default=1)
+    ft.add_argument("--seq-len", type=int, default=256)
+    ft.add_argument("--batch", type=int, default=1)
+    _device_arg(ft)
+
     args = p.parse_args(argv)
     _refuse_unported(args)
     if args.cmd == "generate":
@@ -275,6 +288,8 @@ def main(argv=None):
         cmd_fit_params(args)
     elif args.cmd == "tts":
         cmd_tts(args)
+    elif args.cmd == "finetune":
+        cmd_finetune(args)
     elif args.cmd == "convert-hf":
         import numpy as np
 
@@ -292,7 +307,7 @@ def _device_arg(parser) -> None:
 
 
 def _parallel_args(parser) -> None:
-    """The JAX package's mesh and multi-host flags, which wait for ROADMAP A12."""
+    """The JAX package's mesh and multi-host flags, which wait for ROADMAP A12b."""
     parser.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
     parser.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
     parser.add_argument("--dist-coordinator", default=None, help="(not ported)")
@@ -305,14 +320,43 @@ def _refuse_unported(args) -> None:
     slice (ROADMAP queue A)."""
     get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
     unported = {
-        "--tp/--dp (ROADMAP A12)": get("tp", 1) != 1 or get("dp", 1) != 1,
-        "--dist-* (ROADMAP A12)": any(get(k) is not None
-                                      for k in ("dist_coordinator", "dist_procs", "dist_id")),
-        "perplexity --pp > 1 (ROADMAP A12)": get("cmd") == "perplexity" and get("pp", 1) > 1,
+        "--tp/--dp (ROADMAP A12b)": get("tp", 1) != 1 or get("dp", 1) != 1,
+        "--dist-* (ROADMAP A12b)": any(get(k) is not None
+                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
+        "perplexity --pp > 1 (ROADMAP A12b)": get("cmd") == "perplexity" and get("pp", 1) > 1,
     }
     bad = [k for k, on in unported.items() if on]
     if bad:
         raise NotImplementedError(f"{', '.join(bad)}: not ported to rrs_tpu_torch yet")
+
+
+def cmd_finetune(args):
+    """The JAX verb (rrs_tpu/__main__.py:303-323): load f32 and unfused,
+    encode the file with its special tokens, train, print each step's loss,
+    write the trained model with ``export_weights_gguf``; then the mean loss
+    of the trained weights over the first two batches."""
+    import torch
+
+    from rrs_tpu_torch.models.export import export_weights_gguf
+    from rrs_tpu_torch.models.loader import load_model
+    from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.train.finetune import TrainConfig, evaluate, make_dataset, train
+
+    cfg, weights, md = load_model(args.model, dtype=torch.float32, fuse=False,
+                                  device=args.device)
+    vocab = Vocab.from_gguf(md)
+    with open(args.file) as f:
+        toks = vocab.encode(f.read(), add_special=True)
+    batches = make_dataset(toks, seq_len=args.seq_len, batch=args.batch)
+    print(f"{len(toks)} tokens -> {len(batches)} batches")
+    tc = TrainConfig(optimizer=args.optimizer, lr=args.lr)
+    weights, _ = train(cfg, weights, batches, tc, n_epochs=args.epochs,
+                       on_step=lambda i, l: print(f"step {i}: loss {l:.4f}", flush=True),
+                       device=args.device)
+    export_weights_gguf(cfg, weights, args.output, metadata=md)
+    print(f"wrote {args.output}")
+    print(f"trained loss {evaluate(cfg, weights, batches[:2], device=args.device):.6f} "
+          f"(mean over {len(batches[:2])} batches)")
 
 
 def cmd_generate(args):

@@ -159,6 +159,26 @@ def check_tensors(name: str, *tensors) -> "torch.device":
     return dev
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None allowed): grad
+    mode on and an input that requires grad."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel wrapper is called under autograd (``needs_grad``):
+    its output would carry no ``grad_fn`` and cut the gradient without a
+    word. The autograd Functions of ``models/linear.py`` call the wrappers
+    from their ``forward``, where grad mode is off."""
+    if needs_grad(*tensors):
+        raise RuntimeError(f"{name}: called under autograd on an input that requires grad; "
+                           "the kernel has no backward (call it from its autograd Function, "
+                           "or under torch.no_grad)")
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0

@@ -119,6 +119,9 @@ class ModelConfig:
     # M-RoPE (qwen2vl): per-channel frequency-dim counts over rot / 2 (t, h,
     # w[, e]); () => plain RoPE
     rope_sections: tuple = ()
+    # the plain attention instead of the flash kernels, on the card too:
+    # training sets it (train/finetune.py), as the JAX package's does
+    ref_attention: bool = False
 
     @property
     def n_q_dim(self) -> int:

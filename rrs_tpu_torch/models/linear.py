@@ -3,8 +3,19 @@
 Port of ``rrs_tpu/models/linear.py``: the layer dataclasses, the N-pad
 policy, ``fuse_linears``, the activation rotation, the route by M between
 the TCQ4 kernels, and ``linear_apply`` (which also runs a LoRA-wrapped
-linear: its base on the base's kernel, then the delta). The
-straight-through backward waits for the training slice.
+linear: its base on the base's kernel, then the delta).
+
+Under autograd (grad mode on and an input that requires grad) the quantized
+linears run inside autograd Functions, whose forward is the same kernel
+route: ``_TCQ4Apply`` with the straight-through backward of the JAX
+``_tcq4_apply`` (rrs_tpu/models/linear.py:363-434: the quantizers count as
+identity, dL/dx = rotate(g @ W_deq^T), and the codes and scales get none),
+``_Q8Apply`` and ``_MXFP4Apply`` with the gradients ``jax.grad`` takes on the
+CPU through ``q8_matmul_ref`` / ``mxfp4_matmul_ref`` (dx, and the Q8 f32
+scales' gradient). The backwards are f32 products (TF32 is off). A TCQ4
+linear with a channel permutation raises there, as ``jax.grad`` fails in its
+Pallas call. The kernel wrappers themselves refuse such inputs
+(``kernels.refuse_grad``), so no kernel cuts a gradient silently.
 
 A TCQ4 linear carries the int8-superblock prefill pack (``i8p``) unless
 ``RRS_PREFILL_I8=0``, the JAX package's switch; with it every M >= 256 goes to
@@ -27,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rrs_tpu_torch import kernels
 from rrs_tpu_torch.formats.fwht import RRS_BLOCK, hadamard_matrix
 from rrs_tpu_torch.formats.tcq4 import (
     TCQ4Tensor,
@@ -301,6 +313,76 @@ def _tcq4_matmul_route(a_q: torch.Tensor, a_s: torch.Tensor, qs: torch.Tensor,
     return tcq4_mm.tcq4_matmul(dequantize_activations_rrs(a_q, a_s), qs, eff)
 
 
+def _tcq4_forward(x2: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
+                  i8p: Optional[tuple]) -> torch.Tensor:
+    """A TCQ4 linear without a channel permutation, f32 [M, N]: gx3 under
+    ``RRS_GX3`` on the card where gx_viable, else the rotation and the route
+    by M of ``_tcq4_matmul_route_rot``."""
+    if x2.is_cuda and _gx3_on() and tcq4_mm.gx_viable(x2.shape[0], x2.shape[1], qs.shape[1]):
+        return tcq4_mm.tcq4_matmul_gx3(x2.contiguous(), qs, eff)
+    return _tcq4_matmul_route_rot(rotate_activations(x2, None).contiguous(), qs, eff, i8p)
+
+
+class _TCQ4Apply(torch.autograd.Function):
+    """``_tcq4_forward`` with the straight-through backward of the JAX
+    ``_tcq4_apply``: rotate(g_f32 @ W_deq^T) in x's dtype (H is symmetric
+    and its own inverse); the codes, the scales and the pack get none."""
+
+    @staticmethod
+    def forward(ctx, x2, qs, eff, i8p):
+        ctx.save_for_backward(qs, eff)
+        ctx.x_dtype = x2.dtype
+        return _tcq4_forward(x2, qs, eff, i8p)
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, eff = ctx.saved_tensors
+        gr = g.to(torch.float32) @ tcq4_mm.dequantize_w(qs, eff).t()
+        return rotate_activations(gr, None).to(ctx.x_dtype), None, None, None
+
+
+class _Q8Apply(torch.autograd.Function):
+    """B2 forward; the gradient of the JAX CPU route ``q8_matmul_ref`` (f32
+    a @ (q * scale)): dx = g @ W_deq^T, and d scale[j, n] = the sum over the
+    32 rows k of group j of q[k, n] * (a^T g)[k, n]."""
+
+    @staticmethod
+    def forward(ctx, x2, q, scale):
+        ctx.save_for_backward(x2, q, scale)
+        return q8_mm.q8_matmul(x2, q, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, q, scale = ctx.saved_tensors
+        g = g.to(torch.float32)
+        gx = gs = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ q8_mm._dequant(q, scale).t()).to(x2.dtype)
+        if ctx.needs_input_grad[2]:
+            k, n = q.shape
+            dw = x2.to(torch.float32).t() @ g                            # [K, N]
+            gs = (dw.reshape(k // q8_mm.GROUP, q8_mm.GROUP, n)
+                  * q.reshape(k // q8_mm.GROUP, q8_mm.GROUP, n)).sum(1)
+        return gx, None, gs
+
+
+class _MXFP4Apply(torch.autograd.Function):
+    """B11 forward; the gradient of the JAX CPU route ``mxfp4_matmul_ref``:
+    dx = g @ W_deq^T (the e8m0 scales are integers and get none)."""
+
+    @staticmethod
+    def forward(ctx, x2, qs, sexp):
+        ctx.save_for_backward(qs, sexp)
+        ctx.x_dtype = x2.dtype
+        return mx_mm.mxfp4_matmul(x2, qs, sexp)
+
+    @staticmethod
+    def backward(ctx, g):
+        qs, sexp = ctx.saved_tensors
+        gx = g.to(torch.float32) @ mx_mm.dequant_mxfp4(qs, sexp).t()
+        return gx.to(ctx.x_dtype), None, None
+
+
 def _dense_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an f32 result. On the card a bf16 pair stays a bf16 matmul
     (f32 accumulation, bf16 result); elsewhere the operands go to f32."""
@@ -326,17 +408,23 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
         if layer.k_logical and layer.q.shape[0] != k:
             # K padded to the kernel's 256-multiple with zero-scale rows
             x2 = torch.nn.functional.pad(x2, (0, layer.q.shape[0] - k))
-        y = q8_mm.q8_matmul(x2.contiguous(), layer.q, layer.scale)
+        mm = _Q8Apply.apply if kernels.needs_grad(x2, layer.scale) else q8_mm.q8_matmul
+        y = mm(x2.contiguous(), layer.q, layer.scale)
         if layer.n_logical and layer.n_logical != y.shape[-1]:
             y = y[:, : layer.n_logical]
     elif isinstance(layer, MXFP4Linear):
-        y = mx_mm.mxfp4_matmul(x2.contiguous(), layer.qs, layer.scale)
+        mm = _MXFP4Apply.apply if kernels.needs_grad(x2) else mx_mm.mxfp4_matmul
+        y = mm(x2.contiguous(), layer.qs, layer.scale)
         if layer.n_logical and layer.n_logical != y.shape[-1]:
             y = y[:, : layer.n_logical]
     elif isinstance(layer, TCQ4Linear):
-        if (layer.gather is None and x2.is_cuda and _gx3_on()
-                and tcq4_mm.gx_viable(x2.shape[0], k, layer.qs.shape[1])):
-            y = tcq4_mm.tcq4_matmul_gx3(x2.contiguous(), layer.qs, layer.eff)
+        if layer.gather is None:
+            mm = _TCQ4Apply.apply if kernels.needs_grad(x2, layer.eff) else _tcq4_forward
+            y = mm(x2, layer.qs, layer.eff, layer.i8p)
+        elif kernels.needs_grad(x2, layer.eff):
+            raise NotImplementedError(
+                "the backward of a TCQ4 linear with a channel permutation (an imatrix "
+                "gather): JAX's jax.grad fails in its Pallas call there too")
         else:
             rot = rotate_activations(x2, layer.gather)
             y = _tcq4_matmul_route_rot(rot.contiguous(), layer.qs, layer.eff, layer.i8p)

@@ -46,8 +46,9 @@ from rrs_tpu_torch.models.linear import (
 )
 from rrs_tpu_torch.models.moe import MoEWeights, moe_ffn
 from rrs_tpu_torch.ops.basic import RopeParams, apply_mrope, apply_rope, gelu_tanh, rms_norm
-from rrs_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_q4,
-                                               flash_attention_q4hp, flash_attention_q8)
+from rrs_tpu_torch.ops.flash_attention import (attention_kvq_ref, attention_ref, flash_attention,
+                                               flash_attention_q4, flash_attention_q4hp,
+                                               flash_attention_q8)
 from rrs_tpu_torch.runtime import kv_codec
 
 
@@ -198,22 +199,26 @@ def _store_cache(cache, new: torch.Tensor, starts: list) -> None:
 
 
 def attend(q, k_cache, v_cache, mask_positions, scale: float, window: int = 0,
-           sinks=None, softcap: float = 0.0) -> torch.Tensor:
+           sinks=None, softcap: float = 0.0, ref: bool = False) -> torch.Tensor:
     """Attention over a bf16 cache, or over a quantized one by its layout:
     int8 codes take the q8 kernel, uint8 head-pair codes the q4hp kernel and
     halves-packed codes the q4 kernel. ``window`` > 0: the cache is a ring
     and each row sees its last ``window`` positions; ``sinks``: [H] logits
     that join only the softmax denominator; ``softcap`` > 0 caps the scores
-    at +-softcap through tanh (gemma2)."""
+    at +-softcap through tanh (gemma2). ``ref`` (``cfg.ref_attention``) takes
+    the plain version on every device: the kernels have no backward."""
+    opts = dict(softcap=softcap, window=window, sinks=sinks)
+    if ref and isinstance(k_cache, tuple):
+        return attention_kvq_ref(q, *k_cache, *v_cache, mask_positions, scale, **opts)
+    if ref:
+        return attention_ref(q, k_cache, v_cache, mask_positions, scale, **opts)
     if not isinstance(k_cache, tuple):
-        return flash_attention(q, k_cache, v_cache, mask_positions, scale, softcap=softcap,
-                               window=window, sinks=sinks)
+        return flash_attention(q, k_cache, v_cache, mask_positions, scale, **opts)
     if k_cache[0].dtype == torch.uint8:
         kern = flash_attention_q4hp if kv_codec.is_head_pair(*k_cache) else flash_attention_q4
     else:
         kern = flash_attention_q8
-    return kern(q, *k_cache, *v_cache, mask_positions, scale, softcap=softcap, window=window,
-                sinks=sinks)
+    return kern(q, *k_cache, *v_cache, mask_positions, scale, **opts)
 
 
 def _capture(cap, li: int, name: str, x: torch.Tensor) -> None:
@@ -274,7 +279,7 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     _store_cache(v_cache, v.transpose(1, 2), starts)
     scale = cfg.attn_scale if cfg.attn_scale > 0 else 1.0 / np.sqrt(d)
     ctx = attend(q.contiguous(), k_cache, v_cache, mask_positions, scale, window=window,
-                 sinks=lw.attn_sinks, softcap=cfg.attn_softcap)
+                 sinks=lw.attn_sinks, softcap=cfg.attn_softcap, ref=cfg.ref_attention)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
     _capture(cap, li, "attn_output.weight", ctx)
     return linear_apply(lw.wo, ctx)

@@ -23,6 +23,10 @@ Packed stacks: MXFP4 (gpt-oss) is weights-only, with bf16 activations; TCQ4
                 when routing overflows C (B11, or a TCQ4 expert dequantized
                 by ``_dequant_expert`` and a plain matmul).
 
+Packed stacks refuse autograd (NotImplementedError): ``jax.grad`` fails in
+every branch of the JAX ``moe_ffn`` over them. Dense stacks are plain torch
+and differentiate as JAX's do.
+
 Dense stacks take a gather of the selected experts' weights at <= 16 tokens,
 and otherwise the capacity dispatch with the all-experts einsum as its exact
 fallback; their products are plain f32 matmuls of the bf16 values, as in the
@@ -42,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rrs_tpu_torch import kernels
 from rrs_tpu_torch.formats.tcq4 import (dequantize_activations_rrs, effective_scales,
                                         quantize_activations_rrs, quantize_tcq4)
 from rrs_tpu_torch.models.config import ModelConfig
@@ -323,6 +328,11 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
     """x [B, T, E] -> [B, T, E] in x's dtype."""
     if mw.quantized and mw.quant_kind not in ("mxfp4", "tcq4"):
         raise NotImplementedError(f"expert stacks of kind {mw.quant_kind!r}")
+    if mw.quantized and kernels.needs_grad(x, mw.router):
+        raise NotImplementedError(
+            f"the backward of packed {mw.quant_kind} expert stacks: JAX's jax.grad fails in "
+            "every branch of its moe_ffn there (its expert kernels have no VJP); train with "
+            "dense expert stacks")
     b, t, e = x.shape
     x2 = x.reshape(b * t, e)
     topi, topv = route(cfg, mw, x2)

@@ -93,6 +93,7 @@ def flash_attention(q, k_cache, v_cache, positions, scale: float,
     """Online-softmax attention. q [B, T, H, D], caches [B, Hkv, S, D],
     positions [B, T] int32 (row attends slots <= its position; -1 = none).
     Returns [B, T, H, D] in q's dtype."""
+    kernels.refuse_grad("flash_attention", q, k_cache, v_cache, sinks)
     if q.device.type == "cpu":
         return attention_ref(q, k_cache, v_cache, positions, scale, softcap=softcap,
                              window=window, sinks=sinks, alibi=alibi)
@@ -119,6 +120,7 @@ def _attention_kvq(name, q, k_q, k_s, v_q, v_s, positions, scale, softcap, windo
                    alibi):
     """Shared wrapper of the three quantized-cache kernels: the plain version
     for CPU tensors, else the launch."""
+    kernels.refuse_grad(name, q, k_q, k_s, v_q, v_s, sinks)
     if q.device.type == "cpu":
         return attention_kvq_ref(q, k_q, k_s, v_q, v_s, positions, scale, softcap=softcap,
                                  window=window, sinks=sinks, alibi=alibi)

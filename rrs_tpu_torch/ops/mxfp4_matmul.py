@@ -169,6 +169,7 @@ def mxfp4_matmul(a: torch.Tensor, qs: torch.Tensor, sexp: torch.Tensor) -> torch
     Returns f32 [M, N]."""
     m, k = a.shape
     _check_weights("mxfp4_matmul", qs, sexp, k)
+    kernels.refuse_grad("mxfp4_matmul", a, qs, sexp)
     if a.device.type == "cpu":
         return mxfp4_matmul_plain(a, qs, sexp)
     if a.dtype not in (torch.bfloat16, torch.float32):
@@ -199,6 +200,7 @@ def mxfp4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, s_all: torc
     if qs_all.dim() != 3 or expert_ids.shape != (n_sel,):
         raise ValueError(f"mxfp4_matmul_experts_rows: stacks {tuple(qs_all.shape)}, ids "
                          f"{tuple(expert_ids.shape)} for {n_sel} rows")
+    kernels.refuse_grad("mxfp4_matmul_experts_rows", a, qs_all, s_all)
     if a.device.type == "cpu":
         return mxfp4_matmul_experts_rows_plain(a, qs_all, s_all, expert_ids)
     n_exp, _, n = qs_all.shape
@@ -226,6 +228,7 @@ def mxfp4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
     n_exp, _, n = qs_all.shape
     if a.dim() not in (2, 3) or (a.dim() == 3 and a.shape[0] != n_exp):
         raise ValueError(f"mxfp4_matmul_all_experts: a {tuple(a.shape)} for {n_exp} experts")
+    kernels.refuse_grad("mxfp4_matmul_all_experts", a, qs_all, s_all)
     if a.device.type == "cpu":
         return mxfp4_matmul_all_experts_plain(a, qs_all, s_all)
     t = a.shape[-2]

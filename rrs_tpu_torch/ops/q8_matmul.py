@@ -47,6 +47,7 @@ def q8_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if k % 256 or q.shape[0] != k or scale.shape != (k // GROUP, n):
         raise ValueError(f"q8_matmul shapes: a {tuple(a.shape)}, q {tuple(q.shape)}, "
                          f"scale {tuple(scale.shape)}")
+    kernels.refuse_grad("q8_matmul", a, q, scale)
     if a.device.type == "cpu":
         return q8_matmul_plain(a, q, scale)
     if a.dtype not in (torch.bfloat16, torch.float32) or q.dtype != torch.int8 \

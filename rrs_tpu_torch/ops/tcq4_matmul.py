@@ -46,9 +46,18 @@ def gx_viable(m: int, k: int, n: int = 0) -> bool:
 
 
 def dequantize_w(qs: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
-    """[K//2, N] uint8 + [K//32, N] -> [K, N] f32 (int4 * group scale)."""
-    w = unpack_nibbles_torch(qs).to(torch.float32)
-    return w * eff.to(torch.float32).repeat_interleave(GROUP_SIZE, dim=0)
+    """[K//2, N] uint8 + [K//32, N] -> [K, N] f32 (int4 * group scale), the
+    values of ``unpack_nibbles_torch`` times the f32 scale. The nibbles are
+    sign-extended in int8, written into the two halves of each superblock
+    and scaled in place, each scale broadcast over its group (the training
+    backward dequantizes every TCQ4 weight each step)."""
+    k2, n = qs.shape
+    q8 = qs.contiguous().view(torch.int8).reshape(k2 // (TILE_K // 2), TILE_K // 2, n)
+    w = torch.empty((k2 // (TILE_K // 2), 2, TILE_K // 2, n), dtype=torch.float32,
+                    device=qs.device)
+    w[:, 0] = (q8 << 4) >> 4
+    w[:, 1] = q8 >> 4
+    return w.reshape(-1, GROUP_SIZE, n).mul_(eff.to(torch.float32)[:, None, :]).reshape(2 * k2, n)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -164,6 +173,7 @@ def tcq4_matmul_gx2(a_rot: torch.Tensor, qs: torch.Tensor,
     m, k = a_rot.shape
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx2: M={m}, K={k} is outside gx_viable")
+    kernels.refuse_grad("tcq4_matmul_gx2", a_rot, qs, eff)
     if a_rot.device.type == "cpu":
         return tcq4_matmul_gx2_plain(a_rot, qs, eff)
     n = _check_weights(qs, eff, k)
@@ -199,6 +209,7 @@ def tcq4_matmul_gx(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     m, k = _check_codes("tcq4_matmul_gx", a_q, a_scale)
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx: M={m}, K={k} is outside gx_viable")
+    kernels.refuse_grad("tcq4_matmul_gx", a_q, a_scale, qs, eff)
     if a_q.device.type == "cpu":
         return tcq4_matmul_gx_plain(a_q, a_scale, qs, eff)
     n = _check_weights(qs, eff, k)
@@ -244,6 +255,7 @@ def tcq4_matmul_gx3(x: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor) -> tor
     m, k = x.shape
     if not gx_viable(m, k):
         raise ValueError(f"tcq4_matmul_gx3: M={m}, K={k} is outside gx_viable")
+    kernels.refuse_grad("tcq4_matmul_gx3", x, qs, eff)
     if x.device.type == "cpu":
         return tcq4_matmul_gx3_plain(x, qs, eff)
     n = _check_weights(qs, eff, k)
@@ -323,6 +335,7 @@ def tcq4_matmul_a8(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     m, k = _check_codes("tcq4_matmul_a8", a_q, a_scale)
     if not 1 <= m <= A8_MAX_M:
         raise ValueError(f"tcq4_matmul_a8: M={m} is outside 1..{A8_MAX_M}")
+    kernels.refuse_grad("tcq4_matmul_a8", a_q, a_scale, qs, eff)
     if a_q.device.type == "cpu":
         return tcq4_matmul_a8_plain(a_q, a_scale, qs, eff)
     n = _check_weights(qs, eff, k)
@@ -367,6 +380,7 @@ def tcq4_matmul(a: torch.Tensor, qs: torch.Tensor, eff: torch.Tensor,
                 fast: bool = True) -> torch.Tensor:
     """C = a @ dequant(w) for the dequantized rotated activations a f32 [M, K].
     Returns f32 [M, N], or bf16 when the padded M reaches 1024."""
+    kernels.refuse_grad("tcq4_matmul", a, qs, eff)
     if a.device.type == "cpu":
         return tcq4_matmul_plain(a, qs, eff, fast=fast)
     if not fast:
@@ -481,6 +495,7 @@ def tcq4_matmul_fused(x: torch.Tensor, had: torch.Tensor, qs: torch.Tensor,
     ``fused_activations(x, had)``, B4 (``tcq4_matmul``) returns the same
     output bit for bit while it stores f32 (padded M < 1024)."""
     m, k, n = _check_fused(x, had, qs, eff)
+    kernels.refuse_grad("tcq4_matmul_fused", x, had, qs, eff)
     if x.device.type == "cpu":
         return tcq4_matmul_fused_plain(x, had, qs, eff)
     if n % 8:
@@ -588,6 +603,7 @@ def tcq4_matmul_pb(a_gi: torch.Tensor, ag24: torch.Tensor, qs_gi: torch.Tensor,
     the kernel reads a_gi in place, above it the wrapper first puts a_gi
     back into group-major order (``pb_group_major``, one M x K bf16 copy)."""
     m, k, n = _check_pb(a_gi, ag24, qs_gi, eff)
+    kernels.refuse_grad("tcq4_matmul_pb", a_gi, ag24, qs_gi, eff)
     if a_gi.device.type == "cpu":
         return tcq4_matmul_pb_plain(a_gi, ag24, qs_gi, eff)
     if n % 8:
@@ -703,6 +719,7 @@ def tcq4_matmul_i8p(a_sbi, a_scale, qs_sbi, f8, e2) -> torch.Tensor:
     """Prefill C = (a_sbi / 7 * a_scale) @ dequant(w) on the int8 tensor
     cores. a_sbi int8 [M, K] in sbi order, a_scale f32 [M, K//256] (the
     per-block absmax). f32 [M, N], or bf16 when the padded M reaches 1024."""
+    kernels.refuse_grad("tcq4_matmul_i8p", a_sbi, a_scale, qs_sbi, f8, e2)
     if a_sbi.device.type == "cpu":
         return tcq4_matmul_i8p_plain(a_sbi, a_scale, qs_sbi, f8, e2)
     m, k, n = _check_i8p(a_sbi, a_scale, qs_sbi, f8, e2)
@@ -787,6 +804,7 @@ def tcq4_matmul_experts_rows(a: torch.Tensor, qs_all: torch.Tensor, eff_all: tor
     if expert_ids.shape != (n_sel,):
         raise ValueError(f"tcq4_matmul_experts_rows: ids {tuple(expert_ids.shape)} for "
                          f"{n_sel} rows")
+    kernels.refuse_grad("tcq4_matmul_experts_rows", a, qs_all, eff_all)
     if a.device.type == "cpu":
         return tcq4_matmul_experts_rows_plain(a, qs_all, eff_all, expert_ids)
     _check_types("tcq4_matmul_experts_rows", a, qs_all, eff_all)
@@ -815,6 +833,7 @@ def tcq4_matmul_all_experts(a: torch.Tensor, qs_all: torch.Tensor,
     n_exp, _, n = qs_all.shape
     if a.dim() not in (2, 3) or (a.dim() == 3 and a.shape[0] != n_exp):
         raise ValueError(f"tcq4_matmul_all_experts: a {tuple(a.shape)} for {n_exp} experts")
+    kernels.refuse_grad("tcq4_matmul_all_experts", a, qs_all, eff_all)
     if a.device.type == "cpu":
         return tcq4_matmul_all_experts_plain(a, qs_all, eff_all)
     _check_types("tcq4_matmul_all_experts", a, qs_all, eff_all)
@@ -855,6 +874,7 @@ def tcq4_matmul_experts(a: torch.Tensor, qs_all: torch.Tensor, eff_all: torch.Te
     if expert_ids.dim() != 1 or expert_ids.numel() < 1:
         raise ValueError(f"tcq4_matmul_experts: ids {tuple(expert_ids.shape)} is not [n_sel]")
     _check_types("tcq4_matmul_experts", a, qs_all, eff_all, f32_eff=True)
+    kernels.refuse_grad("tcq4_matmul_experts", a, qs_all, eff_all)
     if a.device.type == "cpu":
         return tcq4_matmul_experts_plain(a, qs_all, eff_all, expert_ids)
     n_exp, _, n = qs_all.shape
