@@ -49,7 +49,8 @@ it; exits non-zero without either, and on any failed phase. Phases:
 6. quantized served steps: the same prefill and decode step over q8 and q4
    KV caches, every kernel launch held to its plain version and every K/V
    store on the card held bit for bit to the CPU's store of the same rows;
-7. serving with ``--cache-type q4`` and a slot save path: four concurrent
+7. serving with ``--cache-type q4`` and a slot save path (qwen3-4b's first 12
+   of its 36 layers): four concurrent
    completions (1000 and 2000 tokens, greedy and sampled), then a slot
    saved, erased and restored over HTTP (codes equal, scales within 1e-6)
    and a greedy continuation from it; then one context shift of a q4 lane
@@ -63,9 +64,9 @@ it; exits non-zero without either, and on any failed phase. Phases:
    8 and 32, bit-equal across two launches and to its order of sums in
    PyTorch, each timed beside its bound, its plain version and
    ``torch.matmul`` on weights dequantized beforehand (rotated past L2, as
-   the kernel's copies are); ``generate`` without
-   and with ``RRS_GX3`` (B1 or B15 at all 144 TCQ4 decode linears of a step,
-   counted; decode profiles; greedy tokens compared, reported) and the bench
+   the kernel's copies are); ``generate`` over the first 12 of the 36 layers
+   without and with ``RRS_GX3`` (B1 or B15 at all 48 TCQ4 decode linears of
+   a step, counted; decode profiles; greedy tokens compared, reported) and the bench
    decode counted the same way; a teacher-forced decode step under the flag
    with every launch held to its plain version and every B15 launch to B14
    and B16 on its codes; ``compute_perplexity`` of a 2-layer dense model on
@@ -290,21 +291,42 @@ it; exits non-zero without either, and on any failed phase. Phases:
    version; the STE backward (qkv at M = 8 / 128 / 256) and the Q8 head's
    (dx and d scale) card against CPU; a dense f32 2-layer model's three AdamW
    steps card against CPU (losses and weights); the wrappers' refusal under
-   autograd; then ``train()`` at all 36 layers (AdamW over one repeated
+   autograd; then ``train()`` at 12 of the 36 layers (AdamW over one repeated
    T = 256 batch, one step at T = 128 and one at T = 8): the loss falls, the
    frozen codes keep their checksums, B5 / B4 / B1 / B2 launch and B3 does
    not (``launches_training``); each step's wall and device-timeline ms, the
    peak memory, a profiled step split into forward, backward and optimizer,
    and the step's bound;
-21. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+21. the parallel paths (``parallel/sharding.py``, ``distributed.py``,
+   ``pipeline.py``), run right after phase 20 on phase 3's qwen3-4b weights
+   at full width, cut to 12 of 36 layers: tp = 2 as two shards on cuda:0
+   (the projections unfused and split per head and FFN column, o and down
+   all-reduced, the vocab gathered), prompts of 5 and 300 tokens x 16 greedy
+   steps with every kernel's launches counted (``launches_parallel``) and by
+   shard, their agreement with the unsharded context and that of one
+   device's unfused weights reported, a decode profile of the sharded step;
+   over 2 layers a teacher-forced 40- and 300-token prefill and a decode
+   step, bf16 and q8 KV, every launch on each shard held to its plain
+   version and every row-parallel reduce, before the cast, held to the
+   unsharded kernel on the shards' joined inputs; phase 3's 2-layer model
+   with dense bf16 weights at tp = 2 and tp 2 x dp 2 held to the unsharded
+   context (every logits row within GLUE_TOL on the same tokens, and the
+   tp 2 x dp 2 engine's tokens maxima of the unsharded logits); tp 2 x dp
+   2 (four shards on cuda:0) with the engine serving four greedy requests on
+   4 lanes at full width; ``compute_perplexity_pp`` over two stages on
+   cuda:0 against ``compute_perplexity`` (mean NLL within 1e-4 nats, the
+   pipeline's logits rows within 1e-3 relative L2); ``generate`` through one NCCL
+   process (``--dist-coordinator``, ``--dist-procs 1``) against plain
+   ``generate``, as processes;
+22. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
-   phases 10, 13, 14, 15, 16, 17, 18, 19 and 20 also carry ``launches_server_rest`` /
+   phases 10, 13-21 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
    ``launches_mla_q8`` and ``launches_mla_q4``), ``launches_gemma3``
    (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
    ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools``,
-   ``launches_qwen2vl``, ``launches_audio``, ``launches_tts`` and
-   ``launches_training``),
+   ``launches_qwen2vl``, ``launches_audio``, ``launches_tts``,
+   ``launches_training`` and ``launches_parallel``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -848,6 +870,7 @@ def held_to_plain(label: str, expect):
               (llama, "flash_attention_q4", fa.attention_kvq_ref)]
     originals = [getattr(mod, name) for mod, name, _ in hooked]
     seen: dict = {}
+    lock = threading.Lock()             # the shards of a mesh launch from threads
 
     def checked(name, kernel, plain):
         def run(*args, **kwargs):
@@ -863,8 +886,9 @@ def held_to_plain(label: str, expect):
             if not torch.isfinite(out.float()).all() or rel > tol:
                 raise AssertionError(f"{label}: {name} {shape} disagrees with its plain "
                                      f"version (rel {rel:.3e} > {tol:.0e})")
-            worst, shapes = seen.get(name, (0.0, set()))
-            seen[name] = (max(worst, rel), shapes | {shape})
+            with lock:
+                worst, shapes = seen.get(name, (0.0, set()))
+                seen[name] = (max(worst, rel), shapes | {shape})
             return out
         return run
 
@@ -961,6 +985,15 @@ def phase_variants():
 GLUE_TOL = 0.05
 
 
+def small_cfg():
+    """Phase 3's 2-layer model: qwen3 at E = 1024, 16 / 8 heads x 128."""
+    from rrs_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=8,
+                       head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
+                       rope_theta=1e6, qk_norm=True)
+
+
 def phase_small_reference(reports):
     """A 2-layer model (E=1024, 16/8 heads x 128) through prefill and one
     decode step, on the card and on the CPU.
@@ -985,7 +1018,6 @@ def phase_small_reference(reports):
 
     from rrs_tpu_torch.formats.tcq4 import quantize_activations_rrs
     from rrs_tpu_torch.models import llama
-    from rrs_tpu_torch.models.config import ModelConfig
     from rrs_tpu_torch.models.linear import rotate_activations
     from rrs_tpu_torch.runtime.context import InferenceContext
 
@@ -1003,9 +1035,7 @@ def phase_small_reference(reports):
     print(f"  W4A4 glue, card vs CPU: rotation rel {rel:.2e} <= 1e-6, "
           "activation quant bit-exact", flush=True)
 
-    cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=1024, n_heads=16, n_kv_heads=8,
-                      head_dim=128, n_ff=3072, vocab_size=4096, context_length=4096,
-                      rope_theta=1e6, qk_norm=True)
+    cfg = small_cfg()
     dense = llama.random_weights(cfg, seed=1, device="cpu")
     models = {"W4A4": (llama.fabricated_tcq4_weights(cfg, seed=1, device="cpu"), "none"),
               "dense": (dense, "none"), "dense q8 KV": (dense, "q8"),
@@ -1732,8 +1762,14 @@ def phase_served_steps_kvq(cfg, weights):
 SERVE_Q4_LENGTHS = (1000, 2000, 1000, 2000)     # two greedy, then two sampled
 
 
+# phase 7's q4 server runs the first 12 of qwen3-4b's 36 layers (all 36 until
+# phase 21 needed the room)
+SERVE_Q4_LAYERS = 12
+
+
 def phase_serving_q4(cfg, weights, reports):
-    """The server in-process at qwen3-4b width with ``--cache-type q4``: 4
+    """The server in-process at qwen3-4b width with ``--cache-type q4``, its
+    first SERVE_Q4_LAYERS layers in phase 7: 4
     slots, ctx 4096, a slot save path in a temporary directory. Four
     concurrent completions (1000 / 2000 tokens, SERVE_NEW new; two greedy, two
     sampled), then over HTTP: save slot 0, erase it, restore it (the lane's
@@ -1751,7 +1787,7 @@ def phase_serving_q4(cfg, weights, reports):
 
     resident = {q: KVCache.create(cfg, 4, 4096, device="meta", quant=q).nbytes() / GB
                 for q in ("none", "q8", "q4")}
-    print("  resident KV at 4 slots x 4096, 36 layers: "
+    print(f"  resident KV at 4 slots x 4096, {cfg.n_layers} layers: "
           + ", ".join(f"{'bf16' if q == 'none' else q} {v:.3f} GB" for q, v in resident.items()),
           flush=True)
     ctx = InferenceContext(cfg, weights, n_lanes=4, max_seq=4096, kv_quant="q4")
@@ -1958,6 +1994,9 @@ INT = {"gx3": ("tcq4_matmul_gx3", "rrs_tpu_torch/csrc/tcq4_gx2.cu",
 INT_TOL = 1e-5          # the reference's limit for the integer kernels (tests/test_tcq4_matmul.py)
 # qwen3-4b's TCQ4 decode linears a step: 36 layers x (qkv, o, gate-up, down)
 QWEN3_4B_TCQ4_PER_STEP = 144
+# the RRS_GX3 A/B generates run the first 12 of the 36 layers (all 36 until
+# phase 21 needed the room; B1 / B15 then took 144 linears a step)
+GX3_AB_LAYERS = 12
 
 
 def phase_parity_int(peaks, reports):
@@ -2126,10 +2165,11 @@ def gx3_flag(on: bool):
 
 
 def phase_gx3_ab(cfg, weights, reports):
-    """``generate`` at qwen3-4b width (three greedy prompts of 5, 40 and 300
-    tokens, 32 new tokens each) without and with ``RRS_GX3``, the launch
-    counts set to 0 before each run: without the flag B1 takes all 144 TCQ4
-    decode linears of a step and B15 none, with it the reverse (the
+    """``generate`` at qwen3-4b width, its first GX3_AB_LAYERS layers (three
+    greedy prompts of 5, 40 and 300 tokens, 32 new tokens each) without and
+    with ``RRS_GX3``, the launch counts set to 0 before each run: without the
+    flag B1 takes all 4 x n_layers TCQ4 decode linears of a step and B15
+    none, with it the reverse (the
     fabricated weights carry no channel permutation). A decode profile of
     each, the greedy tokens of the two runs compared (reported: the rotation
     sums in another order, and an int4 code at a half-way point may flip);
@@ -2142,6 +2182,7 @@ def phase_gx3_ab(cfg, weights, reports):
     from rrs_tpu_torch.runtime.context import InferenceContext
     from rrs_tpu_torch.tools.bench_sweep import run_one
 
+    per_step = 4 * cfg.n_layers             # TCQ4 linears of a decode step
     rng = torch.Generator().manual_seed(0)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist() for n in (5, 40, 300)]
     outs, profiles = {}, {}
@@ -2160,8 +2201,8 @@ def phase_gx3_ab(cfg, weights, reports):
             perf = ctx.perf()
             steps = perf["n_eval"]
             b1, b15 = launches["tcq4_matmul_gx2"], launches["tcq4_matmul_gx3"]
-            want = (0, QWEN3_4B_TCQ4_PER_STEP * steps) if on else \
-                (QWEN3_4B_TCQ4_PER_STEP * steps, 0)
+            want = (0, per_step * steps) if on else \
+                (per_step * steps, 0)
             if (b1, b15) != want:
                 raise AssertionError(f"generate {tag}: B1 / B15 launched {b1} / {b15} times over "
                                      f"{steps} decode steps, expected {want}")
@@ -2177,7 +2218,7 @@ def phase_gx3_ab(cfg, weights, reports):
             row = run_one(cfg, weights, torch.device("cuda"), 1, "bf16", "bf16", 0, 16, 0, 1)
             n15 = kernels.LAUNCHES["tcq4_matmul_gx3"] / 32          # warm-up + 1 rep of tg16
             n1 = kernels.LAUNCHES["tcq4_matmul_gx2"] / 32
-            if (n1, n15) != ((0, QWEN3_4B_TCQ4_PER_STEP) if on else (QWEN3_4B_TCQ4_PER_STEP, 0)):
+            if (n1, n15) != ((0, per_step) if on else (per_step, 0)):
                 raise AssertionError(f"bench decode {tag}: B1 / B15 {n1} / {n15} a step")
             print(f"  bench decode (run_one tg16) {tag}: {row['avg_ts']} tok/s, B1 {n1:.0f} and "
                   f"B15 {n15:.0f} launches a step", flush=True)
@@ -2202,7 +2243,7 @@ def phase_gx3_ab(cfg, weights, reports):
                 gx3_oracles("gx3 decode step") as held:
             logits = ctx.decode({seq: 11})[seq]
             torch.cuda.synchronize()
-        if not torch.isfinite(logits).all() or held["n"] != QWEN3_4B_TCQ4_PER_STEP:
+        if not torch.isfinite(logits).all() or held["n"] != per_step:
             raise AssertionError(f"gx3 decode step: {held['n']} B15 launches held")
         print(f"  teacher-forced decode step with RRS_GX3=1: {held['n']} B15 launches, each "
               f"within {seen['tcq4_matmul_gx3'][0]:.2e} of its plain version, bit-equal to B14 "
@@ -2529,8 +2570,8 @@ def extra_oracles(label: str):
     held = {"n": 0, "fused_rel": 0.0, "pb_rel": 0.0, "pb_b4_rel": 0.0, "flips": 0, "codes": 0,
             "shapes": set()}
 
-    def run(layer, x):
-        y = orig(layer, x)
+    def run(layer, x, reduce_axis=None):
+        y = orig(layer, x, reduce_axis=reduce_axis)
         if not isinstance(layer, TCQ4Linear) or layer.gather is not None:
             return y
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
@@ -7667,6 +7708,9 @@ TRAIN_UPDATE_TOL = 5e-2
 # Qwen3-0.6B's published widths for the finetune verb, cut to this many of
 # its 28 layers (the phase's time: the f32 file is written and read twice)
 VERB_LAYERS = 4
+# train() runs the first 12 of qwen3-4b's 36 layers (all 36 until phase 21
+# needed the room), as phase 10 serves them
+TRAIN_FULL_LAYERS = 12
 TRAIN_EXPECT = {"tcq4_matmul_i8p", "tcq4_matmul", "tcq4_matmul_gx2", "q8_matmul"}
 NORM_FIELDS = ("attn_norm", "ffn_norm", "q_norm", "k_norm", "attn_post_norm", "ffn_post_norm")
 
@@ -7933,8 +7977,8 @@ def training_bound_ms(cfg, w, t: int, peaks) -> tuple:
 
 
 def training_full(cfg, weights, reports, peaks) -> None:
-    """Phase 20 (b): ``train`` at all 36 layers of qwen3-4b (f32 floats,
-    frozen codes shared): AdamW at lr 1e-3 on one repeated B = 1, T = 256
+    """Phase 20 (b): ``train`` at qwen3-4b's full width, its first
+    TRAIN_FULL_LAYERS layers (f32 floats, frozen codes shared): AdamW at lr 1e-3 on one repeated B = 1, T = 256
     batch, then one step at T = 128 and one at T = 8; the loss falls, every
     loss is finite, the frozen tensors keep their checksums, B5 / B4 / B1 /
     B2 launch and B3 does not; each step's wall and device-timeline ms, the
@@ -7977,7 +8021,7 @@ def training_full(cfg, weights, reports, peaks) -> None:
     launches = {k: kernels.LAUNCHES[k] for k in ("tcq4_matmul_i8p", "tcq4_matmul",
                                                 "tcq4_matmul_gx2", "q8_matmul", "flash_attention")}
     after = frozen_checksums(w_out)
-    print(f"  qwen3-4b, 36 layers, B = 1: AdamW at lr {TRAIN_LR} over one repeated T = 256 "
+    print(f"  qwen3-4b, {cfg.n_layers} of 36 layers, B = 1: AdamW at lr {TRAIN_LR} over one repeated T = 256 "
           f"batch: losses {[round(x, 4) for x in losses]}; T = 128: loss {extra[128][0]:.4f} "
           f"({extra[128][1]:.1f} ms with set-up), T = 8: {extra[8][0]:.4f} "
           f"({extra[8][1]:.1f} ms)", flush=True)
@@ -8084,10 +8128,462 @@ def phase_training(cfg, weights, reports, peaks, tmp) -> None:
     t1 = time.perf_counter()
     training_verb_finish(started)
     t2 = time.perf_counter()
-    training_full(cfg, weights, reports, peaks)
+    training_full(*first_layers(cfg, weights, TRAIN_FULL_LAYERS), reports, peaks)
     print(f"  phase 20 took {time.perf_counter() - t0:.1f} s (the held part {t1 - t0:.1f} s, the "
           f"verb's wait and reload {t2 - t1:.1f} s, full depth {time.perf_counter() - t2:.1f} s)",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: the parallel serving paths (tensor / data parallel over a mesh of
+# shards, the pipeline, the multi-process entry) on one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_LAYERS = 12            # phase 10's cut of qwen3-4b's 36 layers
+PARALLEL_NEW = 16
+PARALLEL_PROMPT = "the parallel paths run on one card: two shards, two rows, two stages"
+TP_PATH = {"tcq4_matmul_gx2", "tcq4_matmul_i8p", "q8_matmul", "flash_attention"}
+
+
+@contextlib.contextmanager
+def reduces_held(model, full, label: str):
+    """While open, every row-parallel product on ``model``'s shards (o and
+    down: ``linear_apply`` with a ``reduce_axis``) records each shard's
+    input and the all-reduced f32 sum, before the bias and the cast; on
+    leaving, each reduce is held to the unsharded kernel route (the full-K
+    TCQ4 linear of ``full`` at the same M) on the shards' inputs joined in
+    rank order: INT_TOL where the route is an integer kernel (B1, B5), the
+    reference's 0.02 where it is B4. Yields {route: (n, max rel)}."""
+    import torch
+
+    from rrs_tpu_torch.models import linear as lin
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.ops import tcq4_matmul as tm
+
+    where = {}
+    for sh in model.shards:
+        for li, lw in enumerate(sh.weights.layers):
+            for name in ("wo", "w_down"):
+                where[id(getattr(lw, name))] = (li, name)
+    calls, lock, orig = [], threading.Lock(), llama.linear_apply
+
+    class Tap:
+        def __init__(self, comm):
+            self.comm, self.sum = comm, None
+
+        def all_reduce(self, y):
+            self.sum = self.comm.all_reduce(y)
+            return self.sum
+
+    def hooked(layer, x, reduce_axis=None):
+        if reduce_axis is None:
+            return orig(layer, x)
+        tap = Tap(reduce_axis)
+        out = orig(layer, x, reduce_axis=tap)
+        with lock:
+            calls.append((where[id(layer)], reduce_axis.rank, x, tap.sum))
+        return out
+
+    stats: dict = {}
+    llama.linear_apply = hooked
+    try:
+        yield stats
+    finally:
+        llama.linear_apply = orig
+    groups: dict = {}
+    for key, rank, x, y in calls:
+        groups.setdefault((key, rank), []).append((x, y))
+    for (key, rank), got in groups.items():
+        if rank != 0:
+            continue
+        li, name = key
+        fl = getattr(full.layers[li], name)
+        parts = [groups[(key, r)] for r in range(model.mesh.tp)]
+        for i, (_, y) in enumerate(got):
+            xf = torch.cat([parts[r][i][0] for r in range(model.mesh.tp)], dim=-1)
+            x2 = xf.reshape(-1, xf.shape[-1])
+            m, k = x2.shape
+            ref = lin._tcq4_forward(x2, fl.qs, fl.eff, fl.i8p)
+            route = ("tcq4_matmul_gx2" if tm.gx_viable(m, k, fl.qs.shape[1]) else
+                     "tcq4_matmul_i8p" if fl.i8p is not None and m >= 256 else "tcq4_matmul")
+            tol = 0.02 if route == "tcq4_matmul" else INT_TOL
+            err = (y.float() - ref).abs().max().item()
+            rel = err / max(ref.abs().max().item(), 1e-30)
+            if not (torch.isfinite(y).all() and rel <= tol):
+                raise AssertionError(f"{label}: the reduce of layer {li} {name} at M = {m} "
+                                     f"({route}) is {rel:.3e} from the unsharded kernel > {tol}")
+            n, worst = stats.get(route, (0, 0.0))
+            stats[route] = (n + 1, max(worst, rel))
+
+
+def tp_greedy(ctx, prompt, n_new: int):
+    """Prefill then n_new greedy decode steps: (the prefill's last logits row,
+    the tokens)."""
+    seq = ctx.new_sequence()
+    try:
+        last = ctx.prefill(seq, prompt, all_logits=False)[-1]
+        toks = [int(last.argmax())]
+        for _ in range(n_new - 1):
+            toks.append(int(ctx.decode({seq: toks[-1]})[seq].argmax()))
+    finally:
+        ctx.kv.seq_rm(seq)
+    return last, toks
+
+
+def parallel_held(cfg, w, label_kv: str, quant: str, expect) -> None:
+    """Teacher-forced prefills of 40 and 300 tokens and a decode step on a
+    tp = 2 context over 2 layers, every kernel launch on each shard held to
+    its plain version and every row-parallel reduce to the unsharded
+    kernel."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.parallel.sharding import make_mesh
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    cfg2, w2 = first_layers(cfg, w, 2)
+    full = llama.unfused(cfg2, w2)
+    ctx = InferenceContext(cfg2, full, n_lanes=1, max_seq=1024, kv_quant=quant,
+                           mesh=make_mesh(devices=["cuda:0"] * 2))
+    rng = torch.Generator().manual_seed(21)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist() for n in (40, 300)]
+    label = f"tp = 2 held, {label_kv}"
+    with held_to_plain(label, expect) as seen, reduces_held(ctx.sharded, full, label) as red:
+        seq = ctx.new_sequence()
+        for p in prompts:
+            ctx.prefill(seq, p)
+        out = ctx.decode({seq: 7})[seq]
+        torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite decode logits")
+    one = InferenceContext(cfg2, full, n_lanes=1, max_seq=1024, kv_quant=quant)
+    seq = one.new_sequence()
+    for p in prompts:
+        one.prefill(seq, p)
+    ref = one.decode({seq: 7})[seq]
+    print(f"  {label}: the decode step's logits against the unsharded context on the same 2 "
+          f"layers (reported): max |diff| {(out - ref).abs().max().item():.4f} of max |logit| "
+          f"{ref.abs().max().item():.3f}, argmax {int(out.argmax())} / {int(ref.argmax())}",
+          flush=True)
+    for name, (worst, shapes) in sorted(seen.items()):
+        print(f"  {label}, {name}: every launch on both shards within its tolerance of its "
+              f"plain version (max rel {worst:.2e}); shapes {sorted(shapes)}", flush=True)
+    print(f"  {label}, row-parallel reduces (o, down) against the unsharded kernel on the "
+          f"joined inputs: " + ", ".join(f"{k} {n} reduces, max rel {r:.2e}"
+                                         for k, (n, r) in sorted(red.items())), flush=True)
+    if {"tcq4_matmul_gx2", "tcq4_matmul", "tcq4_matmul_i8p"} - set(red):
+        raise AssertionError(f"{label}: reduces held only on {sorted(red)}")
+
+
+def engine_greedy(ctx, prompts):
+    """The engine on ``ctx`` serves one greedy request a prompt, each to
+    PARALLEL_NEW tokens, all submitted at once: (each request's tokens, the
+    seconds)."""
+    import queue as _queue
+
+    from rrs_tpu_torch.runtime.sampler import SamplerParams
+    from rrs_tpu_torch.serving.engine import Engine, GenRequest
+
+    engine = Engine(ctx)
+    q: "_queue.Queue" = _queue.Queue()
+    outs = {i: [] for i in range(len(prompts))}
+    for i, p in enumerate(prompts):
+        engine.submit(GenRequest(
+            prompt_tokens=p, max_tokens=PARALLEL_NEW, params=SamplerParams(temperature=0.0),
+            on_token=lambda tok, piece, fin, reason, i=i:
+            q.put((i, reason)) if fin else outs[i].append(tok)))
+    t0 = time.perf_counter()
+    engine.start()
+    try:
+        done = dict(q.get(timeout=600) for _ in prompts)
+    finally:
+        engine.stop()
+    dt = time.perf_counter() - t0
+    if any(done[i] != "length" or len(outs[i]) != PARALLEL_NEW for i in outs):
+        raise AssertionError(f"engine: {done}, {[len(o) for o in outs.values()]}")
+    return [outs[i] for i in range(len(prompts))], dt
+
+
+def greedy_rows(ctx, prompts, n_new: int, forced=None):
+    """Each prompt prefilled on a sequence of its own, then n_new - 1 decode
+    steps of all of them in one batch, each feeding its row's argmax or, with
+    ``forced`` (a token list a prompt), the given tokens: per prompt, (its
+    logits rows [T + n_new - 1, V] on the host, the argmax of its last
+    prefill row and of each decode row)."""
+    import torch
+
+    seqs = [ctx.new_sequence() for _ in prompts]
+    try:
+        rows = [[ctx.prefill(s, p).float().cpu()] for s, p in zip(seqs, prompts)]
+        toks = [[int(r[0][-1].argmax())] for r in rows]
+        for i in range(n_new - 1):
+            feed = [t[i] if forced is None else forced[k][i] for k, t in enumerate(toks)]
+            out = ctx.decode(dict(zip(seqs, feed)))
+            for k, s in enumerate(seqs):
+                row = out[s].float().cpu().reshape(1, -1)
+                rows[k].append(row)
+                toks[k].append(int(row.argmax()))
+    finally:
+        for s in seqs:
+            ctx.kv.seq_rm(s)
+    return [(torch.cat(r), t) for r, t in zip(rows, toks)]
+
+
+def parallel_dense_witness(dev: str = "cuda:0") -> None:
+    """The glue of the sharded paths, where no int4 activation quantizer
+    turns rounding into other codes: phase 3's 2-layer model with dense bf16
+    weights at tp = 2 and at tp 2 x dp 2 (shards on ``dev``), four prompts
+    on 4 lanes, each sharded context decoding greedily and the unsharded
+    context fed the same tokens. Every logits row of every prefill and
+    decode step must be within GLUE_TOL relative L2 of the unsharded one
+    (the bf16 logits tie and near-tie, so equal greedy tokens over many
+    steps are counted, not required). Then the engine serves the four
+    prompts greedily on the tp 2 x dp 2 context, and each token it sends
+    must be a maximum of the unsharded logits fed the same tokens, to within
+    twice the largest logit difference the contexts showed (or one bf16 ulp
+    of the largest logit, if that is more): a token from another lane or a
+    wrong step is not."""
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.parallel.sharding import make_mesh
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    # max_seq leaves a 512-row bucket room above the 316 live rows: a lane
+    # not in a prefill parks its rows at the top of its cache (ROADMAP C3)
+    cfg = small_cfg()
+    w = llama.random_weights(cfg, seed=1, device=dev)
+    rng = torch.Generator().manual_seed(25)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (40, 300, 100, 20)]
+    one = InferenceContext(cfg, w, n_lanes=4, max_seq=1024, device=dev)
+    meshes = {"tp = 2": make_mesh(devices=[dev] * 2),
+              "tp 2 x dp 2": make_mesh(devices=[dev] * 4, dp=2)}
+    diff = 0.0
+    for label, mesh in meshes.items():
+        got = greedy_rows(InferenceContext(cfg, w, n_lanes=4, max_seq=1024, mesh=mesh), prompts,
+                          PARALLEL_NEW)
+        ref = greedy_rows(one, prompts, PARALLEL_NEW, forced=[t for _, t in got])
+        worst, same = 0.0, 0
+        for n, (g_rows, g_toks), (r_rows, r_toks) in zip(map(len, prompts), got, ref):
+            rel = ((g_rows - r_rows).norm(dim=-1) / r_rows.norm(dim=-1)).max().item()
+            if not (torch.isfinite(g_rows).all() and rel <= GLUE_TOL):
+                raise AssertionError(f"dense witness, {label}, {n}-token prompt: logits rows "
+                                     f"rel L2 {rel:.4f} > {GLUE_TOL} from the unsharded "
+                                     f"context's on the same tokens")
+            worst = max(worst, rel)
+            diff = max(diff, (g_rows - r_rows).abs().max().item())
+            same += sum(a == b for a, b in zip(g_toks, r_toks))
+        print(f"  dense witness (phase 3's 2-layer model, bf16 weights), {label} on {dev} "
+              f"against the unsharded context on the same tokens: prompts of "
+              f"{'/'.join(map(str, map(len, prompts)))} tokens x {PARALLEL_NEW} greedy steps on "
+              f"4 lanes, every logits row within rel L2 {worst:.2e} <= {GLUE_TOL}; argmax equal "
+              f"at {same} of {4 * PARALLEL_NEW} steps", flush=True)
+    toks, dt = engine_greedy(InferenceContext(cfg, w, n_lanes=4, max_seq=1024,
+                                              mesh=meshes["tp 2 x dp 2"]), prompts)
+    ref = greedy_rows(one, prompts, PARALLEL_NEW, forced=toks)
+    top = max(r.abs().max().item() for r, _ in ref)
+    eps = 2 * max(diff, 2.0 ** (math.floor(math.log2(top)) - 7))
+    short, same = [], 0
+    for k, ((rows, r_toks), e_toks) in enumerate(zip(ref, toks)):
+        last = torch.cat([rows[len(prompts[k]) - 1:len(prompts[k])], rows[len(prompts[k]):]])
+        gap = last.max(dim=-1).values - last[torch.arange(len(e_toks)), e_toks]
+        short += [(k, i, round(g, 4)) for i, g in enumerate(gap.tolist()) if g > eps]
+        same += sum(a == b for a, b in zip(e_toks, r_toks))
+    if short:
+        raise AssertionError(f"dense witness: tokens the tp 2 x dp 2 engine sent are no "
+                             f"maximum of the unsharded logits (request, step, gap > {eps:.4f})"
+                             f": {short}")
+    print(f"  dense witness, the engine on tp 2 x dp 2: each of the {4 * PARALLEL_NEW} tokens "
+          f"it sent is a maximum of the unsharded logits on the same tokens within {eps:.4f} "
+          f"(the unsharded argmax at {same}); {dt:.2f} s", flush=True)
+
+
+def parallel_engine(cfg, w) -> None:
+    """tp 2 x dp 2 on the card: the engine serves four greedy requests on 4
+    lanes (two per dp row), each to PARALLEL_NEW tokens (their tokens are
+    held in ``parallel_dense_witness``, where no int4 quantizer amplifies
+    rounding)."""
+    import torch
+
+    from rrs_tpu_torch.parallel.sharding import make_mesh
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    ctx = InferenceContext(cfg, w, n_lanes=4, max_seq=2048,
+                           mesh=make_mesh(devices=["cuda:0"] * 4, dp=2))
+    rng = torch.Generator().manual_seed(22)
+    lengths = (40, 300, 100, 20)
+    _, dt = engine_greedy(ctx, [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
+                                for n in lengths])
+    print(f"  tp 2 x dp 2 (4 shards on cuda:0), Engine on 4 lanes: four greedy requests "
+          f"({' / '.join(map(str, lengths))} tokens) each to {PARALLEL_NEW} tokens in {dt:.1f} s "
+          f"({4 * PARALLEL_NEW / dt:.1f} generated tok/s with the prefills)", flush=True)
+
+
+PP_NLL_TOL = 1e-4               # nats of mean NLL, pipeline against the context
+PP_LOGITS_TOL = 1e-3            # relative L2 of the logits rows, the same two
+
+
+def parallel_pipeline(cfg, w) -> None:
+    """compute_perplexity_pp over two stages on cuda:0 against
+    compute_perplexity on the same weights and chunks. Each stage runs the
+    context's kernels at the context's M (one 512-token chunk a
+    microbatch), so the limits are tight: the mean NLL within PP_NLL_TOL
+    nats, and the pipeline's logits rows of both chunks within
+    PP_LOGITS_TOL relative L2 of the context's (a dropped stage or uniform
+    logits moves the mean NLL by nats)."""
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch.parallel.pipeline import make_pipeline_forward, make_pp_mesh
+    from rrs_tpu_torch.runtime.context import InferenceContext
+    from rrs_tpu_torch.tools import perplexity as ppl
+
+    n_ctx = 512
+    tokens = torch.randint(2, cfg.vocab_size, (2 * n_ctx,),
+                           generator=torch.Generator().manual_seed(23)).tolist()
+    mesh = make_pp_mesh(devices=["cuda:0"] * 2)
+    ctx = InferenceContext(cfg, w, n_lanes=1, max_seq=n_ctx)
+    t0 = time.perf_counter()
+    ref = ppl.compute_perplexity(ctx, tokens, n_ctx=n_ctx)
+    t1 = time.perf_counter()
+    got = ppl.compute_perplexity_pp(cfg, w, tokens, mesh, n_ctx=n_ctx, n_micro=2)
+    t2 = time.perf_counter()
+    first = min(n_ctx // 2, 512)
+    chunks = [tokens[c * n_ctx:(c + 1) * n_ctx] for c in range(2)]
+    rows = np.concatenate([ppl.host_logits(ctx, c)[first:n_ctx - 1] for c in chunks])
+    positions = np.broadcast_to(np.arange(n_ctx, dtype=np.int32), (2, n_ctx)).copy()
+    pp_rows = make_pipeline_forward(cfg, w, mesh, 2, n_ctx, n_micro=2)(
+        np.asarray(chunks, np.int64), positions)[:, first:n_ctx - 1]
+    pp_rows = pp_rows.float().cpu().numpy().reshape(rows.shape)
+    rel = float(np.linalg.norm(pp_rows - rows) / np.linalg.norm(rows))
+    d_mean = abs(got.nll_sum - ref.nll_sum) / ref.n_tokens
+    if (got.n_tokens != ref.n_tokens or not math.isfinite(got.ppl) or d_mean > PP_NLL_TOL
+            or not rel <= PP_LOGITS_TOL):
+        raise AssertionError(f"pipeline perplexity {got.ppl:.4f} vs {ref.ppl:.4f}: mean NLL "
+                             f"{d_mean:.2e} (<= {PP_NLL_TOL}?), logits rows rel L2 {rel:.2e} "
+                             f"(<= {PP_LOGITS_TOL}?)")
+    print(f"  compute_perplexity_pp, pp = 2 (two stages on cuda:0), 2 x {n_ctx} tokens: PPL "
+          f"{got.ppl:.4f} against compute_perplexity's {ref.ppl:.4f} (mean NLL "
+          f"{ref.nll_sum / ref.n_tokens:.4f}, apart by {d_mean:.2e} <= {PP_NLL_TOL}); the "
+          f"pipeline's logits rows within rel L2 {rel:.2e} <= {PP_LOGITS_TOL} of the context's;"
+          f" {t2 - t1:.2f} s against {t1 - t0:.2f} s with their first calls", flush=True)
+
+
+def parallel_verbs_start(tmp):
+    """A tiny GGUF, then ``generate`` plain and through one NCCL process
+    (``--dist-coordinator 127.0.0.1:<port> --dist-procs 1 --dist-id 0``),
+    started at once; returns their handles."""
+    import socket
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.models.export import export_random_gguf
+
+    cfg = ModelConfig(arch="qwen3", n_layers=2, n_embd=256, n_heads=4, n_kv_heads=2,
+                      head_dim=64, n_ff=512, vocab_size=256, context_length=512, qk_norm=True)
+    vocab = [chr(33 + i) if 33 + i < 0x2FF else f"<tok{i}>" for i in range(256)]
+    gguf = export_random_gguf(cfg, tmp / "tiny_dist.gguf", seed=24, vocab_tokens=vocab)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = ["generate", "-m", str(gguf), "-p", PARALLEL_PROMPT, "-n", str(PARALLEL_NEW)]
+    return (_verb_start(argv),
+            _verb_start(argv + ["--dist-coordinator", f"127.0.0.1:{port}", "--dist-procs", "1",
+                                "--dist-id", "0"]))
+
+
+def phase_parallel(cfg_full, weights_full, reports, tmp) -> None:
+    """Phase 21 on phase 3's qwen3-4b weights at full width, their first
+    PARALLEL_LAYERS layers: tp = 2 as two shards on cuda:0 (prefills of 5 and
+    300 tokens, PARALLEL_NEW greedy steps each, its launches counted, its
+    agreement with the unsharded context, and that of one device's unfused
+    weights, reported); launches held on each shard and reduces held to the
+    unsharded kernel (bf16 and q8 KV); tp = 2 and tp 2 x dp 2 held to the
+    unsharded context on phase 3's dense model (logits and tokens, the
+    engine's tokens); tp 2 x dp 2 serving four requests at full width; the
+    pipeline's perplexity and logits; one NCCL process; a decode profile of
+    the sharded step."""
+    import torch
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.parallel.sharding import make_mesh
+    from rrs_tpu_torch.runtime.context import InferenceContext
+
+    t_phase = time.perf_counter()
+    verbs = parallel_verbs_start(tmp)
+    cfg, w = first_layers(cfg_full, weights_full, PARALLEL_LAYERS)
+    ref = InferenceContext(cfg, w, n_lanes=1, max_seq=1024)
+    tp = InferenceContext(cfg, llama.unfused(cfg, w), n_lanes=1, max_seq=1024,
+                          mesh=make_mesh(devices=["cuda:0"] * 2))
+    rng = torch.Generator().manual_seed(20)
+    prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist() for n in (5, 300)]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for counts in tp.sharded.launches.values():
+        counts.clear()
+    t0 = time.perf_counter()
+    runs = [tp_greedy(tp, p, PARALLEL_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    shard_launches = {f"{d},{r}": dict(c) for (d, r), c in tp.sharded.launches.items()}
+    if set(TP_PATH) - set(launches):
+        raise AssertionError(f"tp = 2 generate: kernels not launched: {set(TP_PATH) - set(launches)}")
+    for key, name in (("gx2", "tcq4_matmul_gx2"), ("i8p", "tcq4_matmul_i8p"), ("q8", "q8_matmul"),
+                      ("fa", "flash_attention"), ("tcq4", "tcq4_matmul")):
+        reports[key].entry["launches_parallel"] = launches.get(name, 0)
+    agree, fused_vs_unfused = [], []
+    one = InferenceContext(cfg, llama.unfused(cfg, w), n_lanes=1, max_seq=1024)
+    for p, (last_tp, toks_tp) in zip(prompts, runs):
+        last_ref, toks_ref = tp_greedy(ref, p, PARALLEL_NEW)
+        _, toks_one = tp_greedy(one, p, PARALLEL_NEW)
+        one_ref = sum(a == b for a, b in zip(toks_one, toks_ref))
+        tp_one = sum(a == b for a, b in zip(toks_tp, toks_one))
+        fused_vs_unfused.append(f"{len(p)}-token prompt: the unfused against the fused {one_ref}"
+                                f" of {PARALLEL_NEW}, tp = 2 against the unfused {tp_one} of "
+                                f"{PARALLEL_NEW}")
+        if not torch.isfinite(last_tp).all():
+            raise AssertionError("tp = 2: non-finite logits")
+        same = sum(a == b for a, b in zip(toks_tp, toks_ref))
+        first_diff = next((i for i, (a, b) in enumerate(zip(toks_tp, toks_ref)) if a != b),
+                          None)
+        agree.append(f"{len(p)}-token prompt: {same} of {PARALLEL_NEW} greedy tokens equal "
+                     f"(first difference at step {first_diff}), the prefill's last row max "
+                     f"|diff| {(last_tp - last_ref).abs().max().item():.3f} of max |logit| "
+                     f"{last_ref.abs().max().item():.3f}")
+    print(f"  tp = 2 (two shards on cuda:0), {cfg.n_layers} of 36 layers: prompts of 5 and 300 "
+          f"tokens x {PARALLEL_NEW} greedy steps in {dt:.1f} s; launches {launches}", flush=True)
+    print(f"  tp = 2 launches by shard (dp row, tp rank): {shard_launches}", flush=True)
+    print("  tp = 2 against the unsharded context on the same weights (reported; one device "
+          "runs the fused q|k|v and gate|up, the shards their column halves): "
+          + "; ".join(agree), flush=True)
+    print("  one device, unfused weights (the shards' kernel routes, no split) against the "
+          "fused context, greedy tokens equal (reported): " + "; ".join(fused_vs_unfused),
+          flush=True)
+    prof = profile_decode(tp, prompts[1], label="tp = 2 sharded decode step")
+    if prof:
+        print(f"  tp = 2 sharded decode step: wall {prof['wall_ms']:.3f} ms, device "
+              f"{prof['device_ms']:.3f} ms, idle share {prof['idle']:.3f} (one card: not a "
+              f"scaling number)", flush=True)
+    del tp, ref, one
+    torch.cuda.empty_cache()
+
+    parallel_held(cfg, w, "bf16 KV", "none", BF16_PATH)
+    parallel_held(cfg, w, "q8 KV", "q8", BF16_PATH - {"flash_attention"} | {"flash_attention_q8"})
+    torch.cuda.empty_cache()
+    parallel_dense_witness()
+    torch.cuda.empty_cache()
+    parallel_engine(cfg, llama.unfused(cfg, w))
+    torch.cuda.empty_cache()
+    parallel_pipeline(cfg, w)
+    plain, dist = (_verb_wait(h).strip().splitlines() for h in verbs)
+    if not plain or plain[-1] != dist[-1]:
+        raise AssertionError(f"generate through one NCCL process: {dist[-1:]} against plain "
+                             f"{plain[-1:]}")
+    print(f"  generate through one NCCL process (--dist-coordinator, --dist-procs 1): the text "
+          f"of plain generate ({plain[-1]!r})", flush=True)
+    print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def header(text: str) -> None:
@@ -8113,7 +8609,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/21] build")
+    header("[1/22] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -8127,78 +8623,86 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/21] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/22] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/21] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/22] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/21] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/22] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/21] served steps held to the plain versions; device decode run against "
+    header("[5/22] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/21] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/22] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/21] serving with --cache-type q4: slot save / erase / restore, context shift, "
-           "a q4 decode-run profile")
-    ctx = phase_serving_q4(cfg, weights, reports)
+    header("[7/22] serving with --cache-type q4 (12 of 36 layers): slot save / erase / "
+           "restore, context shift, a q4 decode-run profile")
+    ctx = phase_serving_q4(*first_layers(cfg, weights, SERVE_Q4_LAYERS), reports)
     shift_held(ctx, "qwen3-4b")
     phase_q4_decode_profile(ctx)
     del ctx
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/21] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/22] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
-    phase_gx3_ab(cfg, weights, reports)
+    phase_gx3_ab(*first_layers(cfg, weights, GX3_AB_LAYERS), reports)
     phase_perplexity(cfg, weights)
     torch.cuda.empty_cache()
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/21] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/22] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/21] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
+    header("[10/22] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
            "schema, embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(*first_layers(cfg, weights, SERVER_REST_LAYERS), reports)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[20/21] training, run here on phase 3's qwen3-4b weights: the finetune verb at "
+    header("[20/22] training, run here on phase 3's qwen3-4b weights: the finetune verb at "
            "Qwen3-0.6B's widths as a process; 2 layers with every launch held, the backwards "
-           "and a dense model's AdamW steps card vs CPU; train() at all 36 layers")
+           "and a dense model's AdamW steps card vs CPU; train() at 12 of 36 layers")
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
         phase_training(cfg, weights, reports, peaks, Path(tmp_name))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    header("[21/22] the parallel paths on phase 3's qwen3-4b weights (12 of 36 layers): tp = 2 "
+           "as two shards on cuda:0, held launches and reduces, tp 2 x dp 2 serving, the "
+           "pipeline's perplexity, one NCCL process")
+    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
+        phase_parallel(cfg, weights, reports, Path(tmp_name))
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/21] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/22] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate (6 of 24 layers), serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -8211,7 +8715,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/21] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/22] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -8234,7 +8738,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/21] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/22] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -8249,7 +8753,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/21] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/22] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -8258,13 +8762,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/21, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/22, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/21, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/22, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -8272,7 +8776,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/21] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/22] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA, 9 of 27 layers) and gemma3-4b (12 of 34) at "
            "their published widths")
     t15 = time.perf_counter()
@@ -8285,14 +8789,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/21] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+    header("[16/22] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
            "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/21] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+    header("[17/22] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
            "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
            "cvector, quantize-stats, fit-params")
     t17 = time.perf_counter()
@@ -8303,7 +8807,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
-    header("[18/21] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
+    header("[18/22] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
            "image encodes, generate_with_images, held steps, image parts on the server, a "
            "decode profile; the tower card vs CPU; 2-layer and projector checks; convert-hf "
            "--mmproj and serve --mmproj as processes")
@@ -8314,7 +8818,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
 
-    header("[19/21] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
+    header("[19/22] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
            "32-layer whisper-large-v3-turbo tower): audio encodes, multimodal_prefill, held "
            "steps, audio parts on the server, a decode profile; the tower card vs CPU; "
            "OuteTTS-0.2-500M (24 layers) with the full WavTokenizer: synthesize, held steps, a "
@@ -8326,7 +8830,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
 
-    header("[21/21] summary")
+    header("[22/22] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

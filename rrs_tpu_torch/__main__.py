@@ -16,8 +16,10 @@ lookup with ``--lookup``; ``serve`` takes a draft model and extra routable
 ``tts`` speaks a prompt with an OuteTTS model and a WavTokenizer vocoder
 into a WAV. ``finetune`` trains an f32 model on a text file and writes it
 back to GGUF (a quantized or fused layer refuses to export, as in JAX).
-Flags whose feature is not ported yet (tensor / data / pipeline
-parallelism) raise NotImplementedError naming their ROADMAP item.
+``generate``, ``serve`` and ``bench`` take ``--tp`` / ``--dp`` (a (dp, tp)
+mesh of shards, ``parallel/sharding.py``) and ``--dist-*`` (several
+processes, ``parallel/distributed.py``); ``perplexity --pp`` runs the layer
+split of ``parallel/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import sys
 
 
 def main(argv=None):
+    from rrs_tpu_torch.parallel.distributed import add_parallel_args
+
     p = argparse.ArgumentParser(prog="rrs_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -51,7 +55,7 @@ def main(argv=None):
     g.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                    help="override a GGUF metadata KV (repeatable; "
                         "TYPE in int/float/bool/str)")
-    _parallel_args(g)
+    add_parallel_args(g)
     _device_arg(g)
 
     s = sub.add_parser("serve", help="OpenAI-compatible HTTP server")
@@ -73,7 +77,7 @@ def main(argv=None):
                    help="override a GGUF metadata KV (repeatable)")
     s.add_argument("--slot-save-path", default=None,
                    help="base dir for /slots save/restore")
-    _parallel_args(s)
+    add_parallel_args(s)
     _device_arg(s)
 
     ch = sub.add_parser("chat", help="interactive chat REPL on the serving engine")
@@ -110,11 +114,11 @@ def main(argv=None):
                     help="save this model's tokens + logits for a later "
                          "--kl-divergence-base comparison")
     pp.add_argument("--pp", type=int, default=1, metavar="N",
-                    help="pipeline parallelism (not ported)")
+                    help="pipeline (layer-split) stages for text-file perplexity")
     pp.add_argument("--override-kv", action="append", metavar="KEY=TYPE:VALUE",
                     help="override a GGUF metadata KV (repeatable)")
     pp.add_argument("--pp-micro", type=int, default=2, metavar="M",
-                    help="microbatches per pipeline dispatch (not ported)")
+                    help="microbatches (chunks) per pipeline dispatch")
     _device_arg(pp)
 
     b = sub.add_parser("bench", help="pp/tg throughput sweeps")
@@ -136,7 +140,7 @@ def main(argv=None):
     b.add_argument("--output-format", "-o", default="md",
                    choices=["md", "csv", "json", "jsonl", "sql"])
     b.add_argument("--json", action="store_true", help="shorthand for -o jsonl")
-    _parallel_args(b)
+    add_parallel_args(b)
     _device_arg(b)
 
     bb = sub.add_parser("batched-bench", help="parallel decode throughput grid")
@@ -238,7 +242,6 @@ def main(argv=None):
     _device_arg(ft)
 
     args = p.parse_args(argv)
-    _refuse_unported(args)
     if args.cmd == "generate":
         cmd_generate(args)
     elif args.cmd == "serve":
@@ -306,30 +309,6 @@ def _device_arg(parser) -> None:
                         help="where the model runs (default cuda; no silent CPU fallback)")
 
 
-def _parallel_args(parser) -> None:
-    """The JAX package's mesh and multi-host flags, which wait for ROADMAP A12b."""
-    parser.add_argument("--tp", type=int, default=1, help="tensor parallel (not ported)")
-    parser.add_argument("--dp", type=int, default=1, help="data parallel (not ported)")
-    parser.add_argument("--dist-coordinator", default=None, help="(not ported)")
-    parser.add_argument("--dist-procs", type=int, default=None, help="(not ported)")
-    parser.add_argument("--dist-id", type=int, default=None, help="(not ported)")
-
-
-def _refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature waits for a later
-    slice (ROADMAP queue A)."""
-    get = lambda name, default=None: getattr(args, name, default)   # noqa: E731
-    unported = {
-        "--tp/--dp (ROADMAP A12b)": get("tp", 1) != 1 or get("dp", 1) != 1,
-        "--dist-* (ROADMAP A12b)": any(get(k) is not None
-                                       for k in ("dist_coordinator", "dist_procs", "dist_id")),
-        "perplexity --pp > 1 (ROADMAP A12b)": get("cmd") == "perplexity" and get("pp", 1) > 1,
-    }
-    bad = [k for k, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"{', '.join(bad)}: not ported to rrs_tpu_torch yet")
-
-
 def cmd_finetune(args):
     """The JAX verb (rrs_tpu/__main__.py:303-323): load f32 and unfused,
     encode the file with its special tokens, train, print each step's loss,
@@ -365,11 +344,17 @@ def cmd_generate(args):
     from rrs_tpu_torch.runtime.recurrent import make_context
     from rrs_tpu_torch.runtime.sampler import SamplerParams
 
-    cfg, weights, md = load_model(args.model, device=args.device,
+    from rrs_tpu_torch.parallel.distributed import lanes_for, maybe_initialize, mesh_from_args
+
+    maybe_initialize(args)
+    mesh = mesh_from_args(args)
+    # a mesh shards the projections per head and per FFN column: unfused
+    cfg, weights, md = load_model(args.model, device=args.device, fuse=mesh is None,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
-    ctx = make_context(cfg, weights, n_lanes=1, max_seq=args.ctx, kv_quant=args.cache_type,
-                       device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=lanes_for(1, mesh), max_seq=args.ctx,
+                       kv_quant=args.cache_type, device=args.device, mesh=mesh)
+    del weights
     tokens = vocab.encode(args.prompt, add_special=not args.no_bos)
     params = SamplerParams(temperature=args.temp, top_k=args.top_k, top_p=args.top_p,
                            seed=args.seed)
@@ -410,6 +395,23 @@ def cmd_perplexity(args):
     from rrs_tpu_torch.runtime.context import InferenceContext
     from rrs_tpu_torch.tools import perplexity as ppl
 
+    if args.pp > 1:
+        from rrs_tpu_torch.parallel.pipeline import make_pp_mesh
+
+        if not args.file:
+            raise SystemExit("--pp supports text-file perplexity only")
+        mesh = make_pp_mesh(args.pp, device=args.device)
+        cfg, weights, md = load_model(args.model, device=args.device,
+                                      overrides=parse_kv_overrides(args.override_kv))
+        vocab = Vocab.from_gguf(md)
+        with open(args.file, encoding="utf-8") as f:
+            tokens = vocab.encode(f.read(), add_special=False)
+        if args.max_chunks:
+            tokens = tokens[: args.max_chunks * args.n_ctx]
+        res = ppl.compute_perplexity_pp(cfg, weights, tokens, mesh, n_ctx=args.n_ctx,
+                                        n_micro=args.pp_micro, progress=True)
+        print(f"Final PPL = {res.ppl:.4f} over {res.n_tokens} tokens (pp={args.pp})")
+        return
     cfg, weights, md = load_model(args.model, device=args.device,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -52,7 +53,9 @@ SIGNATURES = {
 }
 
 # Launch counts per kernel wrapper: a wrapper adds one where it launches its
-# kernel and nowhere else (the plain CPU versions launch nothing).
+# kernel and nowhere else (the plain CPU versions launch nothing). The shards
+# of a tensor-parallel mesh launch from threads of their own, so the counts
+# move under a lock.
 LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul_i8p": 0,
                             "q8_matmul": 0, "flash_attention": 0, "flash_attention_q8": 0,
                             "flash_attention_q4hp": 0, "flash_attention_q4": 0,
@@ -63,6 +66,9 @@ LAUNCHES: dict[str, int] = {"tcq4_matmul_gx2": 0, "tcq4_matmul": 0, "tcq4_matmul
                             "tcq4_matmul_experts": 0, "tcq4_matmul_pb": 0,
                             "tcq4_matmul_fused": 0}
 
+_LAUNCH_LOCK = threading.Lock()
+# per-thread counts, where a thread asked for them (``count_thread_launches``)
+_THREAD = threading.local()
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -144,7 +150,17 @@ def check(name: str, code: int) -> None:
         raise ValueError(f"{name}: arguments refused by the kernel launcher")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
-    LAUNCHES[name] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    mine = getattr(_THREAD, "launches", None)
+    if mine is not None:
+        mine[name] = mine.get(name, 0) + 1
+
+
+def count_thread_launches(into: Optional[dict]) -> None:
+    """From now on, also count this thread's launches into ``into`` (None
+    stops); a mesh shard's thread counts its own this way."""
+    _THREAD.launches = into
 
 
 def check_tensors(name: str, *tensors) -> "torch.device":
@@ -180,8 +196,9 @@ def refuse_grad(name: str, *tensors) -> None:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def stream_ptr(device) -> int:

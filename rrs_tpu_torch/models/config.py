@@ -122,6 +122,11 @@ class ModelConfig:
     # the plain attention instead of the flash kernels, on the card too:
     # training sets it (train/finetune.py), as the JAX package's does
     ref_attention: bool = False
+    # set only on a tensor-parallel shard's local config
+    # (parallel/sharding.py ``_local_cfg``): the shard's handle on its row's
+    # collectives, over which the row-parallel products (wo, ffn_down, the
+    # dense experts) sum, as JAX's mesh axis name does
+    tp_axis: Any = None
 
     @property
     def n_q_dim(self) -> int:

@@ -391,11 +391,14 @@ def _dense_matmul(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x2.to(torch.float32), w.to(torch.float32))
 
 
-def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
+def linear_apply(layer, x: torch.Tensor, reduce_axis=None) -> torch.Tensor:
     """y = x @ W^T (+ bias). x: [..., K] -> [..., N], in x's dtype. A
     ``LoraLinear`` runs its base on the base's route and adds its low-rank
     delta to the (logical-width) f32 product before the bias, as
-    rrs_tpu/models/linear.py:447-488 does."""
+    rrs_tpu/models/linear.py:447-488 does. ``reduce_axis`` (a row-parallel
+    shard's ``cfg.tp_axis``): the partial products are summed over the tp
+    shards in f32 before the bias and the output cast, so that sharded and
+    single-device runs round alike (rrs_tpu/models/linear.py:489-494)."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
@@ -432,6 +435,8 @@ def linear_apply(layer, x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"unknown linear layer {type(layer)}")
     if lora is not None:
         y = apply_lora_delta(lora, x2, y)
+    if reduce_axis is not None:
+        y = reduce_axis.all_reduce(y.to(torch.float32))
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
     y = y.to(x.dtype)

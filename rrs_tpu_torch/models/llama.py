@@ -282,7 +282,7 @@ def attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
                  sinks=lw.attn_sinks, softcap=cfg.attn_softcap, ref=cfg.ref_attention)
     ctx = ctx.reshape(b, t, cfg.n_heads * d).to(x.dtype)
     _capture(cap, li, "attn_output.weight", ctx)
-    return linear_apply(lw.wo, ctx)
+    return linear_apply(lw.wo, ctx, reduce_axis=cfg.tp_axis)
 
 
 def _mla_mm(eq: str, a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
@@ -356,7 +356,7 @@ def mla_attention(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor,
     ctx = mla_attend(q_full, k_cache, v_cache, mask_positions, mla_kq_scale(cfg))
     out_v = _mla_mm("bthr,hrv->bthv", ctx, lw.wv_b, x.dtype).reshape(b, t, h * cfg.v_head_dim)
     _capture(cap, li, "attn_output.weight", out_v)
-    return linear_apply(lw.wo, out_v)
+    return linear_apply(lw.wo, out_v, reduce_axis=cfg.tp_axis)
 
 
 def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
@@ -374,7 +374,7 @@ def ffn(cfg: ModelConfig, lw: LayerWeights, x: torch.Tensor, cap=None,
     act_fn = gelu_tanh if cfg.ffn_act == "gelu" else torch.nn.functional.silu
     act = act_fn(gate.to(torch.float32)).to(x.dtype) * up
     _capture(cap, li, "ffn_down.weight", act)
-    return linear_apply(lw.w_down, act)
+    return linear_apply(lw.w_down, act, reduce_axis=cfg.tp_axis)
 
 
 def forward(cfg: ModelConfig, w: ModelWeights, tokens, positions, k_caches: list,
@@ -596,6 +596,42 @@ def fabricated_tcq4_weights(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat1
     lm_s = torch.rand((e // 32, n_pad), generator=gen, device=dev) * 1e-3
     return ModelWeights(embed=embed, layers=layers, final_norm=ones(e),
                         lm_head=Q8Linear(q=lm_q, scale=lm_s, n_logical=cfg.vocab_size))
+
+
+def _columns(lin, a: int, b: int):
+    """Columns [a, b) of a linear, contiguous (every array of each type is
+    per-column: codes, scales, the i8p pack, the bias)."""
+    cut = lambda t: None if t is None else t[..., a:b].contiguous()   # noqa: E731
+    if isinstance(lin, DenseLinear):
+        return DenseLinear(w=cut(lin.w), bias=cut(lin.bias))
+    if isinstance(lin, TCQ4Linear):
+        return TCQ4Linear(qs=cut(lin.qs), eff=cut(lin.eff), gather=lin.gather, bias=cut(lin.bias),
+                          i8p=None if lin.i8p is None else tuple(cut(x) for x in lin.i8p))
+    if isinstance(lin, Q8Linear):
+        return Q8Linear(q=cut(lin.q), scale=cut(lin.scale), bias=cut(lin.bias),
+                        k_logical=lin.k_logical)
+    if isinstance(lin, MXFP4Linear):
+        return MXFP4Linear(qs=cut(lin.qs), scale=cut(lin.scale), bias=cut(lin.bias))
+    raise TypeError(f"cannot split a {type(lin).__name__}")
+
+
+def unfused(cfg: ModelConfig, w: ModelWeights) -> ModelWeights:
+    """The weights with each fused qkv / gate-up linear split back into q, k,
+    v and gate, up (copies of its column ranges), as a tensor-parallel mesh
+    needs them; the same products, column for column."""
+    layers = []
+    for lw in w.layers:
+        upd = {}
+        if lw.wqkv is not None:
+            nq, nkv = cfg.n_q_dim, cfg.n_kv_dim
+            upd.update(wqkv=None, wq=_columns(lw.wqkv, 0, nq),
+                       wk=_columns(lw.wqkv, nq, nq + nkv),
+                       wv=_columns(lw.wqkv, nq + nkv, nq + 2 * nkv))
+        if lw.w_gateup is not None:
+            upd.update(w_gateup=None, w_gate=_columns(lw.w_gateup, 0, cfg.n_ff),
+                       w_up=_columns(lw.w_gateup, cfg.n_ff, 2 * cfg.n_ff))
+        layers.append(dataclasses.replace(lw, **upd))
+    return dataclasses.replace(w, layers=layers)
 
 
 def fabricated_mla_weights(cfg: ModelConfig, seed: int = 0, device=None,

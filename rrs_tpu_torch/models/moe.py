@@ -340,6 +340,9 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
         out = _packed_ffn(cfg, mw, x2, topi, topv)
     else:
         out = _dense_ffn(cfg, mw, x2, topi, topv, x.dtype)
+    if cfg.tp_axis is not None and not mw.quantized:
+        # dense stacks split on F over tp: the routed output is a partial sum
+        out = cfg.tp_axis.all_reduce(out)
     if mw.down_b is not None:
         # the per-expert down bias, once after the combine, weighted by topv
         out = out + (mw.down_b[topi] * topv[..., None]).sum(1)
@@ -348,5 +351,8 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
         g = _dense_matmul(x2, mw.shared_gate)
         u = _dense_matmul(x2, mw.shared_up)
         act = (torch.nn.functional.silu(g) * u).to(x.dtype)
-        out = out + _dense_matmul(act, mw.shared_down)
+        shared = _dense_matmul(act, mw.shared_down)
+        if cfg.tp_axis is not None:
+            shared = cfg.tp_axis.all_reduce(shared)
+        out = out + shared
     return out.reshape(b, t, e).to(x.dtype)

@@ -1,10 +1,10 @@
 """Inference context: the prefill / decode loop and the serving decode runs.
 
-Port of the single-device part of ``rrs_tpu/runtime/context.py``
-(``PREFILL_BUCKETS``, ``_step``, ``_run``, ``new_sequence``, ``prefill``,
-``prefill_logprobs``, ``prefill_multi``, ``decode``, the device-side
-``decode_run_start`` / ``decode_run`` with their penalty operands and
-eviction schedule, ``generate``, ``perf``). PyTorch runs eagerly, so the
+Port of ``rrs_tpu/runtime/context.py`` (``PREFILL_BUCKETS``, ``_step``,
+``_run``, ``new_sequence``, ``prefill``, ``prefill_logprobs``,
+``prefill_multi``, ``decode``, the device-side ``decode_run_start`` /
+``decode_run`` with their penalty operands and eviction schedule,
+``generate``, ``perf``, the mesh). PyTorch runs eagerly, so the
 bucketed chunk lengths no longer pick a compiled program; they are kept so
 that every matmul sees the M the JAX package gives it and routes to the same
 kernel.
@@ -22,10 +22,16 @@ lane's illegal tokens and steps the lane's DFA state on the device.
 token embedding, with Qwen2-VL's [T, 3] M-RoPE rows when given the chunk's
 merged grid. Whenever a lane's RoPE positions leave its slots (``seq_div``'s
 ``slot_pos`` or an M-RoPE delta), every step feeds absolute positions per
-row (``_pos_rows``); the mask and the cache slots stay slot-derived. The mesh
-waits for its slice. ``ContextBase`` holds what this context shares with the
-recurrent and hybrid ones (the device check, sequence ids, perf counters,
-the host penalty window, ``generate``).
+row (``_pos_rows``); the mask and the cache slots stay slot-derived.
+
+With a ``mesh`` (``parallel/sharding.py``; --tp / --dp) the weights split
+over the shards (heads and FFN over tp) and the cache over their rows (lanes
+over dp, kv heads over tp; ``ShardedKVCache``); every step runs the forward
+on all shards at once (``ShardedModel.forward``), and the rows' gathered
+logits come back stacked on the lane axis, so the sampler and everything
+after it run as they do on one device. ``ContextBase`` holds what this
+context shares with the recurrent and hybrid ones (the device check,
+sequence ids, perf counters, the host penalty window, ``generate``).
 """
 
 from __future__ import annotations
@@ -42,10 +48,23 @@ from rrs_tpu_torch.models import llama as llama_model
 from rrs_tpu_torch.models.config import ModelConfig
 from rrs_tpu_torch.ops.basic import rms_norm
 from rrs_tpu_torch.runtime import sampler as smp
-from rrs_tpu_torch.runtime.kv_cache import KVCache
+from rrs_tpu_torch.runtime.kv_cache import KVCache, ShardedKVCache
 from rrs_tpu_torch.runtime.sampler import SamplerParams, sample
 
 PREFILL_BUCKETS = (16, 64, 256, 512, 1024, 2048)
+
+
+def step_inputs(tokens: np.ndarray, start_pos: np.ndarray, s: int):
+    """The host arrays of one step, as the JAX step builds them: positions
+    start + i, mask positions (-1 for a lane not in the step), tokens with
+    padding at 0, and each lane's first slot (-1 for a lane not in it)."""
+    b, t = tokens.shape
+    pos = start_pos[:, None].astype(np.int32) + np.arange(t, dtype=np.int32)[None, :]
+    mask_pos = np.where(start_pos[:, None] < 0, -1, pos).astype(np.int32)
+    safe_tokens = np.maximum(tokens, 0).astype(np.int64)
+    slots = [int(min(max(p, 0), s - 1)) if st >= 0 else -1
+             for p, st in zip(pos[:, 0], start_pos)]
+    return safe_tokens, pos, mask_pos, slots
 
 
 def _bucket(n: int) -> int:
@@ -153,20 +172,48 @@ class InferenceContext(ContextBase):
 
     def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights,
                  n_lanes: int = 1, max_seq: int = 2048, kv_dtype=torch.bfloat16,
-                 kv_quant: str = "none", device=None):
-        """``device``: as ``ContextBase`` takes it. ``kv_quant``: "none"
-        (``kv_dtype`` caches), "q8" or "q4"."""
+                 kv_quant: str = "none", device=None, mesh=None):
+        """``device``: as ``ContextBase`` takes it (with a mesh, default its
+        first shard's). ``kv_quant``: "none" (``kv_dtype`` caches), "q8" or
+        "q4". ``mesh``: a ``parallel.sharding.Mesh`` to shard the model and
+        the cache over (unfused weights; n_lanes a multiple of dp); the
+        context then holds only the shards' weights."""
+        if mesh is not None and device is None:
+            device = next(d for d in mesh.devices if d is not None)
         super().__init__(cfg, weights, device)
         # a ring must cover the largest chunk: models with sliding layers
         # cap it at 512 so that their rings stay window + 512 slots
         self.max_chunk = min(512 if cfg.any_swa else PREFILL_BUCKETS[-1], max_seq)
-        self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
-                                 quant=kv_quant, max_chunk=self.max_chunk)
+        self.mesh = mesh
+        self.sharded = None
+        if mesh is None:
+            self.kv = KVCache.create(cfg, n_lanes, max_seq, kv_dtype, device=weights.device,
+                                     quant=kv_quant, max_chunk=self.max_chunk)
+            return
+        from rrs_tpu_torch.parallel.sharding import ShardedModel
 
-    @staticmethod
-    def _step(cfg, weights, kv: KVCache, tokens: np.ndarray, start_pos: np.ndarray,
-              last_only: bool = False, last_idx: Optional[np.ndarray] = None,
-              pos_row: Optional[np.ndarray] = None, embeds=None) -> torch.Tensor:
+        if n_lanes % mesh.dp:
+            raise ValueError(f"n_lanes={n_lanes} must be divisible by dp={mesh.dp}")
+        self.sharded = ShardedModel(cfg, weights, mesh)
+        self.weights = None
+        self.kv = ShardedKVCache.create_sharded(cfg, n_lanes, max_seq, mesh, kv_dtype,
+                                                quant=kv_quant, max_chunk=self.max_chunk)
+
+    def _forward(self, tokens, positions, mask_positions, slots: list, last_idx=None,
+                 embeds=None) -> torch.Tensor:
+        """``llama.forward`` over this context's cache, on one device or on
+        the mesh's shards; ``slots``: each lane's first cache slot (-1 for a
+        lane not in the step)."""
+        if self.sharded is not None:
+            return self.sharded.forward(self.kv.parts, tokens, positions, mask_positions,
+                                        last_idx=last_idx, slots=slots, embeds=embeds)
+        return llama_model.forward(self.cfg, self.weights, tokens, positions, self.kv.k,
+                                   self.kv.v, mask_positions, None, last_idx=last_idx,
+                                   slots=slots, embeds=embeds)
+
+    def _step(self, tokens: np.ndarray, start_pos: np.ndarray, last_only: bool = False,
+              last_idx: Optional[np.ndarray] = None, pos_row: Optional[np.ndarray] = None,
+              embeds=None) -> torch.Tensor:
         """tokens [B, T] (-1 = padding); start_pos [B] (-1 = lane not in this
         step). Builds the causal positions and cache slots on the host and
         runs the forward; padded lanes attend nothing and park their cache
@@ -176,18 +223,13 @@ class InferenceContext(ContextBase):
         they leave the slots; ``embeds`` [B, T, E]: raw input embeddings in
         place of the tokens'."""
         b, t = tokens.shape
-        s = kv.max_seq
-        pos = start_pos[:, None].astype(np.int32) + np.arange(t, dtype=np.int32)[None, :]
-        mask_pos = np.where(start_pos[:, None] < 0, -1, pos).astype(np.int32)
-        safe_tokens = np.maximum(tokens, 0).astype(np.int64)
-        safe_slots = np.where(start_pos[:, None] < 0, s - 1, np.clip(pos, 0, s - 1))
+        toks, pos, mask_pos, slots = step_inputs(tokens, start_pos, self.kv.max_seq)
         if last_only and last_idx is None:
             last_idx = np.full((b,), t - 1, np.int64)
-        return llama_model.forward(
-            cfg, weights, torch.from_numpy(safe_tokens),
-            torch.from_numpy(pos if pos_row is None else pos_row),
-            kv.k, kv.v, torch.from_numpy(mask_pos), torch.from_numpy(safe_slots),
-            last_idx=last_idx, embeds=embeds)
+        return self._forward(torch.from_numpy(toks),
+                             torch.from_numpy(pos if pos_row is None else pos_row),
+                             torch.from_numpy(mask_pos), slots, last_idx=last_idx,
+                             embeds=embeds)
 
     def _pos_rows(self, start_pos_np: np.ndarray, t: int) -> Optional[np.ndarray]:
         """[B, t] absolute RoPE positions when some lane's positions leave
@@ -202,8 +244,7 @@ class InferenceContext(ContextBase):
 
     def _run(self, tokens_np: np.ndarray, start_pos_np: np.ndarray, last_only: bool = False,
              last_idx: Optional[np.ndarray] = None) -> torch.Tensor:
-        return self._step(self.cfg, self.weights, self.kv, tokens_np, start_pos_np,
-                          last_only=last_only, last_idx=last_idx,
+        return self._step(tokens_np, start_pos_np, last_only=last_only, last_idx=last_idx,
                           pos_row=self._pos_rows(start_pos_np, tokens_np.shape[1]))
 
     @torch.inference_mode()
@@ -326,8 +367,8 @@ class InferenceContext(ContextBase):
         else:
             pos_row = self._pos_rows(start, t)
         t0 = time.perf_counter()
-        logits = self._step(self.cfg, self.weights, self.kv, np.zeros((b, t), np.int32), start,
-                            pos_row=pos_row, embeds=emb)[lane]
+        logits = self._step(np.zeros((b, t), np.int32), start, pos_row=pos_row,
+                            embeds=emb)[lane]
         self._sync()
         self.t_prefill_s += time.perf_counter() - t0
         self.kv.lengths[lane] += t
@@ -431,9 +472,7 @@ class InferenceContext(ContextBase):
         out, cvs, cis = [], [], []
         for i in range(n):
             pcol = pos_dev[i][:, None]
-            logits = llama_model.forward(self.cfg, self.weights, tok[:, None], pcol,
-                                         self.kv.k, self.kv.v, pcol, None,
-                                         slots=[int(p) for p in pos[i]])
+            logits = self._forward(tok[:, None], pcol, pcol, [int(p) for p in pos[i]])
             lg = smp.device_penalties(logits[:, 0, :].to(torch.float32), counts, ops["rep"],
                                       ops["frq"], ops["prs"], ops["bias"])
             if xtc:
@@ -596,15 +635,24 @@ class InferenceContext(ContextBase):
         pooling. Returns f32 [E] on the host. The layers are the forward's
         own (``llama.layer``), embedding scale, sandwich norms, post-norms
         and residual scale included, where the JAX package's ``hidden``
-        skips them (ROADMAP queue C)."""
-        cfg, w = self.cfg, self.weights
-        t = len(tokens)
-        ks, vs = llama_model.scratch_caches(cfg, 1, t, device=self.device)
-        pos = torch.arange(t, dtype=torch.int32, device=self.device)[None, :]
-        x = llama_model.embed_tokens(
-            cfg, w, torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)[None, :])
-        for li, lw in enumerate(w.layers):
-            x = llama_model.layer(cfg, w, lw, x, pos, ks[li], vs[li], pos, [0], li)
-        hs = rms_norm(x, w.final_norm, cfg.rms_eps)[0].to(torch.float32)
+        skips them (ROADMAP queue C). On a mesh every shard runs it with its
+        local config; the hidden states are whole on each."""
+        if self.sharded is not None:
+            hs = self.sharded.run(lambda sh: self._hidden(sh.cfg, sh.weights, tokens,
+                                                          sh.device))[0]
+        else:
+            hs = self._hidden(self.cfg, self.weights, tokens, self.device)
         vec = hs[-1] if pooling == "last" else hs.mean(dim=0)
         return vec.cpu().numpy()
+
+    @staticmethod
+    def _hidden(cfg, w, tokens: list[int], device) -> torch.Tensor:
+        """The final-normed hidden states [T, E] f32 of a standalone forward."""
+        t = len(tokens)
+        ks, vs = llama_model.scratch_caches(cfg, 1, t, device=device)
+        pos = torch.arange(t, dtype=torch.int32, device=device)[None, :]
+        x = llama_model.embed_tokens(
+            cfg, w, torch.as_tensor(np.asarray(tokens, np.int64), device=device)[None, :])
+        for li, lw in enumerate(w.layers):
+            x = llama_model.layer(cfg, w, lw, x, pos, ks[li], vs[li], pos, [0], li)
+        return rms_norm(x, w.final_norm, cfg.rms_eps)[0].to(torch.float32)

@@ -21,8 +21,13 @@ The position rows: a lane's RoPE positions are its slots unless ``seq_div``
 (self-extend) remapped them (``slot_pos``) or a Qwen2-VL image chunk left an
 M-RoPE text-position delta (``mrope_delta``, set by ``mrope_begin_image``);
 ``positions_row`` / ``pos_offset`` read them for the context's ``pos_row``
-feed. The causal mask and the ring slots stay slot-derived. Tensor-parallel
-head sharding waits for its slice.
+feed. The causal mask and the ring slots stay slot-derived.
+
+Under tensor / data parallelism (``parallel/sharding.py``) a
+``ShardedKVCache`` keeps the lane state once and a (dp, tp) grid of caches,
+one a shard (``create(tp=)``: the local kv heads; an MLA latent row stays
+whole on every tp shard), each holding its dp row's lanes on the shard's
+device. The lane operations reach every shard of the lane's row.
 """
 
 from __future__ import annotations
@@ -67,10 +72,13 @@ class KVCache:
     @classmethod
     def create(cls, cfg: ModelConfig, n_lanes: int, max_seq: int,
                dtype=torch.bfloat16, device="cpu", quant: str = "none",
-               max_chunk: int = 512) -> "KVCache":
+               max_chunk: int = 512, tp: int = 1) -> "KVCache":
         """``max_chunk``: the largest step the context runs; a ring must hold
-        window + T - 1 slots for every attended slot to survive a T-row step."""
-        hkv = cfg.kv_cache_heads
+        window + T - 1 slots for every attended slot to survive a T-row step.
+        ``tp``: one tensor-parallel shard's cache, of n_kv_heads / tp heads
+        (an MLA model's one latent head whole); q4 then packs head pairs when
+        the local head count is even, as JAX's (Hkv / 2) % tp test does."""
+        hkv = cfg.kv_cache_heads if cfg.is_mla else cfg.kv_cache_heads // tp
         sizes = [min(max_seq, -(-(cfg.swa_window + max_chunk) // 128) * 128)
                  if cfg.is_swa(li) else max_seq for li in range(cfg.n_layers)]
 
@@ -150,12 +158,20 @@ class KVCache:
         else:
             self.lengths[lane] = min(self.lengths[lane], p0)
 
+    def _lane_caches(self, lane: int) -> list:
+        """(k, v, index) of every layer cache holding ``lane``, the lane's
+        index in that cache."""
+        return [(k, v, lane) for k, v in zip(self.k, self.v)]
+
+    def _copy_lane(self, src: int, dst: int) -> None:
+        for c in self.tensors():
+            c[dst].copy_(c[src])
+
     def seq_cp(self, src_seq: int, dst_seq: int) -> None:
         """Fork a sequence into a fresh lane (whole-lane copy, in place)."""
         src = self.lane_of(src_seq)
         dst = self.seq_new(dst_seq)
-        for c in self.tensors():
-            c[dst].copy_(c[src])
+        self._copy_lane(src, dst)
         self.lengths[dst] = self.lengths[src]
         if src in self.slot_pos:
             self.slot_pos[dst] = self.slot_pos[src].copy()
@@ -200,31 +216,31 @@ class KVCache:
                                      rot_dim=cfg.qk_rope_dim)
         else:
             rp = rope_params(cfg)
-        dev = self.tensors()[0].device
-        delta = torch.full((1, 1), -n_discard, dtype=torch.int32, device=dev)
-        keep = torch.arange(self.max_seq, device=dev)[None, :, None] < n_keep   # [1, S, 1]
 
         def roll(x):                                    # [H, S, ...] lane tensor, slots dim 1
+            keep = torch.arange(self.max_seq, device=x.device) < n_keep
             return torch.where(keep.reshape((1, -1) + (1,) * (x.dim() - 2)), x,
                                torch.roll(x, -n_discard, dims=1))
 
         def shift_k(lk):                                # [H, S, D] -> f32 rolled + rotated
+            delta = torch.full((1, 1), -n_discard, dtype=torch.int32, device=lk.device)
+            keep = torch.arange(self.max_seq, device=lk.device)[None, :, None] < n_keep
             tail = torch.roll(lk, -n_discard, dims=1)
             rk = apply_rope(tail.transpose(0, 1)[None], delta, rp)[0].transpose(0, 1)
             return torch.where(keep, lk, rk)
 
-        for k, v in zip(self.k, self.v):
+        for k, v, ll in self._lane_caches(lane):
             if isinstance(k, tuple):
                 (arr, sc), (varr, vsc) = k, v
-                lk = kv_codec.dequantize(arr[lane], sc[lane])           # [H, S, D] f32
+                lk = kv_codec.dequantize(arr[ll], sc[ll])           # [H, S, D] f32
                 q, s_new = kv_codec.quantize_rows(shift_k(lk), kv_codec.kv_qmax(arr))
-                arr[lane] = kv_codec.pack_like(q, arr[lane], sc[lane])
-                sc[lane, :, 0] = s_new
-                varr[lane] = roll(varr[lane])
-                vsc[lane, :, 0] = roll(vsc[lane, :, 0])
+                arr[ll] = kv_codec.pack_like(q, arr[ll], sc[ll])
+                sc[ll, :, 0] = s_new
+                varr[ll] = roll(varr[ll])
+                vsc[ll, :, 0] = roll(vsc[ll, :, 0])
                 continue
-            k[lane] = shift_k(k[lane]).to(k.dtype)
-            v[lane] = roll(v[lane])
+            k[ll] = shift_k(k[ll]).to(k.dtype)
+            v[ll] = roll(v[ll])
         self.lengths[lane] = n - n_discard
 
     def positions_row(self, lane: int, start: int, t: int):
@@ -307,21 +323,83 @@ class KVCache:
                                      rot_dim=cfg.qk_rope_dim)
         else:
             rp = rope_params(cfg)
-        dev = self.tensors()[0].device
         angles, mscale = rope_angles(torch.from_numpy(delta_np)[None, :], rp)      # [1, S, rot/2]
-        cos = (torch.cos(angles) * mscale).to(dev)
-        sin = (torch.sin(angles) * mscale).to(dev)
+        cos = torch.cos(angles) * mscale
+        sin = torch.sin(angles) * mscale
 
         def rotate(lk):                                  # [H, S, D] -> f32 rotated
-            return rotate_cos_sin(lk.to(torch.float32).transpose(0, 1)[None], cos, sin,
+            return rotate_cos_sin(lk.to(torch.float32).transpose(0, 1)[None],
+                                  cos.to(lk.device), sin.to(lk.device),
                                   rp.rot_dim or rp.head_dim, rp.neox)[0].transpose(0, 1)
 
-        for k in self.k:
+        for k, _, ll in self._lane_caches(lane):
             if isinstance(k, tuple):
                 arr, sc = k
                 q, s_new = kv_codec.quantize_rows(
-                    rotate(kv_codec.dequantize(arr[lane], sc[lane])), kv_codec.kv_qmax(arr))
-                arr[lane] = kv_codec.pack_like(q, arr[lane], sc[lane])
-                sc[lane, :, 0] = s_new
+                    rotate(kv_codec.dequantize(arr[ll], sc[ll])), kv_codec.kv_qmax(arr))
+                arr[ll] = kv_codec.pack_like(q, arr[ll], sc[ll])
+                sc[ll, :, 0] = s_new
                 continue
-            k[lane] = rotate(k[lane]).to(k.dtype)
+            k[ll] = rotate(k[ll]).to(k.dtype)
+
+
+@dataclasses.dataclass
+class ShardedKVCache(KVCache):
+    """The lane state of a cache over a (dp, tp) mesh, and ``parts[d][r]``,
+    the ``KVCache`` of shard (d, r): the lanes of dp row d, tp rank r's kv
+    heads, on the shard's device (None for another process's shard). ``k``
+    and ``v`` stay empty: the forward takes each shard's part."""
+
+    parts: list = dataclasses.field(default_factory=list)
+    dp: int = 1
+
+    @classmethod
+    def create_sharded(cls, cfg: ModelConfig, n_lanes: int, max_seq: int, mesh,
+                       dtype=torch.bfloat16, quant: str = "none",
+                       max_chunk: int = 512) -> "ShardedKVCache":
+        if n_lanes % mesh.dp:
+            raise ValueError(f"n_lanes={n_lanes} must be divisible by dp={mesh.dp}")
+        parts = [[None] * mesh.tp for _ in range(mesh.dp)]
+        sizes = []
+        for d, r in mesh.local():
+            part = KVCache.create(cfg, n_lanes // mesh.dp, max_seq, dtype,
+                                  device=mesh.device(d, r), quant=quant, max_chunk=max_chunk,
+                                  tp=mesh.tp)
+            parts[d][r] = part
+            sizes = part.sizes
+        return cls(k=[], v=[], max_seq=max_seq, lengths=[0] * n_lanes,
+                   seq_ids=[None] * n_lanes, sizes=sizes, parts=parts, dp=mesh.dp)
+
+    def _local_parts(self):
+        return [p for row in self.parts for p in row if p is not None]
+
+    @property
+    def quantized(self) -> bool:
+        return self._local_parts()[0].quantized
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.lengths)
+
+    def tensors(self) -> list:
+        return [t for p in self._local_parts() for t in p.tensors()]
+
+    def _where(self, lane: int):
+        """(dp row, index in the row's parts) of a lane."""
+        return divmod(lane, self.n_lanes // self.dp)
+
+    def _lane_caches(self, lane: int) -> list:
+        d, ll = self._where(lane)
+        return [(k, v, ll) for p in self.parts[d] if p is not None
+                for k, v in zip(p.k, p.v)]
+
+    def _copy_lane(self, src: int, dst: int) -> None:
+        (ds, ls), (dd, ld) = self._where(src), self._where(dst)
+        for ps, pd in zip(self.parts[ds], self.parts[dd]):
+            if ps is None and pd is None:
+                continue
+            if ps is None or pd is None:
+                raise NotImplementedError(
+                    "seq_cp between dp rows held by different processes")
+            for a, b in zip(ps.tensors(), pd.tensors()):
+                b[ld].copy_(a[ls])

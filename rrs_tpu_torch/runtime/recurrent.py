@@ -239,7 +239,13 @@ def make_context(cfg: ModelConfig, weights, **kw):
     """The context for ``cfg``'s memory: hybrid (jamba), recurrent (Mamba,
     RWKV6) or attention (``InferenceContext``), as llama_model::create_memory
     picks it. ``kw``: the contexts' own arguments (n_lanes, max_seq,
-    kv_dtype, kv_quant, device)."""
+    kv_dtype, kv_quant, device, and ``mesh``, which the recurrent and hybrid
+    contexts refuse, as rrs_tpu/runtime/recurrent.py:251-254 does)."""
+    if cfg.is_hybrid or cfg.is_recurrent:
+        if kw.get("mesh") is not None:
+            raise NotImplementedError(
+                "--tp/--dp is not yet supported for recurrent/hybrid models")
+        kw.pop("mesh", None)
     if cfg.is_hybrid:
         from rrs_tpu_torch.runtime.hybrid import HybridContext
 

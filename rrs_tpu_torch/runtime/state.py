@@ -110,12 +110,15 @@ def _store_host(c, index, data: np.ndarray) -> None:
 
 def _kv_of(ctx):
     """The context's KV cache; a recurrent or hybrid memory raises."""
-    from rrs_tpu_torch.runtime.kv_cache import KVCache
+    from rrs_tpu_torch.runtime.kv_cache import KVCache, ShardedKVCache
 
     if not isinstance(ctx.kv, KVCache):
         raise NotImplementedError(
             f"state save / restore of a {ctx.cfg.arch} context: a recurrent or hybrid memory "
             "has no state file format (nor has the JAX package's)")
+    if isinstance(ctx.kv, ShardedKVCache):
+        raise NotImplementedError(
+            "state save / restore of a tensor / data parallel (--tp / --dp) context")
     return ctx.kv
 
 

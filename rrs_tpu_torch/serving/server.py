@@ -790,17 +790,24 @@ def load_towers(path: str, device=None):
 
 
 def serve(args):
-    """``python -m rrs_tpu_torch serve``: load the GGUF on ``args.device``,
-    start the engine and serve HTTP until interrupted."""
+    """``python -m rrs_tpu_torch serve``: load the GGUF on ``args.device``
+    (over a tensor / data parallel mesh with ``--tp`` / ``--dp``), start the
+    engine and serve HTTP until interrupted."""
     from rrs_tpu_torch.models.loader import load_model, parse_kv_overrides
     from rrs_tpu_torch.models.vocab import Vocab
+    from rrs_tpu_torch.parallel.distributed import lanes_for, maybe_initialize, mesh_from_args
     from rrs_tpu_torch.runtime.recurrent import make_context
 
-    cfg, weights, md = load_model(args.model, device=args.device,
+    maybe_initialize(args)
+    mesh = mesh_from_args(args)
+    cfg, weights, md = load_model(args.model, device=args.device, fuse=mesh is None,
                                   overrides=parse_kv_overrides(args.override_kv))
     vocab = Vocab.from_gguf(md)
-    ctx = make_context(cfg, weights, n_lanes=args.parallel, max_seq=args.ctx,
-                       kv_quant=args.cache_type, device=args.device)
+    ctx = make_context(cfg, weights, n_lanes=lanes_for(args.parallel, mesh), max_seq=args.ctx,
+                       kv_quant=args.cache_type, device=args.device, mesh=mesh)
+    del weights
+    if mesh is not None:
+        print(f"tensor/data parallel over mesh {mesh.shape}", flush=True)
     draft_ctx = None
     if args.model_draft:
         dcfg, dweights, _ = load_model(args.model_draft, device=args.device)

@@ -11,8 +11,10 @@ differ from the rep before. On the card each rep is timed with CUDA events
 after a synchronize (``tools/timing.py``), on the CPU with the host clock.
 ``--ctk`` / ``--ctv`` ``bf16`` and ``f16`` both mean a bf16 cache (as the JAX
 ``_kv_maker`` has it), ``q8_0`` and ``q4_0`` the port's q8 and q4 layouts
-(``runtime/kv_cache.py``). Tensor and data parallelism (``--tp/--dp``) wait
-for ROADMAP A12; the CLI refuses them.
+(``runtime/kv_cache.py``). ``--tp`` / ``--dp`` run each test over a mesh of
+shards (``parallel/sharding.py``; the forward and ``ShardedModel.
+decode_scan`` on every shard, a fused model split back per projection); the
+``tensor_split`` column then reads ``tp<N>/dp<M>``.
 """
 
 from __future__ import annotations
@@ -162,8 +164,12 @@ def run(args) -> list[dict]:
     from rrs_tpu_torch.device import resolve_device, set_matmul_precision
     from rrs_tpu_torch.models import llama as llama_model
     from rrs_tpu_torch.models.config import PRESETS
+    from rrs_tpu_torch.parallel.distributed import maybe_initialize, mesh_from_args
+    from rrs_tpu_torch.parallel.sharding import ShardedModel
 
     dev = resolve_device(args.device)
+    maybe_initialize(args)
+    mesh = mesh_from_args(args)
     set_matmul_precision()
     reps = max(1, args.reps)
     fmt = "jsonl" if args.json else args.output_format
@@ -179,25 +185,31 @@ def run(args) -> list[dict]:
 
     base = {"build_commit": _build_commit(), "build_number": 0, "cpu_info": "host",
             "gpu_info": device_name(dev), "backends": "CUDA" if dev.type == "cuda" else "CPU",
-            "flash_attn": 1, "tensor_split": "1"}
+            "flash_attn": 1,
+            "tensor_split": f"tp{mesh.tp}/dp{mesh.dp}" if mesh is not None else "1"}
     rows = []
     for model_path, preset in models:
         if model_path:
             from rrs_tpu_torch.models.loader import load_model
 
-            cfg, weights, _ = load_model(model_path, device=dev)
+            cfg, weights, _ = load_model(model_path, device=dev, fuse=mesh is None)
             mname, mtype = model_path, cfg.arch
         else:
             cfg = PRESETS[preset]
             weights = llama_model.fabricated_tcq4_weights(cfg, seed=0, device=dev)
             mname, mtype = f"{preset} (fabricated)", f"{preset} TCQ4_K32"
         size, params = tree_stats(weights)
+        sharded = None
+        if mesh is not None:
+            sharded = ShardedModel(cfg, llama_model.unfused(cfg, weights), mesh)
+            weights = None
         for b in args.batch:
             for ct in args.ctk:
                 ctv = args.ctv or ct
                 for pp, tg in tests:
                     for depth in args.depth:
-                        r = run_one(cfg, weights, dev, b, ct, ctv, pp, tg, depth, reps)
+                        r = run_one(cfg, weights, dev, b, ct, ctv, pp, tg, depth, reps,
+                                    sharded=sharded)
                         rows.append({**base, "model_filename": mname, "model_type": mtype,
                                      "model_size": size, "model_n_params": params,
                                      "n_batch": b, "type_k": ct, "type_v": ctv,
@@ -208,11 +220,13 @@ def run(args) -> list[dict]:
 
 
 @torch.inference_mode()
-def run_one(cfg, weights, dev, b, ctk, ctv, pp, tg, depth, reps) -> dict:
+def run_one(cfg, weights, dev, b, ctk, ctv, pp, tg, depth, reps, sharded=None) -> dict:
     """One test (prefill of pp tokens and / or tg greedy decode steps, from
-    position depth, over b lanes), warmed up once and timed reps times."""
+    position depth, over b lanes), warmed up once and timed reps times.
+    ``sharded``: a ``ShardedModel`` to run it on instead of ``weights`` (b a
+    multiple of its dp)."""
     from rrs_tpu_torch.models.llama import decode_scan, forward
-    from rrs_tpu_torch.runtime.kv_cache import KVCache
+    from rrs_tpu_torch.runtime.kv_cache import KVCache, ShardedKVCache
 
     quant = KV_QUANT[ctk]
     if KV_QUANT[ctv] != quant:
@@ -222,28 +236,37 @@ def run_one(cfg, weights, dev, b, ctk, ctv, pp, tg, depth, reps) -> dict:
     n_work = (pp + tg) * b
 
     def fresh():
-        kv = KVCache.create(cfg, b, s, device=dev, quant=quant, max_chunk=max(pp, 1))
-        return kv.k, kv.v
+        if sharded is not None:
+            return ShardedKVCache.create_sharded(cfg, b, s, sharded.mesh, quant=quant,
+                                                 max_chunk=max(pp, 1))
+        return KVCache.create(cfg, b, s, device=dev, quant=quant, max_chunk=max(pp, 1))
 
     positions = torch.arange(depth, depth + pp, dtype=torch.int32, device=dev)[None].repeat(b, 1)
 
-    def fn(toks, kc, vc):
+    def fn(toks, kv):
         pos_off = depth
         if pp:
-            forward(cfg, weights, toks, positions, kc, vc, positions, None, slots=[pos_off] * b)
+            if sharded is not None:
+                sharded.forward(kv.parts, toks, positions, positions, slots=[pos_off] * b)
+            else:
+                forward(cfg, weights, toks, positions, kv.k, kv.v, positions, None,
+                        slots=[pos_off] * b)
             pos_off += pp
         if tg:
             first = toks[:, 0] if pp == 0 else torch.zeros((b,), dtype=torch.int64, device=dev)
-            decode_scan(cfg, weights, first, [pos_off] * b, kc, vc, tg)
+            if sharded is not None:
+                sharded.decode_scan(kv.parts, first, [pos_off] * b, tg)
+            else:
+                decode_scan(cfg, weights, first, [pos_off] * b, kv.k, kv.v, tg)
 
     toks = torch.zeros((b, max(pp, 1)), dtype=torch.int64, device=dev)
-    fn(toks, *fresh())
+    fn(toks, fresh())
     times = []
     for rep in range(reps):
-        kc, vc = fresh()
+        kv = fresh()
         toks_r = toks + rep + 1
-        times.append(timed(dev, lambda: fn(toks_r, kc, vc)))
-        del kc, vc
+        times.append(timed(dev, lambda: fn(toks_r, kv)))
+        del kv
     avg = statistics.mean(times)
     std = statistics.stdev(times) if len(times) > 1 else 0.0
     ts = [n_work / t for t in times]

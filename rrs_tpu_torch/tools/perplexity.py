@@ -8,8 +8,9 @@ there on; PPL = exp(mean NLL)), with the target log-probs on the device
 (``ctx.prefill_logprobs``) or, as the JAX host branch does, from the full
 logits in float64 on the host; the common-prefix choice scoring of
 HellaSwag, Winogrande and the multiple-choice (MMLU) format; KL(base ||
-model) against saved logits; and the three dataset loaders. The
-pipeline-parallel ``compute_perplexity_pp`` waits for ROADMAP A12.
+model) against saved logits; the three dataset loaders; and
+``compute_perplexity_pp``, the same protocol over a pipeline of layer-split
+stages (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +78,47 @@ def compute_perplexity(ctx, tokens: list[int], n_ctx: int = 512, progress: bool 
         per_chunk.append(math.exp(chunk_nll / max(chunk_count, 1)))
         if progress:
             print(f"[{c + 1}/{n_chunks}] ppl so far: {math.exp(nll / count):.4f}", flush=True)
+    return PerplexityResult(ppl=math.exp(nll / max(count, 1)), nll_sum=nll, n_tokens=count,
+                            per_chunk=per_chunk)
+
+
+def compute_perplexity_pp(cfg, weights, tokens: list[int], mesh, n_ctx: int = 512,
+                          n_micro: int = 2, progress: bool = False) -> PerplexityResult:
+    """Perplexity over a pipeline-parallel (layer-split) mesh, as
+    rrs_tpu/tools/perplexity.py:88-125: each step pushes n_micro chunks
+    through the GPipe schedule (the last step padded with copies of its last
+    chunk); the NLL protocol of ``compute_perplexity``, each row's
+    log-softmax in float64 (on the device; only the [T] target log-probs
+    come back)."""
+    import torch
+
+    from rrs_tpu_torch.parallel.pipeline import make_pipeline_forward
+
+    first = min(n_ctx // 2, 512)
+    n_chunks = len(tokens) // n_ctx
+    fn = make_pipeline_forward(cfg, weights, mesh, b=n_micro, t=n_ctx, n_micro=n_micro)
+    positions = np.broadcast_to(np.arange(n_ctx, dtype=np.int32), (n_micro, n_ctx)).copy()
+    nll = 0.0
+    count = 0
+    per_chunk = []
+    for base in range(0, n_chunks, n_micro):
+        batch = [tokens[c * n_ctx:(c + 1) * n_ctx]
+                 for c in range(base, min(base + n_micro, n_chunks))]
+        real = len(batch)
+        batch += [batch[-1]] * (n_micro - real)
+        logits = fn(np.asarray(batch, np.int64), positions)
+        tgt = torch.as_tensor(np.asarray(batch, np.int64)[:, first + 1:], device=logits.device)
+        lp = torch.log_softmax(logits[:, first:n_ctx - 1].to(torch.float64), dim=-1)
+        lp = torch.gather(lp, -1, tgt[:, :, None])[:, :, 0].cpu().numpy()
+        for r in range(real):
+            chunk_nll = -float(lp[r].sum())
+            chunk_count = lp.shape[1]
+            nll += chunk_nll
+            count += chunk_count
+            per_chunk.append(math.exp(chunk_nll / max(chunk_count, 1)))
+        if progress:
+            print(f"[{len(per_chunk)}/{n_chunks}] ppl so far: "
+                  f"{math.exp(nll / max(count, 1)):.4f}", flush=True)
     return PerplexityResult(ppl=math.exp(nll / max(count, 1)), nll_sum=nll, n_tokens=count,
                             per_chunk=per_chunk)
 

@@ -95,13 +95,22 @@ def test_bench_depth_and_cli(tiny_gguf):
     assert all(row["stddev_ts"] >= 0 for row in rows)
 
 
-def test_bench_refuses_mixed_kv_and_parallel_flags(tiny_gguf):
+def test_bench_refuses_mixed_kv_and_parallel_flags(tiny_gguf, capsys):
     with pytest.raises(NotImplementedError, match="one layout"):
         main(["bench", "-m", tiny_gguf, "--pp", "4", "--tg", "0", "-r", "1", "--ctk", "q8_0",
               "--ctv", "q4_0", "--device", "cpu"])
-    for flags in (["--tp", "2"], ["--dp", "2"], ["--dist-procs", "2"]):
-        with pytest.raises(NotImplementedError, match="A12"):
-            main(["bench", "-m", tiny_gguf, "--device", "cpu", *flags])
+    # the parallel flags run: a (dp, tp) mesh of CPU shards, named in the
+    # tensor_split column, and --dist-procs without a coordinator (one process)
+    for flags, split in ((["--tp", "2"], "tp2/dp1"), (["--dp", "2", "--batch", "2"], "tp1/dp2"),
+                         (["--dist-procs", "2"], "1")):
+        main(["bench", "-m", tiny_gguf, "--pp", "4", "--tg", "2", "-r", "1", "--json",
+              "--device", "cpu", *flags])
+        rows = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+        assert [r["tensor_split"] for r in rows] == [split] * 2
+    # and they still default to the card
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["bench", "-m", tiny_gguf, "--tp", "2"])
 
 
 def test_tree_stats_counts_linears_by_their_codes():

@@ -7,6 +7,7 @@ package's weights cross over as the plain nested dict of NumPy arrays that
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -238,3 +239,25 @@ def assert_same_greedy(got: list, ref: list, rows: np.ndarray) -> None:
         ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7)
         assert rows[i][a] >= top - ulp, (i, got, ref, rows[i][a], top)
         return
+
+
+@contextlib.contextmanager
+def exact_jit():
+    """``jax.jit`` compiling without XLA's CPU excess precision, within the
+    block: jitted bf16 chains then round where the op-by-op forward (and the
+    port) rounds, as ``jax.disable_jit`` would give, at jit speed. The JAX
+    package's sharded steps (``shard_map`` under ``jax.jit``) are held to the
+    port this way."""
+    import functools
+    from unittest import mock
+
+    import jax
+
+    orig = jax.jit
+
+    def jit(fun=None, **kw):
+        kw.setdefault("compiler_options", {"xla_allow_excess_precision": False})
+        return orig(fun, **kw) if fun is not None else functools.partial(jit, **kw)
+
+    with mock.patch.object(jax, "jit", jit):
+        yield

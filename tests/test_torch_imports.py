@@ -99,8 +99,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                  ["tts", "-m", str(tmp_path / "absent.gguf"), "-mv", "v.gguf", "-p", "hi"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
-    with pytest.raises(NotImplementedError, match="A12"):
-        main(["perplexity", "-m", "absent.gguf", "--pp", "2", "--device", "cpu"])
+    # the pipeline defaults to the card too; asked for the CPU it runs, here
+    # as far as the absent model file
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["perplexity", "-m", "absent.gguf", "-f", "t.txt", "--pp", "2"])
+    with pytest.raises(FileNotFoundError):
+        main(["perplexity", "-m", str(tmp_path / "absent.gguf"), "-f", "t.txt", "--pp", "2",
+              "--device", "cpu"])
     # asked for explicitly, the CPU works
     ctx = InferenceContext(cfg, w, max_seq=32, device="cpu")
     assert len(ctx.generate([1, 2, 3], 2)) == 2
@@ -124,16 +129,16 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     for verb in ("serve", "chat"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([verb, "-m", str(tmp_path / "absent.gguf")])
-    # flags of later slices raise before anything loads; the quantized cache,
-    # the slot save path, a draft model, extra routed models and a vision
-    # projector (--mmproj, which raised here naming ROADMAP A11) are ported,
-    # and still default to the card
-    for flags in (["--tp", "2"],):
-        with pytest.raises(NotImplementedError):
-            main(["serve", "-m", "absent.gguf", "--device", "cpu", *flags])
+    # the quantized cache, the slot save path, a draft model, extra routed
+    # models, a vision projector (--mmproj, which raised here naming ROADMAP
+    # A11) and a tensor / data parallel mesh (--tp / --dp, which raised
+    # naming A12b) are ported, and still default to the card; asked for the
+    # CPU, --tp gets as far as the absent model file
+    with pytest.raises(FileNotFoundError):
+        main(["serve", "-m", str(tmp_path / "absent.gguf"), "--device", "cpu", "--tp", "2"])
     for flags in (["--cache-type", "q8"], ["--slot-save-path", str(tmp_path)],
                   ["--model-draft", "d.gguf"], ["--models", "a=b.gguf"],
-                  ["--mmproj", "m.gguf"]):
+                  ["--mmproj", "m.gguf"], ["--tp", "2"], ["--tp", "2", "--dp", "2"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(["serve", "-m", str(tmp_path / "absent.gguf"), *flags])
     for flags in (["--model-draft", "d.gguf"], ["--lookup"]):
