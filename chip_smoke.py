@@ -296,10 +296,12 @@ it; exits non-zero without either, and on any failed phase. Phases:
    frozen codes keep their checksums, B5 / B4 / B1 / B2 launch and B3 does
    not (``launches_training``); each step's wall and device-timeline ms, the
    peak memory, a profiled step split into forward, backward and optimizer,
-   and the step's bound;
+   and the step's bound (the verb's process, and phase 21's two, start with
+   the phase; the verb's result is read after phase 22);
 21. the parallel paths (``parallel/sharding.py``, ``distributed.py``,
    ``pipeline.py``), run right after phase 20 on phase 3's qwen3-4b weights
-   at full width, cut to 12 of 36 layers: tp = 2 as two shards on cuda:0
+   at full width, cut to 6 of 36 layers (12 until phase 22 needed the
+   room): tp = 2 as two shards on cuda:0
    (the projections unfused and split per head and FFN column, o and down
    all-reduced, the vocab gathered), prompts of 5 and 300 tokens x 16 greedy
    steps with every kernel's launches counted (``launches_parallel``) and by
@@ -318,7 +320,22 @@ it; exits non-zero without either, and on any failed phase. Phases:
    pipeline's logits rows within 1e-3 relative L2); ``generate`` through one NCCL
    process (``--dist-coordinator``, ``--dist-procs 1``) against plain
    ``generate``, as processes;
-22. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
+22. the SPMD train step (``parallel/train_step.py``), right after phase 21:
+   qwen3-4b at full width, 12 of 36 layers in f32 floats, at tp = 2 and dp
+   2 x tp 2 as shards on cuda:0, three AdamW steps on one repeated T = 256
+   batch and one at T = 8 with every B5 / B1 / B4 / B2 launch on each shard
+   held to its plain version, the losses falling, the frozen codes equal to
+   the caller's, B3 not launched, the launches by shard
+   (``launches_train_mesh``), one unheld T = 256 step profiled at tp = 2, a
+   fresh dp 2 x tp 2 mesh's unheld losses bit-equal to the held ones;
+   phase 3's dense bf16 2-layer model at tp = 2 and dp 2 x tp 2 and an f32
+   dense-expert qwen3moe of its width at dp 2 x ep 2 x tp 2, each leaf's
+   joined gradient within MESH_GRAD_TOL of one device's and the loss within
+   MESH_LOSS_TOL, a second fresh mesh's loss and gradients bit-equal to the
+   first's (dp 2 and up), a clipped SGD step's update norm lr x clip within
+   MESH_CLIP_TOL; ep 2 x tp 2 at Qwen3-30B-A3B's published widths (2 layers,
+   dense f32 experts): the step-0 loss against one device's, falling;
+23. the ``{"kernels": [...]}`` line (nineteen kernels; B14 / B16 / B17 / B18 /
    B19 launch on no model path and carry ``held_launches``; the kernels of
    phases 10, 13-21 also carry ``launches_server_rest`` /
    ``launches_gguf_tcq4`` / ``launches_qwen2moe`` / ``launches_mla`` (with
@@ -326,7 +343,7 @@ it; exits non-zero without either, and on any failed phase. Phases:
    (with ``launches_gemma3_q8``), ``launches_falcon_mamba`` /
    ``launches_rwkv6`` / ``launches_jamba``, ``launches_tools``,
    ``launches_qwen2vl``, ``launches_audio``, ``launches_tts``,
-   ``launches_training`` and ``launches_parallel``),
+   ``launches_training``, ``launches_parallel`` and ``launches_train_mesh``),
    the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -2914,14 +2931,14 @@ def moe_branches():
             return orig(a, *args)
         return run
 
-    def dispatch(*args):
+    def dispatch(*args, **kwargs):
         n["dispatch"] += 1
         *head, fallback = args
 
         def counted_fallback():
             n["fallback"] += 1
             return fallback()
-        return originals["_capacity_dispatch"](*head, counted_fallback)
+        return originals["_capacity_dispatch"](*head, counted_fallback, **kwargs)
 
     branches: dict = {}
     for name in names[:4]:
@@ -8060,30 +8077,42 @@ def training_verb_start(tmp):
     """Phase 20 (c), its start: an f32 GGUF at Qwen3-0.6B's published widths
     (VERB_LAYERS of its 28 layers, an untied head), written by the port's
     exporter with the synthetic vocabulary, and a text of its tokens; then
-    ``finetune`` on them as a process. Returns what ``training_verb_finish``
-    needs."""
-    import dataclasses
+    ``finetune`` on them as a process. The files are written, and the
+    process started, in a thread of their own beside the card's work.
+    Returns what ``training_verb_finish`` needs."""
+    box: dict = {}
 
-    import numpy as np
+    def run():
+        import dataclasses
 
-    from rrs_tpu_torch.models.config import PRESETS
-    from rrs_tpu_torch.models.export import export_random_gguf
+        import numpy as np
 
-    cfg = dataclasses.replace(PRESETS["qwen3-0.6b"], n_layers=VERB_LAYERS, tie_embeddings=False)
-    vocab = synthetic_vocab(cfg.vocab_size)
-    t0 = time.perf_counter()
-    src = export_random_gguf(cfg, tmp / "qwen3-0.6b-f32.gguf", seed=21, scale=0.02,
-                             vocab_tokens=vocab.tokens)
-    chars = [t for t in vocab.tokens[:200] if len(t) == 1 and not t.isspace()]
-    pattern = "".join(np.random.default_rng(22).choice(chars, 64))
-    text = tmp / "train.txt"
-    text.write_text(pattern * 8)
-    print(f"  wrote {src.name} ({src.stat().st_size / GB:.2f} GB) and a {len(pattern) * 8}-char "
-          f"text in {time.perf_counter() - t0:.1f} s", flush=True)
-    out = tmp / "qwen3-0.6b-trained.gguf"
-    handle = _verb_start(["finetune", "-m", src, "-f", text, "-o", out, "--lr", "1e-3",
-                          "--seq-len", "128", "--batch", "1", "--epochs", "1"])
-    return handle, out, text
+        from rrs_tpu_torch.models.config import PRESETS
+        from rrs_tpu_torch.models.export import export_random_gguf
+
+        try:
+            cfg = dataclasses.replace(PRESETS["qwen3-0.6b"], n_layers=VERB_LAYERS,
+                                      tie_embeddings=False)
+            vocab = synthetic_vocab(cfg.vocab_size)
+            t0 = time.perf_counter()
+            src = export_random_gguf(cfg, tmp / "qwen3-0.6b-f32.gguf", seed=21, scale=0.02,
+                                     vocab_tokens=vocab.tokens)
+            chars = [t for t in vocab.tokens[:200] if len(t) == 1 and not t.isspace()]
+            pattern = "".join(np.random.default_rng(22).choice(chars, 64))
+            text = tmp / "train.txt"
+            text.write_text(pattern * 8)
+            box["files"] = (f"  wrote {src.name} ({src.stat().st_size / GB:.2f} GB) and a "
+                            f"{len(pattern) * 8}-char text in {time.perf_counter() - t0:.1f} s")
+            out = tmp / "qwen3-0.6b-trained.gguf"
+            box["started"] = (_verb_start(["finetune", "-m", src, "-f", text, "-o", out, "--lr",
+                                           "1e-3", "--seq-len", "128", "--batch", "1",
+                                           "--epochs", "1"]), out, text)
+        except BaseException as e:                                  # raised by the finish
+            box["error"] = e
+
+    thread = threading.Thread(target=run, name="finetune-files")
+    thread.start()
+    return thread, box
 
 
 def training_verb_finish(started) -> None:
@@ -8098,7 +8127,12 @@ def training_verb_finish(started) -> None:
     from rrs_tpu_torch.models.vocab import Vocab
     from rrs_tpu_torch.train.finetune import evaluate, make_dataset
 
-    handle, out, text = started
+    thread, box = started
+    thread.join()
+    if "error" in box:
+        raise box["error"]
+    print(box["files"], flush=True)
+    handle, out, text = box["started"]
     log = _verb_wait(handle, timeout=300)
     losses = [float(v) for v in re.findall(r"step \d+: loss ([0-9.]+)", log)]
     trained = float(re.search(r"trained loss ([0-9.]+)", log).group(1))
@@ -8118,20 +8152,21 @@ def training_verb_finish(started) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_training(cfg, weights, reports, peaks, tmp) -> None:
-    """Phase 20: the finetune verb's process started first (it writes and
-    reads its files while the card runs the rest), then the held checks at 2
-    layers, the full-depth steps, and the verb's result."""
+def phase_training(cfg, weights, reports, peaks, tmp):
+    """Phase 20: the finetune verb's files and process started first (a
+    thread writes them and the process runs while the card runs phases
+    20-22), then the held checks at 2 layers and the full-depth steps.
+    Returns the started verb, whose result ``training_verb_finish`` reads
+    after phase 22."""
     t0 = time.perf_counter()
     started = training_verb_start(tmp)
     training_held(cfg, weights)
     t1 = time.perf_counter()
-    training_verb_finish(started)
-    t2 = time.perf_counter()
     training_full(*first_layers(cfg, weights, TRAIN_FULL_LAYERS), reports, peaks)
-    print(f"  phase 20 took {time.perf_counter() - t0:.1f} s (the held part {t1 - t0:.1f} s, the "
-          f"verb's wait and reload {t2 - t1:.1f} s, full depth {time.perf_counter() - t2:.1f} s)",
+    print(f"  phase 20 took {time.perf_counter() - t0:.1f} s (the held part {t1 - t0:.1f} s, full "
+          f"depth {time.perf_counter() - t1:.1f} s; the verb's files written beside them)",
           flush=True)
+    return started
 
 
 # ---------------------------------------------------------------------------
@@ -8139,7 +8174,7 @@ def phase_training(cfg, weights, reports, peaks, tmp) -> None:
 # shards, the pipeline, the multi-process entry) on one card
 # ---------------------------------------------------------------------------
 
-PARALLEL_LAYERS = 12            # phase 10's cut of qwen3-4b's 36 layers
+PARALLEL_LAYERS = 6             # of qwen3-4b's 36 layers (12 until phase 22 needed the room)
 PARALLEL_NEW = 16
 PARALLEL_PROMPT = "the parallel paths run on one card: two shards, two rows, two stages"
 TP_PATH = {"tcq4_matmul_gx2", "tcq4_matmul_i8p", "q8_matmul", "flash_attention"}
@@ -8349,19 +8384,20 @@ def parallel_dense_witness(dev: str = "cuda:0") -> None:
     from rrs_tpu_torch.parallel.sharding import make_mesh
     from rrs_tpu_torch.runtime.context import InferenceContext
 
-    # max_seq leaves a 512-row bucket room above the 316 live rows: a lane
-    # not in a prefill parks its rows at the top of its cache (ROADMAP C3)
+    # max_seq 512, where the 300-token prefill's 512-row bucket once
+    # overwrote lane 0's rows and the 100-token one lane 1's rows 256-299:
+    # a lane left out of a step writes nothing (ROADMAP C3)
     cfg = small_cfg()
     w = llama.random_weights(cfg, seed=1, device=dev)
     rng = torch.Generator().manual_seed(25)
     prompts = [torch.randint(2, cfg.vocab_size, (n,), generator=rng).tolist()
                for n in (40, 300, 100, 20)]
-    one = InferenceContext(cfg, w, n_lanes=4, max_seq=1024, device=dev)
+    one = InferenceContext(cfg, w, n_lanes=4, max_seq=512, device=dev)
     meshes = {"tp = 2": make_mesh(devices=[dev] * 2),
               "tp 2 x dp 2": make_mesh(devices=[dev] * 4, dp=2)}
     diff = 0.0
     for label, mesh in meshes.items():
-        got = greedy_rows(InferenceContext(cfg, w, n_lanes=4, max_seq=1024, mesh=mesh), prompts,
+        got = greedy_rows(InferenceContext(cfg, w, n_lanes=4, max_seq=512, mesh=mesh), prompts,
                           PARALLEL_NEW)
         ref = greedy_rows(one, prompts, PARALLEL_NEW, forced=[t for _, t in got])
         worst, same = 0.0, 0
@@ -8379,7 +8415,7 @@ def parallel_dense_witness(dev: str = "cuda:0") -> None:
               f"{'/'.join(map(str, map(len, prompts)))} tokens x {PARALLEL_NEW} greedy steps on "
               f"4 lanes, every logits row within rel L2 {worst:.2e} <= {GLUE_TOL}; argmax equal "
               f"at {same} of {4 * PARALLEL_NEW} steps", flush=True)
-    toks, dt = engine_greedy(InferenceContext(cfg, w, n_lanes=4, max_seq=1024,
+    toks, dt = engine_greedy(InferenceContext(cfg, w, n_lanes=4, max_seq=512,
                                               mesh=meshes["tp 2 x dp 2"]), prompts)
     ref = greedy_rows(one, prompts, PARALLEL_NEW, forced=toks)
     top = max(r.abs().max().item() for r, _ in ref)
@@ -8492,7 +8528,7 @@ def parallel_verbs_start(tmp):
                                 "--dist-id", "0"]))
 
 
-def phase_parallel(cfg_full, weights_full, reports, tmp) -> None:
+def phase_parallel(cfg_full, weights_full, reports, verbs) -> None:
     """Phase 21 on phase 3's qwen3-4b weights at full width, their first
     PARALLEL_LAYERS layers: tp = 2 as two shards on cuda:0 (prefills of 5 and
     300 tokens, PARALLEL_NEW greedy steps each, its launches counted, its
@@ -8502,7 +8538,8 @@ def phase_parallel(cfg_full, weights_full, reports, tmp) -> None:
     unsharded context on phase 3's dense model (logits and tokens, the
     engine's tokens); tp 2 x dp 2 serving four requests at full width; the
     pipeline's perplexity and logits; one NCCL process; a decode profile of
-    the sharded step."""
+    the sharded step. ``verbs``: ``parallel_verbs_start``'s processes, which
+    run beside phase 20."""
     import torch
 
     from rrs_tpu_torch import kernels
@@ -8511,7 +8548,6 @@ def phase_parallel(cfg_full, weights_full, reports, tmp) -> None:
     from rrs_tpu_torch.runtime.context import InferenceContext
 
     t_phase = time.perf_counter()
-    verbs = parallel_verbs_start(tmp)
     cfg, w = first_layers(cfg_full, weights_full, PARALLEL_LAYERS)
     ref = InferenceContext(cfg, w, n_lanes=1, max_seq=1024)
     tp = InferenceContext(cfg, llama.unfused(cfg, w), n_lanes=1, max_seq=1024,
@@ -8586,6 +8622,363 @@ def phase_parallel(cfg_full, weights_full, reports, tmp) -> None:
     print(f"  phase 21 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the SPMD train step (parallel/train_step.py) on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_LAYERS = 12          # phase 10's cut of qwen3-4b's 36 layers
+TRAIN_MESH_STEPS = 3            # AdamW steps on one repeated T = 256 batch, then one at T = 8
+TRAIN_MESH_EXPECT = {"tcq4_matmul_i8p", "tcq4_matmul_gx2", "q8_matmul"}
+# the held gradient check (phase 3's dense bf16 2-layer model): the step-0
+# loss against one device's (absolute) and each leaf's joined gradient
+# against one device's over each dp row's rows (rel L2). The mesh sums each
+# replicated bf16 activation's gradient from per-shard parts, each rounded
+# to bf16, where one device rounds the whole once
+MESH_LOSS_TOL = 1e-3
+MESH_GRAD_TOL = 5e-2
+# the clipped step: the update's norm against lr x clip (relative); the
+# joined parameters f32, so p + u rounds at ~6e-8 of a weight near 1
+MESH_CLIP_TOL = 1e-4
+# the ep axis at Qwen3-30B-A3B's published widths (2 layers, dense f32 stacks)
+QWEN3_30B_A3B_WIDTHS = dict(arch="qwen3moe", n_embd=2048, n_heads=32, n_kv_heads=4,
+                            head_dim=128, n_ff=0, n_experts=128, n_experts_used=8,
+                            n_ff_exp=768, vocab_size=151936, context_length=4096,
+                            rope_theta=1e6, qk_norm=True, norm_topk_prob=True)
+
+
+def mesh_batch(vocab: int, t: int, rows: int, seed: int):
+    """[rows, t + 1]: ``training_batch``'s block for each row, seeds seed ..."""
+    import numpy as np
+
+    return np.concatenate([training_batch(vocab, t, seed=seed + i) for i in range(rows)])
+
+
+def single_grads(cfg, w, batch, dp: int):
+    """One device's loss and gradients over each dp row's rows (the mesh's
+    M, so the same kernel routes), the rows' losses averaged: (loss, flat
+    {position: gradient})."""
+    import numpy as np
+    import torch
+
+    from rrs_tpu_torch.parallel.train_step import _flat
+    from rrs_tpu_torch.train import finetune as ft
+
+    params, static, _ = ft.trainable(w)
+    loss = 0.0
+    for rows in np.split(batch, dp):
+        part = ft._loss_fn(cfg, ft.combine(params, static), rows) / dp
+        part.backward()
+        loss += float(part.detach())
+    grads = {i: (torch.zeros_like(p) if p.grad is None else p.grad).float().cpu()
+             for i, p in enumerate(_flat(params)) if isinstance(p, torch.Tensor)}
+    return loss, grads
+
+
+def mesh_grads(cfg, w, devices, dp: int, ep: int, batch, tc=None):
+    """One step of the SPMD train step (SGD at lr 0 unless ``tc``): (loss,
+    flat {position: joined gradient}, the step's parameters)."""
+    import torch
+
+    from rrs_tpu_torch.parallel import train_step as ts
+    from rrs_tpu_torch.train.finetune import TrainConfig
+
+    mesh = ts.make_train_mesh(devices=devices, dp=dp, ep=ep)
+    step, params, _, opt = ts.make_sharded_train_step(
+        cfg, mesh, w, tc or TrainConfig(optimizer="sgd", lr=0.0))
+    _, _, loss = step(params, opt, batch)
+    grads = {i: g.float() for i, g in enumerate(ts._flat(params.joined_grads()))
+             if isinstance(g, torch.Tensor)}
+    return float(loss), grads, params
+
+
+def train_mesh_grads_held(dev: str = "cuda:0") -> None:
+    """Phase 22 (b): phase 3's dense bf16 2-layer model (E 1,024) at tp = 2
+    and dp 2 x tp 2, and a dense-expert qwen3moe of its width in f32 (8
+    experts x 512, top-2) at dp 2 x ep 2 x tp 2, shards on ``dev``: one step's loss
+    within MESH_LOSS_TOL of one device's, each leaf's joined gradient within
+    MESH_GRAD_TOL (rel L2) of one device's over each dp row, and at dp 2 a
+    second fresh mesh's loss and gradients bit-equal to the first's; then a clipped
+    SGD step of the f32 copy of each model at dp 2 (x ep 2) x tp 2, clip at
+    half the global gradient norm: the update's norm is lr x clip within
+    MESH_CLIP_TOL (a norm over a shard's pieces, or a replicated piece
+    counted once a shard, scales it otherwise)."""
+    import dataclasses
+
+    import torch
+
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.parallel.train_step import _flat
+    from rrs_tpu_torch.train.finetune import TrainConfig, _is_float, _tree_map
+
+    dense = small_cfg()
+    moe_cfg = dataclasses.replace(dense, arch="qwen3moe", n_ff=0, n_experts=8, n_experts_used=2,
+                                  n_ff_exp=512, norm_topk_prob=True)
+    # the expert stacks in f32, as JAX's own test holds them: in bf16 a
+    # router logit's last-bit difference re-routes a token near a tie
+    models = {"dense": (dense, llama.random_weights(dense, seed=1, device=dev)),
+              "qwen3moe": (moe_cfg, llama.random_weights(moe_cfg, seed=2, dtype=torch.float32,
+                                                         device=dev))}
+    batch = mesh_batch(dense.vocab_size, 64, 2, seed=22)
+    for label, name, n, dp, ep in (("tp = 2", "dense", 2, 1, 1), ("dp 2 x tp 2", "dense", 4, 2, 1),
+                                   ("dp 2 x ep 2 x tp 2", "qwen3moe", 8, 2, 2)):
+        cfg, w = models[name]
+        t0 = time.perf_counter()
+        loss, got, _ = mesh_grads(cfg, w, [dev] * n, dp, ep, batch)
+        ref_loss, ref = single_grads(cfg, w, batch, dp)
+        worst, at = max((((got[i].cpu() - g).norm() / g.norm().clamp_min(1e-30)).item(), i)
+                        for i, g in ref.items())
+        if n > 2:
+            # run to run: a fresh mesh after the calling thread's own autograd
+            # work (one device's step) gives the same loss and gradients, bit
+            # for bit (four or eight shards' parts of a replicated leaf)
+            again, got2, _ = mesh_grads(cfg, w, [dev] * n, dp, ep, batch)
+            same = again == loss and all(torch.equal(got2[i], g) for i, g in got.items())
+            print(f"  held gradients, {name}, {label}, run again on a fresh mesh: loss and "
+                  f"{len(got)} joined gradients bit-equal {same}", flush=True)
+            if not same:
+                raise AssertionError(f"held gradients, {name} {label}: a second run differs "
+                                     f"(loss {again} / {loss})")
+        dt = str(w.final_norm.dtype).replace("torch.", "")
+        print(f"  held gradients, {name} ({cfg.n_layers} layers, E {cfg.n_embd}, {dt}), {label} "
+              f"on {dev}: loss {loss:.6f} against one device's {ref_loss:.6f} (|diff| "
+              f"{abs(loss - ref_loss):.2e} <= {MESH_LOSS_TOL:.0e}); {len(ref)} leaves, worst "
+              f"joined gradient rel L2 {worst:.2e} (leaf {at}) <= {MESH_GRAD_TOL:.0e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not (abs(loss - ref_loss) <= MESH_LOSS_TOL and worst <= MESH_GRAD_TOL):
+            raise AssertionError(f"held gradients, {name} {label}: loss {loss} / {ref_loss}, "
+                                 f"worst rel L2 {worst:.3e}")
+    for label, name, n, ep in (("dp 2 x tp 2", "dense", 4, 1), ("dp 2 x ep 2 x tp 2", "qwen3moe", 8, 2)):
+        cfg, w = models[name]
+        w32 = _tree_map(lambda t: t.float() if _is_float(t) else t, w)
+        _, ref = single_grads(cfg, w32, batch, 2)
+        gnorm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in ref.values()))
+        clip, lr = gnorm / 2, 0.1
+        _, _, params = mesh_grads(cfg, w32, [dev] * n, 2, ep, batch,
+                                  TrainConfig(optimizer="sgd", lr=lr, clip_norm=clip))
+        moved = math.sqrt(sum(float(((a.double() - b.double().cpu()) ** 2).sum())
+                              for a, b in zip(_flat(params.joined()), _flat(w32))
+                              if isinstance(a, torch.Tensor)))
+        rel = abs(moved - lr * clip) / (lr * clip)
+        print(f"  clipped SGD step, {name} in f32, {label}: update norm {moved:.6e} against lr x "
+              f"clip {lr * clip:.6e} (global norm {gnorm:.4e}, clip half of it; rel {rel:.2e} <= "
+              f"{MESH_CLIP_TOL:.0e})", flush=True)
+        if not rel <= MESH_CLIP_TOL:
+            raise AssertionError(f"clipped step, {name} {label}: update norm {moved} against "
+                                 f"{lr * clip}")
+
+
+def train_mesh_full(cfg, w, reports, peaks, dev: str = "cuda:0") -> None:
+    """Phase 22 (a) and (d): the SPMD train step at qwen3-4b's full width,
+    its first TRAIN_MESH_LAYERS layers in f32 floats (frozen codes shared),
+    split back per projection: TRAIN_MESH_STEPS AdamW steps at lr TRAIN_LR on
+    one repeated T = 256 batch (a row a dp row), then one at T = 8, at tp = 2
+    (two shards on cuda:0) and at dp 2 x tp 2 (four), every launch on each
+    shard held to its plain version; the losses finite and falling, every
+    frozen piece equal to the caller's slice, B5 / B1 / B2 launched and B3
+    not, the launches by shard. Then one unheld T = 256 step at tp = 2 under
+    torch.profiler: wall, device busy, idle share, kernels, peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rrs_tpu_torch import kernels
+    from rrs_tpu_torch.models import llama
+    from rrs_tpu_torch.parallel import train_step as ts
+    from rrs_tpu_torch.train.finetune import TrainConfig
+
+    w32 = llama.unfused(cfg, f32_floats(w))
+    counted = {}
+    for label, n, dp in (("tp = 2", 2, 1), ("dp 2 x tp 2", 4, 2)):
+        t0 = time.perf_counter()
+        step, params, static, opt = ts.make_sharded_train_step(
+            cfg, ts.make_train_mesh(devices=[dev] * n, dp=dp), w32, TrainConfig(lr=TRAIN_LR))
+        b256 = mesh_batch(cfg.vocab_size, 256, dp, seed=20)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        kernels.reset_launches()
+        for c in step.model.launches.values():
+            c.clear()
+        losses = []
+        batches = [b256] * TRAIN_MESH_STEPS + [mesh_batch(cfg.vocab_size, 8, dp, seed=8)]
+        with held_to_plain(f"SPMD train step, {label}", TRAIN_MESH_EXPECT) as seen:
+            for b in batches:
+                losses.append(float(step(params, opt, b)[2]))
+        torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES[k] for k in TRAIN_MESH_EXPECT | {"tcq4_matmul",
+                                                                         "flash_attention"}}
+        by_shard = {",".join(map(str, k)): dict(v) for k, v in step.model.launches.items()}
+        peak = torch.cuda.max_memory_allocated() / GB
+        frozen = frozen_pieces_kept(params.weights, static)
+        print(f"  SPMD train step, {label} on {dev}, qwen3-4b {cfg.n_layers} of 36 layers: "
+              f"AdamW at lr {TRAIN_LR}, T = 256 x {TRAIN_MESH_STEPS} then T = 8: losses "
+              f"{[round(x, 4) for x in losses]}; {time.perf_counter() - t1:.1f} s held (set-up "
+              f"{t1 - t0:.1f} s), peak memory {peak:.2f} GB", flush=True)
+        print(f"  {label} launches {launches}; by shard (dp row, ep rank, tp rank): {by_shard}",
+              flush=True)
+        print(f"  {label} held to the plain versions on every shard: " + ", ".join(
+            f"{k} (worst rel {v[0]:.2e}, shapes {sorted(v[1])})" for k, v in sorted(seen.items())),
+            flush=True)
+        if not (all(math.isfinite(x) for x in losses) and losses[TRAIN_MESH_STEPS - 1] < losses[0]):
+            raise AssertionError(f"SPMD train step, {label}: losses {losses}")
+        if launches["flash_attention"] or not all(launches[k] for k in TRAIN_MESH_EXPECT):
+            raise AssertionError(f"SPMD train step, {label}: launches {launches}")
+        if len(by_shard) != n or not all(v.get("q8_matmul") for v in by_shard.values()):
+            raise AssertionError(f"SPMD train step, {label}: launches by shard {by_shard}")
+        print(f"  {label}: every frozen piece on the card ({frozen} of them: TCQ4 codes, i8p "
+              f"packs, the Q8 head's codes) equal to the caller's slice it was cut from",
+              flush=True)
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+        if dp == 1:
+            step(params, opt, b256)                                 # unheld warm-up
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            step(params, opt, b256)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t2) * 1e3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(params, opt, b256)
+                torch.cuda.synchronize()
+            events, by_name = device_ms_by_kernel(prof)
+            busy = sum(by_name.values())
+            if events:
+                top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                    by_name.items(), key=lambda kv_: -kv_[1])[:5])
+                print(f"  SPMD train step profile, tp = 2 (two shards on one card: not a scaling "
+                      f"number), T = 256: wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+                      f"share {1 - busy / wall:.3f}, {len(events)} kernels, peak memory "
+                      f"{peak:.2f} GB (phase 20's line: one device's step); device ms by kernel: "
+                      f"{top}", flush=True)
+            else:
+                print(f"  SPMD train step profile, tp = 2: wall {wall:.2f} ms; the profiler "
+                      f"recorded no device time (not measured)", flush=True)
+        del step, params, static, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dp > 1:
+            # run to run: a fresh mesh, unheld, the same steps give the same
+            # losses, bit for bit
+            t2 = time.perf_counter()
+            step, params, _, opt = ts.make_sharded_train_step(
+                cfg, ts.make_train_mesh(devices=[dev] * n, dp=dp), w32, TrainConfig(lr=TRAIN_LR))
+            again = [float(step(params, opt, b)[2]) for b in batches]
+            print(f"  {label}, run again on a fresh mesh, unheld: losses "
+                  f"{[round(x, 4) for x in again]}, bit-equal {again == losses} "
+                  f"({time.perf_counter() - t2:.1f} s)", flush=True)
+            if again != losses:
+                raise AssertionError(f"SPMD train step, {label}: a second run's losses {again} "
+                                     f"differ from {losses}")
+            del step, params, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    for key, name in (("i8p", "tcq4_matmul_i8p"), ("gx2", "tcq4_matmul_gx2"), ("q8", "q8_matmul")):
+        reports[key].entry["launches_train_mesh"] = counted[name]
+
+
+def frozen_pieces_kept(sharded, static) -> int:
+    """Each distinct integer tensor of the shards' frozen leaves against the
+    caller's slice it was cut from (``ShardedWeights.views``): raises where
+    one differs; returns how many were compared."""
+    import torch
+
+    from rrs_tpu_torch.parallel.train_step import _flat
+
+    seen = set()
+    for (d, e, r), tree in static.items():
+        for x, v in zip(_flat(tree), _flat(sharded.views[(e, r)])):
+            if isinstance(x, torch.Tensor) and id(x) not in seen:
+                seen.add(id(x))
+                if not torch.equal(x, v.to(x.device)):
+                    raise AssertionError(f"a frozen piece of shard {(d, e, r)} changed")
+    return len(seen)
+
+
+def qwen3moe_dense_f32(cfg, seed: int, device: str = "cuda"):
+    """A qwen3moe of ``cfg``'s widths as a file loaded with f32 floats holds
+    it, drawn on the device from a seeded ``torch.Generator``: dense f32
+    projections, router and expert stacks N(0, 0.02), an untied dense head,
+    norms of ones."""
+    import torch
+
+    from rrs_tpu_torch.models.linear import DenseLinear
+    from rrs_tpu_torch.models.llama import LayerWeights, ModelWeights
+    from rrs_tpu_torch.models.moe import MoEWeights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e, f, n_exp = cfg.n_embd, cfg.n_ff_exp, cfg.n_experts
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device) * 0.02
+
+    ones = lambda n: torch.ones((n,), device=device)                # noqa: E731
+    layers = [LayerWeights(
+        attn_norm=ones(e), ffn_norm=ones(e), wq=DenseLinear(w=normal(e, cfg.n_q_dim)),
+        wk=DenseLinear(w=normal(e, cfg.n_kv_dim)), wv=DenseLinear(w=normal(e, cfg.n_kv_dim)),
+        wqkv=None, wo=DenseLinear(w=normal(cfg.n_q_dim, e)), q_norm=ones(cfg.head_dim),
+        k_norm=ones(cfg.head_dim), w_gate=None, w_up=None, w_down=None,
+        moe=MoEWeights(router=normal(e, n_exp), gate=normal(n_exp, e, f), up=normal(n_exp, e, f),
+                       down=normal(n_exp, f, e)))
+        for _ in range(cfg.n_layers)]
+    return ModelWeights(embed=normal(cfg.vocab_size, e), layers=layers, final_norm=ones(e),
+                        lm_head=DenseLinear(w=normal(e, cfg.vocab_size)))
+
+
+def train_mesh_ep(dev: str = "cuda:0") -> None:
+    """Phase 22 (c): the ep axis at Qwen3-30B-A3B's published widths (E
+    2,048, 32 / 4 heads x 128, 128 experts x 768, top-8), 2 layers with dense
+    f32 expert stacks, ep 2 x tp 2 on cuda:0: the step-0 loss against one
+    device's on the same weights (reported), three AdamW steps on one
+    repeated T = 128 batch, the loss falling."""
+    import torch
+
+    from rrs_tpu_torch.models.config import ModelConfig
+    from rrs_tpu_torch.parallel import train_step as ts
+    from rrs_tpu_torch.train import finetune as ft
+
+    cfg = ModelConfig(n_layers=2, **QWEN3_30B_A3B_WIDTHS)
+    t0 = time.perf_counter()
+    w = qwen3moe_dense_f32(cfg, seed=23, device=dev)
+    experts = sum(t.numel() * 4 for lw in w.layers for t in (lw.moe.gate, lw.moe.up, lw.moe.down))
+    batch = mesh_batch(cfg.vocab_size, 128, 1, seed=24)
+    with torch.no_grad():
+        ref = float(ft._loss_fn(cfg, w, batch))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    step, params, _, opt = ts.make_sharded_train_step(
+        cfg, ts.make_train_mesh(devices=[dev] * 4, ep=2), w, ft.TrainConfig(lr=TRAIN_LR))
+    losses = [float(step(params, opt, batch)[2]) for _ in range(3)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / GB
+    print(f"  Qwen3-30B-A3B widths, 2 layers, dense f32 expert stacks ({experts / GB:.2f} GB), ep 2 "
+          f"x tp 2 on {dev} ({cfg.n_experts // 2} experts x {cfg.n_ff_exp // 2} columns a shard): "
+          f"step-0 loss {losses[0]:.6f} "
+          f"against one device's {ref:.6f} (|diff| {abs(losses[0] - ref):.2e}, reported); AdamW "
+          f"losses {[round(x, 4) for x in losses]}; {time.perf_counter() - t1:.1f} s (weights and "
+          f"one device's loss {t1 - t0:.1f} s), peak memory {peak:.2f} GB", flush=True)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"ep at Qwen3-30B-A3B widths: losses {losses}")
+    del step, params, opt, w
+
+
+def phase_train_mesh(cfg_full, weights_full, reports, peaks) -> None:
+    """Phase 22 on phase 3's qwen3-4b weights: (a) and (d) at full width,
+    TRAIN_MESH_LAYERS layers; (b) the held gradients; (c) the ep axis."""
+    import torch
+
+    t0 = time.perf_counter()
+    train_mesh_full(*first_layers(cfg_full, weights_full, TRAIN_MESH_LAYERS), reports, peaks)
+    t1 = time.perf_counter()
+    train_mesh_grads_held()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    train_mesh_ep()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s (full width {t1 - t0:.1f} s, the held "
+          f"gradients {t2 - t1:.1f} s, the ep axis {time.perf_counter() - t2:.1f} s)", flush=True)
+
+
 def header(text: str) -> None:
     """A phase's header line, with the seconds since the script started."""
     print(f"{text} (at {time.perf_counter() - T_START:.0f} s)", flush=True)
@@ -8609,7 +9002,7 @@ def main() -> int:
           f"CUDA {torch.version.cuda}; peaks {peaks[0] / 1e12:.2f} TB/s, "
           f"{peaks[1] / 1e12:.0f} TFLOP/s bf16, {peaks[2] / 1e12:.0f} TOP/s int8", flush=True)
 
-    header("[1/22] build")
+    header("[1/23] build")
     t0 = time.perf_counter()
     path = kernels.build()
     kernels.lib()
@@ -8623,32 +9016,32 @@ def main() -> int:
     print(f"  built the native host codec {native.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    header("[2/22] kernel parity at the qwen3-4b main-path shapes")
+    header("[2/23] kernel parity at the qwen3-4b main-path shapes")
     reports = phase_parity(peaks)
     phase_i8p(peaks, reports)
     phase_parity_kvq(peaks, reports)
     phase_variants()
 
-    header("[3/22] main path: small-model references, the q4 halves path, then generate at "
+    header("[3/23] main path: small-model references, the q4 halves path, then generate at "
            "qwen3-4b width over bf16, q8 and q4 KV")
     phase_small_reference(reports)
     cfg, weights = phase_main_path(reports)
     phase_generate_kvq(cfg, weights, reports)
 
-    header("[4/22] serving at qwen3-4b width, 4 slots, ctx 4096")
+    header("[4/23] serving at qwen3-4b width, 4 slots, ctx 4096")
     ctx = phase_serving(cfg, weights, reports)
 
-    header("[5/22] served steps held to the plain versions; device decode run against "
+    header("[5/23] served steps held to the plain versions; device decode run against "
            "step-by-step decode")
     phase_served_steps_held(ctx)
     phase_decode_run_check(ctx)
     del ctx
     torch.cuda.empty_cache()
 
-    header("[6/22] served steps over q8 and q4 KV, stores held to the CPU's")
+    header("[6/23] served steps over q8 and q4 KV, stores held to the CPU's")
     phase_served_steps_kvq(cfg, weights)
 
-    header("[7/22] serving with --cache-type q4 (12 of 36 layers): slot save / erase / "
+    header("[7/23] serving with --cache-type q4 (12 of 36 layers): slot save / erase / "
            "restore, context shift, a q4 decode-run profile")
     ctx = phase_serving_q4(*first_layers(cfg, weights, SERVE_Q4_LAYERS), reports)
     shift_held(ctx, "qwen3-4b")
@@ -8657,7 +9050,7 @@ def main() -> int:
     gc.collect()                        # engine threads and servers hold reference cycles
     torch.cuda.empty_cache()
 
-    header("[8/22] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
+    header("[8/23] integer decode kernels B14-B16, the RRS_GX3 A/B, and the measuring verbs "
            "(bench, batched-bench, perplexity) at qwen3-4b width")
     t8 = time.perf_counter()
     phase_parity_int(peaks, reports)
@@ -8667,42 +9060,56 @@ def main() -> int:
     phase_verbs(name)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s", flush=True)
 
-    header("[9/22] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
+    header("[9/23] B17 (fused) and B18 (paired-bias) at qwen3-4b shapes, then held on every "
            "TCQ4 linear of a 512-token prefill chunk")
     t9 = time.perf_counter()
     phase_parity_extra(peaks, reports)
     phase_prefill_extra(cfg, weights, reports)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
 
-    header("[10/22] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
+    header("[10/23] the rest of the server at qwen3-4b width (12 of 36 layers): grammar, JSON "
            "schema, embeddings, rerank, infill, /v1/messages, the web UI; speculative and "
            "prompt-lookup decoding")
     phase_server_rest(*first_layers(cfg, weights, SERVER_REST_LAYERS), reports)
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[20/22] training, run here on phase 3's qwen3-4b weights: the finetune verb at "
-           "Qwen3-0.6B's widths as a process; 2 layers with every launch held, the backwards "
-           "and a dense model's AdamW steps card vs CPU; train() at 12 of 36 layers")
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
-        phase_training(cfg, weights, reports, peaks, Path(tmp_name))
-    gc.collect()
-    torch.cuda.empty_cache()
+        header("[20/23] training, run here on phase 3's qwen3-4b weights: the finetune verb at "
+               "Qwen3-0.6B's widths and phase 21's two generate processes started; 2 layers "
+               "with every launch held, the backwards and a dense model's AdamW steps card vs "
+               "CPU; train() at 12 of 36 layers")
+        verbs = parallel_verbs_start(Path(tmp_name))
+        finetune = phase_training(cfg, weights, reports, peaks, Path(tmp_name))
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    header("[21/22] the parallel paths on phase 3's qwen3-4b weights (12 of 36 layers): tp = 2 "
-           "as two shards on cuda:0, held launches and reduces, tp 2 x dp 2 serving, the "
-           "pipeline's perplexity, one NCCL process")
-    with tempfile.TemporaryDirectory(dir=build, ignore_cleanup_errors=True) as tmp_name:
-        phase_parallel(cfg, weights, reports, Path(tmp_name))
+        header("[21/23] the parallel paths on phase 3's qwen3-4b weights (6 of 36 layers): tp = "
+               "2 as two shards on cuda:0, held launches and reduces, tp 2 x dp 2 serving, the "
+               "pipeline's perplexity, one NCCL process")
+        phase_parallel(cfg, weights, reports, verbs)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        header("[22/23] the SPMD train step on phase 3's qwen3-4b weights (12 of 36 layers): tp "
+               "= 2 and dp 2 x tp 2 on cuda:0 with every launch held; gradients held to one "
+               "device's at tp = 2, dp 2 x tp 2 and dp 2 x ep 2 x tp 2; ep 2 x tp 2 at "
+               "Qwen3-30B-A3B's widths")
+        phase_train_mesh(cfg, weights, reports, peaks)
+
+        header("[20/23, continued] the finetune verb's result")
+        t0 = time.perf_counter()
+        training_verb_finish(finetune)
+        print(f"  the verb's wait and reload {time.perf_counter() - t0:.1f} s", flush=True)
     del weights
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  qwen3-4b phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[11/22] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
+    header("[11/23] gpt-oss-20b: MXFP4 kernel parity, a 2-layer model against the CPU, "
            "generate (6 of 24 layers), serving and held served steps")
     phase_parity_gptoss(peaks, reports)
     phase_gptoss_small_reference()
@@ -8715,7 +9122,7 @@ def main() -> int:
     print(f"  gpt-oss phases done: {torch.cuda.memory_allocated() / GB:.2f} GB still allocated",
           flush=True)
 
-    header("[12/22] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
+    header("[12/23] Qwen3-30B-A3B: TCQ4 expert kernel parity (B9, B10, B19), a 2-layer model "
            "against the CPU, generate, serving and held served steps")
     phase_parity_qwen3moe(peaks, reports)
     phase_qwen3moe_small_reference()
@@ -8738,7 +9145,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    header("[13/22] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
+    header("[13/23] the GGUF pipeline at qwen3-4b widths: export, imatrix on the card, "
            "quantize (TCQ4 under imatrix permutations; Q4_K_M), gguf-split, generate, "
            "the model router, perplexity")
     t12 = time.perf_counter()
@@ -8753,7 +9160,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter() - t12
 
-        header("[14/22] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
+        header("[14/23] Qwen2-57B-A14B: a 2-layer qwen2moe model against the CPU, generate at "
                "the published widths with the shared expert, held steps, its decode profile")
         t13 = time.perf_counter()
         phase_qwen2moe_small_reference()
@@ -8762,13 +9169,13 @@ def main() -> int:
         phase_qwen2moe_held(ctx, prompts)
         t13 = time.perf_counter() - t13
 
-        header("[13/22, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
+        header("[13/23, continued] the Q4_K_M file: generate, perplexity, card vs CPU")
         t0 = time.perf_counter()
         phase_gguf_q4km(q4_run, prompt, tmp)
         print(f"  phase 13 took {t12 + time.perf_counter() - t0:.1f} s in its two parts",
               flush=True)
 
-    header("[14/22, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
+    header("[14/23, continued] Qwen2-57B-A14B decode profiles, no verb process beside them")
     t0 = time.perf_counter()
     phase_qwen2moe_profile(cfg, weights, ctx, prompts, sh_bytes)
     del ctx, weights
@@ -8776,7 +9183,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14 took {t13 + time.perf_counter() - t0:.1f} s in its two parts", flush=True)
 
-    header("[15/22] the attention families: tiny-mla and the dense families in 2 layers against "
+    header("[15/23] the attention families: tiny-mla and the dense families in 2 layers against "
            "the CPU, then DeepSeek-V2-Lite (MLA, 9 of 27 layers) and gemma3-4b (12 of 34) at "
            "their published widths")
     t15 = time.perf_counter()
@@ -8789,14 +9196,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s", flush=True)
 
-    header("[16/22] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
+    header("[16/23] the recurrent families: Mamba, Falcon-Mamba, RWKV6 and Jamba in 2 layers "
            "against the CPU, then Falcon-Mamba-7B (16 of 64 layers), RWKV-6 7B (8 of 32) and "
            "Jamba-v0.1 (8 of 32) at their published widths")
     t16 = time.perf_counter()
     phase_recurrent(reports)
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s", flush=True)
 
-    header("[17/22] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
+    header("[17/23] the tool suite at Qwen3-4B's widths (2 of 36 layers): convert-hf from a "
            "BF16 checkpoint, quantize, tokenize, LoRA (export-lora; B5 / B4 / B1 + delta), "
            "cvector, quantize-stats, fit-params")
     t17 = time.perf_counter()
@@ -8807,7 +9214,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s", flush=True)
 
-    header("[18/22] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
+    header("[18/23] vision: Qwen2-VL-2B at full width (28 text layers, the 32-layer tower): "
            "image encodes, generate_with_images, held steps, image parts on the server, a "
            "decode profile; the tower card vs CPU; 2-layer and projector checks; convert-hf "
            "--mmproj and serve --mmproj as processes")
@@ -8818,7 +9225,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s", flush=True)
 
-    header("[19/22] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
+    header("[19/23] audio and TTS: Ultravox v0.5 at full width (16 Llama-3.2-1B layers, the "
            "32-layer whisper-large-v3-turbo tower): audio encodes, multimodal_prefill, held "
            "steps, audio parts on the server, a decode profile; the tower card vs CPU; "
            "OuteTTS-0.2-500M (24 layers) with the full WavTokenizer: synthesize, held steps, a "
@@ -8830,7 +9237,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s", flush=True)
 
-    header("[22/22] summary")
+    header("[23/23] summary")
     order = ("gx2", "q8", "fa", "tcq4", "i8p", "fa_q8", "fa_q4hp", "fa_q4", "tq_rows", "tq_all",
              "mx_mm", "mx_rows", "mx_all", "gx3", "gx", "a8", "fused", "pb", "tq_sel")
     print(json.dumps({"kernels": [reports[k].entry for k in order]}))

@@ -127,6 +127,10 @@ class ModelConfig:
     # collectives, over which the row-parallel products (wo, ffn_down, the
     # dense experts) sum, as JAX's mesh axis name does
     tp_axis: Any = None
+    # set only on a training mesh's shard with ep > 1 (parallel/train_step.py):
+    # the expert ids it holds and its handle on the (ep x tp) group of its dp
+    # row (``sharding.ExpertComm``), over which the routed output sums
+    ep_axis: Any = None
 
     @property
     def n_q_dim(self) -> int:

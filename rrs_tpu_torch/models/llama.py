@@ -154,16 +154,16 @@ def _lane_slots(cache_slots, mask_positions) -> list[int]:
 
 
 def _layer_starts(slots: list[int], s_l: int, t: int, ring: bool) -> list:
-    """Per-lane start slots in one layer's cache of s_l slots. Full layers: a
-    lane's own slot, or s_l - t for a padded lane, which parks its rows at the
-    top of the cache where any sequence reaching them rewrites them before
-    attending; clamped to [0, s_l - t] like the JAX dynamic_update_slice.
-    Rings: slot % s_l, and None (no write) for a padded lane, whose ring may
-    hold a live sequence's window (the JAX one-hot ring store multiplies by
-    the lane's activity)."""
+    """Per-lane start slots in one layer's cache of s_l slots, None (no
+    write) for a padded lane. Full layers: a lane's own slot, clamped to [0,
+    s_l - t] like the JAX dynamic_update_slice. Rings: slot % s_l. A padded
+    lane writes nothing: the JAX package parks its rows at slots s_l - t ..
+    s_l - 1 of a full layer, which overwrites the rows of a lane that holds
+    more than s_l - t (ROADMAP queue C); its one-hot ring store multiplies
+    by the lane's activity."""
     if ring:
         return [sl % s_l if sl >= 0 else None for sl in slots]
-    return [min(max(sl % s_l if sl >= 0 else s_l - t, 0), s_l - t) for sl in slots]
+    return [min(max(sl % s_l, 0), s_l - t) if sl >= 0 else None for sl in slots]
 
 
 def _put(lane: torch.Tensor, rows: torch.Tensor, st: int) -> None:

@@ -188,18 +188,21 @@ def capacity(n_exp: int, kk: int, n_tok: int) -> int:
 
 
 def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_experts,
-                       fallback):
+                       fallback, n_global: int = 0):
     """Sort the token slots by expert, pad each expert's group to a capacity
     C, run ``run_experts(buf [E, C, K]) -> [E, C, D]`` once and sum each
     token's weighted rows. When an expert draws more than C slots (the one
     host readback of this path, made only where C < n_tok) the exact
-    ``fallback()`` runs instead."""
+    ``fallback()`` runs instead. ``n_global`` > 0 (an expert-parallel shard
+    holding ``n_exp`` of ``n_global`` experts): C is the whole stack's, and
+    id ``n_exp`` marks another shard's expert, whose slots (weight 0) share
+    one spare buffer row that no expert reads."""
     n_sel = n_tok * kk
-    cap = capacity(n_exp, kk, n_tok)
+    cap = capacity(n_global or n_exp, kk, n_tok)
     ids_flat = topi.reshape(-1)
-    counts = torch.zeros((n_exp,), dtype=torch.int64, device=a.device).scatter_add_(
-        0, ids_flat, torch.ones_like(ids_flat))
-    if cap < n_tok and int(counts.max()) > cap:
+    counts = torch.zeros((n_exp + bool(n_global),), dtype=torch.int64,
+                         device=a.device).scatter_add_(0, ids_flat, torch.ones_like(ids_flat))
+    if cap < n_tok and int(counts[:n_exp].max()) > cap:
         return fallback()
     order = torch.argsort(ids_flat, stable=True)
     sorted_ids = ids_flat[order]
@@ -207,13 +210,31 @@ def _capacity_dispatch(n_exp: int, kk: int, n_tok: int, a, topi, topv, run_exper
     # each selection's row in the [E * C] buffer, in token-major order
     slot = torch.empty_like(order)
     slot[order] = sorted_ids * cap + torch.arange(n_sel, device=a.device) - first[sorted_ids]
-    buf = torch.zeros((n_exp * cap, a.shape[-1]), dtype=a.dtype, device=a.device)
+    if n_global:
+        slot = slot.clamp_max(n_exp * cap)
+    buf = torch.zeros((n_exp * cap + bool(n_global), a.shape[-1]), dtype=a.dtype,
+                      device=a.device)
     buf[slot] = a.repeat_interleave(kk, dim=0)
-    d = run_experts(buf.reshape(n_exp, cap, a.shape[-1]))          # [E, C, D]
+    d = run_experts(buf[:n_exp * cap].reshape(n_exp, cap, a.shape[-1]))     # [E, C, D]
+    d = d.reshape(n_exp * cap, d.shape[-1])
+    if n_global:
+        d = torch.cat([d, d.new_zeros((1, d.shape[-1]))])
     # a fixed-order sum over each token's k rows (a scatter-add's atomics
     # would sum them in another order on every run)
-    vals = d.reshape(n_exp * cap, d.shape[-1])[slot]
+    vals = d[slot]
     return (vals.reshape(n_tok, kk, -1) * topv[..., None]).sum(1)
+
+
+def _local_experts(cfg: ModelConfig, topi, topv):
+    """An expert-parallel shard's view of the routing (``cfg.ep_axis``): the
+    selections of its experts get their local ids and keep their weights;
+    the others get id ``count`` and weight 0. Returns (ids, weights, count,
+    first)."""
+    ep = cfg.ep_axis
+    ids = topi - ep.first
+    own = (ids >= 0) & (ids < ep.count)
+    return (torch.where(own, ids, torch.full_like(ids, ep.count)),
+            torch.where(own, topv, torch.zeros_like(topv)), ep.count, ep.first)
 
 
 def _packed_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv) -> torch.Tensor:
@@ -289,15 +310,23 @@ def _dense_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv,
     n_tok = x2.shape[0]
     f32 = lambda t: t.to(torch.float32)                              # noqa: E731
     x32 = f32(x2)
+    routes = (topi, topv)                                            # over the whole stack
+    n_global, lo = 0, 0
+    if cfg.ep_axis is not None:
+        # an expert-parallel shard: its experts only, the others weighted 0
+        n_global = cfg.n_experts
+        topi, topv, _, lo = _local_experts(cfg, topi, topv)
     if n_tok <= 16:
-        # gather: the selected experts' weights per token
-        g = torch.einsum("tk,tekf->tef", x32, f32(mw.gate[topi]))
-        u = torch.einsum("tk,tekf->tef", x32, f32(mw.up[topi]))
+        # gather: the selected experts' weights per token (another shard's
+        # expert reads the last local one, weighted 0)
+        ids = topi if cfg.ep_axis is None else topi.clamp_max(mw.gate.shape[0] - 1)
+        g = torch.einsum("tk,tekf->tef", x32, f32(mw.gate[ids]))
+        u = torch.einsum("tk,tekf->tef", x32, f32(mw.up[ids]))
         if mw.gate_b is not None:
-            g = g + mw.gate_b[topi]
-            u = u + mw.up_b[topi]
+            g = g + mw.gate_b[ids]
+            u = u + mw.up_b[ids]
         act = f32(_moe_act(cfg, g, u).to(dtype))                      # [T, k, F]
-        out = torch.einsum("tef,tefk->tek", act, f32(mw.down[topi]))
+        out = torch.einsum("tef,tefk->tek", act, f32(mw.down[ids]))
         return (out * topv[..., None]).sum(1)
     n_exp = mw.gate.shape[0]
 
@@ -318,14 +347,19 @@ def _dense_ffn(cfg: ModelConfig, mw: MoEWeights, x2: torch.Tensor, topi, topv,
             u = u + mw.up_b[None]
         act = f32(_moe_act(cfg, g, u).to(dtype))                      # [T, E, F]
         y = torch.einsum("tef,efk->tek", act, f32(mw.down))
-        return torch.einsum("tek,te->tk", y, _combine(topi, topv, cfg.n_experts))
+        combine = _combine(*routes, cfg.n_experts)[:, lo:lo + mw.gate.shape[0]]
+        return torch.einsum("tek,te->tk", y, combine)
 
     return _capacity_dispatch(n_exp, cfg.n_experts_used, n_tok, x2, topi, topv, run_experts,
-                              dense_fallback)
+                              dense_fallback, n_global=n_global)
 
 
-def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
-    """x [B, T, E] -> [B, T, E] in x's dtype."""
+def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [B, T, E] -> [B, T, E] in x's dtype. On a shard of a training mesh
+    with ep > 1 (``cfg.ep_axis``) every ep rank takes ep rank 0's x (the
+    others pass None: they run only their experts)."""
+    if cfg.ep_axis is not None:
+        x = cfg.ep_axis.share(x)
     if mw.quantized and mw.quant_kind not in ("mxfp4", "tcq4"):
         raise NotImplementedError(f"expert stacks of kind {mw.quant_kind!r}")
     if mw.quantized and kernels.needs_grad(x, mw.router):
@@ -333,6 +367,9 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
             f"the backward of packed {mw.quant_kind} expert stacks: JAX's jax.grad fails in "
             "every branch of its moe_ffn there (its expert kernels have no VJP); train with "
             "dense expert stacks")
+    if mw.quantized and cfg.ep_axis is not None:
+        raise NotImplementedError("packed expert stacks split over ep: their kernels take the "
+                                  "whole stack (train with dense expert stacks)")
     b, t, e = x.shape
     x2 = x.reshape(b * t, e)
     topi, topv = route(cfg, mw, x2)
@@ -340,14 +377,26 @@ def moe_ffn(cfg: ModelConfig, mw: MoEWeights, x: torch.Tensor) -> torch.Tensor:
         out = _packed_ffn(cfg, mw, x2, topi, topv)
     else:
         out = _dense_ffn(cfg, mw, x2, topi, topv, x.dtype)
-    if cfg.tp_axis is not None and not mw.quantized:
-        # dense stacks split on F over tp: the routed output is a partial sum
-        out = cfg.tp_axis.all_reduce(out)
+    reduce_axis = cfg.ep_axis or cfg.tp_axis
+    if reduce_axis is not None and not mw.quantized:
+        # dense stacks split on F over tp (and on E over ep): the routed
+        # output is a partial sum
+        out = reduce_axis.all_reduce(out)
     if mw.down_b is not None:
         # the per-expert down bias, once after the combine, weighted by topv
-        out = out + (mw.down_b[topi] * topv[..., None]).sum(1)
-    if mw.shared_gate is not None:
-        # the shared expert, on every token, added with no gate
+        if cfg.ep_axis is None:
+            out = out + (mw.down_b[topi] * topv[..., None]).sum(1)
+        else:
+            # the bias rows split over ep: each ep rank's share (from its tp
+            # rank 0 only), summed over the group, then added
+            ids, wts, n_loc, _ = _local_experts(cfg, topi, topv)
+            part = (mw.down_b[ids.clamp_max(n_loc - 1)] * wts[..., None]).sum(1)
+            if cfg.tp_axis is not None and cfg.tp_axis.rank:
+                part = torch.zeros_like(part)
+            out = out + cfg.ep_axis.all_reduce(part)
+    if mw.shared_gate is not None and not (cfg.ep_axis is not None and cfg.ep_axis.ep_rank):
+        # the shared expert, on every token, added with no gate (under ep,
+        # by ep rank 0 alone: the other ranks' output goes unread)
         g = _dense_matmul(x2, mw.shared_gate)
         u = _dense_matmul(x2, mw.shared_up)
         act = (torch.nn.functional.silu(g) * u).to(x.dtype)

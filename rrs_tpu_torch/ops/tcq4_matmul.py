@@ -111,13 +111,33 @@ def _gx_launch(name: str, entry, lead: tuple, m: int, k: int, n: int, plan: spli
     return out
 
 
+def _gx_chunk(k: int) -> int:
+    """The JAX gx kernels' K chunk (``_pick_bk_gx``, rrs_tpu/ops/tcq4_matmul.py:
+    228-250): 512 past K = 4,096 where it divides K, else the largest
+    multiple of 256 dividing K with (bk / 32) * bk <= 51,200."""
+    nsb = k // TILE_K
+    if k > 4096:
+        return 512 if k % 512 == 0 else TILE_K
+    return max(n * TILE_K for n in range(1, nsb + 1)
+               if nsb % n == 0 and (n * GROUPS) * n * TILE_K <= 40 * 1280)
+
+
 def _gx_dots(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
              eff: torch.Tensor) -> torch.Tensor:
     """(a_q/7 * a_scale) @ dequant(w) in the gx kernels' arithmetic: per 32-group
     exact dots, times a_scale/7, times eff, summed over the groups. The group
     dots are exact: int4 times int4 sums of 32 stay below 2^24, so an f32
     matmul holds them exactly (the f32 matmul also runs on the card, where
-    integer matmuls do not)."""
+    integer matmuls do not). On the CPU, where a K chunk (``_gx_chunk``) holds
+    at most 16 groups, the groups are summed in the order of the JAX kernels
+    in interpret mode, whose epilogue XLA compiles to a fused multiply-add
+    chain there: y = fma(dot * s, eff, y) group by group from 0 within each
+    chunk, then the chunks' sums added in turn. One reduction parts from it
+    in the last f32 bit, which a bf16 output cast and the next layer's int4
+    quantizer can turn into other codes (ROADMAP C2). Longer chunks (24-40
+    groups, 768 <= K <= 4,096) XLA's CPU emitter sums in an order this
+    does not follow; there, and on the card, where the chain would take a
+    launch a group, the plain version sums in one reduction."""
     m, k = a_q.shape
     n = qs.shape[1]
     g = k // GROUP_SIZE
@@ -126,7 +146,21 @@ def _gx_dots(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,
     p = torch.bmm(aq, w)                                                  # [g, m, n] exact
     s = (a_scale.to(torch.float32) * (1.0 / 7.0)).repeat_interleave(GROUPS, dim=1)   # [m, g]
     pf = p * s.t()[:, :, None]
-    return (pf * eff.to(torch.float32)[:, None, :]).sum(0)
+    e = eff.to(torch.float32)
+    gc = _gx_chunk(k) // GROUP_SIZE
+    if pf.device.type != "cpu" or gc > 16:
+        return (pf * e[:, None, :]).sum(0)
+    # an f32 product is exact in f64, so one f64 add rounded to f32 is the
+    # fused multiply-add (but for a double rounding, about 2^-29 of sums);
+    # every chunk's chain advances at once, a group a step
+    prod = (pf.to(torch.float64) * e.to(torch.float64)[:, None, :]).reshape(g // gc, gc, m, n)
+    y = torch.zeros((g // gc, m, n), dtype=torch.float32)
+    for i in range(gc):
+        y = (y.to(torch.float64) + prod[:, i]).to(torch.float32)
+    out = y[0]
+    for c in range(1, g // gc):
+        out = out + y[c]
+    return out
 
 
 def tcq4_matmul_gx_splitk_plain(a_q: torch.Tensor, a_scale: torch.Tensor, qs: torch.Tensor,

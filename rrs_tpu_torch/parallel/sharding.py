@@ -38,6 +38,7 @@ shard waits for it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -57,50 +58,60 @@ from rrs_tpu_torch.runtime.context import step_inputs
 
 @dataclasses.dataclass
 class Mesh:
-    """A (dp, tp) grid of shards, row-major: shard d * tp + r is tp rank r of
-    dp row d. ``devices`` holds each shard's ``torch.device``, or None for a
-    shard of another process; ``owners`` each shard's process rank (empty in
-    one process); ``groups`` each row's ``torch.distributed`` group when the
-    row spans processes (else None)."""
+    """A (dp, ep, tp) grid of shards, row-major: shard (d * ep + e) * tp + r
+    is tp rank r of ep rank e of dp row d (a serving mesh has ep = 1).
+    ``devices`` holds each shard's ``torch.device``, or None for a shard of
+    another process; ``owners`` each shard's process rank (empty in one
+    process); ``groups`` each row's ``torch.distributed`` group when the row
+    spans processes (else None)."""
 
     devices: list
     dp: int = 1
     owners: tuple = ()
     groups: tuple = ()
+    ep: int = 1
 
     @property
     def tp(self) -> int:
-        return len(self.devices) // self.dp
+        return len(self.devices) // (self.dp * self.ep)
 
     @property
     def shape(self) -> dict:
-        return {"dp": self.dp, "tp": self.tp}
+        """The extents, as the JAX mesh's: ep only where the mesh has one."""
+        return ({"dp": self.dp, "ep": self.ep, "tp": self.tp} if self.ep > 1
+                else {"dp": self.dp, "tp": self.tp})
 
-    def device(self, d: int, r: int) -> Optional[torch.device]:
-        return self.devices[d * self.tp + r]
+    def index(self, d: int, r: int, e: int = 0) -> int:
+        return (d * self.ep + e) * self.tp + r
+
+    def device(self, d: int, r: int, e: int = 0) -> Optional[torch.device]:
+        return self.devices[self.index(d, r, e)]
+
+    def shards(self) -> list:
+        """(d, e, r) of every shard this process holds."""
+        return [(d, e, r) for d in range(self.dp) for e in range(self.ep)
+                for r in range(self.tp) if self.device(d, r, e) is not None]
 
     def local(self) -> list:
-        """(d, r) of every shard this process holds."""
-        return [(i // self.tp, i % self.tp) for i, dev in enumerate(self.devices)
-                if dev is not None]
+        """(d, r) of every shard this process holds (a mesh without ep)."""
+        return [(d, r) for d, _, r in self.shards()]
 
     def owner(self, d: int) -> int:
         """The process that reports dp row d's outputs (its tp rank 0's)."""
-        return self.owners[d * self.tp] if self.owners else 0
+        return self.owners[self.index(d, 0)] if self.owners else 0
 
     def rows_everywhere(self) -> bool:
         """Whether every process holds a shard of every dp row (so that each
         has every row's outputs after the rows' gathers)."""
-        procs = set(self.owners)
-        return all(set(self.owners[d * self.tp:(d + 1) * self.tp]) == procs
-                   for d in range(self.dp))
+        procs, n = set(self.owners), self.ep * self.tp
+        return all(set(self.owners[d * n:(d + 1) * n]) == procs for d in range(self.dp))
 
 
-def make_mesh(n_devices: int = 0, dp: int = 1, devices=None) -> Mesh:
-    """A (dp, tp = n / dp) mesh over ``devices`` (default: the first
-    ``n_devices`` CUDA devices, all of them with 0). A device may repeat:
-    ``make_mesh(devices=[torch.device("cuda:0")] * 4, dp=2)`` puts tp 2 x dp 2
-    on one card."""
+def make_mesh(n_devices: int = 0, dp: int = 1, devices=None, ep: int = 1) -> Mesh:
+    """A (dp, ep, tp = n / (dp * ep)) mesh over ``devices`` (default: the
+    first ``n_devices`` CUDA devices, all of them with 0). A device may
+    repeat: ``make_mesh(devices=[torch.device("cuda:0")] * 4, dp=2)`` puts tp
+    2 x dp 2 on one card."""
     if devices is None:
         from rrs_tpu_torch.device import resolve_device
 
@@ -111,9 +122,10 @@ def make_mesh(n_devices: int = 0, dp: int = 1, devices=None) -> Mesh:
     # each shard's thread sets its device, which needs an index
     devices = [torch.device("cuda", torch.cuda.current_device())
                if d.type == "cuda" and d.index is None else d for d in devices]
-    if not devices or len(devices) % dp:
-        raise ValueError(f"{len(devices)} shards do not split into dp={dp} rows")
-    return Mesh(devices=devices, dp=dp)
+    if not devices or len(devices) % (dp * ep):
+        what = f"dp={dp} rows" if ep == 1 else f"dp={dp} x ep={ep}"
+        raise ValueError(f"{len(devices)} shards do not split into {what}")
+    return Mesh(devices=devices, dp=dp, ep=ep)
 
 
 # -- the plan: slicing rules per leaf ------------------------------------------
@@ -241,21 +253,22 @@ def shard_weights(weights: llama_model.ModelWeights, mesh: Mesh) -> list:
     return out
 
 
-def _local_cfg(cfg: ModelConfig, tp: int, comm=None) -> ModelConfig:
+def _local_cfg(cfg: ModelConfig, tp: int, comm=None, ep_comm=None) -> ModelConfig:
     """A shard's config: heads, kv heads (MLA: the latent row stays whole)
     and FFN width over tp; ``tp_axis`` the shard's handle on its row's
-    collectives."""
+    collectives; ``ep_axis`` (a training mesh's ``ExpertComm``) the expert
+    ids the shard holds and the handle over which the routed output sums."""
     if cfg.n_heads % tp:
         raise ValueError(f"heads {cfg.n_heads} not divisible by tp={tp}")
     if cfg.n_ff % tp:
         raise ValueError(f"n_ff {cfg.n_ff} not divisible by tp={tp}")
     if cfg.is_mla:
         return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_ff=cfg.n_ff // tp,
-                                   tp_axis=comm)
+                                   tp_axis=comm, ep_axis=ep_comm)
     if cfg.n_kv_heads % tp:
         raise ValueError(f"kv heads {cfg.n_kv_heads} not divisible by tp={tp}")
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                               n_ff=cfg.n_ff // tp, tp_axis=comm)
+                               n_ff=cfg.n_ff // tp, tp_axis=comm, ep_axis=ep_comm)
 
 
 # -- the collectives -------------------------------------------------------------
@@ -267,14 +280,22 @@ class TPGroup:
     processes through ``torch.distributed`` when the row spans several, and
     leaves the result on each shard's device. ``counts`` and ``bytes``
     tally the collectives run and one shard's payloads (the schedule the
-    tests pin)."""
+    tests pin).
+
+    Under autograd the lowest rank's own thread builds the result, between
+    two barriers, and not whichever thread came last: the backward runs a
+    graph's nodes in the order of their sequence numbers, which each thread
+    counts on its own, and sums the gradients a tensor gets in that order,
+    so the nodes must come from the same thread in every run for the
+    gradients to repeat bit for bit."""
 
     def __init__(self, devices: dict, dist_group=None, turn: Optional[threading.Lock] = None):
         self.devices = devices                    # tp rank -> torch.device, this process's
         self.ranks = sorted(devices)
         self.dist_group = dist_group
         self.turn = turn                          # the shards' turn to run (``ShardedModel``)
-        self.barrier = threading.Barrier(len(self.ranks), action=self._combine)
+        self.barrier = threading.Barrier(len(self.ranks), action=self._action)
+        self._ordered = False
         self.counts = {"all_reduce": 0, "all_gather": 0}
         self.bytes = {"all_reduce": 0, "all_gather": 0}     # one shard's payloads
         self._parts: dict = {}
@@ -284,14 +305,24 @@ class TPGroup:
     def collect(self, rank: int, op: str, x: torch.Tensor) -> torch.Tensor:
         self._parts[rank] = x
         self._op = op
+        self._ordered = torch.is_grad_enabled()
         if self.turn is not None:
             self.turn.release()
         try:
             self.barrier.wait()
+            if self._ordered:
+                if rank == self.ranks[0]:
+                    with self.turn or contextlib.nullcontext():
+                        self._combine()
+                self.barrier.wait()
         finally:
             if self.turn is not None:
                 self.turn.acquire()
         return self._out[str(self.devices[rank])]
+
+    def _action(self) -> None:
+        if not self._ordered:
+            self._combine()
 
     def _combine(self) -> None:
         import torch.distributed as dist
@@ -305,6 +336,8 @@ class TPGroup:
             if self.dist_group is not None:
                 acc = acc.clone() if len(xs) == 1 else acc
                 dist.all_reduce(acc, group=self.dist_group)
+        elif self._op == "share":
+            acc = xs[0]                           # rank 0's tensor, to every rank
         else:
             acc = torch.cat([x.to(dev0) for x in xs], dim=-1)
             if self.dist_group is not None:
@@ -313,8 +346,8 @@ class TPGroup:
                          for _ in range(dist.get_world_size(self.dist_group))]
                 dist.all_gather(parts, acc, group=self.dist_group)
                 acc = torch.cat(parts, dim=-1)
-        self.counts[self._op] += 1
-        self.bytes[self._op] += xs[0].numel() * xs[0].element_size()
+        self.counts[self._op] = self.counts.get(self._op, 0) + 1
+        self.bytes[self._op] = self.bytes.get(self._op, 0) + xs[0].numel() * xs[0].element_size()
         self._out = {}
         for r in self.ranks:
             key = str(self.devices[r])
@@ -338,6 +371,26 @@ class ShardComm:
         return self.group.collect(self.rank, "all_gather", x)
 
 
+class ExpertComm(ShardComm):
+    """A shard's handle on the (ep x tp) group of its dp row (a training
+    mesh's ``ep_axis``): the shard holds experts ``first`` .. ``first +
+    count - 1`` of the stacks, the routed output of the dense experts sums
+    over the group (``models/moe.py``), and ``share`` hands ep rank 0's
+    input of an MoE layer to the ep ranks of its tp rank (``peers``, ranked
+    by ep rank), which run no other part of the model."""
+
+    def __init__(self, group: TPGroup, rank: int, first: int, count: int, peers: TPGroup,
+                 ep_rank: int):
+        super().__init__(group, rank)
+        self.first = first
+        self.count = count
+        self.peers = peers
+        self.ep_rank = ep_rank
+
+    def share(self, x: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.peers.collect(self.ep_rank, "share", x)
+
+
 @dataclasses.dataclass
 class Shard:
     d: int                      # dp row
@@ -347,10 +400,13 @@ class Shard:
     weights: llama_model.ModelWeights
 
 
-class ShardedModel:
-    """A model over a mesh: each local shard's weights and local config, the
-    rows' collectives, and a pool of one thread a shard that runs a function
-    on every shard at once (``run``).
+class ShardThreads:
+    """One thread a shard, the same thread for the shard in every call,
+    that runs a function on every local shard at once (``run``), and the
+    collective groups the shards meet in (``groups``, by any key,
+    ``_group``). The subclass calls ``__init__``, makes its groups, sets
+    ``shards`` and then calls ``_start``; ``launches`` holds each shard's
+    kernel launch counts, by ``_key``.
 
     The shards take turns: a shard holds ``_turn`` while it runs and lets it
     go only while it waits at a collective, so one thread at a time issues
@@ -360,30 +416,30 @@ class ShardedModel:
     call, and the launches of shards on distinct GPUs stay asynchronous, so
     their device work still overlaps."""
 
-    def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights, mesh: Mesh):
-        self.cfg = cfg
-        self.mesh = mesh
-        tp = mesh.tp
-        _local_cfg(cfg, tp)                       # the divisibility checks, before any copy
-        per_shard = shard_weights(weights, mesh)
+    def __init__(self):
         self._turn = threading.Lock()
         self._running = threading.Lock()          # one run at a time shares the barriers
         self.groups = {}
-        for d in range(mesh.dp):
-            devs = {r: mesh.device(d, r) for r in range(tp) if mesh.device(d, r) is not None}
-            if devs:
-                self.groups[d] = TPGroup(devs, mesh.groups[d] if mesh.groups else None,
-                                         self._turn)
-        self.shards = []
-        for d, r in mesh.local():
-            g = self.groups[d]
-            comm = ShardComm(g, r) if (tp > 1 or g.dist_group is not None) else None
-            self.shards.append(Shard(d, r, mesh.device(d, r), _local_cfg(cfg, tp, comm),
-                                     per_shard[d * tp + r]))
-        self._pool = ThreadPoolExecutor(max_workers=len(self.shards),
-                                        thread_name_prefix="rrs-shard")
-        # each shard's kernel launches, by kernel (``kernels.LAUNCHES`` sums them)
-        self.launches = {(s.d, s.r): {} for s in self.shards}
+
+    @staticmethod
+    def _key(shard):
+        return (shard.d, shard.r)
+
+    def _group(self, key, devices: dict, dist_group=None) -> TPGroup:
+        """The group ``key`` (made on first use) over ``devices`` (rank ->
+        torch.device)."""
+        if key not in self.groups:
+            self.groups[key] = TPGroup(devices, dist_group, self._turn)
+        return self.groups[key]
+
+    def _start(self, name: str) -> None:
+        """Each shard's thread (a shard always runs on its own: the backward's
+        order follows each thread's count of the nodes it made, see
+        ``TPGroup``) and its launch counts."""
+        self._threads = {self._key(s): ThreadPoolExecutor(max_workers=1,
+                                                          thread_name_prefix=name)
+                         for s in self.shards}
+        self.launches = {self._key(s): {} for s in self.shards}
 
     def run(self, fn) -> list:
         """fn(shard) on every local shard at once, each in its own thread
@@ -394,7 +450,7 @@ class ShardedModel:
         grad = torch.is_grad_enabled()
 
         def one(shard):
-            kernels.count_thread_launches(self.launches[(shard.d, shard.r)])
+            kernels.count_thread_launches(self.launches[self._key(shard)])
             self._turn.acquire()
             try:
                 with torch.inference_mode(inference), torch.set_grad_enabled(grad):
@@ -410,7 +466,7 @@ class ShardedModel:
                 kernels.count_thread_launches(None)
 
         with self._running:
-            futures = [self._pool.submit(one, s) for s in self.shards]
+            futures = [self._threads[self._key(s)].submit(one, s) for s in self.shards]
             errors = [f.exception() for f in futures]
             if any(e is not None for e in errors):
                 for g in self.groups.values():
@@ -420,6 +476,31 @@ class ShardedModel:
                              next(e for e in errors if e is not None))
                 raise first
             return [f.result() for f in futures]
+
+
+class ShardedModel(ShardThreads):
+    """A model over a mesh: each local shard's weights and local config, the
+    rows' collectives, and the threads of ``ShardThreads``."""
+
+    def __init__(self, cfg: ModelConfig, weights: llama_model.ModelWeights, mesh: Mesh):
+        self.cfg = cfg
+        self.mesh = mesh
+        tp = mesh.tp
+        _local_cfg(cfg, tp)                       # the divisibility checks, before any copy
+        per_shard = shard_weights(weights, mesh)
+        super().__init__()
+        for d in range(mesh.dp):
+            devs = {r: mesh.device(d, r) for r in range(tp) if mesh.device(d, r) is not None}
+            if devs:
+                self._group(d, devs, mesh.groups[d] if mesh.groups else None)
+        self.shards = []
+        for d, r in mesh.local():
+            g = self.groups[d]
+            comm = ShardComm(g, r) if (tp > 1 or g.dist_group is not None) else None
+            self.shards.append(Shard(d, r, mesh.device(d, r), _local_cfg(cfg, tp, comm),
+                                     per_shard[d * tp + r]))
+        # each shard's kernel launches, by kernel (``kernels.LAUNCHES`` sums them)
+        self._start("rrs-shard")
 
     def lanes(self, n_lanes: int, d: int) -> slice:
         bl = n_lanes // self.mesh.dp

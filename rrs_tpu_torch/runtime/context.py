@@ -216,8 +216,8 @@ class InferenceContext(ContextBase):
               embeds=None) -> torch.Tensor:
         """tokens [B, T] (-1 = padding); start_pos [B] (-1 = lane not in this
         step). Builds the causal positions and cache slots on the host and
-        runs the forward; padded lanes attend nothing and park their cache
-        writes at the top of the cache. ``last_only`` / ``last_idx`` [B]: only
+        runs the forward; padded lanes attend nothing and write nothing to
+        their cache. ``last_only`` / ``last_idx`` [B]: only
         the final / the given position of each lane reaches the lm_head.
         ``pos_row`` ([B, T] or M-RoPE [B, T, 3] ints): the RoPE positions, when
         they leave the slots; ``embeds`` [B, T, E]: raw input embeddings in

@@ -5,8 +5,8 @@ Port of ``rrs_tpu/runtime/hybrid.py``: attention layers get bf16 K/V lanes
 bookkeeping with the recurrent memory's restrictions (no mid-sequence
 rewind, no context shift). The context is ``RecurrentContext``'s, exact
 chunks included; its step also builds the attention layers' positions, mask
-and cache slots (a lane not in the step has mask -1 and parks its K/V rows
-at the top of the cache, as ``InferenceContext`` parks them).
+and cache slots (a lane not in the step has mask -1 and writes no K/V rows,
+as in ``InferenceContext``).
 """
 
 from __future__ import annotations

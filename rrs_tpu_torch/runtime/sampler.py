@@ -387,10 +387,16 @@ def device_dry(dwin, cand_v, cand_i, mult, base, allowed_len, lastn):
 
 
 def topk_candidates(logits, k_max: int = 128):
-    """The k_max largest (vals, ids) of each row, in descending order: the
-    shared pre-filter of device_sample and the decode run's per-step
-    candidate capture. Exact (the TPU's approx_max_k is a TPU workaround)."""
-    return torch.topk(logits, k_max, dim=-1)
+    """The k_max largest (vals, ids) of each row, in descending order, equal
+    values in ascending id order as ``lax.top_k`` gives them (``torch.topk``
+    leaves their order to the implementation, and a greedy pick over the
+    candidates must be ``argmax``'s, the lowest id among ties): the shared
+    pre-filter of device_sample and the decode run's per-step candidate
+    capture. Exact (the TPU's approx_max_k is a TPU workaround)."""
+    vals, ids = torch.topk(logits, k_max, dim=-1)
+    ids, perm = ids.sort(dim=-1)
+    vals, order = vals.gather(-1, perm).sort(dim=-1, descending=True, stable=True)
+    return vals, ids.gather(-1, order)
 
 
 def device_sample(logits, gens: Gens, temp, top_k, top_p, min_p, k_max: int = 128,

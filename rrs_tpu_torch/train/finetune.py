@@ -66,9 +66,13 @@ def make_dataset(tokens: list[int], seq_len: int, batch: int = 1,
     return out
 
 
-def _loss_fn(cfg: ModelConfig, weights, batch) -> torch.Tensor:
+def _loss_fn(cfg: ModelConfig, weights, batch, logits_sharding=None) -> torch.Tensor:
     """Mean next-token cross-entropy over a [B, T+1] batch: the forward over
-    bf16 scratch caches with the plain attention, the log-softmax in f32."""
+    bf16 scratch caches with the plain attention, the log-softmax in f32.
+    ``logits_sharding`` (a shard of ``parallel/train_step.py``'s mesh, the
+    JAX argument's counterpart): logits -> (its dp row's whole logits, the
+    positions this shard scores, the token count of the global batch); the
+    shard returns its positions' share of the global mean (sp-over-tp)."""
     cfg = dataclasses.replace(cfg, ref_attention=True)
     dev = weights.device
     batch = torch.as_tensor(np.asarray(batch), dtype=torch.int64).to(dev)
@@ -77,8 +81,12 @@ def _loss_fn(cfg: ModelConfig, weights, batch) -> torch.Tensor:
     pos = torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
     kc, vc = llama_model.scratch_caches(cfg, b, t, device=dev)
     logits = llama_model.forward(cfg, weights, toks, pos, kc, vc, pos, None, slots=[0] * b)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+    if logits_sharding is None:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        return -logp.gather(-1, labels[..., None])[..., 0].mean()
+    logits, part, count = logits_sharding(logits)
+    logp = torch.log_softmax(logits[:, part].to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels[:, part, None])[..., 0].sum() / count
 
 
 def _tree_map(fn, *trees):
@@ -161,22 +169,27 @@ class Optimizer:
         self.mu: dict = {}                  # parameter index -> first moment
         self.nu: dict = {}
 
-    def _clip(self, grads: list) -> list:
-        sq = sum(torch.sum(g * g) for g in grads if g is not None)
+    def _clip(self, grads: list, sq=None) -> list:
+        if sq is None:
+            sq = sum(torch.sum(g * g) for g in grads if g is not None)
         if not isinstance(sq, torch.Tensor):
             return grads
         norm = torch.sqrt(sq)
         clip = self.tc.clip_norm
         return [None if g is None else torch.where(
-            norm < clip, g, (g / norm.to(g.dtype)) * _as_dtype(clip, g.dtype)) for g in grads]
+            norm.to(g.device) < clip, g,
+            (g / norm.to(g.device, g.dtype)) * _as_dtype(clip, g.dtype)) for g in grads]
 
     @torch.no_grad()
-    def step(self, params: list, grads: list) -> None:
-        """Update ``params`` in place from ``grads`` (None: no gradient)."""
+    def step(self, params: list, grads: list, sq_norm=None) -> None:
+        """Update ``params`` in place from ``grads`` (None: no gradient).
+        ``sq_norm``: the squared global norm the clip divides by, where the
+        parameters are shards of a larger model (``parallel/train_step.py``);
+        by default the sum over ``grads``."""
         tc = self.tc
         grads = [None if g is None else g.to(p.dtype) for p, g in zip(params, grads)]
         if tc.clip_norm > 0:
-            grads = self._clip(grads)
+            grads = self._clip(grads, sq_norm)
         if tc.optimizer == "sgd":
             for p, g in zip(params, grads):
                 if g is not None:

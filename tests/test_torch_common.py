@@ -36,7 +36,7 @@ def torch_cfg(cfg):
     from rrs_tpu_torch.models.config import ModelConfig
 
     names = {f.name for f in dataclasses.fields(ModelConfig)}
-    return ModelConfig(**{k: getattr(cfg, k) for k in names})
+    return ModelConfig(**{k: getattr(cfg, k) for k in names if hasattr(cfg, k)})
 
 
 def torch_clip(ccfg, cw, device="cpu"):

@@ -70,6 +70,27 @@ def test_topk_candidates_match_jax():
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=0)
 
 
+def test_topk_candidates_break_ties_as_jax():
+    """Logits rounded to integers tie: equal values come in ascending id
+    order, as ``lax.top_k`` gives them, so the greedy pick over the
+    candidates (the decode run's, and its grammar resample's) is
+    ``argmax``'s, the lowest id among ties, as the host path's is.
+    ``torch.topk`` alone put higher ids first on ties, and a served decode
+    run parted from the host path (ROADMAP queue C). Which of the ids tied
+    at the 128th value make the set is left open (their values are equal)."""
+    x = np.round(_logits(3))
+    assert all(len(set(r[:8])) < 8 for r in -np.sort(-x, axis=-1))        # ties at the top
+    jv, ji = (np.asarray(a) for a in jax.lax.top_k(jnp.asarray(x), 128))
+    tv, ti = (a.numpy() for a in ts.topk_candidates(_t(x)))
+    np.testing.assert_array_equal(tv, jv)
+    above = jv > jv[:, -1:]
+    np.testing.assert_array_equal(np.where(above, ti, -1), np.where(above, ji, -1))
+    z = np.zeros((B,), np.float32)
+    got = ts.device_sample(_t(x), _gens(0), _t(z), _t(np.full((B,), 128, np.int64)),
+                           _t(np.ones((B,), np.float32)), _t(z))
+    np.testing.assert_array_equal(got.numpy(), x.argmax(-1))
+
+
 def test_device_dry_matches_jax():
     rng = np.random.default_rng(4)
     w = js.DRY_WINDOW

@@ -25,8 +25,11 @@ for m in ("rrs_tpu_torch.ops.mxfp4_matmul", "rrs_tpu_torch.ops.tcq4_matmul",
           "rrs_tpu_torch.tools.perplexity", "rrs_tpu_torch.tools.timing",
           "rrs_tpu_torch.runtime.grammar", "rrs_tpu_torch.runtime.json_schema",
           "rrs_tpu_torch.runtime.speculative", "rrs_tpu_torch.runtime.lookup",
-          "rrs_tpu_torch.runtime.dfa_worker"):
+          "rrs_tpu_torch.runtime.dfa_worker", "rrs_tpu_torch.parallel.train_step"):
     assert m in mods, m
+ts = importlib.import_module("rrs_tpu_torch.parallel.train_step")
+for fn in ("make_train_mesh", "shard_train_weights", "shard_batch", "make_sharded_train_step"):
+    assert callable(getattr(ts, fn)), fn
 tm = importlib.import_module("rrs_tpu_torch.ops.tcq4_matmul")
 for fn in ("tcq4_matmul_fused", "tcq4_matmul_fused_plain", "tcq4_matmul_pb",
            "tcq4_matmul_pb_plain", "pack_gi", "pb_prepare", "tcq4_matmul_experts",
@@ -106,6 +109,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     with pytest.raises(FileNotFoundError):
         main(["perplexity", "-m", str(tmp_path / "absent.gguf"), "-f", "t.txt", "--pp", "2",
               "--device", "cpu"])
+    # the training mesh takes the CUDA devices unless given others
+    from rrs_tpu_torch.parallel.train_step import make_train_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_mesh(dp=2)
+    assert make_train_mesh(devices=["cpu"] * 4, dp=2).shape == {"dp": 2, "tp": 2}
     # asked for explicitly, the CPU works
     ctx = InferenceContext(cfg, w, max_seq=32, device="cpu")
     assert len(ctx.generate([1, 2, 3], 2)) == 2

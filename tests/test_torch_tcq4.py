@@ -105,6 +105,33 @@ def test_gx2_plain_matches_oracle_and_jax_kernel(m, k, n):
     assert rel_err(got, jgot) < 1e-5
 
 
+@pytest.mark.parametrize("m,k,n", [(4, 256, 1024), (1, 512, 128), (3, 5120, 128)])
+def test_gx2_plain_sums_in_jax_interpret_order(m, k, n):
+    """ROADMAP C2: on the CPU the plain gx2 sums its groups as the JAX kernel
+    in interpret mode does where a K chunk of ``_pick_bk_gx`` holds at most
+    16 groups (a fused multiply-add chain per chunk, the chunks then added),
+    so the two are the same bits.
+    One group sum after another with each product rounded first, the order
+    the port took before, parts from it in the last bit on about half of the
+    outputs, which a bf16 output cast turns into a bf16 ulp."""
+    from rrs_tpu.ops.tcq4_matmul import _pick_bk_gx
+
+    assert all(tmm._gx_chunk(kk) == _pick_bk_gx(kk) for kk in range(256, 16384, 256))
+    t, eff = _weights(n, k, seed=k + n)
+    a = np.random.default_rng(m + k).standard_normal((m, k)).astype(np.float32)
+    got = tmm.tcq4_matmul_gx2_plain(torch.from_numpy(a), _t(t.qs), _t(eff)).numpy()
+    jgot = np.asarray(jmm.tcq4_matmul_gx2(jnp.asarray(a), jnp.asarray(t.qs), jnp.asarray(eff),
+                                          interpret=True))
+    np.testing.assert_array_equal(got, jgot)
+    a_q, a_s = ttcq4.quantize_activations_rrs(torch.from_numpy(a))
+    g = k // 32
+    w = tmm.unpack_nibbles_torch(_t(t.qs)).float().reshape(g, 32, n)
+    p = torch.bmm(a_q.float().reshape(m, g, 32).transpose(0, 1), w)
+    s = (a_s * (1.0 / 7.0)).repeat_interleave(8, dim=1)
+    rounded = (p * s.t()[:, :, None] * _t(eff).float()[:, None, :]).sum(0).numpy()
+    assert (rounded != jgot).mean() > 0.1
+
+
 @pytest.mark.parametrize("m,n,k", [(1, 128, 256), (8, 256, 512), (3, 128, 768), (20, 128, 512)])
 def test_tcq4_matmul_exact_mode_matches_jax_kernel(m, n, k):
     t, _ = _weights(n, k, seed=m + n)
